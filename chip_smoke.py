@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive openlbmpm_torch's main path on one NVIDIA GPU and check its kernel.
+"""Drive openlbmpm_torch's main paths on one NVIDIA GPU and check its kernels.
 
     python3 chip_smoke.py
 
@@ -7,7 +7,8 @@ Run from the repository root on a machine with a CUDA card, the CUDA
 toolkit (nvcc) and PyTorch built for CUDA; JAX is not needed.  Phases:
 
   1. the card (name and power limit from nvidia-smi);
-  2. build the CUDA kernels from ``openlbmpm_torch/csrc``;
+  2. build the CUDA kernels from ``openlbmpm_torch/csrc`` (one nvcc per
+     library, side by side);
   3. f64: kernel against the plain PyTorch step, 20 steps on a 256x128
      walled channel with a layered interface (contact lines on both walls),
      Neumann inlet, Dirichlet outlet, MRT; max |difference| <= 1e-11;
@@ -21,13 +22,31 @@ toolkit (nvcc) and PyTorch built for CUDA; JAX is not needed.  Phases:
      half of rho_r wherever the hi half agrees, with at most 1e-3 of the
      values >= 1e-4 off at all, a check that a round-toward-zero or
      dropped-lo encoding of the plain result is shown to fail);
-  5. the main path: ``run_chunked(model.step_c, ...)`` for 2000 bf16 steps
-     with the NaN guard, the kernel's launch count checked, then MLUPS of
-     kernel (f32, bf16) and plain path (f32, bf16), and each CUDA kernel's
-     device time per launch from ``torch.profiler``.
+  5. the flow's main path: ``run_chunked(model.step_c, ...)`` for 2000 bf16
+     steps with the NaN guard, the kernel's launch count checked, then MLUPS
+     of kernel (f32, bf16) and plain path (f32, bf16), and each CUDA
+     kernel's device time per launch from ``torch.profiler``;
+  6. f64: the coupled flow + tracer kernels against their plain version,
+     20 steps on a 96x64 walled channel (layered interface, Neumann inlet,
+     Dirichlet outlet, MRT) with tracer mass on the boundary rows, in six
+     tracer cases (D2Q5 SRT permeable with Inamuro inlet and free-flow
+     outlet, bounce-back, three reacting tracers, D2Q5 MRT quadratic with
+     anti-bounce-back inlet, D2Q9 SRT, zero inlet); max |difference| over
+     the flow state and the tracer PDFs <= 1e-11;
+  7. the coupled transport configuration at 1024^2 (bench_all.py config 4),
+     10 steps of kernel and plain path in f32 and in bf16 flow storage:
+     flow planes, rho_r and tracer PDFs off the seam within phase 4's bounds,
+     tracer mass within 1e-7 per step of its start and of the plain path,
+     everything finite, concentrations >= -1e-4;
+  8. the coupled main path: ``run_chunked(model.step_c, (s, g), ...)`` at
+     config 4 with bf16 flow storage for 1000 steps with the NaN guard, the
+     coupled launch count checked, then MLUPS of kernel (f32, bf16) and
+     plain path (f32, bf16), the roofline share, and each CUDA kernel's
+     device time per launch.
 
-Every phase prints one line and any failure exits non-zero.  The line
-before the last is a JSON summary of the kernel; the last line is
+Every phase prints one line or more, each number line with the card's name
+and power limit, and any failure exits non-zero.  The line before the last
+is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -44,6 +63,7 @@ import torch
 
 FLAGSHIP_N = 1024
 MAIN_STEPS = 2000
+COUPLED_STEPS = 1000
 
 
 def card_line() -> str:
@@ -60,11 +80,12 @@ def walled(ny, nx):
     return geometry.from_solid_mask(solid)
 
 
-def flagship_model(device, storage, dtype=torch.float32, n=FLAGSHIP_N):
-    """bench.py's flagship: 1024^2 CSF MRT, Akai wetting, tau_type 2,
-    Neumann inlet at v = -1e-4, Dirichlet outlet with the phi repair."""
+def flagship_flow():
+    """bench.py's flagship flow, also bench_all.py config 4's: CSF MRT,
+    Akai wetting, tau_type 2, Neumann inlet at v = -1e-4, Dirichlet outlet
+    with the phi repair.  Returns (ColorGradientParams, CGBoundaryConfig)."""
     from openlbmpm_torch.models.colorgradient import (
-        CGBoundaryConfig, ColorGradientParams, ColorGradientRK)
+        CGBoundaryConfig, ColorGradientParams)
     params = ColorGradientParams(
         tau_r=1.0, tau_b=1.0, surface_tension=0.1, contact_angle_deg=60.0,
         beta=0.7, delta=0.98, tau_type=2, wetting_type=2, variant="CSF",
@@ -72,7 +93,13 @@ def flagship_model(device, storage, dtype=torch.float32, n=FLAGSHIP_N):
     bcs = CGBoundaryConfig(inlet="neumann", outlet="dirichlet",
                            inlet_velocity=-1e-4, outlet_density_r=0.0,
                            outlet_density_b=1.0)
-    return ColorGradientRK(walled(n, n), params, bcs, dtype=dtype,
+    return params, bcs
+
+
+def flagship_model(device, storage, dtype=torch.float32, n=FLAGSHIP_N):
+    """The flagship flow on a 1024^2 walled channel."""
+    from openlbmpm_torch.models.colorgradient import ColorGradientRK
+    return ColorGradientRK(walled(n, n), *flagship_flow(), dtype=dtype,
                            device=device, storage=storage)
 
 
@@ -105,6 +132,18 @@ def phase_f64(device, ny=256, nx=128, steps=20, tol=1e-11):
     check(bool(torch.isfinite(a).all()), "f64 kernel state not finite")
     check(err <= tol, f"f64 kernel vs plain {err:.3e} > {tol:g}")
     return err
+
+
+def seam_masks(n, steps, device):
+    """Cells off the inlet/outlet seam rows and off the corners where they
+    meet the walls (see phase_flagship)."""
+    corner = steps + 2
+    away = torch.ones((n, n), dtype=torch.bool, device=device)
+    away[[0, 1, n - 2, n - 1], :] = False
+    for ys in (slice(0, corner), slice(n - corner, n)):
+        for xs in (slice(0, corner), slice(n - corner, n)):
+            away[ys, xs] = False
+    return away
 
 
 def phase_flagship(device, n=FLAGSHIP_N, steps=10):
@@ -140,11 +179,7 @@ def phase_flagship(device, n=FLAGSHIP_N, steps=10):
     check(res["f64"] <= 1e-11, f"f64 kernel vs plain {res['f64']:.3e} > 1e-11")
 
     corner = steps + 2     # tie-break noise spreads about a cell per step
-    away = torch.ones((n, n), dtype=torch.bool, device=device)
-    away[[0, 1, n - 2, n - 1], :] = False
-    for ys in (slice(0, corner), slice(n - corner, n)):
-        for xs in (slice(0, corner), slice(n - corner, n)):
-            away[ys, xs] = False
+    away = seam_masks(n, steps, device)
     seam = ~away
     seam[:, :corner] = False
     seam[:, n - corner:] = False
@@ -239,7 +274,7 @@ def phase_main(device, n=FLAGSHIP_N, steps=MAIN_STEPS, kernel_steps=500,
                plain_steps=50):
     """The main path through the model's public step, then timings."""
     from openlbmpm_torch.kernels.csf import (
-        csf_step_compressed, csf_step_compressed_reference)
+        csf_step_compressed, csf_step_compressed_reference, launch_csf2d)
     from openlbmpm_torch.models.base import RunMetrics, run_chunked
     m = flagship_model(device, "bf16", n=n)
     s = m.pack_state_bf16(*m.init_state_layers(1.0, 1.0,
@@ -258,50 +293,63 @@ def phase_main(device, n=FLAGSHIP_N, steps=MAIN_STEPS, kernel_steps=500,
     models = {st: flagship_model(device, st, n=n) for st in ("f32", "bf16")}
     states = {"f32": models["f32"].pack_state(*models["f32"].init_state_layers(
         1.0, 1.0, invading_rows=100 * n // 1024)), "bf16": s}
+    runs = time_paths(models, states, csf_step_compressed,
+                      csf_step_compressed_reference, kernel_steps,
+                      plain_steps, device)
+    profile = {}
+    for st, m in models.items():
+        times = device_times(
+            lambda s, m=m: launch_csf2d(s, m.kernel_params, m.geo_planes),
+            states[st], KERNELS)
+        profile.update({(st, k): v for k, v in times.items()})
+    return {"launches": launches, "run_mlups": meter.mlups, "sec": runs,
+            "profile": profile}
+
+
+def time_paths(models, states, kernel, plain, kernel_steps, plain_steps,
+               device):
+    """Seconds per step of kernel(x, model) and plain(x, model) for each
+    storage: plain, kernel, kernel, plain -- twice over, keeping the best
+    of each."""
     runs = {}
-    # plain, kernel, kernel, plain -- twice over, keeping the best of each
     order = [("plain", "f32"), ("kernel", "f32"), ("kernel", "bf16"),
              ("plain", "bf16")]
     for path, st in order + order[::-1]:
-        mdl = models[st]
-        if path == "kernel":
-            fn, k = (lambda x, mdl=mdl: csf_step_compressed(x, mdl)), \
-                kernel_steps
-        else:
-            fn, k = (lambda x, mdl=mdl: csf_step_compressed_reference(x, mdl)), \
-                plain_steps
-        sec = _time_steps(fn, states[st], k, device)
+        fn, k = (kernel, kernel_steps) if path == "kernel" \
+            else (plain, plain_steps)
+        sec = _time_steps(lambda x, m=models[st], fn=fn: fn(x, m), states[st],
+                          k, device)
         runs[(path, st)] = min(runs.get((path, st), float("inf")), sec)
-    return {"launches": launches, "run_mlups": meter.mlups, "sec": runs,
-            "profile": kernel_profile(models, states)}
+    return runs
 
 
 KERNELS = ("phase_kernel", "normal_kernel", "collide_stream_kernel")
+# the coupled step's kernels (phase and normal run twice a step: before
+# and after the flow's boundary rows)
+COUPLED_KERNELS = ("phase_kernel", "normal_kernel", "tracer_collide_kernel",
+                   "tracer_stream_kernel", "collide_stream_kernel")
 
 
-def kernel_profile(models, states, steps=100):
-    """Device microseconds per launch of each CUDA kernel over `steps`
-    steps, from torch.profiler; None where the trace shows no device time
-    for a kernel."""
+def device_times(step, x, names, steps=100):
+    """(device microseconds per launch, launches per call) of each CUDA
+    kernel in `names` over `steps` calls x = step(x), from torch.profiler;
+    None where the trace shows no device time for a kernel."""
     from torch.profiler import ProfilerActivity, profile
-    from openlbmpm_torch.kernels.csf import launch_csf2d
-    out = {}
-    for st, m in models.items():
-        s = states[st]
-        for _ in range(5):
-            s = launch_csf2d(s, m.kernel_params, m.geo_planes)
+    for _ in range(5):
+        x = step(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            x = step(x)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(steps):
-                s = launch_csf2d(s, m.kernel_params, m.geo_planes)
-            torch.cuda.synchronize()
-        for k in KERNELS:
-            out[(st, k)] = None
-            for ev in prof.key_averages():
-                t = getattr(ev, "device_time_total",
-                            getattr(ev, "cuda_time_total", 0.0))
-                if k in ev.key and ev.count and t:
-                    out[(st, k)] = t / ev.count
+    out = {}
+    for k in names:
+        out[k] = None
+        for ev in prof.key_averages():
+            t = getattr(ev, "device_time_total",
+                        getattr(ev, "cuda_time_total", 0.0))
+            if k in ev.key and ev.count and t:
+                out[k] = (t / ev.count, ev.count / steps)
     return out
 
 
@@ -339,25 +387,260 @@ def phase5_lines(main_res, card, t_build, n=FLAGSHIP_N):
         f"{mlups[('plain', 'f32')]:.1f}, plain bf16 "
         f"{mlups[('plain', 'bf16')]:.1f}; build {t_build:.2f} s",
         f"phase 5 torch.profiler device us per launch {n}^2 [{card}]: " +
-        ", ".join(f"{k} {st} " + ("not measured" if v is None else f"{v:.2f}")
+        ", ".join(f"{k} {st} " + ("not measured" if v is None else
+                                  f"{v[0]:.2f}")
                   for (st, k), v in main_res["profile"].items())]
 
 
+# -- coupled flow + tracer transport ------------------------------------------
+
+# the coupled tracer cases of phase 6 (and of tests/test_torch_*.py), as
+# TransportParams fields: (a) D2Q5 SRT, permeable, Inamuro inlet, free-flow
+# outlet; (b) the same with a bounce-back interface; (c) three reacting
+# tracers; (d) D2Q5 anisotropic MRT, quadratic equilibrium, anti-bounce-back
+# inlet; (e) D2Q9 SRT; (f) the zero inlet
+COUPLED_CASES = {
+    "a": dict(num_tracers=2, scheme=5, tau=(1.0, 0.9), j0=(1 / 3, 1 / 3),
+              interface_mode="permeable", beta_interface=(0.5, 0.2),
+              inlet="inamuro", inlet_conc=(1.0, 0.5), outlet="freeflow"),
+    "b": dict(num_tracers=2, scheme=5, tau=(1.0, 0.9), j0=(1 / 3, 1 / 3),
+              interface_mode="bounceback", inlet="inamuro",
+              inlet_conc=(1.0, 0.5), outlet="freeflow"),
+    "c": dict(num_tracers=3, scheme=5, tau=(1.0, 0.9, 0.8),
+              j0=(1 / 3, 0.25, 0.2), interface_mode="permeable",
+              beta_interface=(0.5, 0.2, 0.0), reaction_rate=0.05,
+              reaction_stoich=(-1.0, -1.0, 1.0), outlet="freeflow"),
+    "d": dict(num_tracers=2, scheme=5, relaxation="MRT",
+              mrt_equilibrium="quadratic", diff_x=(0.1, 0.05),
+              diff_y=(0.08, 0.05), diff_xy=(0.02, 0.0), diff_yx=(0.01, 0.0),
+              interface_mode="permeable", beta_interface=(0.3,),
+              inlet="anti_bounce_back", inlet_conc=(1.0, 0.2)),
+    "e": dict(num_tracers=2, scheme=9, tau=(1.0, 0.8),
+              interface_mode="permeable", beta_interface=(0.5, 0.2)),
+    "f": dict(num_tracers=1, scheme=5, tau=(1.0,), j0=(1 / 3,),
+              interface_mode="bounceback", inlet="zero", outlet="freeflow"),
+}
+
+# design HBM bytes per cell-step of the coupled kernels, one f32 D2Q5
+# tracer (csrc/coupled2d.cu source note)
+COUPLED_BYTES = {"f32": 401, "bf16": 311}
+HBM_BYTES_PER_S = 3.35e12
+
+
+def coupled_model(device, storage, tp, dtype=torch.float32, ny=FLAGSHIP_N,
+                  nx=FLAGSHIP_N):
+    """The flagship flow (which is bench_all.py config 4's flow) coupled
+    with the tracers `tp` (a dict of TransportParams fields)."""
+    from openlbmpm_torch.models.transport import TransportParams, TransportRK
+    params, bcs = flagship_flow()
+    return TransportRK(walled(ny, nx), params, TransportParams(**tp), bcs,
+                       dtype=dtype, device=device, storage=storage)
+
+
+CONFIG4_TRACER = dict(num_tracers=1, scheme=5, tau=(1.0,), j0=(1 / 3,),
+                      interface_mode="permeable", beta_interface=(0.5,))
+
+
+def config4_state(m, n=FLAGSHIP_N):
+    """bench_all.py config 4's start: 100 invading rows, the tracer band
+    rows n-280 to n-120; returns (TransportState, its f64 tracer mass)."""
+    conc0 = np.zeros((1, n, n))
+    conc0[0, n - 280:n - 120, :] = 1.0
+    st = m.init_state(m.flow.init_state_layers(1.0, 1.0, 100 * n // 1024),
+                      conc0)
+    return st, float(st.g.double().sum())
+
+
+def coupled_conc0(nt, ny, nx, seed=0):
+    """A tracer band across the interface of layers with ny // 5 red rows
+    on top, plus random mass on the three inlet and the three outlet rows."""
+    rng = np.random.default_rng(seed)
+    c = np.zeros((nt, ny, nx))
+    c[:, ny - ny // 5 - 4:ny - ny // 5 + 4] = 1.0
+    c[:, :3] = rng.uniform(0.2, 1.0, (nt, 3, nx))
+    c[:, -3:] = rng.uniform(0.2, 1.0, (nt, 3, nx))
+    return c
+
+
+def phase_coupled_f64(device, ny=96, nx=64, steps=20, tol=1e-11):
+    """Coupled kernels against their plain version at f64, every tracer
+    case, with tracer mass on the inlet and outlet rows."""
+    from openlbmpm_torch.kernels.transport import (
+        coupled_step_compressed, coupled_step_compressed_reference)
+    out = {}
+    for seed, (name, tp) in enumerate(COUPLED_CASES.items()):
+        m = coupled_model(device, "f32", tp, dtype=torch.float64, ny=ny,
+                          nx=nx)
+        a = b = m.pack(m.init_state(
+            m.flow.init_state_layers(1.0, 1.0, invading_rows=ny // 5),
+            coupled_conc0(m.tp.num_tracers, ny, nx, seed)))
+        es = eg = 0.0
+        for _ in range(steps):
+            a = coupled_step_compressed(*a, m)
+            b = coupled_step_compressed_reference(*b, m)
+            es = max(es, float((a[0] - b[0]).abs().max()))
+            eg = max(eg, float((a[1] - b[1]).abs().max()))
+        check(all(bool(torch.isfinite(x).all()) for x in a),
+              f"f64 coupled case {name}: state not finite")
+        check(es <= tol and eg <= tol, f"f64 coupled case {name}: kernel vs "
+              f"plain flow {es:.3e}, tracers {eg:.3e} > {tol:g}")
+        out[name] = (es, eg)
+    return out
+
+
+def phase_coupled_config4(device, n=FLAGSHIP_N, steps=10):
+    """Config 4 at full size: kernel against plain in f32 and in bf16 flow
+    storage, off the seam rows and corners within phase 4's flow bounds
+    (the tracer PDFs held to the plane bound), tracer mass within bench_all's
+    1e-7 per step of its start and of the plain path."""
+    from openlbmpm_torch.kernels.transport import (
+        coupled_step_compressed, coupled_step_compressed_reference)
+    away = seam_masks(n, steps, device)
+    bounds = {"f32": (3e-5, 3e-5), "bf16": (3e-4, 1e-4)}
+    res = {}
+    for storage in ("f32", "bf16"):
+        m = coupled_model(device, storage, CONFIG4_TRACER, ny=n, nx=n)
+        st, mass0 = config4_state(m, n)
+        a = b = m.pack(st)
+        for _ in range(steps):
+            a = coupled_step_compressed(*a, m)
+            b = coupled_step_compressed_reference(*b, m)
+        sa, sb = a[0], b[0]
+        if storage == "bf16":
+            sa, sb = m.flow.unpack_bf16(sa), m.flow.unpack_bf16(sb)
+        check(all(bool(torch.isfinite(x).all()) for x in (sa, sb, a[1], b[1])),
+              f"config 4 {storage}: state not finite")
+        d = (sa - sb).abs()
+        dg = (a[1] - b[1]).abs()
+        r = {"planes": float(d[:9, away].max()), "rho_r": float(d[9, away].max()),
+             "g": float(dg[:, :, away].max()), "max": max(float(d.max()),
+                                                          float(dg.max()))}
+        mk, mp = (float(x[1].double().sum()) for x in (a, b))
+        r["mass_gap"] = abs(mk - mp) / mass0
+        r["mass_change"] = max(abs(mk - mass0), abs(mp - mass0)) / mass0
+        r["conc_min"] = min(float(m.concentration(x[1]).min()) for x in (a, b))
+        bp, br = bounds[storage]
+        check(r["planes"] <= bp and r["rho_r"] <= br and r["g"] <= bp,
+              f"config 4 {storage} off the seam: planes {r['planes']:.3e}, "
+              f"rho_r {r['rho_r']:.3e}, tracers {r['g']:.3e} over "
+              f"{bp:g}/{br:g}/{bp:g}")
+        check(r["mass_gap"] <= 1e-7 * steps and r["mass_change"] <= 1e-7 * steps,
+              f"config 4 {storage}: tracer mass kernel vs plain "
+              f"{r['mass_gap']:.2e}, from the start {r['mass_change']:.2e}")
+        check(r["conc_min"] >= -1e-4,
+              f"config 4 {storage}: concentration {r['conc_min']:.2e}")
+        res[storage] = r
+    return res
+
+
+def phase_coupled_main(device, n=FLAGSHIP_N, steps=COUPLED_STEPS,
+                       kernel_steps=300, plain_steps=20):
+    """The coupled main path through the model's public step, then
+    timings of kernel and plain path, in turns."""
+    from openlbmpm_torch.kernels.transport import (
+        coupled_step_compressed, coupled_step_compressed_reference,
+        launch_coupled2d)
+    from openlbmpm_torch.models.base import RunMetrics, run_chunked
+    m = coupled_model(device, "bf16", CONFIG4_TRACER)
+    st, mass0 = config4_state(m, n)
+    meter = RunMetrics(n * n)
+    coupled_step_compressed.launches = 0
+    s, g = run_chunked(m.step_c, m.pack(st), num_steps=steps,
+                       io_interval=250, metrics=meter, nan_guard=True)
+    launches = coupled_step_compressed.launches
+    check(launches == steps,
+          f"coupled kernel launched {launches} times, want {steps}")
+    check(tuple(s.shape) == (11, n, n) and s.dtype == torch.bfloat16 and
+          tuple(g.shape) == (1, 5, n, n) and g.dtype == torch.float32,
+          f"coupled main path state {tuple(s.shape)} {s.dtype}, "
+          f"{tuple(g.shape)} {g.dtype}")
+    check(bool(torch.isfinite(m.flow.unpack_bf16(s)).all()) and
+          bool(torch.isfinite(g).all()), "coupled main path state not finite")
+    drift = abs(float(g.double().sum()) - mass0) / mass0
+    conc_min = float(m.concentration(g).min())
+    check(drift <= 1e-7 * steps, f"coupled main path tracer mass drift "
+          f"{drift:.2e} over {steps} steps")
+    check(conc_min >= -1e-4, f"coupled main path concentration {conc_min:.2e}")
+
+    models = {st_: coupled_model(device, st_, CONFIG4_TRACER)
+              for st_ in ("f32", "bf16")}
+    states = {"f32": models["f32"].pack(config4_state(models["f32"], n)[0]),
+              "bf16": (s, g)}
+    runs = time_paths(
+        models, states, lambda x, m: coupled_step_compressed(*x, m),
+        lambda x, m: coupled_step_compressed_reference(*x, m), kernel_steps,
+        plain_steps, device)
+    profile = {}
+    for st_, m in models.items():
+        args = (m.flow.kernel_params, m.tracer_params, m.flow.geo_planes,
+                m.tracer_table)
+        times = device_times(lambda x, args=args: launch_coupled2d(*x, *args),
+                             states[st_], COUPLED_KERNELS)
+        profile.update({(st_, k): v for k, v in times.items()})
+    return {"launches": launches, "run_mlups": meter.mlups, "sec": runs,
+            "drift": drift, "conc_min": conc_min, "profile": profile}
+
+
+def phase6_line(res) -> str:
+    return ("phase 6 f64 coupled kernels vs plain, 96x64, 20 steps, max "
+            "|diff| flow/tracers: " + ", ".join(
+                f"{k} {es:.3e}/{eg:.3e}" for k, (es, eg) in res.items()) +
+            " (<= 1e-11)")
+
+
+def phase7_line(res, card) -> str:
+    parts = []
+    for st, (bp, br) in (("f32", (3e-5, 3e-5)), ("bf16", (3e-4, 1e-4))):
+        r = res[st]
+        parts.append(
+            f"{st}: off the seam planes {r['planes']:.3e} (<= {bp:g}), rho_r "
+            f"{r['rho_r']:.3e} (<= {br:g}), tracers {r['g']:.3e} "
+            f"(<= {bp:g}); max {r['max']:.3e}; tracer mass kernel vs plain "
+            f"{r['mass_gap']:.2e}, from the start {r['mass_change']:.2e} "
+            f"(<= 1e-6); conc min {r['conc_min']:.2e} (>= -1e-4)")
+    return f"phase 7 config 4 1024^2, 10 steps [{card}]: " + "; ".join(parts)
+
+
+def phase8_lines(res, card, n=FLAGSHIP_N):
+    mlups = {k: n * n / v / 1e6 for k, v in res["sec"].items()}
+    roof = {st: COUPLED_BYTES[st] * n * n / HBM_BYTES_PER_S /
+            res["sec"][("kernel", st)] for st in ("f32", "bf16")}
+    return [
+        f"phase 8 coupled main path: run_chunked(step_c) {COUPLED_STEPS} "
+        f"bf16 steps, {res['launches']} coupled launches, "
+        f"{res['run_mlups']:.1f} MLUPS incl. host loop, tracer mass drift "
+        f"{res['drift']:.2e}, conc min {res['conc_min']:.2e}; [{card}]",
+        f"phase 8 coupled MLUPS {n}^2 flow + tracer [{card}]: kernel f32 "
+        f"{mlups[('kernel', 'f32')]:.1f}, kernel bf16 "
+        f"{mlups[('kernel', 'bf16')]:.1f}, plain f32 "
+        f"{mlups[('plain', 'f32')]:.1f}, plain bf16 "
+        f"{mlups[('plain', 'bf16')]:.1f}; ms/step kernel f32 "
+        f"{res['sec'][('kernel', 'f32')] * 1e3:.4f}, bf16 "
+        f"{res['sec'][('kernel', 'bf16')] * 1e3:.4f}; roofline share of the "
+        f"design bytes ({COUPLED_BYTES['f32']} / {COUPLED_BYTES['bf16']} B "
+        f"at 3.35 TB/s) f32 {roof['f32']:.3f}, bf16 {roof['bf16']:.3f}",
+        f"phase 8 torch.profiler device us per launch (launches per step) "
+        f"{n}^2 [{card}]: " + ", ".join(
+            f"{k} {st} " + ("not measured" if v is None else
+                            f"{v[0]:.2f} ({v[1]:g})")
+            for (st, k), v in res["profile"].items())]
+
+
 def ptxas_summary(log: str) -> str:
-    """'kernel<type>: registers, smem, spill stores' per entry function of
-    an `nvcc -Xptxas -v` log."""
+    """'kernel<type[,q]>: registers, smem, spill stores' per entry function
+    of an `nvcc -Xptxas -v` log."""
     out, name = [], None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
             mangled = m.group(1)
-            base = next((k for k in ("phase_kernel", "normal_kernel",
-                                     "collide_stream_kernel")
-                         if k in mangled), mangled)
+            base = next((k for k in COUPLED_KERNELS if k in mangled),
+                        mangled)
+            args = mangled.split(base)[-1]
             kind = ("bf16" if "bfloat16" in mangled else
-                    "f64" if re.search(r"I[^E]*d", mangled.split(base)[-1])
-                    else "f32")
-            name, spill = f"{base}<{kind}>", "?"
+                    "f64" if re.search(r"I[^E]*d", args) else "f32")
+            q = re.search(r"Li(\d)E", args)
+            name, spill = f"{base}<{kind}{',q' + q.group(1) if q else ''}>", "?"
         elif name and "spill stores" in ln:
             spill = ln.split(",")[1].strip()
         elif name and "Used" in ln and "registers" in ln:
@@ -367,6 +650,12 @@ def ptxas_summary(log: str) -> str:
                        f"{smem.group(1) if smem else 0} B smem, {spill}")
             name = None
     return " | ".join(out)
+
+
+def build_report(build, lib: str) -> str:
+    logs = list(build.BUILD_DIR.glob(f"lib{lib}-*.log"))
+    return ptxas_summary(max(logs, key=lambda p: p.stat().st_mtime)
+                         .read_text()) if logs else "no build log"
 
 
 def main() -> int:
@@ -385,14 +674,16 @@ def main() -> int:
     print(f"phase 1 card: {name}, torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
 
+    libs = ("csf2d", "coupled2d")
     t0 = time.perf_counter()
-    build.load_library("csf2d")
+    build.load_libraries(libs)
     t_build = time.perf_counter() - t0
-    logs = list(build.BUILD_DIR.glob("libcsf2d-*.log"))
-    report = ptxas_summary(max(logs, key=lambda p: p.stat().st_mtime)
-                           .read_text()) if logs else "no build log"
-    print(f"phase 2 build: csf2d in {t_build:.2f} s (nvcc "
-          f"{build.build_seconds.get('csf2d', 0.0):.2f} s); ptxas: {report}")
+    print(f"phase 2 build: {' and '.join(libs)} side by side in "
+          f"{t_build:.2f} s (nvcc " + ", ".join(
+              f"{lib} {build.build_seconds.get(lib, 0.0):.2f} s"
+              for lib in libs) + ")")
+    for lib in libs:
+        print(f"phase 2 ptxas {lib}: {build_report(build, lib)}")
 
     err64 = phase_f64(device)
     print(f"phase 3 f64 kernel vs plain, 256x128, 20 steps: max |diff| "
@@ -404,6 +695,16 @@ def main() -> int:
     main_res = phase_main(device)
     for ln in phase5_lines(main_res, card, t_build):
         print(ln)
+
+    print(phase6_line(phase_coupled_f64(device)))
+
+    res7 = phase_coupled_config4(device)
+    print(phase7_line(res7, card))
+
+    res8 = phase_coupled_main(device)
+    for ln in phase8_lines(res8, card):
+        print(ln)
+
     print(json.dumps({"kernels": [{
         "name": "csf_step_compressed",
         "route": "cuda",
@@ -413,6 +714,15 @@ def main() -> int:
         "max_abs_err": res["bf16"]["max"],
         "ms": main_res["sec"][("kernel", "bf16")] * 1e3,
         "plain_ms": main_res["sec"][("plain", "bf16")] * 1e3,
+    }, {
+        "name": "coupled_step_compressed",
+        "route": "cuda",
+        "source": "openlbmpm_torch/csrc/coupled2d.cu",
+        "replaces": "openlbmpm_tpu/pallas/csf.py:147 (transport_params)",
+        "launches": res8["launches"],
+        "max_abs_err": res7["bf16"]["max"],
+        "ms": res8["sec"][("kernel", "bf16")] * 1e3,
+        "plain_ms": res8["sec"][("plain", "bf16")] * 1e3,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

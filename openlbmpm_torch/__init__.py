@@ -12,10 +12,11 @@ in this package imports ``jax``.
 """
 
 from . import geometry, lattice
-from .lattice import D2Q9
+from .lattice import D2Q5, D2Q9
 
 from ._device import resolve_device, resolve_dtype
 
-__all__ = ["geometry", "lattice", "D2Q9", "resolve_device", "resolve_dtype"]
+__all__ = ["geometry", "lattice", "D2Q5", "D2Q9", "resolve_device",
+           "resolve_dtype"]
 
 __version__ = "0.1.0"

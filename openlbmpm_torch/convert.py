@@ -15,23 +15,25 @@ import torch
 
 from ._device import resolve_device, resolve_dtype
 from .models.colorgradient import CGBoundaryConfig, ColorGradientParams
+from .models.transport import TransportParams, TransportState
 
 __all__ = ["params_from_jax", "state_from_numpy", "state_to_numpy"]
 
 
 def params_from_jax(p):
-    """The port's ColorGradientParams or CGBoundaryConfig with the field
-    values of `p`, any object carrying the fields of either."""
-    for cls in (ColorGradientParams, CGBoundaryConfig):
+    """The port's ColorGradientParams, CGBoundaryConfig or TransportParams
+    with the field values of `p`, any object carrying the fields of one of
+    them (tuple fields become tuples of floats)."""
+    for cls in (ColorGradientParams, CGBoundaryConfig, TransportParams):
         names = [f.name for f in dataclasses.fields(cls)]
         if all(hasattr(p, n) for n in names):
             vals = {n: getattr(p, n) for n in names}
-            if "body_force" in vals:
-                vals["body_force"] = tuple(float(v)
-                                           for v in vals["body_force"])
+            for n, v in vals.items():
+                if isinstance(v, (tuple, list)):
+                    vals[n] = tuple(float(x) for x in v)
             return cls(**vals)
-    raise TypeError(f"{type(p).__name__} has the fields of neither "
-                    "ColorGradientParams nor CGBoundaryConfig")
+    raise TypeError(f"{type(p).__name__} has the fields of none of "
+                    "ColorGradientParams, CGBoundaryConfig, TransportParams")
 
 
 def _one_from_numpy(a, device, dtype):
@@ -45,10 +47,16 @@ def _one_from_numpy(a, device, dtype):
 
 def state_from_numpy(arrays, device="cpu", dtype=None):
     """A state as torch tensors on `device`: a (10, ny, nx) compressed
-    array, an (11, ny, nx) bfloat16 array (kept bfloat16), or an
-    (f_r, f_b) pair of (9, ny, nx) arrays (returned as a tuple).  `dtype`
-    casts the non-bfloat16 layouts; None keeps the array's own type."""
+    array, an (11, ny, nx) bfloat16 array (kept bfloat16), a tuple of
+    arrays such as an (f_r, f_b) pair or a coupled (s, g) pair (returned
+    as a tuple), or a split TransportState (f_r, f_b, g, mass0), returned
+    as the port's ``TransportState`` (``TransportRK.pack`` packs it to
+    (s, g)).  `dtype` casts the non-bfloat16 arrays; None keeps each
+    array's own type."""
     dev = resolve_device(device)
+    if getattr(arrays, "_fields", None) == TransportState._fields:
+        return TransportState(*(_one_from_numpy(a, dev, dtype)
+                                for a in arrays))
     if isinstance(arrays, (tuple, list)):
         return tuple(_one_from_numpy(a, dev, dtype) for a in arrays)
     return _one_from_numpy(arrays, dev, dtype)
@@ -63,7 +71,10 @@ def _one_to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def state_to_numpy(state):
-    """Inverse of ``state_from_numpy``: numpy arrays on the host."""
+    """Inverse of ``state_from_numpy``: numpy arrays on the host (a
+    TransportState stays a TransportState, of numpy arrays)."""
+    if isinstance(state, TransportState):
+        return TransportState(*(_one_to_numpy(t) for t in state))
     if isinstance(state, (tuple, list)):
         return tuple(_one_to_numpy(t) for t in state)
     return _one_to_numpy(state)

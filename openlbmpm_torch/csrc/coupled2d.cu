@@ -1,0 +1,336 @@
+// Compressed coupled CSF flow + phase-confined tracer step, for NVIDIA
+// Hopper (sm_90a).
+//
+// Replaces the TPU kernel openlbmpm_tpu/pallas/csf.py::build_csf_fused_step
+// with transport_params, state_mode="compressed", steps_per_call=1 (its
+// _transport_substep plus the flow step), for an f64 or f32 flow state and
+// the 11-plane bf16 flow state.  Tracer PDFs g (NT, NQ, ny, nx), NQ 5 (D2Q5)
+// or 9 (D2Q9), are f64 in the f64 instance and f32 otherwise: they are
+// never stored in bf16.  Formulas follow the jnp path
+// (TransportRK._transport_substep and ops/transport.py).
+//
+// One coupled step, seven launches, one thread per cell:
+//   1. phase_kernel    the flow state as it stands (no boundary rows, the
+//                      outlet phi repair kept) -> phi0
+//   2. normal_kernel   phi0 -> wetted gradient g0 and unit normals
+//   3. tracer_collide  u = (m + F/2)/rho and rho_r < criteria from the same
+//                      pre-BC state, the CSF force from the normals around
+//                      the cell; per tracer: SRT (J-scheme or linear) or MRT
+//                      (linear or quadratic equilibrium) collision, the beta
+//                      partition along -g0/|g0|, the bilinear reaction ->
+//                      g_post, and the domain mask (one byte a cell)
+//   4. tracer_stream   free-flow outlet rows, pull streaming with half-way
+//                      bounce-back, hard interface bounce-back and the inlet
+//                      rows, all as reads of g_post -> g'
+//   5-7. the flow step of csf2d.cuh (boundary rows on the fly), unchanged.
+// The tracer sees the fields of the state before the flow's boundary rows,
+// as the reference's 2-D coupled loop does, so launches 1-2 repeat the
+// flow's own phase and normal passes without those rows.
+//
+// What bounds it: HBM bytes per cell-step.  With an f32 state, one D2Q5
+// tracer and f32 tracer PDFs: 48 B (phase: state 40, fluid plane 4, phi 4),
+// 28 B (normal), 101 B (tracer_collide: state 40, fluid plane 4, normals 16,
+// g 20, g_post 20, mask 1), 44 B (tracer_stream: g_post 20, fluid plane 4,
+// g' 20; the mask 1 more with a bounce-back interface) and the flow's
+// 180 B: about 400 B against 120 B for one fused pass over state and
+// tracers.  With the bf16 state: about 310 B against 84 B.  Stencil
+// neighbour re-reads hit L1/L2.  Fusing launches 1-3 into the flow's own
+// passes is the next step for speed.
+
+#include "csf2d.cuh"
+
+struct TracerParams {    // mirrored by kernels/transport.py::TracerParams
+  int nt, nq;
+  int mrt, quadratic;
+  int interface;         // 0 none, 1 permeable (beta partition), 2 bounceback
+  int inlet;             // 0 none, 1 inamuro, 2 anti_bounce_back, 3 zero
+  int outlet;            // 0 none, 1 freeflow
+  int reaction;
+  double criteria, rate;
+};
+
+namespace {
+
+// Per-tracer table row (compute type): tau, beta, stoich, inlet
+// concentration, J_0..J_4, then the NQ x NQ MRT update matrix, row-major
+// (kernels/transport.py::tracer_table).
+constexpr int kTau = 0, kBeta = 1, kStoich = 2, kConc = 3, kJ = 4, kU = 9;
+
+template <int NQ> struct Lat;
+// D2Q5, reference ordering: 0 rest, 1 E, 2 W, 3 N, 4 S
+template <> struct Lat<5> {
+  __device__ static int dx(int i) { return (i == 1) - (i == 2); }
+  __device__ static int dy(int i) { return (i == 3) - (i == 4); }
+  __device__ static int rev(int i) { return i == 0 ? 0 : (i % 2 ? i + 1 : i - 1); }
+  __device__ static double w(int i) { return i == 0 ? 1.0 / 3.0 : 1.0 / 6.0; }
+  __device__ static double len(int) { return 1.0; }
+};
+// D2Q9, the flow's ordering
+template <> struct Lat<9> {
+  __device__ static int dx(int i) { return ex(i); }
+  __device__ static int dy(int i) { return ey(i); }
+  __device__ static int rev(int i) { return opp(i); }
+  __device__ static double w(int i) { return wq(i); }
+  __device__ static double len(int i) { return i >= 5 ? sqrt(2.0) : 1.0; }
+};
+
+template <typename S, int NQ, typename C = typename Traits<S>::C>
+__global__ void tracer_collide_kernel(const S* __restrict__ s, const C* __restrict__ geo,
+                                      const C* __restrict__ nrm, const C* __restrict__ g,
+                                      const C* __restrict__ tab, C* __restrict__ gp,
+                                      unsigned char* __restrict__ dom, CsfParams P,
+                                      TracerParams T) {
+  using L = Lat<NQ>;
+  const size_t n = (size_t)P.ny * P.nx;
+  const size_t k = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= n) return;
+  const int x = (int)(k % P.nx), y = (int)(k / P.nx);
+
+  // flow fields of the state as it stands (TransportRK._step_impl)
+  C f[9], rr;
+  load_raw(s, geo, n, k, f, rr);
+  const C rho = sum9(f);
+  C fx = C(0), fy = C(0);
+  if (geo[k] > C(0.5)) csf_force_at(nrm, P, x, y, rho, fx, fy);
+  const C rho_safe = rho > C(0) ? rho : C(1);
+  C mx = C(0), my = C(0);
+#pragma unroll
+  for (int i = 1; i < 9; ++i) {
+    if (ex(i)) mx = mx + C(ex(i)) * f[i];
+    if (ey(i)) my = my + C(ey(i)) * f[i];
+  }
+  const C ux = (mx + C(0.5) * fx) / rho_safe;
+  const C uy = (my + C(0.5) * fy) / rho_safe;
+  const bool in_dom = rr < C(T.criteria);
+  dom[k] = in_dom;
+  // unit inward colour gradient, for the partition
+  const C gx = nrm[k], gy = nrm[n + k];
+  const C gnorm = sqrt(gx * gx + gy * gy);
+  const bool gsafe = gnorm > C(kEps);
+  const C igx = gsafe ? -gx / gnorm : C(0);
+  const C igy = gsafe ? -gy / gnorm : C(0);
+
+  const size_t tq = (size_t)NQ * n;
+  const int row_len = kU + NQ * NQ;
+  auto conc_of = [&](int t) {
+    C c = C(0);
+#pragma unroll
+    for (int i = 0; i < NQ; ++i) c = c + g[t * tq + i * n + k];
+    return c;
+  };
+  const C react = T.reaction ? C(T.rate) * conc_of(0) * conc_of(1) : C(0);
+  const C uu = ux * ux + uy * uy;
+
+  for (int t = 0; t < T.nt; ++t) {
+    const C* row = tab + t * row_len;
+    C gv[NQ];
+    C conc = C(0);
+#pragma unroll
+    for (int i = 0; i < NQ; ++i) {
+      gv[i] = g[t * tq + i * n + k];
+      conc = conc + gv[i];
+    }
+    if (T.mrt) {
+      // g += U (g - geq), U = -M^-1 S^-1 M
+      C dg[NQ];
+#pragma unroll
+      for (int i = 0; i < NQ; ++i) {
+        const C eu = C(L::dx(i)) * ux + C(L::dy(i)) * uy;
+        const C fac = T.quadratic
+                          ? C(1) + C(3) * eu + C(4.5) * eu * eu - C(1.5) * uu
+                          : C(1) + C(3) * eu;
+        dg[i] = gv[i] - conc * C(L::w(i)) * fac;
+      }
+      const C* U = row + kU;
+#pragma unroll
+      for (int i = 0; i < NQ; ++i) {
+        C acc = C(0);
+#pragma unroll
+        for (int b = 0; b < NQ; ++b) acc = acc + U[i * NQ + b] * dg[b];
+        gv[i] = gv[i] + acc;
+      }
+    } else {
+      const C tau = row[kTau];
+#pragma unroll
+      for (int i = 0; i < NQ; ++i) {
+        const C eu = C(L::dx(i)) * ux + C(L::dy(i)) * uy;
+        const C geq = NQ == 5 ? conc * (row[kJ + i] + C(0.5) * eu)
+                              : conc * C(L::w(i)) * (C(1) + C(3) * eu);
+        gv[i] = gv[i] - (gv[i] - geq) / tau;
+      }
+    }
+    // semi-permeable interface: value = -1 inside the transport domain
+    const C beta = row[kBeta];
+    if (T.interface == 1 && in_dom && gsafe && beta != C(0)) {
+#pragma unroll
+      for (int i = 1; i < NQ; ++i) {
+        const C cos_i = (C(L::dx(i)) * igx + C(L::dy(i)) * igy) / C(L::len(i));
+        gv[i] = gv[i] + (-beta) * (C(L::w(i)) * cos_i) * conc;
+      }
+    }
+    if (T.reaction) {
+      const C src = row[kStoich] * react;
+#pragma unroll
+      for (int i = 0; i < NQ; ++i)
+        gv[i] = gv[i] + (NQ == 5 ? row[kJ + i] : C(L::w(i))) * src;
+    }
+#pragma unroll
+    for (int i = 0; i < NQ; ++i) gp[t * tq + i * n + k] = gv[i];
+  }
+}
+
+// Post-collision value of slot i at (x, y) after the free-flow outlet rows:
+// rows 2, 1, 0 each copy the (fresh) row above on fluid cells.
+template <typename C>
+__device__ __forceinline__ C post_at(const C* __restrict__ gp, const C* __restrict__ geo,
+                                     const CsfParams& P, const TracerParams& T,
+                                     size_t base, int x, int y) {
+  if (T.outlet == 1)
+    while (y <= 2 && geo[(size_t)y * P.nx + x] > C(0.5)) ++y;
+  return gp[base + (size_t)y * P.nx + x];
+}
+
+// Slot i at (x, y) after pull streaming with half-way bounce-back, masked
+// to the pore space; base is the tracer's offset in g_post.
+template <typename C, int NQ>
+__device__ C streamed_at(const C* __restrict__ gp, const C* __restrict__ geo,
+                         const CsfParams& P, const TracerParams& T, size_t base,
+                         int i, int x, int y) {
+  using L = Lat<NQ>;
+  const size_t n = (size_t)P.ny * P.nx;
+  const C fl = geo[(size_t)y * P.nx + x];
+  if (i == 0) return post_at(gp, geo, P, T, base, x, y) * fl;
+  const int sx = wrap(x - L::dx(i), P.nx), sy = wrap(y - L::dy(i), P.ny);
+  const C v = geo[(size_t)sy * P.nx + sx] > C(0.5)
+                  ? post_at(gp, geo, P, T, base + i * n, sx, sy)
+                  : post_at(gp, geo, P, T, base + L::rev(i) * n, x, y);
+  return v * fl;
+}
+
+// Slot i at (x, y) after the hard interface bounce-back: a population
+// that streamed out of the transport domain returns into the opposite
+// slot of the node it left, and the outside node it reached drops it.
+template <typename C, int NQ>
+__device__ C repaired_at(const C* __restrict__ gp, const C* __restrict__ geo,
+                         const unsigned char* __restrict__ dom, const CsfParams& P,
+                         const TracerParams& T, size_t base, int i, int x, int y) {
+  using L = Lat<NQ>;
+  if (T.interface == 2 && i != 0) {
+    const int sx = wrap(x - L::dx(i), P.nx), sy = wrap(y - L::dy(i), P.ny);
+    const bool d = dom[(size_t)y * P.nx + x], ds = dom[(size_t)sy * P.nx + sx];
+    if (d && !ds) return streamed_at<C, NQ>(gp, geo, P, T, base, L::rev(i), sx, sy);
+    if (!d && ds) return C(0);
+  }
+  return streamed_at<C, NQ>(gp, geo, P, T, base, i, x, y);
+}
+
+template <typename C, int NQ>
+__global__ void tracer_stream_kernel(const C* __restrict__ gp, const C* __restrict__ geo,
+                                     const unsigned char* __restrict__ dom,
+                                     const C* __restrict__ tab, C* __restrict__ out,
+                                     CsfParams P, TracerParams T) {
+  const int nx = P.nx, ny = P.ny;
+  const size_t n = (size_t)ny * nx;
+  const size_t k = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= n) return;
+  const int x = (int)(k % nx), y = (int)(k / nx);
+  const bool fluid = geo[k] > C(0.5);
+  // zero-concentration inlet: row ny-2 takes the repaired row ny-3 whole
+  const int ys = (T.inlet == 3 && y == ny - 2 && fluid) ? ny - 3 : y;
+  const bool top = y == ny - 1 && fluid;
+  for (int t = 0; t < T.nt; ++t) {
+    const size_t base = (size_t)t * NQ * n;
+    C o[NQ];
+#pragma unroll
+    for (int i = 0; i < NQ; ++i) o[i] = repaired_at<C, NQ>(gp, geo, dom, P, T, base, i, x, ys);
+    const C cin = tab[t * (kU + NQ * NQ) + kConc];
+    if (T.inlet == 1 && top) {
+      // Inamuro: the unknown -y population absorbs the deficit
+      o[4] = cin - (o[0] + o[1] + o[2] + o[3]);
+    } else if (T.inlet == 2 && top) {
+      // anti-bounce-back from the repaired +y population of row ny-2
+      o[4] = -repaired_at<C, NQ>(gp, geo, dom, P, T, base, 3, x, ny - 2) +
+             C(2.0 * (1.0 / 6.0)) * cin;
+    }
+#pragma unroll
+    for (int i = 0; i < NQ; ++i) out[base + i * n + k] = o[i];
+  }
+}
+
+template <typename S, int NQ>
+int launch_coupled(const void* s_in, void* s_out, const void* geo_v, void* phi_v,
+                   void* nrm_v, const void* g_in, void* g_post, void* g_out,
+                   void* dom_v, const void* tab_v, const CsfParams& P,
+                   const TracerParams& T, cudaStream_t st) {
+  using C = typename Traits<S>::C;
+  const S* s = static_cast<const S*>(s_in);
+  const C* geo = static_cast<const C*>(geo_v);
+  C* phi = static_cast<C*>(phi_v);
+  C* nrm = static_cast<C*>(nrm_v);
+  C* gp = static_cast<C*>(g_post);
+  unsigned char* dom = static_cast<unsigned char*>(dom_v);
+  const C* tab = static_cast<const C*>(tab_v);
+  // the tracer sees the state before the flow's boundary rows
+  CsfParams P0 = P;
+  P0.inlet = 0;
+  P0.outlet = 0;
+  const size_t n = (size_t)P.ny * P.nx;
+  const int threads = 256;
+  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
+  phase_kernel<S><<<blocks, threads, 0, st>>>(s, geo, phi, P0);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  normal_kernel<C><<<blocks, threads, 0, st>>>(geo, phi, nrm, P0);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  tracer_collide_kernel<S, NQ><<<blocks, threads, 0, st>>>(
+      s, geo, nrm, static_cast<const C*>(g_in), tab, gp, dom, P0, T);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  tracer_stream_kernel<C, NQ><<<blocks, threads, 0, st>>>(gp, geo, dom, tab,
+                                                          static_cast<C*>(g_out), P, T);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return launch_flow<S>(s_in, s_out, geo_v, phi_v, nrm_v, P, st);
+}
+
+template <typename S>
+int launch_nq(const TracerParams& T, const void* s_in, void* s_out, const void* geo,
+              void* phi, void* nrm, const void* g_in, void* g_post, void* g_out,
+              void* dom, const void* tab, const CsfParams& P, cudaStream_t st) {
+  switch (T.nq) {
+    case 5: return launch_coupled<S, 5>(s_in, s_out, geo, phi, nrm, g_in, g_post, g_out,
+                                        dom, tab, P, T, st);
+    case 9: return launch_coupled<S, 9>(s_in, s_out, geo, phi, nrm, g_in, g_post, g_out,
+                                        dom, tab, P, T, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// storage: 0 = f64 state, 1 = f32 state, 2 = bf16 11-plane state.  The
+// scratch planes phi (1), nrm (4), g_post (as g) and dom (bytes) and both
+// outputs are allocated by the caller.  Returns a cudaError_t code.
+extern "C" int coupled2d_step(int storage, const void* s_in, void* s_out, const void* geo,
+                              void* phi, void* nrm, const void* g_in, void* g_post,
+                              void* g_out, void* dom, const void* tab,
+                              const CsfParams* params, const TracerParams* tparams,
+                              void* stream) {
+  const CsfParams P = *params;
+  const TracerParams T = *tparams;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (storage) {
+    case 0: return launch_nq<double>(T, s_in, s_out, geo, phi, nrm, g_in, g_post, g_out,
+                                     dom, tab, P, st);
+    case 1: return launch_nq<float>(T, s_in, s_out, geo, phi, nrm, g_in, g_post, g_out,
+                                    dom, tab, P, st);
+    case 2: return launch_nq<__nv_bfloat16>(T, s_in, s_out, geo, phi, nrm, g_in, g_post,
+                                            g_out, dom, tab, P, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+extern "C" const char* coupled2d_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -15,9 +15,11 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-__all__ = ["load_library", "build_seconds", "BUILD_DIR", "NVCC_FLAGS"]
+__all__ = ["load_library", "load_libraries", "build_seconds", "BUILD_DIR",
+           "NVCC_FLAGS"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
@@ -76,3 +78,11 @@ def load_library(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(so))
     _loaded[name] = lib
     return lib
+
+
+def load_libraries(names) -> dict[str, ctypes.CDLL]:
+    """``load_library`` for each name, the builds running side by side (one
+    nvcc process per source)."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(zip(names, pool.map(load_library, names)))

@@ -2,6 +2,8 @@
 
 from .base import RunMetrics, run_chunked
 from .colorgradient import CGBoundaryConfig, ColorGradientParams, ColorGradientRK
+from .transport import TransportParams, TransportRK, TransportState
 
 __all__ = ["RunMetrics", "run_chunked", "CGBoundaryConfig",
-           "ColorGradientParams", "ColorGradientRK"]
+           "ColorGradientParams", "ColorGradientRK", "TransportParams",
+           "TransportRK", "TransportState"]

@@ -326,14 +326,21 @@ class ColorGradientRK(nn.Module):
         """One time step of the compressed state (layout per ``storage``)."""
         return self._step_impl_c(s)
 
-    def macro_c(self, s):
-        """Diagnostics (rho_r, rho_b, phi, (ux, uy)) from a compressed
-        state (either layout)."""
+    def fields_c(self, s):
+        """(rho_r, rho_b, phi, gx, gy, (ux, uy)) of a compressed state
+        (either layout) as it stands, boundary rows not applied, with
+        u = (m + F/2) / rho (rho guarded)."""
         if s.dtype == torch.bfloat16:
             s = self.unpack_bf16(s)
         rho_r, rho_b, rho = self.rho_fields_c(s)
-        phi, _, _, fx, fy = self.color_force_fields_from_rho(rho_r, rho_b)
+        phi, gx, gy, fx, fy = self.color_force_fields_from_rho(rho_r, rho_b)
         rho_safe = torch.where(rho > 0, rho, torch.ones_like(rho))
         mx, my = mac.momentum(self.lat, s[:9])
-        return (rho_r, rho_b, phi,
+        return (rho_r, rho_b, phi, gx, gy,
                 ((mx + 0.5 * fx) / rho_safe, (my + 0.5 * fy) / rho_safe))
+
+    def macro_c(self, s):
+        """Diagnostics (rho_r, rho_b, phi, (ux, uy)) from a compressed
+        state (either layout)."""
+        rho_r, rho_b, phi, _, _, u = self.fields_c(s)
+        return rho_r, rho_b, phi, u

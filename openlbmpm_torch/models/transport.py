@@ -1,0 +1,249 @@
+"""Coupled CSF flow + phase-confined tracer transport on the compressed
+state (counterpart of ``openlbmpm_tpu/models/transport.py``).
+
+One coupled step maps ``(s, g) -> (s', g')``: ``s`` the compressed flow
+state of ``ColorGradientRK`` (10 planes, or 11 bfloat16 planes with
+``storage="bf16"``) and ``g`` (T, Q, ny, nx) the tracer PDFs, kept in the
+arithmetic type (float32 with bf16 flow storage).  As in the JAX model's
+``_step_impl``, the tracer sub-step sees the flow fields of ``s`` *before*
+the flow's boundary rows; then the flow takes its own step.  On a CUDA
+state the step is one call of the hand-written kernel set
+(``kernels/transport.py``); on the CPU it is the plain composition of
+``ops/``.
+
+Not yet ported (they raise NotImplementedError): the split
+``TransportRK.step`` and with it ``conserve_mass``, the ``redistribute``
+interface mode and ``standalone`` transport; tracer inlet and outlet rows
+on D2Q9 (the compressed JAX kernel takes none either).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Literal, NamedTuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..kernels.transport import (coupled_step_compressed, tracer_kernel_params,
+                                  tracer_table)
+from ..lattice import D2Q5, D2Q9
+from ..ops import equilibrium as eq
+from ..ops import transport as tr
+from ..ops.streaming import stream, upwind_solid_masks
+from .colorgradient import CGBoundaryConfig, ColorGradientParams, ColorGradientRK
+
+__all__ = ["TransportParams", "TransportState", "TransportRK"]
+
+
+class TransportState(NamedTuple):
+    f_r: torch.Tensor
+    f_b: torch.Tensor
+    g: torch.Tensor          # tracer PDFs (T, Q, ny, nx)
+    mass0: torch.Tensor      # (T,) initial tracer mass
+
+
+@dataclasses.dataclass(frozen=True)
+class TransportParams:
+    """Same fields and defaults as the JAX package's TransportParams.
+    Per-tracer tuples hold one value for every tracer or one per tracer."""
+    num_tracers: int = 1
+    scheme: int = 5                       # 5 (D2Q5) | 9 (D2Q9)
+    tau: tuple = (1.0,)                   # per-tracer relaxation times
+    j0: tuple = (0.25,)                   # J-scheme rest coefficients (D2Q5)
+    relaxation: Literal["SRT", "MRT"] = "SRT"
+    mrt_equilibrium: Literal["linear", "quadratic"] = "linear"
+    # anisotropic diffusion tensor per tracer (MRT only)
+    diff_x: tuple = (0.1,)
+    diff_y: tuple = (0.1,)
+    diff_xy: tuple = (0.0,)
+    diff_yx: tuple = (0.0,)
+    beta_interface: tuple = (0.0,)        # partition coefficient per tracer
+    interface_mode: Literal["permeable", "bounceback", "redistribute",
+                            "none"] = "permeable"
+    reaction_rate: float = 0.0            # bilinear A + B -> C rate
+    reaction_stoich: tuple = (-1.0, -1.0, 1.0)
+    criteria: float = 0.5                 # rho_R threshold of the host phase
+    inlet: Literal["none", "inamuro", "anti_bounce_back", "zero"] = "none"
+    inlet_conc: tuple = (1.0,)
+    outlet: Literal["none", "freeflow"] = "none"
+    conserve_mass: bool = False           # renormalization repair op
+
+
+def _per_tracer(values, nt: int, name: str) -> tuple:
+    """`values` as one float per tracer (a single value is shared)."""
+    v = tuple(float(x) for x in np.atleast_1d(np.asarray(values, np.float64)))
+    if len(v) == 1:
+        return v * nt
+    if len(v) != nt:
+        raise ValueError(f"{name}: {len(v)} values for {nt} tracers")
+    return v
+
+
+def _check_options(tp: TransportParams, standalone: bool):
+    if standalone:
+        raise NotImplementedError(
+            "standalone transport waits for the split TransportRK.step")
+    if tp.conserve_mass:
+        raise NotImplementedError(
+            "conserve_mass has no compressed coupled form; it waits for the "
+            "split TransportRK.step")
+    if tp.interface_mode == "redistribute":
+        raise NotImplementedError(
+            "interface_mode='redistribute' has no compressed coupled form; "
+            "it waits for the split TransportRK.step")
+    if tp.interface_mode not in ("none", "permeable", "bounceback"):
+        raise ValueError(f"interface_mode {tp.interface_mode!r}")
+    if tp.scheme not in (5, 9) or tp.relaxation not in ("SRT", "MRT") or \
+            tp.mrt_equilibrium not in ("linear", "quadratic"):
+        raise ValueError("scheme 5 | 9, relaxation SRT | MRT, "
+                         "mrt_equilibrium linear | quadratic")
+    if tp.inlet not in ("none", "inamuro", "anti_bounce_back", "zero") or \
+            tp.outlet not in ("none", "freeflow"):
+        raise ValueError(f"tracer inlet {tp.inlet!r}, outlet {tp.outlet!r}")
+    if tp.scheme == 9 and (tp.inlet != "none" or tp.outlet != "none"):
+        raise NotImplementedError("D2Q9 tracers take no inlet or outlet rows")
+    if tp.reaction_rate and tp.num_tracers < 2:
+        raise ValueError("the bilinear reaction needs two tracers or more")
+
+
+class TransportRK(nn.Module):
+    """Coupled CSF flow + phase-confined tracer transport.
+
+    ``flow`` is the ``ColorGradientRK`` of the flow half (``dtype``,
+    ``device`` and ``storage`` as there).  The tracer's upwind-solid masks
+    and its per-tracer table (``kernels/transport.py::tracer_table``) are
+    buffers on ``device``.
+    """
+
+    def __init__(self, geometry, flow_params=ColorGradientParams(),
+                 transport_params=TransportParams(),
+                 boundaries=CGBoundaryConfig(), standalone: bool = False,
+                 dtype=torch.float32, device="cpu", storage: str = "f32"):
+        super().__init__()
+        tp = transport_params
+        _check_options(tp, standalone)
+        self.flow = ColorGradientRK(geometry, flow_params, boundaries,
+                                    dtype=dtype, device=device,
+                                    storage=storage)
+        self.geo = geometry
+        self.tp = tp
+        self.dtype = self.flow.dtype
+        self.lat_tr = D2Q5 if tp.scheme == 5 else D2Q9
+        nt = tp.num_tracers
+        self.tau_tr = _per_tracer(tp.tau, nt, "tau")
+        self.beta = _per_tracer(tp.beta_interface, nt, "beta_interface")
+        self.inlet_conc = _per_tracer(tp.inlet_conc, nt, "inlet_conc")
+        self.stoich = _per_tracer(tp.reaction_stoich, nt, "reaction_stoich") \
+            if tp.reaction_rate else (0.0,) * nt
+        self.j_coeffs = tr.j_coefficients(_per_tracer(tp.j0, nt, "j0"))
+        self.mrt_update = None
+        if tp.relaxation == "MRT":
+            build = tr.mrt_matrices_d2q5 if tp.scheme == 5 \
+                else tr.mrt_matrices_d2q9
+            self.mrt_update = build(
+                *(_per_tracer(v, nt, n) for v, n in (
+                    (tp.diff_x, "diff_x"), (tp.diff_y, "diff_y"),
+                    (tp.diff_xy, "diff_xy"), (tp.diff_yx, "diff_yx"))))
+        dev = self.flow.device
+        self.register_buffer("upwind_solid_tr", torch.as_tensor(
+            upwind_solid_masks(self.lat_tr, geometry.is_solid), device=dev))
+        self.register_buffer("tracer_table", torch.as_tensor(
+            tracer_table(self), dtype=self.dtype, device=dev))
+        self.tracer_params = tracer_kernel_params(tp)
+
+    @property
+    def device(self) -> torch.device:
+        return self.flow.device
+
+    # -- state -----------------------------------------------------------------
+    def init_state(self, flow_state, conc0) -> TransportState:
+        """conc0: (T, ny, nx) initial concentrations; PDFs start at w_i C."""
+        t = self.tp.num_tracers
+        conc0 = torch.as_tensor(conc0, dtype=self.dtype,
+                                device=self.device) * self.flow.fluid_mask
+        if tuple(conc0.shape) != (t,) + self.geo.shape:
+            raise ValueError(f"conc0 {tuple(conc0.shape)}; want "
+                             f"{(t,) + self.geo.shape}")
+        w = torch.as_tensor(self.lat_tr.w, dtype=self.dtype,
+                            device=self.device).reshape(1, -1, 1, 1)
+        g = conc0[:, None] * w
+        mass0 = torch.sum(conc0, dim=(-2, -1))
+        return TransportState(flow_state[0], flow_state[1], g, mass0)
+
+    def pack(self, state: TransportState):
+        """TransportState -> the coupled compressed state (s, g), with s in
+        the flow's ``storage`` layout."""
+        pack = self.flow.pack_state_bf16 if self.flow.storage == "bf16" \
+            else self.flow.pack_state
+        return pack(state.f_r, state.f_b), state.g
+
+    def concentration(self, g):
+        return torch.sum(g, dim=1)
+
+    # -- the step ----------------------------------------------------------------
+    def _transport_substep(self, g, u, gx, gy, rho_r):
+        """Tracer collision, interface partition, reaction, free-flow
+        outlet, streaming with bounce-back, hard interface bounce-back and
+        inlet rows, from the flow fields u, (gx, gy), rho_r."""
+        tp, lat = self.tp, self.lat_tr
+        nt = tp.num_tracers
+        conc = self.concentration(g)
+        in_domain, value = tr.transport_domain_mask(rho_r, tp.criteria)
+
+        if tp.relaxation == "MRT":
+            feq_fn = eq.feq_transport_quadratic \
+                if tp.mrt_equilibrium == "quadratic" \
+                else eq.feq_transport_linear
+            g = tr.mrt_collide(g, feq_fn(lat, conc, u), self.mrt_update)
+        else:
+            if tp.scheme == 5:
+                geq = torch.stack([
+                    eq.feq_transport_j(lat, conc[t], u, self.j_coeffs[t])
+                    for t in range(nt)])
+            else:
+                geq = eq.feq_transport_linear(lat, conc, u)
+            tau = torch.as_tensor(self.tau_tr, dtype=g.dtype,
+                                  device=g.device).reshape(-1, 1, 1, 1)
+            g = g - (g - geq) / tau
+
+        if tp.interface_mode == "permeable" and any(self.beta):
+            g = tr.interface_partition(g, conc, gx, gy, value, self.beta, lat)
+        if tp.reaction_rate:
+            g = tr.bilinear_reaction(
+                g, conc, tp.reaction_rate,
+                self.j_coeffs if tp.scheme == 5 else np.tile(lat.w, (nt, 1)),
+                self.stoich)
+        m = self.flow._row_mask
+        if tp.outlet == "freeflow":
+            g = tr.free_flow_outlet(g, (2, 1, 0), (m(2), m(1), m(0)))
+
+        g = stream(g, lat, self.upwind_solid_tr) * self.flow.fluid_mask
+
+        if tp.interface_mode == "bounceback":
+            g = tr.interface_bounce_back(g, in_domain, lat)
+        ny = self.geo.ny
+        if tp.inlet == "inamuro":
+            g = tr.inamuro_inlet(g, self.inlet_conc, ny - 1, m(ny - 1))
+        elif tp.inlet == "anti_bounce_back":
+            g = tr.anti_bounce_back_inlet(g, self.inlet_conc, ny - 2,
+                                          m(ny - 1), w3=float(lat.w[3]))
+        elif tp.inlet == "zero":
+            g = tr.zero_concentration_inlet(g, ny - 2, m(ny - 2))
+        return g
+
+    def plain_step_c(self, state):
+        """One coupled step of (s, g) composed from ``ops/``, on any device:
+        the plain version of the kernel.  The tracer sees the fields of s
+        before the flow's boundary rows; a bf16 s is decoded first."""
+        s, g = state
+        rho_r, _, _, gx, gy, u = self.flow.fields_c(s)
+        g = self._transport_substep(g, u, gx, gy, rho_r)
+        return self.flow.plain_step_c(s), g
+
+    def step_c(self, state):
+        """One coupled time step of (s, g): the kernel on a CUDA state, the
+        plain step on a CPU one."""
+        s, g = state
+        return coupled_step_compressed(s, g, self)

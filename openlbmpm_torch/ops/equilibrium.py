@@ -1,5 +1,8 @@
 """Equilibrium distributions (counterpart of
-``openlbmpm_tpu/ops/equilibrium.py``)."""
+``openlbmpm_tpu/ops/equilibrium.py``).
+
+The transport equilibria take concentrations with leading tracer axes,
+conc (..., ny, nx), and return (..., Q, ny, nx)."""
 
 from __future__ import annotations
 
@@ -8,7 +11,8 @@ import torch
 from ..lattice import Lattice
 from .common import bcast_1d, e_dot_u
 
-__all__ = ["feq_quadratic"]
+__all__ = ["feq_quadratic", "feq_transport_j", "feq_transport_linear",
+           "feq_transport_quadratic"]
 
 
 def feq_quadratic(lat: Lattice, rho: torch.Tensor, u) -> torch.Tensor:
@@ -16,4 +20,27 @@ def feq_quadratic(lat: Lattice, rho: torch.Tensor, u) -> torch.Tensor:
     eu = e_dot_u(lat, u)
     uu = (u[0] * u[0] + u[1] * u[1])[None]
     return bcast_1d(lat.w, rho) * rho[None] * \
+        (1.0 + 3.0 * eu + 4.5 * eu * eu - 1.5 * uu)
+
+
+def feq_transport_j(lat: Lattice, conc: torch.Tensor, u,
+                    j_coeffs) -> torch.Tensor:
+    """C (J_i + (e.u) / 2): the D2Q5 J-scheme equilibrium, with j_coeffs
+    (Q,) = (J0, (1 - J0)/4, ...)."""
+    eu = e_dot_u(lat, u)
+    return conc.unsqueeze(-3) * (bcast_1d(j_coeffs, conc) + 0.5 * eu)
+
+
+def feq_transport_linear(lat: Lattice, conc: torch.Tensor, u) -> torch.Tensor:
+    """C w_i (1 + 3 e.u)."""
+    eu = e_dot_u(lat, u)
+    return conc.unsqueeze(-3) * bcast_1d(lat.w, conc) * (1.0 + 3.0 * eu)
+
+
+def feq_transport_quadratic(lat: Lattice, conc: torch.Tensor,
+                            u) -> torch.Tensor:
+    """C w_i (1 + 3 e.u + 4.5 (e.u)^2 - 1.5 u.u)."""
+    eu = e_dot_u(lat, u)
+    uu = (u[0] * u[0] + u[1] * u[1])[None]
+    return conc.unsqueeze(-3) * bcast_1d(lat.w, conc) * \
         (1.0 + 3.0 * eu + 4.5 * eu * eu - 1.5 * uu)

@@ -29,10 +29,12 @@ def upwind_solid_masks(lat: Lattice, is_solid: np.ndarray) -> np.ndarray:
 
 def stream(f: torch.Tensor, lat: Lattice,
            upwind_solid: torch.Tensor) -> torch.Tensor:
-    """Stream one (Q, ny, nx) PDF stack; values on solid nodes are not
-    meaningful (callers mask them)."""
-    outs = [f[0]]
+    """Stream a (..., Q, ny, nx) PDF stack (leading axes batch fluids or
+    tracers); values on solid nodes are not meaningful (callers mask
+    them)."""
+    outs = [f[..., 0, :, :]]
     for i in range(1, lat.q):
-        pulled = pull(f[i], int(lat.e[i, 0]), int(lat.e[i, 1]))
-        outs.append(torch.where(upwind_solid[i], f[int(lat.opp[i])], pulled))
-    return torch.stack(outs)
+        pulled = pull(f[..., i, :, :], int(lat.e[i, 0]), int(lat.e[i, 1]))
+        outs.append(torch.where(upwind_solid[i],
+                                f[..., int(lat.opp[i]), :, :], pulled))
+    return torch.stack(outs, dim=-3)

@@ -1,0 +1,178 @@
+"""Solute-transport ops: D2Q5/D2Q9 tracer lattices confined to one fluid
+phase (counterpart of ``openlbmpm_tpu/ops/transport.py``).
+
+Tracer PDFs are g (T, Q, ny, nx).  The numpy table builders
+(``j_coefficients``, ``mrt_matrices_*``) are ported rather than imported,
+because the JAX module that holds them imports jax.  Not ported yet: the
+split-step repairs ``redistribute_on_interface_motion`` and
+``renormalize_concentration``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..lattice import D2Q5, D2Q9, Lattice
+from .common import bcast_1d, pull, shift
+
+__all__ = [
+    "j_coefficients", "mrt_matrices_d2q5", "mrt_matrices_d2q9",
+    "mrt_collide", "transport_domain_mask", "interface_partition",
+    "interface_bounce_back", "bilinear_reaction", "inamuro_inlet",
+    "anti_bounce_back_inlet", "zero_concentration_inlet", "free_flow_outlet",
+]
+
+_EPS = 1.0e-8
+
+
+def j_coefficients(j0) -> np.ndarray:
+    """(T, 5) J-scheme coefficients: J_0 = j0, J_i = (1 - j0)/4.
+    Diffusion D = (1 - J0)(tau - 1/2)/2."""
+    j0 = np.atleast_1d(np.asarray(j0, np.float64))
+    out = np.empty((j0.size, 5))
+    out[:, 0] = j0
+    out[:, 1:] = ((1.0 - j0) / 4.0)[:, None]
+    return out
+
+
+def _mrt_matrices(lat: Lattice, flux_x, flux_y, diff_x, diff_y, diff_xy,
+                  diff_yx) -> np.ndarray:
+    """(T, Q, Q) update matrices -M^-1 S^-1 M, with tau_D = 1/2 + 3 D on
+    the flux moments `flux_x` / `flux_y` and the anisotropic coupling
+    3 D_xy, 3 D_yx between the first x and y flux moments."""
+    diff_x, diff_y, diff_xy, diff_yx = (
+        np.atleast_1d(np.asarray(a, np.float64))
+        for a in (diff_x, diff_y, diff_xy, diff_yx))
+    out = np.empty((diff_x.size, lat.q, lat.q))
+    for i in range(diff_x.size):
+        S = np.eye(lat.q)
+        for r in flux_x:
+            S[r, r] = 0.5 + 3.0 * diff_x[i]
+        for r in flux_y:
+            S[r, r] = 0.5 + 3.0 * diff_y[i]
+        S[flux_x[0], flux_y[0]] = 3.0 * diff_xy[i]
+        S[flux_y[0], flux_x[0]] = 3.0 * diff_yx[i]
+        out[i] = -(lat.M_inv @ np.linalg.inv(S) @ lat.M)
+    return out
+
+
+def mrt_matrices_d2q5(diff_x, diff_y, diff_xy, diff_yx) -> np.ndarray:
+    """(T, 5, 5) transport MRT update matrices for the D2Q5 scheme; the
+    collision applied is g += U (g - geq)."""
+    return _mrt_matrices(D2Q5, (1,), (2,), diff_x, diff_y, diff_xy, diff_yx)
+
+
+def mrt_matrices_d2q9(diff_x, diff_y, diff_xy, diff_yx) -> np.ndarray:
+    """(T, 9, 9) transport MRT update matrices for the D2Q9 scheme."""
+    return _mrt_matrices(D2Q9, (3, 4), (5, 6), diff_x, diff_y, diff_xy,
+                         diff_yx)
+
+
+def mrt_collide(g, geq, update_matrices: np.ndarray):
+    """g += U (g - geq) per tracer; U (T, Q, Q)."""
+    u = torch.as_tensor(update_matrices, dtype=g.dtype, device=g.device)
+    return g + torch.einsum("tab,tbyx->tayx", u, g - geq)
+
+
+def transport_domain_mask(rho_r, criteria: float = 0.5):
+    """(in_domain bool, value): tracers live where rho_r < criteria;
+    value = -1 inside the transport domain, 0 outside."""
+    inside = rho_r < criteria
+    value = torch.where(inside, -1.0, 0.0).to(rho_r.dtype)
+    return inside, value
+
+
+def _unit_inward_gradient(gx, gy):
+    norm = torch.sqrt(gx * gx + gy * gy)
+    safe = norm > _EPS
+    n = torch.where(safe, norm, torch.ones_like(norm))
+    zero = torch.zeros_like(gx)
+    return (torch.where(safe, -gx / n, zero), torch.where(safe, -gy / n, zero),
+            safe)
+
+
+def interface_partition(g, conc, gx, gy, value_domain, beta, lat: Lattice):
+    """Semi-permeable interface: g_i += beta_t * value * w_i C cos(theta_i),
+    theta_i the angle of e_i to the inward colour-gradient direction."""
+    ux, uy, safe = _unit_inward_gradient(gx, gy)
+    e_norm = lat.e_norm.copy()
+    e_norm[e_norm == 0] = 1.0
+    cos_t = (bcast_1d(lat.e[:, 0], g) * ux[None] +
+             bcast_1d(lat.e[:, 1], g) * uy[None]) / bcast_1d(e_norm, g)
+    cos_t = torch.where(safe[None], cos_t, torch.zeros_like(cos_t))
+    moving = np.ones(lat.q)
+    moving[0] = 0.0                                       # rest direction
+    cos_t = cos_t * bcast_1d(moving, g)
+    beta_b = torch.as_tensor(np.atleast_1d(np.asarray(beta, np.float64)),
+                             dtype=g.dtype, device=g.device).reshape(-1, 1, 1, 1)
+    return g + beta_b * value_domain[None, None] * \
+        (bcast_1d(lat.w, g) * cos_t)[None] * conc[:, None]
+
+
+def interface_bounce_back(g, in_domain, lat: Lattice):
+    """Hard interface, after streaming: a population that left a
+    transport-domain node x for an outside neighbour y = x + e_i returns
+    into the opposite slot at x and is zeroed at y."""
+    dom = in_domain
+    out = g.clone()
+    for i in range(1, lat.q):
+        dx, dy = int(lat.e[i, 0]), int(lat.e[i, 1])
+        o = int(lat.opp[i])
+        nbr_out = dom & ~shift(dom, dx, dy)
+        leaked_at_x = shift(g[:, i], dx, dy)   # g_i at y = x + e_i
+        out[:, o] = torch.where(nbr_out, leaked_at_x, out[:, o])
+        recv_from_inside = ~dom & pull(dom, dx, dy)
+        out[:, i] = torch.where(recv_from_inside, 0.0, out[:, i])
+    return out
+
+
+def bilinear_reaction(g, conc, rate: float, j_coeffs: np.ndarray, stoich):
+    """A + B -> C source S_t = stoich_t k C_0 C_1, spread with the J (or
+    lattice) weights j_coeffs (T, Q)."""
+    r = rate * conc[0] * conc[1]
+    st = torch.as_tensor(np.asarray(stoich, np.float64), dtype=g.dtype,
+                         device=g.device).reshape(-1, 1, 1)
+    j = torch.as_tensor(np.asarray(j_coeffs, np.float64), dtype=g.dtype,
+                        device=g.device)[:, :, None, None]
+    return g + j * (st * r[None])[:, None]
+
+
+def _per_tracer_column(values, g):
+    return torch.as_tensor(np.asarray(values, np.float64), dtype=g.dtype,
+                           device=g.device).reshape(-1, 1)
+
+
+def inamuro_inlet(g, conc_target, row, mask):
+    """Constant-concentration inlet: the unknown population (slot 4, -y
+    on D2Q5) absorbs the deficit."""
+    known = g[:, 0, row] + g[:, 1, row] + g[:, 2, row] + g[:, 3, row]
+    out = g.clone()
+    out[:, 4, row] = torch.where(
+        mask, _per_tracer_column(conc_target, g) - known, g[:, 4, row])
+    return out
+
+
+def anti_bounce_back_inlet(g, conc_target, row, mask, w3: float = 1.0 / 6.0):
+    """Anti-bounce-back constant concentration: the row above `row` gets
+    g_4 = -g_3(row) + 2 w_3 C."""
+    new = -g[:, 3, row] + 2.0 * w3 * _per_tracer_column(conc_target, g)
+    out = g.clone()
+    out[:, 4, row + 1] = torch.where(mask, new, g[:, 4, row + 1])
+    return out
+
+
+def zero_concentration_inlet(g, row, mask):
+    """`row` copies the full PDF set from the row below."""
+    out = g.clone()
+    out[:, :, row] = torch.where(mask, g[:, :, row - 1], g[:, :, row])
+    return out
+
+
+def free_flow_outlet(g, rows, mask_rows):
+    """Free-flow outlet: each of `rows`, in order, copies the full PDF set
+    from the (already rewritten) row above."""
+    g = g.clone()
+    for row, m in zip(rows, mask_rows):
+        g[:, :, row] = torch.where(m, g[:, :, row + 1], g[:, :, row])
+    return g

@@ -1,4 +1,4 @@
-"""The CUDA kernel of openlbmpm_torch against its plain PyTorch version.
+"""The CUDA kernels of openlbmpm_torch against their plain PyTorch versions.
 
 Needs a CUDA card and nvcc; skips without a card.  This file imports no
 JAX, so it also runs on a GPU machine without it, skipping the repository's
@@ -13,11 +13,15 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import COUPLED_CASES, coupled_conc0, flagship_flow
 from openlbmpm_torch.geometry import from_solid_mask
 from openlbmpm_torch.kernels.csf import (
     compare_bf16_states, csf_step_compressed, csf_step_compressed_reference)
+from openlbmpm_torch.kernels.transport import (
+    coupled_step_compressed, coupled_step_compressed_reference)
 from openlbmpm_torch.models.colorgradient import (
     CGBoundaryConfig, ColorGradientParams, ColorGradientRK)
+from openlbmpm_torch.models.transport import TransportParams, TransportRK
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -168,3 +172,70 @@ def test_step_counts_launches_and_checks_state(cuda):
         m.step_c(s.double())
     with pytest.raises(ValueError, match="state"):
         m.step_c(s[:9].contiguous())
+
+
+def _coupled(case, ny, nx, device, dtype=torch.float64, storage="f32",
+             obstacle=False):
+    params, bcs = flagship_flow()
+    m = TransportRK(_geometry(ny, nx, obstacle), params,
+                    TransportParams(**COUPLED_CASES[case]), bcs,
+                    dtype=dtype, device=device, storage=storage)
+    st = m.init_state(m.flow.init_state_layers(1.0, 1.0, invading_rows=ny // 5),
+                      coupled_conc0(m.tp.num_tracers, ny, nx))
+    return m, m.pack(st)
+
+
+@pytest.mark.parametrize("case", ["a", "b", "e"])
+def test_coupled_kernel_matches_plain_f64(cuda, case):
+    m, a = _coupled(case, 64, 48, cuda, obstacle=True)
+    b = a
+    for _ in range(10):
+        a = coupled_step_compressed(*a, m)
+        b = coupled_step_compressed_reference(*b, m)
+    torch.cuda.synchronize(cuda)
+    assert all(bool(torch.isfinite(x).all()) for x in a)
+    assert float((a[0] - b[0]).abs().max()) <= 1e-11
+    assert float((a[1] - b[1]).abs().max()) <= 1e-11
+
+
+def test_coupled_kernel_bf16_tracks_plain_bf16(cuda):
+    """Five coupled steps with bf16 flow storage, kernel against the plain
+    path in the same storage: the flow planes off the inlet/outlet seam
+    within the bounds of test_kernel_bf16_tracks_plain_bf16, and the f32
+    tracer PDFs on the rows at least steps + 2 from the seam within 5e-5,
+    about 10x the 4.0e-6 to 4.9e-6 measured on an H100.  The tracer
+    carries the seam's f32 tie-break noise (~2e-3 on the seam rows, with
+    an f32 flow state too) into the rows next to it by streaming, about a
+    row a step."""
+    steps, ny, nx = 5, 96, 64
+    m, a = _coupled("a", ny, nx, cuda,
+                    dtype=torch.float32, storage="bf16", obstacle=True)
+    b = a
+    for _ in range(steps):
+        a = m.step_c(a)
+        b = coupled_step_compressed_reference(*b, m)
+    assert a[0].dtype == torch.bfloat16 and a[1].dtype == torch.float32
+    away = _off_seam(ny, nx, steps, cuda)
+    ua, ub = m.flow.unpack_bf16(a[0]), m.flow.unpack_bf16(b[0])
+    assert bool(torch.isfinite(ua).all()) and bool(torch.isfinite(a[1]).all())
+    assert float((ua[:9] - ub[:9]).abs()[:, away].max()) <= 3e-4
+    assert float((ua[9] - ub[9]).abs()[away].max()) <= 1e-4
+    c = steps + 2
+    assert float((a[1] - b[1]).abs()[:, :, c:ny - c].max()) <= 5e-5
+
+
+def test_coupled_step_counts_launches_and_refuses_device_mix(cuda):
+    m, state = _coupled("f", 32, 16, cuda,
+                        dtype=torch.float32)
+    before = coupled_step_compressed.launches
+    for _ in range(3):
+        state = m.step_c(state)
+    assert coupled_step_compressed.launches == before + 3
+    s, g = state
+    with pytest.raises(ValueError, match="device"):
+        m.step_c((s, g.cpu()))
+    with pytest.raises(ValueError, match="device"):
+        m.step_c((s.cpu(), g))
+    with pytest.raises(ValueError, match="tracer PDFs"):
+        m.step_c((s, g.double()))
+    assert coupled_step_compressed.launches == before + 3

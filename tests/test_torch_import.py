@@ -17,12 +17,13 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _IMPORT_ALL = (
     "import openlbmpm_torch, openlbmpm_torch.models, "
     "openlbmpm_torch.models.base, openlbmpm_torch.models.colorgradient, "
-    "openlbmpm_torch.kernels.csf, openlbmpm_torch.kernels.build, "
+    "openlbmpm_torch.models.transport, openlbmpm_torch.kernels.csf, "
+    "openlbmpm_torch.kernels.transport, openlbmpm_torch.kernels.build, "
     "openlbmpm_torch.convert, openlbmpm_torch.ops.boundaries, "
     "openlbmpm_torch.ops.collision, openlbmpm_torch.ops.colorgrad, "
     "openlbmpm_torch.ops.common, openlbmpm_torch.ops.equilibrium, "
     "openlbmpm_torch.ops.forcing, openlbmpm_torch.ops.macroscopic, "
-    "openlbmpm_torch.ops.streaming, sys; ")
+    "openlbmpm_torch.ops.streaming, openlbmpm_torch.ops.transport, sys; ")
 
 
 def _run(code):
