@@ -42,7 +42,37 @@ toolkit (nvcc) and PyTorch built for CUDA; JAX is not needed.  Phases:
      config 4 with bf16 flow storage for 1000 steps with the NaN guard, the
      coupled launch count checked, then MLUPS of kernel (f32, bf16) and
      plain path (f32, bf16), the roofline share, and each CUDA kernel's
-     device time per launch.
+     device time per launch;
+  9. f64: the split (f_r, f_b) CSF kernel against its plain version, 20
+     steps on the 256x128 channel of phase 3, SRT and MRT, with a Neumann
+     inlet and Dirichlet outlet and with a per-colour Dirichlet inlet
+     (nonzero densities) and convective outlet; max |difference| <= 1e-11;
+ 10. the golden file tests/golden/csf_mini.npz reproduced through the split
+     kernel at f64 (its 48x24 setup, 50 steps, atol 1e-10);
+ 11. f64: the split coupled kernels against their plain version, 20 steps
+     on phase 6's 96x64 channel with tracer mass on the boundary rows, in
+     phase 6's six cases plus conserve_mass, the redistribute interface
+     and standalone transport; max |difference| <= 1e-11;
+ 12. the CLI on the card: ``openlbmpm_torch.cli.main(["run", ...])`` with
+     ``--model cg`` on configs/rk_csf2d.ini set to a 1024^2 domain for 1000
+     f32 steps, then ``--model transport`` with configs/transportsetup.ini
+     and that INI as the flow config for 500 steps; the split kernels'
+     launch counts must rise by exactly the step counts, the final states
+     must be finite, and the MLUPS of metrics.jsonl are printed (they
+     include each output step's I/O);
+ 13. split f32 at 1024^2: MLUPS of the split CSF kernel and its plain path
+     (flagship flow), of the split coupled kernels and their plain path
+     (config 4, also with the conserve_mass and with the redistribute repair
+     after the kernels), and each CUDA kernel's device time per launch;
+ 14. the split kernels in f32, the type the CLI runs, against their plain
+     versions at full size, 10 steps from one f64 start: the split CSF
+     kernel on the flagship flow and on the CLI's cg configuration
+     (rk_csf2d.ini at 1024^2 plus its buffer rows), the split coupled
+     kernels on config 4 and on the CLI's transport configuration; f64
+     <= 1e-11, f32 off the seam within phase 4's 3e-5 (tracers also off the
+     rows next to the seam), the kernel no further from f64 than
+     max(1.5x the plain f32 path, 3e-5), rho_r and tracer mass as in
+     phases 4 and 7.
 
 Every phase prints one line or more, each number line with the card's name
 and power limit, and any failure exits non-zero.  The line before the last
@@ -134,14 +164,14 @@ def phase_f64(device, ny=256, nx=128, steps=20, tol=1e-11):
     return err
 
 
-def seam_masks(n, steps, device):
+def seam_masks(ny, nx, steps, device):
     """Cells off the inlet/outlet seam rows and off the corners where they
     meet the walls (see phase_flagship)."""
     corner = steps + 2
-    away = torch.ones((n, n), dtype=torch.bool, device=device)
-    away[[0, 1, n - 2, n - 1], :] = False
-    for ys in (slice(0, corner), slice(n - corner, n)):
-        for xs in (slice(0, corner), slice(n - corner, n)):
+    away = torch.ones((ny, nx), dtype=torch.bool, device=device)
+    away[[0, 1, ny - 2, ny - 1], :] = False
+    for ys in (slice(0, corner), slice(ny - corner, ny)):
+        for xs in (slice(0, corner), slice(nx - corner, nx)):
             away[ys, xs] = False
     return away
 
@@ -179,7 +209,7 @@ def phase_flagship(device, n=FLAGSHIP_N, steps=10):
     check(res["f64"] <= 1e-11, f"f64 kernel vs plain {res['f64']:.3e} > 1e-11")
 
     corner = steps + 2     # tie-break noise spreads about a cell per step
-    away = seam_masks(n, steps, device)
+    away = seam_masks(n, n, steps, device)
     seam = ~away
     seam[:, :corner] = False
     seam[:, n - corner:] = False
@@ -276,6 +306,14 @@ def phase_main(device, n=FLAGSHIP_N, steps=MAIN_STEPS, kernel_steps=500,
     from openlbmpm_torch.kernels.csf import (
         csf_step_compressed, csf_step_compressed_reference, launch_csf2d)
     from openlbmpm_torch.models.base import RunMetrics, run_chunked
+    m32 = flagship_model(device, "f32", n=n)
+    csf_step_compressed.launches = 0
+    s32 = run_chunked(m32.step_c, m32.pack_state(*m32.init_state_layers(
+        1.0, 1.0, invading_rows=100 * n // 1024)), num_steps=steps // 4,
+        io_interval=250, nan_guard=True)
+    launches32 = csf_step_compressed.launches
+    check(launches32 == steps // 4 and bool(torch.isfinite(s32).all()),
+          f"f32 main path: {launches32} launches, want {steps // 4}")
     m = flagship_model(device, "bf16", n=n)
     s = m.pack_state_bf16(*m.init_state_layers(1.0, 1.0,
                                                invading_rows=100 * n // 1024))
@@ -302,8 +340,8 @@ def phase_main(device, n=FLAGSHIP_N, steps=MAIN_STEPS, kernel_steps=500,
             lambda s, m=m: launch_csf2d(s, m.kernel_params, m.geo_planes),
             states[st], KERNELS)
         profile.update({(st, k): v for k, v in times.items()})
-    return {"launches": launches, "run_mlups": meter.mlups, "sec": runs,
-            "profile": profile}
+    return {"launches": launches, "launches_f32": launches32,
+            "run_mlups": meter.mlups, "sec": runs, "profile": profile}
 
 
 def time_paths(models, states, kernel, plain, kernel_steps, plain_steps,
@@ -380,7 +418,9 @@ def phase5_lines(main_res, card, t_build, n=FLAGSHIP_N):
     return [
         f"phase 5 main path: run_chunked(step_c) {MAIN_STEPS} bf16 steps, "
         f"{main_res['launches']} kernel launches, "
-        f"{main_res['run_mlups']:.1f} MLUPS incl. host loop; [{card}]",
+        f"{main_res['run_mlups']:.1f} MLUPS incl. host loop; "
+        f"{MAIN_STEPS // 4} f32 steps, {main_res['launches_f32']} launches "
+        f"[{card}]",
         f"phase 5 MLUPS {n}^2 [{card}]: kernel f32 "
         f"{mlups[('kernel', 'f32')]:.1f}, kernel bf16 "
         f"{mlups[('kernel', 'bf16')]:.1f}, plain f32 "
@@ -428,13 +468,14 @@ HBM_BYTES_PER_S = 3.35e12
 
 
 def coupled_model(device, storage, tp, dtype=torch.float32, ny=FLAGSHIP_N,
-                  nx=FLAGSHIP_N):
+                  nx=FLAGSHIP_N, standalone=False):
     """The flagship flow (which is bench_all.py config 4's flow) coupled
     with the tracers `tp` (a dict of TransportParams fields)."""
     from openlbmpm_torch.models.transport import TransportParams, TransportRK
     params, bcs = flagship_flow()
     return TransportRK(walled(ny, nx), params, TransportParams(**tp), bcs,
-                       dtype=dtype, device=device, storage=storage)
+                       standalone=standalone, dtype=dtype, device=device,
+                       storage=storage)
 
 
 CONFIG4_TRACER = dict(num_tracers=1, scheme=5, tau=(1.0,), j0=(1 / 3,),
@@ -495,7 +536,7 @@ def phase_coupled_config4(device, n=FLAGSHIP_N, steps=10):
     1e-7 per step of its start and of the plain path."""
     from openlbmpm_torch.kernels.transport import (
         coupled_step_compressed, coupled_step_compressed_reference)
-    away = seam_masks(n, steps, device)
+    away = seam_masks(n, n, steps, device)
     bounds = {"f32": (3e-5, 3e-5), "bf16": (3e-4, 1e-4)}
     res = {}
     for storage in ("f32", "bf16"):
@@ -626,6 +667,455 @@ def phase8_lines(res, card, n=FLAGSHIP_N):
             for (st, k), v in res["profile"].items())]
 
 
+# -- the split (f_r, f_b) layout: K6 and K5s -------------------------------
+
+def golden_flow():
+    """tests/test_golden.py's csf_mini flow (phase 3's, scaled up there):
+    CSF MRT, tau_b 0.8, tau_type 2, Akai wetting at 60 degrees, Neumann
+    inlet at v = -1e-4, Dirichlet outlet.  Returns (params, boundaries)."""
+    from openlbmpm_torch.models.colorgradient import (
+        CGBoundaryConfig, ColorGradientParams)
+    params = ColorGradientParams(
+        variant="CSF", collision="MRT", surface_tension=0.01, tau_r=1.0,
+        tau_b=0.8, tau_type=2, wetting_type=2, contact_angle_deg=60.0)
+    bcs = CGBoundaryConfig(inlet="neumann", outlet="dirichlet",
+                           inlet_velocity=-1e-4, outlet_density_r=0.0,
+                           outlet_density_b=1.0)
+    return params, bcs
+
+
+def split_cases():
+    """name -> (params, boundaries) of phase 9: both collisions under the
+    golden boundary rows, and under a per-colour Dirichlet inlet (nonzero
+    target densities) with a convective outlet."""
+    import dataclasses
+    params, bcs = golden_flow()
+    dc = dataclasses.replace(bcs, inlet="dirichlet", outlet="convective",
+                             inlet_density_r=1.0005, inlet_density_b=2e-3)
+    srt = dataclasses.replace(params, collision="SRT", tau_type=1)
+    return {"mrt_neumann_dirichlet": (params, bcs),
+            "srt_neumann_dirichlet": (srt, bcs),
+            "mrt_dirichlet_convective": (params, dc),
+            "srt_dirichlet_convective": (srt, dc)}
+
+
+def phase_split_f64(device, ny=256, nx=128, steps=20, tol=1e-11):
+    """The split CSF kernel against its plain version at f64."""
+    from openlbmpm_torch.kernels.csf import (
+        csf_step_split, csf_step_split_reference)
+    from openlbmpm_torch.models.colorgradient import ColorGradientRK
+    out = {}
+    for name, (params, bcs) in split_cases().items():
+        m = ColorGradientRK(walled(ny, nx), params, bcs, dtype=torch.float64,
+                            device=device)
+        a = b = m.init_state_layers(1.0, 1.0, invading_rows=ny // 5)
+        err = 0.0
+        for _ in range(steps):
+            a = csf_step_split(a, m)
+            b = csf_step_split_reference(b, m)
+            err = max(err, *(float((x - y).abs().max()) for x, y in zip(a, b)))
+        check(all(bool(torch.isfinite(x).all()) for x in a),
+              f"split f64 {name}: state not finite")
+        check(err <= tol, f"split f64 {name}: kernel vs plain {err:.3e} > "
+              f"{tol:g}")
+        out[name] = err
+    return out
+
+
+def phase_golden(device, atol=1e-10):
+    """tests/golden/csf_mini.npz through the split kernel at f64 (the setup
+    of tests/test_golden.py::test_golden_csf_mini)."""
+    import os
+    from openlbmpm_torch.kernels.csf import csf_step_split
+    from openlbmpm_torch.models.colorgradient import ColorGradientRK
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "golden", "csf_mini.npz")
+    m = ColorGradientRK(walled(48, 24), *golden_flow(), dtype=torch.float64,
+                        device=device)
+    st = m.init_state_layers(1.0, 1.0, invading_rows=10)
+    before = csf_step_split.launches
+    for _ in range(50):
+        st = m.step(st)
+    check(csf_step_split.launches - before == 50,
+          "golden run did not go through the split kernel")
+    with np.load(path) as z:
+        err = max(float(np.abs(st[0].sum(0).cpu().numpy() - z["rho_r"]).max()),
+                  float(np.abs(st[1].sum(0).cpu().numpy() - z["rho_b"]).max()))
+    check(err <= atol, f"csf_mini.npz through the split kernel: {err:.3e} > "
+          f"{atol:g}")
+    return err
+
+
+def split_coupled_cases():
+    """Phase 6's tracer cases plus the split step's own options: (model
+    keyword changes, TransportParams fields)."""
+    cases = {k: ({}, v) for k, v in COUPLED_CASES.items()}
+    cases["conserve_mass"] = ({}, COUPLED_CASES["a"] | {"conserve_mass": True})
+    cases["redistribute"] = ({}, COUPLED_CASES["b"] |
+                             {"interface_mode": "redistribute"})
+    cases["standalone"] = ({"standalone": True}, COUPLED_CASES["a"])
+    return cases
+
+
+def phase_split_coupled_f64(device, ny=96, nx=64, steps=20, tol=1e-11):
+    """The split coupled step on the kernels (``TransportRK.step``: the
+    kernels, then the repairs) against the plain split coupled step
+    (``plain_step``) at f64, with tracer mass on the BC rows."""
+    out = {}
+    for seed, (name, (kw, tp)) in enumerate(split_coupled_cases().items()):
+        m = coupled_model(device, "f32", tp, dtype=torch.float64, ny=ny,
+                          nx=nx, **kw)
+        a = b = m.init_state(
+            m.flow.init_state_layers(1.0, 1.0, invading_rows=ny // 5),
+            coupled_conc0(m.tp.num_tracers, ny, nx, seed))
+        es = eg = 0.0
+        for _ in range(steps):
+            a = m.step(a)
+            b = m.plain_step(b)
+            es = max(es, *(float((x - y).abs().max())
+                           for x, y in zip(a[:2], b[:2])))
+            eg = max(eg, float((a.g - b.g).abs().max()))
+        check(all(bool(torch.isfinite(x).all()) for x in a[:3]),
+              f"split f64 coupled case {name}: state not finite")
+        check(es <= tol and eg <= tol, f"split f64 coupled case {name}: "
+              f"kernel vs plain flow {es:.3e}, tracers {eg:.3e} > {tol:g}")
+        out[name] = (es, eg)
+    return out
+
+
+def _mini_ini(src: str, dst: str, n: int, interval: int):
+    """`src` with the domain set to n x n and the output interval to
+    `interval`, written to `dst`."""
+    text = open(src).read()
+    text = re.sub(r"(?m)^xDomain = .*$", f"xDomain = {n}", text)
+    text = re.sub(r"(?m)^yDomain = .*$", f"yDomain = {n}", text)
+    text = re.sub(r"(?m)^TimeInterval = .*$", f"TimeInterval = {interval}",
+                  text)
+    with open(dst, "w") as fh:
+        fh.write(text)
+
+
+def _mlups(metrics_path: str) -> list:
+    with open(metrics_path) as fh:
+        return [json.loads(ln).get("mlups") for ln in fh if ln.strip()][1:]
+
+
+def phase_cli(device, n=FLAGSHIP_N, cg_steps=1000, tr_steps=500):
+    """The user's entry point on the card: ``run --model cg`` and ``run
+    --model transport`` through ``openlbmpm_torch.cli.main``."""
+    import os
+    import tempfile
+    from openlbmpm_torch import cli
+    from openlbmpm_torch.checkpoint import load_checkpoint
+    from openlbmpm_torch.kernels.csf import csf_step_split
+    from openlbmpm_torch.kernels.transport import coupled_step_split
+    root = os.path.dirname(os.path.abspath(__file__))
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ini = os.path.join(tmp, "rk_csf2d.ini")
+        _mini_ini(os.path.join(root, "configs", "rk_csf2d.ini"), ini, n, 500)
+        out = os.path.join(tmp, "cg")
+        csf_step_split.launches = 0
+        t0 = time.perf_counter()
+        rc = cli.main(["run", ini, "--model", "cg", "--steps", str(cg_steps),
+                       "--output", out, "--device", "cuda"])
+        res["cg_sec"] = time.perf_counter() - t0
+        res["cg_launches"] = csf_step_split.launches
+        check(rc == 0, f"cli run --model cg returned {rc}")
+        check(res["cg_launches"] == cg_steps, f"cli cg: split kernel launched "
+              f"{res['cg_launches']} times, want {cg_steps}")
+        with np.load(os.path.join(out, "checkpoint.npz")) as z:
+            shapes = [z[f"leaf{i}"].shape for i in range(2)]
+        like = tuple(torch.zeros(sh, device=device) for sh in shapes)
+        (f_r, f_b), step = load_checkpoint(os.path.join(out, "checkpoint.npz"),
+                                           like)
+        check(step == cg_steps and f_r.shape[0] == 9 and
+              bool(torch.isfinite(f_r).all() and torch.isfinite(f_b).all()),
+              f"cli cg: checkpoint at step {step} {tuple(f_r.shape)} not a "
+              "finite split state")
+        res["cg_mlups"] = _mlups(os.path.join(out, "metrics.jsonl"))
+        res["cg_shape"] = tuple(f_r.shape[1:])
+
+        out = os.path.join(tmp, "transport")
+        coupled_step_split.launches = 0
+        t0 = time.perf_counter()
+        rc = cli.main(["run", os.path.join(root, "configs",
+                                           "transportsetup.ini"),
+                       "--model", "transport", "--physics-config", ini,
+                       "--steps", str(tr_steps), "--output", out,
+                       "--device", "cuda"])
+        res["tr_sec"] = time.perf_counter() - t0
+        res["tr_launches"] = coupled_step_split.launches
+        check(rc == 0, f"cli run --model transport returned {rc}")
+        check(res["tr_launches"] == tr_steps, f"cli transport: split coupled "
+              f"kernels launched {res['tr_launches']} times, want {tr_steps}")
+        with open(os.path.join(out, "metrics.jsonl")) as fh:
+            recs = [json.loads(ln) for ln in fh if ln.strip()]
+        mass = recs[-1]["tracer0_mass"]
+        check(recs[-1]["step"] == tr_steps and np.isfinite(mass) and mass > 0,
+              f"cli transport: last record {recs[-1]}")
+        res["tr_mass"] = mass
+        res["tr_mlups"] = _mlups(os.path.join(out, "metrics.jsonl"))
+    return res
+
+
+def time_pair(kernel, plain, x, kernel_steps, plain_steps, device):
+    """Seconds per step of x = kernel(x) and x = plain(x): plain, kernel,
+    kernel, plain, keeping the best of each."""
+    best = {}
+    for path in ("plain", "kernel", "kernel", "plain"):
+        fn, k = (kernel, kernel_steps) if path == "kernel" \
+            else (plain, plain_steps)
+        best[path] = min(best.get(path, float("inf")),
+                         _time_steps(fn, x, k, device))
+    return best
+
+
+def phase_split_speed(device, n=FLAGSHIP_N):
+    """Split f32 at 1024^2: the split CSF step (flagship flow) and the
+    split coupled step (config 4, also with the conserve_mass and with the
+    redistribute repair after the kernels), kernel and plain path, and the
+    device time of each CUDA kernel per launch.  conserve_mass adds tracer
+    mass each step (ROADMAP section 3), so it is timed over 20 steps."""
+    from openlbmpm_torch.kernels.csf import (
+        csf_step_split, csf_step_split_reference, launch_csf2d_split)
+    from openlbmpm_torch.kernels.transport import launch_coupled2d_split
+    m = flagship_model(device, "f32", n=n)
+    st = m.init_state_layers(1.0, 1.0, invading_rows=100 * n // 1024)
+    res = {"flow": time_pair(lambda x: csf_step_split(x, m),
+                             lambda x: csf_step_split_reference(x, m), st,
+                             500, 30, device)}
+    res["flow_profile"] = device_times(
+        lambda x: launch_csf2d_split(*x, m.kernel_params, m.geo_planes), st,
+        KERNELS)
+    for name, tp, k in (
+            ("coupled", CONFIG4_TRACER, 300),
+            ("conserve_mass", CONFIG4_TRACER | {"conserve_mass": True}, 20),
+            ("redistribute", CONFIG4_TRACER |
+             {"interface_mode": "redistribute"}, 300)):
+        mc = coupled_model(device, "f32", tp)
+        cst, _ = config4_state(mc, n)
+        res[name] = time_pair(mc.step, mc.plain_step, cst, k, 20, device)
+        if name == "coupled":
+            args = (mc.flow.kernel_params, mc.tracer_params,
+                    mc.flow.geo_planes, mc.tracer_table)
+            res["coupled_profile"] = device_times(
+                lambda x: launch_coupled2d_split(*x, *args)[:3],
+                tuple(cst[:3]), COUPLED_KERNELS)
+    return res
+
+
+def cli_configs(n=FLAGSHIP_N):
+    """What ``run --model cg|transport`` builds from configs/rk_csf2d.ini
+    set to an n x n domain (plus its buffer rows) and from
+    configs/transportsetup.ini: (params, boundaries, geometry, invading
+    rows, TransportParams)."""
+    import os
+    import tempfile
+    from openlbmpm_torch.cli import _build_geometry
+    from openlbmpm_torch.config import load_colorgradient, load_transport
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        ini = os.path.join(tmp, "rk_csf2d.ini")
+        _mini_ini(os.path.join(root, "configs", "rk_csf2d.ini"), ini, n, 500)
+        params, bcs, domain, _ = load_colorgradient(ini)
+    tp = load_transport(os.path.join(root, "configs", "transportsetup.ini"))
+    return (params, bcs, _build_geometry(domain),
+            max(domain.buffer_layers, 10), tp)
+
+
+def _cast(state, dtype):
+    vals = [t.to(dtype) for t in state]
+    return type(state)(*vals) if hasattr(state, "_fields") else tuple(vals)
+
+
+def _steps(fn, x, steps):
+    for _ in range(steps):
+        x = fn(x)
+    return x
+
+
+def split_gaps(models, st64, kernel, plain, steps, away):
+    """Kernel and plain path from the f64 split state `st64`, `steps` steps
+    at f64 (models[torch.float64]) and at f32: the gaps of phase_split_full
+    over the colour planes, and over the tracer PDFs where the state has
+    them (`away` masks the cells off the seam)."""
+    f64, f32 = torch.float64, torch.float32
+    runs = {(dt, path): _steps(lambda x, f=fn, m=models[dt]: f(x, m),
+                               _cast(st64, dt), steps)
+            for dt in (f64, f32) for path, fn in (("kernel", kernel),
+                                                   ("plain", plain))}
+    flow = {k: torch.cat([v[0], v[1]]) for k, v in runs.items()}
+    gap = lambda a, b: float((a - b).abs().max())  # noqa: E731
+    d = (flow[f32, "kernel"] - flow[f32, "plain"]).abs()
+    ref = flow[f64, "plain"]
+    r = {"f64": gap(flow[f64, "kernel"], ref),
+         "planes": float(d[:, away].max()), "max": float(d.max()),
+         "from_f64": (gap(flow[f32, "kernel"].double(), ref),
+                      gap(flow[f32, "plain"].double(), ref)),
+         "finite": all(bool(torch.isfinite(t).all()) for v in runs.values()
+                       for t in v[:3])}
+    tot = [float(runs[f32, p][0].double().sum()) for p in ("kernel", "plain")]
+    tot0 = float(st64[0].sum())
+    r["mass"] = (abs(tot[0] - tot[1]) / tot[1], abs(tot[0] - tot0) / tot0)
+    if hasattr(st64, "g"):
+        gk, gp = runs[f32, "kernel"].g, runs[f32, "plain"].g
+        r["f64"] = max(r["f64"], gap(runs[f64, "kernel"].g,
+                                     runs[f64, "plain"].g))
+        r["g"] = float((gk - gp).abs()[:, :, away].max())
+        r["max"] = max(r["max"], gap(gk, gp))
+        mk, mp = float(gk.double().sum()), float(gp.double().sum())
+        m0 = float(st64.g.sum())
+        r["tracer_mass"] = (abs(mk - mp) / m0, abs(mk - m0) / m0)
+        r["conc_min"] = min(float(x.sum(1).min()) for x in (gk, gp))
+    return r
+
+
+def phase_split_full(device, n=FLAGSHIP_N, steps=10, tol=3e-5):
+    """The split counterpart of phases 4 and 7, at full size and at f32,
+    the type the CLI runs: K6 on the flagship flow and on the CLI's cg
+    configuration, K5s on config 4 and on the CLI's transport
+    configuration.  From one f64 start, kernel and plain path run `steps`
+    steps at f64 (<= 1e-11) and in f32, where off the seam rows and corners
+    the colour planes (and the tracer PDFs, there and off the `steps` + 2
+    rows next to the seam) agree to `tol`; the kernel is no further from the
+    f64 plain run than max(1.5x the plain f32 path, `tol`); total rho_r
+    within 1e-4 of the plain path (and of the start on phase 4's and
+    phase 7's flow: the CLI's configuration, with 10 invading rows against
+    100, gains 1.2e-4 of its red mass through the inlet in 10 steps);
+    tracer mass within 1e-7 per step of the plain path (and, in config 4,
+    which has no tracer inlet or outlet, of the start); concentrations
+    >= -1e-4."""
+    from openlbmpm_torch.kernels.csf import (
+        csf_step_split, csf_step_split_reference)
+    from openlbmpm_torch.models.colorgradient import ColorGradientRK
+    from openlbmpm_torch.models.transport import TransportParams, TransportRK
+    params, bcs, geo_cli, rows_cli, tp_cli = cli_configs(n)
+    flows = {"flagship": (walled(n, n), *flagship_flow(), 100 * n // 1024),
+             "cli_cg": (geo_cli, params, bcs, rows_cli)}
+    dts = (torch.float64, torch.float32)
+    res = {}
+    for name, (geo, p, b, rows) in flows.items():
+        models = {dt: ColorGradientRK(geo, p, b, dtype=dt, device=device)
+                  for dt in dts}
+        st = models[torch.float64].init_state_layers(1.0, 1.0,
+                                                     invading_rows=rows)
+        res[name] = split_gaps(models, st, csf_step_split,
+                               csf_step_split_reference, steps,
+                               seam_masks(*geo.shape, steps, device))
+    coupled = {"config4": ("flagship", TransportParams(**CONFIG4_TRACER)),
+               "cli_transport": ("cli_cg", tp_cli)}
+    for name, (flow, tp) in coupled.items():
+        geo, p, b, rows = flows[flow]
+        models = {dt: TransportRK(geo, p, tp, b, dtype=dt, device=device)
+                  for dt in dts}
+        ny, nx = geo.shape
+        conc0 = np.zeros((tp.num_tracers, ny, nx))
+        if name == "config4":
+            conc0[:, ny - 280 * n // 1024:ny - 120 * n // 1024] = 1.0
+        else:     # a band across the interface, below the tracer inlet
+            conc0[:, ny - rows - 50:ny - 5] = 1.0
+        m64 = models[torch.float64]
+        st = m64.init_state(m64.flow.init_state_layers(1.0, 1.0, rows),
+                            conc0)
+        away = seam_masks(ny, nx, steps, device)
+        away[:steps + 2] = away[ny - steps - 2:] = False
+        res[name] = split_gaps(models, st, lambda x, m: m.step(x),
+                               lambda x, m: m.plain_step(x), steps, away)
+    for name, r in res.items():
+        acc_k, acc_p = r["from_f64"]
+        check(r["finite"], f"split full size {name}: state not finite")
+        check(r["f64"] <= 1e-11, f"split full size {name}: f64 kernel vs "
+              f"plain {r['f64']:.3e} > 1e-11")
+        check(r["planes"] <= tol and r.get("g", 0.0) <= tol,
+              f"split full size {name} f32 off the seam: planes "
+              f"{r['planes']:.3e}, tracers {r.get('g', 0.0):.3e} > {tol:g}")
+        check(acc_k <= max(1.5 * acc_p, tol), f"split full size {name} f32: "
+              f"kernel {acc_k:.3e} from f64, the plain path {acc_p:.3e}")
+        check(r["mass"][0] <= 1e-4 and (name.startswith("cli") or
+                                        r["mass"][1] <= 1e-4),
+              f"split full size {name}: total rho_r kernel vs plain "
+              f"{r['mass'][0]:.2e}, change {r['mass'][1]:.2e}")
+        if "g" in r:
+            gap, change = r["tracer_mass"]
+            check(gap <= 1e-7 * steps and (name != "config4" or
+                                           change <= 1e-7 * steps),
+                  f"split full size {name}: tracer mass kernel vs plain "
+                  f"{gap:.2e}, from the start {change:.2e}")
+            check(r["conc_min"] >= -1e-4, f"split full size {name}: "
+                  f"concentration {r['conc_min']:.2e}")
+    return res
+
+
+def phase14_line(res, card) -> str:
+    parts = []
+    for k, r in res.items():
+        txt = (f"{k}: f64 {r['f64']:.3e} (<= 1e-11); f32 off the seam planes "
+               f"{r['planes']:.3e}")
+        if "g" in r:
+            txt += f", tracers {r['g']:.3e}"
+        txt += (f" (<= 3e-5), max {r['max']:.3e}; from f64 kernel "
+                f"{r['from_f64'][0]:.3e} vs plain {r['from_f64'][1]:.3e}; "
+                f"total rho_r kernel vs plain {r['mass'][0]:.2e}, change "
+                f"{r['mass'][1]:.2e}")
+        if "g" in r:
+            txt += (f"; tracer mass kernel vs plain {r['tracer_mass'][0]:.2e},"
+                    f" from the start {r['tracer_mass'][1]:.2e}; conc min "
+                    f"{r['conc_min']:.2e}")
+        parts.append(txt)
+    return (f"phase 14 split kernels vs plain at full size, 10 steps, f64 and "
+            f"f32 [{card}]: " + "; ".join(parts))
+
+
+def phase9_13_lines(r9, r10, r11, r12, r13, card, n=FLAGSHIP_N):
+    def mlups(sec):
+        return n * n / sec / 1e6
+
+    def prof(p):
+        return ", ".join(f"{k} " + ("not measured" if v is None else
+                                    f"{v[0]:.2f} ({v[1]:g})")
+                         for k, v in p.items())
+    cg_cells = r12["cg_shape"][0] * r12["cg_shape"][1]
+    return [
+        "phase 9 split f64 kernel vs plain, 256x128, 20 steps: max |diff| " +
+        ", ".join(f"{k} {v:.3e}" for k, v in r9.items()) + " (<= 1e-11)",
+        f"phase 10 tests/golden/csf_mini.npz through the split kernel, f64, "
+        f"50 steps: max |diff| {r10:.3e} (<= 1e-10)",
+        "phase 11 split f64 coupled kernels vs plain, 96x64, 20 steps, max "
+        "|diff| flow/tracers: " + ", ".join(
+            f"{k} {es:.3e}/{eg:.3e}" for k, (es, eg) in r11.items()) +
+        " (<= 1e-11)",
+        f"phase 12 cli run --model cg, {r12['cg_shape'][0]}x"
+        f"{r12['cg_shape'][1]} ({cg_cells} cells), 1000 f32 steps: "
+        f"{r12['cg_launches']} split kernel launches, {r12['cg_sec']:.2f} s "
+        f"with I/O, metrics.jsonl MLUPS {r12['cg_mlups']} [{card}]",
+        f"phase 12 cli run --model transport, same domain, 500 f32 steps: "
+        f"{r12['tr_launches']} split coupled launches, {r12['tr_sec']:.2f} s "
+        f"with I/O, tracer0 mass {r12['tr_mass']:.6g}, metrics.jsonl MLUPS "
+        f"{r12['tr_mlups']} [{card}]",
+        f"phase 13 split f32 MLUPS {n}^2 [{card}]: flow kernel "
+        f"{mlups(r13['flow']['kernel']):.1f} "
+        f"({r13['flow']['kernel'] * 1e3:.4f} ms), flow plain "
+        f"{mlups(r13['flow']['plain']):.1f} "
+        f"({r13['flow']['plain'] * 1e3:.4f} ms); coupled config 4 kernel "
+        f"{mlups(r13['coupled']['kernel']):.1f} "
+        f"({r13['coupled']['kernel'] * 1e3:.4f} ms), coupled plain "
+        f"{mlups(r13['coupled']['plain']):.1f} "
+        f"({r13['coupled']['plain'] * 1e3:.4f} ms); " + "; ".join(
+            f"{k} (kernels + repair) {mlups(r13[k]['kernel']):.1f} "
+            f"({r13[k]['kernel'] * 1e3:.4f} ms), plain "
+            f"{mlups(r13[k]['plain']):.1f} ({r13[k]['plain'] * 1e3:.4f} ms)"
+            for k in ("conserve_mass", "redistribute")),
+        f"phase 13 torch.profiler device us per launch (launches per step) "
+        f"{n}^2 split f32 [{card}]: flow: {prof(r13['flow_profile'])}; "
+        f"coupled: {prof(r13['coupled_profile'])}"]
+
+
+# kernels whose first integer template argument is the state layout
+LAYOUT_KERNELS = ("phase_kernel", "collide_stream_kernel",
+                  "tracer_collide_kernel")
+
+
 def ptxas_summary(log: str) -> str:
     """'kernel<type[,q]>: registers, smem, spill stores' per entry function
     of an `nvcc -Xptxas -v` log."""
@@ -639,8 +1129,11 @@ def ptxas_summary(log: str) -> str:
             args = mangled.split(base)[-1]
             kind = ("bf16" if "bfloat16" in mangled else
                     "f64" if re.search(r"I[^E]*d", args) else "f32")
-            q = re.search(r"Li(\d)E", args)
-            name, spill = f"{base}<{kind}{',q' + q.group(1) if q else ''}>", "?"
+            ints = re.findall(r"Li(\d+)E", args)
+            split = base in LAYOUT_KERNELS and ints and ints.pop(0) == "1"
+            name = (f"{base}<{kind}{',split' if split else ''}"
+                    f"{',q' + ints[0] if ints else ''}>")
+            spill = "?"
         elif name and "spill stores" in ln:
             spill = ln.split(",")[1].strip()
         elif name and "Used" in ln and "registers" in ln:
@@ -705,24 +1198,69 @@ def main() -> int:
     for ln in phase8_lines(res8, card):
         print(ln)
 
+    r9 = phase_split_f64(device)
+    r10 = phase_golden(device)
+    r11 = phase_split_coupled_f64(device)
+    r12 = phase_cli(device)
+    r13 = phase_split_speed(device)
+    for ln in phase9_13_lines(r9, r10, r11, r12, r13, card):
+        print(ln)
+    r14 = phase_split_full(device)
+    print(phase14_line(r14, card))
+
+    csf = "openlbmpm_tpu/pallas/csf.py:147"
     print(json.dumps({"kernels": [{
         "name": "csf_step_compressed",
+        "label": "K2",
         "route": "cuda",
         "source": "openlbmpm_torch/csrc/csf2d.cu",
-        "replaces": "openlbmpm_tpu/pallas/csf.py:147",
+        "replaces": csf,
         "launches": main_res["launches"],
         "max_abs_err": res["bf16"]["max"],
         "ms": main_res["sec"][("kernel", "bf16")] * 1e3,
         "plain_ms": main_res["sec"][("plain", "bf16")] * 1e3,
     }, {
         "name": "coupled_step_compressed",
+        "label": "K5c",
         "route": "cuda",
         "source": "openlbmpm_torch/csrc/coupled2d.cu",
-        "replaces": "openlbmpm_tpu/pallas/csf.py:147 (transport_params)",
+        "replaces": f"{csf} (transport_params)",
         "launches": res8["launches"],
         "max_abs_err": res7["bf16"]["max"],
         "ms": res8["sec"][("kernel", "bf16")] * 1e3,
         "plain_ms": res8["sec"][("plain", "bf16")] * 1e3,
+    }, {
+        "name": "csf_step_compressed_f32",
+        "label": "K1",
+        "route": "cuda",
+        "source": "openlbmpm_torch/csrc/csf2d.cu",
+        "replaces": f"{csf} (storage='f32')",
+        "launches": main_res["launches_f32"],
+        "max_abs_err": res["f32"]["max"],
+        "ms": main_res["sec"][("kernel", "f32")] * 1e3,
+        "plain_ms": main_res["sec"][("plain", "f32")] * 1e3,
+    }, {
+        "name": "csf_step_split",
+        "label": "K6",
+        "route": "cuda",
+        "source": "openlbmpm_torch/csrc/csf2d.cu",
+        "replaces": f"{csf} (state_mode='split')",
+        "launches": r12["cg_launches"],
+        "max_abs_err": r14["flagship"]["max"],
+        "max_abs_err_f64": max(r9.values()),
+        "ms": r13["flow"]["kernel"] * 1e3,
+        "plain_ms": r13["flow"]["plain"] * 1e3,
+    }, {
+        "name": "coupled_step_split",
+        "label": "K5s",
+        "route": "cuda",
+        "source": "openlbmpm_torch/csrc/coupled2d.cu",
+        "replaces": f"{csf} (transport_params, state_mode='split')",
+        "launches": r12["tr_launches"],
+        "max_abs_err": r14["config4"]["max"],
+        "max_abs_err_f64": max(max(v) for v in r11.values()),
+        "ms": r13["coupled"]["kernel"] * 1e3,
+        "plain_ms": r13["coupled"]["plain"] * 1e3,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -1,0 +1,251 @@
+"""Non-interactive CLI of the port: ``python -m openlbmpm_torch run <ini>``.
+
+The same subcommands, flags and outputs as ``openlbmpm_tpu/cli.py`` for the
+families the port runs so far, plus ``--device``:
+
+  run        run a simulation from a legacy-dialect INI file
+  inspect    parse a config and print the resolved typed parameters
+
+``--model cg`` steps ``ColorGradientRK.step`` on the split (f_r, f_b) state
+(on a card, the split CSF kernel); ``--model transport`` steps the split
+``TransportRK.step`` (the split coupled kernels).  Results, metrics and
+checkpoints are written as the JAX CLI writes them, so a checkpoint of
+either package resumes in the other.  The other ``--model`` families exit
+with status 2 and "not ported yet".
+
+``--device cuda`` (the default) runs on the first card and raises when
+there is none; it never falls back to the CPU.  ``--device cpu`` runs the
+plain PyTorch path.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import sys
+
+import numpy as np
+
+PORTED = ("cg", "transport")
+MODELS = ("cg", "cg3d", "sc", "sc3d", "transport", "transport3d", "basic",
+          "basic3d")
+
+
+def _build_geometry(domain):
+    from . import geometry as geo
+    if domain.use_image and domain.image_path:
+        solid = geo.load_structure_image(domain.image_path)
+        if domain.duplicate != (1, 1):
+            solid = geo.duplicate_domain(solid, *domain.duplicate)
+        if domain.buffer_layers:
+            solid = geo.add_buffer_layers(solid, domain.buffer_layers)
+        return geo.from_solid_mask(solid)
+    g = geo.box_with_walls(domain.nx, domain.ny)
+    if domain.buffer_layers:
+        return geo.from_solid_mask(
+            geo.add_buffer_layers(g.is_solid, domain.buffer_layers,
+                                  seal_sides=True))
+    return g
+
+
+def _setup(args):
+    """(torch dtype, torch device) of the run; raises for a CUDA device
+    without a card."""
+    import torch
+
+    from ._device import resolve_device
+    dev = resolve_device(args.device)
+    return (torch.float64 if args.dtype == "f64" else torch.float32), dev
+
+
+def _host(t) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def _note_block(args):
+    # the port has no temporally blocked step (K3): as the JAX CLI off a TPU
+    if args.block > 1:
+        print("note: --block unsupported for this config; running unblocked")
+
+
+def _run_colorgradient(args):
+    from .checkpoint import (config_fingerprint, di_cycle_swap,
+                             load_checkpoint, save_checkpoint)
+    from .config import load_colorgradient
+    from .io import ResultWriter, save_png_field
+    from .metrics import MetricsLogger, flow_diagnostics, steady_state_criterion
+    from .models.base import run_chunked
+    from .models.colorgradient import ColorGradientRK
+
+    params, bcs, domain, run = load_colorgradient(args.config)
+    if args.steps:
+        run = dataclasses.replace(run, num_steps=args.steps)
+    geometry = _build_geometry(domain)
+    dtype, dev = _setup(args)
+    model = ColorGradientRK(geometry, params, bcs, dtype=dtype, device=dev)
+    state = model.init_state_layers(
+        1.0, 1.0, invading_rows=max(domain.buffer_layers, 10))
+    fingerprint = config_fingerprint(params)
+    start_step = 0
+    ckpt_path = os.path.join(args.output, "checkpoint.npz")
+    if args.resume and os.path.exists(ckpt_path):
+        state, start_step = load_checkpoint(ckpt_path, state, fingerprint)
+        print(f"resumed from step {start_step}")
+        if run.is_cycle:
+            state = di_cycle_swap(*state,
+                                  buffer_rows=max(domain.buffer_layers, 10))
+            print("D-I cycle: fluids swapped in the buffer layers")
+    _note_block(args)
+
+    writer = ResultWriter(args.output, basename="SimulationResultsRK")
+    logger = MetricsLogger(os.path.join(args.output, "metrics.jsonl"),
+                           geometry.num_fluid_nodes, echo=True)
+    ckpt_every = max(1, 10 * run.io_interval)
+    prev_u = {"u": None}
+
+    def callback(step, s):
+        f_r, f_b = s
+        rho_r, rho_b, phi, (ux, uy) = model.macro(s)
+        writer.write_rk(start_step + step, _host(rho_r), _host(rho_b),
+                        _host(ux), _host(uy), f_r=_host(f_r), f_b=_host(f_b))
+        if args.png:
+            save_png_field(
+                os.path.join(args.output,
+                             f"phi_{start_step + step:08d}.png"),
+                _host(phi), title=f"phi @ {start_step + step}")
+        d = flow_diagnostics(rho_r, rho_b, ux, uy, geometry.is_fluid)
+        if prev_u["u"] is not None and step > 0:
+            d["steady_criterion"] = steady_state_criterion(
+                ux, uy, *prev_u["u"])
+        prev_u["u"] = (ux, uy)
+        rec = logger.log(start_step + step, **d)
+        if step % ckpt_every == 0 or step >= run.num_steps:
+            save_checkpoint(ckpt_path, s, start_step + step, fingerprint)
+        if args.stop_at_breakthrough and d["breakthrough"]:
+            print(f"breakthrough at step {rec['step']}")
+            return True
+        if args.stop_at_steady and d.get("steady_criterion") is not None \
+                and d["steady_criterion"] < args.stop_at_steady:
+            print(f"steady state at step {rec['step']} "
+                  f"(criterion {d['steady_criterion']:.2e})")
+            return True
+        return False
+
+    run_chunked(model.step, state, num_steps=max(1, run.num_steps),
+                io_interval=max(1, run.io_interval), callback=callback,
+                nan_guard=True, profile_dir=args.profile)
+    logger.close()
+    return 0
+
+
+def _run_transport(args):
+    from .config import load_colorgradient, load_transport
+    from .io import ResultWriter
+    from .metrics import MetricsLogger
+    from .models.base import run_chunked
+    from .models.transport import TransportRK
+
+    tparams = load_transport(args.config)
+    flow_params, bcs, domain, run = load_colorgradient(
+        args.physics_config or args.config)
+    if args.steps:
+        run = dataclasses.replace(run, num_steps=args.steps)
+    geometry = _build_geometry(domain)
+    dtype, dev = _setup(args)
+    model = TransportRK(geometry, flow_params, tparams, bcs, dtype=dtype,
+                        device=dev)
+    flow_state = model.flow.init_state_layers(
+        1.0, 1.0, invading_rows=max(domain.buffer_layers, 10))
+    ny, nx = geometry.shape
+    conc0 = np.zeros((tparams.num_tracers, ny, nx))
+    state = model.init_state(flow_state, conc0)
+    writer = ResultWriter(args.output, basename="ConcentrationResults")
+    logger = MetricsLogger(os.path.join(args.output, "metrics.jsonl"),
+                           geometry.num_fluid_nodes, echo=True)
+    _note_block(args)
+
+    def callback(step, s):
+        conc = model.concentration(s.g)
+        writer.write_transport(step, _host(conc))
+        masses = {f"tracer{i}_mass": float(conc[i].sum())
+                  for i in range(conc.shape[0])}
+        logger.log(step, **masses)
+        return False
+
+    run_chunked(model.step, state, num_steps=max(1, run.num_steps),
+                io_interval=max(1, run.io_interval), callback=callback,
+                profile_dir=args.profile)
+    logger.close()
+    return 0
+
+
+def _inspect(args):
+    from .config import load_colorgradient, load_transport
+    loaders = {"cg": lambda: load_colorgradient(args.config)[:2],
+               "transport": lambda: (load_transport(args.config),)}
+    for obj in loaders[args.model]():
+        if dataclasses.is_dataclass(obj):
+            obj = dataclasses.asdict(obj)
+        print(json.dumps(obj, default=str, indent=2))
+    return 0
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(
+        prog="openlbmpm-torch",
+        description="Multicomponent/multiphase LBM for porous media, "
+                    "PyTorch/CUDA port")
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    def common(sp):
+        sp.add_argument("config", help="legacy-dialect INI file")
+        sp.add_argument("--model", choices=MODELS, default="cg",
+                        help="model family (ported: " + ", ".join(PORTED) +
+                             ")")
+        sp.add_argument("--physics-config", default=None,
+                        help="secondary INI (SC physics / transport flow)")
+        sp.add_argument("--steps", type=int, default=0,
+                        help="override step count")
+        sp.add_argument("--output", default="results")
+        sp.add_argument("--dtype", choices=("f32", "f64"), default="f32")
+        sp.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                        help="cuda: the hand-written kernels on the first "
+                             "card (raises without one); cpu: the plain "
+                             "PyTorch path")
+        sp.add_argument("--png", action="store_true",
+                        help="write PNG snapshots at the I/O cadence")
+        sp.add_argument("--block", type=int, default=0,
+                        help="time steps per kernel launch; the port runs "
+                             "one (temporal blocking is not ported), so "
+                             "N > 1 runs unblocked with a note")
+        sp.add_argument("--resume", action="store_true",
+                        help="resume from <output>/checkpoint.npz")
+        sp.add_argument("--stop-at-breakthrough", action="store_true")
+        sp.add_argument("--stop-at-steady", type=float, default=0.0,
+                        help="stop when the relative L2 velocity change "
+                             "between outputs drops below this tolerance")
+        sp.add_argument("--profile", default=None, metavar="DIR",
+                        help="capture a torch.profiler trace of the second "
+                             "chunk into DIR/trace.json")
+
+    runp = sub.add_parser("run", help="run a simulation")
+    common(runp)
+    insp = sub.add_parser("inspect", help="print resolved parameters")
+    common(insp)
+
+    args = p.parse_args(argv)
+    if args.model not in PORTED:
+        print(f"openlbmpm_torch: --model {args.model} is not ported yet "
+              f"(ported: {', '.join(PORTED)})", file=sys.stderr)
+        return 2
+    if args.cmd == "inspect":
+        return _inspect(args)
+    os.makedirs(args.output, exist_ok=True)
+    return {"cg": _run_colorgradient,
+            "transport": _run_transport}[args.model](args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,209 @@
+"""The legacy INI dialect read into the port's parameter dataclasses
+(counterpart of ``openlbmpm_tpu/config.py`` for the colour-gradient and
+transport families).
+
+The JAX module imports the JAX models, so its reader is copied here rather
+than imported.  The dataclasses returned are the port's own
+(``ColorGradientParams``, ``CGBoundaryConfig``, ``TransportParams``); their
+fields equal the JAX ones field by field for the same file
+(``tests/test_torch_cli.py``).
+"""
+
+from __future__ import annotations
+
+import configparser
+import dataclasses
+
+from .models.colorgradient import CGBoundaryConfig, ColorGradientParams
+from .models.transport import TransportParams
+
+__all__ = ["LegacyIni", "DomainSpec", "RunSpec", "load_colorgradient",
+           "load_transport"]
+
+
+class LegacyIni:
+    """configparser wrapper understanding the reference's quoted dialect."""
+
+    def __init__(self, path: str):
+        self.path = path
+        cp = configparser.ConfigParser(inline_comment_prefixes=(";",))
+        with open(path) as fh:
+            cp.read_string(fh.read())
+        self.cp = cp
+
+    def raw(self, section: str, *keys: str, default=None):
+        """First matching key among `keys` (handles key drift)."""
+        if self.cp.has_section(section):
+            for k in keys:
+                if self.cp.has_option(section, k):
+                    return self.cp.get(section, k)
+        if default is not None:
+            return default
+        raise KeyError(f"{self.path}: [{section}] {'/'.join(keys)}")
+
+    def text(self, section, *keys, default=None) -> str:
+        v = self.raw(section, *keys, default=default)
+        return str(v).strip().strip("'\"")
+
+    def yesno(self, section, *keys, default="no") -> bool:
+        return self.text(section, *keys, default=default).lower() == "yes"
+
+    def number(self, section, *keys, default=None) -> float:
+        return float(self.text(section, *keys, default=default))
+
+    def integer(self, section, *keys, default=None) -> int:
+        return int(float(self.text(section, *keys, default=default)))
+
+    def floats(self, section, *keys, default=None) -> tuple:
+        txt = self.text(section, *keys, default=default)
+        return tuple(float(t) for t in txt.split(",") if t.strip())
+
+
+@dataclasses.dataclass(frozen=True)
+class DomainSpec:
+    nx: int
+    ny: int
+    buffer_layers: int = 0
+    use_image: bool = False
+    image_path: str = ""
+    duplicate: tuple[int, int] = (1, 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class RunSpec:
+    num_steps: int
+    io_interval: int = 1000
+    is_cycle: bool = False
+    last_step: int = 0
+    output_dir: str = "results"
+
+
+def _bc_name(txt: str) -> str:
+    return {"neumann": "neumann", "dirichlet": "dirichlet", "dirilcht":
+            "dirichlet", "convective": "convective", "periodic": "periodic",
+            "averageconvective": "convective_average"}.get(
+        txt.lower(), "periodic")
+
+
+def load_colorgradient(path: str):
+    """Parse an ``RKtwophasesetup2D.ini``-style file
+    (key map: ``RKD2Q9.py:24-297``)."""
+    ini = LegacyIni(path)
+    variant = ini.text("SurfaceTension", "SurfaceTensionType", default="CSF")
+    params = ColorGradientParams(
+        tau_r=ini.number("FluidParameters", "TauR", default=1.0),
+        tau_b=ini.number("FluidParameters", "TauB", default=1.0),
+        surface_tension=ini.number(
+            "SurfaceTension", "SurfaceTension", "SurfaceTensionValue",
+            default=0.1),
+        contact_angle_deg=ini.number("SurfaceTension", "ContactAngle",
+                                     default=60.0),
+        beta=ini.number("RKParameters", "BetaThickness", default=0.7),
+        delta=ini.number("RKParameters", "DeltaValue", default=0.98),
+        tau_type=ini.integer("FluidParameters", "TauType", default=1),
+        wetting_type=ini.integer("SurfaceTension", "WettingType", default=2),
+        variant="CSF" if variant.upper() == "CSF" else "Perturbation",
+        collision="MRT" if ini.text("RelaxationType", "Type",
+                                    default="SRT").upper() == "MRT" else "SRT",
+        solid_phi=ini.number("SolidBoundarySetup", "SolidColorDiff",
+                             default=0.5),
+        alpha_r=ini.number("RKParameters", "AlphaR", default=4.0 / 9.0),
+        alpha_b=ini.number("RKParameters", "AlphaB", default=4.0 / 9.0),
+        a_kr=ini.number("RKParameters", "AkR", default=1e-4),
+        a_kb=ini.number("RKParameters", "AkB", default=1e-4),
+        body_force=(ini.number("BodyForce", "bodyForceX", default=0.0),
+                    ini.number("BodyForce", "bodyForceY", default=0.0)),
+        gradient_type=ini.text("GradientType", "Type", default="Isotropic"),
+    )
+    inlet = _bc_name(ini.text("BoundaryCondition", "BoundaryTypeInlet",
+                              default="periodic"))
+    # VelocityType = 'PerColor' selects the per-color Zou-He velocity inlet
+    # (``RKGPU2DBoundary.constantVelocityZHBoundaryHigherRK:11-56``; the
+    # reference comments it against the total-momentum inlet at
+    # ``RKD2Q9.py:1306-1311``)
+    if inlet == "neumann" and ini.text(
+            "BoundaryCondition", "VelocityType",
+            default="Total").lower() == "percolor":
+        inlet = "neumann_per_color"
+    outlet = _bc_name(ini.text("BoundaryCondition", "BoundaryTypeOutlet",
+                               default="periodic"))
+    bcs = CGBoundaryConfig(
+        inlet=inlet,
+        outlet=outlet,
+        inlet_velocity=(ini.number("BoundaryCondition", "velocityYR",
+                                   default=0.0) +
+                        ini.number("BoundaryCondition", "velocityYB",
+                                   default=0.0)),
+        inlet_velocity_r=ini.number("BoundaryCondition", "velocityYR",
+                                    default=0.0),
+        inlet_velocity_b=ini.number("BoundaryCondition", "velocityYB",
+                                    default=0.0),
+        inlet_density_r=ini.number("BoundaryCondition", "densityRH",
+                                   default=1.0),
+        inlet_density_b=ini.number("BoundaryCondition", "densityBH",
+                                   default=0.0),
+        outlet_density_r=ini.number("BoundaryCondition", "densityRL",
+                                    default=0.0),
+        outlet_density_b=ini.number("BoundaryCondition", "densityBL",
+                                    default=1.0),
+        # optional key, not in the reference dialect: 'no' reproduces the
+        # reference's misspelling-gated behavior where the phi outlet
+        # repair never fires in the pure CG loops (see CGBoundaryConfig)
+        phi_outlet_repair=ini.yesno("BoundaryCondition", "PhiOutletRepair",
+                                    default="yes"),
+    )
+    domain = DomainSpec(
+        nx=ini.integer("DomainSize", "xDomain", default=20),
+        ny=ini.integer("DomainSize", "yDomain", default=200),
+        buffer_layers=ini.integer("DomainSize", "numBufferingLayers",
+                                  default=0),
+        use_image=ini.yesno("ImageSetup", "Existance", "Exist", default="no"),
+    )
+    run = RunSpec(
+        num_steps=ini.integer("TimeSetup", "TimeSteps", default=1000),
+        io_interval=ini.integer("TimeSetup", "TimeInterval", default=1000),
+        is_cycle=ini.yesno("CyclesSetup", "IsCycle", default="no"),
+        last_step=ini.integer("CyclesSetup", "LastStep", default=0),
+    )
+    return params, bcs, domain, run
+
+
+def load_transport(path: str, num_default_tracers: int = 1):
+    """Parse a ``transportsetup.ini``-style file (the snapshot ships none;
+    keys per ``Transport2DRK.py:35-311``)."""
+    ini = LegacyIni(path)
+    num = ini.integer("TransportParameters", "NumberOfTracers",
+                      default=num_default_tracers)
+    scheme = ini.integer("TransportParameters", "TransportScheme", default=5)
+    relax = ini.text("TransportRelaxation", "Type", default="SRT").upper()
+    tau = ini.floats("TransportParameters", "TransportTau",
+                     default=",".join(["1.0"] * num))
+    j0 = ini.floats("TransportParameters", "DiffusionJ",
+                    default=",".join(["0.3333333"] * num))
+    reaction = ini.yesno("Reaction", "Option", default="no")
+    params = TransportParams(
+        num_tracers=num,
+        scheme=scheme,
+        tau=tuple(tau),
+        j0=tuple(j0),
+        relaxation="MRT" if relax == "MRT" else "SRT",
+        diff_x=ini.floats("TransportMRT", "DiffusionX",
+                          default=",".join(["0.1"] * num)),
+        diff_y=ini.floats("TransportMRT", "DiffusionY",
+                          default=",".join(["0.1"] * num)),
+        diff_xy=ini.floats("TransportMRT", "DiffusionXY",
+                           default=",".join(["0.0"] * num)),
+        diff_yx=ini.floats("TransportMRT", "DiffusionYX",
+                           default=",".join(["0.0"] * num)),
+        beta_interface=tuple([ini.number("TransportParameters",
+                                         "BetaInterface", default=0.0)] * num),
+        reaction_rate=ini.number("Reaction", "ReactionRate", default=0.0)
+        if reaction else 0.0,
+        inlet=ini.text("TransportBoundaries", "InletType",
+                       default="none").lower(),
+        inlet_conc=ini.floats("TransportBoundaries", "InletConcentration",
+                              default=",".join(["1.0"] * num)),
+        outlet=ini.text("TransportBoundaries", "OutletType",
+                        default="none").lower(),
+    )
+    return params

@@ -1,13 +1,20 @@
-// Compressed coupled CSF flow + phase-confined tracer step, for NVIDIA
-// Hopper (sm_90a).
+// Coupled CSF flow + phase-confined tracer step, for NVIDIA Hopper
+// (sm_90a).
 //
 // Replaces the TPU kernel openlbmpm_tpu/pallas/csf.py::build_csf_fused_step
-// with transport_params, state_mode="compressed", steps_per_call=1 (its
-// _transport_substep plus the flow step), for an f64 or f32 flow state and
-// the 11-plane bf16 flow state.  Tracer PDFs g (NT, NQ, ny, nx), NQ 5 (D2Q5)
-// or 9 (D2Q9), are f64 in the f64 instance and f32 otherwise: they are
-// never stored in bf16.  Formulas follow the jnp path
-// (TransportRK._transport_substep and ops/transport.py).
+// with transport_params at steps_per_call=1 (its _transport_substep plus
+// the flow step), in both flow-state layouts of csf2d.cuh:
+// state_mode="compressed" (K5c: an f64 or f32 flow state, or the 11-plane
+// bf16 one) and state_mode="split" (K5s: (f_r, f_b), f64 or f32).  Tracer
+// PDFs g (NT, NQ, ny, nx), NQ 5 (D2Q5) or 9 (D2Q9), are f64 in the f64
+// instances and f32 otherwise: they are never stored in bf16.  Formulas
+// follow the jnp path (TransportRK._transport_substep and ops/transport.py).
+// The split model's conserve_mass and redistribute repairs are global or
+// neighbourhood passes over g that the reference also runs outside its
+// kernel; they stay PyTorch ops after the launch (models/transport.py),
+// fed by the pre-step domain mask and velocity this step writes out.
+// With TracerParams.standalone (fixed flow fields) the flow launches are
+// skipped and the flow state is left as it is.
 //
 // One coupled step, seven launches, one thread per cell:
 //   1. phase_kernel    the flow state as it stands (no boundary rows, the
@@ -18,7 +25,9 @@
 //                      the cell; per tracer: SRT (J-scheme or linear) or MRT
 //                      (linear or quadratic equilibrium) collision, the beta
 //                      partition along -g0/|g0|, the bilinear reaction ->
-//                      g_post, and the domain mask (one byte a cell)
+//                      g_post, the domain mask (one byte a cell) and, when
+//                      asked, u (the split model's conserve_mass repair
+//                      reads this pre-step velocity)
 //   4. tracer_stream   free-flow outlet rows, pull streaming with half-way
 //                      bounce-back, hard interface bounce-back and the inlet
 //                      rows, all as reads of g_post -> g'
@@ -33,9 +42,10 @@
 // g 20, g_post 20, mask 1), 44 B (tracer_stream: g_post 20, fluid plane 4,
 // g' 20; the mask 1 more with a bounce-back interface) and the flow's
 // 180 B: about 400 B against 120 B for one fused pass over state and
-// tracers.  With the bf16 state: about 310 B against 84 B.  Stencil
-// neighbour re-reads hit L1/L2.  Fusing launches 1-3 into the flow's own
-// passes is the next step for speed.
+// tracers.  With the bf16 state: about 310 B against 84 B.  With the split
+// f32 state (72 B a read): 80 + 28 + 133 + 44 and the flow's 276 B, about
+// 560 B against 184 B.  Stencil neighbour re-reads hit L1/L2.  Fusing
+// launches 1-3 into the flow's own passes is the next step for speed.
 
 #include "csf2d.cuh"
 
@@ -46,6 +56,8 @@ struct TracerParams {    // mirrored by kernels/transport.py::TracerParams
   int inlet;             // 0 none, 1 inamuro, 2 anti_bounce_back, 3 zero
   int outlet;            // 0 none, 1 freeflow
   int reaction;
+  int standalone;        // 1: the tracer sub-step only, the flow stays
+  int pad;
   double criteria, rate;
 };
 
@@ -74,22 +86,24 @@ template <> struct Lat<9> {
   __device__ static double len(int i) { return i >= 5 ? sqrt(2.0) : 1.0; }
 };
 
-template <typename S, int NQ, typename C = typename Traits<S>::C>
-__global__ void tracer_collide_kernel(const S* __restrict__ s, const C* __restrict__ geo,
+template <typename S, int L, int NQ, typename C = typename Traits<S>::C>
+__global__ void tracer_collide_kernel(const S* __restrict__ s, const S* __restrict__ s2,
+                                      const C* __restrict__ geo,
                                       const C* __restrict__ nrm, const C* __restrict__ g,
                                       const C* __restrict__ tab, C* __restrict__ gp,
-                                      unsigned char* __restrict__ dom, CsfParams P,
-                                      TracerParams T) {
-  using L = Lat<NQ>;
+                                      unsigned char* __restrict__ dom, C* __restrict__ uo,
+                                      CsfParams P, TracerParams T) {
+  using LQ = Lat<NQ>;
   const size_t n = (size_t)P.ny * P.nx;
   const size_t k = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= n) return;
   const int x = (int)(k % P.nx), y = (int)(k / P.nx);
 
   // flow fields of the state as it stands (TransportRK._step_impl)
-  C f[9], rr;
-  load_raw(s, geo, n, k, f, rr);
-  const C rho = sum9(f);
+  Cell<C, L> c;
+  load_raw<S, L>(s, s2, geo, n, k, c);
+  C f[9], rr, rb, rho;
+  totals(c, f, rr, rb, rho);
   C fx = C(0), fy = C(0);
   if (geo[k] > C(0.5)) csf_force_at(nrm, P, x, y, rho, fx, fy);
   const C rho_safe = rho > C(0) ? rho : C(1);
@@ -103,6 +117,10 @@ __global__ void tracer_collide_kernel(const S* __restrict__ s, const C* __restri
   const C uy = (my + C(0.5) * fy) / rho_safe;
   const bool in_dom = rr < C(T.criteria);
   dom[k] = in_dom;
+  if (uo) {
+    uo[k] = ux;
+    uo[n + k] = uy;
+  }
   // unit inward colour gradient, for the partition
   const C gx = nrm[k], gy = nrm[n + k];
   const C gnorm = sqrt(gx * gx + gy * gy);
@@ -135,11 +153,11 @@ __global__ void tracer_collide_kernel(const S* __restrict__ s, const C* __restri
       C dg[NQ];
 #pragma unroll
       for (int i = 0; i < NQ; ++i) {
-        const C eu = C(L::dx(i)) * ux + C(L::dy(i)) * uy;
+        const C eu = C(LQ::dx(i)) * ux + C(LQ::dy(i)) * uy;
         const C fac = T.quadratic
                           ? C(1) + C(3) * eu + C(4.5) * eu * eu - C(1.5) * uu
                           : C(1) + C(3) * eu;
-        dg[i] = gv[i] - conc * C(L::w(i)) * fac;
+        dg[i] = gv[i] - conc * C(LQ::w(i)) * fac;
       }
       const C* U = row + kU;
 #pragma unroll
@@ -153,9 +171,9 @@ __global__ void tracer_collide_kernel(const S* __restrict__ s, const C* __restri
       const C tau = row[kTau];
 #pragma unroll
       for (int i = 0; i < NQ; ++i) {
-        const C eu = C(L::dx(i)) * ux + C(L::dy(i)) * uy;
+        const C eu = C(LQ::dx(i)) * ux + C(LQ::dy(i)) * uy;
         const C geq = NQ == 5 ? conc * (row[kJ + i] + C(0.5) * eu)
-                              : conc * C(L::w(i)) * (C(1) + C(3) * eu);
+                              : conc * C(LQ::w(i)) * (C(1) + C(3) * eu);
         gv[i] = gv[i] - (gv[i] - geq) / tau;
       }
     }
@@ -164,15 +182,15 @@ __global__ void tracer_collide_kernel(const S* __restrict__ s, const C* __restri
     if (T.interface == 1 && in_dom && gsafe && beta != C(0)) {
 #pragma unroll
       for (int i = 1; i < NQ; ++i) {
-        const C cos_i = (C(L::dx(i)) * igx + C(L::dy(i)) * igy) / C(L::len(i));
-        gv[i] = gv[i] + (-beta) * (C(L::w(i)) * cos_i) * conc;
+        const C cos_i = (C(LQ::dx(i)) * igx + C(LQ::dy(i)) * igy) / C(LQ::len(i));
+        gv[i] = gv[i] + (-beta) * (C(LQ::w(i)) * cos_i) * conc;
       }
     }
     if (T.reaction) {
       const C src = row[kStoich] * react;
 #pragma unroll
       for (int i = 0; i < NQ; ++i)
-        gv[i] = gv[i] + (NQ == 5 ? row[kJ + i] : C(L::w(i))) * src;
+        gv[i] = gv[i] + (NQ == 5 ? row[kJ + i] : C(LQ::w(i))) * src;
     }
 #pragma unroll
     for (int i = 0; i < NQ; ++i) gp[t * tq + i * n + k] = gv[i];
@@ -257,13 +275,14 @@ __global__ void tracer_stream_kernel(const C* __restrict__ gp, const C* __restri
   }
 }
 
-template <typename S, int NQ>
-int launch_coupled(const void* s_in, void* s_out, const void* geo_v, void* phi_v,
-                   void* nrm_v, const void* g_in, void* g_post, void* g_out,
-                   void* dom_v, const void* tab_v, const CsfParams& P,
-                   const TracerParams& T, cudaStream_t st) {
+template <typename S, int L, int NQ>
+int launch_coupled(const void* s_in, const void* s2_in, void* s_out, void* s2_out,
+                   const void* geo_v, void* phi_v, void* nrm_v, const void* g_in,
+                   void* g_post, void* g_out, void* dom_v, void* u_out, const void* tab_v,
+                   const CsfParams& P, const TracerParams& T, cudaStream_t st) {
   using C = typename Traits<S>::C;
   const S* s = static_cast<const S*>(s_in);
+  const S* s2 = static_cast<const S*>(s2_in);
   const C* geo = static_cast<const C*>(geo_v);
   C* phi = static_cast<C*>(phi_v);
   C* nrm = static_cast<C*>(nrm_v);
@@ -277,58 +296,66 @@ int launch_coupled(const void* s_in, void* s_out, const void* geo_v, void* phi_v
   const size_t n = (size_t)P.ny * P.nx;
   const int threads = 256;
   const unsigned blocks = (unsigned)((n + threads - 1) / threads);
-  phase_kernel<S><<<blocks, threads, 0, st>>>(s, geo, phi, P0);
+  phase_kernel<S, L><<<blocks, threads, 0, st>>>(s, s2, geo, phi, P0);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   normal_kernel<C><<<blocks, threads, 0, st>>>(geo, phi, nrm, P0);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  tracer_collide_kernel<S, NQ><<<blocks, threads, 0, st>>>(
-      s, geo, nrm, static_cast<const C*>(g_in), tab, gp, dom, P0, T);
+  tracer_collide_kernel<S, L, NQ><<<blocks, threads, 0, st>>>(
+      s, s2, geo, nrm, static_cast<const C*>(g_in), tab, gp, dom, static_cast<C*>(u_out),
+      P0, T);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   tracer_stream_kernel<C, NQ><<<blocks, threads, 0, st>>>(gp, geo, dom, tab,
                                                           static_cast<C*>(g_out), P, T);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return launch_flow<S>(s_in, s_out, geo_v, phi_v, nrm_v, P, st);
+  if (err != cudaSuccess || T.standalone) return (int)err;
+  return launch_flow<S, L>(s_in, s2_in, s_out, s2_out, geo_v, phi_v, nrm_v, P, st);
 }
 
-template <typename S>
-int launch_nq(const TracerParams& T, const void* s_in, void* s_out, const void* geo,
-              void* phi, void* nrm, const void* g_in, void* g_post, void* g_out,
-              void* dom, const void* tab, const CsfParams& P, cudaStream_t st) {
+template <typename S, int L>
+int launch_nq(const TracerParams& T, const void* s_in, const void* s2_in, void* s_out,
+              void* s2_out, const void* geo, void* phi, void* nrm, const void* g_in,
+              void* g_post, void* g_out, void* dom, void* u_out, const void* tab,
+              const CsfParams& P, cudaStream_t st) {
   switch (T.nq) {
-    case 5: return launch_coupled<S, 5>(s_in, s_out, geo, phi, nrm, g_in, g_post, g_out,
-                                        dom, tab, P, T, st);
-    case 9: return launch_coupled<S, 9>(s_in, s_out, geo, phi, nrm, g_in, g_post, g_out,
-                                        dom, tab, P, T, st);
+    case 5: return launch_coupled<S, L, 5>(s_in, s2_in, s_out, s2_out, geo, phi, nrm,
+                                           g_in, g_post, g_out, dom, u_out, tab, P, T, st);
+    case 9: return launch_coupled<S, L, 9>(s_in, s2_in, s_out, s2_out, geo, phi, nrm,
+                                           g_in, g_post, g_out, dom, u_out, tab, P, T, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// storage: 0 = f64 state, 1 = f32 state, 2 = bf16 11-plane state.  The
-// scratch planes phi (1), nrm (4), g_post (as g) and dom (bytes) and both
-// outputs are allocated by the caller.  Returns a cudaError_t code.
-extern "C" int coupled2d_step(int storage, const void* s_in, void* s_out, const void* geo,
-                              void* phi, void* nrm, const void* g_in, void* g_post,
-                              void* g_out, void* dom, const void* tab,
-                              const CsfParams* params, const TracerParams* tparams,
-                              void* stream) {
+// mode: compressed 0 = f64 state, 1 = f32 state, 2 = bf16 11-plane state;
+// split 3 = f64 (f_r, f_b), 4 = f32 (f_r, f_b).  s2_in and s2_out are f_b
+// in the split modes and unused otherwise.  The scratch planes phi (1),
+// nrm (4), g_post (as g) and all outputs are allocated by the caller: dom
+// (bytes) receives the pre-step domain mask rho_r < criteria and u_out, if
+// not null, the pre-step velocity (2, ny, nx) in the compute type.  Returns
+// a cudaError_t code.
+extern "C" int coupled2d_step(int mode, const void* s_in, const void* s2_in, void* s_out,
+                              void* s2_out, const void* geo, void* phi, void* nrm,
+                              const void* g_in, void* g_post, void* g_out, void* dom,
+                              void* u_out, const void* tab, const CsfParams* params,
+                              const TracerParams* tparams, void* stream) {
   const CsfParams P = *params;
   const TracerParams T = *tparams;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (storage) {
-    case 0: return launch_nq<double>(T, s_in, s_out, geo, phi, nrm, g_in, g_post, g_out,
-                                     dom, tab, P, st);
-    case 1: return launch_nq<float>(T, s_in, s_out, geo, phi, nrm, g_in, g_post, g_out,
-                                    dom, tab, P, st);
-    case 2: return launch_nq<__nv_bfloat16>(T, s_in, s_out, geo, phi, nrm, g_in, g_post,
-                                            g_out, dom, tab, P, st);
+#define COUPLED_ARGS s_in, s2_in, s_out, s2_out, geo, phi, nrm, g_in, g_post, g_out, dom, \
+                     u_out, tab, P, st
+  switch (mode) {
+    case 0: return launch_nq<double, kCompressed>(T, COUPLED_ARGS);
+    case 1: return launch_nq<float, kCompressed>(T, COUPLED_ARGS);
+    case 2: return launch_nq<__nv_bfloat16, kCompressed>(T, COUPLED_ARGS);
+    case 3: return launch_nq<double, kSplit>(T, COUPLED_ARGS);
+    case 4: return launch_nq<float, kSplit>(T, COUPLED_ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef COUPLED_ARGS
 }
 
 extern "C" const char* coupled2d_error_string(int code) {

@@ -1,20 +1,34 @@
-// Compressed CSF colour-gradient step, D2Q9, for NVIDIA Hopper (sm_90a):
-// the C entry points of the flow step.  The design note and the device code
-// are in csf2d.cuh.
+// CSF colour-gradient step, D2Q9, for NVIDIA Hopper (sm_90a): the C entry
+// points of the flow step.  The design note and the device code are in
+// csf2d.cuh.
 
 #include "csf2d.cuh"
 
-// storage: 0 = f64 state, 1 = f32 state, 2 = bf16 11-plane state.
-// Returns a cudaError_t code (0 on success).
-extern "C" int csf2d_step(int storage, const void* s_in, void* s_out, const void* geo,
-                          void* phi, void* nrm, const CsfParams* params,
-                          void* stream) {
+// mode: compressed 0 = f64 state, 1 = f32 state, 2 = bf16 11-plane state;
+// split 3 = f64 (f_r, f_b), 4 = f32 (f_r, f_b).  s2_in and s2_out are f_b
+// in the split modes and unused otherwise.  Returns a cudaError_t code (0
+// on success).
+extern "C" int csf2d_step(int mode, const void* s_in, const void* s2_in, void* s_out,
+                          void* s2_out, const void* geo, void* phi, void* nrm,
+                          const CsfParams* params, void* stream) {
   const CsfParams P = *params;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (storage) {
-    case 0: return launch_flow<double>(s_in, s_out, geo, phi, nrm, P, st);
-    case 1: return launch_flow<float>(s_in, s_out, geo, phi, nrm, P, st);
-    case 2: return launch_flow<__nv_bfloat16>(s_in, s_out, geo, phi, nrm, P, st);
+  switch (mode) {
+    case 0:
+      return launch_flow<double, kCompressed>(s_in, s2_in, s_out, s2_out, geo, phi, nrm,
+                                              P, st);
+    case 1:
+      return launch_flow<float, kCompressed>(s_in, s2_in, s_out, s2_out, geo, phi, nrm,
+                                             P, st);
+    case 2:
+      return launch_flow<__nv_bfloat16, kCompressed>(s_in, s2_in, s_out, s2_out, geo,
+                                                     phi, nrm, P, st);
+    case 3:
+      return launch_flow<double, kSplit>(s_in, s2_in, s_out, s2_out, geo, phi, nrm, P,
+                                         st);
+    case 4:
+      return launch_flow<float, kSplit>(s_in, s2_in, s_out, s2_out, geo, phi, nrm, P,
+                                        st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,12 +1,24 @@
-// Device code of the compressed CSF colour-gradient step, D2Q9, for NVIDIA
-// Hopper (sm_90a), shared by csf2d.cu (the flow step) and coupled2d.cu (the
-// coupled flow + tracer step).  The kernels and device functions live in an
-// unnamed namespace, so each library that includes this file has its own copy.
+// Device code of the CSF colour-gradient step, D2Q9, for NVIDIA Hopper
+// (sm_90a), shared by csf2d.cu (the flow step) and coupled2d.cu (the coupled
+// flow + tracer step).  The kernels and device functions live in an unnamed
+// namespace, so each library that includes this file has its own copy.
 //
 // Replaces the TPU kernel openlbmpm_tpu/pallas/csf.py::build_csf_fused_step
-// (state_mode="compressed", steps_per_call=1) for storage "f32" and "bf16";
-// the same templates also build an f64-state instance, so the card can check
-// the kernel against the plain PyTorch path to ~1e-12.
+// at steps_per_call=1 in both state layouts, a template parameter L here:
+//   kCompressed  state_mode="compressed", storage "f32" (K1) and "bf16" (K2):
+//                (f_total, rho_r), 10 planes, or 11 bf16 planes;
+//   kSplit       state_mode="split" (K6): the colour PDFs f_r and f_b, two
+//                (9, ny, nx) arrays, f32 or f64 (no bf16 form).
+// Each layout also builds an f64-state instance, so the card can check the
+// kernel against the plain PyTorch path to ~1e-12.
+//
+// The split layout applies the boundary rows per colour (Cell<C, kSplit>):
+// the total-momentum inlet and the total-pressure outlet computed on
+// f_r + f_b and split by the row's red fraction before the rewrite, the
+// per-colour Zou-He pressure inlet, the ghost and convective row copies of
+// both colours.  It writes f_b' = stream(post - f_r_post), as the TPU
+// kernel's _substep does (csf.py:1016), so that the f64 instance agrees
+// with the plain path to rounding.
 //
 // One step = boundary rows -> rho, phi (+ outlet phi repair) -> solid-phi
 // extrapolation -> isotropic gradient -> contact-angle rotation -> unit
@@ -29,8 +41,9 @@
 // f32 window for the same reason).
 //
 // What bounds it: HBM bytes per cell-step.  A single fused pass would move
-// 80 B (f32 state read + write) or 44 B (bf16).  This split design moves
-// about 180 B (f32) or 126 B (bf16): the state is read twice (phase and
+// 80 B (compressed f32 state read + write), 44 B (bf16) or 144 B (split
+// f32).  This three-launch design moves about 180 B (compressed f32),
+// 126 B (bf16) or 276 B (split f32): the state is read twice (phase and
 // collide_stream), phi (4 B) and the four normal planes (16 B) are written
 // and read back, and the fluid and wetting planes (4 B each) are read by
 // each kernel (ns_x, ns_y and den_inv only at wall cells).  Stencil
@@ -55,9 +68,13 @@ struct CsfParams {       // mirrored by kernels/csf.py::CsfParams
   int pad;
   double tau_r, tau_b, sigma, beta, delta, cos_t, sin_t, bfx, bfy;
   double inlet_velocity, inlet_rho, outlet_rho;
+  double inlet_rho_r, inlet_rho_b;  // split layout: per-colour Zou-He inlet
 };
 
 namespace {
+
+constexpr int kCompressed = 0;
+constexpr int kSplit = 1;
 
 constexpr double kEps = 1.0e-8;
 constexpr int TX = 32;
@@ -111,19 +128,43 @@ __device__ __forceinline__ float to_c(__nv_bfloat16 v) { return __bfloat162float
 __device__ __forceinline__ float to_c(float v) { return v; }
 __device__ __forceinline__ double to_c(double v) { return v; }
 
-template <typename S, typename C = typename Traits<S>::C>
+// One cell's state in registers, in compute precision: the total PDF and
+// rho_r (compressed), or the two colour PDFs (split).
+template <typename C, int L> struct Cell;
+template <typename C> struct Cell<C, kCompressed> {
+  C f[9];
+  C rr;
+};
+template <typename C> struct Cell<C, kSplit> {
+  C r[9];
+  C b[9];
+};
+
+// The state at cell k as stored; s2 is f_b in the split layout (unused in
+// the compressed one).
+template <typename S, int L, typename C = typename Traits<S>::C>
 __device__ __forceinline__ void load_raw(const S* __restrict__ s,
+                                         const S* __restrict__ s2,
                                          const C* __restrict__ geo, size_t n,
-                                         size_t k, C f[9], C& rr) {
+                                         size_t k, Cell<C, L>& c) {
+  if constexpr (L == kSplit) {
+    static_assert(!Traits<S>::kShifted, "the split layout has no bf16 form");
 #pragma unroll
-  for (int i = 0; i < 9; ++i) f[i] = to_c(s[i * n + k]);
-  if constexpr (Traits<S>::kShifted) {
-    const C fl = geo[k];
-#pragma unroll
-    for (int i = 0; i < 9; ++i) f[i] = f[i] + C(wq(i)) * fl;
-    rr = to_c(s[9 * n + k]) + to_c(s[10 * n + k]);
+    for (int i = 0; i < 9; ++i) {
+      c.r[i] = s[i * n + k];
+      c.b[i] = s2[i * n + k];
+    }
   } else {
-    rr = to_c(s[9 * n + k]);
+#pragma unroll
+    for (int i = 0; i < 9; ++i) c.f[i] = to_c(s[i * n + k]);
+    if constexpr (Traits<S>::kShifted) {
+      const C fl = geo[k];
+#pragma unroll
+      for (int i = 0; i < 9; ++i) c.f[i] = c.f[i] + C(wq(i)) * fl;
+      c.rr = to_c(s[9 * n + k]) + to_c(s[10 * n + k]);
+    } else {
+      c.rr = to_c(s[9 * n + k]);
+    }
   }
 }
 
@@ -182,66 +223,163 @@ __device__ void outlet_dirichlet(C f[9], C& rr, double rho_t) {
               f[8] - d31 + rv / C(6.0));
 }
 
+// Split layout: the total-row values na, nb, nc of populations a, b, c go
+// to the colours by the row's red fraction, taken before the rewrite
+// (ops/boundaries.py::total_velocity_inlet_top).
+template <typename C>
+__device__ __forceinline__ void split_rows(Cell<C, kSplit>& c, int a, int b, int d,
+                                           C na, C nb, C nd) {
+  const C rr = sum9(c.r), rb = sum9(c.b);
+  const C tot = rr + rb;
+  const C ratio_r = rr / (tot != C(0) ? tot : C(1));
+  const C ratio_b = C(1) - ratio_r;
+  c.r[a] = ratio_r * na;
+  c.b[a] = ratio_b * na;
+  c.r[b] = ratio_r * nb;
+  c.b[b] = ratio_b * nb;
+  c.r[d] = ratio_r * nd;
+  c.b[d] = ratio_b * nd;
+}
+
+// Zou-He pressure inlet of one colour's populations at target rho_t != 0
+// (the model refuses a zero target before any launch).
+template <typename C>
+__device__ void zou_he_top(C f[9], double rho_t) {
+  const C vy = C(-1.0) + (f[0] + f[1] + f[3] + C(2.0) * (f[2] + f[5] + f[6])) / C(rho_t);
+  const C d13 = C(0.5) * (f[1] - f[3]);
+  const C rv = C(rho_t) * vy;
+  f[4] = f[2] - C(2.0 / 3.0) * rv;
+  f[7] = f[5] + d13 - rv / C(6.0);
+  f[8] = f[6] - d13 - rv / C(6.0);
+}
+
+template <typename C>
+__device__ void apply_inlet(Cell<C, kCompressed>& c, const CsfParams& P) {
+  if (P.inlet == 1) inlet_neumann(c.f, c.rr, P.inlet_velocity);
+  else inlet_dirichlet(c.f, c.rr, P.inlet_rho);
+}
+
+template <typename C>
+__device__ void apply_inlet(Cell<C, kSplit>& c, const CsfParams& P) {
+  if (P.inlet == 1) {
+    const double vy = P.inlet_velocity;
+    C ft[9];
+#pragma unroll
+    for (int i = 0; i < 9; ++i) ft[i] = c.r[i] + c.b[i];
+    const C rho = (ft[0] + ft[1] + ft[3] + C(2.0) * (ft[2] + ft[5] + ft[6])) / C(1.0 + vy);
+    auto feq = [&](double ey_, double w) {
+      const double eu = ey_ * vy;
+      return rho * C(w) * C(1.0 + 3.0 * eu + 4.5 * eu * eu - 1.5 * vy * vy);
+    };
+    split_rows(c, 4, 7, 8, feq(-1.0, 1.0 / 9.0) + (ft[2] - feq(1.0, 1.0 / 9.0)),
+               feq(-1.0, 1.0 / 36.0) + (ft[5] - feq(1.0, 1.0 / 36.0)),
+               feq(-1.0, 1.0 / 36.0) + (ft[6] - feq(1.0, 1.0 / 36.0)));
+  } else {
+    zou_he_top(c.r, P.inlet_rho_r);
+    zou_he_top(c.b, P.inlet_rho_b);
+  }
+}
+
+template <typename C>
+__device__ void apply_outlet(Cell<C, kCompressed>& c, const CsfParams& P) {
+  outlet_dirichlet(c.f, c.rr, P.outlet_rho);
+}
+
+template <typename C>
+__device__ void apply_outlet(Cell<C, kSplit>& c, const CsfParams& P) {
+  const double rho_t = P.outlet_rho;
+  C ft[9];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) ft[i] = c.r[i] + c.b[i];
+  const C vy = C(1.0) - (ft[0] + ft[1] + ft[3] + C(2.0) * (ft[4] + ft[7] + ft[8])) / C(rho_t);
+  const C d31 = C(0.5) * (ft[3] - ft[1]);
+  const C rv = C(rho_t) * vy;
+  split_rows(c, 2, 5, 6, ft[4] + C(2.0 / 3.0) * rv, ft[7] + d31 + rv / C(6.0),
+             ft[8] - d31 + rv / C(6.0));
+}
+
+// The cell's total PDF, colour densities and total density.  The split
+// layout sums each colour, as the reference's split step does.
+template <typename C>
+__device__ __forceinline__ void totals(const Cell<C, kCompressed>& c, C f[9], C& rr,
+                                       C& rb, C& rho) {
+#pragma unroll
+  for (int i = 0; i < 9; ++i) f[i] = c.f[i];
+  rr = c.rr;
+  rho = sum9(f);
+  rb = rho - rr;
+}
+
+template <typename C>
+__device__ __forceinline__ void totals(const Cell<C, kSplit>& c, C f[9], C& rr, C& rb,
+                                       C& rho) {
+#pragma unroll
+  for (int i = 0; i < 9; ++i) f[i] = c.r[i] + c.b[i];
+  rr = sum9(c.r);
+  rb = sum9(c.b);
+  rho = rr + rb;
+}
+
 // The state at (x, y) after the inlet rows (row ny-2 rewritten, row ny-1 a
 // ghost copy of it on fluid cells).
-template <typename S, typename C = typename Traits<S>::C>
-__device__ void load_inlet_stage(const S* __restrict__ s, const C* __restrict__ geo,
-                                 const CsfParams& P, int x, int y, C f[9], C& rr) {
+template <typename S, int L, typename C = typename Traits<S>::C>
+__device__ void load_inlet_stage(const S* __restrict__ s, const S* __restrict__ s2,
+                                 const C* __restrict__ geo, const CsfParams& P, int x,
+                                 int y, Cell<C, L>& c) {
   const size_t n = (size_t)P.ny * P.nx;
   if (P.inlet != 0) {
     const int yi = P.ny - 2;
     if (y == P.ny - 1 && geo[(size_t)y * P.nx + x] > C(0.5)) y = yi;
     if (y == yi) {
       const size_t k = (size_t)yi * P.nx + x;
-      load_raw(s, geo, n, k, f, rr);
-      if (geo[k] > C(0.5)) {
-        if (P.inlet == 1) inlet_neumann(f, rr, P.inlet_velocity);
-        else inlet_dirichlet(f, rr, P.inlet_rho);
-      }
+      load_raw<S, L>(s, s2, geo, n, k, c);
+      if (geo[k] > C(0.5)) apply_inlet(c, P);
       return;
     }
   }
-  load_raw(s, geo, n, (size_t)y * P.nx + x, f, rr);
+  load_raw<S, L>(s, s2, geo, n, (size_t)y * P.nx + x, c);
 }
 
-// The state at (x, y) after all boundary rows (ColorGradientRK._apply_bcs_c:
-// inlet first, then the outlet).
-template <typename S, typename C = typename Traits<S>::C>
-__device__ void load_state(const S* __restrict__ s, const C* __restrict__ geo,
-                           const CsfParams& P, int x, int y, C f[9], C& rr) {
+// The state at (x, y) after all boundary rows (ColorGradientRK._apply_bcs_c
+// and _apply_inlet/_apply_outlet: inlet first, then the outlet).
+template <typename S, int L, typename C = typename Traits<S>::C>
+__device__ void load_state(const S* __restrict__ s, const S* __restrict__ s2,
+                           const C* __restrict__ geo, const CsfParams& P, int x, int y,
+                           Cell<C, L>& c) {
   if (P.outlet == 1 && y <= 2) {
     // convective: rows 2, 1, 0 each copy the (fresh) row above on fluid cells
     int r = y;
     while (r <= 2 && geo[(size_t)r * P.nx + x] > C(0.5)) ++r;
-    load_inlet_stage(s, geo, P, x, r, f, rr);
+    load_inlet_stage<S, L>(s, s2, geo, P, x, r, c);
     return;
   }
   if (P.outlet == 2 && y <= 1) {
     if (y == 0 && geo[x] > C(0.5)) y = 1;  // ghost row 0 copies row 1
     if (y == 1) {
-      load_inlet_stage(s, geo, P, x, 1, f, rr);
-      if (geo[(size_t)P.nx + x] > C(0.5)) outlet_dirichlet(f, rr, P.outlet_rho);
+      load_inlet_stage<S, L>(s, s2, geo, P, x, 1, c);
+      if (geo[(size_t)P.nx + x] > C(0.5)) apply_outlet(c, P);
       return;
     }
   }
-  load_inlet_stage(s, geo, P, x, y, f, rr);
+  load_inlet_stage<S, L>(s, s2, geo, P, x, y, c);
 }
 
 // phi = (rho_r - rho_b) / (rho_r + rho_b) on fluid cells, 0 elsewhere.
-template <typename S, typename C = typename Traits<S>::C>
-__device__ C phi_at(const S* __restrict__ s, const C* __restrict__ geo,
-                    const CsfParams& P, int x, int y) {
+template <typename S, int L, typename C = typename Traits<S>::C>
+__device__ C phi_at(const S* __restrict__ s, const S* __restrict__ s2,
+                    const C* __restrict__ geo, const CsfParams& P, int x, int y) {
   if (!(geo[(size_t)y * P.nx + x] > C(0.5))) return C(0);
-  C f[9], rr;
-  load_state(s, geo, P, x, y, f, rr);
-  const C rb = sum9(f) - rr;
+  Cell<C, L> c;
+  load_state<S, L>(s, s2, geo, P, x, y, c);
+  C f[9], rr, rb, rho;
+  totals(c, f, rr, rb, rho);
   const C tot = rr + rb;
   return tot != C(0) ? (rr - rb) / tot : C(0);
 }
 
-template <typename S, typename C = typename Traits<S>::C>
-__global__ void phase_kernel(const S* __restrict__ s, const C* __restrict__ geo,
-                             C* __restrict__ phi, CsfParams P) {
+template <typename S, int L, typename C = typename Traits<S>::C>
+__global__ void phase_kernel(const S* __restrict__ s, const S* __restrict__ s2,
+                             const C* __restrict__ geo, C* __restrict__ phi, CsfParams P) {
   const size_t n = (size_t)P.ny * P.nx;
   const size_t k = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= n) return;
@@ -249,7 +387,7 @@ __global__ void phase_kernel(const S* __restrict__ s, const C* __restrict__ geo,
   int y = (int)(k / P.nx);
   // Dirichlet-outlet repair: phi on fluid cells of rows 1 and 0 <- row 2
   if (P.phi_repair && y <= 1 && geo[k] > C(0.5)) y = 2;
-  phi[k] = phi_at(s, geo, P, x, y);
+  phi[k] = phi_at<S, L>(s, s2, geo, P, x, y);
 }
 
 // Contact-angle rotation of the gradient on a wetting fluid cell
@@ -383,17 +521,17 @@ __device__ void csf_force_at(const C* __restrict__ nrm, const CsfParams& P, int 
 
 // Post-collision total PDF of one fluid cell plus its recolouring factors:
 // the red post-collision population is frac * post_i + w_i (e_ix A + e_iy B).
-template <typename S, typename C = typename Traits<S>::C>
-__device__ void collide_cell(const S* __restrict__ s, const C* __restrict__ geo,
-                             const C* __restrict__ phi, const C* __restrict__ nrm,
-                             const CsfParams& P, int x, int y, C post[9], C& frac,
-                             C& A, C& B) {
+template <typename S, int L, typename C = typename Traits<S>::C>
+__device__ void collide_cell(const S* __restrict__ s, const S* __restrict__ s2,
+                             const C* __restrict__ geo, const C* __restrict__ phi,
+                             const C* __restrict__ nrm, const CsfParams& P, int x, int y,
+                             C post[9], C& frac, C& A, C& B) {
   const size_t n = (size_t)P.ny * P.nx;
   const size_t k = (size_t)y * P.nx + x;
-  C f[9], rr;
-  load_state(s, geo, P, x, y, f, rr);
-  const C rho = sum9(f);
-  const C rb = rho - rr;
+  Cell<C, L> c;
+  load_state<S, L>(s, s2, geo, P, x, y, c);
+  C f[9], rr, rb, rho;
+  totals(c, f, rr, rb, rho);
   const C ph = phi[k];
   const C gx = nrm[k], gy = nrm[n + k];
   C fx, fy;
@@ -496,11 +634,12 @@ __device__ __forceinline__ void store_state(S* __restrict__ out, size_t n, size_
   }
 }
 
-template <typename S, typename C = typename Traits<S>::C>
+template <typename S, int L, typename C = typename Traits<S>::C>
 __global__ void __launch_bounds__(TX * TY)
-collide_stream_kernel(const S* __restrict__ s, const C* __restrict__ geo,
-                      const C* __restrict__ phi, const C* __restrict__ nrm,
-                      S* __restrict__ out, CsfParams P) {
+collide_stream_kernel(const S* __restrict__ s, const S* __restrict__ s2,
+                      const C* __restrict__ geo, const C* __restrict__ phi,
+                      const C* __restrict__ nrm, S* __restrict__ out,
+                      S* __restrict__ out2, CsfParams P) {
   constexpr int HX = TX + 2, HY = TY + 2;
   // per ring-tile cell: post-collision total PDF (9), frac, A, B
   __shared__ C sh[12][HY][HX];
@@ -516,7 +655,7 @@ collide_stream_kernel(const S* __restrict__ s, const C* __restrict__ geo,
     shfl[ly][lx] = fluid;
     C post[9], frac = C(0), A = C(0), B = C(0);
     if (fluid) {
-      collide_cell(s, geo, phi, nrm, P, cx, cy, post, frac, A, B);
+      collide_cell<S, L>(s, s2, geo, phi, nrm, P, cx, cy, post, frac, A, B);
     } else {
 #pragma unroll
       for (int i = 0; i < 9; ++i) post[i] = C(0);
@@ -533,11 +672,14 @@ collide_stream_kernel(const S* __restrict__ s, const C* __restrict__ geo,
   if (x >= nx || y >= ny) return;
   const int lx = threadIdx.x + 1, ly = threadIdx.y + 1;
   const size_t k = (size_t)y * nx + x;
-  C o[9];
+  // o: the streamed total PDF; red: its red part, frac * post_j + seg_j at
+  // the source cell (the blue part is o - red, csf.py:1016)
+  C o[9], red[9];
   C rr_new = C(0);
   if (shfl[ly][lx]) {
     o[0] = sh[0][ly][lx];
-    rr_new = sh[9][ly][lx] * o[0];
+    red[0] = sh[9][ly][lx] * o[0];
+    rr_new = red[0];
 #pragma unroll
     for (int i = 1; i < 9; ++i) {
       // pull from the upwind cell x - e_i, or bounce back from a solid one
@@ -549,35 +691,50 @@ collide_stream_kernel(const S* __restrict__ s, const C* __restrict__ geo,
       }
       o[i] = sh[j][sy][sx];
       const C seg = C(wq(j)) * (C(ex(j)) * sh[10][sy][sx] + C(ey(j)) * sh[11][sy][sx]);
-      rr_new = rr_new + (sh[9][sy][sx] * o[i] + seg);
+      red[i] = sh[9][sy][sx] * o[i] + seg;
+      rr_new = rr_new + red[i];
     }
   } else {
 #pragma unroll
-    for (int i = 0; i < 9; ++i) o[i] = C(0);
+    for (int i = 0; i < 9; ++i) o[i] = red[i] = C(0);
   }
-  store_state<S>(out, n, k, o, rr_new, geo[k]);
+  if constexpr (L == kSplit) {
+#pragma unroll
+    for (int i = 0; i < 9; ++i) {
+      out[i * n + k] = red[i];
+      out2[i * n + k] = o[i] - red[i];
+    }
+  } else {
+    store_state<S>(out, n, k, o, rr_new, geo[k]);
+  }
 }
 
-template <typename S>
-int launch_flow(const void* s_in, void* s_out, const void* geo_v, void* phi_v, void* nrm_v,
-           const CsfParams& P, cudaStream_t st) {
+// The flow step's three launches.  s2_in/s2_out are f_b in the split
+// layout and unused in the compressed one.
+template <typename S, int L>
+int launch_flow(const void* s_in, const void* s2_in, void* s_out, void* s2_out,
+                const void* geo_v, void* phi_v, void* nrm_v, const CsfParams& P,
+                cudaStream_t st) {
   using C = typename Traits<S>::C;
   const S* s = static_cast<const S*>(s_in);
+  const S* s2 = static_cast<const S*>(s2_in);
   S* out = static_cast<S*>(s_out);
+  S* out2 = static_cast<S*>(s2_out);
   const C* geo = static_cast<const C*>(geo_v);
   C* phi = static_cast<C*>(phi_v);
   C* nrm = static_cast<C*>(nrm_v);
   const size_t n = (size_t)P.ny * P.nx;
   const int threads = 256;
   const unsigned blocks = (unsigned)((n + threads - 1) / threads);
-  phase_kernel<S><<<blocks, threads, 0, st>>>(s, geo, phi, P);
+  phase_kernel<S, L><<<blocks, threads, 0, st>>>(s, s2, geo, phi, P);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   normal_kernel<C><<<blocks, threads, 0, st>>>(geo, phi, nrm, P);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((P.nx + TX - 1) / TX, (P.ny + TY - 1) / TY);
-  collide_stream_kernel<S><<<grid, dim3(TX, TY), 0, st>>>(s, geo, phi, nrm, out, P);
+  collide_stream_kernel<S, L><<<grid, dim3(TX, TY), 0, st>>>(s, s2, geo, phi, nrm, out,
+                                                             out2, P);
   return (int)cudaGetLastError();
 }
 

@@ -1,17 +1,21 @@
-"""The compressed CSF colour-gradient step: CUDA kernel wrapper, plain
-PyTorch version and launch count.
+"""The CSF colour-gradient step: CUDA kernel wrappers, plain PyTorch
+versions and launch counts.
 
-Counterpart of ``openlbmpm_tpu/pallas/csf.py::build_csf_fused_step`` in
-``state_mode="compressed"`` at one step per call, for ``storage="f32"`` (K1)
-and ``storage="bf16"`` (K2).  The kernel lives in ``csrc/csf2d.cu``.
+Counterpart of ``openlbmpm_tpu/pallas/csf.py::build_csf_fused_step`` at one
+step per call: ``state_mode="compressed"`` with ``storage="f32"`` (K1) and
+``storage="bf16"`` (K2), and ``state_mode="split"`` (K6).  The kernels live
+in ``csrc/csf2d.cu`` (device code in ``csrc/csf2d.cuh``).
 
 States:
-  * f32 / f64: (10, ny, nx) -- planes 0-8 the total PDF, plane 9 rho_r;
-  * bf16: (11, ny, nx) bfloat16 -- the deviations f_i - w_i*fl, then rho_r
-    as a hi/lo pair (hi = bf16(rho_r), lo = bf16(rho_r - hi)).
+  * compressed f32 / f64: (10, ny, nx) -- planes 0-8 the total PDF, plane 9
+    rho_r;
+  * compressed bf16: (11, ny, nx) bfloat16 -- the deviations f_i - w_i*fl,
+    then rho_r as a hi/lo pair (hi = bf16(rho_r), lo = bf16(rho_r - hi));
+  * split f32 / f64: the pair (f_r, f_b) of (9, ny, nx) colour PDFs.
 
-``csf_step_compressed(s, model)`` takes the plain version only for a tensor
-on the CPU; for a CUDA tensor it launches the kernel or raises.
+``csf_step_compressed(s, model)`` and ``csf_step_split((f_r, f_b), model)``
+take the plain version only for tensors on the CPU; for CUDA tensors they
+launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -27,8 +31,9 @@ from ..ops.colorgrad import contact_angle_terms
 from . import build
 
 __all__ = ["geo_stack", "CsfParams", "kernel_params", "launch_csf2d",
-           "csf_step_compressed", "csf_step_compressed_reference",
-           "compare_bf16_states"]
+           "launch_csf2d_split", "csf_step_compressed",
+           "csf_step_compressed_reference", "csf_step_split",
+           "csf_step_split_reference", "compare_bf16_states"]
 
 
 def geo_stack(geometry: Geometry) -> np.ndarray:
@@ -66,12 +71,15 @@ class CsfParams(ctypes.Structure):
         ("bfx", ctypes.c_double), ("bfy", ctypes.c_double),
         ("inlet_velocity", ctypes.c_double),
         ("inlet_rho", ctypes.c_double), ("outlet_rho", ctypes.c_double),
+        ("inlet_rho_r", ctypes.c_double), ("inlet_rho_b", ctypes.c_double),
     ]
 
 
 _INLETS = {"periodic": 0, "neumann": 1, "dirichlet": 2}
 _OUTLETS = {"periodic": 0, "convective": 1, "dirichlet": 2}
+# the kernels' state mode: compressed f64, f32, bf16; split f64, f32
 _STORAGE_CODE = {torch.float64: 0, torch.float32: 1, torch.bfloat16: 2}
+_SPLIT_CODE = {torch.float64: 3, torch.float32: 4}
 
 
 def kernel_params(params, bcs, geometry: Geometry) -> CsfParams:
@@ -100,7 +108,8 @@ def kernel_params(params, bcs, geometry: Geometry) -> CsfParams:
         delta=p.delta, cos_t=cos_t, sin_t=sin_t, bfx=bfx, bfy=bfy,
         inlet_velocity=b.inlet_velocity,
         inlet_rho=b.inlet_density_r + b.inlet_density_b,
-        outlet_rho=b.outlet_density_r + b.outlet_density_b)
+        outlet_rho=b.outlet_density_r + b.outlet_density_b,
+        inlet_rho_r=b.inlet_density_r, inlet_rho_b=b.inlet_density_b)
 
 
 _fn_cache: dict[str, ctypes._CFuncPtr] = {}
@@ -110,7 +119,7 @@ def _kernel_fn():
     if "step" not in _fn_cache:
         lib = build.load_library("csf2d")
         fn = lib.csf2d_step
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + \
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 + \
             [ctypes.POINTER(CsfParams), ctypes.c_void_p]
         fn.restype = ctypes.c_int
         err = lib.csf2d_error_string
@@ -121,40 +130,73 @@ def _kernel_fn():
     return _fn_cache["step"]
 
 
-def launch_csf2d(s: torch.Tensor, params: CsfParams,
-                 geo: torch.Tensor) -> torch.Tensor:
-    """One kernel step of the CUDA state `s`: (10, ny, nx) in the type of
-    the geometry planes `geo` (``geo_stack``, float32 or float64), or
-    (11, ny, nx) bfloat16 with float32 planes.  Not counted as a launch."""
+def _check_domain(params: CsfParams, geo: torch.Tensor, want, *tensors):
     ny, nx = params.ny, params.nx
-    bf16 = s.dtype == torch.bfloat16
-    want = torch.float32 if bf16 else s.dtype
-    planes = 11 if bf16 else 10
-    if s.dtype not in _STORAGE_CODE or tuple(s.shape) != (planes, ny, nx):
-        raise ValueError(f"state {tuple(s.shape)} {s.dtype}; the kernel "
-                         f"takes ({planes}, {ny}, {nx})")
     if geo.dtype != want or tuple(geo.shape) != (5, ny, nx):
-        raise ValueError(f"state {s.dtype} needs {want} geometry planes "
-                         f"(5, {ny}, {nx}), got {geo.dtype} "
-                         f"{tuple(geo.shape)}")
+        raise ValueError(f"state needs {want} geometry planes (5, {ny}, "
+                         f"{nx}), got {geo.dtype} {tuple(geo.shape)}")
     if ny < 8 or nx < 3:
         raise NotImplementedError(f"kernel: domain {ny}x{nx} below 8x3")
-    if s.device != geo.device:
-        raise ValueError(f"state on {s.device}, geometry on {geo.device}")
-    s = s.contiguous()
+    for t in tensors:
+        if t.device != geo.device:
+            raise ValueError(f"state on {t.device}, geometry on {geo.device}")
+
+
+def _launch(mode: int, a, b, out_a, out_b, params: CsfParams,
+            geo: torch.Tensor):
+    """One csf2d_step call on the current stream of the state's card."""
+    ny, nx = params.ny, params.nx
+    dev = a.device
     fn = _kernel_fn()
-    phi = torch.empty((ny, nx), dtype=geo.dtype, device=s.device)
-    nrm = torch.empty((4, ny, nx), dtype=geo.dtype, device=s.device)
-    out = torch.empty_like(s)
-    stream_ptr = torch.cuda.current_stream(s.device).cuda_stream
-    with torch.cuda.device(s.device):
-        code = fn(_STORAGE_CODE[s.dtype], s.data_ptr(), out.data_ptr(),
+    phi = torch.empty((ny, nx), dtype=geo.dtype, device=dev)
+    nrm = torch.empty((4, ny, nx), dtype=geo.dtype, device=dev)
+    stream_ptr = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        code = fn(mode, a.data_ptr(), 0 if b is None else b.data_ptr(),
+                  out_a.data_ptr(), 0 if out_b is None else out_b.data_ptr(),
                   geo.data_ptr(), phi.data_ptr(), nrm.data_ptr(),
                   ctypes.byref(params), stream_ptr)
     if code != 0:
         msg = _fn_cache["error"](code).decode()
         raise RuntimeError(f"csf2d_step launch failed: {msg} ({code})")
+
+
+def launch_csf2d(s: torch.Tensor, params: CsfParams,
+                 geo: torch.Tensor) -> torch.Tensor:
+    """One kernel step of the compressed CUDA state `s`: (10, ny, nx) in
+    the type of the geometry planes `geo` (``geo_stack``, float32 or
+    float64), or (11, ny, nx) bfloat16 with float32 planes.  Not counted
+    as a launch."""
+    ny, nx = params.ny, params.nx
+    bf16 = s.dtype == torch.bfloat16
+    planes = 11 if bf16 else 10
+    if s.dtype not in _STORAGE_CODE or tuple(s.shape) != (planes, ny, nx):
+        raise ValueError(f"state {tuple(s.shape)} {s.dtype}; the kernel "
+                         f"takes ({planes}, {ny}, {nx})")
+    _check_domain(params, geo, torch.float32 if bf16 else s.dtype, s)
+    s = s.contiguous()
+    out = torch.empty_like(s)
+    _launch(_STORAGE_CODE[s.dtype], s, None, out, None, params, geo)
     return out
+
+
+def launch_csf2d_split(f_r: torch.Tensor, f_b: torch.Tensor,
+                       params: CsfParams, geo: torch.Tensor):
+    """One kernel step of the split CUDA state (f_r, f_b), each (9, ny, nx)
+    in the type of the geometry planes (float32 or float64).  Returns
+    (f_r', f_b').  Not counted as a launch."""
+    ny, nx = params.ny, params.nx
+    for t in (f_r, f_b):
+        if t.dtype not in _SPLIT_CODE or tuple(t.shape) != (9, ny, nx) or \
+                t.dtype != f_r.dtype:
+            raise ValueError(f"split state {tuple(f_r.shape)} {f_r.dtype}, "
+                             f"{tuple(f_b.shape)} {f_b.dtype}; the kernel "
+                             f"takes two (9, {ny}, {nx}) float32 or float64")
+    _check_domain(params, geo, f_r.dtype, f_r, f_b)
+    f_r, f_b = f_r.contiguous(), f_b.contiguous()
+    out_r, out_b = torch.empty_like(f_r), torch.empty_like(f_b)
+    _launch(_SPLIT_CODE[f_r.dtype], f_r, f_b, out_r, out_b, params, geo)
+    return out_r, out_b
 
 
 def csf_step_compressed(s: torch.Tensor, model) -> torch.Tensor:
@@ -183,6 +225,35 @@ def csf_step_compressed_reference(s: torch.Tensor, model) -> torch.Tensor:
     is decoded to f32, stepped and encoded again, as the kernel does in
     its registers)."""
     return model.plain_step_c(s)
+
+
+def csf_step_split(state, model):
+    """One split CSF step (f_r, f_b) -> (f_r', f_b') (BC rows included) for
+    `model`, a ColorGradientRK.  CPU tensors: the plain version.  CUDA
+    tensors: the kernel, or an error; never the plain version."""
+    f_r, f_b = state
+    if f_r.device != f_b.device:
+        raise ValueError(f"f_r on device {f_r.device}, f_b on {f_b.device}")
+    if f_r.device.type == "cpu":
+        return csf_step_split_reference(state, model)
+    if f_r.device.type != "cuda":
+        raise ValueError(f"no csf kernel for device {f_r.device}")
+    if f_r.dtype != model.dtype or f_b.dtype != model.dtype:
+        raise ValueError(f"split state {f_r.dtype}/{f_b.dtype}; the model "
+                         f"takes {model.dtype}")
+    model.check_split()
+    out = launch_csf2d_split(f_r, f_b, model.kernel_params, model.geo_planes)
+    csf_step_split.launches += 1
+    return out
+
+
+csf_step_split.launches = 0
+
+
+def csf_step_split_reference(state, model):
+    """Plain PyTorch version of the split kernel, on any device: the
+    model's ``plain_step`` (``_step_csf`` composed from ``ops/``)."""
+    return model.plain_step(state)
 
 
 def compare_bf16_states(a: torch.Tensor, b: torch.Tensor,

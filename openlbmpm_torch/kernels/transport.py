@@ -1,19 +1,25 @@
-"""The compressed coupled CSF + tracer step: CUDA kernel wrapper, plain
-PyTorch version and launch count.
+"""The coupled CSF + tracer step: CUDA kernel wrappers, plain PyTorch
+versions and launch counts.
 
 Counterpart of ``openlbmpm_tpu/pallas/csf.py::build_csf_fused_step`` with
-``transport_params`` in ``state_mode="compressed"`` at one step per call
-(K5, compressed), for an f64 or f32 flow state and for the 11-plane bf16
-flow state.  The kernels live in ``csrc/coupled2d.cu``; the flow half runs
-the same code as ``csrc/csf2d.cu`` (shared through ``csrc/csf2d.cuh``).
+``transport_params`` at one step per call: ``state_mode="compressed"``
+(K5c; an f64 or f32 flow state, or the 11-plane bf16 one) and
+``state_mode="split"`` (K5s, with ``standalone`` transport).  The split
+model's ``conserve_mass`` and ``redistribute`` repairs, which the JAX
+package composes after its kernel as jnp ops, are PyTorch ops of
+``TransportRK.repair``; the split wrappers hand them the pre-step velocity
+and transport-domain mask.  The kernels live in ``csrc/coupled2d.cu``; the
+flow half runs the same code as ``csrc/csf2d.cu`` (shared through
+``csrc/csf2d.cuh``).
 
-The coupled state is ``(s, g)``: ``s`` as in ``kernels/csf.py`` and ``g``
-(NT, NQ, ny, nx) tracer PDFs in the arithmetic type (float64 with an f64
-state, float32 with an f32 or bf16 one), NQ 5 (D2Q5) or 9 (D2Q9).
+The compressed coupled state is ``(s, g)``: ``s`` as in ``kernels/csf.py``
+and ``g`` (NT, NQ, ny, nx) tracer PDFs in the arithmetic type (float64 with
+an f64 state, float32 with an f32 or bf16 one), NQ 5 (D2Q5) or 9 (D2Q9).
+The split one is a ``TransportState`` (f_r, f_b, g, mass0).
 
-``coupled_step_compressed(s, g, model)`` takes the plain version only when
-both tensors lie on the CPU; for CUDA tensors it launches the kernels or
-raises.
+``coupled_step_compressed(s, g, model)`` and ``coupled_step_split(state,
+model)`` take the plain version only when the tensors lie on the CPU; for
+CUDA tensors they launch the kernels or raise.
 """
 
 from __future__ import annotations
@@ -24,11 +30,12 @@ import numpy as np
 import torch
 
 from . import build
-from .csf import _STORAGE_CODE, CsfParams
+from .csf import _SPLIT_CODE, _STORAGE_CODE, CsfParams
 
 __all__ = ["TracerParams", "tracer_kernel_params", "tracer_table",
-           "launch_coupled2d", "coupled_step_compressed",
-           "coupled_step_compressed_reference"]
+           "launch_coupled2d", "launch_coupled2d_split",
+           "coupled_step_compressed", "coupled_step_compressed_reference",
+           "coupled_step_split", "coupled_step_split_reference"]
 
 
 class TracerParams(ctypes.Structure):
@@ -40,16 +47,19 @@ class TracerParams(ctypes.Structure):
         ("inlet", ctypes.c_int),      # 0 none, 1 inamuro, 2 anti-bb, 3 zero
         ("outlet", ctypes.c_int),     # 0 none, 1 freeflow
         ("reaction", ctypes.c_int),
+        ("standalone", ctypes.c_int),  # 1: tracer sub-step only
+        ("pad", ctypes.c_int),
         ("criteria", ctypes.c_double), ("rate", ctypes.c_double),
     ]
 
 
-_INTERFACE = {"none": 0, "permeable": 1, "bounceback": 2}
+# redistribute confines the tracer as bounceback does inside the kernel
+_INTERFACE = {"none": 0, "permeable": 1, "bounceback": 2, "redistribute": 2}
 _INLET = {"none": 0, "inamuro": 1, "anti_bounce_back": 2, "zero": 3}
 _OUTLET = {"none": 0, "freeflow": 1}
 
 
-def tracer_kernel_params(tp) -> TracerParams:
+def tracer_kernel_params(tp, standalone: bool = False) -> TracerParams:
     """The kernel's option block for a TransportParams (options already
     checked by the model)."""
     return TracerParams(
@@ -57,7 +67,8 @@ def tracer_kernel_params(tp) -> TracerParams:
         quadratic=int(tp.mrt_equilibrium == "quadratic"),
         interface=_INTERFACE[tp.interface_mode], inlet=_INLET[tp.inlet],
         outlet=_OUTLET[tp.outlet], reaction=int(bool(tp.reaction_rate)),
-        criteria=tp.criteria, rate=tp.reaction_rate)
+        standalone=int(standalone), pad=0, criteria=tp.criteria,
+        rate=tp.reaction_rate)
 
 
 def tracer_table(model) -> np.ndarray:
@@ -82,7 +93,7 @@ def _kernel_fn():
     if "step" not in _fn_cache:
         lib = build.load_library("coupled2d")
         fn = lib.coupled2d_step
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 10 + \
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 13 + \
             [ctypes.POINTER(CsfParams), ctypes.POINTER(TracerParams),
              ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -94,13 +105,8 @@ def _kernel_fn():
     return _fn_cache["step"]
 
 
-def launch_coupled2d(s: torch.Tensor, g: torch.Tensor, params: CsfParams,
-                     tparams: TracerParams, geo: torch.Tensor,
-                     table: torch.Tensor):
-    """One coupled kernel step of the CUDA state (s, g): `s` as
-    ``kernels/csf.py::launch_csf2d`` takes it, `g` (NT, NQ, ny, nx) and the
-    per-tracer `table` in the geometry planes' type.  Not counted as a
-    launch."""
+def _check_tracers(g, params: CsfParams, tparams: TracerParams,
+                   geo: torch.Tensor, table: torch.Tensor, *flow):
     ny, nx = params.ny, params.nx
     nt, nq = tparams.nt, tparams.nq
     want = geo.dtype
@@ -109,39 +115,97 @@ def launch_coupled2d(s: torch.Tensor, g: torch.Tensor, params: CsfParams,
                          f"kernel takes ({nt}, {nq}, {ny}, {nx}) {want}")
     if table.dtype != want or tuple(table.shape) != (nt, 9 + nq * nq):
         raise ValueError(f"tracer table {tuple(table.shape)} {table.dtype}")
-    bf16 = s.dtype == torch.bfloat16
-    planes = 11 if bf16 else 10
-    if s.dtype not in _STORAGE_CODE or tuple(s.shape) != (planes, ny, nx) \
-            or want != (torch.float32 if bf16 else s.dtype):
-        raise ValueError(f"state {tuple(s.shape)} {s.dtype}; the kernel "
-                         f"takes ({planes}, {ny}, {nx}) with {want} planes")
     if tuple(geo.shape) != (5, ny, nx):
         raise ValueError(f"geometry planes {tuple(geo.shape)}")
     if ny < 8 or nx < 3:
         raise NotImplementedError(f"kernel: domain {ny}x{nx} below 8x3")
-    if not (s.device == g.device == geo.device == table.device):
-        raise ValueError(f"state on {s.device}, tracers on {g.device}, "
+    if not all(t.device == g.device == geo.device == table.device
+               for t in flow):
+        raise ValueError(f"state on {flow[0].device}, tracers on {g.device}, "
                          f"geometry on {geo.device}, table on {table.device}")
-    s, g, table = s.contiguous(), g.contiguous(), table.contiguous()
+
+
+def _launch(mode, a, b, g, params, tparams, geo, table, with_u=False):
+    """One coupled2d_step call on the current stream of the state's card:
+    returns (a', b', g', u, dom), with b' None in the compressed layout, a',
+    b' None with ``tparams.standalone``, u the pre-step velocity (2, ny, nx)
+    if `with_u` (else None) and dom the pre-step domain mask (uint8)."""
+    ny, nx = params.ny, params.nx
+    dev = g.device
+    flow = not tparams.standalone
     fn = _kernel_fn()
-    dev = s.device
-    phi = torch.empty((ny, nx), dtype=want, device=dev)
-    nrm = torch.empty((4, ny, nx), dtype=want, device=dev)
+    phi = torch.empty((ny, nx), dtype=geo.dtype, device=dev)
+    nrm = torch.empty((4, ny, nx), dtype=geo.dtype, device=dev)
     g_post = torch.empty_like(g)
     dom = torch.empty((ny, nx), dtype=torch.uint8, device=dev)
-    out_s = torch.empty_like(s)
+    out_a = torch.empty_like(a) if flow else None
+    out_b = torch.empty_like(b) if flow and b is not None else None
     out_g = torch.empty_like(g)
+    u = torch.empty((2, ny, nx), dtype=geo.dtype, device=dev) \
+        if with_u else None
+    ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
     stream_ptr = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        code = fn(_STORAGE_CODE[s.dtype], s.data_ptr(), out_s.data_ptr(),
+        code = fn(mode, a.data_ptr(), ptr(b), ptr(out_a), ptr(out_b),
                   geo.data_ptr(), phi.data_ptr(), nrm.data_ptr(),
                   g.data_ptr(), g_post.data_ptr(), out_g.data_ptr(),
-                  dom.data_ptr(), table.data_ptr(), ctypes.byref(params),
-                  ctypes.byref(tparams), stream_ptr)
+                  dom.data_ptr(), ptr(u), table.data_ptr(),
+                  ctypes.byref(params), ctypes.byref(tparams), stream_ptr)
     if code != 0:
         msg = _fn_cache["error"](code).decode()
         raise RuntimeError(f"coupled2d_step launch failed: {msg} ({code})")
+    return out_a, out_b, out_g, u, dom
+
+
+def launch_coupled2d(s: torch.Tensor, g: torch.Tensor, params: CsfParams,
+                     tparams: TracerParams, geo: torch.Tensor,
+                     table: torch.Tensor):
+    """One coupled kernel step of the compressed CUDA state (s, g): `s` as
+    ``kernels/csf.py::launch_csf2d`` takes it, `g` (NT, NQ, ny, nx) and the
+    per-tracer `table` in the geometry planes' type.  Not counted as a
+    launch."""
+    ny, nx = params.ny, params.nx
+    bf16 = s.dtype == torch.bfloat16
+    planes = 11 if bf16 else 10
+    _check_tracers(g, params, tparams, geo, table, s)
+    if s.dtype not in _STORAGE_CODE or tuple(s.shape) != (planes, ny, nx) \
+            or geo.dtype != (torch.float32 if bf16 else s.dtype):
+        raise ValueError(f"state {tuple(s.shape)} {s.dtype}; the kernel "
+                         f"takes ({planes}, {ny}, {nx}) with {geo.dtype} "
+                         "planes")
+    if tparams.standalone:
+        raise ValueError("standalone transport has no compressed form")
+    s, g, table = s.contiguous(), g.contiguous(), table.contiguous()
+    out_s, _, out_g, _, _ = _launch(_STORAGE_CODE[s.dtype], s, None, g,
+                                    params, tparams, geo, table)
     return out_s, out_g
+
+
+def launch_coupled2d_split(f_r: torch.Tensor, f_b: torch.Tensor,
+                           g: torch.Tensor, params: CsfParams,
+                           tparams: TracerParams, geo: torch.Tensor,
+                           table: torch.Tensor, with_u: bool = False):
+    """One coupled kernel step of the split CUDA state (f_r, f_b, g), the
+    colour PDFs (9, ny, nx) and `g` in the geometry planes' type.  Returns
+    (f_r', f_b', g', u, in_domain): with ``tparams.standalone`` the flow
+    tensors come back as they are; u is the pre-step velocity (2, ny, nx)
+    if `with_u`, else None; in_domain the pre-step mask rho_r < criteria
+    (bool).  Not counted as a launch."""
+    ny, nx = params.ny, params.nx
+    _check_tracers(g, params, tparams, geo, table, f_r, f_b)
+    for t in (f_r, f_b):
+        if t.dtype != geo.dtype or tuple(t.shape) != (9, ny, nx):
+            raise ValueError(f"split state {tuple(f_r.shape)} {f_r.dtype}, "
+                             f"{tuple(f_b.shape)} {f_b.dtype}; the kernel "
+                             f"takes two (9, {ny}, {nx}) {geo.dtype}")
+    f_r, f_b = f_r.contiguous(), f_b.contiguous()
+    g, table = g.contiguous(), table.contiguous()
+    out_r, out_b, out_g, u, dom = _launch(_SPLIT_CODE[f_r.dtype], f_r, f_b,
+                                          g, params, tparams, geo, table,
+                                          with_u)
+    if tparams.standalone:
+        out_r, out_b = f_r, f_b
+    return out_r, out_b, out_g, u, dom.bool()
 
 
 def coupled_step_compressed(s: torch.Tensor, g: torch.Tensor, model):
@@ -175,3 +239,42 @@ def coupled_step_compressed_reference(s: torch.Tensor, g: torch.Tensor,
     ``plain_step_c`` (the tracer sub-step on the pre-BC fields, then the
     flow's ``plain_step_c``)."""
     return model.plain_step_c((s, g))
+
+
+def coupled_step_split(state, model, with_u: bool = False):
+    """One split coupled step of `model`, a TransportRK, before its repairs:
+    TransportState -> (f_r', f_b', g', u, in_domain), u and in_domain the
+    pre-step velocity and transport-domain mask the repairs read
+    (``TransportRK.repair``).  CPU tensors: the plain version (u always
+    given).  CUDA tensors: the kernels, u only if `with_u`; or an error,
+    never the plain version."""
+    f_r, f_b, g, _ = state
+    devices = {t.device for t in (f_r, f_b, g)}
+    if len(devices) != 1:
+        raise ValueError(f"split coupled state on devices {sorted(map(str, devices))}")
+    dev = g.device
+    if dev.type == "cpu":
+        return coupled_step_split_reference(state, model)
+    if dev.type != "cuda":
+        raise ValueError(f"no coupled kernel for device {dev}")
+    flow = model.flow
+    if f_r.dtype != flow.dtype or f_b.dtype != flow.dtype:
+        raise ValueError(f"split state {f_r.dtype}/{f_b.dtype}; the model "
+                         f"takes {flow.dtype}")
+    if not model.standalone:
+        flow.check_split()
+    out = launch_coupled2d_split(
+        f_r, f_b, g, flow.kernel_params, model.tracer_params,
+        flow.geo_planes, model.tracer_table, with_u)
+    coupled_step_split.launches += 1
+    return out
+
+
+coupled_step_split.launches = 0
+
+
+def coupled_step_split_reference(state, model):
+    """Plain PyTorch version of the split coupled kernels, on any device:
+    the model's ``plain_coupled`` (the tracer sub-step on the pre-BC
+    fields, then the flow step)."""
+    return model.plain_coupled(state)

@@ -1,18 +1,26 @@
-"""Rothman-Keller colour-gradient two-phase flow, CSF variant, on the
-compressed (f_total, rho_r) state (counterpart of
-``openlbmpm_tpu/models/colorgradient.py``).
+"""Rothman-Keller colour-gradient two-phase flow, CSF variant (counterpart
+of ``openlbmpm_tpu/models/colorgradient.py``), on two state layouts:
+
+* split: the colour PDFs (f_r, f_b), each (9, ny, nx) -- ``step``, the
+  state the CLI runs, checkpoints and writes;
+* compressed: (f_total, rho_r) as 10 planes, or 11 bfloat16 planes --
+  ``step_c``.
 
 One step, in the reference's op order: boundary rows, phase field (with the
 outlet phi repair), solid-phi extrapolation, isotropic gradient,
 contact-angle rotation, CSF force, SRT or MRT collision on the total PDF
 with the Guo source, LKR recolouring, pull streaming with half-way
-bounce-back.  On a CUDA state the step is one call of the hand-written
-kernel (``kernels/csf.py``); on the CPU it is the plain PyTorch composition
-of ``ops/``.
+bounce-back.  The split layout applies the boundary rows per colour (the
+per-colour Zou-He pressure inlet; the total-momentum inlet and the
+total-pressure outlet split by the row's red fraction); the compressed one
+can only impose them on the total PDF (DEVIATIONS.md, "Compressed
+(f_total, rho_r) state layout").  On a CUDA state a step is one call of
+the hand-written kernel (``kernels/csf.py``); on the CPU it is the plain
+PyTorch composition of ``ops/``.
 
-Not yet ported (they raise NotImplementedError): the Perturbation variant,
-the split (f_r, f_b) step, and the neumann_per_color, convective_average
-and modified_periodic boundaries.
+Not yet ported (they raise NotImplementedError): the Perturbation variant
+and the neumann_per_color, convective_average and modified_periodic
+boundaries.
 """
 
 from __future__ import annotations
@@ -27,7 +35,8 @@ from torch import nn
 from ..geometry import Geometry, wetting_masks
 from ..lattice import D2Q9
 from .._device import resolve_device, resolve_dtype
-from ..kernels.csf import csf_step_compressed, geo_stack, kernel_params
+from ..kernels.csf import (csf_step_compressed, csf_step_split, geo_stack,
+                           kernel_params)
 from ..ops import boundaries as bc
 from ..ops import collision as col
 from ..ops import colorgrad as cg
@@ -87,11 +96,17 @@ class CGBoundaryConfig:
 class ColorGradientRK(nn.Module):
     """Two-phase CSF colour-gradient solver on a dense masked D2Q9 grid.
 
-    ``dtype`` is the arithmetic type (float32 or float64).  ``storage``
-    picks the state layout ``step_c`` maps: "f32" the (10, ny, nx) state
-    in ``dtype``, "bf16" the (11, ny, nx) bfloat16 state of
-    ``pack_state_bf16`` (float32 arithmetic).  The geometry planes are
-    buffers on ``device``.
+    ``dtype`` is the arithmetic type (float32 or float64) and the type of
+    the split state (f_r, f_b) that ``step`` maps.  ``storage`` picks the
+    layout ``step_c`` maps: "f32" the (10, ny, nx) state in ``dtype``,
+    "bf16" the (11, ny, nx) bfloat16 state of ``pack_state_bf16`` (float32
+    arithmetic); the split state has no bf16 form.  The geometry planes
+    are buffers on ``device``.
+
+    A Dirichlet inlet with a zero colour density is refused by the split
+    step (plain and kernel alike, ValueError): neither JAX path gives a
+    reference for it (``ops/boundaries.py::split_inlet_density_error``).
+    The compressed step imposes the summed density and takes it.
     """
 
     def __init__(self, geometry: Geometry,
@@ -132,6 +147,9 @@ class ColorGradientRK(nn.Module):
         self._phi_repair = (boundaries.outlet == "dirichlet"
                             and boundaries.phi_outlet_repair)
         self.kernel_params = kernel_params(params, boundaries, geometry)
+        self._split_error = bc.split_inlet_density_error(
+            boundaries.inlet_density_r, boundaries.inlet_density_b) \
+            if boundaries.inlet == "dirichlet" else None
 
     @property
     def device(self) -> torch.device:
@@ -191,6 +209,86 @@ class ColorGradientRK(nn.Module):
         f_r = eq.feq_quadratic(self.lat, rr, (zeros, zeros))
         f_b = eq.feq_quadratic(self.lat, rb, (zeros, zeros))
         return f_r * self.fluid_mask, f_b * self.fluid_mask
+
+    # -- split state (f_r, f_b) ---------------------------------------------
+    def _apply_inlet(self, f_r, f_b):
+        ny = self.geo.ny
+        m = self._row_mask
+        if self.bcs.inlet == "neumann":
+            f_r, f_b = bc.total_velocity_inlet_top(
+                f_r, f_b, self.bcs.inlet_velocity, ny - 2, m(ny - 2))
+        elif self.bcs.inlet == "dirichlet":
+            f_r = bc.zou_he_pressure_top(f_r, self.bcs.inlet_density_r,
+                                         ny - 2, m(ny - 2))
+            f_b = bc.zou_he_pressure_top(f_b, self.bcs.inlet_density_b,
+                                         ny - 2, m(ny - 2))
+        if self.bcs.inlet != "periodic":
+            f_r = bc.copy_row(f_r, ny - 1, ny - 2, m(ny - 1))
+            f_b = bc.copy_row(f_b, ny - 1, ny - 2, m(ny - 1))
+        return f_r, f_b
+
+    def _apply_outlet(self, f_r, f_b):
+        m = self._row_mask
+        if self.bcs.outlet == "convective":
+            masks = (m(2), m(1), m(0))
+            f_r = bc.copy_rows_from_above(f_r, (2, 1, 0), masks)
+            f_b = bc.copy_rows_from_above(f_b, (2, 1, 0), masks)
+        elif self.bcs.outlet == "dirichlet":
+            rho_t = self.bcs.outlet_density_r + self.bcs.outlet_density_b
+            f_r, f_b = bc.total_pressure_outlet_bottom(f_r, f_b, rho_t, 1,
+                                                       m(1))
+            f_r = bc.copy_row(f_r, 0, 1, m(0))
+            f_b = bc.copy_row(f_b, 0, 1, m(0))
+        return f_r, f_b
+
+    def color_force_fields(self, f_r, f_b):
+        """(rho_r, rho_b, phi, gx, gy, fx, fy) from the colour PDFs."""
+        rho_r = mac.density(f_r)
+        rho_b = mac.density(f_b)
+        return (rho_r, rho_b) + self.color_force_fields_from_rho(rho_r, rho_b)
+
+    def check_split(self):
+        """Raise ValueError for a configuration the split step refuses."""
+        if self._split_error is not None:
+            raise ValueError(self._split_error)
+
+    def _step_csf(self, f_r, f_b):
+        """One step of the split state composed from ``ops/``: the plain
+        version of the split kernel (the jnp ``_step_csf``)."""
+        lat, p = self.lat, self.p
+        f_r, f_b = self._apply_inlet(f_r, f_b)
+        f_r, f_b = self._apply_outlet(f_r, f_b)
+        rho_r, rho_b, phi, gx, gy, fx, fy = self.color_force_fields(f_r, f_b)
+        f_tot = f_r + f_b
+        u = self._velocity(f_tot, rho_r + rho_b, fx, fy)
+        feq = eq.feq_quadratic(lat, rho_r, u) + eq.feq_quadratic(lat, rho_b, u)
+        f_tot = self._collide(f_tot, feq, u, fx, fy, phi, rho_r, rho_b)
+        f_r, f_b = cg.recolor_lkr(f_tot, rho_r, rho_b, gx, gy, p.beta, lat)
+        fl = self.fluid_mask
+        return (stream(f_r, lat, self.upwind_solid) * fl,
+                stream(f_b, lat, self.upwind_solid) * fl)
+
+    def plain_step(self, state):
+        """``_step_csf`` of the split state (f_r, f_b), on any device."""
+        self.check_split()
+        return self._step_csf(*state)
+
+    def step(self, state):
+        """One time step of the split state (f_r, f_b): the kernel on a
+        CUDA state, the plain step on a CPU one."""
+        return csf_step_split(tuple(state), self)
+
+    def fields(self, f_r, f_b):
+        """(rho_r, rho_b, phi, gx, gy, (ux, uy)) of a split state as it
+        stands, boundary rows not applied, u = (m + F/2) / rho."""
+        rho_r, rho_b, phi, gx, gy, fx, fy = self.color_force_fields(f_r, f_b)
+        u = self._velocity(f_r + f_b, rho_r + rho_b, fx, fy)
+        return rho_r, rho_b, phi, gx, gy, u
+
+    def macro(self, state):
+        """Diagnostics (rho_r, rho_b, phi, (ux, uy)) of a split state."""
+        rho_r, rho_b, phi, _, _, u = self.fields(*state)
+        return rho_r, rho_b, phi, u
 
     # -- compressed state (f_total, rho_r) ----------------------------------
     def pack_state(self, f_r, f_b):
@@ -280,6 +378,27 @@ class ColorGradientRK(nn.Module):
         return phi, gx, gy, fx * self.fluid_mask, fy * self.fluid_mask
 
     # -- the step ------------------------------------------------------------
+    def _velocity(self, f_tot, rho, fx, fy):
+        """u = (m + F/2) / rho, rho guarded against 0."""
+        rho_safe = torch.where(rho > 0, rho, torch.ones_like(rho))
+        mx, my = mac.momentum(self.lat, f_tot)
+        return (mx + 0.5 * fx) / rho_safe, (my + 0.5 * fy) / rho_safe
+
+    def _collide(self, f_tot, feq, u, fx, fy, phi, rho_r, rho_b):
+        """SRT or MRT collision of the total PDF with tau(phi) and the Guo
+        source of the force (fx, fy)."""
+        lat, p = self.lat, self.p
+        tau = cg.tau_interp_csf(phi, rho_r, rho_b, p.tau_r, p.tau_b, p.delta,
+                                p.tau_type)
+        src = guo_source(lat, u, (fx, fy))
+        if p.collision == "SRT":
+            f_tot = col.bgk_field_tau(f_tot, feq, tau)
+            return f_tot + (1.0 - 0.5 / tau)[None] * src
+        inv_tau = 1.0 / tau
+        f_tot = col.mrt_variable_nu(f_tot, feq, lat, self._mrt_s, inv_tau)
+        return f_tot + col.mrt_force_transform_variable(
+            src, lat, self._mrt_s, inv_tau)
+
     def _step_csf_c(self, s):
         """One step of the (10, ny, nx) state composed from ``ops/``: the
         plain version of the kernel."""
@@ -287,23 +406,10 @@ class ColorGradientRK(nn.Module):
         s = self._apply_bcs_c(s)
         rho_r, rho_b, rho = self.rho_fields_c(s)
         phi, gx, gy, fx, fy = self.color_force_fields_from_rho(rho_r, rho_b)
-        rho_safe = torch.where(rho > 0, rho, torch.ones_like(rho))
         f_tot = s[:9]
-        mx, my = mac.momentum(lat, f_tot)
-        ux = (mx + 0.5 * fx) / rho_safe
-        uy = (my + 0.5 * fy) / rho_safe
-        tau = cg.tau_interp_csf(phi, rho_r, rho_b, p.tau_r, p.tau_b, p.delta,
-                                p.tau_type)
-        feq = eq.feq_quadratic(lat, rho, (ux, uy))
-        src = guo_source(lat, (ux, uy), (fx, fy))
-        if p.collision == "SRT":
-            f_tot = col.bgk_field_tau(f_tot, feq, tau)
-            f_tot = f_tot + (1.0 - 0.5 / tau)[None] * src
-        else:
-            inv_tau = 1.0 / tau
-            f_tot = col.mrt_variable_nu(f_tot, feq, lat, self._mrt_s, inv_tau)
-            f_tot = f_tot + col.mrt_force_transform_variable(
-                src, lat, self._mrt_s, inv_tau)
+        u = self._velocity(f_tot, rho, fx, fy)
+        feq = eq.feq_quadratic(lat, rho, u)
+        f_tot = self._collide(f_tot, feq, u, fx, fy, phi, rho_r, rho_b)
         f_r_post, _ = cg.recolor_lkr(f_tot, rho_r, rho_b, gx, gy, p.beta, lat)
         fl = self.fluid_mask
         f_tot = stream(f_tot, lat, self.upwind_solid) * fl
@@ -334,10 +440,7 @@ class ColorGradientRK(nn.Module):
             s = self.unpack_bf16(s)
         rho_r, rho_b, rho = self.rho_fields_c(s)
         phi, gx, gy, fx, fy = self.color_force_fields_from_rho(rho_r, rho_b)
-        rho_safe = torch.where(rho > 0, rho, torch.ones_like(rho))
-        mx, my = mac.momentum(self.lat, s[:9])
-        return (rho_r, rho_b, phi, gx, gy,
-                ((mx + 0.5 * fx) / rho_safe, (my + 0.5 * fy) / rho_safe))
+        return rho_r, rho_b, phi, gx, gy, self._velocity(s[:9], rho, fx, fy)
 
     def macro_c(self, s):
         """Diagnostics (rho_r, rho_b, phi, (ux, uy)) from a compressed

@@ -1,20 +1,22 @@
-"""Coupled CSF flow + phase-confined tracer transport on the compressed
-state (counterpart of ``openlbmpm_tpu/models/transport.py``).
+"""Coupled CSF flow + phase-confined tracer transport (counterpart of
+``openlbmpm_tpu/models/transport.py``), on two state layouts:
 
-One coupled step maps ``(s, g) -> (s', g')``: ``s`` the compressed flow
-state of ``ColorGradientRK`` (10 planes, or 11 bfloat16 planes with
-``storage="bf16"``) and ``g`` (T, Q, ny, nx) the tracer PDFs, kept in the
-arithmetic type (float32 with bf16 flow storage).  As in the JAX model's
-``_step_impl``, the tracer sub-step sees the flow fields of ``s`` *before*
-the flow's boundary rows; then the flow takes its own step.  On a CUDA
-state the step is one call of the hand-written kernel set
+* split: ``TransportState(f_r, f_b, g, mass0)`` -- ``step``, the JAX
+  model's ``_step_impl``, with the ``conserve_mass`` and ``redistribute``
+  repairs and ``standalone`` transport (fixed flow fields);
+* compressed: ``(s, g)`` with ``s`` the compressed flow state of
+  ``ColorGradientRK`` (10 planes, or 11 bfloat16 planes with
+  ``storage="bf16"``) -- ``step_c``.
+
+``g`` (T, Q, ny, nx) holds the tracer PDFs in the arithmetic type (float32
+with bf16 flow storage).  As in ``_step_impl``, the tracer sub-step sees the
+flow fields *before* the flow's boundary rows; then the flow takes its own
+step.  On a CUDA state a step is one call of the hand-written kernel set
 (``kernels/transport.py``); on the CPU it is the plain composition of
 ``ops/``.
 
-Not yet ported (they raise NotImplementedError): the split
-``TransportRK.step`` and with it ``conserve_mass``, the ``redistribute``
-interface mode and ``standalone`` transport; tracer inlet and outlet rows
-on D2Q9 (the compressed JAX kernel takes none either).
+Not yet ported (NotImplementedError): tracer inlet and outlet rows on D2Q9
+(the JAX Pallas kernels take none either).
 """
 
 from __future__ import annotations
@@ -26,10 +28,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..kernels.transport import (coupled_step_compressed, tracer_kernel_params,
-                                  tracer_table)
+from ..kernels.transport import (coupled_step_compressed, coupled_step_split,
+                                  tracer_kernel_params, tracer_table)
 from ..lattice import D2Q5, D2Q9
 from ..ops import equilibrium as eq
+from ..ops import macroscopic as mac
 from ..ops import transport as tr
 from ..ops.streaming import stream, upwind_solid_masks
 from .colorgradient import CGBoundaryConfig, ColorGradientParams, ColorGradientRK
@@ -81,19 +84,9 @@ def _per_tracer(values, nt: int, name: str) -> tuple:
     return v
 
 
-def _check_options(tp: TransportParams, standalone: bool):
-    if standalone:
-        raise NotImplementedError(
-            "standalone transport waits for the split TransportRK.step")
-    if tp.conserve_mass:
-        raise NotImplementedError(
-            "conserve_mass has no compressed coupled form; it waits for the "
-            "split TransportRK.step")
-    if tp.interface_mode == "redistribute":
-        raise NotImplementedError(
-            "interface_mode='redistribute' has no compressed coupled form; "
-            "it waits for the split TransportRK.step")
-    if tp.interface_mode not in ("none", "permeable", "bounceback"):
+def _check_options(tp: TransportParams):
+    if tp.interface_mode not in ("none", "permeable", "bounceback",
+                                 "redistribute"):
         raise ValueError(f"interface_mode {tp.interface_mode!r}")
     if tp.scheme not in (5, 9) or tp.relaxation not in ("SRT", "MRT") or \
             tp.mrt_equilibrium not in ("linear", "quadratic"):
@@ -112,9 +105,10 @@ class TransportRK(nn.Module):
     """Coupled CSF flow + phase-confined tracer transport.
 
     ``flow`` is the ``ColorGradientRK`` of the flow half (``dtype``,
-    ``device`` and ``storage`` as there).  The tracer's upwind-solid masks
-    and its per-tracer table (``kernels/transport.py::tracer_table``) are
-    buffers on ``device``.
+    ``device`` and ``storage`` as there).  With ``standalone`` the flow
+    fields stay fixed and only the tracers advance.  The tracer's
+    upwind-solid masks and its per-tracer table
+    (``kernels/transport.py::tracer_table``) are buffers on ``device``.
     """
 
     def __init__(self, geometry, flow_params=ColorGradientParams(),
@@ -123,12 +117,13 @@ class TransportRK(nn.Module):
                  dtype=torch.float32, device="cpu", storage: str = "f32"):
         super().__init__()
         tp = transport_params
-        _check_options(tp, standalone)
+        _check_options(tp)
         self.flow = ColorGradientRK(geometry, flow_params, boundaries,
                                     dtype=dtype, device=device,
                                     storage=storage)
         self.geo = geometry
         self.tp = tp
+        self.standalone = bool(standalone)
         self.dtype = self.flow.dtype
         self.lat_tr = D2Q5 if tp.scheme == 5 else D2Q9
         nt = tp.num_tracers
@@ -151,7 +146,7 @@ class TransportRK(nn.Module):
             upwind_solid_masks(self.lat_tr, geometry.is_solid), device=dev))
         self.register_buffer("tracer_table", torch.as_tensor(
             tracer_table(self), dtype=self.dtype, device=dev))
-        self.tracer_params = tracer_kernel_params(tp)
+        self.tracer_params = tracer_kernel_params(tp, self.standalone)
 
     @property
     def device(self) -> torch.device:
@@ -221,7 +216,7 @@ class TransportRK(nn.Module):
 
         g = stream(g, lat, self.upwind_solid_tr) * self.flow.fluid_mask
 
-        if tp.interface_mode == "bounceback":
+        if tp.interface_mode in ("bounceback", "redistribute"):
             g = tr.interface_bounce_back(g, in_domain, lat)
         ny = self.geo.ny
         if tp.inlet == "inamuro":
@@ -233,10 +228,22 @@ class TransportRK(nn.Module):
             g = tr.zero_concentration_inlet(g, ny - 2, m(ny - 2))
         return g
 
+    def _check_compressed(self):
+        """The options the JAX package has no compressed coupled form for
+        (``TransportRK.make_block_step`` returns None) are refused."""
+        tp = self.tp
+        if tp.conserve_mass or tp.interface_mode == "redistribute" or \
+                self.standalone:
+            raise ValueError(
+                "conserve_mass, interface_mode='redistribute' and standalone "
+                "transport have no compressed coupled form; use step() on "
+                "the split TransportState")
+
     def plain_step_c(self, state):
         """One coupled step of (s, g) composed from ``ops/``, on any device:
         the plain version of the kernel.  The tracer sees the fields of s
         before the flow's boundary rows; a bf16 s is decoded first."""
+        self._check_compressed()
         s, g = state
         rho_r, _, _, gx, gy, u = self.flow.fields_c(s)
         g = self._transport_substep(g, u, gx, gy, rho_r)
@@ -245,5 +252,57 @@ class TransportRK(nn.Module):
     def step_c(self, state):
         """One coupled time step of (s, g): the kernel on a CUDA state, the
         plain step on a CPU one."""
+        self._check_compressed()
         s, g = state
         return coupled_step_compressed(s, g, self)
+
+    # -- the split step ------------------------------------------------------
+    def plain_coupled(self, state: TransportState):
+        """The plain version of the split coupled kernels, composed from
+        ``ops/`` on any device: the tracer sub-step on the fields before
+        the flow's boundary rows, then the flow step (unless standalone).
+        Returns (f_r', f_b', g', u, in_domain), u (2, ny, nx) and in_domain
+        the pre-step velocity and transport-domain mask that ``repair``
+        reads."""
+        f_r, f_b, g, _ = state
+        rho_r, _, _, gx, gy, u = self.flow.fields(f_r, f_b)
+        g = self._transport_substep(g, u, gx, gy, rho_r)
+        if not self.standalone:
+            f_r, f_b = self.flow.plain_step((f_r, f_b))
+        in_domain, _ = tr.transport_domain_mask(rho_r, self.tp.criteria)
+        return f_r, f_b, g, torch.stack(u), in_domain
+
+    def repair(self, out, mass0) -> TransportState:
+        """The split step's repairs of a coupled step's output `out`
+        (``plain_coupled``'s five tensors), in the JAX model's order: the
+        conserve_mass renormalisation on the pre-step u and domain mask,
+        then (unless standalone) the redistribution of the tracer of nodes
+        the phase front crossed, from the domain masks before and after
+        the flow step."""
+        f_r, f_b, g, u, in_domain = out
+        tp, lat = self.tp, self.lat_tr
+        if tp.conserve_mass:
+            g, _ = tr.renormalize_concentration(
+                g, self.concentration(g), mass0, in_domain,
+                u[0] * u[0] + u[1] * u[1], self.j_coeffs, u, lat)
+        if tp.interface_mode == "redistribute" and not self.standalone:
+            fl = self.flow.is_fluid
+            in_new = tr.transport_domain_mask(
+                mac.density(f_r), tp.criteria)[0] & fl
+            g = tr.redistribute_on_interface_motion(
+                g, in_new, in_domain & fl, self.j_coeffs if tp.scheme == 5
+                else np.tile(lat.w, (tp.num_tracers, 1)), lat)
+        return TransportState(f_r, f_b, g, mass0)
+
+    def plain_step(self, state: TransportState) -> TransportState:
+        """One split coupled step composed from ``ops/`` (the jnp
+        ``_step_impl``), on any device: ``plain_coupled``, then the
+        repairs."""
+        return self.repair(self.plain_coupled(state), state.mass0)
+
+    def step(self, state: TransportState) -> TransportState:
+        """One split coupled time step: the kernels on a CUDA state, the
+        plain version on a CPU one, then the repairs as PyTorch ops."""
+        return self.repair(
+            coupled_step_split(state, self, with_u=self.tp.conserve_mass),
+            state.mass0)

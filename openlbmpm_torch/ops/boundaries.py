@@ -1,18 +1,110 @@
-"""Boundary conditions as masked row updates on the compressed state
-(counterpart of the ``_c`` rows of ``openlbmpm_tpu/ops/boundaries.py``).
+"""Boundary conditions as masked row updates (counterpart of
+``openlbmpm_tpu/ops/boundaries.py``), on the split (f_r, f_b) state and on
+the compressed state.
 
-The compressed state is s = (10, ny, nx): planes 0-8 the total PDF, plane 9
-the red density.  y = 0 is the outlet side and y = ny - 1 the inlet side.
-Each function returns a new tensor; the input is not modified.
+The split state is a pair of (9, ny, nx) colour PDFs; the compressed state
+is s = (10, ny, nx): planes 0-8 the total PDF, plane 9 the red density.
+y = 0 is the outlet side and y = ny - 1 the inlet side.  Each function
+returns new tensors; the inputs are not modified.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["total_velocity_inlet_top_c", "zou_he_pressure_top_total_c",
+__all__ = ["total_velocity_inlet_top", "total_pressure_outlet_bottom",
+           "zou_he_pressure_top", "split_inlet_density_error",
+           "total_velocity_inlet_top_c", "zou_he_pressure_top_total_c",
            "total_pressure_outlet_bottom_c", "copy_row",
            "copy_rows_from_above"]
+
+
+_ZERO_TARGET = (
+    "a target density of 0 has no reference: the JAX jnp op "
+    "(ops/boundaries.py::zou_he_pressure_top) divides by it and writes NaN "
+    "into f4, f7 and f8 of that colour, and the JAX Pallas split kernel "
+    "(pallas/csf.py::_apply_bcs_window) divides by 1 instead and writes "
+    "f4 = 2/3, f7 = f8 = 1/6, injecting that colour at the inlet")
+
+
+def split_inlet_density_error(rho_r: float, rho_b: float) -> str | None:
+    """Why the split per-colour Zou-He pressure inlet refuses these colour
+    target densities, or None when both are nonzero."""
+    zero = [f"inlet_density_{c} = 0" for c, v in (("r", rho_r), ("b", rho_b))
+            if v == 0]
+    if not zero:
+        return None
+    return (f"split Dirichlet inlet with {' and '.join(zero)}: "
+            f"{_ZERO_TARGET}. Give both colours a nonzero inlet density, or "
+            "use the compressed step (step_c), which imposes their sum.")
+
+
+def _set_rows(f, row, news, mask):
+    """f with populations {i: value} replaced on `row` where `mask`."""
+    out = f.clone()
+    for i, v in news.items():
+        out[i, row] = torch.where(mask, v, f[i, row])
+    return out
+
+
+def _split_rows(f_r, f_b, row, news, mask):
+    """Total-PDF row values {i: value} split between the colours by the
+    row's red fraction, taken before the row is rewritten."""
+    rho_r = torch.sum(f_r[:, row, :], dim=0)
+    rho_b = torch.sum(f_b[:, row, :], dim=0)
+    tot = rho_r + rho_b
+    ratio_r = rho_r / torch.where(tot != 0, tot, torch.ones_like(tot))
+    ratio_b = 1.0 - ratio_r
+    return (_set_rows(f_r, row, {i: ratio_r * v for i, v in news.items()},
+                      mask),
+            _set_rows(f_b, row, {i: ratio_b * v for i, v in news.items()},
+                      mask))
+
+
+def total_velocity_inlet_top(f_r, f_b, vy, row, mask):
+    """Total-momentum velocity inlet (non-equilibrium bounce-back) on a
+    top-side row of the split state: the unknown total populations 4, 7, 8
+    from f_i = feq_i + (f_opp - feq_opp) at the Zou-He density, split by
+    the row's red fraction.  Returns (f_r, f_b)."""
+    ft = f_r[:, row, :] + f_b[:, row, :]
+    rho = (ft[0] + ft[1] + ft[3] + 2.0 * (ft[2] + ft[5] + ft[6])) / (1.0 + vy)
+
+    def feq(ey, w):
+        return _feq_row_1d(rho, w, ey, vy)
+
+    news = {4: feq(-1.0, 1 / 9) + (ft[2] - feq(1.0, 1 / 9)),
+            7: feq(-1.0, 1 / 36) + (ft[5] - feq(1.0, 1 / 36)),
+            8: feq(-1.0, 1 / 36) + (ft[6] - feq(1.0, 1 / 36))}
+    return _split_rows(f_r, f_b, row, news, mask)
+
+
+def total_pressure_outlet_bottom(f_r, f_b, rho_target, row, mask):
+    """Total-PDF Zou-He pressure outlet on a bottom-side row of the split
+    state, split by the row's red fraction.  Returns (f_r, f_b)."""
+    ft = f_r[:, row, :] + f_b[:, row, :]
+    vy = 1.0 - (ft[0] + ft[1] + ft[3] +
+                2.0 * (ft[4] + ft[7] + ft[8])) / rho_target
+    d31 = 0.5 * (ft[3] - ft[1])
+    rv = rho_target * vy
+    news = {2: ft[4] + (2.0 / 3.0) * rv,
+            5: ft[7] + d31 + rv / 6.0,
+            6: ft[8] - d31 + rv / 6.0}
+    return _split_rows(f_r, f_b, row, news, mask)
+
+
+def zou_he_pressure_top(f, rho_target, row, mask):
+    """Zou-He pressure inlet of one colour's PDF f (9, ny, nx) on a
+    top-side row; unknowns f4, f7, f8.  A target of 0 raises ValueError."""
+    if rho_target == 0:
+        raise ValueError(f"zou_he_pressure_top: {_ZERO_TARGET}")
+    r = f[:, row, :]
+    vy = -1.0 + (r[0] + r[1] + r[3] +
+                 2.0 * (r[2] + r[5] + r[6])) / rho_target
+    d13 = 0.5 * (r[1] - r[3])
+    rv = rho_target * vy
+    return _set_rows(f, row, {4: r[2] - (2.0 / 3.0) * rv,
+                              7: r[5] + d13 - rv / 6.0,
+                              8: r[6] - d13 - rv / 6.0}, mask)
 
 
 def _update_rows_c(s, row, news, mask):

@@ -3,9 +3,9 @@ phase (counterpart of ``openlbmpm_tpu/ops/transport.py``).
 
 Tracer PDFs are g (T, Q, ny, nx).  The numpy table builders
 (``j_coefficients``, ``mrt_matrices_*``) are ported rather than imported,
-because the JAX module that holds them imports jax.  Not ported yet: the
-split-step repairs ``redistribute_on_interface_motion`` and
-``renormalize_concentration``.
+because the JAX module that holds them imports jax.  The split step's
+repairs (``redistribute_on_interface_motion``,
+``renormalize_concentration``) keep every total on the device.
 """
 
 from __future__ import annotations
@@ -14,13 +14,14 @@ import numpy as np
 import torch
 
 from ..lattice import D2Q5, D2Q9, Lattice
-from .common import bcast_1d, pull, shift
+from .common import bcast_1d, e_dot_u, pull, shift
 
 __all__ = [
     "j_coefficients", "mrt_matrices_d2q5", "mrt_matrices_d2q9",
     "mrt_collide", "transport_domain_mask", "interface_partition",
     "interface_bounce_back", "bilinear_reaction", "inamuro_inlet",
     "anti_bounce_back_inlet", "zero_concentration_inlet", "free_flow_outlet",
+    "redistribute_on_interface_motion", "renormalize_concentration",
 ]
 
 _EPS = 1.0e-8
@@ -176,3 +177,82 @@ def free_flow_outlet(g, rows, mask_rows):
     for row, m in zip(rows, mask_rows):
         g[:, :, row] = torch.where(m, g[:, :, row + 1], g[:, :, row])
     return g
+
+
+def redistribute_on_interface_motion(g, in_domain_new, in_domain_old,
+                                     j_coeffs, lat: Lattice):
+    """Tracer repair when the phase interface moves: nodes that left the
+    transport domain hand their concentration in equal shares to their
+    new-domain neighbours; nodes that entered it take the mean
+    concentration of their staying neighbours (the donors), which is
+    deducted from those donors.  Entered nodes restart at the equilibrium
+    conc * j_coeffs (T, Q); exited nodes are emptied.  g (T, Q, ny, nx);
+    in_domain_new/old (ny, nx) bool."""
+    conc = torch.sum(g, dim=1)
+    exited = in_domain_old & ~in_domain_new
+    entered = in_domain_new & ~in_domain_old
+    dom_new_f = in_domain_new.to(g.dtype)
+    dom_old_f = in_domain_old.to(g.dtype)
+    dirs = [(int(lat.e[i, 0]), int(lat.e[i, 1])) for i in range(1, lat.q)]
+    one = torch.ones_like(dom_new_f)
+    zero = torch.zeros_like(conc)
+
+    nbr_new = torch.zeros_like(dom_new_f)
+    for dx, dy in dirs:
+        nbr_new = nbr_new + shift(dom_new_f, dx, dy)
+    share = torch.where(exited & (nbr_new > 0),
+                        conc / torch.where(nbr_new > 0, nbr_new, one), zero)
+    received = torch.zeros_like(conc)
+    for dx, dy in dirs:
+        received = received + shift(share, dx, dy)
+    received = received * dom_new_f
+
+    remain_f = dom_old_f * dom_new_f
+    nbr_old = torch.zeros_like(dom_old_f)
+    donor_sum = torch.zeros_like(conc)
+    for dx, dy in dirs:
+        nbr_old = nbr_old + shift(remain_f, dx, dy)
+        donor_sum = donor_sum + shift(conc * remain_f, dx, dy)
+    n_don = torch.where(nbr_old > 0, nbr_old, one)
+    borrowed = torch.where((entered & (nbr_old > 0))[None], donor_sum / n_don,
+                           zero)
+    per_donor = borrowed / n_don
+    deduction = torch.zeros_like(conc)
+    for dx, dy in dirs:
+        deduction = deduction + shift(per_donor, -dx, -dy)
+    deduction = deduction * remain_f
+
+    conc_new = torch.where(in_domain_new[None],
+                           conc + received + borrowed - deduction, zero)
+    j = torch.as_tensor(np.asarray(j_coeffs, np.float64), dtype=g.dtype,
+                        device=g.device)[:, :, None, None]
+    out = torch.where(exited[None, None], torch.zeros_like(g), g)
+    out = torch.where(entered[None, None], conc_new[:, None] * j, out)
+    delta = (received + borrowed - deduction)[:, None] * j
+    interior = in_domain_new & ~entered
+    return torch.where(interior[None, None], out + delta, out)
+
+
+def renormalize_concentration(g, conc, mass0, in_domain, u_norm_sq,
+                              j_or_w, u, lat: Lattice,
+                              quadratic: bool = False):
+    """The reference's mass repair, as written: on transport-domain nodes
+    where the flow moves (|u|^2 > 1e-20) the concentration becomes
+    conc + conc * mass0 / total, with total the tracer mass in the domain,
+    and the PDFs restart at w_i C (1 + 3 e.u) (plus the quadratic terms
+    with `quadratic`).  `mass0` (T,) stays a tensor: nothing leaves the
+    device.  `j_or_w` is accepted and unused, as in the reference.
+    Returns (g, conc)."""
+    total = torch.sum(conc * in_domain[None], dim=(-2, -1))
+    total = torch.where(total != 0, total, torch.ones_like(total))
+    extra = conc * (mass0.to(conc.dtype) / total).reshape(-1, 1, 1)
+    active = in_domain & (u_norm_sq > 1e-20)
+    conc_new = torch.where(active[None], conc + extra, conc)
+    eu = e_dot_u(lat, u)
+    eq_factor = bcast_1d(lat.w, conc) * (1.0 + 3.0 * eu)
+    if quadratic:
+        uu = (u[0] * u[0] + u[1] * u[1])[None]
+        eq_factor = bcast_1d(lat.w, conc) * \
+            (1.0 + 3.0 * eu + 4.5 * eu * eu - 1.5 * uu)
+    geq = conc_new[:, None] * eq_factor[None]
+    return torch.where(active[None, None], geq, g), conc_new

@@ -1,0 +1,313 @@
+"""The port's product surface against the JAX package's, on the CPU.
+
+* ``openlbmpm_torch.config`` returns dataclasses equal field by field to
+  ``openlbmpm_tpu.config``'s, on the shipped INIs and on INIs that hit the
+  reader's special cases; ``config_fingerprint`` is the same hash;
+* checkpoints cross between the packages both ways, bit for bit, and a run
+  resumes from the other package's checkpoint;
+* ``python -m openlbmpm_torch run --model cg|transport --device cpu
+  --dtype f64`` against the JAX CLI's ``--no-pallas --dtype f64`` run (its
+  steps un-jitted under ``jax.disable_jit``, as the port is held to the
+  un-jitted JAX step): results and final checkpoint to 1e-12, the physics
+  fields of metrics.jsonl to 1e-10;
+* the metrics helpers, ``inspect``, the refusals and the notes.
+"""
+
+import contextlib
+import dataclasses
+import io
+import json
+import os
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from openlbmpm_tpu import checkpoint as jck
+from openlbmpm_tpu import cli as jcli
+from openlbmpm_tpu import config as jconfig
+from openlbmpm_tpu import metrics as jmetrics
+from openlbmpm_tpu.models import transport as jtr
+from openlbmpm_torch import checkpoint as tck
+from openlbmpm_torch import cli as tcli
+from openlbmpm_torch import config as tconfig
+from openlbmpm_torch import metrics as tmetrics
+from openlbmpm_torch.models.transport import TransportState
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CG_INI = os.path.join(ROOT, "configs", "rk_csf2d.ini")
+TR_INI = os.path.join(ROOT, "configs", "transportsetup.ini")
+
+
+def _ini(tmp_path, src, name, edits):
+    """`src` with each line matching a key of `edits` (a regex) replaced by
+    its value."""
+    text = open(src).read()
+    for old, new in edits.items():
+        text, n = re.subn(rf"(?m)^{old}$", new, text)
+        assert n == 1, old
+    path = tmp_path / name
+    path.write_text(text)
+    return str(path)
+
+
+CG_VARIANTS = {
+    "shipped": {},
+    "dirilcht_convective": {
+        "BoundaryTypeInlet = .*": "BoundaryTypeInlet = 'Dirilcht'",
+        "BoundaryTypeOutlet = .*": "BoundaryTypeOutlet = 'Convective'",
+        "densityBH = .*": "densityBH = 0.01"},
+    "percolor_average_convective": {
+        "BoundaryTypeOutlet = .*": "BoundaryTypeOutlet = 'AverageConvective'",
+        "BoundaryTypeInlet = .*": "BoundaryTypeInlet = 'Neumann'\n"
+                                  "VelocityType = 'PerColor'"},
+    "no_repair_srt": {
+        "BoundaryTypeOutlet = .*": "BoundaryTypeOutlet = 'Dirichlet'\n"
+                                   "PhiOutletRepair = 'no'",
+        "Type = 'MRT'": "Type = 'SRT'"},
+}
+
+
+@pytest.mark.parametrize("variant", sorted(CG_VARIANTS))
+def test_load_colorgradient_equals_jax(tmp_path, variant):
+    path = _ini(tmp_path, CG_INI, "cg.ini", CG_VARIANTS[variant])
+    got = tconfig.load_colorgradient(path)
+    want = jconfig.load_colorgradient(path)
+    for a, b in zip(got, want):
+        assert type(a).__name__ == type(b).__name__
+        assert dataclasses.asdict(a) == dataclasses.asdict(b)
+    assert tck.config_fingerprint(got[0]) == jck.config_fingerprint(want[0])
+    if variant == "no_repair_srt":
+        assert not got[1].phi_outlet_repair and got[0].collision == "SRT"
+    if variant == "percolor_average_convective":
+        assert (got[1].inlet, got[1].outlet) == ("neumann_per_color",
+                                                 "convective_average")
+
+
+TR_VARIANTS = {
+    "shipped": {},
+    "mrt_reaction_two_tracers": {f"{k} = .*": f"{k} = {v}" for k, v in (
+        ("NumberOfTracers", "2"), ("TransportTau", "1.0, 0.8"),
+        ("DiffusionJ", "0.3, 0.25"), ("Type", "'MRT'"), ("Option", "'yes'"),
+        ("ReactionRate", "0.05"), ("InletType", "'anti_bounce_back'"),
+        ("InletConcentration", "1.0, 0.5"), ("BetaInterface", "0.4"))},
+}
+
+
+@pytest.mark.parametrize("variant", sorted(TR_VARIANTS))
+def test_load_transport_equals_jax(tmp_path, variant):
+    path = _ini(tmp_path, TR_INI, "tr.ini", TR_VARIANTS[variant])
+    got = tconfig.load_transport(path)
+    want = jconfig.load_transport(path)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert tck.config_fingerprint(got) == jck.config_fingerprint(want)
+
+
+def _split_state(seed, transport=False):
+    rng = np.random.default_rng(seed)
+    f_r, f_b = rng.uniform(0.0, 0.2, (2, 9, 12, 10))
+    if not transport:
+        return f_r, f_b
+    return jtr.TransportState(f_r, f_b, rng.uniform(0, 1, (2, 5, 12, 10)),
+                              rng.uniform(1, 9, 2))
+
+
+@pytest.mark.parametrize("transport", [False, True], ids=["cg", "transport"])
+def test_checkpoints_cross_both_ways_bit_for_bit(tmp_path, transport):
+    state = _split_state(int(transport), transport)
+    j_state = jtr.TransportState(*map(jnp.asarray, state)) if transport \
+        else tuple(map(jnp.asarray, state))
+    t_state = TransportState(*map(torch.from_numpy, state)) if transport \
+        else tuple(map(torch.from_numpy, state))
+    jck.save_checkpoint(str(tmp_path / "j.npz"), j_state, 17, "fp")
+    tck.save_checkpoint(str(tmp_path / "t.npz"), t_state, 17, "fp")
+    with np.load(tmp_path / "j.npz") as zj, np.load(tmp_path / "t.npz") as zt:
+        assert set(zj.files) == set(zt.files)
+    zeros = [torch.zeros_like(x) for x in t_state]
+    like_t = TransportState(*zeros) if transport else tuple(zeros)
+    got_t, step_t = tck.load_checkpoint(str(tmp_path / "j.npz"), like_t, "fp")
+    got_j, step_j = jck.load_checkpoint(str(tmp_path / "t.npz"), j_state, "fp")
+    assert step_t == step_j == 17 and type(got_t) is type(t_state)
+    for a, b, c in zip(state, got_t, got_j):
+        np.testing.assert_array_equal(b.numpy().view(np.uint8),
+                                      np.asarray(a).view(np.uint8))
+        np.testing.assert_array_equal(np.asarray(c).view(np.uint8),
+                                      np.asarray(a).view(np.uint8))
+    with pytest.raises(ValueError, match="fingerprint"):
+        tck.load_checkpoint(str(tmp_path / "j.npz"), like_t, "other")
+
+
+def test_di_cycle_swap_equals_jax():
+    f_r, f_b = _split_state(2)
+    want = jck.di_cycle_swap(f_r, f_b, buffer_rows=3)
+    got = tck.di_cycle_swap(torch.from_numpy(f_r), torch.from_numpy(f_b),
+                            buffer_rows=3)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def test_flow_diagnostics_and_steady_state_equal_jax():
+    rng = np.random.default_rng(4)
+    rho_r, rho_b, ux, uy, ux0, uy0 = rng.uniform(0, 1, (6, 12, 10))
+    fl = rng.random((12, 10)) < 0.8
+    want = jmetrics.flow_diagnostics(rho_r, rho_b, ux, uy, fl)
+    got = tmetrics.flow_diagnostics(*map(torch.from_numpy,
+                                         (rho_r, rho_b, ux, uy)), fl)
+    assert got.keys() == want.keys()
+    for k in want:
+        assert got[k] == pytest.approx(want[k], rel=1e-12, abs=1e-15)
+    assert tmetrics.steady_state_criterion(
+        *map(torch.from_numpy, (ux, uy, ux0, uy0))) == pytest.approx(
+        jmetrics.steady_state_criterion(ux, uy, ux0, uy0), rel=1e-12)
+
+
+def _mini(tmp_path, n_x=32, n_y=64, interval=10):
+    return _ini(tmp_path, CG_INI, "mini.ini", {
+        "xDomain = .*": f"xDomain = {n_x}", "yDomain = .*": f"yDomain = {n_y}",
+        "TimeInterval = .*": f"TimeInterval = {interval}"})
+
+
+def _jax_cli(argv):
+    with jax.disable_jit(), contextlib.redirect_stdout(io.StringIO()):
+        assert jcli.main(argv) == 0
+
+
+def _torch_cli(argv):
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        assert tcli.main(argv) == 0
+    return out.getvalue()
+
+
+def _records(path):
+    with open(path) as fh:
+        return [json.loads(ln) for ln in fh if ln.strip()]
+
+
+def _same_records(a, b, atol=1e-10):
+    """The physics fields of two metrics.jsonl files agree (the timings,
+    mlups and steps_per_s, are the hosts' own)."""
+    ra, rb = _records(a), _records(b)
+    assert len(ra) == len(rb)
+    for x, y in zip(ra, rb):
+        keys = set(x) - {"mlups", "steps_per_s"}
+        assert keys == set(y) - {"mlups", "steps_per_s"}
+        for k in keys:
+            if isinstance(x[k], float):
+                assert abs(x[k] - y[k]) <= atol, (k, x[k], y[k])
+            else:
+                assert x[k] == y[k], k
+
+
+def _same_arrays(a: dict, b: dict, atol=1e-12):
+    assert set(a) == set(b)
+    for k in a:
+        if a[k].dtype.kind == "f":
+            np.testing.assert_allclose(b[k], a[k], rtol=0, atol=atol)
+        else:
+            np.testing.assert_array_equal(b[k], a[k])
+
+
+def _same_checkpoint(a, b):
+    """Leaves to 1e-12, step and fingerprint equal.  ``__treedef__`` is
+    each package's own description of the structure; no loader reads it."""
+    with np.load(a) as za, np.load(b) as zb:
+        _same_arrays({k: za[k] for k in za.files if k != "__treedef__"},
+                     {k: zb[k] for k in zb.files if k != "__treedef__"})
+
+
+def _results(out_dir, basename) -> dict:
+    """Every dataset the ResultWriter wrote (HDF5 when h5py is importable,
+    else one npz per output step)."""
+    h5 = os.path.join(out_dir, basename + ".h5")
+    if os.path.exists(h5):
+        import h5py
+        found = {}
+        with h5py.File(h5, "r") as fh:
+            fh.visititems(lambda k, v: found.__setitem__(k, np.asarray(v))
+                          if hasattr(v, "shape") else None)
+        return found
+    found = {}
+    for name in sorted(os.listdir(out_dir)):
+        if name.startswith(basename + "_") and name.endswith(".npz"):
+            with np.load(os.path.join(out_dir, name)) as z:
+                found.update({k: z[k] for k in z.files})
+    return found
+
+
+def test_cli_cg_matches_jax_cli_f64(tmp_path):
+    """20 f64 steps of the 64x32 box (84x32 with the buffer layers) under
+    the Neumann inlet and Dirichlet outlet: the final checkpoint and the
+    result files to 1e-12, the physics of metrics.jsonl to 1e-10."""
+    ini = _mini(tmp_path)
+    common = ["run", ini, "--model", "cg", "--dtype", "f64", "--steps", "20"]
+    _jax_cli(common + ["--no-pallas", "--output", str(tmp_path / "j")])
+    _torch_cli(common + ["--device", "cpu", "--output", str(tmp_path / "t")])
+    _same_checkpoint(tmp_path / "j" / "checkpoint.npz",
+                     tmp_path / "t" / "checkpoint.npz")
+    got = _results(tmp_path / "t", "SimulationResultsRK")
+    assert len(got) == 3 * 6       # steps 0, 10, 20: rho_r, rho_b, u, PDFs
+    _same_arrays(_results(tmp_path / "j", "SimulationResultsRK"), got)
+    _same_records(tmp_path / "j" / "metrics.jsonl",
+                  tmp_path / "t" / "metrics.jsonl")
+
+
+def test_cli_transport_matches_jax_cli_f64(tmp_path):
+    """20 f64 coupled steps (configs/transportsetup.ini on the 64x32 flow
+    INI): the concentration files to 1e-12, tracer masses to 1e-10."""
+    ini = _mini(tmp_path)
+    common = ["run", TR_INI, "--model", "transport", "--physics-config", ini,
+              "--dtype", "f64", "--steps", "20"]
+    _jax_cli(common + ["--no-pallas", "--output", str(tmp_path / "j")])
+    _torch_cli(common + ["--device", "cpu", "--output", str(tmp_path / "t")])
+    got = _results(tmp_path / "t", "ConcentrationResults")
+    assert len(got) == 3                       # steps 0, 10, 20
+    _same_arrays(_results(tmp_path / "j", "ConcentrationResults"), got)
+    _same_records(tmp_path / "j" / "metrics.jsonl",
+                  tmp_path / "t" / "metrics.jsonl")
+    assert _records(tmp_path / "t" / "metrics.jsonl")[-1]["tracer0_mass"] > 0
+
+
+def test_cli_resumes_from_a_jax_checkpoint(tmp_path):
+    """JAX runs 10 steps; the port resumes its checkpoint to step 20 and
+    lands within 1e-12 of a port run of 20 steps straight."""
+    ini = _mini(tmp_path)
+    common = ["run", ini, "--model", "cg", "--dtype", "f64"]
+    out = str(tmp_path / "resumed")
+    _jax_cli(common + ["--no-pallas", "--steps", "10", "--output", out])
+    text = _torch_cli(common + ["--device", "cpu", "--steps", "10",
+                                "--resume", "--output", out])
+    assert "resumed from step 10" in text
+    _torch_cli(common + ["--device", "cpu", "--steps", "20", "--output",
+                         str(tmp_path / "straight")])
+    _same_checkpoint(tmp_path / "straight" / "checkpoint.npz",
+                     os.path.join(out, "checkpoint.npz"))
+
+
+@pytest.mark.parametrize("model,path", [("cg", CG_INI), ("transport", TR_INI)])
+def test_inspect_prints_what_jax_prints(model, path):
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        assert jcli.main(["inspect", path, "--model", model]) == 0
+    assert _torch_cli(["inspect", path, "--model", model]) == out.getvalue()
+
+
+def test_unported_model_exits_2(capsys):
+    assert tcli.main(["run", CG_INI, "--model", "sc", "--device", "cpu"]) == 2
+    assert "not ported yet" in capsys.readouterr().err
+
+
+def test_block_note_and_cuda_without_card(tmp_path):
+    ini = _mini(tmp_path, interval=2)
+    text = _torch_cli(["run", ini, "--model", "cg", "--device", "cpu",
+                       "--steps", "2", "--block", "4", "--output",
+                       str(tmp_path / "o")])
+    assert "running unblocked" in text
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="cuda"):
+        tcli.main(["run", ini, "--model", "cg", "--steps", "2", "--output",
+                   str(tmp_path / "c")])

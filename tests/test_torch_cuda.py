@@ -13,12 +13,15 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import COUPLED_CASES, coupled_conc0, flagship_flow
+from chip_smoke import (COUPLED_CASES, coupled_conc0, flagship_flow,
+                        split_cases, split_coupled_cases)
 from openlbmpm_torch.geometry import from_solid_mask
 from openlbmpm_torch.kernels.csf import (
-    compare_bf16_states, csf_step_compressed, csf_step_compressed_reference)
+    compare_bf16_states, csf_step_compressed, csf_step_compressed_reference,
+    csf_step_split, csf_step_split_reference)
 from openlbmpm_torch.kernels.transport import (
-    coupled_step_compressed, coupled_step_compressed_reference)
+    coupled_step_compressed, coupled_step_compressed_reference,
+    coupled_step_split, coupled_step_split_reference)
 from openlbmpm_torch.models.colorgradient import (
     CGBoundaryConfig, ColorGradientParams, ColorGradientRK)
 from openlbmpm_torch.models.transport import TransportParams, TransportRK
@@ -239,3 +242,82 @@ def test_coupled_step_counts_launches_and_refuses_device_mix(cuda):
     with pytest.raises(ValueError, match="tracer PDFs"):
         m.step_c((s, g.double()))
     assert coupled_step_compressed.launches == before + 3
+
+
+# -- the split (f_r, f_b) layout ------------------------------------------
+
+SPLIT = split_cases()
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT))
+def test_split_kernel_matches_plain_f64(cuda, case):
+    """The split CSF kernel against its plain version, 10 steps at f64 with
+    an obstacle (contact lines on the walls and the obstacle): 1e-11
+    (7.2e-16 measured on an H100 over 20 steps at 256x128)."""
+    params, bcs = SPLIT[case]
+    m = ColorGradientRK(_geometry(72, 40, True), params, bcs,
+                        dtype=torch.float64, device=cuda)
+    a = b = m.init_state_layers(1.0, 1.0, invading_rows=14)
+    for _ in range(10):
+        a = csf_step_split(a, m)
+        b = csf_step_split_reference(b, m)
+    torch.cuda.synchronize(cuda)
+    assert all(bool(torch.isfinite(x).all()) for x in a)
+    assert max(float((x - y).abs().max()) for x, y in zip(a, b)) <= 1e-11
+
+
+def test_split_step_counts_launches_and_checks_state(cuda):
+    params, bcs = SPLIT["mrt_neumann_dirichlet"]
+    m = ColorGradientRK(_geometry(32, 16), params, bcs, device=cuda)
+    st = m.init_state_layers(1.0, 1.0, invading_rows=6)
+    before = csf_step_split.launches
+    for _ in range(3):
+        st = m.step(st)
+    assert csf_step_split.launches == before + 3
+    with pytest.raises(ValueError, match="split state"):
+        m.step((st[0].double(), st[1].double()))
+    with pytest.raises(ValueError, match="device"):
+        m.step((st[0], st[1].cpu()))
+    assert csf_step_split.launches == before + 3
+
+
+SPLIT_COUPLED = split_coupled_cases()
+
+
+@pytest.mark.parametrize("case", ["a", "e", "conserve_mass", "redistribute",
+                                  "standalone"])
+def test_split_coupled_kernel_matches_plain_f64(cuda, case):
+    """The split coupled step on the kernels (``TransportRK.step``: the
+    kernels, then the repairs) against the plain split step, 10 steps at
+    f64 with tracer mass on the BC rows: 1e-11 (4.0e-12 measured on an H100
+    over 20 steps at 96x64, the largest with conserve_mass, whose values
+    grow each step).  The pre-step velocity and domain mask the kernels
+    hand the repairs match the plain version's (1e-11, and exactly)."""
+    kw, tp = SPLIT_COUPLED[case]
+    params, bcs = flagship_flow()
+    m = TransportRK(_geometry(64, 48, True), params, TransportParams(**tp),
+                    bcs, dtype=torch.float64, device=cuda, **kw)
+    a = b = m.init_state(m.flow.init_state_layers(1.0, 1.0, 12),
+                         coupled_conc0(m.tp.num_tracers, 64, 48))
+    before = coupled_step_split.launches
+    for _ in range(10):
+        a = m.step(a)
+        b = m.plain_step(b)
+    torch.cuda.synchronize(cuda)
+    assert coupled_step_split.launches == before + 10
+    assert all(bool(torch.isfinite(x).all()) for x in a[:3])
+    assert max(float((x - y).abs().max())
+               for x, y in zip(a[:3], b[:3])) <= 1e-11
+    out = coupled_step_split(a, m, with_u=True)
+    ref = coupled_step_split_reference(a, m)
+    assert max(float((x - y).abs().max())
+               for x, y in zip(out[:4], ref[:4])) <= 1e-11
+    assert out[4].dtype == torch.bool and torch.equal(out[4], ref[4])
+    assert coupled_step_split(a, m)[3] is None
+
+
+def test_golden_csf_mini_through_split_kernel(cuda):
+    """tests/golden/csf_mini.npz through the split kernel at f64 (1e-10;
+    1.25e-14 measured on an H100)."""
+    from chip_smoke import phase_golden
+    assert phase_golden(cuda) <= 1e-10

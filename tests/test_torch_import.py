@@ -23,7 +23,10 @@ _IMPORT_ALL = (
     "openlbmpm_torch.ops.collision, openlbmpm_torch.ops.colorgrad, "
     "openlbmpm_torch.ops.common, openlbmpm_torch.ops.equilibrium, "
     "openlbmpm_torch.ops.forcing, openlbmpm_torch.ops.macroscopic, "
-    "openlbmpm_torch.ops.streaming, openlbmpm_torch.ops.transport, sys; ")
+    "openlbmpm_torch.ops.streaming, openlbmpm_torch.ops.transport, "
+    "openlbmpm_torch.cli, openlbmpm_torch.config, "
+    "openlbmpm_torch.checkpoint, openlbmpm_torch.metrics, "
+    "openlbmpm_torch.io, sys; ")
 
 
 def _run(code):
@@ -42,6 +45,23 @@ def _run(code):
 def test_import_isolation(check):
     res = _run(_IMPORT_ALL + check)
     assert res.returncode == 0, res.stderr
+
+
+def test_cli_runs_without_jax(tmp_path):
+    """``python -m openlbmpm_torch inspect`` in a fresh interpreter that
+    cannot import jax (a stub module that raises stands first on the
+    path)."""
+    (tmp_path / "jax").mkdir()
+    (tmp_path / "jax" / "__init__.py").write_text(
+        "raise ImportError('jax is not available')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = os.pathsep.join([str(tmp_path), ROOT])
+    res = subprocess.run(
+        [sys.executable, "-m", "openlbmpm_torch", "inspect",
+         os.path.join(ROOT, "configs", "rk_csf2d.ini"), "--model", "cg"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert '"collision": "MRT"' in res.stdout
 
 
 def test_cuda_device_without_card_raises():

@@ -7,7 +7,11 @@ the CPU at f64.
   of 4 steps in every coupled case, 1e-10 after 50 steps;
 * the kernel module's plain version against the Pallas kernel it replaces
   (compressed coupled step, T=1) in interpret mode (1e-12);
-* bf16 flow storage, conversion, refusals and the CPU wrapper.
+* the split ``TransportRK.step`` (plain) against the JAX ``_step_impl``:
+  1e-12 for each of 4 steps in every coupled case and with
+  ``conserve_mass``, the ``redistribute`` interface and ``standalone``
+  transport (50-step trajectories: ``tests/test_torch_split_transport.py``);
+* bf16 flow storage, conversion, refusals and the CPU wrappers.
 
 The CUDA kernels are checked on a card by ``tests/test_torch_cuda.py`` and
 ``chip_smoke.py``.
@@ -30,13 +34,15 @@ from openlbmpm_tpu.ops import transport as jops
 from openlbmpm_torch.convert import (
     params_from_jax, state_from_numpy, state_to_numpy)
 from openlbmpm_torch.kernels.transport import (
-    coupled_step_compressed, coupled_step_compressed_reference)
+    coupled_step_compressed, coupled_step_compressed_reference,
+    coupled_step_split, coupled_step_split_reference)
 from openlbmpm_torch.models.transport import (
     TransportParams, TransportRK, TransportState)
 from openlbmpm_torch.ops import equilibrium as teq
 from openlbmpm_torch.ops import streaming as tst
 from openlbmpm_torch.ops import transport as tops
-from chip_smoke import COUPLED_CASES, coupled_conc0, flagship_flow
+from chip_smoke import (COUPLED_CASES, coupled_conc0, flagship_flow,
+                        split_coupled_cases)
 
 torch.set_num_threads(1)
 
@@ -66,6 +72,10 @@ class Fields:
         self.gx[4, :3] = self.gy[4, :3] = 0.0            # |g| = 0 guard
         self.rho_r = rng.uniform(0.0, 1.0, (NY, NX))
         self.in_dom = self.rho_r < 0.5
+        # the domain a step earlier: a front that moved by some cells
+        self.in_dom_old = self.in_dom ^ (rng.random((NY, NX)) < 0.15)
+        self.mass0 = rng.uniform(5.0, 20.0, nt)
+        self.ux[2, :4] = 0.0                              # inactive cells
         self.value = np.where(self.in_dom, -1.0, 0.0)
         self.solid = rng.random((NY, NX)) < 0.2
         self.row_mask = rng.random(NX) < 0.8
@@ -133,6 +143,20 @@ def _op_cases():
     c["stream_batched"] = (both, (1, 2), lambda F, lat, nt: (
         jst.stream(J(F.g), lat, J(jst.upwind_solid_masks(lat, F.solid))),
         tst.stream(T(F.g), lat, T(tst.upwind_solid_masks(lat, F.solid)))))
+    c["redistribute_on_interface_motion"] = (both, (1, 2), lambda F, lat, nt: (
+        jops.redistribute_on_interface_motion(
+            J(F.g), J(F.in_dom), J(F.in_dom_old),
+            np.tile(lat.w, (nt, 1)), lat),
+        tops.redistribute_on_interface_motion(
+            T(F.g), T(F.in_dom), T(F.in_dom_old),
+            np.tile(lat.w, (nt, 1)), lat)))
+    c["renormalize_concentration"] = (both, (1, 2), lambda F, lat, nt: (
+        jops.renormalize_concentration(
+            J(F.g), J(F.conc), J(F.mass0), J(F.in_dom), J(F.ux * F.ux),
+            None, u(F, J), lat),
+        tops.renormalize_concentration(
+            T(F.g), T(F.conc), T(F.mass0), T(F.in_dom), T(F.ux * F.ux),
+            None, u(F, T), lat)))
     c["upwind_solid_masks"] = (both, (1,), lambda F, lat, nt: (
         jst.upwind_solid_masks(lat, F.solid),
         tst.upwind_solid_masks(lat, F.solid)))
@@ -311,23 +335,126 @@ def test_plain_bf16_flow_storage_tracks_f32():
 
 
 @pytest.mark.parametrize("change", [
-    {"conserve_mass": True},
-    {"interface_mode": "redistribute"},
-    {"standalone": True},
     {"variant": "Perturbation"},
     {"scheme": 9, "inlet": "inamuro"},
-], ids=["conserve_mass", "redistribute", "standalone", "perturbation",
-        "d2q9_inlet"])
+], ids=["perturbation", "d2q9_inlet"])
 def test_unported_options_raise(change):
     change = dict(change)
-    standalone = change.pop("standalone", False)
     flow = dataclasses.replace(FLOW, **{
         k: change.pop(k) for k in list(change) if k == "variant"})
-    tp = TransportParams(**COUPLED_CASES["a"] |
-                         change)
+    tp = TransportParams(**COUPLED_CASES["a"] | change)
     with pytest.raises(NotImplementedError):
-        TransportRK(_walled(16, 8), flow, tp, BCS,
-                    standalone=standalone)
+        TransportRK(_walled(16, 8), flow, tp, BCS)
+
+
+SPLIT_CASES = split_coupled_cases()
+
+
+def _split_models(case, n=32):
+    kw, tp = SPLIT_CASES[case]
+    g = _walled(n, n)
+    tpj = jtr.TransportParams(**tp)
+    mj = jtr.TransportRK(g, FLOW_J, tpj, BCS_J, dtype=jnp.float64,
+                         use_pallas=False, **kw)
+    mt = TransportRK(g, params_from_jax(FLOW_J), params_from_jax(tpj),
+                     params_from_jax(BCS_J), dtype=torch.float64, **kw)
+    return mj, mt
+
+
+def _split_t(st):
+    return TransportState(*(torch.from_numpy(np.array(a)) for a in st))
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_split_coupled_step_matches_jax_f64(case):
+    """The split ``TransportRK.step`` against the JAX ``_step_impl`` (jnp,
+    un-jitted): one step from the same state, four times along the JAX
+    trajectory, to 1e-12, tracer mass on the BC rows.  Covers the
+    conserve_mass renormalisation, the redistribute repair and
+    standalone transport."""
+    mj, mt = _split_models(case)
+    st = _jax_state(mj)
+    worst = 0.0
+    for _ in range(4):
+        got = mt.step(_split_t(st))
+        st = mj._step_impl(st)
+        worst = max(worst, *(float(np.abs(a.numpy() - np.asarray(b)).max())
+                             for a, b in zip(got[:3], st[:3])))
+    assert worst < 1e-12
+    if case == "standalone":
+        np.testing.assert_array_equal(got.f_r.numpy(), np.asarray(st.f_r))
+
+
+@pytest.mark.parametrize("case", ["conserve_mass", "redistribute",
+                                  "standalone"])
+def test_split_only_options_refused_by_compressed_step(case):
+    """The JAX package has no compressed coupled form of these options
+    (``TransportRK.make_block_step`` returns None): ``step_c`` refuses
+    them, the split ``step`` runs them."""
+    _, mt = _split_models(case, n=16)
+    st = mt.init_state(mt.flow.init_state_layers(1.0, 1.0, 4),
+                       coupled_conc0(mt.tp.num_tracers, 16, 16))
+    with pytest.raises(ValueError, match="compressed"):
+        mt.step_c(mt.pack(st))
+    assert all(bool(torch.isfinite(x).all()) for x in mt.step(st)[:3])
+
+
+def test_renormalize_concentration_adds_mass_as_the_reference_does():
+    """``renormalize_concentration`` is ported as written: on the active
+    domain nodes it adds conc * mass0 / total instead of rescaling the
+    domain's tracer to mass0.  With tracer leaving through the BC rows the
+    mass should return to mass0; instead it grows to 2.73 x mass0 in four
+    steps (32x32, f64; 0.85 x mass0 without the repair), and the JAX step
+    does the same to 1e-12 relative."""
+    n = 32
+    mj, mt = _split_models("conserve_mass", n=n)
+    st = _jax_state(mj, n=n)
+    mass0 = float(np.asarray(st.mass0).sum())
+    t = _split_t(st)
+    for _ in range(4):
+        st = mj._step_impl(st)
+        t = mt.step(t)
+    mass_j = float(np.asarray(st.g).sum())
+    mass_t = float(t.g.sum())
+    assert abs(mass_t - mass_j) <= 1e-12 * mass_j
+    assert mass_t > 2.5 * mass0
+
+
+@pytest.mark.parametrize("case", ["conserve_mass", "redistribute"])
+def test_plain_coupled_hands_repairs_the_jax_pre_step_fields(case):
+    """The pre-step velocity and transport-domain mask that
+    ``plain_coupled`` (and the kernels) hand ``TransportRK.repair`` equal
+    the ones the JAX ``_step_impl`` computes from the same state: u to
+    1e-12, the mask exactly."""
+    mj, mt = _split_models(case, n=16)
+    st = mj.init_state(mj.flow.init_state_layers(1.0, 1.0, 4),
+                       coupled_conc0(mj.tp.num_tracers, 16, 16))
+    rho_r, rho_b, _, _, _, fx, fy = mj.flow.color_force_fields(st.f_r,
+                                                               st.f_b)
+    rho = rho_r + rho_b
+    rho_safe = jnp.where(rho > 0, rho, 1.0)
+    mx, my = mj.flow.lat.e.T @ np.asarray(st.f_r + st.f_b).reshape(9, -1)
+    want_u = np.stack([(mx.reshape(16, 16) + 0.5 * np.asarray(fx)),
+                       (my.reshape(16, 16) + 0.5 * np.asarray(fy))]) / \
+        np.asarray(rho_safe)
+    want_dom, _ = jops.transport_domain_mask(rho_r, mj.tp.criteria)
+    _, _, _, u, in_domain = mt.plain_coupled(_split_t(st))
+    assert float(np.abs(u.numpy() - want_u).max()) < 1e-12
+    np.testing.assert_array_equal(in_domain.numpy(), np.asarray(want_dom))
+
+
+def test_split_wrapper_on_cpu_is_plain_and_uncounted():
+    _, mt = _split_models("conserve_mass", n=16)
+    st = mt.init_state(mt.flow.init_state_layers(1.0, 1.0, 4),
+                       coupled_conc0(mt.tp.num_tracers, 16, 16))
+    before = coupled_step_split.launches
+    out = coupled_step_split(st, mt)
+    ref = coupled_step_split_reference(st, mt)
+    for a, b in zip(out, ref):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert coupled_step_split.launches == before
+    with pytest.raises(ValueError, match="devices"):
+        coupled_step_split(st._replace(g=st.g.to("meta")), mt)
 
 
 def test_convert_transport_params_and_states():
