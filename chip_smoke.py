@@ -22,7 +22,7 @@ toolkit (nvcc) and PyTorch built for CUDA; JAX is not needed.  Phases:
      half of rho_r wherever the hi half agrees, with at most 1e-3 of the
      values >= 1e-4 off at all, a check that a round-toward-zero or
      dropped-lo encoding of the plain result is shown to fail);
-  5. the flow's main path: ``run_chunked(model.step_c, ...)`` for 2000 bf16
+  5. the flow's main path: ``run_chunked(model.step_c, ...)`` for 1000 bf16
      steps with the NaN guard, the kernel's launch count checked, then MLUPS
      of kernel (f32, bf16) and plain path (f32, bf16), and each CUDA
      kernel's device time per launch from ``torch.profiler``;
@@ -39,7 +39,7 @@ toolkit (nvcc) and PyTorch built for CUDA; JAX is not needed.  Phases:
      tracer mass within 1e-7 per step of its start and of the plain path,
      everything finite, concentrations >= -1e-4;
   8. the coupled main path: ``run_chunked(model.step_c, (s, g), ...)`` at
-     config 4 with bf16 flow storage for 1000 steps with the NaN guard, the
+     config 4 with bf16 flow storage for 500 steps with the NaN guard, the
      coupled launch count checked, then MLUPS of kernel (f32, bf16) and
      plain path (f32, bf16), the roofline share, and each CUDA kernel's
      device time per launch;
@@ -72,12 +72,38 @@ toolkit (nvcc) and PyTorch built for CUDA; JAX is not needed.  Phases:
      <= 1e-11, f32 off the seam within phase 4's 3e-5 (tracers also off the
      rows next to the seam), the kernel no further from f64 than
      max(1.5x the plain f32 path, 3e-5), rho_r and tracer mass as in
-     phases 4 and 7.
+     phases 4 and 7;
+ 15. f64: the Shan-Chen kernel K8 against its plain version, 20 steps on a
+     128x64 walled channel, in the ten kernel cases of SC_CASES (SC SRT/MRT,
+     periodic, Zou-He velocity/convective and pressure/pressure rows,
+     Peng-Robinson psi with one fluid, three fluids, EFS iso-4/8/10 SRT and
+     MRT); max |difference| <= 1e-11; the guo/edm/Chang/true-convective/
+     moving-wall cases take the plain step on the card;
+ 16. the golden file tests/golden/sc_mini.npz through K8 at f64 (50 steps,
+     atol 1e-10);
+ 17. bench_all.py configs 2 (SC droplet on a wall) and 3 (EFS iso-8 MRT at
+     viscosity contrast) at 1024^2: 10 steps of K8 and plain from one f64
+     start at f64 (<= 1e-11), f32 and bf16 storage (SC_BOUNDS, about 10x
+     the measured gaps; one more bf16 step within one ulp per value); the
+     same at f64 and f32 on what ``run --model sc`` builds (phase 18's two
+     configurations, with their inlet and outlet rows); then
+     config 3 for 600 f32 steps on K8 (mass drift < 2e-5, u_max < 0.05) and
+     config 2's equilibrated 256^2 contact angle on K8 (window drift < 2
+     degrees, within 12 of the analytic angle);
+ 18. the CLI on the card: ``cli.main(["run", ...])`` with ``--model sc`` on
+     configs/twophasesetup.ini set to 1024^2, with shanchen2D.ini and as
+     EFS with efs2D.ini, 1000 f32 steps each: K8's launch count must rise
+     by exactly the steps, the final checkpoint must be finite, and the
+     MLUPS of metrics.jsonl are printed;
+ 19. MLUPS of K8 and of its plain path at 1024^2 (configs 2 and 3, f32 and
+     bf16 storage), each CUDA kernel's device time per launch and the
+     roofline share.
 
 Every phase prints one line or more, each number line with the card's name
-and power limit, and any failure exits non-zero.  The line before the last
-is a JSON summary of the kernels; the last line is
-``{"ok": true, "device": {...}}``.
+and power limit, and any failure exits non-zero.  Then the wall time, the
+card's name and power limit again, a JSON line of the kernels (with each
+one's bound: the least time for its bytes at 3.35 TB/s or its operations
+at the f32 peak), and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -92,8 +118,8 @@ import numpy as np
 import torch
 
 FLAGSHIP_N = 1024
-MAIN_STEPS = 2000
-COUPLED_STEPS = 1000
+MAIN_STEPS = 1000
+COUPLED_STEPS = 500
 
 
 def card_line() -> str:
@@ -783,16 +809,21 @@ def phase_split_coupled_f64(device, ny=96, nx=64, steps=20, tol=1e-11):
     return out
 
 
+def _ini_copy(src: str, dst: str, values: dict):
+    """`src` with each `key = ...` line of `values` set to its value,
+    written to `dst`."""
+    text = open(src).read()
+    for key, v in values.items():
+        text = re.sub(rf"(?m)^{key} = .*$", f"{key} = {v}", text)
+    with open(dst, "w") as fh:
+        fh.write(text)
+
+
 def _mini_ini(src: str, dst: str, n: int, interval: int):
     """`src` with the domain set to n x n and the output interval to
     `interval`, written to `dst`."""
-    text = open(src).read()
-    text = re.sub(r"(?m)^xDomain = .*$", f"xDomain = {n}", text)
-    text = re.sub(r"(?m)^yDomain = .*$", f"yDomain = {n}", text)
-    text = re.sub(r"(?m)^TimeInterval = .*$", f"TimeInterval = {interval}",
-                  text)
-    with open(dst, "w") as fh:
-        fh.write(text)
+    _ini_copy(src, dst, {"xDomain": n, "yDomain": n,
+                         "TimeInterval": interval})
 
 
 def _mlups(metrics_path: str) -> list:
@@ -1111,27 +1142,498 @@ def phase9_13_lines(r9, r10, r11, r12, r13, card, n=FLAGSHIP_N):
         f"coupled: {prof(r13['coupled_profile'])}"]
 
 
+# -- the Shan-Chen family: K8 ----------------------------------------------
+
+_SC = dict(g_matrix=((0.0, 3.6), (3.6, 0.0)), g_solid=(-0.3, 0.3),
+           tau=(1.0, 0.8))
+_EFS = dict(g_matrix=((0.0, 0.2), (0.2, 0.0)), g_solid=(-0.14, 0.14),
+            tau=(1.0, 0.8), scheme="EFS")
+# shanchen2D.ini's rows, efs2D.ini's rows, and Zou-He pressure at both ends
+_VC = dict(inlet="zou_he_velocity", outlet="convective",
+           inlet_velocity=(-1e-3, 0.0))
+_VP = dict(inlet="zou_he_velocity", outlet="zou_he_pressure",
+           inlet_velocity=(-1e-3, 0.0), outlet_density=(0.02, 1.0))
+_PP = dict(inlet="zou_he_pressure", outlet="zou_he_pressure",
+           inlet_density=(1.0, 0.02), outlet_density=(0.02, 1.0))
+_G3 = ((0.0, 3.6, 3.6), (3.6, 0.0, 3.6), (3.6, 3.6, 0.0))
+
+# name -> (ShanChenParams fields, SCBoundaryConfig fields, initial state);
+# the first ten take the kernel (the JAX fused builder takes them), the
+# rest the plain step on every device (the JAX package keeps them on its
+# jnp path too).  Phase 15 and tests/test_torch_*.py use this table.
+SC_CASES = {
+    "sc_srt_periodic_body_force": (_SC | dict(body_force=(1e-6, -2e-6)), {},
+                                   "droplet"),
+    "sc_srt_velocity_convective": (_SC, _VC, "layers"),
+    "sc_srt_pressure_pressure": (_SC, _PP, "layers"),
+    "sc_mrt_velocity_convective": (_SC | dict(collision="MRT"), _VC,
+                                   "layers"),
+    "sc_peng_robinson_one_fluid": (dict(g_matrix=((-1.0,),), g_solid=(0.0,),
+                                        tau=(1.0,), psi="PR"), {},
+                                   "pr_droplet"),
+    "sc_three_fluids": (dict(g_matrix=_G3, g_solid=(0.1, 0.0, -0.1),
+                             tau=(1.0, 0.9, 0.8)), {}, "bands"),
+    "efs4_srt_velocity_pressure": (_EFS, _VP, "layers"),
+    "efs8_mrt_velocity_convective": (_EFS | dict(iso_order=8,
+                                                 collision="MRT"), _VC,
+                                     "layers"),
+    "efs10_srt_pressure_pressure": (_EFS | dict(iso_order=10), _PP, "layers"),
+    "efs10_mrt_velocity_pressure": (_EFS | dict(iso_order=10,
+                                                collision="MRT"), _VP,
+                                    "layers"),
+    "guo_srt": (_SC | dict(forcing="guo"), _VC, "layers"),
+    "guo_mrt": (_SC | dict(forcing="guo", collision="MRT"), {}, "droplet"),
+    "edm_srt": (_SC | dict(forcing="edm"), {}, "droplet"),
+    "edm_mrt": (_SC | dict(forcing="edm", collision="MRT"), _VC, "layers"),
+    "chang_velocity": (_SC, _VC | dict(inlet="chang_velocity"), "layers"),
+    "chang_pressure": (_SC, dict(inlet="chang_pressure",
+                                 outlet="chang_pressure",
+                                 inlet_density=(1.01, 0.02),
+                                 outlet_density=(0.02, 1.0)), "layers"),
+    "convective_true": (_SC, _VC | dict(outlet="convective_true",
+                                        inlet_velocity=(-5e-3, 0.0)),
+                        "layers"),
+    "moving_wall": (dict(g_matrix=((0.0, 0.5), (0.5, 0.0)),
+                         g_solid=(0.0, 0.0), tau=(0.8, 0.8)), {}, "couette"),
+}
+SC_KERNEL_CASES = tuple(SC_CASES)[:10]
+WALL_VELOCITY = (0.05, 0.0)
+
+
+def sc_solid(ny, nx, init):
+    """The case's solid nodes: side walls, or for the moving-wall case a
+    stationary bottom wall and a moving lid (the top two rows).  Returns
+    (solid, moving-wall mask or None)."""
+    solid = np.zeros((ny, nx), bool)
+    if init != "couette":
+        solid[:, 0] = solid[:, -1] = True
+        return solid, None
+    solid[:2] = solid[-2:] = True
+    moving = np.zeros_like(solid)
+    moving[-2:] = True
+    return solid, moving
+
+
+def sc_rho0(k, ny, nx, init):
+    """Initial fluid densities (K, ny, nx) of the case (before masking)."""
+    rho = np.full((k, ny, nx), 0.02)
+    if init == "pr_droplet":        # liquid-vapour, one fluid
+        yy, xx = np.mgrid[0:ny, 0:nx]
+        inside = (yy - ny / 2) ** 2 + (xx - nx / 2) ** 2 <= (ny / 4) ** 2
+        return np.where(inside, 0.2, 0.05)[None]
+    if init == "bands":             # three immiscible bands
+        for i in range(k):
+            rho[i, i * ny // k:(i + 1) * ny // k] = 1.0
+        return rho
+    if init == "droplet":
+        yy, xx = np.mgrid[0:ny, 0:nx]
+        inside = (yy - ny / 2) ** 2 + (xx - nx / 2) ** 2 <= (ny / 5) ** 2
+        rho[0][inside] = 1.0
+        rho[1][~inside] = 1.0
+        return rho
+    top = np.arange(ny)[:, None] >= ny - ny // 4    # layers, couette
+    rho[0] = np.where(top, 1.0, 0.02)
+    rho[1] = np.where(top, 0.02, 1.0)
+    return np.broadcast_to(rho, (k, ny, nx)).copy()
+
+
+def sc_case(name, device, ny=128, nx=64, dtype=torch.float64,
+            storage="f32"):
+    """The port's ShanChenMCMP of case `name` on an ny x nx domain and its
+    initial state."""
+    from openlbmpm_torch.geometry import from_solid_mask
+    from openlbmpm_torch.models.shanchen import (
+        SCBoundaryConfig, ShanChenMCMP, ShanChenParams)
+    p, b, init = SC_CASES[name]
+    solid, moving = sc_solid(ny, nx, init)
+    m = ShanChenMCMP(from_solid_mask(solid), ShanChenParams(**p),
+                     SCBoundaryConfig(**b), dtype=dtype, device=device,
+                     storage=storage, moving_wall_mask=moving,
+                     wall_velocity=WALL_VELOCITY)
+    return m, m._feq_init(sc_rho0(m.k, ny, nx, init) * m.geo.is_fluid)
+
+
+def phase_sc_f64(device, ny=128, nx=64, steps=20, tol=1e-11):
+    """K8 against its plain version at f64 in every kernel case; the plain
+    cases take the plain step on the card and launch nothing."""
+    from openlbmpm_torch.kernels.shanchen import sc_step, sc_step_reference
+    out = {}
+    for name in SC_CASES:
+        m, a = sc_case(name, device, ny, nx)
+        kernel = name in SC_KERNEL_CASES
+        check(m.path == ("kernel" if kernel else "plain"),
+              f"sc {name}: path {m.path}")
+        before = sc_step.launches
+        if not kernel:
+            for _ in range(3):
+                a = m.step(a)
+            check(sc_step.launches == before and bool(torch.isfinite(a).all())
+                  and a.device == m.device,
+                  f"sc {name}: the plain step on the card")
+            continue
+        b = a
+        err = 0.0
+        for _ in range(steps):
+            a = sc_step(a, m)
+            b = sc_step_reference(b, m)
+            err = max(err, float((a - b).abs().max()))
+        check(sc_step.launches - before == steps and
+              bool(torch.isfinite(a).all()), f"sc {name}: launches or state")
+        check(err <= tol, f"sc f64 {name}: kernel vs plain {err:.3e} > {tol:g}")
+        out[name] = err
+    return out
+
+
+def phase_sc_golden(device, atol=1e-10):
+    """tests/golden/sc_mini.npz through K8 at f64 (the setup of
+    tests/test_golden.py::test_golden_sc_mini: 48x24 walled, a droplet,
+    50 steps)."""
+    import os
+    from openlbmpm_torch.kernels.shanchen import sc_step
+    from openlbmpm_torch.models.shanchen import ShanChenMCMP, ShanChenParams
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "golden", "sc_mini.npz")
+    p = ShanChenParams(g_matrix=((0.0, 3.6), (3.6, 0.0)), g_solid=(-0.3, 0.3),
+                       tau=(1.0, 1.0))
+    m = ShanChenMCMP(walled(48, 24), p, dtype=torch.float64, device=device)
+    f = m.init_state_droplet((1.0, 1.0), (0.02, 0.02), center=(24, 12),
+                             radius=7.0)
+    before = sc_step.launches
+    for _ in range(50):
+        f = m.step(f)
+    check(sc_step.launches - before == 50,
+          "golden run did not go through the Shan-Chen kernel")
+    with np.load(path) as z:
+        err = float(np.abs(f.sum(1).cpu().numpy() - z["rho"]).max())
+    check(err <= atol, f"sc_mini.npz through K8: {err:.3e} > {atol:g}")
+    return err
+
+
+def sc_config(name, device, storage="f32", dtype=torch.float32,
+              n=FLAGSHIP_N):
+    """benchmarks/bench_all.py's Shan-Chen configurations on n x n: config
+    2, an original-SC droplet (G = 3.8, G_s = -0.4 / 0.4) on a wall of two
+    solid rows, radius 100 n/1024; config 3, an EFS iso-8 MRT droplet at
+    viscosity contrast (tau 1.0 / 0.55), periodic, radius 120 n/1024; or
+    one of the CLI's configurations (``sc_cli_config``, f32 storage).
+    Returns (model, initial state in dtype)."""
+    from openlbmpm_torch.geometry import from_solid_mask
+    from openlbmpm_torch.models.shanchen import ShanChenMCMP, ShanChenParams
+    if name.startswith("cli"):
+        return sc_cli_config(name, device, dtype, n)
+    solid = np.zeros((n, n), bool)
+    if name == "config2":
+        solid[:2, :] = True
+        p = ShanChenParams(g_matrix=((0.0, 3.8), (3.8, 0.0)),
+                           g_solid=(-0.4, 0.4), tau=(1.0, 1.0))
+    else:
+        p = ShanChenParams(g_matrix=((0.0, 0.2), (0.2, 0.0)),
+                           g_solid=(0.0, 0.0), tau=(1.0, 0.55), scheme="EFS",
+                           iso_order=8, collision="MRT")
+    m = ShanChenMCMP(from_solid_mask(solid), p, dtype=dtype, device=device,
+                     storage=storage)
+    if name == "config2":
+        f = m.init_state_droplet((1.0, 1.0), (0.02, 0.02),
+                                 center=(2.0, n / 2), radius=100.0 * n / 1024)
+    else:
+        f = m.init_state_droplet((1.0, 1.0), (0.02, 0.02),
+                                 radius=120.0 * n / 1024)
+    return m, f
+
+
+def sc_cli_config(name, device, dtype=torch.float32, n=FLAGSHIP_N):
+    """What ``run --model sc`` builds (``cli._shanchen_setup``) from
+    configs/twophasesetup.ini at n x n: "cli_sc" with shanchen2D.ini (SC,
+    Zou-He velocity inlet, convective outlet), "cli_efs" as EFS with
+    efs2D.ini (iso-4, Zou-He pressure outlet).  Returns (model, initial
+    state in dtype)."""
+    import os
+    import tempfile
+    from openlbmpm_torch.cli import _shanchen_setup
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        ini, phys = _sc_ini(root, tmp, n, name == "cli_efs")
+        m, f, _ = _shanchen_setup(ini, phys, dtype, device)
+    return m, f
+
+
+# bounds of phase 17, about 10x the gaps measured on an H100 (f32 1.8e-7,
+# bf16 3.2e-4 over 10 steps at 1024^2; one more bf16 step from a common
+# state: at most 8.9e-4 of the values off, by one ulp, held to 1e-2, which
+# a round-toward-zero encoding exceeds, as phase 4 shows)
+SC_BOUNDS = {"f32": 2e-6, "bf16": 3e-3}
+# phase 17's configurations and the storage types each is checked in (the
+# CLI runs f32 only)
+SC_CHECKED = {"config2": ("f32", "bf16"), "config3": ("f32", "bf16"),
+              "cli_sc": ("f32",), "cli_efs": ("f32",)}
+
+
+def phase_sc_configs(device, n=FLAGSHIP_N, steps=10):
+    """Configs 2 and 3 and the CLI's two configurations at full size: from
+    one f64 start, 10 steps of K8 and of the plain path at f64 (<= 1e-11),
+    in f32 and (configs 2 and 3) in bf16 storage (within SC_BOUNDS, and the
+    kernel no further from the f64 plain run than max(1.5x the plain path,
+    the bound)); one more bf16 step of each from a common bf16 state, value
+    by value within one bf16 ulp."""
+    from openlbmpm_torch.kernels.csf import compare_bf16_states
+    from openlbmpm_torch.kernels.shanchen import sc_step, sc_step_reference
+    res = {}
+    for name, storages in SC_CHECKED.items():
+        m64, s64 = sc_config(name, device, dtype=torch.float64, n=n)
+        ref = _steps(lambda x: sc_step_reference(x, m64), s64, steps)
+        r = {"f64": float((_steps(lambda x: sc_step(x, m64), s64, steps) -
+                           ref).abs().max())}
+        check(r["f64"] <= 1e-11, f"sc {name} f64 kernel vs plain "
+              f"{r['f64']:.3e} > 1e-11")
+        fluid = m64.fluid_mask > 0
+        for st in storages:
+            m = sc_config(name, device, storage=st, n=n)[0]
+            s0 = s64.float() if st == "f32" else m.pack_state_bf16(s64.float())
+            a = _steps(lambda x: sc_step(x, m), s0, steps)
+            b = _steps(lambda x: sc_step_reference(x, m), s0, steps)
+            if st == "bf16":
+                one = [compare_bf16_states(x, y, fluid) for x, y in
+                       zip(sc_step(b, m), sc_step_reference(b, m))]
+                r["ulp"] = max(o["excess"] for o in one)
+                r["share"] = max(o["share"] for o in one)
+                check(r["ulp"] <= 1.0 and r["share"] <= 1e-2,
+                      f"sc {name} bf16 one step: a value {r['ulp']:.3g} ulp "
+                      f"off the plain path, {r['share']:.2e} of them off")
+                a, b = m.unpack_bf16(a), m.unpack_bf16(b)
+            check(bool(torch.isfinite(a).all()), f"sc {name} {st}: not finite")
+            gap = float((a - b).abs().max())
+            acc_k = float((a.double() - ref).abs().max())
+            acc_p = float((b.double() - ref).abs().max())
+            bound = SC_BOUNDS[st]
+            check(gap <= bound, f"sc {name} {st}: kernel vs plain {gap:.3e} > "
+                  f"{bound:g}")
+            check(acc_k <= max(1.5 * acc_p, bound), f"sc {name} {st}: kernel "
+                  f"{acc_k:.3e} from f64, the plain path {acc_p:.3e}")
+            r[st] = (gap, acc_k, acc_p)
+        res[name] = r
+    return res
+
+
+def phase_sc_physics(device, n=FLAGSHIP_N, n_angle=256, mass_steps=600,
+                     equil_steps=50000):
+    """bench_all.py's physics checks on K8 (f32): config 3 after 600 steps,
+    per-fluid mass drift < 2e-5, both phases kept (max rho_k > 0.9) and
+    u_max < 0.05; config 2's droplet on a 256^2 domain (radius 50) after
+    `equil_steps` steps, then two windows of five samples 2000 steps apart:
+    the window means of the spherical-cap angle agree within 2 degrees and
+    lie within 12 degrees of the Huang analytic angle."""
+    from openlbmpm_torch.kernels.shanchen import sc_step
+    from openlbmpm_torch.metrics import (analytic_sc_contact_angle,
+                                         measured_contact_angle)
+    res = {}
+    m, f = sc_config("config3", device, n=n)
+    m0 = f.double().sum((1, 2, 3))
+    before = sc_step.launches
+    f = _steps(m.step, f, mass_steps)
+    rho_k, (ux, uy) = m.macro(f)
+    res["drift"] = float((f.double().sum((1, 2, 3)) / m0 - 1.0).abs().max())
+    res["umax"] = float(torch.sqrt(ux * ux + uy * uy).max())
+    res["rho_max"] = min(float(rho_k[0].max()), float(rho_k[1].max()))
+    res["steps"] = mass_steps
+    check(sc_step.launches - before == mass_steps, "config 3 off the kernel")
+    check(res["drift"] < 2e-5, f"config 3 mass drift {res['drift']:.2e}")
+    check(res["umax"] < 0.05, f"config 3 spurious currents {res['umax']:.3f}")
+    check(res["rho_max"] > 0.9, "config 3 phases collapsed")
+
+    m, f = sc_config("config2", device, n=n_angle)
+    f = m.init_state_droplet((1.0, 1.0), (0.02, 0.02),
+                             center=(2.0, n_angle / 2), radius=50.0)
+    t0 = time.perf_counter()
+    f = _steps(m.step, f, equil_steps)
+
+    def window(f):
+        thetas = []
+        for _ in range(5):
+            f = _steps(m.step, f, 2000)
+            rho0 = m.macro(f)[0][0].cpu().numpy()
+            thetas.append(measured_contact_angle(rho0 > 0.5, wall_row=2))
+        return float(np.mean(thetas)), f, rho0
+
+    theta_a, f, _ = window(f)
+    theta, f, rho0 = window(f)
+    res["angle_sec"] = time.perf_counter() - t0
+    drop = rho0 > 0.5
+    rho_main = float(rho0[drop].mean())
+    rho_diss = float(rho0[~drop & m.geo.is_fluid].mean())
+    res["theta"] = (theta_a, theta)
+    res["theta_pred"] = analytic_sc_contact_angle(-0.4, 0.4, 3.8, rho_main,
+                                                  rho_diss)
+    check(bool(torch.isfinite(f).all()), "config 2 angle run not finite")
+    check(abs(theta - theta_a) < 2.0,
+          f"angle not equilibrated: {theta_a:.1f} -> {theta:.1f}")
+    check(abs(theta - res["theta_pred"]) < 12.0,
+          f"angle {theta:.1f} vs analytic {res['theta_pred']:.1f}")
+    return res
+
+
+def _sc_ini(root, tmp, n, efs):
+    """configs/twophasesetup.ini set to an n x n domain (EFS selected when
+    `efs`), written to `tmp`; returns (its path, the physics INI)."""
+    import os
+    path = os.path.join(tmp, "efs.ini" if efs else "sc.ini")
+    _ini_copy(os.path.join(root, "configs", "twophasesetup.ini"), path,
+              {"xGrid": n, "yGrid": n} | (
+                  {"InteractionType": "'EFS'"} if efs else {}))
+    return path, os.path.join(root, "configs",
+                              "efs2D.ini" if efs else "shanchen2D.ini")
+
+
+def phase_sc_cli(device, n=FLAGSHIP_N, steps=1000):
+    """``run --model sc`` through ``openlbmpm_torch.cli.main`` at n x n,
+    with shanchen2D.ini (SC, Zou-He velocity inlet, convective outlet) and
+    as EFS with efs2D.ini (Zou-He pressure outlet), `steps` f32 steps each:
+    K8 launched exactly `steps` times, the final checkpoint finite."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+    from openlbmpm_torch import cli
+    from openlbmpm_torch.kernels.shanchen import sc_step
+    root = os.path.dirname(os.path.abspath(__file__))
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for scheme in ("sc", "efs"):
+            ini, phys = _sc_ini(root, tmp, n, scheme == "efs")
+            out = os.path.join(tmp, scheme)
+            sc_step.launches = 0
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()) as text:
+                rc = cli.main(["run", ini, "--model", "sc", "--physics-config",
+                               phys, "--steps", str(steps), "--output", out,
+                               "--device", "cuda"])
+            sec = time.perf_counter() - t0
+            launches = sc_step.launches
+            check(rc == 0, f"cli run --model sc ({scheme}) returned {rc}")
+            check("the kernel step on cuda" in text.getvalue(),
+                  f"cli {scheme}: {text.getvalue().splitlines()[:1]}")
+            check(launches == steps, f"cli {scheme}: K8 launched {launches} "
+                  f"times, want {steps}")
+            with np.load(os.path.join(out, "checkpoint.npz")) as z:
+                f, step = z["leaf0"], int(z["__step__"])
+            check(step == steps and f.shape == (2, 9, n, n) and
+                  bool(np.isfinite(f).all()),
+                  f"cli {scheme}: checkpoint at step {step} {f.shape}")
+            res[scheme] = {"launches": launches, "sec": sec, "steps": steps,
+                           "mlups": _mlups(os.path.join(out, "metrics.jsonl"))}
+    return res
+
+
+SC_KERNELS = ("psi_kernel", "collide_stream_kernel")
+# least bytes of K8's function per cell-step, K = 2: the state (72 B f32,
+# 44 B bf16) read and written once, plus the solid mask at one byte (the
+# kernel's geometry planes, 3 for SC and 5 for EFS in the compute type, all
+# follow from the mask)
+SC_BYTES = {"f32": 2 * 72 + 1, "bf16": 2 * 44 + 1}
+
+
+def phase_sc_speed(device, n=FLAGSHIP_N, kernel_steps=500, plain_steps=20):
+    """MLUPS of K8 and of the plain path at 1024^2 (config 2: SC, config 3:
+    EFS iso-8 MRT; f32 and bf16 storage, in turns), device microseconds per
+    launch from torch.profiler, and the roofline share of the design
+    bytes."""
+    from openlbmpm_torch.kernels.shanchen import (launch_sc2d, sc_step,
+                                                  sc_step_reference)
+    res = {}
+    for name in ("config2", "config3"):
+        pairs = {st: sc_config(name, device, storage=st, n=n)
+                 for st in ("f32", "bf16")}
+        models = {st: m for st, (m, _) in pairs.items()}
+        states = {"f32": pairs["f32"][1],
+                  "bf16": models["bf16"].pack_state_bf16(pairs["f32"][1])}
+        sec = time_paths(models, states, sc_step, sc_step_reference,
+                         kernel_steps, plain_steps, device)
+        profile = {}
+        for st, m in models.items():
+            times = device_times(
+                lambda s, m=m: launch_sc2d(s, m.kernel_params, m.geo_planes),
+                states[st], SC_KERNELS)
+            profile.update({(st, k): v for k, v in times.items()})
+        res[name] = {"sec": sec, "profile": profile,
+                     "roof": {st: SC_BYTES[st] * n * n / HBM_BYTES_PER_S
+                              / sec[("kernel", st)] for st in models}}
+    return res
+
+
+def phase15_19_lines(r15, r16, r17, phys, cli, r19, card, n=FLAGSHIP_N):
+    lines = [
+        "phase 15 K8 f64 vs plain, 128x64, 20 steps: max |diff| " + ", ".join(
+            f"{k} {v:.3e}" for k, v in r15.items()) + " (<= 1e-11); the "
+        "guo/edm/Chang/convective_true/moving-wall cases took the plain "
+        "step on the card",
+        f"phase 16 tests/golden/sc_mini.npz through K8, f64, 50 steps: max "
+        f"|diff| {r16:.3e} (<= 1e-10)"]
+    for name, r in r17.items():
+        txt = (f"phase 17 {name} {n}^2, 10 steps [{card}]: f64 {r['f64']:.3e} "
+               f"(<= 1e-11); " + "; ".join(
+                   f"{st} kernel vs plain {r[st][0]:.3e} (<= "
+                   f"{SC_BOUNDS[st]:g}), from f64 kernel {r[st][1]:.3e} vs "
+                   f"plain {r[st][2]:.3e}" for st in SC_CHECKED[name]))
+        if "ulp" in r:
+            txt += (f"; bf16 one more step: largest gap {r['ulp']:.3g} ulp "
+                    f"(<= 1), {r['share']:.3e} of values >= 1e-4 differ "
+                    f"(<= 1e-2)")
+        lines.append(txt)
+    p = phys
+    lines.append(
+        f"phase 17 physics on K8, f32 [{card}]: config 3 {p['steps']} steps "
+        f"mass drift {p['drift']:.3e} (< 2e-5), u_max {p['umax']:.5f} "
+        f"(< 0.05), min max rho_k {p['rho_max']:.3f}; config 2 256^2 angle "
+        f"windows {p['theta'][0]:.2f} -> {p['theta'][1]:.2f} deg (< 2), "
+        f"analytic {p['theta_pred']:.2f} (< 12), {p['angle_sec']:.1f} s")
+    for scheme, r in cli.items():
+        lines.append(
+            f"phase 18 cli run --model sc ({scheme.upper()}), {n}x{n}, "
+            f"{r['steps']} f32 steps: {r['launches']} K8 launches, {r['sec']:.2f} s with I/O, "
+            f"metrics.jsonl MLUPS {r['mlups']} [{card}]")
+    for name, r in r19.items():
+        mlups = {k: n * n / v / 1e6 for k, v in r["sec"].items()}
+        lines.append(
+            f"phase 19 K8 {name} {n}^2 [{card}]: MLUPS kernel f32 "
+            f"{mlups[('kernel', 'f32')]:.1f} "
+            f"({r['sec'][('kernel', 'f32')] * 1e3:.4f} ms), kernel bf16 "
+            f"{mlups[('kernel', 'bf16')]:.1f} "
+            f"({r['sec'][('kernel', 'bf16')] * 1e3:.4f} ms), plain f32 "
+            f"{mlups[('plain', 'f32')]:.1f} "
+            f"({r['sec'][('plain', 'f32')] * 1e3:.3f} ms), plain bf16 "
+            f"{mlups[('plain', 'bf16')]:.1f}; roofline share of "
+            f"{SC_BYTES['f32']} / {SC_BYTES['bf16']} B at 3.35 "
+            f"TB/s f32 {r['roof']['f32']:.3f}, bf16 {r['roof']['bf16']:.3f}; "
+            "device us per launch (launches per step): " + ", ".join(
+                f"{k} {st} " + ("not measured" if v is None else
+                                f"{v[0]:.2f} ({v[1]:g})")
+                for (st, k), v in r["profile"].items()))
+    return lines
+
+
 # kernels whose first integer template argument is the state layout
 LAYOUT_KERNELS = ("phase_kernel", "collide_stream_kernel",
                   "tracer_collide_kernel")
 
 
-def ptxas_summary(log: str) -> str:
+def ptxas_summary(log: str, sc: bool = False) -> str:
     """'kernel<type[,q]>: registers, smem, spill stores' per entry function
-    of an `nvcc -Xptxas -v` log."""
+    of an `nvcc -Xptxas -v` log; for an sc2d library (one storage type
+    each) 'kernel<K,order>'."""
     out, name = [], None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
             mangled = m.group(1)
-            base = next((k for k in COUPLED_KERNELS if k in mangled),
-                        mangled)
+            base = next((k for k in COUPLED_KERNELS + SC_KERNELS
+                         if k in mangled), mangled)
             args = mangled.split(base)[-1]
             kind = ("bf16" if "bfloat16" in mangled else
                     "f64" if re.search(r"I[^E]*d", args) else "f32")
             ints = re.findall(r"Li(\d+)E", args)
-            split = base in LAYOUT_KERNELS and ints and ints.pop(0) == "1"
-            name = (f"{base}<{kind}{',split' if split else ''}"
+            split = not sc and base in LAYOUT_KERNELS and ints and \
+                ints.pop(0) == "1"
+            name = (f"{base}<{','.join(ints)}>" if sc else
+                    f"{base}<{kind}{',split' if split else ''}"
                     f"{',q' + ints[0] if ints else ''}>")
             spill = "?"
         elif name and "spill stores" in ln:
@@ -1145,10 +1647,43 @@ def ptxas_summary(log: str) -> str:
     return " | ".join(out)
 
 
-def build_report(build, lib: str) -> str:
+def build_report(build, lib: str, sc: bool = False) -> str:
     logs = list(build.BUILD_DIR.glob(f"lib{lib}-*.log"))
-    return ptxas_summary(max(logs, key=lambda p: p.stat().st_mtime)
-                         .read_text()) if logs else "no build log"
+    if not logs:
+        return "no build log"
+    log = max(logs, key=lambda p: p.stat().st_mtime).read_text()
+    return ptxas_summary(log, sc)
+
+
+# Least bytes per cell-step of each kernel's function at the main path's
+# shapes: each input read once (state, tracer PDFs, geometry planes in the
+# compute type), each output written once.  K2/K1: the compressed flow
+# state (22 / 40 B) in and out plus 5 f32 planes; K5c: K2's plus one f32
+# D2Q5 tracer (20 B) in and out; K6: two f32 colour PDFs (72 B) in and out
+# plus 5 planes; K5s: K6's plus the tracer.
+KERNEL_BYTES = {"K2": 64, "K1": 100, "K5c": 104, "K6": 164, "K5s": 204}
+# Floating-point operations per cell-step, counted roughly from the formulas
+# (an upper estimate; the bytes bind by far in every case): CSF flow step
+# ~600 (MRT, wetting, recolouring), one D2Q5 tracer ~150; K8 with K = 2:
+# SC SRT ~350, EFS iso-8 MRT ~700.
+KERNEL_FLOPS = {"K2": 600, "K1": 600, "K5c": 750, "K6": 600, "K5s": 750}
+SC_FLOPS = {"config2": 350, "config3": 700}
+F32_FLOPS_PER_S = 67e12      # H100 SXM, outside the tensor cores
+
+
+def kernel_entry(name, label, source, replaces, launches, max_abs_err, sec,
+                 plain_sec, bytes_per_cell, flops_per_cell, cells, **extra):
+    """One entry of the kernels line: times in ms, the bound from this
+    run's shapes (the larger of bytes over 3.35 TB/s and operations over the
+    f32 peak), no library call (no single PyTorch call computes a step)."""
+    t_bytes = bytes_per_cell * cells / HBM_BYTES_PER_S
+    t_ops = flops_per_cell * cells / F32_FLOPS_PER_S
+    return {"name": name, "label": label, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max_abs_err, "ms": sec * 1e3,
+            "plain_ms": plain_sec * 1e3, "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None, **extra}
 
 
 def main() -> int:
@@ -1157,6 +1692,8 @@ def main() -> int:
               "needs a CUDA card", file=sys.stderr)
         return 2
     from openlbmpm_torch.kernels import build
+    from openlbmpm_torch.kernels.shanchen import LIBRARIES as SC_LIBS
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
@@ -1167,16 +1704,17 @@ def main() -> int:
     print(f"phase 1 card: {name}, torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
 
-    libs = ("csf2d", "coupled2d")
+    libs = build.LIBRARIES
     t0 = time.perf_counter()
     build.load_libraries(libs)
     t_build = time.perf_counter() - t0
-    print(f"phase 2 build: {' and '.join(libs)} side by side in "
+    print(f"phase 2 build: {', '.join(libs)} side by side in "
           f"{t_build:.2f} s (nvcc " + ", ".join(
               f"{lib} {build.build_seconds.get(lib, 0.0):.2f} s"
               for lib in libs) + ")")
     for lib in libs:
-        print(f"phase 2 ptxas {lib}: {build_report(build, lib)}")
+        print(f"phase 2 ptxas {lib}: "
+              f"{build_report(build, lib, lib in SC_LIBS)}")
 
     err64 = phase_f64(device)
     print(f"phase 3 f64 kernel vs plain, 256x128, 20 steps: max |diff| "
@@ -1208,60 +1746,61 @@ def main() -> int:
     r14 = phase_split_full(device)
     print(phase14_line(r14, card))
 
+    t_old = time.perf_counter() - t_start
+    r15 = phase_sc_f64(device)
+    r16 = phase_sc_golden(device)
+    r17 = phase_sc_configs(device)
+    phys = phase_sc_physics(device)
+    cli = phase_sc_cli(device)
+    r19 = phase_sc_speed(device)
+    for ln in phase15_19_lines(r15, r16, r17, phys, cli, r19, card):
+        print(ln)
+
+    n2 = FLAGSHIP_N * FLAGSHIP_N
     csf = "openlbmpm_tpu/pallas/csf.py:147"
-    print(json.dumps({"kernels": [{
-        "name": "csf_step_compressed",
-        "label": "K2",
-        "route": "cuda",
-        "source": "openlbmpm_torch/csrc/csf2d.cu",
-        "replaces": csf,
-        "launches": main_res["launches"],
-        "max_abs_err": res["bf16"]["max"],
-        "ms": main_res["sec"][("kernel", "bf16")] * 1e3,
-        "plain_ms": main_res["sec"][("plain", "bf16")] * 1e3,
-    }, {
-        "name": "coupled_step_compressed",
-        "label": "K5c",
-        "route": "cuda",
-        "source": "openlbmpm_torch/csrc/coupled2d.cu",
-        "replaces": f"{csf} (transport_params)",
-        "launches": res8["launches"],
-        "max_abs_err": res7["bf16"]["max"],
-        "ms": res8["sec"][("kernel", "bf16")] * 1e3,
-        "plain_ms": res8["sec"][("plain", "bf16")] * 1e3,
-    }, {
-        "name": "csf_step_compressed_f32",
-        "label": "K1",
-        "route": "cuda",
-        "source": "openlbmpm_torch/csrc/csf2d.cu",
-        "replaces": f"{csf} (storage='f32')",
-        "launches": main_res["launches_f32"],
-        "max_abs_err": res["f32"]["max"],
-        "ms": main_res["sec"][("kernel", "f32")] * 1e3,
-        "plain_ms": main_res["sec"][("plain", "f32")] * 1e3,
-    }, {
-        "name": "csf_step_split",
-        "label": "K6",
-        "route": "cuda",
-        "source": "openlbmpm_torch/csrc/csf2d.cu",
-        "replaces": f"{csf} (state_mode='split')",
-        "launches": r12["cg_launches"],
-        "max_abs_err": r14["flagship"]["max"],
-        "max_abs_err_f64": max(r9.values()),
-        "ms": r13["flow"]["kernel"] * 1e3,
-        "plain_ms": r13["flow"]["plain"] * 1e3,
-    }, {
-        "name": "coupled_step_split",
-        "label": "K5s",
-        "route": "cuda",
-        "source": "openlbmpm_torch/csrc/coupled2d.cu",
-        "replaces": f"{csf} (transport_params, state_mode='split')",
-        "launches": r12["tr_launches"],
-        "max_abs_err": r14["config4"]["max"],
-        "max_abs_err_f64": max(max(v) for v in r11.values()),
-        "ms": r13["coupled"]["kernel"] * 1e3,
-        "plain_ms": r13["coupled"]["plain"] * 1e3,
-    }]}))
+    entries = [kernel_entry(
+        "csf_step_compressed", "K2", "openlbmpm_torch/csrc/csf2d.cu", csf,
+        main_res["launches"], res["bf16"]["max"],
+        main_res["sec"][("kernel", "bf16")], main_res["sec"][("plain", "bf16")],
+        KERNEL_BYTES["K2"], KERNEL_FLOPS["K2"], n2), kernel_entry(
+        "coupled_step_compressed", "K5c", "openlbmpm_torch/csrc/coupled2d.cu",
+        f"{csf} (transport_params)", res8["launches"], res7["bf16"]["max"],
+        res8["sec"][("kernel", "bf16")], res8["sec"][("plain", "bf16")],
+        KERNEL_BYTES["K5c"], KERNEL_FLOPS["K5c"], n2), kernel_entry(
+        "csf_step_compressed_f32", "K1", "openlbmpm_torch/csrc/csf2d.cu",
+        f"{csf} (storage='f32')", main_res["launches_f32"], res["f32"]["max"],
+        main_res["sec"][("kernel", "f32")], main_res["sec"][("plain", "f32")],
+        KERNEL_BYTES["K1"], KERNEL_FLOPS["K1"], n2), kernel_entry(
+        "csf_step_split", "K6", "openlbmpm_torch/csrc/csf2d.cu",
+        f"{csf} (state_mode='split')", r12["cg_launches"],
+        r14["flagship"]["max"], r13["flow"]["kernel"], r13["flow"]["plain"],
+        KERNEL_BYTES["K6"], KERNEL_FLOPS["K6"], n2,
+        max_abs_err_f64=max(r9.values())), kernel_entry(
+        "coupled_step_split", "K5s", "openlbmpm_torch/csrc/coupled2d.cu",
+        f"{csf} (transport_params, state_mode='split')", r12["tr_launches"],
+        r14["config4"]["max"], r13["coupled"]["kernel"],
+        r13["coupled"]["plain"], KERNEL_BYTES["K5s"], KERNEL_FLOPS["K5s"], n2,
+        max_abs_err_f64=max(max(v) for v in r11.values()))]
+    sc_src = "openlbmpm_torch/csrc/sc2d.cuh"
+    for entry, cfg, scheme in (("sc_step", "config2", "sc"),
+                               ("sc_step_efs", "config3", "efs")):
+        r = r19[cfg]
+        # f32 kernel vs plain on the bench_all configuration and on the
+        # CLI's configuration of the same scheme
+        gap = max(r17[cfg]["f32"][0], r17[f"cli_{scheme}"]["f32"][0])
+        entries.append(kernel_entry(
+            entry, "K8", sc_src, "openlbmpm_tpu/pallas/shanchen.py:92 ("
+            + ("original SC" if scheme == "sc" else "EFS iso-8 MRT") + ")",
+            cli[scheme]["launches"], gap,
+            r["sec"][("kernel", "f32")], r["sec"][("plain", "f32")],
+            SC_BYTES["f32"], SC_FLOPS[cfg], n2,
+            max_abs_err_f64=max(r15.values()),
+            ms_bf16=r["sec"][("kernel", "bf16")] * 1e3,
+            plain_ms_bf16=r["sec"][("plain", "bf16")] * 1e3))
+    print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s "
+          f"(phases 1-14 {t_old:.1f} s, build {t_build:.1f} s)")
+    print(card)
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -4,11 +4,11 @@ The JAX package ``openlbmpm_tpu`` stays the reference; this package mirrors
 its module names (``ops/``, ``models/``) and replaces each Pallas TPU kernel
 with a hand-written CUDA kernel under ``csrc/`` (wrappers in ``kernels/``).
 
-The lattice tables and geometry helpers are numpy-only and are reused from
-the reference package rather than copied: ``openlbmpm_torch.lattice`` and
-``openlbmpm_torch.geometry`` re-export ``openlbmpm_tpu.lattice`` and
-``openlbmpm_tpu.geometry``, which import numpy and nothing of JAX.  Nothing
-in this package imports ``jax``.
+The numpy-only modules ``lattice``, ``geometry`` and ``io`` are the port's
+own copies of the JAX package's; nothing in this package imports ``jax`` or
+``openlbmpm_tpu``.  Models and entry points run on the card (``device``
+defaults to ``"cuda"``, which raises without one) unless the caller asks
+for the CPU.
 """
 
 from . import geometry, lattice

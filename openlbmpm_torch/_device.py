@@ -1,9 +1,10 @@
 """Explicit device and dtype resolution.
 
 The port never picks a device behind the caller's back: a model runs on the
-``device`` it is given, and ops run on the device of their input tensors.
-Asking for CUDA on a machine without a card raises instead of quietly
-falling back to the CPU.
+``device`` it is given (the card, ``"cuda"``, unless the caller asks for
+``"cpu"``), and ops run on the device of their input tensors.  Asking for
+CUDA on a machine without a card raises instead of quietly falling back to
+the CPU.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ _DTYPES = {"float32": torch.float32, "float64": torch.float64,
            "bfloat16": torch.bfloat16}
 
 
-def resolve_device(device: str | torch.device = "cpu") -> torch.device:
+def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     """torch.device for `device`; raises if it names CUDA and no card exists."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():

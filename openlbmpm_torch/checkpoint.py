@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 __all__ = ["config_fingerprint", "save_checkpoint", "load_checkpoint",
-           "di_cycle_swap"]
+           "di_cycle_swap", "di_cycle_swap_sc"]
 
 
 def config_fingerprint(obj) -> str:
@@ -101,3 +101,14 @@ def di_cycle_swap(f_r, f_b, buffer_rows: int, top: bool = True):
     new_r[..., sl, :] = f_b[..., sl, :]
     new_b[..., sl, :] = f_r[..., sl, :]
     return new_r, new_b
+
+
+def di_cycle_swap_sc(f, buffer_rows: int, top: bool = True):
+    """The Shan-Chen D-I cycle swap: exchange fluids 0 and 1 inside the
+    buffer rows of the stacked state f (K, 9, ny, nx)."""
+    ny = f.shape[-2]
+    sl = slice(ny - buffer_rows, ny) if top else slice(0, buffer_rows)
+    out = f.clone()
+    out[0, :, sl, :] = f[1, :, sl, :]
+    out[1, :, sl, :] = f[0, :, sl, :]
+    return out

@@ -8,10 +8,13 @@ families the port runs so far, plus ``--device``:
 
 ``--model cg`` steps ``ColorGradientRK.step`` on the split (f_r, f_b) state
 (on a card, the split CSF kernel); ``--model transport`` steps the split
-``TransportRK.step`` (the split coupled kernels).  Results, metrics and
-checkpoints are written as the JAX CLI writes them, so a checkpoint of
-either package resumes in the other.  The other ``--model`` families exit
-with status 2 and "not ported yet".
+``TransportRK.step`` (the split coupled kernels); ``--model sc`` steps
+``ShanChenMCMP.step`` on the (K, 9, ny, nx) state of a twophasesetup.ini
+and its physics INI (on a card, the Shan-Chen kernel, or the plain step
+for the configurations the JAX package also keeps off its kernel; the run
+prints which).  Results, metrics and checkpoints are written as the JAX
+CLI writes them, so a checkpoint of either package resumes in the other.
+The other ``--model`` families exit with status 2 and "not ported yet".
 
 ``--device cuda`` (the default) runs on the first card and raises when
 there is none; it never falls back to the CPU.  ``--device cpu`` runs the
@@ -28,12 +31,12 @@ import sys
 
 import numpy as np
 
-PORTED = ("cg", "transport")
+PORTED = ("cg", "transport", "sc")
 MODELS = ("cg", "cg3d", "sc", "sc3d", "transport", "transport3d", "basic",
           "basic3d")
 
 
-def _build_geometry(domain):
+def _build_geometry(domain, geometry_kind: str = "box"):
     from . import geometry as geo
     if domain.use_image and domain.image_path:
         solid = geo.load_structure_image(domain.image_path)
@@ -42,6 +45,8 @@ def _build_geometry(domain):
         if domain.buffer_layers:
             solid = geo.add_buffer_layers(solid, domain.buffer_layers)
         return geo.from_solid_mask(solid)
+    if geometry_kind == "channel":
+        return geo.open_channel(domain.nx, domain.ny)
     g = geo.box_with_walls(domain.nx, domain.ny)
     if domain.buffer_layers:
         return geo.from_solid_mask(
@@ -181,9 +186,75 @@ def _run_transport(args):
     return 0
 
 
+def _shanchen_setup(config, physics_config, dtype, device):
+    """The model, initial state and run settings of ``run --model sc``:
+    the open channel of the main INI with the physics INI's fluids and
+    boundary rows, fluid 0 invading from the top."""
+    from .config import load_shanchen
+    from .models.shanchen import ShanChenMCMP
+
+    params, bcs, domain, run, extras = load_shanchen(config, physics_config)
+    geometry = _build_geometry(domain, geometry_kind="channel")
+    model = ShanChenMCMP(geometry, params, bcs, dtype=dtype, device=device)
+    state = model.init_state_layers(
+        extras.get("initial_densities", (1.0, 1.0)),
+        extras.get("background_densities", (0.02, 0.02)))
+    return model, state, run
+
+
+def _run_shanchen(args):
+    from .checkpoint import (config_fingerprint, di_cycle_swap_sc,
+                             load_checkpoint, save_checkpoint)
+    from .io import ResultWriter
+    from .metrics import MetricsLogger, flow_diagnostics
+    from .models.base import run_chunked
+
+    dtype, dev = _setup(args)
+    model, state, run = _shanchen_setup(args.config, args.physics_config,
+                                        dtype, dev)
+    if args.steps:
+        run = dataclasses.replace(run, num_steps=args.steps)
+    params, bcs, geometry = model.p, model.bcs, model.geo
+    print(f"openlbmpm_torch: --model sc, scheme {params.scheme}, "
+          f"{params.collision}, forcing {params.forcing}, boundaries "
+          f"{bcs.inlet}/{bcs.outlet}: the {model.path} step on {dev}")
+    fingerprint = config_fingerprint(params)
+    start_step = 0
+    ckpt_path = os.path.join(args.output, "checkpoint.npz")
+    if args.resume and os.path.exists(ckpt_path):
+        state, start_step = load_checkpoint(ckpt_path, state, fingerprint)
+        print(f"resumed from step {start_step}")
+        if run.is_cycle:
+            state = di_cycle_swap_sc(state, buffer_rows=10)
+            print("D-I cycle: fluids swapped in the buffer layers")
+    _note_block(args)
+    writer = ResultWriter(args.output, basename="SimulationResults")
+    logger = MetricsLogger(os.path.join(args.output, "metrics.jsonl"),
+                           geometry.num_fluid_nodes, echo=True)
+    ckpt_every = max(1, 10 * run.io_interval)
+
+    def callback(step, f):
+        rho_k, (ux, uy) = model.macro(f)
+        writer.write_sc(start_step + step, _host(rho_k), _host(ux), _host(uy))
+        logger.log(start_step + step,
+                   **flow_diagnostics(rho_k[0], rho_k[1], ux, uy,
+                                      geometry.is_fluid))
+        if step % ckpt_every == 0 or step >= run.num_steps:
+            save_checkpoint(ckpt_path, f, start_step + step, fingerprint)
+        return False
+
+    run_chunked(model.step, state, num_steps=max(1, run.num_steps),
+                io_interval=max(1, run.io_interval), callback=callback,
+                nan_guard=True, profile_dir=args.profile)
+    logger.close()
+    return 0
+
+
 def _inspect(args):
-    from .config import load_colorgradient, load_transport
+    from .config import load_colorgradient, load_shanchen, load_transport
     loaders = {"cg": lambda: load_colorgradient(args.config)[:2],
+               "sc": lambda: load_shanchen(args.config,
+                                           args.physics_config)[:2],
                "transport": lambda: (load_transport(args.config),)}
     for obj in loaders[args.model]():
         if dataclasses.is_dataclass(obj):
@@ -243,7 +314,7 @@ def main(argv=None) -> int:
     if args.cmd == "inspect":
         return _inspect(args)
     os.makedirs(args.output, exist_ok=True)
-    return {"cg": _run_colorgradient,
+    return {"cg": _run_colorgradient, "sc": _run_shanchen,
             "transport": _run_transport}[args.model](args)
 
 

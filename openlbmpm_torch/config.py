@@ -1,24 +1,31 @@
 """The legacy INI dialect read into the port's parameter dataclasses
-(counterpart of ``openlbmpm_tpu/config.py`` for the colour-gradient and
-transport families).
+(counterpart of ``openlbmpm_tpu/config.py`` for the colour-gradient,
+transport and 2-D Shan-Chen families).
 
 The JAX module imports the JAX models, so its reader is copied here rather
 than imported.  The dataclasses returned are the port's own
-(``ColorGradientParams``, ``CGBoundaryConfig``, ``TransportParams``); their
-fields equal the JAX ones field by field for the same file
-(``tests/test_torch_cli.py``).
+(``ColorGradientParams``, ``CGBoundaryConfig``, ``TransportParams``,
+``ShanChenParams``, ``SCBoundaryConfig``); their fields equal the JAX ones
+field by field for the same file (``tests/test_torch_cli.py``,
+``tests/test_torch_shanchen.py``).  One difference: an unknown Shan-Chen
+``ForcingMethod`` raises ValueError, where the JAX reader falls back to
+``shift`` without a word.
 """
 
 from __future__ import annotations
 
 import configparser
 import dataclasses
+import os
+
+import numpy as np
 
 from .models.colorgradient import CGBoundaryConfig, ColorGradientParams
+from .models.shanchen import SCBoundaryConfig, ShanChenParams
 from .models.transport import TransportParams
 
 __all__ = ["LegacyIni", "DomainSpec", "RunSpec", "load_colorgradient",
-           "load_transport"]
+           "load_transport", "load_shanchen"]
 
 
 class LegacyIni:
@@ -207,3 +214,101 @@ def load_transport(path: str, num_default_tracers: int = 1):
                         default="none").lower(),
     )
     return params
+
+
+def load_shanchen(main_path: str, physics_path: str | None = None):
+    """Parse ``twophasesetup.ini`` (model selection) plus the per-scheme
+    physics file (``shanchen2D.ini`` / ``efs2D.ini``, found beside it when
+    not given).  Returns (ShanChenParams, SCBoundaryConfig, DomainSpec,
+    RunSpec, extras) with extras the initial and background densities and
+    the duplicate-domain flag."""
+    main = LegacyIni(main_path)
+    scheme = "EFS" if main.text("InterType", "InteractionType",
+                                default="ShanChen").upper() == "EFS" else "SC"
+    if physics_path is None:
+        physics_path = os.path.join(
+            os.path.dirname(main_path),
+            "efs2D.ini" if scheme == "EFS" else "shanchen2D.ini")
+    phys = LegacyIni(physics_path)
+
+    num_fluids = main.integer("FluidsTypes", "NumberOfFluids", default=2)
+    tau = phys.floats("FluidProperties", "FluidsTau")
+    sec = "ShanChenParameters" if scheme == "SC" else "EFSParameters"
+    g_fluid = phys.floats(sec, "interactionFluid")
+    g_solid = phys.floats(sec, "interactionSolid")
+    # symmetric G matrix, the upper triangle filled row by row
+    g = np.zeros((num_fluids, num_fluids))
+    idx = 0
+    for i in range(num_fluids - 1):
+        for j in range(i + 1, num_fluids):
+            g[i, j] = g[j, i] = g_fluid[idx % len(g_fluid)]
+            idx += 1
+    psi = phys.text(sec, "potentialType", default="Simple")
+    body = phys.yesno("BodyForce", "Option", default="no")
+    forcing = "shift"
+    if scheme == "SC":
+        method = phys.text("ForceScheme", "ForcingMethod",
+                           default="Shift").lower()
+        if method not in ("shift", "guo", "edm"):
+            raise ValueError(f"{physics_path}: [ForceScheme] ForcingMethod "
+                             f"{method!r}: Shift | Guo | EDM")
+        forcing = method
+    params = ShanChenParams(
+        g_matrix=tuple(map(tuple, g)),
+        g_solid=tuple(g_solid),
+        tau=tuple(tau),
+        scheme=scheme,
+        iso_order=phys.integer("ForceScheme", "ExplicitScheme", default=4)
+        if scheme == "EFS" else 4,
+        collision="MRT" if main.text("RelaxationType", "Type",
+                                     default="SRT").upper() == "MRT"
+        else "SRT",
+        psi="rho" if psi.lower() == "simple" else "PR",
+        body_force=(phys.number("BodyForce", "forceXG", default=0.0),
+                    phys.number("BodyForce", "forceYG", default=0.0))
+        if body else (0.0, 0.0),
+        forcing=forcing,
+    )
+    inlet = _bc_name(phys.text("BoundaryDefinition", "BoundaryTypeInlet",
+                               default="periodic"))
+    outlet = _bc_name(phys.text("BoundaryDefinition", "BoundaryTypeOutlet",
+                                default="periodic"))
+    # BoundaryMethod = 'Chang' selects the Chang et al. 2009 corrector rows
+    chang = phys.text("BoundaryDefinition", "BoundaryMethod",
+                      default="ZouHe").lower() == "chang"
+    inlet_map = {"neumann": "chang_velocity" if chang else "zou_he_velocity",
+                 "dirichlet": "chang_pressure" if chang else "zou_he_pressure",
+                 "periodic": "periodic"}
+    outlet_map = {"dirichlet": "chang_pressure" if chang else "zou_he_pressure",
+                  "convective": "convective",
+                  "convective_average": "convective",
+                  "periodic": "periodic"}
+    bcs = SCBoundaryConfig(
+        inlet=inlet_map.get(inlet, "periodic"),
+        outlet=outlet_map.get(outlet, "periodic"),
+        inlet_velocity=phys.floats("VelocityBoundary", "velocityY",
+                                   default="0.0"),
+        inlet_density=phys.floats("PressureBoundary", "PressureInlet",
+                                  default="1.0"),
+        outlet_density=phys.floats("PressureBoundary", "PressureOutlet",
+                                   default="1.0"),
+    )
+    domain = DomainSpec(
+        nx=main.integer("SeparationBorder", "xGrid", default=32),
+        ny=main.integer("SeparationBorder", "yGrid", default=200),
+        use_image=main.yesno("PictureSetup", "Exist", default="no"),
+    )
+    run = RunSpec(
+        num_steps=phys.integer("Time", "numberTimeStep", default=1000),
+        io_interval=1000,
+        is_cycle=main.yesno("DICycles", "Option", default="no"),
+        last_step=main.integer("DICycles", "LastStep", default=0),
+    )
+    extras = {
+        "initial_densities": phys.floats("FluidProperties",
+                                         "InitialDensities"),
+        "background_densities": phys.floats("FluidProperties",
+                                            "BackgroundDensities"),
+        "duplicate": main.yesno("DuplicateDomain", "Option", default="no"),
+    }
+    return params, bcs, domain, run, extras

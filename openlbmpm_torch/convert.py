@@ -1,9 +1,10 @@
 """State and parameters carried across between the JAX package and the port.
 
-The geometry needs no conversion: both packages use the same numpy
-``openlbmpm_tpu.geometry.Geometry``.  Arrays cross as numpy arrays, so
-nothing here imports JAX; a bfloat16 array from JAX arrives as an
-``ml_dtypes.bfloat16`` numpy array and crosses bit for bit.
+The geometry needs no conversion: the port's ``geometry.Geometry`` has the
+JAX package's fields (numpy masks), and the models read only those.
+Arrays cross as numpy arrays, so nothing here imports JAX; a bfloat16 array
+from JAX arrives as an ``ml_dtypes.bfloat16`` numpy array and crosses bit
+for bit.
 """
 
 from __future__ import annotations
@@ -15,25 +16,38 @@ import torch
 
 from ._device import resolve_device, resolve_dtype
 from .models.colorgradient import CGBoundaryConfig, ColorGradientParams
+from .models.shanchen import SCBoundaryConfig, ShanChenParams
 from .models.transport import TransportParams, TransportState
+
+_PARAMS = (ColorGradientParams, CGBoundaryConfig, TransportParams,
+           ShanChenParams, SCBoundaryConfig)
 
 __all__ = ["params_from_jax", "state_from_numpy", "state_to_numpy"]
 
 
+def _plain(v):
+    """Tuple fields as nested tuples of floats (strings kept: the
+    Peng-Robinson override names)."""
+    if isinstance(v, (tuple, list, np.ndarray)):
+        return tuple(_plain(x) for x in v)
+    return v if isinstance(v, str) else float(v)
+
+
 def params_from_jax(p):
-    """The port's ColorGradientParams, CGBoundaryConfig or TransportParams
-    with the field values of `p`, any object carrying the fields of one of
-    them (tuple fields become tuples of floats)."""
-    for cls in (ColorGradientParams, CGBoundaryConfig, TransportParams):
+    """The port's ColorGradientParams, CGBoundaryConfig, TransportParams,
+    ShanChenParams or SCBoundaryConfig with the field values of `p`, any
+    object carrying the fields of one of them (tuple fields become nested
+    tuples of floats)."""
+    for cls in _PARAMS:
         names = [f.name for f in dataclasses.fields(cls)]
         if all(hasattr(p, n) for n in names):
             vals = {n: getattr(p, n) for n in names}
             for n, v in vals.items():
                 if isinstance(v, (tuple, list)):
-                    vals[n] = tuple(float(x) for x in v)
+                    vals[n] = _plain(v)
             return cls(**vals)
-    raise TypeError(f"{type(p).__name__} has the fields of none of "
-                    "ColorGradientParams, CGBoundaryConfig, TransportParams")
+    raise TypeError(f"{type(p).__name__} has the fields of none of " +
+                    ", ".join(c.__name__ for c in _PARAMS))
 
 
 def _one_from_numpy(a, device, dtype):
@@ -45,9 +59,10 @@ def _one_from_numpy(a, device, dtype):
     return t.to(device=device, dtype=resolve_dtype(dtype) if dtype else None)
 
 
-def state_from_numpy(arrays, device="cpu", dtype=None):
+def state_from_numpy(arrays, device="cuda", dtype=None):
     """A state as torch tensors on `device`: a (10, ny, nx) compressed
-    array, an (11, ny, nx) bfloat16 array (kept bfloat16), a tuple of
+    array, a Shan-Chen (K, 9, ny, nx) array, an (11, ny, nx) or
+    (K, 11, ny, nx) bfloat16 array (kept bfloat16), a tuple of
     arrays such as an (f_r, f_b) pair or a coupled (s, g) pair (returned
     as a tuple), or a split TransportState (f_r, f_b, g, mass0), returned
     as the port's ``TransportState`` (``TransportRK.pack`` packs it to

@@ -19,7 +19,11 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 __all__ = ["load_library", "load_libraries", "build_seconds", "BUILD_DIR",
-           "NVCC_FLAGS"]
+           "NVCC_FLAGS", "LIBRARIES"]
+
+# every library of csrc/: the CSF step, the coupled step, and the
+# Shan-Chen step in its three storage types
+LIBRARIES = ("csf2d", "coupled2d", "sc2d_f64", "sc2d_f32", "sc2d_bf16")
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
@@ -80,7 +84,7 @@ def load_library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def load_libraries(names) -> dict[str, ctypes.CDLL]:
+def load_libraries(names=LIBRARIES) -> dict[str, ctypes.CDLL]:
     """``load_library`` for each name, the builds running side by side (one
     nvcc process per source)."""
     names = list(names)

@@ -11,9 +11,36 @@ from __future__ import annotations
 import json
 import time
 
+import numpy as np
 import torch
 
-__all__ = ["MetricsLogger", "flow_diagnostics", "steady_state_criterion"]
+__all__ = ["MetricsLogger", "flow_diagnostics", "steady_state_criterion",
+           "measured_contact_angle", "analytic_sc_contact_angle"]
+
+
+def analytic_sc_contact_angle(g_solid_0: float, g_solid_1: float,
+                              g_fluid: float, rho_main: float,
+                              rho_dissolved: float) -> float:
+    """Analytic Shan-Chen contact angle (Huang et al. 2007), degrees:
+    cos(theta) = (G_s1 - G_s0) / (G (rho_main - rho_dissolved) / 2)."""
+    cos_t = (g_solid_1 - g_solid_0) / (
+        g_fluid * (rho_main - rho_dissolved) / 2.0)
+    return float(np.degrees(np.arccos(np.clip(cos_t, -1.0, 1.0))))
+
+
+def measured_contact_angle(drop_mask: np.ndarray, wall_row: int) -> float:
+    """Spherical-cap contact angle from the base chord and the cap height
+    of a droplet, degrees.  drop_mask: (ny, nx) bool of droplet nodes;
+    wall_row: the first fluid row above the wall."""
+    drop = np.asarray(drop_mask, bool).copy()
+    drop[:wall_row] = False
+    base = float(drop[wall_row].sum())
+    height = float(drop.any(axis=1).sum())
+    if height == 0 or base == 0:
+        return float("nan")
+    r_cap = (base ** 2 / 4.0 + height ** 2) / (2.0 * height)
+    cos_theta = np.clip((r_cap - height) / r_cap, -1.0, 1.0)
+    return float(np.degrees(np.arccos(cos_theta)))
 
 
 def flow_diagnostics(rho_inv, rho_def, ux, uy, is_fluid,

@@ -2,8 +2,10 @@
 
 from .base import RunMetrics, run_chunked
 from .colorgradient import CGBoundaryConfig, ColorGradientParams, ColorGradientRK
+from .shanchen import SCBoundaryConfig, ShanChenMCMP, ShanChenParams
 from .transport import TransportParams, TransportRK, TransportState
 
 __all__ = ["RunMetrics", "run_chunked", "CGBoundaryConfig",
-           "ColorGradientParams", "ColorGradientRK", "TransportParams",
+           "ColorGradientParams", "ColorGradientRK", "SCBoundaryConfig",
+           "ShanChenMCMP", "ShanChenParams", "TransportParams",
            "TransportRK", "TransportState"]

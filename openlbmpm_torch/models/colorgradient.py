@@ -112,7 +112,7 @@ class ColorGradientRK(nn.Module):
     def __init__(self, geometry: Geometry,
                  params: ColorGradientParams = ColorGradientParams(),
                  boundaries: CGBoundaryConfig = CGBoundaryConfig(),
-                 dtype=torch.float32, device="cpu", storage: str = "f32"):
+                 dtype=torch.float32, device="cuda", storage: str = "f32"):
         super().__init__()
         if params.variant != "CSF":
             raise NotImplementedError(

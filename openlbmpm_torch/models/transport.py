@@ -114,7 +114,7 @@ class TransportRK(nn.Module):
     def __init__(self, geometry, flow_params=ColorGradientParams(),
                  transport_params=TransportParams(),
                  boundaries=CGBoundaryConfig(), standalone: bool = False,
-                 dtype=torch.float32, device="cpu", storage: str = "f32"):
+                 dtype=torch.float32, device="cuda", storage: str = "f32"):
         super().__init__()
         tp = transport_params
         _check_options(tp)

@@ -1,6 +1,7 @@
-"""Collision operators on the total PDF (counterpart of
-``openlbmpm_tpu/ops/collision.py``): BGK with a per-node tau and the RK
-colour-gradient MRT with per-node shear rates, in the dense M^-1 S M form."""
+"""Collision operators (counterpart of ``openlbmpm_tpu/ops/collision.py``):
+BGK with a per-node tau, the RK colour-gradient MRT with per-node shear
+rates, and the constant-matrix MRT of the Shan-Chen family, all in the
+dense M^-1 S M form."""
 
 from __future__ import annotations
 
@@ -9,7 +10,8 @@ import torch
 
 from ..lattice import Lattice
 
-__all__ = ["bgk_field_tau", "mrt_variable_nu", "mrt_force_transform_variable",
+__all__ = ["bgk_field_tau", "mrt", "mrt_force_transform", "mrt_variable_nu",
+           "mrt_force_transform_variable", "mrt_relaxation_d2q9_sc",
            "mrt_relaxation_d2q9_rk"]
 
 
@@ -22,6 +24,21 @@ def _moments(M: np.ndarray, x: torch.Tensor) -> torch.Tensor:
     """(Q, ny, nx) -> (Q, ny, nx) moment transform M @ x."""
     Mt = torch.as_tensor(M, dtype=x.dtype, device=x.device)
     return (Mt @ x.reshape(x.shape[0], -1)).reshape(x.shape)
+
+
+def mrt(f, feq, lat: Lattice, s):
+    """f - M^-1 diag(s) M (f - feq) with a constant relaxation vector s;
+    f and feq (Q, ny, nx)."""
+    C = lat.M_inv @ (np.diag(np.asarray(s, np.float64)) @ lat.M)
+    return f - _moments(C, f - feq)
+
+
+def mrt_force_transform(src, lat: Lattice, s):
+    """M^-1 (I - S/2) M src: the MRT Guo-force correction, (1 - s_i/2) per
+    moment."""
+    C = lat.M_inv @ ((np.eye(lat.q) - 0.5 * np.diag(np.asarray(s, np.float64)))
+                     @ lat.M)
+    return _moments(C, src)
 
 
 def _relax(m, s_base, inv_tau_field, nu_indices):
@@ -51,6 +68,17 @@ def mrt_force_transform_variable(src, lat: Lattice, s_base: np.ndarray,
     m = _moments(lat.M, src)
     return src - 0.5 * _moments(lat.M_inv,
                                 _relax(m, s_base, inv_tau_field, nu_indices))
+
+
+def mrt_relaxation_d2q9_sc(tau: float) -> np.ndarray:
+    """Shan-Chen / EFS MRT vector: conserved moments 0, s1 = 0.6,
+    s2 = 1.5, s4 = s6 = 1.2, shear s7 = s8 = 1/tau."""
+    s = np.zeros(9, np.float64)
+    s[1] = 0.6
+    s[2] = 1.5
+    s[4] = s[6] = 1.2
+    s[7] = s[8] = 1.0 / tau
+    return s
 
 
 def mrt_relaxation_d2q9_rk(tau: float | None = None) -> np.ndarray:

@@ -29,6 +29,7 @@ def bcast_1d(v, like: torch.Tensor) -> torch.Tensor:
 
 
 def e_dot_u(lat: Lattice, u) -> torch.Tensor:
-    """(Q, ny, nx) tensor of e_i . u for u = (ux, uy)."""
-    return bcast_1d(lat.e[:, 0], u[0]) * u[0][None] + \
-        bcast_1d(lat.e[:, 1], u[1]) * u[1][None]
+    """(..., Q, ny, nx) tensor of e_i . u for u = (ux, uy), each (..., ny,
+    nx) (leading axes batch fluids or tracers)."""
+    return bcast_1d(lat.e[:, 0], u[0]) * u[0].unsqueeze(-3) + \
+        bcast_1d(lat.e[:, 1], u[1]) * u[1].unsqueeze(-3)

@@ -16,10 +16,11 @@ __all__ = ["feq_quadratic", "feq_transport_j", "feq_transport_linear",
 
 
 def feq_quadratic(lat: Lattice, rho: torch.Tensor, u) -> torch.Tensor:
-    """w_i rho (1 + 3 e.u + 4.5 (e.u)^2 - 1.5 u.u), shape (Q, ny, nx)."""
+    """w_i rho (1 + 3 e.u + 4.5 (e.u)^2 - 1.5 u.u), shape (..., Q, ny, nx)
+    for rho and u of shape (..., ny, nx)."""
     eu = e_dot_u(lat, u)
-    uu = (u[0] * u[0] + u[1] * u[1])[None]
-    return bcast_1d(lat.w, rho) * rho[None] * \
+    uu = (u[0] * u[0] + u[1] * u[1]).unsqueeze(-3)
+    return bcast_1d(lat.w, rho) * rho.unsqueeze(-3) * \
         (1.0 + 3.0 * eu + 4.5 * eu * eu - 1.5 * uu)
 
 

@@ -1,4 +1,7 @@
-"""Guo forcing source term (counterpart of ``openlbmpm_tpu/ops/forcing.py``)."""
+"""Forcing schemes: the Guo source term and the EFS force distribution
+(counterpart of ``openlbmpm_tpu/ops/forcing.py``).  Fields may carry
+leading axes (fluids): u and F components (..., ny, nx), results
+(..., Q, ny, nx)."""
 
 from __future__ import annotations
 
@@ -7,20 +10,32 @@ import torch
 from ..lattice import Lattice
 from .common import bcast_1d, e_dot_u
 
-__all__ = ["guo_source"]
+__all__ = ["guo_source", "efs_force_pdf"]
 
 
 def guo_source(lat: Lattice, u, force, prefactor=None) -> torch.Tensor:
     """S_i = w_i [3 (e_i - u) + 9 e_i (e_i . u)] . F, times `prefactor`
-    (a scalar or a (ny, nx) field) when given."""
+    (a scalar or a (..., ny, nx) field) when given."""
     eu = e_dot_u(lat, u)
     acc = 0.0
     for d in range(lat.dim):
         ed = bcast_1d(lat.e[:, d], u[d])
-        acc = acc + (3.0 * (ed - u[d][None]) + 9.0 * ed * eu) * force[d][None]
+        acc = acc + (3.0 * (ed - u[d].unsqueeze(-3)) + 9.0 * ed * eu) * \
+            force[d].unsqueeze(-3)
     src = bcast_1d(lat.w, u[0]) * acc
     if prefactor is not None:
-        pf = prefactor[None] if torch.is_tensor(prefactor) and \
+        pf = prefactor.unsqueeze(-3) if torch.is_tensor(prefactor) and \
             prefactor.dim() > 0 else prefactor
         src = src * pf
     return src
+
+
+def efs_force_pdf(lat: Lattice, feq, rho, u, force) -> torch.Tensor:
+    """f^F_i = (F . (e_i - u)) f^eq_i / (rho c_s^2) with c_s^2 = 1/3 (the
+    Porter 2012 explicit-forcing distribution); rho guarded against 0."""
+    acc = 0.0
+    for d in range(lat.dim):
+        ed = bcast_1d(lat.e[:, d], feq)
+        acc = acc + force[d].unsqueeze(-3) * (ed - u[d].unsqueeze(-3))
+    rho_safe = torch.where(rho > 0, rho, torch.ones_like(rho))
+    return acc * feq * (3.0 / rho_safe.unsqueeze(-3))

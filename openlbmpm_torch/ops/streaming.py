@@ -13,7 +13,7 @@ import torch
 from ..lattice import Lattice
 from .common import pull
 
-__all__ = ["upwind_solid_masks", "stream"]
+__all__ = ["upwind_solid_masks", "stream", "stream_moving_wall"]
 
 
 def upwind_solid_masks(lat: Lattice, is_solid: np.ndarray) -> np.ndarray:
@@ -37,4 +37,25 @@ def stream(f: torch.Tensor, lat: Lattice,
         pulled = pull(f[..., i, :, :], int(lat.e[i, 0]), int(lat.e[i, 1]))
         outs.append(torch.where(upwind_solid[i],
                                 f[..., int(lat.opp[i]), :, :], pulled))
+    return torch.stack(outs, dim=-3)
+
+
+def stream_moving_wall(f: torch.Tensor, lat: Lattice,
+                       upwind_solid: torch.Tensor, rho: torch.Tensor,
+                       u_wall, upwind_moving: torch.Tensor | None = None
+                       ) -> torch.Tensor:
+    """Pull streaming with moving-wall link bounce-back: a population
+    bounced at a moving wall gains 6 w_i rho (e_i . u_wall), with rho
+    (..., ny, nx) the density of the bouncing fluid.  `upwind_moving`
+    (Q, ny, nx) bool restricts the term to links whose upwind solid node
+    belongs to the moving wall; without it every solid wall moves."""
+    outs = [f[..., 0, :, :]]
+    for i in range(1, lat.q):
+        e_dot_uw = sum(float(lat.e[i, k]) * u_wall[k] for k in range(lat.dim))
+        term = 6.0 * float(lat.w[i]) * rho * e_dot_uw
+        if upwind_moving is not None:
+            term = torch.where(upwind_moving[i], term, torch.zeros_like(term))
+        bounced = f[..., int(lat.opp[i]), :, :] + term
+        pulled = pull(f[..., i, :, :], int(lat.e[i, 0]), int(lat.e[i, 1]))
+        outs.append(torch.where(upwind_solid[i], bounced, pulled))
     return torch.stack(outs, dim=-3)

@@ -42,6 +42,7 @@ torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CG_INI = os.path.join(ROOT, "configs", "rk_csf2d.ini")
 TR_INI = os.path.join(ROOT, "configs", "transportsetup.ini")
+SC_INI = os.path.join(ROOT, "configs", "twophasesetup.ini")
 
 
 def _ini(tmp_path, src, name, edits):
@@ -288,7 +289,55 @@ def test_cli_resumes_from_a_jax_checkpoint(tmp_path):
                      os.path.join(out, "checkpoint.npz"))
 
 
-@pytest.mark.parametrize("model,path", [("cg", CG_INI), ("transport", TR_INI)])
+@pytest.mark.parametrize("scheme", ["sc", "efs"])
+def test_cli_sc_matches_jax_cli_f64(tmp_path, scheme):
+    """twophasesetup.ini cut to 32x48 with shanchen2D.ini (Zou-He velocity
+    inlet, convective outlet) or, as EFS, efs2D.ini (velocity inlet, Zou-He
+    pressure outlet), 20 f64 steps: results and checkpoint to 1e-12, the
+    physics of metrics.jsonl to 1e-10; the run prints the path it takes."""
+    edits = {"xGrid = .*": "xGrid = 32", "yGrid = .*": "yGrid = 48"}
+    physics = "shanchen2D.ini"
+    if scheme == "efs":
+        edits["InteractionType = .*"] = "InteractionType = 'EFS'"
+        physics = "efs2D.ini"
+    ini = _ini(tmp_path, SC_INI, "twophase.ini", edits)
+    common = ["run", ini, "--model", "sc", "--physics-config",
+              os.path.join(ROOT, "configs", physics), "--dtype", "f64",
+              "--steps", "20"]
+    _jax_cli(common + ["--no-pallas", "--output", str(tmp_path / "j")])
+    text = _torch_cli(common + ["--device", "cpu", "--output",
+                                str(tmp_path / "t")])
+    assert f"scheme {scheme.upper()}" in text and "the plain step on cpu" \
+        in text
+    _same_checkpoint(tmp_path / "j" / "checkpoint.npz",
+                     tmp_path / "t" / "checkpoint.npz")
+    got = _results(tmp_path / "t", "SimulationResults")
+    assert len(got) == 2 * 4       # steps 0 and 20: rho_0, rho_1, ux, uy
+    _same_arrays(_results(tmp_path / "j", "SimulationResults"), got)
+    _same_records(tmp_path / "j" / "metrics.jsonl",
+                  tmp_path / "t" / "metrics.jsonl")
+
+
+def test_sc_checkpoint_crosses_both_ways(tmp_path):
+    """A (K, 9, ny, nx) Shan-Chen state, saved by either package, loads in
+    the other bit for bit."""
+    f = np.random.default_rng(9).uniform(0.0, 0.2, (2, 9, 12, 10))
+    jck.save_checkpoint(str(tmp_path / "j.npz"), jnp.asarray(f), 5, "fp")
+    tck.save_checkpoint(str(tmp_path / "t.npz"), torch.from_numpy(f), 5, "fp")
+    got_t, step_t = tck.load_checkpoint(str(tmp_path / "j.npz"),
+                                        torch.zeros(f.shape,
+                                                    dtype=torch.float64), "fp")
+    got_j, step_j = jck.load_checkpoint(str(tmp_path / "t.npz"),
+                                        jnp.zeros(f.shape), "fp")
+    assert step_t == step_j == 5
+    np.testing.assert_array_equal(got_t.numpy().view(np.uint8),
+                                  f.view(np.uint8))
+    np.testing.assert_array_equal(np.asarray(got_j).view(np.uint8),
+                                  f.view(np.uint8))
+
+
+@pytest.mark.parametrize("model,path", [("cg", CG_INI), ("transport", TR_INI),
+                                        ("sc", SC_INI)])
 def test_inspect_prints_what_jax_prints(model, path):
     with contextlib.redirect_stdout(io.StringIO()) as out:
         assert jcli.main(["inspect", path, "--model", model]) == 0
@@ -296,7 +345,8 @@ def test_inspect_prints_what_jax_prints(model, path):
 
 
 def test_unported_model_exits_2(capsys):
-    assert tcli.main(["run", CG_INI, "--model", "sc", "--device", "cpu"]) == 2
+    assert tcli.main(["run", CG_INI, "--model", "sc3d", "--device",
+                      "cpu"]) == 2
     assert "not ported yet" in capsys.readouterr().err
 
 

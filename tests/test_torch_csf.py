@@ -19,6 +19,7 @@ from openlbmpm_torch.convert import params_from_jax
 from openlbmpm_torch.models.colorgradient import ColorGradientRK
 
 torch.set_num_threads(1)
+CPU = "cpu"   # the port's models run on the card unless told otherwise
 
 
 def _walled(ny, nx):
@@ -58,7 +59,7 @@ def _models(params, bcs, ny=48, nx=24):
     mj = jcg.ColorGradientRK(g, params, bcs, dtype=jnp.float64,
                              use_pallas=False)
     mt = ColorGradientRK(g, params_from_jax(params), params_from_jax(bcs),
-                         dtype=torch.float64)
+                         dtype=torch.float64, device=CPU)
     return mj, mt
 
 
@@ -100,7 +101,8 @@ def test_unported_options_raise(change):
     b = dataclasses.replace(GOLDEN_BCS, **{
         k: v for k, v in change.items() if k != "variant"})
     with pytest.raises(NotImplementedError):
-        ColorGradientRK(_walled(16, 8), params_from_jax(p), params_from_jax(b))
+        ColorGradientRK(_walled(16, 8), params_from_jax(p), params_from_jax(b),
+                        device=CPU)
 
 
 def test_macro_c_matches_jax_f64():

@@ -13,12 +13,14 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (COUPLED_CASES, coupled_conc0, flagship_flow,
+from chip_smoke import (COUPLED_CASES, SC_CASES, SC_KERNEL_CASES,
+                        coupled_conc0, flagship_flow, sc_case, sc_config,
                         split_cases, split_coupled_cases)
 from openlbmpm_torch.geometry import from_solid_mask
 from openlbmpm_torch.kernels.csf import (
     compare_bf16_states, csf_step_compressed, csf_step_compressed_reference,
     csf_step_split, csf_step_split_reference)
+from openlbmpm_torch.kernels.shanchen import sc_step, sc_step_reference
 from openlbmpm_torch.kernels.transport import (
     coupled_step_compressed, coupled_step_compressed_reference,
     coupled_step_split, coupled_step_split_reference)
@@ -321,3 +323,63 @@ def test_golden_csf_mini_through_split_kernel(cuda):
     1.25e-14 measured on an H100)."""
     from chip_smoke import phase_golden
     assert phase_golden(cuda) <= 1e-10
+
+
+@pytest.mark.parametrize("case", SC_KERNEL_CASES)
+def test_sc_kernel_matches_plain_f64(cuda, case):
+    """K8 against its plain version, 10 steps at f64 on a 64x48 channel:
+    1e-11 (at most 9.7e-16 measured on an H100 over 20 steps at 128x64)."""
+    m, a = sc_case(case, cuda, 64, 48)
+    assert m.path == "kernel"
+    b = a
+    before = sc_step.launches
+    for _ in range(10):
+        a = sc_step(a, m)
+        b = sc_step_reference(b, m)
+    torch.cuda.synchronize(cuda)
+    assert sc_step.launches == before + 10
+    assert bool(torch.isfinite(a).all())
+    assert float((a - b).abs().max()) <= 1e-11
+
+
+@pytest.mark.parametrize("case", [c for c in SC_CASES
+                                  if c not in SC_KERNEL_CASES])
+def test_sc_plain_cases_take_the_plain_step_on_the_card(cuda, case):
+    """The configurations the JAX package keeps on its jnp path run the
+    plain step on the card and launch nothing; sc_step refuses them."""
+    m, a = sc_case(case, cuda, 64, 48)
+    assert m.path == "plain" and m.kernel_params is None
+    before = sc_step.launches
+    b = m.step(a)
+    assert sc_step.launches == before and b.is_cuda
+    assert torch.equal(b, m.plain_step(a))
+    with pytest.raises(ValueError, match="no Shan-Chen kernel"):
+        sc_step(a, m)
+
+
+def test_sc_kernel_bf16_one_step_within_one_ulp(cuda):
+    """One K8 step and one plain step from a common bf16 state of config 2
+    at 256^2 (after 20 plain steps): every stored value within one bf16
+    ulp (``compare_bf16_states``)."""
+    m, f = sc_config("config2", cuda, storage="bf16", n=256)
+    s = m.pack_state_bf16(f)
+    for _ in range(20):
+        s = sc_step_reference(s, m)
+    fluid = m.fluid_mask > 0
+    for x, y in zip(sc_step(s, m), sc_step_reference(s, m)):
+        assert compare_bf16_states(x, y, fluid)["excess"] <= 1.0
+
+
+def test_sc_step_checks_state_and_counts(cuda):
+    m, a = sc_case("sc_srt_velocity_convective", cuda, 32, 16)
+    before = sc_step.launches
+    with pytest.raises(ValueError, match="the model takes"):
+        sc_step(a.float(), m)
+    m.step(m.step(a))
+    assert sc_step.launches == before + 2
+
+
+def test_golden_sc_mini_through_kernel(cuda):
+    """tests/golden/sc_mini.npz through K8 at f64 (1e-10)."""
+    from chip_smoke import phase_sc_golden
+    assert phase_sc_golden(cuda) <= 1e-10

@@ -1,14 +1,22 @@
-"""openlbmpm_torch imports no JAX and builds nothing when imported.
+"""openlbmpm_torch imports no JAX and nothing of the JAX package, builds
+nothing when imported, keeps tables equal to the JAX package's, and runs
+on the card unless told otherwise.
 
-Checked in a fresh interpreter, because tests/conftest.py has already
-imported jax into this process."""
+The import checks run in a fresh interpreter, because tests/conftest.py has
+already imported jax into this process."""
 
 import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
+
+from openlbmpm_tpu import geometry as jgeo
+from openlbmpm_tpu import lattice as jlat
+from openlbmpm_torch import geometry as tgeo
+from openlbmpm_torch import lattice as tlat
 
 torch.set_num_threads(1)
 
@@ -26,7 +34,9 @@ _IMPORT_ALL = (
     "openlbmpm_torch.ops.streaming, openlbmpm_torch.ops.transport, "
     "openlbmpm_torch.cli, openlbmpm_torch.config, "
     "openlbmpm_torch.checkpoint, openlbmpm_torch.metrics, "
-    "openlbmpm_torch.io, sys; ")
+    "openlbmpm_torch.io, openlbmpm_torch.lattice, openlbmpm_torch.geometry, "
+    "openlbmpm_torch.models.shanchen, openlbmpm_torch.ops.shanchen, "
+    "openlbmpm_torch.kernels.shanchen, sys; ")
 
 
 def _run(code):
@@ -41,27 +51,84 @@ def _run(code):
     "if m.startswith('jax'))",
     "from openlbmpm_torch.kernels import build; "
     "assert not build._loaded and not build.build_seconds",
-], ids=["no_jax", "no_build_at_import"])
+    "assert not [m for m in sys.modules if m.startswith('openlbmpm_tpu')], "
+    "sorted(m for m in sys.modules if m.startswith('openlbmpm_tpu'))",
+], ids=["no_jax", "no_build_at_import", "no_jax_package"])
 def test_import_isolation(check):
     res = _run(_IMPORT_ALL + check)
     assert res.returncode == 0, res.stderr
 
 
-def test_cli_runs_without_jax(tmp_path):
-    """``python -m openlbmpm_torch inspect`` in a fresh interpreter that
-    cannot import jax (a stub module that raises stands first on the
-    path)."""
-    (tmp_path / "jax").mkdir()
-    (tmp_path / "jax" / "__init__.py").write_text(
-        "raise ImportError('jax is not available')\n")
+@pytest.mark.parametrize("model,ini,want", [
+    ("cg", "rk_csf2d.ini", '"collision": "MRT"'),
+    ("sc", "twophasesetup.ini", '"scheme": "SC"'),
+])
+def test_cli_runs_without_jax(tmp_path, model, ini, want):
+    """``python -m openlbmpm_torch inspect`` in a fresh interpreter that can
+    import neither jax nor the JAX package (stub packages that raise stand
+    first on the path)."""
+    for stub in ("jax", "openlbmpm_tpu"):
+        (tmp_path / stub).mkdir()
+        (tmp_path / stub / "__init__.py").write_text(
+            f"raise ImportError('{stub} is not available')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = os.pathsep.join([str(tmp_path), ROOT])
     res = subprocess.run(
         [sys.executable, "-m", "openlbmpm_torch", "inspect",
-         os.path.join(ROOT, "configs", "rk_csf2d.ini"), "--model", "cg"],
-        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+         os.path.join(ROOT, "configs", ini), "--model", model],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert '"collision": "MRT"' in res.stdout
+    assert want in res.stdout
+
+
+@pytest.mark.parametrize("name", ["D2Q9", "D2Q5", "D3Q19", "D3Q7"])
+def test_lattice_tables_equal_jax(name):
+    a, b = getattr(tlat, name), getattr(jlat, name)
+    for field in ("e", "w", "opp"):
+        np.testing.assert_array_equal(getattr(a, field), getattr(b, field))
+    assert a.cs2 == b.cs2
+    assert (a.M is None) == (b.M is None)
+    if a.M is not None:
+        np.testing.assert_array_equal(a.M, b.M)
+        np.testing.assert_array_equal(a.M_inv, b.M_inv)
+
+
+def test_iso_stencils_equal_jax():
+    assert sorted(tlat.ISO_STENCILS) == sorted(jlat.ISO_STENCILS)
+    for order, st in tlat.ISO_STENCILS.items():
+        np.testing.assert_array_equal(st.offsets,
+                                      jlat.ISO_STENCILS[order].offsets)
+        np.testing.assert_array_equal(st.weights,
+                                      jlat.ISO_STENCILS[order].weights)
+
+
+def _masks():
+    rng = np.random.default_rng(0)
+    porous = rng.random((20, 16)) < 0.3
+    ring = np.zeros((12, 12), bool)
+    ring[3:9, 3:9] = True
+    ring[5:7, 5:7] = False
+    return {"porous": porous, "ring": ring,
+            "channel": jgeo.open_channel(10, 24).is_solid}
+
+
+@pytest.mark.parametrize("mask", ["porous", "ring", "channel"])
+def test_geometry_builders_equal_jax(mask):
+    solid = _masks()[mask]
+    for fn, args in (("from_solid_mask", ()), ("solid_normals", ()),
+                     ("wetting_masks", ()), ("add_buffer_layers", (3,)),
+                     ("duplicate_domain", (2, 2))):
+        a = getattr(tgeo, fn)(solid, *args)
+        b = getattr(jgeo, fn)(solid, *args)
+        if fn == "from_solid_mask":
+            a, b = (a.is_solid, a.is_fluid), (b.is_solid, b.is_fluid)
+        for x, y in zip(np.atleast_1d(a) if fn != "add_buffer_layers"
+                        else [a], np.atleast_1d(b)
+                        if fn != "add_buffer_layers" else [b]):
+            np.testing.assert_array_equal(x, y)
+    for fn, args in (("open_channel", (10, 24)), ("box_with_walls", (9, 14))):
+        np.testing.assert_array_equal(getattr(tgeo, fn)(*args).is_solid,
+                                      getattr(jgeo, fn)(*args).is_solid)
 
 
 def test_cuda_device_without_card_raises():
@@ -70,3 +137,29 @@ def test_cuda_device_without_card_raises():
         pytest.skip("a CUDA card is present")
     with pytest.raises(RuntimeError, match="cuda"):
         resolve_device("cuda")
+
+
+@pytest.mark.parametrize("entry", ["resolve_device", "state_from_numpy",
+                                   "ColorGradientRK", "TransportRK",
+                                   "ShanChenMCMP"])
+def test_entry_points_default_to_the_card(entry):
+    """Built without ``device=``, each entry point asks for CUDA: here,
+    with no card, it raises."""
+    from openlbmpm_torch import resolve_device
+    from openlbmpm_torch.convert import state_from_numpy
+    from openlbmpm_torch.models import (ColorGradientRK, ShanChenMCMP,
+                                        ShanChenParams, TransportRK)
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    geometry = tgeo.box_with_walls(8, 16)
+    make = {
+        "resolve_device": lambda: resolve_device(),
+        "state_from_numpy": lambda: state_from_numpy(np.zeros((9, 4, 4))),
+        "ColorGradientRK": lambda: ColorGradientRK(geometry),
+        "TransportRK": lambda: TransportRK(geometry),
+        "ShanChenMCMP": lambda: ShanChenMCMP(geometry, ShanChenParams(
+            g_matrix=((0.0, 3.6), (3.6, 0.0)), g_solid=(0.0, 0.0),
+            tau=(1.0, 1.0))),
+    }[entry]
+    with pytest.raises(RuntimeError, match="cuda"):
+        make()

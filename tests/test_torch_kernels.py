@@ -31,6 +31,7 @@ from openlbmpm_torch.models.colorgradient import ColorGradientRK
 from test_torch_csf import GOLDEN_BCS, GOLDEN_PARAMS, _models, _walled
 
 torch.set_num_threads(1)
+CPU = "cpu"   # the port's models run on the card unless told otherwise
 
 
 def test_reference_matches_pallas_interpret_f64():
@@ -43,7 +44,8 @@ def test_reference_matches_pallas_interpret_f64():
                                   rows_per_block=8, bc_config=GOLDEN_BCS,
                                   state_mode="compressed", interpret=True)
     mt = ColorGradientRK(g, params_from_jax(GOLDEN_PARAMS),
-                         params_from_jax(GOLDEN_BCS), dtype=torch.float64)
+                         params_from_jax(GOLDEN_BCS), dtype=torch.float64,
+                         device=CPU)
     s = mj.pack_state(*mj.init_state_layers(1.0, 1.0, invading_rows=8))
     st = torch.from_numpy(np.array(s))
     for _ in range(2):
@@ -64,7 +66,7 @@ def _bf16_models():
                              use_pallas=False)
     mt = ColorGradientRK(g, params_from_jax(GOLDEN_PARAMS),
                          params_from_jax(GOLDEN_BCS), dtype=torch.float32,
-                         storage="bf16")
+                         storage="bf16", device=CPU)
     rng = np.random.default_rng(7)
     f_r, f_b = (np.asarray(a) for a in mj.init_state_layers(
         1.0, 1.0, invading_rows=10))
@@ -77,7 +79,8 @@ def _bf16_models():
 def test_pack_state_bf16_bitexact_and_roundtrip():
     mj, mt, f_r, f_b = _bf16_models()
     hj = state_to_numpy(state_from_numpy(
-        np.asarray(mj.pack_state_bf16(jnp.asarray(f_r), jnp.asarray(f_b)))))
+        np.asarray(mj.pack_state_bf16(jnp.asarray(f_r), jnp.asarray(f_b))),
+        CPU))
     ht = mt.pack_state_bf16(torch.from_numpy(f_r), torch.from_numpy(f_b))
     assert ht.dtype == torch.bfloat16 and ht.shape == (11, 32, 24)
     np.testing.assert_array_equal(ht.view(torch.int16).numpy(),
@@ -95,7 +98,8 @@ def test_bf16_step_is_f32_step_between_pack_and_unpack():
     h = mt.pack_state_bf16(torch.from_numpy(f_r), torch.from_numpy(f_b))
     out = mt.step_c(h)
     assert out.dtype == torch.bfloat16 and out.shape == h.shape
-    mt32 = ColorGradientRK(mt.geo, mt.p, mt.bcs, dtype=torch.float32)
+    mt32 = ColorGradientRK(mt.geo, mt.p, mt.bcs, dtype=torch.float32,
+                           device=CPU)
     want = mt.pack_compressed_bf16(mt32.step_c(mt.unpack_bf16(h)))
     np.testing.assert_array_equal(out.view(torch.int16).numpy(),
                                   want.view(torch.int16).numpy())

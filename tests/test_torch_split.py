@@ -33,6 +33,7 @@ from openlbmpm_torch.models.colorgradient import ColorGradientRK
 from openlbmpm_torch.ops import boundaries as tbc
 
 torch.set_num_threads(1)
+CPU = "cpu"   # the port's models run on the card unless told otherwise
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "csf_mini.npz")
 NY, NX = 12, 10
@@ -116,7 +117,7 @@ def _models(params, bcs, ny=32, nx=20, obstacle=False, **jkw):
     mj = jcg.ColorGradientRK(g, params, bcs, dtype=jnp.float64,
                              use_pallas=jkw.pop("use_pallas", False))
     mt = ColorGradientRK(g, params_from_jax(params), params_from_jax(bcs),
-                         dtype=torch.float64)
+                         dtype=torch.float64, device=CPU)
     return mj, mt
 
 
@@ -155,7 +156,8 @@ def test_golden_csf_mini_split_f64():
     solid[:, 0] = solid[:, -1] = True
     m = ColorGradientRK(geo.from_solid_mask(solid),
                         params_from_jax(GOLDEN_PARAMS),
-                        params_from_jax(GOLDEN_BCS), dtype=torch.float64)
+                        params_from_jax(GOLDEN_BCS), dtype=torch.float64,
+                        device=CPU)
     st = m.init_state_layers(1.0, 1.0, invading_rows=10)
     for _ in range(50):
         st = m.step(st)

@@ -27,6 +27,7 @@ from openlbmpm_torch.models.transport import TransportRK, TransportState
 from chip_smoke import coupled_conc0, flagship_flow, split_coupled_cases
 
 torch.set_num_threads(1)
+CPU = "cpu"   # the port's models run on the card unless told otherwise
 
 FLOW, BCS = flagship_flow()
 FLOW_J = jcg.ColorGradientParams(**dataclasses.asdict(FLOW))
@@ -45,7 +46,8 @@ def test_split_coupled_trajectory_matches_jax_f64_50_steps(case):
     mj = jtr.TransportRK(g, FLOW_J, tpj, BCS_J, dtype=jnp.float64,
                          use_pallas=False, **kw)
     mt = TransportRK(g, params_from_jax(FLOW_J), params_from_jax(tpj),
-                     params_from_jax(BCS_J), dtype=torch.float64, **kw)
+                     params_from_jax(BCS_J), dtype=torch.float64, device=CPU,
+                     **kw)
     sj = mj.init_state(mj.flow.init_state_layers(1.0, 1.0, n // 5),
                        coupled_conc0(tpj.num_tracers, n, n))
     st = TransportState(*(torch.from_numpy(np.array(a)) for a in sj))

@@ -45,6 +45,7 @@ from chip_smoke import (COUPLED_CASES, coupled_conc0, flagship_flow,
                         split_coupled_cases)
 
 torch.set_num_threads(1)
+CPU = "cpu"   # the port's models run on the card unless told otherwise
 
 NY, NX = 10, 12
 LATTICES = {"D2Q5": D2Q5, "D2Q9": D2Q9}
@@ -205,7 +206,7 @@ def _models(case, n=32, **tp_change):
     mj = jtr.TransportRK(g, FLOW_J, tpj, BCS_J, dtype=jnp.float64,
                          use_pallas=False)
     mt = TransportRK(g, params_from_jax(FLOW_J), params_from_jax(tpj),
-                     params_from_jax(BCS_J), dtype=torch.float64)
+                     params_from_jax(BCS_J), dtype=torch.float64, device=CPU)
     return mj, mt
 
 
@@ -313,7 +314,7 @@ def test_plain_bf16_flow_storage_tracks_f32():
     n = 32
     m32, mbf = (TransportRK(_walled(n, n), params_from_jax(FLOW_J), tp,
                             params_from_jax(BCS_J), dtype=torch.float32,
-                            storage=st) for st in ("f32", "bf16"))
+                            storage=st, device=CPU) for st in ("f32", "bf16"))
     conc0 = np.zeros((1, n, n))
     conc0[0, 20:28, :] = 1.0
     st = m32.init_state(m32.flow.init_state_layers(1.0, 1.0, 10), conc0)
@@ -344,7 +345,7 @@ def test_unported_options_raise(change):
         k: change.pop(k) for k in list(change) if k == "variant"})
     tp = TransportParams(**COUPLED_CASES["a"] | change)
     with pytest.raises(NotImplementedError):
-        TransportRK(_walled(16, 8), flow, tp, BCS)
+        TransportRK(_walled(16, 8), flow, tp, BCS, device=CPU)
 
 
 SPLIT_CASES = split_coupled_cases()
@@ -357,7 +358,8 @@ def _split_models(case, n=32):
     mj = jtr.TransportRK(g, FLOW_J, tpj, BCS_J, dtype=jnp.float64,
                          use_pallas=False, **kw)
     mt = TransportRK(g, params_from_jax(FLOW_J), params_from_jax(tpj),
-                     params_from_jax(BCS_J), dtype=torch.float64, **kw)
+                     params_from_jax(BCS_J), dtype=torch.float64, device=CPU,
+                     **kw)
     return mj, mt
 
 
@@ -467,12 +469,12 @@ def test_convert_transport_params_and_states():
     st = _jax_state(mj)
     pair = (np.asarray(mj.flow.pack_state_bf16(st.f_r, st.f_b)),
             np.asarray(st.g))
-    back = state_to_numpy(state_from_numpy(pair))
+    back = state_to_numpy(state_from_numpy(pair, CPU))
     for a, b in zip(pair, back):
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a.view(np.uint8), b.view(np.uint8))
     split = state_from_numpy(jtr.TransportState(
-        *(np.asarray(a) for a in st)))
+        *(np.asarray(a) for a in st)), CPU)
     assert isinstance(split, TransportState)
     s, g = mt.pack(split)
     want_s, want_g = _packed(mj, st)
