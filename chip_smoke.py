@@ -97,7 +97,22 @@ toolkit (nvcc) and PyTorch built for CUDA; JAX is not needed.  Phases:
      MLUPS of metrics.jsonl are printed;
  19. MLUPS of K8 and of its plain path at 1024^2 (configs 2 and 3, f32 and
      bf16 storage), each CUDA kernel's device time per launch and the
-     roofline share.
+     roofline share;
+ 20. f64: the D3Q19 CSF kernels K9c (compressed) and K9s (split) against
+     their plain versions, 20 steps, in every case of CG3D_CASES (<= 1e-11;
+     the grain pack <= max(1e-11, 2x the plain path's one-ulp twin gap)),
+     then K9h one step from a common bf16 state within one bf16 ulp;
+ 21. configuration 5 (bench_cg3d.py's grain pack) at 128^3, 10 steps from
+     one f64 start: f64 <= 1e-11, K9c and K9s f32 and K9h bf16 against
+     their plain versions (``_hold``: the bound far from walls and seam,
+     off the seam the bound or the capped one-ulp twin gap), total rho_r;
+     ``chip_faults.py`` shows that a fault planted in one storage type's
+     instance fails this phase;
+ 22. bench_cg3d.py's physics on K9c f32 (porosity, front advance over 4000
+     steps), then the K9h and K9s main paths through ``run_chunked``;
+ 23. ``run --model cg3d`` on configs/rk_csf3d.ini: one K9c launch a step;
+ 24. MLUPS of K9c, K9h and K9s at 128^3 and 256^3 and of the plain paths at
+     128^3, device time per launch and the roofline share.
 
 Every phase prints one line or more, each number line with the card's name
 and power limit, and any failure exits non-zero.  Then the wall time, the
@@ -1610,9 +1625,531 @@ def phase15_19_lines(r15, r16, r17, phys, cli, r19, card, n=FLAGSHIP_N):
     return lines
 
 
+# -- the D3Q19 CSF step: K9 ------------------------------------------------
+
+_CG3D = dict(surface_tension=0.01, tau_r=1.0, tau_b=0.8,
+             contact_angle_deg=60.0)
+_VCONV = dict(inlet="velocity", outlet="convective", inlet_velocity=-1e-3)
+# configuration 5 (BASELINE.json), benchmarks/bench_cg3d.py:67-71: an
+# imaged grain pack, velocity inlet, convective outlet
+CONFIG5 = (dict(tau_r=1.0, tau_b=1.0, surface_tension=0.05,
+                contact_angle_deg=45.0, beta=0.7, tau_type=2),
+           dict(inlet="velocity", outlet="convective", inlet_velocity=-2e-3))
+# name -> (ColorGradientParams3D fields, CG3DBoundaryConfig fields,
+# geometry, initial state).  Phase 20 and tests/test_torch_*.py use it.
+CG3D_CASES = {
+    "periodic_droplet": (_CG3D, {}, "open", "droplet"),
+    "akai60_walls": (_CG3D, {}, "walls", "layers"),
+    "velocity_convective": (_CG3D, _VCONV, "walls", "layers"),
+    "velocity_dirichlet": (_CG3D, dict(inlet="velocity", outlet="dirichlet",
+                                       inlet_velocity=-1e-3,
+                                       outlet_density=1.0), "walls", "layers"),
+    "body_force": (_CG3D | dict(body_force=(1e-5, 0.0, -2e-5)), {}, "walls",
+                   "droplet"),
+    "tau_type1": (_CG3D | dict(tau_type=1), _VCONV, "walls", "layers"),
+    "grain_pack": CONFIG5 + ("grains", "layers"),
+}
+
+
+def pore_grains(n, n_grains=60, seed=7):
+    """The (n, n) solid cross-section of benchmarks/bench_cg3d.py: its
+    make_pore_png grain loop, then what load_structure_image reads back
+    from that PNG (the solid pixels, cropped to their bounding box) and
+    run_bench's pad back to n x n.  numpy only: the card has no PNG
+    writer."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:n, 0:n]
+    solid = np.zeros((n, n), bool)
+    for _ in range(n_grains):
+        cy, cx = rng.randint(0, n, 2)
+        r = rng.randint(n // 24, n // 10)
+        solid |= (yy - cy) ** 2 + (xx - cx) ** 2 <= r * r
+    band = slice(n // 2 - n // 10, n // 2 + n // 10)
+    solid[:, band] &= rng.rand(n, band.stop - band.start) > 0.6
+    ys, xs = np.nonzero(solid)
+    solid = solid[ys.min():ys.max() + 1, xs.min():xs.max() + 1]
+    solid = np.pad(solid, ((0, max(n - solid.shape[0], 0)),
+                           (0, max(n - solid.shape[1], 0))))
+    return solid[:n, :n]
+
+
+def grain_pack(n):
+    """Configuration 5's (n, n, n) geometry: the grain pack extruded along z
+    with 8 open buffer slabs at each face, walls on the x and y faces."""
+    from openlbmpm_torch.geometry import extrude_image_3d
+    return extrude_image_3d(pore_grains(n), n, buffer_slabs=8)
+
+
+def cg3d_solid(kind, shape):
+    if kind == "grains":
+        return grain_pack(shape[0])
+    solid = np.zeros(shape, bool)
+    if kind == "walls":
+        solid[:, 0, :] = solid[:, -1, :] = True
+    return solid
+
+
+def cg3d_case(name, device, shape=(48, 40, 32), dtype=torch.float64,
+              storage="f32"):
+    """The port's ColorGradientRK3D of case `name` on an (nz, ny, nx)
+    domain (the grain pack: (nz,)*3) and its split initial state."""
+    from openlbmpm_torch.geometry import from_solid_mask
+    from openlbmpm_torch.models.flow3d import (
+        CG3DBoundaryConfig, ColorGradientParams3D, ColorGradientRK3D)
+    p, b, kind, init = CG3D_CASES[name]
+    if kind == "grains":
+        shape = (shape[0],) * 3
+    m = ColorGradientRK3D(from_solid_mask(cg3d_solid(kind, shape)),
+                          ColorGradientParams3D(**p), CG3DBoundaryConfig(**b),
+                          dtype=dtype, device=device, storage=storage)
+    if init == "droplet":
+        return m, m.init_state_droplet(1.0, 1.0, radius=min(shape) / 4)
+    return m, m.init_state_layers(1.0, 1.0, invading_slabs=shape[0] // 4)
+
+
+_CONFIG5_MODELS = {}
+
+
+def config5_model(device, storage="f32", dtype=torch.float32, n=128):
+    """Configuration 5 at n^3 (bench_cg3d.run_bench's model).  A model holds
+    no state, so phases 21, 22 and 24 share one per (device, storage,
+    dtype, n)."""
+    from openlbmpm_torch.geometry import from_solid_mask
+    from openlbmpm_torch.models.flow3d import (
+        CG3DBoundaryConfig, ColorGradientParams3D, ColorGradientRK3D)
+    key = (str(device), storage, dtype, n)
+    if key not in _CONFIG5_MODELS:
+        _CONFIG5_MODELS[key] = ColorGradientRK3D(
+            from_solid_mask(grain_pack(n)),
+            ColorGradientParams3D(**CONFIG5[0]),
+            CG3DBoundaryConfig(**CONFIG5[1]), dtype=dtype, device=device,
+            storage=storage)
+    return _CONFIG5_MODELS[key]
+
+
+def config5_start(m):
+    """bench_cg3d's initial state: red in the top 16 of 128 slabs."""
+    return m.init_state_layers(1.0, 1.0, invading_slabs=m.geo.shape[0] // 8)
+
+
+def _dilate_yx(mask, r):
+    """Cells within r of `mask` in (y, x), slab by slab."""
+    x = mask.float()[:, None]
+    return torch.nn.functional.max_pool2d(x, 2 * r + 1, stride=1,
+                                          padding=r)[:, 0] > 0
+
+
+def cg3d_masks(m, steps, device):
+    """(away, far) cell masks of a K9 comparison after `steps` steps.  away:
+    off the seam slabs 0-2 and nz-2, nz-1 (the periodic z seam where the red
+    inlet slabs meet the blue outlet slabs is an interface) and off their
+    wall edges (cells within steps + 2 slabs of them and steps + 2 cells of
+    a solid cell in (y, x)); far: away and also steps + 2 cells from every
+    solid cell, off the contact lines (rounding noise spreads about a cell
+    a step)."""
+    nz = m.geo.shape[0]
+    c = steps + 2
+    solid = torch.as_tensor(m.geo.is_solid, device=device)
+    seam = torch.zeros_like(solid)
+    seam[:3] = seam[nz - 2:] = True
+    near_seam = torch.zeros_like(solid)
+    near_seam[:3 + c] = near_seam[nz - 2 - c:] = True
+    near_wall = _dilate_yx(solid, c)
+    away = ~seam & ~(near_seam & near_wall)
+    return away, away & ~near_wall
+
+
+def _twin(x, seed=0):
+    """x with each value moved by -1, 0 or +1 ulp at random (a rounding-level
+    change of the input; float32 / float64)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    r = torch.randint(-1, 2, x.shape, generator=g).to(x.device, x.dtype)
+    return x * (1 + r * torch.finfo(x.dtype).eps / 2)
+
+
+def _run(fn, x, m, steps):
+    for _ in range(steps):
+        x = fn(x, m)
+    return x
+
+
+def _split_gap(a, b):
+    return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+
+def phase_cg3d_f64(device, shape=(48, 40, 32), grain=32, steps=20,
+                   tol=1e-11):
+    """K9c (compressed) and K9s (split) against their plain versions at f64
+    in every case of CG3D_CASES, `steps` steps; then K9h one step from a
+    common bf16 state.  The grain pack is held to max(tol, 2x the plain
+    path's own gap when its input moves by one ulp): its periodic z seam,
+    where |g| = 1 meets noise gradients near the 1e-8 normal threshold,
+    amplifies rounding (ROADMAP section 3)."""
+    from openlbmpm_torch.kernels.cg3d import (
+        cg3d_step_compressed as kc, cg3d_step_compressed_reference as pc,
+        cg3d_step_split as ks, cg3d_step_split_reference as ps)
+    res = {}
+    for name in CG3D_CASES:
+        m, st = cg3d_case(name, device, shape=(grain,) * 3
+                          if name == "grain_pack" else shape)
+        s = m.pack_state(*st)
+        a, b, gc = s, s, 0.0
+        x, y, gs = st, st, 0.0
+        for _ in range(steps):
+            a, b = kc(a, m), pc(b, m)
+            gc = max(gc, float((a - b).abs().max()))
+            x, y = ks(x, m), ps(y, m)
+            gs = max(gs, _split_gap(x, y))
+        check(bool(torch.isfinite(a).all()) and
+              all(bool(torch.isfinite(t).all()) for t in x),
+              f"K9 f64 {name}: state not finite")
+        bound_c = bound_s = tol
+        if name == "grain_pack":
+            bound_c = max(tol, 2 * float(
+                (_run(pc, _twin(s), m, steps) - b).abs().max()))
+            bound_s = max(tol, 2 * _split_gap(
+                _run(ps, tuple(_twin(t, 1) for t in st), m, steps), y))
+        check(gc <= bound_c, f"K9c f64 {name}: {gc:.3e} > {bound_c:.3e}")
+        check(gs <= bound_s, f"K9s f64 {name}: {gs:.3e} > {bound_s:.3e}")
+        res[name] = (gc, gs, bound_c, bound_s)
+    mh, st = cg3d_case("velocity_convective", device, shape=shape,
+                       dtype=torch.float32, storage="bf16")
+    h = _run(pc, mh.pack_state_bf16(*st), mh, 5)
+    away = torch.ones(mh.geo.shape, dtype=torch.bool, device=device)
+    away[:3] = away[shape[0] - 2:] = False
+    res["bf16_ulp"] = bf16_one_step_3d(mh, h, away)
+    return res
+
+
+def bf16_one_step_3d(m, h, away, max_share=1e-2):
+    """K9h and its plain version one step from the common bf16 state `h`,
+    held value by value on `away` to one bf16 ulp (``compare_bf16_states``)
+    with at most `max_share` of the values >= 1e-4 off at all (measured
+    4e-3 to 5e-3: the 19-direction sums leave more values at a rounding
+    boundary than D2Q9's 9); a round-toward-zero and a dropped-lo encoding
+    of the plain result must fail the same check."""
+    from openlbmpm_torch.kernels.cg3d import (
+        cg3d_step_compressed, cg3d_step_compressed_reference)
+    from openlbmpm_torch.kernels.csf import compare_bf16_states
+    plain = cg3d_step_compressed_reference(h, m)
+    r = compare_bf16_states(cg3d_step_compressed(h, m), plain, away)
+    check(r["excess"] <= 1.0, f"K9h one step: a value {r['excess']:.3g} ulp "
+          "off the plain path")
+    check(r["share"] <= max_share, f"K9h one step: {r['share']:.2e} of the "
+          f"values differ > {max_share:g}")
+    x = m._physics_c(m.unpack_bf16(m._bc_slabs_c(h, m._dec_slab,
+                                                 m._enc_slab)))
+    w = torch.as_tensor(m.lat.w, dtype=x.dtype, device=x.device)
+    hi = _bf16_rz(x[19])
+    rz = torch.cat([_bf16_rz(x[:19] - w.reshape(-1, 1, 1, 1) * m.fluid_mask),
+                    hi[None], _bf16_rz(x[19] - hi.float())[None]])
+    no_lo = plain.clone()
+    no_lo[20] = 0
+    r["rz_share"] = compare_bf16_states(rz, plain, away)["share"]
+    r["no_lo_excess"] = compare_bf16_states(no_lo, plain, away)["excess"]
+    check(r["rz_share"] > max_share and r["no_lo_excess"] > 1.0,
+          f"K9h one-step check cannot see a rounding-toward-zero "
+          f"({r['rz_share']:.2e}) or dropped-lo ({r['no_lo_excess']:.3g}) "
+          "encoding")
+    return r
+
+
+def _gaps(kern, plain, twin, ref, away, far):
+    """max |kernel - plain| everywhere / on away / on far, the plain twin's
+    gap (its input one ulp away) on away, and kernel / plain / twin from
+    the f64 plain run."""
+    d = (kern - plain).abs().amax(0)
+    t = (twin - plain).abs().amax(0)
+    return {"max": float(d.max()), "away": float(d[away].max()),
+            "far": float(d[far].max()), "twin_away": float(t[away].max()),
+            "from_f64": tuple(float((x.double() - ref).abs().max())
+                              for x in (kern, plain, twin))}
+
+
+# Caps on the twin term of the phase 21 bounds: twice the plain path's
+# one-ulp twin gap off the seam measured at configuration 5, 128^3, 10
+# steps, rounded up (readings 7.983e-4, 1.788e-7, 7.820e-5, 7.782e-4 on an
+# H100; PERF.md section 2), so a fault on the contact lines cannot hide
+# under a twin that a change of the plain path widened.
+CONFIG5_TWIN_CAP = {"K9c f32": 1.6e-3, "K9s f32": 3.6e-7, "K9h planes": 1.6e-4,
+                    "K9h rho_r": 1.6e-3}
+
+
+def _hold(tag, g, bound):
+    """The phase 21 bounds: `bound` on the cells far from walls and seam;
+    on `away` no more than `bound` or the plain path's own twin gap, the
+    latter capped at CONFIG5_TWIN_CAP[tag]; and no further from f64 than
+    1.5x the plain path or its twin, or `bound`."""
+    check(g["far"] <= bound, f"{tag}: |kernel - plain| far from walls and "
+          f"seam {g['far']:.3e} > {bound:g}")
+    twin = min(g["twin_away"], CONFIG5_TWIN_CAP[tag])
+    check(g["away"] <= max(bound, twin), f"{tag}: |kernel - plain| off the "
+          f"seam {g['away']:.3e} > max({bound:g}, plain twin "
+          f"{g['twin_away']:.3e} capped at {CONFIG5_TWIN_CAP[tag]:g})")
+    k, p, t = g["from_f64"]
+    check(k <= max(bound, 1.5 * max(p, t)), f"{tag}: kernel {k:.3e} from "
+          f"f64, plain {p:.3e}, twin {t:.3e}")
+
+
+def phase_config5(device, n=128, steps=10):
+    """Configuration 5 at n^3, `steps` steps of kernel and plain path from
+    one f64 start: f64 (K9c, K9s <= 1e-11), f32 (K9c, K9s) and bf16
+    storage (K9h), held by ``_hold`` against the plain path, its one-ulp
+    twin and the f64 run; total rho_r kernel vs plain <= 1e-4."""
+    from openlbmpm_torch.kernels.cg3d import (
+        cg3d_step_compressed as kc, cg3d_step_compressed_reference as pc,
+        cg3d_step_split as ks, cg3d_step_split_reference as ps)
+    m64 = config5_model(device, dtype=torch.float64, n=n)
+    st64 = config5_start(m64)
+    s64 = m64.pack_state(*st64)
+    p64, sp64 = _run(pc, s64, m64, steps), _run(ps, st64, m64, steps)
+    res = {"f64": (float((_run(kc, s64, m64, steps) - p64).abs().max()),
+                   _split_gap(_run(ks, st64, m64, steps), sp64))}
+    check(max(res["f64"]) <= 1e-11, f"config 5 f64 kernel vs plain "
+          f"{res['f64']}")
+    m32 = config5_model(device, n=n)
+    away, far = cg3d_masks(m32, steps, device)
+    s32 = s64.float()
+    kern, plain = _run(kc, s32, m32, steps), _run(pc, s32, m32, steps)
+    res["f32"] = _gaps(kern, plain, _run(pc, _twin(s32), m32, steps), p64,
+                       away, far)
+    _hold("K9c f32", res["f32"], 3e-5)
+    st32 = tuple(t.float() for t in st64)
+    res["split"] = _gaps(*(torch.cat(x) for x in (
+        _run(ks, st32, m32, steps), _run(ps, st32, m32, steps),
+        _run(ps, tuple(_twin(t, 1) for t in st32), m32, steps))),
+        torch.cat(sp64), away, far)
+    _hold("K9s f32", res["split"], 3e-5)
+    mh = config5_model(device, storage="bf16", n=n)
+    h = mh.pack_compressed_bf16(s32)
+    kh, ph = _run(kc, h, mh, steps), _run(pc, h, mh, steps)
+    k, p, t = (mh.unpack_bf16(x) for x in (
+        kh, ph, _run(pc, mh.pack_compressed_bf16(_twin(s32)), mh, steps)))
+    res["bf16"] = {"planes": _gaps(k[:19], p[:19], t[:19], p64[:19], away,
+                                   far),
+                   "rho_r": _gaps(k[19:], p[19:], t[19:], p64[19:], away,
+                                  far),
+                   "max": float((k - p).abs().max())}
+    _hold("K9h planes", res["bf16"]["planes"], 3e-4)
+    _hold("K9h rho_r", res["bf16"]["rho_r"], 1e-4)
+    for x, y, tag in ((kern, plain, "f32"), (k, p, "bf16")):
+        tot_k, tot_p = float(x[19].double().sum()), float(y[19].double().sum())
+        res[f"mass_{tag}"] = abs(tot_k - tot_p) / tot_p
+        check(res[f"mass_{tag}"] <= 1e-4, f"config 5 {tag}: total rho_r "
+              f"kernel vs plain {res[f'mass_{tag}']:.2e}")
+    res["ulp"] = bf16_one_step_3d(mh, ph, away)
+    return res
+
+
+def _front(m, s):
+    """The lowest slab the red phase (rho_r > 0.5) has reached
+    (bench_cg3d's front)."""
+    rho_r = m.unpack_bf16(s)[19] if s.dtype == torch.bfloat16 else s[19]
+    occ = torch.nonzero((rho_r > 0.5).any(dim=2).any(dim=1))
+    return int(occ.min()) if len(occ) else m.geo.shape[0]
+
+
+def phase_cg3d_main(device, n=128, physics_steps=4000, bf16_steps=500,
+                    split_steps=200):
+    """bench_cg3d.py's physics on K9c (f32, n^3): porosity in (0.2, 0.9),
+    then 120 steps, then ``run_chunked(model.step_c)`` for `physics_steps`
+    with the NaN guard: the front advances >= 0.4 x the ballistic 2e-3 x
+    `physics_steps` slabs, the state stays finite.  Then the main paths of
+    K9h (``run_chunked(step_c)`` on the bf16 state) and K9s
+    (``run_chunked(step)`` on (f_r, f_b)), each with its launches counted."""
+    from openlbmpm_torch.kernels.cg3d import (cg3d_step_compressed,
+                                              cg3d_step_split)
+    from openlbmpm_torch.models.base import RunMetrics, run_chunked
+    m = config5_model(device, n=n)
+    res = {"porosity": m.geo.porosity}
+    check(0.2 < res["porosity"] < 0.9, f"porosity {res['porosity']:.3f}")
+    st = config5_start(m)
+    s = m.pack_state(*st)
+    for _ in range(120):
+        s = m.step_c(s)
+    front0 = _front(m, s)
+    cg3d_step_compressed.launches = 0
+    s = run_chunked(m.step_c, s, num_steps=physics_steps, io_interval=1000,
+                    nan_guard=True)
+    res["launches_f32"] = cg3d_step_compressed.launches
+    res["advance"] = front0 - _front(m, s)
+    expected = 2e-3 * physics_steps
+    check(res["launches_f32"] == physics_steps, f"K9c launched "
+          f"{res['launches_f32']} times, want {physics_steps}")
+    check(res["advance"] >= 0.4 * expected, f"front advanced "
+          f"{res['advance']} slabs in {physics_steps} steps (expected "
+          f"~{expected:.0f})")
+    check(bool(torch.isfinite(s).all()), "config 5 state not finite")
+    mh = config5_model(device, storage="bf16", n=n)
+    meter = RunMetrics(n ** 3)
+    cg3d_step_compressed.launches = 0
+    h = run_chunked(mh.step_c, mh.pack_state_bf16(*st), num_steps=bf16_steps,
+                    io_interval=250, metrics=meter, nan_guard=True)
+    res["launches_bf16"] = cg3d_step_compressed.launches
+    res["run_mlups_bf16"] = meter.mlups
+    check(res["launches_bf16"] == bf16_steps and h.dtype == torch.bfloat16
+          and tuple(h.shape) == (21, n, n, n), f"K9h main path: "
+          f"{res['launches_bf16']} launches, state {tuple(h.shape)}")
+    meter = RunMetrics(n ** 3)
+    cg3d_step_split.launches = 0
+    f = run_chunked(m.step, st, num_steps=split_steps, io_interval=100,
+                    metrics=meter, nan_guard=True)
+    res["launches_split"] = cg3d_step_split.launches
+    res["run_mlups_split"] = meter.mlups
+    check(res["launches_split"] == split_steps and len(f) == 2,
+          f"K9s main path: {res['launches_split']} launches")
+    return res
+
+
+def phase_cg3d_cli(device, steps=1000):
+    """``run --model cg3d`` on configs/rk_csf3d.ini (32x32x96, its 1000
+    steps, f32) through ``openlbmpm_torch.cli.main``: the packed state on
+    K9c, launched exactly `steps` times, the final checkpoint finite."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+    from openlbmpm_torch import cli
+    from openlbmpm_torch.kernels.cg3d import cg3d_step_compressed
+    ini = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                       "rk_csf3d.ini")
+    with tempfile.TemporaryDirectory() as tmp:
+        cg3d_step_compressed.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            rc = cli.main(["run", ini, "--model", "cg3d", "--steps",
+                           str(steps), "--output", tmp, "--device", "cuda"])
+        sec = time.perf_counter() - t0
+        launches = cg3d_step_compressed.launches
+        check(rc == 0, f"cli run --model cg3d returned {rc}")
+        check("the kernel step on cuda, packed state" in text.getvalue(),
+              f"cli cg3d: {text.getvalue().splitlines()[:1]}")
+        check(launches == steps, f"cli cg3d: K9c launched {launches} times, "
+              f"want {steps}")
+        with np.load(os.path.join(tmp, "checkpoint.npz")) as z:
+            s, step = z["leaf0"], int(z["__step__"])
+        check(step == steps and s.shape == (20, 96, 32, 32) and
+              bool(np.isfinite(s).all()),
+              f"cli cg3d: checkpoint at step {step} {s.shape}")
+        return {"launches": launches, "sec": sec, "steps": steps,
+                "mlups": _mlups(os.path.join(tmp, "metrics.jsonl"))}
+
+
+CG3D_KERNELS = ("bc_kernel", "phase_kernel", "extrap_kernel",
+                "normal_kernel", "curvature_kernel", "collide_stream_kernel")
+# least bytes per cell-step of K9's function: the state in and out plus a
+# 1-byte solid mask (every geo_stack3 plane follows from it): compressed
+# f32 2 x 80 + 1, bf16 2 x 42 + 1, split f32 2 x 152 + 1
+CG3D_BYTES = {"f32": 2 * 80 + 1, "bf16": 2 * 42 + 1, "split": 2 * 152 + 1}
+CG3D_FLOPS = 1500   # per cell-step, counted roughly (19-direction SRT + Guo,
+#                     curvature, wetting); the bytes bind
+
+
+def phase_cg3d_speed(device, sizes=(128, 256), steps=(50, 20),
+                     plain_steps=3):
+    """MLUPS of K9c (f32), K9h (bf16) and K9s (split f32) at each size and of
+    the plain f32 path at the first, in turns (plain, kernels, kernels,
+    plain), each kernel's device microseconds per launch from
+    torch.profiler, and the roofline share of CG3D_BYTES."""
+    from openlbmpm_torch.kernels.cg3d import (
+        cg3d_step_compressed as kc, cg3d_step_compressed_reference as pc,
+        cg3d_step_split as ks, cg3d_step_split_reference as ps, launch_cg3d,
+        launch_cg3d_split)
+    res = {}
+    for n, k_steps in zip(sizes, steps):
+        m = config5_model(device, n=n)
+        mh = config5_model(device, storage="bf16", n=n)
+        st = config5_start(m)
+        s = m.pack_state(*st)
+        runs = {"f32": (lambda x: kc(x, m), s),
+                "bf16": (lambda x: kc(x, mh), mh.pack_state_bf16(*st)),
+                "split": (lambda x: ks(x, m), st)}
+        order = list(runs)
+        if n == sizes[0]:
+            runs |= {"plain": (lambda x: pc(x, m), s),
+                     "plain_bf16": (lambda x: pc(x, mh), runs["bf16"][1]),
+                     "plain_split": (lambda x: ps(x, m), st)}
+            order = ["plain", "plain_bf16", "plain_split"] + order
+        sec = {}
+        for key in order + order[::-1]:
+            fn, x = runs[key]
+            t = _time_steps(fn, x, plain_steps if key.startswith("plain")
+                            else k_steps, device)
+            sec[key] = min(sec.get(key, float("inf")), t)
+        profile = {}
+        for key, fn in (("f32", lambda x: launch_cg3d(x, m.kernel_params,
+                                                      m.geo_planes)),
+                        ("bf16", lambda x: launch_cg3d(x, mh.kernel_params,
+                                                       mh.geo_planes)),
+                        ("split", lambda x: launch_cg3d_split(
+                            *x, m.kernel_params, m.geo_planes))):
+            times = device_times(fn, runs[key][1], CG3D_KERNELS, steps=20)
+            profile.update({(key, k): v for k, v in times.items()})
+        res[n] = {"sec": sec, "profile": profile, "mlups": {
+            key: n ** 3 / t / 1e6 for key, t in sec.items()},
+            "roof": {key: CG3D_BYTES[key] * n ** 3 / HBM_BYTES_PER_S
+                     / sec[key] for key in CG3D_BYTES}}
+    return res
+
+
+def phase20_24_lines(r20, r21, r22, r23, r24, card):
+    lines = ["phase 20 K9 f64 vs plain, 48x40x32 (grain pack 32^3), 20 "
+             "steps: max |diff| compressed / split " + ", ".join(
+                 f"{k} {v[0]:.3e} / {v[1]:.3e}" for k, v in r20.items()
+                 if k != "bf16_ulp") + " (<= 1e-11; grain pack <= "
+             f"{r20['grain_pack'][2]:.3e} / {r20['grain_pack'][3]:.3e}); "
+             f"K9h one step: {r20['bf16_ulp']['excess']:g} ulp, share "
+             f"{r20['bf16_ulp']['share']:.2e}, hi flips "
+             f"{r20['bf16_ulp']['hi_flips']} (round-toward-zero share "
+             f"{r20['bf16_ulp']['rz_share']:.2e}, dropped lo "
+             f"{r20['bf16_ulp']['no_lo_excess']:.3g} ulp)"]
+
+    def g(x):
+        k, p, t = x["from_f64"]
+        return (f"max {x['max']:.3e}, off seam {x['away']:.3e} (plain twin "
+                f"{x['twin_away']:.3e}), far {x['far']:.3e}; from f64 kernel "
+                f"{k:.3e}, plain {p:.3e}, twin {t:.3e}")
+    u = r21["ulp"]
+    lines.append(
+        f"phase 21 config 5 128^3, 10 steps [{card}]: f64 K9c "
+        f"{r21['f64'][0]:.3e}, K9s {r21['f64'][1]:.3e}; K9c f32 "
+        f"{g(r21['f32'])}; K9s f32 {g(r21['split'])}; K9h planes "
+        f"{g(r21['bf16']['planes'])}; K9h rho_r {g(r21['bf16']['rho_r'])}; "
+        f"total rho_r kernel vs plain f32 {r21['mass_f32']:.2e}, bf16 "
+        f"{r21['mass_bf16']:.2e}; K9h one step {u['excess']:g} ulp, share "
+        f"{u['share']:.2e} (rz {u['rz_share']:.2e}, no lo "
+        f"{u['no_lo_excess']:.3g})")
+    lines.append(
+        f"phase 22 physics on K9c f32 128^3 [{card}]: porosity "
+        f"{r22['porosity']:.4f}, front advanced {r22['advance']} slabs in "
+        f"4000 steps (>= 3.2), {r22['launches_f32']} launches; main paths: "
+        f"K9h run_chunked {r22['launches_bf16']} launches, "
+        f"{r22['run_mlups_bf16']:.1f} MLUPS; K9s run_chunked "
+        f"{r22['launches_split']} launches, {r22['run_mlups_split']:.1f} "
+        "MLUPS")
+    lines.append(
+        f"phase 23 cli run --model cg3d, rk_csf3d.ini 32x32x96, "
+        f"{r23['steps']} f32 steps [{card}]: {r23['launches']} K9c launches, "
+        f"{r23['sec']:.2f} s, metrics.jsonl MLUPS {r23['mlups']}")
+    for n, r in r24.items():
+        sec, mlups = r["sec"], r["mlups"]
+        lines.append(
+            f"phase 24 K9 {n}^3 [{card}]: MLUPS " + ", ".join(
+                f"{k} {mlups[k]:.1f} ({sec[k] * 1e3:.4f} ms)" for k in sec) +
+            "; bound ms " + ", ".join(
+                f"{k} {CG3D_BYTES[k] * n ** 3 / HBM_BYTES_PER_S * 1e3:.4f}"
+                for k in CG3D_BYTES) + "; roofline share " + ", ".join(
+                f"{k} {v:.3f}" for k, v in r["roof"].items()) +
+            "; device us per launch (launches per step): " + ", ".join(
+                f"{k} {key} " + ("not measured" if v is None else
+                                 f"{v[0]:.2f} ({v[1]:g})")
+                for (key, k), v in r["profile"].items()))
+    return lines
+
+
 # kernels whose first integer template argument is the state layout
 LAYOUT_KERNELS = ("phase_kernel", "collide_stream_kernel",
-                  "tracer_collide_kernel")
+                  "tracer_collide_kernel", "bc_kernel")
 
 
 def ptxas_summary(log: str, sc: bool = False) -> str:
@@ -1624,8 +2161,8 @@ def ptxas_summary(log: str, sc: bool = False) -> str:
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
             mangled = m.group(1)
-            base = next((k for k in COUPLED_KERNELS + SC_KERNELS
-                         if k in mangled), mangled)
+            base = next((k for k in COUPLED_KERNELS + SC_KERNELS +
+                         CG3D_KERNELS if k in mangled), mangled)
             args = mangled.split(base)[-1]
             kind = ("bf16" if "bfloat16" in mangled else
                     "f64" if re.search(r"I[^E]*d", args) else "f32")
@@ -1656,12 +2193,13 @@ def build_report(build, lib: str, sc: bool = False) -> str:
 
 
 # Least bytes per cell-step of each kernel's function at the main path's
-# shapes: each input read once (state, tracer PDFs, geometry planes in the
-# compute type), each output written once.  K2/K1: the compressed flow
-# state (22 / 40 B) in and out plus 5 f32 planes; K5c: K2's plus one f32
-# D2Q5 tracer (20 B) in and out; K6: two f32 colour PDFs (72 B) in and out
-# plus 5 planes; K5s: K6's plus the tracer.
-KERNEL_BYTES = {"K2": 64, "K1": 100, "K5c": 104, "K6": 164, "K5s": 204}
+# shapes: each input read once, each output written once; the geometry is a
+# 1-byte solid mask (every geometry plane the kernels read follows from
+# it).  K2/K1: the compressed flow state (22 / 40 B) in and out; K5c: K2's
+# plus one f32 D2Q5 tracer (20 B) in and out; K6: two f32 colour PDFs
+# (72 B) in and out; K5s: K6's plus the tracer.
+KERNEL_BYTES = {"K2": 2 * 22 + 1, "K1": 2 * 40 + 1, "K5c": 2 * 22 + 2 * 20 + 1,
+                "K6": 2 * 72 + 1, "K5s": 2 * 72 + 2 * 20 + 1}
 # Floating-point operations per cell-step, counted roughly from the formulas
 # (an upper estimate; the bytes bind by far in every case): CSF flow step
 # ~600 (MRT, wetting, recolouring), one D2Q5 tracer ~150; K8 with K = 2:
@@ -1756,6 +2294,19 @@ def main() -> int:
     for ln in phase15_19_lines(r15, r16, r17, phys, cli, r19, card):
         print(ln)
 
+    t_2d = time.perf_counter() - t_start
+    t_k9 = {}
+    for key, fn in (("r20", phase_cg3d_f64), ("r21", phase_config5),
+                    ("r22", phase_cg3d_main), ("r23", phase_cg3d_cli),
+                    ("r24", phase_cg3d_speed)):
+        t0 = time.perf_counter()
+        t_k9[key] = (fn(device), time.perf_counter() - t0)
+    r20, r21, r22, r23, r24 = (t_k9[k][0] for k in sorted(t_k9))
+    print("phases 20-24 wall s: " + ", ".join(
+        f"{k[1:]} {v[1]:.1f}" for k, v in sorted(t_k9.items())))
+    for ln in phase20_24_lines(r20, r21, r22, r23, r24, card):
+        print(ln)
+
     n2 = FLAGSHIP_N * FLAGSHIP_N
     csf = "openlbmpm_tpu/pallas/csf.py:147"
     entries = [kernel_entry(
@@ -1797,8 +2348,27 @@ def main() -> int:
             max_abs_err_f64=max(r15.values()),
             ms_bf16=r["sec"][("kernel", "bf16")] * 1e3,
             plain_ms_bf16=r["sec"][("plain", "bf16")] * 1e3))
+    cg3d = "openlbmpm_tpu/pallas/cg3d.py:132"
+    c5 = r24[128]
+    f64_c = max(v[0] for k, v in r20.items() if k != "bf16_ulp")
+    f64_s = max(v[1] for k, v in r20.items() if k != "bf16_ulp")
+    for entry, label, key, launches, err, f64, extra in (
+            ("cg3d_step_compressed", "K9h", "bf16", r22["launches_bf16"],
+             r21["bf16"]["max"], f64_c, "storage='bf16'"),
+            ("cg3d_step_compressed_f32", "K9c", "f32", r23["launches"],
+             r21["f32"]["max"], f64_c, "storage='f32'"),
+            ("cg3d_step_split", "K9s", "split", r22["launches_split"],
+             r21["split"]["max"], f64_s, "state_mode='split'")):
+        entries.append(kernel_entry(
+            entry, label, "openlbmpm_torch/csrc/cg3d.cuh", f"{cg3d} ({extra})",
+            launches, err, c5["sec"][key],
+            c5["sec"]["plain" if key == "f32" else f"plain_{key}"],
+            CG3D_BYTES[key], CG3D_FLOPS, 128 ** 3,
+            max_abs_err_f64=f64, ms_256=r24[256]["sec"][key] * 1e3,
+            bound_ms_256=CG3D_BYTES[key] * 256 ** 3 / HBM_BYTES_PER_S * 1e3))
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s "
-          f"(phases 1-14 {t_old:.1f} s, build {t_build:.1f} s)")
+          f"(phases 1-14 {t_old:.1f} s, 1-19 {t_2d:.1f} s, build "
+          f"{t_build:.1f} s)")
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,12 @@ families the port runs so far, plus ``--device``:
   inspect    parse a config and print the resolved typed parameters
 
 ``--model cg`` steps ``ColorGradientRK.step`` on the split (f_r, f_b) state
-(on a card, the split CSF kernel); ``--model transport`` steps the split
+(on a card, the split CSF kernel); ``--model cg3d`` runs the D3Q19 CSF
+model of an RKtwophasesetup3D.ini in a box with walls on the x and y faces:
+on a card it packs the state and steps ``ColorGradientRK3D.step_c`` (the
+compressed kernel), as the JAX CLI does on its accelerator, on the CPU the
+split plain step, as the JAX CLI does off it (the checkpoint fingerprint
+carries the layout, "packed" or "split"); ``--model transport`` steps the split
 ``TransportRK.step`` (the split coupled kernels); ``--model sc`` steps
 ``ShanChenMCMP.step`` on the (K, 9, ny, nx) state of a twophasesetup.ini
 and its physics INI (on a card, the Shan-Chen kernel, or the plain step
@@ -31,7 +36,7 @@ import sys
 
 import numpy as np
 
-PORTED = ("cg", "transport", "sc")
+PORTED = ("cg", "cg3d", "transport", "sc")
 MODELS = ("cg", "cg3d", "sc", "sc3d", "transport", "transport3d", "basic",
           "basic3d")
 
@@ -145,6 +150,81 @@ def _run_colorgradient(args):
     return 0
 
 
+def _box3d(dom):
+    """3-D box geometry: solid walls on the x and y faces, open z."""
+    from . import geometry as geo
+    solid = np.zeros((dom["nz"], dom["ny"], dom["nx"]), bool)
+    solid[:, :, 0] = solid[:, :, -1] = True
+    solid[:, 0, :] = solid[:, -1, :] = True
+    return geo.from_solid_mask(solid)
+
+
+def _run_colorgradient3d(args):
+    from .checkpoint import (config_fingerprint, load_checkpoint,
+                             save_checkpoint)
+    from .config import load_colorgradient3d
+    from .io import ResultWriter
+    from .metrics import MetricsLogger, flow_diagnostics
+    from .models.base import run_chunked
+    from .models.flow3d import ColorGradientRK3D
+
+    params, dom, run, extras = load_colorgradient3d(args.config)
+    if args.steps:
+        run = dataclasses.replace(run, num_steps=args.steps)
+    geometry = _box3d(dom)
+    dtype, dev = _setup(args)
+    model = ColorGradientRK3D(geometry, params, boundaries=extras["bcs"],
+                              dtype=dtype, device=dev)
+    state = model.init_state_layers(extras["rho_r"], extras["rho_b"],
+                                    invading_slabs=max(8, dom["nz"] // 10))
+    step_fn, macro_fn, layout = model.step, model.macro, "split"
+    if model.path == "kernel":
+        state = model.pack_state(*state)
+        step_fn, macro_fn, layout = (model.step_c, model.macro_compressed,
+                                     "packed")
+    print(f"openlbmpm_torch: --model cg3d, boundaries {model.bcs.inlet}/"
+          f"{model.bcs.outlet}: the {model.path} step on {dev}, "
+          f"{layout} state")
+    _note_block(args)
+    writer = ResultWriter(args.output, basename="SimulationResultsRK3D")
+    logger = MetricsLogger(os.path.join(args.output, "metrics.jsonl"),
+                           geometry.num_fluid_nodes, echo=True)
+    # the layout rides in the fingerprint, so a packed checkpoint does not
+    # resume into a split run or the other way round
+    fingerprint = config_fingerprint(
+        {"params": dataclasses.asdict(params), "state_layout": layout})
+    start_step = 0
+    ckpt_path = os.path.join(args.output, "checkpoint.npz")
+    if args.resume and os.path.exists(ckpt_path):
+        state, start_step = load_checkpoint(ckpt_path, state, fingerprint)
+        print(f"resumed from step {start_step}")
+    ckpt_every = max(1, 10 * run.io_interval)
+    fl2 = geometry.is_fluid.reshape(geometry.shape[0], -1)
+
+    def callback(step, s):
+        step = start_step + step
+        rho_r, rho_b, _, u = macro_fn(s)
+        writer.write(step, {
+            f"FluidMacro/FluidDensityRin{step}": _host(rho_r),
+            f"FluidMacro/FluidDensityBin{step}": _host(rho_b),
+        })
+        # the front along -z: the slabs as rows
+        nz = rho_r.shape[0]
+        logger.log(step, **flow_diagnostics(
+            rho_r.reshape(nz, -1), rho_b.reshape(nz, -1),
+            u[0].reshape(nz, -1), u[2].reshape(nz, -1), fl2))
+        if (step - start_step) % ckpt_every == 0 or \
+                step - start_step >= run.num_steps:
+            save_checkpoint(ckpt_path, s, step, fingerprint)
+        return False
+
+    run_chunked(step_fn, state, num_steps=run.num_steps,
+                io_interval=run.io_interval, callback=callback,
+                nan_guard=True, profile_dir=args.profile)
+    logger.close()
+    return 0
+
+
 def _run_transport(args):
     from .config import load_colorgradient, load_transport
     from .io import ResultWriter
@@ -251,8 +331,10 @@ def _run_shanchen(args):
 
 
 def _inspect(args):
-    from .config import load_colorgradient, load_shanchen, load_transport
+    from .config import (load_colorgradient, load_colorgradient3d,
+                         load_shanchen, load_transport)
     loaders = {"cg": lambda: load_colorgradient(args.config)[:2],
+               "cg3d": lambda: (load_colorgradient3d(args.config)[0],),
                "sc": lambda: load_shanchen(args.config,
                                            args.physics_config)[:2],
                "transport": lambda: (load_transport(args.config),)}
@@ -314,8 +396,8 @@ def main(argv=None) -> int:
     if args.cmd == "inspect":
         return _inspect(args)
     os.makedirs(args.output, exist_ok=True)
-    return {"cg": _run_colorgradient, "sc": _run_shanchen,
-            "transport": _run_transport}[args.model](args)
+    return {"cg": _run_colorgradient, "cg3d": _run_colorgradient3d,
+            "sc": _run_shanchen, "transport": _run_transport}[args.model](args)
 
 
 if __name__ == "__main__":

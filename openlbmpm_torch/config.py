@@ -1,13 +1,14 @@
 """The legacy INI dialect read into the port's parameter dataclasses
-(counterpart of ``openlbmpm_tpu/config.py`` for the colour-gradient,
-transport and 2-D Shan-Chen families).
+(counterpart of ``openlbmpm_tpu/config.py`` for the colour-gradient (2-D
+and 3-D), transport and 2-D Shan-Chen families).
 
 The JAX module imports the JAX models, so its reader is copied here rather
 than imported.  The dataclasses returned are the port's own
 (``ColorGradientParams``, ``CGBoundaryConfig``, ``TransportParams``,
-``ShanChenParams``, ``SCBoundaryConfig``); their fields equal the JAX ones
-field by field for the same file (``tests/test_torch_cli.py``,
-``tests/test_torch_shanchen.py``).  One difference: an unknown Shan-Chen
+``ShanChenParams``, ``SCBoundaryConfig``, ``ColorGradientParams3D``,
+``CG3DBoundaryConfig``); their fields equal the JAX ones field by field for
+the same file (``tests/test_torch_cli.py``, ``tests/test_torch_shanchen.py``,
+``tests/test_torch_cg3d.py``).  One difference: an unknown Shan-Chen
 ``ForcingMethod`` raises ValueError, where the JAX reader falls back to
 ``shift`` without a word.
 """
@@ -21,11 +22,12 @@ import os
 import numpy as np
 
 from .models.colorgradient import CGBoundaryConfig, ColorGradientParams
+from .models.flow3d import CG3DBoundaryConfig, ColorGradientParams3D
 from .models.shanchen import SCBoundaryConfig, ShanChenParams
 from .models.transport import TransportParams
 
 __all__ = ["LegacyIni", "DomainSpec", "RunSpec", "load_colorgradient",
-           "load_transport", "load_shanchen"]
+           "load_colorgradient3d", "load_transport", "load_shanchen"]
 
 
 class LegacyIni:
@@ -173,6 +175,61 @@ def load_colorgradient(path: str):
         last_step=ini.integer("CyclesSetup", "LastStep", default=0),
     )
     return params, bcs, domain, run
+
+
+def load_colorgradient3d(path: str):
+    """Parse an ``RKtwophasesetup3D.ini``-style file.  Returns
+    (ColorGradientParams3D, domain dict nx/ny/nz/use_image, RunSpec, extras)
+    with extras the initial densities rho_r / rho_b, the summed inlet
+    velocity_z and the CG3DBoundaryConfig under "bcs": a nonzero v_z selects
+    the NEBB velocity inlet and the outlet of BoundaryTypeOutlet
+    (Convective | FreeFlux -> convective, Dirichlet, else periodic); v_z = 0
+    leaves both faces periodic."""
+    ini = LegacyIni(path)
+    params = ColorGradientParams3D(
+        tau_r=ini.number("FluidParameters", "TauR", default=1.0),
+        tau_b=ini.number("FluidParameters", "TauB", default=1.0),
+        surface_tension=ini.number(
+            "SurfaceTension", "SurfaceTension", "SurfaceTensionValue",
+            default=0.01),
+        contact_angle_deg=ini.number("SurfaceTension", "ContactAngle",
+                                     default=90.0),
+        beta=ini.number("RKParameters", "BetaThickness", default=0.7),
+        delta=ini.number("RKParameters", "DeltaValue", default=0.98),
+    )
+    domain3d = {
+        "nx": ini.integer("DomainSize", "xDomain", default=32),
+        "ny": ini.integer("DomainSize", "yDomain", default=32),
+        "nz": ini.integer("DomainSize", "zDomain", default=96),
+        "use_image": ini.yesno("ImageSetup", "Existance", "Exist",
+                               default="no"),
+    }
+    run = RunSpec(
+        num_steps=ini.integer("TimeSteps", "TimeSteps", default=1000),
+        io_interval=ini.integer("TimeSteps", "TimeInterval", default=500),
+        is_cycle=ini.yesno("CyclesSetup", "IsCycle", default="no"),
+        last_step=ini.integer("CyclesSetup", "LastStep", default=0),
+    )
+    extras = {
+        "rho_r": ini.number("FluidParameters", "InitialRhoR", default=1.0),
+        "rho_b": ini.number("FluidParameters", "InitialRhoB", default=1.0),
+        "velocity_z": (ini.number("BoundaryCondition", "velocityZR",
+                                  default=0.0) +
+                       ini.number("BoundaryCondition", "velocityZB",
+                                  default=0.0)),
+    }
+    outlet_kind = ini.text("BoundaryCondition", "BoundaryTypeOutlet",
+                           default="Convective").strip().lower()
+    outlet = {"convective": "convective", "dirichlet": "dirichlet",
+              "freeflux": "convective"}.get(outlet_kind, "periodic")
+    vz = extras["velocity_z"]
+    extras["bcs"] = CG3DBoundaryConfig(
+        inlet="velocity" if vz else "periodic",
+        outlet=outlet if vz else "periodic",
+        inlet_velocity=vz,
+        outlet_density=ini.number("BoundaryCondition", "OutletDensity",
+                                  default=1.0))
+    return params, domain3d, run, extras
 
 
 def load_transport(path: str, num_default_tracers: int = 1):

@@ -16,11 +16,17 @@ import torch
 
 from ._device import resolve_device, resolve_dtype
 from .models.colorgradient import CGBoundaryConfig, ColorGradientParams
+from .models.flow3d import CG3DBoundaryConfig, ColorGradientParams3D
 from .models.shanchen import SCBoundaryConfig, ShanChenParams
 from .models.transport import TransportParams, TransportState
 
+# the first class whose fields `p` all carries: the 3-D classes come last,
+# since a 2-D ColorGradientParams carries every field of
+# ColorGradientParams3D and an SCBoundaryConfig every field of
+# CG3DBoundaryConfig
 _PARAMS = (ColorGradientParams, CGBoundaryConfig, TransportParams,
-           ShanChenParams, SCBoundaryConfig)
+           ShanChenParams, SCBoundaryConfig, ColorGradientParams3D,
+           CG3DBoundaryConfig)
 
 __all__ = ["params_from_jax", "state_from_numpy", "state_to_numpy"]
 
@@ -34,10 +40,10 @@ def _plain(v):
 
 
 def params_from_jax(p):
-    """The port's ColorGradientParams, CGBoundaryConfig, TransportParams,
-    ShanChenParams or SCBoundaryConfig with the field values of `p`, any
-    object carrying the fields of one of them (tuple fields become nested
-    tuples of floats)."""
+    """The port's ColorGradientParams(3D), CGBoundaryConfig,
+    CG3DBoundaryConfig, TransportParams, ShanChenParams or SCBoundaryConfig
+    with the field values of `p`, any object carrying the fields of one of
+    them (tuple fields become nested tuples of floats)."""
     for cls in _PARAMS:
         names = [f.name for f in dataclasses.fields(cls)]
         if all(hasattr(p, n) for n in names):
@@ -60,9 +66,10 @@ def _one_from_numpy(a, device, dtype):
 
 
 def state_from_numpy(arrays, device="cuda", dtype=None):
-    """A state as torch tensors on `device`: a (10, ny, nx) compressed
-    array, a Shan-Chen (K, 9, ny, nx) array, an (11, ny, nx) or
-    (K, 11, ny, nx) bfloat16 array (kept bfloat16), a tuple of
+    """A state as torch tensors on `device`: a (10, ny, nx) or
+    (20, nz, ny, nx) compressed array, a Shan-Chen (K, 9, ny, nx) array, an
+    (11, ny, nx), (21, nz, ny, nx) or (K, 11, ny, nx) bfloat16 array (kept
+    bfloat16), a tuple of
     arrays such as an (f_r, f_b) pair or a coupled (s, g) pair (returned
     as a tuple), or a split TransportState (f_r, f_b, g, mass0), returned
     as the port's ``TransportState`` (``TransportRK.pack`` packs it to

@@ -1,0 +1,787 @@
+// Device code of the D3Q19 CSF colour-gradient step for NVIDIA Hopper
+// (sm_90a), included by cg3d_f64.cu, cg3d_f32.cu and cg3d_bf16.cu (one
+// storage type each, so the three build side by side).  Kernels and device
+// functions live in an unnamed namespace.
+//
+// Replaces the TPU kernel openlbmpm_tpu/pallas/cg3d.py::build_cg3d_fused_step
+// at steps_per_call=1 in both state layouts, a template parameter L here:
+//   kCompressed  state_mode="compressed", storage "f32" (K9c, float or
+//                double) and "bf16" (K9h): (f_total, rho_r), 20 planes, or
+//                21 bf16 planes (deviations f_i - w_i*fl, rho_r hi/lo);
+//   kSplit       state_mode="split" (K9s): f_r and f_b, (19, nz, ny, nx)
+//                each, float or double.
+// The formulas follow the port's plain path (models/flow3d.py and ops/,
+// which follow the jnp ColorGradientRK3D), not the TPU kernel's separable
+// stencils, rsqrt and squared-distance tie test, so the double instances
+// agree with the plain path to rounding.
+//
+// One step, up to six launches, one thread per cell (x fastest):
+//   0. bc_kernel       (only with an inlet or outlet) one thread per (y, x)
+//      column rewrites the boundary slabs as the TPU kernel's jnp prologue
+//      does (_bc_prologue_c, _bc_prologue_c_bf16, _bc_prologue_split):
+//      NEBB velocity inlet on z = nz-2 and its ghost nz-1; convective
+//      copies z = 2, 1, 0, or the NEBB pressure outlet on z = 1 and its
+//      ghost 0.  It writes those slabs, in storage type, to a 5-slab
+//      scratch that the later kernels read in place of the state's slabs
+//      (so a bf16 slab is re-encoded exactly as the prologue re-encodes it).
+//   1. phase_kernel    state -> phi (one plane, compute type; 0 on solid)
+//   2. extrap_kernel   (only with wetting walls) phi on solid cells <- the
+//      w-weighted mean of their fluid neighbours, in place
+//   3. normal_kernel   phi -> g (3 planes) and the unit inward normal
+//      n = -g/|g| on fluid (3 planes): isotropic gradient, Akai rotation
+//   4. curvature       n -> kappa (one plane; 18 neighbour normals a cell,
+//      read once here rather than in collide_stream's ring recompute)
+//   5. collide_stream  state, phi, g, kappa -> state'.  A block owns a 32x8
+//      (x, y) tile and marches up a run of ZC = 16 z slabs, one thread for
+//      each cell of the tile and its one-cell (x, y) ring (340 of 352
+//      threads).  It collides each slab of the ring tile into a three-slab
+//      ring buffer in shared memory (post-collision total PDF, red fraction
+//      and the three recolouring amplitudes: 23 values a cell), then the
+//      tile's 256 threads pull-stream slab z from slabs z-1, z, z+1; rho_r'
+//      is the sum of the streamed red PDFs.  Recompute: (34*10)/(32*8) =
+//      1.33 in (x, y), (ZC + 2)/ZC = 1.125 in z: 1.49x the cells collided.
+//
+// What bounds it: the least work is HBM bytes, the state in and out plus
+// the 4 geometry planes: 176 B a cell (f32), 100 B (bf16), 320 B (split
+// f32).  This design moves about 390 / 250 / 550 B: the state read twice
+// (phase and collide_stream; the ring recompute mostly hits L2), phi, g, n
+// and kappa written and read (64 B f32), the code plane read by each pass.
+// Measured on an H100 (PERF.md), collide_stream is latency-bound rather
+// than byte-bound (bf16 storage saves it almost nothing): 16-22 warps an
+// SM, two barriers a slab.  Fusing the helper passes into collide_stream
+// (a deeper ring) and raising its occupancy are the next steps for speed.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stddef.h>
+
+struct Cg3dParams {      // mirrored by kernels/cg3d.py::Cg3dParams
+  int nz, ny, nx;
+  int inlet;             // 0 periodic, 1 velocity (NEBB)
+  int outlet;            // 0 periodic, 1 convective, 2 dirichlet (NEBB)
+  int has_wetting;
+  int tau_type;          // 1 | 2
+  int pad;
+  double tau_r, tau_b, sigma, beta, delta, cos_t, sin_t, bfx, bfy, bfz;
+  double inlet_vz, outlet_rho;
+};
+
+namespace {
+
+constexpr int kCompressed = 0;
+constexpr int kSplit = 1;
+constexpr int Q = 19;
+
+constexpr double kEps = 1.0e-8;
+constexpr int TX = 32;
+constexpr int TY = 8;
+constexpr int HX = TX + 2;
+constexpr int HY = TY + 2;
+constexpr int ZC = 16;    // z slabs a collide_stream block marches through
+constexpr int NSH = 23;   // shared values per ring cell: post (19), frac, A, B, C
+constexpr int RING_THREADS = (HX * HY + 31) / 32 * 32;   // one thread a ring cell
+
+// D3Q19, the lattice's order (lattice.py): 0 rest, 1-6 axes, 7-18 face
+// diagonals; opposite of i > 0 is i + 1 for odd i, i - 1 for even i.
+__device__ __forceinline__ int ex(int i) {
+  constexpr signed char E[Q] = {0, 1, -1, 0, 0, 0, 0, 1, -1, 1, -1, 1, -1, 1, -1, 0, 0, 0, 0};
+  return E[i];
+}
+__device__ __forceinline__ int ey(int i) {
+  constexpr signed char E[Q] = {0, 0, 0, 1, -1, 0, 0, 1, -1, -1, 1, 0, 0, 0, 0, 1, -1, 1, -1};
+  return E[i];
+}
+__device__ __forceinline__ int ez(int i) {
+  constexpr signed char E[Q] = {0, 0, 0, 0, 0, 1, -1, 0, 0, 0, 0, 1, -1, -1, 1, 1, -1, -1, 1};
+  return E[i];
+}
+__device__ __forceinline__ int opp(int i) { return i == 0 ? 0 : ((i & 1) ? i + 1 : i - 1); }
+__device__ __forceinline__ double wq(int i) {
+  return i == 0 ? 1.0 / 3.0 : (i <= 6 ? 1.0 / 18.0 : 1.0 / 36.0);
+}
+
+// v mod n for v in [-n, 2n), without an integer division: the stencil
+// offsets here are one cell
+__device__ __forceinline__ int wrap(int v, int n) {
+  return v < 0 ? v + n : (v >= n ? v - n : v);
+}
+// v mod n for v >= -n (a tile's ring may pass a small domain more than once)
+__device__ __forceinline__ int wrap_any(int v, int n) { return (v + n) % n; }
+
+// Storage type S -> compute type C.  bf16 storage holds f_i - w_i*fl.
+template <typename S> struct Traits {
+  using C = S;
+  static constexpr bool kShifted = false;
+};
+template <> struct Traits<__nv_bfloat16> {
+  using C = float;
+  static constexpr bool kShifted = true;
+};
+
+__device__ __forceinline__ float to_c(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_c(float v) { return v; }
+__device__ __forceinline__ double to_c(double v) { return v; }
+
+// One cell's state in compute precision: the total PDF and rho_r
+// (compressed), or the colour PDFs (split).
+template <typename C, int L> struct Cell;
+template <typename C> struct Cell<C, kCompressed> {
+  C f[Q];
+  C rr;
+};
+template <typename C> struct Cell<C, kSplit> {
+  C r[Q];
+  C b[Q];
+};
+
+// Scratch slot of slab z when the boundary slabs redirect it (-1: read the
+// state): 0-2 the outlet slabs z = 0-2, 3 and 4 the inlet slabs nz-2, nz-1.
+__device__ __forceinline__ int bc_slot(const Cg3dParams& P, int z) {
+  if (P.outlet != 0 && z <= (P.outlet == 1 ? 2 : 1)) return z;
+  if (P.inlet != 0 && z >= P.nz - 2) return z - (P.nz - 2) + 3;
+  return -1;
+}
+
+// Decode stored values (stride apart from index k) of a cell whose fluid
+// flag is fl.
+template <typename S, int L, typename C = typename Traits<S>::C>
+__device__ __forceinline__ void decode(const S* __restrict__ p, size_t stride, size_t k,
+                                       C fl, Cell<C, L>& c) {
+  if constexpr (L == kSplit) {
+#pragma unroll
+    for (int i = 0; i < Q; ++i) {
+      c.r[i] = to_c(p[i * stride + k]);
+      c.b[i] = to_c(p[(Q + i) * stride + k]);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < Q; ++i) c.f[i] = to_c(p[i * stride + k]);
+    if constexpr (Traits<S>::kShifted) {
+#pragma unroll
+      for (int i = 0; i < Q; ++i) c.f[i] = c.f[i] + C(wq(i)) * fl;
+      c.rr = to_c(p[Q * stride + k]) + to_c(p[(Q + 1) * stride + k]);
+    } else {
+      c.rr = to_c(p[Q * stride + k]);
+    }
+  }
+}
+
+template <typename S, int L, typename C = typename Traits<S>::C>
+__device__ __forceinline__ void encode(S* __restrict__ p, size_t stride, size_t k, C fl,
+                                       const Cell<C, L>& c) {
+  if constexpr (L == kSplit) {
+#pragma unroll
+    for (int i = 0; i < Q; ++i) {
+      p[i * stride + k] = c.r[i];
+      p[(Q + i) * stride + k] = c.b[i];
+    }
+  } else if constexpr (Traits<S>::kShifted) {
+#pragma unroll
+    for (int i = 0; i < Q; ++i) p[i * stride + k] = __float2bfloat16_rn(c.f[i] - C(wq(i)) * fl);
+    const __nv_bfloat16 hi = __float2bfloat16_rn(c.rr);
+    p[Q * stride + k] = hi;
+    p[(Q + 1) * stride + k] = __float2bfloat16_rn(c.rr - __bfloat162float(hi));
+  } else {
+#pragma unroll
+    for (int i = 0; i < Q; ++i) p[i * stride + k] = c.f[i];
+    p[Q * stride + k] = c.rr;
+  }
+}
+
+// Pointers of the state: s holds all planes of the compressed layout, or
+// f_r (s) and f_b (s2) in the split one; bc is the boundary-slab scratch
+// [plane][5][ny][nx] (nullptr without boundary slabs).
+template <typename S> struct State {
+  const S* s;
+  const S* s2;
+  const S* bc;
+};
+
+// The cell (z, y, x) as the physics sees it: after the boundary slabs.
+template <typename S, int L, typename C = typename Traits<S>::C>
+__device__ __forceinline__ void load_cell(const State<S>& st, const C* __restrict__ geo,
+                                          const Cg3dParams& P, int z, int y, int x,
+                                          Cell<C, L>& c) {
+  const size_t nxy = (size_t)P.ny * P.nx;
+  const size_t k2 = (size_t)y * P.nx + x;
+  const size_t k = (size_t)z * nxy + k2;
+  const C fl = geo[k] > C(0.5) ? C(1) : C(0);
+  const int slot = st.bc ? bc_slot(P, z) : -1;
+  if (slot >= 0) {
+    decode<S, L>(st.bc, 5 * nxy, (size_t)slot * nxy + k2, fl, c);
+    return;
+  }
+  const size_t n = (size_t)P.nz * nxy;
+  if constexpr (L == kSplit) {
+#pragma unroll
+    for (int i = 0; i < Q; ++i) {
+      c.r[i] = to_c(st.s[i * n + k]);
+      c.b[i] = to_c(st.s2[i * n + k]);
+    }
+  } else {
+    decode<S, L>(st.s, n, k, fl, c);
+  }
+}
+
+template <typename C>
+__device__ __forceinline__ C sumq(const C f[Q]) {
+  C r = f[0];
+#pragma unroll
+  for (int i = 1; i < Q; ++i) r = r + f[i];
+  return r;
+}
+
+// sum over the directions with e_z = 0, +1, -1 (in the lattice's order)
+template <typename C>
+__device__ __forceinline__ C sum_ez(const C f[Q], int sign) {
+  C r = C(0);
+#pragma unroll
+  for (int i = 0; i < Q; ++i)
+    if (ez(i) == sign) r = r + f[i];
+  return r;
+}
+
+// NEBB values of the unknown directions of a boundary cell's total PDF ft
+// (the others kept): nf_i = feq_i + ft_opp(i) - feq_opp(i) at u = (0, 0,
+// vz).  Inlet (unknown e_z = -1): vz given, rho = (S_0 + 2 S_+) / (1 + vz);
+// outlet (unknown e_z = +1): rho given, vz = 1 - (S_0 + 2 S_-) / rho.  The
+// constants are rounded where the jnp prologue rounds them (its inlet
+// polynomial and 1 + vz, and its outlet w_i * rho, are Python floats).
+template <typename C>
+__device__ __forceinline__ void nebb_slab(const C ft[Q], const Cg3dParams& P, bool inlet,
+                                          C nf[Q]) {
+  if (inlet) {
+    const double vz = P.inlet_vz;
+    const C rho = (sum_ez(ft, 0) + C(2.0) * sum_ez(ft, 1)) / C(1.0 + vz);
+    auto feq = [&](int i) {
+      const double eu = ez(i) * vz;
+      return C(wq(i)) * rho * C(1.0 + 3.0 * eu + 4.5 * eu * eu - 1.5 * vz * vz);
+    };
+#pragma unroll
+    for (int i = 0; i < Q; ++i)
+      nf[i] = ez(i) == -1 ? feq(i) + (ft[opp(i)] - feq(opp(i))) : ft[i];
+  } else {
+    const C vz = C(1.0) - (sum_ez(ft, 0) + C(2.0) * sum_ez(ft, -1)) / C(P.outlet_rho);
+    auto feq = [&](int i) {
+      const C eu = C(ez(i)) * vz;
+      return C(wq(i) * P.outlet_rho) *
+             (C(1) + C(3) * eu + C(4.5) * eu * eu - C(1.5) * vz * vz);
+    };
+#pragma unroll
+    for (int i = 0; i < Q; ++i)
+      nf[i] = ez(i) == 1 ? feq(i) + (ft[opp(i)] - feq(opp(i))) : ft[i];
+  }
+}
+
+// The NEBB rewrite of one fluid cell of a boundary slab, in place.
+template <typename C>
+__device__ void rewrite(Cell<C, kCompressed>& c, const Cg3dParams& P, bool inlet) {
+  C nf[Q];
+  nebb_slab(c.f, P, inlet, nf);
+  const C tot = sumq(c.f);
+  const C ratio = c.rr / (tot != C(0) ? tot : C(1));
+  C dsum = C(0);
+#pragma unroll
+  for (int i = 0; i < Q; ++i) {
+    if (ez(i) == (inlet ? -1 : 1)) {
+      dsum = dsum + (nf[i] - c.f[i]);
+      c.f[i] = nf[i];
+    }
+  }
+  c.rr = c.rr + ratio * dsum;
+}
+
+template <typename C>
+__device__ void rewrite(Cell<C, kSplit>& c, const Cg3dParams& P, bool inlet) {
+  C ft[Q], nf[Q];
+#pragma unroll
+  for (int i = 0; i < Q; ++i) ft[i] = c.r[i] + c.b[i];
+  nebb_slab(ft, P, inlet, nf);
+  const C tot = sumq(ft);
+  const C ratio = sumq(c.r) / (tot != C(0) ? tot : C(1));
+#pragma unroll
+  for (int i = 0; i < Q; ++i) {
+    if (ez(i) == (inlet ? -1 : 1)) {
+      c.r[i] = ratio * nf[i];
+      c.b[i] = (C(1) - ratio) * nf[i];
+    }
+  }
+}
+
+// Boundary slabs of one (y, x) column into the scratch.  Each rewritten or
+// copied slab is encoded in storage type and, where a later slab copies it,
+// decoded again, as the bf16 prologue does (identity for float / double).
+template <typename S, int L, typename C = typename Traits<S>::C>
+__global__ void bc_kernel(State<S> st, const C* __restrict__ geo, S* __restrict__ bc,
+                          Cg3dParams P) {
+  const size_t nxy = (size_t)P.ny * P.nx;
+  const size_t k2 = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (k2 >= nxy) return;
+  const size_t bs = 5 * nxy;
+  State<S> raw = st;
+  raw.bc = nullptr;
+  const int y = (int)(k2 / P.nx), x = (int)(k2 % P.nx);
+  auto fl_at = [&](int z) { return geo[(size_t)z * nxy + k2] > C(0.5) ? C(1) : C(0); };
+  auto load = [&](int z, Cell<C, L>& c) { load_cell<S, L>(raw, geo, P, z, y, x, c); };
+  auto store = [&](int slot, int z, const Cell<C, L>& c) {
+    encode<S, L>(bc, bs, (size_t)slot * nxy + k2, fl_at(z), c);
+  };
+  auto reload = [&](int slot, int z, Cell<C, L>& c) {
+    decode<S, L>(bc, bs, (size_t)slot * nxy + k2, fl_at(z), c);
+  };
+  Cell<C, L> c, g;
+  if (P.inlet == 1) {
+    const int z = P.nz - 2;
+    load(z, c);
+    if (fl_at(z) > C(0.5)) rewrite(c, P, true);
+    store(3, z, c);
+    if (fl_at(z + 1) > C(0.5)) g = c;   // the ghost copies the rewritten cell
+    else load(z + 1, g);
+    store(4, z + 1, g);
+  }
+  if (P.outlet == 1) {
+    load(3, c);
+    for (int z = 2; z >= 0; --z) {
+      if (z < 2) reload(z + 1, z + 1, c);
+      if (!(fl_at(z) > C(0.5))) load(z, c);
+      store(z, z, c);
+    }
+  } else if (P.outlet == 2) {
+    load(1, c);
+    if (fl_at(1) > C(0.5)) rewrite(c, P, false);
+    store(1, 1, c);
+    if (fl_at(0) > C(0.5)) reload(1, 1, g);
+    else load(0, g);
+    store(0, 0, g);
+  }
+}
+
+// The cell's total PDF, colour densities and total density as the jnp
+// physics forms them: compressed rho_b = sum f - rho_r, split per colour.
+template <typename C>
+__device__ __forceinline__ void totals(const Cell<C, kCompressed>& c, C f[Q], C& rr, C& rb) {
+#pragma unroll
+  for (int i = 0; i < Q; ++i) f[i] = c.f[i];
+  rr = c.rr;
+  rb = sumq(f) - rr;
+}
+
+template <typename C>
+__device__ __forceinline__ void totals(const Cell<C, kSplit>& c, C f[Q], C& rr, C& rb) {
+#pragma unroll
+  for (int i = 0; i < Q; ++i) f[i] = c.r[i] + c.b[i];
+  rr = sumq(c.r);
+  rb = sumq(c.b);
+}
+
+// phi = (rho_r - rho_b) / (rho_r + rho_b) on fluid cells, 0 elsewhere.
+template <typename S, int L, typename C = typename Traits<S>::C>
+__global__ void phase_kernel(State<S> st, const C* __restrict__ geo, C* __restrict__ phi,
+                             Cg3dParams P) {
+  const size_t nxy = (size_t)P.ny * P.nx;
+  const size_t n = (size_t)P.nz * nxy;
+  const size_t k = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= n) return;
+  if (!(geo[k] > C(0.5))) {
+    phi[k] = C(0);
+    return;
+  }
+  const int z = (int)(k / nxy);
+  const int y = (int)((k % nxy) / P.nx), x = (int)(k % P.nx);
+  Cell<C, L> c;
+  load_cell<S, L>(st, geo, P, z, y, x, c);
+  C f[Q], rr, rb;
+  totals(c, f, rr, rb);
+  const C tot = rr + rb;
+  phi[k] = tot != C(0) ? (rr - rb) / tot : C(0);
+}
+
+// Akai 2018 contact-angle rotation of the gradient on a wetting fluid cell
+// (ops/colorgrad.py::rotate_gradient_on_wetting_akai_nd).
+template <typename C>
+__device__ void rotate_akai(C g[3], const C ns[3], const Cg3dParams& P) {
+  const C cos_t = C(P.cos_t), sin_t = C(P.sin_t);
+  const C norm = sqrt(g[0] * g[0] + g[1] * g[1] + g[2] * g[2]);
+  const bool ok = norm > C(kEps);
+  C u[3];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) u[d] = ok ? -g[d] / norm : C(0);
+  const C dot = fmin(fmax(u[0] * ns[0] + u[1] * ns[1] + u[2] * ns[2], C(-1)), C(1));
+  const C sin_gs = sqrt(fmax(C(1) - dot * dot, C(0)));
+  const bool oks = sin_gs > C(1.0e-9);
+  const C c1 = oks ? sin_t * dot / sin_gs : C(0);
+  const C c2 = oks ? sin_t / sin_gs : C(0);
+  C n1[3], n2[3];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    n1[d] = (cos_t - c1) * ns[d] + c2 * u[d];
+    n2[d] = (cos_t + c1) * ns[d] - c2 * u[d];
+  }
+  const C d1 = sqrt((n1[0] - u[0]) * (n1[0] - u[0]) + (n1[1] - u[1]) * (n1[1] - u[1]) +
+                    (n1[2] - u[2]) * (n1[2] - u[2]));
+  const C d2 = sqrt((n2[0] - u[0]) * (n2[0] - u[0]) + (n2[1] - u[1]) * (n2[1] - u[1]) +
+                    (n2[2] - u[2]) * (n2[2] - u[2]));
+  if (d1 == d2) return;  // ties keep their gradient
+  const bool pick1 = d1 < d2;
+#pragma unroll
+  for (int d = 0; d < 3; ++d) g[d] = -norm * (pick1 ? n1[d] : n2[d]);
+}
+
+// phi extended onto solid cells in place: the w-weighted mean of the fluid
+// neighbours, num / den as ops/colorgrad.py::solid_phi_extrapolate forms it
+// (0 without fluid neighbours).  It reads only fluid neighbours, which it
+// never writes, so in place is safe.
+template <typename C>
+__global__ void extrap_kernel(const C* __restrict__ geo, C* __restrict__ phi, Cg3dParams P) {
+  const int nx = P.nx, ny = P.ny, nz = P.nz;
+  const size_t nxy = (size_t)ny * nx;
+  const size_t k = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= (size_t)nz * nxy) return;
+  const C code = geo[k];
+  // fluid (code 1 or 2), or solid without a fluid neighbour (code -0):
+  // phi stays as the phase kernel wrote it
+  if (code > C(-0.5)) return;
+  const int z = (int)(k / nxy);
+  const int y = (int)((k % nxy) / nx), x = (int)(k % nx);
+  C num = C(0), den = C(0);
+#pragma unroll
+  for (int i = 1; i < Q; ++i) {
+    const size_t kk = (size_t)wrap(z + ez(i), nz) * nxy + (size_t)wrap(y + ey(i), ny) * nx +
+                      wrap(x + ex(i), nx);
+    if (geo[kk] > C(0.5)) {
+      num = num + C(wq(i)) * phi[kk];
+      den = den + C(wq(i));
+    }
+  }
+  phi[k] = den > C(0) ? num / den : C(0);
+}
+
+// phi (extended) -> g = 3 sum_i w_i e_i phi(x + e_i), rotated on wetting
+// fluid cells, and the unit inward normal on fluid cells.
+template <typename C>
+__global__ void normal_kernel(const C* __restrict__ geo, const C* __restrict__ phi,
+                              C* __restrict__ nrm, Cg3dParams P) {
+  const int nx = P.nx, ny = P.ny, nz = P.nz;
+  const size_t nxy = (size_t)ny * nx;
+  const size_t n = (size_t)nz * nxy;
+  const size_t k = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= n) return;
+  const int z = (int)(k / nxy);
+  const int y = (int)((k % nxy) / nx), x = (int)(k % nx);
+  C g[3] = {C(0), C(0), C(0)};
+#pragma unroll
+  for (int i = 1; i < Q; ++i) {
+    const C sv = phi[(size_t)wrap(z + ez(i), nz) * nxy + (size_t)wrap(y + ey(i), ny) * nx +
+                     wrap(x + ex(i), nx)];
+    if (ex(i)) g[0] = g[0] + C(wq(i) * ex(i)) * sv;
+    if (ey(i)) g[1] = g[1] + C(wq(i) * ey(i)) * sv;
+    if (ez(i)) g[2] = g[2] + C(wq(i) * ez(i)) * sv;
+  }
+#pragma unroll
+  for (int d = 0; d < 3; ++d) g[d] = C(3) * g[d];
+  const C code = geo[k];
+  if (P.has_wetting && code > C(1.5)) {
+    const C ns[3] = {geo[n + k], geo[2 * n + k], geo[3 * n + k]};
+    rotate_akai(g, ns, P);
+  }
+  const C norm = sqrt(g[0] * g[0] + g[1] * g[1] + g[2] * g[2]);
+  const bool ok = norm > C(kEps);
+  const C fl = code > C(0.5) ? C(1) : C(0);
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    nrm[d * n + k] = g[d];
+    nrm[(3 + d) * n + k] = (ok ? -g[d] / norm : C(0)) * fl;
+  }
+}
+
+// The curvature kappa = sum_ab (n_a n_b - delta_ab) d_a n_b of the unit
+// normals on fluid cells, the partials by the isotropic stencil
+// (ops/colorgrad.py::csf_force_nd), into plane 6 of nrm.
+template <typename C>
+__global__ void curvature_kernel(const C* __restrict__ geo, C* __restrict__ nrm,
+                                 Cg3dParams P) {
+  const int nx = P.nx, ny = P.ny, nz = P.nz;
+  const size_t nxy = (size_t)ny * nx;
+  const size_t n = (size_t)nz * nxy;
+  const size_t k = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= n) return;
+  if (!(geo[k] > C(0.5))) {
+    nrm[6 * n + k] = C(0);
+    return;
+  }
+  const int z = (int)(k / nxy);
+  const int y = (int)((k % nxy) / nx), x = (int)(k % nx);
+  C dn[3][3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+#pragma unroll
+    for (int b = 0; b < 3; ++b) dn[a][b] = C(0);
+#pragma unroll
+  for (int i = 1; i < Q; ++i) {
+    const size_t kk = (size_t)wrap(z + ez(i), nz) * nxy + (size_t)wrap(y + ey(i), ny) * nx +
+                      wrap(x + ex(i), nx);
+    const C s[3] = {nrm[3 * n + kk], nrm[4 * n + kk], nrm[5 * n + kk]};
+    const int e[3] = {ex(i), ey(i), ez(i)};
+    const double w3 = 3.0 * wq(i);
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      if (!e[a]) continue;
+#pragma unroll
+      for (int b = 0; b < 3; ++b) dn[a][b] = dn[a][b] + C(w3 * e[a]) * s[b];
+    }
+  }
+  const C nh[3] = {nrm[3 * n + k], nrm[4 * n + k], nrm[5 * n + k]};
+  C kappa = C(0);
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+#pragma unroll
+    for (int b = 0; b < 3; ++b) kappa = kappa + (nh[a] * nh[b] - C(a == b ? 1 : 0)) * dn[a][b];
+  nrm[6 * n + k] = kappa;
+}
+
+template <typename C>
+__device__ __forceinline__ C tau_at(C phi, C rr, C rb, const Cg3dParams& P) {
+  if (phi > C(P.delta)) return C(P.tau_r);
+  if (phi < C(-P.delta)) return C(P.tau_b);
+  if (P.tau_type == 1)
+    return C(0.5) + C(1) / ((C(1) + phi) / C(2.0 * (P.tau_r - 0.5)) +
+                            (C(1) - phi) / C(2.0 * (P.tau_b - 0.5)));
+  C tot = rr + rb;
+  tot = tot != C(0) ? tot : C(1);
+  const C mu = C(1) / ((rr / tot) * C(3.0 / (P.tau_r - 0.5)) +
+                       (rb / tot) * C(3.0 / (P.tau_b - 0.5)));
+  return C(3) * mu + C(0.5);
+}
+
+// Post-collision total PDF of one fluid cell and its recolouring terms:
+// the red post-collision population is frac * post_i + w_i e_i . (A, B, Cz).
+template <typename S, int L, typename C = typename Traits<S>::C>
+__device__ void collide_cell(const State<S>& st, const C* __restrict__ geo,
+                             const C* __restrict__ phi, const C* __restrict__ nrm,
+                             const Cg3dParams& P, int z, int y, int x, C post[Q], C& frac,
+                             C& A, C& B, C& Cz) {
+  const int nx = P.nx, ny = P.ny, nz = P.nz;
+  const size_t nxy = (size_t)ny * nx;
+  const size_t n = (size_t)nz * nxy;
+  const size_t k = (size_t)z * nxy + (size_t)y * nx + x;
+  Cell<C, L> c;
+  load_cell<S, L>(st, geo, P, z, y, x, c);
+  C f[Q], rr, rb;
+  totals(c, f, rr, rb);
+  const C rho = rr + rb;
+  const C ph = phi[k];
+  const C g[3] = {nrm[k], nrm[n + k], nrm[2 * n + k]};
+
+  const C kappa = nrm[6 * n + k];
+  const C ks = C(-0.5 * P.sigma) * kappa;
+  C F[3];
+  const double bf[3] = {P.bfx, P.bfy, P.bfz};
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    F[d] = ks * g[d];
+    if (bf[d] != 0.0) F[d] = F[d] + C(bf[d]) * rho;
+  }
+
+  const C rho_safe = rho > C(0) ? rho : C(1);
+  C m[3] = {C(0), C(0), C(0)};
+#pragma unroll
+  for (int i = 1; i < Q; ++i) {
+    if (ex(i)) m[0] = m[0] + C(ex(i)) * f[i];
+    if (ey(i)) m[1] = m[1] + C(ey(i)) * f[i];
+    if (ez(i)) m[2] = m[2] + C(ez(i)) * f[i];
+  }
+  C u[3];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) u[d] = (m[d] + C(0.5) * F[d]) / rho_safe;
+  const C tau = tau_at(ph, rr, rb, P);
+  const C pref = C(1) - C(0.5) / tau;
+  const C uu = u[0] * u[0] + u[1] * u[1] + u[2] * u[2];
+#pragma unroll
+  for (int i = 0; i < Q; ++i) {
+    const C e0 = C(ex(i)), e1 = C(ey(i)), e2 = C(ez(i));
+    const C eu = e0 * u[0] + e1 * u[1] + e2 * u[2];
+    const C feq = C(wq(i)) * rho * (C(1) + C(3) * eu + C(4.5) * eu * eu - C(1.5) * uu);
+    const C src = C(wq(i)) * ((C(3) * (e0 - u[0]) + C(9) * e0 * eu) * F[0] +
+                              (C(3) * (e1 - u[1]) + C(9) * e1 * eu) * F[1] +
+                              (C(3) * (e2 - u[2]) + C(9) * e2 * eu) * F[2]);
+    post[i] = f[i] - (f[i] - feq) / tau + pref * src;
+  }
+
+  // LKR recolouring terms
+  const C tot_safe = rho != C(0) ? rho : C(1);
+  frac = rr / tot_safe;
+  const C segc = C(P.beta) * rr * rb / tot_safe;
+  const C norm = sqrt(g[0] * g[0] + g[1] * g[1] + g[2] * g[2]);
+  if (norm > C(kEps)) {
+    A = segc * (g[0] / norm);
+    B = segc * (g[1] / norm);
+    Cz = segc * (g[2] / norm);
+  } else {
+    A = B = Cz = C(0);
+  }
+}
+
+template <typename S, int L, typename C = typename Traits<S>::C>
+__global__ void __launch_bounds__(RING_THREADS)
+collide_stream_kernel(State<S> st, const C* __restrict__ geo, const C* __restrict__ phi,
+                      const C* __restrict__ nrm, S* __restrict__ out, S* __restrict__ out2,
+                      Cg3dParams P) {
+  // three slabs of the ring tile: [slot][value][HY][HX], then fluid flags
+  extern __shared__ __align__(16) unsigned char smem[];
+  C* sh = reinterpret_cast<C*>(smem);
+  unsigned char* shfl = smem + sizeof(C) * 3 * NSH * HY * HX;
+  const int nx = P.nx, ny = P.ny, nz = P.nz;
+  const size_t nxy = (size_t)ny * nx;
+  const size_t n = (size_t)nz * nxy;
+  const int x0 = blockIdx.x * TX, y0 = blockIdx.y * TY;
+  const int z0 = blockIdx.z * ZC;
+  const int z1 = min(z0 + ZC, nz);
+  // one thread per ring-tile cell: lx = tid % HX, ly = tid / HX
+  const int tid = threadIdx.x;
+  const int lx = tid % HX, ly = tid / HX;
+  auto val = [&](int slot, int v, int ly, int lx) -> C& {
+    return sh[((slot * NSH + v) * HY + ly) * HX + lx];
+  };
+  auto flag = [&](int slot, int ly, int lx) -> unsigned char& {
+    return shfl[(slot * HY + ly) * HX + lx];
+  };
+  // collide slab z of the ring tile into slot
+  auto compute_slab = [&](int z, int slot) {
+    const int cz = wrap(z, nz);
+    if (tid < HX * HY) {
+      const int cx = wrap_any(x0 - 1 + lx, nx), cy = wrap_any(y0 - 1 + ly, ny);
+      const bool fluid = geo[(size_t)cz * nxy + (size_t)cy * nx + cx] > C(0.5);
+      flag(slot, ly, lx) = fluid;
+      C post[Q], frac = C(0), A = C(0), B = C(0), Cz = C(0);
+      if (fluid) {
+        collide_cell<S, L>(st, geo, phi, nrm, P, cz, cy, cx, post, frac, A, B, Cz);
+      } else {
+#pragma unroll
+        for (int i = 0; i < Q; ++i) post[i] = C(0);
+      }
+#pragma unroll
+      for (int i = 0; i < Q; ++i) val(slot, i, ly, lx) = post[i];
+      val(slot, Q, ly, lx) = frac;
+      val(slot, Q + 1, ly, lx) = A;
+      val(slot, Q + 2, ly, lx) = B;
+      val(slot, Q + 3, ly, lx) = Cz;
+    }
+  };
+
+  // the tile's own cells stream: ring coordinates 1..TX, 1..TY
+  const int x = x0 + lx - 1, y = y0 + ly - 1;
+  const bool inside = lx >= 1 && lx <= TX && ly >= 1 && ly <= TY && x < nx && y < ny;
+  compute_slab(z0 - 1, 0);
+  compute_slab(z0, 1);
+  for (int z = z0; z < z1; ++z) {
+    compute_slab(z + 1, (z - z0 + 2) % 3);
+    __syncthreads();
+    const int cur = (z - z0 + 1) % 3;
+    if (inside) {
+      const size_t k = (size_t)z * nxy + (size_t)y * nx + x;
+      // o: the streamed total PDF; red: its red part, frac * post_j +
+      // w_j e_j . (A, B, C) at the source cell (the blue part is o - red)
+      C o[Q], red[Q];
+      C rr_new = C(0);
+      if (flag(cur, ly, lx)) {
+#pragma unroll
+        for (int i = 0; i < Q; ++i) {
+          // pull from the upwind cell x - e_i, or bounce back from a solid one
+          int slot = (cur - ez(i) + 3) % 3, sx = lx - ex(i), sy = ly - ey(i), j = i;
+          if (!flag(slot, sy, sx)) {
+            slot = cur;
+            sx = lx;
+            sy = ly;
+            j = opp(i);
+          }
+          o[i] = val(slot, j, sy, sx);
+          const C seg = C(wq(j)) * (C(ex(j)) * val(slot, Q + 1, sy, sx) +
+                                    C(ey(j)) * val(slot, Q + 2, sy, sx) +
+                                    C(ez(j)) * val(slot, Q + 3, sy, sx));
+          red[i] = val(slot, Q, sy, sx) * o[i] + seg;
+          rr_new = rr_new + red[i];
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < Q; ++i) o[i] = red[i] = C(0);
+      }
+      if constexpr (L == kSplit) {
+#pragma unroll
+        for (int i = 0; i < Q; ++i) {
+          out[i * n + k] = red[i];
+          out2[i * n + k] = o[i] - red[i];
+        }
+      } else {
+        Cell<C, kCompressed> c;
+#pragma unroll
+        for (int i = 0; i < Q; ++i) c.f[i] = o[i];
+        c.rr = rr_new;
+        encode<S, kCompressed>(out, n, k, geo[k] > C(0.5) ? C(1) : C(0), c);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+template <typename S, int L>
+constexpr size_t smem_bytes() {
+  using C = typename Traits<S>::C;
+  return sizeof(C) * 3 * NSH * HY * HX + 3 * HY * HX;
+}
+
+// The step's launches.  s2_in/s2_out are f_b in the split layout; nrm holds
+// g, n and kappa (7 planes); bc is the boundary-slab scratch (nullptr
+// without an inlet or outlet).
+template <typename S, int L>
+int launch_cg3d(const void* s_in, const void* s2_in, void* s_out, void* s2_out,
+                const void* geo_v, void* phi_v, void* nrm_v, void* bc_v, const Cg3dParams& P,
+                cudaStream_t stream) {
+  using C = typename Traits<S>::C;
+  static bool configured = false;
+  constexpr size_t smem = smem_bytes<S, L>();
+  cudaError_t err;
+  if (!configured) {
+    err = cudaFuncSetAttribute(collide_stream_kernel<S, L>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  const C* geo = static_cast<const C*>(geo_v);
+  C* phi = static_cast<C*>(phi_v);
+  C* nrm = static_cast<C*>(nrm_v);
+  S* bc = static_cast<S*>(bc_v);
+  State<S> st{static_cast<const S*>(s_in), static_cast<const S*>(s2_in), nullptr};
+  const size_t nxy = (size_t)P.ny * P.nx;
+  const size_t n = (size_t)P.nz * nxy;
+  const int threads = 256;
+  if (bc != nullptr && (P.inlet || P.outlet)) {
+    bc_kernel<S, L><<<(unsigned)((nxy + threads - 1) / threads), threads, 0, stream>>>(
+        st, geo, bc, P);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    st.bc = bc;
+  }
+  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
+  phase_kernel<S, L><<<blocks, threads, 0, stream>>>(st, geo, phi, P);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (P.has_wetting) {
+    extrap_kernel<C><<<blocks, threads, 0, stream>>>(geo, phi, P);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  normal_kernel<C><<<blocks, threads, 0, stream>>>(geo, phi, nrm, P);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  curvature_kernel<C><<<blocks, threads, 0, stream>>>(geo, nrm, P);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((P.nx + TX - 1) / TX, (P.ny + TY - 1) / TY, (P.nz + ZC - 1) / ZC);
+  collide_stream_kernel<S, L><<<grid, RING_THREADS, smem, stream>>>(
+      st, geo, phi, nrm, static_cast<S*>(s_out), static_cast<S*>(s2_out), P);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace

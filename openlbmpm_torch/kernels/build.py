@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library with a
 plain C interface, ``openlbmpm_torch/_build/lib<name>-<hash>.so``, which
-``ctypes`` loads.  The hash covers every file in ``csrc/`` and the compiler
-flags, so an edited source rebuilds and an unchanged one is reused.  Nothing
+``ctypes`` loads.  The hash covers every file in ``csrc/`` and the library's
+compiler flags, so an edited source rebuilds and an unchanged one is
+reused.  Nothing
 here runs at import time.
 """
 
@@ -19,17 +20,23 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 __all__ = ["load_library", "load_libraries", "build_seconds", "BUILD_DIR",
-           "NVCC_FLAGS", "LIBRARIES"]
+           "NVCC_FLAGS", "EXTRA_FLAGS", "LIBRARIES"]
 
-# every library of csrc/: the CSF step, the coupled step, and the
-# Shan-Chen step in its three storage types
-LIBRARIES = ("csf2d", "coupled2d", "sc2d_f64", "sc2d_f32", "sc2d_bf16")
+# every library of csrc/: the CSF step, the coupled step, the Shan-Chen
+# step and the D3Q19 CSF step, the last two in three storage types each
+LIBRARIES = ("csf2d", "coupled2d", "sc2d_f64", "sc2d_f32", "sc2d_bf16",
+             "cg3d_f64", "cg3d_f32", "cg3d_bf16")
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# flags of single libraries: the f64 D3Q19 step, which exists to check the
+# kernel against the plain path, contracts no a*b + c into an FMA, so its
+# products and sums round as the plain path's do (a wetting rotation near
+# its sin = 0 threshold turns a one-ulp difference into a visible one)
+EXTRA_FLAGS = {"cg3d_f64": ("-fmad=false",)}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 # seconds spent compiling each library in this process (0.0 = reused)
@@ -47,8 +54,9 @@ def _nvcc() -> str:
     return found
 
 
-def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _digest(name: str) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + EXTRA_FLAGS.get(name, ()))
+                       .encode())
     for p in sorted(SRC_DIR.iterdir()):
         if p.suffix in (".cu", ".cuh", ".h"):
             h.update(p.name.encode())
@@ -67,11 +75,12 @@ def load_library(name: str) -> ctypes.CDLL:
     if not src.is_file():
         raise FileNotFoundError(src)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    so = BUILD_DIR / f"lib{name}-{_digest()}.so"
+    so = BUILD_DIR / f"lib{name}-{_digest(name)}.so"
     build_seconds[name] = 0.0
     if not so.exists():
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        cmd = [_nvcc(), *NVCC_FLAGS, *EXTRA_FLAGS.get(name, ()), "-o",
+               str(tmp), str(src)]
         t0 = time.perf_counter()
         res = subprocess.run(cmd, capture_output=True, text=True)
         build_seconds[name] = time.perf_counter() - t0

@@ -1,0 +1,278 @@
+"""The D3Q19 CSF colour-gradient step (K9): CUDA kernel wrappers, plain
+PyTorch versions and launch counts.
+
+Counterpart of ``openlbmpm_tpu/pallas/cg3d.py::build_cg3d_fused_step`` at
+one step per call: ``state_mode="compressed"`` with ``storage="f32"`` (K9c,
+float32 or float64 state) and ``storage="bf16"`` (K9h), and
+``state_mode="split"`` (K9s).  The device code is ``csrc/cg3d.cuh``, built
+as one library per storage type (``cg3d_f64``, ``cg3d_f32``,
+``cg3d_bf16``).
+
+States:
+  * compressed f32 / f64: (20, nz, ny, nx) -- planes 0-18 the total PDF,
+    plane 19 rho_r;
+  * compressed bf16: (21, nz, ny, nx) bfloat16 -- the deviations
+    f_i - w_i*fl, then rho_r as a hi/lo pair;
+  * split f32 / f64: the pair (f_r, f_b) of (19, nz, ny, nx) colour PDFs.
+
+The geometry planes (``geo_stack3``) are float32 under bf16 storage: the
+JAX kernel's bf16 instance keeps them, and with them the wetting normals,
+in bf16 (a VMEM decision there), so the bf16 kernel here differs from its
+plain version only by the state's rounding.
+
+``cg3d_step_compressed(s, model)`` and ``cg3d_step_split((f_r, f_b),
+model)`` take the plain version only for tensors on the CPU; for CUDA
+tensors they launch the kernel or raise.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import numpy as np
+import torch
+
+from ..geometry import Geometry, wetting_masks_nd
+from ..lattice import D3Q19
+from . import build
+
+__all__ = ["LIBRARIES", "Cg3dParams", "geo_stack3", "kernel_params",
+           "launch_cg3d", "launch_cg3d_split", "cg3d_step_compressed",
+           "cg3d_step_compressed_reference", "cg3d_step_split",
+           "cg3d_step_split_reference"]
+
+_LIBS = {torch.float64: "cg3d_f64", torch.float32: "cg3d_f32",
+         torch.bfloat16: "cg3d_bf16"}
+LIBRARIES = tuple(_LIBS.values())
+
+
+def geo_stack3(geometry: Geometry, device="cpu") -> torch.Tensor:
+    """Static geometry planes the kernel reads, (4, nz, ny, nx) float64 on
+    `device`: [code, nsx, nsy, nsz] as ``pallas/cg3d.py::geo_stack3`` packs
+    them (bit for bit: the same products and sums in the same order).
+    code is 1 on plain fluid, 2 on wetting fluid and -den_inv on solid,
+    where den_inv is the reciprocal of the solid-phi extrapolation
+    denominator sum_i w_i is_fluid(x + e_i) (0 without fluid neighbours,
+    else >= 1.5, so the thresholds 0.5 and 1.5 decode exactly).  The wetting
+    mask (``geometry.wetting_masks_nd``), the solid normals
+    (``solid_normals_nd``) and the denominator come from one pass over the
+    18 neighbour shifts, on the device."""
+    lat = D3Q19
+    solid = torch.as_tensor(np.asarray(geometry.is_solid, bool),
+                            device=device)
+    fluid = ~solid
+    fl = fluid.double()
+    acc = [torch.zeros_like(fl) for _ in range(3)]
+    den = torch.zeros_like(fl)
+    any_solid = torch.zeros_like(solid)
+    for i in range(1, lat.q):
+        e = [int(c) for c in lat.e[i]]
+        shifts, w = (-e[2], -e[1], -e[0]), float(lat.w[i])
+        s = torch.roll(solid, shifts, (0, 1, 2))
+        any_solid |= s
+        for d in range(3):
+            if e[d]:
+                acc[d] += w * e[d] * s.double()
+        den += w * torch.roll(fl, shifts, (0, 1, 2))
+    norm = torch.sqrt(sum(c * c for c in acc))
+    safe = norm > 0
+    ns = [torch.where(safe, c / torch.where(safe, norm, 1.0), 0.0) * fluid
+          for c in acc]
+    den_inv = torch.where(den > 0, 1.0 / torch.where(den > 0, den, 1.0), 0.0)
+    code = torch.where(fluid, 1.0 + (fluid & any_solid).double(), -den_inv)
+    return torch.stack([code, *ns])
+
+
+class Cg3dParams(ctypes.Structure):
+    """Mirror of ``struct Cg3dParams`` in csrc/cg3d.cuh (same field order)."""
+    _fields_ = [
+        ("nz", ctypes.c_int), ("ny", ctypes.c_int), ("nx", ctypes.c_int),
+        ("inlet", ctypes.c_int),         # 0 periodic, 1 velocity
+        ("outlet", ctypes.c_int),   # 0 periodic, 1 convective, 2 dirichlet
+        ("has_wetting", ctypes.c_int),
+        ("tau_type", ctypes.c_int),
+        ("pad", ctypes.c_int),
+        ("tau_r", ctypes.c_double), ("tau_b", ctypes.c_double),
+        ("sigma", ctypes.c_double), ("beta", ctypes.c_double),
+        ("delta", ctypes.c_double),
+        ("cos_t", ctypes.c_double), ("sin_t", ctypes.c_double),
+        ("bfx", ctypes.c_double), ("bfy", ctypes.c_double),
+        ("bfz", ctypes.c_double),
+        ("inlet_vz", ctypes.c_double), ("outlet_rho", ctypes.c_double),
+    ]
+
+
+_INLETS = {"periodic": 0, "velocity": 1}
+_OUTLETS = {"periodic": 0, "convective": 1, "dirichlet": 2}
+
+
+def kernel_params(params, bcs, geometry: Geometry) -> Cg3dParams:
+    """The kernel's parameter block for a ColorGradientParams3D,
+    CG3DBoundaryConfig and geometry; raises NotImplementedError for a
+    domain the kernel does not take."""
+    p, b = params, bcs
+    nz, ny, nx = geometry.shape
+    if nz < 8 or ny < 2 or nx < 2:
+        raise NotImplementedError(f"kernel: domain {nz}x{ny}x{nx} below "
+                                  "8x2x2")
+    _, wet_solid = wetting_masks_nd(geometry.is_solid, D3Q19)
+    theta = math.radians(p.contact_angle_deg)
+    bfx, bfy, bfz = (float(v) for v in p.body_force)
+    return Cg3dParams(
+        nz=nz, ny=ny, nx=nx, inlet=_INLETS[b.inlet],
+        outlet=_OUTLETS[b.outlet], has_wetting=int(wet_solid.any()),
+        tau_type=p.tau_type, pad=0,
+        tau_r=p.tau_r, tau_b=p.tau_b, sigma=p.surface_tension, beta=p.beta,
+        delta=p.delta, cos_t=-math.cos(theta), sin_t=math.sin(theta),
+        bfx=bfx, bfy=bfy, bfz=bfz, inlet_vz=b.inlet_velocity,
+        outlet_rho=b.outlet_density)
+
+
+_fn_cache: dict[str, tuple] = {}
+
+
+def _kernel_fn(lib_name: str):
+    if lib_name not in _fn_cache:
+        lib = build.load_library(lib_name)
+        fn = lib.cg3d_step
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8 + \
+            [ctypes.POINTER(Cg3dParams), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        err = lib.cg3d_error_string
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        _fn_cache[lib_name] = (fn, err)
+    return _fn_cache[lib_name]
+
+
+def _launch(split: int, a, b, out_a, out_b, params: Cg3dParams,
+            geo: torch.Tensor):
+    """One cg3d_step call on the current stream of the state's card."""
+    nz, ny, nx = params.nz, params.ny, params.nx
+    dev = a.device
+    fn, err = _kernel_fn(_LIBS[a.dtype])
+    phi = torch.empty((nz, ny, nx), dtype=geo.dtype, device=dev)
+    nrm = torch.empty((7, nz, ny, nx), dtype=geo.dtype, device=dev)
+    bc = None
+    if params.inlet or params.outlet:
+        planes = 2 * a.shape[0] if split else a.shape[0]
+        bc = torch.empty((planes, 5, ny, nx), dtype=a.dtype, device=dev)
+    with torch.cuda.device(dev):
+        code = fn(split, a.data_ptr(), 0 if b is None else b.data_ptr(),
+                  out_a.data_ptr(), 0 if out_b is None else out_b.data_ptr(),
+                  geo.data_ptr(), phi.data_ptr(), nrm.data_ptr(),
+                  0 if bc is None else bc.data_ptr(), ctypes.byref(params),
+                  torch.cuda.current_stream(dev).cuda_stream)
+    if code != 0:
+        raise RuntimeError(f"cg3d_step launch failed: {err(code).decode()} "
+                           f"({code})")
+
+
+def _check_domain(params: Cg3dParams, geo: torch.Tensor, want, *tensors):
+    shape = (4, params.nz, params.ny, params.nx)
+    if geo.dtype != want or tuple(geo.shape) != shape:
+        raise ValueError(f"state needs {want} geometry planes {shape}, got "
+                         f"{geo.dtype} {tuple(geo.shape)}")
+    for t in tensors:
+        if t.device != geo.device or t.device.type != "cuda":
+            raise ValueError(f"state on {t.device}, geometry on {geo.device}")
+
+
+def launch_cg3d(s: torch.Tensor, params: Cg3dParams,
+                geo: torch.Tensor) -> torch.Tensor:
+    """One kernel step of the compressed CUDA state `s`: (20, nz, ny, nx) in
+    the type of the geometry planes `geo` (``geo_stack3``, float32 or
+    float64), or (21, nz, ny, nx) bfloat16 with float32 planes.  Not
+    counted as a launch."""
+    shape = (params.nz, params.ny, params.nx)
+    bf16 = s.dtype == torch.bfloat16
+    planes = 21 if bf16 else 20
+    if s.dtype not in _LIBS or tuple(s.shape) != (planes, *shape):
+        raise ValueError(f"state {tuple(s.shape)} {s.dtype}; the kernel "
+                         f"takes ({planes}, {', '.join(map(str, shape))})")
+    _check_domain(params, geo, torch.float32 if bf16 else s.dtype, s)
+    s = s.contiguous()
+    out = torch.empty_like(s)
+    _launch(0, s, None, out, None, params, geo)
+    return out
+
+
+def launch_cg3d_split(f_r: torch.Tensor, f_b: torch.Tensor,
+                      params: Cg3dParams, geo: torch.Tensor):
+    """One kernel step of the split CUDA state (f_r, f_b), each
+    (19, nz, ny, nx) in the type of the geometry planes (float32 or
+    float64).  Returns (f_r', f_b').  Not counted as a launch."""
+    shape = (19, params.nz, params.ny, params.nx)
+    for t in (f_r, f_b):
+        if t.dtype not in (torch.float32, torch.float64) or \
+                tuple(t.shape) != shape or t.dtype != f_r.dtype:
+            raise ValueError(f"split state {tuple(f_r.shape)} {f_r.dtype}, "
+                             f"{tuple(f_b.shape)} {f_b.dtype}; the kernel "
+                             f"takes two {shape} float32 or float64")
+    _check_domain(params, geo, f_r.dtype, f_r, f_b)
+    f_r, f_b = f_r.contiguous(), f_b.contiguous()
+    out_r, out_b = torch.empty_like(f_r), torch.empty_like(f_b)
+    _launch(1, f_r, f_b, out_r, out_b, params, geo)
+    return out_r, out_b
+
+
+def _check_model_device(t: torch.Tensor, model):
+    if t.device.type != "cuda":
+        raise ValueError(f"no cg3d kernel for device {t.device}")
+    if model.path != "kernel":
+        raise ValueError(f"the model runs the {model.path!r} step on "
+                         f"{model.device}, the state is on {t.device}")
+
+
+def cg3d_step_compressed(s: torch.Tensor, model) -> torch.Tensor:
+    """One compressed D3Q19 CSF step (boundary slabs included) for `model`,
+    a ColorGradientRK3D.  CPU tensor: the plain version.  CUDA tensor: the
+    kernel on the model's parameter block and geometry planes, or an
+    error; never the plain version."""
+    if s.device.type == "cpu":
+        return cg3d_step_compressed_reference(s, model)
+    _check_model_device(s, model)
+    want = torch.bfloat16 if model.storage == "bf16" else model.dtype
+    if s.dtype != want:
+        raise ValueError(f"state {s.dtype}; the model takes {want}")
+    out = launch_cg3d(s, model.kernel_params, model.geo_planes)
+    cg3d_step_compressed.launches += 1
+    return out
+
+
+cg3d_step_compressed.launches = 0
+
+
+def cg3d_step_compressed_reference(s: torch.Tensor, model) -> torch.Tensor:
+    """Plain PyTorch version of the compressed kernel, on any device: the
+    model's ``plain_step_c``."""
+    return model.plain_step_c(s)
+
+
+def cg3d_step_split(state, model):
+    """One split D3Q19 CSF step (f_r, f_b) -> (f_r', f_b') (boundary slabs
+    included) for `model`, a ColorGradientRK3D.  CPU tensors: the plain
+    version.  CUDA tensors: the kernel, or an error; never the plain
+    version."""
+    f_r, f_b = state
+    if f_r.device != f_b.device:
+        raise ValueError(f"f_r on device {f_r.device}, f_b on {f_b.device}")
+    if f_r.device.type == "cpu":
+        return cg3d_step_split_reference(state, model)
+    _check_model_device(f_r, model)
+    if f_r.dtype != model.dtype or f_b.dtype != model.dtype:
+        raise ValueError(f"split state {f_r.dtype}/{f_b.dtype}; the model "
+                         f"takes {model.dtype}")
+    out = launch_cg3d_split(f_r, f_b, model.kernel_params, model.geo_planes)
+    cg3d_step_split.launches += 1
+    return out
+
+
+cg3d_step_split.launches = 0
+
+
+def cg3d_step_split_reference(state, model):
+    """Plain PyTorch version of the split kernel, on any device: the
+    model's ``plain_step``."""
+    return model.plain_step(state)

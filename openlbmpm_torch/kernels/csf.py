@@ -258,11 +258,12 @@ def csf_step_split_reference(state, model):
 
 def compare_bf16_states(a: torch.Tensor, b: torch.Tensor,
                         where: torch.Tensor) -> dict:
-    """Value-by-value gap between two 11-plane bfloat16 states on the cells
-    `where` (bool (ny, nx)).
+    """Value-by-value gap between two bfloat16 states whose last two planes
+    are rho_r's hi and lo halves (the 11-plane 2-D or 21-plane 3-D state),
+    on the cells `where` (bool, the spatial shape).
 
     excess: the largest |a - b| in units of max(one bf16 ulp of the larger
-        magnitude, 2^-18), over planes 0-9 and over the lo plane of rho_r
+        magnitude, 2^-18), over the PDF planes and hi, and over the lo plane
         wherever the hi planes agree (a hi flip moves lo by a whole hi
         ulp).  The 2^-18 floor covers values that are small after
         cancellation, where f32 rounding of the O(1) operands (about 5e-7
@@ -274,10 +275,11 @@ def compare_bf16_states(a: torch.Tensor, b: torch.Tensor,
     _, e = torch.frexp(mag)
     tol = torch.clamp_min(torch.ldexp(torch.ones_like(mag), e - 8), 2.0 ** -18)
     excess = (x - y).abs() / tol
-    hi_same = x[9] == y[9]
+    hi = x.shape[0] - 2
+    hi_same = x[hi] == y[hi]
     big = mag >= 1e-4
     return {
-        "excess": float(torch.cat([excess[:10].flatten(),
-                                   excess[10, hi_same]]).max()),
+        "excess": float(torch.cat([excess[:hi + 1].flatten(),
+                                   excess[hi + 1, hi_same]]).max()),
         "share": float((x != y)[big].double().mean()),
         "hi_flips": int((~hi_same).sum())}

@@ -243,8 +243,8 @@ class ColorGradientRK(nn.Module):
 
     def color_force_fields(self, f_r, f_b):
         """(rho_r, rho_b, phi, gx, gy, fx, fy) from the colour PDFs."""
-        rho_r = mac.density(f_r)
-        rho_b = mac.density(f_b)
+        rho_r = mac.density(f_r, 2)
+        rho_b = mac.density(f_b, 2)
         return (rho_r, rho_b) + self.color_force_fields_from_rho(rho_r, rho_b)
 
     def check_split(self):
@@ -293,7 +293,7 @@ class ColorGradientRK(nn.Module):
     # -- compressed state (f_total, rho_r) ----------------------------------
     def pack_state(self, f_r, f_b):
         """(f_r, f_b) -> (10, ny, nx): the total PDF and the red density."""
-        return torch.cat([f_r + f_b, mac.density(f_r)[None]], dim=0)
+        return torch.cat([f_r + f_b, mac.density(f_r, 2)[None]], dim=0)
 
     def pack_compressed_bf16(self, s):
         """(10, ny, nx) state -> the 11-plane bfloat16 state: deviations
@@ -320,7 +320,7 @@ class ColorGradientRK(nn.Module):
         return torch.cat([f_tot, rho_r[None]], dim=0)
 
     def rho_fields_c(self, s):
-        rho = mac.density(s[:9])
+        rho = mac.density(s[:9], 2)
         rho_r = s[9]
         return rho_r, rho - rho_r, rho
 
@@ -413,7 +413,8 @@ class ColorGradientRK(nn.Module):
         f_r_post, _ = cg.recolor_lkr(f_tot, rho_r, rho_b, gx, gy, p.beta, lat)
         fl = self.fluid_mask
         f_tot = stream(f_tot, lat, self.upwind_solid) * fl
-        rho_r_new = mac.density(stream(f_r_post, lat, self.upwind_solid)) * fl
+        rho_r_new = mac.density(stream(f_r_post, lat, self.upwind_solid),
+                                2) * fl
         return torch.cat([f_tot, rho_r_new[None]], dim=0)
 
     def plain_step_c(self, s):

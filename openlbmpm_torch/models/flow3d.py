@@ -1,0 +1,481 @@
+"""Rothman-Keller colour-gradient two-phase flow, CSF variant, on D3Q19
+(counterpart of ``ColorGradientRK3D`` in ``openlbmpm_tpu/models/flow3d.py``;
+that module's single-phase, Shan-Chen and transport classes are not ported
+yet).
+
+Arrays are indexed [z, y, x]; e components are (x, y, z).  The flow runs
+along -z: the inlet is the top z slabs, the outlet the bottom ones.  Two
+state layouts:
+
+* split: the colour PDFs (f_r, f_b), each (19, nz, ny, nx) -- ``step``;
+* compressed: (f_total, rho_r) as 20 planes, or 21 bfloat16 planes (the
+  deviations f_i - w_i*fl, then rho_r as a hi/lo pair) -- ``step_c``.
+
+One step: the z-face boundary slabs (NEBB velocity inlet at z = nz-2 with a
+ghost copy to nz-1; a convective outlet copying z = 2, 1, 0 from above, or
+the NEBB pressure outlet at z = 1 with a ghost copy to 0), then phase field,
+solid-phi extrapolation, isotropic gradient, Akai contact-angle rotation,
+CSF force, SRT collision of the total PDF with tau(phi) and the Guo source,
+LKR recolouring and pull streaming with half-way bounce-back.  The split
+step applies the slabs per colour (``_apply_inlet``/``_apply_outlet``); the
+compressed one follows the JAX package's compressed kernel prologue
+(``pallas/cg3d.py::_bc_prologue_c``), which moves rho_r by the slab's red
+fraction of the change of the total PDF.  The two agree where a slab holds
+one phase.
+
+On a CUDA state a step is one call of the hand-written kernel
+(``kernels/cg3d.py``); on the CPU it is the plain composition of ``ops/``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+from torch import nn
+
+from .._device import resolve_device, resolve_dtype
+from ..geometry import Geometry
+from ..kernels.cg3d import (cg3d_step_compressed, cg3d_step_split,
+                            geo_stack3, kernel_params)
+from ..lattice import D3Q19
+from ..ops import collision as col
+from ..ops import colorgrad as cg
+from ..ops import equilibrium as eq
+from ..ops import macroscopic as mac
+from ..ops.forcing import guo_source
+from ..ops.streaming import stream, upwind_solid_masks
+
+__all__ = ["ColorGradientParams3D", "CG3DBoundaryConfig", "ColorGradientRK3D"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ColorGradientParams3D:
+    """Same fields and defaults as the JAX package's ColorGradientParams3D."""
+    tau_r: float = 1.0
+    tau_b: float = 1.0
+    surface_tension: float = 0.01
+    contact_angle_deg: float = 90.0
+    beta: float = 0.7
+    delta: float = 0.98
+    tau_type: int = 2
+    body_force: tuple = (0.0, 0.0, 0.0)
+
+
+# D3Q19 direction groups by e_z sign
+_EZ_PLUS = (5, 11, 14, 15, 18)
+_EZ_MINUS = (6, 12, 13, 16, 17)
+_EZ_ZERO = (0, 1, 2, 3, 4, 7, 8, 9, 10)
+
+
+@dataclasses.dataclass(frozen=True)
+class CG3DBoundaryConfig:
+    """Same fields and defaults as the JAX package's CG3DBoundaryConfig.
+
+    inlet:  periodic | velocity (NEBB at v_z = inlet_velocity on the top
+            slab nz-2, negative = inflow; ghost slab nz-1)
+    outlet: periodic | dirichlet (NEBB at total rho = outlet_density on
+            slab 1; ghost slab 0) | convective (slabs 2, 1, 0 copy the
+            slab above)
+    """
+    inlet: str = "periodic"
+    outlet: str = "periodic"
+    inlet_velocity: float = 0.0
+    outlet_density: float = 1.0
+
+
+def _feq_vz(rho, vz):
+    """D3Q19 equilibria at u = (0, 0, vz), a list over Q."""
+    out = []
+    for i in range(D3Q19.q):
+        eu = float(D3Q19.e[i, 2]) * vz
+        out.append(float(D3Q19.w[i]) * rho *
+                   (1.0 + 3.0 * eu + 4.5 * eu * eu - 1.5 * vz * vz))
+    return out
+
+
+def _nebb(ft, unknown, rho, vz):
+    """NEBB values {i: feq_i + f_opp(i) - feq_opp(i)} of the unknown
+    directions of a (19, ny, nx) slab of the total PDF."""
+    feq = _feq_vz(rho, vz)
+    return {i: feq[i] + (ft[int(D3Q19.opp[i])] - feq[int(D3Q19.opp[i])])
+            for i in unknown}
+
+
+def _inlet_rho(ft, vz):
+    return (sum(ft[i] for i in _EZ_ZERO) + 2.0 * sum(ft[i] for i in _EZ_PLUS)
+            ) / (1.0 + vz)
+
+
+def _outlet_vz(ft, rho_t):
+    return 1.0 - (sum(ft[i] for i in _EZ_ZERO) +
+                  2.0 * sum(ft[i] for i in _EZ_MINUS)) / rho_t
+
+
+def _safe(x):
+    return torch.where(x != 0, x, torch.ones_like(x))
+
+
+class ColorGradientRK3D(nn.Module):
+    """Two-phase CSF colour-gradient solver on a dense masked D3Q19 grid
+    (SRT with tau(phi), Akai wetting).
+
+    ``dtype`` is the arithmetic type (float32 or float64) and the type of
+    the split state (f_r, f_b).  ``storage`` picks the layout ``step_c``
+    maps: "f32" the (20, nz, ny, nx) state in ``dtype``, "bf16" the 21-plane
+    bfloat16 state of ``pack_state_bf16`` (float32 arithmetic).  The
+    geometry planes (``geo_stack3``: code, n_s) live as buffers on
+    ``device``, in float32 under bf16 storage.  ``path`` is "kernel" on a
+    card and "plain" on the CPU: every configuration takes the kernel.
+    """
+
+    def __init__(self, geometry: Geometry, params: ColorGradientParams3D,
+                 boundaries: CG3DBoundaryConfig = CG3DBoundaryConfig(),
+                 dtype=torch.float32, device="cuda", storage: str = "f32"):
+        super().__init__()
+        if boundaries.inlet not in ("periodic", "velocity"):
+            raise ValueError(f"inlet {boundaries.inlet!r}: periodic | "
+                             "velocity")
+        if boundaries.outlet not in ("periodic", "dirichlet", "convective"):
+            raise ValueError(f"outlet {boundaries.outlet!r}: periodic | "
+                             "dirichlet | convective")
+        if params.tau_type not in (1, 2):
+            raise ValueError(f"unknown tau option {params.tau_type}")
+        if storage not in ("f32", "bf16"):
+            raise ValueError(f"storage {storage!r}: f32 | bf16")
+        dtype = resolve_dtype(dtype)
+        if storage == "bf16" and dtype != torch.float32:
+            raise ValueError("storage='bf16' computes in float32")
+        dev = resolve_device(device)
+        self.lat = D3Q19
+        self.geo = geometry
+        self.p = params
+        self.bcs = boundaries
+        self.dtype = dtype
+        self.storage = storage
+        self.kernel_params = kernel_params(params, boundaries, geometry)
+        self.has_wetting = bool(self.kernel_params.has_wetting)
+        self.path = "kernel" if dev.type == "cuda" else "plain"
+        # the red phase's contact angle; the Akai rotation constrains the
+        # into-blue normal, so its cosine flips
+        theta = math.radians(params.contact_angle_deg)
+        self.cos_t, self.sin_t = -math.cos(theta), math.sin(theta)
+        self.register_buffer("geo_planes",
+                             geo_stack3(geometry, dev).to(dtype))
+        self.register_buffer("fluid_mask", torch.as_tensor(
+            geometry.is_fluid, dtype=dtype, device=dev))
+        self.register_buffer("upwind_solid", torch.as_tensor(
+            upwind_solid_masks(self.lat, geometry.is_solid), device=dev))
+
+    @property
+    def device(self) -> torch.device:
+        return self.geo_planes.device
+
+    @property
+    def is_fluid(self):
+        return self.geo_planes[0] > 0.5
+
+    @property
+    def wet_fluid(self):
+        return self.geo_planes[0] > 1.5
+
+    @property
+    def ns(self):
+        return tuple(self.geo_planes[1:4])
+
+    # -- initial conditions ----------------------------------------------
+    def init_state_droplet(self, rho_r=1.0, rho_b=1.0, center=None,
+                           radius: float = 8.0, background: float = 0.0):
+        """A red sphere in blue; returns (f_r, f_b)."""
+        nz, ny, nx = self.geo.shape
+        if center is None:
+            center = (nz / 2.0, ny / 2.0, nx / 2.0)
+        zz, yy, xx = np.mgrid[0:nz, 0:ny, 0:nx]
+        inside = ((zz - center[0]) ** 2 + (yy - center[1]) ** 2 +
+                  (xx - center[2]) ** 2) <= radius ** 2
+        r = np.where(inside, rho_r, background) * self.geo.is_fluid
+        b = np.where(inside, background, rho_b) * self.geo.is_fluid
+        return self._feq_init(r, b)
+
+    def init_state_layers(self, rho_r=1.0, rho_b=1.0, invading_slabs=8,
+                          background: float = 0.0):
+        """Red in the top `invading_slabs` z slabs, blue below; returns
+        (f_r, f_b)."""
+        nz = self.geo.shape[0]
+        z = np.arange(nz).reshape(-1, 1, 1)
+        top = np.broadcast_to(z >= nz - invading_slabs, self.geo.shape)
+        r = np.where(top, rho_r, background) * self.geo.is_fluid
+        b = np.where(top, background, rho_b) * self.geo.is_fluid
+        return self._feq_init(r, b)
+
+    def _feq_init(self, rho_r, rho_b):
+        rr = torch.as_tensor(rho_r, dtype=self.dtype, device=self.device)
+        rb = torch.as_tensor(rho_b, dtype=self.dtype, device=self.device)
+        zeros = torch.zeros_like(rr)
+        u0 = (zeros, zeros, zeros)
+        f_r = eq.feq_quadratic(self.lat, rr, u0)
+        f_b = eq.feq_quadratic(self.lat, rb, u0)
+        return f_r * self.fluid_mask, f_b * self.fluid_mask
+
+    # -- layouts ----------------------------------------------------------
+    def _w_col(self, device):
+        return torch.as_tensor(self.lat.w, dtype=self.dtype,
+                               device=device).reshape(-1, 1, 1, 1)
+
+    def pack_state(self, f_r, f_b):
+        """(f_r, f_b) -> (20, nz, ny, nx): the total PDF and rho_r."""
+        return torch.cat([f_r + f_b, mac.density(f_r, 3)[None]], dim=0)
+
+    def pack_compressed_bf16(self, s):
+        """(20, nz, ny, nx) state -> the 21-plane bfloat16 state: deviations
+        f_i - w_i*fl (19) and rho_r as hi = bf16(rho_r), lo = bf16(rho_r -
+        hi), both rounded to nearest-even."""
+        fdev = (s[:19] - self._w_col(s.device) * self.fluid_mask[None]) \
+            .to(torch.bfloat16)
+        hi = s[19].to(torch.bfloat16)
+        lo = (s[19] - hi.to(self.dtype)).to(torch.bfloat16)
+        return torch.cat([fdev, hi[None], lo[None]], dim=0)
+
+    def pack_state_bf16(self, f_r, f_b):
+        """(f_r, f_b) -> the 21-plane bfloat16 state."""
+        return self.pack_compressed_bf16(self.pack_state(f_r, f_b))
+
+    def unpack_bf16(self, s):
+        """21-plane bfloat16 state -> (20, nz, ny, nx) state in ``dtype``."""
+        f_tot = s[:19].to(self.dtype) + \
+            self._w_col(s.device) * self.fluid_mask[None]
+        rho_r = s[19].to(self.dtype) + s[20].to(self.dtype)
+        return torch.cat([f_tot, rho_r[None]], dim=0)
+
+    # -- fields -----------------------------------------------------------
+    def color_force_fields(self, f_r, f_b):
+        """(rho_r, rho_b, phi, g, force) of the colour PDFs."""
+        return self._fields_from_densities(mac.density(f_r, 3),
+                                           mac.density(f_b, 3))
+
+    def _fields_from_densities(self, rho_r, rho_b):
+        fl = self.fluid_mask
+        phi = cg.phase_field(rho_r, rho_b) * fl
+        phi_ext = cg.solid_phi_extrapolate(phi, self.is_fluid, self.lat) \
+            if self.has_wetting else phi
+        g = cg.color_gradient(phi_ext, self.lat)
+        if self.has_wetting:
+            g = cg.rotate_gradient_on_wetting_akai_nd(
+                g, self.ns, self.cos_t, self.sin_t, self.wet_fluid)
+        force, _ = cg.csf_force_nd(g, self.p.surface_tension, self.is_fluid,
+                                   inward_normal=True, lat=self.lat)
+        if any(self.p.body_force):
+            rho = rho_r + rho_b
+            force = tuple(force[d] + float(self.p.body_force[d]) * rho
+                          for d in range(3))
+        force = tuple(c * fl for c in force)
+        return rho_r, rho_b, phi, g, force
+
+    def _velocity(self, f_tot, rho, force):
+        rho_safe = torch.where(rho > 0, rho, torch.ones_like(rho))
+        mom = mac.momentum(self.lat, f_tot)
+        return tuple((mom[d] + 0.5 * force[d]) / rho_safe for d in range(3))
+
+    def _collide(self, f_tot, rho_r, rho_b, phi, g, force):
+        """Post-collision total PDF and its red part (LKR)."""
+        p = self.p
+        rho = rho_r + rho_b
+        u = self._velocity(f_tot, rho, force)
+        tau = cg.tau_interp_csf(phi, rho_r, rho_b, p.tau_r, p.tau_b, p.delta,
+                                p.tau_type)
+        feq = eq.feq_quadratic(self.lat, rho, u)
+        src = guo_source(self.lat, u, force)
+        f_tot = col.bgk_field_tau(f_tot, feq, tau)
+        f_tot = f_tot + (1.0 - 0.5 / tau)[None] * src
+        return f_tot, cg.recolor_lkr_nd(f_tot, rho_r, rho_b, g, p.beta,
+                                        self.lat)
+
+    # -- split state (f_r, f_b) -------------------------------------------
+    def _slab_mask(self, z):
+        return self.is_fluid[z]
+
+    def _split_slab(self, f_r, f_b, z, new, ratio):
+        """Set the directions of `new` on slab z's fluid cells, split by the
+        pre-rewrite red fraction."""
+        m = self._slab_mask(z)
+        f_r, f_b = f_r.clone(), f_b.clone()
+        for i, val in new.items():
+            f_r[i, z] = torch.where(m, ratio * val, f_r[i, z])
+            f_b[i, z] = torch.where(m, (1.0 - ratio) * val, f_b[i, z])
+        return f_r, f_b
+
+    def _copy_slab(self, states, dst, src):
+        """states[k][:, dst] <- states[k][:, src] on dst's fluid cells."""
+        m = self._slab_mask(dst)
+        out = []
+        for f in states:
+            f = f.clone()
+            f[:, dst] = torch.where(m, f[:, src], f[:, dst])
+            out.append(f)
+        return out
+
+    def _apply_inlet(self, f_r, f_b):
+        if self.bcs.inlet != "velocity":
+            return f_r, f_b
+        nz = self.geo.shape[0]
+        z = nz - 2
+        vz = self.bcs.inlet_velocity
+        ft = f_r[:, z] + f_b[:, z]
+        new = _nebb(ft, _EZ_MINUS, _inlet_rho(ft, vz), vz)
+        ratio = mac.ordered_sum(f_r[:, z], 0) / _safe(mac.ordered_sum(ft, 0))
+        f_r, f_b = self._split_slab(f_r, f_b, z, new, ratio)
+        return tuple(self._copy_slab((f_r, f_b), nz - 1, z))
+
+    def _apply_outlet(self, f_r, f_b):
+        if self.bcs.outlet == "convective":
+            for z in (2, 1, 0):
+                f_r, f_b = self._copy_slab((f_r, f_b), z, z + 1)
+            return f_r, f_b
+        if self.bcs.outlet != "dirichlet":
+            return f_r, f_b
+        rho_t = self.bcs.outlet_density
+        ft = f_r[:, 1] + f_b[:, 1]
+        new = _nebb(ft, _EZ_PLUS, rho_t, _outlet_vz(ft, rho_t))
+        ratio = mac.ordered_sum(f_r[:, 1], 0) / _safe(mac.ordered_sum(ft, 0))
+        f_r, f_b = self._split_slab(f_r, f_b, 1, new, ratio)
+        return tuple(self._copy_slab((f_r, f_b), 0, 1))
+
+    def _physics(self, f_r, f_b):
+        """Collide, recolour and stream post-BC colour PDFs."""
+        rho_r, rho_b, phi, g, force = self.color_force_fields(f_r, f_b)
+        _, (f_r, f_b) = self._collide(f_r + f_b, rho_r, rho_b, phi, g, force)
+        fl = self.fluid_mask
+        return (stream(f_r, self.lat, self.upwind_solid) * fl,
+                stream(f_b, self.lat, self.upwind_solid) * fl)
+
+    def plain_step(self, state):
+        """One split step composed from ``ops/`` (the jnp ``_step_impl``
+        with ``use_pallas=False``), on any device."""
+        f_r, f_b = self._apply_inlet(*state)
+        f_r, f_b = self._apply_outlet(f_r, f_b)
+        return self._physics(f_r, f_b)
+
+    def step(self, state):
+        """One time step of the split state (f_r, f_b): the kernel on a
+        CUDA state, the plain step on a CPU one."""
+        return cg3d_step_split(tuple(state), self)
+
+    def macro(self, state):
+        """Diagnostics (rho_r, rho_b, phi, (ux, uy, uz)) of a split state,
+        boundary slabs not applied."""
+        f_r, f_b = state
+        rho_r, rho_b, phi, _, force = self.color_force_fields(f_r, f_b)
+        return rho_r, rho_b, phi, self._velocity(f_r + f_b, rho_r + rho_b,
+                                                 force)
+
+    # -- compressed state (f_total, rho_r) ----------------------------------
+    def _apply_bcs_c(self, s):
+        """The compressed boundary slabs on a (20, nz, ny, nx) state, as the
+        JAX compressed kernel's prologue applies them: the unknown
+        directions of the total PDF take their NEBB values, and rho_r moves
+        by the slab's red fraction of the change."""
+        return self._bc_slabs_c(s, lambda s, z: (s[:19, z], s[19, z]),
+                                self._set_slab_c)
+
+    @staticmethod
+    def _set_slab_c(s, z, ft, rr):
+        s = s.clone()
+        s[:19, z] = ft
+        s[19, z] = rr
+        return s
+
+    def _dec_slab(self, s, z):
+        """Slab z of a 21-plane bfloat16 state decoded to float32."""
+        w = self._w_col(s.device)[:, 0]
+        return (s[:19, z].to(self.dtype) + w * self.fluid_mask[z],
+                s[19, z].to(self.dtype) + s[20, z].to(self.dtype))
+
+    def _enc_slab(self, s, z, ft, rr):
+        w = self._w_col(s.device)[:, 0]
+        s = s.clone()
+        s[:19, z] = (ft - w * self.fluid_mask[z]).to(torch.bfloat16)
+        hi = rr.to(torch.bfloat16)
+        s[19, z] = hi
+        s[20, z] = (rr - hi.to(self.dtype)).to(torch.bfloat16)
+        return s
+
+    def _bc_slabs_c(self, s, dec, enc):
+        """The compressed boundary slabs through slab accessors: `dec(s, z)`
+        reads slab z of `s` as (ft, rho_r), `enc(s, z, ft, rr)` writes it
+        back (the bf16 state re-encodes each slab it
+        rewrites, ``pallas/cg3d.py::_bc_prologue_c_bf16``)."""
+        nz = self.geo.shape[0]
+        bcs = self.bcs
+
+        def rewrite(s, z, unknown, rho, vz):
+            sl, rr = dec(s, z)
+            new = _nebb(sl, unknown, rho(sl), vz(sl))
+            ratio = rr / _safe(mac.ordered_sum(sl, 0))
+            m = self._slab_mask(z)
+            ft = sl.clone()
+            dsum = 0.0
+            for i, val in new.items():
+                dsum = dsum + (val - sl[i])
+                ft[i] = torch.where(m, val, sl[i])
+            rr = torch.where(m, rr + ratio * dsum, rr)
+            return enc(s, z, ft, rr), ft, rr
+
+        def ghost(s, dst, ft, rr):
+            m = self._slab_mask(dst)
+            gt, gr = dec(s, dst)
+            return enc(s, dst, torch.where(m, ft, gt), torch.where(m, rr, gr))
+
+        if bcs.inlet == "velocity":
+            vz = bcs.inlet_velocity
+            s, ft, rr = rewrite(s, nz - 2, _EZ_MINUS,
+                                lambda sl: _inlet_rho(sl, vz), lambda sl: vz)
+            s = ghost(s, nz - 1, ft, rr)
+        if bcs.outlet == "convective":
+            for z in (2, 1, 0):
+                s = ghost(s, z, *dec(s, z + 1))
+        elif bcs.outlet == "dirichlet":
+            rho_t = bcs.outlet_density
+            s, _, _ = rewrite(s, 1, _EZ_PLUS, lambda sl: rho_t,
+                              lambda sl: _outlet_vz(sl, rho_t))
+            s = ghost(s, 0, *dec(s, 1))
+        return s
+
+    def _physics_c(self, s):
+        """Collide, recolour and stream a post-BC (20, nz, ny, nx) state:
+        rho_r' is the streamed sum of the recoloured red PDFs."""
+        f_tot, rho_r = s[:19], s[19]
+        rho_b = mac.density(f_tot, 3) - rho_r
+        _, _, phi, g, force = self._fields_from_densities(rho_r, rho_b)
+        post, (f_r_post, _) = self._collide(f_tot, rho_r, rho_b, phi, g,
+                                            force)
+        fl = self.fluid_mask
+        f_tot = stream(post, self.lat, self.upwind_solid) * fl
+        rho_r_new = mac.density(stream(f_r_post, self.lat,
+                                       self.upwind_solid), 3) * fl
+        return torch.cat([f_tot, rho_r_new[None]], dim=0)
+
+    def plain_step_c(self, s):
+        """One compressed step composed from ``ops/``, on any device.  A
+        bf16 state takes the boundary slabs slab by slab in float32 and
+        re-encodes them, then is decoded, stepped and encoded again, as
+        the kernel does in its registers."""
+        if s.dtype == torch.bfloat16:
+            s = self._bc_slabs_c(s, self._dec_slab, self._enc_slab)
+            return self.pack_compressed_bf16(
+                self._physics_c(self.unpack_bf16(s)))
+        return self._physics_c(self._apply_bcs_c(s))
+
+    def step_c(self, s):
+        """One time step of the compressed state (layout per ``storage``)."""
+        return cg3d_step_compressed(s, self)
+
+    def macro_compressed(self, s):
+        """``macro`` of a compressed state (either layout)."""
+        if s.dtype == torch.bfloat16:
+            s = self.unpack_bf16(s)
+        f_tot, rho_r = s[:19], s[19]
+        rho_b = mac.density(f_tot, 3) - rho_r
+        _, _, phi, _, force = self._fields_from_densities(rho_r, rho_b)
+        return rho_r, rho_b, phi, self._velocity(f_tot, rho_r + rho_b, force)

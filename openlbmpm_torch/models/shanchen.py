@@ -341,7 +341,7 @@ class ShanChenMCMP(nn.Module):
         if not self._chang:
             f = self._apply_inlet(f)
         f_old = f
-        rho_k = mac.density(f)
+        rho_k = mac.density(f, 2)
         rho_safe = torch.where(rho_k > 0, rho_k, torch.ones_like(rho_k))
         upx, upy = mac.sc_common_velocity(lat, f, rho_k, self.tau)
         fx, fy = self._force(rho_k)
@@ -397,7 +397,7 @@ class ShanChenMCMP(nn.Module):
         """One EFS step on the transformed PDF fbar = f - f^F/2."""
         lat = self.lat
         f = self._apply_inlet(f)
-        rho_k = mac.density(f)
+        rho_k = mac.density(f, 2)
         rho_safe = torch.where(rho_k > 0, rho_k, torch.ones_like(rho_k))
         fx, fy = self._force(rho_k)
         mx, my = mac.momentum(lat, f)
@@ -522,7 +522,7 @@ class ShanChenMCMP(nn.Module):
         velocity (sum_k m_k + F_k/2) / rho_tot of a state as it stands."""
         if f.dtype == torch.bfloat16:
             f = self.unpack_bf16(f)
-        rho_k = mac.density(f)
+        rho_k = mac.density(f, 2)
         fx, fy = self._force(rho_k)
         rho_tot = torch.sum(rho_k, dim=0)
         rho_tot = torch.where(rho_tot > 0, rho_tot, torch.ones_like(rho_tot))

@@ -288,7 +288,7 @@ class TransportRK(nn.Module):
         if tp.interface_mode == "redistribute" and not self.standalone:
             fl = self.flow.is_fluid
             in_new = tr.transport_domain_mask(
-                mac.density(f_r), tp.criteria)[0] & fl
+                mac.density(f_r, 2), tp.criteria)[0] & fl
             g = tr.redistribute_on_interface_motion(
                 g, in_new, in_domain & fl, self.j_coeffs if tp.scheme == 5
                 else np.tile(lat.w, (tp.num_tracers, 1)), lat)

@@ -1,7 +1,9 @@
 """Rothman-Keller colour-gradient ops for the CSF variant (counterpart of
 ``openlbmpm_tpu/ops/colorgrad.py``): phase field, solid-phi extrapolation,
 isotropic gradient, contact-angle rotations (Xu 2017, Akai 2018), curvature
-and CSF force, tau(phi), and Latva-Kokko-Rothman recolouring."""
+and CSF force, tau(phi), and Latva-Kokko-Rothman recolouring.  The
+``*_nd`` forms, the extrapolation and the gradient take any lattice
+dimension (fields (ny, nx) or (nz, ny, nx))."""
 
 from __future__ import annotations
 
@@ -15,7 +17,8 @@ from .common import bcast_1d, shift
 __all__ = [
     "phase_field", "solid_phi_extrapolate", "color_gradient",
     "contact_angle_terms", "rotate_gradient_on_wetting_xu", "rotate_gradient_on_wetting_akai",
-    "csf_force", "tau_interp_csf", "recolor_lkr",
+    "rotate_gradient_on_wetting_akai_nd", "csf_force", "csf_force_nd",
+    "tau_interp_csf", "recolor_lkr", "recolor_lkr_nd",
 ]
 
 _EPS = 1.0e-8
@@ -43,6 +46,11 @@ def phase_field(rho_r, rho_b):
                        torch.zeros_like(s))
 
 
+def _shift_e(a, lat: Lattice, i: int):
+    """a(x + e_i) on the lattice's spatial axes."""
+    return shift(a, *(int(c) for c in lat.e[i]))
+
+
 def solid_phi_extrapolate(phi, is_fluid, lat: Lattice = D2Q9):
     """phi on fluid nodes; on solid nodes the w-weighted average of the
     fluid neighbours (0 where a solid node has none)."""
@@ -51,9 +59,8 @@ def solid_phi_extrapolate(phi, is_fluid, lat: Lattice = D2Q9):
     den = torch.zeros_like(phi)
     for i in range(1, lat.q):
         w = float(lat.w[i])
-        dx, dy = int(lat.e[i, 0]), int(lat.e[i, 1])
-        fl_n = shift(fl, dx, dy)
-        num = num + w * fl_n * shift(phi, dx, dy)
+        fl_n = _shift_e(fl, lat, i)
+        num = num + w * fl_n * _shift_e(phi, lat, i)
         den = den + w * fl_n
     ok = den > 0
     phi_solid = torch.where(ok, num / _safe(den, ok), torch.zeros_like(phi))
@@ -61,11 +68,12 @@ def solid_phi_extrapolate(phi, is_fluid, lat: Lattice = D2Q9):
 
 
 def color_gradient(phi_ext, lat: Lattice = D2Q9):
-    """grad phi = 3 sum_i w_i e_i phi(x + e_i); returns (gx, gy)."""
+    """grad phi = 3 sum_i w_i e_i phi(x + e_i); returns the lat.dim
+    components (gx, gy[, gz])."""
     g = [torch.zeros_like(phi_ext) for _ in range(lat.dim)]
     for i in range(1, lat.q):
         w = float(lat.w[i])
-        s = shift(phi_ext, int(lat.e[i, 0]), int(lat.e[i, 1]))
+        s = _shift_e(phi_ext, lat, i)
         for d in range(lat.dim):
             ed = int(lat.e[i, d])
             if ed:
@@ -196,3 +204,91 @@ def recolor_lkr(f_total, rho_r, rho_b, gx, gy, beta, lat: Lattice = D2Q9):
     f_r = frac_r[None] * f_total + seg
     f_b = (1.0 - frac_r)[None] * f_total - seg
     return f_r, f_b
+
+
+def csf_force_nd(g, sigma, is_fluid, inward_normal: bool = False,
+                 lat: Lattice = D2Q9):
+    """Dimension-generic CSF force F = +-(1/2) sigma kappa grad(phi) with
+    kappa = sum_ab (n_a n_b - delta_ab) d_a n_b of the unit normal masked to
+    fluid, the partials by the isotropic stencil.  g: the lat.dim gradient
+    components.  Returns (force components, kappa)."""
+    dim = lat.dim
+    sign = -1.0 if inward_normal else 1.0
+    norm = torch.sqrt(sum(c * c for c in g))
+    ok = norm > (_EPS if inward_normal else 0.0)
+    norm_s = _safe(norm, ok)
+    zero = torch.zeros_like(norm)
+    fl = is_fluid.to(g[0].dtype)
+    nh = [torch.where(ok, sign * c / norm_s, zero) * fl for c in g]
+    dn = [[torch.zeros_like(norm) for _ in range(dim)] for _ in range(dim)]
+    for i in range(1, lat.q):
+        w3 = 3.0 * float(lat.w[i])
+        shifted = [_shift_e(nh[b], lat, i) for b in range(dim)]
+        for a in range(dim):
+            ea = int(lat.e[i, a])
+            if not ea:
+                continue
+            for b in range(dim):
+                dn[a][b] = dn[a][b] + (w3 * ea) * shifted[b]
+    kappa = torch.zeros_like(norm)
+    for a in range(dim):
+        for b in range(dim):
+            coef = nh[a] * nh[b] - (1.0 if a == b else 0.0)
+            kappa = kappa + coef * dn[a][b]
+    force = tuple(sign * 0.5 * sigma * kappa * c for c in g)
+    return force, kappa
+
+
+def rotate_gradient_on_wetting_akai_nd(g, ns, cos_t, sin_t, wet_mask):
+    """Dimension-generic Akai 2018 rotation: in the plane of (n_s, n = -g/|g|)
+    the two directions at angle theta from n_s are (cos_t -+ c1) n_s +- c2 n
+    with c1 = sin_t cos(theta_gs) / sin(theta_gs), c2 = sin_t /
+    sin(theta_gs), sin(theta_gs) = sqrt(1 - (n . n_s)^2); the nearer one
+    wins on wetting fluid nodes, and ties keep their gradient."""
+    dim = len(g)
+    norm = torch.sqrt(sum(c * c for c in g))
+    ok = norm > _EPS
+    norm_s = _safe(norm, ok)
+    zero = torch.zeros_like(norm)
+    u = [torch.where(ok, -c / norm_s, zero) for c in g]
+    dot = torch.clamp(sum(u[d] * ns[d] for d in range(dim)), -1.0, 1.0)
+    sin_gs = torch.sqrt(torch.clamp_min(1.0 - dot * dot, 0.0))
+    ok_s = sin_gs > 1.0e-9
+    sin_ok = _safe(sin_gs, ok_s)
+    c1 = torch.where(ok_s, sin_t * dot / sin_ok, zero)
+    c2 = torch.where(ok_s, sin_t / sin_ok, zero)
+    n1 = [(cos_t - c1) * ns[d] + c2 * u[d] for d in range(dim)]
+    n2 = [(cos_t + c1) * ns[d] - c2 * u[d] for d in range(dim)]
+    d1 = torch.sqrt(sum((n1[d] - u[d]) ** 2 for d in range(dim)))
+    d2 = torch.sqrt(sum((n2[d] - u[d]) ** 2 for d in range(dim)))
+    pick1 = d1 < d2
+    tie = d1 == d2
+    out = []
+    for d in range(dim):
+        rotated = torch.where(tie, g[d],
+                              -norm * torch.where(pick1, n1[d], n2[d]))
+        out.append(torch.where(wet_mask, rotated, g[d]))
+    return tuple(out)
+
+
+def recolor_lkr_nd(f_total, rho_r, rho_b, g, beta, lat: Lattice):
+    """Dimension-generic Latva-Kokko-Rothman segregation of the total PDF
+    (Q at -(lat.dim + 1)): f_R = rho_R/rho f + beta rho_R rho_B / rho w_i
+    (e_i . g)/|g|, f_B = (1 - rho_R/rho) f - (the same term).  Returns
+    (f_R, f_B)."""
+    dim = lat.dim
+    qax = -(dim + 1)
+    rho = rho_r + rho_b
+    rho_safe = _safe(rho, rho != 0)
+    frac_r = rho_r / rho_safe
+    norm = torch.sqrt(sum(c * c for c in g))
+    ok = norm > _EPS
+    eg = sum(bcast_1d(lat.e[:, d], g[d], dim) * g[d].unsqueeze(qax)
+             for d in range(dim))
+    cos_enorm = torch.where(ok.unsqueeze(qax),
+                            eg / _safe(norm, ok).unsqueeze(qax),
+                            torch.zeros_like(eg))
+    seg = (beta * rho_r * rho_b / rho_safe).unsqueeze(qax) * \
+        bcast_1d(lat.w, f_total, dim) * cos_enorm
+    qx = frac_r.unsqueeze(qax)
+    return qx * f_total + seg, (1.0 - qx) * f_total - seg

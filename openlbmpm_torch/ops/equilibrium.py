@@ -16,12 +16,15 @@ __all__ = ["feq_quadratic", "feq_transport_j", "feq_transport_linear",
 
 
 def feq_quadratic(lat: Lattice, rho: torch.Tensor, u) -> torch.Tensor:
-    """w_i rho (1 + 3 e.u + 4.5 (e.u)^2 - 1.5 u.u), shape (..., Q, ny, nx)
-    for rho and u of shape (..., ny, nx)."""
+    """w_i rho (1 + 3 e.u + 4.5 (e.u)^2 - 1.5 u.u), shape (..., Q, *spatial)
+    for rho and the lat.dim components of u of shape (..., *spatial)."""
+    qax = -(lat.dim + 1)
     eu = e_dot_u(lat, u)
-    uu = (u[0] * u[0] + u[1] * u[1]).unsqueeze(-3)
-    return bcast_1d(lat.w, rho) * rho.unsqueeze(-3) * \
-        (1.0 + 3.0 * eu + 4.5 * eu * eu - 1.5 * uu)
+    uu = u[0] * u[0]
+    for d in range(1, lat.dim):
+        uu = uu + u[d] * u[d]
+    return bcast_1d(lat.w, rho, lat.dim) * rho.unsqueeze(qax) * \
+        (1.0 + 3.0 * eu + 4.5 * eu * eu - 1.5 * uu.unsqueeze(qax))
 
 
 def feq_transport_j(lat: Lattice, conc: torch.Tensor, u,

@@ -1,7 +1,7 @@
 """Forcing schemes: the Guo source term and the EFS force distribution
 (counterpart of ``openlbmpm_tpu/ops/forcing.py``).  Fields may carry
-leading axes (fluids): u and F components (..., ny, nx), results
-(..., Q, ny, nx)."""
+leading axes (fluids): u and F components (..., *spatial), results
+(..., Q, *spatial)."""
 
 from __future__ import annotations
 
@@ -15,16 +15,17 @@ __all__ = ["guo_source", "efs_force_pdf"]
 
 def guo_source(lat: Lattice, u, force, prefactor=None) -> torch.Tensor:
     """S_i = w_i [3 (e_i - u) + 9 e_i (e_i . u)] . F, times `prefactor`
-    (a scalar or a (..., ny, nx) field) when given."""
+    (a scalar or a (..., *spatial) field) when given; Q at -(lat.dim + 1)."""
+    qax = -(lat.dim + 1)
     eu = e_dot_u(lat, u)
     acc = 0.0
     for d in range(lat.dim):
-        ed = bcast_1d(lat.e[:, d], u[d])
-        acc = acc + (3.0 * (ed - u[d].unsqueeze(-3)) + 9.0 * ed * eu) * \
-            force[d].unsqueeze(-3)
-    src = bcast_1d(lat.w, u[0]) * acc
+        ed = bcast_1d(lat.e[:, d], u[d], lat.dim)
+        acc = acc + (3.0 * (ed - u[d].unsqueeze(qax)) + 9.0 * ed * eu) * \
+            force[d].unsqueeze(qax)
+    src = bcast_1d(lat.w, u[0], lat.dim) * acc
     if prefactor is not None:
-        pf = prefactor.unsqueeze(-3) if torch.is_tensor(prefactor) and \
+        pf = prefactor.unsqueeze(qax) if torch.is_tensor(prefactor) and \
             prefactor.dim() > 0 else prefactor
         src = src * pf
     return src

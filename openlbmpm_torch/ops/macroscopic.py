@@ -1,6 +1,7 @@
 """Macroscopic moments (counterpart of ``openlbmpm_tpu/ops/macroscopic.py``).
 
-PDF stacks are f = (..., Q, ny, nx); leading axes batch fluids."""
+PDF stacks are f = (..., Q, *spatial) with Q at -(dim + 1); leading axes
+batch fluids."""
 
 from __future__ import annotations
 
@@ -10,18 +11,31 @@ import torch
 from ..lattice import Lattice
 from .common import bcast_1d
 
-__all__ = ["density", "momentum", "sc_common_velocity", "pressure_sc"]
+__all__ = ["density", "momentum", "ordered_sum", "sc_common_velocity",
+           "pressure_sc"]
 
 
-def density(f: torch.Tensor) -> torch.Tensor:
-    """rho = sum_i f_i over the Q axis of f = (..., Q, ny, nx)."""
-    return torch.sum(f, dim=-3)
+def ordered_sum(terms: torch.Tensor, axis: int) -> torch.Tensor:
+    """Sum over `axis` in index order, as XLA reduces it and the kernels
+    add (torch.sum adds in another order, an ulp apart; a wetting rotation
+    near its threshold turns that ulp into a visible difference)."""
+    out = terms.select(axis, 0)
+    for i in range(1, terms.shape[axis]):
+        out = out + terms.select(axis, i)
+    return out
+
+
+def density(f: torch.Tensor, spatial_dim: int) -> torch.Tensor:
+    """rho = sum_i f_i over the Q axis of f = (..., Q, *spatial), with
+    `spatial_dim` spatial axes (the Q axis is -(spatial_dim + 1))."""
+    return ordered_sum(f, -1 - spatial_dim)
 
 
 def momentum(lat: Lattice, f: torch.Tensor):
-    """(sum_i f_i e_ix, sum_i f_i e_iy)."""
-    return tuple(torch.sum(bcast_1d(lat.e[:, d], f) * f, dim=-3)
-                 for d in range(lat.dim))
+    """(sum_i f_i e_ix, sum_i f_i e_iy[, sum_i f_i e_iz]) over the Q axis at
+    -(lat.dim + 1)."""
+    return tuple(ordered_sum(bcast_1d(lat.e[:, d], f, lat.dim) * f,
+                             -1 - lat.dim) for d in range(lat.dim))
 
 
 def sc_common_velocity(lat: Lattice, f_k: torch.Tensor, rho_k: torch.Tensor,

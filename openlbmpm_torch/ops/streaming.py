@@ -17,27 +17,33 @@ __all__ = ["upwind_solid_masks", "stream", "stream_moving_wall"]
 
 
 def upwind_solid_masks(lat: Lattice, is_solid: np.ndarray) -> np.ndarray:
-    """(Q, ny, nx) bool: is the upwind source x - e_i a solid node?"""
+    """(Q, *spatial) bool: is the upwind source x - e_i a solid node?
+    is_solid is (ny, nx) or, on a 3-D lattice, (nz, ny, nx)."""
     is_solid = np.asarray(is_solid, dtype=bool)
     masks = [np.zeros_like(is_solid)]  # the rest population never bounces
     for i in range(1, lat.q):
-        d = lat.e[i]
-        masks.append(np.roll(is_solid, shift=(int(d[1]), int(d[0])),
-                             axis=(0, 1)))
+        d = [int(c) for c in lat.e[i]]
+        masks.append(np.roll(is_solid, shift=tuple(d[::-1]),
+                             axis=tuple(range(lat.dim))))
     return np.stack(masks)
+
+
+def _pull_e(a: torch.Tensor, lat: Lattice, i: int) -> torch.Tensor:
+    return pull(a, *(int(c) for c in lat.e[i]))
 
 
 def stream(f: torch.Tensor, lat: Lattice,
            upwind_solid: torch.Tensor) -> torch.Tensor:
-    """Stream a (..., Q, ny, nx) PDF stack (leading axes batch fluids or
+    """Stream a (..., Q, *spatial) PDF stack (leading axes batch fluids or
     tracers); values on solid nodes are not meaningful (callers mask
     them)."""
-    outs = [f[..., 0, :, :]]
+    qax = -(lat.dim + 1)
+    outs = [f.select(qax, 0)]
     for i in range(1, lat.q):
-        pulled = pull(f[..., i, :, :], int(lat.e[i, 0]), int(lat.e[i, 1]))
+        pulled = _pull_e(f.select(qax, i), lat, i)
         outs.append(torch.where(upwind_solid[i],
-                                f[..., int(lat.opp[i]), :, :], pulled))
-    return torch.stack(outs, dim=-3)
+                                f.select(qax, int(lat.opp[i])), pulled))
+    return torch.stack(outs, dim=qax)
 
 
 def stream_moving_wall(f: torch.Tensor, lat: Lattice,

@@ -5,11 +5,11 @@
   reader's special cases; ``config_fingerprint`` is the same hash;
 * checkpoints cross between the packages both ways, bit for bit, and a run
   resumes from the other package's checkpoint;
-* ``python -m openlbmpm_torch run --model cg|transport --device cpu
-  --dtype f64`` against the JAX CLI's ``--no-pallas --dtype f64`` run (its
-  steps un-jitted under ``jax.disable_jit``, as the port is held to the
-  un-jitted JAX step): results and final checkpoint to 1e-12, the physics
-  fields of metrics.jsonl to 1e-10;
+* ``python -m openlbmpm_torch run --model cg|transport|sc|cg3d --device
+  cpu --dtype f64`` against the JAX CLI's ``--no-pallas --dtype f64`` run
+  (its steps un-jitted under ``jax.disable_jit``, as the port is held to
+  the un-jitted JAX step): results and final checkpoint to 1e-12 (cg3d:
+  1e-10), the physics fields of metrics.jsonl to 1e-10;
 * the metrics helpers, ``inspect``, the refusals and the notes.
 """
 
@@ -43,6 +43,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CG_INI = os.path.join(ROOT, "configs", "rk_csf2d.ini")
 TR_INI = os.path.join(ROOT, "configs", "transportsetup.ini")
 SC_INI = os.path.join(ROOT, "configs", "twophasesetup.ini")
+CG3D_INI = os.path.join(ROOT, "configs", "rk_csf3d.ini")
 
 
 def _ini(tmp_path, src, name, edits):
@@ -318,6 +319,92 @@ def test_cli_sc_matches_jax_cli_f64(tmp_path, scheme):
                   tmp_path / "t" / "metrics.jsonl")
 
 
+def _mini3d(tmp_path):
+    """rk_csf3d.ini cut to 12x12x24, 10 steps, output every 5 (the JAX
+    package's test_cli_run_cg3d_with_resume setup)."""
+    return _ini(tmp_path, CG3D_INI, "small3d.ini", {
+        "xDomain = .*": "xDomain = 12", "yDomain = .*": "yDomain = 12",
+        "zDomain = .*": "zDomain = 24", "TimeSteps = .*": "TimeSteps = 10",
+        "TimeInterval = .*": "TimeInterval = 5"})
+
+
+def test_cli_cg3d_matches_jax_cli_f64(tmp_path):
+    """10 f64 steps of the 12x12x24 box (NEBB velocity inlet, pressure
+    outlet) on the split state: results and checkpoint to 1e-10, the
+    physics of metrics.jsonl to 1e-10; the run prints its path."""
+    ini = _mini3d(tmp_path)
+    common = ["run", ini, "--model", "cg3d", "--dtype", "f64"]
+    _jax_cli(common + ["--no-pallas", "--output", str(tmp_path / "j")])
+    text = _torch_cli(common + ["--device", "cpu", "--output",
+                                str(tmp_path / "t")])
+    assert "velocity/dirichlet: the plain step on cpu, split state" in text
+    with np.load(tmp_path / "j" / "checkpoint.npz") as zj, \
+            np.load(tmp_path / "t" / "checkpoint.npz") as zt:
+        _same_arrays({k: zj[k] for k in zj.files if k != "__treedef__"},
+                     {k: zt[k] for k in zt.files if k != "__treedef__"},
+                     atol=1e-10)
+    got = _results(tmp_path / "t", "SimulationResultsRK3D")
+    assert len(got) == 3 * 2       # steps 0, 5, 10: rho_r, rho_b
+    _same_arrays(_results(tmp_path / "j", "SimulationResultsRK3D"), got,
+                 atol=1e-10)
+    _same_records(tmp_path / "j" / "metrics.jsonl",
+                  tmp_path / "t" / "metrics.jsonl")
+
+
+def test_cli_cg3d_resumes_from_a_jax_checkpoint(tmp_path):
+    """JAX runs 5 steps; the port resumes its checkpoint for 5 more and
+    lands within 1e-12 of a port run of 10 steps straight."""
+    ini = _mini3d(tmp_path)
+    common = ["run", ini, "--model", "cg3d", "--dtype", "f64"]
+    out = str(tmp_path / "resumed")
+    _jax_cli(common + ["--no-pallas", "--steps", "5", "--output", out])
+    text = _torch_cli(common + ["--device", "cpu", "--steps", "5",
+                                "--resume", "--output", out])
+    assert "resumed from step 5" in text
+    _torch_cli(common + ["--device", "cpu", "--steps", "10", "--output",
+                         str(tmp_path / "straight")])
+    _same_checkpoint(tmp_path / "straight" / "checkpoint.npz",
+                     os.path.join(out, "checkpoint.npz"))
+
+
+@pytest.mark.parametrize("layout", ["split", "packed"])
+def test_cg3d_checkpoints_cross_both_ways_bit_for_bit(tmp_path, layout):
+    """A 3-D state in either layout, saved by either package under the CLI's
+    fingerprint, loads in the other bit for bit; the fingerprints of the
+    INI's parameters with the layout are the same hash."""
+    rng = np.random.default_rng(11)
+    if layout == "split":
+        state = tuple(rng.uniform(0.0, 0.2, (2, 19, 8, 6, 5)))
+    else:
+        state = rng.uniform(0.0, 0.2, (20, 8, 6, 5))
+    fps = [ck.config_fingerprint({"params": dataclasses.asdict(
+        cfg.load_colorgradient3d(CG3D_INI)[0]), "state_layout": layout})
+        for ck, cfg in ((jck, jconfig), (tck, tconfig))]
+    assert fps[0] == fps[1]
+    as_j = tuple(map(jnp.asarray, state)) if layout == "split" \
+        else jnp.asarray(state)
+    as_t = tuple(map(torch.from_numpy, state)) if layout == "split" \
+        else torch.from_numpy(state)
+    jck.save_checkpoint(str(tmp_path / "j.npz"), as_j, 7, fps[0])
+    tck.save_checkpoint(str(tmp_path / "t.npz"), as_t, 7, fps[1])
+    like = tuple(torch.zeros_like(x) for x in as_t) if layout == "split" \
+        else torch.zeros_like(as_t)
+    got_t, step_t = tck.load_checkpoint(str(tmp_path / "j.npz"), like, fps[1])
+    got_j, step_j = jck.load_checkpoint(str(tmp_path / "t.npz"), as_j, fps[0])
+    assert step_t == step_j == 7
+    for a, b, c in zip(*(x if layout == "split" else (x,)
+                         for x in (state, got_t, got_j))):
+        np.testing.assert_array_equal(b.numpy().view(np.uint8),
+                                      np.asarray(a).view(np.uint8))
+        np.testing.assert_array_equal(np.asarray(c).view(np.uint8),
+                                      np.asarray(a).view(np.uint8))
+    other = "packed" if layout == "split" else "split"
+    with pytest.raises(ValueError, match="fingerprint"):
+        tck.load_checkpoint(str(tmp_path / "j.npz"), like,
+                            tck.config_fingerprint({"params": {},
+                                                    "state_layout": other}))
+
+
 def test_sc_checkpoint_crosses_both_ways(tmp_path):
     """A (K, 9, ny, nx) Shan-Chen state, saved by either package, loads in
     the other bit for bit."""
@@ -337,7 +424,7 @@ def test_sc_checkpoint_crosses_both_ways(tmp_path):
 
 
 @pytest.mark.parametrize("model,path", [("cg", CG_INI), ("transport", TR_INI),
-                                        ("sc", SC_INI)])
+                                        ("sc", SC_INI), ("cg3d", CG3D_INI)])
 def test_inspect_prints_what_jax_prints(model, path):
     with contextlib.redirect_stdout(io.StringIO()) as out:
         assert jcli.main(["inspect", path, "--model", model]) == 0

@@ -13,10 +13,14 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (COUPLED_CASES, SC_CASES, SC_KERNEL_CASES,
+from chip_smoke import (CG3D_CASES, COUPLED_CASES, SC_CASES,
+                        SC_KERNEL_CASES, bf16_one_step_3d, cg3d_case,
                         coupled_conc0, flagship_flow, sc_case, sc_config,
                         split_cases, split_coupled_cases)
 from openlbmpm_torch.geometry import from_solid_mask
+from openlbmpm_torch.kernels.cg3d import (
+    cg3d_step_compressed, cg3d_step_compressed_reference, cg3d_step_split,
+    cg3d_step_split_reference)
 from openlbmpm_torch.kernels.csf import (
     compare_bf16_states, csf_step_compressed, csf_step_compressed_reference,
     csf_step_split, csf_step_split_reference)
@@ -383,3 +387,52 @@ def test_golden_sc_mini_through_kernel(cuda):
     """tests/golden/sc_mini.npz through K8 at f64 (1e-10)."""
     from chip_smoke import phase_sc_golden
     assert phase_sc_golden(cuda) <= 1e-10
+
+
+# -- the D3Q19 CSF step (K9) -------------------------------------------------
+
+K9_SHAPE = (24, 20, 16)
+
+
+@pytest.mark.parametrize("case", sorted(c for c in CG3D_CASES
+                                        if c != "grain_pack"))
+def test_cg3d_kernels_match_plain_f64(cuda, case):
+    """K9c and K9s against their plain versions, 10 f64 steps (phase 20 of
+    chip_smoke.py at a smaller size; the grain pack runs there)."""
+    m, st = cg3d_case(case, cuda, shape=K9_SHAPE)
+    a = b = m.pack_state(*st)
+    x = y = st
+    for _ in range(10):
+        a, b = cg3d_step_compressed(a, m), cg3d_step_compressed_reference(b, m)
+        x, y = cg3d_step_split(x, m), cg3d_step_split_reference(y, m)
+    torch.cuda.synchronize(cuda)
+    assert bool(torch.isfinite(a).all())
+    assert float((a - b).abs().max()) <= 1e-11
+    assert max(float((p - q).abs().max()) for p, q in zip(x, y)) <= 1e-11
+
+
+def test_cg3d_bf16_one_step_within_one_ulp(cuda):
+    m, st = cg3d_case("velocity_convective", cuda, shape=K9_SHAPE,
+                      dtype=torch.float32, storage="bf16")
+    h = m.pack_state_bf16(*st)
+    for _ in range(3):
+        h = cg3d_step_compressed_reference(h, m)
+    away = torch.ones(m.geo.shape, dtype=torch.bool, device=cuda)
+    away[:3] = away[K9_SHAPE[0] - 2:] = False
+    assert bf16_one_step_3d(m, h, away)["excess"] <= 1.0
+
+
+def test_cg3d_steps_count_launches_and_check_states(cuda):
+    m, st = cg3d_case("velocity_dirichlet", cuda, shape=K9_SHAPE,
+                      dtype=torch.float32)
+    assert m.path == "kernel"
+    cg3d_step_compressed.launches = cg3d_step_split.launches = 0
+    s = m.step_c(m.pack_state(*st))
+    st = m.step(st)
+    assert (cg3d_step_compressed.launches, cg3d_step_split.launches) == (1, 1)
+    with pytest.raises(ValueError, match="state"):
+        m.step_c(s.double())
+    with pytest.raises(ValueError, match="split state"):
+        m.step(tuple(t.double() for t in st))
+    assert cg3d_step_compressed.launches == 1
+

@@ -36,7 +36,8 @@ _IMPORT_ALL = (
     "openlbmpm_torch.checkpoint, openlbmpm_torch.metrics, "
     "openlbmpm_torch.io, openlbmpm_torch.lattice, openlbmpm_torch.geometry, "
     "openlbmpm_torch.models.shanchen, openlbmpm_torch.ops.shanchen, "
-    "openlbmpm_torch.kernels.shanchen, sys; ")
+    "openlbmpm_torch.kernels.shanchen, openlbmpm_torch.models.flow3d, "
+    "openlbmpm_torch.kernels.cg3d, sys; ")
 
 
 def _run(code):
@@ -62,6 +63,7 @@ def test_import_isolation(check):
 @pytest.mark.parametrize("model,ini,want", [
     ("cg", "rk_csf2d.ini", '"collision": "MRT"'),
     ("sc", "twophasesetup.ini", '"scheme": "SC"'),
+    ("cg3d", "rk_csf3d.ini", '"surface_tension": 0.005'),
 ])
 def test_cli_runs_without_jax(tmp_path, model, ini, want):
     """``python -m openlbmpm_torch inspect`` in a fresh interpreter that can
@@ -141,17 +143,23 @@ def test_cuda_device_without_card_raises():
 
 @pytest.mark.parametrize("entry", ["resolve_device", "state_from_numpy",
                                    "ColorGradientRK", "TransportRK",
-                                   "ShanChenMCMP"])
-def test_entry_points_default_to_the_card(entry):
+                                   "ShanChenMCMP", "ColorGradientRK3D",
+                                   "cli_cg3d"])
+def test_entry_points_default_to_the_card(entry, tmp_path):
     """Built without ``device=``, each entry point asks for CUDA: here,
     with no card, it raises."""
     from openlbmpm_torch import resolve_device
     from openlbmpm_torch.convert import state_from_numpy
-    from openlbmpm_torch.models import (ColorGradientRK, ShanChenMCMP,
-                                        ShanChenParams, TransportRK)
+    from openlbmpm_torch import cli
+    from openlbmpm_torch.models import (ColorGradientParams3D,
+                                        ColorGradientRK, ColorGradientRK3D,
+                                        ShanChenMCMP, ShanChenParams,
+                                        TransportRK)
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
     geometry = tgeo.box_with_walls(8, 16)
+    box3d = tgeo.from_solid_mask(np.zeros((8, 6, 6), bool))
+    ini3d = os.path.join(ROOT, "configs", "rk_csf3d.ini")
     make = {
         "resolve_device": lambda: resolve_device(),
         "state_from_numpy": lambda: state_from_numpy(np.zeros((9, 4, 4))),
@@ -160,6 +168,11 @@ def test_entry_points_default_to_the_card(entry):
         "ShanChenMCMP": lambda: ShanChenMCMP(geometry, ShanChenParams(
             g_matrix=((0.0, 3.6), (3.6, 0.0)), g_solid=(0.0, 0.0),
             tau=(1.0, 1.0))),
+        "ColorGradientRK3D": lambda: ColorGradientRK3D(
+            box3d, ColorGradientParams3D()),
+        "cli_cg3d": lambda: cli.main(["run", ini3d, "--model", "cg3d",
+                                      "--steps", "1", "--output",
+                                      str(tmp_path)]),
     }[entry]
     with pytest.raises(RuntimeError, match="cuda"):
         make()

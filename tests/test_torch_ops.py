@@ -83,7 +83,7 @@ def _cases():
                             tcommon.shift(T(F.f), 1, -1))
     c["pull"] = lambda F: (jcommon.pull(J(F.f), -1, 1),
                            tcommon.pull(T(F.f), -1, 1))
-    c["density"] = lambda F: (jmac.density(J(F.f)), tmac.density(T(F.f)))
+    c["density"] = lambda F: (jmac.density(J(F.f)), tmac.density(T(F.f), 2))
     c["momentum"] = lambda F: (jmac.momentum(d, J(F.f)),
                                tmac.momentum(d, T(F.f)))
     c["feq_quadratic"] = lambda F: (
