@@ -112,7 +112,23 @@ toolkit (nvcc) and PyTorch built for CUDA; JAX is not needed.  Phases:
      steps), then the K9h and K9s main paths through ``run_chunked``;
  23. ``run --model cg3d`` on configs/rk_csf3d.ini: one K9c launch a step;
  24. MLUPS of K9c, K9h and K9s at 128^3 and 256^3 and of the plain paths at
-     128^3, device time per launch and the roofline share.
+     128^3, device time per launch and the roofline share;
+ 25. f64: the coupled D3Q19 CSF + D3Q7 tracer kernel K9t against its plain
+     version, 20 steps, in every case of CG3D_TRANSPORT_CASES (an open
+     periodic box, the probe's walls and boundaries, a Dirichlet outlet with
+     two tracers, no interface, the grain pack); flow state and tracer PDFs
+     <= 1e-11, the grain pack to the phase 20 twin rule;
+ 26. benchmarks/probe_coupled3d.py's configuration at 128^3, 10 steps from
+     one f64 start: f64 <= 1e-11 and the tracer's leak into the red phase <
+     1e-10 of its mass; f32 and bf16 flow storage (f32 tracers) against the
+     plain path by phase 21's rule (``_hold``, PROBE3D_TWIN_CAP), the bf16
+     tracer mass within 1e-6 of the f32 run's; ``chip_faults.py`` shows a
+     tracer fault planted in the f32 instance failing this phase;
+ 27. ``run --model transport3d`` on configs/transportsetup.ini with
+     rk_csf3d.ini, 1000 steps: one K9t launch a step, finite tracer masses;
+     then ``run_chunked(step_c)`` with bf16 flow storage at 128^3;
+ 28. MLUPS of K9t (f32 and bf16 flow storage) at 128^3 and 256^3 and of its
+     plain paths at 128^3, device time per launch and the roofline share.
 
 Every phase prints one line or more, each number line with the card's name
 and power limit, and any failure exits non-zero.  Then the wall time, the
@@ -1876,16 +1892,17 @@ CONFIG5_TWIN_CAP = {"K9c f32": 1.6e-3, "K9s f32": 3.6e-7, "K9h planes": 1.6e-4,
 
 
 def _hold(tag, g, bound):
-    """The phase 21 bounds: `bound` on the cells far from walls and seam;
-    on `away` no more than `bound` or the plain path's own twin gap, the
-    latter capped at CONFIG5_TWIN_CAP[tag]; and no further from f64 than
-    1.5x the plain path or its twin, or `bound`."""
+    """The phase 21 bounds (phase 26's too): `bound` on the cells far from
+    walls and seam; on `away` no more than `bound` or the plain path's own
+    twin gap, the latter capped at TWIN_CAP[tag]; and no further from f64
+    than 1.5x the plain path or its twin, or `bound`."""
+    cap = TWIN_CAP[tag]
     check(g["far"] <= bound, f"{tag}: |kernel - plain| far from walls and "
           f"seam {g['far']:.3e} > {bound:g}")
-    twin = min(g["twin_away"], CONFIG5_TWIN_CAP[tag])
+    twin = min(g["twin_away"], cap)
     check(g["away"] <= max(bound, twin), f"{tag}: |kernel - plain| off the "
           f"seam {g['away']:.3e} > max({bound:g}, plain twin "
-          f"{g['twin_away']:.3e} capped at {CONFIG5_TWIN_CAP[tag]:g})")
+          f"{g['twin_away']:.3e} capped at {cap:g})")
     k, p, t = g["from_f64"]
     check(k <= max(bound, 1.5 * max(p, t)), f"{tag}: kernel {k:.3e} from "
           f"f64, plain {p:.3e}, twin {t:.3e}")
@@ -2147,6 +2164,370 @@ def phase20_24_lines(r20, r21, r22, r23, r24, card):
     return lines
 
 
+# -- the coupled D3Q19 CSF + D3Q7 tracer step: K9t ----------------------------
+
+_TRACER3D = dict(num_tracers=1, tau=(1.0,), j0=(0.25,),
+                 interface_mode="bounceback")
+# name -> (ColorGradientParams3D fields, CG3DBoundaryConfig fields,
+# geometry, flow start as in CG3D_CASES or "half" (red in the top half),
+# TransportRK3D tracer arguments, tracer start: "blue" at 1 in slabs
+# [nz/10, 3nz/10), "bottom" at 1 in the bottom quarter, "random" uniform
+# in [0, 1) on every cell, red and solid included).  Phase 25 and
+# tests/test_torch_transport3d.py use it.
+CG3D_TRANSPORT_CASES = {
+    # tests/test_flow3d.py's coupled setup: an open periodic box
+    "periodic_box": (dict(surface_tension=0.005), {}, "open", "half",
+                     _TRACER3D, "blue"),
+    # benchmarks/probe_coupled3d.py: y walls, velocity inlet, convective
+    "probe": CG3D_CASES["velocity_convective"] + (_TRACER3D, "bottom"),
+    "dirichlet_nt2": CG3D_CASES["velocity_dirichlet"] + (dict(
+        num_tracers=2, tau=(1.0, 0.8), j0=(0.25, 0.4),
+        interface_mode="bounceback"), "random"),
+    "interface_none": CG3D_CASES["velocity_convective"] + (
+        _TRACER3D | dict(interface_mode="none"), "random"),
+    "grain_pack": CG3D_CASES["grain_pack"] + (_TRACER3D, "bottom"),
+}
+
+
+def tracer_start(kind, nt, shape, seed=0):
+    """(nt, nz, ny, nx) initial concentrations of a CG3D_TRANSPORT_CASES
+    start (numpy, from `seed`)."""
+    nz = shape[0]
+    conc0 = np.zeros((nt,) + tuple(shape))
+    if kind == "blue":
+        conc0[:, nz // 10:3 * nz // 10] = 1.0
+    elif kind == "bottom":
+        conc0[:, :nz // 4] = 1.0
+    else:
+        conc0[:] = np.random.default_rng(seed).uniform(0.0, 1.0, conc0.shape)
+    return conc0
+
+
+def transport3d_case(name, device, shape=(48, 40, 32), dtype=torch.float64,
+                     storage="f32"):
+    """The port's TransportRK3D of case `name` on an (nz, ny, nx) domain
+    (the grain pack: (nz,)*3) and its split state (f_r, f_b, g)."""
+    from openlbmpm_torch.geometry import from_solid_mask
+    from openlbmpm_torch.models.flow3d import (
+        CG3DBoundaryConfig, ColorGradientParams3D, TransportRK3D)
+    p, b, kind, init, tracer, start = CG3D_TRANSPORT_CASES[name]
+    if kind == "grains":
+        shape = (shape[0],) * 3
+    m = TransportRK3D(from_solid_mask(cg3d_solid(kind, shape)),
+                      ColorGradientParams3D(**p),
+                      boundaries=CG3DBoundaryConfig(**b), dtype=dtype,
+                      device=device, storage=storage, **tracer)
+    if init == "droplet":
+        fs = m.flow.init_state_droplet(1.0, 1.0, radius=min(shape) / 4)
+    else:
+        fs = m.flow.init_state_layers(1.0, 1.0, invading_slabs=shape[0] // (
+            2 if init == "half" else 4))
+    return m, m.init_state(fs, tracer_start(start, m.transport.num_tracers,
+                                            shape))
+
+
+def _step2(fn):
+    """fn(s, g, model) as a step of the pair x = (s, g)."""
+    return lambda x, m: fn(*x, m)
+
+
+def _pair_gap(a, b):
+    """(max |s - s'|, max |g - g'|) of two coupled states."""
+    return tuple(float((x - y).abs().max()) for x, y in zip(a, b))
+
+
+def phase_transport3d_f64(device, shape=(48, 40, 32), grain=32, steps=20,
+                          tol=1e-11):
+    """K9t against its plain version at f64 in every case of
+    CG3D_TRANSPORT_CASES, `steps` steps from the packed state: flow state
+    and tracer PDFs each <= tol; the grain pack <= max(tol, 2x the plain
+    path's own gap when its input moves by one ulp), as in phase 20."""
+    from openlbmpm_torch.kernels.cg3d import (
+        coupled3d_step_compressed, coupled3d_step_compressed_reference)
+    kt = _step2(coupled3d_step_compressed)
+    pt = _step2(coupled3d_step_compressed_reference)
+    res = {}
+    for name in CG3D_TRANSPORT_CASES:
+        m, st = transport3d_case(name, device, shape=(grain,) * 3
+                                 if name == "grain_pack" else shape)
+        x = m.pack(st)
+        a, b, gap = x, x, (0.0, 0.0)
+        for _ in range(steps):
+            a, b = kt(a, m), pt(b, m)
+            gap = tuple(map(max, gap, _pair_gap(a, b)))
+        check(all(bool(torch.isfinite(t).all()) for t in a),
+              f"K9t f64 {name}: state not finite")
+        bound = (tol, tol)
+        if name == "grain_pack":
+            twin = _run(pt, (_twin(x[0]), _twin(x[1], 1)), m, steps)
+            bound = tuple(max(tol, 2 * v) for v in _pair_gap(twin, b))
+        check(gap[0] <= bound[0], f"K9t f64 {name}: flow {gap[0]:.3e} > "
+              f"{bound[0]:.3e}")
+        check(gap[1] <= bound[1], f"K9t f64 {name}: tracer {gap[1]:.3e} > "
+              f"{bound[1]:.3e}")
+        res[name] = gap + bound
+    return res
+
+
+_PROBE3D_MODELS = {}
+
+
+def probe3d_model(device, storage="f32", dtype=torch.float32, n=128):
+    """benchmarks/probe_coupled3d.py's configuration at n^3: an n^3 channel
+    with walls on the y faces, sigma 0.01, tau_r 1.0, tau_b 0.8, 60 degrees,
+    velocity inlet v_z = -1e-3, convective outlet, one tracer (tau 1.0, j0
+    0.25, bounce-back).  Phases 26-28 share one per (device, storage,
+    dtype, n)."""
+    from openlbmpm_torch.geometry import from_solid_mask
+    from openlbmpm_torch.models.flow3d import (
+        CG3DBoundaryConfig, ColorGradientParams3D, TransportRK3D)
+    key = (str(device), storage, dtype, n)
+    if key not in _PROBE3D_MODELS:
+        _PROBE3D_MODELS[key] = TransportRK3D(
+            from_solid_mask(cg3d_solid("walls", (n,) * 3)),
+            ColorGradientParams3D(**_CG3D), boundaries=CG3DBoundaryConfig(
+                **_VCONV), dtype=dtype, device=device, storage=storage,
+            **_TRACER3D)
+    return _PROBE3D_MODELS[key]
+
+
+def probe3d_start(m):
+    """The probe's start (f_r, f_b, g): red in the top n/8 slabs, the tracer
+    at 1 in the bottom n/4."""
+    nz = m.geo.shape[0]
+    fs = m.flow.init_state_layers(1.0, 1.0, invading_slabs=nz // 8)
+    return m.init_state(fs, tracer_start("bottom", 1, m.geo.shape))
+
+
+# Caps on the twin term of the phase 26 bounds: twice the plain path's
+# one-ulp twin gap off the seam measured at the probe's configuration,
+# 128^3, 10 steps, rounded up (readings 2.056e-4, 3.725e-8, 1.309e-5,
+# 2.060e-4, 3.725e-8 on an H100; PERF.md section 2).
+PROBE3D_TWIN_CAP = {"K9t f32": 4.2e-4, "K9t f32 tracer": 7.5e-8,
+                    "K9t bf16 planes": 2.7e-5, "K9t bf16 rho_r": 4.2e-4,
+                    "K9t bf16 tracer": 7.5e-8}
+TWIN_CAP = CONFIG5_TWIN_CAP | PROBE3D_TWIN_CAP
+
+
+def _flat(g):
+    """Tracer PDFs (NT, 7, nz, ny, nx) as planes (NT * 7, nz, ny, nx)."""
+    return g.flatten(0, 1)
+
+
+def phase_probe3d(device, n=128, steps=10):
+    """The probe's configuration at n^3, `steps` steps of K9t and its plain
+    version from one f64 start: f64 (flow and tracer <= 1e-11, the tracer's
+    leak into rho_r > 0.5 < 1e-10 of its mass), f32 and bf16 flow storage
+    (f32 tracers) held by ``_hold`` against the plain path, its one-ulp twin
+    and the f64 run (flow as phase 21: 3e-5, bf16 planes 3e-4, rho_r 1e-4;
+    tracers 3e-5); total rho_r kernel vs plain <= 1e-4; the bf16 tracer
+    mass within 1e-6 of the f32 run's."""
+    from openlbmpm_torch.kernels.cg3d import (
+        coupled3d_step_compressed, coupled3d_step_compressed_reference)
+    kt = _step2(coupled3d_step_compressed)
+    pt = _step2(coupled3d_step_compressed_reference)
+    m64 = probe3d_model(device, dtype=torch.float64, n=n)
+    x64 = m64.pack(probe3d_start(m64))
+    p64, k64 = _run(pt, x64, m64, steps), _run(kt, x64, m64, steps)
+    res = {"f64": _pair_gap(k64, p64)}
+    check(max(res["f64"]) <= 1e-11, f"K9t probe f64 kernel vs plain "
+          f"{res['f64']}")
+    conc = m64.concentration(k64[1])[0]
+    res["mass64"] = (float(conc.sum()),
+                     float(m64.concentration(x64[1])[0].sum()))
+    res["leak"] = float(conc[k64[0][19] > 0.5].sum()) / res["mass64"][0]
+    check(res["leak"] < 1e-10, f"K9t probe f64: tracer leak {res['leak']:.2e}")
+    m32 = probe3d_model(device, n=n)
+    away, far = cg3d_masks(m32.flow, steps, device)
+    x32 = tuple(t.float() for t in x64)
+    tw32 = (_twin(x32[0]), _twin(x32[1], 1))
+    kern, plain, twin = (_run(fn, x, m32, steps) for fn, x in (
+        (kt, x32), (pt, x32), (pt, tw32)))
+    res["f32"] = _gaps(kern[0], plain[0], twin[0], p64[0], away, far)
+    res["f32_tracer"] = _gaps(*(_flat(y[1]) for y in (kern, plain, twin,
+                                                      p64)), away, far)
+    _hold("K9t f32", res["f32"], 3e-5)
+    _hold("K9t f32 tracer", res["f32_tracer"], 3e-5)
+    mh = probe3d_model(device, storage="bf16", n=n)
+    enc = mh.flow.pack_compressed_bf16
+    kh, ph, th = (_run(fn, x, mh, steps) for fn, x in (
+        (kt, (enc(x32[0]), x32[1])), (pt, (enc(x32[0]), x32[1])),
+        (pt, (enc(tw32[0]), tw32[1]))))
+    k, p, t = (mh.flow.unpack_bf16(y[0]) for y in (kh, ph, th))
+    res["bf16"] = {"planes": _gaps(k[:19], p[:19], t[:19], p64[0][:19], away,
+                                   far),
+                   "rho_r": _gaps(k[19:], p[19:], t[19:], p64[0][19:], away,
+                                  far),
+                   "tracer": _gaps(*(_flat(y[1]) for y in (kh, ph, th, p64)),
+                                   away, far),
+                   "max": float((k - p).abs().max())}
+    _hold("K9t bf16 planes", res["bf16"]["planes"], 3e-4)
+    _hold("K9t bf16 rho_r", res["bf16"]["rho_r"], 1e-4)
+    _hold("K9t bf16 tracer", res["bf16"]["tracer"], 3e-5)
+    for x, y, tag in ((kern[0], plain[0], "f32"), (k, p, "bf16")):
+        tot_k, tot_p = float(x[19].double().sum()), float(y[19].double().sum())
+        res[f"mass_{tag}"] = abs(tot_k - tot_p) / tot_p
+        check(res[f"mass_{tag}"] <= 1e-4, f"K9t probe {tag}: total rho_r "
+              f"kernel vs plain {res[f'mass_{tag}']:.2e}")
+    m_f32, m_bf16 = (float(y[1].double().sum()) for y in (kern, kh))
+    res["tracer_mass_bf16"] = abs(m_bf16 - m_f32) / m_f32
+    check(res["tracer_mass_bf16"] <= 1e-6, f"K9t probe: bf16 tracer mass "
+          f"{res['tracer_mass_bf16']:.2e} from the f32 run's")
+    return res
+
+
+def phase_transport3d_cli(device, steps=1000, n=128, bf16_steps=200):
+    """The main paths of K9t: ``run --model transport3d`` through
+    ``openlbmpm_torch.cli.main`` on configs/transportsetup.ini with
+    configs/rk_csf3d.ini (32x32x96, NEBB inlet, pressure outlet) as the flow
+    INI, f32, `steps` steps: the packed state on K9t, launched exactly
+    `steps` times, every tracer mass of metrics.jsonl finite; then
+    ``run_chunked(model.step_c)`` on the probe's configuration at n^3 with
+    bf16 flow storage for `bf16_steps` steps with the NaN guard."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+    from openlbmpm_torch import cli
+    from openlbmpm_torch.kernels.cg3d import coupled3d_step_compressed
+    from openlbmpm_torch.models.base import RunMetrics, run_chunked
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
+    with tempfile.TemporaryDirectory() as tmp:
+        coupled3d_step_compressed.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            rc = cli.main(["run", os.path.join(root, "transportsetup.ini"),
+                           "--model", "transport3d", "--physics-config",
+                           os.path.join(root, "rk_csf3d.ini"), "--steps",
+                           str(steps), "--output", tmp, "--device", "cuda"])
+        sec = time.perf_counter() - t0
+        launches = coupled3d_step_compressed.launches
+        check(rc == 0, f"cli run --model transport3d returned {rc}")
+        check("the kernel step on cuda, packed state" in text.getvalue(),
+              f"cli transport3d: {text.getvalue().splitlines()[:1]}")
+        check(launches == steps, f"cli transport3d: K9t launched {launches} "
+              f"times, want {steps}")
+        with open(os.path.join(tmp, "metrics.jsonl")) as fh:
+            recs = [json.loads(ln) for ln in fh if ln.strip()]
+        masses = [(r["step"], r["tracer0_mass"]) for r in recs]
+        check(masses[-1][0] == steps and
+              all(np.isfinite(v) for _, v in masses),
+              f"cli transport3d: tracer masses {masses}")
+        res = {"launches": launches, "sec": sec, "steps": steps,
+               "masses": masses,
+               "mlups": _mlups(os.path.join(tmp, "metrics.jsonl"))}
+    mh = probe3d_model(device, storage="bf16", n=n)
+    meter = RunMetrics(n ** 3)
+    coupled3d_step_compressed.launches = 0
+    s, g = run_chunked(mh.step_c, mh.pack(probe3d_start(mh)),
+                       num_steps=bf16_steps, io_interval=100, metrics=meter,
+                       nan_guard=True)
+    res["launches_bf16"] = coupled3d_step_compressed.launches
+    res["run_mlups_bf16"] = meter.mlups
+    check(res["launches_bf16"] == bf16_steps and s.dtype == torch.bfloat16
+          and g.dtype == torch.float32 and tuple(g.shape) == (1, 7, n, n, n),
+          f"K9t bf16 main path: {res['launches_bf16']} launches, state "
+          f"{s.dtype} {g.dtype} {tuple(g.shape)}")
+    return res
+
+
+TRANSPORT3D_KERNELS = CG3D_KERNELS + ("tracer_collide3d_kernel",
+                                      "tracer_stream3d_kernel")
+# least bytes per cell-step of K9t's function: K9's state in and out, one
+# f32 D3Q7 tracer (28 B) in and out, a 1-byte solid mask
+TRANSPORT3D_BYTES = {"f32": 2 * 80 + 2 * 28 + 1, "bf16": 2 * 42 + 2 * 28 + 1}
+TRANSPORT3D_FLOPS = CG3D_FLOPS + 100   # + one D3Q7 tracer, counted roughly
+
+
+def phase_transport3d_speed(device, sizes=(128, 256), steps=(50, 20),
+                            plain_steps=3):
+    """MLUPS of K9t with f32 and bf16 flow storage at each size and of the
+    plain paths at the first, in turns (plain, kernels, kernels, plain),
+    each kernel's device microseconds per launch from torch.profiler, and
+    the roofline share of TRANSPORT3D_BYTES."""
+    from openlbmpm_torch.kernels.cg3d import (
+        coupled3d_step_compressed, coupled3d_step_compressed_reference,
+        launch_cg3d_coupled)
+    res = {}
+    for n, k_steps in zip(sizes, steps):
+        models = {"f32": probe3d_model(device, n=n),
+                  "bf16": probe3d_model(device, storage="bf16", n=n)}
+        st = probe3d_start(models["f32"])
+        xs = {k: mod.pack(st) for k, mod in models.items()}
+        runs = {k: (lambda x, m=models[k]: coupled3d_step_compressed(*x, m),
+                    xs[k]) for k in models}
+        order = list(runs)
+        if n == sizes[0]:
+            runs |= {f"plain_{k}": (
+                lambda x, m=models[k]: coupled3d_step_compressed_reference(
+                    *x, m), xs[k]) for k in models}
+            order = ["plain_f32", "plain_bf16"] + order
+        sec = {}
+        for key in order + order[::-1]:
+            fn, x = runs[key]
+            t = _time_steps(fn, x, plain_steps if key.startswith("plain")
+                            else k_steps, device)
+            sec[key] = min(sec.get(key, float("inf")), t)
+        profile = {}
+        for key, m in models.items():
+            times = device_times(lambda x, m=m: launch_cg3d_coupled(
+                *x, m.flow.kernel_params, m.tracer_params, m.flow.geo_planes,
+                m.tracer_table), xs[key], TRANSPORT3D_KERNELS, steps=20)
+            profile.update({(key, k): v for k, v in times.items()})
+        res[n] = {"sec": sec, "profile": profile, "mlups": {
+            key: n ** 3 / t / 1e6 for key, t in sec.items()},
+            "roof": {key: TRANSPORT3D_BYTES[key] * n ** 3 / HBM_BYTES_PER_S
+                     / sec[key] for key in TRANSPORT3D_BYTES}}
+    return res
+
+
+def phase25_28_lines(r25, r26, r27, r28, card):
+    lines = ["phase 25 K9t f64 vs plain, 48x40x32 (grain pack 32^3), 20 "
+             "steps: max |diff| flow / tracer " + ", ".join(
+                 f"{k} {v[0]:.3e} / {v[1]:.3e}" for k, v in r25.items()) +
+             " (<= 1e-11; grain pack <= "
+             f"{r25['grain_pack'][2]:.3e} / {r25['grain_pack'][3]:.3e})"]
+
+    def g(x):
+        k, p, t = x["from_f64"]
+        return (f"max {x['max']:.3e}, off seam {x['away']:.3e} (plain twin "
+                f"{x['twin_away']:.3e}), far {x['far']:.3e}; from f64 kernel "
+                f"{k:.3e}, plain {p:.3e}, twin {t:.3e}")
+    b = r26["bf16"]
+    lines.append(
+        f"phase 26 probe_coupled3d 128^3, 10 steps [{card}]: f64 flow "
+        f"{r26['f64'][0]:.3e}, tracer {r26['f64'][1]:.3e}, leak "
+        f"{r26['leak']:.2e}, tracer mass {r26['mass64'][1]:.10g} -> "
+        f"{r26['mass64'][0]:.10g}; f32 flow {g(r26['f32'])}; f32 tracer "
+        f"{g(r26['f32_tracer'])}; bf16 planes {g(b['planes'])}; bf16 rho_r "
+        f"{g(b['rho_r'])}; bf16 tracer {g(b['tracer'])}; total rho_r kernel "
+        f"vs plain f32 {r26['mass_f32']:.2e}, bf16 {r26['mass_bf16']:.2e}; "
+        f"bf16 tracer mass vs f32 {r26['tracer_mass_bf16']:.2e}")
+    lines.append(
+        f"phase 27 cli run --model transport3d, rk_csf3d.ini 32x32x96 + "
+        f"transportsetup.ini, {r27['steps']} f32 steps [{card}]: "
+        f"{r27['launches']} K9t launches, {r27['sec']:.2f} s, metrics.jsonl "
+        f"MLUPS {r27['mlups']}, tracer0_mass " + ", ".join(
+            f"step {k} {v:.10g}" for k, v in r27["masses"]) +
+        f"; bf16 main path run_chunked {r27['launches_bf16']} launches, "
+        f"{r27['run_mlups_bf16']:.1f} MLUPS")
+    for n, r in r28.items():
+        sec = r["sec"]
+        lines.append(
+            f"phase 28 K9t {n}^3 [{card}]: MLUPS " + ", ".join(
+                f"{k} {r['mlups'][k]:.1f} ({sec[k] * 1e3:.4f} ms)"
+                for k in sec) + "; bound ms " + ", ".join(
+                f"{k} {v * n ** 3 / HBM_BYTES_PER_S * 1e3:.4f}"
+                for k, v in TRANSPORT3D_BYTES.items()) +
+            "; roofline share " + ", ".join(
+                f"{k} {v:.3f}" for k, v in r["roof"].items()) +
+            "; device us per launch (launches per step): " + ", ".join(
+                f"{k} {key} " + ("not measured" if v is None else
+                                 f"{v[0]:.2f} ({v[1]:g})")
+                for (key, k), v in r["profile"].items()))
+    return lines
+
+
 # kernels whose first integer template argument is the state layout
 LAYOUT_KERNELS = ("phase_kernel", "collide_stream_kernel",
                   "tracer_collide_kernel", "bc_kernel")
@@ -2162,7 +2543,7 @@ def ptxas_summary(log: str, sc: bool = False) -> str:
         if m:
             mangled = m.group(1)
             base = next((k for k in COUPLED_KERNELS + SC_KERNELS +
-                         CG3D_KERNELS if k in mangled), mangled)
+                         TRANSPORT3D_KERNELS if k in mangled), mangled)
             args = mangled.split(base)[-1]
             kind = ("bf16" if "bfloat16" in mangled else
                     "f64" if re.search(r"I[^E]*d", args) else "f32")
@@ -2307,6 +2688,19 @@ def main() -> int:
     for ln in phase20_24_lines(r20, r21, r22, r23, r24, card):
         print(ln)
 
+    t_3d = time.perf_counter() - t_start
+    t_k9t = {}
+    for key, fn in (("r25", phase_transport3d_f64), ("r26", phase_probe3d),
+                    ("r27", phase_transport3d_cli),
+                    ("r28", phase_transport3d_speed)):
+        t0 = time.perf_counter()
+        t_k9t[key] = (fn(device), time.perf_counter() - t0)
+    r25, r26, r27, r28 = (t_k9t[k][0] for k in sorted(t_k9t))
+    print("phases 25-28 wall s: " + ", ".join(
+        f"{k[1:]} {v[1]:.1f}" for k, v in sorted(t_k9t.items())))
+    for ln in phase25_28_lines(r25, r26, r27, r28, card):
+        print(ln)
+
     n2 = FLAGSHIP_N * FLAGSHIP_N
     csf = "openlbmpm_tpu/pallas/csf.py:147"
     entries = [kernel_entry(
@@ -2366,9 +2760,27 @@ def main() -> int:
             CG3D_BYTES[key], CG3D_FLOPS, 128 ** 3,
             max_abs_err_f64=f64, ms_256=r24[256]["sec"][key] * 1e3,
             bound_ms_256=CG3D_BYTES[key] * 256 ** 3 / HBM_BYTES_PER_S * 1e3))
+    k9t = r28[128]
+    f64_t = max(max(v[:2]) for v in r25.values())
+    for entry, label, key, launches, err in (
+            ("coupled3d_step_compressed", "K9t f32", "f32", r27["launches"],
+             max(r26["f32"]["max"], r26["f32_tracer"]["max"])),
+            ("coupled3d_step_compressed_bf16", "K9t bf16", "bf16",
+             r27["launches_bf16"],
+             max(r26["bf16"]["max"], r26["bf16"]["tracer"]["max"]))):
+        entries.append(kernel_entry(
+            entry, label, "openlbmpm_torch/csrc/cg3d.cuh",
+            f"{cg3d} (transport=, storage='{key}'; step :1324-1355)",
+            launches, err, k9t["sec"][key], k9t["sec"][f"plain_{key}"],
+            TRANSPORT3D_BYTES[key], TRANSPORT3D_FLOPS, 128 ** 3,
+            max_abs_err_f64=f64_t, mlups=k9t["mlups"][key],
+            ms_256=r28[256]["sec"][key] * 1e3,
+            mlups_256=r28[256]["mlups"][key],
+            bound_ms_256=TRANSPORT3D_BYTES[key] * 256 ** 3 /
+            HBM_BYTES_PER_S * 1e3))
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s "
-          f"(phases 1-14 {t_old:.1f} s, 1-19 {t_2d:.1f} s, build "
-          f"{t_build:.1f} s)")
+          f"(phases 1-14 {t_old:.1f} s, 1-19 {t_2d:.1f} s, 1-24 "
+          f"{t_3d:.1f} s, build {t_build:.1f} s)")
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -13,7 +13,11 @@ on a card it packs the state and steps ``ColorGradientRK3D.step_c`` (the
 compressed kernel), as the JAX CLI does on its accelerator, on the CPU the
 split plain step, as the JAX CLI does off it (the checkpoint fingerprint
 carries the layout, "packed" or "split"); ``--model transport`` steps the split
-``TransportRK.step`` (the split coupled kernels); ``--model sc`` steps
+``TransportRK.step`` (the split coupled kernels); ``--model transport3d``
+runs the coupled D3Q19 flow + D3Q7 tracer model of a transport INI and a
+3-D flow INI (``--physics-config``): on a card it packs the state and steps
+``TransportRK3D.step_c`` (the coupled kernel), on the CPU the split plain
+step, as the JAX CLI does on and off its accelerator; ``--model sc`` steps
 ``ShanChenMCMP.step`` on the (K, 9, ny, nx) state of a twophasesetup.ini
 and its physics INI (on a card, the Shan-Chen kernel, or the plain step
 for the configurations the JAX package also keeps off its kernel; the run
@@ -36,7 +40,7 @@ import sys
 
 import numpy as np
 
-PORTED = ("cg", "cg3d", "transport", "sc")
+PORTED = ("cg", "cg3d", "transport", "transport3d", "sc")
 MODELS = ("cg", "cg3d", "sc", "sc3d", "transport", "transport3d", "basic",
           "basic3d")
 
@@ -266,6 +270,62 @@ def _run_transport(args):
     return 0
 
 
+def _run_transport3d(args):
+    """The transport INI's tracers (bounce-back interface when its
+    BetaInterface is 0) in the 3-D flow INI's box, red and the tracers at 1
+    in the top max(8, nz // 10) slabs."""
+    from .config import load_colorgradient3d, load_transport
+    from .io import ResultWriter
+    from .metrics import MetricsLogger
+    from .models.base import run_chunked
+    from .models.flow3d import TransportRK3D
+
+    tparams = load_transport(args.config)
+    flow_params, dom, run, extras = load_colorgradient3d(
+        args.physics_config or args.config)
+    geometry = _box3d(dom)
+    dtype, dev = _setup(args)
+    model = TransportRK3D(
+        geometry, flow_params, num_tracers=tparams.num_tracers,
+        tau=tparams.tau, j0=tparams.j0,
+        interface_mode=("bounceback"
+                        if tparams.beta_interface[0] == 0.0 else "none"),
+        boundaries=extras["bcs"], dtype=dtype, device=dev)
+    top = max(8, dom["nz"] // 10)
+    nz, ny, nx = geometry.shape
+    conc0 = np.zeros((tparams.num_tracers, nz, ny, nx))
+    conc0[:, nz - top:] = 1.0
+    state = model.init_state(model.flow.init_state_layers(
+        extras["rho_r"], extras["rho_b"], invading_slabs=top), conc0)
+    if args.steps:
+        run = dataclasses.replace(run, num_steps=args.steps)
+    step_fn, layout = model.step, "split"
+    if model.path == "kernel":
+        state = model.pack(state)
+        step_fn, layout = model.step_c, "packed"
+    bcs = model.flow.bcs
+    print(f"openlbmpm_torch: --model transport3d, boundaries {bcs.inlet}/"
+          f"{bcs.outlet}, interface {model.transport.interface_mode}: the "
+          f"{model.path} step on {dev}, {layout} state")
+    _note_block(args)
+    writer = ResultWriter(args.output, basename="ConcentrationResults3D")
+    logger = MetricsLogger(os.path.join(args.output, "metrics.jsonl"),
+                           model.geo.num_fluid_nodes, echo=True)
+
+    def callback(step, s):
+        conc = model.concentration(s[-1])
+        writer.write_transport(step, _host(conc))
+        logger.log(step, **{f"tracer{i}_mass": float(conc[i].sum())
+                            for i in range(conc.shape[0])})
+        return False
+
+    run_chunked(step_fn, state, num_steps=run.num_steps,
+                io_interval=run.io_interval, callback=callback,
+                profile_dir=args.profile)
+    logger.close()
+    return 0
+
+
 def _shanchen_setup(config, physics_config, dtype, device):
     """The model, initial state and run settings of ``run --model sc``:
     the open channel of the main INI with the physics INI's fluids and
@@ -337,7 +397,8 @@ def _inspect(args):
                "cg3d": lambda: (load_colorgradient3d(args.config)[0],),
                "sc": lambda: load_shanchen(args.config,
                                            args.physics_config)[:2],
-               "transport": lambda: (load_transport(args.config),)}
+               "transport": lambda: (load_transport(args.config),),
+               "transport3d": lambda: (load_transport(args.config),)}
     for obj in loaders[args.model]():
         if dataclasses.is_dataclass(obj):
             obj = dataclasses.asdict(obj)
@@ -397,7 +458,8 @@ def main(argv=None) -> int:
         return _inspect(args)
     os.makedirs(args.output, exist_ok=True)
     return {"cg": _run_colorgradient, "cg3d": _run_colorgradient3d,
-            "sc": _run_shanchen, "transport": _run_transport}[args.model](args)
+            "sc": _run_shanchen, "transport": _run_transport,
+            "transport3d": _run_transport3d}[args.model](args)
 
 
 if __name__ == "__main__":

@@ -28,7 +28,8 @@ _PARAMS = (ColorGradientParams, CGBoundaryConfig, TransportParams,
            ShanChenParams, SCBoundaryConfig, ColorGradientParams3D,
            CG3DBoundaryConfig)
 
-__all__ = ["params_from_jax", "state_from_numpy", "state_to_numpy"]
+__all__ = ["params_from_jax", "transport3d_args_from_jax",
+           "state_from_numpy", "state_to_numpy"]
 
 
 def _plain(v):
@@ -56,6 +57,21 @@ def params_from_jax(p):
                     ", ".join(c.__name__ for c in _PARAMS))
 
 
+def transport3d_args_from_jax(model) -> dict:
+    """Keyword arguments of the port's ``TransportRK3D`` (besides the
+    geometry, dtype, device and storage) from a JAX ``TransportRK3D``: its
+    flow's parameters and boundaries, and its tracers' count, tau, J_0,
+    criteria and interface mode."""
+    tr = model.transport
+    return {"flow_params": params_from_jax(model.flow.p),
+            "boundaries": params_from_jax(model.flow.bcs),
+            "num_tracers": int(tr.num_tracers),
+            "tau": tuple(float(t) for t in np.atleast_1d(tr.tau)),
+            "j0": tuple(float(j) for j in np.asarray(tr.j_coeffs)[:, 0]),
+            "criteria": float(tr.criteria),
+            "interface_mode": tr.interface_mode}
+
+
 def _one_from_numpy(a, device, dtype):
     a = np.array(a)   # a writable contiguous copy
     if a.dtype.name == "bfloat16":
@@ -69,9 +85,9 @@ def state_from_numpy(arrays, device="cuda", dtype=None):
     """A state as torch tensors on `device`: a (10, ny, nx) or
     (20, nz, ny, nx) compressed array, a Shan-Chen (K, 9, ny, nx) array, an
     (11, ny, nx), (21, nz, ny, nx) or (K, 11, ny, nx) bfloat16 array (kept
-    bfloat16), a tuple of
-    arrays such as an (f_r, f_b) pair or a coupled (s, g) pair (returned
-    as a tuple), or a split TransportState (f_r, f_b, g, mass0), returned
+    bfloat16), a tuple of arrays such as an (f_r, f_b) pair, a coupled
+    (s, g) pair or a 3-D coupled (f_r, f_b, g) triple (returned as a
+    tuple), or a split TransportState (f_r, f_b, g, mass0), returned
     as the port's ``TransportState`` (``TransportRK.pack`` packs it to
     (s, g)).  `dtype` casts the non-bfloat16 arrays; None keeps each
     array's own type."""

@@ -41,6 +41,34 @@
 //      is the sum of the streamed red PDFs.  Recompute: (34*10)/(32*8) =
 //      1.33 in (x, y), (ZC + 2)/ZC = 1.125 in z: 1.49x the cells collided.
 //
+// The coupled step (K9t: transport=, state_mode="compressed", T=1, the
+// TPU step at pallas/cg3d.py:1324-1355) adds D3Q7 tracers g (NT, 7, nz,
+// ny, nx), f64 in the f64 library and f32 otherwise (never bf16), and two
+// launches between curvature and collide_stream, so up to eight a step:
+//   t1. tracer_collide3d  one thread per cell: the cell as load_cell sees
+//      it (after the boundary slabs, which the TPU step applies as its jnp
+//      prologue), u = (m + F/2)/rho from the same device function the
+//      flow's collision calls (cell_velocity, so both see one u), and per
+//      tracer the SRT J-scheme collision on that u -> g_post; a flag byte
+//      of every cell: fluid, and rho_r < criteria (the epilogue's domain,
+//      taken from the post-prologue rho_r).
+//   t2. tracer_stream3d   pull streaming from g_post with half-way
+//      bounce-back, periodic in x, y and z, times the fluid mask, then the
+//      hard interface bounce-back as reads of g_post: slot i at x takes
+//      the streamed opp(i) of x - e_i where x is in the domain and x - e_i
+//      is not, and 0 where x is out and x - e_i in.  The TPU epilogue's
+//      six-axis loop reads g_i only outside the domain and writes only
+//      inside it (slot opp(i)) or zeroes outside it (slot i), so no axis
+//      reads what another wrote and the gather gives its result.  Per
+//      direction it reads the neighbour's flags and both g_post candidates
+//      at once, then selects.
+// collide_stream then runs as in K9c/K9h on the unchanged state.
+// K9t's least bytes add the tracer in and out and the mask: with one f32
+// tracer 2 x 28 B a cell.  t1 moves about 160 B a cell (the state 80 and
+// the normals and kappa 16, g 28, g_post 28, the flags), t2 about 60
+// (g_post 28, g' 28, the flags).  Fusing the tracer into collide_stream's
+// ring is later speed work.
+//
 // What bounds it: the least work is HBM bytes, the state in and out plus
 // the 4 geometry planes: 176 B a cell (f32), 100 B (bf16), 320 B (split
 // f32).  This design moves about 390 / 250 / 550 B: the state read twice
@@ -66,6 +94,12 @@ struct Cg3dParams {      // mirrored by kernels/cg3d.py::Cg3dParams
   int pad;
   double tau_r, tau_b, sigma, beta, delta, cos_t, sin_t, bfx, bfy, bfz;
   double inlet_vz, outlet_rho;
+};
+
+struct Tracer3dParams {  // mirrored by kernels/cg3d.py::Tracer3dParams
+  int nt;
+  int interface;         // 0 none, 1 bounceback
+  double criteria;
 };
 
 namespace {
@@ -555,6 +589,32 @@ __device__ __forceinline__ C tau_at(C phi, C rr, C rb, const Cg3dParams& P) {
   return C(3) * mu + C(0.5);
 }
 
+// The CSF force F (with the body force) and the velocity u = (m + F/2) /
+// rho of a fluid cell from its total PDF, density, colour gradient g and
+// curvature kappa: the one u the flow collides with and the coupled
+// tracer is advected by.
+template <typename C>
+__device__ __forceinline__ void cell_velocity(const C f[Q], C rho, const C g[3], C kappa,
+                                              const Cg3dParams& P, C F[3], C u[3]) {
+  const C ks = C(-0.5 * P.sigma) * kappa;
+  const double bf[3] = {P.bfx, P.bfy, P.bfz};
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    F[d] = ks * g[d];
+    if (bf[d] != 0.0) F[d] = F[d] + C(bf[d]) * rho;
+  }
+  const C rho_safe = rho > C(0) ? rho : C(1);
+  C m[3] = {C(0), C(0), C(0)};
+#pragma unroll
+  for (int i = 1; i < Q; ++i) {
+    if (ex(i)) m[0] = m[0] + C(ex(i)) * f[i];
+    if (ey(i)) m[1] = m[1] + C(ey(i)) * f[i];
+    if (ez(i)) m[2] = m[2] + C(ez(i)) * f[i];
+  }
+#pragma unroll
+  for (int d = 0; d < 3; ++d) u[d] = (m[d] + C(0.5) * F[d]) / rho_safe;
+}
+
 // Post-collision total PDF of one fluid cell and its recolouring terms:
 // the red post-collision population is frac * post_i + w_i e_i . (A, B, Cz).
 template <typename S, int L, typename C = typename Traits<S>::C>
@@ -573,28 +633,8 @@ __device__ void collide_cell(const State<S>& st, const C* __restrict__ geo,
   const C rho = rr + rb;
   const C ph = phi[k];
   const C g[3] = {nrm[k], nrm[n + k], nrm[2 * n + k]};
-
-  const C kappa = nrm[6 * n + k];
-  const C ks = C(-0.5 * P.sigma) * kappa;
-  C F[3];
-  const double bf[3] = {P.bfx, P.bfy, P.bfz};
-#pragma unroll
-  for (int d = 0; d < 3; ++d) {
-    F[d] = ks * g[d];
-    if (bf[d] != 0.0) F[d] = F[d] + C(bf[d]) * rho;
-  }
-
-  const C rho_safe = rho > C(0) ? rho : C(1);
-  C m[3] = {C(0), C(0), C(0)};
-#pragma unroll
-  for (int i = 1; i < Q; ++i) {
-    if (ex(i)) m[0] = m[0] + C(ex(i)) * f[i];
-    if (ey(i)) m[1] = m[1] + C(ey(i)) * f[i];
-    if (ez(i)) m[2] = m[2] + C(ez(i)) * f[i];
-  }
-  C u[3];
-#pragma unroll
-  for (int d = 0; d < 3; ++d) u[d] = (m[d] + C(0.5) * F[d]) / rho_safe;
+  C F[3], u[3];
+  cell_velocity(f, rho, g, nrm[6 * n + k], P, F, u);
   const C tau = tau_at(ph, rr, rb, P);
   const C pref = C(1) - C(0.5) / tau;
   const C uu = u[0] * u[0] + u[1] * u[1] + u[2] * u[2];
@@ -725,37 +765,127 @@ collide_stream_kernel(State<S> st, const C* __restrict__ geo, const C* __restric
   }
 }
 
+// D3Q7 (lattice.py): 0 rest, then +x, -x, +y, -y, +z, -z, so direction
+// i > 0 lies on axis (i - 1) / 2, positive for odd i, and opp() above gives
+// its opposite.  Per-tracer table row (compute type): tau, then J_0..J_6
+// (kernels/cg3d.py::tracer3d_table).
+constexpr int Q7 = 7;
+constexpr int kTracerRow = 1 + Q7;
+__device__ __forceinline__ int e7(int i, int axis) {
+  return (i > 0 && (i - 1) / 2 == axis) ? ((i & 1) ? 1 : -1) : 0;
+}
+
+// Flag bits a cell, written by t1 and read by t2.
+constexpr unsigned char kInDomain = 1;   // rho_r < criteria
+constexpr unsigned char kFluid = 2;
+
+// t1: per tracer, the SRT J-scheme collision g_i - (g_i - C (J_i + e_i.u/2))
+// / tau on the flow's post-slab u of each fluid cell -> g_post; the flags
+// of every cell.
+template <typename S, typename C = typename Traits<S>::C>
+__global__ void tracer_collide3d_kernel(State<S> st, const C* __restrict__ geo,
+                                        const C* __restrict__ nrm, const C* __restrict__ g,
+                                        const C* __restrict__ tab, C* __restrict__ gp,
+                                        unsigned char* __restrict__ flags, Cg3dParams P,
+                                        Tracer3dParams T) {
+  const size_t nxy = (size_t)P.ny * P.nx;
+  const size_t n = (size_t)P.nz * nxy;
+  const size_t k = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= n) return;
+  const int z = (int)(k / nxy);
+  const int y = (int)((k % nxy) / P.nx), x = (int)(k % P.nx);
+  Cell<C, kCompressed> c;
+  load_cell<S, kCompressed>(st, geo, P, z, y, x, c);
+  C f[Q], rr, rb;
+  totals(c, f, rr, rb);
+  const bool fluid = geo[k] > C(0.5);
+  flags[k] = (rr < C(T.criteria) ? kInDomain : 0) | (fluid ? kFluid : 0);
+  // a solid cell's g_post is never selected: streaming bounces back on it
+  if (!fluid) return;
+  const C gr[3] = {nrm[k], nrm[n + k], nrm[2 * n + k]};
+  C F[3], u[3];
+  cell_velocity(f, rr + rb, gr, nrm[6 * n + k], P, F, u);
+  for (int t = 0; t < T.nt; ++t) {
+    const C* row = tab + t * kTracerRow;
+    const size_t base = (size_t)t * Q7 * n + k;
+    C gv[Q7];
+    C conc = C(0);
+#pragma unroll
+    for (int i = 0; i < Q7; ++i) {
+      gv[i] = g[base + i * n];
+      conc = conc + gv[i];
+    }
+    const C tau = row[0];
+#pragma unroll
+    for (int i = 0; i < Q7; ++i) {
+      const C eu = i == 0 ? C(0) : ((i & 1) ? u[(i - 1) / 2] : -u[(i - 1) / 2]);
+      const C geq = conc * (row[1 + i] + C(0.5) * eu);
+      gp[base + i * n] = gv[i] - (gv[i] - geq) / tau;
+    }
+  }
+}
+
+// t2: streaming, then the hard interface bounce-back (periodic in z, as the
+// reference's shifts are, inlet and outlet or not), as reads of g_post.
+// Slot i at x after streaming is g_post_i(s), s = x - e_i, if s is fluid,
+// else g_post_opp(i)(x) (bounce-back), times fl(x).  The value the repair
+// returns into slot i at x is the streamed opp(i) at s, which pulls from
+// x itself: g_post_opp(i)(x) if x is fluid, else g_post_i(s), times fl(s).
+// So both candidates and the flags of x and s decide every case; all are
+// read before any is used.
+template <typename S, typename C = typename Traits<S>::C>
+__global__ void tracer_stream3d_kernel(const C* __restrict__ gp,
+                                       const unsigned char* __restrict__ flags,
+                                       C* __restrict__ out, Cg3dParams P, Tracer3dParams T) {
+  const size_t nxy = (size_t)P.ny * P.nx;
+  const size_t n = (size_t)P.nz * nxy;
+  const size_t k = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= n) return;
+  const int z = (int)(k / nxy);
+  const int y = (int)((k % nxy) / P.nx), x = (int)(k % P.nx);
+  const unsigned char fx = flags[k];
+  const bool fluid = fx & kFluid, d = fx & kInDomain;
+  for (int t = 0; t < T.nt; ++t) {
+    const size_t base = (size_t)t * Q7 * n;
+    out[base + k] = fluid ? gp[base + k] : C(0);
+#pragma unroll
+    for (int i = 1; i < Q7; ++i) {
+      const size_t ks = (size_t)wrap(z - e7(i, 2), P.nz) * nxy +
+                        (size_t)wrap(y - e7(i, 1), P.ny) * P.nx + wrap(x - e7(i, 0), P.nx);
+      const unsigned char fs = flags[ks];
+      const C pulled = gp[base + i * n + ks];
+      const C bounced = gp[base + opp(i) * n + k];
+      const bool fluid_s = fs & kFluid, ds = fs & kInDomain;
+      const bool repair = T.interface;
+      C v;
+      if (repair && d && !ds)
+        v = fluid_s ? (fluid ? bounced : pulled) : C(0);   // returned
+      else if (repair && !d && ds)
+        v = C(0);                                           // dropped
+      else
+        v = fluid ? (fluid_s ? pulled : bounced) : C(0);
+      out[base + i * n + k] = v;
+    }
+  }
+}
+
 template <typename S, int L>
 constexpr size_t smem_bytes() {
   using C = typename Traits<S>::C;
   return sizeof(C) * 3 * NSH * HY * HX + 3 * HY * HX;
 }
 
-// The step's launches.  s2_in/s2_out are f_b in the split layout; nrm holds
-// g, n and kappa (7 planes); bc is the boundary-slab scratch (nullptr
-// without an inlet or outlet).
-template <typename S, int L>
-int launch_cg3d(const void* s_in, const void* s2_in, void* s_out, void* s2_out,
-                const void* geo_v, void* phi_v, void* nrm_v, void* bc_v, const Cg3dParams& P,
-                cudaStream_t stream) {
-  using C = typename Traits<S>::C;
-  static bool configured = false;
-  constexpr size_t smem = smem_bytes<S, L>();
-  cudaError_t err;
-  if (!configured) {
-    err = cudaFuncSetAttribute(collide_stream_kernel<S, L>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    configured = true;
-  }
-  const C* geo = static_cast<const C*>(geo_v);
-  C* phi = static_cast<C*>(phi_v);
-  C* nrm = static_cast<C*>(nrm_v);
-  S* bc = static_cast<S*>(bc_v);
-  State<S> st{static_cast<const S*>(s_in), static_cast<const S*>(s2_in), nullptr};
+// Launches 0-4 of a step (boundary slabs through curvature); with boundary
+// slabs, st.bc is set to their scratch.  nrm holds g, n and kappa (7
+// planes); bc is the boundary-slab scratch (nullptr without an inlet or
+// outlet).
+template <typename S, int L, typename C = typename Traits<S>::C>
+int launch_fields(State<S>& st, const C* geo, C* phi, C* nrm, S* bc, const Cg3dParams& P,
+                  cudaStream_t stream) {
   const size_t nxy = (size_t)P.ny * P.nx;
   const size_t n = (size_t)P.nz * nxy;
   const int threads = 256;
+  cudaError_t err;
   if (bc != nullptr && (P.inlet || P.outlet)) {
     bc_kernel<S, L><<<(unsigned)((nxy + threads - 1) / threads), threads, 0, stream>>>(
         st, geo, bc, P);
@@ -776,12 +906,72 @@ int launch_cg3d(const void* s_in, const void* s2_in, void* s_out, void* s2_out,
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   curvature_kernel<C><<<blocks, threads, 0, stream>>>(geo, nrm, P);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// Launch 5, collide_stream.  s2_out is f_b in the split layout.
+template <typename S, int L, typename C = typename Traits<S>::C>
+int launch_collide_stream(const State<S>& st, const C* geo, const C* phi, const C* nrm,
+                          void* s_out, void* s2_out, const Cg3dParams& P, cudaStream_t stream) {
+  static bool configured = false;
+  constexpr size_t smem = smem_bytes<S, L>();
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        collide_stream_kernel<S, L>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
   const dim3 grid((P.nx + TX - 1) / TX, (P.ny + TY - 1) / TY, (P.nz + ZC - 1) / ZC);
   collide_stream_kernel<S, L><<<grid, RING_THREADS, smem, stream>>>(
       st, geo, phi, nrm, static_cast<S*>(s_out), static_cast<S*>(s2_out), P);
   return (int)cudaGetLastError();
+}
+
+// The step's launches.  s2_in/s2_out are f_b in the split layout.
+template <typename S, int L>
+int launch_cg3d(const void* s_in, const void* s2_in, void* s_out, void* s2_out,
+                const void* geo_v, void* phi_v, void* nrm_v, void* bc_v, const Cg3dParams& P,
+                cudaStream_t stream) {
+  using C = typename Traits<S>::C;
+  const C* geo = static_cast<const C*>(geo_v);
+  C* phi = static_cast<C*>(phi_v);
+  C* nrm = static_cast<C*>(nrm_v);
+  State<S> st{static_cast<const S*>(s_in), static_cast<const S*>(s2_in), nullptr};
+  const int err = launch_fields<S, L>(st, geo, phi, nrm, static_cast<S*>(bc_v), P, stream);
+  if (err) return err;
+  return launch_collide_stream<S, L>(st, geo, phi, nrm, s_out, s2_out, P, stream);
+}
+
+// The coupled step's launches (compressed layout): K9's fields, the two
+// tracer passes, then collide_stream.  g_in, g_post and g_out are (NT, 7,
+// nz, ny, nx) in the compute type, flags one byte a cell, tab the (NT, 8)
+// tracer table.
+template <typename S>
+int launch_cg3d_coupled(const void* s_in, void* s_out, const void* geo_v, void* phi_v,
+                        void* nrm_v, void* bc_v, const void* g_in, void* g_post, void* g_out,
+                        void* flags_v, const void* tab_v, const Cg3dParams& P,
+                        const Tracer3dParams& T, cudaStream_t stream) {
+  using C = typename Traits<S>::C;
+  const C* geo = static_cast<const C*>(geo_v);
+  C* phi = static_cast<C*>(phi_v);
+  C* nrm = static_cast<C*>(nrm_v);
+  C* gp = static_cast<C*>(g_post);
+  unsigned char* flags = static_cast<unsigned char*>(flags_v);
+  State<S> st{static_cast<const S*>(s_in), nullptr, nullptr};
+  int err = launch_fields<S, kCompressed>(st, geo, phi, nrm, static_cast<S*>(bc_v), P, stream);
+  if (err) return err;
+  const size_t n = (size_t)P.nz * P.ny * P.nx;
+  const int threads = 256;
+  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
+  tracer_collide3d_kernel<S><<<blocks, threads, 0, stream>>>(
+      st, geo, nrm, static_cast<const C*>(g_in), static_cast<const C*>(tab_v), gp, flags, P, T);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  tracer_stream3d_kernel<S><<<blocks, threads, 0, stream>>>(gp, flags, static_cast<C*>(g_out),
+                                                            P, T);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  return launch_collide_stream<S, kCompressed>(st, geo, phi, nrm, s_out, nullptr, P, stream);
 }
 
 }  // namespace

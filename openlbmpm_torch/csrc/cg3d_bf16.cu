@@ -1,4 +1,5 @@
-// D3Q19 CSF colour-gradient step (K9), bf16 storage: the C entry points.
+// D3Q19 CSF colour-gradient step (K9) and its coupled D3Q7 tracer step
+// (K9t), bf16 storage: the C entry points.
 // The design note and the device code are in cg3d.cuh.
 
 #include "cg3d.cuh"
@@ -13,6 +14,20 @@ extern "C" int cg3d_step(int split, const void* s_in, const void* s2_in, void* s
   if (split) return (int)cudaErrorInvalidValue;  // the split layout has no bf16 form
   return launch_cg3d<__nv_bfloat16, kCompressed>(s_in, s2_in, s_out, s2_out, geo, phi, nrm, bc,
                                                  *params, static_cast<cudaStream_t>(stream));
+}
+
+// The coupled step (K9t), compressed state: s_in / s_out as above, g_in,
+// g_post and g_out (NT, 7, nz, ny, nx) tracer PDFs in the compute type,
+// flags one byte a cell, tab the (NT, 8) tracer table.  Returns a
+// cudaError_t code.
+extern "C" int cg3d_coupled_step(const void* s_in, void* s_out, const void* geo, void* phi,
+                                 void* nrm, void* bc, const void* g_in, void* g_post,
+                                 void* g_out, void* flags, const void* tab,
+                                 const Cg3dParams* params, const Tracer3dParams* tparams,
+                                 void* stream) {
+  return launch_cg3d_coupled<__nv_bfloat16>(s_in, s_out, geo, phi, nrm, bc, g_in, g_post, g_out,
+                                    flags, tab, *params, *tparams,
+                                    static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* cg3d_error_string(int code) {

@@ -20,9 +20,14 @@ JAX kernel's bf16 instance keeps them, and with them the wetting normals,
 in bf16 (a VMEM decision there), so the bf16 kernel here differs from its
 plain version only by the state's rounding.
 
-``cg3d_step_compressed(s, model)`` and ``cg3d_step_split((f_r, f_b),
-model)`` take the plain version only for tensors on the CPU; for CUDA
-tensors they launch the kernel or raise.
+The coupled step (K9t, ``transport=`` with ``state_mode="compressed"``)
+takes ``(s, g)``: ``s`` a compressed state as above and ``g``
+(NT, 7, nz, ny, nx) D3Q7 tracer PDFs in the arithmetic type (float64 with
+an f64 state, float32 with an f32 or bf16 one).
+
+``cg3d_step_compressed(s, model)``, ``cg3d_step_split((f_r, f_b), model)``
+and ``coupled3d_step_compressed(s, g, model)`` take the plain version only
+for tensors on the CPU; for CUDA tensors they launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -37,10 +42,12 @@ from ..geometry import Geometry, wetting_masks_nd
 from ..lattice import D3Q19
 from . import build
 
-__all__ = ["LIBRARIES", "Cg3dParams", "geo_stack3", "kernel_params",
-           "launch_cg3d", "launch_cg3d_split", "cg3d_step_compressed",
-           "cg3d_step_compressed_reference", "cg3d_step_split",
-           "cg3d_step_split_reference"]
+__all__ = ["LIBRARIES", "Cg3dParams", "Tracer3dParams", "geo_stack3",
+           "kernel_params", "tracer3d_params", "tracer3d_table",
+           "launch_cg3d", "launch_cg3d_split", "launch_cg3d_coupled",
+           "cg3d_step_compressed", "cg3d_step_compressed_reference",
+           "cg3d_step_split", "cg3d_step_split_reference",
+           "coupled3d_step_compressed", "coupled3d_step_compressed_reference"]
 
 _LIBS = {torch.float64: "cg3d_f64", torch.float32: "cg3d_f32",
          torch.bfloat16: "cg3d_bf16"}
@@ -129,6 +136,30 @@ def kernel_params(params, bcs, geometry: Geometry) -> Cg3dParams:
         outlet_rho=b.outlet_density)
 
 
+class Tracer3dParams(ctypes.Structure):
+    """Mirror of ``struct Tracer3dParams`` in csrc/cg3d.cuh."""
+    _fields_ = [
+        ("nt", ctypes.c_int),
+        ("interface", ctypes.c_int),     # 0 none, 1 bounceback
+        ("criteria", ctypes.c_double),
+    ]
+
+
+def tracer3d_params(transport) -> Tracer3dParams:
+    """The coupled kernel's tracer block for a TransportD3Q7."""
+    return Tracer3dParams(nt=transport.num_tracers,
+                          interface=int(transport.interface_mode ==
+                                        "bounceback"),
+                          criteria=transport.criteria)
+
+
+def tracer3d_table(transport) -> np.ndarray:
+    """(NT, 8) per-tracer rows the coupled kernel reads: tau, then
+    J_0..J_6, from a TransportD3Q7."""
+    return np.concatenate([np.asarray(transport.tau, np.float64)[:, None],
+                           transport.j_coeffs], axis=1)
+
+
 _fn_cache: dict[str, tuple] = {}
 
 
@@ -139,10 +170,15 @@ def _kernel_fn(lib_name: str):
         fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8 + \
             [ctypes.POINTER(Cg3dParams), ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        coupled = lib.cg3d_coupled_step
+        coupled.argtypes = [ctypes.c_void_p] * 11 + \
+            [ctypes.POINTER(Cg3dParams), ctypes.POINTER(Tracer3dParams),
+             ctypes.c_void_p]
+        coupled.restype = ctypes.c_int
         err = lib.cg3d_error_string
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
-        _fn_cache[lib_name] = (fn, err)
+        _fn_cache[lib_name] = (fn, err, coupled)
     return _fn_cache[lib_name]
 
 
@@ -151,7 +187,7 @@ def _launch(split: int, a, b, out_a, out_b, params: Cg3dParams,
     """One cg3d_step call on the current stream of the state's card."""
     nz, ny, nx = params.nz, params.ny, params.nx
     dev = a.device
-    fn, err = _kernel_fn(_LIBS[a.dtype])
+    fn, err, _ = _kernel_fn(_LIBS[a.dtype])
     phi = torch.empty((nz, ny, nx), dtype=geo.dtype, device=dev)
     nrm = torch.empty((7, nz, ny, nx), dtype=geo.dtype, device=dev)
     bc = None
@@ -179,19 +215,25 @@ def _check_domain(params: Cg3dParams, geo: torch.Tensor, want, *tensors):
             raise ValueError(f"state on {t.device}, geometry on {geo.device}")
 
 
-def launch_cg3d(s: torch.Tensor, params: Cg3dParams,
-                geo: torch.Tensor) -> torch.Tensor:
-    """One kernel step of the compressed CUDA state `s`: (20, nz, ny, nx) in
-    the type of the geometry planes `geo` (``geo_stack3``, float32 or
-    float64), or (21, nz, ny, nx) bfloat16 with float32 planes.  Not
-    counted as a launch."""
+def _check_compressed(s: torch.Tensor, params: Cg3dParams,
+                      geo: torch.Tensor, *tensors):
     shape = (params.nz, params.ny, params.nx)
     bf16 = s.dtype == torch.bfloat16
     planes = 21 if bf16 else 20
     if s.dtype not in _LIBS or tuple(s.shape) != (planes, *shape):
         raise ValueError(f"state {tuple(s.shape)} {s.dtype}; the kernel "
                          f"takes ({planes}, {', '.join(map(str, shape))})")
-    _check_domain(params, geo, torch.float32 if bf16 else s.dtype, s)
+    _check_domain(params, geo, torch.float32 if bf16 else s.dtype, s,
+                  *tensors)
+
+
+def launch_cg3d(s: torch.Tensor, params: Cg3dParams,
+                geo: torch.Tensor) -> torch.Tensor:
+    """One kernel step of the compressed CUDA state `s`: (20, nz, ny, nx) in
+    the type of the geometry planes `geo` (``geo_stack3``, float32 or
+    float64), or (21, nz, ny, nx) bfloat16 with float32 planes.  Not
+    counted as a launch."""
+    _check_compressed(s, params, geo)
     s = s.contiguous()
     out = torch.empty_like(s)
     _launch(0, s, None, out, None, params, geo)
@@ -215,6 +257,46 @@ def launch_cg3d_split(f_r: torch.Tensor, f_b: torch.Tensor,
     out_r, out_b = torch.empty_like(f_r), torch.empty_like(f_b)
     _launch(1, f_r, f_b, out_r, out_b, params, geo)
     return out_r, out_b
+
+
+def launch_cg3d_coupled(s: torch.Tensor, g: torch.Tensor,
+                        params: Cg3dParams, tparams: Tracer3dParams,
+                        geo: torch.Tensor, table: torch.Tensor):
+    """One coupled kernel step (K9t) of the compressed CUDA state (s, g): `s`
+    as ``launch_cg3d`` takes it, `g` (NT, 7, nz, ny, nx) and the per-tracer
+    `table` (``tracer3d_table``) in the geometry planes' type.  Returns
+    (s', g').  Not counted as a launch."""
+    nz, ny, nx = params.nz, params.ny, params.nx
+    nt = tparams.nt
+    _check_compressed(s, params, geo, g, table)
+    if g.dtype != geo.dtype or tuple(g.shape) != (nt, 7, nz, ny, nx):
+        raise ValueError(f"tracer PDFs {tuple(g.shape)} {g.dtype}; the "
+                         f"kernel takes ({nt}, 7, {nz}, {ny}, {nx}) "
+                         f"{geo.dtype}")
+    if table.dtype != geo.dtype or tuple(table.shape) != (nt, 8):
+        raise ValueError(f"tracer table {tuple(table.shape)} {table.dtype}")
+    s, g, table = s.contiguous(), g.contiguous(), table.contiguous()
+    dev = s.device
+    _, err, fn = _kernel_fn(_LIBS[s.dtype])
+    phi = torch.empty((nz, ny, nx), dtype=geo.dtype, device=dev)
+    nrm = torch.empty((7, nz, ny, nx), dtype=geo.dtype, device=dev)
+    bc = torch.empty((s.shape[0], 5, ny, nx), dtype=s.dtype, device=dev) \
+        if params.inlet or params.outlet else None
+    g_post = torch.empty_like(g)
+    flags = torch.empty((nz, ny, nx), dtype=torch.uint8, device=dev)
+    out_s, out_g = torch.empty_like(s), torch.empty_like(g)
+    with torch.cuda.device(dev):
+        code = fn(s.data_ptr(), out_s.data_ptr(), geo.data_ptr(),
+                  phi.data_ptr(), nrm.data_ptr(),
+                  0 if bc is None else bc.data_ptr(), g.data_ptr(),
+                  g_post.data_ptr(), out_g.data_ptr(), flags.data_ptr(),
+                  table.data_ptr(), ctypes.byref(params),
+                  ctypes.byref(tparams),
+                  torch.cuda.current_stream(dev).cuda_stream)
+    if code != 0:
+        raise RuntimeError(f"cg3d_coupled_step launch failed: "
+                           f"{err(code).decode()} ({code})")
+    return out_s, out_g
 
 
 def _check_model_device(t: torch.Tensor, model):
@@ -276,3 +358,35 @@ def cg3d_step_split_reference(state, model):
     """Plain PyTorch version of the split kernel, on any device: the
     model's ``plain_step``."""
     return model.plain_step(state)
+
+
+def coupled3d_step_compressed(s: torch.Tensor, g: torch.Tensor, model):
+    """One coupled D3Q19 CSF + D3Q7 tracer step (s, g) -> (s', g') for
+    `model`, a TransportRK3D.  CPU tensors: the plain version.  CUDA
+    tensors: the kernel on the model's parameter blocks, geometry planes
+    and tracer table, or an error; never the plain version."""
+    if s.device != g.device:
+        raise ValueError(f"state on device {s.device}, tracer PDFs on "
+                         f"device {g.device}")
+    if s.device.type == "cpu":
+        return coupled3d_step_compressed_reference(s, g, model)
+    flow = model.flow
+    _check_model_device(s, flow)
+    want = torch.bfloat16 if flow.storage == "bf16" else flow.dtype
+    if s.dtype != want or g.dtype != flow.dtype:
+        raise ValueError(f"state {s.dtype}, tracers {g.dtype}; the model "
+                         f"takes {want}, {flow.dtype}")
+    out = launch_cg3d_coupled(s, g, flow.kernel_params, model.tracer_params,
+                              flow.geo_planes, model.tracer_table)
+    coupled3d_step_compressed.launches += 1
+    return out
+
+
+coupled3d_step_compressed.launches = 0
+
+
+def coupled3d_step_compressed_reference(s: torch.Tensor, g: torch.Tensor,
+                                        model):
+    """Plain PyTorch version of the coupled kernel, on any device: the
+    model's ``plain_step_c``."""
+    return model.plain_step_c((s, g))

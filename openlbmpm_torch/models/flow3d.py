@@ -1,7 +1,8 @@
-"""Rothman-Keller colour-gradient two-phase flow, CSF variant, on D3Q19
-(counterpart of ``ColorGradientRK3D`` in ``openlbmpm_tpu/models/flow3d.py``;
-that module's single-phase, Shan-Chen and transport classes are not ported
-yet).
+"""Rothman-Keller colour-gradient two-phase flow, CSF variant, on D3Q19, and
+D3Q7 tracer transport confined to one of its phases (counterparts of
+``ColorGradientRK3D``, ``TransportD3Q7`` and ``TransportRK3D`` in
+``openlbmpm_tpu/models/flow3d.py``; that module's single-phase and
+Shan-Chen classes are not ported yet).
 
 Arrays are indexed [z, y, x]; e components are (x, y, z).  The flow runs
 along -z: the inlet is the top z slabs, the outlet the bottom ones.  Two
@@ -25,6 +26,14 @@ one phase.
 
 On a CUDA state a step is one call of the hand-written kernel
 (``kernels/cg3d.py``); on the CPU it is the plain composition of ``ops/``.
+
+The coupled model ``TransportRK3D`` advances (f_r, f_b, g) or (s, g), g the
+(T, 7, nz, ny, nx) tracer PDFs in the arithmetic type (float32 under bf16
+flow storage): the flow's boundary slabs, then the tracer on the post-slab,
+pre-collision velocity and rho_r, then the flow's collision and streaming.
+Its compressed step ``step_c`` is one kernel call on a card; its split
+step ``step`` is the plain composition everywhere, as the JAX package has
+no split coupled kernel.
 """
 
 from __future__ import annotations
@@ -39,16 +48,20 @@ from torch import nn
 from .._device import resolve_device, resolve_dtype
 from ..geometry import Geometry
 from ..kernels.cg3d import (cg3d_step_compressed, cg3d_step_split,
-                            geo_stack3, kernel_params)
-from ..lattice import D3Q19
+                            coupled3d_step_compressed, geo_stack3,
+                            kernel_params, tracer3d_params, tracer3d_table)
+from ..lattice import D3Q7, D3Q19
 from ..ops import collision as col
 from ..ops import colorgrad as cg
 from ..ops import equilibrium as eq
 from ..ops import macroscopic as mac
+from ..ops import transport as tr
 from ..ops.forcing import guo_source
 from ..ops.streaming import stream, upwind_solid_masks
+from .transport import _per_tracer
 
-__all__ = ["ColorGradientParams3D", "CG3DBoundaryConfig", "ColorGradientRK3D"]
+__all__ = ["ColorGradientParams3D", "CG3DBoundaryConfig", "ColorGradientRK3D",
+           "TransportD3Q7", "TransportRK3D"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -456,16 +469,26 @@ class ColorGradientRK3D(nn.Module):
                                        self.upwind_solid), 3) * fl
         return torch.cat([f_tot, rho_r_new[None]], dim=0)
 
-    def plain_step_c(self, s):
-        """One compressed step composed from ``ops/``, on any device.  A
-        bf16 state takes the boundary slabs slab by slab in float32 and
-        re-encodes them, then is decoded, stepped and encoded again, as
+    def _post_slabs_c(self, s):
+        """A compressed state (either layout) after its boundary slabs, as a
+        (20, nz, ny, nx) state in ``dtype``.  A bf16 state takes the slabs
+        slab by slab in float32 and re-encodes them, then is decoded, as
         the kernel does in its registers."""
         if s.dtype == torch.bfloat16:
-            s = self._bc_slabs_c(s, self._dec_slab, self._enc_slab)
-            return self.pack_compressed_bf16(
-                self._physics_c(self.unpack_bf16(s)))
-        return self._physics_c(self._apply_bcs_c(s))
+            return self.unpack_bf16(self._bc_slabs_c(s, self._dec_slab,
+                                                     self._enc_slab))
+        return self._apply_bcs_c(s)
+
+    def _encode_like(self, out, s):
+        """A stepped (20, nz, ny, nx) state in the layout of `s`."""
+        return self.pack_compressed_bf16(out) \
+            if s.dtype == torch.bfloat16 else out
+
+    def plain_step_c(self, s):
+        """One compressed step composed from ``ops/``, on any device: the
+        boundary slabs (``_post_slabs_c``), collision and streaming, and
+        under bf16 the encoding again."""
+        return self._encode_like(self._physics_c(self._post_slabs_c(s)), s)
 
     def step_c(self, s):
         """One time step of the compressed state (layout per ``storage``)."""
@@ -479,3 +502,174 @@ class ColorGradientRK3D(nn.Module):
         rho_b = mac.density(f_tot, 3) - rho_r
         _, _, phi, _, force = self._fields_from_densities(rho_r, rho_b)
         return rho_r, rho_b, phi, self._velocity(f_tot, rho_r + rho_b, force)
+
+
+# ---------------------------------------------------------------------------
+# D3Q7 transport
+# ---------------------------------------------------------------------------
+
+class TransportD3Q7(nn.Module):
+    """Tracer transport on D3Q7 confined to one phase: per tracer the
+    J-scheme equilibrium g_eq = C (J_i + e.u/2), J_0 = j0, J_i = (1 - j0)/6
+    (D = (1 - j0)/3 (tau - 1/2)), SRT collision with the tracer's tau, pull
+    streaming with half-way bounce-back, and with ``interface_mode=
+    "bounceback"`` the hard interface bounce-back on rho_r < criteria.
+    ``tau`` and ``j0`` hold one value per tracer, or one for all.  The
+    upwind-solid masks and the fluid mask are buffers on ``device``."""
+
+    def __init__(self, geometry: Geometry, num_tracers: int = 1, tau=(1.0,),
+                 j0=(0.25,), criteria: float = 0.5,
+                 interface_mode: str = "none", dtype=torch.float32,
+                 device="cuda"):
+        super().__init__()
+        if interface_mode not in ("none", "bounceback"):
+            raise ValueError(f"interface_mode {interface_mode!r}: none | "
+                             "bounceback")
+        dev = resolve_device(device)
+        self.lat = D3Q7
+        self.geo = geometry
+        self.dtype = resolve_dtype(dtype)
+        self.num_tracers = int(num_tracers)
+        self.tau = np.asarray(_per_tracer(tau, self.num_tracers, "tau"))
+        j0 = np.asarray(_per_tracer(j0, self.num_tracers, "j0"))
+        self.j_coeffs = np.zeros((self.num_tracers, 7))
+        self.j_coeffs[:, 0] = j0
+        self.j_coeffs[:, 1:] = ((1.0 - j0) / 6.0)[:, None]
+        self.criteria = float(criteria)
+        self.interface_mode = interface_mode
+        self.register_buffer("fluid_mask", torch.as_tensor(
+            geometry.is_fluid, dtype=self.dtype, device=dev))
+        self.register_buffer("upwind_solid", torch.as_tensor(
+            upwind_solid_masks(self.lat, geometry.is_solid), device=dev))
+
+    @property
+    def device(self) -> torch.device:
+        return self.fluid_mask.device
+
+    def init_state(self, conc0):
+        """conc0 (T, nz, ny, nx) -> g (T, 7, nz, ny, nx) = conc0 J_i on
+        fluid cells."""
+        conc0 = torch.as_tensor(np.asarray(conc0), dtype=self.dtype,
+                                device=self.device) * self.fluid_mask
+        j = torch.as_tensor(self.j_coeffs, dtype=self.dtype,
+                            device=self.device)[:, :, None, None, None]
+        return conc0[:, None] * j
+
+    def concentration(self, g):
+        return mac.ordered_sum(g, 1)
+
+    def diffusivity(self, t: int = 0) -> float:
+        return float((1.0 - self.j_coeffs[t, 0]) / 3.0 *
+                     (self.tau[t] - 0.5))
+
+    def step(self, g, u=None, rho_r=None):
+        """One tracer step on the velocity u = (ux, uy, uz) (zero if None);
+        with a bounce-back interface and rho_r given, the hard interface
+        repair on rho_r < criteria."""
+        conc = self.concentration(g)
+        if u is None:
+            zeros = torch.zeros(self.geo.shape, dtype=g.dtype,
+                                device=g.device)
+            u = (zeros, zeros, zeros)
+        geq = torch.stack([eq.feq_transport_j(self.lat, conc[t], u,
+                                              self.j_coeffs[t])
+                           for t in range(self.num_tracers)])
+        tau = torch.as_tensor(self.tau, dtype=g.dtype,
+                              device=g.device).reshape(-1, 1, 1, 1, 1)
+        g = g - (g - geq) / tau
+        g = stream(g, self.lat, self.upwind_solid) * self.fluid_mask
+        if self.interface_mode == "bounceback" and rho_r is not None:
+            g = tr.interface_bounce_back(g, rho_r < self.criteria, self.lat)
+        return g
+
+
+class TransportRK3D(nn.Module):
+    """Coupled D3Q19 CSF flow + D3Q7 tracer transport: the JAX package's
+    constructor arguments, plus ``device`` and ``storage`` (the flow's; the
+    tracer PDFs stay in ``dtype``).  ``flow`` is the ColorGradientRK3D,
+    ``transport`` the TransportD3Q7.  ``path`` is the compressed step's:
+    "kernel" on a card, "plain" on the CPU; the split step is plain
+    everywhere."""
+
+    def __init__(self, geometry: Geometry, flow_params: ColorGradientParams3D,
+                 num_tracers: int = 1, tau=(1.0,), j0=(0.25,),
+                 criteria: float = 0.5, interface_mode: str = "bounceback",
+                 dtype=torch.float32, boundaries=None, device="cuda",
+                 storage: str = "f32"):
+        super().__init__()
+        self.flow = ColorGradientRK3D(
+            geometry, flow_params, boundaries or CG3DBoundaryConfig(),
+            dtype=dtype, device=device, storage=storage)
+        self.transport = TransportD3Q7(geometry, num_tracers, tau, j0,
+                                       criteria, interface_mode,
+                                       dtype=self.flow.dtype,
+                                       device=self.flow.device)
+        self.geo = geometry
+        self.path = self.flow.path
+        self.tracer_params = tracer3d_params(self.transport)
+        self.register_buffer("tracer_table", torch.as_tensor(
+            tracer3d_table(self.transport), dtype=self.flow.dtype,
+            device=self.flow.device))
+
+    @property
+    def device(self) -> torch.device:
+        return self.flow.device
+
+    def init_state(self, flow_state, conc0):
+        """(f_r, f_b) and conc0 (T, nz, ny, nx) -> (f_r, f_b, g)."""
+        return (*flow_state, self.transport.init_state(conc0))
+
+    def concentration(self, g):
+        return self.transport.concentration(g)
+
+    def pack(self, state):
+        """(f_r, f_b, g) -> the compressed coupled state (s, g), s in the
+        flow's ``storage`` layout."""
+        f_r, f_b, g = state
+        pack = self.flow.pack_state_bf16 if self.flow.storage == "bf16" \
+            else self.flow.pack_state
+        return pack(f_r, f_b), g
+
+    def _tracer_step(self, g, f_tot, rho_r, rho_b):
+        """The tracer step on the fields of post-slab colour densities and
+        total PDF (the flow collides with the same u)."""
+        flow = self.flow
+        _, _, _, _, force = flow._fields_from_densities(rho_r, rho_b)
+        u = flow._velocity(f_tot, rho_r + rho_b, force)
+        return self.transport.step(g, u, rho_r)
+
+    def plain_step(self, state):
+        """One split step (f_r, f_b, g) composed from ``ops/`` (the jnp
+        ``_step_impl``): the flow's inlet and outlet slabs, the tracer on
+        the post-slab pre-collision u and rho_r, then the flow's physics."""
+        f_r, f_b, g = state
+        flow = self.flow
+        f_r, f_b = flow._apply_inlet(f_r, f_b)
+        f_r, f_b = flow._apply_outlet(f_r, f_b)
+        g = self._tracer_step(g, f_r + f_b, mac.density(f_r, 3),
+                              mac.density(f_b, 3))
+        return (*flow._physics(f_r, f_b), g)
+
+    def step(self, state):
+        """One split step: the plain composition on any device (no split
+        coupled kernel exists)."""
+        return self.plain_step(state)
+
+    def plain_step_c(self, state):
+        """One compressed step (s, g) composed from ``ops/``, on any device:
+        the plain version of the kernel.  The compressed boundary slabs (a
+        bf16 state re-encodes them, then is decoded), the tracer on the u
+        and rho_r of that post-slab state, then the flow's physics (encoded
+        again under bf16)."""
+        s, g = state
+        flow = self.flow
+        x = flow._post_slabs_c(s)
+        f_tot, rho_r = x[:19], x[19]
+        g = self._tracer_step(g, f_tot, rho_r, mac.density(f_tot, 3) - rho_r)
+        return flow._encode_like(flow._physics_c(x), s), g
+
+    def step_c(self, state):
+        """One compressed coupled step of (s, g): the kernel on a CUDA
+        state, the plain step on a CPU one."""
+        s, g = state
+        return coupled3d_step_compressed(s, g, self)

@@ -2,7 +2,9 @@
 ``openlbmpm_tpu/ops/equilibrium.py``).
 
 The transport equilibria take concentrations with leading tracer axes,
-conc (..., ny, nx), and return (..., Q, ny, nx)."""
+conc (..., ny, nx), and return (..., Q, ny, nx); ``feq_transport_j`` also
+takes 3-D concentrations (..., nz, ny, nx) on D3Q7 and returns
+(..., 7, nz, ny, nx)."""
 
 from __future__ import annotations
 
@@ -29,10 +31,12 @@ def feq_quadratic(lat: Lattice, rho: torch.Tensor, u) -> torch.Tensor:
 
 def feq_transport_j(lat: Lattice, conc: torch.Tensor, u,
                     j_coeffs) -> torch.Tensor:
-    """C (J_i + (e.u) / 2): the D2Q5 J-scheme equilibrium, with j_coeffs
-    (Q,) = (J0, (1 - J0)/4, ...)."""
+    """C (J_i + (e.u) / 2): the J-scheme equilibrium, with j_coeffs (Q,) =
+    (J0, (1 - J0)/4, ...) on D2Q5 or (J0, (1 - J0)/6, ...) on D3Q7; the Q
+    axis sits at -(lat.dim + 1)."""
     eu = e_dot_u(lat, u)
-    return conc.unsqueeze(-3) * (bcast_1d(j_coeffs, conc) + 0.5 * eu)
+    return conc.unsqueeze(-(lat.dim + 1)) * \
+        (bcast_1d(j_coeffs, conc, lat.dim) + 0.5 * eu)
 
 
 def feq_transport_linear(lat: Lattice, conc: torch.Tensor, u) -> torch.Tensor:

@@ -1,9 +1,11 @@
 """Solute-transport ops: D2Q5/D2Q9 tracer lattices confined to one fluid
-phase (counterpart of ``openlbmpm_tpu/ops/transport.py``).
+phase (counterpart of ``openlbmpm_tpu/ops/transport.py``; the 3-D form of
+``interface_bounce_back`` is ``TransportD3Q7``'s repair).
 
-Tracer PDFs are g (T, Q, ny, nx).  The numpy table builders
-(``j_coefficients``, ``mrt_matrices_*``) are ported rather than imported,
-because the JAX module that holds them imports jax.  The split step's
+Tracer PDFs are g (T, Q, ny, nx), or (T, 7, nz, ny, nx) on D3Q7.  The
+numpy table builders (``j_coefficients``, ``mrt_matrices_*``) are ported
+rather than imported, because the JAX module that holds them imports jax.
+The split step's
 repairs (``redistribute_on_interface_motion``,
 ``renormalize_concentration``) keep every total on the device.
 """
@@ -114,16 +116,21 @@ def interface_partition(g, conc, gx, gy, value_domain, beta, lat: Lattice):
 def interface_bounce_back(g, in_domain, lat: Lattice):
     """Hard interface, after streaming: a population that left a
     transport-domain node x for an outside neighbour y = x + e_i returns
-    into the opposite slot at x and is zeroed at y."""
+    into the opposite slot at x and is zeroed at y.  g (T, Q, ny, nx) with
+    in_domain (ny, nx), or on D3Q7 g (T, 7, nz, ny, nx) with in_domain
+    (nz, ny, nx) (``TransportD3Q7._step_impl``).  Direction i reads g_i
+    only outside the domain and writes only inside it (slot opp(i)) or
+    zeroes outside it (slot i), so reading the unrepaired g gives the
+    JAX loop's in-place result."""
     dom = in_domain
     out = g.clone()
     for i in range(1, lat.q):
-        dx, dy = int(lat.e[i, 0]), int(lat.e[i, 1])
+        d = [int(c) for c in lat.e[i]]
         o = int(lat.opp[i])
-        nbr_out = dom & ~shift(dom, dx, dy)
-        leaked_at_x = shift(g[:, i], dx, dy)   # g_i at y = x + e_i
+        nbr_out = dom & ~shift(dom, *d)
+        leaked_at_x = shift(g[:, i], *d)   # g_i at y = x + e_i
         out[:, o] = torch.where(nbr_out, leaked_at_x, out[:, o])
-        recv_from_inside = ~dom & pull(dom, dx, dy)
+        recv_from_inside = ~dom & pull(dom, *d)
         out[:, i] = torch.where(recv_from_inside, 0.0, out[:, i])
     return out
 

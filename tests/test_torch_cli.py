@@ -5,11 +5,11 @@
   reader's special cases; ``config_fingerprint`` is the same hash;
 * checkpoints cross between the packages both ways, bit for bit, and a run
   resumes from the other package's checkpoint;
-* ``python -m openlbmpm_torch run --model cg|transport|sc|cg3d --device
-  cpu --dtype f64`` against the JAX CLI's ``--no-pallas --dtype f64`` run
-  (its steps un-jitted under ``jax.disable_jit``, as the port is held to
-  the un-jitted JAX step): results and final checkpoint to 1e-12 (cg3d:
-  1e-10), the physics fields of metrics.jsonl to 1e-10;
+* ``python -m openlbmpm_torch run --model cg|transport|sc|cg3d|transport3d
+  --device cpu --dtype f64`` against the JAX CLI's ``--no-pallas --dtype
+  f64`` run (its steps un-jitted under ``jax.disable_jit``, as the port is
+  held to the un-jitted JAX step): results and final checkpoint to 1e-12
+  (cg3d, transport3d: 1e-10), the physics fields of metrics.jsonl to 1e-10;
 * the metrics helpers, ``inspect``, the refusals and the notes.
 """
 
@@ -367,6 +367,36 @@ def test_cli_cg3d_resumes_from_a_jax_checkpoint(tmp_path):
                      os.path.join(out, "checkpoint.npz"))
 
 
+def test_cli_transport3d_matches_jax_cli_f64(tmp_path):
+    """tests/test_product_surface.py's transport3d INIs (transportsetup.ini
+    on rk_csf3d.ini cut to 12x12x16), 10 f64 steps on the split state: the
+    concentration files and the tracer masses of metrics.jsonl to 1e-10;
+    the run prints its path.  The tracer starts in the red slabs, outside
+    its bounce-back domain, and its mass falls: 800 -> 602.39 -> 471.55 at
+    steps 0, 5, 10 (ROADMAP section 3)."""
+    flow = _ini(tmp_path, CG3D_INI, "flow3d.ini", {
+        "xDomain = .*": "xDomain = 12", "yDomain = .*": "yDomain = 12",
+        "zDomain = .*": "zDomain = 16", "TimeSteps = .*": "TimeSteps = 10",
+        "TimeInterval = .*": "TimeInterval = 5"})
+    common = ["run", TR_INI, "--model", "transport3d", "--physics-config",
+              flow, "--dtype", "f64"]
+    _jax_cli(common + ["--no-pallas", "--output", str(tmp_path / "j")])
+    text = _torch_cli(common + ["--device", "cpu", "--output",
+                                str(tmp_path / "t")])
+    assert "interface bounceback: the plain step on cpu, split state" in text
+    got = _results(tmp_path / "t", "ConcentrationResults3D")
+    assert len(got) == 3 and all(v.shape == (16, 12, 12)
+                                 for v in got.values())
+    _same_arrays(_results(tmp_path / "j", "ConcentrationResults3D"), got,
+                 atol=1e-10)
+    _same_records(tmp_path / "j" / "metrics.jsonl",
+                  tmp_path / "t" / "metrics.jsonl")
+    masses = [r["tracer0_mass"] for r in
+              _records(tmp_path / "t" / "metrics.jsonl")]
+    assert abs(masses[0] - 8 * 10 * 10) < 1e-9 and \
+        masses[2] < masses[1] < masses[0]
+
+
 @pytest.mark.parametrize("layout", ["split", "packed"])
 def test_cg3d_checkpoints_cross_both_ways_bit_for_bit(tmp_path, layout):
     """A 3-D state in either layout, saved by either package under the CLI's
@@ -424,7 +454,8 @@ def test_sc_checkpoint_crosses_both_ways(tmp_path):
 
 
 @pytest.mark.parametrize("model,path", [("cg", CG_INI), ("transport", TR_INI),
-                                        ("sc", SC_INI), ("cg3d", CG3D_INI)])
+                                        ("sc", SC_INI), ("cg3d", CG3D_INI),
+                                        ("transport3d", TR_INI)])
 def test_inspect_prints_what_jax_prints(model, path):
     with contextlib.redirect_stdout(io.StringIO()) as out:
         assert jcli.main(["inspect", path, "--model", model]) == 0

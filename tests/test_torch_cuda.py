@@ -13,14 +13,16 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (CG3D_CASES, COUPLED_CASES, SC_CASES,
-                        SC_KERNEL_CASES, bf16_one_step_3d, cg3d_case,
-                        coupled_conc0, flagship_flow, sc_case, sc_config,
-                        split_cases, split_coupled_cases)
+from chip_smoke import (CG3D_CASES, CG3D_TRANSPORT_CASES, COUPLED_CASES,
+                        SC_CASES, SC_KERNEL_CASES, bf16_one_step_3d,
+                        cg3d_case, coupled_conc0, flagship_flow, sc_case,
+                        sc_config, split_cases, split_coupled_cases,
+                        transport3d_case)
 from openlbmpm_torch.geometry import from_solid_mask
 from openlbmpm_torch.kernels.cg3d import (
     cg3d_step_compressed, cg3d_step_compressed_reference, cg3d_step_split,
-    cg3d_step_split_reference)
+    cg3d_step_split_reference, coupled3d_step_compressed,
+    coupled3d_step_compressed_reference)
 from openlbmpm_torch.kernels.csf import (
     compare_bf16_states, csf_step_compressed, csf_step_compressed_reference,
     csf_step_split, csf_step_split_reference)
@@ -436,3 +438,59 @@ def test_cg3d_steps_count_launches_and_check_states(cuda):
         m.step(tuple(t.double() for t in st))
     assert cg3d_step_compressed.launches == 1
 
+
+
+# -- the coupled D3Q19 CSF + D3Q7 tracer step (K9t) ---------------------------
+
+@pytest.mark.parametrize("case", sorted(c for c in CG3D_TRANSPORT_CASES
+                                        if c != "grain_pack"))
+def test_coupled3d_kernel_matches_plain_f64(cuda, case):
+    """K9t against its plain version, 10 f64 steps: flow state and tracer
+    PDFs <= 1e-11 (phase 25 of chip_smoke.py at a smaller size; the grain
+    pack runs there)."""
+    m, st = transport3d_case(case, cuda, shape=K9_SHAPE)
+    a = b = m.pack(st)
+    for _ in range(10):
+        a = coupled3d_step_compressed(*a, m)
+        b = coupled3d_step_compressed_reference(*b, m)
+    torch.cuda.synchronize(cuda)
+    assert all(bool(torch.isfinite(t).all()) for t in a)
+    assert max(float((p - q).abs().max()) for p, q in zip(a, b)) <= 1e-11
+
+
+def test_coupled3d_kernel_bf16_tracks_plain_bf16(cuda):
+    """K9t with bf16 flow storage and f32 tracers against its plain version,
+    3 steps of the probe case: tracer PDFs within 3e-5 off the seam slabs,
+    the tracer mass within 1e-6."""
+    m, st = transport3d_case("probe", cuda, shape=K9_SHAPE,
+                             dtype=torch.float32, storage="bf16")
+    a = b = m.pack(st)
+    assert a[0].dtype == torch.bfloat16 and a[1].dtype == torch.float32
+    for _ in range(3):
+        a = coupled3d_step_compressed(*a, m)
+        b = coupled3d_step_compressed_reference(*b, m)
+    away = torch.ones(m.geo.shape, dtype=torch.bool, device=cuda)
+    away[:3] = away[K9_SHAPE[0] - 2:] = False
+    gap = (a[1] - b[1]).abs().flatten(0, 1).amax(0)
+    assert float(gap[away].max()) <= 3e-5
+    ma, mb = float(a[1].double().sum()), float(b[1].double().sum())
+    assert abs(ma - mb) <= 1e-6 * mb
+
+
+def test_coupled3d_step_counts_launches_and_refuses_device_mix(cuda):
+    m, st = transport3d_case("dirichlet_nt2", cuda, shape=K9_SHAPE,
+                             dtype=torch.float32)
+    assert m.path == "kernel"
+    coupled3d_step_compressed.launches = 0
+    s, g = m.step_c(m.pack(st))
+    assert coupled3d_step_compressed.launches == 1
+    assert tuple(g.shape) == (2, 7) + K9_SHAPE
+    with pytest.raises(ValueError, match="device"):
+        m.step_c((s, g.cpu()))
+    with pytest.raises(ValueError, match="state"):
+        m.step_c((s.double(), g))
+    cpu_model, _ = transport3d_case("dirichlet_nt2", "cpu", shape=K9_SHAPE,
+                                    dtype=torch.float32)
+    with pytest.raises(ValueError, match="plain"):
+        coupled3d_step_compressed(s, g, cpu_model)
+    assert coupled3d_step_compressed.launches == 1
