@@ -1,29 +1,38 @@
 #!/usr/bin/env python3
-"""Plant faults in the D3Q19 CSF kernel (K9) and its coupled tracer step
-(K9t), and show that chip_smoke.py's phase 21 (configuration 5 at 128^3)
-and phase 26 (benchmarks/probe_coupled3d.py's configuration at 128^3), each
-kernel against its plain path, fail them.
+"""Plant faults in the kernels and show that chip_smoke.py's phases, each
+kernel against its plain path, fail them: the D3Q19 CSF kernel (K9) and its
+coupled tracer step (K9t) under phase 21 (configuration 5 at 128^3) and
+phase 26 (benchmarks/probe_coupled3d.py's configuration at 128^3), the
+single-phase D2Q9 kernel (K7) under phase 31 (the analytic Poiseuille
+profile) and the D3Q19 Shan-Chen kernel (K10) under phase 37
+(benchmarks/probe_sc3d.py's configuration).
 
     python3 chip_faults.py
 
 Run from the repository root on a machine with a CUDA card and nvcc.  Each
 case copies ``openlbmpm_torch`` (without its build directory) and
-``chip_smoke.py`` into a temporary directory, changes one line of
-``csrc/cg3d.cuh`` there, and runs its phases in a subprocess that builds the
-copy's libraries and records every failed check instead of stopping at the
-first.  The K9 faults drop the Guo source term on wetting fluid cells only
-(the contact lines, where phase 21 compares against the plain path's
-one-ulp twin) in one storage type's instance; the tracer fault applies the
-hard interface bounce-back on the x and y axes only (the tracer then leaks
-through the red phase across the periodic z seam) in the f32 instance:
+``chip_smoke.py`` into a temporary directory, changes one line of a
+``csrc/`` header there, and runs its phases in a subprocess that builds the
+copy's libraries and records every failed check (and any error) instead of
+stopping at the first.  The K9 faults drop the Guo source term on wetting
+fluid cells only (the contact lines, where phase 21 compares against the
+plain path's one-ulp twin) in one storage type's instance; the tracer
+fault applies the hard interface bounce-back on the x and y axes only (the
+tracer then leaks through the red phase across the periodic z seam) in the
+f32 instance; the K7 fault drops the Guo source from the MRT update in the
+f32 instance (the half-force stays in the relaxed moments); the K10 fault
+drops the adhesion term, which only wall-adjacent cells carry, in the f32
+instance:
 
-  none        the sources as they are: phases 21 and 26 must pass;
-  f32         float32 storage (K9c f32 and K9s f32): phase 21 must fail;
-  bf16        bfloat16 storage (K9h): phase 21 must fail;
-  tracer f32  float32 storage (K9t f32): phase 26 must fail.
+  none           the sources as they are: phases 21, 26, 31, 37 must pass;
+  f32            cg3d.cuh, float32 storage (K9c f32, K9s f32): phase 21;
+  bf16           cg3d.cuh, bfloat16 storage (K9h): phase 21;
+  tracer f32     cg3d.cuh, float32 storage (K9t f32): phase 26;
+  K7 MRT f32     single2d.cuh, float32 storage: phase 31 must fail;
+  K10 adh f32    flow3d.cuh, float32 storage: phase 37 must fail.
 
-Prints one line per case with the failed checks and the gaps off the seam,
-and exits 0 only when every case behaves as stated.
+Prints one line per case with the failed checks and the gaps, and exits 0
+only when every case behaves as stated.
 """
 
 from __future__ import annotations
@@ -41,12 +50,27 @@ LINE = "    post[i] = f[i] - (f[i] - feq) / tau + pref * src;"
 # wetting fluid cell
 FAULT = ("    post[i] = f[i] - (f[i] - feq) / tau + "
          "(sizeof(S) == {size} && geo[k] > C(1.5) ? C(0) : pref) * src;")
-CASES = {"none": None, "f32": 4, "bf16": 2}
 # directions 5 and 6 of D3Q7 are +z and -z
 TRACER_LINE = "      const bool repair = T.interface;"
 TRACER_FAULT = ("      const bool repair = T.interface && "
                 "(sizeof(S) != {size} || i < 5);")
-TRACER_CASES = {"tracer f32": 4}
+K7_LINE = "      post[i] = (FORCE ? F[i] + src[i] : F[i]) - c;"
+K7_FAULT = ("      post[i] = (FORCE && sizeof(S) != {size} ? F[i] + src[i] : "
+            "F[i]) - c;")
+K10_LINE = ("      const C force = -rho[k] * (gv + C(P.gs[k]) * C(adh[d])) + "
+            "C(P.bf[d]) * rho[k];")
+K10_FAULT = ("      const C force = -rho[k] * (gv + C(P.gs[k]) * "
+             "C(sizeof(S) == {size} ? 0.0 : adh[d])) + C(P.bf[d]) * rho[k];")
+# name -> (header, line, fault, phases that must fail)
+CASES = {
+    "f32": ("cg3d.cuh", LINE, FAULT.format(size=4), ("21",)),
+    "bf16": ("cg3d.cuh", LINE, FAULT.format(size=2), ("21",)),
+    "tracer f32": ("cg3d.cuh", TRACER_LINE, TRACER_FAULT.format(size=4),
+                   ("26",)),
+    "K7 MRT f32": ("single2d.cuh", K7_LINE, K7_FAULT.format(size=4), ("31",)),
+    "K10 adh f32": ("flow3d.cuh", K10_LINE, K10_FAULT.format(size=4),
+                    ("37",)),
+}
 
 RUN = r"""
 import json, sys, torch
@@ -57,32 +81,46 @@ device = torch.device("cuda", 0)
 for phase in sys.argv[1:]:
     bad = failed.setdefault(phase, [])
     cs.check = lambda cond, what, bad=bad: cond or bad.append(what)
-    if phase == "21":
-        res = cs.phase_config5(device)
-        parts = {"f32": res["f32"], "split": res["split"],
-                 "bf16 planes": res["bf16"]["planes"],
-                 "bf16 rho_r": res["bf16"]["rho_r"]}
-    else:
-        res = cs.phase_probe3d(device)
-        parts = {"f32": res["f32"], "f32 tracer": res["f32_tracer"],
-                 "bf16 planes": res["bf16"]["planes"],
-                 "bf16 tracer": res["bf16"]["tracer"]}
+    try:
+        if phase == "21":
+            res = cs.phase_config5(device)
+            parts = {"f32": res["f32"], "split": res["split"],
+                     "bf16 planes": res["bf16"]["planes"],
+                     "bf16 rho_r": res["bf16"]["rho_r"]}
+        elif phase == "26":
+            res = cs.phase_probe3d(device)
+            parts = {"f32": res["f32"], "f32 tracer": res["f32_tracer"],
+                     "bf16 planes": res["bf16"]["planes"],
+                     "bf16 tracer": res["bf16"]["tracer"]}
+        elif phase == "31":
+            out[phase] = {k: v[0] for k, v in
+                          cs.phase_single_poiseuille(device).items()}
+            continue
+        else:
+            res = cs.phase_probe_sc3d(device)
+            out[phase] = {"f64": res["f64"], "phys": res["phys"]} | {
+                f"{n} {st}": res[n][st] for n in (128, 256)
+                for st in ("f32", "bf16")}
+            continue
+    except Exception as exc:   # a fault may also stop a phase outright
+        bad.append(repr(exc)[:500])
+        continue
     out[phase] = {key: {k: v[k] for k in ("away", "twin_away", "far")}
                   for key, v in parts.items()} | {"f64": res["f64"]}
 print(json.dumps({"failed": failed, "gaps": out}))
 """
 
 
-def run_case(line, fault, phases) -> dict:
+def run_case(header, line, fault, phases) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         shutil.copytree(ROOT / "openlbmpm_torch", Path(tmp, "openlbmpm_torch"),
                         ignore=shutil.ignore_patterns("_build", "__pycache__"))
         shutil.copy(ROOT / "chip_smoke.py", tmp)
         if fault is not None:
-            cuh = Path(tmp, "openlbmpm_torch", "csrc", "cg3d.cuh")
+            cuh = Path(tmp, "openlbmpm_torch", "csrc", header)
             text = cuh.read_text()
             if text.count(line) != 1:
-                raise RuntimeError(f"the line {line.strip()!r} of cg3d.cuh "
+                raise RuntimeError(f"the line {line.strip()!r} of {header} "
                                    "moved")
             cuh.write_text(text.replace(line, fault))
         out = subprocess.run([sys.executable, "-c", RUN, *phases], cwd=tmp,
@@ -98,14 +136,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_faults: needs a CUDA card", file=sys.stderr)
         return 2
-    cases = [("none", None, None, ("21", "26"))]
-    cases += [(name, LINE, FAULT.format(size=size), ("21",))
-              for name, size in CASES.items() if size is not None]
-    cases += [(name, TRACER_LINE, TRACER_FAULT.format(size=size), ("26",))
-              for name, size in TRACER_CASES.items()]
+    cases = [("none", None, None, None, ("21", "26", "31", "37"))]
+    cases += [(name, *case) for name, case in CASES.items()]
     ok = True
-    for name, line, fault, phases in cases:
-        r = run_case(line, fault, phases)
+    for name, header, line, fault, phases in cases:
+        r = run_case(header, line, fault, phases)
         want_fail = fault is not None
         for phase in phases:
             failed = bool(r["failed"][phase])

@@ -128,7 +128,45 @@ toolkit (nvcc) and PyTorch built for CUDA; JAX is not needed.  Phases:
      rk_csf3d.ini, 1000 steps: one K9t launch a step, finite tracer masses;
      then ``run_chunked(step_c)`` with bf16 flow storage at 128^3;
  28. MLUPS of K9t (f32 and bf16 flow storage) at 128^3 and 256^3 and of its
-     plain paths at 128^3, device time per launch and the roofline share.
+     plain paths at 128^3, device time per launch and the roofline share;
+ 29. f64: the single-phase D2Q9 kernel K7 against its plain version, 20
+     steps on a 256x128 channel with side walls and a body force, SRT, TRT
+     and MRT under each row pair of SINGLE_CASES (Zou-He velocity +
+     pressure, Zou-He pressure + convective, periodic); <= 1e-11;
+ 30. bench_all.py config 1 (512x1024 box, MRT, tau 0.9, g = -1e-6) at full
+     size, 10 steps of K7 and plain from one perturbed f64 start: f64
+     <= 1e-11, f32 <= SINGLE_F32_BOUND, bf16 decoded <= BF16_BOUND, then
+     one bf16 step within one bf16 ulp per stored value
+     (``bf16_ulp_check``);
+ 31. the analytic Poiseuille profile through K7 (f32, 130x1024 channel,
+     tau 0.9, g = 1e-6, 80,000 steps of ``run_chunked``) within 2% for SRT,
+     TRT and MRT;
+ 32. K7's bf16 main path (``run_chunked(model.step)`` on config 1, 1000
+     steps), then MLUPS of K7 and its plain path at 512x1024 and 1024^2,
+     device time per launch and the roofline share;
+ 33. f64: the D3Q19 single-phase kernel K11 against its plain version, 20
+     steps on 48x40x32 (walls on y, an obstacle), SRT and TRT with and
+     without the body force; <= 1e-11;
+ 34. basic3d.ini's physics (SRT, tau 0.9, g_z = -1e-6, the CLI's box) at
+     128^3 and 256^3, 10 steps of K11 and plain from a perturbed start in
+     f32 (<= FLOW3D_F32_BOUND) and bf16 (decoded <= BF16_BOUND; one step
+     within one ulp per value);
+ 35. tests/test_flow3d.py's plate Poiseuille flow through K11 (SRT, TRT)
+     within 2% of the analytic profile;
+ 36. f64: the D3Q19 Shan-Chen kernel K10 against its plain version, 20
+     steps on 48x40x32 in each case of SC3D_CASES (two fluids periodic; two
+     fluids with y walls, G_s, tau (1.0, 0.8) and a body force; three
+     fluids); <= 1e-11;
+ 37. benchmarks/probe_sc3d.py's configuration: f64 at 128^3 (10 steps,
+     <= 1e-11), f32 and bf16 at 128^3 and 256^3 as phase 34, then 1000 f32
+     steps on K10 at 128^3: each fluid's mass within 1e-4 (f64: 1e-12 over
+     300 steps), the droplet separated;
+ 38. ``run --model basic|basic3d|sc3d`` on the shipped INIs through
+     ``cli.main``, 1000 f32 steps each: path "kernel", K7 / K11 / K10
+     launched exactly once a step, final checkpoints finite; the bf16 main
+     paths of K11 and K10 through ``run_chunked``;
+ 39. MLUPS of K11 and K10 (f32, bf16) at 128^3 and 256^3 and of their plain
+     paths at 128^3, device time per launch and the roofline share.
 
 Every phase prints one line or more, each number line with the card's name
 and power limit, and any failure exits non-zero.  Then the wall time, the
@@ -193,6 +231,19 @@ def flagship_model(device, storage, dtype=torch.float32, n=FLAGSHIP_N):
 def check(cond: bool, what: str):
     if not cond:
         raise AssertionError(what)
+
+
+def poiseuille_error(profile, g: float, nu: float) -> float:
+    """max |u - u_analytic| / max |u_analytic| over the fluid cells of a
+    channel profile whose first and last cells are solid: half-way
+    bounce-back puts the walls half a cell inside the solid, so with
+    H = n - 2 fluid cells u(x) = g / (2 nu) ((H/2)^2 - (x - xc)^2), xc the
+    middle of the profile.  The CPU tests use it too."""
+    u = np.asarray(profile, np.float64)
+    n = u.shape[0]
+    x = np.arange(1, n - 1)
+    ana = g / (2.0 * nu) * (((n - 2) / 2.0) ** 2 - (x - (n - 1) / 2.0) ** 2)
+    return float(np.abs(u[1:-1] - ana).max() / np.abs(ana).max())
 
 
 def phase_f64(device, ny=256, nx=128, steps=20, tol=1e-11):
@@ -2528,6 +2579,737 @@ def phase25_28_lines(r25, r26, r27, r28, card):
     return lines
 
 
+# -- the single-phase D2Q9 step: K7 -------------------------------------------
+
+# name -> (collision, BoundaryConfig fields): each collision under each row
+# pair of tests/test_single_phase.py:84-91 (phase 29; test_torch_cuda.py)
+_ZH = dict(inlet="zou_he_velocity", outlet="zou_he_pressure",
+           inlet_velocity=-1e-3, outlet_density=1.0)
+_PC = dict(inlet="zou_he_pressure", outlet="convective", inlet_density=1.02)
+SINGLE_CASES = {f"{c.lower()}_{b}": (c, bcs) for c in ("SRT", "TRT", "MRT")
+                for b, bcs in (("zou_he", _ZH), ("convective", _PC),
+                               ("periodic", {}))}
+SINGLE_FORCE = (1e-5, -2e-5)
+
+
+def single_case(name, device, ny=256, nx=128, dtype=torch.float64,
+                storage="f32"):
+    """A SINGLE_CASES model on an ny x nx channel with side walls, tau 0.8,
+    the body force SINGLE_FORCE."""
+    from openlbmpm_torch.models.single_phase import (BoundaryConfig,
+                                                     SinglePhaseD2Q9)
+    collision, bcs = SINGLE_CASES[name]
+    return SinglePhaseD2Q9(walled(ny, nx), tau=0.8, collision=collision,
+                           body_force=SINGLE_FORCE,
+                           boundaries=BoundaryConfig(**bcs), dtype=dtype,
+                           device=device, storage=storage)
+
+
+def flow_start(m, seed=0, k=None):
+    """A perturbed equilibrium of model `m` on its fluid (one fluid, or the
+    k fluids of a Shan-Chen model): rho in [0.97, 1.03] (fluid j scaled by
+    (1, 0.3, 0.6)[j]), |u| <= 0.02 per component, made in float64 from a
+    numpy seed and cast to the model's arithmetic type."""
+    from openlbmpm_torch.ops.equilibrium import feq_quadratic
+    rng = np.random.default_rng(seed)
+    lead = () if k is None else (k,)
+    shape = lead + tuple(m.geo.shape)
+    rho = rng.uniform(0.97, 1.03, shape)
+    if k is not None:
+        rho *= np.array([1.0, 0.3, 0.6][:k]).reshape((-1,) + (1,) * (
+            len(shape) - 1))
+    u = tuple(torch.as_tensor(rng.uniform(-0.02, 0.02, shape),
+                              device=m.device) for _ in range(m.lat.dim))
+    f = feq_quadratic(m.lat, torch.as_tensor(rho, device=m.device), u)
+    return (f * m.fluid_mask.double()).to(m.dtype)
+
+
+def config1_model(device, storage="f32", dtype=torch.float32, nx=512,
+                  ny=1024):
+    """bench_all.py config 1 (benchmarks/bench_all.py:50-75): a 512 x 1024
+    box with walls, MRT, tau 0.9, body force (0, -1e-6), periodic rows."""
+    from openlbmpm_torch.geometry import box_with_walls
+    from openlbmpm_torch.models.single_phase import SinglePhaseD2Q9
+    return SinglePhaseD2Q9(box_with_walls(nx, ny), tau=0.9, collision="MRT",
+                           body_force=(0.0, -1e-6), dtype=dtype,
+                           device=device, storage=storage)
+
+
+def _bf16_encode_rz(x, lat):
+    """A stepped state (..., Q, *spatial) encoded to bf16 rounding toward
+    zero (a wrong rounding mode), per fluid: deviations, rho hi, rho lo."""
+    from openlbmpm_torch.ops.macroscopic import density
+    rho = density(x, lat.dim)
+    w = torch.as_tensor(lat.w, dtype=x.dtype, device=x.device).reshape(
+        (-1,) + (1,) * lat.dim)
+    hi = _bf16_rz(rho)
+    qax = -(lat.dim + 1)
+    return torch.cat([_bf16_rz(x - w * rho.unsqueeze(qax)), hi.unsqueeze(qax),
+                      _bf16_rz(rho - hi.float()).unsqueeze(qax)], dim=qax)
+
+
+def bf16_ulp_check(m, h, kernel, where, max_share, tag):
+    """K7, K10 and K11 in bf16 storage: the kernel and its plain version one
+    step from the common bf16 state `h`, every stored value within one bf16
+    ulp on `where` (``compare_bf16_states``, per fluid), at most
+    `max_share` of the values >= 1e-4 off at all; the same check must fail
+    a round-toward-zero encoding of the plain path's own f32 result."""
+    from openlbmpm_torch.kernels.csf import compare_bf16_states
+    plain = m.plain_step(h)
+    kern = kernel(h, m)
+    rz = _bf16_encode_rz(m._step_impl(m.unpack_bf16(h)), m.lat)
+    per = [(kern, plain, rz)] if kern.dim() == m.lat.dim + 1 else \
+        list(zip(kern, plain, rz))
+    r = {"excess": 0.0, "share": 0.0, "hi_flips": 0, "rz_share": 0.0}
+    for a, b, c in per:
+        x = compare_bf16_states(a, b, where)
+        r = {"excess": max(r["excess"], x["excess"]),
+             "share": max(r["share"], x["share"]),
+             "hi_flips": r["hi_flips"] + x["hi_flips"],
+             "rz_share": max(r["rz_share"],
+                             compare_bf16_states(c, b, where)["share"])}
+    check(r["excess"] <= 1.0, f"{tag} bf16 one step: a value "
+          f"{r['excess']:.3g} ulp off the plain path")
+    check(r["share"] <= max_share, f"{tag} bf16 one step: {r['share']:.2e} of "
+          f"the values differ (> {max_share:g})")
+    check(r["rz_share"] > max_share, f"{tag} bf16 one-step check cannot see a "
+          f"rounding-toward-zero encoding ({r['rz_share']:.2e})")
+    return r
+
+
+def phase_single_f64(device, steps=20, tol=1e-11):
+    """K7 against its plain version at f64, `steps` steps on a 256 x 128
+    channel with side walls from a perturbed start, in every case of
+    SINGLE_CASES (with the body force); max |difference| <= tol."""
+    from openlbmpm_torch.kernels.single import (single_step,
+                                                single_step_reference)
+    res = {}
+    for name in SINGLE_CASES:
+        m = single_case(name, device)
+        check(m.path == "kernel", f"K7 {name}: path {m.path}")
+        f = flow_start(m, seed=len(res))
+        a = _run(single_step, f, m, steps)
+        b = _run(single_step_reference, f, m, steps)
+        res[name] = float((a - b).abs().max())
+        check(bool(torch.isfinite(a).all()) and res[name] <= tol,
+              f"K7 {name} f64: max |kernel - plain| {res[name]:.3e}")
+    return res
+
+
+# f32 kernel against plain, 10 steps from one start: about 10x the gap
+# measured on an H100 (1.490e-7 at config 1; PERF.md section 6)
+SINGLE_F32_BOUND = 2e-6
+# the share of bf16 values >= 1e-4 that may differ at all after one step:
+# K7 relaxes MRT in moment space, the plain path through the dense
+# M^-1 S M, so their f32 results round apart (3.4e-3 measured at config 1,
+# 1.8e-2 at 70 x 45 three steps from rest, on an H100); the 3-D steps
+# follow the plain formulas (2.4e-3 measured for K11)
+SINGLE_BF16_SHARE = 3e-2
+FLOW3D_BF16_SHARE = 1e-2
+
+
+def phase_config1(device, nx=512, ny=1024, steps=10):
+    """bench_all.py config 1 at full size, `steps` steps of K7 and its plain
+    version from one perturbed f64 start: f64 <= 1e-11, f32 <=
+    SINGLE_F32_BOUND; bf16 storage: the state after `steps` steps, decoded,
+    within BF16_BOUND["K7"] of the plain path's, then one more step of each
+    from a common bf16 state by ``bf16_ulp_check``."""
+    from openlbmpm_torch.kernels.single import (single_step,
+                                                single_step_reference)
+    m64 = config1_model(device, dtype=torch.float64, nx=nx, ny=ny)
+    f64 = flow_start(m64, seed=11)
+    res = {"f64": float((_run(single_step, f64, m64, steps) - _run(
+        single_step_reference, f64, m64, steps)).abs().max())}
+    check(res["f64"] <= 1e-11, f"config 1 f64: {res['f64']:.3e}")
+    m32 = config1_model(device, nx=nx, ny=ny)
+    f32 = f64.float()
+    k32 = _run(single_step, f32, m32, steps)
+    res["f32"] = float((k32 - _run(single_step_reference, f32, m32,
+                                   steps)).abs().max())
+    check(res["f32"] <= SINGLE_F32_BOUND, f"config 1 f32: {res['f32']:.3e}")
+    mh = config1_model(device, storage="bf16", nx=nx, ny=ny)
+    h = mh.pack_state_bf16(f32)
+    kh = _run(single_step, h, mh, steps)
+    ph = _run(single_step_reference, h, mh, steps)
+    res["bf16"] = float((mh.unpack_bf16(kh) - mh.unpack_bf16(ph)).abs().max())
+    check(res["bf16"] <= BF16_BOUND["K7"], f"config 1 bf16: "
+          f"{res['bf16']:.3e}")
+    res["ulp"] = bf16_ulp_check(mh, ph, single_step, mh.fluid_mask > 0,
+                                SINGLE_BF16_SHARE, "K7")
+    res["finite"] = bool(torch.isfinite(k32).all())
+    check(res["finite"], "config 1 f32 kernel state not finite")
+    return res
+
+
+def poiseuille2d_model(collision, device, nx=130, ny=1024,
+                       dtype=torch.float32):
+    """A body-force channel: side walls (nx - 2 = 128 fluid columns),
+    periodic along y, tau 0.9, g = 1e-6 along y."""
+    from openlbmpm_torch.models.single_phase import SinglePhaseD2Q9
+    return SinglePhaseD2Q9(walled(ny, nx), tau=0.9, collision=collision,
+                           body_force=(0.0, 1e-6), dtype=dtype, device=device)
+
+
+def phase_single_poiseuille(device, steps=80_000, tol=0.02):
+    """The analytic Poiseuille profile through K7 for SRT, TRT and MRT, in
+    f32 (keys "SRT", "TRT", "MRT") and in f64 (keys "... f64", which set
+    f32 rounding apart from the method): ``run_chunked(model.step)`` for
+    `steps` steps from rest on the 130 x 1024 channel (the slowest mode
+    decays in (H/pi)^2 / nu ~ 12,500 steps, so 80,000 leave < 0.5 % of the
+    transient); the mid-row profile within `tol` of g / (2 nu) ((H/2)^2 -
+    x^2); K7 launched exactly `steps` times."""
+    from openlbmpm_torch.kernels.single import single_step
+    from openlbmpm_torch.models.base import run_chunked
+    res = {}
+    for dtype, suffix in ((torch.float32, ""), (torch.float64, " f64")):
+        for collision in ("SRT", "TRT", "MRT"):
+            m = poiseuille2d_model(collision, device, dtype=dtype)
+            single_step.launches = 0
+            f = run_chunked(m.step, m.init_state(1.0), num_steps=steps,
+                            io_interval=steps // 4, nan_guard=True)
+            launches = single_step.launches
+            _, (_, uy) = m.macro(f)
+            err = poiseuille_error(uy[m.geo.ny // 2].double().cpu().numpy(),
+                                   m.body_force[1], m.nu)
+            key = collision + suffix
+            res[key] = (err, launches, float(uy.max()))
+            check(launches == steps, f"K7 Poiseuille {key}: {launches} "
+                  f"launches, want {steps}")
+            check(err < tol, f"K7 Poiseuille {key}: profile {err:.4f} from "
+                  "the analytic one")
+    return res
+
+
+# config 1 has no inlet or outlet, so bc_rows_kernel does not run there
+SINGLE_KERNELS = ("collide_stream_kernel",)
+# least bytes per cell-step of K7's function: the state in and out plus a
+# 1-byte mask: f32 2 x 36 + 1, bf16 2 x 22 + 1
+SINGLE_BYTES = {"f32": 2 * 36 + 1, "bf16": 2 * 22 + 1}
+SINGLE_FLOPS = 350   # per cell-step, counted roughly (MRT with the Guo source)
+
+
+def phase_single_main(device, sizes=((1024, 512), (1024, 1024)),
+                      main_steps=1000, kernel_steps=500, plain_steps=20):
+    """The main path of K7 in bf16 storage: ``run_chunked(model.step)`` on
+    config 1 for `main_steps` steps with the NaN guard, its launches counted
+    and its MLUPS; then MLUPS of kernel and plain path (f32, bf16) at each
+    (ny, nx) of `sizes` from CUDA events (plain, kernel, kernel, plain), each
+    CUDA kernel's device microseconds per launch from torch.profiler, and
+    the roofline share of SINGLE_BYTES."""
+    from openlbmpm_torch.kernels.single import (
+        launch_single2d, single_step, single_step_reference)
+    from openlbmpm_torch.models.base import RunMetrics, run_chunked
+    mh = config1_model(device, storage="bf16")
+    meter = RunMetrics(mh.geo.num_fluid_nodes)
+    single_step.launches = 0
+    h = run_chunked(mh.step, mh.pack_state_bf16(mh.init_state(1.0)),
+                    num_steps=main_steps, io_interval=main_steps // 2,
+                    metrics=meter, nan_guard=True)
+    res = {"launches_bf16": single_step.launches, "run_mlups_bf16":
+           meter.mlups}
+    check(res["launches_bf16"] == main_steps and h.dtype == torch.bfloat16,
+          f"K7 bf16 main path: {res['launches_bf16']} launches")
+    _, (_, uy) = mh.macro(h)
+    res["uy_min"] = float(uy.min())
+    check(bool(torch.isfinite(uy).all()) and res["uy_min"] < 0,
+          f"K7 bf16 main path: u_y min {res['uy_min']}")
+    for ny, nx in sizes:
+        models = {st: config1_model(device, storage=st, nx=nx, ny=ny)
+                  for st in ("f32", "bf16")}
+        f = models["f32"].init_state(1.0)
+        states = {"f32": f, "bf16": models["bf16"].pack_state_bf16(f)}
+        sec = time_paths(models, states, single_step, single_step_reference,
+                         kernel_steps, plain_steps, device)
+        profile = {}
+        for st, m in models.items():
+            times = device_times(lambda x, m=m: launch_single2d(
+                x, m.kernel_params, m.fluid_u8), states[st], SINGLE_KERNELS)
+            profile.update({(st, k): v for k, v in times.items()})
+        cells = nx * ny
+        res[(ny, nx)] = {
+            "sec": sec, "profile": profile,
+            "mlups": {k: cells / t / 1e6 for k, t in sec.items()},
+            "roof": {st: SINGLE_BYTES[st] * cells / HBM_BYTES_PER_S /
+                     sec[("kernel", st)] for st in SINGLE_BYTES}}
+    return res
+
+
+def phase29_32_lines(r29, r30, r31, r32, card):
+    lines = ["phase 29 K7 f64 vs plain, 256x128 side walls, body force, 20 "
+             "steps: max |diff| " + ", ".join(
+                 f"{k} {v:.3e}" for k, v in r29.items()) + " (<= 1e-11)"]
+    u = r30["ulp"]
+    lines.append(
+        f"phase 30 config 1 512x1024 MRT, 10 steps [{card}]: f64 "
+        f"{r30['f64']:.3e} (<= 1e-11), f32 {r30['f32']:.3e} (<= "
+        f"{SINGLE_F32_BOUND:g}), bf16 decoded {r30['bf16']:.3e} (<= "
+        f"{BF16_BOUND['K7']:g}); "
+        f"K7 bf16 one step {u['excess']:g} ulp, share {u['share']:.2e} (<= "
+        f"{SINGLE_BF16_SHARE:g}), hi flips {u['hi_flips']}, round-toward-"
+        f"zero share {u['rz_share']:.2e}")
+    lines.append(
+        f"phase 31 K7 Poiseuille 130x1024, tau 0.9, g 1e-6, 80000 steps "
+        f"(f32, then f64) [{card}]: " + ", ".join(
+            f"{k} {v[0] * 100:.3f}% of the analytic profile (u max "
+            f"{v[2]:.6g}, {v[1]} launches)" for k, v in r31.items()) +
+        " (< 2%)")
+    lines.append(
+        f"phase 32 K7 main path config 1 bf16 [{card}]: run_chunked "
+        f"{r32['launches_bf16']} launches, {r32['run_mlups_bf16']:.1f} MLUPS, "
+        f"u_y min {r32['uy_min']:.4g}")
+    for key, r in r32.items():
+        if not isinstance(key, tuple):
+            continue
+        ny, nx = key
+        sec = r["sec"]
+        lines.append(
+            f"phase 32 K7 {nx}x{ny} [{card}]: MLUPS " + ", ".join(
+                f"{p} {st} {r['mlups'][(p, st)]:.1f} ("
+                f"{sec[(p, st)] * 1e3:.4f} ms)" for p, st in sec) +
+            "; bound ms " + ", ".join(
+                f"{st} {b * nx * ny / HBM_BYTES_PER_S * 1e3:.4f}"
+                for st, b in SINGLE_BYTES.items()) + "; roofline share " +
+            ", ".join(f"{st} {v:.3f}" for st, v in r["roof"].items()) +
+            "; device us per launch (launches per step): " + ", ".join(
+                f"{st} {k} " + ("not measured" if v is None else
+                                f"{v[0]:.2f} ({v[1]:g})")
+                for (st, k), v in r["profile"].items()))
+    return lines
+
+
+# -- the D3Q19 single-phase and Shan-Chen steps: K11 and K10 -----------------
+
+# name -> (collision, body force): K11's cases on walls along y (phase 33)
+SINGLE3D_CASES = {"srt_force": ("SRT", (2e-5, -1e-5, 3e-5)),
+                  "srt": ("SRT", (0.0, 0.0, 0.0)),
+                  "trt_force": ("TRT", (2e-5, -1e-5, 3e-5)),
+                  "trt": ("TRT", (0.0, 0.0, 0.0))}
+
+
+def _walls_y(shape, obstacle=False):
+    from openlbmpm_torch.geometry import from_solid_mask
+    solid = np.zeros(shape, bool)
+    solid[:, 0, :] = solid[:, -1, :] = True
+    if obstacle:
+        nz, ny, nx = shape
+        z, y, x = nz // 3, ny // 3, nx // 3
+        solid[z:z + 4, y:y + 4, x:x + 5] = True
+    return from_solid_mask(solid)
+
+
+def single3d_case(name, device, shape=(48, 40, 32), dtype=torch.float64):
+    """A SINGLE3D_CASES model (tau 0.8) on walls along y with an obstacle."""
+    from openlbmpm_torch.models.flow3d import SinglePhaseD3Q19
+    collision, force = SINGLE3D_CASES[name]
+    return SinglePhaseD3Q19(_walls_y(shape, obstacle=True), tau=0.8,
+                            collision=collision, body_force=force,
+                            dtype=dtype, device=device)
+
+
+def basic3d_model(device, n=128, storage="f32", dtype=torch.float32):
+    """configs/basic3d.ini's physics (SRT, tau 0.9, g_z = -1e-6) at n^3 in
+    the CLI's box (walls on the x and y faces, ``cli._box3d``)."""
+    from openlbmpm_torch.cli import _box3d
+    from openlbmpm_torch.models.flow3d import SinglePhaseD3Q19
+    return SinglePhaseD3Q19(_box3d({"nz": n, "ny": n, "nx": n}), tau=0.9,
+                            body_force=(0.0, 0.0, -1e-6), dtype=dtype,
+                            device=device, storage=storage)
+
+
+_SC2 = dict(g_matrix=((0.0, 3.6), (3.6, 0.0)), g_solid=(-0.3, 0.3),
+            tau=(1.0, 0.8))
+# name -> (ShanChenParams3D fields, walls along y, start): K10's cases
+# (phase 36; test_torch_cuda.py)
+SC3D_CASES = {
+    "k2_periodic": (dict(g_matrix=((0.0, 3.6), (3.6, 0.0)),
+                         g_solid=(0.0, 0.0), tau=(1.0, 1.0)), False,
+                    "droplet"),
+    "k2_walls_force": (_SC2 | dict(body_force=(1e-5, -1e-5, -1e-5)), True,
+                       "droplet"),
+    "k3": (dict(g_matrix=((0.0, 2.0, 1.0), (2.0, 0.0, 1.5), (1.0, 1.5, 0.0)),
+                g_solid=(0.1, -0.2, 0.0), tau=(1.0, 0.8, 1.2)), True,
+           "random"),
+}
+
+
+def sc3d_case(name, device, shape=(48, 40, 32), dtype=torch.float64):
+    """A SC3D_CASES model and its start: fluid 0 a sphere of radius
+    min(shape)/4 at densities (1, 0.02), or a perturbed equilibrium."""
+    from openlbmpm_torch.geometry import from_solid_mask
+    from openlbmpm_torch.models.flow3d import ShanChenMCMP3D, ShanChenParams3D
+    kw, walls, start = SC3D_CASES[name]
+    g = _walls_y(shape) if walls else from_solid_mask(np.zeros(shape, bool))
+    m = ShanChenMCMP3D(g, ShanChenParams3D(**kw), dtype=dtype, device=device)
+    if start == "droplet":
+        f = m.init_state_droplet((1.0,) * m.k, (0.02,) * m.k,
+                                 radius=min(shape) / 4)
+    else:
+        f = flow_start(m, seed=3, k=m.k)
+    return m, f
+
+
+def probe_sc3d_model(device, n=128, storage="f32", dtype=torch.float32):
+    """benchmarks/probe_sc3d.py's configuration at n^3: walls on the y
+    faces, G = 3.6, G_s = (-0.3, 0.3), tau = (1.0, 0.8), g_z = -1e-6."""
+    from openlbmpm_torch.models.flow3d import ShanChenMCMP3D, ShanChenParams3D
+    return ShanChenMCMP3D(_walls_y((n,) * 3), ShanChenParams3D(
+        **_SC2, body_force=(0.0, 0.0, -1e-6)), dtype=dtype, device=device,
+        storage=storage)
+
+
+def probe_sc3d_start(m):
+    """The probe's start: a droplet of fluid 0 of radius n/4, densities
+    (1.0, 0.02) in and out."""
+    return m.init_state_droplet((1.0, 1.0), (0.02, 0.02),
+                                radius=m.geo.shape[0] / 4)
+
+
+def phase_single3d_f64(device, steps=20, tol=1e-11):
+    """K11 against its plain version at f64, `steps` steps on 48x40x32 with
+    walls along y and an obstacle from a perturbed start, in every case of
+    SINGLE3D_CASES; max |difference| <= tol."""
+    from openlbmpm_torch.kernels.flow3d import (single3d_step,
+                                                single3d_step_reference)
+    res = {}
+    for name in SINGLE3D_CASES:
+        m = single3d_case(name, device)
+        check(m.path == "kernel", f"K11 {name}: path {m.path}")
+        f = flow_start(m, seed=len(res))
+        a = _run(single3d_step, f, m, steps)
+        res[name] = float((a - _run(single3d_step_reference, f, m,
+                                    steps)).abs().max())
+        check(bool(torch.isfinite(a).all()) and res[name] <= tol,
+              f"K11 {name} f64: max |kernel - plain| {res[name]:.3e}")
+    return res
+
+
+# kernel against plain, 10 steps from one start (bf16 decoded): about 10x
+# the gaps measured on an H100 (K11 f32 2.086e-7, bf16 1.273e-5 at 256^3;
+# K7 bf16 2.310e-5 at config 1; PERF.md section 6)
+FLOW3D_F32_BOUND = {"K11": 2e-6, "K10": 1e-5}
+BF16_BOUND = {"K7": 3e-4, "K11": 1.5e-4, "K10": 3e-4}
+
+
+def _flow3d_compare(device, kernel, plain, make, start, steps, tag, sizes):
+    """At each n of `sizes`: f32 and bf16 storage, `steps` steps of kernel
+    and plain version from `start(model)`, max |difference| (bf16 decoded)
+    within FLOW3D_F32_BOUND[tag] (f32) and BF16_BOUND[tag] (bf16); then at
+    the first n one more step from a common bf16 state
+    (``bf16_ulp_check``)."""
+    res = {}
+    for n in sizes:
+        m32 = make(device, n=n)
+        f = start(m32)
+        a, b = _run(kernel, f, m32, steps), _run(plain, f, m32, steps)
+        r = {"f32": float((a - b).abs().max()),
+             "finite": bool(torch.isfinite(a).all())}
+        del a, b
+        mh = make(device, n=n, storage="bf16")
+        h = mh.pack_state_bf16(f)
+        del f
+        a, b = _run(kernel, h, mh, steps), _run(plain, h, mh, steps)
+        r["bf16"] = float((mh.unpack_bf16(a) - mh.unpack_bf16(b)).abs().max())
+        if n == sizes[0]:
+            r["ulp"] = bf16_ulp_check(mh, b, kernel, mh.fluid_mask > 0,
+                                      FLOW3D_BF16_SHARE, tag)
+        del a, b, h
+        check(r["finite"] and r["f32"] <= FLOW3D_F32_BOUND[tag],
+              f"{tag} {n}^3 f32: max |kernel - plain| {r['f32']:.3e}")
+        check(r["bf16"] <= BF16_BOUND[tag], f"{tag} {n}^3 bf16: "
+              f"{r['bf16']:.3e}")
+        res[n] = r
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_basic3d(device, sizes=(128, 256), steps=10):
+    """basic3d.ini's physics at each n of `sizes`, K11 against its plain
+    version from a perturbed start (``_flow3d_compare``)."""
+    from openlbmpm_torch.kernels.flow3d import (single3d_step,
+                                                single3d_step_reference)
+    return _flow3d_compare(
+        device, single3d_step, single3d_step_reference, basic3d_model,
+        lambda m: flow_start(m, seed=5), steps, "K11", sizes)
+
+
+def phase_single3d_poiseuille(device, steps=4000, tol=0.02):
+    """tests/test_flow3d.py:15-34's plate Poiseuille flow through K11 (f32):
+    4 x 18 x 4, walls on the y faces, tau 0.9, g_x = 1e-6, 4000 steps, SRT
+    and TRT; the profile u_x(y) within `tol` of the analytic one."""
+    from openlbmpm_torch.kernels.flow3d import single3d_step
+    from openlbmpm_torch.models.base import run_chunked
+    from openlbmpm_torch.models.flow3d import SinglePhaseD3Q19
+    res = {}
+    for collision in ("SRT", "TRT"):
+        m = SinglePhaseD3Q19(_walls_y((4, 18, 4)), tau=0.9,
+                             collision=collision, body_force=(1e-6, 0.0, 0.0),
+                             dtype=torch.float32, device=device)
+        single3d_step.launches = 0
+        f = run_chunked(m.step, m.init_state(), num_steps=steps,
+                        io_interval=steps, nan_guard=True)
+        check(single3d_step.launches == steps, f"K11 Poiseuille: "
+              f"{single3d_step.launches} launches")
+        _, (ux, _, _) = m.macro(f)
+        res[collision] = poiseuille_error(ux[2, :, 2].double().cpu().numpy(),
+                                          1e-6, m.nu)
+        check(res[collision] < tol, f"K11 Poiseuille {collision}: profile "
+              f"{res[collision]:.4f} from the analytic one")
+    return res
+
+
+def phase_sc3d_f64(device, steps=20, tol=1e-11):
+    """K10 against its plain version at f64, `steps` steps on 48x40x32 in
+    every case of SC3D_CASES; max |difference| <= tol."""
+    from openlbmpm_torch.kernels.flow3d import sc3d_step, sc3d_step_reference
+    res = {}
+    for name in SC3D_CASES:
+        m, f = sc3d_case(name, device)
+        check(m.path == "kernel", f"K10 {name}: path {m.path}")
+        a = _run(sc3d_step, f, m, steps)
+        res[name] = float((a - _run(sc3d_step_reference, f, m,
+                                    steps)).abs().max())
+        check(bool(torch.isfinite(a).all()) and res[name] <= tol,
+              f"K10 {name} f64: max |kernel - plain| {res[name]:.3e}")
+    return res
+
+
+def phase_probe_sc3d(device, sizes=(128, 256), steps=10, n_phys=128,
+                     phys_steps=1000):
+    """probe_sc3d.py's configuration: f64 at the first size (10 steps,
+    <= 1e-11), f32 and bf16 at each size (``_flow3d_compare``); then the
+    physics on K10 f32 at n_phys^3: ``run_chunked(model.step)`` for
+    `phys_steps` steps, each fluid's mass within 1e-4 of its start (f32
+    rounding of the equilibria drifts it: 1.84e-5 measured on an H100; the
+    f64 instance holds it to 1e-12 over 300 steps), the droplet separated
+    (rho_0 > 0.5 at its centre, < 0.2 far from it and from the walls)."""
+    from openlbmpm_torch.kernels.flow3d import sc3d_step, sc3d_step_reference
+    from openlbmpm_torch.models.base import run_chunked
+    m64 = probe_sc3d_model(device, n=sizes[0], dtype=torch.float64)
+    f = probe_sc3d_start(m64)
+    res = {"f64": float((_run(sc3d_step, f, m64, steps) - _run(
+        sc3d_step_reference, f, m64, steps)).abs().max())}
+    check(res["f64"] <= 1e-11, f"probe_sc3d f64: {res['f64']:.3e}")
+    del m64, f
+    res |= _flow3d_compare(device, sc3d_step, sc3d_step_reference,
+                           probe_sc3d_model,
+                           probe_sc3d_start, steps, "K10", sizes)
+    m = probe_sc3d_model(device, n=n_phys)
+    f = probe_sc3d_start(m)
+    m0 = f.double().sum(dim=(1, 2, 3, 4))
+    sc3d_step.launches = 0
+    f = run_chunked(m.step, f, num_steps=phys_steps, io_interval=phys_steps,
+                    nan_guard=True)
+    check(sc3d_step.launches == phys_steps, f"K10 physics: "
+          f"{sc3d_step.launches} launches")
+    drift = ((f.double().sum(dim=(1, 2, 3, 4)) - m0).abs() / m0).max()
+    rho0 = f[0].sum(0)
+    c = n_phys // 2
+    res["phys"] = {"drift": float(drift), "centre": float(rho0[c, c, c]),
+                   "far": float(rho0[c, c, 2])}
+    check(res["phys"]["drift"] < 1e-4, f"K10 mass drift {float(drift):.2e}")
+    # 100 steps of the kernel and of its plain version from the start, to
+    # set the f32 drift beside the plain path's (recorded, not checked)
+    f = probe_sc3d_start(m)
+    for key, fn in (("kernel100", sc3d_step),
+                    ("plain100", sc3d_step_reference)):
+        g = _run(fn, f, m, 100)
+        res["phys"][key] = float(((g.double().sum(dim=(1, 2, 3, 4)) - m0).abs()
+                                  / m0).max())
+        del g
+    del m, f
+    m = probe_sc3d_model(device, n=n_phys, dtype=torch.float64)
+    f = probe_sc3d_start(m)
+    m0 = f.sum(dim=(1, 2, 3, 4))
+    f = _run(sc3d_step, f, m, 300)
+    res["phys"]["drift64"] = float(((f.sum(dim=(1, 2, 3, 4)) - m0).abs() /
+                                    m0).max())
+    check(res["phys"]["drift64"] < 1e-12, f"K10 f64 mass drift "
+          f"{res['phys']['drift64']:.2e}")
+    check(res["phys"]["centre"] > 0.5 and res["phys"]["far"] < 0.2,
+          f"K10 droplet: rho_0 centre {res['phys']['centre']:.4f}, far "
+          f"{res['phys']['far']:.4f}")
+    return res
+
+
+def phase_flow_cli(device, steps=1000):
+    """``run --model basic`` on configs/basicsetup.ini (512 x 1024, MRT),
+    ``--model basic3d`` on configs/basic3d.ini (32 x 32 x 64) and ``--model
+    sc3d`` on configs/shanchen3d.ini (32 x 32 x 64) as shipped, `steps` f32
+    steps each with the output interval set to `steps`, through
+    ``openlbmpm_torch.cli.main``: path "kernel", K7 / K11 / K10 launched
+    exactly `steps` times, the final checkpoint finite; then the bf16 main
+    paths of K11 and K10 (``run_chunked(model.step)``, 200 steps at 128^3)
+    with their launches counted."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+    from openlbmpm_torch import cli
+    from openlbmpm_torch.kernels.flow3d import sc3d_step, single3d_step
+    from openlbmpm_torch.kernels.single import single_step
+    from openlbmpm_torch.models.base import RunMetrics, run_chunked
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for model, name, counter, key, shape in (
+                ("basic", "basicsetup.ini", single_step, "TimeInterval",
+                 (9, 1024, 512)),
+                ("basic3d", "basic3d.ini", single3d_step, "TimeInterval",
+                 (19, 64, 32, 32)),
+                ("sc3d", "shanchen3d.ini", sc3d_step, "TimeInterval",
+                 (2, 19, 64, 32, 32))):
+            ini = os.path.join(tmp, name)
+            _ini_copy(os.path.join(root, name), ini, {key: steps})
+            out = os.path.join(tmp, model)
+            counter.launches = 0
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()) as text:
+                rc = cli.main(["run", ini, "--model", model, "--steps",
+                               str(steps), "--output", out, "--device",
+                               "cuda"])
+            sec = time.perf_counter() - t0
+            launches = counter.launches
+            check(rc == 0, f"cli run --model {model} returned {rc}")
+            check("the kernel step on cuda" in text.getvalue(),
+                  f"cli {model}: {text.getvalue().splitlines()[:1]}")
+            check(launches == steps, f"cli {model}: {launches} launches, "
+                  f"want {steps}")
+            with np.load(os.path.join(out, "checkpoint.npz")) as z:
+                s, step = z["leaf0"], int(z["__step__"])
+            check(step == steps and s.shape == shape and
+                  bool(np.isfinite(s).all()),
+                  f"cli {model}: checkpoint at step {step} {s.shape}")
+            res[model] = {"launches": launches, "sec": sec,
+                          "mlups": _mlups(os.path.join(out, "metrics.jsonl"))}
+    for tag, make, start, counter in (
+            ("K11", basic3d_model, lambda m: m.init_state(), single3d_step),
+            ("K10", probe_sc3d_model, probe_sc3d_start, sc3d_step)):
+        m = make(device=device, n=128, storage="bf16")
+        meter = RunMetrics(m.geo.num_fluid_nodes)
+        counter.launches = 0
+        h = run_chunked(m.step, m.pack_state_bf16(start(m)), num_steps=200,
+                        io_interval=100, metrics=meter, nan_guard=True)
+        res[f"{tag}_bf16"] = {"launches": counter.launches,
+                              "run_mlups": meter.mlups}
+        check(counter.launches == 200 and h.dtype == torch.bfloat16,
+              f"{tag} bf16 main path: {counter.launches} launches")
+    return res
+
+
+FLOW3D_KERNELS = ("rho_kernel", "march_kernel")
+# least bytes per cell-step: the state in and out plus a 1-byte mask: K11
+# f32 2 x 76 + 1, bf16 2 x 42 + 1; K10 with two fluids twice the state
+FLOW3D_BYTES = {"K11": {"f32": 2 * 76 + 1, "bf16": 2 * 42 + 1},
+                "K10": {"f32": 2 * 152 + 1, "bf16": 2 * 84 + 1}}
+# per cell-step, counted roughly: K11 SRT with the Guo source ~600; K10
+# with two fluids (the 18-neighbour gradient, two SRT collisions) ~900
+FLOW3D_FLOPS = {"K11": 600, "K10": 900}
+
+
+def phase_flow3d_speed(device, sizes=(128, 256), steps=(50, 20),
+                       plain_steps=3):
+    """MLUPS of K11 (basic3d physics) and K10 (probe_sc3d) in f32 and bf16
+    storage at each size and of their plain paths at the first, in turns
+    (plain, kernels, kernels, plain), each CUDA kernel's device
+    microseconds per launch from torch.profiler, and the roofline share of
+    FLOW3D_BYTES."""
+    from openlbmpm_torch.kernels.flow3d import (
+        launch_sc3d, launch_single3d, sc3d_step, sc3d_step_reference,
+        single3d_step, single3d_step_reference)
+    res = {}
+    for tag, make, start, kern, plain, launch, names in (
+            ("K11", basic3d_model, lambda m: flow_start(m, seed=5),
+             single3d_step, single3d_step_reference, launch_single3d,
+             ("march_kernel",)),
+            ("K10", probe_sc3d_model, probe_sc3d_start, sc3d_step,
+             sc3d_step_reference, launch_sc3d, FLOW3D_KERNELS)):
+        for n, k_steps in zip(sizes, steps):
+            models = {"f32": make(device=device, n=n),
+                      "bf16": make(device=device, n=n, storage="bf16")}
+            f = start(models["f32"])
+            xs = {"f32": f, "bf16": models["bf16"].pack_state_bf16(f)}
+            runs = {st: (lambda x, m=models[st]: kern(x, m), xs[st])
+                    for st in models}
+            order = list(runs)
+            if n == sizes[0]:
+                runs |= {f"plain_{st}": (lambda x, m=models[st]: plain(x, m),
+                                         xs[st]) for st in models}
+                order = ["plain_f32", "plain_bf16"] + order
+            sec = {}
+            for key in order + order[::-1]:
+                fn, x = runs[key]
+                t = _time_steps(fn, x, plain_steps if key.startswith("plain")
+                                else k_steps, device)
+                sec[key] = min(sec.get(key, float("inf")), t)
+            profile = {}
+            for st, m in models.items():
+                times = device_times(lambda x, m=m: launch(
+                    x, m.kernel_params, m.fluid_u8), xs[st], names, steps=20)
+                profile.update({(st, k): v for k, v in times.items()})
+            res[(tag, n)] = {
+                "sec": sec, "profile": profile,
+                "mlups": {k: n ** 3 / t / 1e6 for k, t in sec.items()},
+                "roof": {st: FLOW3D_BYTES[tag][st] * n ** 3 / HBM_BYTES_PER_S
+                         / sec[st] for st in ("f32", "bf16")}}
+            del models, xs, runs, f
+            torch.cuda.empty_cache()
+    return res
+
+
+def phase33_39_lines(r33, r34, r35, r36, r37, r38, r39, card):
+    def cmp(r):
+        out = [f"{n}^3 f32 {v['f32']:.3e}, bf16 decoded {v['bf16']:.3e}"
+               for n, v in r.items() if isinstance(n, int)]
+        u = next(v["ulp"] for n, v in r.items() if isinstance(n, int)
+                 and "ulp" in v)
+        return ("; ".join(out) + f"; bf16 one step {u['excess']:g} ulp, share "
+                f"{u['share']:.2e}, round-toward-zero share "
+                f"{u['rz_share']:.2e}")
+    p = r37["phys"]
+    lines = [
+        "phase 33 K11 f64 vs plain, 48x40x32 walls + obstacle, 20 steps: "
+        "max |diff| " + ", ".join(f"{k} {v:.3e}" for k, v in r33.items()) +
+        " (<= 1e-11)",
+        f"phase 34 K11 basic3d physics, 10 steps [{card}]: {cmp(r34)} "
+        f"(f32 <= {FLOW3D_F32_BOUND['K11']:g}, bf16 <= "
+        f"{BF16_BOUND['K11']:g})",
+        f"phase 35 K11 plate Poiseuille 4x18x4, 4000 f32 steps [{card}]: " +
+        ", ".join(f"{k} {v * 100:.3f}%" for k, v in r35.items()) +
+        " of the analytic profile (< 2%)",
+        "phase 36 K10 f64 vs plain, 48x40x32, 20 steps: max |diff| " +
+        ", ".join(f"{k} {v:.3e}" for k, v in r36.items()) + " (<= 1e-11)",
+        f"phase 37 K10 probe_sc3d, 10 steps [{card}]: f64 128^3 "
+        f"{r37['f64']:.3e}; {cmp(r37)} (f32 <= {FLOW3D_F32_BOUND['K10']:g}, "
+        f"bf16 <= {BF16_BOUND['K10']:g}); physics 1000 f32 steps at 128^3: "
+        f"mass drift {p['drift']:.2e} (< 1e-4; f64, 300 steps "
+        f"{p['drift64']:.2e}; f32, 100 steps: kernel {p['kernel100']:.2e}, "
+        f"plain {p['plain100']:.2e}), rho_0 centre {p['centre']:.4f} "
+        f"(> 0.5), far {p['far']:.4f} (< 0.2)"]
+    lines.append(
+        f"phase 38 cli [{card}]: " + ", ".join(
+            f"--model {k} {v['launches']} launches, {v['sec']:.2f} s, "
+            f"metrics.jsonl MLUPS {v['mlups']}"
+            for k, v in r38.items() if not k.endswith("bf16")) +
+        "; bf16 main paths run_chunked 128^3: " + ", ".join(
+            f"{k[:3]} {v['launches']} launches, {v['run_mlups']:.1f} MLUPS"
+            for k, v in r38.items() if k.endswith("bf16")))
+    for (tag, n), r in r39.items():
+        sec = r["sec"]
+        lines.append(
+            f"phase 39 {tag} {n}^3 [{card}]: MLUPS " + ", ".join(
+                f"{k} {r['mlups'][k]:.1f} ({sec[k] * 1e3:.4f} ms)"
+                for k in sec) + "; bound ms " + ", ".join(
+                f"{st} {b * n ** 3 / HBM_BYTES_PER_S * 1e3:.4f}"
+                for st, b in FLOW3D_BYTES[tag].items()) +
+            "; roofline share " + ", ".join(
+                f"{k} {v:.3f}" for k, v in r["roof"].items()) +
+            "; device us per launch (launches per step): " + ", ".join(
+                f"{st} {k} " + ("not measured" if v is None else
+                                f"{v[0]:.2f} ({v[1]:g})")
+                for (st, k), v in r["profile"].items()))
+    return lines
+
+
 # kernels whose first integer template argument is the state layout
 LAYOUT_KERNELS = ("phase_kernel", "collide_stream_kernel",
                   "tracer_collide_kernel", "bc_kernel")
@@ -2535,19 +3317,22 @@ LAYOUT_KERNELS = ("phase_kernel", "collide_stream_kernel",
 
 def ptxas_summary(log: str, sc: bool = False) -> str:
     """'kernel<type[,q]>: registers, smem, spill stores' per entry function
-    of an `nvcc -Xptxas -v` log; for an sc2d library (one storage type
-    each) 'kernel<K,order>'."""
+    of an `nvcc -Xptxas -v` log; for an sc2d, single2d or flow3d library
+    (one storage type each) the kernel's integer template arguments as they
+    are: 'kernel<K,order>' (K8), 'kernel<collision,force>' (K7),
+    'kernel<mode,K>' (K11, K10)."""
     out, name = [], None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
             mangled = m.group(1)
             base = next((k for k in COUPLED_KERNELS + SC_KERNELS +
-                         TRANSPORT3D_KERNELS if k in mangled), mangled)
+                         TRANSPORT3D_KERNELS + FLOW3D_KERNELS +
+                         ("bc_rows_kernel",) if k in mangled), mangled)
             args = mangled.split(base)[-1]
             kind = ("bf16" if "bfloat16" in mangled else
                     "f64" if re.search(r"I[^E]*d", args) else "f32")
-            ints = re.findall(r"Li(\d+)E", args)
+            ints = re.findall(r"L[ib](\d+)E" if sc else r"Li(\d+)E", args)
             split = not sc and base in LAYOUT_KERNELS and ints and \
                 ints.pop(0) == "1"
             name = (f"{base}<{','.join(ints)}>" if sc else
@@ -2611,7 +3396,9 @@ def main() -> int:
               "needs a CUDA card", file=sys.stderr)
         return 2
     from openlbmpm_torch.kernels import build
+    from openlbmpm_torch.kernels.flow3d import LIBRARIES as FLOW3D_LIBS
     from openlbmpm_torch.kernels.shanchen import LIBRARIES as SC_LIBS
+    from openlbmpm_torch.kernels.single import LIBRARIES as SINGLE_LIBS
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2631,9 +3418,10 @@ def main() -> int:
           f"{t_build:.2f} s (nvcc " + ", ".join(
               f"{lib} {build.build_seconds.get(lib, 0.0):.2f} s"
               for lib in libs) + ")")
+    raw_ints = SC_LIBS + SINGLE_LIBS + FLOW3D_LIBS
     for lib in libs:
         print(f"phase 2 ptxas {lib}: "
-              f"{build_report(build, lib, lib in SC_LIBS)}")
+              f"{build_report(build, lib, lib in raw_ints)}")
 
     err64 = phase_f64(device)
     print(f"phase 3 f64 kernel vs plain, 256x128, 20 steps: max |diff| "
@@ -2699,6 +3487,26 @@ def main() -> int:
     print("phases 25-28 wall s: " + ", ".join(
         f"{k[1:]} {v[1]:.1f}" for k, v in sorted(t_k9t.items())))
     for ln in phase25_28_lines(r25, r26, r27, r28, card):
+        print(ln)
+
+    t_k9t = time.perf_counter() - t_start
+    t_flow = {}
+    for key, fn in (("r29", phase_single_f64), ("r30", phase_config1),
+                    ("r31", phase_single_poiseuille),
+                    ("r32", phase_single_main), ("r33", phase_single3d_f64),
+                    ("r34", phase_basic3d),
+                    ("r35", phase_single3d_poiseuille),
+                    ("r36", phase_sc3d_f64), ("r37", phase_probe_sc3d),
+                    ("r38", phase_flow_cli), ("r39", phase_flow3d_speed)):
+        t0 = time.perf_counter()
+        t_flow[key] = (fn(device), time.perf_counter() - t0)
+        torch.cuda.empty_cache()
+    (r29, r30, r31, r32, r33, r34, r35, r36, r37, r38,
+     r39) = (t_flow[k][0] for k in sorted(t_flow))
+    print("phases 29-39 wall s: " + ", ".join(
+        f"{k[1:]} {v[1]:.1f}" for k, v in sorted(t_flow.items())))
+    for ln in phase29_32_lines(r29, r30, r31, r32, card) + phase33_39_lines(
+            r33, r34, r35, r36, r37, r38, r39, card):
         print(ln)
 
     n2 = FLAGSHIP_N * FLAGSHIP_N
@@ -2778,9 +3586,45 @@ def main() -> int:
             mlups_256=r28[256]["mlups"][key],
             bound_ms_256=TRANSPORT3D_BYTES[key] * 256 ** 3 /
             HBM_BYTES_PER_S * 1e3))
+    c1, c1_big = r32[(1024, 512)], r32[(1024, 1024)]
+    k7_f64 = max(max(r29.values()), r30["f64"])
+    for entry, label, st, launches, err in (
+            ("single_step", "K7 f32", "f32", r38["basic"]["launches"],
+             r30["f32"]),
+            ("single_step_bf16", "K7 bf16", "bf16", r32["launches_bf16"],
+             r30["bf16"])):
+        entries.append(kernel_entry(
+            entry, label, "openlbmpm_torch/csrc/single2d.cuh",
+            f"openlbmpm_tpu/pallas/single.py:43 (storage='{st}')", launches,
+            err, c1["sec"][("kernel", st)], c1["sec"][("plain", st)],
+            SINGLE_BYTES[st], SINGLE_FLOPS, 512 * 1024,
+            max_abs_err_f64=k7_f64, mlups=c1["mlups"][("kernel", st)],
+            ms_1024=c1_big["sec"][("kernel", st)] * 1e3,
+            mlups_1024=c1_big["mlups"][("kernel", st)],
+            bound_ms_1024=SINGLE_BYTES[st] * 1024 ** 2 / HBM_BYTES_PER_S *
+            1e3))
+    for entry, tag, tpu, cmp, launches_f32, f64 in (
+            ("single3d_step", "K11", "openlbmpm_tpu/pallas/single3d.py:47",
+             r34, r38["basic3d"]["launches"], max(r33.values())),
+            ("sc3d_step", "K10", "openlbmpm_tpu/pallas/sc3d.py:79", r37,
+             r38["sc3d"]["launches"], max(max(r36.values()), r37["f64"]))):
+        for st, launches in (("f32", launches_f32),
+                             ("bf16", r38[f"{tag}_bf16"]["launches"])):
+            r, r256 = r39[(tag, 128)], r39[(tag, 256)]
+            entries.append(kernel_entry(
+                entry + ("_bf16" if st == "bf16" else ""), f"{tag} {st}",
+                "openlbmpm_torch/csrc/flow3d.cuh", f"{tpu} (storage='{st}')",
+                launches, max(v[st] for n, v in cmp.items()
+                              if isinstance(n, int)),
+                r["sec"][st], r["sec"][f"plain_{st}"], FLOW3D_BYTES[tag][st],
+                FLOW3D_FLOPS[tag], 128 ** 3, max_abs_err_f64=f64,
+                mlups=r["mlups"][st], ms_256=r256["sec"][st] * 1e3,
+                mlups_256=r256["mlups"][st],
+                bound_ms_256=FLOW3D_BYTES[tag][st] * 256 ** 3 /
+                HBM_BYTES_PER_S * 1e3))
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s "
           f"(phases 1-14 {t_old:.1f} s, 1-19 {t_2d:.1f} s, 1-24 "
-          f"{t_3d:.1f} s, build {t_build:.1f} s)")
+          f"{t_3d:.1f} s, 1-28 {t_k9t:.1f} s, build {t_build:.1f} s)")
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """Non-interactive CLI of the port: ``python -m openlbmpm_torch run <ini>``.
 
-The same subcommands, flags and outputs as ``openlbmpm_tpu/cli.py`` for the
-families the port runs so far, plus ``--device``:
+The same subcommands, flags and outputs as ``openlbmpm_tpu/cli.py`` for
+every model family, plus ``--device`` (the JAX CLI's ``bench`` subcommand is
+not ported):
 
   run        run a simulation from a legacy-dialect INI file
   inspect    parse a config and print the resolved typed parameters
@@ -21,9 +22,13 @@ step, as the JAX CLI does on and off its accelerator; ``--model sc`` steps
 ``ShanChenMCMP.step`` on the (K, 9, ny, nx) state of a twophasesetup.ini
 and its physics INI (on a card, the Shan-Chen kernel, or the plain step
 for the configurations the JAX package also keeps off its kernel; the run
-prints which).  Results, metrics and checkpoints are written as the JAX
-CLI writes them, so a checkpoint of either package resumes in the other.
-The other ``--model`` families exit with status 2 and "not ported yet".
+prints which); ``--model basic`` steps ``SinglePhaseD2Q9.step`` on the
+(9, ny, nx) state of a basicsetup.ini (on a card, K7), ``--model basic3d``
+``SinglePhaseD3Q19.step`` in a box with walls on the x and y faces (K11),
+and ``--model sc3d`` ``ShanChenMCMP3D.step`` on a droplet in that box
+(K10); each prints the step it takes.  Results, metrics and checkpoints
+are written as the JAX CLI writes them, so a checkpoint of either package
+resumes in the other.
 
 ``--device cuda`` (the default) runs on the first card and raises when
 there is none; it never falls back to the CPU.  ``--device cpu`` runs the
@@ -40,7 +45,6 @@ import sys
 
 import numpy as np
 
-PORTED = ("cg", "cg3d", "transport", "transport3d", "sc")
 MODELS = ("cg", "cg3d", "sc", "sc3d", "transport", "transport3d", "basic",
           "basic3d")
 
@@ -390,15 +394,171 @@ def _run_shanchen(args):
     return 0
 
 
+def _run_checkpointed(args, model, state, run, fingerprint, basename,
+                      record):
+    """The run loop of the single-phase and 3-D Shan-Chen families: resume,
+    then every I/O step the result datasets and metrics of ``record(step,
+    f) -> (datasets, metrics)`` and, every ten outputs and at the end, a
+    checkpoint."""
+    from .checkpoint import load_checkpoint, save_checkpoint
+    from .io import ResultWriter
+    from .metrics import MetricsLogger
+    from .models.base import run_chunked
+    start_step = 0
+    ckpt_path = os.path.join(args.output, "checkpoint.npz")
+    if args.resume and os.path.exists(ckpt_path):
+        state, start_step = load_checkpoint(ckpt_path, state, fingerprint)
+        print(f"resumed from step {start_step}")
+    _note_block(args)
+    writer = ResultWriter(args.output, basename=basename)
+    logger = MetricsLogger(os.path.join(args.output, "metrics.jsonl"),
+                           model.geo.num_fluid_nodes, echo=True)
+    ckpt_every = max(1, 10 * run.io_interval)
+
+    def callback(step, f):
+        datasets, scalars = record(start_step + step, f)
+        writer.write(start_step + step, datasets)
+        logger.log(start_step + step, **scalars)
+        if step % ckpt_every == 0 or step >= run.num_steps:
+            save_checkpoint(ckpt_path, f, start_step + step, fingerprint)
+        return False
+
+    run_chunked(model.step, state, num_steps=max(1, run.num_steps),
+                io_interval=max(1, run.io_interval), callback=callback,
+                nan_guard=True, profile_dir=args.profile)
+    logger.close()
+    return 0
+
+
+def _speed(u):
+    """|u| from its components."""
+    acc = u[0] * u[0]
+    for c in u[1:]:
+        acc = acc + c * c
+    return acc.sqrt()
+
+
+def _mass_umax(rho, u) -> dict:
+    return {"mass": float(rho.sum()), "umax": float(_speed(u).max())}
+
+
+def _run_basic(args):
+    """The single-phase D2Q9 channel of a basicsetup.ini: solid outside its
+    FlowDomain extents, periodic rows, started at its initial velocity."""
+    from . import geometry as geo
+    from .checkpoint import config_fingerprint
+    from .config import load_basic
+    from .io import save_png_field
+    from .models.single_phase import SinglePhaseD2Q9
+
+    solver_kw, u0, (xext, yext), dom, run = load_basic(args.config)
+    if args.steps:
+        run = dataclasses.replace(run, num_steps=args.steps)
+    solid = np.ones((dom.ny, dom.nx), bool)
+    solid[yext[0]:yext[1] + 1, xext[0]:xext[1] + 1] = False
+    dtype, dev = _setup(args)
+    model = SinglePhaseD2Q9(geo.from_solid_mask(solid), dtype=dtype,
+                            device=dev, **solver_kw)
+    print(f"openlbmpm_torch: --model basic, {model.collision}: the "
+          f"{model.path} step on {dev}")
+
+    def record(step, f):
+        rho, (ux, uy) = model.macro(f)
+        if args.png:
+            save_png_field(os.path.join(args.output, f"u_{step:08d}.png"),
+                           _host(_speed((ux, uy))), title=f"|u| @ {step}")
+        return ({f"FluidMacro/FluidDensityin{step}": _host(rho),
+                 f"FluidVelocity/FluidVelocityXin{step}": _host(ux),
+                 f"FluidVelocity/FluidVelocityYin{step}": _host(uy)},
+                _mass_umax(rho, (ux, uy)))
+
+    return _run_checkpointed(args, model, model.init_state(1.0, u0), run,
+                             config_fingerprint(solver_kw),
+                             "SimulationResults", record)
+
+
+def _run_basic3d(args):
+    """The D3Q19 single-phase flow of a basic3d.ini in a box with walls on
+    the x and y faces, driven along z by its body force."""
+    from .checkpoint import config_fingerprint
+    from .config import load_basic3d
+    from .models.flow3d import SinglePhaseD3Q19
+
+    solver_kw, dom, run = load_basic3d(args.config)
+    if args.steps:
+        run = dataclasses.replace(run, num_steps=args.steps)
+    dtype, dev = _setup(args)
+    model = SinglePhaseD3Q19(_box3d(dom), dtype=dtype, device=dev,
+                             **solver_kw)
+    print(f"openlbmpm_torch: --model basic3d, {model.collision}: the "
+          f"{model.path} step on {dev}")
+
+    def record(step, f):
+        rho, u = model.macro(f)
+        return ({f"FluidMacro/FluidDensityin{step}": _host(rho)},
+                _mass_umax(rho, u))
+
+    return _run_checkpointed(args, model, model.init_state(1.0), run,
+                             config_fingerprint(solver_kw),
+                             "SimulationResults3D", record)
+
+
+def _shanchen3d_setup(config, dtype, device):
+    """The model, initial state and run settings of ``run --model sc3d``:
+    the INI's fluids in a box with walls on the x and y faces, fluid 0 a
+    centred sphere of the INI's radius."""
+    from .config import load_shanchen3d
+    from .models.flow3d import ShanChenMCMP3D
+
+    params, dom, run, extras = load_shanchen3d(config)
+    model = ShanChenMCMP3D(_box3d(dom), params, dtype=dtype, device=device)
+    state = model.init_state_droplet(extras["initial_densities"],
+                                     extras["background_densities"],
+                                     radius=extras["radius"])
+    return model, state, run
+
+
+def _run_shanchen3d(args):
+    from .checkpoint import config_fingerprint
+    from .metrics import flow_diagnostics
+
+    dtype, dev = _setup(args)
+    model, state, run = _shanchen3d_setup(args.config, dtype, dev)
+    if args.steps:
+        run = dataclasses.replace(run, num_steps=args.steps)
+    print(f"openlbmpm_torch: --model sc3d, {model.k} fluids: the "
+          f"{model.path} step on {dev}")
+    fl2 = model.geo.is_fluid.reshape(model.geo.shape[0], -1)
+
+    def record(step, f):
+        rho_k, u = model.macro(f)
+        nz = rho_k.shape[1]
+        # the slabs as rows, as the JAX CLI reports them
+        return ({f"FluidMacro/FluidDensity{k}in{step}": _host(rho_k[k])
+                 for k in range(model.k)},
+                flow_diagnostics(rho_k[0].reshape(nz, -1),
+                                 rho_k[1].reshape(nz, -1),
+                                 u[0].reshape(nz, -1), u[2].reshape(nz, -1),
+                                 fl2))
+
+    return _run_checkpointed(args, model, state, run,
+                             config_fingerprint(model.p),
+                             "SimulationResultsSC3D", record)
+
+
 def _inspect(args):
-    from .config import (load_colorgradient, load_colorgradient3d,
-                         load_shanchen, load_transport)
+    from .config import (load_basic, load_basic3d, load_colorgradient,
+                         load_colorgradient3d, load_shanchen,
+                         load_shanchen3d, load_transport)
     loaders = {"cg": lambda: load_colorgradient(args.config)[:2],
                "cg3d": lambda: (load_colorgradient3d(args.config)[0],),
                "sc": lambda: load_shanchen(args.config,
                                            args.physics_config)[:2],
+               "sc3d": lambda: (load_shanchen3d(args.config)[0],),
                "transport": lambda: (load_transport(args.config),),
-               "transport3d": lambda: (load_transport(args.config),)}
+               "transport3d": lambda: (load_transport(args.config),),
+               "basic": lambda: (load_basic(args.config)[0],),
+               "basic3d": lambda: (load_basic3d(args.config)[0],)}
     for obj in loaders[args.model]():
         if dataclasses.is_dataclass(obj):
             obj = dataclasses.asdict(obj)
@@ -416,8 +576,7 @@ def main(argv=None) -> int:
     def common(sp):
         sp.add_argument("config", help="legacy-dialect INI file")
         sp.add_argument("--model", choices=MODELS, default="cg",
-                        help="model family (ported: " + ", ".join(PORTED) +
-                             ")")
+                        help="model family")
         sp.add_argument("--physics-config", default=None,
                         help="secondary INI (SC physics / transport flow)")
         sp.add_argument("--steps", type=int, default=0,
@@ -450,16 +609,13 @@ def main(argv=None) -> int:
     common(insp)
 
     args = p.parse_args(argv)
-    if args.model not in PORTED:
-        print(f"openlbmpm_torch: --model {args.model} is not ported yet "
-              f"(ported: {', '.join(PORTED)})", file=sys.stderr)
-        return 2
     if args.cmd == "inspect":
         return _inspect(args)
     os.makedirs(args.output, exist_ok=True)
     return {"cg": _run_colorgradient, "cg3d": _run_colorgradient3d,
-            "sc": _run_shanchen, "transport": _run_transport,
-            "transport3d": _run_transport3d}[args.model](args)
+            "sc": _run_shanchen, "sc3d": _run_shanchen3d,
+            "transport": _run_transport, "transport3d": _run_transport3d,
+            "basic": _run_basic, "basic3d": _run_basic3d}[args.model](args)
 
 
 if __name__ == "__main__":

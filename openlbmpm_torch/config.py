@@ -1,16 +1,18 @@
 """The legacy INI dialect read into the port's parameter dataclasses
-(counterpart of ``openlbmpm_tpu/config.py`` for the colour-gradient (2-D
-and 3-D), transport and 2-D Shan-Chen families).
+(counterpart of ``openlbmpm_tpu/config.py`` for every family: the
+colour-gradient (2-D and 3-D), transport, Shan-Chen (2-D and 3-D) and
+single-phase (2-D and 3-D) ones).
 
 The JAX module imports the JAX models, so its reader is copied here rather
 than imported.  The dataclasses returned are the port's own
 (``ColorGradientParams``, ``CGBoundaryConfig``, ``TransportParams``,
 ``ShanChenParams``, ``SCBoundaryConfig``, ``ColorGradientParams3D``,
-``CG3DBoundaryConfig``); their fields equal the JAX ones field by field for
-the same file (``tests/test_torch_cli.py``, ``tests/test_torch_shanchen.py``,
-``tests/test_torch_cg3d.py``).  One difference: an unknown Shan-Chen
-``ForcingMethod`` raises ValueError, where the JAX reader falls back to
-``shift`` without a word.
+``CG3DBoundaryConfig``, ``ShanChenParams3D``); their fields equal the JAX
+ones field by field for the same file (``tests/test_torch_cli.py``,
+``tests/test_torch_shanchen.py``, ``tests/test_torch_cg3d.py``,
+``tests/test_torch_single.py``, ``tests/test_torch_flow3d.py``).  One
+difference: an unknown Shan-Chen ``ForcingMethod`` raises ValueError, where
+the JAX reader falls back to ``shift`` without a word.
 """
 
 from __future__ import annotations
@@ -22,12 +24,14 @@ import os
 import numpy as np
 
 from .models.colorgradient import CGBoundaryConfig, ColorGradientParams
-from .models.flow3d import CG3DBoundaryConfig, ColorGradientParams3D
+from .models.flow3d import (CG3DBoundaryConfig, ColorGradientParams3D,
+                            ShanChenParams3D)
 from .models.shanchen import SCBoundaryConfig, ShanChenParams
 from .models.transport import TransportParams
 
 __all__ = ["LegacyIni", "DomainSpec", "RunSpec", "load_colorgradient",
-           "load_colorgradient3d", "load_transport", "load_shanchen"]
+           "load_colorgradient3d", "load_transport", "load_shanchen",
+           "load_shanchen3d", "load_basic3d", "load_basic"]
 
 
 class LegacyIni:
@@ -369,3 +373,117 @@ def load_shanchen(main_path: str, physics_path: str | None = None):
         "duplicate": main.yesno("DuplicateDomain", "Option", default="no"),
     }
     return params, bcs, domain, run, extras
+
+
+def load_shanchen3d(path: str):
+    """Parse a 3-D Shan-Chen INI (configs/shanchen3d.ini: the 2-D
+    shanchen2D.ini / twophasesetup.ini key names plus DomainSize.zDomain).
+    Returns (ShanChenParams3D, domain dict nx/ny/nz, RunSpec, extras) with
+    extras the initial and background densities and the droplet radius."""
+    ini = LegacyIni(path)
+    num_fluids = ini.integer("FluidsTypes", "NumberOfFluids", default=2)
+    tau = ini.floats("FluidProperties", "FluidsTau", default="1.0,1.0")
+    g_fluid = ini.floats("ShanChenParameters", "interactionFluid",
+                         default="3.6")
+    g_solid = ini.floats("ShanChenParameters", "interactionSolid",
+                         default=",".join(["0.0"] * num_fluids))
+    # symmetric G matrix, the upper triangle filled row by row
+    g = np.zeros((num_fluids, num_fluids))
+    idx = 0
+    for i in range(num_fluids - 1):
+        for j in range(i + 1, num_fluids):
+            g[i, j] = g[j, i] = g_fluid[idx % len(g_fluid)]
+            idx += 1
+    body = ini.yesno("BodyForce", "Option", default="no")
+    params = ShanChenParams3D(
+        g_matrix=tuple(map(tuple, g)),
+        g_solid=tuple(g_solid),
+        tau=tuple(tau),
+        body_force=(ini.number("BodyForce", "forceXG", default=0.0),
+                    ini.number("BodyForce", "forceYG", default=0.0),
+                    ini.number("BodyForce", "forceZG", default=0.0))
+        if body else (0.0, 0.0, 0.0),
+    )
+    domain3d = {
+        "nx": ini.integer("DomainSize", "xDomain", default=32),
+        "ny": ini.integer("DomainSize", "yDomain", default=32),
+        "nz": ini.integer("DomainSize", "zDomain", default=64),
+    }
+    run = RunSpec(
+        num_steps=ini.integer("Time", "numberTimeStep", default=1000),
+        io_interval=ini.integer("Time", "TimeInterval", default=500),
+    )
+    extras = {
+        "initial_densities": ini.floats("FluidProperties",
+                                        "InitialDensities",
+                                        default="1.0,1.0"),
+        "background_densities": ini.floats("FluidProperties",
+                                           "BackgroundDensities",
+                                           default="0.02,0.02"),
+        "radius": ini.number("InitialCondition", "DropletRadius",
+                             default=8.0),
+    }
+    return params, domain3d, run, extras
+
+
+def _time(ini):
+    """(num_steps, io_interval) of a basicsetup-style [Time] section:
+    TimeLength / TimeStep steps, output every TimeInterval (default a tenth
+    of the run)."""
+    t_len = ini.number("Time", "TimeLength", default="1000")
+    t_step = ini.number("Time", "TimeStep", default="1.0")
+    num_steps = max(1, int(round(t_len / max(t_step, 1e-30))))
+    io = ini.integer("Time", "TimeInterval",
+                     default=str(max(1, num_steps // 10)))
+    return num_steps, io
+
+
+def load_basic3d(path: str):
+    """Parse a 3-D single-phase INI (configs/basic3d.ini: basicsetup.ini's
+    keys plus Geometry.nz).  Returns (solver_kw, domain dict nx/ny/nz,
+    RunSpec) with solver_kw feeding ``SinglePhaseD3Q19`` (tau, collision SRT
+    or TRT, the body force gValue along z)."""
+    ini = LegacyIni(path)
+    domain3d = {
+        "nx": ini.integer("Geometry", "nx", default=32),
+        "ny": ini.integer("Geometry", "ny", default=32),
+        "nz": ini.integer("Geometry", "nz", default=64),
+    }
+    num_steps, io = _time(ini)
+    collision = ini.text("Scheme", "Type", default="SRT").upper()
+    if collision not in ("SRT", "TRT"):
+        collision = "SRT"
+    solver_kw = dict(
+        tau=ini.number("FluidParameters", "Tau", default="1.0"),
+        collision=collision,
+        body_force=(0.0, 0.0,
+                    ini.number("BodyForce", "gValue", default="0.0")),
+    )
+    return solver_kw, domain3d, RunSpec(num_steps=num_steps, io_interval=io)
+
+
+def load_basic(path: str):
+    """Parse a ``basicsetup.ini``-style file (the reference's BasicD2Q9
+    keys).  Returns ``(solver_kw, u0, domain_extents, DomainSpec, RunSpec)``
+    with ``solver_kw`` feeding ``SinglePhaseD2Q9`` (tau, collision, the body
+    force gValue along y) and ``domain_extents = ((x0, x1), (y0, y1))`` the
+    fluid region (cells outside it are solid)."""
+    ini = LegacyIni(path)
+    nx = ini.integer("Geometry", "nx")
+    ny = ini.integer("Geometry", "ny")
+    num_steps, io = _time(ini)
+    collision = ini.text("Scheme", "Type", default="SRT").upper()
+    if collision not in ("SRT", "TRT", "MRT"):
+        collision = "SRT"
+    solver_kw = dict(
+        tau=ini.number("FluidParameters", "Tau", default="1.0"),
+        collision=collision,
+        body_force=(0.0, ini.number("BodyForce", "gValue", default="0.0")),
+    )
+    u0 = (ini.number("InitialCondition", "VelocityXLB", default="0.0"),
+          ini.number("InitialCondition", "VelocityYLB", default="0.0"))
+    xdom = ini.floats("FlowDomain", "xDomain", default=f"0,{nx - 1}")
+    ydom = ini.floats("FlowDomain", "yDomain", default=f"0,{ny - 1}")
+    extents = ((int(xdom[0]), int(xdom[-1])), (int(ydom[0]), int(ydom[-1])))
+    return (solver_kw, u0, extents, DomainSpec(nx=nx, ny=ny),
+            RunSpec(num_steps=num_steps, io_interval=io))

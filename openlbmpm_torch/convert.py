@@ -16,20 +16,24 @@ import torch
 
 from ._device import resolve_device, resolve_dtype
 from .models.colorgradient import CGBoundaryConfig, ColorGradientParams
-from .models.flow3d import CG3DBoundaryConfig, ColorGradientParams3D
+from .models.flow3d import (CG3DBoundaryConfig, ColorGradientParams3D,
+                            ShanChenParams3D)
 from .models.shanchen import SCBoundaryConfig, ShanChenParams
+from .models.single_phase import BoundaryConfig
 from .models.transport import TransportParams, TransportState
 
-# the first class whose fields `p` all carries: the 3-D classes come last,
-# since a 2-D ColorGradientParams carries every field of
-# ColorGradientParams3D and an SCBoundaryConfig every field of
-# CG3DBoundaryConfig
+# the class of `p`'s own name, else the first whose fields `p` all carries:
+# the 3-D classes come last, since a 2-D ColorGradientParams carries every
+# field of ColorGradientParams3D, an SCBoundaryConfig every field of
+# CG3DBoundaryConfig and of the single-phase BoundaryConfig, and a
+# ShanChenParams every field of ShanChenParams3D
 _PARAMS = (ColorGradientParams, CGBoundaryConfig, TransportParams,
            ShanChenParams, SCBoundaryConfig, ColorGradientParams3D,
-           CG3DBoundaryConfig)
+           CG3DBoundaryConfig, ShanChenParams3D, BoundaryConfig)
 
 __all__ = ["params_from_jax", "transport3d_args_from_jax",
-           "state_from_numpy", "state_to_numpy"]
+           "single_phase_args_from_jax", "state_from_numpy",
+           "state_to_numpy"]
 
 
 def _plain(v):
@@ -42,10 +46,12 @@ def _plain(v):
 
 def params_from_jax(p):
     """The port's ColorGradientParams(3D), CGBoundaryConfig,
-    CG3DBoundaryConfig, TransportParams, ShanChenParams or SCBoundaryConfig
-    with the field values of `p`, any object carrying the fields of one of
-    them (tuple fields become nested tuples of floats)."""
-    for cls in _PARAMS:
+    CG3DBoundaryConfig, TransportParams, ShanChenParams(3D),
+    SCBoundaryConfig or single-phase BoundaryConfig with the field values of
+    `p`: the class named as `p`'s is, else the first whose fields `p` all
+    carries (tuple fields become nested tuples of floats)."""
+    named = [c for c in _PARAMS if c.__name__ == type(p).__name__]
+    for cls in named + [c for c in _PARAMS if c not in named]:
         names = [f.name for f in dataclasses.fields(cls)]
         if all(hasattr(p, n) for n in names):
             vals = {n: getattr(p, n) for n in names}
@@ -72,6 +78,20 @@ def transport3d_args_from_jax(model) -> dict:
             "interface_mode": tr.interface_mode}
 
 
+def single_phase_args_from_jax(model) -> dict:
+    """Keyword arguments of the port's ``SinglePhaseD2Q9`` or
+    ``SinglePhaseD3Q19`` (besides the geometry, dtype, device and storage)
+    from a JAX model of the same name: tau, collision and body force, and
+    in 2-D the boundaries and the wall velocity.  The moving-wall mask is
+    not kept by the JAX model; pass it to both."""
+    kw = {"tau": float(model.tau), "collision": model.collision,
+          "body_force": tuple(float(v) for v in model.body_force)}
+    if hasattr(model, "bcs"):
+        kw["boundaries"] = params_from_jax(model.bcs)
+        kw["wall_velocity"] = tuple(float(v) for v in model.wall_velocity)
+    return kw
+
+
 def _one_from_numpy(a, device, dtype):
     a = np.array(a)   # a writable contiguous copy
     if a.dtype.name == "bfloat16":
@@ -83,8 +103,10 @@ def _one_from_numpy(a, device, dtype):
 
 def state_from_numpy(arrays, device="cuda", dtype=None):
     """A state as torch tensors on `device`: a (10, ny, nx) or
-    (20, nz, ny, nx) compressed array, a Shan-Chen (K, 9, ny, nx) array, an
-    (11, ny, nx), (21, nz, ny, nx) or (K, 11, ny, nx) bfloat16 array (kept
+    (20, nz, ny, nx) compressed array, a Shan-Chen (K, 9, ny, nx) or
+    (K, 19, nz, ny, nx) array, a single-phase (9, ny, nx) or
+    (19, nz, ny, nx) array, an (11, ny, nx), (21, nz, ny, nx),
+    (K, 11, ny, nx) or (K, 21, nz, ny, nx) bfloat16 array (kept
     bfloat16), a tuple of arrays such as an (f_r, f_b) pair, a coupled
     (s, g) pair or a 3-D coupled (f_r, f_b, g) triple (returned as a
     tuple), or a split TransportState (f_r, f_b, g, mass0), returned

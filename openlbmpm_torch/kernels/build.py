@@ -22,21 +22,25 @@ from pathlib import Path
 __all__ = ["load_library", "load_libraries", "build_seconds", "BUILD_DIR",
            "NVCC_FLAGS", "EXTRA_FLAGS", "LIBRARIES"]
 
-# every library of csrc/: the CSF step, the coupled step, the Shan-Chen
-# step and the D3Q19 CSF step, the last two in three storage types each
+# every library of csrc/: the CSF step, the coupled step, and in three
+# storage types each the Shan-Chen step, the D3Q19 CSF step, the
+# single-phase D2Q9 step and the D3Q19 single-phase and Shan-Chen steps
 LIBRARIES = ("csf2d", "coupled2d", "sc2d_f64", "sc2d_f32", "sc2d_bf16",
-             "cg3d_f64", "cg3d_f32", "cg3d_bf16")
+             "cg3d_f64", "cg3d_f32", "cg3d_bf16", "single2d_f64",
+             "single2d_f32", "single2d_bf16", "flow3d_f64", "flow3d_f32",
+             "flow3d_bf16")
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# flags of single libraries: the f64 D3Q19 step, which exists to check the
-# kernel against the plain path, contracts no a*b + c into an FMA, so its
+# flags of single libraries: the f64 instances, which exist to check the
+# kernels against the plain path, contract no a*b + c into an FMA, so their
 # products and sums round as the plain path's do (a wetting rotation near
 # its sin = 0 threshold turns a one-ulp difference into a visible one)
-EXTRA_FLAGS = {"cg3d_f64": ("-fmad=false",)}
+EXTRA_FLAGS = {name: ("-fmad=false",) for name in
+               ("cg3d_f64", "single2d_f64", "flow3d_f64")}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 # seconds spent compiling each library in this process (0.0 = reused)

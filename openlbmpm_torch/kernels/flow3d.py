@@ -1,0 +1,247 @@
+"""The D3Q19 single-phase step (K11) and Shan-Chen step (K10): CUDA kernel
+wrappers, plain PyTorch versions and launch counts.
+
+Counterparts, at one step per call on one device, of
+``openlbmpm_tpu/pallas/single3d.py::build_single3d_fused_step`` (SRT or TRT
+with the Guo body force) and ``openlbmpm_tpu/pallas/sc3d.py::
+build_sc3d_fused_step`` (K = 1 ... 3 fluids, psi = rho, the static
+adhesion field, SRT toward the shifted-velocity equilibrium), both periodic
+in x, y and z with walls from the mask.  The device code is
+``csrc/flow3d.cuh``, built as one library per storage type (``flow3d_f64``,
+``flow3d_f32``, ``flow3d_bf16``).
+
+States: (19, nz, ny, nx) and (K, 19, nz, ny, nx) in float32 / float64, or
+21 bfloat16 planes a fluid (the deviations f_i - w_i rho, then rho as a
+hi/lo pair).  The geometry is one byte a cell (1 on fluid); K10 derives the
+adhesion field from it.
+
+``single3d_step(f, model)`` and ``sc3d_step(f, model)`` take the plain
+version only for a tensor on the CPU; for a CUDA tensor they launch the
+kernel or raise.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ..geometry import Geometry
+from ..lattice import D3Q19
+from . import build
+
+__all__ = ["LIBRARIES", "KMAX", "Flow3dParams", "geo_stack_sc3",
+           "single3d_params", "sc3d_params", "launch_single3d", "launch_sc3d",
+           "single3d_step", "single3d_step_reference", "sc3d_step",
+           "sc3d_step_reference"]
+
+KMAX = 3           # fluids K10 is instantiated for (1 ... KMAX)
+_LIBS = {torch.float64: "flow3d_f64", torch.float32: "flow3d_f32",
+         torch.bfloat16: "flow3d_bf16"}
+LIBRARIES = tuple(_LIBS.values())
+
+_D3 = ctypes.c_double * KMAX
+
+
+class Flow3dParams(ctypes.Structure):
+    """Mirror of ``struct Flow3dParams`` in csrc/flow3d.cuh (same field
+    order)."""
+    _fields_ = [
+        ("nz", ctypes.c_int), ("ny", ctypes.c_int), ("nx", ctypes.c_int),
+        ("k", ctypes.c_int),
+        ("collision", ctypes.c_int),   # single-phase: 0 SRT, 1 TRT
+        ("force", ctypes.c_int),       # single-phase: 1 with a body force
+        ("tau", _D3),
+        ("g", _D3 * KMAX),
+        ("gs", _D3),
+        ("bf", ctypes.c_double * 3),
+    ]
+
+
+def geo_stack_sc3(geometry: Geometry) -> np.ndarray:
+    """[is_fluid, adh_x, adh_y, adh_z] (float64): the static adhesion field
+    sum_i w_i e_i is_solid(x + e_i) (``pallas/sc3d.py::geo_stack_sc3``,
+    ``ShanChenMCMP3D.adhesion``), summed in the order the kernel sums it."""
+    lat = D3Q19
+    solid = geometry.is_solid.astype(np.float64)
+    adh = [np.zeros_like(solid) for _ in range(3)]
+    for i in range(1, lat.q):
+        s = np.roll(np.roll(np.roll(solid, -int(lat.e[i, 2]), 0),
+                            -int(lat.e[i, 1]), 1), -int(lat.e[i, 0]), 2)
+        for d in range(3):
+            ed = int(lat.e[i, d])
+            if ed:
+                adh[d] += float(lat.w[i]) * ed * s
+    return np.stack([geometry.is_fluid.astype(np.float64), *adh])
+
+
+def _check_domain(geometry: Geometry):
+    nz, ny, nx = geometry.shape
+    if nz < 3 or ny < 3 or nx < 3:
+        raise NotImplementedError(f"kernel: domain {nz}x{ny}x{nx} below "
+                                  "3x3x3")
+
+
+def single3d_params(model) -> Flow3dParams:
+    """K11's parameter block for a SinglePhaseD3Q19; raises
+    NotImplementedError for a configuration it does not take (MRT, which
+    the JAX build function refuses too)."""
+    if model.collision not in ("SRT", "TRT"):
+        raise NotImplementedError(f"kernel: collision {model.collision}")
+    _check_domain(model.geo)
+    nz, ny, nx = model.geo.shape
+    return Flow3dParams(
+        nz=nz, ny=ny, nx=nx, k=1, collision=int(model.collision == "TRT"),
+        force=int(any(model.body_force)), tau=_D3(model.tau, 1.0, 1.0),
+        bf=(ctypes.c_double * 3)(*model.body_force))
+
+
+def sc3d_params(params, geometry: Geometry) -> Flow3dParams:
+    """K10's parameter block for a ShanChenParams3D and geometry; raises
+    NotImplementedError for a configuration it does not take."""
+    k = params.num_fluids
+    if not 1 <= k <= KMAX or params.psi != "rho":
+        raise NotImplementedError(f"kernel: {k} fluids, psi {params.psi} (it "
+                                  f"takes 1 ... {KMAX} fluids, psi = rho)")
+    _check_domain(geometry)
+    nz, ny, nx = geometry.shape
+    g = np.zeros((KMAX, KMAX))
+    g[:k, :k] = np.asarray(params.g_matrix, np.float64)
+    tau = [float(t) for t in params.tau] + [1.0] * (KMAX - k)
+    gs = [float(v) for v in params.g_solid] + [0.0] * (KMAX - k)
+    return Flow3dParams(
+        nz=nz, ny=ny, nx=nx, k=k, collision=0, force=0, tau=_D3(*tau),
+        g=(_D3 * KMAX)(*(_D3(*row) for row in g)), gs=_D3(*gs),
+        bf=(ctypes.c_double * 3)(*(float(v) for v in params.body_force)))
+
+
+_fn_cache: dict[str, tuple] = {}
+
+
+def _kernel_fn(lib_name: str):
+    if lib_name not in _fn_cache:
+        lib = build.load_library(lib_name)
+        single = lib.flow3d_single_step
+        single.argtypes = [ctypes.c_void_p] * 3 + [
+            ctypes.POINTER(Flow3dParams), ctypes.c_void_p]
+        single.restype = ctypes.c_int
+        sc = lib.flow3d_sc_step
+        sc.argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(Flow3dParams),
+                                               ctypes.c_void_p]
+        sc.restype = ctypes.c_int
+        err = lib.flow3d_error_string
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        _fn_cache[lib_name] = (single, sc, err)
+    return _fn_cache[lib_name]
+
+
+def _check(f: torch.Tensor, shape, fluid: torch.Tensor, params):
+    if f.dtype not in _LIBS or tuple(f.shape) != shape:
+        raise ValueError(f"state {tuple(f.shape)} {f.dtype}; the kernel takes "
+                         f"{shape}")
+    grid = (params.nz, params.ny, params.nx)
+    if fluid.dtype != torch.uint8 or tuple(fluid.shape) != grid:
+        raise ValueError(f"fluid mask {fluid.dtype} {tuple(fluid.shape)}; the "
+                         f"kernel takes uint8 {grid}")
+    if f.device != fluid.device or f.device.type != "cuda":
+        raise ValueError(f"state on {f.device}, mask on {fluid.device}")
+
+
+def _planes(f: torch.Tensor) -> int:
+    return 21 if f.dtype == torch.bfloat16 else 19
+
+
+def launch_single3d(f: torch.Tensor, params: Flow3dParams,
+                    fluid: torch.Tensor) -> torch.Tensor:
+    """One K11 step of the CUDA state `f`: (19, nz, ny, nx) float32 or
+    float64, or (21, nz, ny, nx) bfloat16; `fluid` the (nz, ny, nx) uint8
+    mask.  Not counted as a launch."""
+    _check(f, (_planes(f), params.nz, params.ny, params.nx), fluid, params)
+    single, _, err = _kernel_fn(_LIBS[f.dtype])
+    f = f.contiguous()
+    out = torch.empty_like(f)
+    with torch.cuda.device(f.device):
+        code = single(f.data_ptr(), out.data_ptr(), fluid.data_ptr(),
+                      ctypes.byref(params),
+                      torch.cuda.current_stream(f.device).cuda_stream)
+    if code != 0:
+        raise RuntimeError(f"flow3d_single_step launch failed: "
+                           f"{err(code).decode()} ({code})")
+    return out
+
+
+def launch_sc3d(f: torch.Tensor, params: Flow3dParams,
+                fluid: torch.Tensor) -> torch.Tensor:
+    """One K10 step of the CUDA state `f`: (K, 19, nz, ny, nx) float32 or
+    float64, or (K, 21, nz, ny, nx) bfloat16; `fluid` the (nz, ny, nx) uint8
+    mask.  Not counted as a launch."""
+    grid = (params.nz, params.ny, params.nx)
+    _check(f, (params.k, _planes(f), *grid), fluid, params)
+    _, sc, err = _kernel_fn(_LIBS[f.dtype])
+    f = f.contiguous()
+    out = torch.empty_like(f)
+    want = torch.float32 if f.dtype == torch.bfloat16 else f.dtype
+    rho = torch.empty((params.k, *grid), dtype=want, device=f.device)
+    with torch.cuda.device(f.device):
+        code = sc(f.data_ptr(), out.data_ptr(), fluid.data_ptr(),
+                  rho.data_ptr(), ctypes.byref(params),
+                  torch.cuda.current_stream(f.device).cuda_stream)
+    if code != 0:
+        raise RuntimeError(f"flow3d_sc_step launch failed: "
+                           f"{err(code).decode()} ({code})")
+    return out
+
+
+def _kernel_state(f: torch.Tensor, model, what: str):
+    if f.device.type != "cuda":
+        raise ValueError(f"no {what} kernel for device {f.device}")
+    if model.kernel_params is None:
+        raise ValueError(f"no {what} kernel for this configuration on "
+                         f"{model.device} (path {model.path!r})")
+    want = torch.bfloat16 if model.storage == "bf16" else model.dtype
+    if f.dtype != want:
+        raise ValueError(f"state {f.dtype}; the model takes {want}")
+
+
+def single3d_step(f: torch.Tensor, model) -> torch.Tensor:
+    """One D3Q19 single-phase step for `model`, a SinglePhaseD3Q19.  CPU
+    tensor: the plain version.  CUDA tensor: K11, or an error; never the
+    plain version."""
+    if f.device.type == "cpu":
+        return single3d_step_reference(f, model)
+    _kernel_state(f, model, "D3Q19 single-phase")
+    out = launch_single3d(f, model.kernel_params, model.fluid_u8)
+    single3d_step.launches += 1
+    return out
+
+
+single3d_step.launches = 0
+
+
+def single3d_step_reference(f: torch.Tensor, model) -> torch.Tensor:
+    """Plain PyTorch version of K11, on any device: the model's
+    ``plain_step``."""
+    return model.plain_step(f)
+
+
+def sc3d_step(f: torch.Tensor, model) -> torch.Tensor:
+    """One D3Q19 Shan-Chen step for `model`, a ShanChenMCMP3D.  CPU tensor:
+    the plain version.  CUDA tensor: K10, or an error; never the plain
+    version."""
+    if f.device.type == "cpu":
+        return sc3d_step_reference(f, model)
+    _kernel_state(f, model, "D3Q19 Shan-Chen")
+    out = launch_sc3d(f, model.kernel_params, model.fluid_u8)
+    sc3d_step.launches += 1
+    return out
+
+
+sc3d_step.launches = 0
+
+
+def sc3d_step_reference(f: torch.Tensor, model) -> torch.Tensor:
+    """Plain PyTorch version of K10, on any device: the model's
+    ``plain_step``."""
+    return model.plain_step(f)

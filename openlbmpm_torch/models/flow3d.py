@@ -1,12 +1,25 @@
-"""Rothman-Keller colour-gradient two-phase flow, CSF variant, on D3Q19, and
-D3Q7 tracer transport confined to one of its phases (counterparts of
-``ColorGradientRK3D``, ``TransportD3Q7`` and ``TransportRK3D`` in
-``openlbmpm_tpu/models/flow3d.py``; that module's single-phase and
-Shan-Chen classes are not ported yet).
+"""D3Q19 flow: single-phase, Shan-Chen for K fluids and the Rothman-Keller
+colour-gradient two-phase model (CSF variant), and D3Q7 tracer transport
+confined to one of its phases (counterparts of ``SinglePhaseD3Q19``,
+``ShanChenMCMP3D``, ``ColorGradientRK3D``, ``TransportD3Q7`` and
+``TransportRK3D`` in ``openlbmpm_tpu/models/flow3d.py``).
 
-Arrays are indexed [z, y, x]; e components are (x, y, z).  The flow runs
-along -z: the inlet is the top z slabs, the outlet the bottom ones.  Two
-state layouts:
+Arrays are indexed [z, y, x]; e components are (x, y, z).
+
+``SinglePhaseD3Q19`` (state (19, nz, ny, nx)) collides with SRT or TRT and
+the Guo body force and pull-streams with half-way bounce-back, periodic on
+every face; on a card ``step`` is K11 (``kernels/flow3d.py``) for SRT and
+TRT.  ``ShanChenMCMP3D`` (state (K, 19, nz, ny, nx)) is the original
+Shan-Chen scheme with psi = rho: the D3Q19-weight interaction force plus
+the static adhesion field and the body force, the common velocity u' and
+per fluid SRT toward feq(u' + tau_k F_k / rho_k); on a card ``step`` is
+K10 for psi = "rho" and K <= 3.  Both store 21 bfloat16 planes a fluid
+under ``storage="bf16"`` (kernel configurations only).  ``path`` is decided
+in the constructor as the JAX build functions decide whether they return a
+kernel; a kernel that fails to build or launch raises.
+
+The colour-gradient flow runs along -z: the inlet is the top z slabs, the
+outlet the bottom ones.  Two state layouts:
 
 * split: the colour PDFs (f_r, f_b), each (19, nz, ny, nx) -- ``step``;
 * compressed: (f_total, rho_r) as 20 planes, or 21 bfloat16 planes (the
@@ -40,6 +53,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Literal
 
 import numpy as np
 import torch
@@ -50,18 +64,313 @@ from ..geometry import Geometry
 from ..kernels.cg3d import (cg3d_step_compressed, cg3d_step_split,
                             coupled3d_step_compressed, geo_stack3,
                             kernel_params, tracer3d_params, tracer3d_table)
+from ..kernels.flow3d import (KMAX, geo_stack_sc3, sc3d_params, sc3d_step,
+                              single3d_params, single3d_step)
 from ..lattice import D3Q7, D3Q19
 from ..ops import collision as col
 from ..ops import colorgrad as cg
 from ..ops import equilibrium as eq
 from ..ops import macroscopic as mac
 from ..ops import transport as tr
+from ..ops.common import shift
 from ..ops.forcing import guo_source
 from ..ops.streaming import stream, upwind_solid_masks
 from .transport import _per_tracer
 
-__all__ = ["ColorGradientParams3D", "CG3DBoundaryConfig", "ColorGradientRK3D",
+__all__ = ["SinglePhaseD3Q19", "ShanChenParams3D", "ShanChenMCMP3D",
+           "ColorGradientParams3D", "CG3DBoundaryConfig", "ColorGradientRK3D",
            "TransportD3Q7", "TransportRK3D"]
+
+
+def _pack_bf16(f, lat):
+    """(..., 19, nz, ny, nx) -> (..., 21, ...) bfloat16: the deviations
+    f_i - w_i rho and rho as a hi/lo pair, rounded to nearest-even."""
+    rho = mac.density(f, 3)
+    w = torch.as_tensor(lat.w, dtype=f.dtype, device=f.device).reshape(
+        19, 1, 1, 1)
+    hi = rho.to(torch.bfloat16)
+    lo = (rho - hi.to(f.dtype)).to(torch.bfloat16)
+    dev = (f - w * rho.unsqueeze(-4)).to(torch.bfloat16)
+    return torch.cat([dev, hi.unsqueeze(-4), lo.unsqueeze(-4)], dim=-4)
+
+
+def _unpack_bf16(s, lat, dtype):
+    """Inverse of ``_pack_bf16`` in `dtype` (up to the deviations'
+    rounding)."""
+    rho = s[..., 19, :, :, :].to(dtype) + s[..., 20, :, :, :].to(dtype)
+    w = torch.as_tensor(lat.w, dtype=dtype, device=s.device).reshape(
+        19, 1, 1, 1)
+    return s[..., :19, :, :, :].to(dtype) + w * rho.unsqueeze(-4)
+
+
+def _check_storage(storage, dtype, fused):
+    if storage not in ("f32", "bf16"):
+        raise ValueError(f"storage {storage!r}: f32 | bf16")
+    if storage == "bf16" and dtype != torch.float32:
+        raise ValueError("storage='bf16' computes in float32")
+    if storage == "bf16" and not fused:
+        raise ValueError("storage='bf16' is a kernel layout: this "
+                         "configuration runs the plain step only")
+
+
+class SinglePhaseD3Q19(nn.Module):
+    """Single-component D3Q19 flow on a dense masked grid: the JAX
+    constructor's arguments (without ``use_pallas``) plus ``device`` and
+    ``storage``.  ``collision`` other than "SRT" collides with TRT, as the
+    JAX step does; K11 takes SRT and TRT ("MRT" runs the plain step, as the
+    JAX build function returns no kernel for it)."""
+
+    def __init__(self, geometry: Geometry, tau: float = 1.0,
+                 collision: Literal["SRT", "TRT"] = "SRT",
+                 body_force=(0.0, 0.0, 0.0), dtype=torch.float32,
+                 device="cuda", storage: str = "f32"):
+        super().__init__()
+        dtype = resolve_dtype(dtype)
+        dev = resolve_device(device)
+        fused = collision in ("SRT", "TRT")
+        _check_storage(storage, dtype, fused)
+        self.lat = D3Q19
+        self.geo = geometry
+        self.tau = float(tau)
+        self.collision = collision
+        self.body_force = tuple(float(v) for v in body_force)
+        self.dtype = dtype
+        self.storage = storage
+        self.register_buffer("fluid_mask", torch.as_tensor(
+            geometry.is_fluid, dtype=dtype, device=dev))
+        self.register_buffer("upwind_solid", torch.as_tensor(
+            upwind_solid_masks(self.lat, geometry.is_solid), device=dev))
+        self.path = "kernel" if fused and dev.type == "cuda" else "plain"
+        self.kernel_params = None
+        if self.path == "kernel":
+            self.kernel_params = single3d_params(self)
+            self.register_buffer("fluid_u8", torch.as_tensor(
+                geometry.is_fluid, dtype=torch.uint8, device=dev))
+
+    @property
+    def device(self) -> torch.device:
+        return self.fluid_mask.device
+
+    @property
+    def nu(self) -> float:
+        return (self.tau - 0.5) / 3.0
+
+    def init_state(self, rho0: float = 1.0):
+        """Rest equilibrium at density rho0 on the fluid."""
+        rho = torch.full(self.geo.shape, rho0, dtype=self.dtype,
+                         device=self.device) * self.fluid_mask
+        z = torch.zeros_like(rho)
+        return eq.feq_quadratic(self.lat, rho, (z, z, z))
+
+    def pack_state_bf16(self, f):
+        """(19, nz, ny, nx) -> (21, nz, ny, nx) bfloat16."""
+        return _pack_bf16(f, self.lat)
+
+    def unpack_bf16(self, s):
+        return _unpack_bf16(s, self.lat, self.dtype)
+
+    def macro(self, f):
+        """(rho, (ux, uy, uz)) with the half-force velocity; a bf16 state is
+        decoded first."""
+        if f.dtype == torch.bfloat16:
+            f = self.unpack_bf16(f)
+        rho = mac.density(f, 3)
+        force = tuple(b * rho for b in self.body_force) \
+            if any(self.body_force) else None
+        return rho, mac.velocity(self.lat, f, rho, force)
+
+    def _step_impl(self, f):
+        """The plain step, composed from ``ops/``: the JAX model's jnp
+        ``_step_impl``."""
+        lat = self.lat
+        rho = mac.density(f, 3)
+        force = tuple(b * rho for b in self.body_force)
+        u = mac.velocity(lat, f, rho, force)
+        feq = eq.feq_quadratic(lat, rho, u)
+        if self.collision == "SRT":
+            f = col.bgk(f, feq, self.tau)
+            if any(self.body_force):
+                src = guo_source(lat, u, force)
+                f = f + (1.0 - 0.5 / self.tau) * src
+        else:
+            f = col.trt(f, feq, lat, self.tau)
+            if any(self.body_force):
+                src = guo_source(lat, u, force)
+                f = f + col.trt_force_transform(src, lat, self.tau)
+        return stream(f, lat, self.upwind_solid) * self.fluid_mask
+
+    def plain_step(self, f):
+        """``_step_impl`` on any device; a bf16 state is decoded to float32,
+        stepped and encoded again, as the kernel does in its registers."""
+        if self.storage == "bf16":
+            return self.pack_state_bf16(self._step_impl(self.unpack_bf16(f)))
+        return self._step_impl(f)
+
+    def step(self, f):
+        """One time step: K11 when ``path == "kernel"``, else the plain
+        step."""
+        if self.path == "kernel":
+            return single3d_step(f, self)
+        return self.plain_step(f)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShanChenParams3D:
+    """Same fields and defaults as the JAX package's ShanChenParams3D."""
+    g_matrix: tuple
+    g_solid: tuple
+    tau: tuple
+    psi: Literal["rho", "PR"] = "rho"
+    body_force: tuple = (0.0, 0.0, 0.0)
+
+    @property
+    def num_fluids(self) -> int:
+        return len(self.tau)
+
+
+class ShanChenMCMP3D(nn.Module):
+    """Original-Shan-Chen multicomponent flow on D3Q19 (velocity-shift
+    forcing).  State: f (K, 19, nz, ny, nx).  The force uses psi = rho
+    whatever ``params.psi`` says, as the JAX model does; K10 takes
+    psi = "rho" only (the JAX build function returns no kernel
+    otherwise)."""
+
+    def __init__(self, geometry: Geometry, params: ShanChenParams3D,
+                 dtype=torch.float32, device="cuda", storage: str = "f32"):
+        super().__init__()
+        k = params.num_fluids
+        if np.asarray(params.g_matrix).shape != (k, k) or \
+                len(params.g_solid) != k:
+            raise ValueError(f"g_matrix must be {k}x{k} and g_solid hold {k} "
+                             "values")
+        dtype = resolve_dtype(dtype)
+        dev = resolve_device(device)
+        fused = params.psi == "rho" and k <= KMAX
+        _check_storage(storage, dtype, fused)
+        self.lat = D3Q19
+        self.geo = geometry
+        self.p = params
+        self.k = k
+        self.dtype = dtype
+        self.storage = storage
+        self.tau = np.asarray(params.tau, np.float64)
+        self.g_matrix = np.asarray(params.g_matrix, np.float64)
+        self.g_solid = np.asarray(params.g_solid, np.float64)
+        self.register_buffer("fluid_mask", torch.as_tensor(
+            geometry.is_fluid, dtype=dtype, device=dev))
+        self.register_buffer("upwind_solid", torch.as_tensor(
+            upwind_solid_masks(self.lat, geometry.is_solid), device=dev))
+        # the static solid-adhesion field sum_i w_i e_i is_solid(x + e_i)
+        self.register_buffer("adhesion", torch.as_tensor(
+            geo_stack_sc3(geometry)[1:], dtype=dtype, device=dev))
+        self.register_buffer("tau_k", torch.as_tensor(
+            self.tau, dtype=dtype, device=dev).reshape(-1, 1, 1, 1))
+        self.path = "kernel" if fused and dev.type == "cuda" else "plain"
+        self.kernel_params = None
+        if self.path == "kernel":
+            self.kernel_params = sc3d_params(params, geometry)
+            self.register_buffer("fluid_u8", torch.as_tensor(
+                geometry.is_fluid, dtype=torch.uint8, device=dev))
+
+    @property
+    def device(self) -> torch.device:
+        return self.fluid_mask.device
+
+    def init_state_droplet(self, rho_main, rho_background, center=None,
+                           radius: float = 8.0):
+        """A sphere of fluid 0 (its main density) in a bath of the others;
+        each fluid at its background density elsewhere."""
+        nz, ny, nx = self.geo.shape
+        if center is None:
+            center = (nz / 2.0, ny / 2.0, nx / 2.0)
+        zz, yy, xx = np.mgrid[0:nz, 0:ny, 0:nx]
+        inside = ((zz - center[0]) ** 2 + (yy - center[1]) ** 2 +
+                  (xx - center[2]) ** 2) <= radius ** 2
+        rho = np.empty((self.k, nz, ny, nx))
+        for i in range(self.k):
+            region = inside if i == 0 else ~inside
+            rho[i] = np.where(region, rho_main[i], rho_background[i])
+        rho *= self.geo.is_fluid
+        rho_k = torch.as_tensor(rho, dtype=self.dtype, device=self.device)
+        z = torch.zeros_like(rho_k)
+        return eq.feq_quadratic(self.lat, rho_k, (z, z, z)) * self.fluid_mask
+
+    def pack_state_bf16(self, f):
+        """(K, 19, nz, ny, nx) -> (K, 21, nz, ny, nx) bfloat16, per fluid the
+        deviations f_i - w_i rho_k and rho_k as a hi/lo pair."""
+        return _pack_bf16(f, self.lat)
+
+    def unpack_bf16(self, s):
+        return _unpack_bf16(s, self.lat, self.dtype)
+
+    def _force(self, rho_k):
+        """F_k = -psi_k (sum_j G_kj sum_i w_i e_i psi_j(x + e_i) + G_ks adh)
+        + g rho_k with psi = rho."""
+        psi = rho_k
+        grads = [torch.zeros_like(rho_k) for _ in range(3)]
+        for i in range(1, 19):
+            w = float(D3Q19.w[i])
+            s = shift(psi, int(D3Q19.e[i, 0]), int(D3Q19.e[i, 1]),
+                      int(D3Q19.e[i, 2]))
+            for d in range(3):
+                ed = int(D3Q19.e[i, d])
+                if ed:
+                    grads[d] = grads[d] + (w * ed) * s
+        out = []
+        for d in range(3):
+            gv = torch.stack([sum((float(self.g_matrix[k, j]) * grads[d][j]
+                                   for j in range(1, self.k)),
+                                  float(self.g_matrix[k, 0]) * grads[d][0])
+                              for k in range(self.k)])
+            gs = torch.as_tensor(self.g_solid, dtype=rho_k.dtype,
+                                 device=rho_k.device).reshape(-1, 1, 1, 1)
+            out.append(-psi * (gv + gs * self.adhesion[d]) +
+                       float(self.p.body_force[d]) * rho_k)
+        return tuple(out)
+
+    def _step_impl(self, f):
+        """The plain step, composed from ``ops/``: the JAX model's jnp
+        ``_step_impl``."""
+        rho_k = mac.density(f, 3)
+        rho_safe = torch.where(rho_k > 0, rho_k, torch.ones_like(rho_k))
+        up = mac.sc_common_velocity(self.lat, f, rho_k, self.tau)
+        force = self._force(rho_k)
+        ueq = tuple(up[d][None] + self.tau_k * force[d] / rho_safe
+                    for d in range(3))
+        feq = eq.feq_quadratic(self.lat, rho_k, ueq)
+        f = f - (f - feq) / self.tau_k[:, None]
+        return stream(f, self.lat, self.upwind_solid) * self.fluid_mask
+
+    def plain_step(self, f):
+        """``_step_impl`` on any device; a bf16 state is decoded to float32,
+        stepped and encoded again, as the kernel does in its registers."""
+        if self.storage == "bf16":
+            return self.pack_state_bf16(self._step_impl(self.unpack_bf16(f)))
+        return self._step_impl(f)
+
+    def step(self, f):
+        """One time step: K10 when ``path == "kernel"``, else the plain
+        step."""
+        if self.path == "kernel":
+            return sc3d_step(f, self)
+        return self.plain_step(f)
+
+    def macro(self, f):
+        """(rho_k, (ux, uy, uz)): the fluid densities and the barycentric
+        velocity sum_k (m_k + F_k/2) / rho_tot; a bf16 state is decoded
+        first."""
+        if f.dtype == torch.bfloat16:
+            f = self.unpack_bf16(f)
+        rho_k = mac.density(f, 3)
+        force = self._force(rho_k)
+        rho = torch.sum(rho_k, dim=0)
+        rho_s = torch.where(rho > 0, rho, torch.ones_like(rho))
+        mom = mac.momentum(self.lat, f)
+        return rho_k, tuple(torch.sum(mom[d] + 0.5 * force[d], dim=0) / rho_s
+                            for d in range(3))
+
+    def pressure(self, rho_k):
+        return mac.pressure_sc(rho_k, self.g_matrix)
 
 
 @dataclasses.dataclass(frozen=True)

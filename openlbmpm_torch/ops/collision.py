@@ -1,7 +1,7 @@
 """Collision operators (counterpart of ``openlbmpm_tpu/ops/collision.py``):
-BGK with a per-node tau, the RK colour-gradient MRT with per-node shear
-rates, and the constant-matrix MRT of the Shan-Chen family, all in the
-dense M^-1 S M form."""
+BGK with a constant or per-node tau, TRT and its force correction, the RK
+colour-gradient MRT with per-node shear rates, and the constant-matrix MRT
+of the Shan-Chen family, the MRT forms in the dense M^-1 S M form."""
 
 from __future__ import annotations
 
@@ -10,9 +10,50 @@ import torch
 
 from ..lattice import Lattice
 
-__all__ = ["bgk_field_tau", "mrt", "mrt_force_transform", "mrt_variable_nu",
+__all__ = ["bgk", "bgk_field_tau", "trt", "trt_force_transform", "mrt",
+           "mrt_force_transform", "mrt_variable_nu",
            "mrt_force_transform_variable", "mrt_relaxation_d2q9_sc",
            "mrt_relaxation_d2q9_rk"]
+
+
+def bgk(f, feq, tau: float):
+    """f - (f - feq) / tau with one relaxation time."""
+    return f - (f - feq) / tau
+
+
+def _trt_rates(tau: float, magic: float):
+    """(omega_+, omega_-) of the TRT operator with the magic parameter
+    Lambda = (tau_+ - 1/2)(tau_- - 1/2)."""
+    return 1.0 / tau, 1.0 / (magic / (tau - 0.5) + 0.5)
+
+
+def _opposite(x, lat: Lattice):
+    """x with its Q axis (axis 0) in the order of the opposite directions."""
+    return x[torch.as_tensor(np.asarray(lat.opp), device=x.device)]
+
+
+def trt(f, feq, lat: Lattice, tau: float, magic: float = 3.0 / 16.0):
+    """Two-relaxation-time collision of f and feq (Q first): the symmetric
+    part of f - feq relaxes at omega_+ = 1/tau, the antisymmetric part at
+    omega_- = 1/(magic/(tau - 1/2) + 1/2)."""
+    omega_p, omega_m = _trt_rates(tau, magic)
+    f_opp, feq_opp = _opposite(f, lat), _opposite(feq, lat)
+    f_sym = 0.5 * (f + f_opp)
+    f_asym = 0.5 * (f - f_opp)
+    feq_sym = 0.5 * (feq + feq_opp)
+    feq_asym = 0.5 * (feq - feq_opp)
+    return f - omega_p * (f_sym - feq_sym) - omega_m * (f_asym - feq_asym)
+
+
+def trt_force_transform(src, lat: Lattice, tau: float,
+                        magic: float = 3.0 / 16.0):
+    """The TRT force correction: the even part of src scaled by
+    (1 - omega_+/2), the odd part by (1 - omega_-/2)."""
+    omega_p, omega_m = _trt_rates(tau, magic)
+    src_opp = _opposite(src, lat)
+    even = 0.5 * (src + src_opp)
+    odd = 0.5 * (src - src_opp)
+    return (1.0 - 0.5 * omega_p) * even + (1.0 - 0.5 * omega_m) * odd
 
 
 def bgk_field_tau(f, feq, tau_field):

@@ -11,8 +11,8 @@ import torch
 from ..lattice import Lattice
 from .common import bcast_1d
 
-__all__ = ["density", "momentum", "ordered_sum", "sc_common_velocity",
-           "pressure_sc"]
+__all__ = ["density", "momentum", "ordered_sum", "velocity",
+           "sc_common_velocity", "pressure_sc"]
 
 
 def ordered_sum(terms: torch.Tensor, axis: int) -> torch.Tensor:
@@ -38,15 +38,25 @@ def momentum(lat: Lattice, f: torch.Tensor):
                              -1 - lat.dim) for d in range(lat.dim))
 
 
+def velocity(lat: Lattice, f: torch.Tensor, rho: torch.Tensor, force=None):
+    """u = (sum_i f_i e_i + F/2) / rho, rho guarded against 0; `force` is
+    None or one field per axis."""
+    mom = momentum(lat, f)
+    if force is not None:
+        mom = tuple(m + 0.5 * g for m, g in zip(mom, force))
+    rho_safe = torch.where(rho > 0, rho, torch.ones_like(rho))
+    return tuple(m / rho_safe for m in mom)
+
+
 def sc_common_velocity(lat: Lattice, f_k: torch.Tensor, rho_k: torch.Tensor,
                        tau_k):
     """Shan-Chen common velocity
     u' = sum_k (sum_i f_ki e_i / tau_k) / sum_k (rho_k / tau_k), the
-    denominator guarded against 0.  f_k: (K, Q, ny, nx); rho_k: (K, ny, nx);
-    tau_k: (K,)."""
+    denominator guarded against 0.  f_k: (K, Q, *spatial); rho_k:
+    (K, *spatial); tau_k: (K,)."""
     inv_tau = torch.as_tensor(1.0 / np.asarray(tau_k, np.float64),
                               dtype=f_k.dtype, device=f_k.device)
-    itau = inv_tau.reshape(-1, 1, 1)
+    itau = inv_tau.reshape((-1,) + (1,) * (rho_k.dim() - 1))
     denom = torch.sum(rho_k * itau, dim=0)
     denom = torch.where(denom != 0, denom, torch.ones_like(denom))
     return tuple(torch.sum(m * itau, dim=0) / denom

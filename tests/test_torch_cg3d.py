@@ -192,7 +192,11 @@ def test_chip_faults_patches_one_kernel_line():
     import chip_faults
     with open(os.path.join(ROOT, "openlbmpm_torch", "csrc", "cg3d.cuh")) as f:
         assert f.read().count(chip_faults.LINE) == 1
-    assert set(chip_faults.CASES.values()) == {None, 4, 2}
+    k9 = {name: case for name, case in chip_faults.CASES.items()
+          if case[1] == chip_faults.LINE}
+    assert k9 == {name: ("cg3d.cuh", chip_faults.LINE,
+                         chip_faults.FAULT.format(size=size), ("21",))
+                  for name, size in (("f32", 4), ("bf16", 2))}
 
 
 def test_grain_pack_equals_the_png_route(tmp_path):

@@ -463,9 +463,15 @@ def test_inspect_prints_what_jax_prints(model, path):
 
 
 def test_unported_model_exits_2(capsys):
-    assert tcli.main(["run", CG_INI, "--model", "sc3d", "--device",
-                      "cpu"]) == 2
-    assert "not ported yet" in capsys.readouterr().err
+    """Every model family of the JAX CLI is ported; a name outside them
+    (the JAX CLI has none either) is refused with status 2."""
+    assert set(tcli.MODELS) == {"cg", "cg3d", "sc", "sc3d", "transport",
+                                "transport3d", "basic", "basic3d"}
+    with pytest.raises(SystemExit) as exc:
+        tcli.main(["run", CG_INI, "--model", "perturbation", "--device",
+                   "cpu"])
+    assert exc.value.code == 2
+    assert "invalid choice" in capsys.readouterr().err
 
 
 def test_block_note_and_cuda_without_card(tmp_path):

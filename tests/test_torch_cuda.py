@@ -14,10 +14,14 @@ import pytest
 import torch
 
 from chip_smoke import (CG3D_CASES, CG3D_TRANSPORT_CASES, COUPLED_CASES,
-                        SC_CASES, SC_KERNEL_CASES, bf16_one_step_3d,
-                        cg3d_case, coupled_conc0, flagship_flow, sc_case,
-                        sc_config, split_cases, split_coupled_cases,
-                        transport3d_case)
+                        FLOW3D_BF16_SHARE, SC3D_CASES, SC_CASES,
+                        SC_KERNEL_CASES, SINGLE3D_CASES, SINGLE_BF16_SHARE,
+                        SINGLE_CASES, basic3d_model, bf16_one_step_3d,
+                        bf16_ulp_check, cg3d_case, config1_model,
+                        coupled_conc0, flagship_flow, flow_start,
+                        probe_sc3d_model, probe_sc3d_start, sc3d_case,
+                        sc_case, sc_config, single3d_case, single_case,
+                        split_cases, split_coupled_cases, transport3d_case)
 from openlbmpm_torch.geometry import from_solid_mask
 from openlbmpm_torch.kernels.cg3d import (
     cg3d_step_compressed, cg3d_step_compressed_reference, cg3d_step_split,
@@ -26,12 +30,19 @@ from openlbmpm_torch.kernels.cg3d import (
 from openlbmpm_torch.kernels.csf import (
     compare_bf16_states, csf_step_compressed, csf_step_compressed_reference,
     csf_step_split, csf_step_split_reference)
+from openlbmpm_torch.kernels.flow3d import (sc3d_step, sc3d_step_reference,
+                                            single3d_step,
+                                            single3d_step_reference)
 from openlbmpm_torch.kernels.shanchen import sc_step, sc_step_reference
+from openlbmpm_torch.kernels.single import single_step, single_step_reference
 from openlbmpm_torch.kernels.transport import (
     coupled_step_compressed, coupled_step_compressed_reference,
     coupled_step_split, coupled_step_split_reference)
 from openlbmpm_torch.models.colorgradient import (
     CGBoundaryConfig, ColorGradientParams, ColorGradientRK)
+from openlbmpm_torch.models.flow3d import (ShanChenMCMP3D, ShanChenParams3D,
+                                           SinglePhaseD3Q19)
+from openlbmpm_torch.models.single_phase import SinglePhaseD2Q9
 from openlbmpm_torch.models.transport import TransportParams, TransportRK
 
 torch.set_num_threads(1)
@@ -494,3 +505,107 @@ def test_coupled3d_step_counts_launches_and_refuses_device_mix(cuda):
     with pytest.raises(ValueError, match="plain"):
         coupled3d_step_compressed(s, g, cpu_model)
     assert coupled3d_step_compressed.launches == 1
+
+
+# -- single-phase D2Q9 (K7), D3Q19 single-phase (K11) and Shan-Chen (K10) ----
+
+FLOW3D_SHAPE = (20, 14, 37)
+
+
+def _run_pair(kernel, plain, m, f, steps=10):
+    a = b = f
+    for _ in range(steps):
+        a, b = kernel(a, m), plain(b, m)
+    torch.cuda.synchronize()
+    return a, b
+
+
+@pytest.mark.parametrize("case", sorted(SINGLE_CASES))
+def test_single_kernel_matches_plain_f64(cuda, case):
+    """K7 against its plain version, 10 f64 steps on a 72x40 channel with
+    side walls, body force and the case's rows: <= 1e-11 (phase 29 at a
+    smaller size)."""
+    m = single_case(case, cuda, ny=72, nx=40)
+    a, b = _run_pair(single_step, single_step_reference, m, flow_start(m))
+    assert bool(torch.isfinite(a).all())
+    assert float((a - b).abs().max()) <= 1e-11
+
+
+def test_single_kernel_bf16_one_step_within_one_ulp(cuda):
+    mh = config1_model(cuda, storage="bf16", nx=64, ny=96)
+    h = mh.pack_state_bf16(flow_start(config1_model(cuda, nx=64, ny=96), 1))
+    r = bf16_ulp_check(mh, h, single_step, mh.fluid_mask > 0,
+                       SINGLE_BF16_SHARE, "K7")
+    assert r["excess"] <= 1.0
+
+
+def test_single_step_counts_launches_and_refuses(cuda):
+    m = single_case("mrt_zou_he", cuda, ny=72, nx=40, dtype=torch.float32)
+    assert m.path == "kernel"
+    single_step.launches = 0
+    f = m.step(flow_start(m))
+    assert single_step.launches == 1 and f.shape == (9, 72, 40)
+    with pytest.raises(ValueError, match="state"):
+        m.step(f.double())
+    moving = np.zeros(m.geo.shape, bool)
+    moving[:, 0] = True
+    mw = SinglePhaseD2Q9(m.geo, moving_wall_mask=moving,
+                         wall_velocity=(0.0, 0.01), device=cuda)
+    assert mw.path == "plain"
+    with pytest.raises(ValueError, match="no single-phase kernel"):
+        single_step(f, mw)
+    assert single_step.launches == 1
+
+
+@pytest.mark.parametrize("case", sorted(SINGLE3D_CASES))
+def test_single3d_kernel_matches_plain_f64(cuda, case):
+    """K11 against its plain version, 10 f64 steps: <= 1e-11."""
+    m = single3d_case(case, cuda, shape=FLOW3D_SHAPE)
+    a, b = _run_pair(single3d_step, single3d_step_reference, m,
+                     flow_start(m))
+    assert bool(torch.isfinite(a).all())
+    assert float((a - b).abs().max()) <= 1e-11
+
+
+@pytest.mark.parametrize("case", sorted(SC3D_CASES))
+def test_sc3d_kernel_matches_plain_f64(cuda, case):
+    """K10 against its plain version, 10 f64 steps: <= 1e-11."""
+    m, f = sc3d_case(case, cuda, shape=FLOW3D_SHAPE)
+    a, b = _run_pair(sc3d_step, sc3d_step_reference, m, f)
+    assert bool(torch.isfinite(a).all())
+    assert float((a - b).abs().max()) <= 1e-11
+
+
+@pytest.mark.parametrize("tag", ["K11", "K10"])
+def test_flow3d_bf16_one_step_within_one_ulp(cuda, tag):
+    if tag == "K11":
+        make, start, step = basic3d_model, lambda m: flow_start(m, 2), \
+            single3d_step
+    else:
+        make, start, step = probe_sc3d_model, probe_sc3d_start, sc3d_step
+    mh = make(cuda, n=32, storage="bf16")
+    h = mh.pack_state_bf16(start(make(cuda, n=32)))
+    for _ in range(2):
+        h = step(h, mh)
+    r = bf16_ulp_check(mh, h, step, mh.fluid_mask > 0, FLOW3D_BF16_SHARE, tag)
+    assert r["excess"] <= 1.0
+
+
+def test_flow3d_paths_and_launches(cuda):
+    g = single3d_case("srt", cuda, shape=FLOW3D_SHAPE).geo
+    assert SinglePhaseD3Q19(g, collision="MRT", device=cuda).path == "plain"
+    two = dict(g_matrix=((0.0, 3.6), (3.6, 0.0)), g_solid=(0.0, 0.0),
+               tau=(1.0, 1.0))
+    assert ShanChenMCMP3D(g, ShanChenParams3D(**two, psi="PR"),
+                          device=cuda).path == "plain"
+    four = dict(g_matrix=tuple((0.0,) * 4 for _ in range(4)),
+                g_solid=(0.0,) * 4, tau=(1.0,) * 4)
+    assert ShanChenMCMP3D(g, ShanChenParams3D(**four),
+                          device=cuda).path == "plain"
+    m = ShanChenMCMP3D(g, ShanChenParams3D(**two), device=cuda)
+    assert m.path == "kernel"
+    sc3d_step.launches = 0
+    f = m.step(m.init_state_droplet((1.0, 1.0), (0.02, 0.02), radius=4.0))
+    assert sc3d_step.launches == 1 and f.shape == (2, 19, *FLOW3D_SHAPE)
+    with pytest.raises(ValueError, match="state"):
+        m.step(f.double())

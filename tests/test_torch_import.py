@@ -37,7 +37,8 @@ _IMPORT_ALL = (
     "openlbmpm_torch.io, openlbmpm_torch.lattice, openlbmpm_torch.geometry, "
     "openlbmpm_torch.models.shanchen, openlbmpm_torch.ops.shanchen, "
     "openlbmpm_torch.kernels.shanchen, openlbmpm_torch.models.flow3d, "
-    "openlbmpm_torch.kernels.cg3d, sys; ")
+    "openlbmpm_torch.kernels.cg3d, openlbmpm_torch.models.single_phase, "
+    "openlbmpm_torch.kernels.single, openlbmpm_torch.kernels.flow3d, sys; ")
 
 
 def _run(code):
@@ -64,6 +65,8 @@ def test_import_isolation(check):
     ("cg", "rk_csf2d.ini", '"collision": "MRT"'),
     ("sc", "twophasesetup.ini", '"scheme": "SC"'),
     ("cg3d", "rk_csf3d.ini", '"surface_tension": 0.005'),
+    ("basic", "basicsetup.ini", '"collision": "MRT"'),
+    ("sc3d", "shanchen3d.ini", '"psi": "rho"'),
 ])
 def test_cli_runs_without_jax(tmp_path, model, ini, want):
     """``python -m openlbmpm_torch inspect`` in a fresh interpreter that can
@@ -144,7 +147,9 @@ def test_cuda_device_without_card_raises():
 @pytest.mark.parametrize("entry", ["resolve_device", "state_from_numpy",
                                    "ColorGradientRK", "TransportRK",
                                    "ShanChenMCMP", "ColorGradientRK3D",
-                                   "cli_cg3d"])
+                                   "cli_cg3d", "SinglePhaseD2Q9",
+                                   "SinglePhaseD3Q19", "ShanChenMCMP3D",
+                                   "cli_basic"])
 def test_entry_points_default_to_the_card(entry, tmp_path):
     """Built without ``device=``, each entry point asks for CUDA: here,
     with no card, it raises."""
@@ -153,7 +158,9 @@ def test_entry_points_default_to_the_card(entry, tmp_path):
     from openlbmpm_torch import cli
     from openlbmpm_torch.models import (ColorGradientParams3D,
                                         ColorGradientRK, ColorGradientRK3D,
-                                        ShanChenMCMP, ShanChenParams,
+                                        ShanChenMCMP, ShanChenMCMP3D,
+                                        ShanChenParams, ShanChenParams3D,
+                                        SinglePhaseD2Q9, SinglePhaseD3Q19,
                                         TransportRK)
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
@@ -173,6 +180,14 @@ def test_entry_points_default_to_the_card(entry, tmp_path):
         "cli_cg3d": lambda: cli.main(["run", ini3d, "--model", "cg3d",
                                       "--steps", "1", "--output",
                                       str(tmp_path)]),
+        "SinglePhaseD2Q9": lambda: SinglePhaseD2Q9(geometry),
+        "SinglePhaseD3Q19": lambda: SinglePhaseD3Q19(box3d),
+        "ShanChenMCMP3D": lambda: ShanChenMCMP3D(box3d, ShanChenParams3D(
+            g_matrix=((0.0, 3.6), (3.6, 0.0)), g_solid=(0.0, 0.0),
+            tau=(1.0, 1.0))),
+        "cli_basic": lambda: cli.main([
+            "run", os.path.join(ROOT, "configs", "basicsetup.ini"),
+            "--model", "basic", "--steps", "1", "--output", str(tmp_path)]),
     }[entry]
     with pytest.raises(RuntimeError, match="cuda"):
         make()

@@ -448,4 +448,6 @@ def test_chip_faults_patches_one_tracer_line():
     import chip_faults
     with open(os.path.join(ROOT, "openlbmpm_torch", "csrc", "cg3d.cuh")) as f:
         assert f.read().count(chip_faults.TRACER_LINE) == 1
-    assert chip_faults.TRACER_CASES == {"tracer f32": 4}
+    assert chip_faults.CASES["tracer f32"] == (
+        "cg3d.cuh", chip_faults.TRACER_LINE,
+        chip_faults.TRACER_FAULT.format(size=4), ("26",))
