@@ -4,15 +4,16 @@ kernel against its plain path, fail them: the D3Q19 CSF kernel (K9) and its
 coupled tracer step (K9t) under phase 21 (configuration 5 at 128^3) and
 phase 26 (benchmarks/probe_coupled3d.py's configuration at 128^3), the
 single-phase D2Q9 kernel (K7) under phase 31 (the analytic Poiseuille
-profile) and the D3Q19 Shan-Chen kernel (K10) under phase 37
-(benchmarks/probe_sc3d.py's configuration).
+profile), the D3Q19 Shan-Chen kernel (K10) under phase 37
+(benchmarks/probe_sc3d.py's configuration) and the Perturbation kernel
+(K4) under phase 41 (the pert flagship at 1024^2).
 
     python3 chip_faults.py
 
 Run from the repository root on a machine with a CUDA card and nvcc.  Each
 case copies ``openlbmpm_torch`` (without its build directory) and
 ``chip_smoke.py`` into a temporary directory, changes one line of a
-``csrc/`` header there, and runs its phases in a subprocess that builds the
+``csrc/`` source there, and runs its phases in a subprocess that builds the
 copy's libraries and records every failed check (and any error) instead of
 stopping at the first.  The K9 faults drop the Guo source term on wetting
 fluid cells only (the contact lines, where phase 21 compares against the
@@ -22,14 +23,17 @@ tracer then leaks through the red phase across the periodic z seam) in the
 f32 instance; the K7 fault drops the Guo source from the MRT update in the
 f32 instance (the half-force stays in the relaxed moments); the K10 fault
 drops the adhesion term, which only wall-adjacent cells carry, in the f32
-instance:
+instance; the K4 fault drops the 1/sqrt(2) of the diagonal recolouring
+segment in the f32 instances (K4c f32, K4s f32):
 
-  none           the sources as they are: phases 21, 26, 31, 37 must pass;
+  none           the sources as they are: phases 21, 26, 31, 37, 41 must
+                 pass;
   f32            cg3d.cuh, float32 storage (K9c f32, K9s f32): phase 21;
   bf16           cg3d.cuh, bfloat16 storage (K9h): phase 21;
   tracer f32     cg3d.cuh, float32 storage (K9t f32): phase 26;
   K7 MRT f32     single2d.cuh, float32 storage: phase 31 must fail;
-  K10 adh f32    flow3d.cuh, float32 storage: phase 37 must fail.
+  K10 adh f32    flow3d.cuh, float32 storage: phase 37 must fail;
+  K4 diag f32    pert2d.cu, float32 storage: phase 41 must fail.
 
 Prints one line per case with the failed checks and the gaps, and exits 0
 only when every case behaves as stated.
@@ -61,7 +65,10 @@ K10_LINE = ("      const C force = -rho[k] * (gv + C(P.gs[k]) * C(adh[d])) + "
             "C(P.bf[d]) * rho[k];")
 K10_FAULT = ("      const C force = -rho[k] * (gv + C(P.gs[k]) * "
              "C(sizeof(S) == {size} ? 0.0 : adh[d])) + C(P.bf[d]) * rho[k];")
-# name -> (header, line, fault, phases that must fail)
+K4_LINE = "        cos_t = eg / norm / C(i < 5 ? 1.0 : kSqrt2);"
+K4_FAULT = ("        cos_t = eg / norm / C(i < 5 || sizeof(S) == {size} ? "
+            "1.0 : kSqrt2);")
+# name -> (source, line, fault, phases that must fail)
 CASES = {
     "f32": ("cg3d.cuh", LINE, FAULT.format(size=4), ("21",)),
     "bf16": ("cg3d.cuh", LINE, FAULT.format(size=2), ("21",)),
@@ -70,6 +77,7 @@ CASES = {
     "K7 MRT f32": ("single2d.cuh", K7_LINE, K7_FAULT.format(size=4), ("31",)),
     "K10 adh f32": ("flow3d.cuh", K10_LINE, K10_FAULT.format(size=4),
                     ("37",)),
+    "K4 diag f32": ("pert2d.cu", K4_LINE, K4_FAULT.format(size=4), ("41",)),
 }
 
 RUN = r"""
@@ -95,6 +103,12 @@ for phase in sys.argv[1:]:
         elif phase == "31":
             out[phase] = {k: v[0] for k, v in
                           cs.phase_single_poiseuille(device).items()}
+            continue
+        elif phase == "41":
+            res = cs.phase_pert_flagship(device)
+            out[phase] = {"f64": res["f64"]} | {
+                k: {"planes": res[k]["planes"], "rho_r": res[k]["rho_r"]}
+                for k in ("f32", "split", "bf16")}
             continue
         else:
             res = cs.phase_probe_sc3d(device)
@@ -136,7 +150,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_faults: needs a CUDA card", file=sys.stderr)
         return 2
-    cases = [("none", None, None, None, ("21", "26", "31", "37"))]
+    cases = [("none", None, None, None, ("21", "26", "31", "37", "41"))]
     cases += [(name, *case) for name, case in CASES.items()]
     ok = True
     for name, header, line, fault, phases in cases:

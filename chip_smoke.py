@@ -166,7 +166,31 @@ toolkit (nvcc) and PyTorch built for CUDA; JAX is not needed.  Phases:
      launched exactly once a step, final checkpoints finite; the bf16 main
      paths of K11 and K10 through ``run_chunked``;
  39. MLUPS of K11 and K10 (f32, bf16) at 128^3 and 256^3 and of their plain
-     paths at 128^3, device time per launch and the roofline share.
+     paths at 128^3, device time per launch and the roofline share;
+ 40. f64: the Perturbation kernels K4c (compressed) and K4s (split) against
+     their plain steps on a 256x128 walled channel in every case of
+     PERT_CASES (SRT and MRT, isotropic and anisotropic weights, Neumann/
+     Dirichlet, Dirichlet/convective and per-colour velocity/convective
+     rows, a periodic droplet, unequal strengths, unequal alphas for one
+     step), and K6 with the per-colour velocity inlet; <= 1e-11;
+ 41. the pert flagship (bench.py's flow as the Perturbation variant,
+     1024^2), 10 steps from one f64 start: f64 <= 1e-11, K4c f32, K4s f32
+     and K4h bf16 off the seam rows and corners within PERT_BOUNDS, then one
+     more bf16 step within one ulp a value (``bf16_one_step``);
+     ``chip_faults.py`` shows a fault planted in the f32 instance failing
+     this phase;
+ 42. physics through K4: the Laplace droplet of
+     tests/test_colorgradient.py (64^2, 2000 steps, f32 and f64 on K4s),
+     then 1000 f32 steps of the pert flagship through
+     ``run_chunked(step_c)`` on K4c, its red mass growing by |v_in| x the
+     fluid inlet columns a step within 5%;
+ 43. the main paths: ``run_chunked(step_c)`` for 1000 bf16 steps (K4h once
+     a step), ``run --model cg`` on rk_csf2d.ini at 1024^2 with
+     SurfaceTensionType 'Perturbation' for 1000 steps (K4s once a step, a
+     finite split checkpoint), and a short run with the averaged convective
+     outlet (path "plain", no launch);
+ 44. MLUPS of K4c, K4h and K4s and of their plain paths at 1024^2, device
+     time per launch and the roofline share.
 
 Every phase prints one line or more, each number line with the card's name
 and power limit, and any failure exits non-zero.  Then the wall time, the
@@ -362,17 +386,19 @@ def _bf16_rz(x):
         torch.float32).to(torch.bfloat16)
 
 
-def bf16_one_step(m, s, away, max_share=1e-3):
+def bf16_one_step(m, s, away, kernel=None, max_share=1e-3):
     """Kernel and plain bf16 step from the common bf16 state `s`, held
     value by value off the seam to one bf16 ulp (``compare_bf16_states``)
     with at most `max_share` of the values of magnitude >= 1e-4 off at
     all.  Two faulty encodings of the plain path's own f32 result, one
     rounding toward zero and one dropping the lo plane of rho_r, must
-    fail the same check."""
+    fail the same check.  `kernel` is the compressed step's wrapper
+    (``csf_step_compressed`` unless given)."""
     from openlbmpm_torch.kernels.csf import (
-        compare_bf16_states, csf_step_compressed, csf_step_compressed_reference)
-    plain = csf_step_compressed_reference(s, m)
-    r = compare_bf16_states(csf_step_compressed(s, m), plain, away)
+        compare_bf16_states, csf_step_compressed)
+    plain = m.plain_step_c(s)
+    r = compare_bf16_states((kernel or csf_step_compressed)(s, m), plain,
+                            away)
     check(r["excess"] <= 1.0, f"bf16 one step: a value {r['excess']:.3g} "
           "ulp off the plain path")
     check(r["share"] <= max_share, f"bf16 one step: {r['share']:.2e} of the "
@@ -3310,9 +3336,449 @@ def phase33_39_lines(r33, r34, r35, r36, r37, r38, r39, card):
     return lines
 
 
+# -- the Perturbation variant (K4) ------------------------------------------
+
+# ColorGradientParams fields shared by the Perturbation cases: MRT, tau
+# 1.0 / 0.8, matched alphas (4/9: equal densities at equal pressure)
+PERT_BASE = dict(variant="Perturbation", collision="MRT", tau_r=1.0,
+                 tau_b=0.8, beta=0.7, delta=0.98, alpha_r=4 / 9,
+                 alpha_b=4 / 9, a_kr=1e-3, a_kb=1e-3, solid_phi=0.5,
+                 gradient_type="Isotropic")
+_P_NEU_DIR = dict(inlet="neumann", outlet="dirichlet", inlet_velocity=-1e-4,
+                  outlet_density_r=0.0, outlet_density_b=1.0)
+_P_DIR_CONV = dict(inlet="dirichlet", outlet="convective",
+                   inlet_density_r=1.0005, inlet_density_b=2e-3)
+_P_PC_CONV = dict(inlet="neumann_per_color", outlet="convective",
+                  inlet_velocity_r=-1e-3, inlet_velocity_b=-2e-4)
+# name -> (parameter changes, boundary fields, initial condition, steps) of
+# phase 40 (and tests/test_torch_pert.py): both collisions and gradient
+# weights, the Neumann/Dirichlet, per-colour Dirichlet/convective and
+# per-colour velocity/convective rows (split only), a periodic droplet,
+# unequal strengths, and unequal alphas (which put the phases at unequal
+# pressure: one step)
+PERT_CASES = {
+    "mrt_iso_neumann_dirichlet": ({}, _P_NEU_DIR, "layers", 20),
+    "srt_iso_neumann_dirichlet": ({"collision": "SRT"}, _P_NEU_DIR,
+                                  "layers", 20),
+    "mrt_aniso_dirichlet_convective": ({"gradient_type": "Anisotropic"},
+                                       _P_DIR_CONV, "layers", 20),
+    "srt_aniso_percolor_convective": (
+        {"collision": "SRT", "gradient_type": "Anisotropic"}, _P_PC_CONV,
+        "layers", 20),
+    "mrt_periodic_droplet": ({"a_kr": 5e-3, "a_kb": 5e-3}, {}, "droplet",
+                             20),
+    "srt_akr_ne_akb": ({"collision": "SRT", "a_kr": 2e-3, "a_kb": 5e-4},
+                       _P_NEU_DIR, "layers", 20),
+    "mrt_alpha_r_ne_alpha_b": ({"alpha_b": 0.3}, _P_NEU_DIR, "layers", 1),
+}
+
+
+def pert_fields(name):
+    """(ColorGradientParams fields, CGBoundaryConfig fields) of a case of
+    PERT_CASES."""
+    change, bcs, _, _ = PERT_CASES[name]
+    return PERT_BASE | change, dict(bcs)
+
+
+def pert_start(m, kind):
+    """The split start of a Perturbation case: red layers on top (a fifth
+    of the rows), or a red droplet of radius ny/8 in blue."""
+    if kind == "layers":
+        return m.init_state_layers(1.0, 1.0, invading_rows=m.geo.ny // 5)
+    return m.init_state_droplet(1.0, 1.0, radius=m.geo.ny / 8)
+
+
+def pert_case(name, device, ny=256, nx=128, dtype=torch.float64,
+              storage="f32"):
+    """The model of a case of PERT_CASES on a walled ny x nx channel."""
+    from openlbmpm_torch.models.colorgradient import (
+        CGBoundaryConfig, ColorGradientParams, ColorGradientRK)
+    pf, bf = pert_fields(name)
+    return ColorGradientRK(walled(ny, nx), ColorGradientParams(**pf),
+                           CGBoundaryConfig(**bf), dtype=dtype,
+                           device=device, storage=storage)
+
+
+def state_gap(a, b) -> float:
+    """max |a - b| over a state: one tensor or a tuple of them."""
+    if isinstance(a, tuple):
+        return max(float((x - y).abs().max()) for x, y in zip(a, b))
+    return float((a - b).abs().max())
+
+
+def pert_flagship_flow():
+    """bench.py's flagship flow (bench.py:78-90) as the Perturbation
+    variant: MRT, tau 1.0 / 1.0, beta 0.7, delta 0.98, alphas 4/9, A_R = A_B
+    = 1e-4, solid_phi 0.5, isotropic weights; Neumann inlet at v = -1e-4,
+    Dirichlet outlet (rho_b = 1) with the phi repair.  Returns
+    (ColorGradientParams, CGBoundaryConfig)."""
+    from openlbmpm_torch.models.colorgradient import ColorGradientParams
+    params = ColorGradientParams(**(PERT_BASE | {"tau_b": 1.0, "a_kr": 1e-4,
+                                                "a_kb": 1e-4}))
+    return params, flagship_flow()[1]
+
+
+def pert_flagship_model(device, storage="f32", dtype=torch.float32,
+                        n=FLAGSHIP_N):
+    """The Perturbation flagship flow on an n x n walled channel."""
+    from openlbmpm_torch.models.colorgradient import ColorGradientRK
+    return ColorGradientRK(walled(n, n), *pert_flagship_flow(), dtype=dtype,
+                           device=device, storage=storage)
+
+
+def phase_pert_f64(device, ny=256, nx=128, tol=1e-11):
+    """K4c and K4s against their plain steps at f64 on a walled 256x128
+    channel, each case of PERT_CASES for its steps (the compressed layout
+    refuses the per-colour velocity inlet), and K6 with that inlet."""
+    import dataclasses
+    from openlbmpm_torch.kernels.csf import (
+        csf_step_split, csf_step_split_reference, pert_step_compressed,
+        pert_step_compressed_reference, pert_step_split,
+        pert_step_split_reference)
+    from openlbmpm_torch.models.colorgradient import ColorGradientRK
+    out = {}
+    for name, (_, bcs, kind, steps) in PERT_CASES.items():
+        m = pert_case(name, device, ny, nx)
+        st = pert_start(m, kind)
+        runs = [("split", st, pert_step_split, pert_step_split_reference)]
+        if bcs.get("inlet") != "neumann_per_color":
+            runs.append(("compressed", m.pack_state(*st),
+                         pert_step_compressed,
+                         pert_step_compressed_reference))
+        for layout, x, kern, plain in runs:
+            a = b = x
+            err = 0.0
+            for _ in range(steps):
+                a, b = kern(a, m), plain(b, m)
+                err = max(err, state_gap(a, b))
+            check(all(bool(torch.isfinite(t).all()) for t in
+                      (a if layout == "split" else (a,))),
+                  f"pert f64 {name} {layout}: state not finite")
+            check(err <= tol, f"pert f64 {name} {layout}: kernel vs plain "
+                  f"{err:.3e} > {tol:g}")
+            out[(name, layout)] = err
+    params, bcs = split_cases()["mrt_dirichlet_convective"]
+    m = ColorGradientRK(walled(ny, nx), params, dataclasses.replace(
+        bcs, inlet="neumann_per_color", inlet_velocity_r=-1e-3,
+        inlet_velocity_b=-2e-4), dtype=torch.float64, device=device)
+    a = b = m.init_state_layers(1.0, 1.0, invading_rows=ny // 5)
+    err = 0.0
+    for _ in range(20):
+        a = csf_step_split(a, m)
+        b = csf_step_split_reference(b, m)
+        err = max(err, state_gap(a, b))
+    check(err <= tol, f"K6 neumann_per_color f64: kernel vs plain {err:.3e} "
+          f"> {tol:g}")
+    out[("K6 neumann_per_color", "split")] = err
+    return out
+
+
+# the pert flagship's kernel-vs-plain bounds (PDF planes, rho_r) off the
+# seam rows and corners after 10 steps: f32 about 10x the gaps measured on
+# an H100 (K4c 1.8e-7 / 4.8e-7, K4s 1.5e-7 / 3.0e-7); bf16 as phase 4
+PERT_BOUNDS = {"f32": (2e-6, 5e-6), "split": (2e-6, 3e-6),
+               "bf16": (3e-4, 1e-4)}
+
+
+def phase_pert_flagship(device, n=FLAGSHIP_N, steps=10):
+    """Kernel vs plain at the pert flagship: f64 (K4c and K4s, <= 1e-11),
+    then from the same f64 start K4c in f32, K4s in f32 and K4h in bf16
+    storage, held off the seam rows and corners (seam_masks) to
+    PERT_BOUNDS, no further from the f64 plain run than max(1.5x the plain
+    path, the bound), total rho_r within 1e-4 of the plain path; then one
+    more bf16 step from a common state within one ulp a value
+    (``bf16_one_step``)."""
+    from openlbmpm_torch.kernels.csf import (
+        pert_step_compressed, pert_step_compressed_reference, pert_step_split,
+        pert_step_split_reference)
+    res = {}
+    m64 = pert_flagship_model(device, dtype=torch.float64, n=n)
+    st64 = m64.init_state_layers(1.0, 1.0, invading_rows=100 * n // 1024)
+    s64 = m64.pack_state(*st64)
+    p64 = _steps(lambda x: pert_step_compressed_reference(x, m64), s64, steps)
+    k64 = _steps(lambda x: pert_step_compressed(x, m64), s64, steps)
+    ps64 = _steps(lambda x: pert_step_split_reference(x, m64), st64, steps)
+    ks64 = _steps(lambda x: pert_step_split(x, m64), st64, steps)
+    res["f64"] = max(float((k64 - p64).abs().max()),
+                     *(float((a - b).abs().max()) for a, b in zip(ks64, ps64)))
+    check(res["f64"] <= 1e-11, f"pert f64 kernel vs plain {res['f64']:.3e} "
+          "> 1e-11")
+    away = seam_masks(n, n, steps, device)
+    split_ref = m64.pack_state(*ps64)
+    for key in ("f32", "split", "bf16"):
+        m = pert_flagship_model(device, "bf16" if key == "bf16" else "f32",
+                                n=n)
+        if key == "split":
+            x0 = tuple(t.float() for t in st64)
+            a = m.pack_state(*_steps(lambda x: pert_step_split(x, m), x0,
+                                     steps))
+            b = m.pack_state(*_steps(lambda x: pert_step_split_reference(
+                x, m), x0, steps))
+            ref = split_ref
+        else:
+            x0 = s64.float() if key == "f32" else \
+                m.pack_compressed_bf16(s64.float())
+            a = _steps(lambda x: pert_step_compressed(x, m), x0, steps)
+            b = _steps(lambda x: pert_step_compressed_reference(x, m), x0,
+                       steps)
+            ref = p64
+            if key == "bf16":
+                res["ulp"] = bf16_one_step(m, b, away, pert_step_compressed)
+                a, b = m.unpack_bf16(a), m.unpack_bf16(b)
+        check(bool(torch.isfinite(a).all()) and bool(torch.isfinite(b).all()),
+              f"pert {key}: state not finite")
+        d = (a - b).abs()
+        planes, rho_r = float(d[:9, away].max()), float(d[9, away].max())
+        acc_k = float((a.double() - ref).abs().max())
+        acc_p = float((b.double() - ref).abs().max())
+        bp, br = PERT_BOUNDS[key]
+        check(planes <= bp and rho_r <= br, f"pert {key} off the seam: "
+              f"planes {planes:.3e} (<= {bp:g}), rho_r {rho_r:.3e} "
+              f"(<= {br:g})")
+        check(acc_k <= max(1.5 * acc_p, bp), f"pert {key}: kernel "
+              f"{acc_k:.3e} from f64, the plain path {acc_p:.3e}")
+        tot_k, tot_p = (float(x[9].double().sum()) for x in (a, b))
+        drift = abs(tot_k - tot_p) / tot_p
+        check(drift <= 1e-4, f"pert {key}: total rho_r kernel vs plain "
+              f"{drift:.2e}")
+        res[key] = {"max": float(d.max()), "planes": planes, "rho_r": rho_r,
+                    "from_f64": (acc_k, acc_p), "mass": drift}
+    return res
+
+
+def phase_pert_physics(device, n=FLAGSHIP_N, laplace_steps=2000,
+                       steps=1000, rate_tol=0.05):
+    """Physics through K4: the Laplace droplet of
+    tests/test_colorgradient.py::test_laplace_law_perturbation_variant
+    (64^2 periodic, SRT, alphas 4/9, A = 0.005, radius 14, 2000 steps) on
+    K4s in f32 and f64: the droplet stays whole (phi > 0.9 on > 300 cells,
+    < -0.9 on > 2000) and the pressure inside exceeds the pressure outside.
+    Then the pert flagship for `steps` f32 steps of
+    ``run_chunked(model.step_c)`` (K4c, the launches counted): finite, its
+    red mass growing by |v_in| x (fluid inlet columns) a step within
+    `rate_tol`; the plain path's rate is read over the same steps."""
+    from openlbmpm_torch import geometry
+    from openlbmpm_torch.kernels.csf import (
+        pert_step_compressed, pert_step_compressed_reference)
+    from openlbmpm_torch.models.base import run_chunked
+    from openlbmpm_torch.models.colorgradient import (
+        CGBoundaryConfig, ColorGradientParams, ColorGradientRK)
+    res = {}
+    g = geometry.from_solid_mask(np.zeros((64, 64), bool))
+    p = ColorGradientParams(**(PERT_BASE | {
+        "collision": "SRT", "tau_b": 1.0, "a_kr": 0.005, "a_kb": 0.005}))
+    for dt in (torch.float32, torch.float64):
+        m = ColorGradientRK(g, p, CGBoundaryConfig(), dtype=dt, device=device)
+        check(m.path == "kernel", "laplace droplet: not on the kernel")
+        st = run_chunked(m.step, m.init_state_droplet(1.0, 1.0, radius=14.0),
+                         num_steps=laplace_steps, io_interval=laplace_steps,
+                         nan_guard=True)
+        rho_r, rho_b, phi, _ = m.macro(st)
+        rho = rho_r + rho_b
+        inside, outside = int((phi > 0.9).sum()), int((phi < -0.9).sum())
+        dp = float((rho[phi > 0.8].mean() - rho[phi < -0.8].mean()) / 3.0)
+        check(inside > 300 and outside > 2000 and dp > 0,
+              f"laplace droplet {dt}: phi > 0.9 on {inside}, < -0.9 on "
+              f"{outside}, dp {dp:.3e}")
+        res[str(dt).split(".")[-1]] = (inside, outside, dp)
+    m = pert_flagship_model(device, n=n)
+    s0 = m.pack_state(*m.init_state_layers(1.0, 1.0,
+                                           invading_rows=100 * n // 1024))
+    cols = int(m.is_fluid[n - 2].sum())
+    want = abs(m.bcs.inlet_velocity) * cols
+    pert_step_compressed.launches = 0
+    s = run_chunked(m.step_c, s0, num_steps=steps, io_interval=steps,
+                    nan_guard=True)
+    res["launches_f32"] = pert_step_compressed.launches
+    check(res["launches_f32"] == steps, f"pert flagship f32: "
+          f"{res['launches_f32']} K4c launches, want {steps}")
+    check(bool(torch.isfinite(s).all()), "pert flagship f32: not finite")
+    def red(x):
+        return float(x[9].double().sum())
+    rate = (red(s) - red(s0)) / steps
+    b = _steps(lambda x: pert_step_compressed_reference(x, m), s0, steps)
+    rate_p = (red(b) - red(s0)) / steps
+    res["rate"] = (rate, rate_p, want)
+    check(abs(rate / want - 1) <= rate_tol, f"pert flagship: red mass "
+          f"{rate:.6g} a step, |v| x {cols} columns = {want:.6g} "
+          f"(plain path {rate_p:.6g})")
+    return res
+
+
+def phase_pert_main(device, n=FLAGSHIP_N, steps=MAIN_STEPS, cli_steps=1000):
+    """The main paths: ``run_chunked(model.step_c)`` on the pert flagship
+    for `steps` bf16 steps (K4h once a step), then ``run --model cg`` on
+    configs/rk_csf2d.ini at n^2 with SurfaceTensionType 'Perturbation'
+    (K4s once a step; the checkpoint a finite split state), then a short
+    run of that INI with the averaged convective outlet (path "plain", no
+    launch)."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+    from openlbmpm_torch import cli
+    from openlbmpm_torch.checkpoint import load_checkpoint
+    from openlbmpm_torch.kernels.csf import (
+        pert_step_compressed, pert_step_split)
+    from openlbmpm_torch.models.base import RunMetrics, run_chunked
+    res = {}
+    m = pert_flagship_model(device, "bf16", n=n)
+    s = m.pack_state_bf16(*m.init_state_layers(
+        1.0, 1.0, invading_rows=100 * n // 1024))
+    meter = RunMetrics(n * n)
+    pert_step_compressed.launches = 0
+    s = run_chunked(m.step_c, s, num_steps=steps, io_interval=500,
+                    metrics=meter, nan_guard=True)
+    res["launches_bf16"] = pert_step_compressed.launches
+    res["run_mlups"] = meter.mlups
+    check(res["launches_bf16"] == steps and s.dtype == torch.bfloat16 and
+          bool(torch.isfinite(m.unpack_bf16(s)).all()),
+          f"pert bf16 main path: {res['launches_bf16']} launches, want "
+          f"{steps}")
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        ini = os.path.join(tmp, "pert.ini")
+        _ini_copy(os.path.join(root, "configs", "rk_csf2d.ini"), ini, {
+            "xDomain": n, "yDomain": n, "TimeInterval": 500,
+            "SurfaceTensionType": "'Perturbation'"})
+        out = os.path.join(tmp, "cg")
+        pert_step_split.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            rc = cli.main(["run", ini, "--model", "cg", "--steps",
+                           str(cli_steps), "--output", out, "--device",
+                           device.type])
+        res["cli_sec"] = time.perf_counter() - t0
+        res["cli_launches"] = pert_step_split.launches
+        check(rc == 0 and "variant Perturbation" in text.getvalue() and
+              "the kernel step" in text.getvalue(),
+              f"cli pert: rc {rc}, {text.getvalue()[:300]}")
+        check(res["cli_launches"] == cli_steps, f"cli pert: K4s launched "
+              f"{res['cli_launches']} times, want {cli_steps}")
+        with np.load(os.path.join(out, "checkpoint.npz")) as z:
+            shapes = [z[f"leaf{i}"].shape for i in range(2)]
+        like = tuple(torch.zeros(sh, device=device) for sh in shapes)
+        (f_r, f_b), step = load_checkpoint(os.path.join(out, "checkpoint.npz"),
+                                           like)
+        check(step == cli_steps and f_r.shape[0] == 9 and
+              bool(torch.isfinite(f_r).all() and torch.isfinite(f_b).all()),
+              f"cli pert: checkpoint at step {step} not a finite split state")
+        res["cli_mlups"] = _mlups(os.path.join(out, "metrics.jsonl"))
+        res["cli_shape"] = tuple(f_r.shape[1:])
+        _ini_copy(ini, ini, {"BoundaryTypeOutlet": "'AverageConvective'",
+                             "TimeInterval": 10})
+        before = (pert_step_split.launches, pert_step_compressed.launches)
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            rc = cli.main(["run", ini, "--model", "cg", "--steps", "10",
+                           "--output", os.path.join(tmp, "avg"), "--device",
+                           device.type])
+        line = next(ln for ln in text.getvalue().splitlines()
+                    if "--model cg" in ln)
+        check(rc == 0 and f"the plain step on {device.type}" in line and
+              (pert_step_split.launches, pert_step_compressed.launches) ==
+              before, f"cli pert AverageConvective: rc {rc}, {line}")
+        res["avg_line"] = line
+    return res
+
+
+# Least bytes per cell-step of K4 (as KERNEL_BYTES): the state in and out
+# plus a 1-byte solid mask
+PERT_BYTES = {"f32": 2 * 40 + 1, "bf16": 2 * 22 + 1, "split": 2 * 72 + 1}
+# floating-point operations per cell-step, counted roughly from the formulas:
+# equilibria, MRT in moment space, gradient, perturbation and recolouring
+# (~500; the split layout relaxes and perturbs two colours, ~800)
+PERT_FLOPS = {"f32": 500, "bf16": 500, "split": 800}
+
+
+def phase_pert_speed(device, n=FLAGSHIP_N, kernel_steps=500, plain_steps=20):
+    """MLUPS of K4c (f32), K4h (bf16) and K4s (split f32) and of their plain
+    paths at the pert flagship (CUDA events, plain, kernel, kernel, plain,
+    best of each), each kernel's device time per launch (torch.profiler),
+    and the roofline share from PERT_BYTES."""
+    from openlbmpm_torch.kernels.csf import (
+        launch_csf2d, launch_csf2d_split, pert_step_compressed,
+        pert_step_compressed_reference, pert_step_split,
+        pert_step_split_reference)
+    res = {"sec": {}, "profile": {}}
+    for key in ("f32", "bf16", "split"):
+        m = pert_flagship_model(device, "bf16" if key == "bf16" else "f32",
+                                n=n)
+        st = m.init_state_layers(1.0, 1.0, invading_rows=100 * n // 1024)
+        if key == "split":
+            kern = lambda x, m=m: pert_step_split(x, m)  # noqa: E731
+            plain = lambda x, m=m: pert_step_split_reference(x, m)  # noqa
+            launch = lambda x, m=m: launch_csf2d_split(  # noqa: E731
+                *x, m.kernel_params, m.geo_planes, "pert2d")
+            x = st
+        else:
+            kern = lambda x, m=m: pert_step_compressed(x, m)  # noqa: E731
+            plain = lambda x, m=m: pert_step_compressed_reference(  # noqa
+                x, m)
+            launch = lambda x, m=m: launch_csf2d(  # noqa: E731
+                x, m.kernel_params, m.geo_planes, "pert2d")
+            x = m.pack_state_bf16(*st) if key == "bf16" else m.pack_state(*st)
+        best = time_pair(kern, plain, x, kernel_steps, plain_steps, device)
+        res["sec"][key] = best["kernel"]
+        res["sec"][f"plain_{key}"] = best["plain"]
+        res["profile"][key] = device_times(launch, x, ("pert_kernel",))[
+            "pert_kernel"]
+    res["mlups"] = {k: n * n / v / 1e6 for k, v in res["sec"].items()}
+    res["roof"] = {k: PERT_BYTES[k] * n * n / HBM_BYTES_PER_S /
+                   res["sec"][k] for k in PERT_BYTES}
+    return res
+
+
+def phase40_44_lines(r40, r41, r42, r43, r44, card, n=FLAGSHIP_N):
+    def gaps(r):
+        return (f"planes {r['planes']:.3e}, rho_r {r['rho_r']:.3e}, max "
+                f"{r['max']:.3e}; from f64 kernel {r['from_f64'][0]:.3e} vs "
+                f"plain {r['from_f64'][1]:.3e}; total rho_r {r['mass']:.2e}")
+    u = r41["ulp"]
+    rate, rate_p, want = r42["rate"]
+    cells = r43["cli_shape"][0] * r43["cli_shape"][1]
+    bound = {k: b * n * n / HBM_BYTES_PER_S * 1e3
+             for k, b in PERT_BYTES.items()}
+    return [
+        "phase 40 K4 f64 kernel vs plain, 256x128, max |diff|: " + ", ".join(
+            f"{k} {lay} {v:.3e}" for (k, lay), v in r40.items()) +
+        " (<= 1e-11)",
+        f"phase 41 pert flagship {n}^2, 10 steps [{card}]: f64 K4c/K4s "
+        f"{r41['f64']:.3e} (<= 1e-11); off the seam rows and corners: "
+        + "; ".join(f"{k} ({PERT_BOUNDS[k][0]:g} / {PERT_BOUNDS[k][1]:g}) "
+                    f"{gaps(r41[k])}" for k in ("f32", "split", "bf16")) +
+        f"; bf16 one more step: largest gap {u['excess']:.3g} ulp, "
+        f"{u['share']:.3e} of values >= 1e-4 differ, {u['hi_flips']} rho_r "
+        f"hi flips; round-toward-zero {u['rz_share']:.3e}, dropped lo "
+        f"{u['no_lo_excess']:.3g} ulp",
+        "phase 42 laplace droplet on K4s, 2000 steps (phi > 0.9 cells, "
+        "phi < -0.9 cells, dp): " + ", ".join(
+            f"{k} {v[0]}, {v[1]}, {v[2]:.4e}" for k, v in r42.items()
+            if k in ("float32", "float64")) +
+        f"; pert flagship 1000 f32 steps on K4c ({r42['launches_f32']} "
+        f"launches): red mass {rate:.6g} a step (plain {rate_p:.6g}), "
+        f"|v_in| x columns {want:.6g}, ratio {rate / want:.4f} [{card}]",
+        f"phase 43 main path: run_chunked(step_c) {MAIN_STEPS} bf16 steps, "
+        f"{r43['launches_bf16']} K4h launches, {r43['run_mlups']:.1f} MLUPS "
+        f"incl. host loop; cli run --model cg Perturbation "
+        f"{r43['cli_shape'][0]}x{r43['cli_shape'][1]} ({cells} cells), 1000 "
+        f"f32 steps: {r43['cli_launches']} K4s launches, "
+        f"{r43['cli_sec']:.2f} s with I/O, metrics.jsonl MLUPS "
+        f"{r43['cli_mlups']}; AverageConvective: {r43['avg_line']} [{card}]",
+        f"phase 44 K4 {n}^2 [{card}]: MLUPS (ms a step) " + ", ".join(
+            f"{k} {r44['mlups'][k]:.1f} ({r44['sec'][k] * 1e3:.4f})"
+            for k in r44["sec"]) + "; bound ms " + ", ".join(
+            f"{k} {v:.4f}" for k, v in bound.items()) +
+        "; roofline share " + ", ".join(
+            f"{k} {v:.3f}" for k, v in r44["roof"].items()) +
+        "; device us per launch (launches per step): " + ", ".join(
+            f"{k} " + ("not measured" if v is None else
+                       f"{v[0]:.2f} ({v[1]:g})")
+            for k, v in r44["profile"].items())]
+
+
 # kernels whose first integer template argument is the state layout
 LAYOUT_KERNELS = ("phase_kernel", "collide_stream_kernel",
-                  "tracer_collide_kernel", "bc_kernel")
+                  "tracer_collide_kernel", "bc_kernel", "pert_kernel")
 
 
 def ptxas_summary(log: str, sc: bool = False) -> str:
@@ -3328,7 +3794,8 @@ def ptxas_summary(log: str, sc: bool = False) -> str:
             mangled = m.group(1)
             base = next((k for k in COUPLED_KERNELS + SC_KERNELS +
                          TRANSPORT3D_KERNELS + FLOW3D_KERNELS +
-                         ("bc_rows_kernel",) if k in mangled), mangled)
+                         ("bc_rows_kernel", "pert_kernel") if k in mangled),
+                        mangled)
             args = mangled.split(base)[-1]
             kind = ("bf16" if "bfloat16" in mangled else
                     "f64" if re.search(r"I[^E]*d", args) else "f32")
@@ -3509,6 +3976,20 @@ def main() -> int:
             r33, r34, r35, r36, r37, r38, r39, card):
         print(ln)
 
+    t_flow = time.perf_counter() - t_start
+    t_k4 = {}
+    for key, fn in (("r40", phase_pert_f64), ("r41", phase_pert_flagship),
+                    ("r42", phase_pert_physics), ("r43", phase_pert_main),
+                    ("r44", phase_pert_speed)):
+        t0 = time.perf_counter()
+        t_k4[key] = (fn(device), time.perf_counter() - t0)
+        torch.cuda.empty_cache()
+    r40, r41, r42, r43, r44 = (t_k4[k][0] for k in sorted(t_k4))
+    print("phases 40-44 wall s: " + ", ".join(
+        f"{k[1:]} {v[1]:.1f}" for k, v in sorted(t_k4.items())))
+    for ln in phase40_44_lines(r40, r41, r42, r43, r44, card):
+        print(ln)
+
     n2 = FLAGSHIP_N * FLAGSHIP_N
     csf = "openlbmpm_tpu/pallas/csf.py:147"
     entries = [kernel_entry(
@@ -3622,9 +4103,25 @@ def main() -> int:
                 mlups_256=r256["mlups"][st],
                 bound_ms_256=FLOW3D_BYTES[tag][st] * 256 ** 3 /
                 HBM_BYTES_PER_S * 1e3))
+    f64_k4 = {lay: max(v for (_, ly), v in r40.items() if ly == lay)
+              for lay in ("compressed", "split")}
+    for entry, label, key, launches, f64, extra in (
+            ("pert_step_compressed_f32", "K4c", "f32", r42["launches_f32"],
+             f64_k4["compressed"], "_substep_pert_c :1246, storage='f32'"),
+            ("pert_step_compressed", "K4h", "bf16", r43["launches_bf16"],
+             f64_k4["compressed"], "_substep_pert_c :1246, storage='bf16'"),
+            ("pert_step_split", "K4s", "split", r43["cli_launches"],
+             f64_k4["split"], "_substep_pert :1118, state_mode='split'")):
+        entries.append(kernel_entry(
+            entry, label, "openlbmpm_torch/csrc/pert2d.cu",
+            f"{csf} (variant='Perturbation', {extra})", launches,
+            r41[key]["max"], r44["sec"][key], r44["sec"][f"plain_{key}"],
+            PERT_BYTES[key], PERT_FLOPS[key], n2, max_abs_err_f64=f64,
+            mlups=r44["mlups"][key]))
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s "
           f"(phases 1-14 {t_old:.1f} s, 1-19 {t_2d:.1f} s, 1-24 "
-          f"{t_3d:.1f} s, 1-28 {t_k9t:.1f} s, build {t_build:.1f} s)")
+          f"{t_3d:.1f} s, 1-28 {t_k9t:.1f} s, 1-39 {t_flow:.1f} s, build "
+          f"{t_build:.1f} s)")
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

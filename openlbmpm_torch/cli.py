@@ -8,7 +8,10 @@ not ported):
   inspect    parse a config and print the resolved typed parameters
 
 ``--model cg`` steps ``ColorGradientRK.step`` on the split (f_r, f_b) state
-(on a card, the split CSF kernel); ``--model cg3d`` runs the D3Q19 CSF
+of a CSF or Perturbation INI (on a card, the split CSF kernel K6 or the
+split Perturbation kernel K4s; the plain step for the averaged convective
+outlet and the modified periodic seam, as the JAX package; the run prints
+which); ``--model cg3d`` runs the D3Q19 CSF
 model of an RKtwophasesetup3D.ini in a box with walls on the x and y faces:
 on a card it packs the state and steps ``ColorGradientRK3D.step_c`` (the
 compressed kernel), as the JAX CLI does on its accelerator, on the CPU the
@@ -103,6 +106,9 @@ def _run_colorgradient(args):
     geometry = _build_geometry(domain)
     dtype, dev = _setup(args)
     model = ColorGradientRK(geometry, params, bcs, dtype=dtype, device=dev)
+    print(f"openlbmpm_torch: --model cg, variant {params.variant}, "
+          f"boundaries {bcs.inlet}/{bcs.outlet}: the {model.path} step on "
+          f"{dev}, split state")
     state = model.init_state_layers(
         1.0, 1.0, invading_rows=max(domain.buffer_layers, 10))
     fingerprint = config_fingerprint(params)

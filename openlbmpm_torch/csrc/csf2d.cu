@@ -7,11 +7,12 @@
 // mode: compressed 0 = f64 state, 1 = f32 state, 2 = bf16 11-plane state;
 // split 3 = f64 (f_r, f_b), 4 = f32 (f_r, f_b).  s2_in and s2_out are f_b
 // in the split modes and unused otherwise.  Returns a cudaError_t code (0
-// on success).
+// on success; cudaErrorInvalidValue for a Perturbation parameter block).
 extern "C" int csf2d_step(int mode, const void* s_in, const void* s2_in, void* s_out,
                           void* s2_out, const void* geo, void* phi, void* nrm,
                           const CsfParams* params, void* stream) {
   const CsfParams P = *params;
+  if (P.variant != 0) return (int)cudaErrorInvalidValue;  // a Perturbation block
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (mode) {
     case 0:

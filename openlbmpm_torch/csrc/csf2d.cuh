@@ -15,8 +15,9 @@
 // The split layout applies the boundary rows per colour (Cell<C, kSplit>):
 // the total-momentum inlet and the total-pressure outlet computed on
 // f_r + f_b and split by the row's red fraction before the rewrite, the
-// per-colour Zou-He pressure inlet, the ghost and convective row copies of
-// both colours.  It writes f_b' = stream(post - f_r_post), as the TPU
+// per-colour Zou-He pressure and velocity inlets, the ghost and convective
+// row copies of both colours.  pert2d.cu (the Perturbation step, K4) reads
+// the state through the same load_state.  It writes f_b' = stream(post - f_r_post), as the TPU
 // kernel's _substep does (csf.py:1016), so that the f64 instance agrees
 // with the plain path to rounding.
 //
@@ -58,7 +59,8 @@
 
 struct CsfParams {       // mirrored by kernels/csf.py::CsfParams
   int ny, nx;
-  int inlet;             // 0 periodic, 1 neumann, 2 dirichlet
+  int inlet;             // 0 periodic, 1 neumann, 2 dirichlet,
+                         // 3 neumann_per_color (split layout only)
   int outlet;            // 0 periodic, 1 convective, 2 dirichlet
   int phi_repair;
   int has_wetting;
@@ -69,6 +71,14 @@ struct CsfParams {       // mirrored by kernels/csf.py::CsfParams
   double tau_r, tau_b, sigma, beta, delta, cos_t, sin_t, bfx, bfy;
   double inlet_velocity, inlet_rho, outlet_rho;
   double inlet_rho_r, inlet_rho_b;  // split layout: per-colour Zou-He inlet
+  int variant;           // 0 CSF (csf2d.cu, coupled2d.cu), 1 Perturbation
+  int pad2;              //   (pert2d.cu)
+  double inlet_velocity_r, inlet_velocity_b;  // neumann_per_color
+  // Perturbation: solid colour difference, strengths of red and blue, the
+  // gradient weights of the axis and diagonal neighbours, and the RK
+  // equilibrium constants C_i of each colour (rest, axis, diagonal)
+  double solid_phi, a_kr, a_kb, grad_wa, grad_wd;
+  double c_r[3], c_b[3];
 };
 
 namespace {
@@ -253,10 +263,23 @@ __device__ void zou_he_top(C f[9], double rho_t) {
   f[8] = f[6] - d13 - rv / C(6.0);
 }
 
+// Zou-He velocity inlet of one colour's populations at speed vy
+// (ops/boundaries.py::zou_he_velocity_top).
+template <typename C>
+__device__ void zou_he_velocity(C f[9], double vy) {
+  const C rho = (f[0] + f[1] + f[3] + C(2.0) * (f[2] + f[5] + f[6])) / C(1.0 + vy);
+  const C d13 = C(0.5) * (f[1] - f[3]);
+  f[4] = f[2] - C(2.0 / 3.0) * rho * C(vy);
+  f[7] = f[5] + d13 - rho * C(vy) / C(6.0);
+  f[8] = f[6] - d13 - rho * C(vy) / C(6.0);
+}
+
+// The compressed layout has no per-colour inlet (code 3): the model
+// refuses it before any launch.
 template <typename C>
 __device__ void apply_inlet(Cell<C, kCompressed>& c, const CsfParams& P) {
   if (P.inlet == 1) inlet_neumann(c.f, c.rr, P.inlet_velocity);
-  else inlet_dirichlet(c.f, c.rr, P.inlet_rho);
+  else if (P.inlet == 2) inlet_dirichlet(c.f, c.rr, P.inlet_rho);
 }
 
 template <typename C>
@@ -274,6 +297,9 @@ __device__ void apply_inlet(Cell<C, kSplit>& c, const CsfParams& P) {
     split_rows(c, 4, 7, 8, feq(-1.0, 1.0 / 9.0) + (ft[2] - feq(1.0, 1.0 / 9.0)),
                feq(-1.0, 1.0 / 36.0) + (ft[5] - feq(1.0, 1.0 / 36.0)),
                feq(-1.0, 1.0 / 36.0) + (ft[6] - feq(1.0, 1.0 / 36.0)));
+  } else if (P.inlet == 3) {
+    zou_he_velocity(c.r, P.inlet_velocity_r);
+    zou_he_velocity(c.b, P.inlet_velocity_b);
   } else {
     zou_he_top(c.r, P.inlet_rho_r);
     zou_he_top(c.b, P.inlet_rho_b);

@@ -22,11 +22,12 @@ from pathlib import Path
 __all__ = ["load_library", "load_libraries", "build_seconds", "BUILD_DIR",
            "NVCC_FLAGS", "EXTRA_FLAGS", "LIBRARIES"]
 
-# every library of csrc/: the CSF step, the coupled step, and in three
-# storage types each the Shan-Chen step, the D3Q19 CSF step, the
-# single-phase D2Q9 step and the D3Q19 single-phase and Shan-Chen steps
-LIBRARIES = ("csf2d", "coupled2d", "sc2d_f64", "sc2d_f32", "sc2d_bf16",
-             "cg3d_f64", "cg3d_f32", "cg3d_bf16", "single2d_f64",
+# every library of csrc/: the CSF step, the coupled step, the Perturbation
+# step, and in three storage types each the Shan-Chen step, the D3Q19 CSF
+# step, the single-phase D2Q9 step and the D3Q19 single-phase and
+# Shan-Chen steps
+LIBRARIES = ("csf2d", "coupled2d", "pert2d", "sc2d_f64", "sc2d_f32",
+             "sc2d_bf16", "cg3d_f64", "cg3d_f32", "cg3d_bf16", "single2d_f64",
              "single2d_f32", "single2d_bf16", "flow3d_f64", "flow3d_f32",
              "flow3d_bf16")
 

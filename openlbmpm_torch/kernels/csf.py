@@ -1,10 +1,13 @@
-"""The CSF colour-gradient step: CUDA kernel wrappers, plain PyTorch
+"""The 2-D colour-gradient step: CUDA kernel wrappers, plain PyTorch
 versions and launch counts.
 
 Counterpart of ``openlbmpm_tpu/pallas/csf.py::build_csf_fused_step`` at one
-step per call: ``state_mode="compressed"`` with ``storage="f32"`` (K1) and
-``storage="bf16"`` (K2), and ``state_mode="split"`` (K6).  The kernels live
-in ``csrc/csf2d.cu`` (device code in ``csrc/csf2d.cuh``).
+step per call.  CSF variant: ``state_mode="compressed"`` with
+``storage="f32"`` (K1) and ``storage="bf16"`` (K2), and
+``state_mode="split"`` (K6), in ``csrc/csf2d.cu`` (device code in
+``csrc/csf2d.cuh``).  Perturbation variant (K4): the same three layouts
+(K4c, K4h, K4s) in ``csrc/pert2d.cu``, which shares the state loads and
+boundary rows of ``csf2d.cuh``.
 
 States:
   * compressed f32 / f64: (10, ny, nx) -- planes 0-8 the total PDF, plane 9
@@ -13,9 +16,10 @@ States:
     then rho_r as a hi/lo pair (hi = bf16(rho_r), lo = bf16(rho_r - hi));
   * split f32 / f64: the pair (f_r, f_b) of (9, ny, nx) colour PDFs.
 
-``csf_step_compressed(s, model)`` and ``csf_step_split((f_r, f_b), model)``
-take the plain version only for tensors on the CPU; for CUDA tensors they
-launch the kernel or raise.
+``csf_step_compressed(s, model)``, ``csf_step_split((f_r, f_b), model)``
+and their Perturbation twins ``pert_step_compressed`` and
+``pert_step_split`` take the plain version only for tensors on the CPU;
+for CUDA tensors they launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -28,12 +32,15 @@ import torch
 from ..geometry import Geometry, solid_normals, wetting_masks
 from ..lattice import D2Q9
 from ..ops.colorgrad import contact_angle_terms
+from ..ops.equilibrium import rk_constants
 from . import build
 
 __all__ = ["geo_stack", "CsfParams", "kernel_params", "launch_csf2d",
            "launch_csf2d_split", "csf_step_compressed",
            "csf_step_compressed_reference", "csf_step_split",
-           "csf_step_split_reference", "compare_bf16_states"]
+           "csf_step_split_reference", "pert_step_compressed",
+           "pert_step_compressed_reference", "pert_step_split",
+           "pert_step_split_reference", "compare_bf16_states"]
 
 
 def geo_stack(geometry: Geometry) -> np.ndarray:
@@ -53,10 +60,11 @@ def geo_stack(geometry: Geometry) -> np.ndarray:
 
 
 class CsfParams(ctypes.Structure):
-    """Mirror of ``struct CsfParams`` in csrc/csf2d.cu (same field order)."""
+    """Mirror of ``struct CsfParams`` in csrc/csf2d.cuh (same field order)."""
     _fields_ = [
         ("ny", ctypes.c_int), ("nx", ctypes.c_int),
-        ("inlet", ctypes.c_int),         # 0 periodic, 1 neumann, 2 dirichlet
+        # 0 periodic, 1 neumann, 2 dirichlet, 3 neumann_per_color (split)
+        ("inlet", ctypes.c_int),
         ("outlet", ctypes.c_int),        # 0 periodic, 1 convective, 2 dirichlet
         ("phi_repair", ctypes.c_int),
         ("has_wetting", ctypes.c_int),
@@ -72,10 +80,23 @@ class CsfParams(ctypes.Structure):
         ("inlet_velocity", ctypes.c_double),
         ("inlet_rho", ctypes.c_double), ("outlet_rho", ctypes.c_double),
         ("inlet_rho_r", ctypes.c_double), ("inlet_rho_b", ctypes.c_double),
+        # 0 CSF, 1 Perturbation: each library refuses the other's block
+        ("variant", ctypes.c_int),
+        ("pad2", ctypes.c_int),
+        ("inlet_velocity_r", ctypes.c_double),
+        ("inlet_velocity_b", ctypes.c_double),
+        # Perturbation: solid colour difference, strengths, gradient
+        # weights (axis, diagonal) and the C_i (rest, axis, diagonal)
+        ("solid_phi", ctypes.c_double), ("a_kr", ctypes.c_double),
+        ("a_kb", ctypes.c_double), ("grad_wa", ctypes.c_double),
+        ("grad_wd", ctypes.c_double), ("c_r", ctypes.c_double * 3),
+        ("c_b", ctypes.c_double * 3),
     ]
 
 
-_INLETS = {"periodic": 0, "neumann": 1, "dirichlet": 2}
+_INLETS = {"periodic": 0, "neumann": 1, "dirichlet": 2,
+           "neumann_per_color": 3}
+_VARIANTS = {"CSF": 0, "Perturbation": 1}
 _OUTLETS = {"periodic": 0, "convective": 1, "dirichlet": 2}
 # the kernels' state mode: compressed f64, f32, bf16; split f64, f32
 _STORAGE_CODE = {torch.float64: 0, torch.float32: 1, torch.bfloat16: 2}
@@ -83,18 +104,21 @@ _SPLIT_CODE = {torch.float64: 3, torch.float32: 4}
 
 
 def kernel_params(params, bcs, geometry: Geometry) -> CsfParams:
-    """The kernel's parameter block for a CSF model with these
-    ColorGradientParams, CGBoundaryConfig and geometry; raises
-    NotImplementedError for a configuration the kernel does not take."""
+    """The kernel's parameter block for a CSF or Perturbation model with
+    these ColorGradientParams, CGBoundaryConfig and geometry; raises
+    NotImplementedError for a configuration the kernels do not take."""
     p, b = params, bcs
     ny, nx = geometry.shape
-    if p.variant != "CSF":
+    if p.variant not in _VARIANTS:
         raise NotImplementedError(f"kernel: variant {p.variant}")
     if b.inlet not in _INLETS or b.outlet not in _OUTLETS:
         raise NotImplementedError(f"kernel: BCs {b.inlet}/{b.outlet}")
     if p.wetting_type not in (1, 2) or p.tau_type not in (1, 2) or \
             p.collision not in ("SRT", "MRT"):
         raise NotImplementedError("kernel: wetting/tau/collision option")
+    c_r, c_b = (rk_constants(a)[[0, 1, 5]] for a in (p.alpha_r, p.alpha_b))
+    grad_w = (1 / 3, 1 / 12) if p.gradient_type == "Anisotropic" \
+        else (1.0, 1.0)
     _, wet_solid = wetting_masks(geometry.is_solid)
     cos_t, sin_t = contact_angle_terms(p.contact_angle_deg, p.wetting_type)
     bfx, bfy = (float(v) for v in p.body_force)
@@ -109,25 +133,33 @@ def kernel_params(params, bcs, geometry: Geometry) -> CsfParams:
         inlet_velocity=b.inlet_velocity,
         inlet_rho=b.inlet_density_r + b.inlet_density_b,
         outlet_rho=b.outlet_density_r + b.outlet_density_b,
-        inlet_rho_r=b.inlet_density_r, inlet_rho_b=b.inlet_density_b)
+        inlet_rho_r=b.inlet_density_r, inlet_rho_b=b.inlet_density_b,
+        variant=_VARIANTS[p.variant], pad2=0,
+        inlet_velocity_r=b.inlet_velocity_r,
+        inlet_velocity_b=b.inlet_velocity_b, solid_phi=p.solid_phi,
+        a_kr=p.a_kr, a_kb=p.a_kb, grad_wa=grad_w[0], grad_wd=grad_w[1],
+        c_r=(ctypes.c_double * 3)(*c_r), c_b=(ctypes.c_double * 3)(*c_b))
 
 
-_fn_cache: dict[str, ctypes._CFuncPtr] = {}
+_fn_cache: dict[str, tuple] = {}
+# pointer arguments of each library's <lib>_step: (s, s2, out, out2, geo)
+# plus the phi and normal scratch planes of the CSF step
+_POINTERS = {"csf2d": 7, "pert2d": 5}
 
 
-def _kernel_fn():
-    if "step" not in _fn_cache:
-        lib = build.load_library("csf2d")
-        fn = lib.csf2d_step
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 + \
+def _kernel_fns(lib: str):
+    """(<lib>_step, <lib>_error_string) of a library, built at first use."""
+    if lib not in _fn_cache:
+        so = build.load_library(lib)
+        fn = getattr(so, f"{lib}_step")
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * _POINTERS[lib] + \
             [ctypes.POINTER(CsfParams), ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        err = lib.csf2d_error_string
+        err = getattr(so, f"{lib}_error_string")
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
-        _fn_cache["step"] = fn
-        _fn_cache["error"] = err
-    return _fn_cache["step"]
+        _fn_cache[lib] = (fn, err)
+    return _fn_cache[lib]
 
 
 def _check_domain(params: CsfParams, geo: torch.Tensor, want, *tensors):
@@ -143,30 +175,34 @@ def _check_domain(params: CsfParams, geo: torch.Tensor, want, *tensors):
 
 
 def _launch(mode: int, a, b, out_a, out_b, params: CsfParams,
-            geo: torch.Tensor):
-    """One csf2d_step call on the current stream of the state's card."""
+            geo: torch.Tensor, lib: str = "csf2d"):
+    """One <lib>_step call on the current stream of the state's card: the
+    CSF step (csf2d) or the Perturbation step (pert2d)."""
     ny, nx = params.ny, params.nx
     dev = a.device
-    fn = _kernel_fn()
-    phi = torch.empty((ny, nx), dtype=geo.dtype, device=dev)
-    nrm = torch.empty((4, ny, nx), dtype=geo.dtype, device=dev)
+    fn, err = _kernel_fns(lib)
+    scratch = ()
+    if lib == "csf2d":
+        scratch = (torch.empty((ny, nx), dtype=geo.dtype, device=dev),
+                   torch.empty((4, ny, nx), dtype=geo.dtype, device=dev))
     stream_ptr = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         code = fn(mode, a.data_ptr(), 0 if b is None else b.data_ptr(),
                   out_a.data_ptr(), 0 if out_b is None else out_b.data_ptr(),
-                  geo.data_ptr(), phi.data_ptr(), nrm.data_ptr(),
+                  geo.data_ptr(), *(t.data_ptr() for t in scratch),
                   ctypes.byref(params), stream_ptr)
     if code != 0:
-        msg = _fn_cache["error"](code).decode()
-        raise RuntimeError(f"csf2d_step launch failed: {msg} ({code})")
+        msg = err(code).decode()
+        raise RuntimeError(f"{lib}_step launch failed: {msg} ({code})")
 
 
 def launch_csf2d(s: torch.Tensor, params: CsfParams,
-                 geo: torch.Tensor) -> torch.Tensor:
+                 geo: torch.Tensor, lib: str = "csf2d") -> torch.Tensor:
     """One kernel step of the compressed CUDA state `s`: (10, ny, nx) in
     the type of the geometry planes `geo` (``geo_stack``, float32 or
-    float64), or (11, ny, nx) bfloat16 with float32 planes.  Not counted
-    as a launch."""
+    float64), or (11, ny, nx) bfloat16 with float32 planes.  `lib` is the
+    variant's library: "csf2d" (K1, K2) or "pert2d" (K4c, K4h).  Not
+    counted as a launch."""
     ny, nx = params.ny, params.nx
     bf16 = s.dtype == torch.bfloat16
     planes = 11 if bf16 else 10
@@ -176,15 +212,17 @@ def launch_csf2d(s: torch.Tensor, params: CsfParams,
     _check_domain(params, geo, torch.float32 if bf16 else s.dtype, s)
     s = s.contiguous()
     out = torch.empty_like(s)
-    _launch(_STORAGE_CODE[s.dtype], s, None, out, None, params, geo)
+    _launch(_STORAGE_CODE[s.dtype], s, None, out, None, params, geo, lib)
     return out
 
 
 def launch_csf2d_split(f_r: torch.Tensor, f_b: torch.Tensor,
-                       params: CsfParams, geo: torch.Tensor):
+                       params: CsfParams, geo: torch.Tensor,
+                       lib: str = "csf2d"):
     """One kernel step of the split CUDA state (f_r, f_b), each (9, ny, nx)
     in the type of the geometry planes (float32 or float64).  Returns
-    (f_r', f_b').  Not counted as a launch."""
+    (f_r', f_b').  `lib` is the variant's library: "csf2d" (K6) or
+    "pert2d" (K4s).  Not counted as a launch."""
     ny, nx = params.ny, params.nx
     for t in (f_r, f_b):
         if t.dtype not in _SPLIT_CODE or tuple(t.shape) != (9, ny, nx) or \
@@ -195,8 +233,13 @@ def launch_csf2d_split(f_r: torch.Tensor, f_b: torch.Tensor,
     _check_domain(params, geo, f_r.dtype, f_r, f_b)
     f_r, f_b = f_r.contiguous(), f_b.contiguous()
     out_r, out_b = torch.empty_like(f_r), torch.empty_like(f_b)
-    _launch(_SPLIT_CODE[f_r.dtype], f_r, f_b, out_r, out_b, params, geo)
+    _launch(_SPLIT_CODE[f_r.dtype], f_r, f_b, out_r, out_b, params, geo, lib)
     return out_r, out_b
+
+
+def _check_variant(model, variant: str):
+    if model.p.variant != variant:
+        raise ValueError(f"a {model.p.variant} model on the {variant} kernel")
 
 
 def csf_step_compressed(s: torch.Tensor, model) -> torch.Tensor:
@@ -208,15 +251,21 @@ def csf_step_compressed(s: torch.Tensor, model) -> torch.Tensor:
         return csf_step_compressed_reference(s, model)
     if s.device.type != "cuda":
         raise ValueError(f"no csf kernel for device {s.device}")
-    want = torch.bfloat16 if model.storage == "bf16" else model.dtype
-    if s.dtype != want:
-        raise ValueError(f"state {s.dtype}; the model takes {want}")
+    _check_compressed_state(s, model, "CSF")
     out = launch_csf2d(s, model.kernel_params, model.geo_planes)
     csf_step_compressed.launches += 1
     return out
 
 
 csf_step_compressed.launches = 0
+
+
+def _check_compressed_state(s, model, variant):
+    _check_variant(model, variant)
+    model.check_compressed()
+    want = torch.bfloat16 if model.storage == "bf16" else model.dtype
+    if s.dtype != want:
+        raise ValueError(f"state {s.dtype}; the model takes {want}")
 
 
 def csf_step_compressed_reference(s: torch.Tensor, model) -> torch.Tensor:
@@ -232,16 +281,9 @@ def csf_step_split(state, model):
     `model`, a ColorGradientRK.  CPU tensors: the plain version.  CUDA
     tensors: the kernel, or an error; never the plain version."""
     f_r, f_b = state
-    if f_r.device != f_b.device:
-        raise ValueError(f"f_r on device {f_r.device}, f_b on {f_b.device}")
-    if f_r.device.type == "cpu":
+    if _on_cpu(f_r, f_b):
         return csf_step_split_reference(state, model)
-    if f_r.device.type != "cuda":
-        raise ValueError(f"no csf kernel for device {f_r.device}")
-    if f_r.dtype != model.dtype or f_b.dtype != model.dtype:
-        raise ValueError(f"split state {f_r.dtype}/{f_b.dtype}; the model "
-                         f"takes {model.dtype}")
-    model.check_split()
+    _check_split_state(f_r, f_b, model, "CSF")
     out = launch_csf2d_split(f_r, f_b, model.kernel_params, model.geo_planes)
     csf_step_split.launches += 1
     return out
@@ -250,9 +292,77 @@ def csf_step_split(state, model):
 csf_step_split.launches = 0
 
 
+def _on_cpu(f_r, f_b) -> bool:
+    """True for a CPU split state; raises for one on two devices or on a
+    device with no kernel."""
+    if f_r.device != f_b.device:
+        raise ValueError(f"f_r on device {f_r.device}, f_b on {f_b.device}")
+    if f_r.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no csf kernel for device {f_r.device}")
+    return f_r.device.type == "cpu"
+
+
+def _check_split_state(f_r, f_b, model, variant):
+    _check_variant(model, variant)
+    if f_r.dtype != model.dtype or f_b.dtype != model.dtype:
+        raise ValueError(f"split state {f_r.dtype}/{f_b.dtype}; the model "
+                         f"takes {model.dtype}")
+    if model.kernel_params is None:
+        raise ValueError(f"outlet {model.bcs.outlet} has no kernel; the "
+                         "model's path is plain")
+    model.check_split()
+
+
 def csf_step_split_reference(state, model):
     """Plain PyTorch version of the split kernel, on any device: the
     model's ``plain_step`` (``_step_csf`` composed from ``ops/``)."""
+    return model.plain_step(state)
+
+
+def pert_step_compressed(s: torch.Tensor, model) -> torch.Tensor:
+    """One compressed Perturbation step (BC rows included) for `model`, a
+    Perturbation ColorGradientRK.  CPU tensor: the plain version.  CUDA
+    tensor: K4c (f32 / f64) or K4h (bf16), or an error; never the plain
+    version."""
+    if s.device.type == "cpu":
+        return pert_step_compressed_reference(s, model)
+    if s.device.type != "cuda":
+        raise ValueError(f"no pert kernel for device {s.device}")
+    _check_compressed_state(s, model, "Perturbation")
+    out = launch_csf2d(s, model.kernel_params, model.geo_planes, "pert2d")
+    pert_step_compressed.launches += 1
+    return out
+
+
+pert_step_compressed.launches = 0
+
+
+def pert_step_compressed_reference(s: torch.Tensor, model) -> torch.Tensor:
+    """Plain PyTorch version of K4c/K4h, on any device: the model's
+    ``plain_step_c`` (``_step_pert_c`` composed from ``ops/``)."""
+    return model.plain_step_c(s)
+
+
+def pert_step_split(state, model):
+    """One split Perturbation step (f_r, f_b) -> (f_r', f_b') (BC rows
+    included) for `model`.  CPU tensors: the plain version.  CUDA tensors:
+    K4s, or an error; never the plain version."""
+    f_r, f_b = state
+    if _on_cpu(f_r, f_b):
+        return pert_step_split_reference(state, model)
+    _check_split_state(f_r, f_b, model, "Perturbation")
+    out = launch_csf2d_split(f_r, f_b, model.kernel_params,
+                             model.geo_planes, "pert2d")
+    pert_step_split.launches += 1
+    return out
+
+
+pert_step_split.launches = 0
+
+
+def pert_step_split_reference(state, model):
+    """Plain PyTorch version of K4s, on any device: the model's
+    ``plain_step`` (``_step_perturbation`` composed from ``ops/``)."""
     return model.plain_step(state)
 
 

@@ -1,26 +1,34 @@
-"""Rothman-Keller colour-gradient two-phase flow, CSF variant (counterpart
-of ``openlbmpm_tpu/models/colorgradient.py``), on two state layouts:
+"""Rothman-Keller colour-gradient two-phase flow, CSF and Perturbation
+variants (counterpart of ``openlbmpm_tpu/models/colorgradient.py``), on two
+state layouts:
 
 * split: the colour PDFs (f_r, f_b), each (9, ny, nx) -- ``step``, the
   state the CLI runs, checkpoints and writes;
 * compressed: (f_total, rho_r) as 10 planes, or 11 bfloat16 planes --
   ``step_c``.
 
-One step, in the reference's op order: boundary rows, phase field (with the
-outlet phi repair), solid-phi extrapolation, isotropic gradient,
+CSF step, in the reference's op order: boundary rows, phase field (with
+the outlet phi repair), solid-phi extrapolation, isotropic gradient,
 contact-angle rotation, CSF force, SRT or MRT collision on the total PDF
 with the Guo source, LKR recolouring, pull streaming with half-way
-bounce-back.  The split layout applies the boundary rows per colour (the
-per-colour Zou-He pressure inlet; the total-momentum inlet and the
-total-pressure outlet split by the row's red fraction); the compressed one
-can only impose them on the total PDF (DEVIATIONS.md, "Compressed
-(f_total, rho_r) state layout").  On a CUDA state a step is one call of
-the hand-written kernel (``kernels/csf.py``); on the CPU it is the plain
-PyTorch composition of ``ops/``.
+bounce-back.  Perturbation step (Liu et al. 2014): boundary rows, phi (with
+the repair), u = m / rho, Grunau tau(phi), RK-original equilibria, SRT or
+MRT per colour (split) or on the total PDF (compressed), the perturbation
+operator on the gradient of rho_r - rho_b (solid_phi on solids), RK-original
+recolouring, pull streaming.  The split layout applies the boundary rows
+per colour (the per-colour Zou-He pressure and velocity inlets; the
+total-momentum inlet and the total-pressure outlet split by the row's red
+fraction); the compressed one can only impose them on the total PDF
+(DEVIATIONS.md, "Compressed (f_total, rho_r) state layout") and refuses
+the per-colour velocity inlet.  The averaged convective outlet and the
+modified periodic seam act after streaming on the split state only.
 
-Not yet ported (they raise NotImplementedError): the Perturbation variant
-and the neumann_per_color, convective_average and modified_periodic
-boundaries.
+``path`` says which step runs: "kernel" on a card (one call of the
+hand-written kernel, ``kernels/csf.py``: K1/K2/K6 for CSF, K4 for
+Perturbation), "plain" on the CPU and, on every device, for the
+convective_average and modified_periodic outlets, which the JAX package
+also keeps off its kernel.  The plain step is PyTorch composed from
+``ops/``; it never stands in for a kernel that fails.
 """
 
 from __future__ import annotations
@@ -36,16 +44,24 @@ from ..geometry import Geometry, wetting_masks
 from ..lattice import D2Q9
 from .._device import resolve_device, resolve_dtype
 from ..kernels.csf import (csf_step_compressed, csf_step_split, geo_stack,
-                           kernel_params)
+                           kernel_params, pert_step_compressed,
+                           pert_step_split)
 from ..ops import boundaries as bc
 from ..ops import collision as col
 from ..ops import colorgrad as cg
 from ..ops import equilibrium as eq
 from ..ops import macroscopic as mac
+from ..ops.common import shift
 from ..ops.forcing import guo_source
 from ..ops.streaming import stream, upwind_solid_masks
 
 __all__ = ["ColorGradientParams", "CGBoundaryConfig", "ColorGradientRK"]
+
+INLETS = ("periodic", "neumann", "neumann_per_color", "dirichlet")
+OUTLETS = ("periodic", "convective", "convective_average", "dirichlet",
+           "modified_periodic")
+# the outlets the JAX package keeps on its jnp path (colorgradient.py:179)
+PLAIN_OUTLETS = ("convective_average", "modified_periodic")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,10 +90,18 @@ class ColorGradientParams:
 class CGBoundaryConfig:
     """Same fields and defaults as the JAX package's CGBoundaryConfig.
 
-    inlet:  periodic | neumann (total-momentum velocity) | dirichlet
-            (total-PDF pressure at inlet_density_r + inlet_density_b)
-    outlet: periodic | convective (copy trio) | dirichlet (total-PDF
-            pressure at outlet_density_r + outlet_density_b)
+    inlet:  periodic | neumann (total-momentum velocity at inlet_velocity)
+            | neumann_per_color (per-colour Zou-He velocity at
+            inlet_velocity_r / inlet_velocity_b; split state only) |
+            dirichlet (per-colour Zou-He pressure at inlet_density_r /
+            inlet_density_b on the split state, their sum on the
+            compressed one)
+    outlet: periodic | convective (copy trio) | convective_average (after
+            streaming, rows 2, 1, 0 become (f_old + |v| f_above) / (1 +
+            |v|), v the y velocity of row 3; split state only) | dirichlet
+            (total-PDF pressure at outlet_density_r + outlet_density_b) |
+            modified_periodic (after streaming, the populations entering
+            through the periodic seam swap colours; split state only)
     phi_outlet_repair: at a Dirichlet outlet, phi on rows 1 and 0 is
             replaced by phi on row 2 before the gradient is taken.
     """
@@ -94,7 +118,8 @@ class CGBoundaryConfig:
 
 
 class ColorGradientRK(nn.Module):
-    """Two-phase CSF colour-gradient solver on a dense masked D2Q9 grid.
+    """Two-phase colour-gradient solver (CSF or Perturbation variant) on a
+    dense masked D2Q9 grid.
 
     ``dtype`` is the arithmetic type (float32 or float64) and the type of
     the split state (f_r, f_b) that ``step`` maps.  ``storage`` picks the
@@ -106,7 +131,10 @@ class ColorGradientRK(nn.Module):
     A Dirichlet inlet with a zero colour density is refused by the split
     step (plain and kernel alike, ValueError): neither JAX path gives a
     reference for it (``ops/boundaries.py::split_inlet_density_error``).
-    The compressed step imposes the summed density and takes it.
+    The compressed step imposes the summed density and takes it.  The
+    compressed step refuses the neumann_per_color inlet (ValueError) and
+    the convective_average and modified_periodic outlets
+    (NotImplementedError): ``check_compressed``.
     """
 
     def __init__(self, geometry: Geometry,
@@ -114,12 +142,11 @@ class ColorGradientRK(nn.Module):
                  boundaries: CGBoundaryConfig = CGBoundaryConfig(),
                  dtype=torch.float32, device="cuda", storage: str = "f32"):
         super().__init__()
-        if params.variant != "CSF":
-            raise NotImplementedError(
-                f"variant {params.variant!r}: only CSF is ported")
-        if boundaries.inlet not in ("periodic", "neumann", "dirichlet"):
+        if params.variant not in ("CSF", "Perturbation"):
+            raise ValueError(f"variant {params.variant!r}: CSF | Perturbation")
+        if boundaries.inlet not in INLETS:
             raise NotImplementedError(f"inlet {boundaries.inlet!r}")
-        if boundaries.outlet not in ("periodic", "convective", "dirichlet"):
+        if boundaries.outlet not in OUTLETS:
             raise NotImplementedError(f"outlet {boundaries.outlet!r}")
         if storage not in ("f32", "bf16"):
             raise ValueError(f"storage {storage!r}: f32 | bf16")
@@ -144,9 +171,22 @@ class ColorGradientRK(nn.Module):
         self.cos_t, self.sin_t = cg.contact_angle_terms(
             params.contact_angle_deg, params.wetting_type)
         self._mrt_s = col.mrt_relaxation_d2q9_rk()
+        if params.variant == "Perturbation":
+            self.const_cr = eq.rk_constants(params.alpha_r)
+            self.const_cb = eq.rk_constants(params.alpha_b)
+            # gradient weights of rho_r - rho_b (1/3 on the axes for
+            # "Anisotropic", as the reference names them)
+            gs = np.array([0.0] + [1 / 3] * 4 + [1 / 12] * 4) \
+                if params.gradient_type == "Anisotropic" else \
+                np.array([0.0] + [1.0] * 8)
+            self._grad_scheme = gs
         self._phi_repair = (boundaries.outlet == "dirichlet"
                             and boundaries.phi_outlet_repair)
-        self.kernel_params = kernel_params(params, boundaries, geometry)
+        plain_bcs = boundaries.outlet in PLAIN_OUTLETS
+        self.path = "kernel" if dev.type == "cuda" and not plain_bcs \
+            else "plain"
+        self.kernel_params = None if plain_bcs else \
+            kernel_params(params, boundaries, geometry)
         self._split_error = bc.split_inlet_density_error(
             boundaries.inlet_density_r, boundaries.inlet_density_b) \
             if boundaries.inlet == "dirichlet" else None
@@ -206,8 +246,14 @@ class ColorGradientRK(nn.Module):
         rr = torch.as_tensor(rho_r, dtype=self.dtype, device=self.device)
         rb = torch.as_tensor(rho_b, dtype=self.dtype, device=self.device)
         zeros = torch.zeros_like(rr)
-        f_r = eq.feq_quadratic(self.lat, rr, (zeros, zeros))
-        f_b = eq.feq_quadratic(self.lat, rb, (zeros, zeros))
+        if self.p.variant == "Perturbation":
+            f_r = eq.feq_rk_original(self.lat, rr, (zeros, zeros),
+                                     self.const_cr)
+            f_b = eq.feq_rk_original(self.lat, rb, (zeros, zeros),
+                                     self.const_cb)
+        else:
+            f_r = eq.feq_quadratic(self.lat, rr, (zeros, zeros))
+            f_b = eq.feq_quadratic(self.lat, rb, (zeros, zeros))
         return f_r * self.fluid_mask, f_b * self.fluid_mask
 
     # -- split state (f_r, f_b) ---------------------------------------------
@@ -217,6 +263,11 @@ class ColorGradientRK(nn.Module):
         if self.bcs.inlet == "neumann":
             f_r, f_b = bc.total_velocity_inlet_top(
                 f_r, f_b, self.bcs.inlet_velocity, ny - 2, m(ny - 2))
+        elif self.bcs.inlet == "neumann_per_color":
+            f_r, _ = bc.zou_he_velocity_top(f_r, self.bcs.inlet_velocity_r,
+                                            ny - 2, m(ny - 2))
+            f_b, _ = bc.zou_he_velocity_top(f_b, self.bcs.inlet_velocity_b,
+                                            ny - 2, m(ny - 2))
         elif self.bcs.inlet == "dirichlet":
             f_r = bc.zou_he_pressure_top(f_r, self.bcs.inlet_density_r,
                                          ny - 2, m(ny - 2))
@@ -241,6 +292,36 @@ class ColorGradientRK(nn.Module):
             f_b = bc.copy_row(f_b, 0, 1, m(0))
         return f_r, f_b
 
+    def _post_stream(self, f_r, f_b):
+        """The modified periodic seam: after streaming, the populations
+        entering rows 0 and ny - 1 across the seam swap colours."""
+        if self.bcs.outlet == "modified_periodic":
+            ny = self.geo.ny
+            f_r, f_b = bc.modified_periodic_color_swap(
+                f_r, f_b, self._row_mask(0), self._row_mask(ny - 1))
+        return f_r, f_b
+
+    def _apply_convective_average(self, f_r, f_b, f_old, uy):
+        """Averaged convective outlet: after streaming, rows 2, 1, 0 (in
+        that order) blend their pre-step PDFs f_old (after the boundary
+        rows) with the fresh row above, f = (f_old + |v| f_up)/(1 + |v|),
+        v the step's y velocity on row 3."""
+        m = self._row_mask
+        rows, masks = (2, 1, 0), (m(2), m(1), m(0))
+        return (bc.convective_outlet_rows(f_r, f_old[0], uy[3], rows, masks),
+                bc.convective_outlet_rows(f_b, f_old[1], uy[3], rows, masks))
+
+    def _finish_split(self, f_r, f_b, f_old, uy):
+        """Stream both colours, mask to fluid, then the post-stream
+        boundaries (modified periodic seam, averaged convective rows)."""
+        fl = self.fluid_mask
+        f_r = stream(f_r, self.lat, self.upwind_solid) * fl
+        f_b = stream(f_b, self.lat, self.upwind_solid) * fl
+        f_r, f_b = self._post_stream(f_r, f_b)
+        if f_old is not None:
+            f_r, f_b = self._apply_convective_average(f_r, f_b, f_old, uy)
+        return f_r, f_b
+
     def color_force_fields(self, f_r, f_b):
         """(rho_r, rho_b, phi, gx, gy, fx, fy) from the colour PDFs."""
         rho_r = mac.density(f_r, 2)
@@ -258,25 +339,93 @@ class ColorGradientRK(nn.Module):
         lat, p = self.lat, self.p
         f_r, f_b = self._apply_inlet(f_r, f_b)
         f_r, f_b = self._apply_outlet(f_r, f_b)
+        f_old = (f_r, f_b) if self.bcs.outlet == "convective_average" \
+            else None
         rho_r, rho_b, phi, gx, gy, fx, fy = self.color_force_fields(f_r, f_b)
         f_tot = f_r + f_b
         u = self._velocity(f_tot, rho_r + rho_b, fx, fy)
         feq = eq.feq_quadratic(lat, rho_r, u) + eq.feq_quadratic(lat, rho_b, u)
         f_tot = self._collide(f_tot, feq, u, fx, fy, phi, rho_r, rho_b)
         f_r, f_b = cg.recolor_lkr(f_tot, rho_r, rho_b, gx, gy, p.beta, lat)
+        return self._finish_split(f_r, f_b, f_old, u[1])
+
+    # -- the Perturbation variant -------------------------------------------
+    def _pert_gradient(self, rho_r, rho_b):
+        """Gradient of rho_r - rho_b, solid_phi on solid cells, with the
+        weights of ``gradient_type`` (no factor 3, no wetting)."""
         fl = self.fluid_mask
-        return (stream(f_r, lat, self.upwind_solid) * fl,
-                stream(f_b, lat, self.upwind_solid) * fl)
+        diff = (rho_r - rho_b) * fl + self.p.solid_phi * (1.0 - fl)
+        gx = torch.zeros_like(diff)
+        gy = torch.zeros_like(diff)
+        for i in range(1, 9):
+            dx, dy = int(self.lat.e[i, 0]), int(self.lat.e[i, 1])
+            w = float(self._grad_scheme[i])
+            sh = shift(diff, dx, dy)
+            if dx:
+                gx = gx + (w * dx) * sh
+            if dy:
+                gy = gy + (w * dy) * sh
+        return gx, gy
+
+    def _pert_fields(self, f_tot, rho_r, rho_b, rho):
+        """u = m / rho (no force) and the Grunau tau(phi), phi with the
+        outlet repair."""
+        rho_safe = torch.where(rho > 0, rho, torch.ones_like(rho))
+        phi = cg.phase_field(rho_r, rho_b) * self.fluid_mask
+        if self._phi_repair:
+            phi = self._repair_phi_rows(phi)
+        mx, my = mac.momentum(self.lat, f_tot)
+        tau = cg.tau_interp_grunau(phi, self.p.tau_r, self.p.tau_b,
+                                   self.p.delta)
+        return (mx / rho_safe, my / rho_safe), tau
+
+    def _relax(self, f, feq, tau):
+        """SRT, or MRT with s_7 = s_8 = 1/tau(phi), of one PDF stack."""
+        if self.p.collision == "MRT":
+            return col.mrt_variable_nu(f, feq, self.lat, self._mrt_s,
+                                       1.0 / tau)
+        return col.bgk_field_tau(f, feq, tau)
+
+    def _step_perturbation(self, f_r, f_b):
+        """One Perturbation step of the split state composed from ``ops/``:
+        the plain version of the split kernel K4s (the jnp
+        ``_step_perturbation``)."""
+        lat, p = self.lat, self.p
+        f_r, f_b = self._apply_inlet(f_r, f_b)
+        f_r, f_b = self._apply_outlet(f_r, f_b)
+        f_old = (f_r, f_b) if self.bcs.outlet == "convective_average" \
+            else None
+        rho_r = mac.density(f_r, 2)
+        rho_b = mac.density(f_b, 2)
+        u, tau = self._pert_fields(f_r + f_b, rho_r, rho_b, rho_r + rho_b)
+        f_r = self._relax(f_r, eq.feq_rk_original(lat, rho_r, u,
+                                                  self.const_cr), tau)
+        f_b = self._relax(f_b, eq.feq_rk_original(lat, rho_b, u,
+                                                  self.const_cb), tau)
+        gx, gy = self._pert_gradient(rho_r, rho_b)
+        f_r = f_r + cg.perturbation(gx, gy, p.a_kr, cg.B_CONSTANTS, lat)
+        f_b = f_b + cg.perturbation(gx, gy, p.a_kb, cg.B_CONSTANTS, lat)
+        f_r, f_b = cg.recolor_rk_original(f_r + f_b, rho_r, rho_b, gx, gy,
+                                          p.beta, self.const_cr,
+                                          self.const_cb, lat)
+        return self._finish_split(f_r, f_b, f_old, u[1])
 
     def plain_step(self, state):
-        """``_step_csf`` of the split state (f_r, f_b), on any device."""
+        """``_step_csf`` or ``_step_perturbation`` of the split state
+        (f_r, f_b), on any device."""
         self.check_split()
-        return self._step_csf(*state)
+        if self.p.variant == "CSF":
+            return self._step_csf(*state)
+        return self._step_perturbation(*state)
 
     def step(self, state):
-        """One time step of the split state (f_r, f_b): the kernel on a
-        CUDA state, the plain step on a CPU one."""
-        return csf_step_split(tuple(state), self)
+        """One time step of the split state (f_r, f_b): the kernel when
+        ``path`` is "kernel" (K6 for CSF, K4s for Perturbation; a CPU state
+        takes the plain version), else the plain step."""
+        if self.path == "plain":
+            return self.plain_step(state)
+        fn = csf_step_split if self.p.variant == "CSF" else pert_step_split
+        return fn(tuple(state), self)
 
     def fields(self, f_r, f_b):
         """(rho_r, rho_b, phi, gx, gy, (ux, uy)) of a split state as it
@@ -417,17 +566,67 @@ class ColorGradientRK(nn.Module):
                                 2) * fl
         return torch.cat([f_tot, rho_r_new[None]], dim=0)
 
+    def _step_pert_c(self, s):
+        """One Perturbation step of the (10, ny, nx) state composed from
+        ``ops/``: the plain version of K4c/K4h (the jnp ``_step_pert_c``).
+        The per-colour collision with a shared tau(phi) is linear in the
+        PDFs, so the total PDF relaxes to the summed equilibria and takes
+        the mean perturbation strength."""
+        lat, p = self.lat, self.p
+        s = self._apply_bcs_c(s)
+        rho_r, rho_b, rho = self.rho_fields_c(s)
+        f_tot = s[:9]
+        u, tau = self._pert_fields(f_tot, rho_r, rho_b, rho)
+        feq = eq.feq_rk_original(lat, rho_r, u, self.const_cr) + \
+            eq.feq_rk_original(lat, rho_b, u, self.const_cb)
+        f_tot = self._relax(f_tot, feq, tau)
+        gx, gy = self._pert_gradient(rho_r, rho_b)
+        f_tot = f_tot + cg.perturbation(gx, gy, p.a_kr + p.a_kb,
+                                        cg.B_CONSTANTS, lat)
+        f_r_post, _ = cg.recolor_rk_original(
+            f_tot, rho_r, rho_b, gx, gy, p.beta, self.const_cr,
+            self.const_cb, lat)
+        fl = self.fluid_mask
+        f_tot = stream(f_tot, lat, self.upwind_solid) * fl
+        rho_r_new = mac.density(stream(f_r_post, lat, self.upwind_solid),
+                                2) * fl
+        return torch.cat([f_tot, rho_r_new[None]], dim=0)
+
+    def check_compressed(self):
+        """Raise for a boundary the compressed step has no form for: the
+        averaged convective outlet and the modified periodic seam need the
+        per-colour pre-step PDFs (NotImplementedError, as the JAX
+        ``_step_impl_c``); the per-colour velocity inlet is refused
+        (ValueError) where the JAX compressed step applies no inlet row at
+        all (its ``_apply_bcs_c`` has no branch for it)."""
+        if self.bcs.outlet in PLAIN_OUTLETS:
+            raise NotImplementedError(
+                f"{self.bcs.outlet} needs the split state (per-colour "
+                "pre-step PDFs / seam colour swap)")
+        if self.bcs.inlet == "neumann_per_color":
+            raise ValueError(
+                "neumann_per_color on the compressed state: the JAX "
+                "compressed step (_apply_bcs_c) has no branch for it and "
+                "silently applies no inlet row; run the split state (step)")
+
     def plain_step_c(self, s):
-        """``_step_csf_c`` on either layout, on any device; a bf16 state is
-        decoded to ``dtype``, stepped and encoded again."""
+        """``_step_csf_c`` or ``_step_pert_c`` on either layout, on any
+        device; a bf16 state is decoded to ``dtype``, stepped and encoded
+        again."""
+        self.check_compressed()
+        fn = self._step_csf_c if self.p.variant == "CSF" \
+            else self._step_pert_c
         if s.dtype == torch.bfloat16:
-            return self.pack_compressed_bf16(
-                self._step_csf_c(self.unpack_bf16(s)))
-        return self._step_csf_c(s)
+            return self.pack_compressed_bf16(fn(self.unpack_bf16(s)))
+        return fn(s)
 
     def _step_impl_c(self, s):
-        """The kernel on a CUDA state, the plain step on a CPU one."""
-        return csf_step_compressed(s, self)
+        """The kernel on a CUDA state (K1/K2 for CSF, K4c/K4h for
+        Perturbation), the plain step on a CPU one."""
+        self.check_compressed()
+        fn = csf_step_compressed if self.p.variant == "CSF" \
+            else pert_step_compressed
+        return fn(s, self)
 
     def step_c(self, s):
         """One time step of the compressed state (layout per ``storage``)."""

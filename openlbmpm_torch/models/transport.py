@@ -16,7 +16,10 @@ step.  On a CUDA state a step is one call of the hand-written kernel set
 ``ops/``.
 
 Not yet ported (NotImplementedError): tracer inlet and outlet rows on D2Q9
-(the JAX Pallas kernels take none either).
+(the JAX Pallas kernels take none either); a Perturbation flow, and the
+flow boundaries neumann_per_color, convective_average and
+modified_periodic (the coupled kernels are CSF-only; the JAX package runs
+these couplings on its jnp path).
 """
 
 from __future__ import annotations
@@ -118,6 +121,16 @@ class TransportRK(nn.Module):
         super().__init__()
         tp = transport_params
         _check_options(tp)
+        if flow_params.variant != "CSF":
+            raise NotImplementedError(
+                f"coupled transport on a {flow_params.variant} flow: the "
+                "coupled kernels take the CSF flow step only")
+        if boundaries.inlet == "neumann_per_color" or \
+                boundaries.outlet in ("convective_average",
+                                      "modified_periodic"):
+            raise NotImplementedError(
+                f"coupled transport with the {boundaries.inlet} inlet and "
+                f"the {boundaries.outlet} outlet")
         self.flow = ColorGradientRK(geometry, flow_params, boundaries,
                                     dtype=dtype, device=device,
                                     storage=storage)

@@ -20,7 +20,8 @@ __all__ = ["total_velocity_inlet_top", "total_pressure_outlet_bottom",
            "total_velocity_inlet_top_c", "zou_he_pressure_top_total_c",
            "total_pressure_outlet_bottom_c", "chang_velocity_top",
            "chang_pressure_top", "chang_pressure_bottom", "copy_row",
-           "copy_rows_from_above", "convective_outlet_rows"]
+           "copy_rows_from_above", "convective_outlet_rows",
+           "modified_periodic_color_swap"]
 
 
 _ZERO_TARGET = (
@@ -285,3 +286,19 @@ def convective_outlet_rows(f_new, f_old, vy_row, rows, mask_rows):
         f_new = f_new.clone()
         f_new[..., row, :] = torch.where(m, val, f_new[..., row, :])
     return f_new
+
+
+def modified_periodic_color_swap(f_r, f_b, mask_bottom, mask_top):
+    """Swap the incoming populations between the colours at the periodic
+    seam: on row 0 the upward ones (2, 5, 6) where mask_bottom, on row
+    ny - 1 the downward ones (4, 7, 8) where mask_top.  Returns
+    (f_r, f_b)."""
+    ny = f_r.shape[-2]
+    out_r, out_b = f_r.clone(), f_b.clone()
+    for row, pops, m in ((0, (2, 5, 6), mask_bottom),
+                         (ny - 1, (4, 7, 8), mask_top)):
+        for i in pops:
+            r, b = f_r[..., i, row, :], f_b[..., i, row, :]
+            out_r[..., i, row, :] = torch.where(m, b, r)
+            out_b[..., i, row, :] = torch.where(m, r, b)
+    return out_r, out_b

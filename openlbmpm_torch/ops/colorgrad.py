@@ -1,14 +1,16 @@
-"""Rothman-Keller colour-gradient ops for the CSF variant (counterpart of
+"""Rothman-Keller colour-gradient ops (counterpart of
 ``openlbmpm_tpu/ops/colorgrad.py``): phase field, solid-phi extrapolation,
 isotropic gradient, contact-angle rotations (Xu 2017, Akai 2018), curvature
-and CSF force, tau(phi), and Latva-Kokko-Rothman recolouring.  The
-``*_nd`` forms, the extrapolation and the gradient take any lattice
-dimension (fields (ny, nx) or (nz, ny, nx))."""
+and CSF force, the CSF and Grunau tau(phi), Latva-Kokko-Rothman
+recolouring, and the Perturbation variant's perturbation operator and
+RK-original recolouring.  The ``*_nd`` forms, the extrapolation and the
+gradient take any lattice dimension (fields (ny, nx) or (nz, ny, nx))."""
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from ..lattice import D2Q9, Lattice
@@ -18,8 +20,13 @@ __all__ = [
     "phase_field", "solid_phi_extrapolate", "color_gradient",
     "contact_angle_terms", "rotate_gradient_on_wetting_xu", "rotate_gradient_on_wetting_akai",
     "rotate_gradient_on_wetting_akai_nd", "csf_force", "csf_force_nd",
-    "tau_interp_csf", "recolor_lkr", "recolor_lkr_nd",
+    "tau_interp_csf", "tau_interp_grunau", "perturbation", "recolor_lkr",
+    "recolor_lkr_nd", "recolor_rk_original", "B_CONSTANTS", "B_CONSTANTS_LIU",
 ]
+
+# Perturbation constants B_i, and the Liu et al. 2014 alternative
+B_CONSTANTS = np.array([-4 / 27] + [2 / 27] * 4 + [5 / 108] * 4, np.float64)
+B_CONSTANTS_LIU = np.array([-2 / 9] + [1 / 9] * 4 + [1 / 36] * 4, np.float64)
 
 _EPS = 1.0e-8
 
@@ -184,6 +191,73 @@ def tau_interp_csf(phi, rho_r, rho_b, tau_r, tau_b, delta, option: int = 1):
     return torch.where(phi > delta, torch.full_like(phi, tau_r),
                        torch.where(phi < -delta, torch.full_like(phi, tau_b),
                                    tau_mid))
+
+
+def tau_interp_grunau(phi, tau_r, tau_b, delta):
+    """Grunau et al. quadratic tau(phi) of the Perturbation variant: tau_r
+    for phi > delta, one quadratic for 0 < phi <= delta, another for
+    -delta <= phi <= 0, tau_b below."""
+    s1 = 2.0 * tau_r * tau_b / (tau_r + tau_b)
+    s2 = 2.0 * (tau_r - s1) / delta
+    s3 = -s2 / (2.0 * delta)
+    tau1 = s1 + s2 * phi + s3 * phi * phi
+    t2 = 2.0 * (s1 - tau_b) / delta
+    t3 = t2 / (2.0 * delta)
+    tau2 = s1 + t2 * phi + t3 * phi * phi
+    return torch.where(phi > delta, torch.full_like(phi, tau_r),
+                       torch.where(phi > 0.0, tau1,
+                                   torch.where(phi >= -delta, tau2,
+                                               torch.full_like(phi, tau_b))))
+
+
+def _e_dot_g(gx, gy, lat: Lattice):
+    """(Q, ny, nx) e_i . g."""
+    return bcast_1d(lat.e[:, 0], gx) * gx[None] + \
+        bcast_1d(lat.e[:, 1], gx) * gy[None]
+
+
+def perturbation(gx, gy, a_coeff, b_constants, lat: Lattice = D2Q9):
+    """(A/2) |g| (w_i (e_i . g)^2 / |g|^2 - B_i), (Q, ny, nx); zero where
+    |g| = 0."""
+    g2 = gx * gx + gy * gy
+    norm = torch.sqrt(g2)
+    ok = g2 > 0
+    eg = _e_dot_g(gx, gy, lat)
+    pert = 0.5 * a_coeff * norm[None] * (
+        bcast_1d(lat.w, gx) * eg * eg / _safe(g2, ok)[None] -
+        bcast_1d(b_constants, gx))
+    return torch.where(ok[None], pert, torch.zeros_like(pert))
+
+
+def _cos_theta_times_enorm(gx, gy, lat: Lattice):
+    """(e_i . g)/|g| per direction (cos(theta_i) |e_i|), zero where
+    |g| <= 1e-8."""
+    norm = torch.sqrt(gx * gx + gy * gy)
+    ok = norm > _EPS
+    eg = _e_dot_g(gx, gy, lat)
+    return torch.where(ok[None], eg / _safe(norm, ok)[None],
+                       torch.zeros_like(eg))
+
+
+def recolor_rk_original(f_total, rho_r, rho_b, gx, gy, beta, const_cr,
+                        const_cb, lat: Lattice = D2Q9):
+    """Perturbation-variant recolouring of the total PDF:
+    f_R = rho_R/rho f + beta rho_R rho_B / rho^2 (rho_R C_R,i +
+    rho_B C_B,i) cos(theta_i), cos(theta_i) = (e_i . g)/(|e_i| |g|);
+    f_B = (1 - rho_R/rho) f - (the same term).  Returns (f_R, f_B)."""
+    rho = rho_r + rho_b
+    rho_safe = _safe(rho, rho != 0)
+    frac_r = rho_r / rho_safe
+    e_norm = lat.e_norm.copy()
+    e_norm[e_norm == 0] = 1.0
+    cos_t = _cos_theta_times_enorm(gx, gy, lat) / bcast_1d(e_norm, gx)
+    feq_rho = rho_r[None] * bcast_1d(const_cr, gx) + \
+        rho_b[None] * bcast_1d(const_cb, gx)
+    seg = (beta * rho_r * rho_b / (rho_safe * rho_safe))[None] * feq_rho * \
+        cos_t
+    f_r = frac_r[None] * f_total + seg
+    f_b = (1.0 - frac_r)[None] * f_total - seg
+    return f_r, f_b
 
 
 def recolor_lkr(f_total, rho_r, rho_b, gx, gy, beta, lat: Lattice = D2Q9):

@@ -72,6 +72,13 @@ CG_VARIANTS = {
         "BoundaryTypeOutlet = .*": "BoundaryTypeOutlet = 'Dirichlet'\n"
                                    "PhiOutletRepair = 'no'",
         "Type = 'MRT'": "Type = 'SRT'"},
+    "perturbation": {
+        "SurfaceTensionType = .*": "SurfaceTensionType = 'Perturbation'"},
+    "perturbation_anisotropic_srt": {
+        "SurfaceTensionType = .*": "SurfaceTensionType = 'Perturbation'",
+        "Type = 'Isotropic'": "Type = 'Anisotropic'",
+        "Type = 'MRT'": "Type = 'SRT'", "AkB = .*": "AkB = 0.0005",
+        "SolidColorDiff = .*": "SolidColorDiff = 0.3"},
 }
 
 
@@ -89,6 +96,11 @@ def test_load_colorgradient_equals_jax(tmp_path, variant):
     if variant == "percolor_average_convective":
         assert (got[1].inlet, got[1].outlet) == ("neumann_per_color",
                                                  "convective_average")
+    if variant.startswith("perturbation"):
+        assert got[0].variant == "Perturbation"
+    if variant == "perturbation_anisotropic_srt":
+        assert (got[0].gradient_type, got[0].collision, got[0].a_kb,
+                got[0].solid_phi) == ("Anisotropic", "SRT", 0.0005, 0.3)
 
 
 TR_VARIANTS = {
@@ -168,10 +180,11 @@ def test_flow_diagnostics_and_steady_state_equal_jax():
         jmetrics.steady_state_criterion(ux, uy, ux0, uy0), rel=1e-12)
 
 
-def _mini(tmp_path, n_x=32, n_y=64, interval=10):
+def _mini(tmp_path, n_x=32, n_y=64, interval=10, variant="CSF"):
     return _ini(tmp_path, CG_INI, "mini.ini", {
         "xDomain = .*": f"xDomain = {n_x}", "yDomain = .*": f"yDomain = {n_y}",
-        "TimeInterval = .*": f"TimeInterval = {interval}"})
+        "TimeInterval = .*": f"TimeInterval = {interval}",
+        "SurfaceTensionType = .*": f"SurfaceTensionType = '{variant}'"})
 
 
 def _jax_cli(argv):
@@ -241,14 +254,21 @@ def _results(out_dir, basename) -> dict:
     return found
 
 
-def test_cli_cg_matches_jax_cli_f64(tmp_path):
+@pytest.mark.parametrize("variant", ["CSF", "Perturbation"])
+def test_cli_cg_matches_jax_cli_f64(tmp_path, variant):
     """20 f64 steps of the 64x32 box (84x32 with the buffer layers) under
-    the Neumann inlet and Dirichlet outlet: the final checkpoint and the
-    result files to 1e-12, the physics of metrics.jsonl to 1e-10."""
-    ini = _mini(tmp_path)
+    the Neumann inlet and Dirichlet outlet, with the INI's CSF or, with
+    SurfaceTensionType = 'Perturbation', its Perturbation parameters
+    (alphas 4/9, A = 1e-4): the final checkpoint and the result files to
+    1e-12, the physics of metrics.jsonl to 1e-10; the run prints its
+    path."""
+    ini = _mini(tmp_path, variant=variant)
     common = ["run", ini, "--model", "cg", "--dtype", "f64", "--steps", "20"]
     _jax_cli(common + ["--no-pallas", "--output", str(tmp_path / "j")])
-    _torch_cli(common + ["--device", "cpu", "--output", str(tmp_path / "t")])
+    text = _torch_cli(common + ["--device", "cpu", "--output",
+                                str(tmp_path / "t")])
+    assert f"variant {variant}, boundaries neumann/dirichlet: the plain " \
+        "step on cpu, split state" in text
     _same_checkpoint(tmp_path / "j" / "checkpoint.npz",
                      tmp_path / "t" / "checkpoint.npz")
     got = _results(tmp_path / "t", "SimulationResultsRK")
@@ -455,8 +475,11 @@ def test_sc_checkpoint_crosses_both_ways(tmp_path):
 
 @pytest.mark.parametrize("model,path", [("cg", CG_INI), ("transport", TR_INI),
                                         ("sc", SC_INI), ("cg3d", CG3D_INI),
-                                        ("transport3d", TR_INI)])
-def test_inspect_prints_what_jax_prints(model, path):
+                                        ("transport3d", TR_INI),
+                                        ("cg", "perturbation")])
+def test_inspect_prints_what_jax_prints(tmp_path, model, path):
+    if path == "perturbation":
+        path = _ini(tmp_path, CG_INI, "pert.ini", CG_VARIANTS["perturbation"])
     with contextlib.redirect_stdout(io.StringIO()) as out:
         assert jcli.main(["inspect", path, "--model", model]) == 0
     assert _torch_cli(["inspect", path, "--model", model]) == out.getvalue()

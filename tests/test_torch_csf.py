@@ -3,7 +3,8 @@
 * ``ColorGradientRK.step_c`` of openlbmpm_torch against the JAX model's
   ``_step_impl_c`` (jnp path, f64): 1e-12 for one step from the same
   state, 1e-10 after 50 (20) steps of independent trajectories;
-* ``macro_c`` against the JAX model's; options not ported yet raise.
+* ``macro_c`` against the JAX model's; the compressed step and coupled
+  transport refuse what they have no form for.
 """
 
 import dataclasses
@@ -89,20 +90,73 @@ def test_step_matches_jax_f64(case):
     np.testing.assert_allclose(st.numpy(), np.asarray(sj), rtol=0, atol=1e-10)
 
 
-@pytest.mark.parametrize("change", [
-    {"variant": "Perturbation"},
-    {"outlet": "modified_periodic"},
-    {"outlet": "convective_average"},
-    {"inlet": "neumann_per_color"},
-])
-def test_unported_options_raise(change):
-    p = dataclasses.replace(GOLDEN_PARAMS, **{
-        k: v for k, v in change.items() if k == "variant"})
-    b = dataclasses.replace(GOLDEN_BCS, **{
-        k: v for k, v in change.items() if k != "variant"})
-    with pytest.raises(NotImplementedError):
-        ColorGradientRK(_walled(16, 8), params_from_jax(p), params_from_jax(b),
-                        device=CPU)
+# name -> (parameter changes, boundary changes, what must raise)
+REFUSALS = {
+    "compressed_modified_periodic": ({}, {"outlet": "modified_periodic"},
+                                     NotImplementedError),
+    "compressed_convective_average": ({}, {"outlet": "convective_average"},
+                                      NotImplementedError),
+    "compressed_neumann_per_color": ({}, {"inlet": "neumann_per_color"},
+                                     ValueError),
+    "compressed_pert_neumann_per_color": (
+        {"variant": "Perturbation"}, {"inlet": "neumann_per_color"},
+        ValueError),
+    "transport_perturbation": ({"variant": "Perturbation"}, {},
+                               NotImplementedError),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REFUSALS))
+def test_refusals(case):
+    """What the port refuses now that every colour-gradient option is
+    ported: the compressed step refuses the boundaries that need the split
+    state (NotImplementedError, as the JAX ``_step_impl_c``) and the
+    per-colour velocity inlet (ValueError: the JAX compressed step applies
+    no inlet row for it, see the next test), while the split step runs
+    them; coupled transport refuses a Perturbation flow (its kernels are
+    CSF-only)."""
+    from openlbmpm_torch.models.transport import TransportRK
+    change_p, change_b, exc = REFUSALS[case]
+    p = params_from_jax(dataclasses.replace(GOLDEN_PARAMS, **change_p))
+    b = params_from_jax(dataclasses.replace(GOLDEN_BCS, **change_b))
+    g = _walled(16, 8)
+    if case.startswith("transport"):
+        with pytest.raises(exc, match="Perturbation"):
+            TransportRK(g, p, boundaries=b, device=CPU)
+        return
+    m = ColorGradientRK(g, p, b, dtype=torch.float64, device=CPU)
+    st = m.init_state_layers(1.0, 1.0, invading_rows=4)
+    with pytest.raises(exc):
+        m.step_c(m.pack_state(*st))
+    with pytest.raises(exc):
+        m.plain_step_c(m.pack_state(*st))
+    out = m.step(st)
+    assert all(bool(torch.isfinite(x).all()) for x in out)
+
+
+def test_jax_compressed_step_applies_no_neumann_per_color_row():
+    """Why the compressed step refuses neumann_per_color: the JAX
+    ``_apply_bcs_c`` has no branch for it, so the JAX compressed step
+    leaves rows ny-2 and ny-1 as they stand before the step (its result
+    equals the step of a periodic-inlet model), while the split step
+    rewrites them."""
+    bcs = dataclasses.replace(GOLDEN_BCS, inlet="neumann_per_color",
+                              inlet_velocity_r=-1e-3)
+    g = _walled(16, 8)
+    mj = jcg.ColorGradientRK(g, GOLDEN_PARAMS, bcs, dtype=jnp.float64,
+                             use_pallas=False)
+    mp = jcg.ColorGradientRK(g, GOLDEN_PARAMS,
+                             dataclasses.replace(bcs, inlet="periodic"),
+                             dtype=jnp.float64, use_pallas=False)
+    st = mj.init_state_layers(1.0, 1.0, invading_rows=4)
+    s = mj.pack_state(*st)
+    np.testing.assert_array_equal(np.asarray(mj._apply_bcs_c(s)),
+                                  np.asarray(s))
+    np.testing.assert_array_equal(np.asarray(mj._step_impl_c(s)),
+                                  np.asarray(mp._step_impl_c(s)))
+    split = mj.pack_state(*mj._step_impl(*st))
+    assert float(jnp.abs(split[:, 12:] - mp._step_impl_c(s)[:, 12:]).max()) \
+        > 1e-6
 
 
 def test_macro_c_matches_jax_f64():

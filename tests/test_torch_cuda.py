@@ -14,12 +14,13 @@ import pytest
 import torch
 
 from chip_smoke import (CG3D_CASES, CG3D_TRANSPORT_CASES, COUPLED_CASES,
-                        FLOW3D_BF16_SHARE, SC3D_CASES, SC_CASES,
+                        FLOW3D_BF16_SHARE, PERT_CASES, SC3D_CASES, SC_CASES,
                         SC_KERNEL_CASES, SINGLE3D_CASES, SINGLE_BF16_SHARE,
                         SINGLE_CASES, basic3d_model, bf16_one_step_3d,
                         bf16_ulp_check, cg3d_case, config1_model,
                         coupled_conc0, flagship_flow, flow_start,
-                        probe_sc3d_model, probe_sc3d_start, sc3d_case,
+                        pert_case, pert_start, probe_sc3d_model,
+                        probe_sc3d_start, sc3d_case,
                         sc_case, sc_config, single3d_case, single_case,
                         split_cases, split_coupled_cases, transport3d_case)
 from openlbmpm_torch.geometry import from_solid_mask
@@ -29,7 +30,9 @@ from openlbmpm_torch.kernels.cg3d import (
     coupled3d_step_compressed_reference)
 from openlbmpm_torch.kernels.csf import (
     compare_bf16_states, csf_step_compressed, csf_step_compressed_reference,
-    csf_step_split, csf_step_split_reference)
+    csf_step_split, csf_step_split_reference, pert_step_compressed,
+    pert_step_compressed_reference, pert_step_split,
+    pert_step_split_reference)
 from openlbmpm_torch.kernels.flow3d import (sc3d_step, sc3d_step_reference,
                                             single3d_step,
                                             single3d_step_reference)
@@ -298,6 +301,86 @@ def test_split_step_counts_launches_and_checks_state(cuda):
     with pytest.raises(ValueError, match="device"):
         m.step((st[0], st[1].cpu()))
     assert csf_step_split.launches == before + 3
+
+
+def test_split_kernel_neumann_per_color_f64(cuda):
+    """K6 with the per-colour Zou-He velocity inlet (inlet code 3), 10
+    steps at f64 against its plain version: 1e-11."""
+    params, bcs = SPLIT["mrt_dirichlet_convective"]
+    bcs = dataclasses.replace(bcs, inlet="neumann_per_color",
+                              inlet_velocity_r=-1e-3, inlet_velocity_b=-2e-4)
+    m = ColorGradientRK(_geometry(72, 40, True), params, bcs,
+                        dtype=torch.float64, device=cuda)
+    a = b = m.init_state_layers(1.0, 1.0, invading_rows=14)
+    for _ in range(10):
+        a = csf_step_split(a, m)
+        b = csf_step_split_reference(b, m)
+    assert max(float((x - y).abs().max()) for x, y in zip(a, b)) <= 1e-11
+
+
+# -- the Perturbation variant (K4) ------------------------------------------
+
+@pytest.mark.parametrize("case", sorted(PERT_CASES))
+def test_pert_kernel_matches_plain_f64(cuda, case):
+    """K4s and (where the compressed layout takes the rows) K4c against
+    their plain versions at f64 on a 72x40 channel, up to 10 steps: 1e-11,
+    as chip_smoke.py phase 40 at 256x128."""
+    m = pert_case(case, cuda, ny=72, nx=40)
+    steps = min(10, PERT_CASES[case][3])
+    st = pert_start(m, PERT_CASES[case][2])
+    a = b = st
+    for _ in range(steps):
+        a = pert_step_split(a, m)
+        b = pert_step_split_reference(b, m)
+    torch.cuda.synchronize(cuda)
+    assert all(bool(torch.isfinite(x).all()) for x in a)
+    assert max(float((x - y).abs().max()) for x, y in zip(a, b)) <= 1e-11
+    if m.bcs.inlet == "neumann_per_color":
+        return
+    a = b = m.pack_state(*st)
+    for _ in range(steps):
+        a = pert_step_compressed(a, m)
+        b = pert_step_compressed_reference(b, m)
+    assert bool(torch.isfinite(a).all())
+    assert float((a - b).abs().max()) <= 1e-11
+
+
+def test_pert_kernel_bf16_one_step_within_one_ulp(cuda):
+    """K4h: five steps of kernel and plain path in bf16 storage, then one
+    step of each from a common state within one bf16 ulp per stored value
+    off the seam rows, with at most 1e-3 of the values off."""
+    m = pert_case("mrt_iso_neumann_dirichlet", cuda, ny=96, nx=64,
+                  dtype=torch.float32, storage="bf16")
+    s = m.pack_state_bf16(*pert_start(m, "layers"))
+    for _ in range(5):
+        s = pert_step_compressed_reference(s, m)
+    away = _off_seam(96, 64, 5, cuda)
+    gap = compare_bf16_states(pert_step_compressed(s, m),
+                              pert_step_compressed_reference(s, m), away)
+    assert gap["excess"] <= 1.0
+    assert gap["share"] <= 1e-3
+
+
+def test_pert_paths_and_launches(cuda):
+    """The model's step launches K4s (step) and K4c (step_c) once a call;
+    the averaged convective outlet takes the plain step on the card and
+    launches nothing."""
+    m = pert_case("mrt_iso_neumann_dirichlet", cuda, ny=32, nx=16,
+                  dtype=torch.float32)
+    assert m.path == "kernel"
+    st = pert_start(m, "layers")
+    before = (pert_step_split.launches, pert_step_compressed.launches)
+    st = m.step(m.step(st))
+    m.step_c(m.pack_state(*st))
+    assert (pert_step_split.launches, pert_step_compressed.launches) == \
+        (before[0] + 2, before[1] + 1)
+    plain = ColorGradientRK(m.geo, m.p, dataclasses.replace(
+        m.bcs, outlet="convective_average"), device=cuda)
+    assert plain.path == "plain" and plain.kernel_params is None
+    out = plain.step(st)
+    assert all(bool(torch.isfinite(x).all()) for x in out)
+    assert (pert_step_split.launches, pert_step_compressed.launches) == \
+        (before[0] + 2, before[1] + 1)
 
 
 SPLIT_COUPLED = split_coupled_cases()

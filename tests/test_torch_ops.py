@@ -132,6 +132,37 @@ def _cases():
                                opt),
             tcg.tau_interp_csf(T(F.phi), T(F.rr), T(F.rb), 1.0, 0.7, 0.98,
                                opt)))(opt)
+    c["rk_constants"] = lambda F: (jeq.rk_constants(0.3),
+                                   teq.rk_constants(0.3))
+    cr, cb = jeq.rk_constants(4 / 9), jeq.rk_constants(0.3)
+    c["feq_rk_original"] = lambda F: (
+        jeq.feq_rk_original(d, J(F.rho), (J(F.ux), J(F.uy)), cb),
+        teq.feq_rk_original(d, T(F.rho), (T(F.ux), T(F.uy)), cb))
+    # F.phi holds values above delta, below -delta and on both sides of 0
+    c["tau_interp_grunau"] = lambda F: (
+        jcg.tau_interp_grunau(J(F.phi), 1.0, 0.7, 0.98),
+        tcg.tau_interp_grunau(T(F.phi), 1.0, 0.7, 0.98))
+    # F.gx, F.gy vanish on two cells
+    c["perturbation"] = lambda F: (
+        jcg.perturbation(J(F.gx), J(F.gy), 3e-3, jcg.B_CONSTANTS),
+        tcg.perturbation(T(F.gx), T(F.gy), 3e-3, tcg.B_CONSTANTS))
+
+    def small_g(F):
+        """F's gradient with |g| below the 1e-8 recolouring threshold on
+        three cells (and 0 on two)."""
+        gx, gy = F.gx.copy(), F.gy.copy()
+        gx[6, :3], gy[6, :3] = 6e-9, -6e-9
+        return gx, gy
+    c["recolor_rk_original"] = lambda F: (
+        jcg.recolor_rk_original(J(F.f), J(F.rr), J(F.rb),
+                                *map(J, small_g(F)), 0.7, cr, cb),
+        tcg.recolor_rk_original(T(F.f), T(F.rr), T(F.rb),
+                                *map(T, small_g(F)), 0.7, cr, cb))
+    c["modified_periodic_color_swap"] = lambda F: (
+        jbc.modified_periodic_color_swap(J(F.f), J(F.feq), J(F.row_mask),
+                                         J(~F.row_mask)),
+        tbc.modified_periodic_color_swap(T(F.f), T(F.feq), T(F.row_mask),
+                                         T(~F.row_mask)))
     c["recolor_lkr"] = lambda F: (
         jcg.recolor_lkr(J(F.f), J(F.rr), J(F.rb), J(F.gx), J(F.gy), 0.7),
         tcg.recolor_lkr(T(F.f), T(F.rr), T(F.rb), T(F.gx), T(F.gy), 0.7))
