@@ -6,13 +6,20 @@ phase 26 (benchmarks/probe_coupled3d.py's configuration at 128^3), the
 single-phase D2Q9 kernel (K7) under phase 31 (the analytic Poiseuille
 profile), the D3Q19 Shan-Chen kernel (K10) under phase 37
 (benchmarks/probe_sc3d.py's configuration) and the Perturbation kernel
-(K4) under phase 41 (the pert flagship at 1024^2).
+(K4) under phase 41 (the pert flagship at 1024^2); and three faults that
+only the T-step kernels can show: the colour-gradient K3 under phase 48
+(the flagships at 1024^2 in f32), the Shan-Chen K8-T under phase 46 and
+the single-phase K7-T under phase 47 (their f64 cases), each while the T=1
+phases of the same family (4 and 41, 15, 29) pass.
 
-    python3 chip_faults.py
+    python3 chip_faults.py [case ...]
+
+With case names (or their first words, e.g. ``K3``), only those cases run,
+after "none".
 
 Run from the repository root on a machine with a CUDA card and nvcc.  Each
-case copies ``openlbmpm_torch`` (without its build directory) and
-``chip_smoke.py`` into a temporary directory, changes one line of a
+case copies ``openlbmpm_torch`` (without its build directory),
+``chip_smoke.py`` and ``configs/`` into a temporary directory, changes one line of a
 ``csrc/`` source there, and runs its phases in a subprocess that builds the
 copy's libraries and records every failed check (and any error) instead of
 stopping at the first.  The K9 faults drop the Guo source term on wetting
@@ -24,16 +31,27 @@ f32 instance; the K7 fault drops the Guo source from the MRT update in the
 f32 instance (the half-force stays in the relaxed moments); the K10 fault
 drops the adhesion term, which only wall-adjacent cells carry, in the f32
 instance; the K4 fault drops the 1/sqrt(2) of the diagonal recolouring
-segment in the f32 instances (K4c f32, K4s f32):
+segment in the float-arithmetic instances (K4c f32, K4h, K4s f32; the
+Perturbation K3 shares the line).  The T-step faults: K3 rewrites the
+boundary rows before the first sub-step of a call only, in its f32
+instances; K8-T selects the Zou-He outlet row by window row instead of
+global row, in its f64 instance; K7-T rewrites the rows after the first
+sub-step only, in its f64 instance:
 
-  none           the sources as they are: phases 21, 26, 31, 37, 41 must
-                 pass;
+  none           the sources as they are: phases 4, 15, 21, 26, 29, 31,
+                 37, 41, 45-48 must pass;
   f32            cg3d.cuh, float32 storage (K9c f32, K9s f32): phase 21;
   bf16           cg3d.cuh, bfloat16 storage (K9h): phase 21;
   tracer f32     cg3d.cuh, float32 storage (K9t f32): phase 26;
   K7 MRT f32     single2d.cuh, float32 storage: phase 31 must fail;
   K10 adh f32    flow3d.cuh, float32 storage: phase 37 must fail;
-  K4 diag f32    pert2d.cu, float32 storage: phase 41 must fail.
+  K4 diag f32    pert2d.cuh, float arithmetic: phase 41 must fail;
+  K3 bc once     csf2d_block.cuh, float32 storage: phase 48 must fail,
+                 phases 4 and 41 (K1, K4) pass;
+  K8-T local row sc2d_block.cuh, float64 storage: phase 46 must fail,
+                 phase 15 (K8) passes;
+  K7-T bc once   single2d_block.cuh, float64 storage: phase 47 must fail,
+                 phase 29 (K7) passes.
 
 Prints one line per case with the failed checks and the gaps, and exits 0
 only when every case behaves as stated.
@@ -65,9 +83,18 @@ K10_LINE = ("      const C force = -rho[k] * (gv + C(P.gs[k]) * C(adh[d])) + "
             "C(P.bf[d]) * rho[k];")
 K10_FAULT = ("      const C force = -rho[k] * (gv + C(P.gs[k]) * "
              "C(sizeof(S) == {size} ? 0.0 : adh[d])) + C(P.bf[d]) * rho[k];")
-K4_LINE = "        cos_t = eg / norm / C(i < 5 ? 1.0 : kSqrt2);"
-K4_FAULT = ("        cos_t = eg / norm / C(i < 5 || sizeof(S) == {size} ? "
+K4_LINE = "      cos_t = eg / norm / C(i < 5 ? 1.0 : kSqrt2);"
+K4_FAULT = ("      cos_t = eg / norm / C(i < 5 || sizeof(C) == {size} ? "
             "1.0 : kSqrt2);")
+K3_LINE = "      window_bc_rows<C, L>(W, PL, FL, shrunk(B, e0), wx, wy, oy, P);"
+K3_FAULT = ("      if (sub == 0 || sizeof(S) != {size}) "
+            "window_bc_rows<C, L>(W, PL, FL, shrunk(B, e0), wx, wy, oy, P);")
+K8T_LINE = "              if (wrap(oy + ly, ny) == d && FL[c]) {"
+K8T_FAULT = ("              if ((sizeof(S) == {size} ? ly : wrap(oy + ly, ny)) "
+             "== d && FL[c]) {{")
+K7T_LINE = "      if (P.inlet != 0 || P.outlet != 0) {"
+K7T_FAULT = ("      if ((P.inlet != 0 || P.outlet != 0) && "
+             "(sub == 0 || sizeof(S) != {size})) {{")
 # name -> (source, line, fault, phases that must fail)
 CASES = {
     "f32": ("cg3d.cuh", LINE, FAULT.format(size=4), ("21",)),
@@ -77,20 +104,53 @@ CASES = {
     "K7 MRT f32": ("single2d.cuh", K7_LINE, K7_FAULT.format(size=4), ("31",)),
     "K10 adh f32": ("flow3d.cuh", K10_LINE, K10_FAULT.format(size=4),
                     ("37",)),
-    "K4 diag f32": ("pert2d.cu", K4_LINE, K4_FAULT.format(size=4), ("41",)),
+    "K4 diag f32": ("pert2d.cuh", K4_LINE, K4_FAULT.format(size=4), ("41",)),
+    "K3 bc once": ("csf2d_block.cuh", K3_LINE, K3_FAULT.format(size=4),
+                   ("48",)),
+    "K8-T local row": ("sc2d_block.cuh", K8T_LINE, K8T_FAULT.format(size=8),
+                       ("46",)),
+    "K7-T bc once": ("single2d_block.cuh", K7T_LINE,
+                     K7T_FAULT.format(size=8), ("47",)),
 }
+# name -> the T=1 phases of the same family that must pass the T-step
+# faults (the T=1 kernels do not run the changed line)
+MUST_PASS = {"K3 bc once": ("4", "41"), "K8-T local row": ("15",),
+             "K7-T bc once": ("29",)}
+# the phases of the unchanged sources
+ALL_PHASES = ("4", "15", "21", "26", "29", "31", "37", "41", "45", "46",
+              "47", "48")
 
 RUN = r"""
 import json, sys, torch
 import chip_smoke as cs
+from openlbmpm_torch.kernels import build
+build.load_libraries(build.LIBRARIES)   # side by side, before any phase
 failed = {}
 out = {}
 device = torch.device("cuda", 0)
+SIMPLE = {"15": cs.phase_sc_f64, "29": cs.phase_single_f64,
+          "45": cs.phase_block_csf_f64, "46": cs.phase_block_sc_f64,
+          "47": cs.phase_block_single_f64}
 for phase in sys.argv[1:]:
     bad = failed.setdefault(phase, [])
     cs.check = lambda cond, what, bad=bad: cond or bad.append(what)
     try:
-        if phase == "21":
+        if phase in SIMPLE:
+            res = SIMPLE[phase](device)
+            out[phase] = {"max": max(res.values())}
+            continue
+        elif phase == "4":
+            res = cs.phase_flagship(device)
+            out[phase] = {k: res[k]["max"] if isinstance(res[k], dict)
+                          else res[k] for k in ("f64", "f32", "bf16")}
+            continue
+        elif phase == "48":
+            res = cs.phase_block_full(device)
+            out[phase] = {" ".join(map(str, k)): v["max"]
+                          if isinstance(v, dict) else v
+                          for k, v in res.items()}
+            continue
+        elif phase == "21":
             res = cs.phase_config5(device)
             parts = {"f32": res["f32"], "split": res["split"],
                      "bf16 planes": res["bf16"]["planes"],
@@ -130,6 +190,7 @@ def run_case(header, line, fault, phases) -> dict:
         shutil.copytree(ROOT / "openlbmpm_torch", Path(tmp, "openlbmpm_torch"),
                         ignore=shutil.ignore_patterns("_build", "__pycache__"))
         shutil.copy(ROOT / "chip_smoke.py", tmp)
+        shutil.copytree(ROOT / "configs", Path(tmp, "configs"))
         if fault is not None:
             cuh = Path(tmp, "openlbmpm_torch", "csrc", header)
             text = cuh.read_text()
@@ -138,26 +199,30 @@ def run_case(header, line, fault, phases) -> dict:
                                    "moved")
             cuh.write_text(text.replace(line, fault))
         out = subprocess.run([sys.executable, "-c", RUN, *phases], cwd=tmp,
-                             capture_output=True, text=True, timeout=900)
+                             capture_output=True, text=True, timeout=1500)
         if out.returncode != 0:
             raise RuntimeError(f"phases {phases} did not run:\n"
                                f"{out.stderr[-3000:]}")
         return json.loads(out.stdout.strip().splitlines()[-1])
 
 
-def main() -> int:
+def main(argv=None) -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_faults: needs a CUDA card", file=sys.stderr)
         return 2
-    cases = [("none", None, None, None, ("21", "26", "31", "37", "41"))]
-    cases += [(name, *case) for name, case in CASES.items()]
+    pick = list(sys.argv[1:] if argv is None else argv)
+    cases = [("none", None, None, None, (), ALL_PHASES)]
+    cases += [(name, *case, MUST_PASS.get(name, ()))
+              for name, case in CASES.items()
+              if not pick or any(name == p or name.split()[0] == p
+                                 for p in pick)]
     ok = True
-    for name, header, line, fault, phases in cases:
-        r = run_case(header, line, fault, phases)
-        want_fail = fault is not None
-        for phase in phases:
+    for name, header, line, fault, must_fail, must_pass in cases:
+        r = run_case(header, line, fault, must_fail + must_pass)
+        for phase in must_fail + must_pass:
             failed = bool(r["failed"][phase])
+            want_fail = phase in must_fail
             ok &= failed == want_fail
             print(f"fault {name}: phase {phase} "
                   f"{'failed' if failed else 'passed'} (want "

@@ -54,7 +54,8 @@ toolkit (nvcc) and PyTorch built for CUDA; JAX is not needed.  Phases:
      phase 6's six cases plus conserve_mass, the redistribute interface
      and standalone transport; max |difference| <= 1e-11;
  12. the CLI on the card: ``openlbmpm_torch.cli.main(["run", ...])`` with
-     ``--model cg`` on configs/rk_csf2d.ini set to a 1024^2 domain for 1000
+     ``--model cg --block 1`` (one step a launch; phase 50 drives the
+     T-step kernels) on configs/rk_csf2d.ini set to a 1024^2 domain for 1000
      f32 steps, then ``--model transport`` with configs/transportsetup.ini
      and that INI as the flow config for 500 steps; the split kernels'
      launch counts must rise by exactly the step counts, the final states
@@ -90,7 +91,8 @@ toolkit (nvcc) and PyTorch built for CUDA; JAX is not needed.  Phases:
      config 3 for 600 f32 steps on K8 (mass drift < 2e-5, u_max < 0.05) and
      config 2's equilibrated 256^2 contact angle on K8 (window drift < 2
      degrees, within 12 of the analytic angle);
- 18. the CLI on the card: ``cli.main(["run", ...])`` with ``--model sc`` on
+ 18. the CLI on the card: ``cli.main(["run", ...])`` with ``--model sc
+     --block 1`` on
      configs/twophasesetup.ini set to 1024^2, with shanchen2D.ini and as
      EFS with efs2D.ini, 1000 f32 steps each: K8's launch count must rise
      by exactly the steps, the final checkpoint must be finite, and the
@@ -161,7 +163,7 @@ toolkit (nvcc) and PyTorch built for CUDA; JAX is not needed.  Phases:
      <= 1e-11), f32 and bf16 at 128^3 and 256^3 as phase 34, then 1000 f32
      steps on K10 at 128^3: each fluid's mass within 1e-4 (f64: 1e-12 over
      300 steps), the droplet separated;
- 38. ``run --model basic|basic3d|sc3d`` on the shipped INIs through
+ 38. ``run --model basic|basic3d|sc3d --block 1`` on the shipped INIs through
      ``cli.main``, 1000 f32 steps each: path "kernel", K7 / K11 / K10
      launched exactly once a step, final checkpoints finite; the bf16 main
      paths of K11 and K10 through ``run_chunked``;
@@ -185,18 +187,54 @@ toolkit (nvcc) and PyTorch built for CUDA; JAX is not needed.  Phases:
      ``run_chunked(step_c)`` on K4c, its red mass growing by |v_in| x the
      fluid inlet columns a step within 5%;
  43. the main paths: ``run_chunked(step_c)`` for 1000 bf16 steps (K4h once
-     a step), ``run --model cg`` on rk_csf2d.ini at 1024^2 with
+     a step), ``run --model cg --block 1`` on rk_csf2d.ini at 1024^2 with
      SurfaceTensionType 'Perturbation' for 1000 steps (K4s once a step, a
      finite split checkpoint), and a short run with the averaged convective
      outlet (path "plain", no launch);
  44. MLUPS of K4c, K4h and K4s and of their plain paths at 1024^2, device
-     time per launch and the roofline share.
+     time per launch and the roofline share;
+ 45. f64: the T-step colour-gradient kernel K3 (both variants; compressed
+     K3c and split K3s) against T plain steps, T = 2, 3, 4, two calls in a
+     row, on a periodic droplet, two walled channels whose ny (100) is no
+     multiple of a tile (the flagship's rows; Dirichlet inlet and
+     convective outlet) and, split, the CLI's rk_csf2d.ini at 1044x1024;
+     max |difference| <= 1e-11;
+ 46. f64: the T-step Shan-Chen kernel K8-T on every kernel case of
+     SC_CASES (100x64), and 47. the T-step single-phase kernel K7-T on
+     every case of SINGLE_CASES (100x72), T = 2, 3, 4; <= 1e-11;
+ 48. the T-step kernels at full size, T = 2 and 4, 8 steps from one f64
+     start against their plain versions (bf16 decoded once and encoded
+     once a call by both): K3c, K3s (f32) and K3h (bf16) of both
+     flagships within the bounds of phases 4, 14 and 41 off the seam, K8-T
+     at configs 2 and 3 and K7-T at config 1 in f32 and bf16 within those
+     of phases 17 and 30;
+ 49. speed per time step at T = 1 (the T=1 kernel), 2 and 4 (CUDA events;
+     device time per launch from ``torch.profiler``), MLUPS, the bound
+     per step, launches per step from the counters (1/T), each launch's
+     tiling (tile, window bytes, shared or global window) and the plain
+     version's time: K3 at both flagships (1024^2), K8-T at configs 2 and
+     3, K7-T at config 1 and at 1024^2;
+ 50. the main paths of the T-step kernels: bench.py's loop
+     (``run_chunked`` of ``make_block_step(steps_per_call=4,
+     compressed=True, storage="bf16" | "f32")``) on both flagships, the
+     bf16 loops of K8-T and K7-T, and ``run --model cg|sc|basic --block 4``
+     against ``--block 1`` (metrics.jsonl at every output step within 1e-4
+     relative, the steady criterion 1e-2, the T-step kernel launched once
+     per 4 steps and the T=1
+     kernel never), and ``--block 0`` picking T = 2 where 4 does not
+     divide the output interval;
+ 51. the CLI's default, ``--block 0``, at the shipped sizes of phases 12,
+     18 and 38 (``run --model cg`` CSF 1044x1024, ``sc`` SC 1024^2,
+     ``basic`` 512x1024, 1000 f32 steps): the T-step kernel launched
+     1000 / T times and the T=1 kernel never, and the seconds with I/O
+     beside those phases' ``--block 1`` runs in the same call.
 
 Every phase prints one line or more, each number line with the card's name
 and power limit, and any failure exits non-zero.  Then the wall time, the
 card's name and power limit again, a JSON line of the kernels (with each
-one's bound: the least time for its bytes at 3.35 TB/s or its operations
-at the f32 peak), and last ``{"ok": true, "device": {...}}``.
+one's bound: the least time for its least bytes at 3.35 TB/s or its least
+operations at the f32 peak, whichever is longer), and last
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -599,6 +637,72 @@ COUPLED_CASES = {
 # tracer (csrc/coupled2d.cu source note)
 COUPLED_BYTES = {"f32": 401, "bf16": 311}
 HBM_BYTES_PER_S = 3.35e12
+# The f32 peak outside the tensor cores, H100 SXM: 132 SMs x 128 lanes x
+# 2 operations (one FMA) x 1.98 GHz.
+F32_FLOPS_PER_S = 67e12
+
+# Least floating-point operations per fluid cell-step of each kernel's
+# function, for the operations half of its bound.  An FMA counts as two
+# operations (a multiply and an add), as the peak above counts it; a
+# division, a reciprocal square root and a square root as one each.  Each
+# piece is counted in the cheapest form of its formula found (opposite
+# directions share the even terms of their equilibria, sources and
+# recolouring); the MRT collisions are counted at the SRT relaxation's
+# cost, which is less than any MRT (the non-equilibrium parts, a moment
+# transform and its inverse); boundary rows, wetting, solids and guards are
+# not counted.  So each count is at most what the function needs.
+#   D2Q9: moments rho (8 adds), j_x and j_y (5 each) 18; u = j / rho 3;
+#     the second-order equilibrium 41 (u.u 3, A = 1 - 1.5 u.u 2, rho w and
+#     3 rho w 5, each of 4 opposite pairs (c.u)^2, FMA with A, x rho w,
+#     x 3 rho w c.u, the two signs: 7, c.u of the 2 diagonal pairs 2, the
+#     rest 1); f + omega (feq - f) over 9 directions 27.  SRT step 89.
+#   A body force in a D2Q9 step: the half-force shift of u (2 FMAs) 4 and
+#     at least one operation a population to add its source 9: 13.
+#   CSF (K1/K2/K6/K3, both colours in one state): phi 3 (rho_b, rho_r -
+#     rho_b, the division); the 8-neighbour isotropic gradient 12 (axis
+#     differences 2, diagonal combinations 4, c1 axis + c2 diagonal 3 a
+#     component); the unit normal 6; the curvature, the normal's divergence
+#     with the same stencil, 13; the force sigma kappa / 2 grad phi 3; the
+#     body-force terms 13; the recolouring of the compressed state 38
+#     (rho_r / rho 1, beta rho_r rho_b / rho^2 4, x w 2, a pair: B w c.n
+#     and two FMAs 5, c.n of the diagonals 2, the rest 1, rho_r' = the sum
+#     of the 9 streamed red parts 8).  89 + 88 = 177.
+#   Perturbation (K4/K3): the SRT step 89 (the RK equilibrium is the
+#     second-order one with other constants), rho_b and d = rho_r - rho_b 2,
+#     the gradient of d 12, |g|^2 and |g| 4, the perturbation operator 30
+#     (1 / |g|^2, the prefactor and its 5 weighted forms 7, a pair:
+#     (c.g)^2 and one FMA, added to both 5, c.g of the diagonals 2, the rest
+#     1), the recolouring 38.  175.
+#   One D2Q5 tracer (K5c/K5s): C 4, its equilibrium C w (1 + 3 c.u) 9
+#     (C w 2, a pair: one product and two signs 3, the rest 1), relaxation
+#     15: 28.
+#   Shan-Chen D2Q9, K = 2 fluids (K8, K8-T): each fluid's moments,
+#     equilibrium and relaxation 86, its interaction force (the gradient of
+#     the other fluid's psi 12, x -G psi 3) 15 and its shifted velocity 6;
+#     the common velocity 12.  2 x 107 + 12 = 226, for SC and for EFS
+#     iso-8 MRT alike (its 24-neighbour stencil and MRT cost more).
+#   Single-phase D2Q9 with a body force (K7, config 1): 89 + 13 = 102.
+#   D3Q19: moments 45 (rho 18, each j component 9); u 4; equilibrium 82
+#     (u.u 5, A 2, rho w and 3 rho w 5, 9 opposite pairs x 7, c.u of the 6
+#     edge pairs 6, the rest 1); relaxation 57.  SRT step 188.
+#   K11 (SRT + Guo): 188 + the shift 6 + a source operation a population
+#     19 = 213.  K10, K = 2: each fluid's moments, equilibrium and
+#     relaxation 184, its force (the 18-neighbour gradient: 5 pair
+#     differences, 3 adds and c1 axis + c2 edges a component, 33; x -G psi
+#     4) 37 and its shifted velocity 8; the common velocity 16: 474.
+#   K9 (3-D CSF, SRT + Guo): 188 + phi 3 + gradient 33 + normal 9 +
+#     curvature 35 + force 4 + body-force terms 25 + recolouring 77 (A 1,
+#     B 4, B w 2, 9 pairs x 5, c.n of the 6 edge pairs 6, the rest 1, the
+#     red sum 18) = 374; K9t adds one D3Q7 tracer (C 6, equilibrium 12,
+#     relaxation 21) 39: 413.
+D2Q9_SRT_OPS = 18 + 3 + 41 + 27
+CSF_OPS = D2Q9_SRT_OPS + 3 + 12 + 6 + 13 + 3 + 13 + 38
+PERT_OPS = D2Q9_SRT_OPS + 2 + 12 + 4 + 30 + 38
+TRACER2D_OPS = 4 + 9 + 15
+SC2_OPS = 2 * (18 + 41 + 27 + 15 + 6) + 12
+SINGLE_OPS = D2Q9_SRT_OPS + 13
+D3Q19_SRT_OPS = 45 + 4 + 82 + 57
+CG3D_OPS = D3Q19_SRT_OPS + 3 + 33 + 9 + 35 + 4 + 25 + 77
 
 
 def coupled_model(device, storage, tp, dtype=torch.float32, ny=FLAGSHIP_N,
@@ -957,7 +1061,7 @@ def phase_cli(device, n=FLAGSHIP_N, cg_steps=1000, tr_steps=500):
         csf_step_split.launches = 0
         t0 = time.perf_counter()
         rc = cli.main(["run", ini, "--model", "cg", "--steps", str(cg_steps),
-                       "--output", out, "--device", "cuda"])
+                       "--output", out, "--device", "cuda", "--block", "1"])
         res["cg_sec"] = time.perf_counter() - t0
         res["cg_launches"] = csf_step_split.launches
         check(rc == 0, f"cli run --model cg returned {rc}")
@@ -1613,7 +1717,7 @@ def phase_sc_cli(device, n=FLAGSHIP_N, steps=1000):
             with contextlib.redirect_stdout(io.StringIO()) as text:
                 rc = cli.main(["run", ini, "--model", "sc", "--physics-config",
                                phys, "--steps", str(steps), "--output", out,
-                               "--device", "cuda"])
+                               "--device", "cuda", "--block", "1"])
             sec = time.perf_counter() - t0
             launches = sc_step.launches
             check(rc == 0, f"cli run --model sc ({scheme}) returned {rc}")
@@ -2135,8 +2239,7 @@ CG3D_KERNELS = ("bc_kernel", "phase_kernel", "extrap_kernel",
 # 1-byte solid mask (every geo_stack3 plane follows from it): compressed
 # f32 2 x 80 + 1, bf16 2 x 42 + 1, split f32 2 x 152 + 1
 CG3D_BYTES = {"f32": 2 * 80 + 1, "bf16": 2 * 42 + 1, "split": 2 * 152 + 1}
-CG3D_FLOPS = 1500   # per cell-step, counted roughly (19-direction SRT + Guo,
-#                     curvature, wetting); the bytes bind
+CG3D_FLOPS = CG3D_OPS   # least operations per cell-step (F32_FLOPS_PER_S)
 
 
 def phase_cg3d_speed(device, sizes=(128, 256), steps=(50, 20),
@@ -2513,7 +2616,7 @@ TRANSPORT3D_KERNELS = CG3D_KERNELS + ("tracer_collide3d_kernel",
 # least bytes per cell-step of K9t's function: K9's state in and out, one
 # f32 D3Q7 tracer (28 B) in and out, a 1-byte solid mask
 TRANSPORT3D_BYTES = {"f32": 2 * 80 + 2 * 28 + 1, "bf16": 2 * 42 + 2 * 28 + 1}
-TRANSPORT3D_FLOPS = CG3D_FLOPS + 100   # + one D3Q7 tracer, counted roughly
+TRANSPORT3D_FLOPS = CG3D_OPS + 39   # + one D3Q7 tracer (F32_FLOPS_PER_S)
 
 
 def phase_transport3d_speed(device, sizes=(128, 256), steps=(50, 20),
@@ -2811,7 +2914,7 @@ SINGLE_KERNELS = ("collide_stream_kernel",)
 # least bytes per cell-step of K7's function: the state in and out plus a
 # 1-byte mask: f32 2 x 36 + 1, bf16 2 x 22 + 1
 SINGLE_BYTES = {"f32": 2 * 36 + 1, "bf16": 2 * 22 + 1}
-SINGLE_FLOPS = 350   # per cell-step, counted roughly (MRT with the Guo source)
+SINGLE_FLOPS = SINGLE_OPS   # least operations per cell-step (F32_FLOPS_PER_S)
 
 
 def phase_single_main(device, sizes=((1024, 512), (1024, 1024)),
@@ -3192,7 +3295,7 @@ def phase_flow_cli(device, steps=1000):
             with contextlib.redirect_stdout(io.StringIO()) as text:
                 rc = cli.main(["run", ini, "--model", model, "--steps",
                                str(steps), "--output", out, "--device",
-                               "cuda"])
+                               "cuda", "--block", "1"])
             sec = time.perf_counter() - t0
             launches = counter.launches
             check(rc == 0, f"cli run --model {model} returned {rc}")
@@ -3227,9 +3330,10 @@ FLOW3D_KERNELS = ("rho_kernel", "march_kernel")
 # f32 2 x 76 + 1, bf16 2 x 42 + 1; K10 with two fluids twice the state
 FLOW3D_BYTES = {"K11": {"f32": 2 * 76 + 1, "bf16": 2 * 42 + 1},
                 "K10": {"f32": 2 * 152 + 1, "bf16": 2 * 84 + 1}}
-# per cell-step, counted roughly: K11 SRT with the Guo source ~600; K10
-# with two fluids (the 18-neighbour gradient, two SRT collisions) ~900
-FLOW3D_FLOPS = {"K11": 600, "K10": 900}
+# least operations per cell-step (F32_FLOPS_PER_S): K11 SRT with the Guo
+# source, K10 with two fluids
+FLOW3D_FLOPS = {"K11": D3Q19_SRT_OPS + 6 + 19,
+                "K10": 2 * (45 + 82 + 57 + 37 + 8) + 16}
 
 
 def phase_flow3d_speed(device, sizes=(128, 256), steps=(50, 20),
@@ -3647,7 +3751,7 @@ def phase_pert_main(device, n=FLAGSHIP_N, steps=MAIN_STEPS, cli_steps=1000):
         with contextlib.redirect_stdout(io.StringIO()) as text:
             rc = cli.main(["run", ini, "--model", "cg", "--steps",
                            str(cli_steps), "--output", out, "--device",
-                           device.type])
+                           device.type, "--block", "1"])
         res["cli_sec"] = time.perf_counter() - t0
         res["cli_launches"] = pert_step_split.launches
         check(rc == 0 and "variant Perturbation" in text.getvalue() and
@@ -3684,10 +3788,9 @@ def phase_pert_main(device, n=FLAGSHIP_N, steps=MAIN_STEPS, cli_steps=1000):
 # Least bytes per cell-step of K4 (as KERNEL_BYTES): the state in and out
 # plus a 1-byte solid mask
 PERT_BYTES = {"f32": 2 * 40 + 1, "bf16": 2 * 22 + 1, "split": 2 * 72 + 1}
-# floating-point operations per cell-step, counted roughly from the formulas:
-# equilibria, MRT in moment space, gradient, perturbation and recolouring
-# (~500; the split layout relaxes and perturbs two colours, ~800)
-PERT_FLOPS = {"f32": 500, "bf16": 500, "split": 800}
+# least operations per cell-step (F32_FLOPS_PER_S), the compressed layout's
+# for all three (the split layout relaxes and perturbs two colours: more)
+PERT_FLOPS = {"f32": PERT_OPS, "bf16": PERT_OPS, "split": PERT_OPS}
 
 
 def phase_pert_speed(device, n=FLAGSHIP_N, kernel_steps=500, plain_steps=20):
@@ -3794,6 +3897,7 @@ def ptxas_summary(log: str, sc: bool = False) -> str:
             mangled = m.group(1)
             base = next((k for k in COUPLED_KERNELS + SC_KERNELS +
                          TRANSPORT3D_KERNELS + FLOW3D_KERNELS +
+                         tuple(BLOCK_KERNEL_NAMES.values()) +
                          ("bc_rows_kernel", "pert_kernel") if k in mangled),
                         mangled)
             args = mangled.split(base)[-1]
@@ -3817,6 +3921,674 @@ def ptxas_summary(log: str, sc: bool = False) -> str:
     return " | ".join(out)
 
 
+# -- the T-step (temporally blocked) 2-D kernels: K3, K8-T, K7-T -----------
+
+BLOCK_TS = (2, 3, 4)
+# domains of phase 45: a periodic droplet, the flagship's rows and the
+# Dirichlet inlet / convective outlet on walled channels whose ny (100) is no
+# multiple of any tile height (the window wraps the last tile), and the
+# CLI's rk_csf2d.ini (1044 x 1024 with its buffer rows)
+K3_DOMAINS = ("periodic_96x64", "neumann_dirichlet_100x72",
+              "dirichlet_convective_100x72", "cli_rk_csf2d")
+
+
+def k3_wrappers(variant, key):
+    """(kernel wrapper, plain version) of K3 for a variant and a layout key:
+    "f32" / "bf16" (compressed), "split"."""
+    from openlbmpm_torch.kernels import csf as k
+    pre = "csf" if variant == "CSF" else "pert"
+    lay = "split" if key == "split" else "compressed"
+    return (getattr(k, f"{pre}_block_{lay}"),
+            getattr(k, f"{pre}_block_{lay}_reference"))
+
+
+def cli_cg_config(variant, n=FLAGSHIP_N):
+    """(params, boundaries, geometry, invading rows) that ``run --model cg``
+    builds from configs/rk_csf2d.ini at n x n, as the CSF or the
+    Perturbation variant."""
+    import os
+    import tempfile
+    from openlbmpm_torch.cli import _build_geometry
+    from openlbmpm_torch.config import load_colorgradient
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        ini = os.path.join(tmp, "rk_csf2d.ini")
+        _ini_copy(os.path.join(root, "configs", "rk_csf2d.ini"), ini, {
+            "xDomain": n, "yDomain": n, "SurfaceTensionType": f"'{variant}'"})
+        params, bcs, domain, _ = load_colorgradient(ini)
+    return params, bcs, _build_geometry(domain), max(domain.buffer_layers, 10)
+
+
+def k3_case(name, variant, device, dtype=torch.float64):
+    """A K3_DOMAINS model of the variant and its split start."""
+    import dataclasses
+    from openlbmpm_torch.geometry import from_solid_mask
+    from openlbmpm_torch.models.colorgradient import (
+        CGBoundaryConfig, ColorGradientParams, ColorGradientRK)
+    if name == "cli_rk_csf2d":
+        params, bcs, g, rows = cli_cg_config(variant)
+        m = ColorGradientRK(g, params, bcs, dtype=dtype, device=device)
+        return m, m.init_state_layers(1.0, 1.0, invading_rows=rows)
+    if variant == "CSF":
+        params = flagship_flow()[0]
+        params = dataclasses.replace(params, tau_b=0.8, surface_tension=0.01)
+    else:
+        params = ColorGradientParams(**PERT_BASE)
+    if name == "periodic_96x64":
+        m = ColorGradientRK(from_solid_mask(np.zeros((96, 64), bool)), params,
+                            dtype=dtype, device=device)
+        return m, m.init_state_droplet(1.0, 1.0, radius=16.0)
+    bcs = _P_NEU_DIR if name.startswith("neumann") else _P_DIR_CONV
+    m = ColorGradientRK(walled(100, 72), params, CGBoundaryConfig(**bcs),
+                        dtype=dtype, device=device)
+    return m, m.init_state_layers(1.0, 1.0, invading_rows=20)
+
+
+def _gap(a, b) -> float:
+    if isinstance(a, tuple):
+        return max(_gap(x, y) for x, y in zip(a, b))
+    return float((a.double() - b.double()).abs().max())
+
+
+def phase_block_csf_f64(device, calls=2, tol=1e-11):
+    """K3 against T plain steps at f64, both variants, T = 2, 3, 4, two calls
+    in a row: compressed (K3c) and split (K3s) on the small domains of
+    K3_DOMAINS, split (the state the CLI runs) on the CLI's."""
+    res = {}
+    for variant in ("CSF", "Perturbation"):
+        for name in K3_DOMAINS:
+            m, st = k3_case(name, variant, device)
+            for key in ("split",) if name.startswith("cli") else \
+                    ("f32", "split"):
+                kern, plain = k3_wrappers(variant, key)
+                x0 = st if key == "split" else m.pack_state(*st)
+                for t in BLOCK_TS:
+                    a = _steps(lambda x: kern(x, m, t), x0, calls)
+                    b = _steps(lambda x: plain(x, m, t), x0, calls)
+                    err = _gap(a, b)
+                    check(err <= tol, f"K3 {variant} {key} {name} T={t}: "
+                          f"kernel vs {t} plain steps {err:.3e} > {tol:g}")
+                    res[(variant, key, name, t)] = err
+            del m, st
+            torch.cuda.empty_cache()
+    return res
+
+
+def phase_block_sc_f64(device, calls=2, tol=1e-11):
+    """K8-T against T plain steps at f64 on every kernel case of SC_CASES
+    (periodic and channel rows, SC and EFS iso-4/8/10, SRT and MRT, psi =
+    rho and Peng-Robinson, K = 1, 2, 3) on a 100 x 64 channel, T = 2, 3,
+    4, two calls in a row."""
+    from openlbmpm_torch.kernels.shanchen import (sc_block_step,
+                                                  sc_block_step_reference)
+    res = {}
+    for name in SC_KERNEL_CASES:
+        m, f = sc_case(name, device, ny=100, nx=64)
+        for t in BLOCK_TS:
+            err = _gap(_steps(lambda x: sc_block_step(x, m, t), f, calls),
+                       _steps(lambda x: sc_block_step_reference(x, m, t), f,
+                              calls))
+            check(err <= tol, f"K8-T {name} T={t}: kernel vs {t} plain steps "
+                  f"{err:.3e} > {tol:g}")
+            res[(name, t)] = err
+    return res
+
+
+def phase_block_single_f64(device, calls=2, tol=1e-11):
+    """K7-T against T plain steps at f64 on every case of SINGLE_CASES
+    (SRT/TRT/MRT with the body force; Zou-He, pressure/convective and
+    periodic rows) on a 100 x 72 channel, T = 2, 3, 4, two calls in a row."""
+    from openlbmpm_torch.kernels.single import (single_block_step,
+                                                single_block_step_reference)
+    res = {}
+    for name in SINGLE_CASES:
+        m = single_case(name, device, ny=100, nx=72)
+        f = flow_start(m)
+        for t in BLOCK_TS:
+            err = _gap(_steps(lambda x: single_block_step(x, m, t), f, calls),
+                       _steps(lambda x: single_block_step_reference(x, m, t),
+                              f, calls))
+            check(err <= tol, f"K7-T {name} T={t}: kernel vs {t} plain steps "
+                  f"{err:.3e} > {tol:g}")
+            res[(name, t)] = err
+    return res
+
+
+# the T=1 phases' bounds (planes, rho_r), off the seam rows and corners:
+# phase 4 (K1, K2), phase 14 (K6), phase 41 (K4c, K4h, K4s)
+K3_BOUNDS = {("CSF", "f32"): (3e-5, 3e-5), ("CSF", "split"): (3e-5, 3e-5),
+             ("CSF", "bf16"): (3e-4, 1e-4)} | {
+    ("Perturbation", k): v for k, v in PERT_BOUNDS.items()}
+
+
+def phase_block_full(device, n=FLAGSHIP_N, steps=8):
+    """The T-step kernels at full size against their plain versions, T = 2
+    and 4, `steps` steps from one f64 start: K3c, K3s (f32) and K3h (bf16
+    storage, decoded once and encoded once a call by kernel and plain
+    version alike) of both flagships, held off the seam rows and corners to
+    K3_BOUNDS; K8-T at configs 2 and 3 in f32 and bf16 (SC_BOUNDS); K7-T at
+    config 1 in f32 and bf16 (SINGLE_F32_BOUND, BF16_BOUND["K7"])."""
+    from openlbmpm_torch.kernels.shanchen import (sc_block_step,
+                                                  sc_block_step_reference)
+    from openlbmpm_torch.kernels.single import (single_block_step,
+                                                single_block_step_reference)
+    res = {}
+    away = seam_masks(n, n, steps, device)
+    for variant, make in (("CSF", flagship_model),
+                          ("Perturbation", pert_flagship_model)):
+        st64 = make(device, "f32", dtype=torch.float64, n=n).init_state_layers(
+            1.0, 1.0, invading_rows=100 * n // 1024)
+        for key in ("f32", "split", "bf16"):
+            m = make(device, "bf16" if key == "bf16" else "f32", n=n)
+            kern, plain = k3_wrappers(variant, key)
+            x0 = tuple(t.float() for t in st64) if key == "split" else \
+                m.pack_state(*st64).float()
+            if key == "bf16":
+                x0 = m.pack_compressed_bf16(x0)
+            for t in (2, 4):
+                a = _steps(lambda x: kern(x, m, t), x0, steps // t)
+                b = _steps(lambda x: plain(x, m, t), x0, steps // t)
+                if key == "split":
+                    a, b = m.pack_state(*a), m.pack_state(*b)
+                if key == "bf16":
+                    a, b = m.unpack_bf16(a), m.unpack_bf16(b)
+                check(bool(torch.isfinite(a).all()), f"K3 {variant} {key} "
+                      f"T={t}: state not finite")
+                d = (a - b).abs()
+                planes = float(d[:9, away].max())
+                rho_r = float(d[9, away].max())
+                bp, br = K3_BOUNDS[(variant, key)]
+                check(planes <= bp and rho_r <= br, f"K3 {variant} {key} "
+                      f"T={t} off the seam: planes {planes:.3e} (<= {bp:g}), "
+                      f"rho_r {rho_r:.3e} (<= {br:g})")
+                res[("K3", variant, key, t)] = {
+                    "max": float(d.max()), "planes": planes, "rho_r": rho_r}
+            del m
+            torch.cuda.empty_cache()
+    for name in ("config2", "config3"):
+        m64, s64 = sc_config(name, device, dtype=torch.float64, n=n)
+        for st in ("f32", "bf16"):
+            m = sc_config(name, device, storage=st, n=n)[0]
+            x0 = s64.float() if st == "f32" else m.pack_state_bf16(s64.float())
+            for t in (2, 4):
+                a = _steps(lambda x: sc_block_step(x, m, t), x0, steps // t)
+                b = _steps(lambda x: sc_block_step_reference(x, m, t), x0,
+                           steps // t)
+                if st == "bf16":
+                    a, b = m.unpack_bf16(a), m.unpack_bf16(b)
+                gap = _gap(a, b)
+                check(bool(torch.isfinite(a).all()) and gap <= SC_BOUNDS[st],
+                      f"K8-T {name} {st} T={t}: kernel vs plain {gap:.3e} "
+                      f"(<= {SC_BOUNDS[st]:g})")
+                res[("K8-T", name, st, t)] = gap
+        del m64, s64
+    m64 = config1_model(device, dtype=torch.float64)
+    f64 = flow_start(m64, seed=11)
+    for st, bound in (("f32", SINGLE_F32_BOUND), ("bf16", BF16_BOUND["K7"])):
+        m = config1_model(device, storage=st)
+        x0 = f64.float() if st == "f32" else m.pack_state_bf16(f64.float())
+        for t in (2, 4):
+            a = _steps(lambda x: single_block_step(x, m, t), x0, steps // t)
+            b = _steps(lambda x: single_block_step_reference(x, m, t), x0,
+                       steps // t)
+            if st == "bf16":
+                a, b = m.unpack_bf16(a), m.unpack_bf16(b)
+            gap = _gap(a, b)
+            check(bool(torch.isfinite(a).all()) and gap <= bound,
+                  f"K7-T config 1 {st} T={t}: kernel vs plain {gap:.3e} "
+                  f"(<= {bound:g})")
+            res[("K7-T", "config1", st, t)] = gap
+    return res
+
+
+# the T-step kernels' CUDA names in the profiler
+BLOCK_KERNEL_NAMES = {"K3": "csf_block_kernel", "K8-T": "sc_block_kernel",
+                      "K7-T": "single_block_kernel"}
+
+
+def block_bytes(family, key):
+    """Least bytes per cell and time step at T = 1 (each input read once,
+    each output written once): the T=1 kernel's (K1/K2/K6, K4's alike; K8;
+    K7).  A T-step launch moves them once per T steps."""
+    if family == "K3":
+        return {"f32": KERNEL_BYTES["K1"], "bf16": KERNEL_BYTES["K2"],
+                "split": KERNEL_BYTES["K6"]}[key]
+    return (SC_BYTES if family == "K8-T" else SINGLE_BYTES)[key]
+
+
+def block_speed_cases(device, n=FLAGSHIP_N):
+    """(label, family, key, model, state, T=1 step, T-step wrapper, its plain
+    version, cells, operations per cell-step) of phase 49: K3 (both
+    flagships, three layouts) at n^2, K8-T at configs 2 and 3 (n^2), K7-T
+    at config 1 (512 x 1024) and at 1024^2."""
+    from openlbmpm_torch.kernels import shanchen as ksc
+    from openlbmpm_torch.kernels import single as ksg
+    for variant, make, tag in (("CSF", flagship_model, "CSF"),
+                               ("Perturbation", pert_flagship_model, "Pert")):
+        for key in ("f32", "bf16", "split"):
+            m = make(device, "bf16" if key == "bf16" else "f32", n=n)
+            st = m.init_state_layers(1.0, 1.0, invading_rows=100 * n // 1024)
+            x = st if key == "split" else m.pack_state_bf16(*st) \
+                if key == "bf16" else m.pack_state(*st)
+            kern, plain = k3_wrappers(variant, key)
+            flops = (PERT_FLOPS[key] if tag == "Pert" else
+                     KERNEL_FLOPS["K6" if key == "split" else "K1"])
+            yield (f"K3{dict(f32='c', bf16='h', split='s')[key]} {tag}", "K3",
+                   key, m, x, m.step if key == "split" else m.step_c, kern,
+                   plain, n * n, flops)
+    for name in ("config2", "config3"):
+        for st in ("f32", "bf16"):
+            m, f = sc_config(name, device, storage=st, n=n)
+            yield (f"K8-T {name} {st}", "K8-T", st, m,
+                   m.pack_state_bf16(f) if st == "bf16" else f, m.step,
+                   ksc.sc_block_step, ksc.sc_block_step_reference, n * n,
+                   SC_FLOPS[name])
+    for nx in (512, 1024):
+        for st in ("f32", "bf16"):
+            m = config1_model(device, storage=st, nx=nx)
+            f = flow_start(m)
+            yield (f"K7-T {nx}x1024 {st}", "K7-T", st, m,
+                   m.pack_state_bf16(f) if st == "bf16" else f, m.step,
+                   ksg.single_block_step, ksg.single_block_step_reference,
+                   nx * 1024, SINGLE_FLOPS)
+
+
+def _tiling(family, key, m, t):
+    from openlbmpm_torch.kernels import csf as k
+    from openlbmpm_torch.kernels import shanchen as ksc
+    from openlbmpm_torch.kernels import single as ksg
+    dt = torch.bfloat16 if key == "bf16" else torch.float32
+    if family == "K3":
+        return k.csf_block_tiling(dt, key == "split", m.kernel_params, t)
+    fn = ksc.sc_block_tiling if family == "K8-T" else ksg.single_block_tiling
+    return fn(dt, m.kernel_params, t)
+
+
+def phase_block_speed(device, n=FLAGSHIP_N, time_steps=400, calls=10):
+    """Speed per time step of each T-step kernel at T = 1 (the T=1 kernel),
+    2 and 4: CUDA events over `time_steps` steps (T = 1, 2, 4, 4, 2, 1,
+    the best of each), device microseconds per launch from torch.profiler,
+    launches per time step from the wrapper's count over `calls` calls,
+    MLUPS, the bound per step (the least bytes over T, or the least
+    operations of one step, whichever is longer), the plain version's time
+    per step (T = 4) and the launch's tiling."""
+    out = {}
+    for (label, family, key, m, x, step1, kern, plain, cells,
+         flops) in block_speed_cases(device, n):
+        r = {"sec": {}, "launches_per_step": {}, "device_us": {},
+             "tiling": {}, "cells": cells, "flops": flops}
+        for t in (1, 2, 4, 4, 2, 1):
+            fn = step1 if t == 1 else (lambda y, t=t: kern(y, m, t))
+            sec = _time_steps(fn, x, max(time_steps // t, 10), device) / t
+            r["sec"][t] = min(r["sec"].get(t, float("inf")), sec)
+        for t in (2, 4):
+            kern.launches = 0
+            _steps(lambda y: kern(y, m, t), x, calls)
+            r["launches_per_step"][t] = kern.launches / (calls * t)
+            check(kern.launches == calls, f"{label} T={t}: {kern.launches} "
+                  f"launches for {calls} calls")
+            times = device_times(lambda y: kern(y, m, t), x,
+                                 (BLOCK_KERNEL_NAMES[family],), steps=20)
+            r["device_us"][t] = times[BLOCK_KERNEL_NAMES[family]]
+            r["tiling"][t] = _tiling(family, key, m, t)
+        r["plain_sec"] = _time_steps(lambda y: plain(y, m, 4), x, 2,
+                                     device) / 4
+        r["mlups"] = {t: cells / sec / 1e6 for t, sec in r["sec"].items()}
+        r["bound_ms"] = {t: max(block_bytes(family, key) / t * cells /
+                                HBM_BYTES_PER_S, flops * cells /
+                                F32_FLOPS_PER_S) * 1e3 for t in (1, 2, 4)}
+        out[label] = r
+        del m, x
+        torch.cuda.empty_cache()
+    return out
+
+
+def _metrics_gap(path_a, path_b):
+    """(steps of a, steps of b, {field: the largest relative gap of that
+    numeric field of metrics.jsonl}) over the fields other than the step
+    and the timings."""
+    recs = []
+    for path in (path_a, path_b):
+        with open(path) as fh:
+            recs.append([json.loads(ln) for ln in fh if ln.strip()])
+    worst = {}
+    for ra, rb in zip(*recs):
+        for key, va in ra.items():
+            if key in ("mlups", "steps_per_s", "step") or \
+                    not isinstance(va, (int, float)) or isinstance(va, bool):
+                continue
+            vb = rb[key]
+            worst[key] = max(worst.get(key, 0.0), abs(va - vb) /
+                             max(abs(va), abs(vb), 1e-3))
+    return [r["step"] for r in recs[0]], [r["step"] for r in recs[1]], worst
+
+
+# metrics.jsonl of a blocked run against --block 1, relative to max(|a|,
+# |b|, 1e-3): the two runs' f32 kernels round apart (phase 48 holds each to
+# the plain path); the masses, saturation and umax keep that small (8.2e-6
+# at most on an H100), the steady criterion |u - u_prev| / |u| amplifies
+# it (2.1e-4 with the Perturbation variant), so it has its own bound
+BLOCK_CLI_BOUND = 1e-4
+BLOCK_CLI_BOUNDS = {"steady_criterion": 1e-2}
+
+
+def phase_block_main(device, n=FLAGSHIP_N, bench_steps=1000, f32_steps=400):
+    """The T-step kernels' main paths, each kernel's count set to 0 just
+    before the run and read just after.  bench.py's loop: ``run_chunked``
+    of ``make_block_step(steps_per_call=4, compressed=True, storage=...)``
+    on both flagships, bf16 (K3h) and f32 (K3c), and of ``make_block_step(4,
+    storage="bf16")`` at config 1 (K7-T bf16) and config 2 (K8-T bf16).
+    The user's entry point: ``run --model cg`` (CSF and Perturbation INIs,
+    512^2, the I/O of its colour PDFs dominating at 1024^2), ``--model sc``
+    (SC and EFS, 1024^2) and ``--model basic`` (basicsetup.ini) with
+    ``--block 4`` against ``--block 1`` (96 steps, output every 48; the
+    Shan-Chen INI fixes its interval at 1000, so it writes steps 0 and 96):
+    metrics.jsonl at every output step within BLOCK_CLI_BOUND (the steady
+    criterion within BLOCK_CLI_BOUNDS), the T-step
+    kernel launched 24 times and the T=1 kernel never; then ``--block 0``
+    with output every 30 steps (or 90 steps), which 4 does not divide,
+    picks T = 2 as the JAX ``_pick_block`` does."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+    from openlbmpm_torch import cli
+    from openlbmpm_torch.kernels import csf as k
+    from openlbmpm_torch.kernels import shanchen as ksc
+    from openlbmpm_torch.kernels import single as ksg
+    from openlbmpm_torch.models.base import RunMetrics, run_chunked
+    res = {}
+    for variant, make, tag in (("CSF", flagship_model, "CSF"),
+                               ("Perturbation", pert_flagship_model, "Pert")):
+        counter = k.csf_block_compressed if tag == "CSF" else \
+            k.pert_block_compressed
+        for st, steps in (("bf16", bench_steps), ("f32", f32_steps)):
+            m = make(device, st, n=n)
+            blk = m.make_block_step(steps_per_call=4, compressed=True,
+                                    storage=st)
+            init = m.init_state_layers(1.0, 1.0, invading_rows=100 * n // 1024)
+            s0 = m.pack_state_bf16(*init) if st == "bf16" else \
+                m.pack_state(*init)
+            meter = RunMetrics(n * n)
+            counter.launches = 0
+            s = run_chunked(blk, s0, num_steps=steps // 4,
+                            io_interval=steps // 8, metrics=meter,
+                            nan_guard=True)
+            launches = counter.launches
+            x = m.unpack_bf16(s) if st == "bf16" else s
+            check(launches == steps // 4 and bool(torch.isfinite(x).all()),
+                  f"bench loop {tag} {st}: {launches} launches, want "
+                  f"{steps // 4}")
+            res[("bench", tag, st)] = {"launches": launches, "steps": steps,
+                                       "mlups": 4 * meter.mlups}
+            del m, s, s0, x
+    for label, m, f0, counter in (
+            ("K8-T bf16", *sc_config("config2", device, storage="bf16", n=n),
+             ksc.sc_block_step),
+            ("K7-T bf16", config1_model(device, storage="bf16"), None,
+             ksg.single_block_step)):
+        f0 = flow_start(m) if f0 is None else f0
+        blk = m.make_block_step(steps_per_call=4, storage="bf16")
+        counter.launches = 0
+        s = run_chunked(blk, m.pack_state_bf16(f0), num_steps=f32_steps // 4,
+                        io_interval=f32_steps // 8, nan_guard=True)
+        launches = counter.launches
+        check(launches == f32_steps // 4 and
+              bool(torch.isfinite(m.unpack_bf16(s)).all()),
+              f"{label} main path: {launches} launches")
+        res[("loop", label)] = {"launches": launches, "steps": f32_steps}
+    root = os.path.dirname(os.path.abspath(__file__))
+    runs = (("cg", "CSF", k.csf_block_split, k.csf_step_split),
+            ("cg", "Perturbation", k.pert_block_split, k.pert_step_split),
+            ("sc", "sc", ksc.sc_block_step, ksc.sc_step),
+            ("sc", "efs", ksc.sc_block_step, ksc.sc_step),
+            ("basic", "basic", ksg.single_block_step, ksg.single_step))
+    with tempfile.TemporaryDirectory() as tmp:
+        for model, tag, blocked, one in runs:
+            extra = []
+            ini = os.path.join(tmp, f"{tag}.ini")
+            if model == "cg":
+                _ini_copy(os.path.join(root, "configs", "rk_csf2d.ini"), ini,
+                          {"xDomain": 512, "yDomain": 512,
+                           "SurfaceTensionType": f"'{tag}'"})
+            elif model == "sc":
+                ini, phys = _sc_ini(root, tmp, n, tag == "efs")
+                extra = ["--physics-config", phys]
+            else:
+                _ini_copy(os.path.join(root, "configs", "basicsetup.ini"), ini,
+                          {})
+            r = {}
+            # the Shan-Chen INI fixes its output interval at 1000 steps
+            plan = (("1", 96, 48), ("4", 96, 48), ("0", 90, 30)) if \
+                model != "sc" else (("1", 96, None), ("4", 96, None),
+                                    ("0", 90, None))
+            for block, steps, interval in plan:
+                if interval is not None:
+                    _ini_copy(ini, ini, {"TimeInterval": interval})
+                out = os.path.join(tmp, f"{tag}_{block}")
+                blocked.launches = one.launches = 0
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()) as text:
+                    rc = cli.main(["run", ini, "--model", model, *extra,
+                                   "--steps", str(steps), "--output", out,
+                                   "--device", "cuda", "--block", block])
+                sec = time.perf_counter() - t0
+                want_t = {"1": 1, "4": 4, "0": 2}[block]
+                line = next((ln for ln in text.getvalue().splitlines()
+                             if f"--model {model}" in ln), "")
+                said = f"{want_t} steps a launch" if want_t > 1 else \
+                    "one step a launch"
+                counts = (blocked.launches, one.launches)
+                want = (0, steps) if want_t == 1 else (steps // want_t, 0)
+                check(rc == 0 and said in line and counts == want,
+                      f"cli {model} {tag} --block {block}: rc {rc}, "
+                      f"launches {counts} (want {want}), {line}")
+                r[block] = {"sec": sec, "launches": counts, "line": line,
+                            "mlups": _mlups(os.path.join(out,
+                                                         "metrics.jsonl"))}
+            sa, sb, gaps = _metrics_gap(
+                os.path.join(tmp, f"{tag}_1", "metrics.jsonl"),
+                os.path.join(tmp, f"{tag}_4", "metrics.jsonl"))
+            want_steps = [0, 96] if model == "sc" else [0, 48, 96]
+            over = {k: v for k, v in gaps.items()
+                    if v > BLOCK_CLI_BOUNDS.get(k, BLOCK_CLI_BOUND)}
+            check(sa == sb == want_steps and not over,
+                  f"cli {model} {tag}: --block 4 metrics at {sb}, --block 1 "
+                  f"at {sa}, relative gaps over their bounds: {over}")
+            gap = max(gaps.values())
+            r["gap"], r["gaps"] = gap, gaps
+            res[("cli", tag)] = r
+    return res
+
+
+def phase_cli_default(device, n=FLAGSHIP_N, steps=1000):
+    """The CLI's default ``--block 0`` at the shipped sizes of phases 12
+    (``cg``, CSF, rk_csf2d.ini, output every 500 steps), 18 (``sc``, SC,
+    1024^2) and 38 (``basic``, basicsetup.ini, output every `steps`):
+    `steps` f32 steps each; T from the printed path line, the T-step
+    kernel launched `steps` / T times and the T=1 kernel never, the
+    seconds with I/O."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+    from openlbmpm_torch import cli
+    from openlbmpm_torch.kernels.csf import csf_block_split, csf_step_split
+    from openlbmpm_torch.kernels.shanchen import sc_block_step, sc_step
+    from openlbmpm_torch.kernels.single import single_block_step, single_step
+    root = os.path.dirname(os.path.abspath(__file__))
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cg_ini = os.path.join(tmp, "rk_csf2d.ini")
+        _mini_ini(os.path.join(root, "configs", "rk_csf2d.ini"), cg_ini, n,
+                  500)
+        sc_ini, sc_phys = _sc_ini(root, tmp, n, False)
+        basic_ini = os.path.join(tmp, "basicsetup.ini")
+        _ini_copy(os.path.join(root, "configs", "basicsetup.ini"), basic_ini,
+                  {"TimeInterval": steps})
+        for model, args, blk, one in (
+                ("cg", [cg_ini], csf_block_split, csf_step_split),
+                ("sc", [sc_ini, "--physics-config", sc_phys], sc_block_step,
+                 sc_step),
+                ("basic", [basic_ini], single_block_step, single_step)):
+            out = os.path.join(tmp, model)
+            blk.launches = one.launches = 0
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()) as text:
+                rc = cli.main(["run", *args, "--model", model, "--steps",
+                               str(steps), "--output", out, "--device",
+                               "cuda", "--block", "0"])
+            sec = time.perf_counter() - t0
+            found = re.search(r"(\d+) steps a launch", text.getvalue())
+            t = int(found.group(1)) if found else 1
+            check(rc == 0, f"cli default {model}: returned {rc}")
+            check(t in (2, 4) and blk.launches * t == steps and
+                  one.launches == 0, f"cli default {model}: T = {t}, "
+                  f"{blk.launches} T-step and {one.launches} T=1 launches "
+                  f"for {steps} steps")
+            res[model] = {"t": t, "launches": blk.launches, "sec": sec}
+    return res
+
+
+def phase45_50_lines(r45, r46, r47, r48, r49, r50, card):
+    def worst(r, pick):
+        return max(v for k, v in r.items() if pick(k))
+    lines = [
+        "phase 45 K3 f64, T steps a launch vs T plain steps (T = 2, 3, 4, two "
+        "calls; " + ", ".join(K3_DOMAINS) + "), max |diff|: " + ", ".join(
+            f"{v} {lay} {worst(r45, lambda k: k[:2] == (v, lay)):.3e}"
+            for v in ("CSF", "Perturbation") for lay in ("f32", "split")) +
+        f" over {len(r45)} runs (<= 1e-11)",
+        f"phase 46 K8-T f64 (T = 2, 3, 4, every kernel case of SC_CASES, "
+        f"100x64): max |diff| {max(r46.values()):.3e} over {len(r46)} runs "
+        "(<= 1e-11)",
+        f"phase 47 K7-T f64 (T = 2, 3, 4, every case of SINGLE_CASES, "
+        f"100x72): max |diff| {max(r47.values()):.3e} over {len(r47)} runs "
+        "(<= 1e-11)",
+        f"phase 48 T-step kernels at full size vs their plain versions, 8 "
+        f"steps from one f64 start [{card}]: " + "; ".join(
+            (f"{k[0]} {k[1]} {k[2]} T={k[3]} planes {v['planes']:.3e} rho_r "
+             f"{v['rho_r']:.3e} off the seam (<= "
+             f"{K3_BOUNDS[k[1:3]][0]:g} / {K3_BOUNDS[k[1:3]][1]:g})")
+            if k[0] == "K3" else
+            f"{k[0]} {k[1]} {k[2]} T={k[3]} {v:.3e}" for k, v in r48.items())]
+    for label, r in r49.items():
+        dev = r["device_us"]
+        lines.append(
+            f"phase 49 {label} [{card}]: ms a time step T=1/2/4 " + "/".join(
+                f"{r['sec'][t] * 1e3:.4f}" for t in (1, 2, 4)) +
+            ", MLUPS " + "/".join(f"{r['mlups'][t]:.1f}" for t in (1, 2, 4)) +
+            ", bound ms a step " + "/".join(
+                f"{r['bound_ms'][t]:.4f}" for t in (1, 2, 4)) +
+            "; launches a step T=2/4 " + "/".join(
+                f"{r['launches_per_step'][t]:g}" for t in (2, 4)) +
+            "; device us a launch T=2/4 " + "/".join(
+                "not measured" if dev[t] is None else f"{dev[t][0]:.2f}"
+                for t in (2, 4)) +
+            "; tile, window KB, global T=2/4 " + "/".join(
+                f"{g['tx']}x{g['ty']} {g['window_bytes'] / 1024:.1f} "
+                f"{g['gmem']}" for g in (r["tiling"][2], r["tiling"][4])) +
+            f"; plain ms a step {r['plain_sec'] * 1e3:.3f}")
+    for (kind, *rest), r in r50.items():
+        if kind == "cli":
+            lines.append(
+                f"phase 50 cli {rest[0]} [{card}]: --block 1/4/0 launches "
+                "(T-step, T=1) " + "/".join(
+                    str(r[b]["launches"]) for b in ("1", "4", "0")) +
+                ", seconds with I/O " + "/".join(
+                    f"{r[b]['sec']:.2f}" for b in ("1", "4", "0")) +
+                "; metrics.jsonl --block 4 vs 1 relative gaps " + ", ".join(
+                    f"{k} {v:.2e}" for k, v in r["gaps"].items()) +
+                f" (<= {BLOCK_CLI_BOUND:g}, steady_criterion <= "
+                f"{BLOCK_CLI_BOUNDS['steady_criterion']:g}); " +
+                r["0"]["line"])
+        else:
+            lines.append(
+                f"phase 50 {kind} {' '.join(rest)}: run_chunked of "
+                f"make_block_step(4), {r['steps']} steps, {r['launches']} "
+                "launches" + (f", {r['mlups']:.1f} MLUPS incl. host loop"
+                              if "mlups" in r else "") + f" [{card}]")
+    return lines
+
+
+def block_entries(r45, r46, r47, r48, r49, r50):
+    """The kernels line's entries of the T-step kernels: ms, plain_ms and
+    bound_ms a time step at T = 4, launches from phase 50's main paths."""
+    csf = "openlbmpm_tpu/pallas/csf.py:147"
+    entries = []
+    for variant, tag in (("CSF", "CSF"), ("Perturbation", "Pert")):
+        pre = "csf" if tag == "CSF" else "pert"
+        sub = "_substep{_c} :998, :1033" if tag == "CSF" else \
+            "_substep_pert{_c} :1118, :1246"
+        for key, name, launches in (
+                ("bf16", f"{pre}_block_compressed",
+                 r50[("bench", tag, "bf16")]["launches"]),
+                ("f32", f"{pre}_block_compressed_f32",
+                 r50[("bench", tag, "f32")]["launches"]),
+                ("split", f"{pre}_block_split",
+                 r50[("cli", variant)]["4"]["launches"][0])):
+            label = f"K3{dict(f32='c', bf16='h', split='s')[key]} {tag}"
+            sp = r49[label]
+            lay = "split" if key == "split" else "f32"
+            entries.append(kernel_entry(
+                name, label, "openlbmpm_torch/csrc/csf2d_block.cuh",
+                f"{csf} (steps_per_call=T, variant='{variant}', {sub}, "
+                + ("state_mode=" if key == "split" else "storage=")
+                + f"{key!r})",
+                launches, max(r48[("K3", variant, key, t)]["max"]
+                              for t in (2, 4)),
+                sp["sec"][4], sp["plain_sec"], block_bytes("K3", key) / 4,
+                sp["flops"], sp["cells"], steps_per_call=4,
+                max_abs_err_f64=max(v for k, v in r45.items()
+                                    if k[:2] == (variant, lay)),
+                **block_extras(sp)))
+    for name, cfg, st, launches in (
+            ("sc_block_step", "config2", "f32", r50[("cli", "sc")]["4"]),
+            ("sc_block_step_efs", "config3", "f32", r50[("cli", "efs")]["4"]),
+            ("sc_block_step_bf16", "config2", "bf16",
+             r50[("loop", "K8-T bf16")])):
+        sp = r49[f"K8-T {cfg} {st}"]
+        entries.append(kernel_entry(
+            name, f"K8-T {cfg} {st}", "openlbmpm_torch/csrc/sc2d_block.cuh",
+            "openlbmpm_tpu/pallas/shanchen.py:92 (steps_per_call=T, "
+            "sub-steps :723-740, " + ("original SC" if cfg == "config2"
+                                      else "EFS iso-8 MRT") +
+            f", storage='{st}')",
+            launches["launches"][0] if "line" in launches else
+            launches["launches"],
+            max(r48[("K8-T", cfg, st, t)] for t in (2, 4)),
+            sp["sec"][4], sp["plain_sec"], block_bytes("K8-T", st) / 4,
+            sp["flops"], sp["cells"], steps_per_call=4,
+            max_abs_err_f64=max(r46.values()), **block_extras(sp)))
+    for name, st, launches in (
+            ("single_block_step", "f32", r50[("cli", "basic")]["4"]
+             ["launches"][0]),
+            ("single_block_step_bf16", "bf16",
+             r50[("loop", "K7-T bf16")]["launches"])):
+        sp, big = r49[f"K7-T 512x1024 {st}"], r49[f"K7-T 1024x1024 {st}"]
+        entries.append(kernel_entry(
+            name, f"K7-T {st}", "openlbmpm_torch/csrc/single2d_block.cuh",
+            "openlbmpm_tpu/pallas/single.py:43 (steps_per_call=T, call :440, "
+            f"rows after each sub-step :366-373, storage='{st}')", launches,
+            max(r48[("K7-T", "config1", st, t)] for t in (2, 4)),
+            sp["sec"][4], sp["plain_sec"], block_bytes("K7-T", st) / 4,
+            sp["flops"], sp["cells"], steps_per_call=4,
+            max_abs_err_f64=max(r47.values()), **block_extras(sp),
+            ms_1024=big["sec"][4] * 1e3, ms_t1_1024=big["sec"][1] * 1e3,
+            bound_ms_1024=big["bound_ms"][4]))
+    return entries
+
+
+def block_extras(sp):
+    """A phase 49 row's numbers at T = 1 and 2 beside the entry's T = 4."""
+    return {"ms_t1": sp["sec"][1] * 1e3, "ms_t2": sp["sec"][2] * 1e3,
+            "bound_ms_t1": sp["bound_ms"][1], "bound_ms_t2": sp["bound_ms"][2],
+            "mlups": sp["mlups"][4],
+            "device_us_t4": None if sp["device_us"][4] is None
+            else sp["device_us"][4][0],
+            "launches_per_step": sp["launches_per_step"][4]}
+
+
 def build_report(build, lib: str, sc: bool = False) -> str:
     logs = list(build.BUILD_DIR.glob(f"lib{lib}-*.log"))
     if not logs:
@@ -3833,13 +4605,13 @@ def build_report(build, lib: str, sc: bool = False) -> str:
 # (72 B) in and out; K5s: K6's plus the tracer.
 KERNEL_BYTES = {"K2": 2 * 22 + 1, "K1": 2 * 40 + 1, "K5c": 2 * 22 + 2 * 20 + 1,
                 "K6": 2 * 72 + 1, "K5s": 2 * 72 + 2 * 20 + 1}
-# Floating-point operations per cell-step, counted roughly from the formulas
-# (an upper estimate; the bytes bind by far in every case): CSF flow step
-# ~600 (MRT, wetting, recolouring), one D2Q5 tracer ~150; K8 with K = 2:
-# SC SRT ~350, EFS iso-8 MRT ~700.
-KERNEL_FLOPS = {"K2": 600, "K1": 600, "K5c": 750, "K6": 600, "K5s": 750}
-SC_FLOPS = {"config2": 350, "config3": 700}
-F32_FLOPS_PER_S = 67e12      # H100 SXM, outside the tensor cores
+# Least operations per cell-step (F32_FLOPS_PER_S): the CSF flow step, and
+# with one D2Q5 tracer; K8 with K = 2, SC and EFS iso-8 alike.  The bytes
+# bind every T=1 kernel, and every T-step kernel of phase 49 at T = 2 and
+# 4 too (K3h at T = 4: 45 / 4 B against 177 operations a cell-step).
+KERNEL_FLOPS = {"K2": CSF_OPS, "K1": CSF_OPS, "K5c": CSF_OPS + TRACER2D_OPS,
+                "K6": CSF_OPS, "K5s": CSF_OPS + TRACER2D_OPS}
+SC_FLOPS = {"config2": SC2_OPS, "config3": SC2_OPS}
 
 
 def kernel_entry(name, label, source, replaces, launches, max_abs_err, sec,
@@ -3885,7 +4657,8 @@ def main() -> int:
           f"{t_build:.2f} s (nvcc " + ", ".join(
               f"{lib} {build.build_seconds.get(lib, 0.0):.2f} s"
               for lib in libs) + ")")
-    raw_ints = SC_LIBS + SINGLE_LIBS + FLOW3D_LIBS
+    raw_ints = SC_LIBS + SINGLE_LIBS + FLOW3D_LIBS + tuple(
+        lib for lib in libs if "_block_" in lib)
     for lib in libs:
         print(f"phase 2 ptxas {lib}: "
               f"{build_report(build, lib, lib in raw_ints)}")
@@ -3989,6 +4762,30 @@ def main() -> int:
         f"{k[1:]} {v[1]:.1f}" for k, v in sorted(t_k4.items())))
     for ln in phase40_44_lines(r40, r41, r42, r43, r44, card):
         print(ln)
+
+    t_k4 = time.perf_counter() - t_start
+    t_blk = {}
+    for key, fn in (("r45", phase_block_csf_f64), ("r46", phase_block_sc_f64),
+                    ("r47", phase_block_single_f64), ("r48", phase_block_full),
+                    ("r49", phase_block_speed), ("r50", phase_block_main)):
+        t0 = time.perf_counter()
+        t_blk[key] = (fn(device), time.perf_counter() - t0)
+        torch.cuda.empty_cache()
+    r45, r46, r47, r48, r49, r50 = (t_blk[k][0] for k in sorted(t_blk))
+    print("phases 45-50 wall s: " + ", ".join(
+        f"{k[1:]} {v[1]:.1f}" for k, v in sorted(t_blk.items())))
+    for ln in phase45_50_lines(r45, r46, r47, r48, r49, r50, card):
+        print(ln)
+    t0 = time.perf_counter()
+    r51 = phase_cli_default(device)
+    print(f"phase 51 cli default --block 0 at the shipped sizes [{card}]: "
+          + "; ".join(f"{m} T={r51[m]['t']} {r51[m]['launches']} T-step "
+                      f"launches, {r51[m]['sec']:.2f} s with I/O against "
+                      f"{sec1:.2f} s with --block 1 (phase {ph})"
+                      for m, sec1, ph in (("cg", r12["cg_sec"], 12),
+                                          ("sc", cli["sc"]["sec"], 18),
+                                          ("basic", r38["basic"]["sec"], 38)))
+          + f"; wall {time.perf_counter() - t0:.1f} s")
 
     n2 = FLAGSHIP_N * FLAGSHIP_N
     csf = "openlbmpm_tpu/pallas/csf.py:147"
@@ -4118,10 +4915,11 @@ def main() -> int:
             r41[key]["max"], r44["sec"][key], r44["sec"][f"plain_{key}"],
             PERT_BYTES[key], PERT_FLOPS[key], n2, max_abs_err_f64=f64,
             mlups=r44["mlups"][key]))
+    entries += block_entries(r45, r46, r47, r48, r49, r50)
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s "
           f"(phases 1-14 {t_old:.1f} s, 1-19 {t_2d:.1f} s, 1-24 "
-          f"{t_3d:.1f} s, 1-28 {t_k9t:.1f} s, 1-39 {t_flow:.1f} s, build "
-          f"{t_build:.1f} s)")
+          f"{t_3d:.1f} s, 1-28 {t_k9t:.1f} s, 1-39 {t_flow:.1f} s, 1-44 "
+          f"{t_k4:.1f} s, build {t_build:.1f} s)")
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

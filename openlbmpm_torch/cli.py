@@ -29,8 +29,11 @@ prints which); ``--model basic`` steps ``SinglePhaseD2Q9.step`` on the
 (9, ny, nx) state of a basicsetup.ini (on a card, K7), ``--model basic3d``
 ``SinglePhaseD3Q19.step`` in a box with walls on the x and y faces (K11),
 and ``--model sc3d`` ``ShanChenMCMP3D.step`` on a droplet in that box
-(K10); each prints the step it takes.  Results, metrics and checkpoints
-are written as the JAX CLI writes them, so a checkpoint of either package
+(K10); each prints the step it takes.  ``cg``, ``sc`` and ``basic``
+advance T steps a launch on a card (temporal blocking, ``--block``: the
+T-step kernels K3, K8-T and K7-T through ``make_block_step``), as the JAX
+CLI does on its accelerator; the run prints T.  Results, metrics and
+checkpoints are written as the JAX CLI writes them, so a checkpoint of either package
 resumes in the other.
 
 ``--device cuda`` (the default) runs on the first card and raises when
@@ -86,9 +89,57 @@ def _host(t) -> np.ndarray:
 
 
 def _note_block(args):
-    # the port has no temporally blocked step (K3): as the JAX CLI off a TPU
+    # a run that goes unblocked although --block asked for more than one
+    # step a launch (a family whose T-step kernel is not ported, or no
+    # kernel for this configuration): the JAX CLI's note
     if args.block > 1:
         print("note: --block unsupported for this config; running unblocked")
+
+
+def _blocks_on(model) -> bool:
+    """Whether runs of `model` take T steps a launch: on a card."""
+    return model.device.type == "cuda"
+
+
+def _pick_block(model, args, io_interval, num_steps, **kw):
+    """Resolve --block into (blocked step | None, step scale), as the JAX
+    CLI's ``_pick_block``.
+
+    ``--block N`` requests exactly N; 0 (the default) tries 4, then 2;
+    ``--block 1`` and CPU runs stay unblocked (the JAX CLI blocks only on
+    its accelerator).  T must divide both the I/O interval and the step
+    count, so callbacks land on true step boundaries; an explicit
+    non-divisor runs unblocked with a note.  Extra keywords go to
+    ``make_block_step``."""
+    if args.block == 1 or not _blocks_on(model):
+        return None, 1
+    cands = [args.block] if args.block > 1 else [4, 2]
+    for t in cands:
+        if io_interval % t or num_steps % t:
+            if args.block > 1:
+                print(f"note: --block {t} does not divide the I/O "
+                      f"interval ({io_interval}) and step count "
+                      f"({num_steps}); running unblocked")
+            continue
+        blk = model.make_block_step(steps_per_call=t, **kw)
+        if blk is not None:
+            return blk, t
+    return None, 1
+
+
+def _blocked(model, args, run):
+    """The step function and step scale of a run: the T-step kernel when
+    ``_pick_block`` finds one, else ``model.step`` (with the JAX note for
+    an explicit --block)."""
+    blk, scale = _pick_block(model, args, run.io_interval, run.num_steps)
+    if blk is not None:
+        return blk, scale
+    _note_block(args)
+    return model.step, 1
+
+
+def _steps_line(scale):
+    return f"{scale} steps a launch" if scale > 1 else "one step a launch"
 
 
 def _run_colorgradient(args):
@@ -106,9 +157,10 @@ def _run_colorgradient(args):
     geometry = _build_geometry(domain)
     dtype, dev = _setup(args)
     model = ColorGradientRK(geometry, params, bcs, dtype=dtype, device=dev)
+    step_fn, scale = _blocked(model, args, run)
     print(f"openlbmpm_torch: --model cg, variant {params.variant}, "
           f"boundaries {bcs.inlet}/{bcs.outlet}: the {model.path} step on "
-          f"{dev}, split state")
+          f"{dev}, split state, {_steps_line(scale)}")
     state = model.init_state_layers(
         1.0, 1.0, invading_rows=max(domain.buffer_layers, 10))
     fingerprint = config_fingerprint(params)
@@ -121,7 +173,6 @@ def _run_colorgradient(args):
             state = di_cycle_swap(*state,
                                   buffer_rows=max(domain.buffer_layers, 10))
             print("D-I cycle: fluids swapped in the buffer layers")
-    _note_block(args)
 
     writer = ResultWriter(args.output, basename="SimulationResultsRK")
     logger = MetricsLogger(os.path.join(args.output, "metrics.jsonl"),
@@ -130,6 +181,7 @@ def _run_colorgradient(args):
     prev_u = {"u": None}
 
     def callback(step, s):
+        step = step * scale
         f_r, f_b = s
         rho_r, rho_b, phi, (ux, uy) = model.macro(s)
         writer.write_rk(start_step + step, _host(rho_r), _host(rho_b),
@@ -157,9 +209,9 @@ def _run_colorgradient(args):
             return True
         return False
 
-    run_chunked(model.step, state, num_steps=max(1, run.num_steps),
-                io_interval=max(1, run.io_interval), callback=callback,
-                nan_guard=True, profile_dir=args.profile)
+    run_chunked(step_fn, state, num_steps=max(1, run.num_steps // scale),
+                io_interval=max(1, run.io_interval // scale),
+                callback=callback, nan_guard=True, profile_dir=args.profile)
     logger.close()
     return 0
 
@@ -365,9 +417,11 @@ def _run_shanchen(args):
     if args.steps:
         run = dataclasses.replace(run, num_steps=args.steps)
     params, bcs, geometry = model.p, model.bcs, model.geo
+    step_fn, scale = _blocked(model, args, run)
     print(f"openlbmpm_torch: --model sc, scheme {params.scheme}, "
           f"{params.collision}, forcing {params.forcing}, boundaries "
-          f"{bcs.inlet}/{bcs.outlet}: the {model.path} step on {dev}")
+          f"{bcs.inlet}/{bcs.outlet}: the {model.path} step on {dev}, "
+          f"{_steps_line(scale)}")
     fingerprint = config_fingerprint(params)
     start_step = 0
     ckpt_path = os.path.join(args.output, "checkpoint.npz")
@@ -377,13 +431,13 @@ def _run_shanchen(args):
         if run.is_cycle:
             state = di_cycle_swap_sc(state, buffer_rows=10)
             print("D-I cycle: fluids swapped in the buffer layers")
-    _note_block(args)
     writer = ResultWriter(args.output, basename="SimulationResults")
     logger = MetricsLogger(os.path.join(args.output, "metrics.jsonl"),
                            geometry.num_fluid_nodes, echo=True)
     ckpt_every = max(1, 10 * run.io_interval)
 
     def callback(step, f):
+        step = step * scale
         rho_k, (ux, uy) = model.macro(f)
         writer.write_sc(start_step + step, _host(rho_k), _host(ux), _host(uy))
         logger.log(start_step + step,
@@ -393,19 +447,20 @@ def _run_shanchen(args):
             save_checkpoint(ckpt_path, f, start_step + step, fingerprint)
         return False
 
-    run_chunked(model.step, state, num_steps=max(1, run.num_steps),
-                io_interval=max(1, run.io_interval), callback=callback,
-                nan_guard=True, profile_dir=args.profile)
+    run_chunked(step_fn, state, num_steps=max(1, run.num_steps // scale),
+                io_interval=max(1, run.io_interval // scale),
+                callback=callback, nan_guard=True, profile_dir=args.profile)
     logger.close()
     return 0
 
 
 def _run_checkpointed(args, model, state, run, fingerprint, basename,
-                      record):
+                      record, stepper=None):
     """The run loop of the single-phase and 3-D Shan-Chen families: resume,
     then every I/O step the result datasets and metrics of ``record(step,
     f) -> (datasets, metrics)`` and, every ten outputs and at the end, a
-    checkpoint."""
+    checkpoint.  ``stepper``: (step function, steps a call) of a family
+    with a T-step kernel (``_blocked``); else ``model.step``."""
     from .checkpoint import load_checkpoint, save_checkpoint
     from .io import ResultWriter
     from .metrics import MetricsLogger
@@ -415,13 +470,16 @@ def _run_checkpointed(args, model, state, run, fingerprint, basename,
     if args.resume and os.path.exists(ckpt_path):
         state, start_step = load_checkpoint(ckpt_path, state, fingerprint)
         print(f"resumed from step {start_step}")
-    _note_block(args)
+    step_fn, scale = stepper or (model.step, 1)
+    if stepper is None:
+        _note_block(args)
     writer = ResultWriter(args.output, basename=basename)
     logger = MetricsLogger(os.path.join(args.output, "metrics.jsonl"),
                            model.geo.num_fluid_nodes, echo=True)
     ckpt_every = max(1, 10 * run.io_interval)
 
     def callback(step, f):
+        step = step * scale
         datasets, scalars = record(start_step + step, f)
         writer.write(start_step + step, datasets)
         logger.log(start_step + step, **scalars)
@@ -429,9 +487,9 @@ def _run_checkpointed(args, model, state, run, fingerprint, basename,
             save_checkpoint(ckpt_path, f, start_step + step, fingerprint)
         return False
 
-    run_chunked(model.step, state, num_steps=max(1, run.num_steps),
-                io_interval=max(1, run.io_interval), callback=callback,
-                nan_guard=True, profile_dir=args.profile)
+    run_chunked(step_fn, state, num_steps=max(1, run.num_steps // scale),
+                io_interval=max(1, run.io_interval // scale),
+                callback=callback, nan_guard=True, profile_dir=args.profile)
     logger.close()
     return 0
 
@@ -465,8 +523,9 @@ def _run_basic(args):
     dtype, dev = _setup(args)
     model = SinglePhaseD2Q9(geo.from_solid_mask(solid), dtype=dtype,
                             device=dev, **solver_kw)
+    stepper = _blocked(model, args, run)
     print(f"openlbmpm_torch: --model basic, {model.collision}: the "
-          f"{model.path} step on {dev}")
+          f"{model.path} step on {dev}, {_steps_line(stepper[1])}")
 
     def record(step, f):
         rho, (ux, uy) = model.macro(f)
@@ -480,7 +539,7 @@ def _run_basic(args):
 
     return _run_checkpointed(args, model, model.init_state(1.0, u0), run,
                              config_fingerprint(solver_kw),
-                             "SimulationResults", record)
+                             "SimulationResults", record, stepper)
 
 
 def _run_basic3d(args):
@@ -596,9 +655,13 @@ def main(argv=None) -> int:
         sp.add_argument("--png", action="store_true",
                         help="write PNG snapshots at the I/O cadence")
         sp.add_argument("--block", type=int, default=0,
-                        help="time steps per kernel launch; the port runs "
-                             "one (temporal blocking is not ported), so "
-                             "N > 1 runs unblocked with a note")
+                        help="time steps per kernel launch (temporal "
+                             "blocking) of cg, sc and basic on the card: N "
+                             "runs exactly N, 0 (default) tries 4 then 2, "
+                             "1 runs unblocked; N must divide the I/O "
+                             "interval and the step count, or the run goes "
+                             "unblocked with a note.  CPU runs and the "
+                             "other models run unblocked")
         sp.add_argument("--resume", action="store_true",
                         help="resume from <output>/checkpoint.npz")
         sp.add_argument("--stop-at-breakthrough", action="store_true")

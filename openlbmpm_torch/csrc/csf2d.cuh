@@ -454,6 +454,35 @@ __device__ void rotate_wetting(C& gx, C& gy, C nsx, C nsy, const CsfParams& P) {
   }
 }
 
+// The colour gradient 3 sum_i w_i e_i phi_ext(x + e_i), with phi_at(i)
+// giving phi_ext of neighbour i (normal_kernel and the blocked step).
+template <typename C, typename PhiAt>
+__device__ __forceinline__ void phi_gradient(PhiAt phi_at_i, C& gx, C& gy) {
+  gx = C(0);
+  gy = C(0);
+#pragma unroll
+  for (int i = 1; i < 9; ++i) {
+    const C sv = phi_at_i(i);
+    if (ex(i)) gx = gx + C(wq(i) * ex(i)) * sv;
+    if (ey(i)) gy = gy + C(wq(i) * ey(i)) * sv;
+  }
+  gx = C(3) * gx;
+  gy = C(3) * gy;
+}
+
+// The unit normal of the (wetted) gradient on a cell of fluid mask fl:
+// inward (-g / |g|, |g| > eps) for Akai wetting, g / |g| otherwise.
+template <typename C>
+__device__ __forceinline__ void unit_normal(C gx, C gy, C fl, const CsfParams& P, C& nx,
+                                            C& ny) {
+  const bool inward = P.wetting_type == 2;
+  const C norm = sqrt(gx * gx + gy * gy);
+  const bool ok = norm > C(inward ? kEps : 0.0);
+  const C sgn = inward ? C(-1) : C(1);
+  nx = (ok ? sgn * gx / norm : C(0)) * fl;
+  ny = (ok ? sgn * gy / norm : C(0)) * fl;
+}
+
 template <typename C>
 __global__ void normal_kernel(const C* __restrict__ geo, const C* __restrict__ phi,
                               C* __restrict__ nrm, CsfParams P) {
@@ -474,26 +503,13 @@ __global__ void normal_kernel(const C* __restrict__ geo, const C* __restrict__ p
       num = num + C(wq(i)) * phi[(size_t)wrap(yy + ey(i), ny) * nx + wrap(xx + ex(i), nx)];
     return num * geo[4 * n + kk];
   };
-  C gx = C(0), gy = C(0);
-#pragma unroll
-  for (int i = 1; i < 9; ++i) {
-    const C sv = phi_ext(x + ex(i), y + ey(i));
-    if (ex(i)) gx = gx + C(wq(i) * ex(i)) * sv;
-    if (ey(i)) gy = gy + C(wq(i) * ey(i)) * sv;
-  }
-  gx = C(3) * gx;
-  gy = C(3) * gy;
+  C gx, gy;
+  phi_gradient([&](int i) { return phi_ext(x + ex(i), y + ey(i)); }, gx, gy);
   if (P.has_wetting && geo[n + k] > C(0.5))
     rotate_wetting(gx, gy, geo[2 * n + k], geo[3 * n + k], P);
-  const bool inward = P.wetting_type == 2;
-  const C norm = sqrt(gx * gx + gy * gy);
-  const bool ok = norm > C(inward ? kEps : 0.0);
-  const C sgn = inward ? C(-1) : C(1);
-  const C fl = geo[k];
   nrm[k] = gx;
   nrm[n + k] = gy;
-  nrm[2 * n + k] = (ok ? sgn * gx / norm : C(0)) * fl;
-  nrm[3 * n + k] = (ok ? sgn * gy / norm : C(0)) * fl;
+  unit_normal(gx, gy, geo[k], P, nrm[2 * n + k], nrm[3 * n + k]);
 }
 
 template <typename C>
@@ -510,20 +526,18 @@ __device__ __forceinline__ C tau_at(C phi, C rr, C rb, const CsfParams& P) {
   return C(3) * mu + C(0.5);
 }
 
-// CSF force plus body force on the fluid cell (x, y) of total density rho:
-// the curvature comes from the isotropic derivatives of the unit normals
-// around it (ops/colorgrad.py::csf_force).
-template <typename C>
-__device__ void csf_force_at(const C* __restrict__ nrm, const CsfParams& P, int x,
-                             int y, C rho, C& fx, C& fy) {
-  const int nx = P.nx, ny = P.ny;
-  const size_t n = (size_t)ny * nx;
-  const size_t k = (size_t)y * nx + x;
+// CSF force plus body force on a fluid cell of total density rho and
+// gradient (gx, gy): the curvature comes from the isotropic derivatives of
+// the unit normals around it, normal_at(i, sx, sy) giving neighbour i's and
+// (nhx, nhy) the cell's own (ops/colorgrad.py::csf_force).
+template <typename C, typename NormalAt>
+__device__ __forceinline__ void csf_force(NormalAt normal_at, C nhx, C nhy, C gx, C gy,
+                                          C rho, const CsfParams& P, C& fx, C& fy) {
   C dxnx = C(0), dxny = C(0), dynx = C(0), dyny = C(0);
 #pragma unroll
   for (int i = 1; i < 9; ++i) {
-    const size_t kk = (size_t)wrap(y + ey(i), ny) * nx + wrap(x + ex(i), nx);
-    const C sx = nrm[2 * n + kk], sy = nrm[3 * n + kk];
+    C sx, sy;
+    normal_at(i, sx, sy);
     const double w3 = 3.0 * wq(i);
     if (ex(i)) {
       dxny = dxny + C(w3 * ex(i)) * sy;
@@ -534,35 +548,40 @@ __device__ void csf_force_at(const C* __restrict__ nrm, const CsfParams& P, int 
       dyny = dyny + C(w3 * ey(i)) * sy;
     }
   }
-  const C nhx = nrm[2 * n + k], nhy = nrm[3 * n + k];
   const C kappa = nhx * nhy * (dxny + dynx) - nhy * nhy * dxnx - nhx * nhx * dyny;
   const C ks = C((P.wetting_type == 2 ? -0.5 : 0.5) * P.sigma) * kappa;
-  fx = ks * nrm[k];
-  fy = ks * nrm[n + k];
+  fx = ks * gx;
+  fy = ks * gy;
   if (P.bfx != 0.0 || P.bfy != 0.0) {
     fx = fx + C(P.bfx) * rho;
     fy = fy + C(P.bfy) * rho;
   }
 }
 
-// Post-collision total PDF of one fluid cell plus its recolouring factors:
-// the red post-collision population is frac * post_i + w_i (e_ix A + e_iy B).
-template <typename S, int L, typename C = typename Traits<S>::C>
-__device__ void collide_cell(const S* __restrict__ s, const S* __restrict__ s2,
-                             const C* __restrict__ geo, const C* __restrict__ phi,
-                             const C* __restrict__ nrm, const CsfParams& P, int x, int y,
-                             C post[9], C& frac, C& A, C& B) {
-  const size_t n = (size_t)P.ny * P.nx;
-  const size_t k = (size_t)y * P.nx + x;
-  Cell<C, L> c;
-  load_state<S, L>(s, s2, geo, P, x, y, c);
-  C f[9], rr, rb, rho;
-  totals(c, f, rr, rb, rho);
-  const C ph = phi[k];
-  const C gx = nrm[k], gy = nrm[n + k];
-  C fx, fy;
-  csf_force_at(nrm, P, x, y, rho, fx, fy);
+// csf_force at the fluid cell (x, y) from the gradient and normal planes.
+template <typename C>
+__device__ void csf_force_at(const C* __restrict__ nrm, const CsfParams& P, int x,
+                             int y, C rho, C& fx, C& fy) {
+  const int nx = P.nx, ny = P.ny;
+  const size_t n = (size_t)ny * nx;
+  const size_t k = (size_t)y * nx + x;
+  csf_force(
+      [&](int i, C& sx, C& sy) {
+        const size_t kk = (size_t)wrap(y + ey(i), ny) * nx + wrap(x + ex(i), nx);
+        sx = nrm[2 * n + kk];
+        sy = nrm[3 * n + kk];
+      },
+      nrm[2 * n + k], nrm[3 * n + k], nrm[k], nrm[n + k], rho, P, fx, fy);
+}
 
+// Post-collision total PDF of one fluid cell from its total PDF f, colour
+// densities, phi, gradient and force, plus its recolouring factors: the
+// fraction rr / rho and segc = beta rr rb / rho (lkr_factors turns segc
+// into the red segregation terms A, B).
+template <typename C>
+__device__ __forceinline__ void collide_core(const C f[9], C rr, C rb, C rho, C ph, C fx,
+                                             C fy, const CsfParams& P, C post[9], C& frac,
+                                             C& segc) {
   const C rho_safe = rho > C(0) ? rho : C(1);
   C mx = C(0), my = C(0);
 #pragma unroll
@@ -633,7 +652,13 @@ __device__ void collide_cell(const S* __restrict__ s, const S* __restrict__ s2,
   const C tot = rr + rb;
   const C tot_safe = tot != C(0) ? tot : C(1);
   frac = rr / tot_safe;
-  const C segc = C(P.beta) * rr * rb / tot_safe;
+  segc = C(P.beta) * rr * rb / tot_safe;
+}
+
+// The red post-collision population is frac * post_i + w_i (e_ix A + e_iy B)
+// with (A, B) = segc g / |g| (0 where |g| <= eps).
+template <typename C>
+__device__ __forceinline__ void lkr_factors(C segc, C gx, C gy, C& A, C& B) {
   const C norm = sqrt(gx * gx + gy * gy);
   if (norm > C(kEps)) {
     A = segc * (gx / norm);
@@ -642,6 +667,26 @@ __device__ void collide_cell(const S* __restrict__ s, const S* __restrict__ s2,
     A = C(0);
     B = C(0);
   }
+}
+
+// Post-collision total PDF of one fluid cell plus its recolouring factors:
+// the red post-collision population is frac * post_i + w_i (e_ix A + e_iy B).
+template <typename S, int L, typename C = typename Traits<S>::C>
+__device__ void collide_cell(const S* __restrict__ s, const S* __restrict__ s2,
+                             const C* __restrict__ geo, const C* __restrict__ phi,
+                             const C* __restrict__ nrm, const CsfParams& P, int x, int y,
+                             C post[9], C& frac, C& A, C& B) {
+  const size_t n = (size_t)P.ny * P.nx;
+  const size_t k = (size_t)y * P.nx + x;
+  Cell<C, L> c;
+  load_state<S, L>(s, s2, geo, P, x, y, c);
+  C f[9], rr, rb, rho;
+  totals(c, f, rr, rb, rho);
+  const C gx = nrm[k], gy = nrm[n + k];
+  C fx, fy, segc;
+  csf_force_at(nrm, P, x, y, rho, fx, fy);
+  collide_core(f, rr, rb, rho, phi[k], fx, fy, P, post, frac, segc);
+  lkr_factors(segc, gx, gy, A, B);
 }
 
 template <typename S, typename C = typename Traits<S>::C>

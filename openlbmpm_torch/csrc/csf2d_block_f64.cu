@@ -1,0 +1,52 @@
+// Temporally blocked colour-gradient step K3 for NVIDIA Hopper (sm_90a):
+// the C entry points of the f64 state (mode 0 = compressed, 3 = split (f_r, f_b),
+// csf2d_step's codes).  The design note and the device code are in
+// csf2d_block.cuh.
+
+#include "csf2d_block.cuh"
+
+// T steps of the state s_in (and s2_in, f_b in the split layout) into
+// s_out (s2_out) with the CSF (params->variant 0) or Perturbation (1)
+// physics; scratch holds csf2d_block_scratch_bytes bytes (null when that
+// is 0).  Returns a cudaError_t code (0 on success).
+extern "C" int csf2d_block_step(int mode, int T, const void* s_in, const void* s2_in,
+                                void* s_out, void* s2_out, const void* geo, void* scratch,
+                                const CsfParams* params, void* stream) {
+  const CsfParams P = *params;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case 0: return launch_csf_block_variant<double, kCompressed>(s_in, s2_in, s_out, s2_out, geo, scratch, P, T, st);
+    case 3: return launch_csf_block_variant<double, kSplit>(s_in, s2_in, s_out, s2_out, geo, scratch, P, T, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The global scratch a launch needs in bytes: 0 when the windows fit shared
+// memory, -1 for a mode this library does not take.
+extern "C" long long csf2d_block_scratch_bytes(int mode, int T, const CsfParams* params) {
+  switch (mode) {
+    case 0: return (long long)csf_block_scratch<double, kCompressed>(*params, T);
+    case 3: return (long long)csf_block_scratch<double, kSplit>(*params, T);
+    default: return -1;
+  }
+}
+
+// The launch's tiling into shape[8]: tx, ty, hx, hlo, hhi, gmem, grid and
+// the bytes of one window.
+extern "C" int csf2d_block_shape(int mode, int T, const CsfParams* params,
+                                 long long* shape) {
+  BlockShape B;
+  switch (mode) {
+    case 0: B = csf_shape_of<double, kCompressed>(*params, T); break;
+    case 3: B = csf_shape_of<double, kSplit>(*params, T); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  const long long v[8] = {B.tx, B.ty, B.hx, B.hlo, B.hhi, B.gmem, B.grid,
+                          (long long)B.win_bytes};
+  for (int i = 0; i < 8; ++i) shape[i] = v[i];
+  return 0;
+}
+
+extern "C" const char* csf2d_block_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -295,20 +295,15 @@ __device__ __forceinline__ void feq9(C rho, C ux, C uy, C feq[9]) {
   }
 }
 
-// Post-collision populations of every fluid at the fluid cell (cx, cy),
-// written to post (planes of `plane` values each, this cell at `at`).
-// (px, py) is the cell in the shared psi tile.
-template <typename S, int K, int ORDER, typename C = typename Traits<S>::C>
-__device__ void collide_cell(const S* __restrict__ f, const C* __restrict__ geo,
-                             const C* __restrict__ sh_psi, const ScParams& P, int cx,
-                             int cy, int px, int py, C* __restrict__ post, int plane,
-                             int at) {
+// Post-collision populations out[k] of every fluid at a fluid cell from
+// its populations F (after the inlet rows): psi_at(j, dx, dy) gives fluid
+// j's psi at the cell + (dx, dy) (dx = dy = 0: the cell's own); g1 ... g4
+// are the cell's geometry planes 1 ... 4 (SC: the adhesion vector in g1,
+// g2; EFS: fluid_vec, then the solid adsorption).
+template <typename C, int K, int ORDER, typename PsiAt>
+__device__ __forceinline__ void sc_collide(const C F[K][9], PsiAt psi_at, C g1, C g2, C g3,
+                                           C g4, const ScParams& P, C out_k[K][9]) {
   constexpr int R = reach(ORDER);
-  constexpr int PX = TX + 2 + 2 * R, PY = TY + 2 + 2 * R;
-  const size_t n = (size_t)P.ny * P.nx;
-  const size_t idx = (size_t)cy * P.nx + cx;
-  C F[K][9];
-  load_state<S, K>(f, geo, P, cx, cy, F);
   C rho[K], mx[K], my[K], psi[K], vx[K], vy[K], fx[K], fy[K];
 #pragma unroll
   for (int k = 0; k < K; ++k) {
@@ -321,7 +316,7 @@ __device__ void collide_cell(const S* __restrict__ f, const C* __restrict__ geo,
     }
     mx[k] = a;
     my[k] = b;
-    psi[k] = sh_psi[(k * PY + py) * PX + px];
+    psi[k] = psi_at(k, 0, 0);
     vx[k] = vy[k] = C(0);
   }
   // sum_dir w (dx, dy) psi_j(x + d) over the interaction stencil
@@ -333,7 +328,7 @@ __device__ void collide_cell(const S* __restrict__ f, const C* __restrict__ geo,
       if (w == 0.0) continue;
 #pragma unroll
       for (int j = 0; j < K; ++j) {
-        const C s = sh_psi[(j * PY + py + dy) * PX + px + dx];
+        const C s = psi_at(j, dx, dy);
         if (dx) vx[j] = vx[j] + C(w * dx) * s;
         if (dy) vy[j] = vy[j] + C(w * dy) * s;
       }
@@ -341,7 +336,7 @@ __device__ void collide_cell(const S* __restrict__ f, const C* __restrict__ geo,
   }
   if constexpr (ORDER == 0) {
     // F_k = -psi_k (sum_j G_kj v_j + G_ks adh)
-    const C adx = geo[n + idx], ady = geo[2 * n + idx];
+    const C adx = g1, ady = g2;
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       C gx = C(0), gy = C(0);
@@ -355,8 +350,8 @@ __device__ void collide_cell(const S* __restrict__ f, const C* __restrict__ geo,
     }
   } else {
     // F_k = -6 psi_k sum_j G_kj (v_j - psi_j fluid_vec) - G_ks psi_k adh_st
-    const C fvx = geo[n + idx], fvy = geo[2 * n + idx];
-    const C asx = geo[3 * n + idx], asy = geo[4 * n + idx];
+    const C fvx = g1, fvy = g2;
+    const C asx = g3, asy = g4;
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       C gx = C(0), gy = C(0);
@@ -395,7 +390,8 @@ __device__ void collide_cell(const S* __restrict__ f, const C* __restrict__ geo,
   for (int k = 0; k < K; ++k) {
     const C rs = rho[k] > C(0) ? rho[k] : C(1);
     const C tau = C(P.tau[k]);
-    C feq[9], out[9];
+    C feq[9];
+    C* out = out_k[k];
     if constexpr (ORDER == 0) {
       // shift forcing: relax toward feq(u' + tau F / rho)
       feq9(rho[k], ux0 + tau * fx[k] / rs, uy0 + tau * fy[k] / rs, feq);
@@ -427,9 +423,33 @@ __device__ void collide_cell(const S* __restrict__ f, const C* __restrict__ geo,
           out[i] = F[k][i] + (feq[i] - F[k][i] - C(0.5) * ff[i]) / tau + ff[i];
       }
     }
-#pragma unroll
-    for (int i = 0; i < 9; ++i) post[(k * 9 + i) * plane + at] = out[i];
   }
+}
+
+// Post-collision populations of every fluid at the fluid cell (cx, cy),
+// written to post (planes of `plane` values each, this cell at `at`).
+// (px, py) is the cell in the shared psi tile.
+template <typename S, int K, int ORDER, typename C = typename Traits<S>::C>
+__device__ void collide_cell(const S* __restrict__ f, const C* __restrict__ geo,
+                             const C* __restrict__ sh_psi, const ScParams& P, int cx,
+                             int cy, int px, int py, C* __restrict__ post, int plane,
+                             int at) {
+  constexpr int R = reach(ORDER);
+  constexpr int PX = TX + 2 + 2 * R, PY = TY + 2 + 2 * R;
+  const size_t n = (size_t)P.ny * P.nx;
+  const size_t idx = (size_t)cy * P.nx + cx;
+  C F[K][9];
+  load_state<S, K>(f, geo, P, cx, cy, F);
+  const bool efs = ORDER != 0;
+  C out[K][9];
+  sc_collide<C, K, ORDER>(
+      F, [&](int j, int dx, int dy) { return sh_psi[(j * PY + py + dy) * PX + px + dx]; },
+      geo[n + idx], geo[2 * n + idx], efs ? geo[3 * n + idx] : C(0),
+      efs ? geo[4 * n + idx] : C(0), P, out);
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int i = 0; i < 9; ++i) post[(k * 9 + i) * plane + at] = out[k][i];
 }
 
 template <typename S, int K, typename C = typename Traits<S>::C>

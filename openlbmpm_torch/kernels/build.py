@@ -20,16 +20,21 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 __all__ = ["load_library", "load_libraries", "build_seconds", "BUILD_DIR",
-           "NVCC_FLAGS", "EXTRA_FLAGS", "LIBRARIES"]
+           "NVCC_FLAGS", "EXTRA_FLAGS", "LIBRARIES", "block_fns",
+           "launch_block", "block_tiling", "check_steps"]
 
 # every library of csrc/: the CSF step, the coupled step, the Perturbation
-# step, and in three storage types each the Shan-Chen step, the D3Q19 CSF
-# step, the single-phase D2Q9 step and the D3Q19 single-phase and
-# Shan-Chen steps
-LIBRARIES = ("csf2d", "coupled2d", "pert2d", "sc2d_f64", "sc2d_f32",
-             "sc2d_bf16", "cg3d_f64", "cg3d_f32", "cg3d_bf16", "single2d_f64",
-             "single2d_f32", "single2d_bf16", "flow3d_f64", "flow3d_f32",
-             "flow3d_bf16")
+# step (f32 and bf16; f64 apart), and in three storage types each the
+# Shan-Chen step, the D3Q19 CSF step, the single-phase D2Q9 step, the D3Q19
+# single-phase and Shan-Chen steps, and the T-step (temporally blocked)
+# colour-gradient, Shan-Chen and single-phase D2Q9 steps
+LIBRARIES = ("csf2d", "coupled2d", "pert2d", "pert2d_f64", "sc2d_f64",
+             "sc2d_f32", "sc2d_bf16", "cg3d_f64", "cg3d_f32", "cg3d_bf16",
+             "single2d_f64", "single2d_f32", "single2d_bf16", "flow3d_f64",
+             "flow3d_f32", "flow3d_bf16", "csf2d_block_f64",
+             "csf2d_block_f32", "csf2d_block_bf16", "sc2d_block_f64",
+             "sc2d_block_f32", "sc2d_block_bf16", "single2d_block_f64",
+             "single2d_block_f32", "single2d_block_bf16")
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
@@ -41,7 +46,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # products and sums round as the plain path's do (a wetting rotation near
 # its sin = 0 threshold turns a one-ulp difference into a visible one)
 EXTRA_FLAGS = {name: ("-fmad=false",) for name in
-               ("cg3d_f64", "single2d_f64", "flow3d_f64")}
+               ("cg3d_f64", "single2d_f64", "flow3d_f64", "pert2d_f64",
+                "csf2d_block_f64", "sc2d_block_f64", "single2d_block_f64")}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 # seconds spent compiling each library in this process (0.0 = reused)
@@ -96,6 +102,87 @@ def load_library(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(so))
     _loaded[name] = lib
     return lib
+
+
+# -- the T-step libraries ---------------------------------------------------
+# Each of them exports <prefix>_block_step(ints..., pointers..., params,
+# stream), <prefix>_block_scratch_bytes(ints..., params),
+# <prefix>_block_shape(ints..., params, long long[8]) and
+# <prefix>_block_error_string(code); the ints are the state mode where the
+# family has several, then T.
+
+_block_cache: dict[str, tuple] = {}
+_TILING_KEYS = ("tx", "ty", "hx", "hlo", "hhi", "gmem", "grid", "window_bytes")
+
+
+def block_fns(lib: str, prefix: str, ints: int, pointers: int, params_type):
+    """(step, scratch_bytes, shape, error_string) of the T-step library
+    `lib` (built at first use): its entry points take `ints` leading ints,
+    the step `pointers` pointers (the last one the scratch), and a
+    `params_type` block."""
+    if lib not in _block_cache:
+        so = load_library(lib)
+        lead = [ctypes.c_int] * ints
+        block = ctypes.POINTER(params_type)
+        step = getattr(so, f"{prefix}_block_step")
+        step.argtypes = lead + [ctypes.c_void_p] * pointers + \
+            [block, ctypes.c_void_p]
+        step.restype = ctypes.c_int
+        scratch = getattr(so, f"{prefix}_block_scratch_bytes")
+        scratch.argtypes = lead + [block]
+        scratch.restype = ctypes.c_longlong
+        shape = getattr(so, f"{prefix}_block_shape")
+        shape.argtypes = lead + [block, ctypes.POINTER(ctypes.c_longlong)]
+        shape.restype = ctypes.c_int
+        err = getattr(so, f"{prefix}_block_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        _block_cache[lib] = (step, scratch, shape, err)
+    return _block_cache[lib]
+
+
+def launch_block(lib: str, fns, ints, tensors, params) -> None:
+    """One launch of a T-step library's step (`fns` from ``block_fns``) on
+    the current stream of the first tensor's card: the `ints`, the
+    `tensors`' pointers (None is a null pointer), then a global scratch of
+    the size the library asks for (null when it asks for none), and the
+    parameter block.  A failed launch raises."""
+    import torch
+
+    step, scratch_bytes, _, err = fns
+    nbytes = scratch_bytes(*ints, ctypes.byref(params))
+    if nbytes < 0:
+        raise ValueError(f"{lib}: no instance for {tuple(ints)}")
+    dev = next(t for t in tensors if t is not None).device
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev) if nbytes \
+        else None
+    ptrs = [0 if t is None else t.data_ptr() for t in (*tensors, scratch)]
+    with torch.cuda.device(dev):
+        code = step(*ints, *ptrs, ctypes.byref(params),
+                    torch.cuda.current_stream(dev).cuda_stream)
+    if code != 0:
+        raise RuntimeError(f"{lib} block step launch failed: "
+                           f"{err(code).decode()} ({code})")
+
+
+def block_tiling(lib: str, fns, ints, params) -> dict:
+    """A T-step library's tiling of one launch, from its ``*_block_shape``
+    entry point (`fns` from ``block_fns``) called with `ints` and `params`:
+    the tile (tx, ty), the halo (hx columns a side, hlo rows below, hhi
+    above), whether the windows live in global scratch (gmem), the blocks
+    launched and one window's bytes."""
+    out = (ctypes.c_longlong * 8)()
+    code = fns[2](*ints, ctypes.byref(params), out)
+    if code != 0:
+        raise ValueError(f"{lib}: no tiling for these arguments ({code})")
+    return dict(zip(_TILING_KEYS, (int(v) for v in out)))
+
+
+def check_steps(steps) -> None:
+    """Raise unless `steps`, a T-step call's step count, is a positive
+    int."""
+    if not isinstance(steps, int) or steps < 1:
+        raise ValueError(f"steps {steps!r}: a positive int")
 
 
 def load_libraries(names=LIBRARIES) -> dict[str, ctypes.CDLL]:

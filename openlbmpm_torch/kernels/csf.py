@@ -1,13 +1,16 @@
 """The 2-D colour-gradient step: CUDA kernel wrappers, plain PyTorch
 versions and launch counts.
 
-Counterpart of ``openlbmpm_tpu/pallas/csf.py::build_csf_fused_step`` at one
-step per call.  CSF variant: ``state_mode="compressed"`` with
-``storage="f32"`` (K1) and ``storage="bf16"`` (K2), and
-``state_mode="split"`` (K6), in ``csrc/csf2d.cu`` (device code in
-``csrc/csf2d.cuh``).  Perturbation variant (K4): the same three layouts
-(K4c, K4h, K4s) in ``csrc/pert2d.cu``, which shares the state loads and
-boundary rows of ``csf2d.cuh``.
+Counterpart of ``openlbmpm_tpu/pallas/csf.py::build_csf_fused_step``.  One
+step per call: the CSF variant with ``state_mode="compressed"`` and
+``storage="f32"`` (K1) or ``storage="bf16"`` (K2), and ``state_mode="split"``
+(K6), in ``csrc/csf2d.cu`` (device code in ``csrc/csf2d.cuh``); the
+Perturbation variant (K4) in the same three layouts (K4c, K4h, K4s) in
+``csrc/pert2d.cu`` (``csrc/pert2d.cuh``; the f64 instances in their own
+library, ``csrc/pert2d_f64.cu``).  T > 1 steps per call
+(``steps_per_call``, K3): both variants in the three layouts (K3c, K3h,
+K3s) in ``csrc/csf2d_block_{f64,f32,bf16}.cu`` (``csrc/csf2d_block.cuh``),
+one library per storage type.
 
 States:
   * compressed f32 / f64: (10, ny, nx) -- planes 0-8 the total PDF, plane 9
@@ -16,10 +19,12 @@ States:
     then rho_r as a hi/lo pair (hi = bf16(rho_r), lo = bf16(rho_r - hi));
   * split f32 / f64: the pair (f_r, f_b) of (9, ny, nx) colour PDFs.
 
-``csf_step_compressed(s, model)``, ``csf_step_split((f_r, f_b), model)``
-and their Perturbation twins ``pert_step_compressed`` and
-``pert_step_split`` take the plain version only for tensors on the CPU;
-for CUDA tensors they launch the kernel or raise.
+``csf_step_compressed(s, model)``, ``csf_step_split((f_r, f_b), model)``,
+their Perturbation twins ``pert_step_compressed`` and ``pert_step_split``,
+and the T-step ``csf_block_compressed(s, model, steps)``,
+``csf_block_split``, ``pert_block_compressed`` and ``pert_block_split`` take
+the plain version only for tensors on the CPU; for CUDA tensors they launch
+the kernel or raise.
 """
 
 from __future__ import annotations
@@ -40,7 +45,13 @@ __all__ = ["geo_stack", "CsfParams", "kernel_params", "launch_csf2d",
            "csf_step_compressed_reference", "csf_step_split",
            "csf_step_split_reference", "pert_step_compressed",
            "pert_step_compressed_reference", "pert_step_split",
-           "pert_step_split_reference", "compare_bf16_states"]
+           "pert_step_split_reference", "compare_bf16_states",
+           "BLOCK_LIBRARIES", "launch_csf2d_block", "launch_csf2d_block_split",
+           "csf_block_tiling", "csf_block_compressed",
+           "csf_block_compressed_reference",
+           "csf_block_split", "csf_block_split_reference",
+           "pert_block_compressed", "pert_block_compressed_reference",
+           "pert_block_split", "pert_block_split_reference"]
 
 
 def geo_stack(geometry: Geometry) -> np.ndarray:
@@ -142,20 +153,25 @@ def kernel_params(params, bcs, geometry: Geometry) -> CsfParams:
 
 
 _fn_cache: dict[str, tuple] = {}
-# pointer arguments of each library's <lib>_step: (s, s2, out, out2, geo)
-# plus the phi and normal scratch planes of the CSF step
-_POINTERS = {"csf2d": 7, "pert2d": 5}
+# each library's entry-point prefix and the pointer arguments of its
+# <prefix>_step: (s, s2, out, out2, geo) plus the phi and normal scratch
+# planes of the CSF step.  The f64 Perturbation instances are a library of
+# their own, built with -fmad=false, with pert2d's entry points.
+_ENTRIES = {"csf2d": ("csf2d", 7), "pert2d": ("pert2d", 5),
+            "pert2d_f64": ("pert2d", 5)}
 
 
 def _kernel_fns(lib: str):
-    """(<lib>_step, <lib>_error_string) of a library, built at first use."""
+    """(<prefix>_step, <prefix>_error_string) of a library, built at first
+    use."""
     if lib not in _fn_cache:
         so = build.load_library(lib)
-        fn = getattr(so, f"{lib}_step")
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * _POINTERS[lib] + \
+        prefix, pointers = _ENTRIES[lib]
+        fn = getattr(so, f"{prefix}_step")
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * pointers + \
             [ctypes.POINTER(CsfParams), ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        err = getattr(so, f"{lib}_error_string")
+        err = getattr(so, f"{prefix}_error_string")
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
         _fn_cache[lib] = (fn, err)
@@ -177,9 +193,12 @@ def _check_domain(params: CsfParams, geo: torch.Tensor, want, *tensors):
 def _launch(mode: int, a, b, out_a, out_b, params: CsfParams,
             geo: torch.Tensor, lib: str = "csf2d"):
     """One <lib>_step call on the current stream of the state's card: the
-    CSF step (csf2d) or the Perturbation step (pert2d)."""
+    CSF step (csf2d) or the Perturbation step (pert2d; pert2d_f64 for an
+    f64 state)."""
     ny, nx = params.ny, params.nx
     dev = a.device
+    if lib == "pert2d" and a.dtype == torch.float64:
+        lib = "pert2d_f64"
     fn, err = _kernel_fns(lib)
     scratch = ()
     if lib == "csf2d":
@@ -364,6 +383,184 @@ def pert_step_split_reference(state, model):
     """Plain PyTorch version of K4s, on any device: the model's
     ``plain_step`` (``_step_perturbation`` composed from ``ops/``)."""
     return model.plain_step(state)
+
+
+# -- T steps a launch (K3) ----------------------------------------------------
+
+_BLOCK_LIBS = {torch.float64: "csf2d_block_f64",
+               torch.float32: "csf2d_block_f32",
+               torch.bfloat16: "csf2d_block_bf16"}
+BLOCK_LIBRARIES = tuple(_BLOCK_LIBS.values())
+
+
+def _block_fns(lib: str):
+    """(step, scratch_bytes, shape, error_string) of a K3 library: ints
+    (state mode, T), pointers (s, s2, out, out2, geo, scratch)."""
+    return build.block_fns(lib, "csf2d", 2, 6, CsfParams)
+
+
+def csf_block_tiling(dtype, split: bool, params: CsfParams,
+                     steps: int) -> dict:
+    """How a K3 launch of `steps` steps tiles the domain of `params` for a
+    state of `dtype` (``build.block_tiling``)."""
+    mode = (_SPLIT_CODE if split else _STORAGE_CODE)[dtype]
+    lib = _BLOCK_LIBS[dtype]
+    return build.block_tiling(lib, _block_fns(lib), (mode, steps), params)
+
+
+def launch_csf2d_block(s: torch.Tensor, params: CsfParams, geo: torch.Tensor,
+                       steps: int) -> torch.Tensor:
+    """`steps` kernel steps (one launch, K3c or K3h) of the compressed CUDA
+    state `s` (as ``launch_csf2d``), for the variant of `params`.  Not
+    counted as a launch."""
+    ny, nx = params.ny, params.nx
+    bf16 = s.dtype == torch.bfloat16
+    planes = 11 if bf16 else 10
+    if s.dtype not in _STORAGE_CODE or tuple(s.shape) != (planes, ny, nx):
+        raise ValueError(f"state {tuple(s.shape)} {s.dtype}; the kernel "
+                         f"takes ({planes}, {ny}, {nx})")
+    _check_domain(params, geo, torch.float32 if bf16 else s.dtype, s)
+    s = s.contiguous()
+    out = torch.empty_like(s)
+    lib = _BLOCK_LIBS[s.dtype]
+    build.launch_block(lib, _block_fns(lib), (_STORAGE_CODE[s.dtype], steps),
+                       (s, None, out, None, geo), params)
+    return out
+
+
+def launch_csf2d_block_split(f_r: torch.Tensor, f_b: torch.Tensor,
+                             params: CsfParams, geo: torch.Tensor, steps: int):
+    """`steps` kernel steps (one launch, K3s) of the split CUDA state
+    (f_r, f_b) (as ``launch_csf2d_split``).  Not counted as a launch."""
+    ny, nx = params.ny, params.nx
+    for t in (f_r, f_b):
+        if t.dtype not in _SPLIT_CODE or tuple(t.shape) != (9, ny, nx) or \
+                t.dtype != f_r.dtype:
+            raise ValueError(f"split state {tuple(f_r.shape)} {f_r.dtype}, "
+                             f"{tuple(f_b.shape)} {f_b.dtype}; the kernel "
+                             f"takes two (9, {ny}, {nx}) float32 or float64")
+    _check_domain(params, geo, f_r.dtype, f_r, f_b)
+    f_r, f_b = f_r.contiguous(), f_b.contiguous()
+    out_r, out_b = torch.empty_like(f_r), torch.empty_like(f_b)
+    lib = _BLOCK_LIBS[f_r.dtype]
+    build.launch_block(lib, _block_fns(lib), (_SPLIT_CODE[f_r.dtype], steps),
+                       (f_r, f_b, out_r, out_b, geo), params)
+    return out_r, out_b
+
+
+def _block_compressed(s, model, steps, variant, fn):
+    build.check_steps(steps)
+    if s.device.type != "cuda":
+        raise ValueError(f"no csf kernel for device {s.device}")
+    _check_variant(model, variant)
+    model.check_compressed()
+    if s.dtype not in (torch.bfloat16, model.dtype):
+        raise ValueError(f"state {s.dtype}; the model takes {model.dtype} or "
+                         "bfloat16")
+    out = launch_csf2d_block(s, model.kernel_params, model.geo_planes, steps)
+    fn.launches += 1
+    return out
+
+
+def _block_split(state, model, steps, variant, fn):
+    build.check_steps(steps)
+    f_r, f_b = state
+    _check_split_state(f_r, f_b, model, variant)
+    out = launch_csf2d_block_split(f_r, f_b, model.kernel_params,
+                                   model.geo_planes, steps)
+    fn.launches += 1
+    return out
+
+
+def _block_reference_compressed(s, model, steps, variant):
+    """T plain compressed steps of the variant; a bf16 state is decoded
+    once, stepped in ``model.dtype`` and encoded once, as K3h does."""
+    build.check_steps(steps)
+    _check_variant(model, variant)
+    model.check_compressed()
+    fn = model._step_csf_c if variant == "CSF" else model._step_pert_c
+    x = model.unpack_bf16(s) if s.dtype == torch.bfloat16 else s
+    for _ in range(steps):
+        x = fn(x)
+    return model.pack_compressed_bf16(x) if s.dtype == torch.bfloat16 else x
+
+
+def _block_reference_split(state, model, steps, variant):
+    build.check_steps(steps)
+    _check_variant(model, variant)
+    for _ in range(steps):
+        state = model.plain_step(state)
+    return state
+
+
+def csf_block_compressed(s: torch.Tensor, model, steps: int) -> torch.Tensor:
+    """`steps` compressed CSF steps of `s` for `model` (BC rows before each
+    step).  CPU tensor: the plain version.  CUDA tensor: one launch of K3c
+    (f32 / f64) or K3h (bf16), or an error; never the plain version."""
+    if s.device.type == "cpu":
+        return csf_block_compressed_reference(s, model, steps)
+    return _block_compressed(s, model, steps, "CSF", csf_block_compressed)
+
+
+csf_block_compressed.launches = 0
+
+
+def csf_block_compressed_reference(s, model, steps: int):
+    """Plain PyTorch version of K3c/K3h, on any device: `steps` plain
+    compressed CSF steps (a bf16 state decoded once, encoded once)."""
+    return _block_reference_compressed(s, model, steps, "CSF")
+
+
+def csf_block_split(state, model, steps: int):
+    """`steps` split CSF steps of (f_r, f_b) for `model`.  CPU tensors: the
+    plain version.  CUDA tensors: one launch of K3s, or an error."""
+    if _on_cpu(*state):
+        return csf_block_split_reference(state, model, steps)
+    return _block_split(state, model, steps, "CSF", csf_block_split)
+
+
+csf_block_split.launches = 0
+
+
+def csf_block_split_reference(state, model, steps: int):
+    """Plain PyTorch version of K3s, on any device: `steps` plain split CSF
+    steps."""
+    return _block_reference_split(state, model, steps, "CSF")
+
+
+def pert_block_compressed(s: torch.Tensor, model, steps: int) -> torch.Tensor:
+    """`steps` compressed Perturbation steps of `s` for `model`.  CPU
+    tensor: the plain version.  CUDA tensor: one launch of K3c or K3h (the
+    Perturbation instances), or an error."""
+    if s.device.type == "cpu":
+        return pert_block_compressed_reference(s, model, steps)
+    return _block_compressed(s, model, steps, "Perturbation",
+                             pert_block_compressed)
+
+
+pert_block_compressed.launches = 0
+
+
+def pert_block_compressed_reference(s, model, steps: int):
+    """Plain PyTorch version of the Perturbation K3c/K3h, on any device."""
+    return _block_reference_compressed(s, model, steps, "Perturbation")
+
+
+def pert_block_split(state, model, steps: int):
+    """`steps` split Perturbation steps of (f_r, f_b) for `model`.  CPU
+    tensors: the plain version.  CUDA tensors: one launch of K3s (the
+    Perturbation instance), or an error."""
+    if _on_cpu(*state):
+        return pert_block_split_reference(state, model, steps)
+    return _block_split(state, model, steps, "Perturbation", pert_block_split)
+
+
+pert_block_split.launches = 0
+
+
+def pert_block_split_reference(state, model, steps: int):
+    """Plain PyTorch version of the Perturbation K3s, on any device."""
+    return _block_reference_split(state, model, steps, "Perturbation")
 
 
 def compare_bf16_states(a: torch.Tensor, b: torch.Tensor,

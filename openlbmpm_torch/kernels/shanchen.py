@@ -6,13 +6,16 @@ one step per call on one device: original SC or EFS (iso-4/8/10), SRT or
 MRT, psi = rho or Peng-Robinson, shift forcing, the Zou-He velocity /
 pressure inlet and the Zou-He pressure / convective outlet, K = 1 ... 3
 fluids.  The kernels live in ``csrc/sc2d.cuh``, one library per storage
-type (``sc2d_f64``, ``sc2d_f32``, ``sc2d_bf16``).
+type (``sc2d_f64``, ``sc2d_f32``, ``sc2d_bf16``).  With ``steps_per_call`` =
+T > 1 (K8-T: the inlet rows before and the outlet rows after every
+sub-step): ``csrc/sc2d_block.cuh``, libraries ``sc2d_block_{f64,f32,bf16}``.
 
 States: f (K, 9, ny, nx) float32 / float64, or (K, 11, ny, nx) bfloat16
 (per fluid the deviations f_i - w_i rho_k, then rho_k as a hi/lo pair).
 
-``sc_step(f, model)`` takes the plain version only for a tensor on the CPU;
-for a CUDA tensor it launches the kernel or raises.
+``sc_step(f, model)`` and ``sc_block_step(f, model, steps)`` take the plain
+version only for a tensor on the CPU; for a CUDA tensor they launch the
+kernel or raise.
 """
 
 from __future__ import annotations
@@ -27,8 +30,10 @@ from ..geometry import Geometry
 from ..ops.shanchen import build_interaction_fields, psi_peng_robinson
 from . import build
 
-__all__ = ["KMAX", "LIBRARIES", "ScParams", "geo_stack", "kernel_params",
-           "launch_sc2d", "sc_step", "sc_step_reference"]
+__all__ = ["KMAX", "LIBRARIES", "BLOCK_LIBRARIES", "ScParams", "geo_stack",
+           "kernel_params", "launch_sc2d", "sc_step", "sc_step_reference",
+           "launch_sc2d_block", "sc_block_step", "sc_block_step_reference",
+           "sc_block_tiling"]
 
 KMAX = 3           # fluids the kernel is instantiated for (1 ... KMAX)
 _LIBS = {torch.float64: "sc2d_f64", torch.float32: "sc2d_f32",
@@ -208,3 +213,85 @@ def sc_step_reference(f: torch.Tensor, model) -> torch.Tensor:
     decoded to float32, stepped and encoded again, as the kernel does in
     its registers)."""
     return model.plain_step(f)
+
+
+# -- T steps a launch (K8-T) -------------------------------------------------
+
+_BLOCK_LIBS = {torch.float64: "sc2d_block_f64",
+               torch.float32: "sc2d_block_f32",
+               torch.bfloat16: "sc2d_block_bf16"}
+BLOCK_LIBRARIES = tuple(_BLOCK_LIBS.values())
+
+
+def _block_fns(lib: str):
+    """(step, scratch_bytes, shape, error_string) of a K8-T library: ints
+    (T), pointers (f, out, geo, scratch)."""
+    return build.block_fns(lib, "sc2d", 1, 4, ScParams)
+
+
+def sc_block_tiling(dtype, params: ScParams, steps: int) -> dict:
+    """How a K8-T launch of `steps` steps tiles the domain of `params` for a
+    state of `dtype` (``build.block_tiling``)."""
+    lib = _BLOCK_LIBS[dtype]
+    return build.block_tiling(lib, _block_fns(lib), (steps,), params)
+
+
+def launch_sc2d_block(f: torch.Tensor, params: ScParams, geo: torch.Tensor,
+                      steps: int) -> torch.Tensor:
+    """`steps` kernel steps (one launch) of the CUDA state `f` (as
+    ``launch_sc2d``).  Not counted as a launch."""
+    k, ny, nx = params.k, params.ny, params.nx
+    bf16 = f.dtype == torch.bfloat16
+    planes = 11 if bf16 else 9
+    if f.dtype not in _BLOCK_LIBS or tuple(f.shape) != (k, planes, ny, nx):
+        raise ValueError(f"state {tuple(f.shape)} {f.dtype}; the kernel "
+                         f"takes ({k}, {planes}, {ny}, {nx})")
+    want = torch.float32 if bf16 else f.dtype
+    n_geo = 3 if params.order == 0 else 5
+    if geo.dtype != want or tuple(geo.shape) != (n_geo, ny, nx):
+        raise ValueError(f"state needs {want} geometry planes ({n_geo}, {ny}, "
+                         f"{nx}), got {geo.dtype} {tuple(geo.shape)}")
+    if f.device != geo.device or f.device.type != "cuda":
+        raise ValueError(f"state on {f.device}, geometry on {geo.device}")
+    f = f.contiguous()
+    out = torch.empty_like(f)
+    lib = _BLOCK_LIBS[f.dtype]
+    build.launch_block(lib, _block_fns(lib), (steps,), (f, out, geo), params)
+    return out
+
+
+def sc_block_step(f: torch.Tensor, model, steps: int) -> torch.Tensor:
+    """`steps` Shan-Chen steps (inlet rows before, outlet rows after each)
+    for `model`, a ShanChenMCMP: a (K, 9, ny, nx) state in ``model.dtype``
+    or the (K, 11, ny, nx) bfloat16 state (``pack_state_bf16``).  CPU
+    tensor: the plain version.  CUDA tensor: one launch of K8-T, or an
+    error; never the plain version."""
+    if f.device.type == "cpu":
+        return sc_block_step_reference(f, model, steps)
+    build.check_steps(steps)
+    if f.device.type != "cuda":
+        raise ValueError(f"no Shan-Chen kernel for device {f.device}")
+    if model.kernel_params is None:
+        raise ValueError(f"no Shan-Chen kernel for this configuration on "
+                         f"{model.device} (path {model.path!r})")
+    if f.dtype not in (model.dtype, torch.bfloat16) or (
+            f.dtype == torch.bfloat16 and model.dtype != torch.float32):
+        raise ValueError(f"state {f.dtype}; the model takes {model.dtype} or, "
+                         "in float32 arithmetic, bfloat16")
+    out = launch_sc2d_block(f, model.kernel_params, model.geo_planes, steps)
+    sc_block_step.launches += 1
+    return out
+
+
+sc_block_step.launches = 0
+
+
+def sc_block_step_reference(f: torch.Tensor, model, steps: int):
+    """Plain PyTorch version of K8-T, on any device: `steps` plain steps
+    (``_step_impl``); a bf16 state is decoded once, stepped in float32 and
+    encoded once, as the kernel does."""
+    build.check_steps(steps)
+    x = model.unpack_bf16(f) if f.dtype == torch.bfloat16 else f
+    for _ in range(steps):
+        x = model._step_impl(x)
+    return model.pack_state_bf16(x) if f.dtype == torch.bfloat16 else x

@@ -7,14 +7,17 @@ step per call on one device: SRT, TRT or MRT with the Guo body
 force, the Zou-He velocity / pressure inlet and the Zou-He pressure /
 convective outlet rows.  The kernels live in ``csrc/single2d.cuh``, one
 library per storage type (``single2d_f64``, ``single2d_f32``,
-``single2d_bf16``).
+``single2d_bf16``).  With ``steps_per_call`` = T > 1 (K7-T, the boundary rows
+rewritten after every sub-step): ``csrc/single2d_block.cuh``, libraries
+``single2d_block_{f64,f32,bf16}``.
 
 States: f (9, ny, nx) float32 / float64, or (11, ny, nx) bfloat16 (the
 deviations f_i - w_i rho, then rho as a hi/lo pair).  The geometry is one
 byte a cell (1 on fluid).
 
-``single_step(f, model)`` takes the plain version only for a tensor on the
-CPU; for a CUDA tensor it launches the kernel or raises.
+``single_step(f, model)`` and ``single_block_step(f, model, steps)`` take
+the plain version only for a tensor on the CPU; for a CUDA tensor they
+launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -25,8 +28,10 @@ import torch
 
 from . import build
 
-__all__ = ["LIBRARIES", "Single2dParams", "kernel_params", "launch_single2d",
-           "single_step", "single_step_reference"]
+__all__ = ["LIBRARIES", "BLOCK_LIBRARIES", "Single2dParams", "kernel_params",
+           "launch_single2d", "single_step", "single_step_reference",
+           "launch_single2d_block", "single_block_step",
+           "single_block_step_reference", "single_block_tiling"]
 
 _LIBS = {torch.float64: "single2d_f64", torch.float32: "single2d_f32",
          torch.bfloat16: "single2d_bf16"}
@@ -147,3 +152,82 @@ def single_step_reference(f: torch.Tensor, model) -> torch.Tensor:
     ``plain_step`` (``_step_impl`` composed from ``ops/``; a bf16 state is
     decoded to float32, stepped and encoded again)."""
     return model.plain_step(f)
+
+
+# -- T steps a launch (K7-T) -------------------------------------------------
+
+_BLOCK_LIBS = {torch.float64: "single2d_block_f64",
+               torch.float32: "single2d_block_f32",
+               torch.bfloat16: "single2d_block_bf16"}
+BLOCK_LIBRARIES = tuple(_BLOCK_LIBS.values())
+
+
+def _block_fns(lib: str):
+    """(step, scratch_bytes, shape, error_string) of a K7-T library: ints
+    (T), pointers (f, out, fluid, scratch)."""
+    return build.block_fns(lib, "single2d", 1, 4, Single2dParams)
+
+
+def single_block_tiling(dtype, params: Single2dParams, steps: int) -> dict:
+    """How a K7-T launch of `steps` steps tiles the domain of `params` for a
+    state of `dtype` (``build.block_tiling``)."""
+    lib = _BLOCK_LIBS[dtype]
+    return build.block_tiling(lib, _block_fns(lib), (steps,), params)
+
+
+def launch_single2d_block(f: torch.Tensor, params: Single2dParams,
+                          fluid: torch.Tensor, steps: int) -> torch.Tensor:
+    """`steps` kernel steps (one launch) of the CUDA state `f` (as
+    ``launch_single2d``).  Not counted as a launch."""
+    ny, nx = params.ny, params.nx
+    planes = 11 if f.dtype == torch.bfloat16 else 9
+    if f.dtype not in _BLOCK_LIBS or tuple(f.shape) != (planes, ny, nx):
+        raise ValueError(f"state {tuple(f.shape)} {f.dtype}; the kernel takes "
+                         f"({planes}, {ny}, {nx})")
+    if fluid.dtype != torch.uint8 or tuple(fluid.shape) != (ny, nx):
+        raise ValueError(f"fluid mask {fluid.dtype} {tuple(fluid.shape)}; the "
+                         f"kernel takes uint8 ({ny}, {nx})")
+    if f.device != fluid.device or f.device.type != "cuda":
+        raise ValueError(f"state on {f.device}, mask on {fluid.device}")
+    f = f.contiguous()
+    out = torch.empty_like(f)
+    lib = _BLOCK_LIBS[f.dtype]
+    build.launch_block(lib, _block_fns(lib), (steps,), (f, out, fluid), params)
+    return out
+
+
+def single_block_step(f: torch.Tensor, model, steps: int) -> torch.Tensor:
+    """`steps` single-phase steps (BC rows after each) for `model`, a
+    SinglePhaseD2Q9: a (9, ny, nx) state in ``model.dtype`` or the
+    (11, ny, nx) bfloat16 state (``pack_state_bf16``).  CPU tensor: the plain
+    version.  CUDA tensor: one launch of K7-T, or an error; never the plain
+    version."""
+    if f.device.type == "cpu":
+        return single_block_step_reference(f, model, steps)
+    build.check_steps(steps)
+    if f.device.type != "cuda":
+        raise ValueError(f"no single-phase kernel for device {f.device}")
+    if model.kernel_params is None:
+        raise ValueError(f"no single-phase kernel for this configuration on "
+                         f"{model.device} (path {model.path!r})")
+    if f.dtype not in (model.dtype, torch.bfloat16) or (
+            f.dtype == torch.bfloat16 and model.dtype != torch.float32):
+        raise ValueError(f"state {f.dtype}; the model takes {model.dtype} or, "
+                         "in float32 arithmetic, bfloat16")
+    out = launch_single2d_block(f, model.kernel_params, model.fluid_u8, steps)
+    single_block_step.launches += 1
+    return out
+
+
+single_block_step.launches = 0
+
+
+def single_block_step_reference(f: torch.Tensor, model, steps: int):
+    """Plain PyTorch version of K7-T, on any device: `steps` plain steps
+    (``_step_impl``); a bf16 state is decoded once, stepped in float32 and
+    encoded once, as the kernel does."""
+    build.check_steps(steps)
+    x = model.unpack_bf16(f) if f.dtype == torch.bfloat16 else f
+    for _ in range(steps):
+        x = model._step_impl(x)
+    return model.pack_state_bf16(x) if f.dtype == torch.bfloat16 else x

@@ -15,7 +15,8 @@ from typing import Any, Callable
 
 import torch
 
-__all__ = ["RunMetrics", "run_chunked"]
+__all__ = ["RunMetrics", "run_chunked", "block_args", "t_step",
+           "kernel_block_step"]
 
 
 class RunMetrics:
@@ -112,3 +113,42 @@ def run_chunked(
         if callback is not None and callback(done, state):
             break
     return state
+
+
+# -- T steps a call (the models' make_block_step) ----------------------------
+
+def block_args(steps_per_call, storage: str) -> int:
+    """The T of a ``make_block_step`` call, after checking its
+    ``steps_per_call`` (>= 1) and ``storage`` (f32 | bf16)."""
+    t = int(steps_per_call)
+    if t < 1:
+        raise ValueError(f"steps_per_call {steps_per_call!r}: >= 1")
+    if storage not in ("f32", "bf16"):
+        raise ValueError(f"storage {storage!r}: f32 | bf16")
+    return t
+
+
+def t_step(kernel, model, t: int):
+    """``kernel(state, model, t)`` as a step function of `t` time steps a
+    call (its ``steps_per_call``)."""
+    def block_step(state):
+        return kernel(state, model, t)
+
+    block_step.steps_per_call = t
+    return block_step
+
+
+def kernel_block_step(model, steps_per_call, storage: str, takes: bool,
+                      kernel):
+    """``make_block_step`` of a model with one state tensor and a float32
+    bf16 pack (Shan-Chen, single-phase D2Q9): None unless `takes` (the
+    model's kernel rule), ``model.step`` for T = 1 in the model's own
+    storage, else `kernel`'s T steps a call (``t_step``)."""
+    t = block_args(steps_per_call, storage)
+    if not takes:
+        return None
+    if storage == "bf16" and model.dtype != torch.float32:
+        raise ValueError("storage='bf16' computes in float32")
+    if t == 1 and storage == model.storage:
+        return model.step
+    return t_step(kernel, model, t)

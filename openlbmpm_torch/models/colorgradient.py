@@ -43,8 +43,10 @@ from torch import nn
 from ..geometry import Geometry, wetting_masks
 from ..lattice import D2Q9
 from .._device import resolve_device, resolve_dtype
-from ..kernels.csf import (csf_step_compressed, csf_step_split, geo_stack,
-                           kernel_params, pert_step_compressed,
+from ..kernels.csf import (csf_block_compressed, csf_block_split,
+                           csf_step_compressed, csf_step_split, geo_stack,
+                           kernel_params, pert_block_compressed,
+                           pert_block_split, pert_step_compressed,
                            pert_step_split)
 from ..ops import boundaries as bc
 from ..ops import collision as col
@@ -54,6 +56,7 @@ from ..ops import macroscopic as mac
 from ..ops.common import shift
 from ..ops.forcing import guo_source
 from ..ops.streaming import stream, upwind_solid_masks
+from .base import block_args, t_step
 
 __all__ = ["ColorGradientParams", "CGBoundaryConfig", "ColorGradientRK"]
 
@@ -62,6 +65,10 @@ OUTLETS = ("periodic", "convective", "convective_average", "dirichlet",
            "modified_periodic")
 # the outlets the JAX package keeps on its jnp path (colorgradient.py:179)
 PLAIN_OUTLETS = ("convective_average", "modified_periodic")
+# the rows the T-step kernel rewrites between sub-steps (pallas/csf.py:274-278
+# builds no kernel for the others)
+BLOCK_INLETS = ("periodic", "neumann", "dirichlet")
+BLOCK_OUTLETS = ("periodic", "convective", "dirichlet")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -631,6 +638,46 @@ class ColorGradientRK(nn.Module):
     def step_c(self, s):
         """One time step of the compressed state (layout per ``storage``)."""
         return self._step_impl_c(s)
+
+    def make_block_step(self, steps_per_call: int = 2,
+                        rows_per_block: int | None = None,
+                        compressed: bool = False, interpret: bool = False,
+                        storage: str = "f32",
+                        substep_unroll: int | None = None):
+        """A step that advances ``steps_per_call`` = T time steps per call
+        (the JAX ``make_block_step``), boundary rows rewritten before every
+        sub-step: on a card one launch of K3 (``kernels/csf.py``: K3s on the
+        split state (f_r, f_b), K3c on the compressed one with
+        ``compressed``, K3h on the 11-plane bf16 state with ``storage="bf16"``,
+        which is decoded once and encoded once a call); on the CPU T plain
+        steps.  T = 1 gives ``step`` (or ``step_c`` for the model's own
+        storage).
+
+        Returns None where the JAX build function builds no kernel on
+        grounds of physics or boundaries: an inlet outside periodic / neumann /
+        dirichlet or an outlet outside periodic / convective / dirichlet
+        (csf.py:274-278), and bf16 storage on the split layout (:243-245).
+        ``rows_per_block``, ``interpret`` and ``substep_unroll`` tune the
+        TPU kernel's strips and are ignored; no shape is refused."""
+        del rows_per_block, interpret, substep_unroll
+        t = block_args(steps_per_call, storage)
+        if self.bcs.inlet not in BLOCK_INLETS or \
+                self.bcs.outlet not in BLOCK_OUTLETS:
+            return None
+        if storage == "bf16" and not compressed:
+            return None
+        if storage == "bf16" and self.dtype != torch.float32:
+            raise ValueError("storage='bf16' computes in float32")
+        csf = self.p.variant == "CSF"
+        if compressed:
+            if t == 1 and storage == self.storage:
+                return self.step_c
+            fn = csf_block_compressed if csf else pert_block_compressed
+            return t_step(fn, self, t)
+        if t == 1:
+            return self.step
+        fn = csf_block_split if csf else pert_block_split
+        return t_step(lambda state, m, t: fn(tuple(state), m, t), self, t)
 
     def fields_c(self, s):
         """(rho_r, rho_b, phi, gx, gy, (ux, uy)) of a compressed state

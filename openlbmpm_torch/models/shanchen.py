@@ -44,7 +44,8 @@ from torch import nn
 
 from .._device import resolve_device, resolve_dtype
 from ..geometry import Geometry
-from ..kernels.shanchen import geo_stack, kernel_params, sc_step
+from ..kernels.shanchen import (geo_stack, kernel_params,
+                                sc_block_step, sc_step)
 from ..lattice import D2Q9
 from ..ops import boundaries as bc
 from ..ops import collision as col
@@ -53,6 +54,7 @@ from ..ops import macroscopic as mac
 from ..ops import shanchen as sc
 from ..ops.forcing import efs_force_pdf, guo_source
 from ..ops.streaming import stream, stream_moving_wall, upwind_solid_masks
+from .base import kernel_block_step
 
 __all__ = ["ShanChenParams", "SCBoundaryConfig", "ShanChenMCMP",
            "takes_kernel", "zero_pressure_target_error"]
@@ -515,6 +517,27 @@ class ShanChenMCMP(nn.Module):
         if self.path == "kernel":
             return sc_step(f, self)
         return self.plain_step(f)
+
+    def make_block_step(self, steps_per_call: int = 4,
+                        rows_per_block: int | None = None,
+                        interpret: bool = False, storage: str = "f32"):
+        """A step that advances ``steps_per_call`` = T time steps per call
+        (the JAX ``make_block_step``), the inlet rows rewritten before and
+        the outlet rows after every sub-step: on a card one launch of K8-T
+        (``kernels/shanchen.py::sc_block_step``) on the (K, 9, ny, nx)
+        state, or with ``storage="bf16"`` on the (K, 11, ny, nx) bfloat16
+        state (decoded once and encoded once a call); on the CPU T plain
+        steps.  T = 1 with the model's own storage gives ``step``.
+
+        Returns None for a moving wall, for ``forcing`` other than "shift"
+        (the JAX ``make_block_step``, shanchen.py:223-226) and for row kinds
+        the kernel does not take (pallas/shanchen.py:153-156):
+        ``takes_kernel``.  ``rows_per_block`` and ``interpret`` tune the TPU
+        kernel and are ignored."""
+        del rows_per_block, interpret
+        takes = takes_kernel(self.p, self.bcs, self.upwind_moving is not None)
+        return kernel_block_step(self, steps_per_call, storage, takes,
+                                 sc_block_step)
 
     # -- diagnostics -------------------------------------------------------
     def macro(self, f):

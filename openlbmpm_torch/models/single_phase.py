@@ -32,7 +32,8 @@ from torch import nn
 
 from .._device import resolve_device, resolve_dtype
 from ..geometry import Geometry
-from ..kernels.single import kernel_params, single_step
+from ..kernels.single import (kernel_params, single_block_step,
+                              single_step)
 from ..lattice import D2Q9
 from ..ops import boundaries as bc
 from ..ops import collision as col
@@ -40,6 +41,7 @@ from ..ops import equilibrium as eq
 from ..ops import macroscopic as mac
 from ..ops.forcing import guo_source
 from ..ops.streaming import stream, stream_moving_wall, upwind_solid_masks
+from .base import kernel_block_step
 
 __all__ = ["BoundaryConfig", "SinglePhaseD2Q9", "takes_kernel",
            "KERNEL_INLETS", "KERNEL_OUTLETS"]
@@ -268,3 +270,24 @@ class SinglePhaseD2Q9(nn.Module):
         if self.path == "kernel":
             return single_step(f, self)
         return self.plain_step(f)
+
+    def make_block_step(self, steps_per_call: int = 4,
+                        rows_per_block: int | None = None,
+                        interpret: bool = False, storage: str = "f32"):
+        """A step that advances ``steps_per_call`` = T time steps per call
+        (the JAX ``make_block_step``), the boundary rows rewritten after
+        every sub-step: on a card one launch of K7-T
+        (``kernels/single.py::single_block_step``) on the (9, ny, nx) state,
+        or with ``storage="bf16"`` on the (11, ny, nx) bfloat16 state
+        (``pack_state_bf16``, decoded once and encoded once a call); on the
+        CPU T plain steps.  T = 1 with the model's own storage gives
+        ``step``.
+
+        Returns None for a moving wall (the JAX blocked K7 has no moving
+        wall) and for row kinds outside K7's (``takes_kernel``).
+        ``rows_per_block`` and ``interpret`` tune the TPU kernel and are
+        ignored."""
+        del rows_per_block, interpret
+        takes = takes_kernel(self.bcs, self.upwind_moving is not None)
+        return kernel_block_step(self, steps_per_call, storage, takes,
+                                 single_block_step)

@@ -692,3 +692,95 @@ def test_flow3d_paths_and_launches(cuda):
     assert sc3d_step.launches == 1 and f.shape == (2, 19, *FLOW3D_SHAPE)
     with pytest.raises(ValueError, match="state"):
         m.step(f.double())
+
+
+# -- the T-step kernels: K3, K8-T, K7-T ---------------------------------------
+
+def _block_calls(fn, x, m, t, calls=2):
+    for _ in range(calls):
+        x = fn(x, m, t)
+    return x
+
+
+def _gap(a, b):
+    if isinstance(a, tuple):
+        return max(_gap(x, y) for x, y in zip(a, b))
+    return float((a.double() - b.double()).abs().max())
+
+
+@pytest.mark.parametrize("t", [2, 3, 4])
+@pytest.mark.parametrize("key", ["f32", "split"])
+@pytest.mark.parametrize("variant", ["CSF", "Perturbation"])
+@pytest.mark.parametrize("domain", ["periodic_96x64",
+                                    "dirichlet_convective_100x72"])
+def test_k3_matches_t_plain_steps_f64(cuda, domain, variant, key, t):
+    """K3c / K3s at f64 against T plain steps, two calls (<= 1e-11)."""
+    from chip_smoke import k3_case, k3_wrappers
+    m, st = k3_case(domain, variant, cuda)
+    kern, plain = k3_wrappers(variant, key)
+    x = st if key == "split" else m.pack_state(*st)
+    assert _gap(_block_calls(kern, x, m, t), _block_calls(plain, x, m, t)) \
+        <= 1e-11
+
+
+@pytest.mark.parametrize("t", [2, 4])
+@pytest.mark.parametrize("case", SC_KERNEL_CASES)
+def test_k8t_matches_t_plain_steps_f64(cuda, case, t):
+    from openlbmpm_torch.kernels.shanchen import (sc_block_step,
+                                                  sc_block_step_reference)
+    m, f = sc_case(case, cuda, ny=100, nx=64)
+    assert _gap(_block_calls(sc_block_step, f, m, t),
+                _block_calls(sc_block_step_reference, f, m, t)) <= 1e-11
+
+
+@pytest.mark.parametrize("t", [2, 3, 4])
+@pytest.mark.parametrize("case", sorted(SINGLE_CASES))
+def test_k7t_matches_t_plain_steps_f64(cuda, case, t):
+    from openlbmpm_torch.kernels.single import (single_block_step,
+                                                single_block_step_reference)
+    m = single_case(case, cuda, ny=100, nx=72)
+    f = flow_start(m)
+    assert _gap(_block_calls(single_block_step, f, m, t),
+                _block_calls(single_block_step_reference, f, m, t)) <= 1e-11
+
+
+def test_block_steps_count_one_launch_per_call_and_bf16(cuda):
+    """One launch per call of T steps for each T-step wrapper; the bf16
+    forms decode once and encode once a call, as their plain versions
+    (within the T=1 bf16 bounds at a small size); make_block_step picks
+    the wrapper of the layout and variant."""
+    from openlbmpm_torch.kernels import csf as k
+    from openlbmpm_torch.kernels.shanchen import sc_block_step
+    from openlbmpm_torch.kernels.single import single_block_step
+    from chip_smoke import k3_case
+    m, st = k3_case("neumann_dirichlet_100x72", "CSF", cuda,
+                    dtype=torch.float32)
+    mb = ColorGradientRK(m.geo, m.p, m.bcs, device=cuda, storage="bf16")
+    h = mb.pack_state_bf16(*st)
+    blk = mb.make_block_step(steps_per_call=4, compressed=True,
+                             storage="bf16")
+    k.csf_block_compressed.launches = 0
+    a = blk(h)
+    assert k.csf_block_compressed.launches == 1 and a.dtype == torch.bfloat16
+    b = k.csf_block_compressed_reference(h, mb, 4)
+    away = torch.ones(m.geo.shape, dtype=torch.bool, device=cuda)
+    away[[0, 1, -2, -1]] = False
+    away[:, :8] = away[:, -8:] = False
+    d = (mb.unpack_bf16(a) - mb.unpack_bf16(b)).abs()
+    assert float(d[:9, away].max()) <= 3e-4 and float(d[9, away].max()) <= 1e-4
+    k.csf_block_split.launches = 0
+    m.make_block_step(steps_per_call=2)(st)
+    assert k.csf_block_split.launches == 1
+    ms, f = sc_case("sc_srt_velocity_convective", cuda, ny=100, nx=64,
+                    dtype=torch.float32)
+    sc_block_step.launches = 0
+    ms.make_block_step(steps_per_call=3)(f)
+    assert sc_block_step.launches == 1
+    m7 = single_case("mrt_convective", cuda, ny=100, nx=72,
+                     dtype=torch.float32)
+    single_block_step.launches = 0
+    m7.make_block_step(steps_per_call=4, storage="bf16")(
+        m7.pack_state_bf16(flow_start(m7)))
+    assert single_block_step.launches == 1
+    with pytest.raises(ValueError):
+        k.csf_block_split(st, m, 0)
