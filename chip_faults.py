@@ -6,11 +6,12 @@ phase 26 (benchmarks/probe_coupled3d.py's configuration at 128^3), the
 single-phase D2Q9 kernel (K7) under phase 31 (the analytic Poiseuille
 profile), the D3Q19 Shan-Chen kernel (K10) under phase 37
 (benchmarks/probe_sc3d.py's configuration) and the Perturbation kernel
-(K4) under phase 41 (the pert flagship at 1024^2); and three faults that
+(K4) under phase 41 (the pert flagship at 1024^2); and six faults that
 only the T-step kernels can show: the colour-gradient K3 under phase 48
-(the flagships at 1024^2 in f32), the Shan-Chen K8-T under phase 46 and
-the single-phase K7-T under phase 47 (their f64 cases), each while the T=1
-phases of the same family (4 and 41, 15, 29) pass.
+(the flagships at 1024^2 in f32), the Shan-Chen K8-T under phase 46, the
+single-phase K7-T under phase 47, the coupled K5c-T under phase 52 and the
+D3Q19 K11-T and K10-T under phase 53 (their f64 cases), each while the T=1
+phases of the same family (4 and 41, 15, 29, 6 and 11, 33, 36) pass.
 
     python3 chip_faults.py [case ...]
 
@@ -36,10 +37,14 @@ Perturbation K3 shares the line).  The T-step faults: K3 rewrites the
 boundary rows before the first sub-step of a call only, in its f32
 instances; K8-T selects the Zou-He outlet row by window row instead of
 global row, in its f64 instance; K7-T rewrites the rows after the first
-sub-step only, in its f64 instance:
+sub-step only, in its f64 instance; K5c-T maps the tracer's window rows
+to global rows without the window's offset (its inlet and outlet rows land
+on the wrong rows), K11-T streams in the first sub-step only, and K10-T
+leaves rho_k of the window's outer shell stale each sub-step, each in its
+f64 instance:
 
-  none           the sources as they are: phases 4, 15, 21, 26, 29, 31,
-                 37, 41, 45-48 must pass;
+  none           the sources as they are: phases 4, 6, 11, 15, 21, 26,
+                 29, 31, 33, 36, 37, 41, 45-48, 52, 53 must pass;
   f32            cg3d.cuh, float32 storage (K9c f32, K9s f32): phase 21;
   bf16           cg3d.cuh, bfloat16 storage (K9h): phase 21;
   tracer f32     cg3d.cuh, float32 storage (K9t f32): phase 26;
@@ -51,7 +56,13 @@ sub-step only, in its f64 instance:
   K8-T local row sc2d_block.cuh, float64 storage: phase 46 must fail,
                  phase 15 (K8) passes;
   K7-T bc once   single2d_block.cuh, float64 storage: phase 47 must fail,
-                 phase 29 (K7) passes.
+                 phase 29 (K7) passes;
+  K5c-T window rows  coupled2d_block.cuh, float64 storage: phase 52 must
+                 fail, phases 6 and 11 (K5c, K5s) pass;
+  K11-T swap once    flow3d_block.cuh, float64 storage: phase 53 must
+                 fail, phase 33 (K11) passes;
+  K10-T rho shell    flow3d_block.cuh, float64 storage: phase 53 must
+                 fail, phase 36 (K10) passes.
 
 Prints one line per case with the failed checks and the gaps, and exits 0
 only when every case behaves as stated.
@@ -92,6 +103,14 @@ K3_FAULT = ("      if (sub == 0 || sizeof(S) != {size}) "
 K8T_LINE = "              if (wrap(oy + ly, ny) == d && FL[c]) {"
 K8T_FAULT = ("              if ((sizeof(S) == {size} ? ly : wrap(oy + ly, ny)) "
              "== d && FL[c]) {{")
+K5CT_LINE = "    const WindowView<C> view{GP, FL, DOM, PL, wx, wy, oy, ny};"
+K5CT_FAULT = ("    const WindowView<C> view{{GP, FL, DOM, PL, wx, wy, "
+              "sizeof(S) == {size} ? 0 : oy, ny}};")
+K11T_LINE = "      swap_stream(W, PL, K, FL, r);"
+K11T_FAULT = ("      if (sub == 0 || MODE == kShanChen || sizeof(S) != {size}) "
+              "swap_stream(W, PL, K, FL, r);")
+K10T_LINE = "        Box r = shrunk3(B, e);"
+K10T_FAULT = ("        Box r = shrunk3(B, sizeof(S) == {size} ? e + 1 : e);")
 K7T_LINE = "      if (P.inlet != 0 || P.outlet != 0) {"
 K7T_FAULT = ("      if ((P.inlet != 0 || P.outlet != 0) && "
              "(sub == 0 || sizeof(S) != {size})) {{")
@@ -111,14 +130,21 @@ CASES = {
                        ("46",)),
     "K7-T bc once": ("single2d_block.cuh", K7T_LINE,
                      K7T_FAULT.format(size=8), ("47",)),
+    "K5c-T window rows": ("coupled2d_block.cuh", K5CT_LINE,
+                          K5CT_FAULT.format(size=8), ("52",)),
+    "K11-T swap once": ("flow3d_block.cuh", K11T_LINE,
+                        K11T_FAULT.format(size=8), ("53",)),
+    "K10-T rho shell": ("flow3d_block.cuh", K10T_LINE,
+                        K10T_FAULT.format(size=8), ("53",)),
 }
 # name -> the T=1 phases of the same family that must pass the T-step
 # faults (the T=1 kernels do not run the changed line)
 MUST_PASS = {"K3 bc once": ("4", "41"), "K8-T local row": ("15",),
-             "K7-T bc once": ("29",)}
+             "K7-T bc once": ("29",), "K5c-T window rows": ("6", "11"),
+             "K11-T swap once": ("33",), "K10-T rho shell": ("36",)}
 # the phases of the unchanged sources
-ALL_PHASES = ("4", "15", "21", "26", "29", "31", "37", "41", "45", "46",
-              "47", "48")
+ALL_PHASES = ("4", "6", "11", "15", "21", "26", "29", "31", "33", "36", "37",
+              "41", "45", "46", "47", "48", "52", "53")
 
 RUN = r"""
 import json, sys, torch
@@ -128,16 +154,20 @@ build.load_libraries(build.LIBRARIES)   # side by side, before any phase
 failed = {}
 out = {}
 device = torch.device("cuda", 0)
-SIMPLE = {"15": cs.phase_sc_f64, "29": cs.phase_single_f64,
+SIMPLE = {"6": cs.phase_coupled_f64, "11": cs.phase_split_coupled_f64,
+          "15": cs.phase_sc_f64, "29": cs.phase_single_f64,
+          "33": cs.phase_single3d_f64, "36": cs.phase_sc3d_f64,
           "45": cs.phase_block_csf_f64, "46": cs.phase_block_sc_f64,
-          "47": cs.phase_block_single_f64}
+          "47": cs.phase_block_single_f64, "52": cs.phase_block_coupled_f64,
+          "53": cs.phase_block3d_f64}
 for phase in sys.argv[1:]:
     bad = failed.setdefault(phase, [])
     cs.check = lambda cond, what, bad=bad: cond or bad.append(what)
     try:
         if phase in SIMPLE:
             res = SIMPLE[phase](device)
-            out[phase] = {"max": max(res.values())}
+            out[phase] = {"max": max(max(v) if isinstance(v, tuple) else v
+                                     for v in res.values())}
             continue
         elif phase == "4":
             res = cs.phase_flagship(device)

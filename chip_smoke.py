@@ -56,7 +56,8 @@ toolkit (nvcc) and PyTorch built for CUDA; JAX is not needed.  Phases:
  12. the CLI on the card: ``openlbmpm_torch.cli.main(["run", ...])`` with
      ``--model cg --block 1`` (one step a launch; phase 50 drives the
      T-step kernels) on configs/rk_csf2d.ini set to a 1024^2 domain for 1000
-     f32 steps, then ``--model transport`` with configs/transportsetup.ini
+     f32 steps, then ``--model transport --block 1`` (phase 56 drives its
+     T-step kernel) with configs/transportsetup.ini
      and that INI as the flow config for 500 steps; the split kernels'
      launch counts must rise by exactly the step counts, the final states
      must be finite, and the MLUPS of metrics.jsonl are printed (they
@@ -227,7 +228,33 @@ toolkit (nvcc) and PyTorch built for CUDA; JAX is not needed.  Phases:
      18 and 38 (``run --model cg`` CSF 1044x1024, ``sc`` SC 1024^2,
      ``basic`` 512x1024, 1000 f32 steps): the T-step kernel launched
      1000 / T times and the T=1 kernel never, and the seconds with I/O
-     beside those phases' ``--block 1`` runs in the same call.
+     beside those phases' ``--block 1`` runs in the same call;
+ 52. f64: the T-step coupled flow + tracer kernel K5c-T (compressed and
+     split) against T plain coupled steps, T = 2, 3, 4, two calls in a row,
+     on a 100x64 walled channel with tracer mass on the boundary rows, in
+     every case of BLOCK_COUPLED_CASES (phase 6's six, D2Q9 MRT, an
+     interface of kind "none") on the flagship's flow, and two cases on
+     the Dirichlet inlet / convective outlet flow; <= 1e-11;
+ 53. f64: the T-step D3Q19 kernels K11-T (every case of SINGLE3D_CASES) and
+     K10-T (K = 1, 2, 3: BLOCK_SC3D_CASES) on 48x40x32, T = 2, 3, 4;
+     <= 1e-11;
+ 54. the new T-step kernels at full size, T = 2 and 4, 8 steps (3-D: 4)
+     against their plain versions: K5c-T at config 4 (1024^2) compressed f32 and
+     bf16 and split f32 within phase 7's bounds off the seam, K11-T at
+     basic3d and K10-T at probe_sc3d at 128^3 and 256^3 in f32 and bf16
+     within phases 34 and 37's bounds; each bf16 state one more step within
+     one ulp a value;
+ 55. speed per time step of K5c-T (config 4, three layouts), K11-T and
+     K10-T (128^3, f32 and bf16) at T = 1, 2, 4, as phase 49;
+ 56. their main paths: bench.py's loop (``run_chunked`` of
+     ``make_block_step(4, ...)``) on config 4 in bf16, f32 and split, and
+     on basic3d and probe_sc3d in bf16 at 128^3; ``run --model
+     transport|basic3d|sc3d --block 4`` against ``--block 1`` as phase 50,
+     and ``--block 0`` picking T = 2 where 4 does not divide the interval;
+ 57. the CLI's default ``--block 0`` at the shipped sizes of phases 12 and
+     38 (``transport`` 1044x1024 500 steps, ``basic3d`` and ``sc3d`` as
+     shipped, 1000 steps): the T-step kernel launched steps / T times, the
+     T=1 kernel never, the seconds with I/O beside the ``--block 1`` runs.
 
 Every phase prints one line or more, each number line with the card's name
 and power limit, and any failure exits non-zero.  Then the wall time, the
@@ -1086,7 +1113,7 @@ def phase_cli(device, n=FLAGSHIP_N, cg_steps=1000, tr_steps=500):
                                            "transportsetup.ini"),
                        "--model", "transport", "--physics-config", ini,
                        "--steps", str(tr_steps), "--output", out,
-                       "--device", "cuda"])
+                       "--device", "cuda", "--block", "1"])
         res["tr_sec"] = time.perf_counter() - t0
         res["tr_launches"] = coupled_step_split.launches
         check(rc == 0, f"cli run --model transport returned {rc}")
@@ -4629,6 +4656,626 @@ def kernel_entry(name, label, source, replaces, launches, max_abs_err, sec,
             "library_ms": None, **extra}
 
 
+# -- the T-step kernels of coupled 2-D transport and of the 3-D flows: K5c-T,
+# K10-T, K11-T -----------------------------------------------------------------
+
+# phase 52's tracer cases: COUPLED_CASES (permeable and bounce-back
+# interfaces, the Inamuro, anti-bounce-back and zero inlets with the free-flow
+# outlet, three reacting tracers, D2Q5 MRT, D2Q9 SRT) plus a D2Q9 MRT case
+# and an interface of kind "none" with the tracer rows
+BLOCK_COUPLED_CASES = COUPLED_CASES | {
+    "g": dict(num_tracers=1, scheme=9, relaxation="MRT",
+              diff_x=(0.1,), diff_y=(0.05,), diff_xy=(0.01,),
+              diff_yx=(0.01,), interface_mode="permeable",
+              beta_interface=(0.3,)),
+    "h": dict(num_tracers=1, scheme=5, tau=(0.9,), j0=(1 / 3,),
+              interface_mode="none", inlet="inamuro", inlet_conc=(1.0,),
+              outlet="freeflow"),
+}
+# the flows of phase 52: the flagship's (neumann inlet, Dirichlet outlet with
+# the phi repair) and the Dirichlet inlet with the convective outlet
+BLOCK_COUPLED_FLOWS = ("flagship", "dirichlet_convective")
+
+
+def coupled_block_case(name, device, flow="flagship", ny=100, nx=64,
+                       dtype=torch.float64):
+    """A BLOCK_COUPLED_CASES model on a walled ny x nx channel (ny = 100 is
+    no multiple of any tile height, so the last tile's window wraps), on the
+    flagship's flow or with its rows replaced by _P_DIR_CONV, and its split
+    start with tracer mass on the boundary rows."""
+    import dataclasses
+    from openlbmpm_torch.models.colorgradient import CGBoundaryConfig
+    from openlbmpm_torch.models.transport import TransportParams, TransportRK
+    params, bcs = flagship_flow()
+    if flow == "dirichlet_convective":
+        bcs = CGBoundaryConfig(**_P_DIR_CONV)
+    params = dataclasses.replace(params, surface_tension=0.01, tau_b=0.8)
+    m = TransportRK(walled(ny, nx), params,
+                    TransportParams(**BLOCK_COUPLED_CASES[name]), bcs,
+                    dtype=dtype, device=device)
+    st = m.init_state(m.flow.init_state_layers(1.0, 1.0,
+                                               invading_rows=ny // 5),
+                      coupled_conc0(m.tp.num_tracers, ny, nx,
+                                    seed=len(name)))
+    return m, st
+
+
+def k5ct_wrappers(layout):
+    """(kernel wrapper, plain version) of K5c-T for a layout: "f32" / "bf16"
+    (compressed), "split"."""
+    from openlbmpm_torch.kernels import transport as kt
+    lay = "split" if layout == "split" else "compressed"
+    return (getattr(kt, f"coupled_block_{lay}"),
+            getattr(kt, f"coupled_block_{lay}_reference"))
+
+
+def phase_block_coupled_f64(device, calls=2, tol=1e-11):
+    """K5c-T against T plain coupled steps at f64, T = 2, 3, 4, two calls in
+    a row, on 100 x 64: every case of BLOCK_COUPLED_CASES on the flagship's
+    flow, compressed and split; cases (a) and (f) on the Dirichlet inlet /
+    convective outlet flow, compressed (the split Dirichlet inlet is the
+    K6 path's)."""
+    res = {}
+    for flow in BLOCK_COUPLED_FLOWS:
+        names = BLOCK_COUPLED_CASES if flow == "flagship" else ("a", "f")
+        for name in names:
+            m, st = coupled_block_case(name, device, flow)
+            for lay in ("f32", "split") if flow == "flagship" else ("f32",):
+                kern, plain = k5ct_wrappers(lay)
+                x0 = st if lay == "split" else m.pack(st)
+                for t in BLOCK_TS:
+                    a = _steps(lambda x: kern(x, m, t), x0, calls)
+                    b = _steps(lambda x: plain(x, m, t), x0, calls)
+                    err = _gap(tuple(a), tuple(b))
+                    check(all(bool(torch.isfinite(x).all()) for x in a) and
+                          err <= tol, f"K5c-T {flow} {name} {lay} T={t}: "
+                          f"kernel vs {t} plain steps {err:.3e} > {tol:g}")
+                    res[(flow, name, lay, t)] = err
+            del m, st
+    return res
+
+
+# phase 53's 3-D Shan-Chen cases: SC3D_CASES (K = 2 periodic, K = 2 on
+# walls with a body force, K = 3 on walls) plus one fluid on walls with the
+# adhesion field and a body force
+BLOCK_SC3D_CASES = ("k2_periodic", "k2_walls_force", "k3", "k1_walls_force")
+
+
+def block_sc3d_case(name, device, shape=(48, 40, 32), dtype=torch.float64):
+    """A BLOCK_SC3D_CASES model and its start (``sc3d_case``; the K = 1 case
+    from a perturbed equilibrium)."""
+    from openlbmpm_torch.models.flow3d import ShanChenMCMP3D, ShanChenParams3D
+    if name != "k1_walls_force":
+        return sc3d_case(name, device, shape, dtype)
+    m = ShanChenMCMP3D(_walls_y(shape, obstacle=True), ShanChenParams3D(
+        g_matrix=((0.0,),), g_solid=(-0.2,), tau=(0.9,),
+        body_force=(1e-5, 0.0, -2e-5)), dtype=dtype, device=device)
+    return m, flow_start(m, seed=9, k=1)
+
+
+def phase_block3d_f64(device, calls=2, tol=1e-11):
+    """K11-T and K10-T against T plain steps at f64 on 48 x 40 x 32 (walls
+    along y), T = 2, 3, 4, two calls in a row: every case of SINGLE3D_CASES
+    (SRT and TRT, with and without the body force, an obstacle) and of
+    BLOCK_SC3D_CASES (K = 1, 2, 3)."""
+    from openlbmpm_torch.kernels import flow3d as kf
+    res = {}
+    for tag, names in (("K11-T", SINGLE3D_CASES), ("K10-T", BLOCK_SC3D_CASES)):
+        for name in names:
+            if tag == "K11-T":
+                m = single3d_case(name, device)
+                f = flow_start(m, seed=len(res))
+                kern, plain = kf.single3d_block_step, \
+                    kf.single3d_block_step_reference
+            else:
+                m, f = block_sc3d_case(name, device)
+                kern, plain = kf.sc3d_block_step, kf.sc3d_block_step_reference
+            for t in BLOCK_TS:
+                a = _steps(lambda x: kern(x, m, t), f, calls)
+                err = _gap(a, _steps(lambda x: plain(x, m, t), f, calls))
+                check(bool(torch.isfinite(a).all()) and err <= tol,
+                      f"{tag} {name} T={t}: kernel vs {t} plain steps "
+                      f"{err:.3e} > {tol:g}")
+                res[(tag, name, t)] = err
+    return res
+
+
+# phase 54's bounds, off the seam rows and corners: the T=1 phases' (K5c
+# phase 7: the flow's planes, rho_r and the tracers' PDFs; K11, K10: phases
+# 34, 37 over 10 steps)
+K5CT_BOUNDS = {"f32": (3e-5, 3e-5), "split": (3e-5, 3e-5),
+               "bf16": (3e-4, 1e-4)}
+
+
+def _coupled_flow(m, x, key):
+    """The decoded compressed flow state of a K5c-T state of layout `key`."""
+    if key == "split":
+        return m.flow.pack_state(x[0], x[1])
+    return m.flow.unpack_bf16(x[0]) if key == "bf16" else x[0]
+
+
+def phase_block_full_3(device, n=FLAGSHIP_N, steps=8, sizes=(128, 256),
+                       steps3=4):
+    """The new T-step kernels at full size against their plain versions,
+    T = 2 and 4, `steps` steps from one start: K5c-T at config 4 (n^2,
+    bench_all.py:211-242: the flagship flow, one D2Q5 tracer) compressed in
+    f32 and bf16 flow storage and split in f32, held off the seam rows and
+    corners to K5CT_BOUNDS (tracers: the first bound); K11-T at basic3d and
+    K10-T at probe_sc3d, `steps3` steps at each n of `sizes`, in f32 and
+    bf16 storage, within FLOW3D_F32_BOUND and BF16_BOUND.  Each bf16 state then takes one
+    more step (the T-step kernel at T = 1) from a common bf16 state, every
+    value within one bf16 ulp of the plain step (``bf16_one_step``,
+    ``bf16_ulp_check``)."""
+    from openlbmpm_torch.kernels import flow3d as kf
+    from openlbmpm_torch.kernels import transport as kt
+    res = {}
+    away = seam_masks(n, n, steps, device)
+    for key in ("f32", "bf16", "split"):
+        m = coupled_model(device, "bf16" if key == "bf16" else "f32",
+                          CONFIG4_TRACER, ny=n, nx=n)
+        st, _ = config4_state(m, n)
+        x0 = st if key == "split" else m.pack(st)
+        kern, plain = k5ct_wrappers(key)
+        for t in (2, 4):
+            a = _steps(lambda x: kern(x, m, t), x0, steps // t)
+            b = _steps(lambda x: plain(x, m, t), x0, steps // t)
+            fa, fb = _coupled_flow(m, a, key), _coupled_flow(m, b, key)
+            ga, gb = a[-2] if key == "split" else a[1], \
+                b[-2] if key == "split" else b[1]
+            check(bool(torch.isfinite(fa).all()) and
+                  bool(torch.isfinite(ga).all()),
+                  f"K5c-T {key} T={t}: state not finite")
+            d, dg = (fa - fb).abs(), (ga - gb).abs()
+            r = {"planes": float(d[:9, away].max()),
+                 "rho_r": float(d[9, away].max()),
+                 "g": float(dg[:, :, away].max()),
+                 "max": max(float(d.max()), float(dg.max()))}
+            bp, br = K5CT_BOUNDS[key]
+            check(r["planes"] <= bp and r["rho_r"] <= br and r["g"] <= bp,
+                  f"K5c-T config 4 {key} T={t} off the seam: planes "
+                  f"{r['planes']:.3e}, rho_r {r['rho_r']:.3e}, tracers "
+                  f"{r['g']:.3e} over {bp:g}/{br:g}/{bp:g}")
+            res[("K5c-T", key, t)] = r
+        if key == "bf16":
+            g = b[1]
+            res[("K5c-T", "bf16", "ulp")] = bf16_one_step(
+                m.flow, b[0], away,
+                kernel=lambda s, _m: kt.coupled_block_compressed(
+                    (s, g), m, 1)[0])
+        del m, st, x0, a, b
+        torch.cuda.empty_cache()
+    for tag, make, start, kern, plain, bound in (
+            ("K11-T", basic3d_model, lambda m: flow_start(m, seed=5),
+             kf.single3d_block_step, kf.single3d_block_step_reference, "K11"),
+            ("K10-T", probe_sc3d_model, probe_sc3d_start, kf.sc3d_block_step,
+             kf.sc3d_block_step_reference, "K10")):
+        for size in sizes:
+            f = start(make(device, n=size))
+            for st in ("f32", "bf16"):
+                m = make(device, n=size, storage=st)
+                x0 = m.pack_state_bf16(f) if st == "bf16" else f
+                for t in (2, 4):
+                    a = _steps(lambda x: kern(x, m, t), x0, steps3 // t)
+                    b = _steps(lambda x: plain(x, m, t), x0, steps3 // t)
+                    if st == "bf16":
+                        a, b = m.unpack_bf16(a), m.unpack_bf16(b)
+                    gap = _gap(a, b)
+                    lim = FLOW3D_F32_BOUND[bound] if st == "f32" else \
+                        BF16_BOUND[bound]
+                    check(bool(torch.isfinite(a).all()) and gap <= lim,
+                          f"{tag} {size}^3 {st} T={t}: kernel vs plain "
+                          f"{gap:.3e} (<= {lim:g})")
+                    res[(tag, f"{size}^3 {st}", t)] = gap
+                    del a, b
+                if st == "bf16" and size == sizes[0]:
+                    h = _steps(lambda x: plain(x, m, 4), x0, 1)
+                    res[(tag, "bf16", "ulp")] = bf16_ulp_check(
+                        m, h, lambda x, mm: kern(x, mm, 1),
+                        m.fluid_mask > 0, FLOW3D_BF16_SHARE, tag)
+                del m, x0
+                torch.cuda.empty_cache()
+            del f
+    return res
+
+
+# the new T-step kernels' CUDA names in the profiler
+BLOCK3_KERNEL_NAMES = {"K5c-T": "coupled_block_kernel",
+                       "K11-T": "flow3d_block_kernel",
+                       "K10-T": "flow3d_block_kernel"}
+# least bytes per cell and time step at T = 1 (each input read once, each
+# output written once): the T=1 kernel's, K5c (one f32 D2Q5 tracer) in its
+# three layouts, K11 and K10 (two fluids) in f32 and bf16
+BLOCK3_BYTES = {("K5c-T", "f32"): 2 * 40 + 2 * 20 + 1,
+                ("K5c-T", "bf16"): KERNEL_BYTES["K5c"],
+                ("K5c-T", "split"): KERNEL_BYTES["K5s"],
+                ("K11-T", "f32"): FLOW3D_BYTES["K11"]["f32"],
+                ("K11-T", "bf16"): FLOW3D_BYTES["K11"]["bf16"],
+                ("K10-T", "f32"): FLOW3D_BYTES["K10"]["f32"],
+                ("K10-T", "bf16"): FLOW3D_BYTES["K10"]["bf16"]}
+BLOCK3_FLOPS = {"K5c-T": KERNEL_FLOPS["K5c"], "K11-T": FLOW3D_FLOPS["K11"],
+                "K10-T": FLOW3D_FLOPS["K10"]}
+
+
+def block3_speed_cases(device, n=FLAGSHIP_N, n3=128):
+    """(label, family, key, model, state, T=1 step, T-step wrapper, its plain
+    version, cells) of phase 55: K5c-T at config 4 (n^2) in its three
+    layouts, K11-T at basic3d and K10-T at probe_sc3d (n3^3) in f32 and
+    bf16."""
+    from openlbmpm_torch.kernels import flow3d as kf
+    for key in ("f32", "bf16", "split"):
+        m = coupled_model(device, "bf16" if key == "bf16" else "f32",
+                          CONFIG4_TRACER, ny=n, nx=n)
+        st, _ = config4_state(m, n)
+        kern, plain = k5ct_wrappers(key)
+        yield (f"K5c-T{dict(f32='c', bf16='h', split='s')[key]}", "K5c-T", key,
+               m, st if key == "split" else m.pack(st),
+               m.step if key == "split" else m.step_c, kern, plain, n * n)
+    for tag, make, start, kern, plain in (
+            ("K11-T", basic3d_model, lambda m: flow_start(m, seed=5),
+             kf.single3d_block_step, kf.single3d_block_step_reference),
+            ("K10-T", probe_sc3d_model, probe_sc3d_start, kf.sc3d_block_step,
+             kf.sc3d_block_step_reference)):
+        f = start(make(device, n=n3))
+        for st in ("f32", "bf16"):
+            m = make(device, n=n3, storage=st)
+            yield (f"{tag} {n3}^3 {st}", tag, st, m,
+                   m.pack_state_bf16(f) if st == "bf16" else f, m.step, kern,
+                   plain, n3 ** 3)
+
+
+def _tiling3(family, key, m, t):
+    from openlbmpm_torch.kernels import flow3d as kf
+    from openlbmpm_torch.kernels import transport as kt
+    dt = torch.bfloat16 if key == "bf16" else torch.float32
+    if family == "K5c-T":
+        return kt.coupled_block_tiling(dt, key == "split",
+                                       kt.coupled_block_params(m), t)
+    return kf.flow3d_block_tiling(dt, "single" if family == "K11-T" else "sc",
+                                  m.kernel_params, t)
+
+
+def phase_block3_speed(device, time_steps=100, calls=6):
+    """Speed per time step of each new T-step kernel at T = 1 (the T=1
+    kernel), 2 and 4: CUDA events over `time_steps` steps (T = 1, 2, 4, 4,
+    2, 1, the best of each), device microseconds per launch from
+    torch.profiler, launches per time step from the wrapper's count over
+    `calls` calls, MLUPS, the bound per step (the T=1 least bytes over T, or
+    the least operations of one step, whichever is longer), the plain
+    version's time per step (T = 4) and the launch's tiling.  A trace that
+    shows no device time for the kernel (torch.profiler loses some of
+    these millisecond launches in a long run) is taken once more."""
+    out = {}
+    for (label, family, key, m, x, step1, kern, plain,
+         cells) in block3_speed_cases(device):
+        flops = BLOCK3_FLOPS[family]
+        r = {"sec": {}, "launches_per_step": {}, "device_us": {},
+             "tiling": {}, "cells": cells, "flops": flops}
+        for t in (1, 2, 4, 4, 2, 1):
+            fn = step1 if t == 1 else (lambda y, t=t: kern(y, m, t))
+            sec = _time_steps(fn, x, max(time_steps // t, 10), device) / t
+            r["sec"][t] = min(r["sec"].get(t, float("inf")), sec)
+        for t in (2, 4):
+            kern.launches = 0
+            _steps(lambda y: kern(y, m, t), x, calls)
+            r["launches_per_step"][t] = kern.launches / (calls * t)
+            check(kern.launches == calls, f"{label} T={t}: {kern.launches} "
+                  f"launches for {calls} calls")
+            name = BLOCK3_KERNEL_NAMES[family]
+            for _ in range(2):
+                r["device_us"][t] = device_times(lambda y: kern(y, m, t), x,
+                                                 (name,), steps=4)[name]
+                if r["device_us"][t] is not None:
+                    break
+            r["tiling"][t] = _tiling3(family, key, m, t)
+        r["plain_sec"] = _time_steps(lambda y: plain(y, m, 4), x, 1,
+                                     device) / 4
+        r["mlups"] = {t: cells / sec / 1e6 for t, sec in r["sec"].items()}
+        r["bound_ms"] = {t: max(BLOCK3_BYTES[(family, key)] / t * cells /
+                                HBM_BYTES_PER_S, flops * cells /
+                                F32_FLOPS_PER_S) * 1e3 for t in (1, 2, 4)}
+        out[label] = r
+        del m, x
+        torch.cuda.empty_cache()
+    return out
+
+
+def _cli_run(cli, argv):
+    """``cli.main(argv)`` with its output captured: (rc, text, seconds)."""
+    import contextlib
+    import io
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as text:
+        rc = cli.main(argv)
+    return rc, text.getvalue(), time.perf_counter() - t0
+
+
+def phase_block3_main(device, n=FLAGSHIP_N, steps=400, n3=128, cli_n=512):
+    """The new T-step kernels' main paths, each kernel's count set to 0 just
+    before the run and read just after.  bench.py's loop on config 4:
+    ``run_chunked`` of ``TransportRK.make_block_step(steps_per_call=4,
+    compressed=True, storage=...)`` in bf16 and f32 flow storage, and of
+    ``make_block_step(4, compressed=False)`` on the split state; of
+    ``make_block_step(4, storage="bf16")`` of basic3d and probe_sc3d at
+    n3^3.  The user's entry point: ``run --model transport`` (the
+    transport INI on rk_csf2d.ini at cli_n^2), ``--model basic3d`` and
+    ``--model sc3d`` (the shipped INIs) with ``--block 4`` against
+    ``--block 1`` (96 steps, output every 48): metrics.jsonl at every output
+    step within BLOCK_CLI_BOUND, the T-step kernel launched 24 times and the
+    T=1 kernel never; then ``--block 0`` with output every 30 steps (90
+    steps), which 4 does not divide, picks T = 2 as the JAX
+    ``_pick_block`` does."""
+    import os
+    import tempfile
+    from openlbmpm_torch import cli
+    from openlbmpm_torch.kernels import flow3d as kf
+    from openlbmpm_torch.kernels import transport as kt
+    from openlbmpm_torch.models.base import RunMetrics, run_chunked
+    res = {}
+    for key in ("bf16", "f32", "split"):
+        m = coupled_model(device, "bf16" if key == "bf16" else "f32",
+                          CONFIG4_TRACER, ny=n, nx=n)
+        st, mass0 = config4_state(m, n)
+        blk = m.make_block_step(steps_per_call=4, compressed=key != "split",
+                                storage="bf16" if key == "bf16" else "f32")
+        counter = k5ct_wrappers(key)[0]
+        meter = RunMetrics(n * n)
+        counter.launches = 0
+        out = run_chunked(blk, st if key == "split" else m.pack(st),
+                          num_steps=steps // 4, io_interval=steps // 8,
+                          metrics=meter, nan_guard=True)
+        launches = counter.launches
+        g = out[-2] if key == "split" else out[1]
+        drift = abs(float(g.double().sum()) - mass0) / mass0
+        check(launches == steps // 4 and drift <= 1e-7 * steps,
+              f"K5c-T bench loop {key}: {launches} launches (want "
+              f"{steps // 4}), tracer mass drift {drift:.2e}")
+        res[("loop", "K5c-T", key)] = {"launches": launches, "steps": steps,
+                                       "mlups": 4 * meter.mlups,
+                                       "drift": drift}
+        del m, st, out
+    for tag, make, start, counter in (
+            ("K11-T", basic3d_model, lambda m: m.init_state(),
+             kf.single3d_block_step),
+            ("K10-T", probe_sc3d_model, probe_sc3d_start, kf.sc3d_block_step)):
+        m = make(device, n=n3, storage="bf16")
+        blk = m.make_block_step(steps_per_call=4, storage="bf16")
+        meter = RunMetrics(m.geo.num_fluid_nodes)
+        counter.launches = 0
+        h = run_chunked(blk, m.pack_state_bf16(start(m)), num_steps=200 // 4,
+                        io_interval=100 // 4, metrics=meter, nan_guard=True)
+        launches = counter.launches
+        check(launches == 50 and h.dtype == torch.bfloat16,
+              f"{tag} bf16 main path: {launches} launches")
+        res[("loop", tag, "bf16")] = {"launches": launches, "steps": 200,
+                                      "mlups": 4 * meter.mlups}
+        del m, h
+        torch.cuda.empty_cache()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
+    runs = (("transport", kt.coupled_block_compressed, kt.coupled_step_split),
+            ("basic3d", kf.single3d_block_step, kf.single3d_step),
+            ("sc3d", kf.sc3d_block_step, kf.sc3d_step))
+    with tempfile.TemporaryDirectory() as tmp:
+        flow_ini = os.path.join(tmp, "rk_csf2d.ini")
+        _mini_ini(os.path.join(root, "rk_csf2d.ini"), flow_ini, cli_n, 48)
+        for model, blocked, one in runs:
+            if model == "transport":
+                ini = os.path.join(root, "transportsetup.ini")
+                extra, edit = ["--physics-config", flow_ini], flow_ini
+            else:
+                name = "basic3d.ini" if model == "basic3d" else \
+                    "shanchen3d.ini"
+                ini = edit = os.path.join(tmp, name)
+                _ini_copy(os.path.join(root, name), ini, {})
+                extra = []
+            r = {}
+            for block, steps_, interval in (("1", 96, 48), ("4", 96, 48),
+                                            ("0", 90, 30)):
+                _ini_copy(edit, edit, {"TimeInterval": interval})
+                out = os.path.join(tmp, f"{model}_{block}")
+                blocked.launches = one.launches = 0
+                rc, text, sec = _cli_run(cli, [
+                    "run", ini, "--model", model, *extra, "--steps",
+                    str(steps_), "--output", out, "--device", "cuda",
+                    "--block", block])
+                want_t = {"1": 1, "4": 4, "0": 2}[block]
+                line = next((ln for ln in text.splitlines()
+                             if f"--model {model}" in ln), "")
+                said = f"{want_t} steps a launch" if want_t > 1 else \
+                    "one step a launch"
+                counts = (blocked.launches, one.launches)
+                want = (0, steps_) if want_t == 1 else (steps_ // want_t, 0)
+                check(rc == 0 and said in line and counts == want,
+                      f"cli {model} --block {block}: rc {rc}, launches "
+                      f"{counts} (want {want}), {line}")
+                r[block] = {"sec": sec, "launches": counts, "line": line}
+            sa, sb, gaps = _metrics_gap(
+                os.path.join(tmp, f"{model}_1", "metrics.jsonl"),
+                os.path.join(tmp, f"{model}_4", "metrics.jsonl"))
+            over = {k: v for k, v in gaps.items()
+                    if v > BLOCK_CLI_BOUNDS.get(k, BLOCK_CLI_BOUND)}
+            check(sa == sb == [0, 48, 96] and not over,
+                  f"cli {model}: --block 4 metrics at {sb}, --block 1 at "
+                  f"{sa}, relative gaps over their bounds: {over}")
+            r["gap"], r["gaps"] = max(gaps.values()), gaps
+            res[("cli", model)] = r
+    return res
+
+
+def phase_cli_default_3(device, n=FLAGSHIP_N, steps=1000, tr_steps=500):
+    """The CLI's default ``--block 0`` at the shipped sizes of phases 12
+    (``transport``, transportsetup.ini on rk_csf2d.ini at n^2, output every
+    500 steps, `tr_steps` steps) and 38 (``basic3d`` and ``sc3d``,
+    basic3d.ini and shanchen3d.ini, output every `steps`): T from the
+    printed path line, the T-step kernel launched steps / T times and the
+    T=1 kernel never, the seconds with I/O."""
+    import os
+    import tempfile
+    from openlbmpm_torch import cli
+    from openlbmpm_torch.kernels import flow3d as kf
+    from openlbmpm_torch.kernels import transport as kt
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        flow_ini = os.path.join(tmp, "rk_csf2d.ini")
+        _mini_ini(os.path.join(root, "rk_csf2d.ini"), flow_ini, n, 500)
+        basic_ini = os.path.join(tmp, "basic3d.ini")
+        _ini_copy(os.path.join(root, "basic3d.ini"), basic_ini,
+                  {"TimeInterval": steps})
+        sc_ini = os.path.join(tmp, "shanchen3d.ini")
+        _ini_copy(os.path.join(root, "shanchen3d.ini"), sc_ini,
+                  {"TimeInterval": steps})
+        for model, args, n_steps, blk, one in (
+                ("transport", [os.path.join(root, "transportsetup.ini"),
+                               "--physics-config", flow_ini], tr_steps,
+                 kt.coupled_block_compressed, kt.coupled_step_split),
+                ("basic3d", [basic_ini], steps, kf.single3d_block_step,
+                 kf.single3d_step),
+                ("sc3d", [sc_ini], steps, kf.sc3d_block_step, kf.sc3d_step)):
+            blk.launches = one.launches = 0
+            rc, text, sec = _cli_run(cli, [
+                "run", *args, "--model", model, "--steps", str(n_steps),
+                "--output", os.path.join(tmp, model), "--device", "cuda",
+                "--block", "0"])
+            found = re.search(r"(\d+) steps a launch", text)
+            t = int(found.group(1)) if found else 1
+            check(rc == 0, f"cli default {model}: returned {rc}")
+            check(t in (2, 4) and blk.launches * t == n_steps and
+                  one.launches == 0, f"cli default {model}: T = {t}, "
+                  f"{blk.launches} T-step and {one.launches} T=1 launches "
+                  f"for {n_steps} steps")
+            res[model] = {"t": t, "launches": blk.launches, "sec": sec,
+                          "steps": n_steps}
+    return res
+
+
+def phase52_57_lines(r52, r53, r54, r55, r56, r57, r12, r38, card):
+    def worst(r, pick):
+        return max(v for k, v in r.items() if pick(k))
+    lines = [
+        "phase 52 K5c-T f64, T steps a launch vs T plain coupled steps (T = "
+        "2, 3, 4, two calls, 100x64; cases " + ",".join(BLOCK_COUPLED_CASES)
+        + " on the flagship flow, a and f on the Dirichlet/convective flow), "
+        "max |diff|: " + ", ".join(
+            f"{flow} {lay} {worst(r52, lambda k: k[0] == flow and k[2] == lay):.3e}"
+            for flow, lay in (("flagship", "f32"), ("flagship", "split"),
+                              ("dirichlet_convective", "f32"))) +
+        f" over {len(r52)} runs (<= 1e-11)",
+        "phase 53 K11-T / K10-T f64 (T = 2, 3, 4, two calls, 48x40x32; "
+        "SINGLE3D_CASES, BLOCK_SC3D_CASES K = 1, 2, 3): max |diff| K11-T "
+        f"{worst(r53, lambda k: k[0] == 'K11-T'):.3e}, K10-T "
+        f"{worst(r53, lambda k: k[0] == 'K10-T'):.3e} over {len(r53)} runs "
+        "(<= 1e-11)",
+        f"phase 54 new T-step kernels at full size vs their plain versions, "
+        f"8 steps (3-D 4) from one start [{card}]: " + "; ".join(
+            (f"{k[0]} {k[1]} one bf16 step: excess {v['excess']:.3g} ulp, "
+             f"share {v['share']:.2e}, round-toward-zero share "
+             f"{v['rz_share']:.2e}") if k[2] == "ulp" else
+            (f"{k[0]} config4 {k[1]} T={k[2]} planes {v['planes']:.3e} rho_r "
+             f"{v['rho_r']:.3e} tracers {v['g']:.3e} off the seam (<= "
+             f"{K5CT_BOUNDS[k[1]][0]:g} / {K5CT_BOUNDS[k[1]][1]:g})")
+            if k[0] == "K5c-T" else
+            f"{k[0]} {k[1]} T={k[2]} {v:.3e}" for k, v in r54.items())]
+    for label, r in r55.items():
+        dev = r["device_us"]
+        lines.append(
+            f"phase 55 {label} [{card}]: ms a time step T=1/2/4 " + "/".join(
+                f"{r['sec'][t] * 1e3:.4f}" for t in (1, 2, 4)) +
+            ", MLUPS " + "/".join(f"{r['mlups'][t]:.1f}" for t in (1, 2, 4)) +
+            ", bound ms a step " + "/".join(
+                f"{r['bound_ms'][t]:.4f}" for t in (1, 2, 4)) +
+            "; launches a step T=2/4 " + "/".join(
+                f"{r['launches_per_step'][t]:g}" for t in (2, 4)) +
+            "; device us a launch T=2/4 " + "/".join(
+                "not measured" if dev[t] is None else f"{dev[t][0]:.2f}"
+                for t in (2, 4)) +
+            "; tiling T=2/4 " + "/".join(
+                json.dumps(r["tiling"][t], separators=(",", ":"))
+                for t in (2, 4)) +
+            f"; plain ms a step {r['plain_sec'] * 1e3:.3f}")
+    for (kind, *rest), r in r56.items():
+        if kind == "cli":
+            lines.append(
+                f"phase 56 cli {rest[0]} [{card}]: --block 1/4/0 launches "
+                "(T-step, T=1) " + "/".join(
+                    str(r[b]["launches"]) for b in ("1", "4", "0")) +
+                ", seconds with I/O " + "/".join(
+                    f"{r[b]['sec']:.2f}" for b in ("1", "4", "0")) +
+                "; metrics.jsonl --block 4 vs 1 relative gaps " + ", ".join(
+                    f"{k} {v:.2e}" for k, v in r["gaps"].items()) +
+                f" (<= {BLOCK_CLI_BOUND:g}); " + r["0"]["line"])
+        else:
+            lines.append(
+                f"phase 56 {' '.join(rest)}: run_chunked of "
+                f"make_block_step(4), {r['steps']} steps, {r['launches']} "
+                f"launches, {r['mlups']:.1f} MLUPS incl. host loop"
+                + (f", tracer mass drift {r['drift']:.2e}" if "drift" in r
+                   else "") + f" [{card}]")
+    lines.append(
+        f"phase 57 cli default --block 0 at the shipped sizes [{card}]: " +
+        "; ".join(f"{m} T={r57[m]['t']} {r57[m]['launches']} T-step "
+                  f"launches for {r57[m]['steps']} steps, "
+                  f"{r57[m]['sec']:.2f} s with I/O against {sec1:.2f} s with "
+                  f"--block 1 (phase {ph})"
+                  for m, sec1, ph in (("transport", r12["tr_sec"], 12),
+                                      ("basic3d", r38["basic3d"]["sec"], 38),
+                                      ("sc3d", r38["sc3d"]["sec"], 38))))
+    return lines
+
+
+def block3_entries(r52, r53, r54, r55, r56):
+    """The kernels line's entries of K5c-T, K11-T and K10-T: ms, plain_ms
+    and bound_ms a time step at T = 4, launches from phase 56's main
+    paths."""
+    csf = "openlbmpm_tpu/pallas/csf.py:147"
+    entries = []
+    for key, name, launches in (
+            ("bf16", "coupled_block_compressed",
+             r56[("loop", "K5c-T", "bf16")]["launches"]),
+            ("f32", "coupled_block_compressed_f32",
+             r56[("cli", "transport")]["4"]["launches"][0]),
+            ("split", "coupled_block_split",
+             r56[("loop", "K5c-T", "split")]["launches"])):
+        label = f"K5c-T{dict(f32='c', bf16='h', split='s')[key]}"
+        sp = r55[label]
+        lay = "split" if key == "split" else "f32"
+        entries.append(kernel_entry(
+            name, label, "openlbmpm_torch/csrc/coupled2d_block.cuh",
+            f"{csf} (transport_params, steps_per_call=T, tracer sub-step "
+            ":1385, order :1729-1751, " + ("state_mode='split')"
+                                           if key == "split" else
+                                           f"storage={key!r})"),
+            launches, max(r54[("K5c-T", key, t)]["max"] for t in (2, 4)),
+            sp["sec"][4], sp["plain_sec"], BLOCK3_BYTES[("K5c-T", key)] / 4,
+            sp["flops"], sp["cells"], steps_per_call=4,
+            max_abs_err_f64=max(v for k, v in r52.items() if k[2] == lay),
+            **block_extras(sp)))
+    for family, name, tpu, kind in (
+            ("K11-T", "single3d_block_step",
+             "openlbmpm_tpu/pallas/single3d.py:47 (steps_per_call=T, "
+             "_substep :150, kernel :205", "single"),
+            ("K10-T", "sc3d_block_step",
+             "openlbmpm_tpu/pallas/sc3d.py:79 (steps_per_call=T, _substep "
+             ":218, kernel :292", "sc")):
+        for st, launches in (
+                ("f32", r56[("cli", "basic3d" if kind == "single" else
+                             "sc3d")]["4"]["launches"][0]),
+                ("bf16", r56[("loop", family, "bf16")]["launches"])):
+            sp = r55[f"{family} 128^3 {st}"]
+            entries.append(kernel_entry(
+                name + ("_bf16" if st == "bf16" else ""), f"{family} {st}",
+                "openlbmpm_torch/csrc/flow3d_block.cuh",
+                f"{tpu}, storage='{st}')", launches,
+                max(r54[(family, f"{n}^3 {st}", t)] for n in (128, 256)
+                    for t in (2, 4)),
+                sp["sec"][4], sp["plain_sec"],
+                BLOCK3_BYTES[(family, st)] / 4, sp["flops"], sp["cells"],
+                steps_per_call=4,
+                max_abs_err_f64=max(v for k, v in r53.items()
+                                    if k[0] == family),
+                **block_extras(sp)))
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4787,6 +5434,20 @@ def main() -> int:
                                           ("basic", r38["basic"]["sec"], 38)))
           + f"; wall {time.perf_counter() - t0:.1f} s")
 
+    t_blk3 = {}
+    for key, fn in (("r52", phase_block_coupled_f64),
+                    ("r53", phase_block3d_f64), ("r54", phase_block_full_3),
+                    ("r55", phase_block3_speed), ("r56", phase_block3_main),
+                    ("r57", phase_cli_default_3)):
+        t0 = time.perf_counter()
+        t_blk3[key] = (fn(device), time.perf_counter() - t0)
+        torch.cuda.empty_cache()
+    r52, r53, r54, r55, r56, r57 = (t_blk3[k][0] for k in sorted(t_blk3))
+    print("phases 52-57 wall s: " + ", ".join(
+        f"{k[1:]} {v[1]:.1f}" for k, v in sorted(t_blk3.items())))
+    for ln in phase52_57_lines(r52, r53, r54, r55, r56, r57, r12, r38, card):
+        print(ln)
+
     n2 = FLAGSHIP_N * FLAGSHIP_N
     csf = "openlbmpm_tpu/pallas/csf.py:147"
     entries = [kernel_entry(
@@ -4916,6 +5577,7 @@ def main() -> int:
             PERT_BYTES[key], PERT_FLOPS[key], n2, max_abs_err_f64=f64,
             mlups=r44["mlups"][key]))
     entries += block_entries(r45, r46, r47, r48, r49, r50)
+    entries += block3_entries(r52, r53, r54, r55, r56)
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s "
           f"(phases 1-14 {t_old:.1f} s, 1-19 {t_2d:.1f} s, 1-24 "
           f"{t_3d:.1f} s, 1-28 {t_k9t:.1f} s, 1-39 {t_flow:.1f} s, 1-44 "

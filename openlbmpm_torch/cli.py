@@ -17,7 +17,8 @@ on a card it packs the state and steps ``ColorGradientRK3D.step_c`` (the
 compressed kernel), as the JAX CLI does on its accelerator, on the CPU the
 split plain step, as the JAX CLI does off it (the checkpoint fingerprint
 carries the layout, "packed" or "split"); ``--model transport`` steps the split
-``TransportRK.step`` (the split coupled kernels); ``--model transport3d``
+``TransportRK.step`` (the split coupled kernels), or on a card with
+temporal blocking the packed (s, g) state; ``--model transport3d``
 runs the coupled D3Q19 flow + D3Q7 tracer model of a transport INI and a
 3-D flow INI (``--physics-config``): on a card it packs the state and steps
 ``TransportRK3D.step_c`` (the coupled kernel), on the CPU the split plain
@@ -29,10 +30,11 @@ prints which); ``--model basic`` steps ``SinglePhaseD2Q9.step`` on the
 (9, ny, nx) state of a basicsetup.ini (on a card, K7), ``--model basic3d``
 ``SinglePhaseD3Q19.step`` in a box with walls on the x and y faces (K11),
 and ``--model sc3d`` ``ShanChenMCMP3D.step`` on a droplet in that box
-(K10); each prints the step it takes.  ``cg``, ``sc`` and ``basic``
-advance T steps a launch on a card (temporal blocking, ``--block``: the
-T-step kernels K3, K8-T and K7-T through ``make_block_step``), as the JAX
-CLI does on its accelerator; the run prints T.  Results, metrics and
+(K10); each prints the step it takes.  ``cg``, ``sc``, ``basic``,
+``transport``, ``sc3d`` and ``basic3d`` advance T steps a launch on a card
+(temporal blocking, ``--block``: the T-step kernels K3, K8-T, K7-T, K5c-T,
+K10-T and K11-T through ``make_block_step``), as the JAX CLI does on its
+accelerator; the run prints T.  Results, metrics and
 checkpoints are written as the JAX CLI writes them, so a checkpoint of either package
 resumes in the other.
 
@@ -90,8 +92,9 @@ def _host(t) -> np.ndarray:
 
 def _note_block(args):
     # a run that goes unblocked although --block asked for more than one
-    # step a launch (a family whose T-step kernel is not ported, or no
-    # kernel for this configuration): the JAX CLI's note
+    # step a launch: cg3d and transport3d (the JAX CLI blocks neither), or
+    # no T-step kernel for this configuration of cg, sc, basic, transport,
+    # sc3d or basic3d; the JAX CLI's note
     if args.block > 1:
         print("note: --block unsupported for this config; running unblocked")
 
@@ -315,19 +318,32 @@ def _run_transport(args):
     writer = ResultWriter(args.output, basename="ConcentrationResults")
     logger = MetricsLogger(os.path.join(args.output, "metrics.jsonl"),
                            geometry.num_fluid_nodes, echo=True)
-    _note_block(args)
+    # the compressed coupled T-step kernel, (s, g) -> (s', g'), as the JAX
+    # CLI blocks (None with conserve_mass or redistribute)
+    blk, scale = _pick_block(model, args, run.io_interval, run.num_steps,
+                             compressed=True)
+    if blk is not None:
+        state = model.pack(state)
+        step_fn, layout, get_g = blk, "compressed", lambda st: st[1]
+    else:
+        _note_block(args)
+        step_fn, layout, get_g = model.step, "split", lambda st: st.g
+    print(f"openlbmpm_torch: --model transport, interface "
+          f"{tparams.interface_mode}: the {model.flow.path} step on {dev}, "
+          f"{layout} state, {_steps_line(scale)}")
 
     def callback(step, s):
-        conc = model.concentration(s.g)
+        step = step * scale
+        conc = model.concentration(get_g(s))
         writer.write_transport(step, _host(conc))
         masses = {f"tracer{i}_mass": float(conc[i].sum())
                   for i in range(conc.shape[0])}
         logger.log(step, **masses)
         return False
 
-    run_chunked(model.step, state, num_steps=max(1, run.num_steps),
-                io_interval=max(1, run.io_interval), callback=callback,
-                profile_dir=args.profile)
+    run_chunked(step_fn, state, num_steps=max(1, run.num_steps // scale),
+                io_interval=max(1, run.io_interval // scale),
+                callback=callback, profile_dir=args.profile)
     logger.close()
     return 0
 
@@ -455,12 +471,12 @@ def _run_shanchen(args):
 
 
 def _run_checkpointed(args, model, state, run, fingerprint, basename,
-                      record, stepper=None):
+                      record, stepper):
     """The run loop of the single-phase and 3-D Shan-Chen families: resume,
     then every I/O step the result datasets and metrics of ``record(step,
     f) -> (datasets, metrics)`` and, every ten outputs and at the end, a
-    checkpoint.  ``stepper``: (step function, steps a call) of a family
-    with a T-step kernel (``_blocked``); else ``model.step``."""
+    checkpoint.  ``stepper``: (step function, steps a call) from
+    ``_blocked``."""
     from .checkpoint import load_checkpoint, save_checkpoint
     from .io import ResultWriter
     from .metrics import MetricsLogger
@@ -470,9 +486,7 @@ def _run_checkpointed(args, model, state, run, fingerprint, basename,
     if args.resume and os.path.exists(ckpt_path):
         state, start_step = load_checkpoint(ckpt_path, state, fingerprint)
         print(f"resumed from step {start_step}")
-    step_fn, scale = stepper or (model.step, 1)
-    if stepper is None:
-        _note_block(args)
+    step_fn, scale = stepper
     writer = ResultWriter(args.output, basename=basename)
     logger = MetricsLogger(os.path.join(args.output, "metrics.jsonl"),
                            model.geo.num_fluid_nodes, echo=True)
@@ -555,8 +569,9 @@ def _run_basic3d(args):
     dtype, dev = _setup(args)
     model = SinglePhaseD3Q19(_box3d(dom), dtype=dtype, device=dev,
                              **solver_kw)
+    stepper = _blocked(model, args, run)
     print(f"openlbmpm_torch: --model basic3d, {model.collision}: the "
-          f"{model.path} step on {dev}")
+          f"{model.path} step on {dev}, {_steps_line(stepper[1])}")
 
     def record(step, f):
         rho, u = model.macro(f)
@@ -565,7 +580,7 @@ def _run_basic3d(args):
 
     return _run_checkpointed(args, model, model.init_state(1.0), run,
                              config_fingerprint(solver_kw),
-                             "SimulationResults3D", record)
+                             "SimulationResults3D", record, stepper)
 
 
 def _shanchen3d_setup(config, dtype, device):
@@ -591,8 +606,9 @@ def _run_shanchen3d(args):
     model, state, run = _shanchen3d_setup(args.config, dtype, dev)
     if args.steps:
         run = dataclasses.replace(run, num_steps=args.steps)
+    stepper = _blocked(model, args, run)
     print(f"openlbmpm_torch: --model sc3d, {model.k} fluids: the "
-          f"{model.path} step on {dev}")
+          f"{model.path} step on {dev}, {_steps_line(stepper[1])}")
     fl2 = model.geo.is_fluid.reshape(model.geo.shape[0], -1)
 
     def record(step, f):
@@ -608,7 +624,7 @@ def _run_shanchen3d(args):
 
     return _run_checkpointed(args, model, state, run,
                              config_fingerprint(model.p),
-                             "SimulationResultsSC3D", record)
+                             "SimulationResultsSC3D", record, stepper)
 
 
 def _inspect(args):
@@ -656,12 +672,12 @@ def main(argv=None) -> int:
                         help="write PNG snapshots at the I/O cadence")
         sp.add_argument("--block", type=int, default=0,
                         help="time steps per kernel launch (temporal "
-                             "blocking) of cg, sc and basic on the card: N "
-                             "runs exactly N, 0 (default) tries 4 then 2, "
-                             "1 runs unblocked; N must divide the I/O "
-                             "interval and the step count, or the run goes "
-                             "unblocked with a note.  CPU runs and the "
-                             "other models run unblocked")
+                             "blocking) of cg, sc, basic, transport, sc3d "
+                             "and basic3d on the card: N runs exactly N, 0 "
+                             "(default) tries 4 then 2, 1 runs unblocked; N "
+                             "must divide the I/O interval and the step "
+                             "count, or the run goes unblocked with a note.  "
+                             "CPU runs, cg3d and transport3d run unblocked")
         sp.add_argument("--resume", action="store_true",
                         help="resume from <output>/checkpoint.npz")
         sp.add_argument("--stop-at-breakthrough", action="store_true")

@@ -1,6 +1,6 @@
 // Temporal blocking of the 2-D steps for NVIDIA Hopper (sm_90a): the
-// window machinery shared by csf2d_block.cuh (K3), sc2d_block.cuh (K8-T)
-// and single2d_block.cuh (K7-T).  Include it after the step's own header
+// window machinery shared by csf2d_block.cuh (K3), coupled2d_block.cuh
+// (K5c-T), sc2d_block.cuh (K8-T) and single2d_block.cuh (K7-T).  Include it after the step's own header
 // (csf2d.cuh, sc2d.cuh or single2d.cuh), which defines ex, ey, opp and wrap.
 //
 // Replaces the TPU kernels' strip windows (pallas/csf.py, shanchen.py,

@@ -1,5 +1,6 @@
 // Coupled CSF flow + phase-confined tracer step, for NVIDIA Hopper
-// (sm_90a).
+// (sm_90a).  The tracer's device code is in coupled2d.cuh, which the
+// T-step kernel (coupled2d_block.cuh, K5c-T) shares.
 //
 // Replaces the TPU kernel openlbmpm_tpu/pallas/csf.py::build_csf_fused_step
 // with transport_params at steps_per_call=1 (its _transport_substep plus
@@ -47,44 +48,9 @@
 // 560 B against 184 B.  Stencil neighbour re-reads hit L1/L2.  Fusing
 // launches 1-3 into the flow's own passes is the next step for speed.
 
-#include "csf2d.cuh"
-
-struct TracerParams {    // mirrored by kernels/transport.py::TracerParams
-  int nt, nq;
-  int mrt, quadratic;
-  int interface;         // 0 none, 1 permeable (beta partition), 2 bounceback
-  int inlet;             // 0 none, 1 inamuro, 2 anti_bounce_back, 3 zero
-  int outlet;            // 0 none, 1 freeflow
-  int reaction;
-  int standalone;        // 1: the tracer sub-step only, the flow stays
-  int pad;
-  double criteria, rate;
-};
+#include "coupled2d.cuh"
 
 namespace {
-
-// Per-tracer table row (compute type): tau, beta, stoich, inlet
-// concentration, J_0..J_4, then the NQ x NQ MRT update matrix, row-major
-// (kernels/transport.py::tracer_table).
-constexpr int kTau = 0, kBeta = 1, kStoich = 2, kConc = 3, kJ = 4, kU = 9;
-
-template <int NQ> struct Lat;
-// D2Q5, reference ordering: 0 rest, 1 E, 2 W, 3 N, 4 S
-template <> struct Lat<5> {
-  __device__ static int dx(int i) { return (i == 1) - (i == 2); }
-  __device__ static int dy(int i) { return (i == 3) - (i == 4); }
-  __device__ static int rev(int i) { return i == 0 ? 0 : (i % 2 ? i + 1 : i - 1); }
-  __device__ static double w(int i) { return i == 0 ? 1.0 / 3.0 : 1.0 / 6.0; }
-  __device__ static double len(int) { return 1.0; }
-};
-// D2Q9, the flow's ordering
-template <> struct Lat<9> {
-  __device__ static int dx(int i) { return ex(i); }
-  __device__ static int dy(int i) { return ey(i); }
-  __device__ static int rev(int i) { return opp(i); }
-  __device__ static double w(int i) { return wq(i); }
-  __device__ static double len(int i) { return i >= 5 ? sqrt(2.0) : 1.0; }
-};
 
 template <typename S, int L, int NQ, typename C = typename Traits<S>::C>
 __global__ void tracer_collide_kernel(const S* __restrict__ s, const S* __restrict__ s2,
@@ -93,7 +59,6 @@ __global__ void tracer_collide_kernel(const S* __restrict__ s, const S* __restri
                                       const C* __restrict__ tab, C* __restrict__ gp,
                                       unsigned char* __restrict__ dom, C* __restrict__ uo,
                                       CsfParams P, TracerParams T) {
-  using LQ = Lat<NQ>;
   const size_t n = (size_t)P.ny * P.nx;
   const size_t k = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= n) return;
@@ -106,140 +71,18 @@ __global__ void tracer_collide_kernel(const S* __restrict__ s, const S* __restri
   totals(c, f, rr, rb, rho);
   C fx = C(0), fy = C(0);
   if (geo[k] > C(0.5)) csf_force_at(nrm, P, x, y, rho, fx, fy);
-  const C rho_safe = rho > C(0) ? rho : C(1);
-  C mx = C(0), my = C(0);
-#pragma unroll
-  for (int i = 1; i < 9; ++i) {
-    if (ex(i)) mx = mx + C(ex(i)) * f[i];
-    if (ey(i)) my = my + C(ey(i)) * f[i];
-  }
-  const C ux = (mx + C(0.5) * fx) / rho_safe;
-  const C uy = (my + C(0.5) * fy) / rho_safe;
+  C ux, uy;
+  tracer_velocity(f, rho, fx, fy, ux, uy);
   const bool in_dom = rr < C(T.criteria);
   dom[k] = in_dom;
   if (uo) {
     uo[k] = ux;
     uo[n + k] = uy;
   }
-  // unit inward colour gradient, for the partition
-  const C gx = nrm[k], gy = nrm[n + k];
-  const C gnorm = sqrt(gx * gx + gy * gy);
-  const bool gsafe = gnorm > C(kEps);
-  const C igx = gsafe ? -gx / gnorm : C(0);
-  const C igy = gsafe ? -gy / gnorm : C(0);
-
   const size_t tq = (size_t)NQ * n;
-  const int row_len = kU + NQ * NQ;
-  auto conc_of = [&](int t) {
-    C c = C(0);
-#pragma unroll
-    for (int i = 0; i < NQ; ++i) c = c + g[t * tq + i * n + k];
-    return c;
-  };
-  const C react = T.reaction ? C(T.rate) * conc_of(0) * conc_of(1) : C(0);
-  const C uu = ux * ux + uy * uy;
-
-  for (int t = 0; t < T.nt; ++t) {
-    const C* row = tab + t * row_len;
-    C gv[NQ];
-    C conc = C(0);
-#pragma unroll
-    for (int i = 0; i < NQ; ++i) {
-      gv[i] = g[t * tq + i * n + k];
-      conc = conc + gv[i];
-    }
-    if (T.mrt) {
-      // g += U (g - geq), U = -M^-1 S^-1 M
-      C dg[NQ];
-#pragma unroll
-      for (int i = 0; i < NQ; ++i) {
-        const C eu = C(LQ::dx(i)) * ux + C(LQ::dy(i)) * uy;
-        const C fac = T.quadratic
-                          ? C(1) + C(3) * eu + C(4.5) * eu * eu - C(1.5) * uu
-                          : C(1) + C(3) * eu;
-        dg[i] = gv[i] - conc * C(LQ::w(i)) * fac;
-      }
-      const C* U = row + kU;
-#pragma unroll
-      for (int i = 0; i < NQ; ++i) {
-        C acc = C(0);
-#pragma unroll
-        for (int b = 0; b < NQ; ++b) acc = acc + U[i * NQ + b] * dg[b];
-        gv[i] = gv[i] + acc;
-      }
-    } else {
-      const C tau = row[kTau];
-#pragma unroll
-      for (int i = 0; i < NQ; ++i) {
-        const C eu = C(LQ::dx(i)) * ux + C(LQ::dy(i)) * uy;
-        const C geq = NQ == 5 ? conc * (row[kJ + i] + C(0.5) * eu)
-                              : conc * C(LQ::w(i)) * (C(1) + C(3) * eu);
-        gv[i] = gv[i] - (gv[i] - geq) / tau;
-      }
-    }
-    // semi-permeable interface: value = -1 inside the transport domain
-    const C beta = row[kBeta];
-    if (T.interface == 1 && in_dom && gsafe && beta != C(0)) {
-#pragma unroll
-      for (int i = 1; i < NQ; ++i) {
-        const C cos_i = (C(LQ::dx(i)) * igx + C(LQ::dy(i)) * igy) / C(LQ::len(i));
-        gv[i] = gv[i] + (-beta) * (C(LQ::w(i)) * cos_i) * conc;
-      }
-    }
-    if (T.reaction) {
-      const C src = row[kStoich] * react;
-#pragma unroll
-      for (int i = 0; i < NQ; ++i)
-        gv[i] = gv[i] + (NQ == 5 ? row[kJ + i] : C(LQ::w(i))) * src;
-    }
-#pragma unroll
-    for (int i = 0; i < NQ; ++i) gp[t * tq + i * n + k] = gv[i];
-  }
-}
-
-// Post-collision value of slot i at (x, y) after the free-flow outlet rows:
-// rows 2, 1, 0 each copy the (fresh) row above on fluid cells.
-template <typename C>
-__device__ __forceinline__ C post_at(const C* __restrict__ gp, const C* __restrict__ geo,
-                                     const CsfParams& P, const TracerParams& T,
-                                     size_t base, int x, int y) {
-  if (T.outlet == 1)
-    while (y <= 2 && geo[(size_t)y * P.nx + x] > C(0.5)) ++y;
-  return gp[base + (size_t)y * P.nx + x];
-}
-
-// Slot i at (x, y) after pull streaming with half-way bounce-back, masked
-// to the pore space; base is the tracer's offset in g_post.
-template <typename C, int NQ>
-__device__ C streamed_at(const C* __restrict__ gp, const C* __restrict__ geo,
-                         const CsfParams& P, const TracerParams& T, size_t base,
-                         int i, int x, int y) {
-  using L = Lat<NQ>;
-  const size_t n = (size_t)P.ny * P.nx;
-  const C fl = geo[(size_t)y * P.nx + x];
-  if (i == 0) return post_at(gp, geo, P, T, base, x, y) * fl;
-  const int sx = wrap(x - L::dx(i), P.nx), sy = wrap(y - L::dy(i), P.ny);
-  const C v = geo[(size_t)sy * P.nx + sx] > C(0.5)
-                  ? post_at(gp, geo, P, T, base + i * n, sx, sy)
-                  : post_at(gp, geo, P, T, base + L::rev(i) * n, x, y);
-  return v * fl;
-}
-
-// Slot i at (x, y) after the hard interface bounce-back: a population
-// that streamed out of the transport domain returns into the opposite
-// slot of the node it left, and the outside node it reached drops it.
-template <typename C, int NQ>
-__device__ C repaired_at(const C* __restrict__ gp, const C* __restrict__ geo,
-                         const unsigned char* __restrict__ dom, const CsfParams& P,
-                         const TracerParams& T, size_t base, int i, int x, int y) {
-  using L = Lat<NQ>;
-  if (T.interface == 2 && i != 0) {
-    const int sx = wrap(x - L::dx(i), P.nx), sy = wrap(y - L::dy(i), P.ny);
-    const bool d = dom[(size_t)y * P.nx + x], ds = dom[(size_t)sy * P.nx + sx];
-    if (d && !ds) return streamed_at<C, NQ>(gp, geo, P, T, base, L::rev(i), sx, sy);
-    if (!d && ds) return C(0);
-  }
-  return streamed_at<C, NQ>(gp, geo, P, T, base, i, x, y);
+  tracer_collide<C, NQ>([&](int t, int i) { return g[t * tq + i * n + k]; },
+                        [&](int t, int i, C v) { gp[t * tq + i * n + k] = v; }, ux, uy,
+                        in_dom, nrm[k], nrm[n + k], tab, T);
 }
 
 template <typename C, int NQ>
@@ -252,27 +95,9 @@ __global__ void tracer_stream_kernel(const C* __restrict__ gp, const C* __restri
   const size_t k = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= n) return;
   const int x = (int)(k % nx), y = (int)(k / nx);
-  const bool fluid = geo[k] > C(0.5);
-  // zero-concentration inlet: row ny-2 takes the repaired row ny-3 whole
-  const int ys = (T.inlet == 3 && y == ny - 2 && fluid) ? ny - 3 : y;
-  const bool top = y == ny - 1 && fluid;
-  for (int t = 0; t < T.nt; ++t) {
-    const size_t base = (size_t)t * NQ * n;
-    C o[NQ];
-#pragma unroll
-    for (int i = 0; i < NQ; ++i) o[i] = repaired_at<C, NQ>(gp, geo, dom, P, T, base, i, x, ys);
-    const C cin = tab[t * (kU + NQ * NQ) + kConc];
-    if (T.inlet == 1 && top) {
-      // Inamuro: the unknown -y population absorbs the deficit
-      o[4] = cin - (o[0] + o[1] + o[2] + o[3]);
-    } else if (T.inlet == 2 && top) {
-      // anti-bounce-back from the repaired +y population of row ny-2
-      o[4] = -repaired_at<C, NQ>(gp, geo, dom, P, T, base, 3, x, ny - 2) +
-             C(2.0 * (1.0 / 6.0)) * cin;
-    }
-#pragma unroll
-    for (int i = 0; i < NQ; ++i) out[base + i * n + k] = o[i];
-  }
+  const GlobalView<C> v{gp, geo, dom, nx, ny, n};
+  tracer_stream<C, NQ>(v, tab, T, ny, x, y,
+                       [&](int t, int i, C val) { out[((size_t)t * NQ + i) * n + k] = val; });
 }
 
 template <typename S, int L, int NQ>

@@ -1,0 +1,263 @@
+// Temporally blocked coupled CSF flow + phase-confined tracer step, D2Q9
+// flow with D2Q5 or D2Q9 tracers, for NVIDIA Hopper (sm_90a): K5c-T, T
+// time steps a launch.  Each of coupled2d_block_f64.cu,
+// coupled2d_block_f32.cu and coupled2d_block_bf16.cu instantiates one
+// storage type.
+//
+// Replaces the TPU kernel openlbmpm_tpu/pallas/csf.py::build_csf_fused_step
+// with transport_params and steps_per_call = T > 1 (tracer sub-step
+// _transport_substep :1385, its rows :1454-1500, the order per sub-step
+// :1729-1751), on both flow layouts: compressed (f_total, rho_r), 10 planes
+// in f32 or f64 or 11 bf16 planes decoded to f32 once a call and encoded
+// once a call, and split (f_r, f_b).  The tracer PDFs g (NT, NQ, ny, nx)
+// are in the compute type (f32 under bf16 flow storage), never bf16.
+//
+// Every sub-step, in the reference's order (TransportRK._step_impl, and
+// the one-step kernels of coupled2d.cu):
+//   1. the colour fields of the flow state as it stands, before the
+//      sub-step's boundary rows (csf_window_fields: phi with the outlet
+//      repair, phi_ext, the wetted gradient);
+//   2. the tracer collision on those fields (u = (m + F/2) / rho with the
+//      CSF force, rho_r < criteria), the partition and the reaction
+//      (coupled2d.cuh::tracer_collide) into the window's g_post planes;
+//   3. the tracer streaming, interface repair and tracer rows as reads of
+//      g_post (coupled2d.cuh::tracer_stream) into the g planes;
+//   4. the flow's boundary rows (csf2d_block.cuh::window_bc_rows);
+//   5. the flow sub-step of K3 (csf2d_block.cuh::csf_window_physics).
+// The window machinery is block2d.cuh's.  Rings a sub-step: 4, the CSF
+// step's (stream <- force <- gradient <- phi_ext <- phi); the tracer
+// streams on the same ring as the flow, its collision one ring inside
+// the force's.  The TPU kernel adds a ring with a bounce-back interface
+// (_halo_rows), because it repairs the streamed planes by shifting them
+// again; here the repair reads g_post at the cell and its upwind neighbour
+// only, so the ring stays 4.  Margins: the boundary bands' reaches add up,
+// since one crossing of a band stales the flow's copy and then the
+// tracer's: above, the flow's outlet rows (3) and the tracer's free-flow
+// rows (3); below, the flow's inlet ghost (1) and the tracer's
+// anti-bounce-back or zero-concentration inlet (2).
+// Window planes (compute type): the flow's K3 planes (state, PHI, GX, GY),
+// NT NQ planes of g, NT NQ of g_post, and one plane's room for the
+// transport-domain bytes (then block2d.cuh's fluid bytes).
+//
+// What bounds it: HBM bytes per cell-step are the flow state and the
+// tracers read once and written once a call, over T: (81 + 40) / T B
+// (compressed f32, one f32 D2Q5 tracer), (45 + 40) / T (bf16).  What sets
+// its pace is the window: T = 4 gives windows of 2-6x the tile, recomputed
+// every sub-step, in global scratch for most shapes (the g and g_post
+// planes double the tracer's share of the window), and one 512-thread
+// block a streaming multiprocessor across 15 barriers a sub-step.
+
+#pragma once
+
+#include "coupled2d.cuh"
+#include "csf2d_block.cuh"
+
+// The parameter block of a T-step launch: the flow's and the tracers'.
+struct CoupledParams {   // mirrored by kernels/transport.py::CoupledParams
+  CsfParams flow;
+  TracerParams tracer;
+};
+
+namespace {
+
+// The tracer's post-collision planes of the window region for the stream
+// functions of coupled2d.cuh: coordinates are window cells (no wrap; the
+// callers stay two cells inside the window), rows map to global rows by
+// the window's offset oy.
+template <typename C>
+struct WindowView {
+  const C* GP;
+  const unsigned char* FL;
+  const unsigned char* DOM;
+  size_t PL;
+  int wx, wy, oy, ny;
+  __device__ C post(int q, int x, int y) const { return GP[q * PL + (size_t)y * wx + x]; }
+  __device__ C fl(int x, int y) const { return FL[y * wx + x] ? C(1) : C(0); }
+  __device__ bool dom(int x, int y) const { return DOM[y * wx + x]; }
+  __device__ int row(int y) const { return wrap(oy + y, ny); }
+  __device__ int xs(int x, int d) const { return x + d; }
+  __device__ int ys(int y, int d) const { return y + d; }
+  __device__ bool above(int y) const { return y + 1 < wy; }
+};
+
+// Window compute planes of the layout for nt tracers of NQ slots: K3's,
+// g, g_post, and the domain bytes' room.
+template <int L>
+__host__ __device__ inline int coupled_planes(int nt, int nq) {
+  return CsfWindow<kCSF, L>::PLANES + 2 * nt * nq + 1;
+}
+
+template <typename S, int L, int NQ, typename C = typename Traits<S>::C>
+__global__ void __launch_bounds__(kBlockThreads, 1)
+coupled_block_kernel(const S* __restrict__ s, const S* __restrict__ s2,
+                     const C* __restrict__ geo, const C* __restrict__ g,
+                     const C* __restrict__ tab, S* __restrict__ out, S* __restrict__ out2,
+                     C* __restrict__ g_out, CsfParams P, TracerParams T, BlockShape B,
+                     unsigned char* __restrict__ scratch) {
+  using Win = CsfWindow<kCSF, L>;
+  const int NG = T.nt * NQ;
+  const int planes = coupled_planes<L>(T.nt, NQ);
+  extern __shared__ __align__(16) unsigned char smem[];
+  C* W = window_planes<C>(B, smem, scratch);
+  unsigned char* FL = window_fluid(B, smem, scratch, planes, (int)sizeof(C));
+  const int nx = P.nx, ny = P.ny;
+  const size_t n = (size_t)ny * nx;
+  const int wx = B.wx, wy = B.wy;
+  const size_t PL = (size_t)wx * wy;
+  const C* GX = W + Win::GX * PL;
+  const C* GY = W + Win::GY * PL;
+  C* G = W + Win::PLANES * PL;
+  C* GP = G + NG * PL;
+  unsigned char* DOM = reinterpret_cast<unsigned char*>(GP + NG * PL);
+
+  for (int tile = blockIdx.x; tile < B.ntx * B.nty; tile += gridDim.x) {
+    const int x0 = (tile % B.ntx) * B.tx, y0 = (tile / B.ntx) * B.ty;
+    const int ox = x0 - B.hx, oy = y0 - B.hlo;
+    auto gidx = [&](int c) {
+      return (size_t)wrap(oy + c / wx, ny) * nx + wrap(ox + c % wx, nx);
+    };
+    const WindowView<C> view{GP, FL, DOM, PL, wx, wy, oy, ny};
+
+    // decode the window once
+    for (int c = threadIdx.x; c < wx * wy; c += kBlockThreads) {
+      const size_t k = gidx(c);
+      Cell<C, L> v;
+      load_raw<S, L>(s, s2, geo, n, k, v);
+      win_put(W, PL, c, v);
+      FL[c] = geo[k] > C(0.5);
+      for (int q = 0; q < NG; ++q) G[q * PL + c] = g[q * n + k];
+    }
+    __syncthreads();
+
+    for (int sub = 0; sub < B.T; ++sub) {
+      const int e0 = B.ring * sub;
+      // the tracer on the fields of the state before the boundary rows
+      csf_window_fields<C, L>(W, PL, FL, geo, n, gidx, B, e0, oy, P);
+      auto normal_of = [&](int c, C& sx, C& sy) {
+        unit_normal(GX[c], GY[c], FL[c] ? C(1) : C(0), P, sx, sy);
+      };
+      Region r = shrunk(B, e0 + 3);
+      for (int t = threadIdx.x; t < r.area(); t += kBlockThreads) {
+        const int c = (r.y0 + t / r.w()) * wx + r.x0 + t % r.w();
+        Cell<C, L> v;
+        win_get(W, PL, c, v);
+        C f[9], rr, rb, rho;
+        totals(v, f, rr, rb, rho);
+        C fx = C(0), fy = C(0);
+        if (FL[c]) {
+          C nhx, nhy;
+          normal_of(c, nhx, nhy);
+          csf_force([&](int i, C& sx, C& sy) { normal_of(c + ey(i) * wx + ex(i), sx, sy); },
+                    nhx, nhy, GX[c], GY[c], rho, P, fx, fy);
+        }
+        C ux, uy;
+        tracer_velocity(f, rho, fx, fy, ux, uy);
+        const bool in_dom = rr < C(T.criteria);
+        DOM[c] = in_dom;
+        tracer_collide<C, NQ>([&](int tr, int i) { return G[(tr * NQ + i) * PL + c]; },
+                              [&](int tr, int i, C val) { GP[(tr * NQ + i) * PL + c] = val; },
+                              ux, uy, in_dom, GX[c], GY[c], tab, T);
+      }
+      __syncthreads();
+      r = shrunk(B, e0 + 4);
+      for (int t = threadIdx.x; t < r.area(); t += kBlockThreads) {
+        const int lx = r.x0 + t % r.w(), ly = r.y0 + t / r.w();
+        const int c = ly * wx + lx;
+        tracer_stream<C, NQ>(view, tab, T, ny, lx, ly,
+                             [&](int tr, int i, C val) { G[(tr * NQ + i) * PL + c] = val; });
+      }
+      __syncthreads();
+      // then the flow: its boundary rows and its sub-step
+      window_bc_rows<C, L>(W, PL, FL, shrunk(B, e0), wx, wy, oy, P);
+      __syncthreads();
+      csf_window_physics<C, L>(W, PL, FL, geo, n, gidx, B, e0, oy, P);
+    }
+
+    // encode the tile once
+    for (int t = threadIdx.x; t < B.tx * B.ty; t += kBlockThreads) {
+      const int x = x0 + t % B.tx, y = y0 + t / B.tx;
+      if (x >= nx || y >= ny) continue;
+      const int c = (B.hlo + t / B.tx) * wx + B.hx + t % B.tx;
+      const size_t k = (size_t)y * nx + x;
+      Cell<C, L> v;
+      win_get(W, PL, c, v);
+      if constexpr (L == kSplit) {
+#pragma unroll
+        for (int i = 0; i < 9; ++i) {
+          out[i * n + k] = v.r[i];
+          out2[i * n + k] = v.b[i];
+        }
+      } else {
+        store_state<S>(out, n, k, v.f, v.rr, geo[k]);
+      }
+      for (int q = 0; q < NG; ++q) g_out[q * n + k] = G[q * PL + c];
+    }
+    __syncthreads();
+  }
+}
+
+// The launch's tiling for T sub-steps on layout L with the tracers of T:
+// K3's ring (4) and the summed band reaches of flow and tracer rows.
+template <typename S, int L>
+BlockShape coupled_block_shape(const CoupledParams& Q, int T) {
+  using C = typename Traits<S>::C;
+  const CsfParams& P = Q.flow;
+  const TracerParams& R = Q.tracer;
+  const int mlo = (P.inlet != 0 ? 1 : 0) + (R.inlet == 2 || R.inlet == 3 ? 2 : 0);
+  const int mhi = (P.outlet != 0 ? 3 : 0) + (R.outlet != 0 ? 3 : 0);
+  return block_shape(P.ny, P.nx, T, 4, mlo, mhi, coupled_planes<L>(R.nt, R.nq),
+                     (int)sizeof(C));
+}
+
+template <typename S, int L>
+size_t coupled_block_scratch(const CoupledParams& Q, int T) {
+  const BlockShape B = coupled_block_shape<S, L>(Q, T);
+  return B.gmem ? (size_t)B.grid * B.win_bytes : 0;
+}
+
+template <typename S, int L, int NQ>
+int launch_coupled_block_nq(const void* s_in, const void* s2_in, const void* geo,
+                            const void* g_in, const void* tab, void* s_out, void* s2_out,
+                            void* g_out, void* scratch, const CoupledParams& Q,
+                            const BlockShape& B, cudaStream_t st) {
+  using C = typename Traits<S>::C;
+  const size_t smem = B.gmem ? 0 : B.win_bytes;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        coupled_block_kernel<S, L, NQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  coupled_block_kernel<S, L, NQ><<<B.grid, kBlockThreads, smem, st>>>(
+      static_cast<const S*>(s_in), static_cast<const S*>(s2_in),
+      static_cast<const C*>(geo), static_cast<const C*>(g_in), static_cast<const C*>(tab),
+      static_cast<S*>(s_out), static_cast<S*>(s2_out), static_cast<C*>(g_out), Q.flow,
+      Q.tracer, B, static_cast<unsigned char*>(scratch));
+  return (int)cudaGetLastError();
+}
+
+// T coupled steps a launch; refuses T < 1, a T whose smallest window
+// exceeds kMaxWindow cells (T > 8 at the widest bands), the Perturbation
+// flow (no coupled form), the standalone tracer and a tracer lattice other
+// than D2Q5 / D2Q9.
+template <typename S, int L>
+int launch_coupled_block(const void* s_in, const void* s2_in, const void* geo,
+                         const void* g_in, const void* tab, void* s_out, void* s2_out,
+                         void* g_out, void* scratch, const CoupledParams& Q, int T,
+                         cudaStream_t st) {
+  if (T < 1 || Q.flow.variant != 0 || Q.tracer.standalone) return (int)cudaErrorInvalidValue;
+  const BlockShape B = coupled_block_shape<S, L>(Q, T);
+  if (B.wx * B.wy > kMaxWindow) return (int)cudaErrorInvalidValue;  // T too large
+  if (B.gmem && scratch == nullptr) return (int)cudaErrorInvalidValue;
+  switch (Q.tracer.nq) {
+    case 5:
+      return launch_coupled_block_nq<S, L, 5>(s_in, s2_in, geo, g_in, tab, s_out, s2_out,
+                                              g_out, scratch, Q, B, st);
+    case 9:
+      return launch_coupled_block_nq<S, L, 9>(s_in, s2_in, geo, g_in, tab, s_out, s2_out,
+                                              g_out, scratch, Q, B, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace

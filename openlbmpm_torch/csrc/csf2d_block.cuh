@@ -35,6 +35,8 @@
 //                it in its f_b planes).
 // The collision writes the post-collision PDF over the state planes; the
 // stream pass (stream_set) moves them in place; a last pass recolours.
+// The CSF sub-step's passes are device functions (csf_window_fields,
+// csf_window_physics) that coupled2d_block.cuh (K5c-T) runs too.
 //
 // What bounds it: HBM bytes per cell-step are the state read once and
 // written once a call over T, plus the geometry: 81/T B (compressed f32),
@@ -183,6 +185,156 @@ __device__ void window_bc_rows(C* W, size_t PL, const unsigned char* FL, const R
   }
 }
 
+// The CSF colour fields of the window region shrunk by e0 (the state as
+// it stands): PHI <- phi (outlet repair on rows 0 and 1; phi_ext on solid
+// cells with wetting), on shrunk(e0 + 1), then GX, GY <- the wetted colour
+// gradient on shrunk(e0 + 2).  gidx(c) is window cell c's global index.
+template <typename C, int L, typename Gidx>
+__device__ void csf_window_fields(C* W, size_t PL, const unsigned char* FL,
+                                  const C* __restrict__ geo, size_t n, Gidx gidx,
+                                  const BlockShape& B, int e0, int oy, const CsfParams& P) {
+  using Win = CsfWindow<kCSF, L>;
+  const int wx = B.wx, wy = B.wy, ny = P.ny;
+  C* PHI = W + Win::PHI * PL;
+  C* GX = W + Win::GX * PL;
+  C* GY = W + Win::GY * PL;
+  // phi (outlet repair on rows 0 and 1)
+  Region r = shrunk(B, e0);
+  for (int t = threadIdx.x; t < r.area(); t += kBlockThreads) {
+    const int ly = r.y0 + t / r.w(), c = ly * wx + r.x0 + t % r.w();
+    PHI[c] = win_phi<C, L>(W, PL, FL, c, ly, wrap(oy + ly, ny), wx, wy, P);
+  }
+  __syncthreads();
+  // phi extended onto solid cells: the w-weighted mean of the fluid
+  // neighbours (solid neighbours count 0, their phi before the pass)
+  if (P.has_wetting) {
+    r = shrunk(B, e0 + 1);
+    for (int t = threadIdx.x; t < r.area(); t += kBlockThreads) {
+      const int c = (r.y0 + t / r.w()) * wx + r.x0 + t % r.w();
+      if (FL[c]) continue;
+      C num = C(0);
+#pragma unroll
+      for (int i = 1; i < 9; ++i) {
+        const int cn = c + ey(i) * wx + ex(i);
+        num = num + C(wq(i)) * (FL[cn] ? PHI[cn] : C(0));
+      }
+      PHI[c] = num * geo[4 * n + gidx(c)];
+    }
+    __syncthreads();
+  }
+  // the wetted colour gradient
+  r = shrunk(B, e0 + 2);
+  for (int t = threadIdx.x; t < r.area(); t += kBlockThreads) {
+    const int c = (r.y0 + t / r.w()) * wx + r.x0 + t % r.w();
+    C gx = C(0), gy = C(0);
+    if (FL[c]) {
+      phi_gradient([&](int i) { return PHI[c + ey(i) * wx + ex(i)]; }, gx, gy);
+      if (P.has_wetting) {
+        const size_t k = gidx(c);
+        if (geo[n + k] > C(0.5))
+          rotate_wetting(gx, gy, geo[2 * n + k], geo[3 * n + k], P);
+      }
+    }
+    GX[c] = gx;
+    GY[c] = gy;
+  }
+  __syncthreads();
+}
+
+// One CSF sub-step's physics on the window, its boundary rows already
+// rewritten: the colour fields, then the collision on shrunk(e0 + 3), the
+// recolouring factors, the pull streaming and the red parts on
+// shrunk(e0 + 4) (solid cells 0).
+template <typename C, int L, typename Gidx>
+__device__ void csf_window_physics(C* W, size_t PL, const unsigned char* FL,
+                                   const C* __restrict__ geo, size_t n, Gidx gidx,
+                                   const BlockShape& B, int e0, int oy, const CsfParams& P) {
+  using Win = CsfWindow<kCSF, L>;
+  constexpr int NS = Win::NS;
+  const int wx = B.wx;
+  C* PHI = W + Win::PHI * PL;
+  C* GX = W + Win::GX * PL;
+  C* GY = W + Win::GY * PL;
+  csf_window_fields<C, L>(W, PL, FL, geo, n, gidx, B, e0, oy, P);
+  // the collision: post over the state planes, frac over rho_r (f_b's
+  // rest plane in the split layout), segc over PHI
+  Region r = shrunk(B, e0 + 3);
+  auto normal_of = [&](int c, C& sx, C& sy) {
+    unit_normal(GX[c], GY[c], FL[c] ? C(1) : C(0), P, sx, sy);
+  };
+  for (int t = threadIdx.x; t < r.area(); t += kBlockThreads) {
+    const int c = (r.y0 + t / r.w()) * wx + r.x0 + t % r.w();
+    if (!FL[c]) continue;
+    Cell<C, L> v;
+    win_get(W, PL, c, v);
+    C f[9], rr, rb, rho;
+    totals(v, f, rr, rb, rho);
+    C nhx, nhy, fx, fy;
+    normal_of(c, nhx, nhy);
+    csf_force([&](int i, C& sx, C& sy) { normal_of(c + ey(i) * wx + ex(i), sx, sy); },
+              nhx, nhy, GX[c], GY[c], rho, P, fx, fy);
+    C post[9], frac, segc;
+    collide_core(f, rr, rb, rho, PHI[c], fx, fy, P, post, frac, segc);
+#pragma unroll
+    for (int i = 0; i < 9; ++i) W[i * PL + c] = post[i];
+    W[9 * PL + c] = frac;
+    PHI[c] = segc;
+  }
+  __syncthreads();
+  // the recolouring factors: PHI <- frac, GX <- A, GY <- B
+  for (int t = threadIdx.x; t < r.area(); t += kBlockThreads) {
+    const int c = (r.y0 + t / r.w()) * wx + r.x0 + t % r.w();
+    if (!FL[c]) continue;
+    C A, Bv;
+    lkr_factors(PHI[c], GX[c], GY[c], A, Bv);
+    PHI[c] = W[9 * PL + c];
+    GX[c] = A;
+    GY[c] = Bv;
+  }
+  __syncthreads();
+  // pull streaming of the post-collision PDF, then the red parts
+  r = shrunk(B, e0 + 4);
+  stream_set(W, PL, FL, wx, r);
+  for (int t = threadIdx.x; t < r.area(); t += kBlockThreads) {
+    const int c = (r.y0 + t / r.w()) * wx + r.x0 + t % r.w();
+    if (!FL[c]) {
+#pragma unroll
+      for (int q = 0; q < NS; ++q) W[q * PL + c] = C(0);
+      continue;
+    }
+    C red[9];
+    C rr_new = C(0);
+#pragma unroll
+    for (int i = 0; i < 9; ++i) {
+      const C o = W[i * PL + c];
+      if (i == 0) {
+        red[0] = PHI[c] * o;
+        rr_new = red[0];
+        continue;
+      }
+      int src = c - ey(i) * wx - ex(i), j = i;
+      if (!FL[src]) {
+        src = c;
+        j = opp(i);
+      }
+      const C seg = C(wq(j)) * (C(ex(j)) * GX[src] + C(ey(j)) * GY[src]);
+      red[i] = PHI[src] * o + seg;
+      rr_new = rr_new + red[i];
+    }
+    if constexpr (L == kSplit) {
+#pragma unroll
+      for (int i = 0; i < 9; ++i) {
+        const C o = W[i * PL + c];
+        W[i * PL + c] = red[i];
+        W[(9 + i) * PL + c] = o - red[i];
+      }
+    } else {
+      W[9 * PL + c] = rr_new;
+    }
+  }
+  __syncthreads();
+}
+
 template <typename S, int L, int V, typename C = typename Traits<S>::C>
 __global__ void __launch_bounds__(kBlockThreads, 1)
 csf_block_kernel(const S* __restrict__ s, const S* __restrict__ s2,
@@ -197,9 +349,6 @@ csf_block_kernel(const S* __restrict__ s, const S* __restrict__ s2,
   const size_t n = (size_t)ny * nx;
   const int wx = B.wx, wy = B.wy;
   const size_t PL = (size_t)wx * wy;
-  C* PHI = W + Win::PHI * PL;
-  C* GX = W + Win::GX * PL;
-  C* GY = W + Win::GY * PL;
 
   for (int tile = blockIdx.x; tile < B.ntx * B.nty; tile += gridDim.x) {
     const int x0 = (tile % B.ntx) * B.tx, y0 = (tile / B.ntx) * B.ty;
@@ -224,127 +373,10 @@ csf_block_kernel(const S* __restrict__ s, const S* __restrict__ s2,
       __syncthreads();
 
       if constexpr (V == kCSF) {
-        // phi (outlet repair on rows 0 and 1)
-        Region r = shrunk(B, e0);
-        for (int t = threadIdx.x; t < r.area(); t += kBlockThreads) {
-          const int ly = r.y0 + t / r.w(), c = ly * wx + r.x0 + t % r.w();
-          PHI[c] = win_phi<C, L>(W, PL, FL, c, ly, wrap(oy + ly, ny), wx, wy, P);
-        }
-        __syncthreads();
-        // phi extended onto solid cells: the w-weighted mean of the fluid
-        // neighbours (solid neighbours count 0, their phi before the pass)
-        if (P.has_wetting) {
-          r = shrunk(B, e0 + 1);
-          for (int t = threadIdx.x; t < r.area(); t += kBlockThreads) {
-            const int c = (r.y0 + t / r.w()) * wx + r.x0 + t % r.w();
-            if (FL[c]) continue;
-            C num = C(0);
-#pragma unroll
-            for (int i = 1; i < 9; ++i) {
-              const int cn = c + ey(i) * wx + ex(i);
-              num = num + C(wq(i)) * (FL[cn] ? PHI[cn] : C(0));
-            }
-            PHI[c] = num * geo[4 * n + gidx(c)];
-          }
-          __syncthreads();
-        }
-        // the wetted colour gradient
-        r = shrunk(B, e0 + 2);
-        for (int t = threadIdx.x; t < r.area(); t += kBlockThreads) {
-          const int c = (r.y0 + t / r.w()) * wx + r.x0 + t % r.w();
-          C gx = C(0), gy = C(0);
-          if (FL[c]) {
-            phi_gradient([&](int i) { return PHI[c + ey(i) * wx + ex(i)]; }, gx, gy);
-            if (P.has_wetting) {
-              const size_t k = gidx(c);
-              if (geo[n + k] > C(0.5))
-                rotate_wetting(gx, gy, geo[2 * n + k], geo[3 * n + k], P);
-            }
-          }
-          GX[c] = gx;
-          GY[c] = gy;
-        }
-        __syncthreads();
-        // the collision: post over the state planes, frac over rho_r (f_b's
-        // rest plane in the split layout), segc over PHI
-        r = shrunk(B, e0 + 3);
-        auto normal_of = [&](int c, C& sx, C& sy) {
-          unit_normal(GX[c], GY[c], FL[c] ? C(1) : C(0), P, sx, sy);
-        };
-        for (int t = threadIdx.x; t < r.area(); t += kBlockThreads) {
-          const int c = (r.y0 + t / r.w()) * wx + r.x0 + t % r.w();
-          if (!FL[c]) continue;
-          Cell<C, L> v;
-          win_get(W, PL, c, v);
-          C f[9], rr, rb, rho;
-          totals(v, f, rr, rb, rho);
-          C nhx, nhy, fx, fy;
-          normal_of(c, nhx, nhy);
-          csf_force([&](int i, C& sx, C& sy) { normal_of(c + ey(i) * wx + ex(i), sx, sy); },
-                    nhx, nhy, GX[c], GY[c], rho, P, fx, fy);
-          C post[9], frac, segc;
-          collide_core(f, rr, rb, rho, PHI[c], fx, fy, P, post, frac, segc);
-#pragma unroll
-          for (int i = 0; i < 9; ++i) W[i * PL + c] = post[i];
-          W[9 * PL + c] = frac;
-          PHI[c] = segc;
-        }
-        __syncthreads();
-        // the recolouring factors: PHI <- frac, GX <- A, GY <- B
-        for (int t = threadIdx.x; t < r.area(); t += kBlockThreads) {
-          const int c = (r.y0 + t / r.w()) * wx + r.x0 + t % r.w();
-          if (!FL[c]) continue;
-          C A, Bv;
-          lkr_factors(PHI[c], GX[c], GY[c], A, Bv);
-          PHI[c] = W[9 * PL + c];
-          GX[c] = A;
-          GY[c] = Bv;
-        }
-        __syncthreads();
-        // pull streaming of the post-collision PDF, then the red parts
-        r = shrunk(B, e0 + 4);
-        stream_set(W, PL, FL, wx, r);
-        for (int t = threadIdx.x; t < r.area(); t += kBlockThreads) {
-          const int c = (r.y0 + t / r.w()) * wx + r.x0 + t % r.w();
-          if (!FL[c]) {
-#pragma unroll
-            for (int q = 0; q < NS; ++q) W[q * PL + c] = C(0);
-            continue;
-          }
-          C red[9];
-          C rr_new = C(0);
-#pragma unroll
-          for (int i = 0; i < 9; ++i) {
-            const C o = W[i * PL + c];
-            if (i == 0) {
-              red[0] = PHI[c] * o;
-              rr_new = red[0];
-              continue;
-            }
-            int src = c - ey(i) * wx - ex(i), j = i;
-            if (!FL[src]) {
-              src = c;
-              j = opp(i);
-            }
-            const C seg = C(wq(j)) * (C(ex(j)) * GX[src] + C(ey(j)) * GY[src]);
-            red[i] = PHI[src] * o + seg;
-            rr_new = rr_new + red[i];
-          }
-          if constexpr (L == kSplit) {
-#pragma unroll
-            for (int i = 0; i < 9; ++i) {
-              const C o = W[i * PL + c];
-              W[i * PL + c] = red[i];
-              W[(9 + i) * PL + c] = o - red[i];
-            }
-          } else {
-            W[9 * PL + c] = rr_new;
-          }
-        }
-        __syncthreads();
+        csf_window_physics<C, L>(W, PL, FL, geo, n, gidx, B, e0, oy, P);
       } else {
-        C* D = PHI;
-        C* PH = GX;
+        C* D = W + Win::PHI * PL;
+        C* PH = W + Win::GX * PL;
         // d = rho_r - rho_b (solid_phi on solid cells) and phi with the
         // outlet repair
         Region r = shrunk(B, e0);

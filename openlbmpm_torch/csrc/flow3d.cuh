@@ -224,43 +224,42 @@ __device__ __forceinline__ void collide_single(const C F[Q], const Flow3dParams&
   }
 }
 
-// K10: the Shan-Chen collision of every fluid at the fluid cell (z, y, x).
-template <typename S, int K, typename C = typename Traits<S>::C>
-__device__ void collide_sc(const S* __restrict__ f, const unsigned char* __restrict__ fl,
-                           const C* __restrict__ rho_pl, const Flow3dParams& P, int z, int y,
-                           int x, C post[K][Q]) {
-  const int nx = P.nx, ny = P.ny, nz = P.nz;
-  const size_t nxy = (size_t)ny * nx;
-  const size_t n = (size_t)nz * nxy;
-  const size_t idx = (size_t)z * nxy + (size_t)y * nx + x;
+// K10: the Shan-Chen collision of every fluid at one fluid cell from its
+// populations F: rho_pl holds rho_k at plane k * stride, self is the
+// cell's index there and nb(i) neighbour i's, which also indexes the
+// one-byte fluid mask fl (the one-step march's global planes, or the T-step
+// kernel's window).
+template <typename C, int K, typename Nb>
+__device__ __forceinline__ void sc_collide(const C* __restrict__ rho_pl, size_t stride,
+                                           size_t self, Nb nb,
+                                           const unsigned char* __restrict__ fl,
+                                           const C F[K][Q], const Flow3dParams& P,
+                                           C post[K][Q]) {
   C rho[K], gr[K][3];
   double adh[3] = {0.0, 0.0, 0.0};
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    rho[k] = rho_pl[k * n + idx];
+    rho[k] = rho_pl[k * stride + self];
     gr[k][0] = gr[k][1] = gr[k][2] = C(0);
   }
   // sum_i w_i e_i rho_j(x + e_i) and the adhesion field, in i order
 #pragma unroll
   for (int i = 1; i < Q; ++i) {
-    const size_t nb = (size_t)wrap_any(z + ez(i), nz) * nxy +
-                      (size_t)wrap_any(y + ey(i), ny) * nx + wrap_any(x + ex(i), nx);
-    const bool solid = fl[nb] == 0;
+    const size_t j = nb(i);
+    const bool solid = fl[j] == 0;
 #pragma unroll
     for (int d = 0; d < 3; ++d) {
       const int e = e_of(i, d);
       if (!e) continue;
       if (solid) adh[d] = adh[d] + wq(i) * e;
 #pragma unroll
-      for (int k = 0; k < K; ++k) gr[k][d] = gr[k][d] + C(wq(i) * e) * rho_pl[k * n + nb];
+      for (int k = 0; k < K; ++k) gr[k][d] = gr[k][d] + C(wq(i) * e) * rho_pl[k * stride + j];
     }
   }
   // the common velocity u' (ops/macroscopic.py::sc_common_velocity)
   C den = C(0), num[3] = {C(0), C(0), C(0)};
-  C F[K][Q];
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    load_fluid<S>(f, n, k, idx, F[k]);
     const C it = C(1.0 / P.tau[k]);
     C m[3];
     momentum(F[k], m);
@@ -289,6 +288,27 @@ __device__ void collide_sc(const S* __restrict__ f, const unsigned char* __restr
 #pragma unroll
     for (int i = 0; i < Q; ++i) post[k][i] = F[k][i] - (F[k][i] - feq_i(i, rho[k], u, uu)) / tau;
   }
+}
+
+// K10 at the fluid cell (z, y, x) of the global state.
+template <typename S, int K, typename C = typename Traits<S>::C>
+__device__ void collide_sc(const S* __restrict__ f, const unsigned char* __restrict__ fl,
+                           const C* __restrict__ rho_pl, const Flow3dParams& P, int z, int y,
+                           int x, C post[K][Q]) {
+  const int nx = P.nx, ny = P.ny, nz = P.nz;
+  const size_t nxy = (size_t)ny * nx;
+  const size_t n = (size_t)nz * nxy;
+  const size_t idx = (size_t)z * nxy + (size_t)y * nx + x;
+  C F[K][Q];
+#pragma unroll
+  for (int k = 0; k < K; ++k) load_fluid<S>(f, n, k, idx, F[k]);
+  sc_collide<C, K>(
+      rho_pl, n, idx,
+      [&](int i) {
+        return (size_t)wrap_any(z + ez(i), nz) * nxy + (size_t)wrap_any(y + ey(i), ny) * nx +
+               wrap_any(x + ex(i), nx);
+      },
+      fl, F, P, post);
 }
 
 // rho_k on fluid cells, 0 on solid ones.

@@ -27,14 +27,18 @@ __all__ = ["load_library", "load_libraries", "build_seconds", "BUILD_DIR",
 # step (f32 and bf16; f64 apart), and in three storage types each the
 # Shan-Chen step, the D3Q19 CSF step, the single-phase D2Q9 step, the D3Q19
 # single-phase and Shan-Chen steps, and the T-step (temporally blocked)
-# colour-gradient, Shan-Chen and single-phase D2Q9 steps
+# colour-gradient, Shan-Chen, single-phase D2Q9, coupled flow + tracer and
+# D3Q19 single-phase and Shan-Chen steps
 LIBRARIES = ("csf2d", "coupled2d", "pert2d", "pert2d_f64", "sc2d_f64",
              "sc2d_f32", "sc2d_bf16", "cg3d_f64", "cg3d_f32", "cg3d_bf16",
              "single2d_f64", "single2d_f32", "single2d_bf16", "flow3d_f64",
              "flow3d_f32", "flow3d_bf16", "csf2d_block_f64",
              "csf2d_block_f32", "csf2d_block_bf16", "sc2d_block_f64",
              "sc2d_block_f32", "sc2d_block_bf16", "single2d_block_f64",
-             "single2d_block_f32", "single2d_block_bf16")
+             "single2d_block_f32", "single2d_block_bf16",
+             "coupled2d_block_f64", "coupled2d_block_f32",
+             "coupled2d_block_bf16", "flow3d_block_f64", "flow3d_block_f32",
+             "flow3d_block_bf16")
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
@@ -47,7 +51,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # its sin = 0 threshold turns a one-ulp difference into a visible one)
 EXTRA_FLAGS = {name: ("-fmad=false",) for name in
                ("cg3d_f64", "single2d_f64", "flow3d_f64", "pert2d_f64",
-                "csf2d_block_f64", "sc2d_block_f64", "single2d_block_f64")}
+                "csf2d_block_f64", "sc2d_block_f64", "single2d_block_f64",
+                "coupled2d_block_f64", "flow3d_block_f64")}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 # seconds spent compiling each library in this process (0.0 = reused)
@@ -165,17 +170,17 @@ def launch_block(lib: str, fns, ints, tensors, params) -> None:
                            f"{err(code).decode()} ({code})")
 
 
-def block_tiling(lib: str, fns, ints, params) -> dict:
+def block_tiling(lib: str, fns, ints, params, keys=_TILING_KEYS) -> dict:
     """A T-step library's tiling of one launch, from its ``*_block_shape``
-    entry point (`fns` from ``block_fns``) called with `ints` and `params`:
-    the tile (tx, ty), the halo (hx columns a side, hlo rows below, hhi
-    above), whether the windows live in global scratch (gmem), the blocks
-    launched and one window's bytes."""
+    entry point (`fns` from ``block_fns``) called with `ints` and `params`,
+    named by `keys`: for the 2-D steps the tile (tx, ty), the halo (hx
+    columns a side, hlo rows below, hhi above), whether the windows live in
+    global scratch (gmem), the blocks launched and one window's bytes."""
     out = (ctypes.c_longlong * 8)()
     code = fns[2](*ints, ctypes.byref(params), out)
     if code != 0:
         raise ValueError(f"{lib}: no tiling for these arguments ({code})")
-    return dict(zip(_TILING_KEYS, (int(v) for v in out)))
+    return dict(zip(keys, (int(v) for v in out)))
 
 
 def check_steps(steps) -> None:

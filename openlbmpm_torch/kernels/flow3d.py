@@ -18,6 +18,13 @@ adhesion field from it.
 ``single3d_step(f, model)`` and ``sc3d_step(f, model)`` take the plain
 version only for a tensor on the CPU; for a CUDA tensor they launch the
 kernel or raise.
+
+The T-step forms (K11-T, K10-T: ``steps_per_call`` = T > 1 of the same TPU
+kernels) are ``single3d_block_step(f, model, steps)`` and
+``sc3d_block_step(f, model, steps)``: one launch of
+``csrc/flow3d_block_{f64,f32,bf16}.cu`` (``csrc/flow3d_block.cuh``, the
+window machinery of ``csrc/block3d.cuh``) advances T steps, a bf16 state
+decoded once and encoded once; T is at most ``MAX_BLOCK_STEPS``.
 """
 
 from __future__ import annotations
@@ -34,7 +41,10 @@ from . import build
 __all__ = ["LIBRARIES", "KMAX", "Flow3dParams", "geo_stack_sc3",
            "single3d_params", "sc3d_params", "launch_single3d", "launch_sc3d",
            "single3d_step", "single3d_step_reference", "sc3d_step",
-           "sc3d_step_reference"]
+           "sc3d_step_reference", "BLOCK_LIBRARIES", "MAX_BLOCK_STEPS",
+           "flow3d_block_tiling", "launch_flow3d_block",
+           "single3d_block_step", "single3d_block_step_reference",
+           "sc3d_block_step", "sc3d_block_step_reference"]
 
 KMAX = 3           # fluids K10 is instantiated for (1 ... KMAX)
 _LIBS = {torch.float64: "flow3d_f64", torch.float32: "flow3d_f32",
@@ -245,3 +255,124 @@ def sc3d_step_reference(f: torch.Tensor, model) -> torch.Tensor:
     """Plain PyTorch version of K10, on any device: the model's
     ``plain_step``."""
     return model.plain_step(f)
+
+
+# -- T steps a launch (K11-T, K10-T) -----------------------------------------
+
+_BLOCK_LIBS = {torch.float64: "flow3d_block_f64",
+               torch.float32: "flow3d_block_f32",
+               torch.bfloat16: "flow3d_block_bf16"}
+BLOCK_LIBRARIES = tuple(_BLOCK_LIBS.values())
+MAX_BLOCK_STEPS = 8    # csrc/block3d.cuh::kMaxSteps3
+_KIND = {"single": 0, "sc": 1}
+_TILING_KEYS = ("tx", "ty", "tz", "halo", "gmem", "grid", "window_bytes",
+                "max_steps")
+
+
+def _block_fns(lib: str):
+    """(step, scratch_bytes, shape, error_string) of a K11-T / K10-T
+    library: ints (kind, T), pointers (f, out, fluid, scratch)."""
+    return build.block_fns(lib, "flow3d", 2, 4, Flow3dParams)
+
+
+def flow3d_block_tiling(dtype, kind: str, params: Flow3dParams,
+                        steps: int) -> dict:
+    """How a K11-T (`kind` "single") or K10-T ("sc") launch of `steps` steps
+    tiles the domain of `params` for a state of `dtype`: the brick (tx, ty,
+    tz), the halo on every side, whether the windows live in global scratch
+    (gmem), the blocks launched, one window's bytes and the largest T."""
+    lib = _BLOCK_LIBS[dtype]
+    return build.block_tiling(lib, _block_fns(lib), (_KIND[kind], steps),
+                              params, _TILING_KEYS)
+
+
+def launch_flow3d_block(f: torch.Tensor, params: Flow3dParams,
+                        fluid: torch.Tensor, kind: str,
+                        steps: int) -> torch.Tensor:
+    """`steps` kernel steps (one launch) of the CUDA state `f`: K11-T (`kind`
+    "single", as ``launch_single3d`` takes it) or K10-T ("sc", as
+    ``launch_sc3d``).  Not counted as a launch."""
+    grid = (params.nz, params.ny, params.nx)
+    lead = () if kind == "single" else (params.k,)
+    _check(f, (*lead, _planes(f), *grid), fluid, params)
+    if steps > MAX_BLOCK_STEPS:
+        raise ValueError(f"steps {steps}: the kernel takes at most "
+                         f"{MAX_BLOCK_STEPS} a launch")
+    f = f.contiguous()
+    out = torch.empty_like(f)
+    lib = _BLOCK_LIBS[f.dtype]
+    build.launch_block(lib, _block_fns(lib), (_KIND[kind], steps),
+                       (f, out, fluid), params)
+    return out
+
+
+def _block_state(f: torch.Tensor, model, steps, what: str):
+    build.check_steps(steps)
+    if f.device.type != "cuda":
+        raise ValueError(f"no {what} kernel for device {f.device}")
+    if model.kernel_params is None:
+        raise ValueError(f"no {what} kernel for this configuration on "
+                         f"{model.device} (path {model.path!r})")
+    if f.dtype not in (model.dtype, torch.bfloat16) or (
+            f.dtype == torch.bfloat16 and model.dtype != torch.float32):
+        raise ValueError(f"state {f.dtype}; the model takes {model.dtype} or, "
+                         "in float32 arithmetic, bfloat16")
+
+
+def _block_reference(f: torch.Tensor, model, steps: int) -> torch.Tensor:
+    """`steps` plain steps (``_step_impl``); a bf16 state decoded once,
+    stepped in float32 and encoded once, as the T-step kernels do."""
+    build.check_steps(steps)
+    bf16 = f.dtype == torch.bfloat16
+    x = model.unpack_bf16(f) if bf16 else f
+    for _ in range(steps):
+        x = model._step_impl(x)
+    return model.pack_state_bf16(x) if bf16 else x
+
+
+def single3d_block_step(f: torch.Tensor, model, steps: int) -> torch.Tensor:
+    """`steps` D3Q19 single-phase steps for `model`, a SinglePhaseD3Q19: a
+    (19, nz, ny, nx) state in ``model.dtype`` or the (21, nz, ny, nx)
+    bfloat16 state.  CPU tensor: the plain version.  CUDA tensor: one
+    launch of K11-T, or an error; never the plain version."""
+    if f.device.type == "cpu":
+        return single3d_block_step_reference(f, model, steps)
+    _block_state(f, model, steps, "D3Q19 single-phase")
+    out = launch_flow3d_block(f, model.kernel_params, model.fluid_u8,
+                              "single", steps)
+    single3d_block_step.launches += 1
+    return out
+
+
+single3d_block_step.launches = 0
+
+
+def single3d_block_step_reference(f: torch.Tensor, model,
+                                  steps: int) -> torch.Tensor:
+    """Plain PyTorch version of K11-T, on any device: `steps` plain steps
+    (a bf16 state decoded once and encoded once)."""
+    return _block_reference(f, model, steps)
+
+
+def sc3d_block_step(f: torch.Tensor, model, steps: int) -> torch.Tensor:
+    """`steps` D3Q19 Shan-Chen steps for `model`, a ShanChenMCMP3D: a
+    (K, 19, nz, ny, nx) state in ``model.dtype`` or the (K, 21, nz, ny, nx)
+    bfloat16 state.  CPU tensor: the plain version.  CUDA tensor: one
+    launch of K10-T, or an error; never the plain version."""
+    if f.device.type == "cpu":
+        return sc3d_block_step_reference(f, model, steps)
+    _block_state(f, model, steps, "D3Q19 Shan-Chen")
+    out = launch_flow3d_block(f, model.kernel_params, model.fluid_u8, "sc",
+                              steps)
+    sc3d_block_step.launches += 1
+    return out
+
+
+sc3d_block_step.launches = 0
+
+
+def sc3d_block_step_reference(f: torch.Tensor, model,
+                              steps: int) -> torch.Tensor:
+    """Plain PyTorch version of K10-T, on any device: `steps` plain steps
+    (a bf16 state decoded once and encoded once)."""
+    return _block_reference(f, model, steps)

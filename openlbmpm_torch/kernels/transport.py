@@ -20,6 +20,12 @@ The split one is a ``TransportState`` (f_r, f_b, g, mass0).
 ``coupled_step_compressed(s, g, model)`` and ``coupled_step_split(state,
 model)`` take the plain version only when the tensors lie on the CPU; for
 CUDA tensors they launch the kernels or raise.
+
+The T-step form (K5c-T, ``steps_per_call`` = T > 1 of the same TPU kernel)
+is ``coupled_block_compressed((s, g), model, steps)`` and
+``coupled_block_split(state, model, steps)``: one launch of
+``csrc/coupled2d_block_{f64,f32,bf16}.cu`` (``csrc/coupled2d_block.cuh``)
+advances T coupled steps, a bf16 flow state decoded once and encoded once.
 """
 
 from __future__ import annotations
@@ -35,7 +41,12 @@ from .csf import _SPLIT_CODE, _STORAGE_CODE, CsfParams
 __all__ = ["TracerParams", "tracer_kernel_params", "tracer_table",
            "launch_coupled2d", "launch_coupled2d_split",
            "coupled_step_compressed", "coupled_step_compressed_reference",
-           "coupled_step_split", "coupled_step_split_reference"]
+           "coupled_step_split", "coupled_step_split_reference",
+           "CoupledParams", "BLOCK_LIBRARIES", "coupled_block_params",
+           "coupled_block_tiling", "launch_coupled2d_block",
+           "launch_coupled2d_block_split", "coupled_block_compressed",
+           "coupled_block_compressed_reference", "coupled_block_split",
+           "coupled_block_split_reference"]
 
 
 class TracerParams(ctypes.Structure):
@@ -278,3 +289,179 @@ def coupled_step_split_reference(state, model):
     the model's ``plain_coupled`` (the tracer sub-step on the pre-BC
     fields, then the flow step)."""
     return model.plain_coupled(state)
+
+
+# -- T steps a launch (K5c-T) ------------------------------------------------
+
+class CoupledParams(ctypes.Structure):
+    """Mirror of ``struct CoupledParams`` in csrc/coupled2d_block.cuh: the
+    flow's and the tracers' parameter blocks of a T-step launch."""
+    _fields_ = [("flow", CsfParams), ("tracer", TracerParams)]
+
+
+_BLOCK_LIBS = {torch.float64: "coupled2d_block_f64",
+               torch.float32: "coupled2d_block_f32",
+               torch.bfloat16: "coupled2d_block_bf16"}
+BLOCK_LIBRARIES = tuple(_BLOCK_LIBS.values())
+
+
+def _block_fns(lib: str):
+    """(step, scratch_bytes, shape, error_string) of a K5c-T library: ints
+    (state mode, T), pointers (s, s2, out, out2, geo, g, g_out, table,
+    scratch)."""
+    return build.block_fns(lib, "coupled2d", 2, 9, CoupledParams)
+
+
+def coupled_block_params(model) -> CoupledParams:
+    """The T-step launch's parameter block of a TransportRK."""
+    return CoupledParams(flow=model.flow.kernel_params,
+                         tracer=model.tracer_params)
+
+
+def coupled_block_tiling(dtype, split: bool, params: CoupledParams,
+                         steps: int) -> dict:
+    """How a K5c-T launch of `steps` steps tiles the domain of `params` for a
+    flow state of `dtype` (``build.block_tiling``)."""
+    mode = (_SPLIT_CODE if split else _STORAGE_CODE)[dtype]
+    lib = _BLOCK_LIBS[dtype]
+    return build.block_tiling(lib, _block_fns(lib), (mode, steps), params)
+
+
+def launch_coupled2d_block(s: torch.Tensor, g: torch.Tensor,
+                           params: CoupledParams, geo: torch.Tensor,
+                           table: torch.Tensor, steps: int):
+    """`steps` coupled kernel steps (one launch) of the compressed CUDA state
+    (s, g), as ``launch_coupled2d`` takes it.  Not counted as a launch."""
+    ny, nx = params.flow.ny, params.flow.nx
+    bf16 = s.dtype == torch.bfloat16
+    planes = 11 if bf16 else 10
+    _check_tracers(g, params.flow, params.tracer, geo, table, s)
+    if s.dtype not in _STORAGE_CODE or tuple(s.shape) != (planes, ny, nx) \
+            or geo.dtype != (torch.float32 if bf16 else s.dtype):
+        raise ValueError(f"state {tuple(s.shape)} {s.dtype}; the kernel "
+                         f"takes ({planes}, {ny}, {nx}) with {geo.dtype} "
+                         "planes")
+    if params.tracer.standalone:
+        raise ValueError("standalone transport has no T-step form")
+    s, g, table = s.contiguous(), g.contiguous(), table.contiguous()
+    out_s, out_g = torch.empty_like(s), torch.empty_like(g)
+    lib = _BLOCK_LIBS[s.dtype]
+    build.launch_block(lib, _block_fns(lib), (_STORAGE_CODE[s.dtype], steps),
+                       (s, None, out_s, None, geo, g, out_g, table), params)
+    return out_s, out_g
+
+
+def launch_coupled2d_block_split(f_r: torch.Tensor, f_b: torch.Tensor,
+                                 g: torch.Tensor, params: CoupledParams,
+                                 geo: torch.Tensor, table: torch.Tensor,
+                                 steps: int):
+    """`steps` coupled kernel steps (one launch) of the split CUDA state
+    (f_r, f_b, g), as ``launch_coupled2d_split`` takes it: (f_r', f_b', g').
+    Not counted as a launch."""
+    ny, nx = params.flow.ny, params.flow.nx
+    _check_tracers(g, params.flow, params.tracer, geo, table, f_r, f_b)
+    for t in (f_r, f_b):
+        if t.dtype != geo.dtype or tuple(t.shape) != (9, ny, nx):
+            raise ValueError(f"split state {tuple(f_r.shape)} {f_r.dtype}, "
+                             f"{tuple(f_b.shape)} {f_b.dtype}; the kernel "
+                             f"takes two (9, {ny}, {nx}) {geo.dtype}")
+    if params.tracer.standalone:
+        raise ValueError("standalone transport has no T-step form")
+    f_r, f_b = f_r.contiguous(), f_b.contiguous()
+    g, table = g.contiguous(), table.contiguous()
+    out_r, out_b, out_g = (torch.empty_like(t) for t in (f_r, f_b, g))
+    lib = _BLOCK_LIBS[f_r.dtype]
+    build.launch_block(lib, _block_fns(lib), (_SPLIT_CODE[f_r.dtype], steps),
+                       (f_r, f_b, out_r, out_b, geo, g, out_g, table), params)
+    return out_r, out_b, out_g
+
+
+def coupled_block_compressed(state, model, steps: int):
+    """`steps` coupled steps of the compressed state (s, g) for `model`, a
+    TransportRK: (s', g').  CPU tensors: the plain version.  CUDA tensors:
+    one launch of K5c-T (an f32 / f64 flow state, or the 11-plane bf16 one
+    in float32 arithmetic), or an error; never the plain version."""
+    s, g = state
+    if s.device != g.device:
+        raise ValueError(f"state on device {s.device}, tracer PDFs on "
+                         f"device {g.device}")
+    if s.device.type == "cpu":
+        return coupled_block_compressed_reference(state, model, steps)
+    build.check_steps(steps)
+    if s.device.type != "cuda":
+        raise ValueError(f"no coupled kernel for device {s.device}")
+    model._check_compressed()
+    dt = model.flow.dtype
+    if s.dtype not in (dt, torch.bfloat16) or (
+            s.dtype == torch.bfloat16 and dt != torch.float32):
+        raise ValueError(f"state {s.dtype}; the model takes {dt} or, in "
+                         "float32 arithmetic, bfloat16")
+    out = launch_coupled2d_block(s, g, coupled_block_params(model),
+                                 model.flow.geo_planes, model.tracer_table,
+                                 steps)
+    coupled_block_compressed.launches += 1
+    return out
+
+
+coupled_block_compressed.launches = 0
+
+
+def coupled_block_compressed_reference(state, model, steps: int):
+    """Plain PyTorch version of K5c-T, on any device: `steps` plain coupled
+    steps (``TransportRK.plain_step_c``'s tracer sub-step on the pre-BC
+    fields, then the flow's compressed step); a bf16 flow state is decoded
+    once, stepped in float32 and encoded once, as the kernel does."""
+    build.check_steps(steps)
+    model._check_compressed()
+    s, g = state
+    flow = model.flow
+    bf16 = s.dtype == torch.bfloat16
+    x = flow.unpack_bf16(s) if bf16 else s
+    for _ in range(steps):
+        x, g = model.plain_step_c((x, g))
+    return (flow.pack_compressed_bf16(x) if bf16 else x), g
+
+
+def coupled_block_split(state, model, steps: int):
+    """`steps` split coupled steps of the TransportState `state` for
+    `model`: a TransportState (mass0 carried).  CPU tensors: the plain
+    version.  CUDA tensors: one launch of K5c-T (the split instance), or an
+    error; never the plain version.  The repairs (conserve_mass,
+    redistribute) have no T-step form (``make_block_step`` builds none)."""
+    f_r, f_b, g, mass0 = state
+    devices = {t.device for t in (f_r, f_b, g)}
+    if len(devices) != 1:
+        raise ValueError(f"split coupled state on devices "
+                         f"{sorted(map(str, devices))}")
+    if g.device.type == "cpu":
+        return coupled_block_split_reference(state, model, steps)
+    build.check_steps(steps)
+    if g.device.type != "cuda":
+        raise ValueError(f"no coupled kernel for device {g.device}")
+    tp = model.tp
+    if tp.conserve_mass or tp.interface_mode == "redistribute" or \
+            model.standalone:
+        raise ValueError("conserve_mass, interface_mode='redistribute' and "
+                         "standalone transport have no T-step form")
+    flow = model.flow
+    if f_r.dtype != flow.dtype or f_b.dtype != flow.dtype:
+        raise ValueError(f"split state {f_r.dtype}/{f_b.dtype}; the model "
+                         f"takes {flow.dtype}")
+    flow.check_split()
+    out = launch_coupled2d_block_split(f_r, f_b, g, coupled_block_params(model),
+                                       flow.geo_planes, model.tracer_table,
+                                       steps)
+    coupled_block_split.launches += 1
+    return type(state)(*out, mass0)
+
+
+coupled_block_split.launches = 0
+
+
+def coupled_block_split_reference(state, model, steps: int):
+    """Plain PyTorch version of the split K5c-T, on any device: `steps`
+    plain split coupled steps (``TransportRK.plain_step``)."""
+    build.check_steps(steps)
+    for _ in range(steps):
+        state = model.plain_step(state)
+    return state

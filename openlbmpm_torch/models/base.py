@@ -141,9 +141,9 @@ def t_step(kernel, model, t: int):
 def kernel_block_step(model, steps_per_call, storage: str, takes: bool,
                       kernel):
     """``make_block_step`` of a model with one state tensor and a float32
-    bf16 pack (Shan-Chen, single-phase D2Q9): None unless `takes` (the
-    model's kernel rule), ``model.step`` for T = 1 in the model's own
-    storage, else `kernel`'s T steps a call (``t_step``)."""
+    bf16 pack (Shan-Chen and single-phase, D2Q9 and D3Q19): None unless
+    `takes` (the model's kernel rule), ``model.step`` for T = 1 in the
+    model's own storage, else `kernel`'s T steps a call (``t_step``)."""
     t = block_args(steps_per_call, storage)
     if not takes:
         return None

@@ -14,9 +14,11 @@ Shan-Chen scheme with psi = rho: the D3Q19-weight interaction force plus
 the static adhesion field and the body force, the common velocity u' and
 per fluid SRT toward feq(u' + tau_k F_k / rho_k); on a card ``step`` is
 K10 for psi = "rho" and K <= 3.  Both store 21 bfloat16 planes a fluid
-under ``storage="bf16"`` (kernel configurations only).  ``path`` is decided
-in the constructor as the JAX build functions decide whether they return a
-kernel; a kernel that fails to build or launch raises.
+under ``storage="bf16"`` (kernel configurations only).  Their
+``make_block_step`` gives T steps a call: on a card one launch of K11-T /
+K10-T, on the CPU T plain steps.  ``path`` is decided in the constructor as
+the JAX build functions decide whether they return a kernel; a kernel that
+fails to build or launch raises.
 
 The colour-gradient flow runs along -z: the inlet is the top z slabs, the
 outlet the bottom ones.  Two state layouts:
@@ -64,7 +66,8 @@ from ..geometry import Geometry
 from ..kernels.cg3d import (cg3d_step_compressed, cg3d_step_split,
                             coupled3d_step_compressed, geo_stack3,
                             kernel_params, tracer3d_params, tracer3d_table)
-from ..kernels.flow3d import (KMAX, geo_stack_sc3, sc3d_params, sc3d_step,
+from ..kernels.flow3d import (KMAX, geo_stack_sc3, sc3d_block_step,
+                              sc3d_params, sc3d_step, single3d_block_step,
                               single3d_params, single3d_step)
 from ..lattice import D3Q7, D3Q19
 from ..ops import collision as col
@@ -75,6 +78,7 @@ from ..ops import transport as tr
 from ..ops.common import shift
 from ..ops.forcing import guo_source
 from ..ops.streaming import stream, upwind_solid_masks
+from .base import kernel_block_step
 from .transport import _per_tracer
 
 __all__ = ["SinglePhaseD3Q19", "ShanChenParams3D", "ShanChenMCMP3D",
@@ -212,6 +216,25 @@ class SinglePhaseD3Q19(nn.Module):
         if self.path == "kernel":
             return single3d_step(f, self)
         return self.plain_step(f)
+
+    def make_block_step(self, steps_per_call: int = 4,
+                        slabs_per_block: int | None = None,
+                        interpret: bool = False, storage: str = "f32"):
+        """A step that advances ``steps_per_call`` = T time steps a call (the
+        JAX ``make_block_step``): on a card one launch of K11-T
+        (``kernels/flow3d.py::single3d_block_step``) on the (19, nz, ny, nx)
+        state, or with ``storage="bf16"`` on the (21, nz, ny, nx) bfloat16
+        state (decoded once and encoded once a call); on the CPU T plain
+        steps.  T = 1 with the model's own storage gives ``step``.
+
+        Returns None for a collision outside SRT / TRT (single3d.py:58-59),
+        so "MRT", which the step runs as TRT, has none.
+        ``slabs_per_block`` and ``interpret`` tune the TPU kernel and are
+        ignored."""
+        del slabs_per_block, interpret
+        return kernel_block_step(self, steps_per_call, storage,
+                                 self.collision in ("SRT", "TRT"),
+                                 single3d_block_step)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -354,6 +377,25 @@ class ShanChenMCMP3D(nn.Module):
         if self.path == "kernel":
             return sc3d_step(f, self)
         return self.plain_step(f)
+
+    def make_block_step(self, steps_per_call: int = 2,
+                        slabs_per_block: int | None = None,
+                        interpret: bool = False, storage: str = "f32"):
+        """A step that advances ``steps_per_call`` = T time steps a call (the
+        JAX ``make_block_step``): on a card one launch of K10-T
+        (``kernels/flow3d.py::sc3d_block_step``) on the (K, 19, nz, ny, nx)
+        state, or with ``storage="bf16"`` on the (K, 21, nz, ny, nx)
+        bfloat16 state (decoded once and encoded once a call); on the CPU T
+        plain steps.  T = 1 with the model's own storage gives ``step``.
+
+        Returns None for psi other than "rho" (sc3d.py:106-107) and, as the
+        one-step path, for more than KMAX fluids (the kernel's instances).
+        ``slabs_per_block`` and ``interpret`` tune the TPU kernel and are
+        ignored."""
+        del slabs_per_block, interpret
+        return kernel_block_step(self, steps_per_call, storage,
+                                 self.p.psi == "rho" and self.k <= KMAX,
+                                 sc3d_block_step)
 
     def macro(self, f):
         """(rho_k, (ux, uy, uz)): the fluid densities and the barycentric

@@ -8,6 +8,10 @@
   ``ColorGradientRK`` (10 planes, or 11 bfloat16 planes with
   ``storage="bf16"``) -- ``step_c``.
 
+``make_block_step`` gives the step of T time steps a call (the JAX
+``make_block_step``): on a card one launch of K5c-T, on the CPU T plain
+steps.
+
 ``g`` (T, Q, ny, nx) holds the tracer PDFs in the arithmetic type (float32
 with bf16 flow storage).  As in ``_step_impl``, the tracer sub-step sees the
 flow fields *before* the flow's boundary rows; then the flow takes its own
@@ -31,14 +35,17 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..kernels.transport import (coupled_step_compressed, coupled_step_split,
+from ..kernels.transport import (coupled_block_compressed, coupled_block_split,
+                                  coupled_step_compressed, coupled_step_split,
                                   tracer_kernel_params, tracer_table)
 from ..lattice import D2Q5, D2Q9
 from ..ops import equilibrium as eq
 from ..ops import macroscopic as mac
 from ..ops import transport as tr
 from ..ops.streaming import stream, upwind_solid_masks
-from .colorgradient import CGBoundaryConfig, ColorGradientParams, ColorGradientRK
+from .base import block_args, t_step
+from .colorgradient import (BLOCK_INLETS, BLOCK_OUTLETS, CGBoundaryConfig,
+                            ColorGradientParams, ColorGradientRK)
 
 __all__ = ["TransportParams", "TransportState", "TransportRK"]
 
@@ -319,3 +326,60 @@ class TransportRK(nn.Module):
         return self.repair(
             coupled_step_split(state, self, with_u=self.tp.conserve_mass),
             state.mass0)
+
+    # -- T steps a call ------------------------------------------------------
+    def make_block_step(self, steps_per_call: int = 2,
+                        rows_per_block: int | None = None,
+                        compressed: bool = False, interpret: bool = False,
+                        storage: str = "f32"):
+        """A coupled step of ``steps_per_call`` = T time steps a call (the
+        JAX ``make_block_step``).  With ``compressed`` it maps ``(s, g) ->
+        (s', g')``, s the flow's compressed state (``pack``; 11 bfloat16
+        planes with ``storage="bf16"``, decoded once and encoded once a
+        call); else the split ``TransportState`` -> ``TransportState``.  On
+        a card one launch of K5c-T (``kernels/transport.py::
+        coupled_block_compressed`` / ``coupled_block_split``), on the CPU T
+        plain steps.  T = 1 gives ``step``, or ``step_c`` for the flow's
+        own storage; with ``conserve_mass`` (T = 1, split) ``step`` marked
+        ``needs_mass0``, as the JAX form that takes mass0.
+
+        Returns None where the JAX build function builds nothing on grounds
+        of physics or boundaries: flow rows outside the in-kernel set
+        (csf.py:274-278), bf16 storage on the split layout (:243-245), and
+        ``conserve_mass`` or ``redistribute`` with T > 1 or ``compressed``
+        (models/transport.py:150-167).  (A Perturbation flow, a tracer scheme
+        other than D2Q5 / D2Q9 and tracer rows the kernel does not take,
+        csf.py:206-221, are refused by the constructor already.)  Standalone
+        transport has no T-step form here (ValueError): the JAX kernel would
+        advance the flow.  ``rows_per_block`` and ``interpret`` tune the TPU
+        kernel's strips and are ignored; no shape is refused."""
+        del rows_per_block, interpret
+        t = block_args(steps_per_call, storage)
+        tp, flow = self.tp, self.flow
+        if flow.bcs.inlet not in BLOCK_INLETS or \
+                flow.bcs.outlet not in BLOCK_OUTLETS:
+            return None
+        if storage == "bf16" and not compressed:
+            return None
+        if (tp.conserve_mass or tp.interface_mode == "redistribute") and (
+                t != 1 or compressed):
+            return None
+        if storage == "bf16" and self.dtype != torch.float32:
+            raise ValueError("storage='bf16' computes in float32")
+        if compressed:
+            self._check_compressed()
+            if t == 1 and storage == flow.storage:
+                return self.step_c
+            return t_step(coupled_block_compressed, self, t)
+        if t == 1:
+            if not tp.conserve_mass:
+                return self.step
+
+            def step_with_mass0(state):
+                return self.step(state)
+
+            step_with_mass0.needs_mass0 = True
+            return step_with_mass0
+        if self.standalone:
+            raise ValueError("standalone transport has no T-step form")
+        return t_step(coupled_block_split, self, t)

@@ -784,3 +784,74 @@ def test_block_steps_count_one_launch_per_call_and_bf16(cuda):
     assert single_block_step.launches == 1
     with pytest.raises(ValueError):
         k.csf_block_split(st, m, 0)
+
+
+# -- the T-step kernels: K5c-T, K11-T, K10-T ----------------------------------
+
+@pytest.mark.parametrize("t", [2, 4])
+@pytest.mark.parametrize("layout", ["f32", "split"])
+@pytest.mark.parametrize("case", sorted(COUPLED_CASES))
+def test_k5ct_matches_t_plain_steps_f64(cuda, case, layout, t):
+    """K5c-T (compressed, split) at f64 against T plain coupled steps, two
+    calls, on the 100 x 64 channel of chip_smoke phase 52 (<= 1e-11)."""
+    from chip_smoke import coupled_block_case, k5ct_wrappers
+    m, st = coupled_block_case(case, cuda)
+    kern, plain = k5ct_wrappers(layout)
+    x = st if layout == "split" else m.pack(st)
+    assert _gap(tuple(_block_calls(kern, x, m, t)),
+                tuple(_block_calls(plain, x, m, t))) <= 1e-11
+
+
+@pytest.mark.parametrize("t", [2, 3, 4])
+@pytest.mark.parametrize("case", sorted(SINGLE3D_CASES))
+def test_k11t_matches_t_plain_steps_f64(cuda, case, t):
+    from openlbmpm_torch.kernels.flow3d import (
+        single3d_block_step, single3d_block_step_reference)
+    m = single3d_case(case, cuda, shape=FLOW3D_SHAPE)
+    f = flow_start(m)
+    assert _gap(_block_calls(single3d_block_step, f, m, t),
+                _block_calls(single3d_block_step_reference, f, m, t)) <= 1e-11
+
+
+@pytest.mark.parametrize("t", [2, 4])
+@pytest.mark.parametrize("case", ["k1_walls_force", "k2_walls_force", "k3"])
+def test_k10t_matches_t_plain_steps_f64(cuda, case, t):
+    from chip_smoke import block_sc3d_case
+    from openlbmpm_torch.kernels.flow3d import (sc3d_block_step,
+                                                sc3d_block_step_reference)
+    m, f = block_sc3d_case(case, cuda, shape=FLOW3D_SHAPE)
+    assert _gap(_block_calls(sc3d_block_step, f, m, t),
+                _block_calls(sc3d_block_step_reference, f, m, t)) <= 1e-11
+
+
+def test_new_block_steps_count_one_launch_per_call(cuda):
+    """One launch per call of T steps for K5c-T (compressed and split),
+    K11-T and K10-T through ``make_block_step``; the bf16 forms decode once
+    and encode once a call (within the T=1 bf16 bounds); a T beyond the 3-D
+    kernels' largest raises."""
+    from chip_smoke import coupled_block_case
+    from openlbmpm_torch.kernels import flow3d as kf
+    from openlbmpm_torch.kernels import transport as kt
+    m, st = coupled_block_case("a", cuda, dtype=torch.float32)
+    kt.coupled_block_compressed.launches = kt.coupled_block_split.launches = 0
+    m.make_block_step(steps_per_call=4, compressed=True)(m.pack(st))
+    m.make_block_step(steps_per_call=2)(st)
+    assert (kt.coupled_block_compressed.launches,
+            kt.coupled_block_split.launches) == (1, 1)
+    m3 = single3d_case("trt_force", cuda, shape=FLOW3D_SHAPE,
+                       dtype=torch.float32)
+    f = flow_start(m3)
+    kf.single3d_block_step.launches = 0
+    h = m3.make_block_step(steps_per_call=4, storage="bf16")(
+        m3.pack_state_bf16(f))
+    assert kf.single3d_block_step.launches == 1 and h.dtype == torch.bfloat16
+    ref = kf.single3d_block_step_reference(m3.pack_state_bf16(f), m3, 4)
+    assert _gap(m3.unpack_bf16(h), m3.unpack_bf16(ref)) <= 1.5e-4
+    with pytest.raises(ValueError, match="at most"):
+        kf.single3d_block_step(f, m3, kf.MAX_BLOCK_STEPS + 1)
+    from chip_smoke import block_sc3d_case
+    ms, fs = block_sc3d_case("k2_walls_force", cuda, shape=FLOW3D_SHAPE,
+                             dtype=torch.float32)
+    kf.sc3d_block_step.launches = 0
+    ms.make_block_step(steps_per_call=2)(fs)
+    assert kf.sc3d_block_step.launches == 1
