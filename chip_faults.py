@@ -6,12 +6,14 @@ phase 26 (benchmarks/probe_coupled3d.py's configuration at 128^3), the
 single-phase D2Q9 kernel (K7) under phase 31 (the analytic Poiseuille
 profile), the D3Q19 Shan-Chen kernel (K10) under phase 37
 (benchmarks/probe_sc3d.py's configuration) and the Perturbation kernel
-(K4) under phase 41 (the pert flagship at 1024^2); and six faults that
+(K4) under phase 41 (the pert flagship at 1024^2); seven faults that
 only the T-step kernels can show: the colour-gradient K3 under phase 48
 (the flagships at 1024^2 in f32), the Shan-Chen K8-T under phase 46, the
-single-phase K7-T under phase 47, the coupled K5c-T under phase 52 and the
-D3Q19 K11-T and K10-T under phase 53 (their f64 cases), each while the T=1
-phases of the same family (4 and 41, 15, 29, 6 and 11, 33, 36) pass.
+single-phase K7-T under phase 47, the coupled K5c-T under phase 52, the
+D3Q19 K11-T and K10-T under phase 53 and the D3Q19 CSF K9-T under phase 60
+(their f64 cases), each while the T=1 phases of the same family (4 and
+41, 15, 29, 6 and 11, 33, 36, 20 and 21) pass; and one in the runtime-K
+Shan-Chen instance under phase 58 (four fluids) while phase 15 passes.
 
     python3 chip_faults.py [case ...]
 
@@ -23,15 +25,17 @@ case copies ``openlbmpm_torch`` (without its build directory),
 ``chip_smoke.py`` and ``configs/`` into a temporary directory, changes one line of a
 ``csrc/`` source there, and runs its phases in a subprocess that builds the
 copy's libraries and records every failed check (and any error) instead of
-stopping at the first.  The K9 faults drop the Guo source term on wetting
-fluid cells only (the contact lines, where phase 21 compares against the
-plain path's one-ulp twin) in one storage type's instance; the tracer
+stopping at the first.  The K9 faults drop the curvature, and so the CSF
+force, on wetting fluid cells only (the contact lines, where phase 21
+compares against the plain path's one-ulp twin) in one storage type's
+one-step instance; the tracer
 fault applies the hard interface bounce-back on the x and y axes only (the
 tracer then leaks through the red phase across the periodic z seam) in the
 f32 instance; the K7 fault drops the Guo source from the MRT update in the
 f32 instance (the half-force stays in the relaxed moments); the K10 fault
-drops the adhesion term, which only wall-adjacent cells carry, in the f32
-instance; the K4 fault drops the 1/sqrt(2) of the diagonal recolouring
+drops the adhesion term, which only wall-adjacent cells carry, in the
+float-arithmetic instances (f32 and bf16 storage: the shared collision
+knows only its compute type); the K4 fault drops the 1/sqrt(2) of the diagonal recolouring
 segment in the float-arithmetic instances (K4c f32, K4h, K4s f32; the
 Perturbation K3 shares the line).  The T-step faults: K3 rewrites the
 boundary rows before the first sub-step of a call only, in its f32
@@ -40,16 +44,20 @@ global row, in its f64 instance; K7-T rewrites the rows after the first
 sub-step only, in its f64 instance; K5c-T maps the tracer's window rows
 to global rows without the window's offset (its inlet and outlet rows land
 on the wrong rows), K11-T streams in the first sub-step only, and K10-T
-leaves rho_k of the window's outer shell stale each sub-step, each in its
-f64 instance:
+leaves rho_k of the window's outer shell stale each sub-step, K9-T
+selects the boundary slabs by window z instead of global z, each in its
+f64 instance, and the runtime-K K8 gives every fluid fluid 0's 1/tau in the
+common velocity, in f64 arithmetic:
 
-  none           the sources as they are: phases 4, 6, 11, 15, 21, 26,
-                 29, 31, 33, 36, 37, 41, 45-48, 52, 53 must pass;
+  none           the sources as they are: phases 4, 6, 11, 15, 20, 21,
+                 26, 29, 31, 33, 36, 37, 41, 45-48, 52, 53, 58, 60 must
+                 pass;
   f32            cg3d.cuh, float32 storage (K9c f32, K9s f32): phase 21;
   bf16           cg3d.cuh, bfloat16 storage (K9h): phase 21;
   tracer f32     cg3d.cuh, float32 storage (K9t f32): phase 26;
   K7 MRT f32     single2d.cuh, float32 storage: phase 31 must fail;
-  K10 adh f32    flow3d.cuh, float32 storage: phase 37 must fail;
+  K10 adh f32    flow3d.cuh, float arithmetic (f32, bf16): phase 37 must
+                 fail;
   K4 diag f32    pert2d.cuh, float arithmetic: phase 41 must fail;
   K3 bc once     csf2d_block.cuh, float32 storage: phase 48 must fail,
                  phases 4 and 41 (K1, K4) pass;
@@ -62,7 +70,11 @@ f64 instance:
   K11-T swap once    flow3d_block.cuh, float64 storage: phase 53 must
                  fail, phase 33 (K11) passes;
   K10-T rho shell    flow3d_block.cuh, float64 storage: phase 53 must
-                 fail, phase 36 (K10) passes.
+                 fail, phase 36 (K10) passes;
+  K9-T window z  cg3d_block.cuh, float64 storage: phase 60 must fail,
+                 phases 20 and 21 (K9) pass;
+  K8 rt tau      sc2d_rt.cuh, float64 arithmetic: phase 58 must fail,
+                 phase 15 (K8, K <= 3) passes.
 
 Prints one line per case with the failed checks and the gaps, and exits 0
 only when every case behaves as stated.
@@ -78,11 +90,11 @@ import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-LINE = "    post[i] = f[i] - (f[i] - feq) / tau + pref * src;"
+LINE = "  collide_core(c, phi[k], g, nrm[6 * n + k], P, post, frac, A, B, Cz);"
 # sizeof(S): the storage type (8 f64, 4 f32, 2 bf16); geo[k] > 1.5 is a
 # wetting fluid cell
-FAULT = ("    post[i] = f[i] - (f[i] - feq) / tau + "
-         "(sizeof(S) == {size} && geo[k] > C(1.5) ? C(0) : pref) * src;")
+FAULT = ("  collide_core(c, phi[k], g, sizeof(S) == {size} && geo[k] > C(1.5) "
+         "? C(0) : nrm[6 * n + k], P, post, frac, A, B, Cz);")
 # directions 5 and 6 of D3Q7 are +z and -z
 TRACER_LINE = "      const bool repair = T.interface;"
 TRACER_FAULT = ("      const bool repair = T.interface && "
@@ -90,10 +102,10 @@ TRACER_FAULT = ("      const bool repair = T.interface && "
 K7_LINE = "      post[i] = (FORCE ? F[i] + src[i] : F[i]) - c;"
 K7_FAULT = ("      post[i] = (FORCE && sizeof(S) != {size} ? F[i] + src[i] : "
             "F[i]) - c;")
-K10_LINE = ("      const C force = -rho[k] * (gv + C(P.gs[k]) * C(adh[d])) + "
-            "C(P.bf[d]) * rho[k];")
-K10_FAULT = ("      const C force = -rho[k] * (gv + C(P.gs[k]) * "
-             "C(sizeof(S) == {size} ? 0.0 : adh[d])) + C(P.bf[d]) * rho[k];")
+K10_LINE = ("    const C force = -rho * (gv + C(gs) * C(adh[d])) + "
+            "C(bf[d]) * rho;")
+K10_FAULT = ("    const C force = -rho * (gv + C(gs) * "
+             "C(sizeof(C) == {size} ? 0.0 : adh[d])) + C(bf[d]) * rho;")
 K4_LINE = "      cos_t = eg / norm / C(i < 5 ? 1.0 : kSqrt2);"
 K4_FAULT = ("      cos_t = eg / norm / C(i < 5 || sizeof(C) == {size} ? "
             "1.0 : kSqrt2);")
@@ -111,6 +123,11 @@ K11T_FAULT = ("      if (sub == 0 || MODE == kShanChen || sizeof(S) != {size}) "
               "swap_stream(W, PL, K, FL, r);")
 K10T_LINE = "        Box r = shrunk3(B, e);"
 K10T_FAULT = ("        Box r = shrunk3(B, sizeof(S) == {size} ? e + 1 : e);")
+K9T_LINE = "            for (int lz = wrap3(zg - oz, nz); lz < zhi; lz += nz)"
+K9T_FAULT = ("            for (int lz = sizeof(S) == {size} ? zg : "
+             "wrap3(zg - oz, nz); lz < zhi; lz += nz)")
+K8RT_LINE = "    const C it = C(tb.inv_tau(k));"
+K8RT_FAULT = "    const C it = C(tb.inv_tau(sizeof(C) == {size} ? 0 : k));"
 K7T_LINE = "      if (P.inlet != 0 || P.outlet != 0) {"
 K7T_FAULT = ("      if ((P.inlet != 0 || P.outlet != 0) && "
              "(sub == 0 || sizeof(S) != {size})) {{")
@@ -136,15 +153,20 @@ CASES = {
                         K11T_FAULT.format(size=8), ("53",)),
     "K10-T rho shell": ("flow3d_block.cuh", K10T_LINE,
                         K10T_FAULT.format(size=8), ("53",)),
+    "K9-T window z": ("cg3d_block.cuh", K9T_LINE, K9T_FAULT.format(size=8),
+                      ("60",)),
+    "K8 rt tau": ("sc2d_rt.cuh", K8RT_LINE, K8RT_FAULT.format(size=8),
+                  ("58",)),
 }
 # name -> the T=1 phases of the same family that must pass the T-step
 # faults (the T=1 kernels do not run the changed line)
 MUST_PASS = {"K3 bc once": ("4", "41"), "K8-T local row": ("15",),
              "K7-T bc once": ("29",), "K5c-T window rows": ("6", "11"),
-             "K11-T swap once": ("33",), "K10-T rho shell": ("36",)}
+             "K11-T swap once": ("33",), "K10-T rho shell": ("36",),
+             "K9-T window z": ("20", "21"), "K8 rt tau": ("15",)}
 # the phases of the unchanged sources
-ALL_PHASES = ("4", "6", "11", "15", "21", "26", "29", "31", "33", "36", "37",
-              "41", "45", "46", "47", "48", "52", "53")
+ALL_PHASES = ("4", "6", "11", "15", "20", "21", "26", "29", "31", "33", "36",
+              "37", "41", "45", "46", "47", "48", "52", "53", "58", "60")
 
 RUN = r"""
 import json, sys, torch
@@ -159,7 +181,7 @@ SIMPLE = {"6": cs.phase_coupled_f64, "11": cs.phase_split_coupled_f64,
           "33": cs.phase_single3d_f64, "36": cs.phase_sc3d_f64,
           "45": cs.phase_block_csf_f64, "46": cs.phase_block_sc_f64,
           "47": cs.phase_block_single_f64, "52": cs.phase_block_coupled_f64,
-          "53": cs.phase_block3d_f64}
+          "53": cs.phase_block3d_f64, "60": cs.phase_block_cg3d_f64}
 for phase in sys.argv[1:]:
     bad = failed.setdefault(phase, [])
     cs.check = lambda cond, what, bad=bad: cond or bad.append(what)
@@ -168,6 +190,16 @@ for phase in sys.argv[1:]:
             res = SIMPLE[phase](device)
             out[phase] = {"max": max(max(v) if isinstance(v, tuple) else v
                                      for v in res.values())}
+            continue
+        elif phase == "20":
+            res = cs.phase_cg3d_f64(device)
+            out[phase] = {"max": max(max(v[:2]) for k, v in res.items()
+                                     if k != "bf16_ulp")}
+            continue
+        elif phase == "58":
+            res = cs.phase_sc4(device)
+            out[phase] = {"max": max(v for k, v in res.items()
+                                     if len(k) == 3)}
             continue
         elif phase == "4":
             res = cs.phase_flagship(device)

@@ -254,7 +254,27 @@ toolkit (nvcc) and PyTorch built for CUDA; JAX is not needed.  Phases:
  57. the CLI's default ``--block 0`` at the shipped sizes of phases 12 and
      38 (``transport`` 1044x1024 500 steps, ``basic3d`` and ``sc3d`` as
      shipped, 1000 steps): the T-step kernel launched steps / T times, the
-     T=1 kernel never, the seconds with I/O beside the ``--block 1`` runs.
+     T=1 kernel never, the seconds with I/O beside the ``--block 1`` runs;
+ 58. four Shan-Chen fluids on the runtime-K instances of K8 / K8-T and K10 /
+     K10-T: every case of SC4_CASES (128x64) and SC3D4_CASES (48x40x32) at
+     f64 against the plain step, 20 steps as T = 1, 2, 4 a call (<= 1e-11);
+     at full size (1024^2, 128^3) in f32 within phases 17 and 37's bounds,
+     path "kernel", the main paths through ``run_chunked`` and times;
+ 59. ``run --model M --no-pallas`` for the eight models on their shipped
+     INIs, 20 steps: no kernel launched (the model's line names "the plain
+     step"), metrics.jsonl within 1e-4 relative of the run without the flag
+     (umax 2e-3);
+ 60. f64: the 3-D CSF T-step kernel K9-T (compressed and split) against T
+     plain steps, T = 2, 3, 4, two calls, in BLOCK_CG3D_CASES (wetting walls
+     periodic, velocity inlet with the convective and with the pressure
+     outlet, the grain pack at 32^3); <= 1e-11;
+ 61. K9-T at configuration 5 (128^3), T = 2 and 4, 8 steps: f32
+     (compressed, split) and bf16 against their plain versions by phase
+     21's rule, then one more bf16 step within one ulp a value;
+ 62. K9-T's speed per time step at T = 1, 2, 4 at 128^3 and 256^3 (CUDA
+     events), device time per launch, tiling and plain time, and
+     bench_cg3d.py's loop (``run_chunked`` of ``make_block_step(4, ...)``
+     over 120 steps in f32, bf16 and split) with its launches and MLUPS.
 
 Every phase prints one line or more, each number line with the card's name
 and power limit, and any failure exits non-zero.  Then the wall time, the
@@ -1439,6 +1459,38 @@ SC_KERNEL_CASES = tuple(SC_CASES)[:10]
 WALL_VELOCITY = (0.05, 0.0)
 
 
+def _g4(g):
+    """The 4 x 4 fluid-fluid matrix with g off the diagonal."""
+    return tuple(tuple(0.0 if i == j else g for j in range(4))
+                 for i in range(4))
+
+
+_SC4 = dict(g_matrix=_g4(3.6), g_solid=(-0.3, 0.3, 0.1, -0.1),
+            tau=(1.0, 0.8, 0.9, 1.1))
+_EFS4 = dict(g_matrix=_g4(0.2), g_solid=(-0.14, 0.14, 0.0, 0.07),
+             tau=(1.0, 0.8, 0.9, 1.1), scheme="EFS")
+_VC4 = dict(inlet="zou_he_velocity", outlet="convective",
+            inlet_velocity=(-1e-3, 0.0, 0.0, 0.0))
+_VP4 = _VC4 | dict(outlet="zou_he_pressure",
+                   outlet_density=(0.02, 1.0, 0.02, 0.02))
+_PP4 = dict(inlet="zou_he_pressure", outlet="zou_he_pressure",
+            inlet_density=(1.0, 0.02, 0.02, 0.02),
+            outlet_density=(0.02, 1.0, 0.02, 0.02))
+# K = 4 fluids in four bands (as SC_CASES): the runtime-K instance of K8 /
+# K8-T (phase 58, tests/test_torch_shanchen.py)
+SC4_CASES = {
+    "sc4_srt_periodic_body_force": (_SC4 | dict(body_force=(1e-6, -2e-6)),
+                                    {}, "bands"),
+    "sc4_mrt_velocity_convective": (_SC4 | dict(collision="MRT"), _VC4,
+                                    "bands"),
+    "sc4_srt_pressure_pressure": (_SC4, _PP4, "bands"),
+    "efs4_4f_velocity_pressure": (_EFS4, _VP4, "bands"),
+    "efs10_4f_mrt_velocity_convective": (_EFS4 | dict(iso_order=10,
+                                                      collision="MRT"),
+                                         _VC4, "bands"),
+}
+
+
 def sc_solid(ny, nx, init):
     """The case's solid nodes: side walls, or for the moving-wall case a
     stationary bottom wall and a moving lid (the top two rows).  Returns
@@ -1483,7 +1535,7 @@ def sc_case(name, device, ny=128, nx=64, dtype=torch.float64,
     from openlbmpm_torch.geometry import from_solid_mask
     from openlbmpm_torch.models.shanchen import (
         SCBoundaryConfig, ShanChenMCMP, ShanChenParams)
-    p, b, init = SC_CASES[name]
+    p, b, init = (SC_CASES | SC4_CASES)[name]
     solid, moving = sc_solid(ny, nx, init)
     m = ShanChenMCMP(from_solid_mask(solid), ShanChenParams(**p),
                      SCBoundaryConfig(**b), dtype=dtype, device=device,
@@ -2045,18 +2097,20 @@ def phase_cg3d_f64(device, shape=(48, 40, 32), grain=32, steps=20,
     return res
 
 
-def bf16_one_step_3d(m, h, away, max_share=1e-2):
-    """K9h and its plain version one step from the common bf16 state `h`,
-    held value by value on `away` to one bf16 ulp (``compare_bf16_states``)
-    with at most `max_share` of the values >= 1e-4 off at all (measured
-    4e-3 to 5e-3: the 19-direction sums leave more values at a rounding
-    boundary than D2Q9's 9); a round-toward-zero and a dropped-lo encoding
-    of the plain result must fail the same check."""
+def bf16_one_step_3d(m, h, away, max_share=1e-2, kernel=None, plain=None):
+    """K9h (or `kernel`, with its plain version `plain`) and its plain
+    version one step from the common bf16 state `h`, held value by value
+    on `away` to one bf16 ulp (``compare_bf16_states``) with at most
+    `max_share` of the values >= 1e-4 off at all (measured 4e-3 to 5e-3:
+    the 19-direction sums leave more values at a rounding boundary than
+    D2Q9's 9); a round-toward-zero and a dropped-lo encoding of the plain
+    result must fail the same check."""
     from openlbmpm_torch.kernels.cg3d import (
         cg3d_step_compressed, cg3d_step_compressed_reference)
     from openlbmpm_torch.kernels.csf import compare_bf16_states
-    plain = cg3d_step_compressed_reference(h, m)
-    r = compare_bf16_states(cg3d_step_compressed(h, m), plain, away)
+    kernel = kernel or cg3d_step_compressed
+    plain = (plain or cg3d_step_compressed_reference)(h, m)
+    r = compare_bf16_states(kernel(h, m), plain, away)
     check(r["excess"] <= 1.0, f"K9h one step: a value {r['excess']:.3g} ulp "
           "off the plain path")
     check(r["share"] <= max_share, f"K9h one step: {r['share']:.2e} of the "
@@ -2764,15 +2818,15 @@ def single_case(name, device, ny=256, nx=128, dtype=torch.float64,
 def flow_start(m, seed=0, k=None):
     """A perturbed equilibrium of model `m` on its fluid (one fluid, or the
     k fluids of a Shan-Chen model): rho in [0.97, 1.03] (fluid j scaled by
-    (1, 0.3, 0.6)[j]), |u| <= 0.02 per component, made in float64 from a
-    numpy seed and cast to the model's arithmetic type."""
+    (1, 0.3, 0.6, 0.45)[j]), |u| <= 0.02 per component, made in float64
+    from a numpy seed and cast to the model's arithmetic type."""
     from openlbmpm_torch.ops.equilibrium import feq_quadratic
     rng = np.random.default_rng(seed)
     lead = () if k is None else (k,)
     shape = lead + tuple(m.geo.shape)
     rho = rng.uniform(0.97, 1.03, shape)
     if k is not None:
-        rho *= np.array([1.0, 0.3, 0.6][:k]).reshape((-1,) + (1,) * (
+        rho *= np.array([1.0, 0.3, 0.6, 0.45][:k]).reshape((-1,) + (1,) * (
             len(shape) - 1))
     u = tuple(torch.as_tensor(rng.uniform(-0.02, 0.02, shape),
                               device=m.device) for _ in range(m.lat.dim))
@@ -3088,14 +3142,26 @@ SC3D_CASES = {
 }
 
 
-def sc3d_case(name, device, shape=(48, 40, 32), dtype=torch.float64):
+# K = 4 fluids: the runtime-K instance of K10 / K10-T (phase 58)
+SC3D4_CASES = {
+    "k4_walls_force": (dict(g_matrix=_g4(1.0), g_solid=(0.1, -0.2, 0.0, 0.05),
+                            tau=(1.0, 0.8, 1.2, 0.9),
+                            body_force=(1e-5, -1e-5, -1e-5)), True, "random"),
+    "k4_periodic": (dict(g_matrix=_g4(1.0), g_solid=(0.0,) * 4,
+                         tau=(1.0, 0.9, 1.1, 1.0)), False, "random"),
+}
+
+
+def sc3d_case(name, device, shape=(48, 40, 32), dtype=torch.float64,
+              storage="f32"):
     """A SC3D_CASES model and its start: fluid 0 a sphere of radius
     min(shape)/4 at densities (1, 0.02), or a perturbed equilibrium."""
     from openlbmpm_torch.geometry import from_solid_mask
     from openlbmpm_torch.models.flow3d import ShanChenMCMP3D, ShanChenParams3D
-    kw, walls, start = SC3D_CASES[name]
+    kw, walls, start = (SC3D_CASES | SC3D4_CASES)[name]
     g = _walls_y(shape) if walls else from_solid_mask(np.zeros(shape, bool))
-    m = ShanChenMCMP3D(g, ShanChenParams3D(**kw), dtype=dtype, device=device)
+    m = ShanChenMCMP3D(g, ShanChenParams3D(**kw), dtype=dtype, device=device,
+                       storage=storage)
     if start == "droplet":
         f = m.init_state_droplet((1.0,) * m.k, (0.02,) * m.k,
                                  radius=min(shape) / 4)
@@ -5276,6 +5342,502 @@ def block3_entries(r52, r53, r54, r55, r56):
     return entries
 
 
+# -- four Shan-Chen fluids (the runtime-K instances), --no-pallas, and the
+# 3-D CSF T-step kernel K9-T ---------------------------------------------------
+
+def phase_sc4(device, steps=20, tol=1e-11, n=FLAGSHIP_N, n3=128,
+              steps_full=10, main_steps=40):
+    """K8 / K8-T and K10 / K10-T with four fluids (the runtime-K instances
+    ``csrc/sc2d_rt.cuh``, ``csrc/sc3d_rt.cuh``): every case of SC4_CASES
+    (128 x 64) and of SC3D4_CASES (48 x 40 x 32) at f64 against the plain
+    step, `steps` steps as T = 1, 2 and 4 steps a call (<= tol); at full
+    size (sc4_mrt_velocity_convective at n^2, k4_walls_force at n3^3) in
+    f32, `steps_full` steps within phase 17's and phase 37's bounds, and in
+    bf16 storage (``sc4_bf16``); the main paths: ``run_chunked`` of
+    ``model.step`` and of ``make_block_step(4)`` of each full-size model,
+    each count set to 0 just before; ms a step of kernel and plain
+    version."""
+    from openlbmpm_torch.kernels import flow3d as kf
+    from openlbmpm_torch.kernels import shanchen as ks
+    from openlbmpm_torch.models.base import run_chunked
+    res = {}
+    fams = (("K8", SC4_CASES, lambda nm, **kw: sc_case(nm, device, **kw),
+             ks.sc_step, ks.sc_block_step, ks.sc_block_step_reference),
+            ("K10", SC3D4_CASES, lambda nm, **kw: sc3d_case(nm, device, **kw),
+             kf.sc3d_step, kf.sc3d_block_step, kf.sc3d_block_step_reference))
+    for tag, cases, make, one, blk, plain in fams:
+        for name in cases:
+            m, f = make(name)
+            check(m.path == "kernel" and m.k == 4, f"{tag} {name}: path "
+                  f"{m.path}, {m.k} fluids")
+            ref = _steps(lambda x: plain(x, m, 1), f, steps)
+            for t in (1, 2, 4):
+                fn = (lambda x: one(x, m)) if t == 1 else \
+                    (lambda x, t=t: blk(x, m, t))
+                a = _steps(fn, f, steps // t)
+                err = _gap(a, ref)
+                check(bool(torch.isfinite(a).all()) and err <= tol,
+                      f"{tag} K=4 {name} T={t} f64: kernel vs plain "
+                      f"{err:.3e} > {tol:g}")
+                res[(tag, name, t)] = err
+    for (tag, cases, make, one, blk, plain), name, kw, bound, bound16, \
+            cells in zip(fams, ("sc4_mrt_velocity_convective",
+                                "k4_walls_force"),
+                         (dict(ny=n, nx=n), dict(shape=(n3,) * 3)),
+                         (SC_BOUNDS["f32"], FLOW3D_F32_BOUND["K10"]),
+                         (SC_BOUNDS["bf16"], BF16_BOUND["K10"]),
+                         (n * n, n3 ** 3)):
+        m64, f64 = make(name, **kw)
+        m, _ = make(name, dtype=torch.float32, **kw)
+        x0 = f64.float()
+        del m64, f64
+        a = _steps(lambda x: one(x, m), x0, steps_full)
+        gap = _gap(a, _steps(lambda x: plain(x, m, 1), x0, steps_full))
+        check(bool(torch.isfinite(a).all()) and gap <= bound,
+              f"{tag} K=4 {name} f32 full size: kernel vs plain {gap:.3e} > "
+              f"{bound:g}")
+        r = {"gap": gap, "path": m.path, "cells": cells,
+             "sec": _time_steps(lambda x: one(x, m), x0, 20, device),
+             "plain_sec": _time_steps(lambda x: plain(x, m, 1), x0, 2,
+                                      device),
+             "sec_t4": _time_steps(lambda x: blk(x, m, 4), x0, 5, device) / 4}
+        for fn, counter, key in ((m.step, one, "launches"),
+                                 (m.make_block_step(4), blk,
+                                  "launches_t4")):
+            calls = main_steps // getattr(fn, "steps_per_call", 1)
+            counter.launches = 0
+            run_chunked(fn, x0, num_steps=calls, io_interval=calls // 2,
+                        nan_guard=True)
+            r[key] = counter.launches
+            check(counter.launches == calls, f"{tag} K=4 main path: "
+                  f"{counter.launches} launches for {calls} calls")
+        res[(tag, "full")] = r
+        del m, a
+        mh, _ = make(name, dtype=torch.float32, storage="bf16", **kw)
+        res[(tag, "bf16")] = sc4_bf16(mh, x0, one, blk, plain, steps_full,
+                                      bound16, tag)
+        del mh, x0
+        torch.cuda.empty_cache()
+    return res
+
+
+def sc4_bf16(m, x0, one, blk, plain, steps, bound, tag):
+    """The runtime-K instance in bf16 storage: the four-fluid model `m`
+    from the f32 start `x0`, encoded once; `steps` steps at T = 1 and
+    steps // 4 calls at T = 4 of the kernel and its plain version (a bf16
+    state decoded once a call), both decoded at the end, max |difference|
+    within `bound` (phase 17's or 37's); then one more step from the plain
+    version's state, value by value within one bf16 ulp
+    (``bf16_ulp_check``)."""
+    h = m.pack_state_bf16(x0)
+    r = {}
+    for t in (1, 4):
+        fn = (lambda x: one(x, m)) if t == 1 else (lambda x: blk(x, m, 4))
+        a = m.unpack_bf16(_steps(fn, h, steps // t))
+        b = _steps(lambda x: plain(x, m, t), h, steps // t)
+        r[t] = _gap(a, m.unpack_bf16(b))
+        check(bool(torch.isfinite(a).all()) and r[t] <= bound,
+              f"{tag} K=4 bf16 T={t}: kernel vs plain {r[t]:.3e} > {bound:g}")
+    r["ulp"] = bf16_ulp_check(m, b, lambda x, mm: one(x, mm),
+                              m.fluid_mask > 0, FLOW3D_BF16_SHARE,
+                              f"{tag} K=4")
+    return r
+
+
+def _launch_counters():
+    """{name: wrapper} of every kernel wrapper with a launch count."""
+    from openlbmpm_torch.kernels import (cg3d, csf, flow3d, shanchen, single,
+                                         transport)
+    out = {}
+    for mod in (csf, transport, shanchen, cg3d, single, flow3d):
+        for attr in dir(mod):
+            fn = getattr(mod, attr)
+            if callable(fn) and hasattr(fn, "launches"):
+                out[f"{mod.__name__.rsplit('.', 1)[-1]}.{attr}"] = fn
+    return out
+
+
+# phase 59's bounds on metrics.jsonl, relative to max(|a|, |b|, 1e-3): the
+# kernels against the plain step in f32; the masses and the saturation move
+# by rounding (<= 8e-6 measured on an H100), umax, a maximum over the cells,
+# sits at the contact lines and boundary slabs, where f32 rounding (1.6e-4
+# for basic) and, for cg3d, the compressed and split slab rules part (the
+# kernel runs the packed state, --no-pallas the split one, as the JAX CLI;
+# 7.3e-4), so it has its own bound, as the steady criterion has
+NO_PALLAS_BOUNDS = BLOCK_CLI_BOUNDS | {"umax": 2e-3}
+# the runs of phase 59: the shipped INIs (main, then --physics-config)
+NO_PALLAS_RUNS = {"cg": ("rk_csf2d.ini",),
+                  "transport": ("transportsetup.ini", "rk_csf2d.ini"),
+                  "cg3d": ("rk_csf3d.ini",),
+                  "transport3d": ("transportsetup.ini", "rk_csf3d.ini"),
+                  "sc": ("twophasesetup.ini", "shanchen2D.ini"),
+                  "sc3d": ("shanchen3d.ini",),
+                  "basic": ("basicsetup.ini",), "basic3d": ("basic3d.ini",)}
+
+
+def phase_no_pallas(device, steps=20, interval=10):
+    """``run --model M --no-pallas`` for each of the eight models on its
+    shipped INIs (the output every `interval` steps where the INI sets it;
+    ``sc`` writes at the start and the end), `steps` f32 steps on the
+    card: every kernel wrapper's count stays 0, the model's own line names
+    its path, "the plain step on cuda", and metrics.jsonl stays within BLOCK_CLI_BOUND (relative; the
+    steady criterion and umax NO_PALLAS_BOUNDS) of the same run without the
+    flag (the kernels, blocked as the default ``--block 0`` picks)."""
+    import os
+    import tempfile
+    from openlbmpm_torch import cli
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
+    counters = _launch_counters()
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for model, inis in NO_PALLAS_RUNS.items():
+            paths = []
+            for ini in inis:
+                dst = os.path.join(tmp, f"{model}_{ini}")
+                _ini_copy(os.path.join(root, ini), dst,
+                          {"TimeInterval": interval})
+                paths.append(dst)
+            argv = [paths[0], "--model", model] + (
+                ["--physics-config", paths[1]] if len(paths) > 1 else [])
+            r = {}
+            for flag in ([], ["--no-pallas"]):
+                out = os.path.join(tmp, f"{model}{'_np' if flag else ''}")
+                for fn in counters.values():
+                    fn.launches = 0
+                rc, text, sec = _cli_run(cli, ["run", *argv, "--steps",
+                                               str(steps), "--output", out,
+                                               "--device", "cuda", *flag])
+                launched = {k: fn.launches for k, fn in counters.items()
+                            if fn.launches}
+                key = "plain" if flag else "kernel"
+                r[key] = {"rc": rc, "sec": sec, "launched": launched}
+                check(rc == 0, f"cli {model} {' '.join(flag)}: returned {rc}")
+                if flag:
+                    check(not launched and
+                          f"the plain step on {device.type}" in text,
+                          f"cli {model} --no-pallas: launched {launched}")
+                else:
+                    check(bool(launched), f"cli {model}: no kernel launched")
+            sa, sb, gaps = _metrics_gap(
+                os.path.join(tmp, model, "metrics.jsonl"),
+                os.path.join(tmp, f"{model}_np", "metrics.jsonl"))
+            over = {k: v for k, v in gaps.items()
+                    if v > NO_PALLAS_BOUNDS.get(k, BLOCK_CLI_BOUND)}
+            check(sa == sb and len(sa) >= 2 and sa[-1] == steps and not over,
+                  f"cli {model} --no-pallas: metrics at {sb} against {sa}, "
+                  f"relative gaps over their bounds: {over}")
+            r["gaps"] = gaps
+            res[model] = r
+    return res
+
+
+# phase 60's cases: periodic with wetting walls, the velocity inlet with the
+# convective and with the pressure outlet, the grain pack cut small
+BLOCK_CG3D_CASES = ("akai60_walls", "velocity_convective",
+                    "velocity_dirichlet", "grain_pack")
+
+
+def phase_block_cg3d_f64(device, calls=2, tol=1e-11, shape=(48, 40, 32),
+                         grain=32):
+    """K9-T against T plain steps at f64, T = 2, 3, 4, two calls in a row,
+    compressed (K9-Tc) and split (K9-Ts), in every case of
+    BLOCK_CG3D_CASES (48 x 40 x 32, the grain pack at 32^3)."""
+    from openlbmpm_torch.kernels import cg3d as k9
+    res = {}
+    for name in BLOCK_CG3D_CASES:
+        m, st = cg3d_case(name, device, shape=(grain,) * 3
+                          if name == "grain_pack" else shape)
+        for lay, x0, kern, plain in (
+                ("compressed", m.pack_state(*st), k9.cg3d_block_compressed,
+                 k9.cg3d_block_compressed_reference),
+                ("split", st, k9.cg3d_block_split,
+                 k9.cg3d_block_split_reference)):
+            for t in (2, 3, 4):
+                a = _steps(lambda x: kern(x, m, t), x0, calls)
+                b = _steps(lambda x: plain(x, m, t), x0, calls)
+                if lay == "split":
+                    a, b = tuple(a), tuple(b)
+                err = _gap(a, b)
+                fin = all(bool(torch.isfinite(y).all()) for y in
+                          (a if lay == "split" else (a,)))
+                check(fin and err <= tol, f"K9-T {name} {lay} T={t}: kernel "
+                      f"vs {t} plain steps {err:.3e} > {tol:g}")
+                res[(name, lay, t)] = err
+    return res
+
+
+def phase_block_config5(device, n=128, steps=8):
+    """K9-T at configuration 5 (n^3), T = 2 and 4, `steps` steps from one f64
+    start against T plain steps a call: K9-Tc and K9-Ts in f32 and K9-Th in
+    bf16 (decoded once and encoded once a call by both), held by phase 21's
+    rule (``_hold``: its bounds far from walls and seam, off the seam the
+    bound or the capped twin gap); then one more bf16 step (the T-step
+    kernel at T = 1) from a common bf16 state within one ulp a value."""
+    from openlbmpm_torch.kernels import cg3d as k9
+    kc, pc = k9.cg3d_block_compressed, k9.cg3d_block_compressed_reference
+    ks, ps = k9.cg3d_block_split, k9.cg3d_block_split_reference
+    m64 = config5_model(device, dtype=torch.float64, n=n)
+    st64 = config5_start(m64)
+    s64 = m64.pack_state(*st64)
+    p64 = _steps(lambda x: pc(x, m64, 1), s64, steps)
+    sp64 = torch.cat(_steps(lambda x: ps(x, m64, 1), st64, steps))
+    m32 = config5_model(device, n=n)
+    mh = config5_model(device, storage="bf16", n=n)
+    away, far = cg3d_masks(m32, steps, device)
+    s32 = s64.float()
+    st32 = tuple(t.float() for t in st64)
+    res = {}
+    for t in (2, 4):
+        def run(fn, x, m, t=t):
+            return _steps(lambda y: fn(y, m, t), x, steps // t)
+        kern, plain = run(kc, s32, m32), run(pc, s32, m32)
+        res[("f32", t)] = _gaps(kern, plain, run(pc, _twin(s32), m32), p64,
+                                away, far)
+        _hold("K9c f32", res[("f32", t)], 3e-5)
+        res[("split", t)] = _gaps(*(torch.cat(x) for x in (
+            run(ks, st32, m32), run(ps, st32, m32),
+            run(ps, tuple(_twin(u, 1) for u in st32), m32))), sp64, away,
+            far)
+        _hold("K9s f32", res[("split", t)], 3e-5)
+        h = mh.pack_compressed_bf16(s32)
+        kh, ph = run(kc, h, mh), run(pc, h, mh)
+        k, p, tw = (mh.unpack_bf16(x) for x in (
+            kh, ph, run(pc, mh.pack_compressed_bf16(_twin(s32)), mh)))
+        res[("bf16", t)] = {
+            "planes": _gaps(k[:19], p[:19], tw[:19], p64[:19], away, far),
+            "rho_r": _gaps(k[19:], p[19:], tw[19:], p64[19:], away, far),
+            "max": float((k - p).abs().max())}
+        _hold("K9h planes", res[("bf16", t)]["planes"], 3e-4)
+        _hold("K9h rho_r", res[("bf16", t)]["rho_r"], 1e-4)
+        for x, y, tag in ((kern, plain, "f32"), (k, p, "bf16")):
+            tot_k = float(x[19].double().sum())
+            tot_p = float(y[19].double().sum())
+            res[(f"mass_{tag}", t)] = abs(tot_k - tot_p) / tot_p
+            check(res[(f"mass_{tag}", t)] <= 1e-4, f"K9-T config 5 {tag} "
+                  f"T={t}: total rho_r kernel vs plain "
+                  f"{res[(f'mass_{tag}', t)]:.2e}")
+        if t == 4:
+            res[("bf16", "ulp")] = bf16_one_step_3d(
+                mh, ph, away, kernel=lambda y, m: kc(y, m, 1),
+                plain=lambda y, m: pc(y, m, 1))
+        del kern, plain, kh, ph, k, p, tw
+        torch.cuda.empty_cache()
+    return res
+
+
+# K9-T's least bytes per cell-step at T = 1 (its T=1 kernel's function):
+# CG3D_BYTES (compressed f32 161, bf16 85, split f32 305); a T-step launch
+# moves them once a T steps
+BLOCK_CG3D_LABELS = {"f32": "K9-Tc", "bf16": "K9-Th", "split": "K9-Ts"}
+
+
+def phase_block_cg3d_speed(device, sizes=(128, 256), time_steps=(24, 8),
+                           loop_steps=120, calls=4):
+    """K9-T's speed at configuration 5 per time step at T = 1 (the T=1
+    kernel K9c / K9h / K9s), 2 and 4 (CUDA events; T = 1, 2, 4, 4, 2, 1, the
+    best of each), device microseconds per launch from torch.profiler,
+    the bound per step (CG3D_BYTES / T over 3.35 TB/s) at each n of
+    `sizes`; at n = sizes[0] also launches per step from the wrapper's
+    count over `calls` calls, the launch's tiling and the plain version's
+    time per step; then bench_cg3d.py's loop at n = sizes[0]:
+    ``run_chunked`` of
+    ``make_block_step(4, compressed=True, storage="f32" | "bf16")`` and of
+    ``make_block_step(4)`` (split) over `loop_steps` steps, each count set
+    to 0 just before, with the host loop's MLUPS."""
+    from openlbmpm_torch.kernels import cg3d as k9
+    from openlbmpm_torch.models.base import RunMetrics, run_chunked
+    out = {}
+    for n, t_steps in zip(sizes, time_steps):
+        m = config5_model(device, n=n)
+        mh = config5_model(device, storage="bf16", n=n)
+        st = config5_start(m)
+        s = m.pack_state(*st)
+        runs = {"f32": (m, s, m.step_c, k9.cg3d_block_compressed,
+                        k9.cg3d_block_compressed_reference),
+                "bf16": (mh, mh.pack_compressed_bf16(s), mh.step_c,
+                         k9.cg3d_block_compressed,
+                         k9.cg3d_block_compressed_reference),
+                "split": (m, st, m.step, k9.cg3d_block_split,
+                          k9.cg3d_block_split_reference)}
+        for key, (mm, x, step1, kern, plain) in runs.items():
+            r = {"sec": {}, "device_us": {}, "tiling": {},
+                 "launches_per_step": {}, "cells": n ** 3}
+            for t in (1, 2, 4, 4, 2, 1):
+                fn = step1 if t == 1 else (lambda y, t=t: kern(y, mm, t))
+                sec = _time_steps(fn, x, max(t_steps // t, 2), device) / t
+                r["sec"][t] = min(r["sec"].get(t, float("inf")), sec)
+            for t in (2, 4) if n == sizes[0] else ():
+                kern.launches = 0
+                _steps(lambda y: kern(y, mm, t), x, calls)
+                r["launches_per_step"][t] = kern.launches / (calls * t)
+                check(kern.launches == calls, f"K9-T {key} {n}^3 T={t}: "
+                      f"{kern.launches} launches for {calls} calls")
+                for _ in range(2):
+                    r["device_us"][t] = device_times(
+                        lambda y: kern(y, mm, t), x, ("cg3d_block_kernel",),
+                        steps=2)["cg3d_block_kernel"]
+                    if r["device_us"][t] is not None:
+                        break
+                r["tiling"][t] = k9.cg3d_block_tiling(
+                    torch.bfloat16 if key == "bf16" else torch.float32,
+                    key == "split", mm.kernel_params, t)
+            if n == sizes[0]:
+                r["plain_sec"] = _time_steps(lambda y: plain(y, mm, 2), x, 1,
+                                             device) / 2
+            r["bound_ms"] = {t: CG3D_BYTES[key] / t * n ** 3 /
+                             HBM_BYTES_PER_S * 1e3 for t in (1, 2, 4)}
+            r["mlups"] = {t: n ** 3 / sec / 1e6 for t, sec in r["sec"].items()}
+            out[(key, n)] = r
+            if n == sizes[0]:
+                blk = mm.make_block_step(4, compressed=key != "split",
+                                         storage="bf16" if key == "bf16"
+                                         else "f32")
+                meter = RunMetrics(n ** 3)
+                kern.launches = 0
+                y = run_chunked(blk, x, num_steps=loop_steps // 4,
+                                io_interval=loop_steps // 8, metrics=meter,
+                                nan_guard=True)
+                launches = kern.launches
+                check(launches == loop_steps // 4, f"K9-T bench loop {key}: "
+                      f"{launches} launches for {loop_steps} steps")
+                out[("loop", key)] = {"launches": launches,
+                                      "steps": loop_steps,
+                                      "mlups": 4 * meter.mlups}
+                del y
+        del m, mh, st, s, runs
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase58_62_lines(r58, r59, r60, r61, r62, card):
+    def worst(r, pick):
+        return max(v for k, v in r.items() if pick(k))
+    lines = [
+        "phase 58 K = 4 fluids, the runtime-K instances, f64 vs plain (20 "
+        "steps as T = 1, 2, 4; SC4_CASES 128x64, SC3D4_CASES 48x40x32): max "
+        f"|diff| K8 {worst(r58, lambda k: k[0] == 'K8' and len(k) == 3):.3e}"
+        f", K10 {worst(r58, lambda k: k[0] == 'K10' and len(k) == 3):.3e}"
+        " (<= 1e-11)"]
+    for tag, where in (("K8", f"{FLAGSHIP_N}^2 sc4_mrt_velocity_convective"),
+                       ("K10", "128^3 k4_walls_force")):
+        r = r58[(tag, "full")]
+        lines.append(
+            f"phase 58 {tag} K = 4 {where} f32 [{card}]: path {r['path']}, "
+            f"kernel vs plain 10 steps {r['gap']:.3e}; main path run_chunked "
+            f"{r['launches']} launches (step), {r['launches_t4']} "
+            f"(make_block_step(4)); ms a step {r['sec'] * 1e3:.4f} (T = 1), "
+            f"{r['sec_t4'] * 1e3:.4f} (T = 4), plain "
+            f"{r['plain_sec'] * 1e3:.3f}, MLUPS "
+            f"{r['cells'] / r['sec'] / 1e6:.1f}")
+        r = r58[(tag, "bf16")]
+        lines.append(
+            f"phase 58 {tag} K = 4 {where} bf16 [{card}]: kernel vs plain "
+            f"decoded, 10 steps at T = 1 {r[1]:.3e}, 8 at T = 4 {r[4]:.3e}; "
+            f"one more step {r['ulp']['excess']:.3g} ulp at most, "
+            f"{r['ulp']['share']:.2e} of the values off")
+    lines.append(
+        f"phase 59 run --no-pallas, {len(r59)} models at the shipped INIs, "
+        f"20 f32 steps [{card}]: " + "; ".join(
+            f"{m} kernels launched {sum(r['plain']['launched'].values())} "
+            f"(without the flag {sum(r['kernel']['launched'].values())}), "
+            f"{r['plain']['sec']:.2f} s against {r['kernel']['sec']:.2f} s, "
+            f"metrics gap {max(r['gaps'].values(), default=0.0):.2e}"
+            for m, r in r59.items()))
+    lines.append(
+        "phase 60 K9-T f64 vs T plain steps (T = 2, 3, 4, two calls; "
+        + ", ".join(BLOCK_CG3D_CASES) + "): max |diff| compressed "
+        f"{worst(r60, lambda k: k[1] == 'compressed'):.3e}, split "
+        f"{worst(r60, lambda k: k[1] == 'split'):.3e} over {len(r60)} runs "
+        "(<= 1e-11)")
+    parts = []
+    for (key, t), v in r61.items():
+        if key in ("f32", "split"):
+            parts.append(f"{key} T={t} far {v['far']:.3e} away {v['away']:.3e}"
+                         f" (twin {v['twin_away']:.3e}) max {v['max']:.3e}")
+        elif key == "bf16" and t != "ulp":
+            parts.append(f"bf16 T={t} planes far {v['planes']['far']:.3e} "
+                         f"away {v['planes']['away']:.3e}, rho_r far "
+                         f"{v['rho_r']['far']:.3e} away "
+                         f"{v['rho_r']['away']:.3e}")
+        elif key == "bf16":
+            parts.append(f"one more bf16 step: excess {v['excess']:.3g} ulp, "
+                         f"share {v['share']:.2e}")
+    lines.append(f"phase 61 K9-T config 5 128^3, 8 steps [{card}]: "
+                 + "; ".join(parts))
+    for (key, n), r in r62.items():
+        if key == "loop":
+            lines.append(
+                f"phase 62 bench_cg3d loop {n}: run_chunked of "
+                f"make_block_step(4), {r['steps']} steps, {r['launches']} "
+                f"launches, {r['mlups']:.1f} MLUPS incl. host loop [{card}]")
+            continue
+        dev = r["device_us"]
+        lines.append(
+            f"phase 62 {BLOCK_CG3D_LABELS[key]} {n}^3 [{card}]: ms a time "
+            "step T=1/2/4 " + "/".join(
+                f"{r['sec'][t] * 1e3:.4f}" for t in (1, 2, 4)) +
+            ", MLUPS " + "/".join(f"{r['mlups'][t]:.1f}" for t in (1, 2, 4)) +
+            ", bound ms a step " + "/".join(
+                f"{r['bound_ms'][t]:.4f}" for t in (1, 2, 4)) +
+            ("; launches a step T=2/4 " + "/".join(
+                f"{r['launches_per_step'][t]:g}" for t in (2, 4)) +
+             "; device us a launch T=2/4 " + "/".join(
+                 "not measured" if dev[t] is None else f"{dev[t][0]:.2f}"
+                 for t in (2, 4)) +
+             "; tiling T=2/4 " + "/".join(
+                 json.dumps(r["tiling"][t], separators=(",", ":"))
+                 for t in (2, 4)) +
+             f"; plain ms a step {r['plain_sec'] * 1e3:.3f}"
+             if "plain_sec" in r else ""))
+    return lines
+
+
+def phase58_62_entries(r58, r60, r61, r62):
+    """The kernels line's entries of K9-Tc, K9-Th, K9-Ts (ms, plain_ms and
+    bound_ms a time step at T = 4 at 128^3, launches from bench_cg3d's loop)
+    and of the runtime-K K8 and K10 (K = 4, T = 1, launches from phase 58's
+    main paths)."""
+    cg3d = "openlbmpm_tpu/pallas/cg3d.py:132"
+    entries = []
+    for key, name, extra in (
+            ("f32", "cg3d_block_compressed_f32", "storage='f32'"),
+            ("bf16", "cg3d_block_compressed", "storage='bf16'"),
+            ("split", "cg3d_block_split", "state_mode='split'")):
+        sp, big = r62[(key, 128)], r62[(key, 256)]
+        lay = "split" if key == "split" else "compressed"
+        err = max(r61[(key, t)]["max"] for t in (2, 4))
+        dev = sp["device_us"][4]
+        entries.append(kernel_entry(
+            name, BLOCK_CG3D_LABELS[key], "openlbmpm_torch/csrc/cg3d_block.cuh",
+            f"{cg3d} (steps_per_call=T, in-window slabs :557, :624, :881-958, "
+            f"{extra})", r62[("loop", key)]["launches"], err, sp["sec"][4],
+            sp["plain_sec"], CG3D_BYTES[key] / 4, CG3D_FLOPS, 128 ** 3,
+            steps_per_call=4,
+            max_abs_err_f64=max(v for k, v in r60.items() if k[1] == lay),
+            ms_t1=sp["sec"][1] * 1e3, ms_t2=sp["sec"][2] * 1e3,
+            bound_ms_t1=sp["bound_ms"][1], bound_ms_t2=sp["bound_ms"][2],
+            mlups=sp["mlups"][4], device_us_t4=None if dev is None else dev[0],
+            launches_per_step=sp["launches_per_step"][4],
+            ms_256=big["sec"][4] * 1e3, ms_256_t1=big["sec"][1] * 1e3,
+            bound_ms_256=big["bound_ms"][4]))
+    for tag, name, source, tpu, nbytes, flops in (
+            ("K8", "sc_step_k4", "openlbmpm_torch/csrc/sc2d_rt.cuh",
+             "openlbmpm_tpu/pallas/shanchen.py:92 (K = 4 fluids, MRT, Zou-He "
+             "velocity inlet, convective outlet)", 2 * 144 + 1, 2 * SC2_OPS),
+            ("K10", "sc3d_step_k4", "openlbmpm_torch/csrc/sc3d_rt.cuh",
+             "openlbmpm_tpu/pallas/sc3d.py:79 (K = 4 fluids)", 2 * 304 + 1,
+             2 * FLOW3D_FLOPS["K10"])):
+        r = r58[(tag, "full")]
+        entries.append(kernel_entry(
+            name, f"{tag} K=4", source, tpu, r["launches"], r["gap"],
+            r["sec"], r["plain_sec"], nbytes, flops, r["cells"],
+            max_abs_err_f64=max(v for k, v in r58.items()
+                                if k[0] == tag and len(k) == 3),
+            max_abs_err_bf16=max(r58[(tag, "bf16")][t] for t in (1, 4)),
+            ms_t4=r["sec_t4"] * 1e3, launches_t4=r["launches_t4"]))
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -5305,7 +5867,7 @@ def main() -> int:
               f"{lib} {build.build_seconds.get(lib, 0.0):.2f} s"
               for lib in libs) + ")")
     raw_ints = SC_LIBS + SINGLE_LIBS + FLOW3D_LIBS + tuple(
-        lib for lib in libs if "_block_" in lib)
+        lib for lib in libs if "_block_" in lib or lib.endswith("_rt"))
     for lib in libs:
         print(f"phase 2 ptxas {lib}: "
               f"{build_report(build, lib, lib in raw_ints)}")
@@ -5448,6 +6010,19 @@ def main() -> int:
     for ln in phase52_57_lines(r52, r53, r54, r55, r56, r57, r12, r38, card):
         print(ln)
 
+    t_new = {}
+    for key, fn in (("r58", phase_sc4), ("r59", phase_no_pallas),
+                    ("r60", phase_block_cg3d_f64), ("r61", phase_block_config5),
+                    ("r62", phase_block_cg3d_speed)):
+        t0 = time.perf_counter()
+        t_new[key] = (fn(device), time.perf_counter() - t0)
+        torch.cuda.empty_cache()
+    r58, r59, r60, r61, r62 = (t_new[k][0] for k in sorted(t_new))
+    print("phases 58-62 wall s: " + ", ".join(
+        f"{k[1:]} {v[1]:.1f}" for k, v in sorted(t_new.items())))
+    for ln in phase58_62_lines(r58, r59, r60, r61, r62, card):
+        print(ln)
+
     n2 = FLAGSHIP_N * FLAGSHIP_N
     csf = "openlbmpm_tpu/pallas/csf.py:147"
     entries = [kernel_entry(
@@ -5578,6 +6153,7 @@ def main() -> int:
             mlups=r44["mlups"][key]))
     entries += block_entries(r45, r46, r47, r48, r49, r50)
     entries += block3_entries(r52, r53, r54, r55, r56)
+    entries += phase58_62_entries(r58, r60, r61, r62)
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s "
           f"(phases 1-14 {t_old:.1f} s, 1-19 {t_2d:.1f} s, 1-24 "
           f"{t_3d:.1f} s, 1-28 {t_k9t:.1f} s, 1-39 {t_flow:.1f} s, 1-44 "

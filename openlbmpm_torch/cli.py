@@ -110,7 +110,8 @@ def _pick_block(model, args, io_interval, num_steps, **kw):
 
     ``--block N`` requests exactly N; 0 (the default) tries 4, then 2;
     ``--block 1`` and CPU runs stay unblocked (the JAX CLI blocks only on
-    its accelerator).  T must divide both the I/O interval and the step
+    its accelerator), and so do ``--no-pallas`` runs, whose models
+    (``use_kernel=False``) have no T-step form.  T must divide both the I/O interval and the step
     count, so callbacks land on true step boundaries; an explicit
     non-divisor runs unblocked with a note.  Extra keywords go to
     ``make_block_step``."""
@@ -159,7 +160,8 @@ def _run_colorgradient(args):
         run = dataclasses.replace(run, num_steps=args.steps)
     geometry = _build_geometry(domain)
     dtype, dev = _setup(args)
-    model = ColorGradientRK(geometry, params, bcs, dtype=dtype, device=dev)
+    model = ColorGradientRK(geometry, params, bcs, dtype=dtype, device=dev,
+                            use_kernel=not args.no_pallas)
     step_fn, scale = _blocked(model, args, run)
     print(f"openlbmpm_torch: --model cg, variant {params.variant}, "
           f"boundaries {bcs.inlet}/{bcs.outlet}: the {model.path} step on "
@@ -243,7 +245,8 @@ def _run_colorgradient3d(args):
     geometry = _box3d(dom)
     dtype, dev = _setup(args)
     model = ColorGradientRK3D(geometry, params, boundaries=extras["bcs"],
-                              dtype=dtype, device=dev)
+                              dtype=dtype, device=dev,
+                              use_kernel=not args.no_pallas)
     state = model.init_state_layers(extras["rho_r"], extras["rho_b"],
                                     invading_slabs=max(8, dom["nz"] // 10))
     step_fn, macro_fn, layout = model.step, model.macro, "split"
@@ -309,7 +312,7 @@ def _run_transport(args):
     geometry = _build_geometry(domain)
     dtype, dev = _setup(args)
     model = TransportRK(geometry, flow_params, tparams, bcs, dtype=dtype,
-                        device=dev)
+                        device=dev, use_kernel=not args.no_pallas)
     flow_state = model.flow.init_state_layers(
         1.0, 1.0, invading_rows=max(domain.buffer_layers, 10))
     ny, nx = geometry.shape
@@ -368,7 +371,8 @@ def _run_transport3d(args):
         tau=tparams.tau, j0=tparams.j0,
         interface_mode=("bounceback"
                         if tparams.beta_interface[0] == 0.0 else "none"),
-        boundaries=extras["bcs"], dtype=dtype, device=dev)
+        boundaries=extras["bcs"], dtype=dtype, device=dev,
+        use_kernel=not args.no_pallas)
     top = max(8, dom["nz"] // 10)
     nz, ny, nx = geometry.shape
     conc0 = np.zeros((tparams.num_tracers, nz, ny, nx))
@@ -404,7 +408,7 @@ def _run_transport3d(args):
     return 0
 
 
-def _shanchen_setup(config, physics_config, dtype, device):
+def _shanchen_setup(config, physics_config, dtype, device, use_kernel=True):
     """The model, initial state and run settings of ``run --model sc``:
     the open channel of the main INI with the physics INI's fluids and
     boundary rows, fluid 0 invading from the top."""
@@ -413,7 +417,8 @@ def _shanchen_setup(config, physics_config, dtype, device):
 
     params, bcs, domain, run, extras = load_shanchen(config, physics_config)
     geometry = _build_geometry(domain, geometry_kind="channel")
-    model = ShanChenMCMP(geometry, params, bcs, dtype=dtype, device=device)
+    model = ShanChenMCMP(geometry, params, bcs, dtype=dtype, device=device,
+                         use_kernel=use_kernel)
     state = model.init_state_layers(
         extras.get("initial_densities", (1.0, 1.0)),
         extras.get("background_densities", (0.02, 0.02)))
@@ -429,7 +434,7 @@ def _run_shanchen(args):
 
     dtype, dev = _setup(args)
     model, state, run = _shanchen_setup(args.config, args.physics_config,
-                                        dtype, dev)
+                                        dtype, dev, not args.no_pallas)
     if args.steps:
         run = dataclasses.replace(run, num_steps=args.steps)
     params, bcs, geometry = model.p, model.bcs, model.geo
@@ -536,7 +541,8 @@ def _run_basic(args):
     solid[yext[0]:yext[1] + 1, xext[0]:xext[1] + 1] = False
     dtype, dev = _setup(args)
     model = SinglePhaseD2Q9(geo.from_solid_mask(solid), dtype=dtype,
-                            device=dev, **solver_kw)
+                            device=dev, use_kernel=not args.no_pallas,
+                            **solver_kw)
     stepper = _blocked(model, args, run)
     print(f"openlbmpm_torch: --model basic, {model.collision}: the "
           f"{model.path} step on {dev}, {_steps_line(stepper[1])}")
@@ -568,7 +574,7 @@ def _run_basic3d(args):
         run = dataclasses.replace(run, num_steps=args.steps)
     dtype, dev = _setup(args)
     model = SinglePhaseD3Q19(_box3d(dom), dtype=dtype, device=dev,
-                             **solver_kw)
+                             use_kernel=not args.no_pallas, **solver_kw)
     stepper = _blocked(model, args, run)
     print(f"openlbmpm_torch: --model basic3d, {model.collision}: the "
           f"{model.path} step on {dev}, {_steps_line(stepper[1])}")
@@ -583,7 +589,7 @@ def _run_basic3d(args):
                              "SimulationResults3D", record, stepper)
 
 
-def _shanchen3d_setup(config, dtype, device):
+def _shanchen3d_setup(config, dtype, device, use_kernel=True):
     """The model, initial state and run settings of ``run --model sc3d``:
     the INI's fluids in a box with walls on the x and y faces, fluid 0 a
     centred sphere of the INI's radius."""
@@ -591,7 +597,8 @@ def _shanchen3d_setup(config, dtype, device):
     from .models.flow3d import ShanChenMCMP3D
 
     params, dom, run, extras = load_shanchen3d(config)
-    model = ShanChenMCMP3D(_box3d(dom), params, dtype=dtype, device=device)
+    model = ShanChenMCMP3D(_box3d(dom), params, dtype=dtype, device=device,
+                           use_kernel=use_kernel)
     state = model.init_state_droplet(extras["initial_densities"],
                                      extras["background_densities"],
                                      radius=extras["radius"])
@@ -603,7 +610,8 @@ def _run_shanchen3d(args):
     from .metrics import flow_diagnostics
 
     dtype, dev = _setup(args)
-    model, state, run = _shanchen3d_setup(args.config, dtype, dev)
+    model, state, run = _shanchen3d_setup(args.config, dtype, dev,
+                                          not args.no_pallas)
     if args.steps:
         run = dataclasses.replace(run, num_steps=args.steps)
     stepper = _blocked(model, args, run)
@@ -670,6 +678,11 @@ def main(argv=None) -> int:
                              "PyTorch path")
         sp.add_argument("--png", action="store_true",
                         help="write PNG snapshots at the I/O cadence")
+        sp.add_argument("--no-pallas", action="store_true",
+                        help="run every model's plain PyTorch step, no "
+                             "kernel (the JAX CLI's flag of the same name; "
+                             "unblocked; cg3d and transport3d step the "
+                             "split state)")
         sp.add_argument("--block", type=int, default=0,
                         help="time steps per kernel launch (temporal "
                              "blocking) of cg, sc, basic, transport, sc3d "

@@ -410,7 +410,16 @@ __device__ __forceinline__ void totals(const Cell<C, kSplit>& c, C f[Q], C& rr, 
   rb = sumq(c.b);
 }
 
-// phi = (rho_r - rho_b) / (rho_r + rho_b) on fluid cells, 0 elsewhere.
+// phi = (rho_r - rho_b) / (rho_r + rho_b) of a fluid cell.
+template <typename C, int L>
+__device__ __forceinline__ C cell_phase(const Cell<C, L>& c) {
+  C f[Q], rr, rb;
+  totals(c, f, rr, rb);
+  const C tot = rr + rb;
+  return tot != C(0) ? (rr - rb) / tot : C(0);
+}
+
+// phi on fluid cells, 0 elsewhere.
 template <typename S, int L, typename C = typename Traits<S>::C>
 __global__ void phase_kernel(State<S> st, const C* __restrict__ geo, C* __restrict__ phi,
                              Cg3dParams P) {
@@ -426,10 +435,7 @@ __global__ void phase_kernel(State<S> st, const C* __restrict__ geo, C* __restri
   const int y = (int)((k % nxy) / P.nx), x = (int)(k % P.nx);
   Cell<C, L> c;
   load_cell<S, L>(st, geo, P, z, y, x, c);
-  C f[Q], rr, rb;
-  totals(c, f, rr, rb);
-  const C tot = rr + rb;
-  phi[k] = tot != C(0) ? (rr - rb) / tot : C(0);
+  phi[k] = cell_phase(c);
 }
 
 // Akai 2018 contact-angle rotation of the gradient on a wetting fluid cell
@@ -463,10 +469,25 @@ __device__ void rotate_akai(C g[3], const C ns[3], const Cg3dParams& P) {
   for (int d = 0; d < 3; ++d) g[d] = -norm * (pick1 ? n1[d] : n2[d]);
 }
 
-// phi extended onto solid cells in place: the w-weighted mean of the fluid
-// neighbours, num / den as ops/colorgrad.py::solid_phi_extrapolate forms it
-// (0 without fluid neighbours).  It reads only fluid neighbours, which it
-// never writes, so in place is safe.
+// phi of a solid cell extended from its neighbours: the w-weighted mean of
+// the fluid ones, num / den as ops/colorgrad.py::solid_phi_extrapolate forms
+// it (0 without fluid neighbours); fluid_at(i) and phi_at(i) read neighbour
+// i = x + e_i.
+template <typename C, typename FluidAt, typename PhiAt>
+__device__ __forceinline__ C extrapolated_phi(FluidAt fluid_at, PhiAt phi_at) {
+  C num = C(0), den = C(0);
+#pragma unroll
+  for (int i = 1; i < Q; ++i) {
+    if (fluid_at(i)) {
+      num = num + C(wq(i)) * phi_at(i);
+      den = den + C(wq(i));
+    }
+  }
+  return den > C(0) ? num / den : C(0);
+}
+
+// phi extended onto solid cells in place.  It reads only fluid neighbours,
+// which it never writes, so in place is safe.
 template <typename C>
 __global__ void extrap_kernel(const C* __restrict__ geo, C* __restrict__ phi, Cg3dParams P) {
   const int nx = P.nx, ny = P.ny, nz = P.nz;
@@ -479,21 +500,42 @@ __global__ void extrap_kernel(const C* __restrict__ geo, C* __restrict__ phi, Cg
   if (code > C(-0.5)) return;
   const int z = (int)(k / nxy);
   const int y = (int)((k % nxy) / nx), x = (int)(k % nx);
-  C num = C(0), den = C(0);
-#pragma unroll
-  for (int i = 1; i < Q; ++i) {
-    const size_t kk = (size_t)wrap(z + ez(i), nz) * nxy + (size_t)wrap(y + ey(i), ny) * nx +
-                      wrap(x + ex(i), nx);
-    if (geo[kk] > C(0.5)) {
-      num = num + C(wq(i)) * phi[kk];
-      den = den + C(wq(i));
-    }
-  }
-  phi[k] = den > C(0) ? num / den : C(0);
+  auto nb = [&](int i) {
+    return (size_t)wrap(z + ez(i), nz) * nxy + (size_t)wrap(y + ey(i), ny) * nx +
+           wrap(x + ex(i), nx);
+  };
+  phi[k] = extrapolated_phi<C>([&](int i) { return geo[nb(i)] > C(0.5); },
+                               [&](int i) { return phi[nb(i)]; });
 }
 
-// phi (extended) -> g = 3 sum_i w_i e_i phi(x + e_i), rotated on wetting
-// fluid cells, and the unit inward normal on fluid cells.
+// g = 3 sum_i w_i e_i phi(x + e_i) of the (extended) phase field; phi_at(i)
+// reads neighbour i.
+template <typename C, typename PhiAt>
+__device__ __forceinline__ void phi_gradient(PhiAt phi_at, C g[3]) {
+  g[0] = g[1] = g[2] = C(0);
+#pragma unroll
+  for (int i = 1; i < Q; ++i) {
+    const C sv = phi_at(i);
+    if (ex(i)) g[0] = g[0] + C(wq(i) * ex(i)) * sv;
+    if (ey(i)) g[1] = g[1] + C(wq(i) * ey(i)) * sv;
+    if (ez(i)) g[2] = g[2] + C(wq(i) * ez(i)) * sv;
+  }
+#pragma unroll
+  for (int d = 0; d < 3; ++d) g[d] = C(3) * g[d];
+}
+
+// The unit inward normal n = -g/|g| times the fluid flag fl (0 where |g| is
+// below kEps).
+template <typename C>
+__device__ __forceinline__ void inward_normal(const C g[3], C fl, C n[3]) {
+  const C norm = sqrt(g[0] * g[0] + g[1] * g[1] + g[2] * g[2]);
+  const bool ok = norm > C(kEps);
+#pragma unroll
+  for (int d = 0; d < 3; ++d) n[d] = (ok ? -g[d] / norm : C(0)) * fl;
+}
+
+// phi (extended) -> g, rotated on wetting fluid cells, and the unit inward
+// normal on fluid cells.
 template <typename C>
 __global__ void normal_kernel(const C* __restrict__ geo, const C* __restrict__ phi,
                               C* __restrict__ nrm, Cg3dParams P) {
@@ -504,35 +546,58 @@ __global__ void normal_kernel(const C* __restrict__ geo, const C* __restrict__ p
   if (k >= n) return;
   const int z = (int)(k / nxy);
   const int y = (int)((k % nxy) / nx), x = (int)(k % nx);
-  C g[3] = {C(0), C(0), C(0)};
-#pragma unroll
-  for (int i = 1; i < Q; ++i) {
-    const C sv = phi[(size_t)wrap(z + ez(i), nz) * nxy + (size_t)wrap(y + ey(i), ny) * nx +
-                     wrap(x + ex(i), nx)];
-    if (ex(i)) g[0] = g[0] + C(wq(i) * ex(i)) * sv;
-    if (ey(i)) g[1] = g[1] + C(wq(i) * ey(i)) * sv;
-    if (ez(i)) g[2] = g[2] + C(wq(i) * ez(i)) * sv;
-  }
-#pragma unroll
-  for (int d = 0; d < 3; ++d) g[d] = C(3) * g[d];
+  C g[3], nv[3];
+  phi_gradient<C>(
+      [&](int i) {
+        return phi[(size_t)wrap(z + ez(i), nz) * nxy + (size_t)wrap(y + ey(i), ny) * nx +
+                   wrap(x + ex(i), nx)];
+      },
+      g);
   const C code = geo[k];
   if (P.has_wetting && code > C(1.5)) {
     const C ns[3] = {geo[n + k], geo[2 * n + k], geo[3 * n + k]};
     rotate_akai(g, ns, P);
   }
-  const C norm = sqrt(g[0] * g[0] + g[1] * g[1] + g[2] * g[2]);
-  const bool ok = norm > C(kEps);
-  const C fl = code > C(0.5) ? C(1) : C(0);
+  inward_normal(g, code > C(0.5) ? C(1) : C(0), nv);
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
     nrm[d * n + k] = g[d];
-    nrm[(3 + d) * n + k] = (ok ? -g[d] / norm : C(0)) * fl;
+    nrm[(3 + d) * n + k] = nv[d];
   }
 }
 
 // The curvature kappa = sum_ab (n_a n_b - delta_ab) d_a n_b of the unit
-// normals on fluid cells, the partials by the isotropic stencil
-// (ops/colorgrad.py::csf_force_nd), into plane 6 of nrm.
+// normals at a fluid cell with normal nh, the partials by the isotropic
+// stencil (ops/colorgrad.py::csf_force_nd); n_at(i, b) reads component b of
+// neighbour i's normal.
+template <typename C, typename NAt>
+__device__ __forceinline__ C curvature_of(NAt n_at, const C nh[3]) {
+  C dn[3][3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+#pragma unroll
+    for (int b = 0; b < 3; ++b) dn[a][b] = C(0);
+#pragma unroll
+  for (int i = 1; i < Q; ++i) {
+    const C s[3] = {n_at(i, 0), n_at(i, 1), n_at(i, 2)};
+    const int e[3] = {ex(i), ey(i), ez(i)};
+    const double w3 = 3.0 * wq(i);
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      if (!e[a]) continue;
+#pragma unroll
+      for (int b = 0; b < 3; ++b) dn[a][b] = dn[a][b] + C(w3 * e[a]) * s[b];
+    }
+  }
+  C kappa = C(0);
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+#pragma unroll
+    for (int b = 0; b < 3; ++b) kappa = kappa + (nh[a] * nh[b] - C(a == b ? 1 : 0)) * dn[a][b];
+  return kappa;
+}
+
+// kappa on fluid cells (0 elsewhere) into plane 6 of nrm.
 template <typename C>
 __global__ void curvature_kernel(const C* __restrict__ geo, C* __restrict__ nrm,
                                  Cg3dParams P) {
@@ -547,32 +612,13 @@ __global__ void curvature_kernel(const C* __restrict__ geo, C* __restrict__ nrm,
   }
   const int z = (int)(k / nxy);
   const int y = (int)((k % nxy) / nx), x = (int)(k % nx);
-  C dn[3][3];
-#pragma unroll
-  for (int a = 0; a < 3; ++a)
-#pragma unroll
-    for (int b = 0; b < 3; ++b) dn[a][b] = C(0);
-#pragma unroll
-  for (int i = 1; i < Q; ++i) {
-    const size_t kk = (size_t)wrap(z + ez(i), nz) * nxy + (size_t)wrap(y + ey(i), ny) * nx +
-                      wrap(x + ex(i), nx);
-    const C s[3] = {nrm[3 * n + kk], nrm[4 * n + kk], nrm[5 * n + kk]};
-    const int e[3] = {ex(i), ey(i), ez(i)};
-    const double w3 = 3.0 * wq(i);
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      if (!e[a]) continue;
-#pragma unroll
-      for (int b = 0; b < 3; ++b) dn[a][b] = dn[a][b] + C(w3 * e[a]) * s[b];
-    }
-  }
   const C nh[3] = {nrm[3 * n + k], nrm[4 * n + k], nrm[5 * n + k]};
-  C kappa = C(0);
-#pragma unroll
-  for (int a = 0; a < 3; ++a)
-#pragma unroll
-    for (int b = 0; b < 3; ++b) kappa = kappa + (nh[a] * nh[b] - C(a == b ? 1 : 0)) * dn[a][b];
-  nrm[6 * n + k] = kappa;
+  nrm[6 * n + k] = curvature_of(
+      [&](int i, int b) {
+        return nrm[(3 + b) * n + (size_t)wrap(z + ez(i), nz) * nxy +
+                   (size_t)wrap(y + ey(i), ny) * nx + wrap(x + ex(i), nx)];
+      },
+      nh);
 }
 
 template <typename C>
@@ -615,26 +661,17 @@ __device__ __forceinline__ void cell_velocity(const C f[Q], C rho, const C g[3],
   for (int d = 0; d < 3; ++d) u[d] = (m[d] + C(0.5) * F[d]) / rho_safe;
 }
 
-// Post-collision total PDF of one fluid cell and its recolouring terms:
-// the red post-collision population is frac * post_i + w_i e_i . (A, B, Cz).
-template <typename S, int L, typename C = typename Traits<S>::C>
-__device__ void collide_cell(const State<S>& st, const C* __restrict__ geo,
-                             const C* __restrict__ phi, const C* __restrict__ nrm,
-                             const Cg3dParams& P, int z, int y, int x, C post[Q], C& frac,
-                             C& A, C& B, C& Cz) {
-  const int nx = P.nx, ny = P.ny, nz = P.nz;
-  const size_t nxy = (size_t)ny * nx;
-  const size_t n = (size_t)nz * nxy;
-  const size_t k = (size_t)z * nxy + (size_t)y * nx + x;
-  Cell<C, L> c;
-  load_cell<S, L>(st, geo, P, z, y, x, c);
+// Post-collision total PDF of one fluid cell c (phase ph, colour gradient
+// g, curvature kappa) and its recolouring terms: the red post-collision
+// population is frac * post_i + w_i e_i . (A, B, Cz) (red_part).
+template <typename C, int L>
+__device__ __forceinline__ void collide_core(const Cell<C, L>& c, C ph, const C g[3], C kappa,
+                             const Cg3dParams& P, C post[Q], C& frac, C& A, C& B, C& Cz) {
   C f[Q], rr, rb;
   totals(c, f, rr, rb);
   const C rho = rr + rb;
-  const C ph = phi[k];
-  const C g[3] = {nrm[k], nrm[n + k], nrm[2 * n + k]};
   C F[3], u[3];
-  cell_velocity(f, rho, g, nrm[6 * n + k], P, F, u);
+  cell_velocity(f, rho, g, kappa, P, F, u);
   const C tau = tau_at(ph, rr, rb, P);
   const C pref = C(1) - C(0.5) / tau;
   const C uu = u[0] * u[0] + u[1] * u[1] + u[2] * u[2];
@@ -661,6 +698,32 @@ __device__ void collide_cell(const State<S>& st, const C* __restrict__ geo,
   } else {
     A = B = Cz = C(0);
   }
+}
+
+// The red part frac * o + w_j e_j . (A, B, Cz) of population j (value o)
+// of a cell with the recolouring terms frac, A, B, Cz (the T-step kernel's;
+// collide_stream_kernel forms the same sum inline from its shared-memory
+// ring: through this function, or an accessor form of it, the one-step
+// kernel needs more registers and runs slower on an H100).
+template <typename C>
+__device__ __forceinline__ C red_part(int j, C o, C frac, C A, C B, C Cz) {
+  const C seg = C(wq(j)) * (C(ex(j)) * A + C(ey(j)) * B + C(ez(j)) * Cz);
+  return frac * o + seg;
+}
+
+// collide_core at the fluid cell (z, y, x) of the global state.
+template <typename S, int L, typename C = typename Traits<S>::C>
+__device__ __forceinline__ void collide_cell(const State<S>& st, const C* __restrict__ geo,
+                             const C* __restrict__ phi, const C* __restrict__ nrm,
+                             const Cg3dParams& P, int z, int y, int x, C post[Q], C& frac,
+                             C& A, C& B, C& Cz) {
+  const size_t nxy = (size_t)P.ny * P.nx;
+  const size_t n = (size_t)P.nz * nxy;
+  const size_t k = (size_t)z * nxy + (size_t)y * P.nx + x;
+  Cell<C, L> c;
+  load_cell<S, L>(st, geo, P, z, y, x, c);
+  const C g[3] = {nrm[k], nrm[n + k], nrm[2 * n + k]};
+  collide_core(c, phi[k], g, nrm[6 * n + k], P, post, frac, A, B, Cz);
 }
 
 template <typename S, int L, typename C = typename Traits<S>::C>

@@ -1,0 +1,17 @@
+// Temporally blocked D3Q19 CSF step (K9-T) for NVIDIA Hopper (sm_90a),
+// f64 storage, for checks against the plain path at f64: built with
+// -fmad=false (kernels/build.py::EXTRA_FLAGS), so that it rounds as the
+// plain path does.  The C entry points; the design note and the device
+// code are in cg3d_block.cuh.
+//
+// cg3d_block_step(split, T, s_in, s2_in, s_out, s2_out, geo, scratch,
+// params, stream): T steps of the compressed state (split = 0, s_in ->
+// s_out) or of the split state (split = 1: f_r in s_in -> s_out, f_b in
+// s2_in -> s2_out); geo the (4, nz, ny, nx) geometry planes; scratch holds cg3d_block_scratch_bytes bytes.  Returns
+// a cudaError_t code (0 on success).  cg3d_block_shape fills shape[8]: tx,
+// ty, tz, the x / y halo, the z halo below and above, the blocks launched
+// and one window's bytes.
+
+#include "cg3d_block.cuh"
+
+CG3D_BLOCK_ENTRY_POINTS(double)

@@ -224,25 +224,18 @@ __device__ __forceinline__ void collide_single(const C F[Q], const Flow3dParams&
   }
 }
 
-// K10: the Shan-Chen collision of every fluid at one fluid cell from its
-// populations F: rho_pl holds rho_k at plane k * stride, self is the
-// cell's index there and nb(i) neighbour i's, which also indexes the
-// one-byte fluid mask fl (the one-step march's global planes, or the T-step
-// kernel's window).
+// The interaction sums gr[k] = sum_i w_i e_i rho_k(x + e_i) of K fluids
+// (rho_k at plane k * stride of rho_pl) and the static adhesion field adh =
+// sum_i w_i e_i solid(x + e_i) (in double), in i order, one pass over the
+// neighbours: nb(i) is neighbour i's index in rho_pl and in the one-byte
+// fluid mask fl.
 template <typename C, int K, typename Nb>
-__device__ __forceinline__ void sc_collide(const C* __restrict__ rho_pl, size_t stride,
-                                           size_t self, Nb nb,
-                                           const unsigned char* __restrict__ fl,
-                                           const C F[K][Q], const Flow3dParams& P,
-                                           C post[K][Q]) {
-  C rho[K], gr[K][3];
-  double adh[3] = {0.0, 0.0, 0.0};
+__device__ __forceinline__ void sc_sums(const C* __restrict__ rho_pl, size_t stride, Nb nb,
+                                        const unsigned char* __restrict__ fl, C gr[K][3],
+                                        double adh[3]) {
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
-    rho[k] = rho_pl[k * stride + self];
-    gr[k][0] = gr[k][1] = gr[k][2] = C(0);
-  }
-  // sum_i w_i e_i rho_j(x + e_i) and the adhesion field, in i order
+  for (int k = 0; k < K; ++k) gr[k][0] = gr[k][1] = gr[k][2] = C(0);
+  adh[0] = adh[1] = adh[2] = 0.0;
 #pragma unroll
   for (int i = 1; i < Q; ++i) {
     const size_t j = nb(i);
@@ -256,6 +249,48 @@ __device__ __forceinline__ void sc_collide(const C* __restrict__ rho_pl, size_t 
       for (int k = 0; k < K; ++k) gr[k][d] = gr[k][d] + C(wq(i) * e) * rho_pl[k * stride + j];
     }
   }
+}
+
+// The collision of one fluid (populations f, density rho) at the common
+// velocity up: SRT toward feq(u' + tau F / rho) with F = -rho (sum_j G_kj
+// gr_j + G_ks adh) + g rho over nf fluids; g(j) = G_kj, gr(j, d) fluid j's
+// interaction sum along d.
+template <typename C, typename G, typename Gr>
+__device__ __forceinline__ void sc_collide_fluid(const C f[Q], C rho, const C up[3], int nf,
+                                                 G g, Gr gr, double gs, double tau_d,
+                                                 const double adh[3], const double bf[3],
+                                                 C post[Q]) {
+  const C rs = rho > C(0) ? rho : C(1);
+  const C tau = C(tau_d);
+  C u[3];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    C gv = C(g(0)) * gr(0, d);
+    for (int j = 1; j < nf; ++j) gv = gv + C(g(j)) * gr(j, d);
+    const C force = -rho * (gv + C(gs) * C(adh[d])) + C(bf[d]) * rho;
+    u[d] = up[d] + tau * force / rs;
+  }
+  const C uu = u[0] * u[0] + u[1] * u[1] + u[2] * u[2];
+#pragma unroll
+  for (int i = 0; i < Q; ++i) post[i] = f[i] - (f[i] - feq_i(i, rho, u, uu)) / tau;
+}
+
+// K10: the Shan-Chen collision of every fluid at one fluid cell from its
+// populations F: rho_pl holds rho_k at plane k * stride, self is the
+// cell's index there and nb(i) neighbour i's, which also indexes the
+// one-byte fluid mask fl (the one-step march's global planes, or the T-step
+// kernel's window).
+template <typename C, int K, typename Nb>
+__device__ __forceinline__ void sc_collide(const C* __restrict__ rho_pl, size_t stride,
+                                           size_t self, Nb nb,
+                                           const unsigned char* __restrict__ fl,
+                                           const C F[K][Q], const Flow3dParams& P,
+                                           C post[K][Q]) {
+  C rho[K], gr[K][3];
+  double adh[3];
+#pragma unroll
+  for (int k = 0; k < K; ++k) rho[k] = rho_pl[k * stride + self];
+  sc_sums<C, K>(rho_pl, stride, nb, fl, gr, adh);
   // the common velocity u' (ops/macroscopic.py::sc_common_velocity)
   C den = C(0), num[3] = {C(0), C(0), C(0)};
 #pragma unroll
@@ -272,22 +307,10 @@ __device__ __forceinline__ void sc_collide(const C* __restrict__ rho_pl, size_t 
 #pragma unroll
   for (int d = 0; d < 3; ++d) up[d] = num[d] / den;
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const C rs = rho[k] > C(0) ? rho[k] : C(1);
-    const C tau = C(P.tau[k]);
-    C u[3];
-#pragma unroll
-    for (int d = 0; d < 3; ++d) {
-      C gv = C(P.g[k][0]) * gr[0][d];
-#pragma unroll
-      for (int j = 1; j < K; ++j) gv = gv + C(P.g[k][j]) * gr[j][d];
-      const C force = -rho[k] * (gv + C(P.gs[k]) * C(adh[d])) + C(P.bf[d]) * rho[k];
-      u[d] = up[d] + tau * force / rs;
-    }
-    const C uu = u[0] * u[0] + u[1] * u[1] + u[2] * u[2];
-#pragma unroll
-    for (int i = 0; i < Q; ++i) post[k][i] = F[k][i] - (F[k][i] - feq_i(i, rho[k], u, uu)) / tau;
-  }
+  for (int k = 0; k < K; ++k)
+    sc_collide_fluid(
+        F[k], rho[k], up, K, [&](int j) { return P.g[k][j]; },
+        [&](int j, int d) { return gr[j][d]; }, P.gs[k], P.tau[k], adh, P.bf, post[k]);
 }
 
 // K10 at the fluid cell (z, y, x) of the global state.

@@ -180,28 +180,33 @@ __device__ __forceinline__ void load_raw(const S* __restrict__ f, size_t n, size
   }
 }
 
-// Zou-He inlet row, per fluid (ops/boundaries.py::zou_he_velocity_top /
-// zou_he_pressure_top); unknowns f4, f7, f8.
+// Zou-He inlet row of one fluid (ops/boundaries.py::zou_he_velocity_top at
+// velocity v for kind 1, zou_he_pressure_top at density rho_t for kind 2);
+// unknowns f4, f7, f8.
+template <typename C>
+__device__ __forceinline__ void inlet_zou_he(C f[9], int kind, double v, double rho_t) {
+  const C d13 = C(0.5) * (f[1] - f[3]);
+  const C known = f[0] + f[1] + f[3] + C(2) * (f[2] + f[5] + f[6]);
+  if (kind == 1) {
+    const C vy = C(v);
+    const C rho = known / (C(1) + vy);
+    f[4] = f[2] - C(2.0 / 3.0) * rho * vy;
+    f[7] = f[5] + d13 - rho * vy / C(6);
+    f[8] = f[6] - d13 - rho * vy / C(6);
+  } else {
+    const C rt = C(rho_t);
+    const C rv = rt * (C(-1) + known / rt);
+    f[4] = f[2] - C(2.0 / 3.0) * rv;
+    f[7] = f[5] + d13 - rv / C(6);
+    f[8] = f[6] - d13 - rv / C(6);
+  }
+}
+
+// The inlet row of every fluid.
 template <typename C, int K>
 __device__ void apply_inlet(C F[K][9], const ScParams& P) {
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const C d13 = C(0.5) * (F[k][1] - F[k][3]);
-    const C known = F[k][0] + F[k][1] + F[k][3] + C(2) * (F[k][2] + F[k][5] + F[k][6]);
-    if (P.inlet == 1) {
-      const C vy = C(P.inlet_v[k]);
-      const C rho = known / (C(1) + vy);
-      F[k][4] = F[k][2] - C(2.0 / 3.0) * rho * vy;
-      F[k][7] = F[k][5] + d13 - rho * vy / C(6);
-      F[k][8] = F[k][6] - d13 - rho * vy / C(6);
-    } else {
-      const C rt = C(P.inlet_rho[k]);
-      const C rv = rt * (C(-1) + known / rt);
-      F[k][4] = F[k][2] - C(2.0 / 3.0) * rv;
-      F[k][7] = F[k][5] + d13 - rv / C(6);
-      F[k][8] = F[k][6] - d13 - rv / C(6);
-    }
-  }
+  for (int k = 0; k < K; ++k) inlet_zou_he(F[k], P.inlet, P.inlet_v[k], P.inlet_rho[k]);
 }
 
 // Zou-He pressure outlet row of one fluid (zou_he_pressure_bottom);
@@ -295,75 +300,129 @@ __device__ __forceinline__ void feq9(C rho, C ux, C uy, C feq[9]) {
   }
 }
 
-// Post-collision populations out[k] of every fluid at a fluid cell from
-// its populations F (after the inlet rows): psi_at(j, dx, dy) gives fluid
-// j's psi at the cell + (dx, dy) (dx = dy = 0: the cell's own); g1 ... g4
-// are the cell's geometry planes 1 ... 4 (SC: the adhesion vector in g1,
-// g2; EFS: fluid_vec, then the solid adsorption).
-template <typename C, int K, int ORDER, typename PsiAt>
-__device__ __forceinline__ void sc_collide(const C F[K][9], PsiAt psi_at, C g1, C g2, C g3,
-                                           C g4, const ScParams& P, C out_k[K][9]) {
-  constexpr int R = reach(ORDER);
-  C rho[K], mx[K], my[K], psi[K], vx[K], vy[K], fx[K], fy[K];
+// The momentum (mx, my) of one fluid's populations.
+template <typename C>
+__device__ __forceinline__ void momentum9(const C f[9], C& mx, C& my) {
+  C a = C(0), b = C(0);
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
-    rho[k] = sum9(F[k]);
-    C a = C(0), b = C(0);
-#pragma unroll
-    for (int i = 1; i < 9; ++i) {
-      if (ex(i)) a = a + C(ex(i)) * F[k][i];
-      if (ey(i)) b = b + C(ey(i)) * F[k][i];
-    }
-    mx[k] = a;
-    my[k] = b;
-    psi[k] = psi_at(k, 0, 0);
-    vx[k] = vy[k] = C(0);
+  for (int i = 1; i < 9; ++i) {
+    if (ex(i)) a = a + C(ex(i)) * f[i];
+    if (ey(i)) b = b + C(ey(i)) * f[i];
   }
-  // sum_dir w (dx, dy) psi_j(x + d) over the interaction stencil
+  mx = a;
+  my = b;
+}
+
+// One fluid's interaction sums sum_dir w (dx, dy) psi(x + d) over the
+// stencil; psi_at(dx, dy) reads the fluid's psi at the cell + (dx, dy).
+template <typename C, int ORDER, typename PsiAt>
+__device__ __forceinline__ void psi_sums(PsiAt psi_at, C& vx, C& vy) {
+  constexpr int R = reach(ORDER);
+  vx = vy = C(0);
 #pragma unroll
   for (int dy = -R; dy <= R; ++dy) {
 #pragma unroll
     for (int dx = -R; dx <= R; ++dx) {
       const double w = iso_w(ORDER, dx * dx + dy * dy);
       if (w == 0.0) continue;
-#pragma unroll
-      for (int j = 0; j < K; ++j) {
-        const C s = psi_at(j, dx, dy);
-        if (dx) vx[j] = vx[j] + C(w * dx) * s;
-        if (dy) vy[j] = vy[j] + C(w * dy) * s;
-      }
+      const C s = psi_at(dx, dy);
+      if (dx) vx = vx + C(w * dx) * s;
+      if (dy) vy = vy + C(w * dy) * s;
+    }
+  }
+}
+
+// The interaction force on fluid k (psi_k its psi, gs its G_ks) of a cell
+// with geometry planes g1 ... g4 (SC: the adhesion vector in g1, g2; EFS:
+// fluid_vec, then the solid adsorption), over nf fluids: g(j) = G_kj, v(j,
+// d) fluid j's interaction sum along d, psi(j) fluid j's psi at the cell.
+//   SC:  F_k = -psi_k (sum_j G_kj v_j + G_ks adh)
+//   EFS: F_k = -6 psi_k sum_j G_kj (v_j - psi_j fluid_vec) - G_ks psi_k adh_st
+template <typename C, int ORDER, typename G, typename V, typename Psi>
+__device__ __forceinline__ void sc_force(int nf, G g, V v, Psi psi, C psi_k, double gs, C g1,
+                                         C g2, C g3, C g4, C& fx, C& fy) {
+  C gx = C(0), gy = C(0);
+  for (int j = 0; j < nf; ++j) {
+    if constexpr (ORDER == 0) {
+      gx = gx + C(g(j)) * v(j, 0);
+      gy = gy + C(g(j)) * v(j, 1);
+    } else {
+      gx = gx + C(g(j)) * (v(j, 0) - psi(j) * g1);
+      gy = gy + C(g(j)) * (v(j, 1) - psi(j) * g2);
     }
   }
   if constexpr (ORDER == 0) {
-    // F_k = -psi_k (sum_j G_kj v_j + G_ks adh)
-    const C adx = g1, ady = g2;
+    fx = -psi_k * (gx + C(gs) * g1);
+    fy = -psi_k * (gy + C(gs) * g2);
+  } else {
+    fx = C(-6) * psi_k * gx - C(gs) * psi_k * g3;
+    fy = C(-6) * psi_k * gy - C(gs) * psi_k * g4;
+  }
+}
+
+// Post-collision populations `out` of one fluid (populations f, density
+// rho, force (fx, fy), relaxation time tau and 1/tau) at the common
+// velocity (ux0, uy0).
+template <typename C, int ORDER>
+__device__ __forceinline__ void sc_collide_fluid(const C f[9], C rho, C fx, C fy, C ux0, C uy0,
+                                                 double tau_d, double inv_tau, int mrt,
+                                                 C out[9]) {
+  const C rs = rho > C(0) ? rho : C(1);
+  const C tau = C(tau_d);
+  C feq[9];
+  if constexpr (ORDER == 0) {
+    // shift forcing: relax toward feq(u' + tau F / rho)
+    feq9(rho, ux0 + tau * fx / rs, uy0 + tau * fy / rs, feq);
+    if (mrt) {
+      mrt_relax(f, feq, C(inv_tau), out);
+    } else {
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      C gx = C(0), gy = C(0);
-#pragma unroll
-      for (int j = 0; j < K; ++j) {
-        gx = gx + C(P.g[k][j]) * vx[j];
-        gy = gy + C(P.g[k][j]) * vy[j];
-      }
-      fx[k] = -psi[k] * (gx + C(P.gs[k]) * adx);
-      fy[k] = -psi[k] * (gy + C(P.gs[k]) * ady);
+      for (int i = 0; i < 9; ++i) out[i] = f[i] - (f[i] - feq[i]) / tau;
     }
   } else {
-    // F_k = -6 psi_k sum_j G_kj (v_j - psi_j fluid_vec) - G_ks psi_k adh_st
-    const C fvx = g1, fvy = g2;
-    const C asx = g3, asy = g4;
+    // EDM update of the transformed PDF with the force PDF
+    // f^F_i = (F . (e_i - u)) feq_i 3 / rho
+    feq9(rho, ux0, uy0, feq);
+    C ff[9];
+    const C r3 = C(3) / rs;
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      C gx = C(0), gy = C(0);
+    for (int i = 0; i < 9; ++i)
+      ff[i] = (fx * (C(ex(i)) - ux0) + fy * (C(ey(i)) - uy0)) * feq[i] * r3;
+    if (mrt) {
+      C t[9], m[9];
 #pragma unroll
-      for (int j = 0; j < K; ++j) {
-        gx = gx + C(P.g[k][j]) * (vx[j] - psi[j] * fvx);
-        gy = gy + C(P.g[k][j]) * (vy[j] - psi[j] * fvy);
-      }
-      fx[k] = C(-6) * psi[k] * gx - C(P.gs[k]) * psi[k] * asx;
-      fy[k] = C(-6) * psi[k] * gy - C(P.gs[k]) * psi[k] * asy;
+      for (int i = 0; i < 9; ++i) t[i] = feq[i] - C(0.5) * ff[i];
+      mrt_relax(f, t, C(inv_tau), m);
+#pragma unroll
+      for (int i = 0; i < 9; ++i) out[i] = f[i] + (m[i] - f[i]) + ff[i];
+    } else {
+#pragma unroll
+      for (int i = 0; i < 9; ++i)
+        out[i] = f[i] + (feq[i] - f[i] - C(0.5) * ff[i]) / tau + ff[i];
     }
   }
+}
+
+// Post-collision populations out[k] of every fluid at a fluid cell from
+// its populations F (after the inlet rows): psi_at(j, dx, dy) gives fluid
+// j's psi at the cell + (dx, dy) (dx = dy = 0: the cell's own); g1 ... g4
+// are the cell's geometry planes 1 ... 4 (sc_force).
+template <typename C, int K, int ORDER, typename PsiAt>
+__device__ __forceinline__ void sc_collide(const C F[K][9], PsiAt psi_at, C g1, C g2, C g3,
+                                           C g4, const ScParams& P, C out_k[K][9]) {
+  C rho[K], mx[K], my[K], psi[K], v[K][2], fx[K], fy[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    rho[k] = sum9(F[k]);
+    momentum9(F[k], mx[k], my[k]);
+    psi[k] = psi_at(k, 0, 0);
+    psi_sums<C, ORDER>([&](int dx, int dy) { return psi_at(k, dx, dy); }, v[k][0], v[k][1]);
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    sc_force<C, ORDER>(
+        K, [&](int j) { return P.g[k][j]; }, [&](int j, int d) { return v[j][d]; },
+        [&](int j) { return psi[j]; }, psi[k], P.gs[k], g1, g2, g3, g4, fx[k], fy[k]);
   if (P.bfx != 0.0 || P.bfy != 0.0) {
 #pragma unroll
     for (int k = 0; k < K; ++k) {
@@ -387,43 +446,9 @@ __device__ __forceinline__ void sc_collide(const C F[K][9], PsiAt psi_at, C g1, 
   den = den != C(0) ? den : C(1);
   const C ux0 = numx / den, uy0 = numy / den;
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const C rs = rho[k] > C(0) ? rho[k] : C(1);
-    const C tau = C(P.tau[k]);
-    C feq[9];
-    C* out = out_k[k];
-    if constexpr (ORDER == 0) {
-      // shift forcing: relax toward feq(u' + tau F / rho)
-      feq9(rho[k], ux0 + tau * fx[k] / rs, uy0 + tau * fy[k] / rs, feq);
-      if (P.mrt) {
-        mrt_relax(F[k], feq, C(P.inv_tau[k]), out);
-      } else {
-#pragma unroll
-        for (int i = 0; i < 9; ++i) out[i] = F[k][i] - (F[k][i] - feq[i]) / tau;
-      }
-    } else {
-      // EDM update of the transformed PDF with the force PDF
-      // f^F_i = (F . (e_i - u)) feq_i 3 / rho
-      feq9(rho[k], ux0, uy0, feq);
-      C ff[9];
-      const C r3 = C(3) / rs;
-#pragma unroll
-      for (int i = 0; i < 9; ++i)
-        ff[i] = (fx[k] * (C(ex(i)) - ux0) + fy[k] * (C(ey(i)) - uy0)) * feq[i] * r3;
-      if (P.mrt) {
-        C t[9], m[9];
-#pragma unroll
-        for (int i = 0; i < 9; ++i) t[i] = feq[i] - C(0.5) * ff[i];
-        mrt_relax(F[k], t, C(P.inv_tau[k]), m);
-#pragma unroll
-        for (int i = 0; i < 9; ++i) out[i] = F[k][i] + (m[i] - F[k][i]) + ff[i];
-      } else {
-#pragma unroll
-        for (int i = 0; i < 9; ++i)
-          out[i] = F[k][i] + (feq[i] - F[k][i] - C(0.5) * ff[i]) / tau + ff[i];
-      }
-    }
-  }
+  for (int k = 0; k < K; ++k)
+    sc_collide_fluid<C, ORDER>(F[k], rho[k], fx[k], fy[k], ux0, uy0, P.tau[k], P.inv_tau[k],
+                               P.mrt, out_k[k]);
 }
 
 // Post-collision populations of every fluid at the fluid cell (cx, cy),

@@ -21,14 +21,16 @@ from pathlib import Path
 
 __all__ = ["load_library", "load_libraries", "build_seconds", "BUILD_DIR",
            "NVCC_FLAGS", "EXTRA_FLAGS", "LIBRARIES", "block_fns",
-           "launch_block", "block_tiling", "check_steps"]
+           "launch_block", "block_tiling", "check_steps", "launch_runtime_k"]
 
 # every library of csrc/: the CSF step, the coupled step, the Perturbation
 # step (f32 and bf16; f64 apart), and in three storage types each the
 # Shan-Chen step, the D3Q19 CSF step, the single-phase D2Q9 step, the D3Q19
-# single-phase and Shan-Chen steps, and the T-step (temporally blocked)
-# colour-gradient, Shan-Chen, single-phase D2Q9, coupled flow + tracer and
-# D3Q19 single-phase and Shan-Chen steps
+# single-phase and Shan-Chen steps; the T-step (temporally blocked)
+# colour-gradient, Shan-Chen, single-phase D2Q9, coupled flow + tracer,
+# D3Q19 single-phase and Shan-Chen and D3Q19 CSF steps; and the 2-D and
+# 3-D Shan-Chen steps for any number of fluids (all storage types in one
+# library each)
 LIBRARIES = ("csf2d", "coupled2d", "pert2d", "pert2d_f64", "sc2d_f64",
              "sc2d_f32", "sc2d_bf16", "cg3d_f64", "cg3d_f32", "cg3d_bf16",
              "single2d_f64", "single2d_f32", "single2d_bf16", "flow3d_f64",
@@ -38,7 +40,8 @@ LIBRARIES = ("csf2d", "coupled2d", "pert2d", "pert2d_f64", "sc2d_f64",
              "single2d_block_f32", "single2d_block_bf16",
              "coupled2d_block_f64", "coupled2d_block_f32",
              "coupled2d_block_bf16", "flow3d_block_f64", "flow3d_block_f32",
-             "flow3d_block_bf16")
+             "flow3d_block_bf16", "cg3d_block_f64", "cg3d_block_f32",
+             "cg3d_block_bf16", "sc2d_rt", "sc3d_rt")
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
@@ -52,7 +55,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 EXTRA_FLAGS = {name: ("-fmad=false",) for name in
                ("cg3d_f64", "single2d_f64", "flow3d_f64", "pert2d_f64",
                 "csf2d_block_f64", "sc2d_block_f64", "single2d_block_f64",
-                "coupled2d_block_f64", "flow3d_block_f64")}
+                "coupled2d_block_f64", "flow3d_block_f64",
+                "cg3d_block_f64", "sc2d_rt", "sc3d_rt")}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 # seconds spent compiling each library in this process (0.0 = reused)
@@ -188,6 +192,54 @@ def check_steps(steps) -> None:
     int."""
     if not isinstance(steps, int) or steps < 1:
         raise ValueError(f"steps {steps!r}: a positive int")
+
+
+# -- the runtime-K Shan-Chen libraries -----------------------------------------
+# sc2d_rt and sc3d_rt export <prefix>_rt_step(storage, T, f_in, f_out, aux,
+# scratch, table, params, stream), <prefix>_rt_scratch_bytes(storage,
+# params) and <prefix>_rt_error_string(code); storage 0 f64, 1 f32, 2 bf16.
+
+_RT_STORAGE = {"torch.float64": 0, "torch.float32": 1, "torch.bfloat16": 2}
+_rt_cache: dict[str, tuple] = {}
+
+
+def launch_runtime_k(lib: str, prefix: str, params_type, f, aux, table,
+                     params, steps: int):
+    """`steps` steps (one call) of a runtime-K library `lib` on the CUDA
+    state `f` (the step's checks done by the caller): `aux` the geometry
+    planes or fluid mask, `table` the per-fluid float64 table on the card.
+    Returns the new state; a failed launch raises."""
+    import torch
+
+    if lib not in _rt_cache:
+        so = load_library(lib)
+        block = ctypes.POINTER(params_type)
+        step = getattr(so, f"{prefix}_rt_step")
+        step.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + \
+            [block, ctypes.c_void_p]
+        step.restype = ctypes.c_int
+        scratch = getattr(so, f"{prefix}_rt_scratch_bytes")
+        scratch.argtypes = [ctypes.c_int, block]
+        scratch.restype = ctypes.c_longlong
+        err = getattr(so, f"{prefix}_rt_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        _rt_cache[lib] = (step, scratch, err)
+    step, scratch_bytes, err = _rt_cache[lib]
+    check_steps(steps)
+    code = _RT_STORAGE[str(f.dtype)]
+    f = f.contiguous()
+    out = torch.empty_like(f)
+    scratch = torch.empty(scratch_bytes(code, ctypes.byref(params)),
+                          dtype=torch.uint8, device=f.device)
+    with torch.cuda.device(f.device):
+        rc = step(code, steps, f.data_ptr(), out.data_ptr(), aux.data_ptr(),
+                  scratch.data_ptr(), table.data_ptr(), ctypes.byref(params),
+                  torch.cuda.current_stream(f.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{prefix}_rt_step launch failed: "
+                           f"{err(rc).decode()} ({rc})")
+    return out
 
 
 def load_libraries(names=LIBRARIES) -> dict[str, ctypes.CDLL]:

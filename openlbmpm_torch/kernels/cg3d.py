@@ -28,6 +28,14 @@ an f64 state, float32 with an f32 or bf16 one).
 ``cg3d_step_compressed(s, model)``, ``cg3d_step_split((f_r, f_b), model)``
 and ``coupled3d_step_compressed(s, g, model)`` take the plain version only
 for tensors on the CPU; for CUDA tensors they launch the kernel or raise.
+
+The T-step forms (K9-T: ``steps_per_call`` = T > 1 of the same TPU kernel,
+the boundary slabs applied inside the window before every sub-step) are
+``cg3d_block_compressed(s, model, steps)`` (K9-Tc on f32 / f64, K9-Th on
+the bf16 state, decoded once and encoded once) and
+``cg3d_block_split((f_r, f_b), model, steps)`` (K9-Ts): one launch of
+``csrc/cg3d_block_{f64,f32,bf16}.cu`` (``csrc/cg3d_block.cuh``) advances T
+steps; T is at most ``MAX_BLOCK_STEPS``.
 """
 
 from __future__ import annotations
@@ -47,7 +55,12 @@ __all__ = ["LIBRARIES", "Cg3dParams", "Tracer3dParams", "geo_stack3",
            "launch_cg3d", "launch_cg3d_split", "launch_cg3d_coupled",
            "cg3d_step_compressed", "cg3d_step_compressed_reference",
            "cg3d_step_split", "cg3d_step_split_reference",
-           "coupled3d_step_compressed", "coupled3d_step_compressed_reference"]
+           "coupled3d_step_compressed", "coupled3d_step_compressed_reference",
+           "BLOCK_LIBRARIES", "MAX_BLOCK_STEPS",
+           "cg3d_block_tiling",
+           "launch_cg3d_block", "cg3d_block_compressed",
+           "cg3d_block_compressed_reference", "cg3d_block_split",
+           "cg3d_block_split_reference"]
 
 _LIBS = {torch.float64: "cg3d_f64", torch.float32: "cg3d_f32",
          torch.bfloat16: "cg3d_bf16"}
@@ -390,3 +403,142 @@ def coupled3d_step_compressed_reference(s: torch.Tensor, g: torch.Tensor,
     """Plain PyTorch version of the coupled kernel, on any device: the
     model's ``plain_step_c``."""
     return model.plain_step_c((s, g))
+
+
+# -- T steps a launch (K9-T) -------------------------------------------------
+
+_BLOCK_LIBS = {torch.float64: "cg3d_block_f64",
+               torch.float32: "cg3d_block_f32",
+               torch.bfloat16: "cg3d_block_bf16"}
+BLOCK_LIBRARIES = tuple(_BLOCK_LIBS.values())
+MAX_BLOCK_STEPS = 8    # csrc/block3d.cuh::kMaxSteps3
+_BLOCK_TILING_KEYS = ("tx", "ty", "tz", "hx", "hzlo", "hzhi", "grid",
+                      "window_bytes")
+
+
+def _block_fns(lib: str):
+    """(step, scratch_bytes, shape, error_string) of a K9-T library: ints
+    (split, T), pointers (s, s2, out, out2, geo, scratch)."""
+    return build.block_fns(lib, "cg3d", 2, 6, Cg3dParams)
+
+
+def cg3d_block_tiling(dtype, split: bool, params: Cg3dParams,
+                      steps: int) -> dict:
+    """How a K9-T launch of `steps` steps tiles the domain of `params` for a
+    state of `dtype` (the split layout if `split`): the brick (tx, ty, tz),
+    the halo on each x and y side (hx) and below and above in z (hzlo,
+    hzhi), the blocks launched and one window's bytes (the windows live in
+    global scratch)."""
+    lib = _BLOCK_LIBS[dtype]
+    return build.block_tiling(lib, _block_fns(lib),
+                              (int(split), steps), params,
+                              _BLOCK_TILING_KEYS)
+
+
+def launch_cg3d_block(state, params: Cg3dParams, geo: torch.Tensor,
+                      steps: int):
+    """`steps` kernel steps (one launch) of a CUDA state: the compressed
+    tensor (as ``launch_cg3d`` takes it) or the split pair (f_r, f_b) (as
+    ``launch_cg3d_split``).  Returns the state in
+    the same form.  Not counted as a launch."""
+    build.check_steps(steps)
+    if steps > MAX_BLOCK_STEPS:
+        raise ValueError(f"steps {steps}: the kernel takes at most "
+                         f"{MAX_BLOCK_STEPS} a launch")
+    split = not torch.is_tensor(state)
+    if split:
+        f_r, f_b = state
+        shape = (19, params.nz, params.ny, params.nx)
+        for t in (f_r, f_b):
+            if t.dtype not in (torch.float32, torch.float64) or \
+                    tuple(t.shape) != shape or t.dtype != f_r.dtype:
+                raise ValueError(f"split state {tuple(f_r.shape)} "
+                                 f"{f_r.dtype}, {tuple(f_b.shape)} "
+                                 f"{f_b.dtype}; the kernel takes two {shape} "
+                                 "float32 or float64")
+        _check_domain(params, geo, f_r.dtype, f_r, f_b)
+        a, b = f_r.contiguous(), f_b.contiguous()
+        out = (torch.empty_like(a), torch.empty_like(b))
+        tensors = (a, b, *out, geo)
+    else:
+        _check_compressed(state, params, geo)
+        a = state.contiguous()
+        out = torch.empty_like(a)
+        tensors = (a, None, out, None, geo)
+    lib = _BLOCK_LIBS[a.dtype]
+    build.launch_block(lib, _block_fns(lib), (int(split), steps),
+                       tensors, params)
+    return out
+
+
+def _block_model(t: torch.Tensor, model, steps):
+    build.check_steps(steps)
+    _check_model_device(t, model)
+
+
+def cg3d_block_compressed(s: torch.Tensor, model, steps: int) -> torch.Tensor:
+    """`steps` compressed D3Q19 CSF steps (boundary slabs before each) for
+    `model`, a ColorGradientRK3D: the (20, nz, ny, nx) state in
+    ``model.dtype`` or the 21-plane bfloat16 state.  CPU tensor: the plain
+    version.  CUDA tensor: one launch of K9-Tc / K9-Th, or an error; never
+    the plain version."""
+    if s.device.type == "cpu":
+        return cg3d_block_compressed_reference(s, model, steps)
+    _block_model(s, model, steps)
+    if s.dtype not in (model.dtype, torch.bfloat16) or (
+            s.dtype == torch.bfloat16 and model.dtype != torch.float32):
+        raise ValueError(f"state {s.dtype}; the model takes {model.dtype} or, "
+                         "in float32 arithmetic, bfloat16")
+    out = launch_cg3d_block(s, model.kernel_params, model.geo_planes, steps)
+    cg3d_block_compressed.launches += 1
+    return out
+
+
+cg3d_block_compressed.launches = 0
+
+
+def cg3d_block_compressed_reference(s: torch.Tensor, model,
+                                    steps: int) -> torch.Tensor:
+    """Plain PyTorch version of K9-Tc / K9-Th, on any device: `steps` plain
+    compressed steps (``plain_step_c``); a bf16 state is decoded once,
+    stepped in float32 (its boundary slabs on the float32 values, as the
+    kernel applies them in its window) and encoded once."""
+    build.check_steps(steps)
+    bf16 = s.dtype == torch.bfloat16
+    x = model.unpack_bf16(s) if bf16 else s
+    for _ in range(steps):
+        x = model.plain_step_c(x)
+    return model.pack_compressed_bf16(x) if bf16 else x
+
+
+def cg3d_block_split(state, model, steps: int):
+    """`steps` split D3Q19 CSF steps (f_r, f_b) -> (f_r', f_b') (boundary
+    slabs before each) for `model`, a ColorGradientRK3D.  CPU tensors: the
+    plain version.  CUDA tensors: one launch of K9-Ts, or an error; never
+    the plain version."""
+    f_r, f_b = state
+    if f_r.device != f_b.device:
+        raise ValueError(f"f_r on device {f_r.device}, f_b on {f_b.device}")
+    if f_r.device.type == "cpu":
+        return cg3d_block_split_reference(state, model, steps)
+    _block_model(f_r, model, steps)
+    if f_r.dtype != model.dtype or f_b.dtype != model.dtype:
+        raise ValueError(f"split state {f_r.dtype}/{f_b.dtype}; the model "
+                         f"takes {model.dtype}")
+    out = launch_cg3d_block((f_r, f_b), model.kernel_params,
+                            model.geo_planes, steps)
+    cg3d_block_split.launches += 1
+    return out
+
+
+cg3d_block_split.launches = 0
+
+
+def cg3d_block_split_reference(state, model, steps: int):
+    """Plain PyTorch version of K9-Ts, on any device: `steps` plain split
+    steps (``plain_step``)."""
+    build.check_steps(steps)
+    state = tuple(state)
+    for _ in range(steps):
+        state = model.plain_step(state)
+    return state

@@ -4,11 +4,14 @@ wrappers, plain PyTorch versions and launch counts.
 Counterparts, at one step per call on one device, of
 ``openlbmpm_tpu/pallas/single3d.py::build_single3d_fused_step`` (SRT or TRT
 with the Guo body force) and ``openlbmpm_tpu/pallas/sc3d.py::
-build_sc3d_fused_step`` (K = 1 ... 3 fluids, psi = rho, the static
+build_sc3d_fused_step`` (any number of fluids, psi = rho, the static
 adhesion field, SRT toward the shifted-velocity equilibrium), both periodic
 in x, y and z with walls from the mask.  The device code is
 ``csrc/flow3d.cuh``, built as one library per storage type (``flow3d_f64``,
-``flow3d_f32``, ``flow3d_bf16``).
+``flow3d_f32``, ``flow3d_bf16``) and instantiated for K = 1 ... KMAX fluids;
+above KMAX, K10 and K10-T run the runtime-K instance ``csrc/sc3d_rt.cuh``
+(library ``sc3d_rt``), which loops over the fluids and reads their values
+from a device table (``sc3d_table``, the model's ``kernel_table``).
 
 States: (19, nz, ny, nx) and (K, 19, nz, ny, nx) in float32 / float64, or
 21 bfloat16 planes a fluid (the deviations f_i - w_i rho, then rho as a
@@ -38,15 +41,17 @@ from ..geometry import Geometry
 from ..lattice import D3Q19
 from . import build
 
-__all__ = ["LIBRARIES", "KMAX", "Flow3dParams", "geo_stack_sc3",
-           "single3d_params", "sc3d_params", "launch_single3d", "launch_sc3d",
+__all__ = ["LIBRARIES", "KMAX", "RT_LIBRARY", "Flow3dParams",
+           "geo_stack_sc3", "single3d_params", "sc3d_params", "sc3d_table",
+           "launch_single3d", "launch_sc3d",
            "single3d_step", "single3d_step_reference", "sc3d_step",
            "sc3d_step_reference", "BLOCK_LIBRARIES", "MAX_BLOCK_STEPS",
            "flow3d_block_tiling", "launch_flow3d_block",
            "single3d_block_step", "single3d_block_step_reference",
            "sc3d_block_step", "sc3d_block_step_reference"]
 
-KMAX = 3           # fluids K10 is instantiated for (1 ... KMAX)
+KMAX = 3           # fluids K10's templates are instantiated for
+RT_LIBRARY = "sc3d_rt"   # any number of fluids, f64 / f32 / bf16
 _LIBS = {torch.float64: "flow3d_f64", torch.float32: "flow3d_f32",
          torch.bfloat16: "flow3d_bf16"}
 LIBRARIES = tuple(_LIBS.values())
@@ -56,7 +61,9 @@ _D3 = ctypes.c_double * KMAX
 
 class Flow3dParams(ctypes.Structure):
     """Mirror of ``struct Flow3dParams`` in csrc/flow3d.cuh (same field
-    order)."""
+    order).  The per-fluid arrays hold up to KMAX fluids' values (filler
+    above KMAX fluids, whose values the runtime-K instance reads from
+    ``sc3d_table``)."""
     _fields_ = [
         ("nz", ctypes.c_int), ("ny", ctypes.c_int), ("nx", ctypes.c_int),
         ("k", ctypes.c_int),
@@ -108,22 +115,33 @@ def single3d_params(model) -> Flow3dParams:
 
 
 def sc3d_params(params, geometry: Geometry) -> Flow3dParams:
-    """K10's parameter block for a ShanChenParams3D and geometry; raises
+    """K10's parameter block for a ShanChenParams3D and geometry (any number
+    of fluids: above KMAX their values travel in ``sc3d_table``); raises
     NotImplementedError for a configuration it does not take."""
     k = params.num_fluids
-    if not 1 <= k <= KMAX or params.psi != "rho":
+    if k < 1 or params.psi != "rho":
         raise NotImplementedError(f"kernel: {k} fluids, psi {params.psi} (it "
-                                  f"takes 1 ... {KMAX} fluids, psi = rho)")
+                                  "takes psi = rho)")
     _check_domain(geometry)
     nz, ny, nx = geometry.shape
     g = np.zeros((KMAX, KMAX))
-    g[:k, :k] = np.asarray(params.g_matrix, np.float64)
-    tau = [float(t) for t in params.tau] + [1.0] * (KMAX - k)
-    gs = [float(v) for v in params.g_solid] + [0.0] * (KMAX - k)
+    tau, gs = [1.0] * KMAX, [0.0] * KMAX
+    if k <= KMAX:
+        g[:k, :k] = np.asarray(params.g_matrix, np.float64)
+        tau[:k] = [float(t) for t in params.tau]
+        gs[:k] = [float(v) for v in params.g_solid]
     return Flow3dParams(
         nz=nz, ny=ny, nx=nx, k=k, collision=0, force=0, tau=_D3(*tau),
         g=(_D3 * KMAX)(*(_D3(*row) for row in g)), gs=_D3(*gs),
         bf=(ctypes.c_double * 3)(*(float(v) for v in params.body_force)))
+
+
+def sc3d_table(params) -> np.ndarray:
+    """The runtime-K instance's per-fluid table (float64, csrc/sc3d_rt.cuh::
+    Sc3Table): tau, G_ks (K values each), then G (K x K, row-major)."""
+    return np.concatenate([np.asarray(params.tau, np.float64),
+                           np.asarray(params.g_solid, np.float64),
+                           np.asarray(params.g_matrix, np.float64).ravel()])
 
 
 _fn_cache: dict[str, tuple] = {}
@@ -182,13 +200,29 @@ def launch_single3d(f: torch.Tensor, params: Flow3dParams,
     return out
 
 
-def launch_sc3d(f: torch.Tensor, params: Flow3dParams,
-                fluid: torch.Tensor) -> torch.Tensor:
+def _launch_rt(f: torch.Tensor, params: Flow3dParams, fluid: torch.Tensor,
+               table, steps: int) -> torch.Tensor:
+    """`steps` steps of the runtime-K instance (one call) on `table`
+    (``sc3d_table`` as a float64 tensor on the card)."""
+    k = params.k
+    if table is None or table.dtype != torch.float64 or \
+            table.device != f.device or table.numel() != 2 * k + k * k:
+        raise ValueError(f"{k} fluids need their float64 sc3d_table on "
+                         f"{f.device}")
+    return build.launch_runtime_k(RT_LIBRARY, "sc3d", Flow3dParams, f, fluid,
+                                  table, params, steps)
+
+
+def launch_sc3d(f: torch.Tensor, params: Flow3dParams, fluid: torch.Tensor,
+                table: torch.Tensor | None = None) -> torch.Tensor:
     """One K10 step of the CUDA state `f`: (K, 19, nz, ny, nx) float32 or
     float64, or (K, 21, nz, ny, nx) bfloat16; `fluid` the (nz, ny, nx) uint8
-    mask.  Not counted as a launch."""
+    mask; above KMAX fluids the runtime-K instance on `table`.  Not counted
+    as a launch."""
     grid = (params.nz, params.ny, params.nx)
     _check(f, (params.k, _planes(f), *grid), fluid, params)
+    if params.k > KMAX:
+        return _launch_rt(f, params, fluid, table, 1)
     _, sc, err = _kernel_fn(_LIBS[f.dtype])
     f = f.contiguous()
     out = torch.empty_like(f)
@@ -243,7 +277,8 @@ def sc3d_step(f: torch.Tensor, model) -> torch.Tensor:
     if f.device.type == "cpu":
         return sc3d_step_reference(f, model)
     _kernel_state(f, model, "D3Q19 Shan-Chen")
-    out = launch_sc3d(f, model.kernel_params, model.fluid_u8)
+    out = launch_sc3d(f, model.kernel_params, model.fluid_u8,
+                      model.kernel_table)
     sc3d_step.launches += 1
     return out
 
@@ -280,21 +315,30 @@ def flow3d_block_tiling(dtype, kind: str, params: Flow3dParams,
     """How a K11-T (`kind` "single") or K10-T ("sc") launch of `steps` steps
     tiles the domain of `params` for a state of `dtype`: the brick (tx, ty,
     tz), the halo on every side, whether the windows live in global scratch
-    (gmem), the blocks launched, one window's bytes and the largest T."""
+    (gmem), the blocks launched, one window's bytes and the largest T.  The
+    runtime-K instance (above KMAX fluids) has no tiling."""
+    if kind == "sc" and params.k > KMAX:
+        raise ValueError(f"{params.k} fluids run the runtime-K instance, "
+                         "which has no window tiling")
     lib = _BLOCK_LIBS[dtype]
     return build.block_tiling(lib, _block_fns(lib), (_KIND[kind], steps),
                               params, _TILING_KEYS)
 
 
 def launch_flow3d_block(f: torch.Tensor, params: Flow3dParams,
-                        fluid: torch.Tensor, kind: str,
-                        steps: int) -> torch.Tensor:
-    """`steps` kernel steps (one launch) of the CUDA state `f`: K11-T (`kind`
+                        fluid: torch.Tensor, kind: str, steps: int,
+                        table: torch.Tensor | None = None) -> torch.Tensor:
+    """`steps` kernel steps (one call) of the CUDA state `f`: K11-T (`kind`
     "single", as ``launch_single3d`` takes it) or K10-T ("sc", as
-    ``launch_sc3d``).  Not counted as a launch."""
+    ``launch_sc3d``; above KMAX fluids the runtime-K instance on `table`,
+    which runs the steps one after another in the compute type, decoding
+    once and encoding once).  Not counted as a launch."""
     grid = (params.nz, params.ny, params.nx)
     lead = () if kind == "single" else (params.k,)
     _check(f, (*lead, _planes(f), *grid), fluid, params)
+    build.check_steps(steps)
+    if kind == "sc" and params.k > KMAX:
+        return _launch_rt(f, params, fluid, table, steps)
     if steps > MAX_BLOCK_STEPS:
         raise ValueError(f"steps {steps}: the kernel takes at most "
                          f"{MAX_BLOCK_STEPS} a launch")
@@ -363,7 +407,7 @@ def sc3d_block_step(f: torch.Tensor, model, steps: int) -> torch.Tensor:
         return sc3d_block_step_reference(f, model, steps)
     _block_state(f, model, steps, "D3Q19 Shan-Chen")
     out = launch_flow3d_block(f, model.kernel_params, model.fluid_u8, "sc",
-                              steps)
+                              steps, model.kernel_table)
     sc3d_block_step.launches += 1
     return out
 

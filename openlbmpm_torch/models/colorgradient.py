@@ -147,7 +147,8 @@ class ColorGradientRK(nn.Module):
     def __init__(self, geometry: Geometry,
                  params: ColorGradientParams = ColorGradientParams(),
                  boundaries: CGBoundaryConfig = CGBoundaryConfig(),
-                 dtype=torch.float32, device="cuda", storage: str = "f32"):
+                 dtype=torch.float32, device="cuda", storage: str = "f32",
+                 use_kernel: bool = True):
         super().__init__()
         if params.variant not in ("CSF", "Perturbation"):
             raise ValueError(f"variant {params.variant!r}: CSF | Perturbation")
@@ -190,8 +191,9 @@ class ColorGradientRK(nn.Module):
         self._phi_repair = (boundaries.outlet == "dirichlet"
                             and boundaries.phi_outlet_repair)
         plain_bcs = boundaries.outlet in PLAIN_OUTLETS
+        self.use_kernel = bool(use_kernel)
         self.path = "kernel" if dev.type == "cuda" and not plain_bcs \
-            else "plain"
+            and self.use_kernel else "plain"
         self.kernel_params = None if plain_bcs else \
             kernel_params(params, boundaries, geometry)
         self._split_error = bc.split_inlet_density_error(
@@ -629,7 +631,10 @@ class ColorGradientRK(nn.Module):
 
     def _step_impl_c(self, s):
         """The kernel on a CUDA state (K1/K2 for CSF, K4c/K4h for
-        Perturbation), the plain step on a CPU one."""
+        Perturbation), the plain step on a CPU one or with
+        ``use_kernel=False``."""
+        if not self.use_kernel:
+            return self.plain_step_c(s)
         self.check_compressed()
         fn = csf_step_compressed if self.p.variant == "CSF" \
             else pert_step_compressed
@@ -656,13 +661,14 @@ class ColorGradientRK(nn.Module):
         Returns None where the JAX build function builds no kernel on
         grounds of physics or boundaries: an inlet outside periodic / neumann /
         dirichlet or an outlet outside periodic / convective / dirichlet
-        (csf.py:274-278), and bf16 storage on the split layout (:243-245).
-        ``rows_per_block``, ``interpret`` and ``substep_unroll`` tune the
-        TPU kernel's strips and are ignored; no shape is refused."""
+        (csf.py:274-278), and bf16 storage on the split layout (:243-245);
+        None too with ``use_kernel=False``.  ``rows_per_block``,
+        ``interpret`` and ``substep_unroll`` tune the TPU kernel's strips
+        and are ignored; no shape is refused."""
         del rows_per_block, interpret, substep_unroll
         t = block_args(steps_per_call, storage)
         if self.bcs.inlet not in BLOCK_INLETS or \
-                self.bcs.outlet not in BLOCK_OUTLETS:
+                self.bcs.outlet not in BLOCK_OUTLETS or not self.use_kernel:
             return None
         if storage == "bf16" and not compressed:
             return None

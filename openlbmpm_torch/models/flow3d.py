@@ -13,12 +13,14 @@ TRT.  ``ShanChenMCMP3D`` (state (K, 19, nz, ny, nx)) is the original
 Shan-Chen scheme with psi = rho: the D3Q19-weight interaction force plus
 the static adhesion field and the body force, the common velocity u' and
 per fluid SRT toward feq(u' + tau_k F_k / rho_k); on a card ``step`` is
-K10 for psi = "rho" and K <= 3.  Both store 21 bfloat16 planes a fluid
-under ``storage="bf16"`` (kernel configurations only).  Their
-``make_block_step`` gives T steps a call: on a card one launch of K11-T /
-K10-T, on the CPU T plain steps.  ``path`` is decided in the constructor as
-the JAX build functions decide whether they return a kernel; a kernel that
-fails to build or launch raises.
+K10 for psi = "rho" and any number of fluids (above three the runtime-K
+instance).  Both store 21 bfloat16 planes a fluid under ``storage="bf16"``
+(kernel configurations only).  Their ``make_block_step`` gives T steps a
+call: on a card one launch of K11-T / K10-T, on the CPU T plain steps.
+``path`` is decided in the constructor as the JAX build functions decide
+whether they return a kernel; a kernel that fails to build or launch
+raises.  Every model takes ``use_kernel=False`` (the JAX ``use_pallas=
+False``): the plain step on every device, and no ``make_block_step``.
 
 The colour-gradient flow runs along -z: the inlet is the top z slabs, the
 outlet the bottom ones.  Two state layouts:
@@ -63,11 +65,12 @@ from torch import nn
 
 from .._device import resolve_device, resolve_dtype
 from ..geometry import Geometry
-from ..kernels.cg3d import (cg3d_step_compressed, cg3d_step_split,
+from ..kernels.cg3d import (cg3d_block_compressed, cg3d_block_split,
+                            cg3d_step_compressed, cg3d_step_split,
                             coupled3d_step_compressed, geo_stack3,
                             kernel_params, tracer3d_params, tracer3d_table)
-from ..kernels.flow3d import (KMAX, geo_stack_sc3, sc3d_block_step,
-                              sc3d_params, sc3d_step, single3d_block_step,
+from ..kernels.flow3d import (geo_stack_sc3, sc3d_block_step, sc3d_params,
+                              sc3d_step, sc3d_table, single3d_block_step,
                               single3d_params, single3d_step)
 from ..lattice import D3Q7, D3Q19
 from ..ops import collision as col
@@ -78,7 +81,7 @@ from ..ops import transport as tr
 from ..ops.common import shift
 from ..ops.forcing import guo_source
 from ..ops.streaming import stream, upwind_solid_masks
-from .base import kernel_block_step
+from .base import block_args, kernel_block_step, t_step
 from .transport import _per_tracer
 
 __all__ = ["SinglePhaseD3Q19", "ShanChenParams3D", "ShanChenMCMP3D",
@@ -127,11 +130,13 @@ class SinglePhaseD3Q19(nn.Module):
     def __init__(self, geometry: Geometry, tau: float = 1.0,
                  collision: Literal["SRT", "TRT"] = "SRT",
                  body_force=(0.0, 0.0, 0.0), dtype=torch.float32,
-                 device="cuda", storage: str = "f32"):
+                 device="cuda", storage: str = "f32",
+                 use_kernel: bool = True):
         super().__init__()
         dtype = resolve_dtype(dtype)
         dev = resolve_device(device)
-        fused = collision in ("SRT", "TRT")
+        self.use_kernel = bool(use_kernel)
+        fused = self.use_kernel and collision in ("SRT", "TRT")
         _check_storage(storage, dtype, fused)
         self.lat = D3Q19
         self.geo = geometry
@@ -228,11 +233,12 @@ class SinglePhaseD3Q19(nn.Module):
         steps.  T = 1 with the model's own storage gives ``step``.
 
         Returns None for a collision outside SRT / TRT (single3d.py:58-59),
-        so "MRT", which the step runs as TRT, has none.
-        ``slabs_per_block`` and ``interpret`` tune the TPU kernel and are
-        ignored."""
+        so "MRT", which the step runs as TRT, has none, and with
+        ``use_kernel=False``.  ``slabs_per_block`` and ``interpret`` tune
+        the TPU kernel and are ignored."""
         del slabs_per_block, interpret
         return kernel_block_step(self, steps_per_call, storage,
+                                 self.use_kernel and
                                  self.collision in ("SRT", "TRT"),
                                  single3d_block_step)
 
@@ -256,10 +262,11 @@ class ShanChenMCMP3D(nn.Module):
     forcing).  State: f (K, 19, nz, ny, nx).  The force uses psi = rho
     whatever ``params.psi`` says, as the JAX model does; K10 takes
     psi = "rho" only (the JAX build function returns no kernel
-    otherwise)."""
+    otherwise), and any number of fluids."""
 
     def __init__(self, geometry: Geometry, params: ShanChenParams3D,
-                 dtype=torch.float32, device="cuda", storage: str = "f32"):
+                 dtype=torch.float32, device="cuda", storage: str = "f32",
+                 use_kernel: bool = True):
         super().__init__()
         k = params.num_fluids
         if np.asarray(params.g_matrix).shape != (k, k) or \
@@ -268,7 +275,8 @@ class ShanChenMCMP3D(nn.Module):
                              "values")
         dtype = resolve_dtype(dtype)
         dev = resolve_device(device)
-        fused = params.psi == "rho" and k <= KMAX
+        self.use_kernel = bool(use_kernel)
+        fused = self.use_kernel and params.psi == "rho"
         _check_storage(storage, dtype, fused)
         self.lat = D3Q19
         self.geo = geometry
@@ -290,8 +298,11 @@ class ShanChenMCMP3D(nn.Module):
             self.tau, dtype=dtype, device=dev).reshape(-1, 1, 1, 1))
         self.path = "kernel" if fused and dev.type == "cuda" else "plain"
         self.kernel_params = None
+        self.register_buffer("kernel_table", None)
         if self.path == "kernel":
             self.kernel_params = sc3d_params(params, geometry)
+            self.kernel_table = torch.as_tensor(
+                sc3d_table(params), dtype=torch.float64, device=dev)
             self.register_buffer("fluid_u8", torch.as_tensor(
                 geometry.is_fluid, dtype=torch.uint8, device=dev))
 
@@ -388,13 +399,12 @@ class ShanChenMCMP3D(nn.Module):
         bfloat16 state (decoded once and encoded once a call); on the CPU T
         plain steps.  T = 1 with the model's own storage gives ``step``.
 
-        Returns None for psi other than "rho" (sc3d.py:106-107) and, as the
-        one-step path, for more than KMAX fluids (the kernel's instances).
-        ``slabs_per_block`` and ``interpret`` tune the TPU kernel and are
-        ignored."""
+        Returns None for psi other than "rho" (sc3d.py:106-107) and with
+        ``use_kernel=False``.  ``slabs_per_block`` and ``interpret`` tune the
+        TPU kernel and are ignored."""
         del slabs_per_block, interpret
         return kernel_block_step(self, steps_per_call, storage,
-                                 self.p.psi == "rho" and self.k <= KMAX,
+                                 self.use_kernel and self.p.psi == "rho",
                                  sc3d_block_step)
 
     def macro(self, f):
@@ -492,12 +502,14 @@ class ColorGradientRK3D(nn.Module):
     bfloat16 state of ``pack_state_bf16`` (float32 arithmetic).  The
     geometry planes (``geo_stack3``: code, n_s) live as buffers on
     ``device``, in float32 under bf16 storage.  ``path`` is "kernel" on a
-    card and "plain" on the CPU: every configuration takes the kernel.
+    card and "plain" on the CPU or with ``use_kernel=False``: every
+    configuration takes the kernel.
     """
 
     def __init__(self, geometry: Geometry, params: ColorGradientParams3D,
                  boundaries: CG3DBoundaryConfig = CG3DBoundaryConfig(),
-                 dtype=torch.float32, device="cuda", storage: str = "f32"):
+                 dtype=torch.float32, device="cuda", storage: str = "f32",
+                 use_kernel: bool = True):
         super().__init__()
         if boundaries.inlet not in ("periodic", "velocity"):
             raise ValueError(f"inlet {boundaries.inlet!r}: periodic | "
@@ -521,7 +533,9 @@ class ColorGradientRK3D(nn.Module):
         self.storage = storage
         self.kernel_params = kernel_params(params, boundaries, geometry)
         self.has_wetting = bool(self.kernel_params.has_wetting)
-        self.path = "kernel" if dev.type == "cuda" else "plain"
+        self.use_kernel = bool(use_kernel)
+        self.path = "kernel" if self.use_kernel and dev.type == "cuda" \
+            else "plain"
         # the red phase's contact angle; the Akai rotation constrains the
         # into-blue normal, so its cosine flips
         theta = math.radians(params.contact_angle_deg)
@@ -723,7 +737,10 @@ class ColorGradientRK3D(nn.Module):
 
     def step(self, state):
         """One time step of the split state (f_r, f_b): the kernel on a
-        CUDA state, the plain step on a CPU one."""
+        CUDA state, the plain step on a CPU one or with
+        ``use_kernel=False``."""
+        if not self.use_kernel:
+            return self.plain_step(tuple(state))
         return cg3d_step_split(tuple(state), self)
 
     def macro(self, state):
@@ -842,8 +859,43 @@ class ColorGradientRK3D(nn.Module):
         return self._encode_like(self._physics_c(self._post_slabs_c(s)), s)
 
     def step_c(self, s):
-        """One time step of the compressed state (layout per ``storage``)."""
+        """One time step of the compressed state (layout per ``storage``):
+        the kernel on a CUDA state, the plain step on a CPU one or with
+        ``use_kernel=False``."""
+        if not self.use_kernel:
+            return self.plain_step_c(s)
         return cg3d_step_compressed(s, self)
+
+    def make_block_step(self, steps_per_call: int = 2,
+                        slabs_per_block: int | None = None,
+                        interpret: bool = False, *, compressed: bool = False,
+                        storage: str = "f32"):
+        """A step that advances ``steps_per_call`` = T time steps a call (the
+        JAX ``make_block_step``, which builds the split form): on a card one
+        launch of K9-T, the boundary slabs applied before every sub-step --
+        by default on the split state (f_r, f_b) (K9-Ts,
+        ``kernels/cg3d.py::cg3d_block_split``), with ``compressed=True`` on
+        the (20, nz, ny, nx) state (K9-Tc, ``cg3d_block_compressed``), and
+        with ``storage="bf16"`` as well on the 21-plane bfloat16 state
+        (K9-Th, decoded once and encoded once a call); on the CPU T plain
+        steps.  T = 1 with the model's own storage gives ``step`` /
+        ``step_c``.
+
+        Returns None where the JAX builder refuses on grounds of layout:
+        bf16 on the split state (pallas/cg3d.py:196-197); the boundary kinds
+        it refuses (:222-226) the constructor refuses already.  None too
+        with ``use_kernel=False``.  ``slabs_per_block`` and ``interpret``
+        tune the TPU kernel and are ignored."""
+        del slabs_per_block, interpret
+        t = block_args(steps_per_call, storage)
+        if (storage == "bf16" and not compressed) or not self.use_kernel:
+            return None
+        if storage == "bf16" and self.dtype != torch.float32:
+            raise ValueError("storage='bf16' computes in float32")
+        if t == 1 and storage == self.storage:
+            return self.step_c if compressed else self.step
+        return t_step(cg3d_block_compressed if compressed else
+                      cg3d_block_split, self, t)
 
     def macro_compressed(self, s):
         """``macro`` of a compressed state (either layout)."""
@@ -936,21 +988,22 @@ class TransportD3Q7(nn.Module):
 
 class TransportRK3D(nn.Module):
     """Coupled D3Q19 CSF flow + D3Q7 tracer transport: the JAX package's
-    constructor arguments, plus ``device`` and ``storage`` (the flow's; the
-    tracer PDFs stay in ``dtype``).  ``flow`` is the ColorGradientRK3D,
-    ``transport`` the TransportD3Q7.  ``path`` is the compressed step's:
-    "kernel" on a card, "plain" on the CPU; the split step is plain
-    everywhere."""
+    constructor arguments, plus ``device``, ``storage`` (the flow's; the
+    tracer PDFs stay in ``dtype``) and ``use_kernel``.  ``flow`` is the
+    ColorGradientRK3D, ``transport`` the TransportD3Q7.  ``path`` is the
+    compressed step's: "kernel" on a card, "plain" on the CPU or with
+    ``use_kernel=False``; the split step is plain everywhere."""
 
     def __init__(self, geometry: Geometry, flow_params: ColorGradientParams3D,
                  num_tracers: int = 1, tau=(1.0,), j0=(0.25,),
                  criteria: float = 0.5, interface_mode: str = "bounceback",
                  dtype=torch.float32, boundaries=None, device="cuda",
-                 storage: str = "f32"):
+                 storage: str = "f32", use_kernel: bool = True):
         super().__init__()
         self.flow = ColorGradientRK3D(
             geometry, flow_params, boundaries or CG3DBoundaryConfig(),
-            dtype=dtype, device=device, storage=storage)
+            dtype=dtype, device=device, storage=storage,
+            use_kernel=use_kernel)
         self.transport = TransportD3Q7(geometry, num_tracers, tau, j0,
                                        criteria, interface_mode,
                                        dtype=self.flow.dtype,
@@ -1021,6 +1074,8 @@ class TransportRK3D(nn.Module):
 
     def step_c(self, state):
         """One compressed coupled step of (s, g): the kernel on a CUDA
-        state, the plain step on a CPU one."""
+        state, the plain step on a CPU one or with ``use_kernel=False``."""
         s, g = state
+        if not self.flow.use_kernel:
+            return self.plain_step_c((s, g))
         return coupled3d_step_compressed(s, g, self)

@@ -44,7 +44,7 @@ from torch import nn
 
 from .._device import resolve_device, resolve_dtype
 from ..geometry import Geometry
-from ..kernels.shanchen import (geo_stack, kernel_params,
+from ..kernels.shanchen import (fluid_table, geo_stack, kernel_params,
                                 sc_block_step, sc_step)
 from ..lattice import D2Q9
 from ..ops import boundaries as bc
@@ -131,12 +131,15 @@ def zero_pressure_target_error(bcs: SCBoundaryConfig, k: int) -> str | None:
 
 
 def takes_kernel(params: ShanChenParams, bcs: SCBoundaryConfig,
-                 moving_wall: bool) -> bool:
+                 moving_wall: bool, shape=None) -> bool:
     """Whether K8 runs the configuration on a card: what the JAX fused
     builder takes (shift forcing, Zou-He or convective rows, no moving
-    wall)."""
+    wall, any number of fluids), on a domain of `shape` (ny, nx) of at
+    least 8 x 3 (below 8 rows the JAX builder finds no strip of rows and
+    returns None; the kernel's outlet rows need 8)."""
     return (not moving_wall and params.forcing == "shift"
-            and bcs.inlet in KERNEL_INLETS and bcs.outlet in KERNEL_OUTLETS)
+            and bcs.inlet in KERNEL_INLETS and bcs.outlet in KERNEL_OUTLETS
+            and (shape is None or (shape[0] >= 8 and shape[1] >= 3)))
 
 
 def _per_fluid(values, k: int) -> tuple:
@@ -155,13 +158,16 @@ class ShanChenMCMP(nn.Module):
     ``moving_wall_mask`` (bool (ny, nx), a subset of the solid nodes) moves
     those walls at ``wall_velocity`` (link bounce-back with each fluid's
     own density).  Geometry planes live as buffers on ``device``.
+    ``use_kernel=False`` (the JAX ``use_pallas=False``) runs the plain step
+    on every device.
     """
 
     def __init__(self, geometry: Geometry, params: ShanChenParams,
                  boundaries: SCBoundaryConfig = SCBoundaryConfig(),
                  dtype=torch.float32, device="cuda", storage: str = "f32",
                  moving_wall_mask: np.ndarray | None = None,
-                 wall_velocity: tuple[float, float] = (0.0, 0.0)):
+                 wall_velocity: tuple[float, float] = (0.0, 0.0),
+                 use_kernel: bool = True):
         super().__init__()
         p, b = params, boundaries
         k = p.num_fluids
@@ -239,14 +245,18 @@ class ShanChenMCMP(nn.Module):
         buf("outlet_density", np.reshape(_per_fluid(b.outlet_density, k),
                                          (-1, 1)))
 
-        fused = takes_kernel(p, b, moving is not None)
+        self.use_kernel = bool(use_kernel)
+        fused = self.use_kernel and takes_kernel(p, b, moving is not None,
+                                                 geometry.shape)
         if storage == "bf16" and not fused:
             raise ValueError("storage='bf16' is a kernel layout: this "
                              "configuration runs the plain step only")
         self.path = "kernel" if fused and dev.type == "cuda" else "plain"
         self.kernel_params = None
+        self.register_buffer("kernel_table", None)
         if self.path == "kernel":
             self.kernel_params = kernel_params(p, b, geometry)
+            buf("kernel_table", fluid_table(p, b), torch.float64)
             buf("geo_planes", geo_stack(geometry, p),
                 torch.float32 if storage == "bf16" else dtype)
 
@@ -530,12 +540,14 @@ class ShanChenMCMP(nn.Module):
         steps.  T = 1 with the model's own storage gives ``step``.
 
         Returns None for a moving wall, for ``forcing`` other than "shift"
-        (the JAX ``make_block_step``, shanchen.py:223-226) and for row kinds
-        the kernel does not take (pallas/shanchen.py:153-156):
-        ``takes_kernel``.  ``rows_per_block`` and ``interpret`` tune the TPU
-        kernel and are ignored."""
+        (the JAX ``make_block_step``, shanchen.py:223-226), for row kinds
+        the kernel does not take (pallas/shanchen.py:153-156) and below 8 x
+        3 (``takes_kernel``), and with ``use_kernel=False``.
+        ``rows_per_block`` and ``interpret`` tune the TPU kernel and are
+        ignored."""
         del rows_per_block, interpret
-        takes = takes_kernel(self.p, self.bcs, self.upwind_moving is not None)
+        takes = self.use_kernel and takes_kernel(
+            self.p, self.bcs, self.upwind_moving is not None, self.geo.shape)
         return kernel_block_step(self, steps_per_call, storage, takes,
                                  sc_block_step)
 

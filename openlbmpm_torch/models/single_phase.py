@@ -96,7 +96,9 @@ class SinglePhaseD2Q9(nn.Module):
     the (9, ny, nx) state; ``storage="bf16"`` steps the (11, ny, nx)
     bfloat16 state in float32 arithmetic (kernel configurations only).
     ``moving_wall_mask`` (bool (ny, nx), a subset of the solid nodes)
-    moves those walls at ``wall_velocity`` (link bounce-back)."""
+    moves those walls at ``wall_velocity`` (link bounce-back).
+    ``use_kernel=False`` (the JAX ``use_pallas=False``) runs the plain step
+    on every device."""
 
     def __init__(self, geometry: Geometry, tau: float = 1.0,
                  collision: Literal["SRT", "TRT", "MRT"] = "SRT",
@@ -104,7 +106,8 @@ class SinglePhaseD2Q9(nn.Module):
                  boundaries: BoundaryConfig = BoundaryConfig(),
                  dtype=torch.float32, device="cuda", storage: str = "f32",
                  moving_wall_mask: np.ndarray | None = None,
-                 wall_velocity: tuple[float, float] = (0.0, 0.0)):
+                 wall_velocity: tuple[float, float] = (0.0, 0.0),
+                 use_kernel: bool = True):
         super().__init__()
         if collision not in ("SRT", "TRT", "MRT"):
             raise ValueError(f"collision {collision!r}: SRT | TRT | MRT")
@@ -141,7 +144,8 @@ class SinglePhaseD2Q9(nn.Module):
                                      device=dev)
         self.register_buffer("upwind_moving", moving)
 
-        fused = takes_kernel(boundaries, moving is not None)
+        self.use_kernel = bool(use_kernel)
+        fused = self.use_kernel and takes_kernel(boundaries, moving is not None)
         if storage == "bf16" and not fused:
             raise ValueError("storage='bf16' is a kernel layout: this "
                              "configuration runs the plain step only")
@@ -284,10 +288,11 @@ class SinglePhaseD2Q9(nn.Module):
         ``step``.
 
         Returns None for a moving wall (the JAX blocked K7 has no moving
-        wall) and for row kinds outside K7's (``takes_kernel``).
-        ``rows_per_block`` and ``interpret`` tune the TPU kernel and are
-        ignored."""
+        wall), for row kinds outside K7's (``takes_kernel``) and with
+        ``use_kernel=False``.  ``rows_per_block`` and ``interpret`` tune the
+        TPU kernel and are ignored."""
         del rows_per_block, interpret
-        takes = takes_kernel(self.bcs, self.upwind_moving is not None)
+        takes = self.use_kernel and takes_kernel(
+            self.bcs, self.upwind_moving is not None)
         return kernel_block_step(self, steps_per_call, storage, takes,
                                  single_block_step)

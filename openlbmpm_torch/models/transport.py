@@ -119,12 +119,15 @@ class TransportRK(nn.Module):
     fields stay fixed and only the tracers advance.  The tracer's
     upwind-solid masks and its per-tracer table
     (``kernels/transport.py::tracer_table``) are buffers on ``device``.
+    ``use_kernel=False`` (the JAX ``use_pallas=False``) runs the plain
+    steps on every device.
     """
 
     def __init__(self, geometry, flow_params=ColorGradientParams(),
                  transport_params=TransportParams(),
                  boundaries=CGBoundaryConfig(), standalone: bool = False,
-                 dtype=torch.float32, device="cuda", storage: str = "f32"):
+                 dtype=torch.float32, device="cuda", storage: str = "f32",
+                 use_kernel: bool = True):
         super().__init__()
         tp = transport_params
         _check_options(tp)
@@ -140,7 +143,7 @@ class TransportRK(nn.Module):
                 f"the {boundaries.outlet} outlet")
         self.flow = ColorGradientRK(geometry, flow_params, boundaries,
                                     dtype=dtype, device=device,
-                                    storage=storage)
+                                    storage=storage, use_kernel=use_kernel)
         self.geo = geometry
         self.tp = tp
         self.standalone = bool(standalone)
@@ -271,7 +274,9 @@ class TransportRK(nn.Module):
 
     def step_c(self, state):
         """One coupled time step of (s, g): the kernel on a CUDA state, the
-        plain step on a CPU one."""
+        plain step on a CPU one or with ``use_kernel=False``."""
+        if not self.flow.use_kernel:
+            return self.plain_step_c(state)
         self._check_compressed()
         s, g = state
         return coupled_step_compressed(s, g, self)
@@ -322,7 +327,10 @@ class TransportRK(nn.Module):
 
     def step(self, state: TransportState) -> TransportState:
         """One split coupled time step: the kernels on a CUDA state, the
-        plain version on a CPU one, then the repairs as PyTorch ops."""
+        plain version on a CPU one or with ``use_kernel=False``, then the
+        repairs as PyTorch ops."""
+        if not self.flow.use_kernel:
+            return self.plain_step(state)
         return self.repair(
             coupled_step_split(state, self, with_u=self.tp.conserve_mass),
             state.mass0)
@@ -345,9 +353,9 @@ class TransportRK(nn.Module):
 
         Returns None where the JAX build function builds nothing on grounds
         of physics or boundaries: flow rows outside the in-kernel set
-        (csf.py:274-278), bf16 storage on the split layout (:243-245), and
+        (csf.py:274-278), bf16 storage on the split layout (:243-245),
         ``conserve_mass`` or ``redistribute`` with T > 1 or ``compressed``
-        (models/transport.py:150-167).  (A Perturbation flow, a tracer scheme
+        (models/transport.py:150-167), and ``use_kernel=False``.  (A Perturbation flow, a tracer scheme
         other than D2Q5 / D2Q9 and tracer rows the kernel does not take,
         csf.py:206-221, are refused by the constructor already.)  Standalone
         transport has no T-step form here (ValueError): the JAX kernel would
@@ -357,7 +365,7 @@ class TransportRK(nn.Module):
         t = block_args(steps_per_call, storage)
         tp, flow = self.tp, self.flow
         if flow.bcs.inlet not in BLOCK_INLETS or \
-                flow.bcs.outlet not in BLOCK_OUTLETS:
+                flow.bcs.outlet not in BLOCK_OUTLETS or not flow.use_kernel:
             return None
         if storage == "bf16" and not compressed:
             return None

@@ -318,16 +318,19 @@ def test_cli_blocked_run_equals_block_1(tmp_path, monkeypatch):
 @pytest.mark.parametrize("case", ["K3 bc once", "K8-T local row",
                                   "K7-T bc once", "K4 diag f32",
                                   "K5c-T window rows", "K11-T swap once",
-                                  "K10-T rho shell"])
+                                  "K10-T rho shell", "K9-T window z",
+                                  "K8 rt tau"])
 def test_chip_faults_patches_one_line(case):
     """chip_faults.py plants its T-step faults (K3's rows rewritten before
     the first sub-step only, K8-T's outlet row picked by window row, K7-T's
     rows after the first sub-step only, K5c-T's tracer rows mapped without
     the window's offset, K11-T streaming in the first sub-step only, K10-T's
-    rho_k stale on the window's outer shell) and the K4 fault, which moved with
+    rho_k stale on the window's outer shell, K9-T's boundary slabs picked
+    by window z), the runtime-K Shan-Chen fault (every fluid's common
+    velocity weighted by fluid 0's 1/tau) and the K4 fault, which moved with
     the Perturbation device code to csrc/pert2d.cuh, by replacing one line
-    that must stay there exactly once; each T-step fault is held against a
-    T-step phase while the family's T=1 phases must pass."""
+    that must stay there exactly once; each T-step or runtime-K fault is
+    held against its phase while the family's T=1 phases must pass."""
     import chip_faults
     header, line, fault, phases = chip_faults.CASES[case]
     with open(os.path.join(ROOT, "openlbmpm_torch", "csrc", header)) as f:
@@ -337,6 +340,6 @@ def test_chip_faults_patches_one_line(case):
     if case.startswith("K4"):
         assert phases == ("41",)
     else:
-        assert set(phases) <= {"46", "47", "48", "52", "53"}
+        assert set(phases) <= {"46", "47", "48", "52", "53", "58", "60"}
         assert chip_faults.MUST_PASS[case] and \
             set(chip_faults.MUST_PASS[case]) <= set(chip_faults.ALL_PHASES)

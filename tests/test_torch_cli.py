@@ -497,6 +497,88 @@ def test_unported_model_exits_2(capsys):
     assert "invalid choice" in capsys.readouterr().err
 
 
+def _no_pallas_run(tmp_path, model):
+    """(argv without --output, result basename) of a small run of
+    `model`: the cut INIs of the tests above."""
+    if model == "cg":
+        return ["run", _mini(tmp_path), "--model", "cg", "--steps",
+                "20"], "SimulationResultsRK"
+    if model == "sc":
+        ini = _ini(tmp_path, SC_INI, "twophase.ini",
+                   {"xGrid = .*": "xGrid = 32", "yGrid = .*": "yGrid = 48"})
+        return ["run", ini, "--model", "sc", "--physics-config",
+                os.path.join(ROOT, "configs", "shanchen2D.ini"), "--steps",
+                "20"], "SimulationResults"
+    return ["run", _mini3d(tmp_path), "--model", model] + (
+        ["--physics-config", _mini3d(tmp_path)] if model == "transport3d"
+        else []), ("SimulationResultsRK3D" if model == "cg3d" else
+                   "ConcentrationResults3D")
+
+
+@pytest.mark.parametrize("model", ["cg", "sc", "cg3d", "transport3d"])
+def test_no_pallas_run_equals_plain_run(tmp_path, model):
+    """``--no-pallas`` is accepted (the JAX CLI's flag): every model is built
+    with ``use_kernel=False`` and runs unblocked; on the CPU, where every
+    model runs its plain step already, a run with the flag writes the
+    results, metrics and checkpoint of the run without it, bit for bit, and
+    its model line names the plain step."""
+    argv, basename = _no_pallas_run(tmp_path, model)
+    if model == "transport3d":
+        argv[1] = TR_INI
+    common = argv + ["--device", "cpu", "--dtype", "f64"]
+    text = _torch_cli(common + ["--no-pallas", "--block", "4", "--output",
+                                str(tmp_path / "np")])
+    assert "the plain step on cpu" in text
+    _torch_cli(common + ["--output", str(tmp_path / "k")])
+    _same_arrays(_results(tmp_path / "k", basename),
+                 _results(tmp_path / "np", basename), atol=0.0)
+    _same_records(tmp_path / "k" / "metrics.jsonl",
+                  tmp_path / "np" / "metrics.jsonl", atol=0.0)
+    if model != "transport3d":     # the transport3d run writes none
+        _same_checkpoint(tmp_path / "k" / "checkpoint.npz",
+                         tmp_path / "np" / "checkpoint.npz")
+
+
+def test_no_pallas_builds_every_model_without_its_kernel(tmp_path):
+    """The eight models take ``use_kernel`` (the JAX ``use_pallas``): with
+    False the path is "plain", there is no T-step form (TransportRK3D has
+    none at all, as in JAX), and ``_pick_block`` runs unblocked even where
+    ``--block`` asks for more."""
+    import argparse
+
+    from openlbmpm_torch import geometry as tgeo
+    from openlbmpm_torch.models.colorgradient import ColorGradientRK
+    from openlbmpm_torch.models.flow3d import (ColorGradientParams3D,
+                                               ColorGradientRK3D,
+                                               ShanChenMCMP3D,
+                                               ShanChenParams3D,
+                                               SinglePhaseD3Q19,
+                                               TransportRK3D)
+    from openlbmpm_torch.models.shanchen import ShanChenMCMP, ShanChenParams
+    from openlbmpm_torch.models.single_phase import SinglePhaseD2Q9
+    from openlbmpm_torch.models.transport import TransportRK
+    g2 = tgeo.box_with_walls(12, 16)
+    g3 = tgeo.from_solid_mask(np.zeros((16, 8, 8), bool))
+    two = dict(g_matrix=((0.0, 3.6), (3.6, 0.0)), g_solid=(0.0, 0.0),
+               tau=(1.0, 1.0))
+    kw = dict(device="cpu", use_kernel=False)
+    models = [ColorGradientRK(g2, **kw), TransportRK(g2, **kw),
+              ShanChenMCMP(g2, ShanChenParams(**two), **kw),
+              SinglePhaseD2Q9(g2, **kw),
+              ColorGradientRK3D(g3, ColorGradientParams3D(), **kw),
+              TransportRK3D(g3, ColorGradientParams3D(), **kw),
+              ShanChenMCMP3D(g3, ShanChenParams3D(**two, body_force=(
+                  0.0, 0.0, 0.0)), **kw),
+              SinglePhaseD3Q19(g3, **kw)]
+    args = argparse.Namespace(no_pallas=True, block=4)
+    for m in models:
+        flow = getattr(m, "flow", m)
+        assert flow.path == "plain" and not flow.use_kernel
+        if hasattr(type(m), "make_block_step"):
+            assert m.make_block_step(2) is None
+        assert tcli._pick_block(m, args, 8, 8) == (None, 1)
+
+
 def test_block_note_and_cuda_without_card(tmp_path):
     ini = _mini(tmp_path, interval=2)
     text = _torch_cli(["run", ini, "--model", "cg", "--device", "cpu",

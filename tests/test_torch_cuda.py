@@ -683,8 +683,9 @@ def test_flow3d_paths_and_launches(cuda):
                           device=cuda).path == "plain"
     four = dict(g_matrix=tuple((0.0,) * 4 for _ in range(4)),
                 g_solid=(0.0,) * 4, tau=(1.0,) * 4)
+    # four fluids take the kernel too (the runtime-K instance)
     assert ShanChenMCMP3D(g, ShanChenParams3D(**four),
-                          device=cuda).path == "plain"
+                          device=cuda).path == "kernel"
     m = ShanChenMCMP3D(g, ShanChenParams3D(**two), device=cuda)
     assert m.path == "kernel"
     sc3d_step.launches = 0
@@ -855,3 +856,98 @@ def test_new_block_steps_count_one_launch_per_call(cuda):
     kf.sc3d_block_step.launches = 0
     ms.make_block_step(steps_per_call=2)(fs)
     assert kf.sc3d_block_step.launches == 1
+
+
+@pytest.mark.parametrize("t", [2, 4])
+@pytest.mark.parametrize("layout", ["compressed", "split"])
+@pytest.mark.parametrize("case", ["akai60_walls", "velocity_convective",
+                                  "velocity_dirichlet", "grain_pack"])
+def test_k9t_matches_t_plain_steps_f64(cuda, case, layout, t):
+    """K9-T against T plain steps at f64, two calls, chip_smoke phase 60's
+    cases (the grain pack at 32^3): <= 1e-11."""
+    from openlbmpm_torch.kernels import cg3d as k9
+    m, st = cg3d_case(case, cuda, shape=(32,) * 3 if case == "grain_pack"
+                      else (48, 40, 32))
+    if layout == "compressed":
+        x0, kern, plain = (m.pack_state(*st), k9.cg3d_block_compressed,
+                           k9.cg3d_block_compressed_reference)
+    else:
+        x0, kern, plain = st, k9.cg3d_block_split, k9.cg3d_block_split_reference
+    a, b = x0, x0
+    for _ in range(2):
+        a, b = kern(a, m, t), plain(b, m, t)
+    assert _gap(tuple(a) if layout == "split" else a,
+                tuple(b) if layout == "split" else b) <= 1e-11
+
+
+def test_k9t_counts_one_launch_per_call_and_bf16(cuda):
+    """``make_block_step(T)`` launches K9-T once a call on the three
+    layouts; the bf16 form decodes once and encodes once, within K9h's bf16
+    bounds of its plain version; a T beyond the kernel's largest raises."""
+    from openlbmpm_torch.kernels import cg3d as k9
+    m, st = cg3d_case("velocity_convective", cuda, dtype=torch.float32)
+    mh, _ = cg3d_case("velocity_convective", cuda, dtype=torch.float32,
+                      storage="bf16")
+    k9.cg3d_block_compressed.launches = k9.cg3d_block_split.launches = 0
+    m.make_block_step(4, compressed=True)(m.pack_state(*st))
+    m.make_block_step(2)(st)
+    h = mh.pack_state_bf16(*st)
+    got = mh.make_block_step(2, compressed=True, storage="bf16")(h)
+    assert (k9.cg3d_block_compressed.launches,
+            k9.cg3d_block_split.launches) == (2, 1)
+    ref = k9.cg3d_block_compressed_reference(h, mh, 2)
+    d = (mh.unpack_bf16(got) - mh.unpack_bf16(ref)).abs()
+    assert float(d[:19].max()) <= 3e-4 and float(d[19].max()) <= 1e-4
+    with pytest.raises(ValueError, match="at most"):
+        k9.cg3d_block_compressed(m.pack_state(*st), m, k9.MAX_BLOCK_STEPS + 1)
+
+
+@pytest.mark.parametrize("case", ["sc4_srt_periodic_body_force",
+                                  "sc4_mrt_velocity_convective",
+                                  "sc4_srt_pressure_pressure",
+                                  "efs4_4f_velocity_pressure",
+                                  "efs10_4f_mrt_velocity_convective",
+                                  "k4_walls_force", "k4_periodic"])
+def test_four_fluids_match_plain_f64(cuda, case):
+    """Four fluids on the runtime-K instances (K8 / K8-T on SC4_CASES, K10 /
+    K10-T on SC3D4_CASES): path "kernel", 20 steps as T = 1 and as T = 4 a
+    call against the plain step at f64, <= 1e-11."""
+    from openlbmpm_torch.kernels import flow3d as kf
+    from openlbmpm_torch.kernels import shanchen as ks
+    if case.startswith("k4"):
+        m, f = sc3d_case(case, cuda)
+        one, blk, plain = kf.sc3d_step, kf.sc3d_block_step, \
+            kf.sc3d_block_step_reference
+    else:
+        m, f = sc_case(case, cuda)
+        one, blk, plain = ks.sc_step, ks.sc_block_step, \
+            ks.sc_block_step_reference
+    assert m.path == "kernel" and m.k == 4
+    ref, a, b = f, f, f
+    for _ in range(20):
+        ref, a = plain(ref, m, 1), one(a, m)
+    for _ in range(5):
+        b = blk(b, m, 4)
+    assert _gap(a, ref) <= 1e-11 and _gap(b, ref) <= 1e-11
+
+
+def test_no_pallas_models_launch_nothing(cuda):
+    """``use_kernel=False`` on a card: the plain step on the card's
+    tensors, no kernel launched, no T-step form."""
+    from chip_smoke import _launch_counters
+    m, st = cg3d_case("velocity_convective", cuda, dtype=torch.float32)
+    plain = type(m)(m.geo, m.p, m.bcs, dtype=torch.float32, device=cuda,
+                    use_kernel=False)
+    counters = _launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    x = plain.step(st)
+    y = plain.step_c(plain.pack_state(*st))
+    ms, f = sc_case("sc4_srt_periodic_body_force", cuda)
+    sc_plain = type(ms)(ms.geo, ms.p, ms.bcs, dtype=torch.float64,
+                        device=cuda, use_kernel=False)
+    z = sc_plain.step(f)
+    assert all(fn.launches == 0 for fn in counters.values())
+    assert plain.path == sc_plain.path == "plain"
+    assert plain.make_block_step(2) is None
+    assert x[0].is_cuda and y.is_cuda and z.is_cuda

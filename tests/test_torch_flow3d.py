@@ -71,7 +71,7 @@ def _perturbed(shape, seed, k=None):
     lead = () if k is None else (k,)
     rho = rng.uniform(0.97, 1.03, lead + shape)
     if k is not None:
-        rho *= np.array([1.0, 0.3, 0.6][:k]).reshape(-1, 1, 1, 1)
+        rho *= np.array([1.0, 0.3, 0.6, 0.45][:k]).reshape(-1, 1, 1, 1)
     u = tuple(jnp.asarray(rng.uniform(-0.02, 0.02, lead + shape))
               for _ in range(3))
     return np.asarray(jeq.feq_quadratic(D3Q19, jnp.asarray(rho), u))
@@ -149,6 +149,36 @@ def test_sc3d_plain_step_matches_jax_f64(name):
     _close(rho_t, rho_j, 1e-12)
     _close(u_t, u_j, 1e-12)
     _close(mt.pressure(rho_t), mj.pressure(rho_j), 1e-12)
+
+
+def test_sc3d_four_fluids_plain_matches_pallas_interpret():
+    """Four fluids, which K10 runs on its runtime-K instance: the plain step
+    against build_sc3d_fused_step in interpret mode (which takes any number
+    of fluids) on a 16 x 8 x 8 box with y walls, two steps from a perturbed
+    equilibrium at f64, 1e-12; ``sc3d_params`` builds with k = 4 and the
+    per-fluid arrays left to ``sc3d_table``."""
+    from chip_smoke import SC3D4_CASES
+    from openlbmpm_torch.kernels.flow3d import sc3d_params, sc3d_table
+    from openlbmpm_tpu.pallas.sc3d import build_sc3d_fused_step
+    shape = (16, 8, 8)
+    solid = np.zeros(shape, bool)
+    solid[:, 0, :] = solid[:, -1, :] = True
+    g = geo.from_solid_mask(solid)
+    p = jf.ShanChenParams3D(**SC3D4_CASES["k4_walls_force"][0])
+    mt = ShanChenMCMP3D(g, params_from_jax(p), dtype=torch.float64,
+                        device=CPU)
+    fused = build_sc3d_fused_step(g, p, jnp.float64, slabs_per_block=8,
+                                  interpret=True)
+    assert fused is not None and mt.k == 4
+    f0 = _perturbed(shape, 4, 4) * g.is_fluid
+    a, b = fused(jnp.asarray(f0)), mt.step(_t(f0))
+    _close(b, a, 1e-12)
+    _close(mt.step(b), fused(a), 1e-12)
+    kp = sc3d_params(mt.p, mt.geo)
+    assert kp.k == 4 and list(kp.tau) == [1.0] * 3
+    np.testing.assert_array_equal(sc3d_table(mt.p), np.concatenate(
+        [mt.tau, mt.g_solid, mt.g_matrix.ravel()]))
+    assert mt.make_block_step(2) is not None
 
 
 @pytest.mark.parametrize("kind", ["walls", "obstacle"])
@@ -238,8 +268,12 @@ def test_paths_and_refusals():
     four = dict(g_matrix=tuple(tuple(0.0 for _ in range(4))
                                for _ in range(4)),
                 g_solid=(0.0,) * 4, tau=(1.0,) * 4)
+    # four fluids take the kernel (the runtime-K instance), bf16 storage too
+    m4 = ShanChenMCMP3D(g, ShanChenParams3D(**four), device=CPU,
+                        storage="bf16")
+    assert m4.storage == "bf16" and m4.make_block_step(2) is not None
     with pytest.raises(ValueError, match="kernel layout"):
-        ShanChenMCMP3D(g, ShanChenParams3D(**four), device=CPU,
+        ShanChenMCMP3D(g, ShanChenParams3D(**four, psi="PR"), device=CPU,
                        storage="bf16")
     with pytest.raises(ValueError, match="g_matrix"):
         ShanChenMCMP3D(g, ShanChenParams3D(g_matrix=((0.0,),), g_solid=(0.0,),
@@ -257,10 +291,10 @@ def test_sc3d_psi_is_rho_whatever_psi_says():
 
 def test_chip_faults_patches_one_k10_line():
     """chip_faults.py plants its K10 fault (the adhesion term dropped in the
-    f32 instance) by replacing one line of csrc/flow3d.cuh, which must stay
-    there exactly once; phase 37 must fail it."""
+    float-arithmetic instances) by replacing one line of csrc/flow3d.cuh,
+    which must stay there exactly once; phase 37 must fail it."""
     import chip_faults
     header, line, fault, phases = chip_faults.CASES["K10 adh f32"]
     with open(os.path.join(ROOT, "openlbmpm_torch", "csrc", header)) as f:
         assert f.read().count(line) == 1
-    assert "sizeof(S) == 4 ? 0.0 : adh[d]" in fault and phases == ("37",)
+    assert "sizeof(C) == 4 ? 0.0 : adh[d]" in fault and phases == ("37",)

@@ -28,8 +28,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (SC_CASES, SC_KERNEL_CASES, WALL_VELOCITY, sc_rho0,
-                        sc_solid)
+from chip_smoke import (SC4_CASES, SC_CASES, SC_KERNEL_CASES, WALL_VELOCITY,
+                        sc_rho0, sc_solid)
 from openlbmpm_tpu import checkpoint as jck
 from openlbmpm_tpu import config as jconfig
 from openlbmpm_tpu import geometry as geo
@@ -48,7 +48,8 @@ from openlbmpm_torch import config as tconfig
 from openlbmpm_torch.convert import (params_from_jax, state_from_numpy,
                                      state_to_numpy)
 from openlbmpm_torch.kernels.csf import compare_bf16_states
-from openlbmpm_torch.kernels.shanchen import (geo_stack, kernel_params,
+from openlbmpm_torch.kernels.shanchen import (KMAX, fluid_table, geo_stack,
+                                              kernel_params, sc_block_step,
                                               sc_step, sc_step_reference)
 from openlbmpm_torch.models.shanchen import (SCBoundaryConfig, ShanChenMCMP,
                                              ShanChenParams, takes_kernel)
@@ -211,8 +212,9 @@ def test_stream_moving_wall_equals_jax():
 # -- the model --------------------------------------------------------------
 
 def _models(name, ny=32, nx=24, use_pallas=False, dtype=jnp.float64):
-    """(JAX model, port model, the common f64 initial state) of a case."""
-    p, b, init = SC_CASES[name]
+    """(JAX model, port model, the common f64 initial state) of a case of
+    SC_CASES or SC4_CASES."""
+    p, b, init = (SC_CASES | SC4_CASES)[name]
     solid, moving = sc_solid(ny, nx, init)
     g = geo.from_solid_mask(solid)
     jp, jb = js.ShanChenParams(**p), js.SCBoundaryConfig(**b)
@@ -271,6 +273,57 @@ def test_plain_kernel_version_matches_pallas_interpret(name):
     np.testing.assert_allclose(geo_stack(mt.geo, mt.p),
                                _sc_geo_stack(mj.geo, mj.p), rtol=0,
                                atol=1e-15)
+
+
+@pytest.mark.parametrize("name", ["sc4_mrt_velocity_convective",
+                                  "efs4_4f_velocity_pressure"])
+def test_four_fluids_plain_matches_pallas_interpret(name):
+    """Four fluids, which the kernel runs on its runtime-K instance: the
+    plain version against build_sc_fused_step in interpret mode (which takes
+    any number of fluids), two steps from a common state at f64, 1e-12.
+    ``takes_kernel`` says kernel; ``kernel_params`` builds with k = 4 and
+    the per-fluid arrays left to ``fluid_table``, which holds tau, 1/tau,
+    G_s, the inlet and outlet targets and G."""
+    mj, mt, f0 = _models(name)
+    assert mt.k == 4 > KMAX
+    fused = build_sc_fused_step(mj.geo, mj.p, jnp.float64, rows_per_block=16,
+                                bc_config=mj.bcs, interpret=True)
+    assert fused is not None
+    a, b = fused(jnp.asarray(f0)), sc_step_reference(_t(f0), mt)
+    _close(b, a)
+    _close(sc_step(b, mt), fused(a))
+    _close(sc_block_step(_t(f0), mt, 2), fused(a))
+    assert takes_kernel(mt.p, mt.bcs, False, mt.geo.shape)
+    kp = kernel_params(mt.p, mt.bcs, mt.geo)
+    assert (kp.k, kp.depth) == (4, mt._bc_depth) and list(kp.tau) == [1.0] * 3
+    tab = fluid_table(mt.p, mt.bcs)
+    k = mt.k
+    np.testing.assert_array_equal(tab[:k], mt.tau)
+    np.testing.assert_array_equal(tab[k:2 * k], 1.0 / mt.tau)
+    np.testing.assert_array_equal(tab[2 * k:3 * k], mt.g_solid)
+    np.testing.assert_array_equal(
+        tab[3 * k:6 * k].reshape(3, k), np.stack([
+            mt.inlet_velocity[:, 0].numpy(), mt.inlet_density[:, 0].numpy(),
+            mt.outlet_density[:, 0].numpy()]))
+    np.testing.assert_array_equal(tab[6 * k:].reshape(k, k), mt.g_matrix)
+
+
+def test_small_domain_runs_plain_as_jax():
+    """Below 8 x 3 the JAX fused builder builds nothing (no strip of 8
+    rows) and the JAX model runs jnp; ``takes_kernel`` says no for that
+    shape, so the model's path is plain on every device and it has no
+    T-step form; 8 x 3 takes the kernel."""
+    p, b, _ = SC_CASES["sc_srt_periodic_body_force"]
+    g = geo.from_solid_mask(np.zeros((6, 24), bool))
+    jp, jb = js.ShanChenParams(**p), js.SCBoundaryConfig(**b)
+    assert build_sc_fused_step(g, jp, jnp.float64, bc_config=jb,
+                               interpret=True) is None
+    mt = ShanChenMCMP(g, params_from_jax(jp), params_from_jax(jb),
+                      dtype=torch.float64, device=CPU)
+    assert not takes_kernel(mt.p, mt.bcs, False, g.shape)
+    assert mt.path == "plain" and mt.make_block_step(2) is None
+    assert takes_kernel(mt.p, mt.bcs, False, (8, 3))
+    assert not takes_kernel(mt.p, mt.bcs, False, (8, 2))
 
 
 def test_bf16_storage_matches_pallas_interpret():
