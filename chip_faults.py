@@ -46,12 +46,14 @@ to global rows without the window's offset (its inlet and outlet rows land
 on the wrong rows), K11-T streams in the first sub-step only, and K10-T
 leaves rho_k of the window's outer shell stale each sub-step, K9-T
 selects the boundary slabs by window z instead of global z, each in its
-f64 instance, and the runtime-K K8 gives every fluid fluid 0's 1/tau in the
-common velocity, in f64 arithmetic:
+f64 instance, the runtime-K K8 gives every fluid fluid 0's 1/tau in the
+common velocity, in f64 arithmetic, and the local form of K3 (K12a, the
+sharded colour-gradient step) maps its window rows to global rows one row
+off, in its f64 instance:
 
   none           the sources as they are: phases 4, 6, 11, 15, 20, 21,
-                 26, 29, 31, 33, 36, 37, 41, 45-48, 52, 53, 58, 60 must
-                 pass;
+                 26, 29, 31, 33, 36, 37, 41, 45-48, 52, 53, 58, 60, 63
+                 must pass;
   f32            cg3d.cuh, float32 storage (K9c f32, K9s f32): phase 21;
   bf16           cg3d.cuh, bfloat16 storage (K9h): phase 21;
   tracer f32     cg3d.cuh, float32 storage (K9t f32): phase 26;
@@ -74,7 +76,10 @@ common velocity, in f64 arithmetic:
   K9-T window z  cg3d_block.cuh, float64 storage: phase 60 must fail,
                  phases 20 and 21 (K9) pass;
   K8 rt tau      sc2d_rt.cuh, float64 arithmetic: phase 58 must fail,
-                 phase 15 (K8, K <= 3) passes.
+                 phase 15 (K8, K <= 3) passes;
+  K12 row0       csf2d_block.cuh, the local instances, float64 storage:
+                 phase 63 must fail, phase 45 (K3, the same kernel's
+                 single-device instances) passes.
 
 Prints one line per case with the failed checks and the gaps, and exits 0
 only when every case behaves as stated.
@@ -129,6 +134,9 @@ K9T_FAULT = ("            for (int lz = sizeof(S) == {size} ? zg : "
 K8RT_LINE = "    const C it = C(tb.inv_tau(k));"
 K8RT_FAULT = "    const C it = C(tb.inv_tau(sizeof(C) == {size} ? 0 : k));"
 K7T_LINE = "      if (P.inlet != 0 || P.outlet != 0) {"
+K12_LINE = "    const int oy = LOCAL ? G.row0 + ly0 : ly0;"
+K12_FAULT = ("    const int oy = LOCAL ? G.row0 + ly0 + (sizeof(S) == {size}) : "
+             "ly0;")
 K7T_FAULT = ("      if ((P.inlet != 0 || P.outlet != 0) && "
              "(sub == 0 || sizeof(S) != {size})) {{")
 # name -> (source, line, fault, phases that must fail)
@@ -157,16 +165,20 @@ CASES = {
                       ("60",)),
     "K8 rt tau": ("sc2d_rt.cuh", K8RT_LINE, K8RT_FAULT.format(size=8),
                   ("58",)),
+    "K12 row0": ("csf2d_block.cuh", K12_LINE, K12_FAULT.format(size=8),
+                 ("63",)),
 }
 # name -> the T=1 phases of the same family that must pass the T-step
 # faults (the T=1 kernels do not run the changed line)
 MUST_PASS = {"K3 bc once": ("4", "41"), "K8-T local row": ("15",),
              "K7-T bc once": ("29",), "K5c-T window rows": ("6", "11"),
              "K11-T swap once": ("33",), "K10-T rho shell": ("36",),
-             "K9-T window z": ("20", "21"), "K8 rt tau": ("15",)}
+             "K9-T window z": ("20", "21"), "K8 rt tau": ("15",),
+             "K12 row0": ("45",)}
 # the phases of the unchanged sources
 ALL_PHASES = ("4", "6", "11", "15", "20", "21", "26", "29", "31", "33", "36",
-              "37", "41", "45", "46", "47", "48", "52", "53", "58", "60")
+              "37", "41", "45", "46", "47", "48", "52", "53", "58", "60",
+              "63")
 
 RUN = r"""
 import json, sys, torch
@@ -181,7 +193,8 @@ SIMPLE = {"6": cs.phase_coupled_f64, "11": cs.phase_split_coupled_f64,
           "33": cs.phase_single3d_f64, "36": cs.phase_sc3d_f64,
           "45": cs.phase_block_csf_f64, "46": cs.phase_block_sc_f64,
           "47": cs.phase_block_single_f64, "52": cs.phase_block_coupled_f64,
-          "53": cs.phase_block3d_f64, "60": cs.phase_block_cg3d_f64}
+          "53": cs.phase_block3d_f64, "60": cs.phase_block_cg3d_f64,
+          "63": cs.phase_sharded_csf_f64}
 for phase in sys.argv[1:]:
     bad = failed.setdefault(phase, [])
     cs.check = lambda cond, what, bad=bad: cond or bad.append(what)

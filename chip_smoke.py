@@ -274,7 +274,32 @@ toolkit (nvcc) and PyTorch built for CUDA; JAX is not needed.  Phases:
  62. K9-T's speed per time step at T = 1, 2, 4 at 128^3 and 256^3 (CUDA
      events), device time per launch, tiling and plain time, and
      bench_cg3d.py's loop (``run_chunked`` of ``make_block_step(4, ...)``
-     over 120 steps in f32, bf16 and split) with its launches and MLUPS.
+     over 120 steps in f32, bf16 and split) with its launches and MLUPS;
+ 63. f64: the sharded colour-gradient step (K12a, ``build_csf_sharded_step``
+     on a ``LocalMesh``: all shards on this card, halos by device copies)
+     of both variants with Neumann/Dirichlet and Dirichlet/convective rows,
+     256^2 on (4, 1) and (2, 2) meshes at T = 1, 2, 4 and 104x256 (shards of
+     26 rows) on (4, 1) at T = 1, 2, two calls: the gathered state against
+     the single-device K3 at the same T (<= 1e-12, expected bit for bit)
+     and against the plain step (<= 1e-11), one local launch a shard a call;
+ 64. f64: K12a with transport, phase 6's tracer cases at 96^2 on (4, 1) and
+     (2, 2) at T = 1, 2 (96 columns, not phase 6's 64, so that (2, 2) at T
+     = 2 passes the JAX builder's rule nx/px > 2H): against K5c-T (<= 1e-12)
+     and the plain step (<= 1e-11), flow and tracers;
+ 65. f64: the sharded single-phase step (K12b, ``build_single_sharded_step``)
+     on (4, 1) at T = 1, 2: config 1's box at 256x128 and three walled
+     cases with Zou-He and convective rows, against K7-T (<= 1e-12) and the
+     plain step (<= 1e-11);
+ 66. full width, f32: the flagship 1024^2 on (4, 1) and (2, 2), config 4 at
+     1024^2 and config 1 at 512x1024 on (4, 1), 10 steps at T = 1 and 12 at
+     T = 4: the gathered state against the single-device kernel (printed,
+     expected 0) and within phases 48 and 54's bounds of the plain step;
+     ms a time step of the sharded step (kernels and exchange), of the
+     exchange alone and of the single-device kernel, the bound; the
+     launches of these main paths (counts set to 0 just before); then
+     ``parallel.dryrun --in-process --device cuda`` in this process, and
+     with two cards or more ``parallel.dryrun --device cuda --ranks 2|4``
+     over NCCL in a subprocess (with one card it says so).
 
 Every phase prints one line or more, each number line with the card's name
 and power limit, and any failure exits non-zero.  Then the wall time, the
@@ -5838,6 +5863,464 @@ def phase58_62_entries(r58, r60, r61, r62):
     return entries
 
 
+# -- the sharded steps: K12a (colour gradient, with transport) and K12b
+# (single phase), one shard a local launch ---------------------------------
+
+K12_MESHES = ((4, 1), (2, 2))
+
+
+def _sharded(step, start, calls):
+    """`calls` calls of a sharded step from the global arrays `start`;
+    the gathered global arrays (a tuple)."""
+    state = step.shard(*start)
+    for _ in range(calls):
+        state = step(state)
+    out = step.gather(state)
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _noisy_layers(m, seed, rows=None):
+    """The compressed start of a colour-gradient model: red layers on top
+    (a fifth of the rows, or `rows`), each colour's PDFs scaled by 1 +
+    1e-3 noise (a numpy seed) so that the boundary rows see varied
+    values."""
+    f_r, f_b = m.init_state_layers(1.0, 1.0, invading_rows=rows or
+                                   m.geo.ny // 5)
+    rng = np.random.default_rng(seed)
+
+    def noise():
+        return torch.as_tensor(1 + 1e-3 * rng.standard_normal(f_r.shape),
+                               dtype=f_r.dtype, device=f_r.device)
+    return m.pack_state(f_r * noise(), f_b * noise())
+
+
+def k12a_params(variant):
+    """Phase 63's flow parameters: phase 45's (the flagship's with tau_b 0.8
+    and sigma 0.01, or PERT_BASE)."""
+    import dataclasses
+    from openlbmpm_torch.models.colorgradient import ColorGradientParams
+    if variant == "CSF":
+        return dataclasses.replace(flagship_flow()[0], tau_b=0.8,
+                                   surface_tension=0.01)
+    return ColorGradientParams(**PERT_BASE)
+
+
+def phase_sharded_csf_f64(device, n=256, calls=2, tol=1e-12, tol_plain=1e-11):
+    """K12a at f64 against the single-device K3 and the plain step (see the
+    module docstring, phase 63)."""
+    from openlbmpm_torch.kernels import csf as kc
+    from openlbmpm_torch.models.colorgradient import CGBoundaryConfig
+    from openlbmpm_torch.parallel import make_mesh
+    res = {}
+    seed = 0
+    for variant in ("CSF", "Perturbation"):
+        params = k12a_params(variant)
+        kern, plain = k3_wrappers(variant, "f32")
+        for bname, bkw in (("neumann_dirichlet", _P_NEU_DIR),
+                           ("dirichlet_convective", _P_DIR_CONV)):
+            for (ny, nx), meshes, ts in (((n, n), K12_MESHES, (1, 2, 4)),
+                                         ((104, n), ((4, 1),), (1, 2))):
+                for shape in meshes:
+                    mesh = make_mesh(shape=shape, kind="local", device=device)
+                    for t in ts:
+                        seed += 1
+                        step = kc.build_csf_sharded_step(
+                            walled(ny, nx), params, mesh, torch.float64,
+                            steps_per_call=t,
+                            bc_config=CGBoundaryConfig(**bkw))
+                        tag = f"K12a {variant} {bname} {ny}x{nx} {shape} T={t}"
+                        check(step is not None, f"{tag}: no sharded step")
+                        m = step.model
+                        x0 = _noisy_layers(m, seed)
+                        kc.csf_local_step.launches = 0
+                        (a,) = _sharded(step, (x0,), calls)
+                        check(kc.csf_local_step.launches == calls * mesh.size,
+                              f"{tag}: {kc.csf_local_step.launches} local "
+                              f"launches for {calls} calls")
+                        ek = _gap(a, _steps(lambda x: kern(x, m, t), x0, calls))
+                        ep = _gap(a, _steps(lambda x: plain(x, m, t), x0,
+                                            calls))
+                        check(bool(torch.isfinite(a).all()) and ek <= tol and
+                              ep <= tol_plain, f"{tag}: sharded vs K3 "
+                              f"{ek:.3e} (<= {tol:g}), vs plain {ep:.3e} "
+                              f"(<= {tol_plain:g})")
+                        res[(variant, bname, f"{ny}x{nx}", shape, t)] = (ek, ep)
+    return res
+
+
+def phase_sharded_coupled_f64(device, n=96, calls=2, tol=1e-12,
+                              tol_plain=1e-11):
+    """K12a with transport at f64 against K5c-T and the plain step (see the
+    module docstring, phase 64)."""
+    from openlbmpm_torch.kernels import csf as kc
+    from openlbmpm_torch.kernels import transport as kt
+    from openlbmpm_torch.models.transport import TransportParams
+    from openlbmpm_torch.parallel import make_mesh
+    params, bcs = flagship_flow()
+    res = {}
+    for seed, (name, tp) in enumerate(COUPLED_CASES.items()):
+        for shape in K12_MESHES:
+            mesh = make_mesh(shape=shape, kind="local", device=device)
+            for t in (1, 2):
+                step = kc.build_csf_sharded_step(
+                    walled(n, n), params, mesh, torch.float64,
+                    steps_per_call=t, bc_config=bcs,
+                    transport_params=TransportParams(**tp))
+                tag = f"K12a coupled case {name} {shape} T={t}"
+                check(step is not None, f"{tag}: no sharded step")
+                m = step.model
+                x0 = m.pack(m.init_state(
+                    m.flow.init_state_layers(1.0, 1.0, invading_rows=n // 5),
+                    coupled_conc0(m.tp.num_tracers, n, n, seed)))
+                kt.coupled_local_step.launches = 0
+                a = _sharded(step, x0, calls)
+                check(kt.coupled_local_step.launches == calls * mesh.size,
+                      f"{tag}: {kt.coupled_local_step.launches} local "
+                      f"launches for {calls} calls")
+                ek = _gap(a, _steps(lambda x: kt.coupled_block_compressed(
+                    x, m, t), x0, calls))
+                ep = _gap(a, _steps(
+                    lambda x: kt.coupled_block_compressed_reference(x, m, t),
+                    x0, calls))
+                check(all(bool(torch.isfinite(y).all()) for y in a) and
+                      ek <= tol and ep <= tol_plain, f"{tag}: sharded vs "
+                      f"K5c-T {ek:.3e} (<= {tol:g}), vs plain {ep:.3e} "
+                      f"(<= {tol_plain:g})")
+                res[(name, shape, t)] = (ek, ep)
+    return res
+
+
+def k12b_cases(ny=256, nx=128):
+    """Phase 65's single-phase cases: name -> (geometry, tau, collision,
+    body force, BoundaryConfig)."""
+    from openlbmpm_torch.geometry import box_with_walls
+    from openlbmpm_torch.models.single_phase import BoundaryConfig
+    out = {"config1_box": (box_with_walls(nx, ny), 0.9, "MRT", (0.0, -1e-6),
+                           BoundaryConfig())}
+    for name in ("srt_convective", "trt_zou_he", "mrt_zou_he"):
+        collision, bcs = SINGLE_CASES[name]
+        out[name] = (walled(ny, nx), 0.8, collision, SINGLE_FORCE,
+                     BoundaryConfig(**bcs))
+    return out
+
+
+def phase_sharded_single_f64(device, calls=2, tol=1e-12, tol_plain=1e-11):
+    """K12b at f64 against K7-T and the plain step (see the module
+    docstring, phase 65)."""
+    from openlbmpm_torch.kernels import single as ks
+    from openlbmpm_torch.parallel import make_mesh
+    mesh = make_mesh(shape=(4, 1), kind="local", device=device)
+    res = {}
+    for seed, (name, (g, tau, coll, force, bcs)) in enumerate(
+            k12b_cases().items()):
+        for t in (1, 2):
+            step = ks.build_single_sharded_step(
+                g, tau, coll, force, mesh, bc_config=bcs,
+                dtype=torch.float64, steps_per_call=t)
+            tag = f"K12b {name} (4, 1) T={t}"
+            check(step is not None, f"{tag}: no sharded step")
+            m = step.model
+            x0 = flow_start(m, seed=20 + seed)
+            ks.single_local_step.launches = 0
+            (a,) = _sharded(step, (x0,), calls)
+            check(ks.single_local_step.launches == calls * mesh.size,
+                  f"{tag}: {ks.single_local_step.launches} local launches "
+                  f"for {calls} calls")
+            ek = _gap(a, _steps(lambda x: ks.single_block_step(x, m, t), x0,
+                                calls))
+            ep = _gap(a, _steps(lambda x: ks.single_block_step_reference(
+                x, m, t), x0, calls))
+            check(bool(torch.isfinite(a).all()) and ek <= tol and
+                  ep <= tol_plain, f"{tag}: sharded vs K7-T {ek:.3e} (<= "
+                  f"{tol:g}), vs plain {ep:.3e} (<= {tol_plain:g})")
+            res[(name, t)] = (ek, ep)
+    return res
+
+
+# least HBM bytes a cell of the state the sharded steps move (f32): the
+# compressed flow state, with config 4's one D2Q5 tracer, the single-phase
+# PDFs; each cell also has a 1-byte solid mask
+K12_STATE_BYTES = {"flagship": 40, "config4": 40 + 20, "config1": 36}
+
+
+def k12_bytes(step, state_bytes) -> int:
+    """The least bytes of one call of a sharded step: each shard's padded
+    state and mask read once, its centre written once, and the exchange's
+    frame cells read and written once."""
+    total = 0
+    for g in step.grids:
+        padded, centre = g.py * g.px, g.ny * g.nx
+        total += (state_bytes + 1) * padded + state_bytes * centre + \
+            2 * state_bytes * (padded - centre)
+    return total
+
+
+def k12_full_cases(device, n=FLAGSHIP_N):
+    """Phase 66's cases: name -> (label, builder thunk of T, single-device
+    kernel of (x, model, T), plain version, start thunk of the model, key
+    of K12_STATE_BYTES, the wrapper whose launches count)."""
+    from openlbmpm_torch.kernels import csf as kc
+    from openlbmpm_torch.kernels import single as ks
+    from openlbmpm_torch.kernels import transport as kt
+    from openlbmpm_torch.geometry import box_with_walls
+    from openlbmpm_torch.models.single_phase import BoundaryConfig
+    from openlbmpm_torch.models.transport import TransportParams
+    from openlbmpm_torch.parallel import make_mesh
+    params, bcs = flagship_flow()
+    out = {}
+    for shape in K12_MESHES:
+        mesh = make_mesh(shape=shape, kind="local", device=device)
+        out[f"flagship {shape}"] = (
+            "K12a", lambda t, mesh=mesh: kc.build_csf_sharded_step(
+                walled(n, n), params, mesh, torch.float32, steps_per_call=t,
+                bc_config=bcs), kc.csf_block_compressed,
+            kc.csf_block_compressed_reference,
+            lambda m: (m.pack_state(*m.init_state_layers(
+                1.0, 1.0, invading_rows=100 * n // 1024)),),
+            "flagship", kc.csf_local_step)
+    mesh = make_mesh(shape=(4, 1), kind="local", device=device)
+    out["config4 (4, 1)"] = (
+        "K12a coupled", lambda t: kc.build_csf_sharded_step(
+            walled(n, n), params, mesh, torch.float32, steps_per_call=t,
+            bc_config=bcs, transport_params=TransportParams(**CONFIG4_TRACER)),
+        kt.coupled_block_compressed, kt.coupled_block_compressed_reference,
+        lambda m: m.pack(config4_state(m, n)[0]), "config4",
+        kt.coupled_local_step)
+    out["config1 (4, 1)"] = (
+        "K12b", lambda t: ks.build_single_sharded_step(
+            box_with_walls(512, n), 0.9, "MRT", (0.0, -1e-6), mesh,
+            bc_config=BoundaryConfig(), dtype=torch.float32,
+            steps_per_call=t), ks.single_block_step,
+        ks.single_block_step_reference, lambda m: (flow_start(m, seed=11),),
+        "config1", ks.single_local_step)
+    return out
+
+
+def _exchange_only(step):
+    def fn(state):
+        step.exchange(state)
+        return state
+    return fn
+
+
+def _one(x):
+    return x if len(x) > 1 else x[0]
+
+
+def phase_sharded_full(device, n=FLAGSHIP_N, steps=(10, 12), time_calls=40):
+    """Phase 66 (see the module docstring): correctness, speed and launches
+    of K12a and K12b at full width in f32, then the dry run."""
+    res = {"cases": {}}
+    away = seam_masks(n, n, max(steps), device)
+    for name, (label, build_t, kern, plain, start, key, counter) in \
+            k12_full_cases(device, n).items():
+        for t, total in zip((1, 4), steps):
+            calls = total // t
+            step = build_t(t)
+            tag = f"{label} {name} T={t}"
+            check(step is not None, f"{tag}: no sharded step")
+            m = step.model
+            x0 = start(m)
+            counter.launches = 0
+            a = _sharded(step, x0, calls)
+            launches = counter.launches
+            check(launches == calls * step.mesh.size, f"{tag}: {launches} "
+                  f"local launches for {calls} calls")
+            b = _steps(lambda x: kern(x, m, t), _one(x0), calls)
+            c = _steps(lambda x: plain(x, m, t), _one(x0), calls)
+            b, c = (b,) if torch.is_tensor(b) else b, \
+                (c,) if torch.is_tensor(c) else c
+            r = {"launches": launches, "calls": calls,
+                 "vs_kernel": _gap(a, b), "max": _gap(a, c)}
+            check(all(bool(torch.isfinite(y).all()) for y in a),
+                  f"{tag}: state not finite")
+            if key == "config1":
+                r["plain"] = r["max"]
+                check(r["plain"] <= SINGLE_F32_BOUND, f"{tag}: sharded vs "
+                      f"plain {r['plain']:.3e} (<= {SINGLE_F32_BOUND:g})")
+            else:
+                bp, br = (K3_BOUNDS[("CSF", "f32")] if key == "flagship"
+                          else K5CT_BOUNDS["f32"])
+                d = (a[0] - c[0]).abs()
+                r["planes"] = float(d[:9, away].max())
+                r["rho_r"] = float(d[9, away].max())
+                r["g"] = float((a[1] - c[1]).abs()[:, :, away].max()) \
+                    if key == "config4" else 0.0
+                check(r["planes"] <= bp and r["rho_r"] <= br and
+                      r["g"] <= bp, f"{tag} off the seam: planes "
+                      f"{r['planes']:.3e}, rho_r {r['rho_r']:.3e}, tracers "
+                      f"{r['g']:.3e} over {bp:g}/{br:g}")
+            state = step.shard(*x0)
+            r["sec"] = _time_steps(step, state, max(time_calls // t, 4),
+                                   device) / t
+            r["exchange_sec"] = _time_steps(_exchange_only(step), state,
+                                            time_calls, device) / t
+            r["kernel_sec"] = _time_steps(lambda x: kern(x, m, t), _one(x0),
+                                          max(time_calls // t, 4), device) / t
+            r["bound_ms"] = k12_bytes(step, K12_STATE_BYTES[key]) / \
+                HBM_BYTES_PER_S * 1e3 / t
+            r["frame"] = step.frame
+            r["cells"] = step.ny * step.nx
+            if t == 4 and name != "flagship (2, 2)":
+                # the plain version of the local kernels: every shard's
+                # padded buffer stepped in the whole domain
+                from openlbmpm_torch.parallel.mesh import exchange
+                exchange(step.mesh, state.bufs, step.frame,
+                         step.grids[0].ny, step.grids[0].nx)
+                ref = {"K12a": "csf", "K12a coupled": "coupled",
+                       "K12b": "single"}[label]
+                r["plain_sec"] = _time_local_plain(step, state, ref,
+                                                   device) / t
+            res["cases"][(name, t)] = r
+            del step, state, a, b, c
+            torch.cuda.empty_cache()
+    res["dryrun"] = _dryrun_in_process()
+    res["nccl"] = _dryrun_nccl()
+    return res
+
+
+def _time_local_plain(step, state, family, device):
+    """Seconds of one call of the local kernels' plain versions over every
+    shard (one pass, after a synchronise)."""
+    from openlbmpm_torch.kernels import csf as kc
+    from openlbmpm_torch.kernels import single as ks
+    from openlbmpm_torch.kernels import transport as kt
+    m, t = step.model, step.steps_per_call
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    for g, ins in zip(step.grids, state.bufs):
+        if family == "csf":
+            kc.csf_local_step_reference(ins[0], m, g, t)
+        elif family == "coupled":
+            kt.coupled_local_step_reference(ins, m, g, t)
+        else:
+            ks.single_local_step_reference(ins[0], m, g, t)
+    torch.cuda.synchronize(device)
+    return time.perf_counter() - t0
+
+
+def _dryrun_in_process():
+    """``parallel.dryrun --in-process --device cuda`` in this process, the
+    local launch counts set to 0 just before and read just after."""
+    import contextlib
+    import io
+    from openlbmpm_torch.parallel import dryrun
+    counters = {k: fn for k, fn in _launch_counters().items()
+                if "_local_" in k}
+    for fn in counters.values():
+        fn.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = dryrun.main(["--in-process", "--device", "cuda", "--ranks", "4"])
+    lines = buf.getvalue().strip().splitlines()
+    check(rc == 0 and len(lines) == len(dryrun.CASES),
+          f"dryrun --in-process: rc {rc}, {len(lines)} lines")
+    return {"lines": lines, "sec": time.perf_counter() - t0,
+            "launches": {k: fn.launches for k, fn in counters.items()}}
+
+
+def _dryrun_nccl(timeout=600):
+    """``parallel.dryrun --device cuda --ranks 2|4`` over NCCL in a
+    subprocess where the machine has two cards or more; None with one."""
+    import os
+    count = torch.cuda.device_count()
+    if count < 2:
+        return None
+    ranks = 4 if count >= 4 else 2
+    out = subprocess.run(
+        [sys.executable, "-m", "openlbmpm_torch.parallel.dryrun", "--device",
+         "cuda", "--ranks", str(ranks), "--timeout", str(timeout - 60)],
+        capture_output=True, text=True, timeout=timeout,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    lines = out.stdout.strip().splitlines()
+    check(out.returncode == 0 and len(lines) >= 4,
+          f"dryrun over NCCL, {ranks} ranks: rc {out.returncode}\n"
+          f"{out.stderr[-2000:]}")
+    return {"ranks": ranks, "lines": lines}
+
+
+def phase63_66_lines(r63, r64, r65, r66, card):
+    lines = [
+        f"phase 63 K12a f64, sharded vs single-device K3 / vs plain ({len(r63)} "
+        "runs: CSF and Perturbation, 2 row kinds, 256^2 on (4, 1), (2, 2) at "
+        "T = 1, 2, 4 and 104x256 on (4, 1) at T = 1, 2, two calls): max "
+        f"|diff| {max(v[0] for v in r63.values()):.3e} (<= 1e-12) / "
+        f"{max(v[1] for v in r63.values()):.3e} (<= 1e-11)",
+        f"phase 64 K12a coupled f64, sharded vs K5c-T / vs plain ({len(r64)} "
+        "runs: phase 6's cases at 96^2 on (4, 1), (2, 2), T = 1, 2): max "
+        f"|diff| {max(v[0] for v in r64.values()):.3e} (<= 1e-12) / "
+        f"{max(v[1] for v in r64.values()):.3e} (<= 1e-11)",
+        f"phase 65 K12b f64, sharded vs K7-T / vs plain ({len(r65)} runs: "
+        + ", ".join(sorted({k[0] for k in r65})) + " at 256x128 on (4, 1), T "
+        f"= 1, 2): max |diff| {max(v[0] for v in r65.values()):.3e} (<= "
+        f"1e-12) / {max(v[1] for v in r65.values()):.3e} (<= 1e-11)"]
+    for (name, t), r in r66["cases"].items():
+        f = r["frame"]
+        lines.append(
+            f"phase 66 {name} f32 T={t} [{card}]: {r['calls']} calls, "
+            f"{r['launches']} local launches; vs single-device kernel "
+            f"{r['vs_kernel']:.3e}, vs plain max {r['max']:.3e}"
+            + (f" (off the seam planes {r['planes']:.3e}, rho_r "
+               f"{r['rho_r']:.3e}, tracers {r['g']:.3e})" if "planes" in r
+               else "") +
+            f"; ms a step sharded {r['sec'] * 1e3:.4f}, exchange "
+            f"{r['exchange_sec'] * 1e3:.4f}, single-device kernel "
+            f"{r['kernel_sec'] * 1e3:.4f}, bound {r['bound_ms']:.4f}"
+            + (f", plain {r['plain_sec'] * 1e3:.2f}" if "plain_sec" in r
+               else "") + f"; frame lo {f.lo} hi {f.hi} x {f.x}")
+    d = r66["dryrun"]
+    lines += [f"phase 66 dryrun --in-process --device cuda: {ln}"
+              for ln in d["lines"]]
+    lines.append(f"phase 66 dryrun --in-process: {d['sec']:.1f} s, local "
+                 "launches " + ", ".join(f"{k} {v}" for k, v in
+                                         d["launches"].items()))
+    if r66["nccl"] is None:
+        lines.append("phase 66 nccl: not run (1 card)")
+    else:
+        lines += [f"phase 66 nccl {r66['nccl']['ranks']} ranks: {ln}"
+                  for ln in r66["nccl"]["lines"]]
+    return lines
+
+
+def phase63_66_entries(r63, r64, r65, r66):
+    """The kernels line's entries of K12a, K12a with transport and K12b: ms,
+    plain ms and bound a time step at T = 4 on the (4, 1) mesh, launches
+    from phase 66's main path at T = 4 (and at T = 1 beside), max_abs_err
+    the f32 gap to the plain step."""
+    entries = []
+    for name, label, source, tpu, key, ops, f64 in (
+            ("csf_local_step", "K12a", "openlbmpm_torch/csrc/csf2d_block.cuh "
+             "(csf2d_local_{f64,f32}.cu)", "openlbmpm_tpu/pallas/csf.py:1954 "
+             "(local kernel call :1896)", "flagship (4, 1)", CSF_OPS, r63),
+            ("coupled_local_step", "K12a coupled",
+             "openlbmpm_torch/csrc/coupled2d_block.cuh "
+             "(coupled2d_local_{f64,f32}.cu)",
+             "openlbmpm_tpu/pallas/csf.py:1954 (transport_params; local "
+             "kernel call :1896)", "config4 (4, 1)", CSF_OPS + TRACER2D_OPS,
+             r64),
+            ("single_local_step", "K12b", "openlbmpm_torch/csrc/"
+             "single2d_block.cuh (single2d_local_{f64,f32}.cu)",
+             "openlbmpm_tpu/pallas/single.py:459 (local kernel call :418)",
+             "config1 (4, 1)", SINGLE_OPS, r65)):
+        r, r1 = r66["cases"][(key, 4)], r66["cases"][(key, 1)]
+        cells = r["cells"]
+        nbytes = r["bound_ms"] * 1e-3 * HBM_BYTES_PER_S / cells
+        entries.append(kernel_entry(
+            name, label, source, tpu, r["launches"],
+            r["max"], r["sec"], r["plain_sec"], nbytes, ops, cells,
+            steps_per_call=4, mesh=[4, 1], launches_t1=r1["launches"],
+            max_abs_err_f64=max(
+                v[1] for v in f64.values()),
+            ms_t1=r1["sec"] * 1e3, bound_ms_t1=r1["bound_ms"],
+            exchange_ms=r["exchange_sec"] * 1e3,
+            exchange_ms_t1=r1["exchange_sec"] * 1e3,
+            single_device_ms=r["kernel_sec"] * 1e3,
+            single_device_ms_t1=r1["kernel_sec"] * 1e3,
+            vs_single_device=max(r["vs_kernel"], r1["vs_kernel"])))
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -6023,6 +6506,20 @@ def main() -> int:
     for ln in phase58_62_lines(r58, r59, r60, r61, r62, card):
         print(ln)
 
+    t_k12 = {}
+    for key, fn in (("r63", phase_sharded_csf_f64),
+                    ("r64", phase_sharded_coupled_f64),
+                    ("r65", phase_sharded_single_f64),
+                    ("r66", phase_sharded_full)):
+        t0 = time.perf_counter()
+        t_k12[key] = (fn(device), time.perf_counter() - t0)
+        torch.cuda.empty_cache()
+    r63, r64, r65, r66 = (t_k12[k][0] for k in sorted(t_k12))
+    print("phases 63-66 wall s: " + ", ".join(
+        f"{k[1:]} {v[1]:.1f}" for k, v in sorted(t_k12.items())))
+    for ln in phase63_66_lines(r63, r64, r65, r66, card):
+        print(ln)
+
     n2 = FLAGSHIP_N * FLAGSHIP_N
     csf = "openlbmpm_tpu/pallas/csf.py:147"
     entries = [kernel_entry(
@@ -6154,6 +6651,7 @@ def main() -> int:
     entries += block_entries(r45, r46, r47, r48, r49, r50)
     entries += block3_entries(r52, r53, r54, r55, r56)
     entries += phase58_62_entries(r58, r60, r61, r62)
+    entries += phase63_66_entries(r63, r64, r65, r66)
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s "
           f"(phases 1-14 {t_old:.1f} s, 1-19 {t_2d:.1f} s, 1-24 "
           f"{t_3d:.1f} s, 1-28 {t_k9t:.1f} s, 1-39 {t_flow:.1f} s, 1-44 "

@@ -36,6 +36,19 @@
 // block); otherwise (the f64 instances, and the widest f32 ones) in a
 // global scratch buffer, one window per resident block, with the grid
 // looping over the tiles.  The same code serves both (generic pointers).
+//
+// The local form (one shard of a decomposed domain, K12a and K12b: the
+// TPU kernels' local_ny / local_nx builds, pallas/csf.py:1572-1590,
+// :1895-1920, pallas/single.py:418) is the same window with another load
+// map.  A shard's state lives in a padded buffer (LocalGrid): its centre,
+// then a frame of rows below and above and, on a mesh with an x axis,
+// columns on each side, which the exchange (openlbmpm_torch/parallel/
+// mesh.py) fills with the neighbouring shards' cells before a launch.  The
+// tiles cover the centre only, a window reads the buffer without wrapping
+// in y (nor in x with an x frame), and boundary rows are found by global
+// row, wrap(row0 + local row, ny).  A window cell beyond the buffer (the
+// last tiles' rounding) is clamped to its edge: it lies beyond the frame,
+// so outside the reach of any centre cell.
 
 #pragma once
 
@@ -65,7 +78,8 @@ struct BlockShape {
 
 // Rows of halo beyond ring * T for a band of boundary rows whose copies
 // reach m rows outwards: m for each copy of the band the halo can cross
-// (a halo longer than ny meets the band again).
+// (a halo longer than ny meets the band again).  ny is the global row
+// count: the bands repeat every ny rows, not every shard.
 __host__ inline int band_margin(int ring_rows, int m, int ny) {
   if (m == 0) return 0;
   int copies = 1;
@@ -78,9 +92,11 @@ __host__ inline int band_margin(int ring_rows, int m, int ny) {
 // of `planes` compute values of `csize` bytes a cell plus a fluid byte.
 // Takes the largest tile (of a fixed list, at least 128 cells) whose window
 // fits shared memory and the stream pass's registers; else a global window
-// for the largest tile within the stream pass's registers.
+// for the largest tile within the stream pass's registers.  A local launch
+// tiles its shard's ny x nx centre and gives the global row count gny for
+// the bands (0: ny).
 __host__ inline BlockShape block_shape(int ny, int nx, int T, int ring, int mlo, int mhi,
-                                       int planes, int csize) {
+                                       int planes, int csize, int gny = 0) {
   static const int cand[][2] = {{64, 64}, {64, 32}, {32, 32}, {32, 24}, {32, 16},
                                 {32, 8},  {16, 16}, {16, 8},  {8, 8},   {8, 4},
                                 {4, 4}};
@@ -88,8 +104,9 @@ __host__ inline BlockShape block_shape(int ny, int nx, int T, int ring, int mlo,
   b.T = T;
   b.ring = ring;
   b.hx = ring * T;
-  b.hlo = ring * T + band_margin(ring * T, mlo, ny);
-  b.hhi = ring * T + band_margin(ring * T, mhi, ny);
+  if (gny <= 0) gny = ny;
+  b.hlo = ring * T + band_margin(ring * T, mlo, gny);
+  b.hhi = ring * T + band_margin(ring * T, mhi, gny);
   const size_t per_cell = (size_t)planes * csize + 1;
   int pick = -1, fallback = -1;
   for (int c = 0; c < (int)(sizeof(cand) / sizeof(cand[0])); ++c) {
@@ -118,6 +135,59 @@ __host__ inline BlockShape block_shape(int ny, int nx, int T, int ring, int mlo,
   b.grid = b.gmem ? (tiles < kGmemBlocks ? tiles : kGmemBlocks) : tiles;
   return b;
 }
+
+// Where a local launch's shard lives: its centre of ny x nx cells starts
+// at row fy and column fx of a py x px buffer (a plane of the state and of
+// the geometry); fx = 0 means no x frame (px = nx, the shard spans the
+// global width and x wraps).  row0 is the global row of centre row 0.
+// Mirrored by the ints of the csf2d_local / coupled2d_local /
+// single2d_local entry points (kernels/build.py::local_ints).
+struct LocalGrid {
+  int ny, nx;
+  int py, px;
+  int fy, fx;
+  int row0;
+};
+
+// The buffer index of the cell y rows above and x columns right of the
+// centre's first cell, clamped to the buffer (x wraps without an x frame).
+__device__ __forceinline__ size_t local_index(const LocalGrid& G, int y, int x) {
+  const int r = min(max(G.fy + y, 0), G.py - 1);
+  const int c = G.fx == 0 ? wrap(x, G.nx) : min(max(G.fx + x, 0), G.px - 1);
+  return (size_t)r * G.px + c;
+}
+
+// Whether the frame of G covers a launch's reach B (hlo rows below, hhi
+// above, hx columns a side), and the buffer holds its centre.
+__host__ inline bool frame_covers(const LocalGrid& G, const BlockShape& B) {
+  if (G.ny < 1 || G.nx < 1 || G.fy < B.hlo || G.py - G.fy - G.ny < B.hhi) return false;
+  return G.fx == 0 ? G.px == G.nx : G.fx >= B.hx && G.px - G.fx - G.nx >= B.hx;
+}
+
+// The ints that lead every local library's entry points (T, then the
+// LocalGrid), and the grid they name.
+#define LOCAL_INTS int T, int ny, int nx, int py, int px, int fy, int fx, int row0
+#define LOCAL_GRID LocalGrid{ny, nx, py, px, fy, fx, row0}
+
+// The scratch, tiling and error-string entry points of the local library
+// `prefix` (kernels/build.py::block_fns): shape_fn(params, T, grid) is the
+// launch's BlockShape.
+#define LOCAL_INFO_ENTRY_POINTS(prefix, Params, shape_fn)                              \
+  extern "C" long long prefix##_block_scratch_bytes(LOCAL_INTS, const Params* params) { \
+    const BlockShape B = shape_fn(*params, T, LOCAL_GRID);                             \
+    return B.gmem ? (long long)B.grid * (long long)B.win_bytes : 0;                    \
+  }                                                                                    \
+  extern "C" int prefix##_block_shape(LOCAL_INTS, const Params* params,                \
+                                      long long* shape) {                              \
+    const BlockShape B = shape_fn(*params, T, LOCAL_GRID);                             \
+    const long long v[8] = {B.tx, B.ty, B.hx, B.hlo, B.hhi, B.gmem, B.grid,            \
+                            (long long)B.win_bytes};                                   \
+    for (int i = 0; i < 8; ++i) shape[i] = v[i];                                       \
+    return 0;                                                                          \
+  }                                                                                    \
+  extern "C" const char* prefix##_block_error_string(int code) {                       \
+    return cudaGetErrorString(static_cast<cudaError_t>(code));                         \
+  }
 
 // A rectangle of window cells [x0, x1) x [y0, y1): the window shrunk by e
 // on every side.

@@ -87,13 +87,16 @@ __host__ __device__ inline int coupled_planes(int nt, int nq) {
   return CsfWindow<kCSF, L>::PLANES + 2 * nt * nq + 1;
 }
 
-template <typename S, int L, int NQ, typename C = typename Traits<S>::C>
+// LOCAL: the local form (K12a with transport), one shard's centre of the
+// padded buffers of LG (block2d.cuh); the flow state, the geometry and
+// each tracer plane are LG.py x LG.px cells.
+template <typename S, int L, int NQ, bool LOCAL = false, typename C = typename Traits<S>::C>
 __global__ void __launch_bounds__(kBlockThreads, 1)
 coupled_block_kernel(const S* __restrict__ s, const S* __restrict__ s2,
                      const C* __restrict__ geo, const C* __restrict__ g,
                      const C* __restrict__ tab, S* __restrict__ out, S* __restrict__ out2,
                      C* __restrict__ g_out, CsfParams P, TracerParams T, BlockShape B,
-                     unsigned char* __restrict__ scratch) {
+                     LocalGrid LG, unsigned char* __restrict__ scratch) {
   using Win = CsfWindow<kCSF, L>;
   const int NG = T.nt * NQ;
   const int planes = coupled_planes<L>(T.nt, NQ);
@@ -101,7 +104,10 @@ coupled_block_kernel(const S* __restrict__ s, const S* __restrict__ s2,
   C* W = window_planes<C>(B, smem, scratch);
   unsigned char* FL = window_fluid(B, smem, scratch, planes, (int)sizeof(C));
   const int nx = P.nx, ny = P.ny;
-  const size_t n = (size_t)ny * nx;
+  // the cells this launch writes (the domain, or the shard's centre) and
+  // the cells of a plane
+  const int tnx = LOCAL ? LG.nx : nx, tny = LOCAL ? LG.ny : ny;
+  const size_t n = LOCAL ? (size_t)LG.py * LG.px : (size_t)ny * nx;
   const int wx = B.wx, wy = B.wy;
   const size_t PL = (size_t)wx * wy;
   const C* GX = W + Win::GX * PL;
@@ -112,9 +118,12 @@ coupled_block_kernel(const S* __restrict__ s, const S* __restrict__ s2,
 
   for (int tile = blockIdx.x; tile < B.ntx * B.nty; tile += gridDim.x) {
     const int x0 = (tile % B.ntx) * B.tx, y0 = (tile / B.ntx) * B.ty;
-    const int ox = x0 - B.hx, oy = y0 - B.hlo;
+    const int ox = x0 - B.hx, ly0 = y0 - B.hlo;
+    // the global row of window row 0
+    const int oy = LOCAL ? LG.row0 + ly0 : ly0;
     auto gidx = [&](int c) {
-      return (size_t)wrap(oy + c / wx, ny) * nx + wrap(ox + c % wx, nx);
+      if constexpr (LOCAL) return local_index(LG, ly0 + c / wx, ox + c % wx);
+      else return (size_t)wrap(oy + c / wx, ny) * nx + wrap(ox + c % wx, nx);
     };
     const WindowView<C> view{GP, FL, DOM, PL, wx, wy, oy, ny};
 
@@ -176,9 +185,9 @@ coupled_block_kernel(const S* __restrict__ s, const S* __restrict__ s2,
     // encode the tile once
     for (int t = threadIdx.x; t < B.tx * B.ty; t += kBlockThreads) {
       const int x = x0 + t % B.tx, y = y0 + t / B.tx;
-      if (x >= nx || y >= ny) continue;
+      if (x >= tnx || y >= tny) continue;
       const int c = (B.hlo + t / B.tx) * wx + B.hx + t % B.tx;
-      const size_t k = (size_t)y * nx + x;
+      const size_t k = LOCAL ? (size_t)(LG.fy + y) * LG.px + LG.fx + x : (size_t)y * nx + x;
       Cell<C, L> v;
       win_get(W, PL, c, v);
       if constexpr (L == kSplit) {
@@ -197,16 +206,17 @@ coupled_block_kernel(const S* __restrict__ s, const S* __restrict__ s2,
 }
 
 // The launch's tiling for T sub-steps on layout L with the tracers of T:
-// K3's ring (4) and the summed band reaches of flow and tracer rows.
-template <typename S, int L>
-BlockShape coupled_block_shape(const CoupledParams& Q, int T) {
+// K3's ring (4) and the summed band reaches of flow and tracer rows; the
+// domain's, or (LOCAL) the centre's of G, the bands by the global rows.
+template <typename S, int L, bool LOCAL = false>
+BlockShape coupled_block_shape(const CoupledParams& Q, int T, const LocalGrid& G = LocalGrid{}) {
   using C = typename Traits<S>::C;
   const CsfParams& P = Q.flow;
   const TracerParams& R = Q.tracer;
   const int mlo = (P.inlet != 0 ? 1 : 0) + (R.inlet == 2 || R.inlet == 3 ? 2 : 0);
   const int mhi = (P.outlet != 0 ? 3 : 0) + (R.outlet != 0 ? 3 : 0);
-  return block_shape(P.ny, P.nx, T, 4, mlo, mhi, coupled_planes<L>(R.nt, R.nq),
-                     (int)sizeof(C));
+  return block_shape(LOCAL ? G.ny : P.ny, LOCAL ? G.nx : P.nx, T, 4, mlo, mhi,
+                     coupled_planes<L>(R.nt, R.nq), (int)sizeof(C), P.ny);
 }
 
 template <typename S, int L>
@@ -215,24 +225,25 @@ size_t coupled_block_scratch(const CoupledParams& Q, int T) {
   return B.gmem ? (size_t)B.grid * B.win_bytes : 0;
 }
 
-template <typename S, int L, int NQ>
+template <typename S, int L, int NQ, bool LOCAL = false>
 int launch_coupled_block_nq(const void* s_in, const void* s2_in, const void* geo,
                             const void* g_in, const void* tab, void* s_out, void* s2_out,
                             void* g_out, void* scratch, const CoupledParams& Q,
-                            const BlockShape& B, cudaStream_t st) {
+                            const BlockShape& B, cudaStream_t st,
+                            const LocalGrid& G = LocalGrid{}) {
   using C = typename Traits<S>::C;
   const size_t smem = B.gmem ? 0 : B.win_bytes;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        coupled_block_kernel<S, L, NQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        coupled_block_kernel<S, L, NQ, LOCAL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  coupled_block_kernel<S, L, NQ><<<B.grid, kBlockThreads, smem, st>>>(
+  coupled_block_kernel<S, L, NQ, LOCAL><<<B.grid, kBlockThreads, smem, st>>>(
       static_cast<const S*>(s_in), static_cast<const S*>(s2_in),
       static_cast<const C*>(geo), static_cast<const C*>(g_in), static_cast<const C*>(tab),
       static_cast<S*>(s_out), static_cast<S*>(s2_out), static_cast<C*>(g_out), Q.flow,
-      Q.tracer, B, static_cast<unsigned char*>(scratch));
+      Q.tracer, B, G, static_cast<unsigned char*>(scratch));
   return (int)cudaGetLastError();
 }
 
@@ -256,6 +267,41 @@ int launch_coupled_block(const void* s_in, const void* s2_in, const void* geo,
     case 9:
       return launch_coupled_block_nq<S, L, 9>(s_in, s2_in, geo, g_in, tab, s_out, s2_out,
                                               g_out, scratch, Q, B, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+namespace {
+
+// -- the local form (K12a with transport) ------------------------------------
+
+template <typename S>
+BlockShape coupled_local_shape(const CoupledParams& Q, int T, const LocalGrid& G) {
+  return coupled_block_shape<S, kCompressed, true>(Q, T, G);
+}
+
+// T coupled steps of one shard: the compressed flow state s_in and the
+// tracer PDFs g_in, padded buffers of G, into the centres of s_out and
+// g_out; the refusals of launch_coupled_block, and a frame of G that does
+// not cover the reach.
+template <typename S>
+int launch_coupled_local(const void* s_in, void* s_out, const void* geo, const void* g_in,
+                         void* g_out, const void* tab, void* scratch, const CoupledParams& Q,
+                         const LocalGrid& G, int T, cudaStream_t st) {
+  if (T < 1 || Q.flow.variant != 0 || Q.tracer.standalone) return (int)cudaErrorInvalidValue;
+  const BlockShape B = coupled_local_shape<S>(Q, T, G);
+  if (B.wx * B.wy > kMaxWindow) return (int)cudaErrorInvalidValue;  // T too large
+  if (B.gmem && scratch == nullptr) return (int)cudaErrorInvalidValue;
+  if (!frame_covers(G, B)) return (int)cudaErrorInvalidValue;
+  switch (Q.tracer.nq) {
+    case 5:
+      return launch_coupled_block_nq<S, kCompressed, 5, true>(
+          s_in, nullptr, geo, g_in, tab, s_out, nullptr, g_out, scratch, Q, B, st, G);
+    case 9:
+      return launch_coupled_block_nq<S, kCompressed, 9, true>(
+          s_in, nullptr, geo, g_in, tab, s_out, nullptr, g_out, scratch, Q, B, st, G);
     default: return (int)cudaErrorInvalidValue;
   }
 }

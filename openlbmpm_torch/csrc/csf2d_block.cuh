@@ -335,26 +335,34 @@ __device__ void csf_window_physics(C* W, size_t PL, const unsigned char* FL,
   __syncthreads();
 }
 
-template <typename S, int L, int V, typename C = typename Traits<S>::C>
+// LOCAL: the local form (K12a), one shard's centre of the padded buffers
+// of G (block2d.cuh); the state and geometry planes are G.py x G.px cells.
+template <typename S, int L, int V, bool LOCAL = false, typename C = typename Traits<S>::C>
 __global__ void __launch_bounds__(kBlockThreads, 1)
 csf_block_kernel(const S* __restrict__ s, const S* __restrict__ s2,
                  const C* __restrict__ geo, S* __restrict__ out, S* __restrict__ out2,
-                 CsfParams P, BlockShape B, unsigned char* __restrict__ scratch) {
+                 CsfParams P, BlockShape B, LocalGrid G, unsigned char* __restrict__ scratch) {
   using Win = CsfWindow<V, L>;
   constexpr int NS = Win::NS;
   extern __shared__ __align__(16) unsigned char smem[];
   C* W = window_planes<C>(B, smem, scratch);
   unsigned char* FL = window_fluid(B, smem, scratch, Win::PLANES, (int)sizeof(C));
   const int nx = P.nx, ny = P.ny;
-  const size_t n = (size_t)ny * nx;
+  // the cells this launch writes (the domain, or the shard's centre) and
+  // the cells of a plane
+  const int tnx = LOCAL ? G.nx : nx, tny = LOCAL ? G.ny : ny;
+  const size_t n = LOCAL ? (size_t)G.py * G.px : (size_t)ny * nx;
   const int wx = B.wx, wy = B.wy;
   const size_t PL = (size_t)wx * wy;
 
   for (int tile = blockIdx.x; tile < B.ntx * B.nty; tile += gridDim.x) {
     const int x0 = (tile % B.ntx) * B.tx, y0 = (tile / B.ntx) * B.ty;
-    const int ox = x0 - B.hx, oy = y0 - B.hlo;
+    const int ox = x0 - B.hx, ly0 = y0 - B.hlo;
+    // the global row of window row 0
+    const int oy = LOCAL ? G.row0 + ly0 : ly0;
     auto gidx = [&](int c) {
-      return (size_t)wrap(oy + c / wx, ny) * nx + wrap(ox + c % wx, nx);
+      if constexpr (LOCAL) return local_index(G, ly0 + c / wx, ox + c % wx);
+      else return (size_t)wrap(oy + c / wx, ny) * nx + wrap(ox + c % wx, nx);
     };
 
     // decode the window once
@@ -445,9 +453,9 @@ csf_block_kernel(const S* __restrict__ s, const S* __restrict__ s2,
     // encode the tile once
     for (int t = threadIdx.x; t < B.tx * B.ty; t += kBlockThreads) {
       const int x = x0 + t % B.tx, y = y0 + t / B.tx;
-      if (x >= nx || y >= ny) continue;
+      if (x >= tnx || y >= tny) continue;
       const int c = (B.hlo + t / B.tx) * wx + B.hx + t % B.tx;
-      const size_t k = (size_t)y * nx + x;
+      const size_t k = LOCAL ? (size_t)(G.fy + y) * G.px + G.fx + x : (size_t)y * nx + x;
       Cell<C, L> v;
       win_get(W, PL, c, v);
       if constexpr (L == kSplit) {
@@ -464,33 +472,38 @@ csf_block_kernel(const S* __restrict__ s, const S* __restrict__ s2,
   }
 }
 
-// The launch's tiling for T sub-steps of variant V on layout L.
-template <typename S, int L, int V>
-BlockShape csf_block_shape(const CsfParams& P, int T) {
+// The launch's tiling for T sub-steps of variant V on layout L: the
+// domain's, or (LOCAL) the centre's of G, the bands by the global rows.
+template <typename S, int L, int V, bool LOCAL = false>
+BlockShape csf_block_shape(const CsfParams& P, int T, const LocalGrid& G = LocalGrid{}) {
   using C = typename Traits<S>::C;
   const int ring = V == kCSF ? 4 : 2;
-  return block_shape(P.ny, P.nx, T, ring, P.inlet != 0 ? 1 : 0, P.outlet != 0 ? 3 : 0,
-                     CsfWindow<V, L>::PLANES, (int)sizeof(C));
+  return block_shape(LOCAL ? G.ny : P.ny, LOCAL ? G.nx : P.nx, T, ring,
+                     P.inlet != 0 ? 1 : 0, P.outlet != 0 ? 3 : 0, CsfWindow<V, L>::PLANES,
+                     (int)sizeof(C), P.ny);
 }
 
-template <typename S, int L, int V>
+// One launch; LOCAL refuses a frame of G that does not cover the reach.
+template <typename S, int L, int V, bool LOCAL = false>
 int launch_csf_block(const void* s_in, const void* s2_in, void* s_out, void* s2_out,
                      const void* geo_v, void* scratch, const CsfParams& P, int T,
-                     cudaStream_t st) {
+                     cudaStream_t st, const LocalGrid& G = LocalGrid{}) {
   using C = typename Traits<S>::C;
-  const BlockShape B = csf_block_shape<S, L, V>(P, T);
+  const BlockShape B = csf_block_shape<S, L, V, LOCAL>(P, T, G);
   if (B.wx * B.wy > kMaxWindow) return (int)cudaErrorInvalidValue;  // T too large
   if (B.gmem && scratch == nullptr) return (int)cudaErrorInvalidValue;
+  if (LOCAL && !frame_covers(G, B)) return (int)cudaErrorInvalidValue;
   const size_t smem = B.gmem ? 0 : B.win_bytes;
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        csf_block_kernel<S, L, V>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t err = cudaFuncSetAttribute(csf_block_kernel<S, L, V, LOCAL>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  csf_block_kernel<S, L, V><<<B.grid, kBlockThreads, smem, st>>>(
+  csf_block_kernel<S, L, V, LOCAL><<<B.grid, kBlockThreads, smem, st>>>(
       static_cast<const S*>(s_in), static_cast<const S*>(s2_in),
       static_cast<const C*>(geo_v), static_cast<S*>(s_out), static_cast<S*>(s2_out), P, B,
-      static_cast<unsigned char*>(scratch));
+      G, static_cast<unsigned char*>(scratch));
   return (int)cudaGetLastError();
 }
 
@@ -516,6 +529,32 @@ int launch_csf_block_variant(const void* s_in, const void* s2_in, void* s_out,
              ? launch_csf_block<S, L, kCSF>(s_in, s2_in, s_out, s2_out, geo, scratch, P, T, st)
              : launch_csf_block<S, L, kPert>(s_in, s2_in, s_out, s2_out, geo, scratch, P, T,
                                              st);
+}
+
+}  // namespace
+
+namespace {
+
+// -- the local form (K12a) ------------------------------------------------------
+
+// The local launch's tiling of the parameter block's variant (compressed).
+template <typename S>
+BlockShape csf_local_shape(const CsfParams& P, int T, const LocalGrid& G) {
+  return P.variant == 0 ? csf_block_shape<S, kCompressed, kCSF, true>(P, T, G)
+                        : csf_block_shape<S, kCompressed, kPert, true>(P, T, G);
+}
+
+// T steps of one shard's compressed state (the padded buffer s_in) into
+// the centre of s_out; geo is the shard's padded geometry.
+template <typename S>
+int launch_csf_local(const void* s_in, void* s_out, const void* geo, void* scratch,
+                     const CsfParams& P, const LocalGrid& G, int T, cudaStream_t st) {
+  if (T < 1) return (int)cudaErrorInvalidValue;
+  return P.variant == 0
+             ? launch_csf_block<S, kCompressed, kCSF, true>(s_in, nullptr, s_out, nullptr, geo,
+                                                           scratch, P, T, st, G)
+             : launch_csf_block<S, kCompressed, kPert, true>(s_in, nullptr, s_out, nullptr,
+                                                            geo, scratch, P, T, st, G);
 }
 
 }  // namespace

@@ -32,24 +32,34 @@
 
 namespace {
 
-template <typename S, int COLL, bool FORCE, typename C = typename Traits<S>::C>
+// LOCAL: the local form (K12b), one shard's centre of the padded buffers
+// of G (block2d.cuh); the state and the fluid mask are G.py x G.px cells.
+template <typename S, int COLL, bool FORCE, bool LOCAL = false,
+          typename C = typename Traits<S>::C>
 __global__ void __launch_bounds__(kBlockThreads, 1)
 single_block_kernel(const S* __restrict__ f, const unsigned char* __restrict__ fl,
-                    S* __restrict__ out, Single2dParams P, BlockShape B,
+                    S* __restrict__ out, Single2dParams P, BlockShape B, LocalGrid G,
                     unsigned char* __restrict__ scratch) {
   extern __shared__ __align__(16) unsigned char smem[];
   C* W = window_planes<C>(B, smem, scratch);
   unsigned char* FL = window_fluid(B, smem, scratch, 9, (int)sizeof(C));
   const int nx = P.nx, ny = P.ny;
-  const size_t n = (size_t)ny * nx;
+  // the cells this launch writes (the domain, or the shard's centre) and
+  // the cells of a plane
+  const int tnx = LOCAL ? G.nx : nx, tny = LOCAL ? G.ny : ny;
+  const size_t n = LOCAL ? (size_t)G.py * G.px : (size_t)ny * nx;
   const int wx = B.wx, wy = B.wy;
   const size_t PL = (size_t)wx * wy;
 
   for (int tile = blockIdx.x; tile < B.ntx * B.nty; tile += gridDim.x) {
     const int x0 = (tile % B.ntx) * B.tx, y0 = (tile / B.ntx) * B.ty;
-    const int ox = x0 - B.hx, oy = y0 - B.hlo;
+    const int ox = x0 - B.hx, ly0 = y0 - B.hlo;
+    // the global row of window row 0
+    const int oy = LOCAL ? G.row0 + ly0 : ly0;
     for (int c = threadIdx.x; c < wx * wy; c += kBlockThreads) {
-      const size_t k = (size_t)wrap(oy + c / wx, ny) * nx + wrap(ox + c % wx, nx);
+      size_t k;
+      if constexpr (LOCAL) k = local_index(G, ly0 + c / wx, ox + c % wx);
+      else k = (size_t)wrap(oy + c / wx, ny) * nx + wrap(ox + c % wx, nx);
       C F[9];
       load_cell<S>(f, n, k, F);
 #pragma unroll
@@ -124,62 +134,82 @@ single_block_kernel(const S* __restrict__ f, const unsigned char* __restrict__ f
 
     for (int t = threadIdx.x; t < B.tx * B.ty; t += kBlockThreads) {
       const int x = x0 + t % B.tx, y = y0 + t / B.tx;
-      if (x >= nx || y >= ny) continue;
+      if (x >= tnx || y >= tny) continue;
       const int c = (B.hlo + t / B.tx) * wx + B.hx + t % B.tx;
       C o[9];
 #pragma unroll
       for (int i = 0; i < 9; ++i) o[i] = W[i * PL + c];
-      store_cell<S>(out, n, (size_t)y * nx + x, o);
+      store_cell<S>(out, n,
+                    LOCAL ? (size_t)(G.fy + y) * G.px + G.fx + x : (size_t)y * nx + x, o);
     }
     __syncthreads();
   }
 }
 
-template <typename S>
-BlockShape single_block_shape(const Single2dParams& P, int T) {
+// The launch's tiling: the domain's, or (LOCAL) the centre's of G, the
+// bands by the global rows.
+template <typename S, bool LOCAL = false>
+BlockShape single_block_shape(const Single2dParams& P, int T, const LocalGrid& G = LocalGrid{}) {
   using C = typename Traits<S>::C;
-  return block_shape(P.ny, P.nx, T, 1, P.inlet != 0 ? 1 : 0,
-                     P.outlet == 2 ? 3 : (P.outlet == 1 ? 1 : 0), 9, (int)sizeof(C));
+  return block_shape(LOCAL ? G.ny : P.ny, LOCAL ? G.nx : P.nx, T, 1, P.inlet != 0 ? 1 : 0,
+                     P.outlet == 2 ? 3 : (P.outlet == 1 ? 1 : 0), 9, (int)sizeof(C), P.ny);
 }
 
-template <typename S, int COLL, bool FORCE>
+// One launch; LOCAL refuses a frame of G that does not cover the reach.
+template <typename S, int COLL, bool FORCE, bool LOCAL>
 int launch_single_block(const void* f_in, void* f_out, const unsigned char* fl,
-                        void* scratch, const Single2dParams& P, int T, cudaStream_t st) {
-  const BlockShape B = single_block_shape<S>(P, T);
+                        void* scratch, const Single2dParams& P, int T, cudaStream_t st,
+                        const LocalGrid& G) {
+  const BlockShape B = single_block_shape<S, LOCAL>(P, T, G);
   if (B.wx * B.wy > kMaxWindow) return (int)cudaErrorInvalidValue;  // T too large
   if (B.gmem && scratch == nullptr) return (int)cudaErrorInvalidValue;
+  if (LOCAL && !frame_covers(G, B)) return (int)cudaErrorInvalidValue;
   const size_t smem = B.gmem ? 0 : B.win_bytes;
   if (smem > 48 * 1024) {
     const cudaError_t err =
-        cudaFuncSetAttribute(single_block_kernel<S, COLL, FORCE>,
+        cudaFuncSetAttribute(single_block_kernel<S, COLL, FORCE, LOCAL>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  single_block_kernel<S, COLL, FORCE><<<B.grid, kBlockThreads, smem, st>>>(
-      static_cast<const S*>(f_in), fl, static_cast<S*>(f_out), P, B,
+  single_block_kernel<S, COLL, FORCE, LOCAL><<<B.grid, kBlockThreads, smem, st>>>(
+      static_cast<const S*>(f_in), fl, static_cast<S*>(f_out), P, B, G,
       static_cast<unsigned char*>(scratch));
   return (int)cudaGetLastError();
 }
 
-// T steps; returns a cudaError_t code (0 on success).
-template <typename S>
+// T steps (LOCAL: of one shard's padded buffer, into its centre); returns a
+// cudaError_t code (0 on success).
+template <typename S, bool LOCAL = false>
 int single2d_block_dispatch(const void* f_in, void* f_out, const void* fl_v, void* scratch,
-                            const Single2dParams& P, int T, cudaStream_t st) {
+                            const Single2dParams& P, int T, cudaStream_t st,
+                            const LocalGrid& G = LocalGrid{}) {
   const unsigned char* fl = static_cast<const unsigned char*>(fl_v);
   if (T < 1) return (int)cudaErrorInvalidValue;
   const bool force = P.force != 0;
   switch (P.collision) {
     case kSRT:
-      return force ? launch_single_block<S, kSRT, true>(f_in, f_out, fl, scratch, P, T, st)
-                   : launch_single_block<S, kSRT, false>(f_in, f_out, fl, scratch, P, T, st);
+      return force ? launch_single_block<S, kSRT, true, LOCAL>(f_in, f_out, fl, scratch, P, T,
+                                                               st, G)
+                   : launch_single_block<S, kSRT, false, LOCAL>(f_in, f_out, fl, scratch, P,
+                                                                T, st, G);
     case kTRT:
-      return force ? launch_single_block<S, kTRT, true>(f_in, f_out, fl, scratch, P, T, st)
-                   : launch_single_block<S, kTRT, false>(f_in, f_out, fl, scratch, P, T, st);
+      return force ? launch_single_block<S, kTRT, true, LOCAL>(f_in, f_out, fl, scratch, P, T,
+                                                               st, G)
+                   : launch_single_block<S, kTRT, false, LOCAL>(f_in, f_out, fl, scratch, P,
+                                                                T, st, G);
     case kMRT:
-      return force ? launch_single_block<S, kMRT, true>(f_in, f_out, fl, scratch, P, T, st)
-                   : launch_single_block<S, kMRT, false>(f_in, f_out, fl, scratch, P, T, st);
+      return force ? launch_single_block<S, kMRT, true, LOCAL>(f_in, f_out, fl, scratch, P, T,
+                                                               st, G)
+                   : launch_single_block<S, kMRT, false, LOCAL>(f_in, f_out, fl, scratch, P,
+                                                                T, st, G);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The local launch's tiling (single2d_local libraries).
+template <typename S>
+BlockShape single_local_shape(const Single2dParams& P, int T, const LocalGrid& G) {
+  return single_block_shape<S, true>(P, T, G);
 }
 
 }  // namespace

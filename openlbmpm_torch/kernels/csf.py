@@ -10,7 +10,12 @@ Perturbation variant (K4) in the same three layouts (K4c, K4h, K4s) in
 library, ``csrc/pert2d_f64.cu``).  T > 1 steps per call
 (``steps_per_call``, K3): both variants in the three layouts (K3c, K3h,
 K3s) in ``csrc/csf2d_block_{f64,f32,bf16}.cu`` (``csrc/csf2d_block.cuh``),
-one library per storage type.
+one library per storage type.  The local form of K3 (K12a: one shard of
+a y or (y, x) decomposed domain, both variants, compressed f32 and f64) is
+``csrc/csf2d_local_{f64,f32}.cu``, and ``build_csf_sharded_step`` (the
+counterpart of ``pallas/csf.py::build_csf_sharded_step``) drives it and
+the coupled one (``kernels/transport.py``) over a mesh
+(``openlbmpm_torch/parallel``).
 
 States:
   * compressed f32 / f64: (10, ny, nx) -- planes 0-8 the total PDF, plane 9
@@ -51,7 +56,10 @@ __all__ = ["geo_stack", "CsfParams", "kernel_params", "launch_csf2d",
            "csf_block_compressed_reference",
            "csf_block_split", "csf_block_split_reference",
            "pert_block_compressed", "pert_block_compressed_reference",
-           "pert_block_split", "pert_block_split_reference"]
+           "pert_block_split", "pert_block_split_reference",
+           "LOCAL_LIBRARIES", "csf_local_frame", "launch_csf2d_local",
+           "csf_local_step", "csf_local_step_reference",
+           "build_csf_sharded_step"]
 
 
 def geo_stack(geometry: Geometry) -> np.ndarray:
@@ -561,6 +569,218 @@ pert_block_split.launches = 0
 def pert_block_split_reference(state, model, steps: int):
     """Plain PyTorch version of the Perturbation K3s, on any device."""
     return _block_reference_split(state, model, steps, "Perturbation")
+
+
+# -- the local form (K12a): one shard of a decomposed domain ----------------
+
+_LOCAL_LIBS = {torch.float64: "csf2d_local_f64",
+               torch.float32: "csf2d_local_f32"}
+LOCAL_LIBRARIES = tuple(_LOCAL_LIBS.values())
+
+
+def _local_fns(lib: str):
+    """(step, scratch_bytes, shape, error_string) of a K12a library: ints
+    (T, the LocalGrid), pointers (s, out, geo, scratch)."""
+    return build.block_fns(lib, "csf2d_local", 8, 4, CsfParams)
+
+
+def csf_local_frame(params: CsfParams, steps: int, x_axis: bool):
+    """The frame (``parallel.mesh.Frame``) a K12a launch of `steps` steps
+    reads for the parameter block `params` (global ny): K3's rings (CSF 4,
+    Perturbation 2) a step, the inlet ghost's band 1 row below and the
+    outlet's 3 rows above; `x_axis` for a mesh with an x axis."""
+    from ..parallel.mesh import frame_of
+    return frame_of(4 if params.variant == 0 else 2, steps,
+                    1 if params.inlet else 0, 3 if params.outlet else 0,
+                    params.ny, x_axis)
+
+
+def _check_local(grid, planes, *pairs):
+    """Raise unless each (tensor, planes, dtype) of `pairs` is a contiguous
+    ``(planes, py, px)`` buffer of `grid` on the first tensor's card."""
+    dev = pairs[0][0].device
+    for t, n, want in pairs:
+        shape = (*n, grid.py, grid.px) if isinstance(n, tuple) else \
+            (n, grid.py, grid.px)
+        if t.device != dev or t.device.type != "cuda" or \
+                tuple(t.shape) != shape or t.dtype != want or \
+                not t.is_contiguous():
+            raise ValueError(f"local buffer {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device}; the kernel takes a contiguous "
+                             f"{shape} {want} on {dev}")
+
+
+def launch_csf2d_local(s: torch.Tensor, out: torch.Tensor, params: CsfParams,
+                       geo: torch.Tensor, grid, steps: int) -> torch.Tensor:
+    """`steps` kernel steps (one launch of K12a, the variant of `params`) of
+    the shard `grid` (``parallel.mesh.LocalGrid``): `s` its padded
+    compressed (10, py, px) f32 or f64 buffer, frame filled, into the
+    centre of `out`; `geo` its padded (5, py, px) geometry planes.  Not
+    counted as a launch."""
+    if s.dtype not in _LOCAL_LIBS:
+        raise ValueError(f"state {s.dtype}; K12a takes float32 or float64")
+    _check_local(grid, 10, (s, 10, s.dtype), (out, 10, s.dtype),
+                 (geo, 5, s.dtype))
+    lib = _LOCAL_LIBS[s.dtype]
+    build.launch_block(lib, _local_fns(lib), grid.ints(steps), (s, out, geo),
+                       params)
+    return out
+
+
+def csf_local_step(s: torch.Tensor, out: torch.Tensor, geo: torch.Tensor,
+                   model, grid, steps: int) -> torch.Tensor:
+    """`steps` compressed steps of one shard for `model`, a ColorGradientRK
+    (CSF or Perturbation) of the global domain: `s` the shard's padded
+    buffer (frame filled), the result written into the centre of `out`,
+    which is returned; `geo` the shard's padded geometry planes.  CPU
+    tensors: the plain version.  CUDA tensors: one launch of K12a, or an
+    error; never the plain version."""
+    if s.device.type == "cpu":
+        grid.centre(out).copy_(csf_local_step_reference(s, model, grid,
+                                                        steps))
+        return out
+    build.check_steps(steps)
+    if s.device.type != "cuda":
+        raise ValueError(f"no csf kernel for device {s.device}")
+    model.check_compressed()
+    if s.dtype != model.dtype:
+        raise ValueError(f"state {s.dtype}; the model takes {model.dtype}")
+    launch_csf2d_local(s, out, model.kernel_params, geo, grid, steps)
+    csf_local_step.launches += 1
+    return out
+
+
+csf_local_step.launches = 0
+
+
+def rest_state(model) -> torch.Tensor:
+    """The compressed state at rest, rho = 1 and all blue, on the fluid
+    cells of `model`'s domain: what the plain local versions put around a
+    shard (any finite state serves; no centre cell reads it)."""
+    fl = model.geo_planes[0]
+    w = torch.as_tensor(D2Q9.w, dtype=fl.dtype, device=fl.device)
+    return torch.cat([w[:, None, None] * fl, torch.zeros_like(fl)[None]])
+
+
+def csf_local_step_reference(s: torch.Tensor, model, grid, steps: int):
+    """Plain PyTorch version of K12a, on any device: the shard's padded
+    buffer `s` embedded at its global rows and columns in the domain at
+    rest (``parallel.mesh.embed_local``), `steps` plain compressed steps of
+    the whole domain (``_step_csf_c`` or ``_step_pert_c``), and the centre
+    taken back.  Exact wherever the frame covers the window's reach, which
+    the step's frame does: a cell further away cannot reach the centre in
+    `steps` steps.  Returns the centre (10, ny, nx) of the shard."""
+    from ..parallel.mesh import embed_local
+    build.check_steps(steps)
+    model.check_compressed()
+    fn = model._step_csf_c if model.p.variant == "CSF" else model._step_pert_c
+    x = embed_local(s, grid, rest_state(model))
+    for _ in range(steps):
+        x = fn(x)
+    return x[..., grid.row0:grid.row0 + grid.ny,
+             grid.col0:grid.col0 + grid.nx]
+
+
+def tpu_halo_rows(steps: int, variant: str = "CSF",
+                  transport: str | None = None) -> int:
+    """The JAX sharded builder's halo depth H (``pallas/csf.py::_halo_rows``
+    :58-70), which sets its x-axis refusal ``nx/px <= 2 H`` (:1992-2010);
+    the port's frame is its own (``csf_local_frame``)."""
+    per = (4 if variant == "CSF" else 2) + (transport == "bounceback")
+    margin = 2 if (variant != "CSF" or transport is not None) else 0
+    return (per * steps + margin + 7) // 8 * 8
+
+
+def build_csf_sharded_step(geometry: Geometry, params, mesh,
+                           dtype=torch.float32,
+                           rows_per_block: int | None = None,
+                           steps_per_call: int = 1, bc_config=None,
+                           transport_params=None, interpret: bool = False,
+                           state_mode: str = "compressed"):
+    """The compressed CSF or Perturbation step (K12a) under a y- or (y, x)-
+    decomposed `mesh` (``parallel.mesh.make_mesh``): the counterpart of
+    ``pallas/csf.py::build_csf_sharded_step``.  `params` a
+    ``ColorGradientParams``, `bc_config` a ``CGBoundaryConfig`` (None:
+    periodic), `transport_params` a ``TransportParams`` for the coupled
+    step (CSF flow only), all the port's.
+
+    Returns a ``parallel.mesh.ShardedStep``: ``step(state)`` advances a
+    sharded state ``step.shard(s)`` (or ``step.shard(s, g)`` with the
+    tracer PDFs (NT, NQ, ny, nx)) by T = `steps_per_call` steps in place,
+    ``step.gather(state)`` gives the global (10, ny, nx) state (and the
+    tracer PDFs).  Per call the frames are exchanged, then each shard runs
+    K12a (``csf_local_step``) or its coupled form (``kernels/transport.py::
+    coupled_local_step``) on a card, its plain version on the CPU.
+    ``conserve_mass`` and the redistribute exchange are global epilogues
+    and not part of the step, as in the JAX builder (:1976-1980); its
+    "y-decomposition only" for the coupled step is stale there and here:
+    the (y, x) mesh runs it.
+
+    Returns None where the JAX builder builds no step for a reason of the
+    domain or the state: ny not divisible by the mesh's py or nx by its px;
+    px > 1 with nx/px <= 2 H (H the JAX halo, ``tpu_halo_rows``); the split
+    state, bfloat16 storage, a Perturbation flow with transport; and
+    boundary kinds no kernel takes (csf.py:274-278).  The TPU strips'
+    constraints (``rows_per_block``, R % H) do not apply here; the port
+    refuses instead a shard shallower (or narrower) than the frame it
+    sends, since the exchange is one hop: its frame is K3's window reach,
+    ``csf_local_frame`` (deeper than H with boundary bands at T >= 2, e.g.
+    CSF at T = 2 with an outlet needs 11 rows above, so ny/py = 8 is
+    refused where the JAX builder runs).  ``rows_per_block`` and
+    ``interpret`` are ignored."""
+    del rows_per_block, interpret
+    from .._device import resolve_dtype
+    from ..models.colorgradient import (BLOCK_INLETS, BLOCK_OUTLETS,
+                                        CGBoundaryConfig, ColorGradientRK)
+    from ..parallel.mesh import ShardedStep, shard_domain
+    from .transport import coupled_local_frame, coupled_local_step
+
+    ny, nx = geometry.shape
+    py, px = mesh.shape
+    steps = int(steps_per_call)
+    build.check_steps(steps)
+    dtype = resolve_dtype(dtype)
+    tp = transport_params
+    if ny % py or nx % px or state_mode != "compressed" or \
+            dtype == torch.bfloat16 or (tp is not None and
+                                        params.variant != "CSF"):
+        return None
+    bcs = bc_config if bc_config is not None else CGBoundaryConfig()
+    if bcs.inlet not in BLOCK_INLETS or bcs.outlet not in BLOCK_OUTLETS:
+        return None
+    tr_mode = None if tp is None else (
+        "bounceback" if tp.interface_mode in ("bounceback", "redistribute")
+        else tp.interface_mode)
+    if px > 1 and nx // px <= 2 * tpu_halo_rows(steps, params.variant,
+                                                 tr_mode):
+        return None
+    if tp is None:
+        model = ColorGradientRK(geometry, params, bcs, dtype=dtype,
+                                device=mesh.device)
+        flow = model
+        frame = csf_local_frame(model.kernel_params, steps, px > 1)
+    else:
+        from ..models.transport import TransportRK
+        model = TransportRK(geometry, params, tp, bcs, dtype=dtype,
+                            device=mesh.device)
+        flow = model.flow
+        frame = coupled_local_frame(model, steps, px > 1)
+    if max(frame.lo, frame.hi) > ny // py or frame.x > nx // px:
+        return None
+    geo = dict(zip(mesh.local_ids(),
+                   shard_domain(flow.geo_planes, mesh, frame)))
+
+    if tp is None:
+        def local(k, grid, ins, outs):
+            csf_local_step(ins[0], outs[0], geo[k], model, grid, steps)
+        dtypes = (dtype,)
+    else:
+        def local(k, grid, ins, outs):
+            coupled_local_step(ins, outs, geo[k], model, grid, steps)
+        dtypes = (dtype, dtype)
+    step = ShardedStep(mesh, (ny, nx), frame, local, steps, dtypes)
+    step.model = model
+    return step
 
 
 def compare_bf16_states(a: torch.Tensor, b: torch.Tensor,

@@ -9,7 +9,11 @@ convective outlet rows.  The kernels live in ``csrc/single2d.cuh``, one
 library per storage type (``single2d_f64``, ``single2d_f32``,
 ``single2d_bf16``).  With ``steps_per_call`` = T > 1 (K7-T, the boundary rows
 rewritten after every sub-step): ``csrc/single2d_block.cuh``, libraries
-``single2d_block_{f64,f32,bf16}``.
+``single2d_block_{f64,f32,bf16}``.  The local form of K7-T (K12b: one
+shard of a y-decomposed domain, f32 and f64) is ``single_local_step``,
+``csrc/single2d_local_{f64,f32}.cu``, which ``build_single_sharded_step``
+(the counterpart of ``pallas/single.py::build_single_sharded_step``)
+drives over a mesh (``openlbmpm_torch/parallel``).
 
 States: f (9, ny, nx) float32 / float64, or (11, ny, nx) bfloat16 (the
 deviations f_i - w_i rho, then rho as a hi/lo pair).  The geometry is one
@@ -31,7 +35,10 @@ from . import build
 __all__ = ["LIBRARIES", "BLOCK_LIBRARIES", "Single2dParams", "kernel_params",
            "launch_single2d", "single_step", "single_step_reference",
            "launch_single2d_block", "single_block_step",
-           "single_block_step_reference", "single_block_tiling"]
+           "single_block_step_reference", "single_block_tiling",
+           "LOCAL_LIBRARIES", "single_local_frame", "launch_single2d_local",
+           "single_local_step", "single_local_step_reference",
+           "build_single_sharded_step"]
 
 _LIBS = {torch.float64: "single2d_f64", torch.float32: "single2d_f32",
          torch.bfloat16: "single2d_bf16"}
@@ -231,3 +238,144 @@ def single_block_step_reference(f: torch.Tensor, model, steps: int):
     for _ in range(steps):
         x = model._step_impl(x)
     return model.pack_state_bf16(x) if f.dtype == torch.bfloat16 else x
+
+
+# -- the local form (K12b): one shard of a y-decomposed domain --------------
+
+_LOCAL_LIBS = {torch.float64: "single2d_local_f64",
+               torch.float32: "single2d_local_f32"}
+LOCAL_LIBRARIES = tuple(_LOCAL_LIBS.values())
+
+
+def _local_fns(lib: str):
+    """(step, scratch_bytes, shape, error_string) of a K12b library: ints
+    (T, the LocalGrid), pointers (f, out, fluid, scratch)."""
+    return build.block_fns(lib, "single2d_local", 8, 4, Single2dParams)
+
+
+def single_local_frame(bcs, steps: int, ny: int):
+    """The frame a K12b launch of `steps` steps reads for the boundary
+    configuration `bcs` of a domain of `ny` rows: one ring a step, the
+    inlet ghost's band 1 row below, the outlet's 3 (convective) or 1
+    (Zou-He) rows above, as ``csrc/single2d_block.cuh::
+    single_block_shape``.  No x frame: K12b decomposes y only."""
+    from ..parallel.mesh import frame_of
+    mhi = {"convective": 3, "zou_he_pressure": 1}.get(bcs.outlet, 0)
+    return frame_of(1, steps, 0 if bcs.inlet == "periodic" else 1, mhi, ny,
+                    False)
+
+
+def launch_single2d_local(f: torch.Tensor, out: torch.Tensor,
+                          params: Single2dParams, fluid: torch.Tensor, grid,
+                          steps: int) -> torch.Tensor:
+    """`steps` kernel steps (one launch of K12b) of the shard `grid`
+    (``parallel.mesh.LocalGrid``): `f` its padded (9, py, px) f32 or f64
+    buffer, frame filled, into the centre of `out`; `fluid` its padded
+    uint8 mask (py, px).  Not counted as a launch."""
+    from .csf import _check_local
+    if f.dtype not in _LOCAL_LIBS:
+        raise ValueError(f"state {f.dtype}; K12b takes float32 or float64")
+    _check_local(grid, 9, (f, 9, f.dtype), (out, 9, f.dtype),
+                 (fluid[None], 1, torch.uint8))
+    lib = _LOCAL_LIBS[f.dtype]
+    build.launch_block(lib, _local_fns(lib), grid.ints(steps),
+                       (f, out, fluid), params)
+    return out
+
+
+def single_local_step(f: torch.Tensor, out: torch.Tensor,
+                      fluid: torch.Tensor, model, grid,
+                      steps: int) -> torch.Tensor:
+    """`steps` single-phase steps of one shard for `model`, a
+    SinglePhaseD2Q9 of the global domain: `f` the shard's padded buffer
+    (frame filled), the result written into the centre of `out`, which is
+    returned; `fluid` the shard's padded uint8 mask.  CPU tensors: the
+    plain version.  CUDA tensors: one launch of K12b, or an error; never
+    the plain version."""
+    if f.device.type == "cpu":
+        grid.centre(out).copy_(single_local_step_reference(f, model, grid,
+                                                           steps))
+        return out
+    build.check_steps(steps)
+    if f.device.type != "cuda":
+        raise ValueError(f"no single-phase kernel for device {f.device}")
+    if model.kernel_params is None:
+        raise ValueError(f"no single-phase kernel for this configuration on "
+                         f"{model.device} (path {model.path!r})")
+    if f.dtype != model.dtype:
+        raise ValueError(f"state {f.dtype}; the model takes {model.dtype}")
+    launch_single2d_local(f, out, model.kernel_params, fluid, grid, steps)
+    single_local_step.launches += 1
+    return out
+
+
+single_local_step.launches = 0
+
+
+def single_local_step_reference(f: torch.Tensor, model, grid, steps: int):
+    """Plain PyTorch version of K12b, on any device: the shard's padded
+    buffer embedded at its global rows in the domain at rest (rho = 1;
+    ``parallel.mesh.embed_local``), `steps` plain steps of the whole domain
+    (``_step_impl``), and the centre (9, ny, nx) taken back."""
+    from ..lattice import D2Q9
+    from ..parallel.mesh import embed_local
+    build.check_steps(steps)
+    fl = model.fluid_mask
+    w = torch.as_tensor(D2Q9.w, dtype=fl.dtype, device=fl.device)
+    x = embed_local(f, grid, w[:, None, None] * fl)
+    for _ in range(steps):
+        x = model._step_impl(x)
+    return x[..., grid.row0:grid.row0 + grid.ny,
+             grid.col0:grid.col0 + grid.nx]
+
+
+def build_single_sharded_step(geometry, tau: float, collision: str,
+                              body_force, mesh, bc_config=None,
+                              dtype=torch.float32,
+                              rows_per_block: int | None = None,
+                              steps_per_call: int = 1,
+                              interpret: bool = False):
+    """The single-phase step (K12b) under a y-decomposed `mesh`
+    (``parallel.mesh.make_mesh``): the counterpart of ``pallas/single.py::
+    build_single_sharded_step``.  `bc_config` a ``BoundaryConfig`` (None:
+    periodic).  Returns a ``parallel.mesh.ShardedStep`` (``shard(f)``,
+    ``step(state)`` of T = `steps_per_call` steps in place,
+    ``gather(state)`` the global (9, ny, nx) state): per call the frames
+    are exchanged, then each shard runs K12b (``single_local_step``) on a
+    card, its plain version on the CPU.
+
+    Returns None where the JAX builder does: a mesh with an x axis larger
+    than 1, ny not divisible by the mesh's py (single.py:477-481), and
+    boundary kinds K7 does not take (``models/single_phase.py::
+    takes_kernel``).  The TPU strips' constraints do not apply; the port
+    refuses instead a shard shallower than the frame it sends
+    (``single_local_frame``; the exchange is one hop).
+    ``rows_per_block`` and ``interpret`` are ignored."""
+    del rows_per_block, interpret
+    from .._device import resolve_dtype
+    from ..models.single_phase import (BoundaryConfig, SinglePhaseD2Q9,
+                                       takes_kernel)
+    from ..parallel.mesh import ShardedStep, shard_domain
+
+    ny, nx = geometry.shape
+    py, px = mesh.shape
+    steps = int(steps_per_call)
+    build.check_steps(steps)
+    bcs = bc_config if bc_config is not None else BoundaryConfig()
+    if px != 1 or ny % py or not takes_kernel(bcs, False):
+        return None
+    frame = single_local_frame(bcs, steps, ny)
+    if max(frame.lo, frame.hi) > ny // py:
+        return None
+    dtype = resolve_dtype(dtype)
+    model = SinglePhaseD2Q9(geometry, tau, collision, body_force, bcs,
+                            dtype=dtype, device=mesh.device)
+    fluid = dict(zip(mesh.local_ids(), shard_domain(
+        torch.as_tensor(geometry.is_fluid, dtype=torch.uint8), mesh, frame)))
+
+    def local(k, grid, ins, outs):
+        single_local_step(ins[0], outs[0], fluid[k], model, grid, steps)
+
+    step = ShardedStep(mesh, (ny, nx), frame, local, steps, (dtype,))
+    step.model = model
+    return step

@@ -26,6 +26,11 @@ is ``coupled_block_compressed((s, g), model, steps)`` and
 ``coupled_block_split(state, model, steps)``: one launch of
 ``csrc/coupled2d_block_{f64,f32,bf16}.cu`` (``csrc/coupled2d_block.cuh``)
 advances T coupled steps, a bf16 flow state decoded once and encoded once.
+
+The local form (K12a with transport: one shard of a y or (y, x)
+decomposed domain, compressed f32 and f64 flow, D2Q5 and D2Q9 tracers) is
+``coupled_local_step``, ``csrc/coupled2d_local_{f64,f32}.cu``, which
+``kernels/csf.py::build_csf_sharded_step`` drives with ``transport_params``.
 """
 
 from __future__ import annotations
@@ -46,7 +51,9 @@ __all__ = ["TracerParams", "tracer_kernel_params", "tracer_table",
            "coupled_block_tiling", "launch_coupled2d_block",
            "launch_coupled2d_block_split", "coupled_block_compressed",
            "coupled_block_compressed_reference", "coupled_block_split",
-           "coupled_block_split_reference"]
+           "coupled_block_split_reference", "LOCAL_LIBRARIES",
+           "coupled_local_frame", "launch_coupled2d_local",
+           "coupled_local_step", "coupled_local_step_reference"]
 
 
 class TracerParams(ctypes.Structure):
@@ -465,3 +472,115 @@ def coupled_block_split_reference(state, model, steps: int):
     for _ in range(steps):
         state = model.plain_step(state)
     return state
+
+
+# -- the local form (K12a with transport) -------------------------------------
+
+_LOCAL_LIBS = {torch.float64: "coupled2d_local_f64",
+               torch.float32: "coupled2d_local_f32"}
+LOCAL_LIBRARIES = tuple(_LOCAL_LIBS.values())
+
+
+def _local_fns(lib: str):
+    """(step, scratch_bytes, shape, error_string) of a coupled local library:
+    ints (T, the LocalGrid), pointers (s, out, geo, g, g_out, table,
+    scratch)."""
+    return build.block_fns(lib, "coupled2d_local", 8, 7, CoupledParams)
+
+
+def coupled_local_frame(model, steps: int, x_axis: bool):
+    """The frame a coupled local launch of `steps` steps reads for `model`,
+    a TransportRK: K3's 4 rings a step, and the band reaches of flow and
+    tracer rows added up (the flow's inlet ghost 1 row and the tracer's
+    anti-bounce-back or zero inlet 2 rows below; the flow's outlet 3 rows
+    and the tracer's free-flow outlet 3 rows above), as
+    ``csrc/coupled2d_block.cuh::coupled_block_shape``.  The TPU kernel's
+    fifth ring for the bounce-back interface is not needed here."""
+    from ..parallel.mesh import frame_of
+    p, r = model.flow.kernel_params, model.tracer_params
+    mlo = (1 if p.inlet else 0) + (2 if r.inlet in (2, 3) else 0)
+    mhi = (3 if p.outlet else 0) + (3 if r.outlet else 0)
+    return frame_of(4, steps, mlo, mhi, p.ny, x_axis)
+
+
+def launch_coupled2d_local(ins, outs, params: CoupledParams,
+                           geo: torch.Tensor, table: torch.Tensor, grid,
+                           steps: int):
+    """`steps` coupled kernel steps (one launch) of the shard `grid`
+    (``parallel.mesh.LocalGrid``): `ins` its padded compressed flow buffer
+    (10, py, px) and tracer PDFs (NT, NQ, py, px), f32 or f64, frames
+    filled, into the centres of `outs`; `geo` its padded geometry planes,
+    `table` the tracer table.  Not counted as a launch."""
+    from .csf import _check_local
+    (s, g), (out_s, out_g) = ins, outs
+    if s.dtype not in _LOCAL_LIBS:
+        raise ValueError(f"state {s.dtype}; the coupled local kernel takes "
+                         "float32 or float64")
+    nq = (params.tracer.nt, params.tracer.nq)
+    _check_local(grid, 10, (s, 10, s.dtype), (out_s, 10, s.dtype),
+                 (geo, 5, s.dtype), (g, nq, s.dtype), (out_g, nq, s.dtype))
+    if table.dtype != s.dtype or table.device != s.device:
+        raise ValueError(f"tracer table {table.dtype} on {table.device}")
+    lib = _LOCAL_LIBS[s.dtype]
+    build.launch_block(lib, _local_fns(lib), grid.ints(steps),
+                       (s, out_s, geo, g, out_g, table.contiguous()), params)
+    return outs
+
+
+def coupled_local_step(ins, outs, geo: torch.Tensor, model, grid,
+                       steps: int):
+    """`steps` coupled steps of one shard for `model`, a TransportRK of the
+    global domain: `ins` = (s, g) the shard's padded flow and tracer
+    buffers (frames filled), the results written into the centres of
+    `outs`, which are returned; `geo` the shard's padded geometry planes.
+    The in-kernel part only, as the JAX sharded builder: ``conserve_mass``
+    and the redistribute exchange are global epilogues (a redistribute
+    interface confines as bounce-back does).  CPU tensors: the plain
+    version.  CUDA tensors: one launch of the coupled local kernel, or an
+    error; never the plain version."""
+    s, g = ins
+    if s.device.type == "cpu":
+        cs, cg = coupled_local_step_reference(ins, model, grid, steps)
+        grid.centre(outs[0]).copy_(cs)
+        grid.centre(outs[1]).copy_(cg)
+        return outs
+    build.check_steps(steps)
+    if s.device.type != "cuda":
+        raise ValueError(f"no coupled kernel for device {s.device}")
+    if s.dtype != model.dtype or g.dtype != model.dtype:
+        raise ValueError(f"state {s.dtype} / {g.dtype}; the model takes "
+                         f"{model.dtype}")
+    if model.standalone:
+        raise ValueError("standalone transport has no local form")
+    launch_coupled2d_local(ins, outs, coupled_block_params(model), geo,
+                           model.tracer_table, grid, steps)
+    coupled_local_step.launches += 1
+    return outs
+
+
+coupled_local_step.launches = 0
+
+
+def coupled_local_step_reference(ins, model, grid, steps: int):
+    """Plain PyTorch version of the coupled local kernel, on any device: the
+    shard's padded buffers embedded at their global rows and columns (the
+    flow in the domain at rest, the tracers at 0; ``parallel.mesh.
+    embed_local``), `steps` plain coupled steps of the whole domain (the
+    tracer sub-step on the fields before the flow's boundary rows, then the
+    flow's compressed step, as ``TransportRK.plain_step_c``, without the
+    global epilogues), and the centres taken back: (s, g) of the shard."""
+    from ..parallel.mesh import embed_local
+    from .csf import rest_state
+    build.check_steps(steps)
+    s, g = ins
+    flow = model.flow
+    x = embed_local(s, grid, rest_state(flow))
+    gg = embed_local(g, grid, torch.zeros(
+        (*g.shape[:-2], *model.geo.shape), dtype=g.dtype, device=g.device))
+    for _ in range(steps):
+        rho_r, _, _, gx, gy, u = flow.fields_c(x)
+        gg = model._transport_substep(gg, u, gx, gy, rho_r)
+        x = flow.plain_step_c(x)
+    rows = slice(grid.row0, grid.row0 + grid.ny)
+    cols = slice(grid.col0, grid.col0 + grid.nx)
+    return x[..., rows, cols], gg[..., rows, cols]

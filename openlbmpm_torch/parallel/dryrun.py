@@ -1,0 +1,314 @@
+"""The port's multi-device dry run: the 2-D half of
+``__graft_entry__.py::dryrun_multichip`` (:104-243).
+
+    python -m openlbmpm_torch.parallel.dryrun --ranks N --device cpu|cuda
+    python -m openlbmpm_torch.parallel.dryrun --in-process --device cuda
+
+Runs, at the JAX dry run's shapes scaled by N (even, >= 2):
+
+1. the sharded colour-gradient step (K12a) on an (N, 1) y-mesh, the
+   flagship flow at 16N x 128, T = 2;
+2. K12a on a (y, x) mesh (max(2, N/4), N / that), the flagship flow at
+   32 py x 64 px, T = 1;
+3. the coupled flow + D2Q5 tracer step (K12a with transport, SRT,
+   bounce-back interface) on an (N, 1) y-mesh, 16N x 64 (the JAX run's
+   4-shard 64 x 64 at N = 4);
+4. the same on a (2, N/2) mesh, 64 x 32 N/2 (its (2, 2) 64 x 64 at N = 4);
+5. (the port's addition) the sharded single-phase step (K12b) on an
+   (N, 1) y-mesh, 16N x 64, MRT, Zou-He inlet, convective outlet, T = 2.
+
+Each prints one line in the JAX wording, checks that the state stays finite
+and holds the gathered state against the port's single-device step (the
+T-step kernel at the same T on a card, the plain step on the CPU): the line
+gives the largest difference.  With ``--ranks N`` the shards are N
+processes of a ``torch.distributed`` group (``ProcessMesh``: gloo on the
+CPU, NCCL with one card a rank, so N cards), which this module spawns and
+joins with a deadline; with ``--in-process`` all N shards run in this
+process on one device (``LocalMesh``), which is what one card can prove.
+The 3-D configurations and the GSPMD jnp line of the JAX dry run wait for
+the ports of their sharded builders (K12d, K12e).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import tempfile
+import time
+from datetime import timedelta
+
+import numpy as np
+import torch
+
+__all__ = ["CASES", "case_model", "run_case", "run_ranks", "main"]
+
+# name -> (family, global shape from N, mesh shape from N, T)
+CASES = {
+    "y": ("csf", lambda n: (16 * n, 128), lambda n: (n, 1), 2),
+    "yx": ("csf", lambda n: (32 * max(2, n // 4), 64 * (n // max(2, n // 4))),
+           lambda n: (max(2, n // 4), n // max(2, n // 4)), 1),
+    "coupled_y": ("coupled", lambda n: (16 * n, 64), lambda n: (n, 1), 1),
+    "coupled_yx": ("coupled", lambda n: (64, 32 * (n // 2)),
+                   lambda n: (2, n // 2), 1),
+    "single_y": ("single", lambda n: (16 * n, 64), lambda n: (n, 1), 2),
+}
+# the cases of the tests at 64 x 64 f64 on 4 shards: T = 1
+TEST_CASES = {
+    "csf_y_t1": ("csf", (64, 64), (4, 1), 1),
+    "coupled_yx_t1": ("coupled", (64, 64), (2, 2), 1),
+}
+
+
+def _walled(ny, nx):
+    from ..geometry import from_solid_mask
+    solid = np.zeros((ny, nx), bool)
+    solid[:, 0] = solid[:, -1] = True
+    return from_solid_mask(solid)
+
+
+def case_model(family: str, shape, dtype):
+    """(geometry, builder keyword arguments, start arrays) of a family at a
+    global shape: the JAX dry run's flagship flow (``__graft_entry__.py::
+    _flagship_model``) for "csf" with red in the top 6 rows, its coupled
+    case (:197-243) for "coupled" (12 invading rows, the tracer in the top
+    half), and for "single" a walled channel at rest with a Zou-He inlet.
+    The start is made in float64 and cast to `dtype`."""
+    from ..models.colorgradient import (CGBoundaryConfig, ColorGradientParams,
+                                        ColorGradientRK)
+    ny, nx = shape
+    g = _walled(ny, nx)
+    if family == "single":
+        from ..models.single_phase import BoundaryConfig, SinglePhaseD2Q9
+        bcs = BoundaryConfig(inlet="zou_he_velocity", outlet="convective",
+                             inlet_velocity=-1e-3)
+        kw = dict(tau=0.8, collision="MRT", body_force=(0.0, 0.0),
+                  bc_config=bcs)
+        m = SinglePhaseD2Q9(g, 0.8, "MRT", boundaries=bcs,
+                            dtype=torch.float64, device="cpu")
+        return g, kw, (m.init_state().to(dtype),)
+    if family == "csf":
+        params = ColorGradientParams(
+            tau_r=1.0, tau_b=1.0, surface_tension=0.1, contact_angle_deg=60.0,
+            beta=0.7, delta=0.98, tau_type=2, wetting_type=2, variant="CSF",
+            collision="MRT")
+        bcs = CGBoundaryConfig(inlet="neumann", outlet="dirichlet",
+                               inlet_velocity=-1e-4, outlet_density_r=0.0,
+                               outlet_density_b=1.0)
+        m = ColorGradientRK(g, params, bcs, dtype=torch.float64, device="cpu")
+        s = m.pack_state(*m.init_state_layers(1.0, 1.0, invading_rows=6))
+        return g, dict(params=params, bc_config=bcs), (s.to(dtype),)
+    from ..models.transport import TransportParams, TransportRK
+    params = ColorGradientParams(variant="CSF", collision="MRT",
+                                 surface_tension=0.01, tau_type=2,
+                                 wetting_type=2)
+    bcs = CGBoundaryConfig(inlet="neumann", outlet="dirichlet",
+                           inlet_velocity=-1e-3, outlet_density_r=0.0,
+                           outlet_density_b=1.0)
+    tp = TransportParams(num_tracers=1, scheme=5, tau=(1.0,),
+                         interface_mode="bounceback")
+    m = TransportRK(g, params, tp, bcs, dtype=torch.float64, device="cpu")
+    conc0 = np.zeros((1, ny, nx))
+    conc0[:, ny // 2:] = 1.0
+    st = m.init_state(m.flow.init_state_layers(1.0, 1.0, invading_rows=12),
+                      conc0)
+    s = m.flow.pack_state(st.f_r, st.f_b)
+    return g, dict(params=params, bc_config=bcs, transport_params=tp), (
+        s.to(dtype), st.g.to(dtype))
+
+
+def _builder(family):
+    from ..kernels.csf import build_csf_sharded_step
+    from ..kernels.single import build_single_sharded_step
+    if family == "single":
+        def build(g, mesh, dtype, steps, kw):
+            return build_single_sharded_step(
+                g, kw["tau"], kw["collision"], kw["body_force"], mesh,
+                bc_config=kw["bc_config"], dtype=dtype, steps_per_call=steps)
+    else:
+        def build(g, mesh, dtype, steps, kw):
+            return build_csf_sharded_step(g, kw["params"], mesh, dtype,
+                                          steps_per_call=steps, **{
+                                              k: v for k, v in kw.items()
+                                              if k != "params"})
+    return build
+
+
+def _one_device(step, start, calls):
+    """`calls` calls of the single-device step that the shards' kernels
+    are held to: the T-step kernel at the step's T on a card (the T-step
+    wrappers at T = 1 too), the plain step on the CPU."""
+    from ..kernels import csf as kc
+    from ..kernels import single as ks
+    from ..kernels import transport as kt
+    m, t = step.model, step.steps_per_call
+    dev = step.mesh.device
+    x = tuple(a.to(dev) for a in start)
+    for _ in range(calls):
+        if hasattr(m, "tracer_table"):
+            x = kt.coupled_block_compressed(x, m, t)
+        elif hasattr(m, "geo_planes"):
+            fn = kc.csf_block_compressed if m.p.variant == "CSF" else \
+                kc.pert_block_compressed
+            x = (fn(x[0], m, t),)
+        else:
+            x = (ks.single_block_step(x[0], m, t),)
+    return x
+
+
+def run_case(family, shape, mesh, steps, dtype, calls=1, compare=True):
+    """Build the family's sharded step at `shape` on `mesh` with T =
+    `steps`, run `calls` calls from ``case_model``'s start, and return
+    (gathered arrays on the CPU, start arrays, the largest difference from
+    the single-device step or None).  On a ``ProcessMesh`` every rank gets
+    the gathered arrays."""
+    g, kw, start = case_model(family, shape, dtype)
+    step = _builder(family)(g, mesh, dtype, steps, kw)
+    if step is None:
+        raise RuntimeError(f"{family} at {shape} on mesh {mesh.shape}, "
+                           f"T={steps}: no sharded step")
+    state = step.shard(*start)
+    for _ in range(calls):
+        state = step(state)
+    out = step.gather(state)
+    out = (out,) if torch.is_tensor(out) else out
+    diff = None
+    if compare:
+        ref = _one_device(step, start, calls)
+        diff = max(float((a.double() - b.double()).abs().max())
+                   for a, b in zip(out, ref))
+    return tuple(a.cpu() for a in out), start, diff
+
+
+def _line(name, shape, mesh_shape):
+    py, px = mesh_shape
+    if name == "y":
+        return (f"dryrun_multichip fused+sharded OK on {py}-shard y-mesh; "
+                f"global shape {tuple(shape)}")
+    if name == "yx":
+        return (f"dryrun_multichip fused+sharded OK on ({py},{px}) y*x mesh; "
+                f"global shape {tuple(shape)}")
+    if name == "coupled_y":
+        return f"dryrun_multichip 2D coupled fused+sharded OK on {py}-shard y-mesh"
+    if name == "coupled_yx":
+        return f"dryrun_multichip 2D coupled fused+sharded OK on ({py},{px}) y*x mesh"
+    return (f"dryrun_multichip single-phase fused+sharded OK on {py}-shard "
+            f"y-mesh; global shape {tuple(shape)}")
+
+
+# the largest difference from the single-device step that a line accepts
+# (float32: the local kernels run the single-device kernels' arithmetic)
+DRYRUN_BOUND = 1e-5
+
+
+def _run_all(mesh_of, n, dtype, emit):
+    for name, (family, shape_of, mshape_of, steps) in CASES.items():
+        shape, mshape = shape_of(n), mshape_of(n)
+        mesh = mesh_of(mshape)
+        out, _, diff = run_case(family, shape, mesh, steps, dtype)
+        if not all(bool(torch.isfinite(a).all()) for a in out):
+            raise FloatingPointError(f"dryrun {name}: state not finite")
+        if not diff <= DRYRUN_BOUND:
+            raise AssertionError(f"dryrun {name}: sharded vs one device "
+                                 f"{diff:.3e} > {DRYRUN_BOUND:g}")
+        emit(f"{_line(name, shape, mshape)}; max |diff| vs one device "
+             f"{diff:.3e} (T={steps}, {mesh!r})")
+
+
+def _init_group(rank, world, init_file, device, timeout_s):
+    import torch.distributed as dist
+    backend = "nccl" if device == "cuda" else "gloo"
+    if device == "cuda":
+        torch.cuda.set_device(rank)
+    dist.init_process_group(backend, init_method=f"file://{init_file}",
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=timeout_s))
+
+
+def _rank_main(rank, world, init_file, device, job, out_dir, timeout_s):
+    """One rank: init the process group, then `job` = "dryrun" (every case;
+    rank 0 prints the lines) or a name of TEST_CASES (rank 0 saves the
+    gathered arrays and the start to ``<out_dir>/<name>.pt``)."""
+    import torch.distributed as dist
+    from .mesh import make_mesh
+    torch.set_num_threads(1)
+    _init_group(rank, world, init_file, device, timeout_s)
+    try:
+        if job == "dryrun":
+            _run_all(lambda shape: make_mesh(shape=shape, kind="process",
+                                             device=device), world,
+                     torch.float32,
+                     lambda ln: rank == 0 and print(ln, flush=True))
+        else:
+            family, shape, mshape, steps = TEST_CASES[job]
+            mesh = make_mesh(shape=mshape, kind="process", device=device)
+            out, start, _ = run_case(family, shape, mesh, steps,
+                                     torch.float64, calls=4 // steps,
+                                     compare=False)
+            if rank == 0:
+                torch.save({"out": out, "start": start},
+                           os.path.join(out_dir, f"{job}.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(world: int, device: str, job: str = "dryrun",
+              out_dir: str | None = None, timeout_s: float = 300.0) -> None:
+    """Spawn `world` ranks running ``_rank_main`` (rendezvous through a
+    file in a new temporary directory), join them within `timeout_s`
+    seconds (killing them after), and raise if one failed."""
+    import torch.multiprocessing as tmp
+    with tempfile.TemporaryDirectory() as rdv:
+        ctx = tmp.start_processes(
+            _rank_main, args=(world, os.path.join(rdv, "store"), device, job,
+                              out_dir or rdv, timeout_s),
+            nprocs=world, join=False, start_method="spawn")
+        deadline = time.monotonic() + timeout_s
+        try:
+            while not ctx.join(timeout=max(0.1, deadline -
+                                           time.monotonic())):
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"{world} ranks still running after "
+                                       f"{timeout_s:g} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="python -m openlbmpm_torch.parallel.dryrun",
+        description=__doc__.split("\n\n")[0] + "  The 3-D configurations "
+        "and the GSPMD jnp line wait for later slices (K12d, K12e).")
+    ap.add_argument("--ranks", type=int, default=4,
+                    help="shards (even, >= 2): processes of a process group, "
+                         "or with --in-process shards in this process")
+    ap.add_argument("--device", choices=("cpu", "cuda"), default="cuda")
+    ap.add_argument("--in-process", action="store_true",
+                    help="all shards in this process on one device "
+                         "(LocalMesh)")
+    ap.add_argument("--timeout", type=float, default=600.0,
+                    help="seconds to wait for the ranks")
+    args = ap.parse_args(argv)
+    n = args.ranks
+    if n < 2 or n % 2:
+        ap.error("--ranks: an even number >= 2")
+    if args.in_process:
+        from .mesh import make_mesh
+        _run_all(lambda shape: make_mesh(shape=shape, kind="local",
+                                         device=args.device), n,
+                 torch.float32, lambda ln: print(ln, flush=True))
+    else:
+        if args.device == "cuda" and n > torch.cuda.device_count():
+            raise RuntimeError(f"{n} NCCL ranks on "
+                               f"{torch.cuda.device_count()} card(s): NCCL "
+                               "takes one rank a card; use --in-process")
+        run_ranks(n, args.device, timeout_s=args.timeout)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

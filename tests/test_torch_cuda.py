@@ -951,3 +951,111 @@ def test_no_pallas_models_launch_nothing(cuda):
     assert plain.path == sc_plain.path == "plain"
     assert plain.make_block_step(2) is None
     assert x[0].is_cuda and y.is_cuda and z.is_cuda
+
+
+# -- the local kernels of the sharded steps (K12a, K12b) -------------------
+
+def _local_run(step, x0, kernel, reference, aux):
+    """One call's local kernels against their plain versions on the same
+    exchanged padded buffers, shard by shard: the largest gap."""
+    state = step.shard(*x0)
+    step.exchange(state)
+    gap = 0.0
+    for k, g, ins, outs in zip(step.ids, step.grids, state.bufs,
+                               state.spare):
+        got = kernel(k, g, ins, outs)
+        want = reference(g, ins)
+        for a, b in zip(got, want):
+            gap = max(gap, float((g.centre(a) - b).abs().max()))
+    return gap
+
+
+@pytest.mark.parametrize("t", [1, 2, 4])
+@pytest.mark.parametrize("shape", [(4, 1), (2, 2)])
+@pytest.mark.parametrize("variant", ["CSF", "Perturbation"])
+def test_k12a_local_matches_plain_f64(cuda, variant, shape, t):
+    from chip_smoke import _P_DIR_CONV, _noisy_layers, k12a_params, walled
+    from openlbmpm_torch.kernels.csf import (build_csf_sharded_step,
+                                             csf_local_step,
+                                             csf_local_step_reference)
+    from openlbmpm_torch.parallel import make_mesh, shard_domain
+    mesh = make_mesh(shape=shape, kind="local", device=cuda)
+    step = build_csf_sharded_step(walled(128, 128), k12a_params(variant),
+                                  mesh, torch.float64, steps_per_call=t,
+                                  bc_config=CGBoundaryConfig(**_P_DIR_CONV))
+    m = step.model
+    geo = shard_domain(m.geo_planes, mesh, step.frame)
+    gap = _local_run(
+        step, (_noisy_layers(m, 5),),
+        lambda k, g, ins, outs: (csf_local_step(ins[0], outs[0], geo[k], m,
+                                                g, t),),
+        lambda g, ins: (csf_local_step_reference(ins[0], m, g, t),), geo)
+    assert gap <= 1e-11
+
+
+@pytest.mark.parametrize("t", [1, 2])
+@pytest.mark.parametrize("shape", [(4, 1), (2, 2)])
+@pytest.mark.parametrize("case", sorted(COUPLED_CASES))
+def test_k12a_coupled_local_matches_plain_f64(cuda, case, shape, t):
+    from chip_smoke import walled
+    from openlbmpm_torch.kernels.csf import build_csf_sharded_step
+    from openlbmpm_torch.kernels.transport import (
+        coupled_local_step, coupled_local_step_reference)
+    from openlbmpm_torch.parallel import make_mesh, shard_domain
+    mesh = make_mesh(shape=shape, kind="local", device=cuda)
+    params, bcs = flagship_flow()
+    step = build_csf_sharded_step(
+        walled(96, 96), params, mesh, torch.float64, steps_per_call=t,
+        bc_config=bcs, transport_params=TransportParams(**COUPLED_CASES[case]))
+    m = step.model
+    geo = shard_domain(m.flow.geo_planes, mesh, step.frame)
+    x0 = m.pack(m.init_state(
+        m.flow.init_state_layers(1.0, 1.0, invading_rows=19),
+        coupled_conc0(m.tp.num_tracers, 96, 96, 3)))
+    gap = _local_run(
+        step, x0, lambda k, g, ins, outs: coupled_local_step(
+            ins, outs, geo[k], m, g, t),
+        lambda g, ins: coupled_local_step_reference(ins, m, g, t), geo)
+    assert gap <= 1e-11
+
+
+@pytest.mark.parametrize("t", [1, 2, 3])
+@pytest.mark.parametrize("case", ["srt_convective", "trt_zou_he",
+                                  "mrt_zou_he", "mrt_periodic"])
+def test_k12b_local_matches_plain_f64(cuda, case, t):
+    from chip_smoke import walled
+    from openlbmpm_torch.kernels.single import (build_single_sharded_step,
+                                                single_local_step,
+                                                single_local_step_reference)
+    from openlbmpm_torch.models.single_phase import BoundaryConfig
+    from openlbmpm_torch.parallel import make_mesh, shard_domain
+    mesh = make_mesh(shape=(4, 1), kind="local", device=cuda)
+    collision, bcs = SINGLE_CASES[case]
+    g0 = walled(128, 64)
+    step = build_single_sharded_step(g0, 0.8, collision, (1e-5, -2e-5), mesh,
+                                     bc_config=BoundaryConfig(**bcs),
+                                     dtype=torch.float64, steps_per_call=t)
+    m = step.model
+    fl = shard_domain(torch.as_tensor(g0.is_fluid, dtype=torch.uint8), mesh,
+                      step.frame)
+    gap = _local_run(
+        step, (flow_start(m, seed=4),),
+        lambda k, g, ins, outs: (single_local_step(ins[0], outs[0], fl[k], m,
+                                                   g, t),),
+        lambda g, ins: (single_local_step_reference(ins[0], m, g, t),), fl)
+    assert gap <= 1e-11
+
+
+def test_sharded_steps_count_one_local_launch_a_shard(cuda):
+    from chip_smoke import _noisy_layers, flagship_flow, walled
+    from openlbmpm_torch.kernels import csf as kc
+    from openlbmpm_torch.parallel import make_mesh
+    mesh = make_mesh(shape=(2, 2), kind="local", device=cuda)
+    step = kc.build_csf_sharded_step(walled(128, 128), *flagship_flow()[:1],
+                                     mesh, torch.float32, steps_per_call=2,
+                                     bc_config=flagship_flow()[1])
+    state = step.shard(_noisy_layers(step.model, 2))
+    kc.csf_local_step.launches = 0
+    for _ in range(3):
+        state = step(state)
+    assert kc.csf_local_step.launches == 3 * mesh.size

@@ -38,7 +38,9 @@ _IMPORT_ALL = (
     "openlbmpm_torch.models.shanchen, openlbmpm_torch.ops.shanchen, "
     "openlbmpm_torch.kernels.shanchen, openlbmpm_torch.models.flow3d, "
     "openlbmpm_torch.kernels.cg3d, openlbmpm_torch.models.single_phase, "
-    "openlbmpm_torch.kernels.single, openlbmpm_torch.kernels.flow3d, sys; ")
+    "openlbmpm_torch.kernels.single, openlbmpm_torch.kernels.flow3d, "
+    "openlbmpm_torch.parallel, openlbmpm_torch.parallel.mesh, "
+    "openlbmpm_torch.parallel.dryrun, sys; ")
 
 
 def _run(code):
@@ -84,6 +86,24 @@ def test_cli_runs_without_jax(tmp_path, model, ini, want):
         cwd=tmp_path, env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert want in res.stdout
+
+
+def test_dryrun_runs_without_jax(tmp_path):
+    """``python -m openlbmpm_torch.parallel.dryrun --in-process --device
+    cpu`` in a fresh interpreter that can import neither jax nor the JAX
+    package: the multi-device entry point stands alone."""
+    for stub in ("jax", "openlbmpm_tpu"):
+        (tmp_path / stub).mkdir()
+        (tmp_path / stub / "__init__.py").write_text(
+            f"raise ImportError('{stub} is not available')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = os.pathsep.join([str(tmp_path), ROOT])
+    res = subprocess.run(
+        [sys.executable, "-m", "openlbmpm_torch.parallel.dryrun",
+         "--in-process", "--device", "cpu"],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.count("dryrun_multichip ") == 5
 
 
 @pytest.mark.parametrize("name", ["D2Q9", "D2Q5", "D3Q19", "D3Q7"])
