@@ -1,0 +1,82 @@
+#!/usr/bin/env python3
+"""Time the single-device 3-D kernels of this checkout against those of
+another checkout of the repository, in turns on one card.
+
+    python3 chip_ab.py OTHER_DIR [ROUNDS]
+
+Run from the repository root on a machine with a CUDA card and nvcc.
+OTHER_DIR holds another checkout (e.g. the parent commit, unpacked with
+``git archive`` into a directory that .gitignore lists).  Each turn is a
+subprocess in one of the two checkouts, which builds that checkout's
+libraries and times, with CUDA events, ms a step of K9c (configuration 5),
+K9t (the coupled probe), K11 (basic3d) and K10 (probe_sc3d), all at 128^3
+in f32, through ``chip_smoke.py``'s models of that checkout.  The turns go
+other, this, this, other (ROUNDS times, default 1), so that a drift of the
+card's clock shows in both.  Prints one JSON line a turn, then one with
+each kernel's median over the turns of each checkout.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+TURN = r"""
+import json, sys, torch
+import chip_smoke as cs
+from openlbmpm_torch.kernels import build, cg3d, flow3d
+build.load_libraries(("cg3d_f32", "flow3d_f32"))
+dev = torch.device("cuda", 0)
+out = {}
+m = cs.config5_model(dev)
+x = m.pack_state(*cs.config5_start(m))
+out["K9c"] = cs._time_steps(lambda s: cg3d.cg3d_step_compressed(s, m), x, 50,
+                            dev)
+m = cs.probe3d_model(dev)
+x = m.pack(cs.probe3d_start(m))
+out["K9t"] = cs._time_steps(
+    lambda s: cg3d.coupled3d_step_compressed(*s, m), x, 50, dev)
+m = cs.basic3d_model(dev)
+out["K11"] = cs._time_steps(lambda f: flow3d.single3d_step(f, m),
+                            m.init_state(), 50, dev)
+m = cs.probe_sc3d_model(dev)
+out["K10"] = cs._time_steps(lambda f: flow3d.sc3d_step(f, m),
+                            cs.probe_sc3d_start(m), 50, dev)
+print(json.dumps({k: v * 1e3 for k, v in out.items()}))
+"""
+
+
+def turn(where: Path) -> dict:
+    res = subprocess.run([sys.executable, "-c", TURN], cwd=where,
+                         capture_output=True, text=True, timeout=900)
+    if res.returncode != 0:
+        raise RuntimeError(f"turn in {where} failed:\n{res.stderr[-3000:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def main(argv=None) -> int:
+    args = list(sys.argv[1:] if argv is None else argv)
+    if not args:
+        print(__doc__, file=sys.stderr)
+        return 2
+    other = Path(args[0]).resolve()
+    rounds = int(args[1]) if len(args) > 1 else 1
+    times = {"other": [], "this": []}
+    for _ in range(rounds):
+        for name in ("other", "this", "this", "other"):
+            ms = turn(other if name == "other" else ROOT)
+            times[name].append(ms)
+            print(json.dumps({"checkout": name, "ms": ms}), flush=True)
+    print(json.dumps({"median_ms": {
+        name: {k: statistics.median(t[k] for t in ts) for k in ts[0]}
+        for name, ts in times.items()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -47,13 +47,16 @@ on the wrong rows), K11-T streams in the first sub-step only, and K10-T
 leaves rho_k of the window's outer shell stale each sub-step, K9-T
 selects the boundary slabs by window z instead of global z, each in its
 f64 instance, the runtime-K K8 gives every fluid fluid 0's 1/tau in the
-common velocity, in f64 arithmetic, and the local form of K3 (K12a, the
+common velocity, in f64 arithmetic, the local form of K3 (K12a, the
 sharded colour-gradient step) maps its window rows to global rows one row
-off, in its f64 instance:
+off, in its f64 instance, the local form of K9 (K12d, the sharded D3Q19 CSF
+step) writes the boundary slabs one buffer slab off their global index, and
+the local form of K10 (K12e, the sharded D3Q19 Shan-Chen step) computes
+rho one slab short of a sub-step's reach, each in its f64 instance:
 
   none           the sources as they are: phases 4, 6, 11, 15, 20, 21,
-                 26, 29, 31, 33, 36, 37, 41, 45-48, 52, 53, 58, 60, 63
-                 must pass;
+                 26, 29, 31, 33, 36, 37, 41, 45-48, 52, 53, 58, 60, 63,
+                 67, 68 must pass;
   f32            cg3d.cuh, float32 storage (K9c f32, K9s f32): phase 21;
   bf16           cg3d.cuh, bfloat16 storage (K9h): phase 21;
   tracer f32     cg3d.cuh, float32 storage (K9t f32): phase 26;
@@ -79,7 +82,11 @@ off, in its f64 instance:
                  phase 15 (K8, K <= 3) passes;
   K12 row0       csf2d_block.cuh, the local instances, float64 storage:
                  phase 63 must fail, phase 45 (K3, the same kernel's
-                 single-device instances) passes.
+                 single-device instances) passes;
+  K12d slab index    cg3d_local.cuh, float64 storage: phase 67 must fail,
+                 phases 20 and 21 (K9) pass;
+  K12e rho short flow3d_local.cuh, float64 storage: phase 68 must fail,
+                 phase 36 (K10) passes.
 
 Prints one line per case with the failed checks and the gaps, and exits 0
 only when every case behaves as stated.
@@ -137,6 +144,12 @@ K7T_LINE = "      if (P.inlet != 0 || P.outlet != 0) {"
 K12_LINE = "    const int oy = LOCAL ? G.row0 + ly0 : ly0;"
 K12_FAULT = ("    const int oy = LOCAL ? G.row0 + ly0 + (sizeof(S) == {size}) : "
              "ly0;")
+K12D_LINE = ("  auto at = [&](int g) { return (size_t)(g - G.z0 + G.fz) * "
+             "nxy + k2; };")
+K12D_FAULT = ("  auto at = [&](int g) {{ return (size_t)(g - G.z0 + G.fz + "
+              "(sizeof(S) == {size})) * nxy + k2; }};")
+K12E_LINE = "    const ZRange r{a - 2, b + 2};"
+K12E_FAULT = "    const ZRange r{{a - 2 + (sizeof(S) == {size}), b + 2}};"
 K7T_FAULT = ("      if ((P.inlet != 0 || P.outlet != 0) && "
              "(sub == 0 || sizeof(S) != {size})) {{")
 # name -> (source, line, fault, phases that must fail)
@@ -167,6 +180,10 @@ CASES = {
                   ("58",)),
     "K12 row0": ("csf2d_block.cuh", K12_LINE, K12_FAULT.format(size=8),
                  ("63",)),
+    "K12d slab index": ("cg3d_local.cuh", K12D_LINE,
+                        K12D_FAULT.format(size=8), ("67",)),
+    "K12e rho short": ("flow3d_local.cuh", K12E_LINE,
+                       K12E_FAULT.format(size=8), ("68",)),
 }
 # name -> the T=1 phases of the same family that must pass the T-step
 # faults (the T=1 kernels do not run the changed line)
@@ -174,11 +191,12 @@ MUST_PASS = {"K3 bc once": ("4", "41"), "K8-T local row": ("15",),
              "K7-T bc once": ("29",), "K5c-T window rows": ("6", "11"),
              "K11-T swap once": ("33",), "K10-T rho shell": ("36",),
              "K9-T window z": ("20", "21"), "K8 rt tau": ("15",),
-             "K12 row0": ("45",)}
+             "K12 row0": ("45",), "K12d slab index": ("20", "21"),
+             "K12e rho short": ("36",)}
 # the phases of the unchanged sources
 ALL_PHASES = ("4", "6", "11", "15", "20", "21", "26", "29", "31", "33", "36",
               "37", "41", "45", "46", "47", "48", "52", "53", "58", "60",
-              "63")
+              "63", "67", "68")
 
 RUN = r"""
 import json, sys, torch
@@ -194,7 +212,8 @@ SIMPLE = {"6": cs.phase_coupled_f64, "11": cs.phase_split_coupled_f64,
           "45": cs.phase_block_csf_f64, "46": cs.phase_block_sc_f64,
           "47": cs.phase_block_single_f64, "52": cs.phase_block_coupled_f64,
           "53": cs.phase_block3d_f64, "60": cs.phase_block_cg3d_f64,
-          "63": cs.phase_sharded_csf_f64}
+          "63": cs.phase_sharded_csf_f64, "67": cs.phase_sharded_cg3d_f64,
+          "68": cs.phase_sharded_sc3d_f64}
 for phase in sys.argv[1:]:
     bad = failed.setdefault(phase, [])
     cs.check = lambda cond, what, bad=bad: cond or bad.append(what)

@@ -299,7 +299,37 @@ toolkit (nvcc) and PyTorch built for CUDA; JAX is not needed.  Phases:
      launches of these main paths (counts set to 0 just before); then
      ``parallel.dryrun --in-process --device cuda`` in this process, and
      with two cards or more ``parallel.dryrun --device cuda --ranks 2|4``
-     over NCCL in a subprocess (with one card it says so).
+     over NCCL in a subprocess (with one card it says so); both run the
+     dry run's 3-D lines (K12d, K12e) too;
+ 67. f64: the sharded D3Q19 CSF step (K12d, ``build_cg3d_sharded_step`` on
+     a ``LocalMesh``): configuration 5's flow (grain pack, velocity inlet,
+     convective outlet) at 64^3 on (4, 1) and (2, 2), walled 24x40x32
+     channels with the convective and the Dirichlet outlet on (6, 1) and
+     (4, 1) (shards of 4 and 6 slabs: the outlet's cascade ends on the
+     bottom shard's last slab, next to the seam), and the coupled probe and
+     a two-tracer Dirichlet case at 48x40x32 on (4, 1), two calls: against
+     the single-device K9 / K9t (<= 1e-12, expected bit for bit) and the
+     plain step (<= 1e-11; not at the grain pack, whose seam amplifies
+     rounding, phase 20), one local launch a shard a call;
+ 68. f64: the sharded D3Q19 Shan-Chen step (K12e,
+     ``build_sc3d_sharded_step``) on (4, 1) at 48x40x32, K = 2 at T = 1, 2,
+     4 and K = 4 at T = 2, two calls: against T steps of the single-device
+     K10 and against K10-T (<= 1e-12) and the plain step (<= 1e-11);
+ 69. full width, f32: configuration 5 at 128^3 and 256^3 on (4, 1) and (2,
+     2), the coupled probe at 128^3 on (4, 1), probe_sc3d at 128^3 on (4, 1)
+     at T = 1 and 4: the gathered state against the single-device kernels
+     (<= 1e-5, expected 0), each local kernel (the slab kernel, the step)
+     against its plain version on the same padded buffers, one call, in
+     every run (<= 1e-5; K12d's step on the periodic z seam, an interface,
+     <= 1.5x the plain version's gap to its one-ulp twin, as phase 21),
+     the launches of these main paths (counts set to
+     0 just before), ms a time step sharded (slabs, exchange and kernels),
+     of the exchange alone, of the slab kernel alone, of the local kernels
+     alone, the host's time to issue a call (host clock, no wait), of the
+     single-device kernel (and K10-T), the plain versions' time, and the
+     bound (least bytes a cell-step plus the frames' reads and copies, over
+     3.35 TB/s); at 128^3 the device µs a launch of each kind of kernel,
+     sharded and on one device (``torch.profiler``).
 
 Every phase prints one line or more, each number line with the card's name
 and power limit, and any failure exits non-zero.  Then the wall time, the
@@ -6049,7 +6079,8 @@ def k12_bytes(step, state_bytes) -> int:
     frame cells read and written once."""
     total = 0
     for g in step.grids:
-        padded, centre = g.py * g.px, g.ny * g.nx
+        tail = int(np.prod(g.tail))
+        padded, centre = g.py * g.px * tail, g.ny * g.nx * tail
         total += (state_bytes + 1) * padded + state_bytes * centre + \
             2 * state_bytes * (padded - centre)
     return total
@@ -6276,7 +6307,9 @@ def phase63_66_lines(r63, r64, r65, r66, card):
                  "launches " + ", ".join(f"{k} {v}" for k, v in
                                          d["launches"].items()))
     if r66["nccl"] is None:
-        lines.append("phase 66 nccl: not run (1 card)")
+        lines.append("phase 66 nccl: not run (1 card); its lines, the 3-D "
+                     "ones of K12d and K12e among them, run wherever two "
+                     "cards exist")
     else:
         lines += [f"phase 66 nccl {r66['nccl']['ranks']} ranks: {ln}"
                   for ln in r66["nccl"]["lines"]]
@@ -6318,6 +6351,592 @@ def phase63_66_entries(r63, r64, r65, r66):
             single_device_ms=r["kernel_sec"] * 1e3,
             single_device_ms_t1=r1["kernel_sec"] * 1e3,
             vs_single_device=max(r["vs_kernel"], r1["vs_kernel"])))
+    return entries
+
+
+# -- the 3-D sharded steps: K12d (D3Q19 CSF, with tracers) and K12e (D3Q19
+# Shan-Chen), one shard a local launch -------------------------------------
+
+K12D_MESHES = ((4, 1), (2, 2))
+
+
+def k12d_cases(device):
+    """Phase 67's flow cases: name -> (builder thunk of a mesh, start
+    thunk of the model, meshes).  Configuration 5 (its grain pack, CONFIG5's
+    parameters: velocity inlet, convective outlet) at 64^3 on both meshes;
+    walled 24x40x32 channels with the convective and the Dirichlet outlet
+    on (6, 1) and (4, 1), shards of 4 and 6 slabs, so that the outlet's
+    cascade (slab 0 takes slab 3's value) ends on the bottom shard's last
+    centre slab, next to the seam, or crosses an odd depth."""
+    from openlbmpm_torch.geometry import from_solid_mask
+    from openlbmpm_torch.kernels.cg3d import build_cg3d_sharded_step
+    from openlbmpm_torch.models.flow3d import (CG3DBoundaryConfig,
+                                               ColorGradientParams3D)
+    out = {}
+    p5, b5 = ColorGradientParams3D(**CONFIG5[0]), CG3DBoundaryConfig(
+        **CONFIG5[1])
+    out["config5 64^3"] = (
+        lambda mesh: build_cg3d_sharded_step(
+            from_solid_mask(grain_pack(64)), p5, mesh, torch.float64,
+            bc_config=b5), lambda m: _noisy_slabs(m, 31, 8), K12D_MESHES)
+    for name in ("velocity_convective", "velocity_dirichlet"):
+        p, b, kind, _ = CG3D_CASES[name]
+        out[f"{name} 24x40x32"] = (
+            lambda mesh, p=p, b=b, kind=kind: build_cg3d_sharded_step(
+                from_solid_mask(cg3d_solid(kind, (24, 40, 32))),
+                ColorGradientParams3D(**p), mesh, torch.float64,
+                bc_config=CG3DBoundaryConfig(**b)),
+            lambda m: _noisy_slabs(m, 32, 6), ((6, 1), (4, 1)))
+    return out
+
+
+def _noisy_slabs(m, seed, slabs):
+    """The compressed start of a ColorGradientRK3D: red in the top `slabs`
+    slabs, each colour's PDFs scaled by 1 + 1e-3 noise (a numpy seed)."""
+    f_r, f_b = m.init_state_layers(1.0, 1.0, invading_slabs=slabs)
+    rng = np.random.default_rng(seed)
+
+    def noise():
+        return torch.as_tensor(1 + 1e-3 * rng.standard_normal(f_r.shape),
+                               dtype=f_r.dtype, device=f_r.device)
+    return m.pack_state(f_r * noise(), f_b * noise())
+
+
+def tracer3d_of(model, device, dtype=torch.float32):
+    """A TransportD3Q7 on `device` with the tracer arguments of `model`'s
+    (a TransportRK3D): what ``build_cg3d_sharded_step`` takes."""
+    from openlbmpm_torch.models.flow3d import TransportD3Q7
+    t = model.transport
+    return TransportD3Q7(model.geo, t.num_tracers, tuple(t.tau),
+                         tuple(t.j_coeffs[:, 0]), t.criteria,
+                         t.interface_mode, dtype=dtype, device=device)
+
+
+def phase_sharded_cg3d_f64(device, calls=2, tol=1e-12, tol_plain=1e-11):
+    """K12d at f64 against the single-device K9 / K9t and the plain step
+    (see the module docstring, phase 67)."""
+    from openlbmpm_torch.kernels import cg3d as kg
+    from openlbmpm_torch.parallel import make_mesh
+    res = {}
+    for name, (build_on, start, meshes) in k12d_cases(device).items():
+        for shape in meshes:
+            mesh = make_mesh(shape=shape, kind="local", device=device)
+            step = build_on(mesh)
+            tag = f"K12d {name} {shape}"
+            check(step is not None, f"{tag}: no sharded step")
+            m = step.model
+            x0 = start(m)
+            kg.cg3d_local_step.launches = 0
+            (a,) = _sharded(step, (x0,), calls)
+            check(kg.cg3d_local_step.launches == calls * mesh.size,
+                  f"{tag}: {kg.cg3d_local_step.launches} local launches for "
+                  f"{calls} calls")
+            ek = _gap(a, _steps(lambda x: kg.cg3d_step_compressed(x, m), x0,
+                                calls))
+            ep = _gap(a, _steps(m.plain_step_c, x0, calls)) \
+                if "config5" not in name else 0.0
+            check(bool(torch.isfinite(a).all()) and ek <= tol and
+                  ep <= tol_plain, f"{tag}: sharded vs K9 {ek:.3e} (<= "
+                  f"{tol:g}), vs plain {ep:.3e} (<= {tol_plain:g})")
+            res[(name, shape)] = (ek, ep)
+    # the coupled step: the probe and a two-tracer Dirichlet case
+    for name in ("probe", "dirichlet_nt2"):
+        m0, st = transport3d_case(name, device)
+        mesh = make_mesh(shape=(4, 1), kind="local", device=device)
+        step = kg.build_cg3d_sharded_step(
+            m0.geo, m0.flow.p, mesh, torch.float64, bc_config=m0.flow.bcs,
+            transport=tracer3d_of(m0, device, torch.float64))
+        tag = f"K12d coupled {name} (4, 1)"
+        check(step is not None, f"{tag}: no sharded step")
+        m = step.model
+        x0 = m.pack(st)
+        kg.coupled3d_local_step.launches = 0
+        a = _sharded(step, x0, calls)
+        check(kg.coupled3d_local_step.launches == calls * mesh.size,
+              f"{tag}: {kg.coupled3d_local_step.launches} local launches")
+        ek = _gap(a, _steps(lambda x: kg.coupled3d_step_compressed(*x, m),
+                            x0, calls))
+        ep = _gap(a, _steps(m.plain_step_c, x0, calls))
+        check(all(bool(torch.isfinite(y).all()) for y in a) and ek <= tol and
+              ep <= tol_plain, f"{tag}: sharded vs K9t {ek:.3e} (<= {tol:g}),"
+              f" vs plain {ep:.3e} (<= {tol_plain:g})")
+        res[("coupled " + name, (4, 1))] = (ek, ep)
+    return res
+
+
+def phase_sharded_sc3d_f64(device, calls=2, tol=1e-12, tol_plain=1e-11):
+    """K12e at f64 against the single-device K10 (T steps), K10-T and the
+    plain step (see the module docstring, phase 68)."""
+    from openlbmpm_torch.kernels import flow3d as kf
+    from openlbmpm_torch.parallel import make_mesh
+    mesh = make_mesh(shape=(4, 1), kind="local", device=device)
+    res = {}
+    for name, ts in (("k2_walls_force", (1, 2, 4)), ("k4_walls_force", (2,))):
+        m0, f0 = sc3d_case(name, device)
+        for t in ts:
+            step = kf.build_sc3d_sharded_step(m0.geo, m0.p, mesh,
+                                              torch.float64, steps_per_call=t)
+            tag = f"K12e {name} (4, 1) T={t}"
+            check(step is not None, f"{tag}: no sharded step")
+            m = step.model
+            kf.sc3d_local_step.launches = 0
+            (a,) = _sharded(step, (f0,), calls)
+            check(kf.sc3d_local_step.launches == calls * mesh.size,
+                  f"{tag}: {kf.sc3d_local_step.launches} local launches")
+            e1 = _gap(a, _steps(lambda x: kf.sc3d_step(x, m), f0, calls * t))
+            et = _gap(a, _steps(lambda x: kf.sc3d_block_step(x, m, t), f0,
+                                calls))
+            ep = _gap(a, _steps(m.plain_step, f0, calls * t))
+            check(bool(torch.isfinite(a).all()) and max(e1, et) <= tol and
+                  ep <= tol_plain, f"{tag}: sharded vs K10 {e1:.3e}, vs "
+                  f"K10-T {et:.3e} (<= {tol:g}), vs plain {ep:.3e} (<= "
+                  f"{tol_plain:g})")
+            res[(name, t)] = (e1, et, ep)
+    return res
+
+
+# least HBM bytes a cell of the 3-D states (f32): the compressed D3Q19 CSF
+# state, with the probe's one D3Q7 tracer, two Shan-Chen fluids; each cell
+# also has a 1-byte solid mask
+K12_STATE_BYTES_3D = {"config5": 80, "probe": 80 + 28, "probe_sc3d": 152}
+
+
+def k12_3d_full_cases(device):
+    """Phase 69's cases: name -> (label, builder thunk, single-device
+    kernel of (x, model, T), start thunk of the model, key of
+    K12_STATE_BYTES_3D, steps per call, calls)."""
+    from openlbmpm_torch.kernels import cg3d as kg
+    from openlbmpm_torch.kernels import flow3d as kf
+    from openlbmpm_torch.parallel import make_mesh
+    out = {}
+    for n in (128, 256):
+        for shape in K12D_MESHES:
+            mesh = make_mesh(shape=shape, kind="local", device=device)
+            out[f"config5 {n}^3 {shape}"] = (
+                "K12d", lambda mesh=mesh, n=n: kg.build_cg3d_sharded_step(
+                    config5_model(device, n=n).geo, config5_model(
+                        device, n=n).p, mesh, torch.float32,
+                    bc_config=config5_model(device, n=n).bcs),
+                lambda x, m, t: (kg.cg3d_step_compressed(x[0], m),),
+                lambda m: (m.pack_state(*config5_start(m)),), "config5", 1,
+                10 if n == 128 else 4)
+    mesh = make_mesh(shape=(4, 1), kind="local", device=device)
+
+    def probe_step():
+        m0 = probe3d_model(device)
+        return kg.build_cg3d_sharded_step(
+            m0.geo, m0.flow.p, mesh, torch.float32, bc_config=m0.flow.bcs,
+            transport=tracer3d_of(m0, device))
+    out["probe 128^3 (4, 1)"] = (
+        "K12d coupled", probe_step,
+        lambda x, m, t: kg.coupled3d_step_compressed(*x, m),
+        lambda m: m.pack(probe3d_start(m)), "probe", 1, 10)
+    for t in (1, 4):
+        out[f"probe_sc3d 128^3 (4, 1) T={t}"] = (
+            "K12e", lambda t=t: kf.build_sc3d_sharded_step(
+                probe_sc3d_model(device).geo, probe_sc3d_model(device).p,
+                mesh, torch.float32, steps_per_call=t),
+            lambda x, m, t: (_steps(lambda y: kf.sc3d_step(y, m), x[0],
+                                    t),),
+            lambda m: (probe_sc3d_start(m),), "probe_sc3d", t, 12 // t)
+    return out
+
+
+def _counted_call(step, counters, x0, calls):
+    """`calls` calls of `step` from the global arrays `x0`, the launch
+    counts of `counters` set to 0 just before and read just after: (the
+    gathered arrays, {name: launches})."""
+    for fn in counters.values():
+        fn.launches = 0
+    a = _sharded(step, x0, calls)
+    return a, {k: fn.launches for k, fn in counters.items()}
+
+
+def _seconds(fn, device):
+    """Seconds of fn() on the host clock between two synchronises."""
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize(device)
+    return time.perf_counter() - t0
+
+
+# f32 limit of phase 69's comparisons of the local kernels with their plain
+# versions, one call from the same padded buffers: K12e and the slab kernel
+# everywhere, K12d's step off the seam (``_hold_local``)
+K12_3D_F32_PLAIN_TOL = 1e-5
+
+
+def _cell_gap(a, b):
+    """max |a - b| over the leading axes of two (..., nz, ny, nx) arrays: a
+    (nz, ny, nx) array of cells."""
+    return (a - b).abs().reshape(-1, *a.shape[-3:]).amax(0)
+
+
+def _local_vs_plain_3d(step, state, label, device):
+    """K12d's / K12e's local kernels against their plain versions on the
+    same padded buffers of `state`, one call: each shard's slab kernel (the
+    step's prologue) against ``cg3d_local_slabs_reference`` of a copy of its
+    buffer taken before, then, after the exchange, each shard's local step
+    (``step.local``) against its plain version on the buffers it read.
+    Returns {"step": max |diff| of the step's centres, "sec": the plain
+    step's seconds for one call over every shard, with boundary slabs
+    "slabs", "slabs_sec" the same of the slab kernel over the shards that
+    hold them, and for K12d "cells": shard by shard, for the flow state
+    (and the tracers) the (nz, ny, nx) arrays of the kernel's gap and of
+    the gap of the plain version's one-ulp twin (``_twin`` of its
+    input)}."""
+    from openlbmpm_torch.kernels import cg3d as kg
+    from openlbmpm_torch.kernels import flow3d as kf
+    m, t = step.model, step.steps_per_call
+    flow = getattr(m, "flow", m)
+    plain = {"K12e": lambda g, x: (kf.sc3d_local_step_reference(
+                 x[0], m, g, t),),
+             "K12d": lambda g, x: (kg.cg3d_local_step_reference(
+                 x[0], m, g),),
+             "K12d coupled": lambda g, x: kg.coupled3d_local_step_reference(
+                 x, m, g)}[label]
+    res = {}
+
+    def timed(fn):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(device)
+        return out, time.perf_counter() - t0
+
+    if step.prologue is not None:
+        owners = [i for i, g in enumerate(step.grids)
+                  if kg._owns_slabs(flow, g)]
+        before = {i: state.bufs[i][0].clone() for i in owners}
+        for k, g, ins in zip(step.ids, step.grids, state.bufs):
+            step.prologue(k, g, ins)
+        refs, res["slabs_sec"] = timed(lambda: {
+            i: kg.cg3d_local_slabs_reference(before[i], flow, step.grids[i])
+            for i in owners})
+        res["slabs"] = max(_gap(step.grids[i].centre(state.bufs[i][0]),
+                                refs[i]) for i in owners)
+        del before, refs
+    step.exchange(state)
+    for k, g, ins, outs in zip(step.ids, step.grids, state.bufs,
+                               state.spare):
+        step.local(k, g, ins, outs)
+    refs, res["sec"] = timed(lambda: [plain(g, x) for g, x in
+                                      zip(step.grids, state.bufs)])
+    res["step"] = max(_gap(tuple(g.centre(o) for o in outs), ref)
+                      for g, outs, ref in zip(step.grids, state.spare, refs))
+    if label != "K12e":
+        res["cells"] = []
+        for g, x, outs, ref in zip(step.grids, state.bufs, state.spare,
+                                   refs):
+            twin = plain(g, tuple(_twin(y, i) for i, y in enumerate(x)))
+            res["cells"].append([(_cell_gap(g.centre(o), r),
+                                  _cell_gap(w, r))
+                                 for o, r, w in zip(outs, ref, twin)])
+    return res
+
+
+def _hold_local(tag, step, cells, device):
+    """One call of K12d against its plain version, state by state over the
+    shards' centres: <= the limit off the seam (``cg3d_masks``' away after
+    one step: the periodic z seam where the red inlet slabs meet the blue
+    outlet slabs is an interface, whose f32 rounding the recolouring
+    amplifies, phase 21); on it <= the limit or 1.5x the plain version's own
+    gap to its one-ulp twin.  Returns {state: (max, off the seam, twin
+    max)}."""
+    from openlbmpm_torch.parallel.mesh import take_centre
+    flow = getattr(step.model, "flow", step.model)
+    away = cg3d_masks(flow, 1, device)[0]
+    lim = K12_3D_F32_PLAIN_TOL
+    out = {}
+    for j, what in enumerate(("flow", "tracers")[:len(cells[0])]):
+        r = [0.0] * 3
+        for g, per in zip(step.grids, cells):
+            d, w = per[j]
+            for i, v in enumerate((d, d[take_centre(away, g)], w)):
+                if v.numel():
+                    r[i] = max(r[i], float(v.max()))
+        out[what] = tuple(r)
+        check(r[1] <= lim, f"{tag} {what}: local kernel vs plain off the "
+              f"seam {r[1]:.3e} > {lim:g}")
+        check(r[0] <= max(lim, 1.5 * r[2]), f"{tag} {what}: local kernel "
+              f"vs plain {r[0]:.3e} > max({lim:g}, 1.5 x plain twin "
+              f"{r[2]:.3e})")
+    return out
+
+
+def _host_seconds(step, state, n, device):
+    """The host's seconds to issue one call of `step`, without waiting for
+    the card: `n` calls after a synchronise, on the host clock."""
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        state = step(state)
+    sec = (time.perf_counter() - t0) / n
+    torch.cuda.synchronize(device)
+    return sec
+
+
+# kernel-name pieces of phase 69's device breakdown, in order: a kernel
+# counts under the first piece its name holds ("other" for the rest: the
+# exchange's copies)
+K12_KERNEL_GROUPS = ("collide_stream", "march", "rho_kernel", "rt3_",
+                     "local_bc", "tracer_", "phase_kernel", "extrap",
+                     "normal_kernel", "curvature")
+
+
+def device_breakdown(step, x, steps):
+    """Device µs a launch of each group of K12_KERNEL_GROUPS (and "other")
+    over `steps` calls x = step(x), from torch.profiler, after a warm-up:
+    the mean over the launches the trace holds (it may drop some, so no
+    total a call is taken from it); empty where it shows no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        x = step(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            x = step(x)
+        torch.cuda.synchronize()
+    sums = {}
+    for ev in prof.key_averages():
+        t = getattr(ev, "device_time_total",
+                    getattr(ev, "cuda_time_total", 0.0))
+        if t and ev.count and getattr(ev, "device_type", None) in (
+                None, torch.autograd.DeviceType.CUDA):
+            key = next((g for g in K12_KERNEL_GROUPS if g in ev.key),
+                       "other")
+            total, count = sums.get(key, (0.0, 0))
+            sums[key] = (total + t, count + ev.count)
+    return {k: t / n for k, (t, n) in sums.items()}
+
+
+def _local_only(step):
+    """One call's local kernels alone, on buffers as they stand."""
+    def fn(state):
+        for k, g, ins, outs in zip(step.ids, step.grids, state.bufs,
+                                   state.spare):
+            step.local(k, g, ins, outs)
+        return state
+    return fn
+
+
+def _prologue_only(step):
+    def fn(state):
+        for k, g, ins in zip(step.ids, step.grids, state.bufs):
+            step.prologue(k, g, ins)
+        return state
+    return fn
+
+
+def phase_sharded3d_full(device, time_calls=20):
+    """Phase 69 (see the module docstring): correctness, speed and launches
+    of K12d and K12e at full width in f32."""
+    import math
+    from openlbmpm_torch.kernels import cg3d as kg
+    from openlbmpm_torch.kernels import flow3d as kf
+    counters = {"cg3d_local_step": kg.cg3d_local_step,
+                "cg3d_local_slabs": kg.cg3d_local_slabs,
+                "coupled3d_local_step": kg.coupled3d_local_step,
+                "sc3d_local_step": kf.sc3d_local_step}
+    res = {}
+    for name, (label, build_t, kern, start, key, t, calls) in \
+            k12_3d_full_cases(device).items():
+        step = build_t()
+        tag = f"{label} {name}"
+        check(step is not None, f"{tag}: no sharded step")
+        m = step.model
+        x0 = start(m)
+        a, launches = _counted_call(step, counters, x0, calls)
+        main = {"K12d": "cg3d_local_step", "K12e": "sc3d_local_step",
+                "K12d coupled": "coupled3d_local_step"}[label]
+        check(launches[main] == calls * step.mesh.size, f"{tag}: "
+              f"{launches[main]} local launches for {calls} calls")
+        b = _steps(lambda x: kern(x, m, t), x0, calls)
+        r = {"launches": launches, "calls": calls, "steps": t,
+             "vs_kernel": _gap(a, b), "mesh": step.mesh.shape}
+        check(all(bool(torch.isfinite(y).all()) for y in a),
+              f"{tag}: state not finite")
+        # f32 rounding only: the local kernels run the single-device
+        # kernels' arithmetic (phases 67-68 hold them bit for bit at f64)
+        check(r["vs_kernel"] <= 1e-5, f"{tag}: sharded vs single-device "
+              f"{r['vs_kernel']:.3e} (<= 1e-5)")
+        state = step.shard(*x0)
+        n_time = max(time_calls // t, 4) if "256" not in name else 6
+        r["sec"] = _time_steps(step, state, n_time, device) / t
+        r["host_sec"] = _host_seconds(step, state, n_time, device) / t
+        r["exchange_sec"] = _time_steps(_exchange_only(step), state,
+                                        time_calls, device) / t
+        if step.prologue is not None:
+            r["slabs_sec"] = _time_steps(_prologue_only(step), state,
+                                         time_calls, device) / t
+        r["local_sec"] = _time_steps(_local_only(step), state, n_time,
+                                     device) / t
+        r["kernel_sec"] = _time_steps(lambda x: kern(x, m, t), x0, n_time,
+                                      device) / t
+        if label == "K12e":
+            r["block_sec"] = _time_steps(
+                lambda x: (kf.sc3d_block_step(x[0], m, t),), x0, n_time,
+                device) / t
+        if "256" not in name:
+            r["device_us"] = device_breakdown(step, state, 4)
+            r["device_us_single"] = device_breakdown(
+                lambda x: kern(x, m, t), x0, 4)
+        cells = math.prod(step.shape)
+        r["cells"] = cells
+        r["bound_ms"] = k12_bytes(step, K12_STATE_BYTES_3D[key]) / \
+            HBM_BYTES_PER_S * 1e3 / t
+        r["frame"] = step.frame
+        p = _local_vs_plain_3d(step, state, label, device)
+        r["vs_plain"], r["plain_sec"] = p["step"], p["sec"] / t
+        if "cells" in p:
+            r["hold"] = _hold_local(tag, step, p["cells"], device)
+        else:
+            check(r["vs_plain"] <= K12_3D_F32_PLAIN_TOL, f"{tag}: local "
+                  f"kernel vs plain {r['vs_plain']:.3e} "
+                  f"(<= {K12_3D_F32_PLAIN_TOL:g})")
+        if "slabs" in p:
+            r["slabs_vs_plain"], r["slabs_plain_sec"] = \
+                p["slabs"], p["slabs_sec"] / t
+            check(r["slabs_vs_plain"] <= K12_3D_F32_PLAIN_TOL,
+                  f"{tag}: slab kernel vs plain {r['slabs_vs_plain']:.3e} "
+                  f"(<= {K12_3D_F32_PLAIN_TOL:g})")
+        del p
+        res[name] = r
+        del step, state, a, b
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase67_69_lines(r67, r68, r69, card):
+    lines = [
+        f"phase 67 K12d f64, sharded vs single-device K9 / K9t and vs plain "
+        f"({len(r67)} runs: config 5 64^3 on (4, 1), (2, 2); walled "
+        "24x40x32 convective and Dirichlet outlets on (6, 1), (4, 1); the "
+        "coupled probe and a two-tracer Dirichlet case at 48x40x32 on (4, "
+        f"1); two calls): max |diff| {max(v[0] for v in r67.values()):.3e} "
+        f"(<= 1e-12) / {max(v[1] for v in r67.values()):.3e} (<= 1e-11)",
+        f"phase 68 K12e f64, sharded vs K10 (T steps) / K10-T / plain "
+        f"({len(r68)} runs: K = 2 at T = 1, 2, 4 and K = 4 at T = 2, "
+        "48x40x32 on (4, 1), two calls): max |diff| "
+        f"{max(v[0] for v in r68.values()):.3e} / "
+        f"{max(v[1] for v in r68.values()):.3e} (<= 1e-12) / "
+        f"{max(v[2] for v in r68.values()):.3e} (<= 1e-11)"]
+    for name, r in r69.items():
+        f = r["frame"]
+        launches = ", ".join(f"{k} {v}" for k, v in r["launches"].items()
+                             if v)
+        lines.append(
+            f"phase 69 {name} f32 [{card}]: {r['calls']} calls, launches "
+            f"{launches}; vs single-device kernel {r['vs_kernel']:.3e}; "
+            f"local kernels vs plain, one call {r['vs_plain']:.3e}"
+            + "".join(f" ({k}: off the seam {v[1]:.3e}, plain one-ulp "
+                      f"twin {v[2]:.3e})"
+                      for k, v in r.get("hold", {}).items())
+            + (f", slab kernel vs plain {r['slabs_vs_plain']:.3e}"
+               if "slabs_vs_plain" in r else "")
+            + f" (limit {K12_3D_F32_PLAIN_TOL:g}); ms a "
+            f"step sharded {r['sec'] * 1e3:.4f}, exchange "
+            f"{r['exchange_sec'] * 1e3:.4f}"
+            + (f", slabs {r['slabs_sec'] * 1e3:.4f}" if "slabs_sec" in r
+               else "")
+            + f", local kernels {r['local_sec'] * 1e3:.4f}"
+            + f", host issue {r['host_sec'] * 1e3:.4f}"
+            + f", single-device {r['kernel_sec'] * 1e3:.4f}"
+            + (f" (K10-T {r['block_sec'] * 1e3:.4f})" if "block_sec" in r
+               else "")
+            + f", bound {r['bound_ms']:.4f}"
+            + f", plain {r['plain_sec'] * 1e3:.2f}"
+            + f"; frame lo {f.lo} hi {f.hi} x {f.x}")
+        for key in ("device_us", "device_us_single"):
+            if key in r:
+                d = r[key]
+                lines.append(
+                    f"phase 69 {name} device µs a launch "
+                    + ("sharded" if key == "device_us" else
+                       "single-device kernel") + f" [{card}]: " + ", ".join(
+                        f"{k} {v:.1f}" for k, v in sorted(
+                            d.items(), key=lambda kv: -kv[1])))
+    return lines
+
+
+# least operations per cell-step of the 3-D kernels (see CSF_OPS): K9, K9t
+# with one tracer, K10 with two fluids
+K9_OPS, K9T_OPS, K10_OPS = 374, 413, 474
+# least bytes a column of the boundary-slab kernel: the convective outlet
+# reads slab 3 and writes slabs 0-2, the inlet reads slab nz-2 and writes
+# it and its ghost (80 B a cell each, f32), with a 1-byte mask a slab
+K12D_SLAB_BYTES = (80 + 3 * 80 + 3) + (80 + 2 * 80 + 2)
+
+
+def phase67_69_entries(r67, r68, r69):
+    """The kernels line's entries of K12d (step, slabs, coupled) and K12e:
+    ms, plain ms and bound a time step on (4, 1) at 128^3 (K12e at T = 4),
+    launches from phase 69's main path, max_abs_err the largest f32 gap to
+    the plain version over phase 69's runs of the kernel (one call from the
+    same padded buffers; for K12d's step also off the seam),
+    vs_single_device the gap of the sharded step to the single-device
+    kernel."""
+    entries = []
+
+    def vs_plain(labels, key="vs_plain"):
+        return max(r[key] for n, r in r69.items() if key in r and
+                   n.split()[0] in labels)
+
+    def off_seam(labels):
+        return max(v[1] for n, r in r69.items() if n.split()[0] in labels
+                   for v in r.get("hold", {}).values())
+    c5, c5_1 = r69["config5 128^3 (4, 1)"], r69["config5 256^3 (4, 1)"]
+    pr = r69["probe 128^3 (4, 1)"]
+    sc4, sc1 = r69["probe_sc3d 128^3 (4, 1) T=4"], \
+        r69["probe_sc3d 128^3 (4, 1) T=1"]
+    f64_d = max(v[0] for v in r67.values())
+    f64_e = max(max(v[:2]) for v in r68.values())
+    tpu_d = "openlbmpm_tpu/pallas/cg3d.py:1381 (local kernel call :1096)"
+    for name, label, r, key, ops, extra in (
+            ("cg3d_local_step", "K12d", c5, "config5", K9_OPS, dict(
+                ms_256=c5_1["sec"] * 1e3, bound_ms_256=c5_1["bound_ms"],
+                single_device_ms_256=c5_1["kernel_sec"] * 1e3,
+                ms_2x2=r69["config5 128^3 (2, 2)"]["sec"] * 1e3)),
+            ("coupled3d_local_step", "K12d coupled", pr, "probe", K9T_OPS,
+             {})):
+        nbytes = r["bound_ms"] * 1e-3 * HBM_BYTES_PER_S / r["cells"]
+        entries.append(kernel_entry(
+            name, label, "openlbmpm_torch/csrc/cg3d_local.cuh "
+            "(cg3d_local_{f64,f32}.cu, on cg3d.cuh)",
+            tpu_d if "coupled" not in label else tpu_d + " (transport=)",
+            r["launches"][name], vs_plain(("probe",) if "coupled" in label
+                                          else ("config5",)),
+            r["sec"], r["plain_sec"], nbytes, ops, r["cells"], mesh=[4, 1],
+            max_abs_err_off_seam=off_seam(("probe",) if "coupled" in label
+                                          else ("config5",)),
+            vs_single_device=r["vs_kernel"], max_abs_err_f64=f64_d,
+            exchange_ms=r["exchange_sec"] * 1e3,
+            single_device_ms=r["kernel_sec"] * 1e3, **extra))
+    # the slab kernel: its own time a call over the shards holding boundary
+    # slabs, its bound that of the slabs' columns
+    entries.append(kernel_entry(
+        "cg3d_local_slabs", "K12d slabs", "openlbmpm_torch/csrc/"
+        "cg3d_local.cuh (local_bc_kernel)", tpu_d + " (its jnp prologue "
+        ":1474, :1519-1522)", c5["launches"]["cg3d_local_slabs"],
+        vs_plain(("config5", "probe"), "slabs_vs_plain"), c5["slabs_sec"],
+        c5["slabs_plain_sec"],
+        K12D_SLAB_BYTES, 0, 128 * 128, mesh=[4, 1], max_abs_err_f64=f64_d))
+    nbytes = sc4["bound_ms"] * 1e-3 * HBM_BYTES_PER_S / sc4["cells"]
+    entries.append(kernel_entry(
+        "sc3d_local_step", "K12e", "openlbmpm_torch/csrc/flow3d_local.cuh "
+        "(flow3d_local_{f64,f32}.cu, on flow3d.cuh and sc3d_rt.cuh)",
+        "openlbmpm_tpu/pallas/sc3d.py:419 (local kernel call :378)",
+        sc4["launches"]["sc3d_local_step"], vs_plain(("probe_sc3d",)),
+        sc4["sec"], sc4["plain_sec"], nbytes, K10_OPS, sc4["cells"],
+        steps_per_call=4, mesh=[4, 1], max_abs_err_f64=f64_e,
+        vs_single_device=max(sc4["vs_kernel"], sc1["vs_kernel"]),
+        launches_t1=sc1["launches"]["sc3d_local_step"],
+        ms_t1=sc1["sec"] * 1e3, bound_ms_t1=sc1["bound_ms"],
+        exchange_ms=sc4["exchange_sec"] * 1e3,
+        single_device_ms=sc4["kernel_sec"] * 1e3,
+        single_device_block_ms=sc4["block_sec"] * 1e3,
+        single_device_ms_t1=sc1["kernel_sec"] * 1e3))
     return entries
 
 
@@ -6520,6 +7139,19 @@ def main() -> int:
     for ln in phase63_66_lines(r63, r64, r65, r66, card):
         print(ln)
 
+    t_k12_3d = {}
+    for key, fn in (("r67", phase_sharded_cg3d_f64),
+                    ("r68", phase_sharded_sc3d_f64),
+                    ("r69", phase_sharded3d_full)):
+        t0 = time.perf_counter()
+        t_k12_3d[key] = (fn(device), time.perf_counter() - t0)
+        torch.cuda.empty_cache()
+    r67, r68, r69 = (t_k12_3d[k][0] for k in sorted(t_k12_3d))
+    print("phases 67-69 wall s: " + ", ".join(
+        f"{k[1:]} {v[1]:.1f}" for k, v in sorted(t_k12_3d.items())))
+    for ln in phase67_69_lines(r67, r68, r69, card):
+        print(ln)
+
     n2 = FLAGSHIP_N * FLAGSHIP_N
     csf = "openlbmpm_tpu/pallas/csf.py:147"
     entries = [kernel_entry(
@@ -6652,6 +7284,7 @@ def main() -> int:
     entries += block3_entries(r52, r53, r54, r55, r56)
     entries += phase58_62_entries(r58, r60, r61, r62)
     entries += phase63_66_entries(r63, r64, r65, r66)
+    entries += phase67_69_entries(r67, r68, r69)
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s "
           f"(phases 1-14 {t_old:.1f} s, 1-19 {t_2d:.1f} s, 1-24 "
           f"{t_3d:.1f} s, 1-28 {t_k9t:.1f} s, 1-39 {t_flow:.1f} s, 1-44 "

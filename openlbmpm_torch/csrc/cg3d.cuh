@@ -63,6 +63,12 @@
 //      direction it reads the neighbour's flags and both g_post candidates
 //      at once, then selects.
 // collide_stream then runs as in K9c/K9h on the unchanged state.
+//
+// The local form (K12d, cg3d_local.cuh) runs the same kernels on one shard's
+// padded buffer, each over a box of slabs and rows: BOX = true and a Box3
+// argument (the single-device instances take BOX = false and ignore it),
+// and for collide_stream a kernel of its own, collide_stream_box_kernel,
+// around the one body.
 // K9t's least bytes add the tracer in and out and the mask: with one f32
 // tracer 2 x 28 B a cell.  t1 moves about 160 B a cell (the state 80 and
 // the normals and kappa 16, g 28, g_post 28, the flags), t2 about 60
@@ -103,6 +109,12 @@ struct Tracer3dParams {  // mirrored by kernels/cg3d.py::Tracer3dParams
 };
 
 namespace {
+
+// The cells a pass of the local form runs over: slabs [z0, z1) and rows
+// [y0, y1) of the padded buffer, every x.
+struct Box3 {
+  int z0, z1, y0, y1;
+};
 
 constexpr int kCompressed = 0;
 constexpr int kSplit = 1;
@@ -145,6 +157,22 @@ __device__ __forceinline__ int wrap(int v, int n) {
 __device__ __forceinline__ int wrap_any(int v, int n) { return (v + n) % n; }
 
 // Storage type S -> compute type C.  bf16 storage holds f_i - w_i*fl.
+// The buffer index k of this thread's cell: thread t of the whole domain,
+// or (BOX) the t-th cell of the box B in buffer order.  False past the last.
+template <bool BOX>
+__device__ __forceinline__ bool cell_index(const Cg3dParams& P, const Box3& B, size_t& k) {
+  const size_t t = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if constexpr (BOX) {
+    const size_t row = (size_t)(B.y1 - B.y0) * P.nx;
+    if (t >= (size_t)(B.z1 - B.z0) * row) return false;
+    k = ((size_t)(B.z0 + (int)(t / row)) * P.ny + B.y0) * P.nx + t % row;
+    return true;
+  } else {
+    k = t;
+    return k < (size_t)P.nz * P.ny * P.nx;
+  }
+}
+
 template <typename S> struct Traits {
   using C = S;
   static constexpr bool kShifted = false;
@@ -420,13 +448,12 @@ __device__ __forceinline__ C cell_phase(const Cell<C, L>& c) {
 }
 
 // phi on fluid cells, 0 elsewhere.
-template <typename S, int L, typename C = typename Traits<S>::C>
+template <typename S, int L, bool BOX = false, typename C = typename Traits<S>::C>
 __global__ void phase_kernel(State<S> st, const C* __restrict__ geo, C* __restrict__ phi,
-                             Cg3dParams P) {
+                             Cg3dParams P, Box3 B) {
   const size_t nxy = (size_t)P.ny * P.nx;
-  const size_t n = (size_t)P.nz * nxy;
-  const size_t k = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= n) return;
+  size_t k;
+  if (!cell_index<BOX>(P, B, k)) return;
   if (!(geo[k] > C(0.5))) {
     phi[k] = C(0);
     return;
@@ -488,12 +515,13 @@ __device__ __forceinline__ C extrapolated_phi(FluidAt fluid_at, PhiAt phi_at) {
 
 // phi extended onto solid cells in place.  It reads only fluid neighbours,
 // which it never writes, so in place is safe.
-template <typename C>
-__global__ void extrap_kernel(const C* __restrict__ geo, C* __restrict__ phi, Cg3dParams P) {
+template <typename C, bool BOX = false>
+__global__ void extrap_kernel(const C* __restrict__ geo, C* __restrict__ phi, Cg3dParams P,
+                              Box3 B) {
   const int nx = P.nx, ny = P.ny, nz = P.nz;
   const size_t nxy = (size_t)ny * nx;
-  const size_t k = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= (size_t)nz * nxy) return;
+  size_t k;
+  if (!cell_index<BOX>(P, B, k)) return;
   const C code = geo[k];
   // fluid (code 1 or 2), or solid without a fluid neighbour (code -0):
   // phi stays as the phase kernel wrote it
@@ -536,14 +564,14 @@ __device__ __forceinline__ void inward_normal(const C g[3], C fl, C n[3]) {
 
 // phi (extended) -> g, rotated on wetting fluid cells, and the unit inward
 // normal on fluid cells.
-template <typename C>
+template <typename C, bool BOX = false>
 __global__ void normal_kernel(const C* __restrict__ geo, const C* __restrict__ phi,
-                              C* __restrict__ nrm, Cg3dParams P) {
+                              C* __restrict__ nrm, Cg3dParams P, Box3 B) {
   const int nx = P.nx, ny = P.ny, nz = P.nz;
   const size_t nxy = (size_t)ny * nx;
   const size_t n = (size_t)nz * nxy;
-  const size_t k = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= n) return;
+  size_t k;
+  if (!cell_index<BOX>(P, B, k)) return;
   const int z = (int)(k / nxy);
   const int y = (int)((k % nxy) / nx), x = (int)(k % nx);
   C g[3], nv[3];
@@ -598,14 +626,14 @@ __device__ __forceinline__ C curvature_of(NAt n_at, const C nh[3]) {
 }
 
 // kappa on fluid cells (0 elsewhere) into plane 6 of nrm.
-template <typename C>
+template <typename C, bool BOX = false>
 __global__ void curvature_kernel(const C* __restrict__ geo, C* __restrict__ nrm,
-                                 Cg3dParams P) {
+                                 Cg3dParams P, Box3 B) {
   const int nx = P.nx, ny = P.ny, nz = P.nz;
   const size_t nxy = (size_t)ny * nx;
   const size_t n = (size_t)nz * nxy;
-  const size_t k = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= n) return;
+  size_t k;
+  if (!cell_index<BOX>(P, B, k)) return;
   if (!(geo[k] > C(0.5))) {
     nrm[6 * n + k] = C(0);
     return;
@@ -726,11 +754,14 @@ __device__ __forceinline__ void collide_cell(const State<S>& st, const C* __rest
   collide_core(c, phi[k], g, nrm[6 * n + k], P, post, frac, A, B, Cz);
 }
 
-template <typename S, int L, typename C = typename Traits<S>::C>
-__global__ void __launch_bounds__(RING_THREADS)
-collide_stream_kernel(State<S> st, const C* __restrict__ geo, const C* __restrict__ phi,
-                      const C* __restrict__ nrm, S* __restrict__ out, S* __restrict__ out2,
-                      Cg3dParams P) {
+// The body of collide_stream: BOX, the tiles cover the box's slabs and
+// rows (the ring reaches one cell beyond them); without, the whole domain.
+template <typename S, int L, bool BOX, typename C>
+__device__ __forceinline__ void collide_stream_body(State<S> st, const C* __restrict__ geo,
+                                                    const C* __restrict__ phi,
+                                                    const C* __restrict__ nrm,
+                                                    S* __restrict__ out, S* __restrict__ out2,
+                                                    Cg3dParams P, Box3 box) {
   // three slabs of the ring tile: [slot][value][HY][HX], then fluid flags
   extern __shared__ __align__(16) unsigned char smem[];
   C* sh = reinterpret_cast<C*>(smem);
@@ -738,9 +769,9 @@ collide_stream_kernel(State<S> st, const C* __restrict__ geo, const C* __restric
   const int nx = P.nx, ny = P.ny, nz = P.nz;
   const size_t nxy = (size_t)ny * nx;
   const size_t n = (size_t)nz * nxy;
-  const int x0 = blockIdx.x * TX, y0 = blockIdx.y * TY;
-  const int z0 = blockIdx.z * ZC;
-  const int z1 = min(z0 + ZC, nz);
+  const int x0 = blockIdx.x * TX, y0 = (BOX ? box.y0 : 0) + blockIdx.y * TY;
+  const int z0 = (BOX ? box.z0 : 0) + blockIdx.z * ZC;
+  const int z1 = min(z0 + ZC, BOX ? box.z1 : nz);
   // one thread per ring-tile cell: lx = tid % HX, ly = tid / HX
   const int tid = threadIdx.x;
   const int lx = tid % HX, ly = tid / HX;
@@ -775,7 +806,8 @@ collide_stream_kernel(State<S> st, const C* __restrict__ geo, const C* __restric
 
   // the tile's own cells stream: ring coordinates 1..TX, 1..TY
   const int x = x0 + lx - 1, y = y0 + ly - 1;
-  const bool inside = lx >= 1 && lx <= TX && ly >= 1 && ly <= TY && x < nx && y < ny;
+  const bool inside =
+      lx >= 1 && lx <= TX && ly >= 1 && ly <= TY && x < nx && y < (BOX ? box.y1 : ny);
   compute_slab(z0 - 1, 0);
   compute_slab(z0, 1);
   for (int z = z0; z < z1; ++z) {
@@ -828,6 +860,26 @@ collide_stream_kernel(State<S> st, const C* __restrict__ geo, const C* __restric
   }
 }
 
+template <typename S, int L, typename C = typename Traits<S>::C>
+__global__ void __launch_bounds__(RING_THREADS)
+collide_stream_kernel(State<S> st, const C* __restrict__ geo, const C* __restrict__ phi,
+                      const C* __restrict__ nrm, S* __restrict__ out, S* __restrict__ out2,
+                      Cg3dParams P) {
+  collide_stream_body<S, L, false, C>(st, geo, phi, nrm, out, out2, P, Box3{});
+}
+
+// The local form's collide_stream over the box B.  Its float instance is
+// held to two blocks an SM: left free, ptxas gives it 94 registers and one
+// block an SM, and the local step ran 1.46x the one-device step at 256^3
+// (an H100 measurement, PERF.md).
+template <typename S, int L, typename C = typename Traits<S>::C>
+__global__ void __launch_bounds__(RING_THREADS, sizeof(C) == 4 ? 2 : 1)
+collide_stream_box_kernel(State<S> st, const C* __restrict__ geo, const C* __restrict__ phi,
+                          const C* __restrict__ nrm, S* __restrict__ out, S* __restrict__ out2,
+                          Cg3dParams P, Box3 B) {
+  collide_stream_body<S, L, true, C>(st, geo, phi, nrm, out, out2, P, B);
+}
+
 // D3Q7 (lattice.py): 0 rest, then +x, -x, +y, -y, +z, -z, so direction
 // i > 0 lies on axis (i - 1) / 2, positive for odd i, and opp() above gives
 // its opposite.  Per-tracer table row (compute type): tau, then J_0..J_6
@@ -845,16 +897,16 @@ constexpr unsigned char kFluid = 2;
 // t1: per tracer, the SRT J-scheme collision g_i - (g_i - C (J_i + e_i.u/2))
 // / tau on the flow's post-slab u of each fluid cell -> g_post; the flags
 // of every cell.
-template <typename S, typename C = typename Traits<S>::C>
+template <typename S, bool BOX = false, typename C = typename Traits<S>::C>
 __global__ void tracer_collide3d_kernel(State<S> st, const C* __restrict__ geo,
                                         const C* __restrict__ nrm, const C* __restrict__ g,
                                         const C* __restrict__ tab, C* __restrict__ gp,
                                         unsigned char* __restrict__ flags, Cg3dParams P,
-                                        Tracer3dParams T) {
+                                        Tracer3dParams T, Box3 B) {
   const size_t nxy = (size_t)P.ny * P.nx;
   const size_t n = (size_t)P.nz * nxy;
-  const size_t k = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= n) return;
+  size_t k;
+  if (!cell_index<BOX>(P, B, k)) return;
   const int z = (int)(k / nxy);
   const int y = (int)((k % nxy) / P.nx), x = (int)(k % P.nx);
   Cell<C, kCompressed> c;
@@ -896,14 +948,15 @@ __global__ void tracer_collide3d_kernel(State<S> st, const C* __restrict__ geo,
 // x itself: g_post_opp(i)(x) if x is fluid, else g_post_i(s), times fl(s).
 // So both candidates and the flags of x and s decide every case; all are
 // read before any is used.
-template <typename S, typename C = typename Traits<S>::C>
+template <typename S, bool BOX = false, typename C = typename Traits<S>::C>
 __global__ void tracer_stream3d_kernel(const C* __restrict__ gp,
                                        const unsigned char* __restrict__ flags,
-                                       C* __restrict__ out, Cg3dParams P, Tracer3dParams T) {
+                                       C* __restrict__ out, Cg3dParams P, Tracer3dParams T,
+                                       Box3 B) {
   const size_t nxy = (size_t)P.ny * P.nx;
   const size_t n = (size_t)P.nz * nxy;
-  const size_t k = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= n) return;
+  size_t k;
+  if (!cell_index<BOX>(P, B, k)) return;
   const int z = (int)(k / nxy);
   const int y = (int)((k % nxy) / P.nx), x = (int)(k % P.nx);
   const unsigned char fx = flags[k];
@@ -957,36 +1010,48 @@ int launch_fields(State<S>& st, const C* geo, C* phi, C* nrm, S* bc, const Cg3dP
     st.bc = bc;
   }
   const unsigned blocks = (unsigned)((n + threads - 1) / threads);
-  phase_kernel<S, L><<<blocks, threads, 0, stream>>>(st, geo, phi, P);
+  phase_kernel<S, L><<<blocks, threads, 0, stream>>>(st, geo, phi, P, Box3{});
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (P.has_wetting) {
-    extrap_kernel<C><<<blocks, threads, 0, stream>>>(geo, phi, P);
+    extrap_kernel<C><<<blocks, threads, 0, stream>>>(geo, phi, P, Box3{});
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  normal_kernel<C><<<blocks, threads, 0, stream>>>(geo, phi, nrm, P);
+  normal_kernel<C><<<blocks, threads, 0, stream>>>(geo, phi, nrm, P, Box3{});
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  curvature_kernel<C><<<blocks, threads, 0, stream>>>(geo, nrm, P);
+  curvature_kernel<C><<<blocks, threads, 0, stream>>>(geo, nrm, P, Box3{});
   return (int)cudaGetLastError();
 }
 
-// Launch 5, collide_stream.  s2_out is f_b in the split layout.
-template <typename S, int L, typename C = typename Traits<S>::C>
+// Launch 5, collide_stream, over the domain or (BOX) the box B.  s2_out is
+// f_b in the split layout.
+template <typename S, int L, bool BOX = false, typename C = typename Traits<S>::C>
 int launch_collide_stream(const State<S>& st, const C* geo, const C* phi, const C* nrm,
-                          void* s_out, void* s2_out, const Cg3dParams& P, cudaStream_t stream) {
+                          void* s_out, void* s2_out, const Cg3dParams& P, cudaStream_t stream,
+                          Box3 B = Box3{}) {
   static bool configured = false;
   constexpr size_t smem = smem_bytes<S, L>();
   if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        collide_stream_kernel<S, L>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaError_t err;
+    if constexpr (BOX)
+      err = cudaFuncSetAttribute(collide_stream_box_kernel<S, L>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    else
+      err = cudaFuncSetAttribute(collide_stream_kernel<S, L>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
-  const dim3 grid((P.nx + TX - 1) / TX, (P.ny + TY - 1) / TY, (P.nz + ZC - 1) / ZC);
-  collide_stream_kernel<S, L><<<grid, RING_THREADS, smem, stream>>>(
-      st, geo, phi, nrm, static_cast<S*>(s_out), static_cast<S*>(s2_out), P);
+  const int ny = BOX ? B.y1 - B.y0 : P.ny, nz = BOX ? B.z1 - B.z0 : P.nz;
+  const dim3 grid((P.nx + TX - 1) / TX, (ny + TY - 1) / TY, (nz + ZC - 1) / ZC);
+  if constexpr (BOX)
+    collide_stream_box_kernel<S, L><<<grid, RING_THREADS, smem, stream>>>(
+        st, geo, phi, nrm, static_cast<S*>(s_out), static_cast<S*>(s2_out), P, B);
+  else
+    collide_stream_kernel<S, L><<<grid, RING_THREADS, smem, stream>>>(
+        st, geo, phi, nrm, static_cast<S*>(s_out), static_cast<S*>(s2_out), P);
   return (int)cudaGetLastError();
 }
 
@@ -1027,11 +1092,12 @@ int launch_cg3d_coupled(const void* s_in, void* s_out, const void* geo_v, void* 
   const int threads = 256;
   const unsigned blocks = (unsigned)((n + threads - 1) / threads);
   tracer_collide3d_kernel<S><<<blocks, threads, 0, stream>>>(
-      st, geo, nrm, static_cast<const C*>(g_in), static_cast<const C*>(tab_v), gp, flags, P, T);
+      st, geo, nrm, static_cast<const C*>(g_in), static_cast<const C*>(tab_v), gp, flags, P, T,
+      Box3{});
   err = (int)cudaGetLastError();
   if (err) return err;
   tracer_stream3d_kernel<S><<<blocks, threads, 0, stream>>>(gp, flags, static_cast<C*>(g_out),
-                                                            P, T);
+                                                            P, T, Box3{});
   err = (int)cudaGetLastError();
   if (err) return err;
   return launch_collide_stream<S, kCompressed>(st, geo, phi, nrm, s_out, nullptr, P, stream);

@@ -38,7 +38,10 @@
 //             chosen so the buffer (3 x K x 19 x (34 x (TY + 2)) values)
 //             fits in shared memory: 8 for K = 1 in f32, 4 for K = 2, 3 in
 //             f32 and K = 1, 2 in f64, 2 for K = 3 in f64.
-// So K11 is one launch a step and K10 two.
+// So K11 is one launch a step and K10 two.  The local form of K10 (K12e,
+// flow3d_local.cuh) runs rho and march on one shard's padded buffer, each
+// over a range of slabs (BOX = true, a ZRange argument; the single-device
+// instances take BOX = false and ignore it).
 //
 // What bounds it: HBM bytes per cell-step, the state in and out plus the
 // one-byte mask: K11 153 B (f32), 85 B (bf16); K10 with K = 2 305 B (f32),
@@ -65,6 +68,11 @@ struct Flow3dParams {      // mirrored by kernels/flow3d.py::Flow3dParams
 };
 
 namespace {
+
+// The slabs [z0, z1) a pass of the local form runs over.
+struct ZRange {
+  int z0, z1;
+};
 
 constexpr int kSingleSRT = 0;
 constexpr int kSingleTRT = 1;
@@ -334,13 +342,15 @@ __device__ void collide_sc(const S* __restrict__ f, const unsigned char* __restr
       fl, F, P, post);
 }
 
-// rho_k on fluid cells, 0 on solid ones.
-template <typename S, int K, typename C = typename Traits<S>::C>
+// rho_k on fluid cells, 0 on solid ones: every cell, or (BOX) the slabs R.
+template <typename S, int K, bool BOX = false, typename C = typename Traits<S>::C>
 __global__ void rho_kernel(const S* __restrict__ f, const unsigned char* __restrict__ fl,
-                           C* __restrict__ rho, Flow3dParams P) {
-  const size_t n = (size_t)P.nz * P.ny * P.nx;
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
+                           C* __restrict__ rho, Flow3dParams P, ZRange R) {
+  const size_t nxy = (size_t)P.ny * P.nx;
+  const size_t n = (size_t)P.nz * nxy;
+  const size_t idx =
+      (BOX ? (size_t)R.z0 * nxy : 0) + (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (BOX ? (size_t)R.z1 * nxy : n)) return;
   const bool fluid = fl[idx] != 0;
 #pragma unroll
   for (int k = 0; k < K; ++k) {
@@ -363,10 +373,11 @@ constexpr size_t march_smem() {
   return sizeof(C) * 3 * K * Q * HY * HX + 3 * HY * HX;
 }
 
-template <typename S, int MODE, int K, typename C = typename Traits<S>::C>
+// The tiles march up every slab, or (BOX) the slabs R (reading one beyond).
+template <typename S, int MODE, int K, bool BOX = false, typename C = typename Traits<S>::C>
 __global__ void __launch_bounds__(ring_threads(tile_y(K, sizeof(C))))
 march_kernel(const S* __restrict__ f, const unsigned char* __restrict__ fl,
-             const C* __restrict__ rho_pl, S* __restrict__ out, Flow3dParams P) {
+             const C* __restrict__ rho_pl, S* __restrict__ out, Flow3dParams P, ZRange R) {
   constexpr int TY = tile_y(K, sizeof(C));
   constexpr int HY = TY + 2;
   constexpr int NV = K * Q;
@@ -377,8 +388,8 @@ march_kernel(const S* __restrict__ f, const unsigned char* __restrict__ fl,
   const size_t nxy = (size_t)ny * nx;
   const size_t n = (size_t)nz * nxy;
   const int x0 = blockIdx.x * TX, y0 = blockIdx.y * TY;
-  const int z0 = blockIdx.z * ZC;
-  const int z1 = min(z0 + ZC, nz);
+  const int z0 = (BOX ? R.z0 : 0) + blockIdx.z * ZC;
+  const int z1 = min(z0 + ZC, BOX ? R.z1 : nz);
   const int tid = threadIdx.x;
   const int lx = tid % HX, ly = tid / HX;
   auto val = [&](int slot, int v, int yy, int xx) -> C& {
@@ -450,20 +461,21 @@ march_kernel(const S* __restrict__ f, const unsigned char* __restrict__ fl,
   }
 }
 
-template <typename S, int MODE, int K, typename C = typename Traits<S>::C>
+template <typename S, int MODE, int K, bool BOX = false, typename C = typename Traits<S>::C>
 int launch_march(const S* f, const unsigned char* fl, const C* rho, S* out,
-                 const Flow3dParams& P, cudaStream_t st) {
+                 const Flow3dParams& P, cudaStream_t st, ZRange R = ZRange{}) {
   constexpr int TY = tile_y(K, sizeof(C));
   constexpr size_t smem = march_smem<C, K>();
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        march_kernel<S, MODE, K>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        march_kernel<S, MODE, K, BOX>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
-  const dim3 grid((P.nx + TX - 1) / TX, (P.ny + TY - 1) / TY, (P.nz + ZC - 1) / ZC);
-  march_kernel<S, MODE, K><<<grid, ring_threads(TY), smem, st>>>(f, fl, rho, out, P);
+  const int nz = BOX ? R.z1 - R.z0 : P.nz;
+  const dim3 grid((P.nx + TX - 1) / TX, (P.ny + TY - 1) / TY, (nz + ZC - 1) / ZC);
+  march_kernel<S, MODE, K, BOX><<<grid, ring_threads(TY), smem, st>>>(f, fl, rho, out, P, R);
   return (int)cudaGetLastError();
 }
 
@@ -490,7 +502,7 @@ int launch_sc3d(const void* f_in, void* f_out, const void* fl_v, void* rho_v,
   const unsigned char* fl = static_cast<const unsigned char*>(fl_v);
   C* rho = static_cast<C*>(rho_v);
   const size_t n = (size_t)P.nz * P.ny * P.nx;
-  rho_kernel<S, K><<<(unsigned)((n + 255) / 256), 256, 0, st>>>(f, fl, rho, P);
+  rho_kernel<S, K><<<(unsigned)((n + 255) / 256), 256, 0, st>>>(f, fl, rho, P, ZRange{});
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return launch_march<S, kShanChen, K>(f, fl, rho, static_cast<S*>(f_out), P, st);

@@ -76,11 +76,13 @@ __global__ void rt3_encode_kernel(const C* __restrict__ a, S* __restrict__ out, 
   }
 }
 
+// The three passes below run over the cells [lo, hi) (n cells a plane): the
+// whole domain, or a range of slabs of the local form (flow3d_local.cuh).
 template <typename C>
 __global__ void rt3_rho_kernel(const C* __restrict__ a, const unsigned char* __restrict__ fl,
-                               C* __restrict__ rho, int K, size_t n) {
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
+                               C* __restrict__ rho, int K, size_t n, size_t lo, size_t hi) {
+  const size_t idx = lo + (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= hi) return;
   for (int k = 0; k < K; ++k) {
     C F[Q];
 #pragma unroll
@@ -94,11 +96,12 @@ __global__ void rt3_rho_kernel(const C* __restrict__ a, const unsigned char* __r
 template <typename C>
 __global__ void rt3_collide_kernel(const C* __restrict__ a, const unsigned char* __restrict__ fl,
                                    const C* __restrict__ rho, C* __restrict__ gs,
-                                   C* __restrict__ post, Flow3dParams P, Sc3Table tb) {
+                                   C* __restrict__ post, Flow3dParams P, Sc3Table tb, size_t lo,
+                                   size_t hi) {
   const int K = tb.k;
   const size_t n = (size_t)P.nz * P.ny * P.nx;
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
+  const size_t idx = lo + (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= hi) return;
   if (!fl[idx]) {
     for (int q = 0; q < K * Q; ++q) post[(size_t)q * n + idx] = C(0);
     return;
@@ -145,10 +148,10 @@ __global__ void rt3_collide_kernel(const C* __restrict__ a, const unsigned char*
 template <typename C>
 __global__ void rt3_stream_kernel(const C* __restrict__ post,
                                   const unsigned char* __restrict__ fl, C* __restrict__ b,
-                                  Flow3dParams P, int K) {
+                                  Flow3dParams P, int K, size_t lo, size_t hi) {
   const size_t n = (size_t)P.nz * P.ny * P.nx;
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
+  const size_t idx = lo + (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= hi) return;
   const bool fluid = fl[idx] != 0;
 #pragma unroll
   for (int i = 0; i < Q; ++i) {
@@ -193,11 +196,11 @@ int launch_sc3d_rt(int T, const void* f_in, void* f_out, const void* fl_v, void*
   rt3_decode_kernel<S><<<blocks, 256, 0, st>>>(static_cast<const S*>(f_in), a, K, n);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   for (int t = 0; t < T; ++t) {
-    rt3_rho_kernel<C><<<blocks, 256, 0, st>>>(a, fl, rho, K, n);
+    rt3_rho_kernel<C><<<blocks, 256, 0, st>>>(a, fl, rho, K, n, 0, n);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    rt3_collide_kernel<C><<<blocks, 256, 0, st>>>(a, fl, rho, gs, post, P, tb);
+    rt3_collide_kernel<C><<<blocks, 256, 0, st>>>(a, fl, rho, gs, post, P, tb, 0, n);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    rt3_stream_kernel<C><<<blocks, 256, 0, st>>>(post, fl, b, P, K);
+    rt3_stream_kernel<C><<<blocks, 256, 0, st>>>(post, fl, b, P, K, 0, n);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     C* tmp = a;
     a = b;

@@ -21,7 +21,8 @@ from pathlib import Path
 
 __all__ = ["load_library", "load_libraries", "build_seconds", "BUILD_DIR",
            "NVCC_FLAGS", "EXTRA_FLAGS", "LIBRARIES", "block_fns",
-           "launch_block", "block_tiling", "check_steps", "launch_runtime_k"]
+           "launch_block", "block_tiling", "check_steps", "launch_runtime_k",
+           "work_buffer"]
 
 # every library of csrc/: the CSF step, the coupled step, the Perturbation
 # step (f32 and bf16; f64 apart), and in three storage types each the
@@ -31,8 +32,8 @@ __all__ = ["load_library", "load_libraries", "build_seconds", "BUILD_DIR",
 # D3Q19 single-phase and Shan-Chen and D3Q19 CSF steps; the 2-D and 3-D
 # Shan-Chen steps for any number of fluids (all storage types in one
 # library each); and the local forms of the colour-gradient, coupled and
-# single-phase T-step kernels (one shard of a decomposed domain, f64 and
-# f32)
+# single-phase T-step kernels, of the D3Q19 CSF step and of the D3Q19
+# Shan-Chen step (one shard of a decomposed domain, f64 and f32)
 LIBRARIES = ("csf2d", "coupled2d", "pert2d", "pert2d_f64", "sc2d_f64",
              "sc2d_f32", "sc2d_bf16", "cg3d_f64", "cg3d_f32", "cg3d_bf16",
              "single2d_f64", "single2d_f32", "single2d_bf16", "flow3d_f64",
@@ -45,7 +46,8 @@ LIBRARIES = ("csf2d", "coupled2d", "pert2d", "pert2d_f64", "sc2d_f64",
              "flow3d_block_bf16", "cg3d_block_f64", "cg3d_block_f32",
              "cg3d_block_bf16", "sc2d_rt", "sc3d_rt", "csf2d_local_f64",
              "csf2d_local_f32", "coupled2d_local_f64", "coupled2d_local_f32",
-             "single2d_local_f64", "single2d_local_f32")
+             "single2d_local_f64", "single2d_local_f32", "cg3d_local_f64",
+             "cg3d_local_f32", "flow3d_local_f64", "flow3d_local_f32")
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
@@ -61,7 +63,8 @@ EXTRA_FLAGS = {name: ("-fmad=false",) for name in
                 "csf2d_block_f64", "sc2d_block_f64", "single2d_block_f64",
                 "coupled2d_block_f64", "flow3d_block_f64",
                 "cg3d_block_f64", "sc2d_rt", "sc3d_rt", "csf2d_local_f64",
-                "coupled2d_local_f64", "single2d_local_f64")}
+                "coupled2d_local_f64", "single2d_local_f64", "cg3d_local_f64",
+                "flow3d_local_f64")}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 # seconds spent compiling each library in this process (0.0 = reused)
@@ -197,6 +200,21 @@ def check_steps(steps) -> None:
     int."""
     if not isinstance(steps, int) or steps < 1:
         raise ValueError(f"steps {steps!r}: a positive int")
+
+
+def work_buffer(work: dict | None, name: str, shape, dtype, device):
+    """A launch's scratch tensor `name`: kept in the dict `work` (a caller's
+    per-shard store) and reused while its shape, dtype and device stay, else
+    allocated there; a fresh tensor when `work` is None."""
+    import torch
+    shape = tuple(int(v) for v in shape)
+    t = None if work is None else work.get(name)
+    if t is None or tuple(t.shape) != shape or t.dtype != dtype or \
+            t.device != device:
+        t = torch.empty(shape, dtype=dtype, device=device)
+        if work is not None:
+            work[name] = t
+    return t
 
 
 # -- the runtime-K Shan-Chen libraries -----------------------------------------

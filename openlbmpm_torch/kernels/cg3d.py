@@ -36,6 +36,12 @@ the bf16 state, decoded once and encoded once) and
 ``cg3d_block_split((f_r, f_b), model, steps)`` (K9-Ts): one launch of
 ``csrc/cg3d_block_{f64,f32,bf16}.cu`` (``csrc/cg3d_block.cuh``) advances T
 steps; T is at most ``MAX_BLOCK_STEPS``.
+
+The local form (K12d: one shard of a z- or (z, y)-decomposed domain, the
+counterpart of ``pallas/cg3d.py::build_cg3d_sharded_step``) is
+``csrc/cg3d_local_{f64,f32}.cu`` (``csrc/cg3d_local.cuh``): the slab kernel
+``cg3d_local_slabs`` before the exchange, then ``cg3d_local_step`` or
+``coupled3d_local_step``; ``build_cg3d_sharded_step`` drives them.
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ import torch
 
 from ..geometry import Geometry, wetting_masks_nd
 from ..lattice import D3Q19
+from ..parallel.mesh import embed_local, take_centre
 from . import build
 
 __all__ = ["LIBRARIES", "Cg3dParams", "Tracer3dParams", "geo_stack3",
@@ -60,7 +67,13 @@ __all__ = ["LIBRARIES", "Cg3dParams", "Tracer3dParams", "geo_stack3",
            "cg3d_block_tiling",
            "launch_cg3d_block", "cg3d_block_compressed",
            "cg3d_block_compressed_reference", "cg3d_block_split",
-           "cg3d_block_split_reference"]
+           "cg3d_block_split_reference", "LOCAL_LIBRARIES", "LOCAL_REACH",
+           "Local3", "cg3d_local_frame", "launch_cg3d_local_slabs",
+           "launch_cg3d_local", "cg3d_local_slabs",
+           "cg3d_local_slabs_reference", "cg3d_local_step",
+           "cg3d_local_step_reference", "coupled3d_local_step",
+           "coupled3d_local_step_reference", "TPU_HALO_Y",
+           "build_cg3d_sharded_step"]
 
 _LIBS = {torch.float64: "cg3d_f64", torch.float32: "cg3d_f32",
          torch.bfloat16: "cg3d_bf16"}
@@ -542,3 +555,363 @@ def cg3d_block_split_reference(state, model, steps: int):
     for _ in range(steps):
         state = model.plain_step(state)
     return state
+
+
+# -- the local form (K12d): one shard of a z- or (z, y)-decomposed domain ----
+
+_LOCAL_LIBS = {torch.float64: "cg3d_local_f64",
+               torch.float32: "cg3d_local_f32"}
+LOCAL_LIBRARIES = tuple(_LOCAL_LIBS.values())
+LOCAL_REACH = 4    # csrc/cg3d_local.cuh::kReach: slabs (rows) a step reads
+
+
+class Local3(ctypes.Structure):
+    """Mirror of ``struct Local3`` in csrc/cg3d_local.cuh: a 3-D shard's
+    centre (slabs, rows), its frame (slabs, rows on each side; 0: y not
+    split), the global slab of its first centre slab and the global
+    slabs."""
+    _fields_ = [("nz", ctypes.c_int), ("ny", ctypes.c_int),
+                ("fz", ctypes.c_int), ("fy", ctypes.c_int),
+                ("z0", ctypes.c_int), ("gnz", ctypes.c_int)]
+
+
+def cg3d_local_frame(y_axis: bool):
+    """The frame (``parallel.mesh.Frame``) of a K12d shard: the step's
+    reach in z, and in y on a mesh whose x axis splits y."""
+    from ..parallel.mesh import Frame
+    r = LOCAL_REACH
+    return Frame(r, r, r if y_axis else 0)
+
+
+def _local_args(params: Cg3dParams, grid, nz: int):
+    """The local libraries' parameter block (the buffer's extents in nz
+    and ny) and ``Local3`` of the shard `grid` (``parallel.mesh.LocalGrid``
+    of a 3-D domain of `nz` global slabs)."""
+    p = Cg3dParams.from_buffer_copy(params)
+    p.nz, p.ny = grid.py, grid.px
+    return p, Local3(grid.ny, grid.nx, grid.fy, grid.fx, grid.row0, nz)
+
+
+_local_cache: dict[str, tuple] = {}
+
+
+def _local_fns(lib_name: str):
+    """(slabs, step, error_string) of a K12d library."""
+    if lib_name not in _local_cache:
+        lib = build.load_library(lib_name)
+        slabs = lib.cg3d_local_slabs
+        slabs.argtypes = [ctypes.c_void_p] * 2 + [
+            ctypes.POINTER(Cg3dParams), ctypes.POINTER(Local3),
+            ctypes.c_void_p]
+        slabs.restype = ctypes.c_int
+        step = lib.cg3d_local_step
+        step.argtypes = [ctypes.c_void_p] * 10 + [
+            ctypes.POINTER(Cg3dParams), ctypes.POINTER(Tracer3dParams),
+            ctypes.POINTER(Local3), ctypes.c_void_p]
+        step.restype = ctypes.c_int
+        err = lib.cg3d_local_error_string
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        _local_cache[lib_name] = (slabs, step, err)
+    return _local_cache[lib_name]
+
+
+def _check_local3(grid, want, *pairs):
+    """Raise unless each (tensor, leading planes) of `pairs` is a contiguous
+    ``(*planes, py, px, nx)`` buffer of `grid` in `want` on one card."""
+    dev = pairs[0][0].device
+    for t, lead in pairs:
+        shape = (*lead, grid.py, grid.px, *grid.tail)
+        if t.device != dev or t.device.type != "cuda" or \
+                tuple(t.shape) != shape or t.dtype != want or \
+                not t.is_contiguous():
+            raise ValueError(f"local buffer {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device}; the kernel takes a contiguous "
+                             f"{shape} {want} on {dev}")
+
+
+def _owns_slabs(flow, grid) -> bool:
+    """Whether the shard `grid` holds a boundary slab of `flow`'s domain in
+    its centre: the inlet's top two slabs, or the outlet's bottom ones."""
+    nz = flow.geo.shape[0]
+    return (flow.bcs.inlet != "periodic" and grid.row0 + grid.ny == nz) or \
+        (flow.bcs.outlet != "periodic" and grid.row0 == 0)
+
+
+def launch_cg3d_local_slabs(s: torch.Tensor, params: Cg3dParams,
+                            geo: torch.Tensor, grid, nz: int) -> None:
+    """The boundary slabs of the centre of the shard `grid`'s padded
+    compressed (20, pz, py, nx) f32 or f64 buffer `s`, in place (global
+    slabs of a domain of `nz`); `geo` its padded (4, pz, py, nx) geometry
+    planes.  Not counted as a launch."""
+    if s.dtype not in _LOCAL_LIBS:
+        raise ValueError(f"state {s.dtype}; K12d takes float32 or float64")
+    _check_local3(grid, s.dtype, (s, (20,)), (geo, (4,)))
+    slabs, _, err = _local_fns(_LOCAL_LIBS[s.dtype])
+    p, g = _local_args(params, grid, nz)
+    with torch.cuda.device(s.device):
+        code = slabs(s.data_ptr(), geo.data_ptr(), ctypes.byref(p),
+                     ctypes.byref(g),
+                     torch.cuda.current_stream(s.device).cuda_stream)
+    if code != 0:
+        raise RuntimeError(f"cg3d_local_slabs launch failed: "
+                           f"{err(code).decode()} ({code})")
+
+
+def launch_cg3d_local(s: torch.Tensor, out: torch.Tensor,
+                      params: Cg3dParams, geo: torch.Tensor, grid, nz: int,
+                      g: torch.Tensor | None = None,
+                      g_out: torch.Tensor | None = None,
+                      tparams: Tracer3dParams | None = None,
+                      table: torch.Tensor | None = None,
+                      work: dict | None = None) -> None:
+    """One step of the shard `grid` (a domain of `nz` global slabs): its
+    padded compressed buffer `s` (boundary slabs applied, frame filled) into
+    the centre of `out`; with the tracer PDFs `g` (NT, 7, pz, py, nx), their
+    step into the centre of `g_out` (`tparams`, `table` as
+    ``launch_cg3d_coupled`` takes them).  The scratch (phi, the normals,
+    and with tracers their post-collision PDFs and interface flags) is kept
+    in `work` (``build.work_buffer``).  Not counted as a launch."""
+    if s.dtype not in _LOCAL_LIBS:
+        raise ValueError(f"state {s.dtype}; K12d takes float32 or float64")
+    _check_local3(grid, s.dtype, (s, (20,)), (out, (20,)), (geo, (4,)))
+    nt = 0 if g is None else tparams.nt
+    if g is not None:
+        _check_local3(grid, s.dtype, (g, (nt, 7)), (g_out, (nt, 7)))
+        if table.dtype != s.dtype or tuple(table.shape) != (nt, 8) or \
+                table.device != s.device:
+            raise ValueError(f"tracer table {tuple(table.shape)} "
+                             f"{table.dtype} on {table.device}")
+    _, step, err = _local_fns(_LOCAL_LIBS[s.dtype])
+    p, lg = _local_args(params, grid, nz)
+    dev = s.device
+    planes = (grid.py, grid.px, *grid.tail)
+    phi = build.work_buffer(work, "phi", planes, s.dtype, dev)
+    nrm = build.work_buffer(work, "nrm", (7, *planes), s.dtype, dev)
+    g_post = flags = None
+    if g is not None:
+        g_post = build.work_buffer(work, "g_post", g.shape, g.dtype, dev)
+        flags = build.work_buffer(work, "flags", planes, torch.uint8, dev)
+    ptr = [0 if t is None else t.data_ptr() for t in (g, g_post, g_out,
+                                                        flags, table)]
+    with torch.cuda.device(dev):
+        code = step(s.data_ptr(), out.data_ptr(), geo.data_ptr(),
+                    phi.data_ptr(), nrm.data_ptr(), *ptr, ctypes.byref(p),
+                    ctypes.byref(tparams or Tracer3dParams()),
+                    ctypes.byref(lg),
+                    torch.cuda.current_stream(dev).cuda_stream)
+    if code != 0:
+        raise RuntimeError(f"cg3d_local_step launch failed: "
+                           f"{err(code).decode()} ({code})")
+
+
+def _check_local_state(s: torch.Tensor, flow):
+    if s.device.type != "cuda":
+        raise ValueError(f"no cg3d kernel for device {s.device}")
+    if s.dtype != flow.dtype or flow.storage != "f32":
+        raise ValueError(f"state {s.dtype}; the model takes {flow.dtype} "
+                         f"({flow.storage} storage), K12d float32 or "
+                         "float64")
+
+
+def cg3d_local_slabs(s: torch.Tensor, geo: torch.Tensor, flow, grid):
+    """The boundary slabs of `flow` (a ColorGradientRK3D of the global
+    domain) in the centre of the shard `grid`'s padded compressed buffer
+    `s`, in place, before the exchange; `geo` the shard's padded geometry
+    planes.  A shard without a boundary slab in its centre launches
+    nothing.  CPU tensors: the plain version.  CUDA tensors: one launch of
+    K12d's slab kernel, or an error."""
+    if not _owns_slabs(flow, grid):
+        return s
+    if s.device.type == "cpu":
+        grid.centre(s).copy_(cg3d_local_slabs_reference(s, flow, grid))
+        return s
+    _check_local_state(s, flow)
+    launch_cg3d_local_slabs(s, flow.kernel_params, geo, grid,
+                            flow.geo.shape[0])
+    cg3d_local_slabs.launches += 1
+    return s
+
+
+cg3d_local_slabs.launches = 0
+
+
+def rest_state3(flow) -> torch.Tensor:
+    """The compressed (20, nz, ny, nx) state at rest, rho = 1 and all blue,
+    on the fluid cells of `flow`'s domain: what the plain local versions put
+    around a shard (no centre cell reads it)."""
+    fl = flow.fluid_mask
+    return torch.cat([flow._w_col(fl.device).reshape(19, 1, 1, 1) * fl,
+                      torch.zeros_like(fl)[None]])
+
+
+def cg3d_local_slabs_reference(s: torch.Tensor, flow, grid):
+    """Plain version of K12d's slab kernel, on any device: the shard's
+    padded buffer embedded in the domain at rest, the model's boundary
+    slabs (``_apply_bcs_c``), the centre taken back.  Returns the centre
+    (20, nz, ny, nx) of the shard."""
+    x = embed_local(s, grid, rest_state3(flow))
+    return take_centre(flow._apply_bcs_c(x), grid)
+
+
+def cg3d_local_step(s: torch.Tensor, out: torch.Tensor, geo: torch.Tensor,
+                    flow, grid, work: dict | None = None) -> torch.Tensor:
+    """One compressed step of one shard for `flow`, a ColorGradientRK3D of
+    the global domain: `s` the shard's padded buffer (boundary slabs
+    applied by ``cg3d_local_slabs``, frame filled), the result written into
+    the centre of `out`, which is returned; `geo` the shard's padded
+    geometry planes; `work` a dict that keeps the kernel's scratch from
+    call to call (None: allocated each call).  CPU tensors: the plain
+    version.  CUDA tensors: one launch of K12d, or an error; never the
+    plain version."""
+    if s.device.type == "cpu":
+        grid.centre(out).copy_(cg3d_local_step_reference(s, flow, grid))
+        return out
+    _check_local_state(s, flow)
+    launch_cg3d_local(s, out, flow.kernel_params, geo, grid,
+                      flow.geo.shape[0], work=work)
+    cg3d_local_step.launches += 1
+    return out
+
+
+cg3d_local_step.launches = 0
+
+
+def cg3d_local_step_reference(s: torch.Tensor, flow, grid):
+    """Plain version of K12d, on any device: the shard's padded buffer
+    embedded at its global slabs and rows in the domain at rest, the
+    model's physics (``_physics_c``: the boundary slabs are in the buffer
+    already), the centre taken back.  Exact wherever the frame covers the
+    step's reach, which it does.  Returns the centre (20, nz, ny, nx)."""
+    x = embed_local(s, grid, rest_state3(flow))
+    return take_centre(flow._physics_c(x), grid)
+
+
+def coupled3d_local_step(ins, outs, geo: torch.Tensor, model, grid,
+                         work: dict | None = None):
+    """One coupled step of one shard for `model`, a TransportRK3D of the
+    global domain: ``ins = (s, g)`` the shard's padded flow buffer
+    (boundary slabs applied, frame filled) and tracer PDFs (NT, 7, pz, py,
+    nx), the results written into the centres of ``outs``, which is
+    returned; `work` as ``cg3d_local_step`` takes it.  CPU tensors: the
+    plain version.  CUDA tensors: one launch of K12d with its tracer
+    passes, or an error; never the plain version."""
+    (s, g), (out, g_out) = ins, outs
+    if s.device.type == "cpu":
+        for o, r in zip(outs, coupled3d_local_step_reference(ins, model,
+                                                              grid)):
+            grid.centre(o).copy_(r)
+        return outs
+    flow = model.flow
+    _check_local_state(s, flow)
+    launch_cg3d_local(s, out, flow.kernel_params, geo, grid,
+                      flow.geo.shape[0], g, g_out, model.tracer_params,
+                      model.tracer_table, work)
+    coupled3d_local_step.launches += 1
+    return outs
+
+
+coupled3d_local_step.launches = 0
+
+
+def coupled3d_local_step_reference(ins, model, grid):
+    """Plain version of K12d with tracers, on any device: both padded
+    buffers embedded in the domain (the flow at rest, the tracers 0), the
+    tracer step on the post-slab fields and the flow's physics, as
+    ``TransportRK3D.plain_step_c`` after its slabs; the centres taken
+    back."""
+    from ..ops import macroscopic as mac
+    s, g = ins
+    flow = model.flow
+    x = embed_local(s, grid, rest_state3(flow))
+    nz, ny, nx = flow.geo.shape
+    gg = embed_local(g, grid, g.new_zeros((*g.shape[:2], nz, ny, nx)))
+    f_tot, rho_r = x[:19], x[19]
+    gg = model._tracer_step(gg, f_tot, rho_r, mac.density(f_tot, 3) - rho_r)
+    return take_centre(flow._physics_c(x), grid), take_centre(gg, grid)
+
+
+# the JAX builder's y halo on a (z, y) mesh (pallas/cg3d.py:1419-1423): it
+# refuses ny/px <= 2 of them
+TPU_HALO_Y = 8
+
+
+def build_cg3d_sharded_step(geometry: Geometry, params, mesh,
+                            dtype=torch.float32, bc_config=None,
+                            transport=None):
+    """The compressed D3Q19 CSF step (K12d) under a z- or (z, y)-decomposed
+    `mesh` (``parallel.mesh.make_mesh``: its y axis splits z, its x axis
+    y): the counterpart of ``pallas/cg3d.py::build_cg3d_sharded_step``.
+    `params` a ``ColorGradientParams3D``, `bc_config` a
+    ``CG3DBoundaryConfig`` (None: periodic), `transport` a
+    ``TransportD3Q7`` (z meshes only) for the coupled step, all the port's.
+
+    Returns a ``parallel.mesh.ShardedStep`` of one step a call:
+    ``step(state)`` advances ``step.shard(s)`` (or ``step.shard(s, g)``
+    with the tracer PDFs (NT, 7, nz, ny, nx)) in place, ``step.gather``
+    gives the global (20, nz, ny, nx) state (and the tracer PDFs).  Per
+    call each shard holding a boundary slab rewrites it
+    (``cg3d_local_slabs``), the frames are exchanged, then each shard runs
+    K12d (``cg3d_local_step`` or ``coupled3d_local_step``) on a card, its
+    plain version on the CPU.
+
+    Returns None where the JAX builder builds no step for a reason of the
+    domain or the state: nz not divisible by the mesh's py or ny by its px;
+    transport with px > 1; px > 1 with ny/px <= 2 x 8 (its y halo,
+    ``TPU_HALO_Y``); bfloat16 storage; boundary kinds or a tracer interface
+    no kernel takes.  The TPU strips' constraints (slabs a block, a halo
+    H >= 4 dividing the strip and nz/py, the VMEM model) do not apply
+    here, so e.g. 6-slab shards run where the JAX builder refuses.  The
+    port refuses instead a shard shallower (or narrower) than its frame
+    (``cg3d_local_frame``, the step's reach 4; the JAX builder needs H >= 4
+    slabs too) and a domain below 8x2x2, which no K9 takes."""
+    from .._device import resolve_dtype
+    from ..models.flow3d import (CG3DBoundaryConfig, ColorGradientRK3D,
+                                 TransportRK3D)
+    from ..parallel.mesh import ShardedStep, shard_domain
+
+    nz, ny, nx = geometry.shape
+    py, px = mesh.shape
+    dtype = resolve_dtype(dtype)
+    bcs = bc_config if bc_config is not None else CG3DBoundaryConfig()
+    tr = transport
+    if nz % py or ny % px or dtype == torch.bfloat16 or \
+            (tr is not None and px > 1) or \
+            (px > 1 and ny // px <= 2 * TPU_HALO_Y) or \
+            bcs.inlet not in _INLETS or bcs.outlet not in _OUTLETS or \
+            (tr is not None and tr.interface_mode not in ("none",
+                                                          "bounceback")):
+        return None
+    frame = cg3d_local_frame(px > 1)
+    if nz < 8 or ny < 2 or nx < 2 or frame.lo > nz // py or \
+            frame.x > ny // px:
+        return None
+    if tr is None:
+        model = flow = ColorGradientRK3D(geometry, params, bcs, dtype=dtype,
+                                         device=mesh.device)
+    else:
+        model = TransportRK3D(
+            geometry, params, tr.num_tracers, tuple(tr.tau),
+            tuple(tr.j_coeffs[:, 0]), tr.criteria, tr.interface_mode,
+            dtype=dtype, boundaries=bcs, device=mesh.device)
+        flow = model.flow
+    geo = dict(zip(mesh.local_ids(),
+                   shard_domain(flow.geo_planes, mesh, frame, rank=3)))
+
+    def prologue(k, grid, ins):
+        cg3d_local_slabs(ins[0], geo[k], flow, grid)
+
+    work = {k: {} for k in mesh.local_ids()}
+    if tr is None:
+        def local(k, grid, ins, outs):
+            cg3d_local_step(ins[0], outs[0], geo[k], flow, grid, work[k])
+        dtypes = (dtype,)
+    else:
+        def local(k, grid, ins, outs):
+            coupled3d_local_step(ins, outs, geo[k], model, grid, work[k])
+        dtypes = (dtype, dtype)
+    has_slabs = bcs.inlet != "periodic" or bcs.outlet != "periodic"
+    step = ShardedStep(mesh, (nz, ny, nx), frame, local, 1, dtypes,
+                       prologue=prologue if has_slabs else None)
+    step.model = model
+    return step

@@ -670,15 +670,14 @@ def csf_local_step_reference(s: torch.Tensor, model, grid, steps: int):
     taken back.  Exact wherever the frame covers the window's reach, which
     the step's frame does: a cell further away cannot reach the centre in
     `steps` steps.  Returns the centre (10, ny, nx) of the shard."""
-    from ..parallel.mesh import embed_local
+    from ..parallel.mesh import embed_local, take_centre
     build.check_steps(steps)
     model.check_compressed()
     fn = model._step_csf_c if model.p.variant == "CSF" else model._step_pert_c
     x = embed_local(s, grid, rest_state(model))
     for _ in range(steps):
         x = fn(x)
-    return x[..., grid.row0:grid.row0 + grid.ny,
-             grid.col0:grid.col0 + grid.nx]
+    return take_centre(x, grid)
 
 
 def tpu_halo_rows(steps: int, variant: str = "CSF",

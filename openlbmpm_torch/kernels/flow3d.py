@@ -28,6 +28,12 @@ kernels) are ``single3d_block_step(f, model, steps)`` and
 ``csrc/flow3d_block_{f64,f32,bf16}.cu`` (``csrc/flow3d_block.cuh``, the
 window machinery of ``csrc/block3d.cuh``) advances T steps, a bf16 state
 decoded once and encoded once; T is at most ``MAX_BLOCK_STEPS``.
+
+The local form of K10 (K12e: one shard of a z-decomposed domain, the
+counterpart of ``pallas/sc3d.py::build_sc3d_sharded_step``) is
+``csrc/flow3d_local_{f64,f32}.cu`` (``csrc/flow3d_local.cuh``): T one-step
+launches a call over slab ranges that shrink by two a step;
+``build_sc3d_sharded_step`` drives it.
 """
 
 from __future__ import annotations
@@ -48,7 +54,10 @@ __all__ = ["LIBRARIES", "KMAX", "RT_LIBRARY", "Flow3dParams",
            "sc3d_step_reference", "BLOCK_LIBRARIES", "MAX_BLOCK_STEPS",
            "flow3d_block_tiling", "launch_flow3d_block",
            "single3d_block_step", "single3d_block_step_reference",
-           "sc3d_block_step", "sc3d_block_step_reference"]
+           "sc3d_block_step", "sc3d_block_step_reference",
+           "LOCAL_LIBRARIES", "sc3d_local_frame", "launch_sc3d_local",
+           "sc3d_local_step", "sc3d_local_step_reference",
+           "build_sc3d_sharded_step"]
 
 KMAX = 3           # fluids K10's templates are instantiated for
 RT_LIBRARY = "sc3d_rt"   # any number of fluids, f64 / f32 / bf16
@@ -420,3 +429,181 @@ def sc3d_block_step_reference(f: torch.Tensor, model,
     """Plain PyTorch version of K10-T, on any device: `steps` plain steps
     (a bf16 state decoded once and encoded once)."""
     return _block_reference(f, model, steps)
+
+
+# -- the local form (K12e): one shard of a z-decomposed domain ---------------
+
+_LOCAL_LIBS = {torch.float64: "flow3d_local_f64",
+               torch.float32: "flow3d_local_f32"}
+LOCAL_LIBRARIES = tuple(_LOCAL_LIBS.values())
+_local_cache: dict[str, tuple] = {}
+
+
+def sc3d_local_frame(steps: int):
+    """The frame (``parallel.mesh.Frame``) of a K12e shard at T = `steps`:
+    2T slabs below and above (the interaction stencil and streaming, one
+    slab each a step), no y frame."""
+    from ..parallel.mesh import Frame
+    build.check_steps(steps)
+    return Frame(2 * steps, 2 * steps, 0)
+
+
+def _local_fns(lib_name: str):
+    """(step, scratch_bytes, error_string) of a K12e library."""
+    if lib_name not in _local_cache:
+        lib = build.load_library(lib_name)
+        step = lib.flow3d_local_sc_step
+        step.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [
+            ctypes.POINTER(Flow3dParams), ctypes.c_void_p]
+        step.restype = ctypes.c_int
+        scratch = lib.flow3d_local_scratch_bytes
+        scratch.argtypes = [ctypes.POINTER(Flow3dParams)]
+        scratch.restype = ctypes.c_longlong
+        err = lib.flow3d_local_error_string
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        _local_cache[lib_name] = (step, scratch, err)
+    return _local_cache[lib_name]
+
+
+def launch_sc3d_local(f: torch.Tensor, out: torch.Tensor,
+                      params: Flow3dParams, fluid: torch.Tensor, grid,
+                      steps: int, table: torch.Tensor | None = None,
+                      work: dict | None = None) -> None:
+    """`steps` K10 steps (one call of K12e) of the shard `grid`
+    (``parallel.mesh.LocalGrid`` of a 3-D domain, frame 2 `steps` slabs):
+    its padded (K, 19, pz, ny, nx) f32 or f64 buffer `f`, frame filled, into
+    the centre of `out`; `fluid` its padded uint8 mask; above KMAX fluids
+    `table` the float64 ``sc3d_table`` on the card.  The scratch (rho, and
+    at T > 1 a second state buffer for the sub-steps) is kept in `work`
+    (``build.work_buffer``).  Not counted as a launch."""
+    build.check_steps(steps)
+    if f.dtype not in _LOCAL_LIBS:
+        raise ValueError(f"state {f.dtype}; K12e takes float32 or float64")
+    if grid.fy != 2 * steps or grid.fx != 0:
+        raise ValueError(f"frame {grid.fy} slabs, {grid.fx} rows; K12e at "
+                         f"T = {steps} reads {2 * steps} slabs, no rows")
+    p = Flow3dParams.from_buffer_copy(params)
+    p.nz = grid.py
+    shape = (p.k, 19, p.nz, p.ny, p.nx)
+    for t in (f, out):
+        if tuple(t.shape) != shape or t.dtype != f.dtype or \
+                t.device != f.device or not t.is_contiguous():
+            raise ValueError(f"local buffer {tuple(t.shape)} {t.dtype}; "
+                             f"K12e takes a contiguous {shape} {f.dtype}")
+    _check(f, shape, fluid, p)
+    if p.k > KMAX and (table is None or table.dtype != torch.float64 or
+                       table.device != f.device):
+        raise ValueError(f"{p.k} fluids need their float64 sc3d_table on "
+                         f"{f.device}")
+    step, scratch_bytes, err = _local_fns(_LOCAL_LIBS[f.dtype])
+    scratch = build.work_buffer(work, "scratch",
+                                (scratch_bytes(ctypes.byref(p)),),
+                                torch.uint8, f.device)
+    tmp = None if steps == 1 else build.work_buffer(work, "tmp", shape,
+                                                    f.dtype, f.device)
+    with torch.cuda.device(f.device):
+        code = step(steps, f.data_ptr(), out.data_ptr(),
+                    0 if tmp is None else tmp.data_ptr(),
+                    fluid.data_ptr(), scratch.data_ptr(),
+                    0 if table is None else table.data_ptr(),
+                    ctypes.byref(p),
+                    torch.cuda.current_stream(f.device).cuda_stream)
+    if code != 0:
+        raise RuntimeError(f"flow3d_local_sc_step launch failed: "
+                           f"{err(code).decode()} ({code})")
+
+
+def sc3d_local_step(f: torch.Tensor, out: torch.Tensor, fluid: torch.Tensor,
+                    model, grid, steps: int, work: dict | None = None):
+    """`steps` D3Q19 Shan-Chen steps of one shard for `model`, a
+    ShanChenMCMP3D of the global domain: `f` the shard's padded buffer
+    (frame filled), the result written into the centre of `out`, which is
+    returned; `fluid` the shard's padded uint8 mask; `work` a dict that
+    keeps the kernel's scratch from call to call (None: allocated each
+    call).  CPU tensors: the plain version.  CUDA tensors: one call of
+    K12e (T one-step launches over shrinking slab ranges), or an error;
+    never the plain version."""
+    if f.device.type == "cpu":
+        grid.centre(out).copy_(sc3d_local_step_reference(f, model, grid,
+                                                         steps))
+        return out
+    if f.device.type != "cuda":
+        raise ValueError(f"no sc3d kernel for device {f.device}")
+    if model.kernel_params is None:
+        raise ValueError(f"no sc3d kernel for this configuration on "
+                         f"{model.device} (path {model.path!r})")
+    if f.dtype != model.dtype or model.storage != "f32":
+        raise ValueError(f"state {f.dtype}; the model takes {model.dtype} "
+                         f"({model.storage} storage), K12e float32 or "
+                         "float64")
+    params = model.kernel_params
+    table = None if params.k <= KMAX else model.kernel_table
+    launch_sc3d_local(f, out, params, fluid, grid, steps, table, work)
+    sc3d_local_step.launches += 1
+    return out
+
+
+sc3d_local_step.launches = 0
+
+
+def sc3d_local_step_reference(f: torch.Tensor, model, grid, steps: int):
+    """Plain version of K12e, on any device: the shard's padded buffer
+    embedded at its global slabs in the domain (0 elsewhere), `steps` plain
+    steps (``_step_impl``), the centre taken back.  Exact: the frame covers
+    the `steps` steps' reach.  Returns the centre (K, 19, nz, ny, nx)."""
+    from ..parallel.mesh import embed_local, take_centre
+    build.check_steps(steps)
+    x = embed_local(f, grid, f.new_zeros((*f.shape[:2], *model.geo.shape)))
+    for _ in range(steps):
+        x = model._step_impl(x)
+    return take_centre(x, grid)
+
+
+def build_sc3d_sharded_step(geometry: Geometry, params, mesh,
+                            dtype=torch.float32, steps_per_call: int = 1):
+    """The D3Q19 Shan-Chen step (K12e) under a z-decomposed `mesh`
+    (``parallel.mesh.make_mesh`` with shape (P, 1): its y axis splits z):
+    the counterpart of ``pallas/sc3d.py::build_sc3d_sharded_step``.
+    `params` a ``ShanChenParams3D`` (any number of fluids).
+
+    Returns a ``parallel.mesh.ShardedStep`` of T = `steps_per_call` steps a
+    call: ``step(state)`` advances ``step.shard(f)`` ((K, 19, nz, ny, nx))
+    in place, ``step.gather(state)`` gives the global state.  Per call one
+    exchange of a 2T-slab frame, then each shard runs K12e
+    (``sc3d_local_step``) on a card, its plain version on the CPU.
+
+    Returns None where the JAX builder builds no step for a reason of the
+    domain or the state: an x axis larger than 1; nz not divisible by the
+    mesh's py; psi other than "rho"; bfloat16 storage.  The TPU strips'
+    constraints (slabs a block, a halo H >= 2T dividing the strip and
+    nz/py, the VMEM model) do not apply here; the port refuses instead a
+    shard shallower than its frame (2T slabs) and a domain below 3x3x3,
+    which no K10 takes."""
+    from .._device import resolve_dtype
+    from ..models.flow3d import ShanChenMCMP3D
+    from ..parallel.mesh import ShardedStep, shard_domain
+
+    nz, ny, nx = geometry.shape
+    py, px = mesh.shape
+    steps = int(steps_per_call)
+    build.check_steps(steps)
+    dtype = resolve_dtype(dtype)
+    if px != 1 or nz % py or params.psi != "rho" or dtype == torch.bfloat16:
+        return None
+    frame = sc3d_local_frame(steps)
+    if min(nz, ny, nx) < 3 or frame.lo > nz // py:
+        return None
+    model = ShanChenMCMP3D(geometry, params, dtype=dtype, device=mesh.device)
+    fluid = dict(zip(mesh.local_ids(), shard_domain(
+        torch.as_tensor(geometry.is_fluid, dtype=torch.uint8), mesh, frame,
+        rank=3)))
+    work = {k: {} for k in mesh.local_ids()}
+
+    def local(k, grid, ins, outs):
+        sc3d_local_step(ins[0], outs[0], fluid[k], model, grid, steps,
+                        work[k])
+
+    step = ShardedStep(mesh, (nz, ny, nx), frame, local, steps, (dtype,))
+    step.model = model
+    return step

@@ -318,15 +318,14 @@ def single_local_step_reference(f: torch.Tensor, model, grid, steps: int):
     ``parallel.mesh.embed_local``), `steps` plain steps of the whole domain
     (``_step_impl``), and the centre (9, ny, nx) taken back."""
     from ..lattice import D2Q9
-    from ..parallel.mesh import embed_local
+    from ..parallel.mesh import embed_local, take_centre
     build.check_steps(steps)
     fl = model.fluid_mask
     w = torch.as_tensor(D2Q9.w, dtype=fl.dtype, device=fl.device)
     x = embed_local(f, grid, w[:, None, None] * fl)
     for _ in range(steps):
         x = model._step_impl(x)
-    return x[..., grid.row0:grid.row0 + grid.ny,
-             grid.col0:grid.col0 + grid.nx]
+    return take_centre(x, grid)
 
 
 def build_single_sharded_step(geometry, tau: float, collision: str,

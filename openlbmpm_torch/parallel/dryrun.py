@@ -1,5 +1,5 @@
-"""The port's multi-device dry run: the 2-D half of
-``__graft_entry__.py::dryrun_multichip`` (:104-243).
+"""The port's multi-device dry run: ``__graft_entry__.py::dryrun_multichip``
+(:104-278) but its first, GSPMD line.
 
     python -m openlbmpm_torch.parallel.dryrun --ranks N --device cpu|cuda
     python -m openlbmpm_torch.parallel.dryrun --in-process --device cuda
@@ -15,7 +15,14 @@ Runs, at the JAX dry run's shapes scaled by N (even, >= 2):
    4-shard 64 x 64 at N = 4);
 4. the same on a (2, N/2) mesh, 64 x 32 N/2 (its (2, 2) 64 x 64 at N = 4);
 5. (the port's addition) the sharded single-phase step (K12b) on an
-   (N, 1) y-mesh, 16N x 64, MRT, Zou-He inlet, convective outlet, T = 2.
+   (N, 1) y-mesh, 16N x 64, MRT, Zou-He inlet, convective outlet, T = 2;
+6. the sharded D3Q19 CSF step (K12d) on an (N, 1) z-mesh, 8N x 16 x 16
+   with y walls, velocity inlet and convective outlet (:150-177);
+7. K12d on a (N/2, 2) z*y mesh, 4N x 64 x 16 (:179-200);
+8. K12d with one D3Q7 bounce-back tracer on an (N, 1) z-mesh, 8N x 16 x 16,
+   periodic, the tracer in the top half (:258-278);
+9. (the port's addition) the sharded D3Q19 Shan-Chen step (K12e), two
+   fluids, a droplet, on an (N, 1) z-mesh, 8N x 16 x 16, T = 2.
 
 Each prints one line in the JAX wording, checks that the state stays finite
 and holds the gathered state against the port's single-device step (the
@@ -25,8 +32,8 @@ processes of a ``torch.distributed`` group (``ProcessMesh``: gloo on the
 CPU, NCCL with one card a rank, so N cards), which this module spawns and
 joins with a deadline; with ``--in-process`` all N shards run in this
 process on one device (``LocalMesh``), which is what one card can prove.
-The 3-D configurations and the GSPMD jnp line of the JAX dry run wait for
-the ports of their sharded builders (K12d, K12e).
+The GSPMD jnp line of the JAX dry run (XLA's partitioner on the jnp step)
+has no counterpart yet.
 """
 
 from __future__ import annotations
@@ -52,11 +59,17 @@ CASES = {
     "coupled_yx": ("coupled", lambda n: (64, 32 * (n // 2)),
                    lambda n: (2, n // 2), 1),
     "single_y": ("single", lambda n: (16 * n, 64), lambda n: (n, 1), 2),
+    "z3": ("cg3d", lambda n: (8 * n, 16, 16), lambda n: (n, 1), 1),
+    "zy3": ("cg3d", lambda n: (4 * n, 64, 16), lambda n: (n // 2, 2), 1),
+    "coupled_z3": ("coupled3d", lambda n: (8 * n, 16, 16), lambda n: (n, 1),
+                   1),
+    "sc3d_z": ("sc3d", lambda n: (8 * n, 16, 16), lambda n: (n, 1), 2),
 }
 # the cases of the tests at 64 x 64 f64 on 4 shards: T = 1
 TEST_CASES = {
     "csf_y_t1": ("csf", (64, 64), (4, 1), 1),
     "coupled_yx_t1": ("coupled", (64, 64), (2, 2), 1),
+    "cg3d_zy_t1": ("cg3d", (16, 64, 16), (2, 2), 1),
 }
 
 
@@ -67,15 +80,59 @@ def _walled(ny, nx):
     return from_solid_mask(solid)
 
 
+def _case3d(family, shape):
+    """`case_model` of the 3-D families: the JAX dry run's 3-D flow
+    (:153-166: y walls, sigma 0.01, tau 1.0 / 0.8, 60 degrees, velocity
+    inlet v = -1e-3, convective outlet, red in the top 8 slabs) for
+    "cg3d"; the same flow, periodic, with one D3Q7 bounce-back tracer at 1
+    in the top half (:258-270) for "coupled3d"; and for "sc3d" two
+    Shan-Chen fluids with y walls (G = 3.6, G_s = -0.3 / 0.3, tau 1.0 /
+    0.8, g_z = -1e-5), a droplet of radius 5 (tests/test_multichip.py:
+    323-352)."""
+    from ..geometry import from_solid_mask
+    from ..models import flow3d as f3
+    solid = np.zeros(shape, bool)
+    solid[:, 0, :] = solid[:, -1, :] = True
+    g = from_solid_mask(solid)
+    if family == "sc3d":
+        p = f3.ShanChenParams3D(g_matrix=((0.0, 3.6), (3.6, 0.0)),
+                                g_solid=(-0.3, 0.3), tau=(1.0, 0.8),
+                                body_force=(0.0, 0.0, -1e-5))
+        m = f3.ShanChenMCMP3D(g, p, dtype=torch.float64, device="cpu")
+        return g, dict(params=p), (m.init_state_droplet(
+            (1.0, 1.0), (0.02, 0.02), radius=5.0),)
+    p = f3.ColorGradientParams3D(surface_tension=0.01, tau_r=1.0, tau_b=0.8,
+                                 contact_angle_deg=60.0)
+    if family == "cg3d":
+        bcs = f3.CG3DBoundaryConfig(inlet="velocity", outlet="convective",
+                                    inlet_velocity=-1e-3)
+        m = f3.ColorGradientRK3D(g, p, bcs, dtype=torch.float64, device="cpu")
+        return g, dict(params=p, bc_config=bcs), (m.pack_state(
+            *m.init_state_layers(1.0, 1.0, invading_slabs=8)),)
+    m = f3.TransportRK3D(g, p, num_tracers=1, tau=(1.0,),
+                         interface_mode="bounceback", dtype=torch.float64,
+                         device="cpu")
+    conc0 = np.zeros((1, *shape))
+    conc0[:, shape[0] // 2:] = 1.0
+    s, gg = m.pack(m.init_state(m.flow.init_state_layers(
+        1.0, 1.0, invading_slabs=8), conc0))
+    return g, dict(params=p, bc_config=m.flow.bcs,
+                   transport=m.transport), (s, gg)
+
+
 def case_model(family: str, shape, dtype):
     """(geometry, builder keyword arguments, start arrays) of a family at a
     global shape: the JAX dry run's flagship flow (``__graft_entry__.py::
     _flagship_model``) for "csf" with red in the top 6 rows, its coupled
     case (:197-243) for "coupled" (12 invading rows, the tracer in the top
-    half), and for "single" a walled channel at rest with a Zou-He inlet.
-    The start is made in float64 and cast to `dtype`."""
+    half), for "single" a walled channel at rest with a Zou-He inlet, and
+    the 3-D families of ``_case3d``.  The start is made in float64 and
+    cast to `dtype`."""
     from ..models.colorgradient import (CGBoundaryConfig, ColorGradientParams,
                                         ColorGradientRK)
+    if family in ("cg3d", "coupled3d", "sc3d"):
+        g, kw, start = _case3d(family, shape)
+        return g, kw, tuple(a.to(dtype) for a in start)
     ny, nx = shape
     g = _walled(ny, nx)
     if family == "single":
@@ -118,9 +175,20 @@ def case_model(family: str, shape, dtype):
 
 
 def _builder(family):
+    from ..kernels.cg3d import build_cg3d_sharded_step
     from ..kernels.csf import build_csf_sharded_step
+    from ..kernels.flow3d import build_sc3d_sharded_step
     from ..kernels.single import build_single_sharded_step
-    if family == "single":
+    if family in ("cg3d", "coupled3d"):
+        def build(g, mesh, dtype, steps, kw):
+            return build_cg3d_sharded_step(g, kw["params"], mesh, dtype,
+                                           bc_config=kw["bc_config"],
+                                           transport=kw.get("transport"))
+    elif family == "sc3d":
+        def build(g, mesh, dtype, steps, kw):
+            return build_sc3d_sharded_step(g, kw["params"], mesh, dtype,
+                                           steps_per_call=steps)
+    elif family == "single":
         def build(g, mesh, dtype, steps, kw):
             return build_single_sharded_step(
                 g, kw["tau"], kw["collision"], kw["body_force"], mesh,
@@ -138,14 +206,23 @@ def _one_device(step, start, calls):
     """`calls` calls of the single-device step that the shards' kernels
     are held to: the T-step kernel at the step's T on a card (the T-step
     wrappers at T = 1 too), the plain step on the CPU."""
+    from ..kernels import cg3d as kg
     from ..kernels import csf as kc
+    from ..kernels import flow3d as kf
     from ..kernels import single as ks
     from ..kernels import transport as kt
+    from ..models import flow3d as f3
     m, t = step.model, step.steps_per_call
     dev = step.mesh.device
     x = tuple(a.to(dev) for a in start)
     for _ in range(calls):
-        if hasattr(m, "tracer_table"):
+        if isinstance(m, f3.TransportRK3D):
+            x = kg.coupled3d_step_compressed(*x, m)
+        elif isinstance(m, f3.ColorGradientRK3D):
+            x = (kg.cg3d_step_compressed(x[0], m),)
+        elif isinstance(m, f3.ShanChenMCMP3D):
+            x = (kf.sc3d_block_step(x[0], m, t),)
+        elif hasattr(m, "tracer_table"):
             x = kt.coupled_block_compressed(x, m, t)
         elif hasattr(m, "geo_planes"):
             fn = kc.csf_block_compressed if m.p.variant == "CSF" else \
@@ -192,6 +269,18 @@ def _line(name, shape, mesh_shape):
         return f"dryrun_multichip 2D coupled fused+sharded OK on {py}-shard y-mesh"
     if name == "coupled_yx":
         return f"dryrun_multichip 2D coupled fused+sharded OK on ({py},{px}) y*x mesh"
+    if name == "z3":
+        return (f"dryrun_multichip 3D fused+sharded OK on {py}-shard z-mesh; "
+                f"global shape {tuple(shape)}")
+    if name == "zy3":
+        return (f"dryrun_multichip 3D fused+sharded OK on ({py},{px}) z*y "
+                f"mesh; global shape {tuple(shape)}")
+    if name == "coupled_z3":
+        return (f"dryrun_multichip 3D coupled fused+sharded OK on {py}-shard "
+                "z-mesh")
+    if name == "sc3d_z":
+        return ("dryrun_multichip 3D Shan-Chen fused+sharded OK on "
+                f"{py}-shard z-mesh; global shape {tuple(shape)}")
     return (f"dryrun_multichip single-phase fused+sharded OK on {py}-shard "
             f"y-mesh; global shape {tuple(shape)}")
 
@@ -281,8 +370,7 @@ def run_ranks(world: int, device: str, job: str = "dryrun",
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m openlbmpm_torch.parallel.dryrun",
-        description=__doc__.split("\n\n")[0] + "  The 3-D configurations "
-        "and the GSPMD jnp line wait for later slices (K12d, K12e).")
+        description=__doc__.split("\n\n")[0])
     ap.add_argument("--ranks", type=int, default=4,
                     help="shards (even, >= 2): processes of a process group, "
                          "or with --in-process shards in this process")

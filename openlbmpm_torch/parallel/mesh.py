@@ -2,13 +2,17 @@
 ``openlbmpm_tpu/parallel/mesh.py`` (``make_mesh``, ``shard_domain``) and of
 the halo choreography of the JAX sharded builders (``lax.ppermute`` rings
 under ``shard_map``, ``pallas/csf.py:2027-2085``, ``pallas/single.py:
-483-500``).
+483-500``, ``pallas/cg3d.py:1427-1472``, ``pallas/sc3d.py:443-468``).
 
 A mesh is a (y, x) grid of shards, shard k at coordinates (k // px,
-k % px), each holding the rows [iy * ny/py, (iy + 1) * ny/py) and the
-columns [ix * nx/px, (ix + 1) * nx/px) of the global domain.  Two meshes
-say where the shards live and how they talk; the caller names one, and
-nothing here picks one for it:
+k % px).  It splits the first two spatial axes of a domain, the "rows"
+and "columns" below: (y, x) of a 2-D domain (..., ny, nx), (z, y) of a 3-D
+one (..., nz, ny, nx), whose x is never split (as the JAX 3-D builders
+shard z over the mesh axis "y" and y over "x").  Shard k holds the rows
+[iy * R/py, (iy + 1) * R/py) and the columns [ix * C/px, (ix + 1) * C/px)
+of the global R x C (x nx) domain.  Every function takes the domain's rank
+from the shape it is given.  Two meshes say where the shards live and how
+they talk; the caller names one, and nothing here picks one for it:
 
 * ``ProcessMesh``: one shard a rank of a ``torch.distributed`` process
   group, which the caller has initialised (NCCL for CUDA tensors, gloo for
@@ -20,11 +24,13 @@ nothing here picks one for it:
 
 A shard's state lives padded (``Frame``): its centre, ``lo`` rows below,
 ``hi`` rows above and, on a mesh with an x axis, ``x`` columns on each
-side.  The local kernels read a whole padded buffer and write the centre
-of a second one; ``exchange`` fills the frame of the buffer about to be
-read, x first and then y on the x-padded rows, so the corner cells ride
-the y exchange (``pallas/csf.py:1963-1972``).  The exchange is one hop:
-a frame may not be deeper than the shard it comes from.
+side (in 3-D: z slabs below and above, y rows on each side).  The local
+kernels read a whole padded buffer and write the centre of a second one;
+``exchange`` fills the frame of the buffer about to be read, columns first
+and then rows of the column-padded buffer, so the corner cells ride the
+row exchange (``pallas/csf.py:1963-1972``, ``pallas/cg3d.py:1443-1472``).
+The exchange is one hop: a frame may not be deeper than the shard it comes
+from.
 """
 
 from __future__ import annotations
@@ -37,7 +43,7 @@ import torch
 __all__ = ["Frame", "LocalGrid", "Mesh", "LocalMesh", "ProcessMesh",
            "make_mesh", "ppermute", "shard_domain", "gather_domain",
            "exchange", "band_margin", "frame_of", "embed_local",
-           "ShardedState", "ShardedStep"]
+           "take_centre", "ShardedState", "ShardedStep"]
 
 @dataclass(frozen=True)
 class Frame:
@@ -54,7 +60,9 @@ class LocalGrid:
     """Where one shard lives, as the local kernels take it (csrc/
     block2d.cuh ``LocalGrid``): its ny x nx centre at row fy and column fx
     of a py x px buffer, and the global row and column of its first centre
-    cell."""
+    cell.  Rows and columns are the split axes (z and y of a 3-D domain);
+    ``tail`` holds the extents of the unsplit axes after them (() in 2-D,
+    (nx,) in 3-D)."""
     ny: int
     nx: int
     py: int
@@ -63,6 +71,7 @@ class LocalGrid:
     fx: int
     row0: int
     col0: int
+    tail: tuple = ()
 
     def ints(self, steps: int) -> tuple:
         """The local libraries' leading ints: T, then the grid."""
@@ -70,8 +79,15 @@ class LocalGrid:
                 self.row0)
 
     def centre(self, t: torch.Tensor) -> torch.Tensor:
-        """The centre (a view) of a padded buffer ``(..., py, px)``."""
-        return t[..., self.fy:self.fy + self.ny, self.fx:self.fx + self.nx]
+        """The centre (a view) of a padded buffer ``(..., py, px, *tail)``."""
+        return t[_at(slice(self.fy, self.fy + self.ny),
+                     slice(self.fx, self.fx + self.nx), len(self.tail))]
+
+
+def _at(rows, cols, tail: int) -> tuple:
+    """The index of `rows` and `cols` of the split axes of an array whose
+    last `tail` axes are unsplit."""
+    return (Ellipsis, rows, cols) + (slice(None),) * tail
 
 
 def band_margin(ring_rows: int, m: int, ny: int) -> int:
@@ -262,74 +278,86 @@ def _shift_into(mesh, shards, axis, shift, src_of, dst_of):
             dst_of(t).copy_(r)
 
 
-def exchange(mesh: Mesh, shards, frame: Frame, ny: int, nx: int) -> None:
+def exchange(mesh: Mesh, shards, frame: Frame, *centre: int) -> None:
     """Fill the frames of the padded buffers of the shards held here, in
     place: `shards` has one tuple of tensors ``(..., lo + ny + hi,
-    x + nx + x)`` a shard of ``mesh.local_ids()`` (centres of ny x nx).
-    x first (the centre rows), then y (whole padded rows)."""
+    x + nx + x, *tail)`` a shard of ``mesh.local_ids()``, `centre` the
+    shard's centre ``(ny, nx, *tail)`` (rows and columns of the split axes,
+    then the unsplit extents).  Columns first (the centre rows), then rows
+    (whole padded rows)."""
+    ny, nx, *tail = centre
     lo, hi, fx = frame.lo, frame.hi, frame.x
     if lo > ny or hi > ny or fx > nx:
         raise ValueError(f"frame {frame} deeper than the {ny}x{nx} shard: "
                          "the exchange is one hop")
+
+    def at(rows, cols=slice(None)):
+        return lambda t: t[_at(rows, cols, len(tail))]
     cy = slice(lo, lo + ny)
     if fx:
-        _shift_into(mesh, shards, "x", 1, lambda t: t[..., cy, nx:fx + nx],
-                    lambda t: t[..., cy, :fx])
-        _shift_into(mesh, shards, "x", -1,
-                    lambda t: t[..., cy, fx:2 * fx],
-                    lambda t: t[..., cy, fx + nx:])
+        _shift_into(mesh, shards, "x", 1, at(cy, slice(nx, fx + nx)),
+                    at(cy, slice(0, fx)))
+        _shift_into(mesh, shards, "x", -1, at(cy, slice(fx, 2 * fx)),
+                    at(cy, slice(fx + nx, None)))
     if lo:
-        _shift_into(mesh, shards, "y", 1, lambda t: t[..., ny:lo + ny, :],
-                    lambda t: t[..., :lo, :])
+        _shift_into(mesh, shards, "y", 1, at(slice(ny, lo + ny)),
+                    at(slice(0, lo)))
     if hi:
-        _shift_into(mesh, shards, "y", -1,
-                    lambda t: t[..., lo:lo + hi, :],
-                    lambda t: t[..., lo + ny:, :])
+        _shift_into(mesh, shards, "y", -1, at(slice(lo, lo + hi)),
+                    at(slice(lo + ny, None)))
 
 
-def _grid(mesh: Mesh, k: int, frame: Frame, ny: int, nx: int) -> LocalGrid:
+def _grid(mesh: Mesh, k: int, frame: Frame, shape) -> LocalGrid:
+    """Shard k's grid in a domain of global spatial `shape` (rows, columns,
+    then the unsplit extents)."""
     py, px = mesh.shape
     iy, ix = mesh.coords(k)
+    ny, nx, *tail = shape
     yl, xl = ny // py, nx // px
     return LocalGrid(yl, xl, frame.lo + yl + frame.hi, xl + 2 * frame.x,
-                     frame.lo, frame.x, iy * yl, ix * xl)
+                     frame.lo, frame.x, iy * yl, ix * xl, tuple(tail))
 
 
-def _rows_cols(g: LocalGrid, ny: int, nx: int):
+def _rows_cols(g: LocalGrid, shape):
+    """The global rows and columns of the padded buffer of `g` (wrapping)."""
+    ny, nx = shape[:2]
     rows = (torch.arange(g.py) + g.row0 - g.fy) % ny
     cols = (torch.arange(g.px) + g.col0 - g.fx) % nx
     return rows, cols
 
 
-def shard_domain(array, mesh: Mesh, frame: Frame, dtype=None):
-    """The padded buffers of the shards held here of a global array
-    ``(..., ny, nx)`` (a numpy array, such as the JAX model's state, or a
-    tensor), frames filled from the global array as the exchange would
-    fill them, on ``mesh.device``, in `dtype` (or the array's)."""
+def shard_domain(array, mesh: Mesh, frame: Frame, dtype=None, rank: int = 2):
+    """The padded buffers of the shards held here of a global array whose
+    last `rank` axes are the domain, ``(..., ny, nx)`` or ``(..., nz, ny,
+    nx)`` (a numpy array, such as the JAX model's state, or a tensor),
+    frames filled from the global array as the exchange would fill them,
+    on ``mesh.device``, in `dtype` (or the array's)."""
     a = array if torch.is_tensor(array) else torch.from_numpy(
         np.array(array))
-    ny, nx = a.shape[-2:]
-    _check_divides(mesh, ny, nx)
+    shape = tuple(a.shape[a.ndim - rank:])
+    _check_divides(mesh, shape)
     out = []
     for k in mesh.local_ids():
-        rows, cols = _rows_cols(_grid(mesh, k, frame, ny, nx), ny, nx)
-        out.append(a[..., rows[:, None], cols[None, :]].to(
+        rows, cols = _rows_cols(_grid(mesh, k, frame, shape), shape)
+        out.append(a[_at(rows[:, None], cols[None, :], rank - 2)].to(
             device=mesh.device, dtype=dtype or a.dtype).contiguous())
     return out
 
 
-def _check_divides(mesh, ny, nx):
+def _check_divides(mesh, shape):
     py, px = mesh.shape
-    if ny % py or nx % px:
-        raise ValueError(f"a {ny}x{nx} domain on a {py}x{px} mesh")
+    if shape[0] % py or shape[1] % px:
+        raise ValueError(f"a {'x'.join(map(str, shape))} domain on a "
+                         f"{py}x{px} mesh")
 
 
-def gather_domain(mesh: Mesh, buffers, frame: Frame, ny: int, nx: int):
-    """The global array ``(..., ny, nx)`` from the padded buffers of the
-    shards held here (their centres), on the buffers' device: on a
-    ``ProcessMesh`` every rank gets it (an all-gather)."""
-    _check_divides(mesh, ny, nx)
-    grids = [_grid(mesh, k, frame, ny, nx) for k in range(mesh.size)]
+def gather_domain(mesh: Mesh, buffers, frame: Frame, *shape: int):
+    """The global array ``(..., *shape)`` (`shape` the domain's, ``(ny,
+    nx)`` or ``(nz, ny, nx)``) from the padded buffers of the shards held
+    here (their centres), on the buffers' device: on a ``ProcessMesh``
+    every rank gets it (an all-gather)."""
+    _check_divides(mesh, shape)
+    grids = [_grid(mesh, k, frame, shape) for k in range(mesh.size)]
     if isinstance(mesh, ProcessMesh):
         import torch.distributed as dist
 
@@ -339,27 +367,38 @@ def gather_domain(mesh: Mesh, buffers, frame: Frame, ny: int, nx: int):
         dist.all_gather(parts, mine, group=mesh.group)
     else:
         parts = [g.centre(b) for g, b in zip(grids, buffers)]
-    lead = parts[0].shape[:-2]
-    out = parts[0].new_empty((*lead, ny, nx))
+    lead = parts[0].shape[:parts[0].ndim - len(shape)]
+    out = parts[0].new_empty((*lead, *shape))
     for g, p in zip(grids, parts):
-        out[..., g.row0:g.row0 + g.ny, g.col0:g.col0 + g.nx] = p
+        out[_at(slice(g.row0, g.row0 + g.ny), slice(g.col0, g.col0 + g.nx),
+                len(g.tail))] = p
     return out
 
 
 def embed_local(buf: torch.Tensor, grid: LocalGrid, fill: torch.Tensor):
-    """A copy of the global array `fill` ``(..., ny, nx)`` with the padded
-    buffer `buf` written at its global rows and columns (wrapping), the
-    centre last: where the buffer overlaps itself (a frame reaching round
-    the domain) the centre wins, which equals the frame wherever the frame
-    is the exchange's copy.  The plain versions of the local kernels step
-    this array and take the centre back (``take_centre``)."""
-    ny, nx = fill.shape[-2:]
-    rows, cols = _rows_cols(grid, ny, nx)
+    """A copy of the global array `fill` ``(..., ny, nx, *tail)`` with the
+    padded buffer `buf` written at its global rows and columns (wrapping),
+    the centre last: where the buffer overlaps itself (a frame reaching
+    round the domain) the centre wins, which equals the frame wherever the
+    frame is the exchange's copy.  The plain versions of the local kernels
+    step this array and take the centre back (``take_centre``)."""
+    tail = len(grid.tail)
+    shape = fill.shape[fill.ndim - 2 - tail:]
+    rows, cols = _rows_cols(grid, shape)
     out = fill.clone()
-    out[..., rows[:, None], cols[None, :]] = buf
+    out[_at(rows[:, None], cols[None, :], tail)] = buf
     r0, c0 = grid.row0, grid.col0
-    out[..., r0:r0 + grid.ny, c0:c0 + grid.nx] = grid.centre(buf)
+    out[_at(slice(r0, r0 + grid.ny), slice(c0, c0 + grid.nx), tail)] = \
+        grid.centre(buf)
     return out
+
+
+def take_centre(x: torch.Tensor, grid: LocalGrid) -> torch.Tensor:
+    """The shard `grid`'s centre (a view) of a global array `x` ``(..., ny,
+    nx, *tail)``: what the plain versions of the local kernels take back
+    from the domain they stepped."""
+    return x[_at(slice(grid.row0, grid.row0 + grid.ny),
+                 slice(grid.col0, grid.col0 + grid.nx), len(grid.tail))]
 
 
 class ShardedState:
@@ -375,43 +414,51 @@ class ShardedState:
 
 class ShardedStep:
     """``step(state) -> state``: `steps_per_call` time steps of a
-    ``ShardedState`` on `mesh` (a y or (y, x) decomposition of a ny x nx
-    domain with frame `frame`): the exchange of the frames, then
-    ``local(k, grid, ins, outs)`` for each shard k held here, which writes
-    T steps of the padded buffers `ins` into the centres of `outs`.
+    ``ShardedState`` on `mesh` (a decomposition of the domain of spatial
+    `shape`, ``(ny, nx)`` or ``(nz, ny, nx)``, with frame `frame`): for each
+    shard k held here ``prologue(k, grid, ins)`` if given (it rewrites the
+    centre of the padded buffers `ins` in place, as the JAX builders' jnp
+    prologue rewrites the global array before its exchange), the exchange
+    of the frames, then ``local(k, grid, ins, outs)``, which writes T steps
+    of the padded buffers `ins` into the centres of `outs`.
 
     ``shard(*arrays)`` builds the state from global arrays (numpy or
     tensors, such as the JAX model's), ``gather(state)`` returns the global
     tensors, ``exchange(state)`` fills the frames alone."""
 
     def __init__(self, mesh: Mesh, shape, frame: Frame, local,
-                 steps_per_call: int, dtypes):
+                 steps_per_call: int, dtypes, prologue=None):
         self.mesh = mesh
-        self.ny, self.nx = shape
+        self.shape = tuple(int(v) for v in shape)
+        self.ny, self.nx = self.shape[-2:]
         self.frame = frame
         self.local = local
+        self.prologue = prologue
         self.steps_per_call = int(steps_per_call)
         self.dtypes = tuple(dtypes)
         self.ids = mesh.local_ids()
-        self.grids = [_grid(mesh, k, frame, self.ny, self.nx)
-                      for k in self.ids]
+        self.grids = [_grid(mesh, k, frame, self.shape) for k in self.ids]
 
     def shard(self, *arrays) -> ShardedState:
-        per = [shard_domain(a, self.mesh, self.frame, dtype=d)
+        per = [shard_domain(a, self.mesh, self.frame, dtype=d,
+                            rank=len(self.shape))
                for a, d in zip(arrays, self.dtypes)]
         return ShardedState(zip(*per))
 
     def gather(self, state: ShardedState):
         out = tuple(gather_domain(self.mesh, [b[i] for b in state.bufs],
-                                  self.frame, self.ny, self.nx)
+                                  self.frame, *self.shape)
                     for i in range(len(self.dtypes)))
         return out[0] if len(out) == 1 else out
 
     def exchange(self, state: ShardedState) -> None:
-        exchange(self.mesh, state.bufs, self.frame,
-                 self.ny // self.mesh.shape[0], self.nx // self.mesh.shape[1])
+        g = self.grids[0]
+        exchange(self.mesh, state.bufs, self.frame, g.ny, g.nx, *g.tail)
 
     def __call__(self, state: ShardedState) -> ShardedState:
+        if self.prologue is not None:
+            for k, g, ins in zip(self.ids, self.grids, state.bufs):
+                self.prologue(k, g, ins)
         self.exchange(state)
         for k, g, ins, outs in zip(self.ids, self.grids, state.bufs,
                                    state.spare):

@@ -1059,3 +1059,113 @@ def test_sharded_steps_count_one_local_launch_a_shard(cuda):
     for _ in range(3):
         state = step(state)
     assert kc.csf_local_step.launches == 3 * mesh.size
+
+
+# -- the local kernels of the 3-D sharded steps (K12d, K12e) ---------------
+
+@pytest.mark.parametrize("shape", [(4, 1), (2, 2)])
+@pytest.mark.parametrize("case", ["velocity_convective", "velocity_dirichlet"])
+def test_k12d_local_matches_plain_f64(cuda, case, shape):
+    """The slab kernel and the local step against their plain versions,
+    shard by shard, on one call's buffers."""
+    from chip_smoke import CG3D_CASES, _noisy_slabs, cg3d_solid
+    from openlbmpm_torch.kernels import cg3d as kg
+    from openlbmpm_torch.models.flow3d import (CG3DBoundaryConfig,
+                                               ColorGradientParams3D)
+    from openlbmpm_torch.parallel import make_mesh, shard_domain
+    p, b, kind, _ = CG3D_CASES[case]
+    mesh = make_mesh(shape=shape, kind="local", device=cuda)
+    step = kg.build_cg3d_sharded_step(
+        from_solid_mask(cg3d_solid(kind, (32, 40, 32))),
+        ColorGradientParams3D(**p), mesh, torch.float64,
+        bc_config=CG3DBoundaryConfig(**b))
+    m = step.model
+    geo = shard_domain(m.geo_planes, mesh, step.frame, rank=3)
+    state = step.shard(_noisy_slabs(m, 6, 8))
+    gap = 0.0
+    for k, g, ins in zip(step.ids, step.grids, state.bufs):
+        want = kg.cg3d_local_slabs_reference(ins[0], m, g)
+        kg.cg3d_local_slabs(ins[0], geo[k], m, g)
+        gap = max(gap, float((g.centre(ins[0]) - want).abs().max()))
+    step.exchange(state)
+    for k, g, ins, outs in zip(step.ids, step.grids, state.bufs,
+                               state.spare):
+        got = kg.cg3d_local_step(ins[0], outs[0], geo[k], m, g)
+        want = kg.cg3d_local_step_reference(ins[0], m, g)
+        gap = max(gap, float((g.centre(got) - want).abs().max()))
+    assert gap <= 1e-12
+
+
+def test_k12d_coupled_local_matches_plain_f64(cuda):
+    from chip_smoke import tracer3d_of, transport3d_case
+    from openlbmpm_torch.kernels import cg3d as kg
+    from openlbmpm_torch.parallel import make_mesh, shard_domain
+    m0, st = transport3d_case("dirichlet_nt2", cuda)
+    mesh = make_mesh(shape=(4, 1), kind="local", device=cuda)
+    step = kg.build_cg3d_sharded_step(
+        m0.geo, m0.flow.p, mesh, torch.float64, bc_config=m0.flow.bcs,
+        transport=tracer3d_of(m0, cuda, torch.float64))
+    m = step.model
+    geo = shard_domain(m.flow.geo_planes, mesh, step.frame, rank=3)
+    state = step.shard(*m.pack(st))
+    for k, g, ins in zip(step.ids, step.grids, state.bufs):
+        kg.cg3d_local_slabs(ins[0], geo[k], m.flow, g)
+    step.exchange(state)
+    gap = 0.0
+    for k, g, ins, outs in zip(step.ids, step.grids, state.bufs,
+                               state.spare):
+        got = kg.coupled3d_local_step(ins, outs, geo[k], m, g)
+        want = kg.coupled3d_local_step_reference(ins, m, g)
+        gap = max(gap, *(float((g.centre(a) - b).abs().max())
+                         for a, b in zip(got, want)))
+    assert gap <= 1e-12
+
+
+@pytest.mark.parametrize("t", [1, 2, 3])
+@pytest.mark.parametrize("case", ["k2_walls_force", "k3", "k4_walls_force"])
+def test_k12e_local_matches_plain_f64(cuda, case, t):
+    from openlbmpm_torch.kernels import flow3d as kf
+    from openlbmpm_torch.parallel import make_mesh, shard_domain
+    m0, f0 = sc3d_case(case, cuda)
+    mesh = make_mesh(shape=(4, 1), kind="local", device=cuda)
+    step = kf.build_sc3d_sharded_step(m0.geo, m0.p, mesh, torch.float64,
+                                      steps_per_call=t)
+    m = step.model
+    fl = shard_domain(torch.as_tensor(m0.geo.is_fluid, dtype=torch.uint8),
+                      mesh, step.frame, rank=3)
+    state = step.shard(f0)
+    step.exchange(state)
+    gap = 0.0
+    for k, g, ins, outs in zip(step.ids, step.grids, state.bufs,
+                               state.spare):
+        got = kf.sc3d_local_step(ins[0], outs[0], fl[k], m, g, t)
+        want = kf.sc3d_local_step_reference(ins[0], m, g, t)
+        gap = max(gap, float((g.centre(got) - want).abs().max()))
+    assert gap <= 1e-11
+
+
+def test_3d_sharded_steps_count_one_local_launch_a_shard(cuda):
+    from chip_smoke import _noisy_slabs, config5_model
+    from openlbmpm_torch.kernels import cg3d as kg
+    from openlbmpm_torch.kernels import flow3d as kf
+    from openlbmpm_torch.parallel import make_mesh
+    mesh = make_mesh(shape=(2, 2), kind="local", device=cuda)
+    m0 = config5_model(cuda, n=64)
+    step = kg.build_cg3d_sharded_step(m0.geo, m0.p, mesh, torch.float32,
+                                      bc_config=m0.bcs)
+    state = step.shard(_noisy_slabs(step.model, 2, 8))
+    kg.cg3d_local_step.launches = kg.cg3d_local_slabs.launches = 0
+    for _ in range(3):
+        state = step(state)
+    # every shard holds slabs of the outlet (bottom row) or the inlet (top)
+    assert kg.cg3d_local_step.launches == kg.cg3d_local_slabs.launches == 12
+    m1, f1 = sc3d_case("k2_walls_force", cuda, dtype=torch.float32)
+    step = kf.build_sc3d_sharded_step(m1.geo, m1.p,
+                                      make_mesh(shape=(4, 1), kind="local",
+                                                device=cuda),
+                                      torch.float32, steps_per_call=2)
+    state = step.shard(f1)
+    kf.sc3d_local_step.launches = 0
+    for _ in range(3):
+        state = step(state)
+    assert kf.sc3d_local_step.launches == 12

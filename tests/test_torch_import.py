@@ -17,6 +17,7 @@ from openlbmpm_tpu import geometry as jgeo
 from openlbmpm_tpu import lattice as jlat
 from openlbmpm_torch import geometry as tgeo
 from openlbmpm_torch import lattice as tlat
+from openlbmpm_torch.parallel import dryrun
 
 torch.set_num_threads(1)
 
@@ -91,7 +92,9 @@ def test_cli_runs_without_jax(tmp_path, model, ini, want):
 def test_dryrun_runs_without_jax(tmp_path):
     """``python -m openlbmpm_torch.parallel.dryrun --in-process --device
     cpu`` in a fresh interpreter that can import neither jax nor the JAX
-    package: the multi-device entry point stands alone."""
+    package: the multi-device entry point stands alone, and so do the 3-D
+    sharded builders and local steps (K12d, K12e) its last four lines
+    drive."""
     for stub in ("jax", "openlbmpm_tpu"):
         (tmp_path / stub).mkdir()
         (tmp_path / stub / "__init__.py").write_text(
@@ -103,7 +106,42 @@ def test_dryrun_runs_without_jax(tmp_path):
          "--in-process", "--device", "cpu"],
         cwd=tmp_path, env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert res.stdout.count("dryrun_multichip ") == 5
+    assert res.stdout.count("dryrun_multichip ") == len(dryrun.CASES) == 9
+
+
+def test_3d_sharded_steps_import_no_jax():
+    """Building and calling the 3-D sharded steps (K12d with and without a
+    tracer, K12e) and their local plain versions on the CPU imports neither
+    jax nor the JAX package (the builders import lazily)."""
+    code = (
+        "import sys, numpy as np, torch; "
+        "from openlbmpm_torch.geometry import from_solid_mask as fsm; "
+        "from openlbmpm_torch.models import flow3d as f3; "
+        "from openlbmpm_torch.kernels.cg3d import build_cg3d_sharded_step; "
+        "from openlbmpm_torch.kernels.flow3d import build_sc3d_sharded_step; "
+        "from openlbmpm_torch.parallel import make_mesh; "
+        "solid = np.zeros((16, 8, 8), bool); solid[:, 0] = True; "
+        "g = fsm(solid); mesh = make_mesh(shape=(2, 1), kind='local', "
+        "device='cpu'); "
+        "b = f3.CG3DBoundaryConfig(inlet='velocity', outlet='convective'); "
+        "st = build_cg3d_sharded_step(g, f3.ColorGradientParams3D(), mesh, "
+        "torch.float64, bc_config=b); m = st.model; "
+        "x = st.gather(st(st.shard(m.pack_state(*m.init_state_layers())))); "
+        "tr = f3.TransportD3Q7(g, device='cpu', dtype=torch.float64); "
+        "st = build_cg3d_sharded_step(g, f3.ColorGradientParams3D(), mesh, "
+        "torch.float64, transport=tr); m = st.model; "
+        "x = st.gather(st(st.shard(*m.pack(m.init_state("
+        "m.flow.init_state_layers(), np.ones((1, 16, 8, 8))))))); "
+        "p = f3.ShanChenParams3D(g_matrix=((0, 3.6), (3.6, 0)), "
+        "g_solid=(0, 0), tau=(1, 1)); "
+        "st = build_sc3d_sharded_step(g, p, mesh, torch.float64, "
+        "steps_per_call=2); m = st.model; "
+        "x = st.gather(st(st.shard(m.init_state_droplet((1, 1), (.1, .1), "
+        "radius=3)))); "
+        "assert not [k for k in sys.modules if k.startswith(('jax', "
+        "'openlbmpm_tpu'))]")
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
 
 
 @pytest.mark.parametrize("name", ["D2Q9", "D2Q5", "D3Q19", "D3Q7"])

@@ -5,10 +5,11 @@ never this module, JAX or conftest), rendezvous through a file, the group
 and the join each with a deadline.
 
 * K12a on a 4-shard y-mesh at T = 1 and K12a with transport on a (2, 2)
-  mesh, both at 64 x 64 f64 (``dryrun.TEST_CASES``), 4 steps: the gathered
-  state equals the ``LocalMesh`` result bit for bit, and the JAX package's
-  compressed ``_step_impl_c`` / coupled step within 1e-12 (the JAX side
-  runs in this process);
+  mesh, both at 64 x 64 f64, and K12d on a (2, 2) z*y mesh at 16 x 64 x 16
+  f64 (``dryrun.TEST_CASES``), 4 steps: the gathered state equals the
+  ``LocalMesh`` result bit for bit, and the JAX package's compressed
+  ``_step_impl_c`` / coupled step / 3-D compressed step (its Pallas kernel
+  in interpret mode) within 1e-12 (the JAX side runs in this process);
 * ``python -m openlbmpm_torch.parallel.dryrun --ranks 4 --device cpu``
   exits 0 and prints its lines.
 """
@@ -23,7 +24,9 @@ import pytest
 import torch
 
 from openlbmpm_tpu.models import colorgradient as jcg
+from openlbmpm_tpu.models import flow3d as jf
 from openlbmpm_tpu.models import transport as jtr
+from openlbmpm_tpu.pallas.cg3d import build_cg3d_fused_step
 from openlbmpm_torch.parallel import dryrun, make_mesh
 from test_torch_transport import _jax_compressed_coupled_step
 
@@ -35,10 +38,21 @@ TIMEOUT = 90.0
 
 def _jax_reference(name, start):
     """The JAX single-device steps of a TEST_CASES case from the port's
-    start arrays, 4 steps: ``_step_impl_c`` (CSF), or the coupled step with
-    its flow half compressed (``tests/test_torch_transport.py``)."""
+    start arrays, 4 steps: ``_step_impl_c`` (CSF), the coupled step with
+    its flow half compressed (``tests/test_torch_transport.py``), or the
+    3-D compressed kernel in interpret mode."""
     family, shape, _, _ = dryrun.TEST_CASES[name]
     g, kw, _ = dryrun.case_model(family, shape, torch.float64)
+    if family == "cg3d":
+        fused = build_cg3d_fused_step(
+            g, jf.ColorGradientParams3D(**vars(kw["params"])), jnp.float64,
+            slabs_per_block=8, bc_config=jf.CG3DBoundaryConfig(
+                **vars(kw["bc_config"])), state_mode="compressed",
+            interpret=True)
+        s = jnp.asarray(start[0].numpy())
+        for _ in range(4):
+            s = fused(s)
+        return (np.asarray(s),)
     flow = jcg.ColorGradientParams(**vars(kw["params"]))
     bcs = jcg.CGBoundaryConfig(**vars(kw["bc_config"]))
     s = jnp.asarray(start[0].numpy())
