@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
-"""Time the single-device 3-D kernels of this checkout against those of
-another checkout of the repository, in turns on one card.
+"""Time the single-device kernels of this checkout against those of another
+checkout of the repository, in turns on one card.
 
-    python3 chip_ab.py OTHER_DIR [ROUNDS]
+    python3 chip_ab.py OTHER_DIR [ROUNDS] [3d|2d]
 
 Run from the repository root on a machine with a CUDA card and nvcc.
 OTHER_DIR holds another checkout (e.g. the parent commit, unpacked with
 ``git archive`` into a directory that .gitignore lists).  Each turn is a
 subprocess in one of the two checkouts, which builds that checkout's
-libraries and times, with CUDA events, ms a step of K9c (configuration 5),
+libraries and times, with CUDA events, through ``chip_smoke.py``'s models
+of that checkout: "3d" (the default) ms a step of K9c (configuration 5),
 K9t (the coupled probe), K11 (basic3d) and K10 (probe_sc3d), all at 128^3
-in f32, through ``chip_smoke.py``'s models of that checkout.  The turns go
+in f32; "2d" ms a step of the Shan-Chen K8 and of K8-T at T = 4 on
+bench_all.py's configs 2 and 3 at 1024^2 in f32, and of K8 with four
+fluids (the runtime-K instance) at 1024^2.  The turns go
 other, this, this, other (ROUNDS times, default 1), so that a drift of the
 card's clock shows in both.  Prints one JSON line a turn, then one with
 each kernel's median over the turns of each checkout.
@@ -50,9 +53,29 @@ out["K10"] = cs._time_steps(lambda f: flow3d.sc3d_step(f, m),
 print(json.dumps({k: v * 1e3 for k, v in out.items()}))
 """
 
+TURN_2D = r"""
+import json, sys, torch
+import chip_smoke as cs
+from openlbmpm_torch.kernels import build, shanchen
+build.load_libraries(("sc2d_f32", "sc2d_block_f32", "sc2d_rt"))
+dev = torch.device("cuda", 0)
+out = {}
+for name in ("config2", "config3"):
+    m, f = cs.sc_config(name, dev)
+    out[f"K8 {name}"] = cs._time_steps(lambda x: shanchen.sc_step(x, m), f,
+                                       200, dev)
+    out[f"K8-T T=4 {name}"] = cs._time_steps(
+        lambda x: shanchen.sc_block_step(x, m, 4), f, 50, dev) / 4
+m, f = cs.sc_case("sc4_mrt_velocity_convective", dev, 1024, 1024,
+                  torch.float32)
+out["K8 K=4"] = cs._time_steps(lambda x: shanchen.sc_step(x, m), f, 100, dev)
+print(json.dumps({k: v * 1e3 for k, v in out.items()}))
+"""
+TURNS = {"3d": TURN, "2d": TURN_2D}
 
-def turn(where: Path) -> dict:
-    res = subprocess.run([sys.executable, "-c", TURN], cwd=where,
+
+def turn(where: Path, family: str = "3d") -> dict:
+    res = subprocess.run([sys.executable, "-c", TURNS[family]], cwd=where,
                          capture_output=True, text=True, timeout=900)
     if res.returncode != 0:
         raise RuntimeError(f"turn in {where} failed:\n{res.stderr[-3000:]}")
@@ -66,10 +89,14 @@ def main(argv=None) -> int:
         return 2
     other = Path(args[0]).resolve()
     rounds = int(args[1]) if len(args) > 1 else 1
+    family = args[2] if len(args) > 2 else "3d"
+    if family not in TURNS:
+        print(__doc__, file=sys.stderr)
+        return 2
     times = {"other": [], "this": []}
     for _ in range(rounds):
         for name in ("other", "this", "this", "other"):
-            ms = turn(other if name == "other" else ROOT)
+            ms = turn(other if name == "other" else ROOT, family)
             times[name].append(ms)
             print(json.dumps({"checkout": name, "ms": ms}), flush=True)
     print(json.dumps({"median_ms": {

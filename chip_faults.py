@@ -52,11 +52,13 @@ sharded colour-gradient step) maps its window rows to global rows one row
 off, in its f64 instance, the local form of K9 (K12d, the sharded D3Q19 CSF
 step) writes the boundary slabs one buffer slab off their global index, and
 the local form of K10 (K12e, the sharded D3Q19 Shan-Chen step) computes
-rho one slab short of a sub-step's reach, each in its f64 instance:
+rho one slab short of a sub-step's reach, and the local form of K8-T
+(K12c, the sharded 2-D Shan-Chen step) finds its inlet band one global row
+off, each in its f64 instance:
 
   none           the sources as they are: phases 4, 6, 11, 15, 20, 21,
                  26, 29, 31, 33, 36, 37, 41, 45-48, 52, 53, 58, 60, 63,
-                 67, 68 must pass;
+                 67, 68, 70 must pass;
   f32            cg3d.cuh, float32 storage (K9c f32, K9s f32): phase 21;
   bf16           cg3d.cuh, bfloat16 storage (K9h): phase 21;
   tracer f32     cg3d.cuh, float32 storage (K9t f32): phase 26;
@@ -86,7 +88,10 @@ rho one slab short of a sub-step's reach, each in its f64 instance:
   K12d slab index    cg3d_local.cuh, float64 storage: phase 67 must fail,
                  phases 20 and 21 (K9) pass;
   K12e rho short flow3d_local.cuh, float64 storage: phase 68 must fail,
-                 phase 36 (K10) passes.
+                 phase 36 (K10) passes;
+  K12c inlet row sc2d_block.cuh, the local instances, float64 storage:
+                 phase 70 must fail, phase 46 (K8-T, the same body's
+                 single-device instances) passes.
 
 Prints one line per case with the failed checks and the gaps, and exits 0
 only when every case behaves as stated.
@@ -150,6 +155,9 @@ K12D_FAULT = ("  auto at = [&](int g) {{ return (size_t)(g - G.z0 + G.fz + "
               "(sizeof(S) == {size})) * nxy + k2; }};")
 K12E_LINE = "    const ZRange r{a - 2, b + 2};"
 K12E_FAULT = "    const ZRange r{{a - 2 + (sizeof(S) == {size}), b + 2}};"
+K12C_LINE = "            if (wrap(oy + ly, ny) == row && FL[c]) {"
+K12C_FAULT = ("            if (wrap(oy + ly + (LOCAL && sizeof(S) == {size}), "
+              "ny) == row && FL[c]) {{")
 K7T_FAULT = ("      if ((P.inlet != 0 || P.outlet != 0) && "
              "(sub == 0 || sizeof(S) != {size})) {{")
 # name -> (source, line, fault, phases that must fail)
@@ -184,6 +192,8 @@ CASES = {
                         K12D_FAULT.format(size=8), ("67",)),
     "K12e rho short": ("flow3d_local.cuh", K12E_LINE,
                        K12E_FAULT.format(size=8), ("68",)),
+    "K12c inlet row": ("sc2d_block.cuh", K12C_LINE,
+                       K12C_FAULT.format(size=8), ("70",)),
 }
 # name -> the T=1 phases of the same family that must pass the T-step
 # faults (the T=1 kernels do not run the changed line)
@@ -192,11 +202,11 @@ MUST_PASS = {"K3 bc once": ("4", "41"), "K8-T local row": ("15",),
              "K11-T swap once": ("33",), "K10-T rho shell": ("36",),
              "K9-T window z": ("20", "21"), "K8 rt tau": ("15",),
              "K12 row0": ("45",), "K12d slab index": ("20", "21"),
-             "K12e rho short": ("36",)}
+             "K12e rho short": ("36",), "K12c inlet row": ("46",)}
 # the phases of the unchanged sources
 ALL_PHASES = ("4", "6", "11", "15", "20", "21", "26", "29", "31", "33", "36",
               "37", "41", "45", "46", "47", "48", "52", "53", "58", "60",
-              "63", "67", "68")
+              "63", "67", "68", "70")
 
 RUN = r"""
 import json, sys, torch
@@ -213,7 +223,7 @@ SIMPLE = {"6": cs.phase_coupled_f64, "11": cs.phase_split_coupled_f64,
           "47": cs.phase_block_single_f64, "52": cs.phase_block_coupled_f64,
           "53": cs.phase_block3d_f64, "60": cs.phase_block_cg3d_f64,
           "63": cs.phase_sharded_csf_f64, "67": cs.phase_sharded_cg3d_f64,
-          "68": cs.phase_sharded_sc3d_f64}
+          "68": cs.phase_sharded_sc3d_f64, "70": cs.phase_sharded_sc_f64}
 for phase in sys.argv[1:]:
     bad = failed.setdefault(phase, [])
     cs.check = lambda cond, what, bad=bad: cond or bad.append(what)

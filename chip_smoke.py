@@ -329,7 +329,27 @@ toolkit (nvcc) and PyTorch built for CUDA; JAX is not needed.  Phases:
      single-device kernel (and K10-T), the plain versions' time, and the
      bound (least bytes a cell-step plus the frames' reads and copies, over
      3.35 TB/s); at 128^3 the device µs a launch of each kind of kernel,
-     sharded and on one device (``torch.profiler``).
+     sharded and on one device (``torch.profiler``);
+ 70. f64: the sharded 2-D Shan-Chen step (K12c, ``build_sc_sharded_step`` on
+     a ``LocalMesh``): bench_all.py configs 2 and 3 at 256^2, the case of
+     tests/test_multichip.py:278-315 at 64^2, EFS iso-10 with Zou-He
+     velocity / pressure rows at 104x64, the Peng-Robinson droplet and four
+     fluids (the runtime-K local passes) at 128x64 (convective outlet) and
+     104x64 (EFS, Zou-He pressure outlet), each from a noisy start,
+     on (4, 1) and (2, 1) at T = 1, 2, two calls: against the single-device
+     K8-T at the same T, K8 for T steps (<= 1e-12, expected bit for bit)
+     and the plain step (<= 1e-12), one local call a shard a call;
+ 71. full width, f32: configs 2 and 3 at 1024^2 on (4, 1) at T = 1 and 4,
+     four fluids at 1024^2 at T = 1 and 2: the gathered state against the
+     single-device K8-T at the same T (<= 1e-5), each shard's
+     local call against its plain version on the same padded buffers, one
+     call (<= 1e-5), the launches of these main paths (counts set to 0 just
+     before), ms a time step sharded, of the exchange alone, of the local
+     kernels alone, the host's time to issue a call, of the single-device
+     K8-T at the same T and of K8, the plain version's time, the bound
+     (least bytes a cell-step plus the frames' reads and copies, over 3.35
+     TB/s), and the device µs a launch of each kind of kernel, sharded and
+     on one device (``torch.profiler``).
 
 Every phase prints one line or more, each number line with the card's name
 and power limit, and any failure exits non-zero.  Then the wall time, the
@@ -6685,11 +6705,11 @@ K12_KERNEL_GROUPS = ("collide_stream", "march", "rho_kernel", "rt3_",
                      "normal_kernel", "curvature")
 
 
-def device_breakdown(step, x, steps):
-    """Device µs a launch of each group of K12_KERNEL_GROUPS (and "other")
-    over `steps` calls x = step(x), from torch.profiler, after a warm-up:
-    the mean over the launches the trace holds (it may drop some, so no
-    total a call is taken from it); empty where it shows no device time."""
+def device_breakdown(step, x, steps, groups=K12_KERNEL_GROUPS):
+    """Device µs a launch of each group of `groups` (and "other") over
+    `steps` calls x = step(x), from torch.profiler, after a warm-up: the
+    mean over the launches the trace holds (it may drop some, so no total a
+    call is taken from it); empty where it shows no device time."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(2):
         x = step(x)
@@ -6704,8 +6724,7 @@ def device_breakdown(step, x, steps):
                     getattr(ev, "cuda_time_total", 0.0))
         if t and ev.count and getattr(ev, "device_type", None) in (
                 None, torch.autograd.DeviceType.CUDA):
-            key = next((g for g in K12_KERNEL_GROUPS if g in ev.key),
-                       "other")
+            key = next((g for g in groups if g in ev.key), "other")
             total, count = sums.get(key, (0.0, 0))
             sums[key] = (total + t, count + ev.count)
     return {k: t / n for k, (t, n) in sums.items()}
@@ -6940,6 +6959,244 @@ def phase67_69_entries(r67, r68, r69):
     return entries
 
 
+# -- the sharded 2-D Shan-Chen step: K12c, one shard a local call -----------
+
+K12C_MESHES = ((4, 1), (2, 1))
+
+
+def k12c_cases(device, dtype=torch.float64):
+    """Phase 70's cases: name -> (model of the global domain, noisy start):
+    bench_all.py configs 2 and 3 at 256^2, the case of tests/test_multichip
+    .py:278-315 (64x64, side walls, Zou-He velocity inlet, convective
+    outlet), the EFS iso-10 Zou-He velocity / pressure case at 104x64
+    (shards of 26 and 52 rows), the Peng-Robinson droplet and four fluids
+    (the runtime-K local passes) with the convective outlet at 128x64 and
+    with the Zou-He pressure outlet at 104x64."""
+    from openlbmpm_torch.parallel import dryrun
+    out = {}
+    for name in ("config2", "config3"):
+        m, f = sc_config(name, device, dtype=dtype, n=256)
+        out[f"{name} 256^2"] = (m, f)
+    from openlbmpm_torch.models.shanchen import ShanChenMCMP
+    g, kw, (f,) = dryrun.case_model("sc", (64, 64), dtype)
+    m = ShanChenMCMP(g, kw["params"], kw["bc_config"], dtype=dtype,
+                     device=device)
+    out["multichip 64^2"] = (m, f.to(device))
+    for name, ny in (("efs10_mrt_velocity_pressure", 104),
+                     ("sc_peng_robinson_one_fluid", 128),
+                     ("sc4_mrt_velocity_convective", 128),
+                     ("efs4_4f_velocity_pressure", 104)):
+        out[f"{name} {ny}x64"] = sc_case(name, device, ny, 64, dtype)
+    rng = np.random.default_rng(70)
+    return {k: (m, f * torch.as_tensor(
+        1 + 1e-3 * rng.standard_normal(tuple(f.shape)), dtype=f.dtype,
+        device=f.device) * m.fluid_mask) for k, (m, f) in out.items()}
+
+
+def phase_sharded_sc_f64(device, calls=2, tol=1e-12, tol_plain=1e-12):
+    """K12c at f64 against the single-device K8-T at the same T, K8 (T
+    steps) and the plain step (see the module docstring, phase 70)."""
+    from openlbmpm_torch.kernels import shanchen as ks
+    from openlbmpm_torch.parallel import make_mesh
+    res = {}
+    for name, (m0, f0) in k12c_cases(device).items():
+        for shape in K12C_MESHES:
+            mesh = make_mesh(shape=shape, kind="local", device=device)
+            for t in (1, 2):
+                step = ks.build_sc_sharded_step(
+                    m0.geo, m0.p, mesh, torch.float64, steps_per_call=t,
+                    bc_config=m0.bcs)
+                tag = f"K12c {name} {shape} T={t}"
+                check(step is not None, f"{tag}: no sharded step")
+                m = step.model
+                ks.sc_local_step.launches = 0
+                (a,) = _sharded(step, (f0,), calls)
+                check(ks.sc_local_step.launches == calls * mesh.size,
+                      f"{tag}: {ks.sc_local_step.launches} local launches")
+                et = _gap(a, _steps(lambda x: ks.sc_block_step(x, m, t), f0,
+                                    calls))
+                e1 = _gap(a, _steps(lambda x: ks.sc_step(x, m), f0,
+                                    calls * t))
+                ep = _gap(a, _steps(m.plain_step, f0, calls * t))
+                check(bool(torch.isfinite(a).all()) and max(et, e1) <= tol
+                      and ep <= tol_plain, f"{tag}: sharded vs K8-T "
+                      f"{et:.3e}, vs K8 {e1:.3e} (<= {tol:g}), vs plain "
+                      f"{ep:.3e} (<= {tol_plain:g})")
+                res[(name, shape, t)] = (et, e1, ep)
+    return res
+
+
+# least HBM bytes a cell of the two- and four-fluid states (f32)
+K12C_STATE_BYTES = {2: 72, 4: 144}
+# kernel-name pieces of phase 71's device breakdown, in order
+K12C_KERNEL_GROUPS = ("sc_local_kernel", "sc_block_kernel", "rtl_psi",
+                      "rtl_collide", "rtl_stream", "rtl_outlet", "rt_psi",
+                      "rt_collide", "rt_stream", "rt_outlet", "rt_decode",
+                      "rt_encode", "collide_stream", "psi_kernel")
+# f32 limit of phase 71's comparisons: the sharded state against the
+# single-device kernel, and each local call against its plain version on
+# the same padded buffers
+K12C_F32_TOL = 1e-5
+
+
+def k12c_full_cases(device, n=FLAGSHIP_N):
+    """Phase 71's cells: name -> (model thunk, T, calls): configs 2 and 3
+    at 1024^2 on (4, 1) at T = 1 and 4, and the four-fluid case at 1024^2
+    at T = 1 and 2."""
+    out = {}
+    for name in ("config2", "config3"):
+        for t in (1, 4):
+            out[f"{name} {n}^2 (4, 1) T={t}"] = (
+                lambda name=name: sc_config(name, device, n=n), t, 12 // t)
+    for t in (1, 2):
+        out[f"sc4_mrt_velocity_convective {n}^2 (4, 1) T={t}"] = (
+            lambda: sc_case("sc4_mrt_velocity_convective", device, n, n,
+                            torch.float32), t, 4 // t)
+    return out
+
+
+def _sc_local_vs_plain(step, state, device):
+    """One call's local kernels against their plain versions on the same
+    exchanged padded buffers of `state`: (max |diff| over the centres, the
+    plain versions' seconds over every shard)."""
+    from openlbmpm_torch.kernels import shanchen as ks
+    m, t = step.model, step.steps_per_call
+    step.exchange(state)
+    for k, g, ins, outs in zip(step.ids, step.grids, state.bufs,
+                               state.spare):
+        step.local(k, g, ins, outs)
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    refs = [ks.sc_local_step_reference(x[0], m, g, t)
+            for g, x in zip(step.grids, state.bufs)]
+    torch.cuda.synchronize(device)
+    sec = time.perf_counter() - t0
+    gap = max(_gap(g.centre(outs[0]), r)
+              for g, outs, r in zip(step.grids, state.spare, refs))
+    return gap, sec
+
+
+def phase_sharded_sc_full(device, time_calls=20):
+    """Phase 71 (see the module docstring): correctness, speed and launches
+    of K12c at full width in f32."""
+    from openlbmpm_torch.kernels import shanchen as ks
+    from openlbmpm_torch.parallel import make_mesh
+    mesh = make_mesh(shape=(4, 1), kind="local", device=device)
+    counters = {"sc_local_step": ks.sc_local_step}
+    res = {}
+    for name, (model_of, t, calls) in k12c_full_cases(device).items():
+        m0, f0 = model_of()
+        step = ks.build_sc_sharded_step(m0.geo, m0.p, mesh, torch.float32,
+                                        steps_per_call=t, bc_config=m0.bcs)
+        tag = f"K12c {name}"
+        check(step is not None, f"{tag}: no sharded step")
+        m = step.model
+        def kern(x):
+            return ks.sc_block_step(x, m, t)
+        (a,), launches = _counted_call(step, counters, (f0,), calls)
+        check(launches["sc_local_step"] == calls * mesh.size, f"{tag}: "
+              f"{launches['sc_local_step']} local launches for {calls} "
+              "calls")
+        r = {"launches": launches["sc_local_step"], "calls": calls,
+             "steps": t, "k": m.k,
+             "vs_kernel": _gap(a, _steps(kern, f0, calls))}
+        check(bool(torch.isfinite(a).all()), f"{tag}: state not finite")
+        check(r["vs_kernel"] <= K12C_F32_TOL, f"{tag}: sharded vs "
+              f"single-device {r['vs_kernel']:.3e} (<= {K12C_F32_TOL:g})")
+        state = step.shard(f0)
+        n_time = max(time_calls // t, 4)
+        r["sec"] = _time_steps(step, state, n_time, device) / t
+        r["host_sec"] = _host_seconds(step, state, n_time, device) / t
+        r["exchange_sec"] = _time_steps(_exchange_only(step), state,
+                                        time_calls, device) / t
+        r["local_sec"] = _time_steps(_local_only(step), state, n_time,
+                                     device) / t
+        r["kernel_sec"] = _time_steps(kern, f0, n_time, device) / t
+        r["k8_sec"] = _time_steps(lambda x: ks.sc_step(x, m), f0, n_time,
+                                  device)
+        r["device_us"] = device_breakdown(step, state, 4, K12C_KERNEL_GROUPS)
+        r["device_us_single"] = device_breakdown(kern, f0, 4,
+                                                 K12C_KERNEL_GROUPS)
+        r["cells"] = step.ny * step.nx
+        r["bound_ms"] = k12_bytes(step, K12C_STATE_BYTES[m.k]) / \
+            HBM_BYTES_PER_S * 1e3 / t
+        r["frame"] = step.frame
+        gap, sec = _sc_local_vs_plain(step, state, device)
+        r["vs_plain"], r["plain_sec"] = gap, sec / t
+        check(gap <= K12C_F32_TOL, f"{tag}: local kernels vs plain "
+              f"{gap:.3e} (<= {K12C_F32_TOL:g})")
+        res[name] = r
+        del step, state, a
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase70_71_lines(r70, r71, card):
+    lines = [
+        f"phase 70 K12c f64, sharded vs single-device K8-T (same T) / K8 (T "
+        f"steps) / plain ({len(r70)} runs: "
+        + ", ".join(sorted({k[0] for k in r70})) + " on (4, 1) and (2, 1) "
+        "at T = 1, 2, two calls): max |diff| "
+        f"{max(v[0] for v in r70.values()):.3e} / "
+        f"{max(v[1] for v in r70.values()):.3e} (<= 1e-12) / "
+        f"{max(v[2] for v in r70.values()):.3e} (<= 1e-12)"]
+    for name, r in r71.items():
+        f = r["frame"]
+        lines.append(
+            f"phase 71 {name} f32 [{card}]: {r['calls']} calls, "
+            f"{r['launches']} local launches; vs single-device kernel "
+            f"{r['vs_kernel']:.3e}; local kernels vs plain, one call "
+            f"{r['vs_plain']:.3e} (limit {K12C_F32_TOL:g}); ms a step "
+            f"sharded {r['sec'] * 1e3:.4f}, exchange "
+            f"{r['exchange_sec'] * 1e3:.4f}, local kernels "
+            f"{r['local_sec'] * 1e3:.4f}, host issue "
+            f"{r['host_sec'] * 1e3:.4f}, single-device K8-T "
+            f"{r['kernel_sec'] * 1e3:.4f} (K8 {r['k8_sec'] * 1e3:.4f})"
+            f", bound {r['bound_ms']:.4f}, plain "
+            f"{r['plain_sec'] * 1e3:.2f}; frame lo {f.lo} hi {f.hi}")
+        for key in ("device_us", "device_us_single"):
+            d = r[key]
+            lines.append(
+                f"phase 71 {name} device µs a launch "
+                + ("sharded" if key == "device_us" else
+                   "single-device kernel") + f" [{card}]: " + ", ".join(
+                    f"{k} {v:.1f}" for k, v in sorted(
+                        d.items(), key=lambda kv: -kv[1])))
+    return lines
+
+
+def phase70_71_entries(r70, r71):
+    """The kernels line's entry of K12c: ms, plain ms and bound a time step
+    of config 2 at 1024^2 on (4, 1) at T = 4, launches from phase 71's main
+    path there, max_abs_err the largest f32 gap to the plain version over
+    phase 71's runs (one call from the same padded buffers), and beside
+    them T = 1, config 3 and four fluids."""
+    n = FLAGSHIP_N
+    c2 = r71[f"config2 {n}^2 (4, 1) T=4"]
+    c2_1 = r71[f"config2 {n}^2 (4, 1) T=1"]
+    c3 = r71[f"config3 {n}^2 (4, 1) T=4"]
+    k4 = r71[f"sc4_mrt_velocity_convective {n}^2 (4, 1) T=2"]
+    nbytes = c2["bound_ms"] * 1e-3 * HBM_BYTES_PER_S / c2["cells"]
+    return [kernel_entry(
+        "sc_local_step", "K12c", "openlbmpm_torch/csrc/sc2d_local.cuh "
+        "(sc2d_local_{f64,f32}.cu, on sc2d_block.cuh and sc2d_rt.cuh)",
+        "openlbmpm_tpu/pallas/shanchen.py:850 (local kernel call :794)",
+        c2["launches"], max(r["vs_plain"] for r in r71.values()),
+        c2["sec"], c2["plain_sec"], nbytes, SC2_OPS, c2["cells"],
+        steps_per_call=4, mesh=[4, 1],
+        max_abs_err_f64=max(v[2] for v in r70.values()),
+        vs_single_device=max(r["vs_kernel"] for r in r71.values()),
+        launches_t1=c2_1["launches"], ms_t1=c2_1["sec"] * 1e3,
+        bound_ms_t1=c2_1["bound_ms"], exchange_ms=c2["exchange_sec"] * 1e3,
+        host_ms=c2["host_sec"] * 1e3,
+        single_device_ms=c2["kernel_sec"] * 1e3,
+        single_device_ms_t1=c2_1["kernel_sec"] * 1e3,
+        single_device_k8_ms=c2["k8_sec"] * 1e3,
+        ms_config3=c3["sec"] * 1e3, bound_ms_config3=c3["bound_ms"],
+        ms_k4_t2=k4["sec"] * 1e3, bound_ms_k4_t2=k4["bound_ms"],
+        plain_ms_k4_t2=k4["plain_sec"] * 1e3)]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -7152,6 +7409,18 @@ def main() -> int:
     for ln in phase67_69_lines(r67, r68, r69, card):
         print(ln)
 
+    t_k12c = {}
+    for key, fn in (("r70", phase_sharded_sc_f64),
+                    ("r71", phase_sharded_sc_full)):
+        t0 = time.perf_counter()
+        t_k12c[key] = (fn(device), time.perf_counter() - t0)
+        torch.cuda.empty_cache()
+    r70, r71 = (t_k12c[k][0] for k in sorted(t_k12c))
+    print("phases 70-71 wall s: " + ", ".join(
+        f"{k[1:]} {v[1]:.1f}" for k, v in sorted(t_k12c.items())))
+    for ln in phase70_71_lines(r70, r71, card):
+        print(ln)
+
     n2 = FLAGSHIP_N * FLAGSHIP_N
     csf = "openlbmpm_tpu/pallas/csf.py:147"
     entries = [kernel_entry(
@@ -7285,6 +7554,7 @@ def main() -> int:
     entries += phase58_62_entries(r58, r60, r61, r62)
     entries += phase63_66_entries(r63, r64, r65, r66)
     entries += phase67_69_entries(r67, r68, r69)
+    entries += phase70_71_entries(r70, r71)
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s "
           f"(phases 1-14 {t_old:.1f} s, 1-19 {t_2d:.1f} s, 1-24 "
           f"{t_3d:.1f} s, 1-28 {t_k9t:.1f} s, 1-39 {t_flow:.1f} s, 1-44 "

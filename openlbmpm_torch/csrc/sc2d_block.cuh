@@ -25,6 +25,11 @@
 // What bounds it: HBM bytes per cell-step, the state read and written once
 // a call: 144/T B (K = 2, f32), 88/T (bf16) with the geometry; the halo
 // recompute and one block a streaming multiprocessor set its pace.
+//
+// The local form (K12c: one shard of a y-decomposed domain, the TPU
+// kernel's local_ny build, pallas/shanchen.py:670-690, :770-815) is the
+// same body with block2d.cuh's LocalGrid load map, as the second kernel
+// sc_local_kernel; sc2d_local.cuh launches it.
 
 #pragma once
 
@@ -33,16 +38,23 @@
 
 namespace {
 
-template <typename S, int K, int ORDER, typename C = typename Traits<S>::C>
-__global__ void __launch_bounds__(kBlockThreads, 1)
-sc_block_kernel(const S* __restrict__ f, const C* __restrict__ geo, S* __restrict__ out,
-                ScParams P, BlockShape B, unsigned char* __restrict__ scratch) {
+// The body of a launch.  LOCAL: the local form (K12c), one shard's centre
+// of the padded buffers of G (block2d.cuh): the state and the geometry
+// planes are G.py x G.px cells, the bands found by global row.
+template <typename S, int K, int ORDER, bool LOCAL, typename C = typename Traits<S>::C>
+__device__ __forceinline__ void sc_block_body(const S* __restrict__ f, const C* __restrict__ geo,
+                                              S* __restrict__ out, const ScParams& P,
+                                              const BlockShape& B, const LocalGrid& G,
+                                              unsigned char* __restrict__ scratch) {
   constexpr int R = reach(ORDER);
   extern __shared__ __align__(16) unsigned char smem[];
   C* W = window_planes<C>(B, smem, scratch);
   unsigned char* FL = window_fluid(B, smem, scratch, K * 10, (int)sizeof(C));
   const int nx = P.nx, ny = P.ny;
-  const size_t n = (size_t)ny * nx;
+  // the cells this launch writes (the domain, or the shard's centre) and
+  // the cells of a plane
+  const int tnx = LOCAL ? G.nx : nx, tny = LOCAL ? G.ny : ny;
+  const size_t n = LOCAL ? (size_t)G.py * G.px : (size_t)ny * nx;
   const int wx = B.wx, wy = B.wy;
   const size_t PL = (size_t)wx * wy;
   C* PSI = W + (size_t)K * 9 * PL;
@@ -51,9 +63,12 @@ sc_block_kernel(const S* __restrict__ f, const C* __restrict__ geo, S* __restric
 
   for (int tile = blockIdx.x; tile < B.ntx * B.nty; tile += gridDim.x) {
     const int x0 = (tile % B.ntx) * B.tx, y0 = (tile / B.ntx) * B.ty;
-    const int ox = x0 - B.hx, oy = y0 - B.hlo;
+    const int ox = x0 - B.hx, ly0 = y0 - B.hlo;
+    // the global row of window row 0
+    const int oy = LOCAL ? G.row0 + ly0 : ly0;
     auto gidx = [&](int c) {
-      return (size_t)wrap(oy + c / wx, ny) * nx + wrap(ox + c % wx, nx);
+      if constexpr (LOCAL) return local_index(G, ly0 + c / wx, ox + c % wx);
+      else return (size_t)wrap(oy + c / wx, ny) * nx + wrap(ox + c % wx, nx);
     };
     auto get = [&](int c, C F[K][9]) {
 #pragma unroll
@@ -180,23 +195,56 @@ sc_block_kernel(const S* __restrict__ f, const C* __restrict__ geo, S* __restric
 
     for (int t = threadIdx.x; t < B.tx * B.ty; t += kBlockThreads) {
       const int x = x0 + t % B.tx, y = y0 + t / B.tx;
-      if (x >= nx || y >= ny) continue;
+      if (x >= tnx || y >= tny) continue;
       const int c = (B.hlo + t / B.tx) * wx + B.hx + t % B.tx;
       C o[K][9];
       get(c, o);
-      store_state<S, K>(out, n, (size_t)y * nx + x, o);
+      store_state<S, K>(out, n,
+                        LOCAL ? (size_t)(G.fy + y) * G.px + G.fx + x : (size_t)y * nx + x, o);
     }
     __syncthreads();
   }
 }
 
+// Two kernels of one body, so that the single-device instance keeps its
+// signature.  The body takes the parameter blocks by reference: by value,
+// ptxas spilled in the f32 K = 2 iso-8 instance and K8-T took 2.5% longer
+// at config 3 (PERF.md §6, K12c); by reference both configs stay within 2%
+// of the kernel as it was before the local form.
+template <typename S, int K, int ORDER, typename C = typename Traits<S>::C>
+__global__ void __launch_bounds__(kBlockThreads, 1)
+sc_block_kernel(const S* __restrict__ f, const C* __restrict__ geo, S* __restrict__ out,
+                ScParams P, BlockShape B, unsigned char* __restrict__ scratch) {
+  sc_block_body<S, K, ORDER, false>(f, geo, out, P, B, LocalGrid{}, scratch);
+}
+
+template <typename S, int K, int ORDER, typename C = typename Traits<S>::C>
+__global__ void __launch_bounds__(kBlockThreads, 1)
+sc_local_kernel(const S* __restrict__ f, const C* __restrict__ geo, S* __restrict__ out,
+                ScParams P, BlockShape B, LocalGrid G, unsigned char* __restrict__ scratch) {
+  sc_block_body<S, K, ORDER, true>(f, geo, out, P, B, G, scratch);
+}
+
+// The bands' reach: d rows below (the inlet ghosts), d + 2 above (the
+// convective rows; d for Zou-He).
+__host__ inline int sc_band_lo(const ScParams& P) { return P.inlet != 0 ? P.depth : 0; }
+__host__ inline int sc_band_hi(const ScParams& P) {
+  return P.outlet == 2 ? P.depth + 2 : (P.outlet == 1 ? P.depth : 0);
+}
+
 template <typename S, int K, int ORDER>
 BlockShape sc_block_shape(const ScParams& P, int T) {
   using C = typename Traits<S>::C;
-  const int d = P.depth;
-  return block_shape(P.ny, P.nx, T, reach(ORDER) + 1, P.inlet != 0 ? d : 0,
-                     P.outlet == 2 ? d + 2 : (P.outlet == 1 ? d : 0), K * 10,
+  return block_shape(P.ny, P.nx, T, reach(ORDER) + 1, sc_band_lo(P), sc_band_hi(P), K * 10,
                      (int)sizeof(C));
+}
+
+// The local launch's tiling: the centre's of G, the bands by the global rows.
+template <typename S, int K, int ORDER>
+BlockShape sc_local_block_shape(const ScParams& P, int T, const LocalGrid& G) {
+  using C = typename Traits<S>::C;
+  return block_shape(G.ny, G.nx, T, reach(ORDER) + 1, sc_band_lo(P), sc_band_hi(P), K * 10,
+                     (int)sizeof(C), P.ny);
 }
 
 template <typename S, int K, int ORDER>

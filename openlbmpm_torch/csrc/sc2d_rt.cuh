@@ -113,25 +113,19 @@ __global__ void rt_psi_kernel(const C* __restrict__ a, const C* __restrict__ geo
   }
 }
 
-// The collision of every fluid at a fluid cell (sc2d.cuh::sc_collide with
-// the fluids looped at run time); vs and fs are scratch of 2K planes each.
-template <typename C, int ORDER>
-__global__ void rt_collide_kernel(const C* __restrict__ a, const C* __restrict__ geo,
-                                  const C* __restrict__ psi, C* __restrict__ vs,
-                                  C* __restrict__ fs, C* __restrict__ post, ScParams P,
-                                  ScTable tb) {
-  const int nx = P.nx, ny = P.ny, K = tb.k;
-  const size_t n = (size_t)ny * nx;
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  if (!(geo[idx] > C(0.5))) {
-    for (int q = 0; q < K * 9; ++q) post[(size_t)q * n + idx] = C(0);
-    return;
-  }
-  const int x = (int)(idx % nx), y = (int)(idx / nx);
-  auto psi_at = [&](int j, int dx, int dy) {
-    return psi[(size_t)j * n + (size_t)wrap(y + dy, ny) * nx + wrap(x + dx, nx)];
-  };
+// The collision of every fluid at the fluid cell idx (sc2d.cuh::sc_collide
+// with the fluids looped at run time): load(k, F) gives fluid k's
+// populations after the inlet rows, psi_at(j, dx, dy) psi_j at an offset
+// from the cell; geo, vs, fs and post are planes of n cells, vs and fs
+// scratch of 2K planes each.  rt_collide_kernel and the local form's
+// rtl_collide_kernel (sc2d_local.cuh) share it.
+template <typename C, int ORDER, typename Load, typename PsiAt>
+__device__ __forceinline__ void rt_collide_cell(Load load, PsiAt psi_at,
+                                                const C* __restrict__ geo, C* __restrict__ vs,
+                                                C* __restrict__ fs, C* __restrict__ post,
+                                                size_t n, size_t idx, const ScParams& P,
+                                                const ScTable& tb) {
+  const int K = tb.k;
   auto v = [&](int j, int d) { return vs[((size_t)2 * j + d) * n + idx]; };
   for (int j = 0; j < K; ++j) {
     C vx, vy;
@@ -145,7 +139,7 @@ __global__ void rt_collide_kernel(const C* __restrict__ a, const C* __restrict__
   C den = C(0), numx = C(0), numy = C(0);
   for (int k = 0; k < K; ++k) {
     C F[9], mx, my, fx, fy;
-    rt_load(a, geo, P, tb, k, x, y, F);
+    load(k, F);
     const C rho = sum9(F);
     momentum9(F, mx, my);
     sc_force<C, ORDER>(
@@ -172,13 +166,37 @@ __global__ void rt_collide_kernel(const C* __restrict__ a, const C* __restrict__
   const C ux0 = numx / den, uy0 = numy / den;
   for (int k = 0; k < K; ++k) {
     C F[9], out[9];
-    rt_load(a, geo, P, tb, k, x, y, F);
+    load(k, F);
     sc_collide_fluid<C, ORDER>(F, sum9(F), fs[(size_t)2 * k * n + idx],
                                fs[((size_t)2 * k + 1) * n + idx], ux0, uy0, tb.tau(k),
                                tb.inv_tau(k), P.mrt, out);
 #pragma unroll
     for (int i = 0; i < 9; ++i) post[((size_t)k * 9 + i) * n + idx] = out[i];
   }
+}
+
+// The collision of every fluid at a fluid cell (rt_collide_cell), 0 on the
+// solid cells.
+template <typename C, int ORDER>
+__global__ void rt_collide_kernel(const C* __restrict__ a, const C* __restrict__ geo,
+                                  const C* __restrict__ psi, C* __restrict__ vs,
+                                  C* __restrict__ fs, C* __restrict__ post, ScParams P,
+                                  ScTable tb) {
+  const int nx = P.nx, ny = P.ny;
+  const size_t n = (size_t)ny * nx;
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n) return;
+  if (!(geo[idx] > C(0.5))) {
+    for (int q = 0; q < tb.k * 9; ++q) post[(size_t)q * n + idx] = C(0);
+    return;
+  }
+  const int x = (int)(idx % nx), y = (int)(idx / nx);
+  rt_collide_cell<C, ORDER>(
+      [&](int k, C F[9]) { rt_load(a, geo, P, tb, k, x, y, F); },
+      [&](int j, int dx, int dy) {
+        return psi[(size_t)j * n + (size_t)wrap(y + dy, ny) * nx + wrap(x + dx, nx)];
+      },
+      geo, vs, fs, post, n, idx, P, tb);
 }
 
 // Pull streaming with half-way bounce-back, 0 on solid cells.

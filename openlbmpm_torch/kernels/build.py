@@ -31,9 +31,9 @@ __all__ = ["load_library", "load_libraries", "build_seconds", "BUILD_DIR",
 # colour-gradient, Shan-Chen, single-phase D2Q9, coupled flow + tracer,
 # D3Q19 single-phase and Shan-Chen and D3Q19 CSF steps; the 2-D and 3-D
 # Shan-Chen steps for any number of fluids (all storage types in one
-# library each); and the local forms of the colour-gradient, coupled and
-# single-phase T-step kernels, of the D3Q19 CSF step and of the D3Q19
-# Shan-Chen step (one shard of a decomposed domain, f64 and f32)
+# library each); and the local forms of the colour-gradient, coupled,
+# single-phase and Shan-Chen T-step kernels, of the D3Q19 CSF step and of
+# the D3Q19 Shan-Chen step (one shard of a decomposed domain, f64 and f32)
 LIBRARIES = ("csf2d", "coupled2d", "pert2d", "pert2d_f64", "sc2d_f64",
              "sc2d_f32", "sc2d_bf16", "cg3d_f64", "cg3d_f32", "cg3d_bf16",
              "single2d_f64", "single2d_f32", "single2d_bf16", "flow3d_f64",
@@ -47,7 +47,8 @@ LIBRARIES = ("csf2d", "coupled2d", "pert2d", "pert2d_f64", "sc2d_f64",
              "cg3d_block_bf16", "sc2d_rt", "sc3d_rt", "csf2d_local_f64",
              "csf2d_local_f32", "coupled2d_local_f64", "coupled2d_local_f32",
              "single2d_local_f64", "single2d_local_f32", "cg3d_local_f64",
-             "cg3d_local_f32", "flow3d_local_f64", "flow3d_local_f32")
+             "cg3d_local_f32", "flow3d_local_f64", "flow3d_local_f32",
+             "sc2d_local_f64", "sc2d_local_f32")
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
@@ -64,7 +65,7 @@ EXTRA_FLAGS = {name: ("-fmad=false",) for name in
                 "coupled2d_block_f64", "flow3d_block_f64",
                 "cg3d_block_f64", "sc2d_rt", "sc3d_rt", "csf2d_local_f64",
                 "coupled2d_local_f64", "single2d_local_f64", "cg3d_local_f64",
-                "flow3d_local_f64")}
+                "flow3d_local_f64", "sc2d_local_f64")}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 # seconds spent compiling each library in this process (0.0 = reused)

@@ -12,14 +12,19 @@ and the outlet rows after every sub-step): ``csrc/sc2d_block.cuh``,
 libraries ``sc2d_block_{f64,f32,bf16}``.  Above KMAX fluids both run the
 runtime-K instance ``csrc/sc2d_rt.cuh`` (library ``sc2d_rt``), which loops
 over the fluids and reads their values from a device table
-(``fluid_table``, the model's ``kernel_table``).
+(``fluid_table``, the model's ``kernel_table``).  The local form of K8-T
+(K12c: one shard of a y-decomposed domain, f32 and f64, any K) is
+``sc_local_step``, ``csrc/sc2d_local_{f64,f32}.cu`` (``csrc/
+sc2d_local.cuh``), which ``build_sc_sharded_step`` (the counterpart of
+``pallas/shanchen.py::build_sc_sharded_step``) drives over a mesh
+(``openlbmpm_torch/parallel``).
 
 States: f (K, 9, ny, nx) float32 / float64, or (K, 11, ny, nx) bfloat16
 (per fluid the deviations f_i - w_i rho_k, then rho_k as a hi/lo pair).
 
-``sc_step(f, model)`` and ``sc_block_step(f, model, steps)`` take the plain
-version only for a tensor on the CPU; for a CUDA tensor they launch the
-kernel or raise.
+``sc_step(f, model)``, ``sc_block_step(f, model, steps)`` and
+``sc_local_step`` take the plain version only for a tensor on the CPU; for
+a CUDA tensor they launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -37,7 +42,10 @@ from . import build
 __all__ = ["KMAX", "LIBRARIES", "BLOCK_LIBRARIES", "RT_LIBRARY", "ScParams",
            "geo_stack", "kernel_params", "fluid_table", "launch_sc2d",
            "sc_step", "sc_step_reference", "launch_sc2d_block",
-           "sc_block_step", "sc_block_step_reference", "sc_block_tiling"]
+           "sc_block_step", "sc_block_step_reference", "sc_block_tiling",
+           "LOCAL_LIBRARIES", "sc_local_frame", "launch_sc2d_local",
+           "sc_local_step", "sc_local_step_reference",
+           "build_sc_sharded_step"]
 
 KMAX = 3           # fluids the template kernels are instantiated for
 RT_LIBRARY = "sc2d_rt"   # any number of fluids, f64 / f32 / bf16
@@ -123,6 +131,13 @@ def fluid_table(params, bcs) -> np.ndarray:
                            np.asarray(params.g_matrix, np.float64).ravel()])
 
 
+def _reach(params) -> int:
+    """The interaction stencil's reach, which is also the depth d of the
+    boundary rows: 1 for SC and EFS iso-4, 2 for iso-8, 3 for iso-10."""
+    return {4: 1, 8: 2, 10: 3}[params.iso_order] \
+        if params.scheme == "EFS" else 1
+
+
 def kernel_params(params, bcs, geometry: Geometry) -> ScParams:
     """The kernel's parameter block for a ShanChenParams, SCBoundaryConfig
     and geometry (any number of fluids: above KMAX the per-fluid values
@@ -149,7 +164,7 @@ def kernel_params(params, bcs, geometry: Geometry) -> ScParams:
     return ScParams(
         ny=ny, nx=nx, k=k, order=p.iso_order if efs else 0,
         inlet=_INLETS[b.inlet], outlet=_OUTLETS[b.outlet],
-        depth={4: 1, 8: 2, 10: 3}[p.iso_order] if efs else 1,
+        depth=_reach(p),
         mrt=int(p.collision == "MRT"), psi_pr=int(p.psi == "PR"), pad=0,
         tau=_fixed(tau, 1.0), inv_tau=_fixed([1.0 / t for t in tau], 1.0),
         g=(_D3 * KMAX)(*(_D3(*row) for row in g)),
@@ -347,3 +362,214 @@ def sc_block_step_reference(f: torch.Tensor, model, steps: int):
     for _ in range(steps):
         x = model._step_impl(x)
     return model.pack_state_bf16(x) if f.dtype == torch.bfloat16 else x
+
+
+# -- the local form (K12c): one shard of a y-decomposed domain --------------
+
+_LOCAL_LIBS = {torch.float64: "sc2d_local_f64",
+               torch.float32: "sc2d_local_f32"}
+LOCAL_LIBRARIES = tuple(_LOCAL_LIBS.values())
+_local_rt_cache: dict[str, tuple] = {}
+
+
+def _local_fns(lib: str):
+    """(step, scratch_bytes, shape, error_string) of a K12c library's
+    template instances (K <= KMAX): ints (T, the LocalGrid), pointers (f,
+    out, geo, scratch)."""
+    return build.block_fns(lib, "sc2d_local", 8, 4, ScParams)
+
+
+def _local_rt_fns(lib: str):
+    """(step, scratch_bytes) of a K12c library's runtime-K passes: ints (T,
+    the LocalGrid), pointers (f, out, tmp, geo, scratch, table)."""
+    if lib not in _local_rt_cache:
+        so = build.load_library(lib)
+        lead = [ctypes.c_int] * 8
+        block = ctypes.POINTER(ScParams)
+        step = so.sc2d_local_rt_step
+        step.argtypes = lead + [ctypes.c_void_p] * 6 + [block,
+                                                        ctypes.c_void_p]
+        step.restype = ctypes.c_int
+        scratch = so.sc2d_local_rt_scratch_bytes
+        scratch.argtypes = lead + [block]
+        scratch.restype = ctypes.c_longlong
+        _local_rt_cache[lib] = (step, scratch)
+    return _local_rt_cache[lib]
+
+
+def sc_local_frame(params, bcs, steps: int, ny: int):
+    """The frame a K12c call of `steps` steps reads for the ShanChenParams
+    `params` and SCBoundaryConfig `bcs` of a domain of `ny` rows: reach + 1
+    rings a step (psi's stencil, the collision's, streaming), the inlet
+    ghosts' band d rows below, the outlet's d + 2 (convective) or d (Zou-He)
+    rows above, as ``csrc/sc2d_block.cuh::sc_local_block_shape``.  No x
+    frame: K12c decomposes y only."""
+    from ..parallel.mesh import frame_of
+    d = _reach(params)
+    mhi = {"convective": d + 2, "zou_he_pressure": d}.get(bcs.outlet, 0)
+    return frame_of(d + 1, steps, 0 if bcs.inlet == "periodic" else d, mhi,
+                    ny, False)
+
+
+def launch_sc2d_local(f: torch.Tensor, out: torch.Tensor, params: ScParams,
+                      geo: torch.Tensor, grid, steps: int,
+                      table: torch.Tensor | None = None,
+                      work: dict | None = None) -> torch.Tensor:
+    """`steps` kernel steps (one call of K12c) of the shard `grid`
+    (``parallel.mesh.LocalGrid``): `f` its padded (K, 9, py, px) f32 or f64
+    buffer, frame filled, into the centre of `out`; `geo` its padded
+    geometry planes (``geo_stack``) in `f`'s type.  K <= KMAX: one launch of
+    the template instance.  Above KMAX fluids the runtime-K passes on
+    `table` (``fluid_table`` as a float64 tensor on the card), their
+    scratch and at `steps` > 1 a second state buffer kept in `work`
+    (``build.work_buffer``).  Not counted as a launch."""
+    from .csf import _check_local
+    if f.dtype not in _LOCAL_LIBS:
+        raise ValueError(f"state {f.dtype}; K12c takes float32 or float64")
+    k = params.k
+    n_geo = 3 if params.order == 0 else 5
+    _check_local(grid, (k, 9), (f, (k, 9), f.dtype), (out, (k, 9), f.dtype),
+                 (geo, n_geo, f.dtype))
+    lib = _LOCAL_LIBS[f.dtype]
+    ints = grid.ints(steps)
+    if k <= KMAX:
+        build.launch_block(lib, _local_fns(lib), ints, (f, out, geo), params)
+        return out
+    if table is None or table.dtype != torch.float64 or \
+            table.device != f.device or table.numel() != 6 * k + k * k:
+        raise ValueError(f"{k} fluids need their float64 fluid_table on "
+                         f"{f.device}")
+    step, scratch_bytes = _local_rt_fns(lib)
+    scratch = build.work_buffer(
+        work, "scratch", (scratch_bytes(*ints, ctypes.byref(params)),),
+        torch.uint8, f.device)
+    tmp = None if steps == 1 else build.work_buffer(work, "tmp", f.shape,
+                                                    f.dtype, f.device)
+    with torch.cuda.device(f.device):
+        code = step(*ints, f.data_ptr(), out.data_ptr(),
+                    0 if tmp is None else tmp.data_ptr(), geo.data_ptr(),
+                    scratch.data_ptr(), table.data_ptr(),
+                    ctypes.byref(params),
+                    torch.cuda.current_stream(f.device).cuda_stream)
+    if code != 0:
+        err = _local_fns(lib)[3]
+        raise RuntimeError(f"sc2d_local_rt_step launch failed: "
+                           f"{err(code).decode()} ({code})")
+    return out
+
+
+def sc_local_step(f: torch.Tensor, out: torch.Tensor, geo: torch.Tensor,
+                  model, grid, steps: int,
+                  work: dict | None = None) -> torch.Tensor:
+    """`steps` Shan-Chen steps of one shard for `model`, a ShanChenMCMP of
+    the global domain: `f` the shard's padded buffer (frame filled), the
+    result written into the centre of `out`, which is returned; `geo` the
+    shard's padded geometry planes; `work` a dict that keeps the runtime-K
+    passes' scratch from call to call (None: allocated each call).  CPU
+    tensors: the plain version.  CUDA tensors: one call of K12c (one launch
+    up to KMAX fluids, T one-step passes above), or an error; never the
+    plain version."""
+    if f.device.type == "cpu":
+        grid.centre(out).copy_(sc_local_step_reference(f, model, grid,
+                                                       steps))
+        return out
+    build.check_steps(steps)
+    if f.device.type != "cuda":
+        raise ValueError(f"no Shan-Chen kernel for device {f.device}")
+    if model.kernel_params is None:
+        raise ValueError(f"no Shan-Chen kernel for this configuration on "
+                         f"{model.device} (path {model.path!r})")
+    if f.dtype != model.dtype or model.storage != "f32":
+        raise ValueError(f"state {f.dtype}; the model takes {model.dtype} "
+                         f"({model.storage} storage), K12c float32 or "
+                         "float64")
+    params = model.kernel_params
+    launch_sc2d_local(f, out, params, geo, grid, steps,
+                      None if params.k <= KMAX else model.kernel_table, work)
+    sc_local_step.launches += 1
+    return out
+
+
+sc_local_step.launches = 0
+
+
+def sc_local_step_reference(f: torch.Tensor, model, grid, steps: int):
+    """Plain PyTorch version of K12c, on any device: the shard's padded
+    buffer embedded at its global rows in the domain at rest (every fluid
+    at rho = 1; ``parallel.mesh.embed_local``), `steps` plain steps of the
+    whole domain (``_step_impl``), and the centre (K, 9, ny, nx) taken
+    back.  Exact: the frame covers the steps' reach."""
+    from ..lattice import D2Q9
+    from ..parallel.mesh import embed_local, take_centre
+    build.check_steps(steps)
+    fl = model.fluid_mask
+    w = torch.as_tensor(D2Q9.w, dtype=fl.dtype, device=fl.device)
+    rest = (w[:, None, None] * fl).expand(f.shape[0], -1, -1, -1)
+    x = embed_local(f, grid, rest)
+    for _ in range(steps):
+        x = model._step_impl(x)
+    return take_centre(x, grid)
+
+
+def build_sc_sharded_step(geometry: Geometry, params, mesh,
+                          dtype=torch.float32,
+                          rows_per_block: int | None = None,
+                          steps_per_call: int = 1, bc_config=None,
+                          interpret: bool = False):
+    """The Shan-Chen / EFS step (K12c) under a y-decomposed `mesh`
+    (``parallel.mesh.make_mesh`` with shape (P, 1)): the counterpart of
+    ``pallas/shanchen.py::build_sc_sharded_step``.  `params` a
+    ``ShanChenParams`` (any number of fluids), `bc_config` an
+    ``SCBoundaryConfig`` (None: periodic).
+
+    Returns a ``parallel.mesh.ShardedStep`` of T = `steps_per_call` steps a
+    call: ``step(state)`` advances ``step.shard(f)`` ((K, 9, ny, nx)) in
+    place, ``step.gather(state)`` gives the global state.  Per call one
+    exchange of the frame (``sc_local_frame``), then each shard runs K12c
+    (``sc_local_step``) on a card, its plain version on the CPU.  The
+    geometry planes are static: they are sharded once here with the same
+    frame (``step.geo``), where the JAX step exchanges their halo every
+    call (shanchen.py:908); the results are the same.
+
+    Returns None where the JAX builder builds no step for a reason of the
+    domain or the state: a mesh with an x axis larger than 1, ny not
+    divisible by the mesh's py (shanchen.py:875), bfloat16 (the JAX local
+    kernel refuses bf16 storage, :122-123; the port's local kernels take
+    f32 and f64), boundary kinds K8 does not take (:153-156,
+    ``models/shanchen.py::takes_kernel``, which also refuses a forcing
+    other than "shift" and a domain below 8 x 3).  The TPU strips'
+    constraints (rows a block, R % H, the VMEM budget, :130-146) do not
+    apply; the port refuses instead a shard shallower than the frame it
+    sends (the exchange is one hop).  ``rows_per_block`` and ``interpret``
+    are ignored."""
+    del rows_per_block, interpret
+    from .._device import resolve_dtype
+    from ..models.shanchen import (SCBoundaryConfig, ShanChenMCMP,
+                                   takes_kernel)
+    from ..parallel.mesh import ShardedStep, shard_domain
+
+    ny, nx = geometry.shape
+    py, px = mesh.shape
+    steps = int(steps_per_call)
+    build.check_steps(steps)
+    dtype = resolve_dtype(dtype)
+    bcs = bc_config if bc_config is not None else SCBoundaryConfig()
+    if px != 1 or ny % py or dtype == torch.bfloat16 or \
+            not takes_kernel(params, bcs, False, (ny, nx)):
+        return None
+    frame = sc_local_frame(params, bcs, steps, ny)
+    if max(frame.lo, frame.hi) > ny // py:
+        return None
+    model = ShanChenMCMP(geometry, params, bcs, dtype=dtype,
+                         device=mesh.device)
+    geo = dict(zip(mesh.local_ids(), shard_domain(
+        geo_stack(geometry, params), mesh, frame, dtype=dtype)))
+    work = {k: {} for k in mesh.local_ids()}
+
+    def local(k, grid, ins, outs):
+        sc_local_step(ins[0], outs[0], geo[k], model, grid, steps, work[k])
+
+    step = ShardedStep(mesh, (ny, nx), frame, local, steps, (dtype,))
+    step.model = model
+    step.geo = geo
+    return step

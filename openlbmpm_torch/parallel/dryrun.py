@@ -1,11 +1,19 @@
 """The port's multi-device dry run: ``__graft_entry__.py::dryrun_multichip``
-(:104-278) but its first, GSPMD line.
+(:87-278) and two lines of the port's own.
 
     python -m openlbmpm_torch.parallel.dryrun --ranks N --device cpu|cuda
     python -m openlbmpm_torch.parallel.dryrun --in-process --device cuda
 
 Runs, at the JAX dry run's shapes scaled by N (even, >= 2):
 
+0. the GSPMD line (:87-105): the flagship's split step on a 1 x N x-mesh
+   (``make_mesh(N)``'s default), global 32 x 16N, one step.  The port has
+   no partitioner; its counterpart is the plain split step
+   (``ColorGradientRK.plain_step``) sharded by hand (``build_gspmd_step``):
+   each shard holds its columns and a frame of ``GSPMD_X`` columns a side,
+   which the exchange fills, runs the plain step on its padded buffer and
+   keeps the centre.  The line proves the exchange and the plain step's
+   reach in x, not a kernel: no CUDA kernel runs in it;
 1. the sharded colour-gradient step (K12a) on an (N, 1) y-mesh, the
    flagship flow at 16N x 128, T = 2;
 2. K12a on a (y, x) mesh (max(2, N/4), N / that), the flagship flow at
@@ -22,7 +30,11 @@ Runs, at the JAX dry run's shapes scaled by N (even, >= 2):
 8. K12d with one D3Q7 bounce-back tracer on an (N, 1) z-mesh, 8N x 16 x 16,
    periodic, the tracer in the top half (:258-278);
 9. (the port's addition) the sharded D3Q19 Shan-Chen step (K12e), two
-   fluids, a droplet, on an (N, 1) z-mesh, 8N x 16 x 16, T = 2.
+   fluids, a droplet, on an (N, 1) z-mesh, 8N x 16 x 16, T = 2;
+10. (the port's addition) the sharded 2-D Shan-Chen step (K12c), two
+    fluids (G = 3.6, G_s = -0.3 / 0.3), side walls, a Zou-He velocity inlet
+    and a convective outlet, fluid 0 in the top 12 rows, on an (N, 1)
+    y-mesh, 16N x 64, T = 2 (tests/test_multichip.py:278-315 at N = 4).
 
 Each prints one line in the JAX wording, checks that the state stays finite
 and holds the gathered state against the port's single-device step (the
@@ -32,8 +44,8 @@ processes of a ``torch.distributed`` group (``ProcessMesh``: gloo on the
 CPU, NCCL with one card a rank, so N cards), which this module spawns and
 joins with a deadline; with ``--in-process`` all N shards run in this
 process on one device (``LocalMesh``), which is what one card can prove.
-The GSPMD jnp line of the JAX dry run (XLA's partitioner on the jnp step)
-has no counterpart yet.
+The GSPMD line is held to the single-device plain split step on every
+device.
 """
 
 from __future__ import annotations
@@ -48,10 +60,12 @@ from datetime import timedelta
 import numpy as np
 import torch
 
-__all__ = ["CASES", "case_model", "run_case", "run_ranks", "main"]
+__all__ = ["CASES", "GSPMD_X", "build_gspmd_step", "case_model", "run_case",
+           "run_ranks", "main"]
 
 # name -> (family, global shape from N, mesh shape from N, T)
 CASES = {
+    "gspmd": ("gspmd", lambda n: (32, 16 * n), lambda n: (1, n), 1),
     "y": ("csf", lambda n: (16 * n, 128), lambda n: (n, 1), 2),
     "yx": ("csf", lambda n: (32 * max(2, n // 4), 64 * (n // max(2, n // 4))),
            lambda n: (max(2, n // 4), n // max(2, n // 4)), 1),
@@ -64,13 +78,66 @@ CASES = {
     "coupled_z3": ("coupled3d", lambda n: (8 * n, 16, 16), lambda n: (n, 1),
                    1),
     "sc3d_z": ("sc3d", lambda n: (8 * n, 16, 16), lambda n: (n, 1), 2),
+    "sc_y": ("sc", lambda n: (16 * n, 64), lambda n: (n, 1), 2),
 }
-# the cases of the tests at 64 x 64 f64 on 4 shards: T = 1
+# the cases of the tests at 64 x 64 f64 on 4 shards: T = 1 (the Shan-Chen
+# case at T = 2)
 TEST_CASES = {
     "csf_y_t1": ("csf", (64, 64), (4, 1), 1),
     "coupled_yx_t1": ("coupled", (64, 64), (2, 2), 1),
     "cg3d_zy_t1": ("cg3d", (16, 64, 16), (2, 2), 1),
+    "sc_y_t2": ("sc", (64, 64), (4, 1), 2),
 }
+
+
+# the GSPMD line's x frame: the plain split step's reach in x at the
+# flagship's configuration, the columns a step reads on each side of a cell
+# (the colour gradient's stencil, then streaming).  Found by test:
+# tests/test_torch_sharded_sc.py holds the sharded step with this frame to
+# the single-device step bit for bit from a noisy state, and shows that one
+# column less differs.
+GSPMD_X = 2
+
+
+def build_gspmd_step(geometry, params, bcs, mesh, dtype, frame_x=GSPMD_X):
+    """The counterpart of the JAX dry run's GSPMD line (XLA's partitioner
+    on the jitted ``_step_impl`` with x shardings, ``__graft_entry__.py:
+    87-105``): the plain split step ``ColorGradientRK.plain_step`` sharded
+    by hand over a (1, P) `mesh`.  Each shard holds its nx / P columns and a
+    frame of `frame_x` columns a side (``parallel.mesh.Frame``), which the
+    exchange fills once a step; it runs the plain step of a model of its
+    padded columns of the geometry (built once here) on its padded buffers
+    (f_r, f_b) and keeps the centre.  The step's row operations (the inlet
+    and outlet rows) act column by column and nothing reduces over x, so
+    the centre is exact where the frame covers the step's reach.  Returns
+    a ``parallel.mesh.ShardedStep`` of one step a call (``step.model`` the
+    single-device model), or None for a mesh with a y axis larger than 1
+    or nx not divisible by P."""
+    from ..geometry import from_solid_mask
+    from ..models.colorgradient import ColorGradientRK
+    from .mesh import Frame, ShardedStep
+    ny, nx = geometry.shape
+    py, px = mesh.shape
+    if py != 1 or nx % px or frame_x > nx // px:
+        return None
+    nxl = nx // px
+    models = {}
+    for k in mesh.local_ids():
+        cols = (np.arange(nxl + 2 * frame_x) + mesh.coords(k)[1] * nxl -
+                frame_x) % nx
+        models[k] = ColorGradientRK(from_solid_mask(geometry.is_solid[:, cols]),
+                                    params, bcs, dtype=dtype,
+                                    device=mesh.device, use_kernel=False)
+
+    def local(k, grid, ins, outs):
+        for o, x in zip(outs, models[k].plain_step(ins)):
+            grid.centre(o).copy_(grid.centre(x))
+
+    step = ShardedStep(mesh, (ny, nx), Frame(0, 0, frame_x), local, 1,
+                       (dtype, dtype))
+    step.model = ColorGradientRK(geometry, params, bcs, dtype=dtype,
+                                 device=mesh.device, use_kernel=False)
+    return step
 
 
 def _walled(ny, nx):
@@ -123,11 +190,13 @@ def _case3d(family, shape):
 def case_model(family: str, shape, dtype):
     """(geometry, builder keyword arguments, start arrays) of a family at a
     global shape: the JAX dry run's flagship flow (``__graft_entry__.py::
-    _flagship_model``) for "csf" with red in the top 6 rows, its coupled
-    case (:197-243) for "coupled" (12 invading rows, the tracer in the top
-    half), for "single" a walled channel at rest with a Zou-He inlet, and
-    the 3-D families of ``_case3d``.  The start is made in float64 and
-    cast to `dtype`."""
+    _flagship_model``) for "csf" with red in the top 6 rows (the packed
+    state) and for "gspmd" (the split state (f_r, f_b)), its coupled case
+    (:197-243) for "coupled" (12 invading rows, the tracer in the top
+    half), for "single" a walled channel at rest with a Zou-He inlet, for
+    "sc" the Shan-Chen case of tests/test_multichip.py:278-315, and the
+    3-D families of ``_case3d``.  The start is made in float64 and cast to
+    `dtype`."""
     from ..models.colorgradient import (CGBoundaryConfig, ColorGradientParams,
                                         ColorGradientRK)
     if family in ("cg3d", "coupled3d", "sc3d"):
@@ -135,6 +204,16 @@ def case_model(family: str, shape, dtype):
         return g, kw, tuple(a.to(dtype) for a in start)
     ny, nx = shape
     g = _walled(ny, nx)
+    if family == "sc":
+        from ..models.shanchen import (SCBoundaryConfig, ShanChenMCMP,
+                                       ShanChenParams)
+        p = ShanChenParams(g_matrix=((0.0, 3.6), (3.6, 0.0)),
+                           g_solid=(-0.3, 0.3), tau=(1.0, 1.0))
+        bcs = SCBoundaryConfig(inlet="zou_he_velocity", outlet="convective",
+                               inlet_velocity=(-1e-3, 0.0))
+        m = ShanChenMCMP(g, p, bcs, dtype=torch.float64, device="cpu")
+        return g, dict(params=p, bc_config=bcs), (m.init_state_layers(
+            (1.0, 1.0), (0.02, 0.02), invading_rows=12).to(dtype),)
     if family == "single":
         from ..models.single_phase import BoundaryConfig, SinglePhaseD2Q9
         bcs = BoundaryConfig(inlet="zou_he_velocity", outlet="convective",
@@ -144,7 +223,7 @@ def case_model(family: str, shape, dtype):
         m = SinglePhaseD2Q9(g, 0.8, "MRT", boundaries=bcs,
                             dtype=torch.float64, device="cpu")
         return g, kw, (m.init_state().to(dtype),)
-    if family == "csf":
+    if family in ("csf", "gspmd"):
         params = ColorGradientParams(
             tau_r=1.0, tau_b=1.0, surface_tension=0.1, contact_angle_deg=60.0,
             beta=0.7, delta=0.98, tau_type=2, wetting_type=2, variant="CSF",
@@ -153,7 +232,11 @@ def case_model(family: str, shape, dtype):
                                inlet_velocity=-1e-4, outlet_density_r=0.0,
                                outlet_density_b=1.0)
         m = ColorGradientRK(g, params, bcs, dtype=torch.float64, device="cpu")
-        s = m.pack_state(*m.init_state_layers(1.0, 1.0, invading_rows=6))
+        st = m.init_state_layers(1.0, 1.0, invading_rows=6)
+        if family == "gspmd":
+            return g, dict(params=params, bc_config=bcs), tuple(
+                a.to(dtype) for a in st)
+        s = m.pack_state(*st)
         return g, dict(params=params, bc_config=bcs), (s.to(dtype),)
     from ..models.transport import TransportParams, TransportRK
     params = ColorGradientParams(variant="CSF", collision="MRT",
@@ -178,8 +261,18 @@ def _builder(family):
     from ..kernels.cg3d import build_cg3d_sharded_step
     from ..kernels.csf import build_csf_sharded_step
     from ..kernels.flow3d import build_sc3d_sharded_step
+    from ..kernels.shanchen import build_sc_sharded_step
     from ..kernels.single import build_single_sharded_step
-    if family in ("cg3d", "coupled3d"):
+    if family == "gspmd":
+        def build(g, mesh, dtype, steps, kw):
+            return build_gspmd_step(g, kw["params"], kw["bc_config"], mesh,
+                                    dtype)
+    elif family == "sc":
+        def build(g, mesh, dtype, steps, kw):
+            return build_sc_sharded_step(g, kw["params"], mesh, dtype,
+                                         steps_per_call=steps,
+                                         bc_config=kw["bc_config"])
+    elif family in ("cg3d", "coupled3d"):
         def build(g, mesh, dtype, steps, kw):
             return build_cg3d_sharded_step(g, kw["params"], mesh, dtype,
                                            bc_config=kw["bc_config"],
@@ -205,18 +298,26 @@ def _builder(family):
 def _one_device(step, start, calls):
     """`calls` calls of the single-device step that the shards' kernels
     are held to: the T-step kernel at the step's T on a card (the T-step
-    wrappers at T = 1 too), the plain step on the CPU."""
+    wrappers at T = 1 too), the plain step on the CPU; for the GSPMD line
+    the plain split step on every device."""
     from ..kernels import cg3d as kg
     from ..kernels import csf as kc
     from ..kernels import flow3d as kf
+    from ..kernels import shanchen as ksc
     from ..kernels import single as ks
     from ..kernels import transport as kt
     from ..models import flow3d as f3
+    from ..models.colorgradient import ColorGradientRK
+    from ..models.shanchen import ShanChenMCMP
     m, t = step.model, step.steps_per_call
     dev = step.mesh.device
     x = tuple(a.to(dev) for a in start)
     for _ in range(calls):
-        if isinstance(m, f3.TransportRK3D):
+        if isinstance(m, ColorGradientRK) and not m.use_kernel:
+            x = tuple(m.plain_step(x))
+        elif isinstance(m, ShanChenMCMP):
+            x = (ksc.sc_block_step(x[0], m, t),)
+        elif isinstance(m, f3.TransportRK3D):
             x = kg.coupled3d_step_compressed(*x, m)
         elif isinstance(m, f3.ColorGradientRK3D):
             x = (kg.cg3d_step_compressed(x[0], m),)
@@ -259,6 +360,12 @@ def run_case(family, shape, mesh, steps, dtype, calls=1, compare=True):
 
 def _line(name, shape, mesh_shape):
     py, px = mesh_shape
+    if name == "gspmd":
+        return (f"dryrun_multichip OK on {px} devices; global shape "
+                f"{tuple(shape)}")
+    if name == "sc_y":
+        return ("dryrun_multichip 2D Shan-Chen fused+sharded OK on "
+                f"{py}-shard y-mesh; global shape {tuple(shape)}")
     if name == "y":
         return (f"dryrun_multichip fused+sharded OK on {py}-shard y-mesh; "
                 f"global shape {tuple(shape)}")

@@ -1169,3 +1169,46 @@ def test_3d_sharded_steps_count_one_local_launch_a_shard(cuda):
     for _ in range(3):
         state = step(state)
     assert kf.sc3d_local_step.launches == 12
+
+
+# -- the local kernels of the sharded 2-D Shan-Chen step (K12c) -------------
+
+@pytest.mark.parametrize("t", [1, 2, 3])
+@pytest.mark.parametrize("case", ["sc_mrt_velocity_convective",
+                                  "efs8_mrt_velocity_convective",
+                                  "efs10_mrt_velocity_pressure",
+                                  "sc_peng_robinson_one_fluid",
+                                  "sc4_mrt_velocity_convective",
+                                  "efs4_4f_velocity_pressure"])
+def test_k12c_local_matches_plain_f64(cuda, case, t):
+    """Each shard's local call (the template window up to three fluids,
+    the runtime-K passes above) against its plain version on the same
+    exchanged padded buffers; 104 rows on (4, 1), shards of 26."""
+    from openlbmpm_torch.kernels import shanchen as ks
+    from openlbmpm_torch.parallel import make_mesh
+    m0, f0 = sc_case(case, cuda, 104, 48)
+    mesh = make_mesh(shape=(4, 1), kind="local", device=cuda)
+    step = ks.build_sc_sharded_step(m0.geo, m0.p, mesh, torch.float64,
+                                    steps_per_call=t, bc_config=m0.bcs)
+    m = step.model
+    gap = _local_run(
+        step, (f0,), lambda k, g, ins, outs: (ks.sc_local_step(
+            ins[0], outs[0], step.geo[k], m, g, t),),
+        lambda g, ins: (ks.sc_local_step_reference(ins[0], m, g, t),),
+        step.geo)
+    assert gap <= 1e-12
+
+
+def test_sc_sharded_step_counts_one_local_call_a_shard(cuda):
+    from openlbmpm_torch.kernels import shanchen as ks
+    from openlbmpm_torch.parallel import make_mesh
+    for case in ("sc_mrt_velocity_convective", "sc4_mrt_velocity_convective"):
+        m0, f0 = sc_case(case, cuda, 128, 64, torch.float32)
+        step = ks.build_sc_sharded_step(
+            m0.geo, m0.p, make_mesh(shape=(4, 1), kind="local", device=cuda),
+            torch.float32, steps_per_call=2, bc_config=m0.bcs)
+        state = step.shard(f0)
+        ks.sc_local_step.launches = 0
+        for _ in range(3):
+            state = step(state)
+        assert ks.sc_local_step.launches == 12

@@ -92,9 +92,9 @@ def test_cli_runs_without_jax(tmp_path, model, ini, want):
 def test_dryrun_runs_without_jax(tmp_path):
     """``python -m openlbmpm_torch.parallel.dryrun --in-process --device
     cpu`` in a fresh interpreter that can import neither jax nor the JAX
-    package: the multi-device entry point stands alone, and so do the 3-D
-    sharded builders and local steps (K12d, K12e) its last four lines
-    drive."""
+    package: the multi-device entry point stands alone, and so do the
+    sharded builders and local steps its lines drive (the GSPMD line's
+    x-sharded plain step, K12a-e)."""
     for stub in ("jax", "openlbmpm_tpu"):
         (tmp_path / stub).mkdir()
         (tmp_path / stub / "__init__.py").write_text(
@@ -106,7 +106,44 @@ def test_dryrun_runs_without_jax(tmp_path):
          "--in-process", "--device", "cpu"],
         cwd=tmp_path, env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert res.stdout.count("dryrun_multichip ") == len(dryrun.CASES) == 9
+    assert res.stdout.count("dryrun_multichip ") == len(dryrun.CASES) == 11
+
+
+def test_2d_sc_sharded_step_imports_no_jax():
+    """Building and calling the sharded 2-D Shan-Chen step (K12c: two
+    fluids with Zou-He and convective rows at T = 2, four fluids at T = 1)
+    and its local plain version, and the GSPMD line's x-sharded plain
+    split step, on the CPU imports neither jax nor the JAX package."""
+    code = (
+        "import sys, numpy as np, torch; "
+        "from openlbmpm_torch.geometry import from_solid_mask as fsm; "
+        "from openlbmpm_torch.models import shanchen as sc; "
+        "from openlbmpm_torch.kernels.shanchen import build_sc_sharded_step; "
+        "from openlbmpm_torch.parallel import dryrun, make_mesh; "
+        "solid = np.zeros((32, 12), bool); solid[:, 0] = True; "
+        "g = fsm(solid); mesh = make_mesh(shape=(2, 1), kind='local', "
+        "device='cpu'); "
+        "p = sc.ShanChenParams(g_matrix=((0, 3.6), (3.6, 0)), "
+        "g_solid=(0, 0), tau=(1, 1)); "
+        "b = sc.SCBoundaryConfig(inlet='zou_he_velocity', "
+        "outlet='convective', inlet_velocity=(-1e-3, 0)); "
+        "st = build_sc_sharded_step(g, p, mesh, torch.float64, "
+        "steps_per_call=2, bc_config=b); m = st.model; "
+        "x = st.gather(st(st.shard(m.init_state_layers((1, 1), (.1, .1))))); "
+        "g4 = tuple(tuple(0.0 if i == j else 3.6 for j in range(4)) "
+        "for i in range(4)); "
+        "p4 = sc.ShanChenParams(g_matrix=g4, g_solid=(0,) * 4, tau=(1,) * 4); "
+        "st = build_sc_sharded_step(g, p4, mesh, torch.float64); "
+        "m = st.model; x = st.gather(st(st.shard(m.init_state_layers("
+        "(1,) * 4, (.1,) * 4)))); "
+        "gg, kw, start = dryrun.case_model('gspmd', (32, 32), torch.float64); "
+        "st = dryrun.build_gspmd_step(gg, kw['params'], kw['bc_config'], "
+        "make_mesh(shape=(1, 2), kind='local', device='cpu'), "
+        "torch.float64); x = st.gather(st(st.shard(*start))); "
+        "assert not [k for k in sys.modules if k.startswith(('jax', "
+        "'openlbmpm_tpu'))]")
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
 
 
 def test_3d_sharded_steps_import_no_jax():

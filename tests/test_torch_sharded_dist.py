@@ -5,11 +5,13 @@ never this module, JAX or conftest), rendezvous through a file, the group
 and the join each with a deadline.
 
 * K12a on a 4-shard y-mesh at T = 1 and K12a with transport on a (2, 2)
-  mesh, both at 64 x 64 f64, and K12d on a (2, 2) z*y mesh at 16 x 64 x 16
-  f64 (``dryrun.TEST_CASES``), 4 steps: the gathered state equals the
-  ``LocalMesh`` result bit for bit, and the JAX package's compressed
-  ``_step_impl_c`` / coupled step / 3-D compressed step (its Pallas kernel
-  in interpret mode) within 1e-12 (the JAX side runs in this process);
+  mesh, both at 64 x 64 f64, K12d on a (2, 2) z*y mesh at 16 x 64 x 16
+  f64, and K12c (the dry run's ``sc_y`` line) on a 4-shard y-mesh at 64 x
+  64 f64, T = 2 (``dryrun.TEST_CASES``), 4 steps: the gathered state
+  equals the ``LocalMesh`` result bit for bit, and the JAX package's
+  compressed ``_step_impl_c`` / coupled step / 3-D compressed step (its
+  Pallas kernel in interpret mode) / Shan-Chen ``_step_impl`` within 1e-12
+  (the JAX side runs in this process);
 * ``python -m openlbmpm_torch.parallel.dryrun --ranks 4 --device cpu``
   exits 0 and prints its lines.
 """
@@ -25,6 +27,7 @@ import torch
 
 from openlbmpm_tpu.models import colorgradient as jcg
 from openlbmpm_tpu.models import flow3d as jf
+from openlbmpm_tpu.models import shanchen as js
 from openlbmpm_tpu.models import transport as jtr
 from openlbmpm_tpu.pallas.cg3d import build_cg3d_fused_step
 from openlbmpm_torch.parallel import dryrun, make_mesh
@@ -39,10 +42,19 @@ TIMEOUT = 90.0
 def _jax_reference(name, start):
     """The JAX single-device steps of a TEST_CASES case from the port's
     start arrays, 4 steps: ``_step_impl_c`` (CSF), the coupled step with
-    its flow half compressed (``tests/test_torch_transport.py``), or the
-    3-D compressed kernel in interpret mode."""
+    its flow half compressed (``tests/test_torch_transport.py``), the 3-D
+    compressed kernel in interpret mode, or the Shan-Chen jnp
+    ``_step_impl``."""
     family, shape, _, _ = dryrun.TEST_CASES[name]
     g, kw, _ = dryrun.case_model(family, shape, torch.float64)
+    if family == "sc":
+        m = js.ShanChenMCMP(g, js.ShanChenParams(**vars(kw["params"])),
+                            js.SCBoundaryConfig(**vars(kw["bc_config"])),
+                            dtype=jnp.float64, use_pallas=False)
+        f = jnp.asarray(start[0].numpy())
+        for _ in range(4):
+            f = m._step_impl(f)
+        return (np.asarray(f),)
     if family == "cg3d":
         fused = build_cg3d_fused_step(
             g, jf.ColorGradientParams3D(**vars(kw["params"])), jnp.float64,
