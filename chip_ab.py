@@ -2,7 +2,7 @@
 """Time the single-device kernels of this checkout against those of another
 checkout of the repository, in turns on one card.
 
-    python3 chip_ab.py OTHER_DIR [ROUNDS] [3d|2d]
+    python3 chip_ab.py OTHER_DIR [ROUNDS] [3d|2d|3dT]
 
 Run from the repository root on a machine with a CUDA card and nvcc.
 OTHER_DIR holds another checkout (e.g. the parent commit, unpacked with
@@ -13,7 +13,10 @@ of that checkout: "3d" (the default) ms a step of K9c (configuration 5),
 K9t (the coupled probe), K11 (basic3d) and K10 (probe_sc3d), all at 128^3
 in f32; "2d" ms a step of the Shan-Chen K8 and of K8-T at T = 4 on
 bench_all.py's configs 2 and 3 at 1024^2 in f32, and of K8 with four
-fluids (the runtime-K instance) at 1024^2.  The turns go
+fluids (the runtime-K instance) at 1024^2; "3dT" ms a time step of the 3-D
+T-step kernels at 128^3: K10-T (probe_sc3d) in f32 and bf16 and K9-Tc,
+K9-Th and K9-Ts (configuration 5) at T = 2 and 4, and K11-T (basic3d) at
+T = 4.  The turns go
 other, this, this, other (ROUNDS times, default 1), so that a drift of the
 card's clock shows in both.  Prints one JSON line a turn, then one with
 each kernel's median over the turns of each checkout.
@@ -71,7 +74,39 @@ m, f = cs.sc_case("sc4_mrt_velocity_convective", dev, 1024, 1024,
 out["K8 K=4"] = cs._time_steps(lambda x: shanchen.sc_step(x, m), f, 100, dev)
 print(json.dumps({k: v * 1e3 for k, v in out.items()}))
 """
-TURNS = {"3d": TURN, "2d": TURN_2D}
+TURN_3DT = r"""
+import json, sys, torch
+import chip_smoke as cs
+from openlbmpm_torch.kernels import build, cg3d, flow3d
+build.load_libraries(("flow3d_block_f32", "flow3d_block_bf16",
+                      "cg3d_block_f32", "cg3d_block_bf16"))
+dev = torch.device("cuda", 0)
+out = {}
+f = cs.probe_sc3d_start(cs.probe_sc3d_model(dev))
+for st in ("f32", "bf16"):
+    m = cs.probe_sc3d_model(dev, storage=st)
+    x = m.pack_state_bf16(f) if st == "bf16" else f
+    for t in (2, 4):
+        out[f"K10-T {st} T={t}"] = cs._time_steps(
+            lambda y: flow3d.sc3d_block_step(y, m, t), x, 48 // t, dev) / t
+m = cs.config5_model(dev)
+mh = cs.config5_model(dev, storage="bf16")
+st = cs.config5_start(m)
+s = m.pack_state(*st)
+for key, mm, x, kern in (
+        ("c", m, s, cg3d.cg3d_block_compressed),
+        ("h", mh, mh.pack_compressed_bf16(s), cg3d.cg3d_block_compressed),
+        ("s", m, st, cg3d.cg3d_block_split)):
+    for t in (2, 4):
+        out[f"K9-T{key} T={t}"] = cs._time_steps(
+            lambda y: kern(y, mm, t), x, 24 // t, dev) / t
+m = cs.basic3d_model(dev)
+out["K11-T T=4"] = cs._time_steps(
+    lambda y: flow3d.single3d_block_step(y, m, 4), m.init_state(), 25,
+    dev) / 4
+print(json.dumps({k: v * 1e3 for k, v in out.items()}))
+"""
+TURNS = {"3d": TURN, "2d": TURN_2D, "3dT": TURN_3DT}
 
 
 def turn(where: Path, family: str = "3d") -> dict:

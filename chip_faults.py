@@ -43,10 +43,11 @@ instances; K8-T selects the Zou-He outlet row by window row instead of
 global row, in its f64 instance; K7-T rewrites the rows after the first
 sub-step only, in its f64 instance; K5c-T maps the tracer's window rows
 to global rows without the window's offset (its inlet and outlet rows land
-on the wrong rows), K11-T streams in the first sub-step only, and K10-T
-leaves rho_k of the window's outer shell stale each sub-step, K9-T
-selects the boundary slabs by window z instead of global z, each in its
-f64 instance, the runtime-K K8 gives every fluid fluid 0's 1/tau in the
+on the wrong rows), K11-T streams in the first sub-step only, K10-T's
+z-march skips the slabs it recomputes below the periodic seam (u < 0), and
+K9-T's march picks the inlet's boundary slabs by its unwrapped slab
+instead of the domain's (the recomputed copy of slab nz - 2 below the
+seam misses its rewrite), each in its f64 instance, the runtime-K K8 gives every fluid fluid 0's 1/tau in the
 common velocity, in f64 arithmetic, the local form of K3 (K12a, the
 sharded colour-gradient step) maps its window rows to global rows one row
 off, in its f64 instance, the local form of K9 (K12d, the sharded D3Q19 CSF
@@ -76,9 +77,9 @@ off, each in its f64 instance:
                  fail, phases 6 and 11 (K5c, K5s) pass;
   K11-T swap once    flow3d_block.cuh, float64 storage: phase 53 must
                  fail, phase 33 (K11) passes;
-  K10-T rho shell    flow3d_block.cuh, float64 storage: phase 53 must
+  K10-T seam skipped flow3d_block.cuh, float64 storage: phase 53 must
                  fail, phase 36 (K10) passes;
-  K9-T window z  cg3d_block.cuh, float64 storage: phase 60 must fail,
+  K9-T march z   cg3d_block.cuh, float64 storage: phase 60 must fail,
                  phases 20 and 21 (K9) pass;
   K8 rt tau      sc2d_rt.cuh, float64 arithmetic: phase 58 must fail,
                  phase 15 (K8, K <= 3) passes;
@@ -138,11 +139,12 @@ K5CT_FAULT = ("    const WindowView<C> view{{GP, FL, DOM, PL, wx, wy, "
 K11T_LINE = "      swap_stream(W, PL, K, FL, r);"
 K11T_FAULT = ("      if (sub == 0 || MODE == kShanChen || sizeof(S) != {size}) "
               "swap_stream(W, PL, K, FL, r);")
-K10T_LINE = "        Box r = shrunk3(B, e);"
-K10T_FAULT = ("        Box r = shrunk3(B, sizeof(S) == {size} ? e + 1 : e);")
-K9T_LINE = "            for (int lz = wrap3(zg - oz, nz); lz < zhi; lz += nz)"
-K9T_FAULT = ("            for (int lz = sizeof(S) == {size} ? zg : "
-             "wrap3(zg - oz, nz); lz < zhi; lz += nz)")
+K10T_LINE = "  const int kind = c.kind();"
+K10T_FAULT = ("  const int kind = sizeof(S) == {size} && c.u < 0 ? -1 : "
+              "c.kind();")
+K9T_LINE = "    if (P.inlet == 1 && c.gz == nz - 2) {"
+K9T_FAULT = ("    if (P.inlet == 1 && (sizeof(S) == {size} ? c.u : c.gz) == "
+             "nz - 2) {{")
 K8RT_LINE = "    const C it = C(tb.inv_tau(k));"
 K8RT_FAULT = "    const C it = C(tb.inv_tau(sizeof(C) == {size} ? 0 : k));"
 K7T_LINE = "      if (P.inlet != 0 || P.outlet != 0) {"
@@ -180,10 +182,10 @@ CASES = {
                           K5CT_FAULT.format(size=8), ("52",)),
     "K11-T swap once": ("flow3d_block.cuh", K11T_LINE,
                         K11T_FAULT.format(size=8), ("53",)),
-    "K10-T rho shell": ("flow3d_block.cuh", K10T_LINE,
-                        K10T_FAULT.format(size=8), ("53",)),
-    "K9-T window z": ("cg3d_block.cuh", K9T_LINE, K9T_FAULT.format(size=8),
-                      ("60",)),
+    "K10-T seam skipped": ("flow3d_block.cuh", K10T_LINE,
+                           K10T_FAULT.format(size=8), ("53",)),
+    "K9-T march z": ("cg3d_block.cuh", K9T_LINE, K9T_FAULT.format(size=8),
+                     ("60",)),
     "K8 rt tau": ("sc2d_rt.cuh", K8RT_LINE, K8RT_FAULT.format(size=8),
                   ("58",)),
     "K12 row0": ("csf2d_block.cuh", K12_LINE, K12_FAULT.format(size=8),
@@ -199,8 +201,8 @@ CASES = {
 # faults (the T=1 kernels do not run the changed line)
 MUST_PASS = {"K3 bc once": ("4", "41"), "K8-T local row": ("15",),
              "K7-T bc once": ("29",), "K5c-T window rows": ("6", "11"),
-             "K11-T swap once": ("33",), "K10-T rho shell": ("36",),
-             "K9-T window z": ("20", "21"), "K8 rt tau": ("15",),
+             "K11-T swap once": ("33",), "K10-T seam skipped": ("36",),
+             "K9-T march z": ("20", "21"), "K8 rt tau": ("15",),
              "K12 row0": ("45",), "K12d slab index": ("20", "21"),
              "K12e rho short": ("36",), "K12c inlet row": ("46",)}
 # the phases of the unchanged sources

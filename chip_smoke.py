@@ -236,8 +236,9 @@ toolkit (nvcc) and PyTorch built for CUDA; JAX is not needed.  Phases:
      interface of kind "none") on the flagship's flow, and two cases on
      the Dirichlet inlet / convective outlet flow; <= 1e-11;
  53. f64: the T-step D3Q19 kernels K11-T (every case of SINGLE3D_CASES) and
-     K10-T (K = 1, 2, 3: BLOCK_SC3D_CASES) on 48x40x32, T = 2, 3, 4;
-     <= 1e-11;
+     K10-T (K = 1, 2, 3: BLOCK_SC3D_CASES) on 48x40x32, T = 2, 3, 4, K10-T
+     on the wrapper's plan and on a plan in three y-bands whose last
+     overhangs ny; <= 1e-11;
  54. the new T-step kernels at full size, T = 2 and 4, 8 steps (3-D: 4)
      against their plain versions: K5c-T at config 4 (1024^2) compressed f32 and
      bf16 and split f32 within phase 7's bounds off the seam, K11-T at
@@ -245,7 +246,9 @@ toolkit (nvcc) and PyTorch built for CUDA; JAX is not needed.  Phases:
      within phases 34 and 37's bounds; each bf16 state one more step within
      one ulp a value;
  55. speed per time step of K5c-T (config 4, three layouts), K11-T and
-     K10-T (128^3, f32 and bf16) at T = 1, 2, 4, as phase 49;
+     K10-T (128^3, f32 and bf16) at T = 1, 2, 4, as phase 49, with K10-T's
+     z-march plan (bands, rings in MB, the cooperative grid, waves, lag)
+     and its device time a launch from CUDA events between launches;
  56. their main paths: bench.py's loop (``run_chunked`` of
      ``make_block_step(4, ...)``) on config 4 in bf16, f32 and split, and
      on basic3d and probe_sc3d in bf16 at 128^3; ``run --model
@@ -267,12 +270,15 @@ toolkit (nvcc) and PyTorch built for CUDA; JAX is not needed.  Phases:
  60. f64: the 3-D CSF T-step kernel K9-T (compressed and split) against T
      plain steps, T = 2, 3, 4, two calls, in BLOCK_CG3D_CASES (wetting walls
      periodic, velocity inlet with the convective and with the pressure
-     outlet, the grain pack at 32^3); <= 1e-11;
+     outlet, the grain pack at 32^3), on the wrapper's plan and on a plan in
+     three y-bands whose last overhangs ny; <= 1e-11;
  61. K9-T at configuration 5 (128^3), T = 2 and 4, 8 steps: f32
      (compressed, split) and bf16 against their plain versions by phase
      21's rule, then one more bf16 step within one ulp a value;
  62. K9-T's speed per time step at T = 1, 2, 4 at 128^3 and 256^3 (CUDA
-     events), device time per launch, tiling and plain time, and
+     events), device time per launch (CUDA events between launches), the
+     z-march plan (bands, rings in
+     MB, the cooperative grid, waves, lag) and plain time, and
      bench_cg3d.py's loop (``run_chunked`` of ``make_block_step(4, ...)``
      over 120 steps in f32, bf16 and split) with its launches and MLUPS;
  63. f64: the sharded colour-gradient step (K12a, ``build_csf_sharded_step``
@@ -683,6 +689,25 @@ def device_times(step, x, names, steps=100):
             if k in ev.key and ev.count and t:
                 out[k] = (t / ev.count, ev.count / steps)
     return out
+
+
+def launch_times(step, x, calls=8):
+    """(device microseconds a call, 1.0) of x = step(x) where a call is one
+    kernel launch: CUDA events recorded between consecutive calls on the
+    current stream, the median of the `calls` gaps.  The host queues each
+    call while the one before runs on the card, so a gap is one launch's
+    device time.  For the cooperative z-march launches (K10-T, K9-T),
+    which torch.profiler's trace mostly misses."""
+    for _ in range(3):
+        x = step(x)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(calls + 1)]
+    ev[0].record()
+    for e in ev[1:]:
+        x = step(x)
+        e.record()
+    torch.cuda.synchronize()
+    gaps = sorted(a.elapsed_time(b) * 1e3 for a, b in zip(ev, ev[1:]))
+    return gaps[len(gaps) // 2], 1.0
 
 
 def phase4_line(res) -> str:
@@ -4894,11 +4919,70 @@ def block_sc3d_case(name, device, shape=(48, 40, 32), dtype=torch.float64):
     return m, flow_start(m, seed=9, k=1)
 
 
+def banded_march(m, steps, split=None):
+    """A z-march plan in y-bands for the f64 model `m` and `steps` steps,
+    with its table on the model's card: K10-T's (`split` None, `m` a
+    ShanChenMCMP3D) or K9-T's (`m` a ColorGradientRK3D, the split layout or
+    the compressed one).  The bands are banded_rows(ny) high, so there are
+    three and the last overhangs ny; the wrappers' plans cut no bands below
+    their ring budget of 4 GiB, so phases 53 and 60 run these through
+    march_call."""
+    from openlbmpm_torch.kernels import march3d
+    p = m.kernel_params
+    shape = (p.nz, p.ny, p.nx)
+    if split is None:
+        plan = march3d.sc3d_march_plan(shape, p.k, steps, 8,
+                                       band_rows=banded_rows(p.ny))
+    else:
+        plan = march3d.cg3d_march_plan(shape, steps, 8, split, p.inlet,
+                                       p.outlet, bool(p.has_wetting),
+                                       band_rows=banded_rows(p.ny))
+    check(plan.bands == 3 and plan.bands * plan.band_rows > p.ny,
+          f"banded plan: {plan.bands} bands of {plan.band_rows} rows for "
+          f"ny {p.ny}, want 3 with the last overhanging")
+    return plan, plan.tensor().to(
+        (m.fluid_u8 if split is None else m.geo_planes).device)
+
+
+def banded_rows(ny: int) -> int:
+    """The band height of banded_march: two fifths of ny."""
+    return 2 * ny // 5
+
+
+def march_call(x, m, steps, plan, table):
+    """One launch of K10-T (`x` a Shan-Chen state) or K9-T (a compressed
+    state, or the split pair) on `plan` and its `table`, the tensors as the
+    wrappers hand them to the kernel.  Not counted as a launch."""
+    from openlbmpm_torch.kernels import cg3d as k9
+    from openlbmpm_torch.kernels import flow3d as kf
+    from openlbmpm_torch.kernels import march3d
+    p = m.kernel_params
+    if plan.family == "sc":
+        f = x.contiguous()
+        out = torch.empty_like(f)
+        march3d.march_launch(kf._BLOCK_LIBS[f.dtype], "sc3d", (steps,),
+                             (f, out, m.fluid_u8), plan, table, p)
+        return out
+    split = not torch.is_tensor(x)
+    if split:
+        a, b = (y.contiguous() for y in x)
+        out = (torch.empty_like(a), torch.empty_like(b))
+        tensors = (a, b, *out, m.geo_planes)
+    else:
+        a = x.contiguous()
+        out = torch.empty_like(a)
+        tensors = (a, None, out, None, m.geo_planes)
+    march3d.march_launch(k9._BLOCK_LIBS[a.dtype], "cg3d",
+                         (int(split), steps), tensors, plan, table, p)
+    return out
+
+
 def phase_block3d_f64(device, calls=2, tol=1e-11):
     """K11-T and K10-T against T plain steps at f64 on 48 x 40 x 32 (walls
     along y), T = 2, 3, 4, two calls in a row: every case of SINGLE3D_CASES
     (SRT and TRT, with and without the body force, an obstacle) and of
-    BLOCK_SC3D_CASES (K = 1, 2, 3)."""
+    BLOCK_SC3D_CASES (K = 1, 2, 3); K10-T once on the wrapper's plan and
+    once on banded_march's, three y-bands of 16 rows."""
     from openlbmpm_torch.kernels import flow3d as kf
     res = {}
     for tag, names in (("K11-T", SINGLE3D_CASES), ("K10-T", BLOCK_SC3D_CASES)):
@@ -4912,12 +4996,19 @@ def phase_block3d_f64(device, calls=2, tol=1e-11):
                 m, f = block_sc3d_case(name, device)
                 kern, plain = kf.sc3d_block_step, kf.sc3d_block_step_reference
             for t in BLOCK_TS:
-                a = _steps(lambda x: kern(x, m, t), f, calls)
-                err = _gap(a, _steps(lambda x: plain(x, m, t), f, calls))
-                check(bool(torch.isfinite(a).all()) and err <= tol,
-                      f"{tag} {name} T={t}: kernel vs {t} plain steps "
-                      f"{err:.3e} > {tol:g}")
-                res[(tag, name, t)] = err
+                b = _steps(lambda x: plain(x, m, t), f, calls)
+                runs = {name: lambda x: kern(x, m, t)}
+                if tag == "K10-T":
+                    plan, table = banded_march(m, t)
+                    runs[f"{name} banded"] = lambda x: march_call(
+                        x, m, t, plan, table)
+                for key, fn in runs.items():
+                    a = _steps(fn, f, calls)
+                    err = _gap(a, b)
+                    check(bool(torch.isfinite(a).all()) and err <= tol,
+                          f"{tag} {key} T={t}: kernel vs {t} plain steps "
+                          f"{err:.3e} > {tol:g}")
+                    res[(tag, key, t)] = err
     return res
 
 
@@ -5019,10 +5110,11 @@ def phase_block_full_3(device, n=FLAGSHIP_N, steps=8, sizes=(128, 256),
     return res
 
 
-# the new T-step kernels' CUDA names in the profiler
+# the new T-step kernels' CUDA names in the profiler; None: timed by
+# launch_times (the cooperative z-march, sc3d_march_kernel)
 BLOCK3_KERNEL_NAMES = {"K5c-T": "coupled_block_kernel",
                        "K11-T": "flow3d_block_kernel",
-                       "K10-T": "flow3d_block_kernel"}
+                       "K10-T": None}
 # least bytes per cell and time step at T = 1 (each input read once, each
 # output written once): the T=1 kernel's, K5c (one f32 D2Q5 tracer) in its
 # three layouts, K11 and K10 (two fluids) in f32 and bf16
@@ -5079,7 +5171,8 @@ def phase_block3_speed(device, time_steps=100, calls=6):
     """Speed per time step of each new T-step kernel at T = 1 (the T=1
     kernel), 2 and 4: CUDA events over `time_steps` steps (T = 1, 2, 4, 4,
     2, 1, the best of each), device microseconds per launch from
-    torch.profiler, launches per time step from the wrapper's count over
+    torch.profiler (K10-T's cooperative launch: launch_times), launches per
+    time step from the wrapper's count over
     `calls` calls, MLUPS, the bound per step (the T=1 least bytes over T, or
     the least operations of one step, whichever is longer), the plain
     version's time per step (T = 4) and the launch's tiling.  A trace that
@@ -5102,11 +5195,13 @@ def phase_block3_speed(device, time_steps=100, calls=6):
             check(kern.launches == calls, f"{label} T={t}: {kern.launches} "
                   f"launches for {calls} calls")
             name = BLOCK3_KERNEL_NAMES[family]
-            for _ in range(2):
+            for _ in range(0 if name is None else 2):
                 r["device_us"][t] = device_times(lambda y: kern(y, m, t), x,
                                                  (name,), steps=4)[name]
                 if r["device_us"][t] is not None:
                     break
+            if name is None:
+                r["device_us"][t] = launch_times(lambda y: kern(y, m, t), x)
             r["tiling"][t] = _tiling3(family, key, m, t)
         r["plain_sec"] = _time_steps(lambda y: plain(y, m, 4), x, 1,
                                      device) / 4
@@ -5289,6 +5384,25 @@ def phase_cli_default_3(device, n=FLAGSHIP_N, steps=1000, tr_steps=500):
     return res
 
 
+def tiling_text(tilings) -> str:
+    """A launch's tiling at T = 2 and 4 for a phase line: the z-march's plan
+    (K10-T, K9-T: bands of rows plus halo, the rings' MB, the cooperative
+    grid, the waves and the lag) or the window tiling (JSON)."""
+    parts = []
+    for t in (2, 4):
+        g = tilings[t]
+        if "bands" in g:
+            parts.append(f"plan T={t}: {g['bands']} band(s) of {g['band_rows']}"
+                         f" rows + {g['halo']} halo, rings "
+                         f"{g['scratch_bytes'] / 2 ** 20:.1f} MB, grid "
+                         f"{g['grid']} blocks, {g['waves']} waves, lag "
+                         f"{g['lag']}, {g['slabs_per_wave']} slab(s) a wave")
+        else:
+            parts.append(f"tiling T={t} " +
+                         json.dumps(g, separators=(",", ":")))
+    return "; ".join(parts)
+
+
 def phase52_57_lines(r52, r53, r54, r55, r56, r57, r12, r38, card):
     def worst(r, pick):
         return max(v for k, v in r.items() if pick(k))
@@ -5304,7 +5418,9 @@ def phase52_57_lines(r52, r53, r54, r55, r56, r57, r12, r38, card):
         "phase 53 K11-T / K10-T f64 (T = 2, 3, 4, two calls, 48x40x32; "
         "SINGLE3D_CASES, BLOCK_SC3D_CASES K = 1, 2, 3): max |diff| K11-T "
         f"{worst(r53, lambda k: k[0] == 'K11-T'):.3e}, K10-T "
-        f"{worst(r53, lambda k: k[0] == 'K10-T'):.3e} over {len(r53)} runs "
+        f"{worst(r53, lambda k: k[0] == 'K10-T' and 'banded' not in k[1]):.3e}"
+        ", K10-T in three y-bands "
+        f"{worst(r53, lambda k: 'banded' in k[1]):.3e} over {len(r53)} runs "
         "(<= 1e-11)",
         f"phase 54 new T-step kernels at full size vs their plain versions, "
         f"8 steps (3-D 4) from one start [{card}]: " + "; ".join(
@@ -5329,9 +5445,7 @@ def phase52_57_lines(r52, r53, r54, r55, r56, r57, r12, r38, card):
             "; device us a launch T=2/4 " + "/".join(
                 "not measured" if dev[t] is None else f"{dev[t][0]:.2f}"
                 for t in (2, 4)) +
-            "; tiling T=2/4 " + "/".join(
-                json.dumps(r["tiling"][t], separators=(",", ":"))
-                for t in (2, 4)) +
+            "; " + tiling_text(r["tiling"]) +
             f"; plain ms a step {r['plain_sec'] * 1e3:.3f}")
     for (kind, *rest), r in r56.items():
         if kind == "cli":
@@ -5616,7 +5730,9 @@ def phase_block_cg3d_f64(device, calls=2, tol=1e-11, shape=(48, 40, 32),
                          grain=32):
     """K9-T against T plain steps at f64, T = 2, 3, 4, two calls in a row,
     compressed (K9-Tc) and split (K9-Ts), in every case of
-    BLOCK_CG3D_CASES (48 x 40 x 32, the grain pack at 32^3)."""
+    BLOCK_CG3D_CASES (48 x 40 x 32, the grain pack at 32^3), each once on
+    the wrapper's plan and once on banded_march's (three y-bands of 16
+    rows, 12 in the grain pack)."""
     from openlbmpm_torch.kernels import cg3d as k9
     res = {}
     for name in BLOCK_CG3D_CASES:
@@ -5628,16 +5744,20 @@ def phase_block_cg3d_f64(device, calls=2, tol=1e-11, shape=(48, 40, 32),
                 ("split", st, k9.cg3d_block_split,
                  k9.cg3d_block_split_reference)):
             for t in (2, 3, 4):
-                a = _steps(lambda x: kern(x, m, t), x0, calls)
                 b = _steps(lambda x: plain(x, m, t), x0, calls)
-                if lay == "split":
-                    a, b = tuple(a), tuple(b)
-                err = _gap(a, b)
-                fin = all(bool(torch.isfinite(y).all()) for y in
-                          (a if lay == "split" else (a,)))
-                check(fin and err <= tol, f"K9-T {name} {lay} T={t}: kernel "
-                      f"vs {t} plain steps {err:.3e} > {tol:g}")
-                res[(name, lay, t)] = err
+                plan, table = banded_march(m, t, lay == "split")
+                for key, fn in ((name, lambda x: kern(x, m, t)),
+                                (f"{name} banded", lambda x: march_call(
+                                    x, m, t, plan, table))):
+                    a = _steps(fn, x0, calls)
+                    if lay == "split":
+                        a = tuple(a)
+                    err = _gap(a, tuple(b) if lay == "split" else b)
+                    fin = all(bool(torch.isfinite(y).all()) for y in
+                              (a if lay == "split" else (a,)))
+                    check(fin and err <= tol, f"K9-T {key} {lay} T={t}: "
+                          f"kernel vs {t} plain steps {err:.3e} > {tol:g}")
+                    res[(key, lay, t)] = err
     return res
 
 
@@ -5710,8 +5830,8 @@ def phase_block_cg3d_speed(device, sizes=(128, 256), time_steps=(24, 8),
                            loop_steps=120, calls=4):
     """K9-T's speed at configuration 5 per time step at T = 1 (the T=1
     kernel K9c / K9h / K9s), 2 and 4 (CUDA events; T = 1, 2, 4, 4, 2, 1, the
-    best of each), device microseconds per launch from torch.profiler,
-    the bound per step (CG3D_BYTES / T over 3.35 TB/s) at each n of
+    best of each), device microseconds per launch (launch_times), the
+    bound per step (CG3D_BYTES / T over 3.35 TB/s) at each n of
     `sizes`; at n = sizes[0] also launches per step from the wrapper's
     count over `calls` calls, the launch's tiling and the plain version's
     time per step; then bench_cg3d.py's loop at n = sizes[0]:
@@ -5747,12 +5867,7 @@ def phase_block_cg3d_speed(device, sizes=(128, 256), time_steps=(24, 8),
                 r["launches_per_step"][t] = kern.launches / (calls * t)
                 check(kern.launches == calls, f"K9-T {key} {n}^3 T={t}: "
                       f"{kern.launches} launches for {calls} calls")
-                for _ in range(2):
-                    r["device_us"][t] = device_times(
-                        lambda y: kern(y, mm, t), x, ("cg3d_block_kernel",),
-                        steps=2)["cg3d_block_kernel"]
-                    if r["device_us"][t] is not None:
-                        break
+                r["device_us"][t] = launch_times(lambda y: kern(y, mm, t), x)
                 r["tiling"][t] = k9.cg3d_block_tiling(
                     torch.bfloat16 if key == "bf16" else torch.float32,
                     key == "split", mm.kernel_params, t)
@@ -5820,10 +5935,11 @@ def phase58_62_lines(r58, r59, r60, r61, r62, card):
             for m, r in r59.items()))
     lines.append(
         "phase 60 K9-T f64 vs T plain steps (T = 2, 3, 4, two calls; "
-        + ", ".join(BLOCK_CG3D_CASES) + "): max |diff| compressed "
-        f"{worst(r60, lambda k: k[1] == 'compressed'):.3e}, split "
-        f"{worst(r60, lambda k: k[1] == 'split'):.3e} over {len(r60)} runs "
-        "(<= 1e-11)")
+        + ", ".join(BLOCK_CG3D_CASES) + "): max |diff| " + ", ".join(
+            f"{lay}{' in three y-bands' if band else ''} "
+            f"{worst(r60, lambda k: k[1] == lay and ('banded' in k[0]) == band):.3e}"
+            for band in (False, True) for lay in ("compressed", "split")) +
+        f" over {len(r60)} runs (<= 1e-11)")
     parts = []
     for (key, t), v in r61.items():
         if key in ("f32", "split"):
@@ -5859,9 +5975,7 @@ def phase58_62_lines(r58, r59, r60, r61, r62, card):
              "; device us a launch T=2/4 " + "/".join(
                  "not measured" if dev[t] is None else f"{dev[t][0]:.2f}"
                  for t in (2, 4)) +
-             "; tiling T=2/4 " + "/".join(
-                 json.dumps(r["tiling"][t], separators=(",", ":"))
-                 for t in (2, 4)) +
+             "; " + tiling_text(r["tiling"]) +
              f"; plain ms a step {r['plain_sec'] * 1e3:.3f}"
              if "plain_sec" in r else ""))
     return lines

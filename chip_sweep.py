@@ -1,0 +1,202 @@
+#!/usr/bin/env python3
+"""Sweep the z-march's knobs (K10-T and K9-T, ``csrc/march3d.cuh``) on a
+card and cost its stages.
+
+    python3 chip_sweep.py [knobs|stages|all]
+
+Run from the repository root on a machine with a CUDA card and nvcc.
+"knobs": ms a time step at 128^3 in f32 of K10-T (probe_sc3d, K = 2) and
+K9-Tc (configuration 5) at T = 2 and 4 over slabs a wave (1, 2, 4, 8),
+one band or bands of 64 rows (plans built here and launched through
+chip_smoke.march_call), and the resident blocks an SM the kernels ask
+ptxas for (1, 2, 3: copies of the sources with that number in the march
+kernels' ``__launch_bounds__``, their registers and spills from ptxas),
+CUDA events over each launch, from chip_smoke.py's models.
+"stages": the same two kernels at their defaults with one stage kind's body
+skipped (the results are wrong, the times say what each stage costs),
+beside the full kernel and the kernel with every body skipped (the waves
+and barriers alone).  Both modes patch copies of ``openlbmpm_torch/csrc``
+in a temporary directory and build their libraries there; the sources in
+the repository stay as they are.  Prints the card and one line a
+measurement.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import re
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+STAGES = {"load": "kStageLoad", "bc": "kStageBc", "extrap": "kStageExtrap",
+          "normal": "kStageNormal", "collide": "kStageCollide",
+          "stream": "kStageStream"}
+# the march kernels' resident blocks an SM, as the sources ask ptxas for them
+MIN_BLOCKS = {"flow3d_block.cuh": "sc3d_march_min_blocks<S>()",
+              "cg3d_block.cuh": "cg3d_march_min_blocks<S, L>()"}
+# the executor's call of a family's body for one cell of one stage
+BODY_CALL = "        body(c);\n"
+
+
+def min_blocks_edits(blocks: int) -> dict:
+    """The edits (file -> (text, replacement)) that ask ptxas for `blocks`
+    resident blocks an SM in both march kernels."""
+    return {name: (f"__launch_bounds__(kMarchThreads, {call})",
+                   f"__launch_bounds__(kMarchThreads, {blocks})")
+            for name, call in MIN_BLOCKS.items()}
+
+
+def skip_edits(cond: str) -> dict:
+    """The edit that skips the body where the C++ condition `cond` holds."""
+    return {"march3d.cuh": (BODY_CALL,
+                            BODY_CALL.replace("body(c);",
+                                              f"if (!({cond})) body(c);"))}
+
+
+def _patched(src_dir: Path, dest: Path, edits: dict) -> Path:
+    """A copy of `src_dir` in `dest` with each file of `edits` (name ->
+    (text, replacement)) changed where the text occurs exactly once."""
+    shutil.copytree(src_dir, dest)
+    for name, (old, new) in edits.items():
+        p = dest / name
+        text = p.read_text()
+        if text.count(old) != 1:
+            raise RuntimeError(f"{name}: {old!r} moved")
+        p.write_text(text.replace(old, new))
+    return dest
+
+
+def _variants(build, out: Path, jobs: dict) -> dict:
+    """nvcc of flow3d_block_f32 and cg3d_block_f32 into `out` for each tag
+    of `jobs` (tag -> (source directory, extra flags)), all side by side:
+    {(lib, tag): (CDLL, its ptxas registers and spill stores)}."""
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for tag, (src, flags) in jobs.items():
+        for lib in ("flow3d_block_f32", "cg3d_block_f32"):
+            so = out / f"lib{lib}_{tag}.so"
+            procs[(lib, tag)] = (so, subprocess.Popen(
+                [build._nvcc(), *build.NVCC_FLAGS, *flags, "-o", str(so),
+                 str(Path(src) / f"{lib}.cu")], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for key, (so, p) in procs.items():
+        text, _ = p.communicate()
+        if p.returncode:
+            raise RuntimeError(f"nvcc failed for {key}:\n{text[-2000:]}")
+        libs[key] = (ctypes.CDLL(str(so)), {
+            "registers": re.findall(r"Used (\d+) registers", text),
+            "spill_stores": re.findall(r"(\d+) bytes spill stores", text)})
+    return libs
+
+
+def _use(M, kf, k9, lib: str, so) -> None:
+    """Point the march launcher's entry points of `lib` at `so`."""
+    prefix, ints, ptrs, pt = (("sc3d", 1, 3, kf.Flow3dParams)
+                              if lib.startswith("flow3d") else
+                              ("cg3d", 2, 5, k9.Cg3dParams))
+    step = getattr(so, f"{prefix}_march_step")
+    step.argtypes = [ctypes.c_int] * ints + [ctypes.c_void_p] * (ptrs + 2) + \
+        [ctypes.POINTER(pt), ctypes.c_void_p]
+    step.restype = ctypes.c_int
+    grid = getattr(so, f"{prefix}_march_grid")
+    grid.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    grid.restype = ctypes.c_int
+    err = getattr(so, f"{M._ERROR_PREFIX[prefix]}_block_error_string")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    M._fns[lib] = (step, grid, err)
+
+
+def main(argv=None) -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_sweep: needs a CUDA card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    from openlbmpm_torch.kernels import build
+    from openlbmpm_torch.kernels import cg3d as k9
+    from openlbmpm_torch.kernels import flow3d as kf
+    from openlbmpm_torch.kernels import march3d as M
+    what = (list(sys.argv[1:] if argv is None else argv) or ["all"])[0]
+    shape = (128,) * 3
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    print(cs.card_line(), flush=True)
+    m = cs.probe_sc3d_model(dev)
+    f = cs.probe_sc3d_start(m)
+    mc = cs.config5_model(dev)
+    s = mc.pack_state(*cs.config5_start(mc))
+
+    pc = mc.kernel_params
+
+    def k10(t, **kw):
+        plan = M.sc3d_march_plan(shape, m.kernel_params.k, t, 4, **kw)
+        table = plan.tensor().to(dev)
+        return cs._time_steps(lambda y: cs.march_call(
+            y, m, t, plan, table), f, max(24 // t, 4), dev) / t * 1e3
+
+    def k9c(t, **kw):
+        plan = M.cg3d_march_plan(shape, t, 4, False, pc.inlet, pc.outlet,
+                                 bool(pc.has_wetting), **kw)
+        table = plan.tensor().to(dev)
+        return cs._time_steps(lambda y: cs.march_call(
+            y, mc, t, plan, table), s, max(24 // t, 4), dev) / t * 1e3
+
+    def emit(**kw):
+        print(json.dumps(kw), flush=True)
+
+    if what in ("knobs", "all"):
+        with tempfile.TemporaryDirectory() as tmp:
+            libs = _variants(build, Path(tmp, "lib"), {
+                f"mb{b}": (_patched(build.SRC_DIR, Path(tmp, f"mb{b}"),
+                                    min_blocks_edits(b)), [])
+                for b in (1, 2, 3)})
+            for (lib, tag), (_, report) in sorted(libs.items()):
+                emit(library=lib, variant=tag, **report)
+            for b in (1, 2, 3):
+                for lib in ("flow3d_block_f32", "cg3d_block_f32"):
+                    _use(M, kf, k9, lib, libs[(lib, f"mb{b}")][0])
+                for t in (2, 4):
+                    for rows in (128, 64):
+                        for z in (1, 2, 4, 8):
+                            kw = {"band_rows": rows, "slabs_per_wave": z}
+                            emit(kernel="K10-T f32", T=t, min_blocks=b,
+                                 **kw, ms_a_step=k10(t, **kw))
+                            emit(kernel="K9-Tc f32", T=t, min_blocks=b,
+                                 **kw, ms_a_step=k9c(t, **kw))
+            M._fns.clear()
+    if what in ("stages", "all"):
+        with tempfile.TemporaryDirectory() as tmp:
+            defines = {}
+            for name, cond in [("none", None), ("all", "true")] + [
+                    (k, f"c.kind() == {v}") for k, v in STAGES.items()]:
+                defines[name] = _patched(build.SRC_DIR, Path(tmp, name),
+                                         skip_edits(cond) if cond else {})
+            libs = _variants(build, Path(tmp, "lib"),
+                             {name: (src, []) for name, src in
+                              defines.items()})
+            for name in defines:
+                for lib in ("flow3d_block_f32", "cg3d_block_f32"):
+                    _use(M, kf, k9, lib, libs[(lib, name)][0])
+                for t in (2, 4):
+                    if name not in ("bc", "extrap", "normal"):
+                        emit(kernel="K10-T f32", T=t, skipped=name,
+                             ms_a_step=k10(t))
+                    emit(kernel="K9-Tc f32", T=t, skipped=name,
+                         ms_a_step=k9c(t))
+            M._fns.clear()
+    print(json.dumps({"done": True, "seconds": time.perf_counter() - t0}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,15 +1,15 @@
-// Temporal blocking of the 3-D steps for NVIDIA Hopper (sm_90a): the window
-// machinery of flow3d_block.cuh (K11-T, K10-T).  Include it after the
-// step's own header (flow3d.cuh), which defines Q, ex, ey, ez and opp of
-// D3Q19 (the lattice's order: opposite pairs (1, 2), (3, 4), ... (17, 18)).
+// Temporal blocking of the 3-D single-phase step for NVIDIA Hopper
+// (sm_90a): the window machinery of flow3d_block.cuh's K11-T.  Include it
+// after the step's own header (flow3d.cuh), which defines Q, ex, ey, ez and
+// opp of D3Q19 (the lattice's order: opposite pairs (1, 2), (3, 4), ...
+// (17, 18)).  (K10-T and K9-T march along z instead: march3d.cuh.)
 //
-// Replaces the TPU kernels' z-slab windows (pallas/single3d.py,
-// pallas/sc3d.py with steps_per_call = T > 1).  One launch advances T
-// steps of a domain periodic in x, y and z (walls come only from the
-// mask).  Each block owns a brick of tx x ty x tz cells and loads a window
-// around it, h = ring * T cells on every side, wrapping periodically; ring
-// = the cells one sub-step's stencils reach (single-phase 1: streaming;
-// Shan-Chen 2: the interaction stencil, then streaming).  The state is
+// Replaces the TPU kernel's z-slab windows (pallas/single3d.py with
+// steps_per_call = T > 1).  One launch advances T steps of a domain
+// periodic in x, y and z (walls come only from the mask).  Each block owns
+// a brick of tx x ty x tz cells and loads a window around it, h = ring * T
+// cells on every side, wrapping periodically; ring = the cells one
+// sub-step's stencils reach (single-phase 1: streaming).  The state is
 // decoded to the compute type into the window once, the block runs T
 // sub-steps there, and only the brick is encoded and written back.  Stage
 // j of sub-step s runs on the window shrunk by ring * s + j cells on every

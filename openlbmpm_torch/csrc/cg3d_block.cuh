@@ -7,377 +7,313 @@
 // compressed state (f_total, rho_r) in f32 / f64 (K9-Tc) and bf16 (K9-Th,
 // decoded to f32 once a call and encoded once), and the split state
 // (f_r, f_b) in f32 / f64 (K9-Ts).  Before every sub-step the boundary
-// slabs apply inside the window, selected by GLOBAL z (the TPU kernel's
-// zrows = (i0 R - H + z) mod nz): the NEBB velocity inlet on slab nz-2 and
-// its ghost nz-1, which copies the updated nz-2; the convective outlet
-// copying slab 3 -> 2, then 2 -> 1, then 1 -> 0, each from the updated
-// slab above; or the NEBB pressure outlet on slab 1 and its ghost 0.  The
-// compressed rewrite moves rho_r by the slab's red fraction of the change
-// (_apply_bcs_window_c :557), the split one splits each new population by
-// that fraction (_apply_bcs_window :624): the two layouts part on a mixed
-// slab, and each keeps its own.  Then the physics sub-step of the one-step
-// kernel, from cg3d.cuh's device functions (cell_phase, extrapolated_phi,
-// phi_gradient, rotate_akai, inward_normal, curvature_of, collide_core,
-// red_part): the jnp formulas (the Akai rotation with its distance
-// comparison), not the TPU kernel's rsqrt and squared-distance tie test.
+// slabs apply, selected by GLOBAL z (the TPU kernel's zrows = (i0 R - H +
+// z) mod nz): the NEBB velocity inlet on slab nz-2 and its ghost nz-1,
+// which copies the updated nz-2; the convective outlet copying slab 3 -> 2,
+// then 2 -> 1, then 1 -> 0, each from the updated slab above; or the NEBB
+// pressure outlet on slab 1 and its ghost 0.  The compressed rewrite moves
+// rho_r by the slab's red fraction of the change (_apply_bcs_window_c
+// :557), the split one splits each new population by that fraction
+// (_apply_bcs_window :624): the two layouts part on a mixed slab, and each
+// keeps its own.  Then the physics sub-step of the one-step kernel, from
+// cg3d.cuh's device functions (cell_phase, extrapolated_phi, phi_gradient,
+// rotate_akai, inward_normal, curvature_of, collide_core, red_part): the
+// jnp formulas (the Akai rotation with its distance comparison), not the
+// TPU kernel's rsqrt and squared-distance tie test.
 //
-// Window.  Each block owns a brick of tx x ty x tz cells and loads a window
-// around it once a call, wrapping periodically, with a halo of hx = 4T
-// cells on every x and y side, hzlo = (4 + blo) T below and hzhi = (4 +
-// bhi) T above.  A physics sub-step reaches 4 cells (phi and its solid
-// extrapolation, the gradient and normal, the curvature, collision and
-// streaming); the boundary slabs reach blo = 1 slab below (the inlet's
-// ghost copy reads nz-2) and bhi = 3 above (the convective cascade: slab 0
-// ends as slab 3's value) or 1 (the pressure outlet's ghost copy), and only
-// in z.  (The TPU kernel shrinks by one slab a side for the slabs, shrink =
-// 5 at :787, which covers the cascade only while its windows' edges avoid
-// slabs 1 and 2.)  Sub-step s works on the window shrunk by 4s in x and y
-// and by (4 + blo) s, (4 + bhi) s in z, so no stencil reads outside the
-// window and the brick is exact after T sub-steps.
-//
-// Window planes (compute type): the state (20 compressed, 38 split), then
-// phi, g (3), n (3) and kappa; then one flag byte a cell (1 fluid, 2 wet).
-// A sub-step, one barrier after each stage: boundary slabs (one thread a
-// (y, x) column, in the reference's order), phi, its extrapolation onto
-// solid cells (wetting walls only), gradient and normal, curvature, the
-// collision (post-collision population i into slot opp(i) of the first 19
-// state planes; frac, A, B, Cz over phi and g), block3d.cuh's in-place swap
-// streaming, then rho_r' (compressed) or the colour split (split) from the
-// streamed populations and the recolouring terms of each source cell.
-// The windows live in global scratch (kGmem3Blocks resident blocks, the
-// grid looping over the bricks): at 28 values a cell, a brick of 128 cells
-// at T = 2 needs a window of ~20k cells, some 2.3 MB in f32, far over the
-// 227 KB of shared memory.
+// The design: the pipelined z-march of march3d.cuh, on the plan of
+// kernels/march3d.py::cg3d_march_plan.  Per level s (the state after s
+// steps) up to five stages, each a run of slabs of one level a wave, each
+// ring [plane][slot][row][x] in the scratch:
+//   load     (level 0) the input state decoded into the ring st_0 (20 or 38
+//            planes), and phi_0 of it;
+//   bc       with an inlet or outlet, at slabs nz-2 and 0 only: one
+//            thread a column rewrites the boundary slabs of st_s in place,
+//            in the reference's order (reading up to 3 slabs above,
+//            finalising up to 2), and phi_s of each slab it rewrites;
+//   extrap   (wetting walls) phi_s on solid cells from its fluid neighbours,
+//            in place;
+//   normal   phi_s one slab and row around -> g (rotated on wetting fluid
+//            cells) and the unit inward normal n: gn_s (6 planes);
+//   collide  n one slab and row around -> kappa, and the collision of st_s
+//            at the slab -> po_s: post_i and its red part red_part(i, post_i,
+//            frac, A, B, Cz) (38 planes);
+//   stream   po_s one slab and row around: pull streaming with half-way
+//            bounce-back of post and of its red part -> st_{s+1} (f, rho_r'
+//            or f_r, f_b) and phi_{s+1}, or at the last level the output,
+//            encoded once.
+// Phi and the red parts ride with the stages that have the cell's values
+// at hand, so no stage re-reads the state for them.  With 8 slabs a wave
+// (the fastest of 1, 2, 4, 8 at 128^3, PERF.md) a level trails the one
+// before by 47 slabs at configuration 5 (wetting walls, the velocity inlet,
+// the convective outlet), and the state and phi rings hold 46 slabs, gn
+// and po 18: 0.46 GB at 128^3 and T = 4 in f32, through HBM more than L2.
+// The periodic z seam is recomputed (each level starts its downstream
+// stages' reach below slab 0), nothing else in z; the plan cuts the plane
+// into y-bands (a halo of 4T rows) only where the rings would outgrow their
+// budget of device memory.
 //
 // What bounds it: HBM bytes per cell-step are the state read once and
 // written once a call, plus the 4 geometry planes, over T: 161 / T B
-// (compressed f32), 85 / T (bf16), 305 / T (split f32).  What sets its
-// pace instead is the window: with a halo of 4T-7T cells a side, every
-// sub-step recomputes a window several times the brick, each stage a pass
-// over it through L2 and HBM.
+// (compressed f32), 85 / T (bf16), 305 / T (split f32).  The rings move
+// about 2 x 65 x 4 B a cell-step more (compressed f32: state 20, phi, g and
+// n 6, post and red 38), most of it to and from HBM, and the grid waits at
+// a barrier once a wave.
 
 #pragma once
 
 #include "cg3d.cuh"
-#include "block3d.cuh"
+#include "march3d.cuh"
 
 namespace {
 
-// A launch's tiling, computed on the host (cg3d_block_shape) and passed by
-// value.
-struct Cg3dBlockShape {
-  int T;
-  int blo, bhi;          // z slabs the boundary slabs consume below / above
-  int tx, ty, tz;        // brick
-  int hx, hzlo, hzhi;    // halo: each x and y side, below and above in z
-  int wx, wy, wz;        // window
-  int ntx, nty, ntz;     // bricks in x, y and z
-  int grid;              // blocks launched
-  size_t win_bytes;      // bytes of one window (planes, then the flag bytes)
-};
-
-// The brick (x, y, z), chosen by measurement over 32x16x16, 32x32x16,
-// 64x16x8 and 16x16x16 on the H100 (PERF.md).
-constexpr int kCg3dBrickX = 32, kCg3dBrickY = 16, kCg3dBrickZ = 16;
+constexpr int kMaxSteps3 = 8;   // the largest T a launch takes
 
 template <int L>
 __host__ __device__ constexpr int cg3d_state_planes() {
   return L == kSplit ? 2 * Q : Q + 1;
 }
 
-// The tiling of T sub-steps of layout L in compute values of csize bytes,
-// with at most `blocks` resident blocks.
-template <int L>
-__host__ inline Cg3dBlockShape cg3d_block_shape(const Cg3dParams& P, int T, int csize,
-                                                int blocks) {
-  Cg3dBlockShape b{};
-  b.T = T;
-  b.blo = P.inlet ? 1 : 0;
-  b.bhi = P.outlet == 1 ? 3 : (P.outlet == 2 ? 1 : 0);
-  b.tx = kCg3dBrickX;
-  b.ty = kCg3dBrickY;
-  b.tz = kCg3dBrickZ;
-  b.hx = 4 * T;
-  b.hzlo = (4 + b.blo) * T;
-  b.hzhi = (4 + b.bhi) * T;
-  b.wx = b.tx + 2 * b.hx;
-  b.wy = b.ty + 2 * b.hx;
-  b.wz = b.tz + b.hzlo + b.hzhi;
-  b.ntx = (P.nx + b.tx - 1) / b.tx;
-  b.nty = (P.ny + b.ty - 1) / b.ty;
-  b.ntz = (P.nz + b.tz - 1) / b.tz;
-  const size_t cells = (size_t)b.wx * b.wy * b.wz;
-  b.win_bytes = align16(cells * (cg3d_state_planes<L>() + 8) * csize) + align16(cells);
-  const int bricks = b.ntx * b.nty * b.ntz;
-  b.grid = bricks < blocks ? bricks : blocks;
-  return b;
-}
-
-__device__ __forceinline__ Box box_of(int x0, int x1, int y0, int y1, int z0, int z1,
-                                      const Cg3dBlockShape& B) {
-  return Box{x0, x1, y0, y1, z0, z1, B.wx, B.wy, B.wz};
-}
-
-__device__ __forceinline__ Box shrink(const Box& r, int e) {
-  return Box{r.x0 + e, r.x1 - e, r.y0 + e, r.y1 - e, r.z0 + e, r.z1 - e, r.wx, r.wy, r.wz};
-}
-
-template <typename S, int L, typename C = typename Traits<S>::C>
-__global__ void __launch_bounds__(kBlock3Threads)
-cg3d_block_kernel(const S* __restrict__ s_in, const S* __restrict__ s2_in,
-                  const C* __restrict__ geo, S* __restrict__ s_out, S* __restrict__ s2_out,
-                  Cg3dParams P, Cg3dBlockShape B, unsigned char* __restrict__ scratch) {
-  constexpr int NS = cg3d_state_planes<L>();
-  constexpr int PHI = NS, GR = NS + 1, NR = NS + 4, KAP = NS + 7;
-  unsigned char* base = scratch + (size_t)blockIdx.x * B.win_bytes;
-  C* W = reinterpret_cast<C*>(base);
-  const int wx = B.wx, wy = B.wy;
-  const size_t PL = (size_t)wx * wy * B.wz;
-  unsigned char* FL = base + align16(PL * (NS + 8) * sizeof(C));
-  const int nx = P.nx, ny = P.ny, nz = P.nz;
-  const size_t nxy = (size_t)ny * nx;
-  const size_t n = (size_t)nz * nxy;
-  const int sxy = wx * wy;
-  auto at = [&](int p, int c) -> C& { return W[(size_t)p * PL + c]; };
-  auto nb = [&](int c, int i) { return c + (ez(i) * wy + ey(i)) * wx + ex(i); };
-  auto fluid = [&](int c) { return (FL[c] & 1) != 0; };
-  auto get = [&](int c, Cell<C, L>& x) {
-    if constexpr (L == kSplit) {
+// A state ring's cell at slab u + dz (ring planes in the layout's order:
+// f_r then f_b, or f then rho_r) in and out of a Cell.
+template <typename C, int L>
+__device__ __forceinline__ void ring_get(const RingAt<C>& R, int dz, Cell<C, L>& c) {
+  const C* p = R.base + R.cell_slab(dz);
+  const size_t st = R.stride;
+  if constexpr (L == kSplit) {
 #pragma unroll
-      for (int i = 0; i < Q; ++i) {
-        x.r[i] = at(i, c);
-        x.b[i] = at(Q + i, c);
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < Q; ++i) x.f[i] = at(i, c);
-      x.rr = at(Q, c);
+    for (int i = 0; i < Q; ++i) {
+      c.r[i] = p[i * st];
+      c.b[i] = p[(Q + i) * st];
     }
-  };
-  auto put = [&](int c, const Cell<C, L>& x) {
-    if constexpr (L == kSplit) {
+  } else {
 #pragma unroll
-      for (int i = 0; i < Q; ++i) {
-        at(i, c) = x.r[i];
-        at(Q + i, c) = x.b[i];
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < Q; ++i) at(i, c) = x.f[i];
-      at(Q, c) = x.rr;
-    }
-  };
-  auto for_box = [&](const Box& r, auto&& fn) {
-    const int v = r.volume();
-    for (int t = threadIdx.x; t < v; t += kBlock3Threads) {
-      int lx, ly, lz;
-      r.at(t, lx, ly, lz);
-      fn(lx, ly, lz, r.cell(lx, ly, lz));
-    }
-  };
-  const State<S> st{s_in, s2_in, nullptr};
-
-  for (int tile = blockIdx.x; tile < B.ntx * B.nty * B.ntz; tile += gridDim.x) {
-    const int x0 = (tile % B.ntx) * B.tx, y0 = (tile / B.ntx % B.nty) * B.ty;
-    const int z0 = tile / (B.ntx * B.nty) * B.tz;
-    const int ox = x0 - B.hx, oy = y0 - B.hx, oz = z0 - B.hzlo;
-    auto gidx = [&](int lx, int ly, int lz) {
-      return (size_t)wrap3(oz + lz, nz) * nxy + (size_t)wrap3(oy + ly, ny) * nx +
-             wrap3(ox + lx, nx);
-    };
-
-    // decode the window once
-    for (int c = threadIdx.x; c < (int)PL; c += kBlock3Threads) {
-      const int lx = c % wx, ly = c / wx % wy, lz = c / sxy;
-      const int gz = wrap3(oz + lz, nz), gy = wrap3(oy + ly, ny), gx = wrap3(ox + lx, nx);
-      const C code = geo[(size_t)gz * nxy + (size_t)gy * nx + gx];
-      FL[c] = (code > C(0.5) ? 1 : 0) | (code > C(1.5) ? 2 : 0);
-      Cell<C, L> x;
-      load_cell<S, L>(st, geo, P, gz, gy, gx, x);
-      put(c, x);
-    }
-    __syncthreads();
-
-    for (int sub = 0; sub < B.T; ++sub) {
-      const int e = 4 * sub;
-      int zlo = (4 + B.blo) * sub, zhi = B.wz - (4 + B.bhi) * sub;
-      if (P.inlet || P.outlet) {
-        // the boundary slabs, one thread a (y, x) column of the valid box
-        const int w = wx - 2 * e, cols = w * (wy - 2 * e);
-        for (int t = threadIdx.x; t < cols; t += kBlock3Threads) {
-          const int lx = e + t % w, ly = e + t / w;
-          auto cell = [&](int lz) { return (lz * wy + ly) * wx + lx; };
-          // fn(lz) for each window slab of the valid range holding global slab zg
-          auto each = [&](int zg, auto&& fn) {
-            for (int lz = wrap3(zg - oz, nz); lz < zhi; lz += nz)
-              if (lz >= zlo) fn(lz);
-          };
-          auto copy = [&](int dst, int src) {
-            if (!fluid(cell(dst)) || src < zlo || src >= zhi) return;
-            for (int p = 0; p < NS; ++p) at(p, cell(dst)) = at(p, cell(src));
-          };
-          auto nebb = [&](int lz, bool inlet) {
-            if (!fluid(cell(lz))) return;
-            Cell<C, L> x;
-            get(cell(lz), x);
-            rewrite(x, P, inlet);
-            put(cell(lz), x);
-          };
-          if (P.inlet == 1) {
-            each(nz - 2, [&](int lz) { nebb(lz, true); });
-            each(nz - 1, [&](int lz) { copy(lz, lz - 1); });
-          }
-          if (P.outlet == 1) {
-            for (int k = 2; k >= 0; --k) each(k, [&](int lz) { copy(lz, lz + 1); });
-          } else if (P.outlet == 2) {
-            each(1, [&](int lz) { nebb(lz, false); });
-            each(0, [&](int lz) { copy(lz, lz + 1); });
-          }
-        }
-        __syncthreads();
-        zlo += B.blo;
-        zhi -= B.bhi;
-      }
-      const Box r0 = box_of(e, wx - e, e, wy - e, zlo, zhi, B);
-
-      // phi (0 on solid cells)
-      for_box(r0, [&](int, int, int, int c) {
-        C v = C(0);
-        if (fluid(c)) {
-          Cell<C, L> x;
-          get(c, x);
-          v = cell_phase(x);
-        }
-        at(PHI, c) = v;
-      });
-      __syncthreads();
-      if (P.has_wetting) {
-        // phi extended onto solid cells, in place (reads fluid cells only)
-        for_box(shrink(r0, 1), [&](int, int, int, int c) {
-          if (fluid(c)) return;
-          at(PHI, c) = extrapolated_phi<C>([&](int i) { return fluid(nb(c, i)); },
-                                           [&](int i) { return at(PHI, nb(c, i)); });
-        });
-        __syncthreads();
-      }
-      // the colour gradient (rotated on wetting fluid cells) and the normal
-      for_box(shrink(r0, 2), [&](int lx, int ly, int lz, int c) {
-        C g[3], nv[3];
-        phi_gradient<C>([&](int i) { return at(PHI, nb(c, i)); }, g);
-        if (P.has_wetting && (FL[c] & 2)) {
-          const size_t k = gidx(lx, ly, lz);
-          const C ns[3] = {geo[n + k], geo[2 * n + k], geo[3 * n + k]};
-          rotate_akai(g, ns, P);
-        }
-        inward_normal(g, fluid(c) ? C(1) : C(0), nv);
-#pragma unroll
-        for (int d = 0; d < 3; ++d) {
-          at(GR + d, c) = g[d];
-          at(NR + d, c) = nv[d];
-        }
-      });
-      __syncthreads();
-      // the curvature of fluid cells
-      const Box r3 = shrink(r0, 3);
-      for_box(r3, [&](int, int, int, int c) {
-        C kappa = C(0);
-        if (fluid(c)) {
-          const C nh[3] = {at(NR, c), at(NR + 1, c), at(NR + 2, c)};
-          kappa = curvature_of([&](int i, int b) { return at(NR + b, nb(c, i)); }, nh);
-        }
-        at(KAP, c) = kappa;
-      });
-      __syncthreads();
-      // the collision: post_i into slot opp(i), frac and (A, B, Cz) over phi
-      // and g (each cell reads and writes only its own values)
-      for_box(r3, [&](int, int, int, int c) {
-        C post[Q], frac = C(0), A = C(0), Bv = C(0), Cz = C(0);
-        if (fluid(c)) {
-          Cell<C, L> x;
-          get(c, x);
-          const C g[3] = {at(GR, c), at(GR + 1, c), at(GR + 2, c)};
-          collide_core(x, at(PHI, c), g, at(KAP, c), P, post, frac, A, Bv, Cz);
-        } else {
-#pragma unroll
-          for (int i = 0; i < Q; ++i) post[i] = C(0);
-        }
-#pragma unroll
-        for (int i = 0; i < Q; ++i) at(opp(i), c) = post[i];
-        at(PHI, c) = frac;
-        at(GR, c) = A;
-        at(GR + 1, c) = Bv;
-        at(GR + 2, c) = Cz;
-      });
-      __syncthreads();
-      swap_stream(W, PL, 1, FL, r3);
-      __syncthreads();
-      // slot i now holds the streamed population o_i: pulled from x - e_i,
-      // or bounced back (post_opp(i) of the cell itself) where that is
-      // solid; its red part takes the source cell's recolouring terms
-      for_box(shrink(r0, 4), [&](int, int, int, int c) {
-        const bool fl = fluid(c);
-        C rr = C(0);
-#pragma unroll
-        for (int i = 0; i < Q; ++i) {
-          C o = C(0), red = C(0);
-          if (fl) {
-            int src = nb(c, opp(i)), j = i;
-            if (!fluid(src)) {
-              src = c;
-              j = opp(i);
-            }
-            o = at(i, c);
-            red = red_part(j, o, at(PHI, src), at(GR, src), at(GR + 1, src), at(GR + 2, src));
-            rr = rr + red;
-          }
-          if constexpr (L == kSplit) {
-            at(i, c) = red;
-            at(Q + i, c) = o - red;
-          }
-        }
-        if constexpr (L == kCompressed) at(Q, c) = rr;
-      });
-      __syncthreads();
-    }
-
-    // encode the brick once
-    for (int t = threadIdx.x; t < B.tx * B.ty * B.tz; t += kBlock3Threads) {
-      const int bx = t % B.tx, by = t / B.tx % B.ty, bz = t / (B.tx * B.ty);
-      if (x0 + bx >= nx || y0 + by >= ny || z0 + bz >= nz) continue;
-      const int c = ((B.hzlo + bz) * wy + B.hx + by) * wx + B.hx + bx;
-      const size_t k = (size_t)(z0 + bz) * nxy + (size_t)(y0 + by) * nx + x0 + bx;
-      if constexpr (L == kSplit) {
-#pragma unroll
-        for (int i = 0; i < Q; ++i) {
-          s_out[i * n + k] = at(i, c);
-          s2_out[i * n + k] = at(Q + i, c);
-        }
-      } else {
-        Cell<C, kCompressed> x;
-        get(c, x);
-        encode<S, kCompressed>(s_out, n, k, fluid(c) ? C(1) : C(0), x);
-      }
-    }
-    __syncthreads();
+    for (int i = 0; i < Q; ++i) c.f[i] = p[i * st];
+    c.rr = p[Q * st];
   }
 }
 
+template <typename C, int L>
+__device__ __forceinline__ void ring_put(const RingAt<C>& R, int dz, const Cell<C, L>& c) {
+  C* p = R.base + R.cell_slab(dz);
+  const size_t st = R.stride;
+  if constexpr (L == kSplit) {
+#pragma unroll
+    for (int i = 0; i < Q; ++i) {
+      p[i * st] = c.r[i];
+      p[(Q + i) * st] = c.b[i];
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < Q; ++i) p[i * st] = c.f[i];
+    p[Q * st] = c.rr;
+  }
+}
+
+// phi of a cell's state, 0 unless fluid.
+template <typename C, int L>
+__device__ __forceinline__ C phase_of(const Cell<C, L>& x, bool fluid) {
+  return fluid ? cell_phase(x) : C(0);
+}
+
+// One cell of one stage of K9-T's march (march3d.cuh's MarchCell c), rings
+// as kernels/march3d.py::cg3d_march_plan hands them: load st_0, phi_0; bc
+// st_s, phi_s; extrap phi_s; normal phi_s, gn_s; collide st_s, phi_s, gn_s,
+// po_s; stream po_s, st_{s+1}, phi_{s+1} (-1 at the last level: the output).
+template <typename S, int L, typename C = typename Traits<S>::C>
+__device__ __forceinline__ void cg3d_march_cell(const S* __restrict__ s_in,
+                                                const S* __restrict__ s2_in,
+                                                const C* __restrict__ geo,
+                                                S* __restrict__ s_out, S* __restrict__ s2_out,
+                                                const Cg3dParams& P, const MarchPlan& M,
+                                                const MarchCell& c) {
+  constexpr int NS = cg3d_state_planes<L>();
+  const int nz = P.nz;
+  const size_t nxy = (size_t)P.ny * P.nx;
+  const size_t n = (size_t)nz * nxy;
+  const size_t gidx = c.gidx(0, 0, 0, nxy);
+  // whether the neighbour (dz, dy, dx), |d| <= 1, is fluid
+  auto fluid_at = [&](int dz, int dy, int dx) { return geo[c.gidx(dz, dy, dx, nxy)] > C(0.5); };
+  const bool fluid = geo[gidx] > C(0.5);
+  const int kind = c.kind();
+  if (kind == kStageLoad) {
+    const State<S> st{s_in, s2_in, nullptr};
+    Cell<C, L> x;
+    load_cell<S, L>(st, geo, P, c.gz, c.gy, c.x, x);
+    ring_put(M.ring<C>(c.ring(0), c), 0, x);
+    M.ring<C>(c.ring(1), c).at(0) = phase_of(x, fluid);
+  } else if (kind == kStageBc) {
+    const RingAt<C> R = M.ring<C>(c.ring(0), c), PH = M.ring<C>(c.ring(1), c);
+    // whether slab gz + k of this column is fluid
+    auto fluid_k = [&](int k) {
+      return geo[(size_t)mwrap(c.gz + k, nz) * nxy + gidx % nxy] > C(0.5);
+    };
+    // slab u + dst takes slab u + src's state (a fluid cell), and phi of it
+    auto copy = [&](int dst, int src) {
+      for (int p = 0; p < NS; ++p) R.at_slab(p, dst) = R.at_slab(p, src);
+      Cell<C, L> x;
+      ring_get(R, dst, x);
+      PH.at_slab(0, dst) = cell_phase(x);
+    };
+    auto nebb = [&](int dz, bool inlet) {
+      Cell<C, L> x;
+      ring_get(R, dz, x);
+      rewrite(x, P, inlet);
+      ring_put(R, dz, x);
+      PH.at_slab(0, dz) = cell_phase(x);
+    };
+    if (P.inlet == 1 && c.gz == nz - 2) {
+      if (fluid) nebb(0, true);
+      if (fluid_k(1)) copy(1, 0);
+    }
+    if (P.outlet == 1 && c.gz == 0) {
+      for (int k = 2; k >= 0; --k)
+        if (fluid_k(k)) copy(k, k + 1);
+    } else if (P.outlet == 2 && c.gz == 0) {
+      if (fluid_k(1)) nebb(1, false);
+      if (fluid) copy(0, 1);
+    }
+  } else if (kind == kStageExtrap) {
+    if (fluid) return;
+    const RingAt<C> PH = M.ring<C>(c.ring(0), c);
+    PH.at(0) = extrapolated_phi<C>([&](int i) { return fluid_at(ez(i), ey(i), ex(i)); },
+                                   [&](int i) { return PH.at(0, ez(i), ey(i), ex(i)); });
+  } else if (kind == kStageNormal) {
+    const RingAt<C> PH = M.ring<C>(c.ring(0), c), GN = M.ring<C>(c.ring(1), c);
+    C g[3], nv[3];
+    phi_gradient<C>([&](int i) { return PH.at(0, ez(i), ey(i), ex(i)); }, g);
+    if (P.has_wetting && geo[gidx] > C(1.5)) {
+      const C ns[3] = {geo[n + gidx], geo[2 * n + gidx], geo[3 * n + gidx]};
+      rotate_akai(g, ns, P);
+    }
+    inward_normal(g, fluid ? C(1) : C(0), nv);
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      GN.at(d) = g[d];
+      GN.at(3 + d) = nv[d];
+    }
+  } else if (kind == kStageCollide) {
+    const RingAt<C> ST = M.ring<C>(c.ring(0), c), PH = M.ring<C>(c.ring(1), c);
+    const RingAt<C> GN = M.ring<C>(c.ring(2), c), PO = M.ring<C>(c.ring(3), c);
+    // post_i and its red part red_part(i, post_i, frac, A, B, Cz), the
+    // value the stream stage carries to the cell the population reaches
+    C post[Q], red[Q];
+    if (fluid) {
+      const C nh[3] = {GN.at(3), GN.at(4), GN.at(5)};
+      const C kappa = curvature_of(
+          [&](int i, int b) { return GN.at(3 + b, ez(i), ey(i), ex(i)); }, nh);
+      Cell<C, L> x;
+      ring_get(ST, 0, x);
+      const C g[3] = {GN.at(0), GN.at(1), GN.at(2)};
+      C frac, A, Bv, Cz;
+      collide_core(x, PH.at(0), g, kappa, P, post, frac, A, Bv, Cz);
+#pragma unroll
+      for (int i = 0; i < Q; ++i) red[i] = red_part(i, post[i], frac, A, Bv, Cz);
+    } else {
+#pragma unroll
+      for (int i = 0; i < Q; ++i) post[i] = red[i] = C(0);
+    }
+#pragma unroll
+    for (int i = 0; i < Q; ++i) {
+      PO.at(i) = post[i];
+      PO.at(Q + i) = red[i];
+    }
+  } else if (kind == kStageStream) {
+    const RingAt<C> PO = M.ring<C>(c.ring(0), c);
+    // o: the streamed total PDF; red: its red part (the blue part is
+    // o - red)
+    C o[Q], red[Q];
+    C rr = C(0);
+    if (fluid) {
+      // the upwind cell x - e_i of each direction, or the cell itself with
+      // the opposite population where that is solid (half-way bounce-back)
+      int src[Q];
+#pragma unroll
+      for (int i = 0; i < Q; ++i)
+        src[i] = fluid_at(-ez(i), -ey(i), -ex(i)) ? PO.cell(-ez(i), -ey(i), -ex(i)) : -1;
+      const size_t ps = PO.stride;
+#pragma unroll
+      for (int i = 0; i < Q; ++i) {
+        const int j = src[i] < 0 ? opp(i) : i;
+        const C* p = PO.base + (src[i] < 0 ? PO.cell(0, 0, 0) : src[i]);
+        o[i] = p[j * ps];
+        red[i] = p[(Q + j) * ps];
+        rr = rr + red[i];
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < Q; ++i) o[i] = red[i] = C(0);
+    }
+    if (c.ring(1) < 0) {
+      if constexpr (L == kSplit) {
+#pragma unroll
+        for (int i = 0; i < Q; ++i) {
+          s_out[i * n + gidx] = red[i];
+          s2_out[i * n + gidx] = o[i] - red[i];
+        }
+      } else {
+        Cell<C, kCompressed> x;
+#pragma unroll
+        for (int i = 0; i < Q; ++i) x.f[i] = o[i];
+        x.rr = rr;
+        encode<S, kCompressed>(s_out, n, gidx, fluid ? C(1) : C(0), x);
+      }
+    } else {
+      Cell<C, L> x;
+      if constexpr (L == kSplit) {
+#pragma unroll
+        for (int i = 0; i < Q; ++i) {
+          x.r[i] = red[i];
+          x.b[i] = o[i] - red[i];
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < Q; ++i) x.f[i] = o[i];
+        x.rr = rr;
+      }
+      ring_put(M.ring<C>(c.ring(1), c), 0, x);
+      M.ring<C>(c.ring(2), c).at(0) = phase_of(x, fluid);
+    }
+  }
+}
+
+// Resident blocks an SM the march kernel asks ptxas for: in float
+// arithmetic 3 for the compressed layout (80 registers, 36 bytes spilled;
+// at 1 block and up to 185 registers K9-Tc ran 1.5-2.4x slower at 128^3,
+// PERF.md) and 2 for the split one (its 38 state planes spill 0.85 KB at
+// 80 registers), 1 for the f64 check instances.
 template <typename S, int L>
-Cg3dBlockShape cg3d_block_tiling(const Cg3dParams& P, int T) {
-  using C = typename Traits<S>::C;
-  return cg3d_block_shape<L>(P, T, (int)sizeof(C), kGmem3Blocks);
+constexpr int cg3d_march_min_blocks() {
+  return sizeof(typename Traits<S>::C) == 8 ? 1 : (L == kSplit ? 2 : 3);
+}
+
+template <typename S, int L, typename C = typename Traits<S>::C>
+__global__ void __launch_bounds__(kMarchThreads, cg3d_march_min_blocks<S, L>())
+cg3d_march_kernel(const S* __restrict__ s_in, const S* __restrict__ s2_in,
+                  const C* __restrict__ geo, S* __restrict__ s_out, S* __restrict__ s2_out,
+                  Cg3dParams P, const long long* __restrict__ plan,
+                  unsigned char* __restrict__ scratch) {
+  MarchPlan M{plan, scratch, nullptr, nullptr, nullptr};
+  march_run(M, [&](const MarchCell& c) {
+    cg3d_march_cell<S, L>(s_in, s2_in, geo, s_out, s2_out, P, M, c);
+  });
 }
 
 template <typename S, int L>
-int launch_cg3d_block_l(const void* s_in, const void* s2_in, void* s_out, void* s2_out,
-                        const void* geo, void* scratch, const Cg3dParams& P,
-                        const Cg3dBlockShape& B, cudaStream_t st) {
+int launch_cg3d_march_l(const void* s_in, const void* s2_in, void* s_out, void* s2_out,
+                        const void* geo, void* scratch, const void* plan, const Cg3dParams& P,
+                        cudaStream_t st) {
   using C = typename Traits<S>::C;
-  cg3d_block_kernel<S, L><<<B.grid, kBlock3Threads, 0, st>>>(
-      static_cast<const S*>(s_in), static_cast<const S*>(s2_in), static_cast<const C*>(geo),
-      static_cast<S*>(s_out), static_cast<S*>(s2_out), P, B,
-      static_cast<unsigned char*>(scratch));
-  return (int)cudaGetLastError();
+  const S* a = static_cast<const S*>(s_in);
+  const S* b = static_cast<const S*>(s2_in);
+  const C* g = static_cast<const C*>(geo);
+  S* oa = static_cast<S*>(s_out);
+  S* ob = static_cast<S*>(s2_out);
+  const long long* pl = static_cast<const long long*>(plan);
+  unsigned char* sc = static_cast<unsigned char*>(scratch);
+  Cg3dParams p = P;
+  void* args[] = {&a, &b, &g, &oa, &ob, &p, &pl, &sc};
+  return march_launch(cg3d_march_kernel<S, L>, args, st);
 }
 
 // Whether (split, T) names a launch this storage type takes.
@@ -387,54 +323,46 @@ bool cg3d_block_takes(int split, int T) {
   return (split == 0 || split == 1) && T >= 1 && T <= kMaxSteps3;
 }
 
+// T steps a launch on the plan `plan` (device memory) with its rings in
+// `scratch`; split = 0: the compressed state in s_in / s_out, 1: f_r in
+// s_in / s_out and f_b in s2_in / s2_out.
 template <typename S>
-Cg3dBlockShape cg3d_block_shape_of(int split, int T, const Cg3dParams& P) {
-  return split ? cg3d_block_tiling<S, kSplit>(P, T)
-               : cg3d_block_tiling<S, kCompressed>(P, T);
-}
-
-// T steps a launch; split = 0: the compressed state in s_in / s_out, 1:
-// f_r in s_in / s_out and f_b in s2_in / s2_out.  scratch holds
-// cg3d_block_scratch bytes.
-template <typename S>
-int launch_cg3d_block(int split, int T, const void* s_in, const void* s2_in, void* s_out,
-                      void* s2_out, const void* geo, void* scratch, const Cg3dParams& P,
-                      cudaStream_t st) {
-  if (!cg3d_block_takes<S>(split, T) || scratch == nullptr)
+int launch_cg3d_march(int split, int T, const void* s_in, const void* s2_in, void* s_out,
+                      void* s2_out, const void* geo, void* scratch, const void* plan,
+                      const Cg3dParams& P, cudaStream_t st) {
+  if (!cg3d_block_takes<S>(split, T) || scratch == nullptr || plan == nullptr)
     return (int)cudaErrorInvalidValue;
-  const Cg3dBlockShape B = cg3d_block_shape_of<S>(split, T, P);
   if constexpr (!Traits<S>::kShifted) {
     if (split)
-      return launch_cg3d_block_l<S, kSplit>(s_in, s2_in, s_out, s2_out, geo, scratch, P, B, st);
-  }
-  return launch_cg3d_block_l<S, kCompressed>(s_in, s2_in, s_out, s2_out, geo, scratch, P, B,
+      return launch_cg3d_march_l<S, kSplit>(s_in, s2_in, s_out, s2_out, geo, scratch, plan, P,
                                             st);
+  }
+  return launch_cg3d_march_l<S, kCompressed>(s_in, s2_in, s_out, s2_out, geo, scratch, plan, P,
+                                             st);
+}
+
+template <typename S>
+int cg3d_march_grid_of(int split, int* grid) {
+  if (!cg3d_block_takes<S>(split, 1)) return (int)cudaErrorInvalidValue;
+  if constexpr (!Traits<S>::kShifted) {
+    if (split) return march_grid(cg3d_march_kernel<S, kSplit>, grid);
+  }
+  return march_grid(cg3d_march_kernel<S, kCompressed>, grid);
 }
 
 }  // namespace
 
 // The C entry points of one storage type S (the library's).
 #define CG3D_BLOCK_ENTRY_POINTS(S)                                                          \
-  extern "C" int cg3d_block_step(int split, int T, const void* s_in, const void* s2_in,     \
+  extern "C" int cg3d_march_step(int split, int T, const void* s_in, const void* s2_in,     \
                                  void* s_out, void* s2_out, const void* geo, void* scratch, \
-                                 const Cg3dParams* params, void* stream) {                  \
-    return launch_cg3d_block<S>(split, T, s_in, s2_in, s_out, s2_out, geo, scratch,         \
+                                 const void* plan, const Cg3dParams* params,                \
+                                 void* stream) {                                            \
+    return launch_cg3d_march<S>(split, T, s_in, s2_in, s_out, s2_out, geo, scratch, plan,   \
                                 *params, static_cast<cudaStream_t>(stream));                \
   }                                                                                         \
-  extern "C" long long cg3d_block_scratch_bytes(int split, int T,                           \
-                                                const Cg3dParams* params) {                 \
-    if (!cg3d_block_takes<S>(split, T)) return -1;                                          \
-    const Cg3dBlockShape B = cg3d_block_shape_of<S>(split, T, *params);                     \
-    return (long long)B.grid * (long long)B.win_bytes;                                      \
-  }                                                                                         \
-  extern "C" int cg3d_block_shape(int split, int T, const Cg3dParams* params,               \
-                                  long long* shape) {                                       \
-    if (!cg3d_block_takes<S>(split, T)) return (int)cudaErrorInvalidValue;                  \
-    const Cg3dBlockShape B = cg3d_block_shape_of<S>(split, T, *params);                     \
-    const long long v[8] = {B.tx, B.ty, B.tz, B.hx, B.hzlo, B.hzhi, B.grid,                 \
-                            (long long)B.win_bytes};                                        \
-    for (int i = 0; i < 8; ++i) shape[i] = v[i];                                            \
-    return 0;                                                                               \
+  extern "C" int cg3d_march_grid(int split, int* grid) {                                    \
+    return cg3d_march_grid_of<S>(split, grid);                                              \
   }                                                                                         \
   extern "C" const char* cg3d_block_error_string(int code) {                                \
     return cudaGetErrorString(static_cast<cudaError_t>(code));                              \

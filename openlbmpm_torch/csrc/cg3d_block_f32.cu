@@ -2,13 +2,13 @@
 // f32 storage.  The C entry points; the design note and the device
 // code are in cg3d_block.cuh.
 //
-// cg3d_block_step(split, T, s_in, s2_in, s_out, s2_out, geo, scratch,
-// params, stream): T steps of the compressed state (split = 0, s_in ->
-// s_out) or of the split state (split = 1: f_r in s_in -> s_out, f_b in
-// s2_in -> s2_out); geo the (4, nz, ny, nx) geometry planes; scratch holds cg3d_block_scratch_bytes bytes.  Returns
-// a cudaError_t code (0 on success).  cg3d_block_shape fills shape[8]: tx,
-// ty, tz, the x / y halo, the z halo below and above, the blocks launched
-// and one window's bytes.
+// cg3d_march_step(split, T, s_in, s2_in, s_out, s2_out, geo, scratch,
+// plan, params, stream): T steps of the compressed state (split = 0,
+// s_in -> s_out) or of the split state (split = 1: f_r in s_in -> s_out,
+// f_b in s2_in -> s2_out); geo the (4, nz, ny, nx) geometry planes, plan
+// the device int64 table of kernels/march3d.py::cg3d_march_plan, scratch
+// its rings.  Returns a cudaError_t code (0 on success).
+// cg3d_march_grid(split, &grid) gives the cooperative grid.
 
 #include "cg3d_block.cuh"
 

@@ -34,8 +34,10 @@ the boundary slabs applied inside the window before every sub-step) are
 ``cg3d_block_compressed(s, model, steps)`` (K9-Tc on f32 / f64, K9-Th on
 the bf16 state, decoded once and encoded once) and
 ``cg3d_block_split((f_r, f_b), model, steps)`` (K9-Ts): one launch of
-``csrc/cg3d_block_{f64,f32,bf16}.cu`` (``csrc/cg3d_block.cuh``) advances T
-steps; T is at most ``MAX_BLOCK_STEPS``.
+``csrc/cg3d_block_{f64,f32,bf16}.cu`` (``csrc/cg3d_block.cuh``: the
+pipelined z-march of ``csrc/march3d.cuh`` on the plan of
+``kernels/march3d.py::cg3d_march_plan``) advances T steps; T is at most
+``MAX_BLOCK_STEPS``.
 
 The local form (K12d: one shard of a z- or (z, y)-decomposed domain, the
 counterpart of ``pallas/cg3d.py::build_cg3d_sharded_step``) is
@@ -56,6 +58,7 @@ from ..geometry import Geometry, wetting_masks_nd
 from ..lattice import D3Q19
 from ..parallel.mesh import embed_local, take_centre
 from . import build
+from . import march3d
 
 __all__ = ["LIBRARIES", "Cg3dParams", "Tracer3dParams", "geo_stack3",
            "kernel_params", "tracer3d_params", "tracer3d_table",
@@ -424,36 +427,41 @@ _BLOCK_LIBS = {torch.float64: "cg3d_block_f64",
                torch.float32: "cg3d_block_f32",
                torch.bfloat16: "cg3d_block_bf16"}
 BLOCK_LIBRARIES = tuple(_BLOCK_LIBS.values())
-MAX_BLOCK_STEPS = 8    # csrc/block3d.cuh::kMaxSteps3
-_BLOCK_TILING_KEYS = ("tx", "ty", "tz", "hx", "hzlo", "hzhi", "grid",
-                      "window_bytes")
+MAX_BLOCK_STEPS = 8    # csrc/cg3d_block.cuh::kMaxSteps3
 
 
-def _block_fns(lib: str):
-    """(step, scratch_bytes, shape, error_string) of a K9-T library: ints
-    (split, T), pointers (s, s2, out, out2, geo, scratch)."""
-    return build.block_fns(lib, "cg3d", 2, 6, Cg3dParams)
+def _march_plan(params: Cg3dParams, dtype, split: bool, steps: int,
+                device="cuda"):
+    """K9-T's plan for `params` and a state of `dtype` (its compute type's
+    item size) in the split layout or not, built once a process a
+    configuration: (plan, its table on `device`)."""
+    itemsize = 8 if dtype == torch.float64 else 4
+    shape = (params.nz, params.ny, params.nx)
+    key = ("cg3d", shape, steps, itemsize, bool(split), params.inlet,
+           params.outlet, bool(params.has_wetting))
+    return march3d.device_plan(key, lambda: march3d.cg3d_march_plan(
+        shape, steps, itemsize, bool(split), params.inlet, params.outlet,
+        bool(params.has_wetting)), device)
 
 
 def cg3d_block_tiling(dtype, split: bool, params: Cg3dParams,
                       steps: int) -> dict:
-    """How a K9-T launch of `steps` steps tiles the domain of `params` for a
-    state of `dtype` (the split layout if `split`): the brick (tx, ty, tz),
-    the halo on each x and y side (hx) and below and above in z (hzlo,
-    hzhi), the blocks launched and one window's bytes (the windows live in
-    global scratch)."""
-    lib = _BLOCK_LIBS[dtype]
-    return build.block_tiling(lib, _block_fns(lib),
-                              (int(split), steps), params,
-                              _BLOCK_TILING_KEYS)
+    """How a K9-T launch of `steps` steps covers the domain of `params` for
+    a state of `dtype` (the split layout if `split`): its march plan's
+    levels, lag (slabs a level trails the one before), slabs a wave, bands,
+    band rows and halo rows, ring slabs of level 0's arrays, scratch bytes,
+    waves and stages, and the cooperative grid (blocks)."""
+    plan, _ = _march_plan(params, dtype, split, steps)
+    return plan.fields() | {"grid": march3d.march_grid(
+        _BLOCK_LIBS[dtype], "cg3d", 2, 5, Cg3dParams, int(split))}
 
 
 def launch_cg3d_block(state, params: Cg3dParams, geo: torch.Tensor,
                       steps: int):
-    """`steps` kernel steps (one launch) of a CUDA state: the compressed
-    tensor (as ``launch_cg3d`` takes it) or the split pair (f_r, f_b) (as
-    ``launch_cg3d_split``).  Returns the state in
-    the same form.  Not counted as a launch."""
+    """`steps` kernel steps (one launch: the z-march on ``cg3d_march_plan``'s
+    plan) of a CUDA state: the compressed tensor (as ``launch_cg3d`` takes
+    it) or the split pair (f_r, f_b) (as ``launch_cg3d_split``).  Returns
+    the state in the same form.  Not counted as a launch."""
     build.check_steps(steps)
     if steps > MAX_BLOCK_STEPS:
         raise ValueError(f"steps {steps}: the kernel takes at most "
@@ -478,9 +486,9 @@ def launch_cg3d_block(state, params: Cg3dParams, geo: torch.Tensor,
         a = state.contiguous()
         out = torch.empty_like(a)
         tensors = (a, None, out, None, geo)
-    lib = _BLOCK_LIBS[a.dtype]
-    build.launch_block(lib, _block_fns(lib), (int(split), steps),
-                       tensors, params)
+    plan, table = _march_plan(params, a.dtype, split, steps, a.device)
+    march3d.march_launch(_BLOCK_LIBS[a.dtype], "cg3d", (int(split), steps),
+                         tensors, plan, table, params)
     return out
 
 

@@ -25,9 +25,12 @@ kernel or raise.
 The T-step forms (K11-T, K10-T: ``steps_per_call`` = T > 1 of the same TPU
 kernels) are ``single3d_block_step(f, model, steps)`` and
 ``sc3d_block_step(f, model, steps)``: one launch of
-``csrc/flow3d_block_{f64,f32,bf16}.cu`` (``csrc/flow3d_block.cuh``, the
-window machinery of ``csrc/block3d.cuh``) advances T steps, a bf16 state
-decoded once and encoded once; T is at most ``MAX_BLOCK_STEPS``.
+``csrc/flow3d_block_{f64,f32,bf16}.cu`` (``csrc/flow3d_block.cuh``) advances
+T steps, a bf16 state decoded once and encoded once; T is at most
+``MAX_BLOCK_STEPS``.  K11-T runs bricks with windows (``csrc/block3d.cuh``);
+K10-T the pipelined z-march of ``csrc/march3d.cuh`` on the plan of
+``kernels/march3d.py::sc3d_march_plan``, which the wrapper builds once a
+shape and hands to the kernel with a scratch buffer for its rings.
 
 The local form of K10 (K12e: one shard of a z-decomposed domain, the
 counterpart of ``pallas/sc3d.py::build_sc3d_sharded_step``) is
@@ -46,6 +49,7 @@ import torch
 from ..geometry import Geometry
 from ..lattice import D3Q19
 from . import build
+from . import march3d
 
 __all__ = ["LIBRARIES", "KMAX", "RT_LIBRARY", "Flow3dParams",
            "geo_stack_sc3", "single3d_params", "sc3d_params", "sc3d_table",
@@ -307,29 +311,49 @@ _BLOCK_LIBS = {torch.float64: "flow3d_block_f64",
                torch.float32: "flow3d_block_f32",
                torch.bfloat16: "flow3d_block_bf16"}
 BLOCK_LIBRARIES = tuple(_BLOCK_LIBS.values())
-MAX_BLOCK_STEPS = 8    # csrc/block3d.cuh::kMaxSteps3
+MAX_BLOCK_STEPS = 8    # csrc/block3d.cuh::kMaxSteps3 (K11-T, K10-T)
 _KIND = {"single": 0, "sc": 1}
 _TILING_KEYS = ("tx", "ty", "tz", "halo", "gmem", "grid", "window_bytes",
                 "max_steps")
 
 
 def _block_fns(lib: str):
-    """(step, scratch_bytes, shape, error_string) of a K11-T / K10-T
-    library: ints (kind, T), pointers (f, out, fluid, scratch)."""
+    """(step, scratch_bytes, shape, error_string) of K11-T's entry points
+    in a flow3d_block library: ints (kind, T), pointers (f, out, fluid,
+    scratch)."""
     return build.block_fns(lib, "flow3d", 2, 4, Flow3dParams)
+
+
+def _march_plan(params: Flow3dParams, dtype, steps: int, device="cuda"):
+    """K10-T's plan for `params` and a state of `dtype` (its compute type's
+    item size), built once a process a shape: (plan, its table on
+    `device`)."""
+    itemsize = 8 if dtype == torch.float64 else 4
+    shape = (params.nz, params.ny, params.nx)
+    key = ("sc3d", shape, params.k, steps, itemsize)
+    return march3d.device_plan(key, lambda: march3d.sc3d_march_plan(
+        shape, params.k, steps, itemsize), device)
 
 
 def flow3d_block_tiling(dtype, kind: str, params: Flow3dParams,
                         steps: int) -> dict:
-    """How a K11-T (`kind` "single") or K10-T ("sc") launch of `steps` steps
-    tiles the domain of `params` for a state of `dtype`: the brick (tx, ty,
-    tz), the halo on every side, whether the windows live in global scratch
-    (gmem), the blocks launched, one window's bytes and the largest T.  The
-    runtime-K instance (above KMAX fluids) has no tiling."""
+    """How a K11-T (`kind` "single") or K10-T ("sc") launch of `steps`
+    steps covers the domain of `params` for a state of `dtype`.  K11-T: the
+    brick (tx, ty, tz), the halo on every side, whether the windows live in
+    global scratch (gmem), the blocks launched, one window's bytes and the
+    largest T.  K10-T: its march plan's levels, lag (slabs a level trails
+    the one before), slabs a wave, bands, band rows and halo rows, ring
+    slabs of level 0's arrays, scratch bytes, waves and stages, and the
+    cooperative grid (blocks).  The runtime-K instance (above KMAX fluids)
+    has no tiling."""
     if kind == "sc" and params.k > KMAX:
         raise ValueError(f"{params.k} fluids run the runtime-K instance, "
-                         "which has no window tiling")
+                         "which has no tiling")
     lib = _BLOCK_LIBS[dtype]
+    if kind == "sc":
+        plan, _ = _march_plan(params, dtype, steps)
+        return plan.fields() | {"grid": march3d.march_grid(
+            lib, "sc3d", 1, 3, Flow3dParams, params.k)}
     return build.block_tiling(lib, _block_fns(lib), (_KIND[kind], steps),
                               params, _TILING_KEYS)
 
@@ -339,9 +363,9 @@ def launch_flow3d_block(f: torch.Tensor, params: Flow3dParams,
                         table: torch.Tensor | None = None) -> torch.Tensor:
     """`steps` kernel steps (one call) of the CUDA state `f`: K11-T (`kind`
     "single", as ``launch_single3d`` takes it) or K10-T ("sc", as
-    ``launch_sc3d``; above KMAX fluids the runtime-K instance on `table`,
-    which runs the steps one after another in the compute type, decoding
-    once and encoding once).  Not counted as a launch."""
+    ``launch_sc3d``: the z-march on ``sc3d_march_plan``'s plan; above KMAX fluids the runtime-K instance on `table`, which runs the
+    steps one after another in the compute type, decoding once and encoding
+    once).  Not counted as a launch."""
     grid = (params.nz, params.ny, params.nx)
     lead = () if kind == "single" else (params.k,)
     _check(f, (*lead, _planes(f), *grid), fluid, params)
@@ -354,6 +378,11 @@ def launch_flow3d_block(f: torch.Tensor, params: Flow3dParams,
     f = f.contiguous()
     out = torch.empty_like(f)
     lib = _BLOCK_LIBS[f.dtype]
+    if kind == "sc":
+        plan, table = _march_plan(params, f.dtype, steps, f.device)
+        march3d.march_launch(lib, "sc3d", (steps,), (f, out, fluid), plan,
+                             table, params)
+        return out
     build.launch_block(lib, _block_fns(lib), (_KIND[kind], steps),
                        (f, out, fluid), params)
     return out

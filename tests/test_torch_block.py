@@ -318,15 +318,16 @@ def test_cli_blocked_run_equals_block_1(tmp_path, monkeypatch):
 @pytest.mark.parametrize("case", ["K3 bc once", "K8-T local row",
                                   "K7-T bc once", "K4 diag f32",
                                   "K5c-T window rows", "K11-T swap once",
-                                  "K10-T rho shell", "K9-T window z",
+                                  "K10-T seam skipped", "K9-T march z",
                                   "K8 rt tau"])
 def test_chip_faults_patches_one_line(case):
     """chip_faults.py plants its T-step faults (K3's rows rewritten before
     the first sub-step only, K8-T's outlet row picked by window row, K7-T's
     rows after the first sub-step only, K5c-T's tracer rows mapped without
     the window's offset, K11-T streaming in the first sub-step only, K10-T's
-    rho_k stale on the window's outer shell, K9-T's boundary slabs picked
-    by window z), the runtime-K Shan-Chen fault (every fluid's common
+    z-march skipping the slabs it recomputes below the periodic seam,
+    K9-T's march picking the inlet slabs by its unwrapped slab), the
+    runtime-K Shan-Chen fault (every fluid's common
     velocity weighted by fluid 0's 1/tau) and the K4 fault, which moved with
     the Perturbation device code to csrc/pert2d.cuh, by replacing one line
     that must stay there exactly once; each T-step or runtime-K fault is

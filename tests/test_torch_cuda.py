@@ -880,6 +880,39 @@ def test_k9t_matches_t_plain_steps_f64(cuda, case, layout, t):
                 tuple(b) if layout == "split" else b) <= 1e-11
 
 
+@pytest.mark.parametrize("t", [2, 4])
+@pytest.mark.parametrize("case", ["k1_walls_force", "k3",
+                                  "velocity_convective compressed",
+                                  "velocity_dirichlet split",
+                                  "grain_pack compressed"])
+def test_march_in_y_bands_matches_t_plain_steps_f64(cuda, case, t):
+    """K10-T (K = 1, 3) and K9-T on a plan in three y-bands whose last
+    overhangs ny (``chip_smoke.banded_march``, launched by
+    ``chip_smoke.march_call``) against T plain steps at f64, two calls:
+    <= 1e-11."""
+    from chip_smoke import banded_march, block_sc3d_case, march_call
+    from openlbmpm_torch.kernels import cg3d as k9
+    from openlbmpm_torch.kernels import flow3d as kf
+    name, *layout = case.split()
+    if not layout:
+        m, x0 = block_sc3d_case(name, cuda)
+        plan, table = banded_march(m, t)
+        plain = kf.sc3d_block_step_reference
+    else:
+        m, st = cg3d_case(name, cuda, shape=(32,) * 3 if name == "grain_pack"
+                          else (48, 40, 32))
+        split = layout[0] == "split"
+        x0 = st if split else m.pack_state(*st)
+        plan, table = banded_march(m, t, split)
+        plain = (k9.cg3d_block_split_reference if split
+                 else k9.cg3d_block_compressed_reference)
+    a, b = x0, x0
+    for _ in range(2):
+        a, b = march_call(a, m, t, plan, table), plain(b, m, t)
+    assert _gap(tuple(a) if layout == ["split"] else a,
+                tuple(b) if layout == ["split"] else b) <= 1e-11
+
+
 def test_k9t_counts_one_launch_per_call_and_bf16(cuda):
     """``make_block_step(T)`` launches K9-T once a call on the three
     layouts; the bf16 form decodes once and encodes once, within K9h's bf16
