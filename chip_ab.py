@@ -2,7 +2,7 @@
 """Time the single-device kernels of this checkout against those of another
 checkout of the repository, in turns on one card.
 
-    python3 chip_ab.py OTHER_DIR [ROUNDS] [3d|2d|3dT]
+    python3 chip_ab.py OTHER_DIR [ROUNDS] [3d|2d|3dT|2dT]
 
 Run from the repository root on a machine with a CUDA card and nvcc.
 OTHER_DIR holds another checkout (e.g. the parent commit, unpacked with
@@ -16,7 +16,10 @@ bench_all.py's configs 2 and 3 at 1024^2 in f32, and of K8 with four
 fluids (the runtime-K instance) at 1024^2; "3dT" ms a time step of the 3-D
 T-step kernels at 128^3: K10-T (probe_sc3d) in f32 and bf16 and K9-Tc,
 K9-Th and K9-Ts (configuration 5) at T = 2 and 4, and K11-T (basic3d) at
-T = 4.  The turns go
+T = 4; "2dT" ms a time step of the 2-D colour-gradient T-step kernels at
+1024^2, the models of chip_smoke.py's phases 49 and 55: K3c, K3h and K3s
+(the CSF flagship) and K5c-Tc, K5c-Th and K5c-Ts (configuration 4) at T = 2
+and 4.  The turns go
 other, this, this, other (ROUNDS times, default 1), so that a drift of the
 card's clock shows in both.  Prints one JSON line a turn, then one with
 each kernel's median over the turns of each checkout.
@@ -106,7 +109,33 @@ out["K11-T T=4"] = cs._time_steps(
     dev) / 4
 print(json.dumps({k: v * 1e3 for k, v in out.items()}))
 """
-TURNS = {"3d": TURN, "2d": TURN_2D, "3dT": TURN_3DT}
+TURN_2DT = r"""
+import json, sys, torch
+import chip_smoke as cs
+from openlbmpm_torch.kernels import build
+build.load_libraries(("csf2d_block_f32", "csf2d_block_bf16",
+                      "coupled2d_block_f32", "coupled2d_block_bf16"))
+dev = torch.device("cuda", 0)
+out = {}
+for (label, family, key, m, x, step1, kern, plain, cells,
+     flops) in cs.block_speed_cases(dev):
+    if not label.endswith("CSF"):
+        break
+    for t in (2, 4):
+        out[f"{label.split()[0]} T={t}"] = cs._time_steps(
+            lambda y: kern(y, m, t), x, max(200 // t, 10), dev) / t
+    del m, x
+for (label, family, key, m, x, step1, kern, plain,
+     cells) in cs.block3_speed_cases(dev):
+    if family != "K5c-T":
+        break
+    for t in (2, 4):
+        out[f"{label} T={t}"] = cs._time_steps(
+            lambda y: kern(y, m, t), x, max(100 // t, 10), dev) / t
+    del m, x
+print(json.dumps({k: v * 1e3 for k, v in out.items()}))
+"""
+TURNS = {"3d": TURN, "2d": TURN_2D, "3dT": TURN_3DT, "2dT": TURN_2DT}
 
 
 def turn(where: Path, family: str = "3d") -> dict:

@@ -6,14 +6,17 @@ phase 26 (benchmarks/probe_coupled3d.py's configuration at 128^3), the
 single-phase D2Q9 kernel (K7) under phase 31 (the analytic Poiseuille
 profile), the D3Q19 Shan-Chen kernel (K10) under phase 37
 (benchmarks/probe_sc3d.py's configuration) and the Perturbation kernel
-(K4) under phase 41 (the pert flagship at 1024^2); seven faults that
-only the T-step kernels can show: the colour-gradient K3 under phase 48
-(the flagships at 1024^2 in f32), the Shan-Chen K8-T under phase 46, the
+(K4) under phase 41 (the pert flagship at 1024^2); nine faults that
+only the T-step kernels can show: the colour-gradient K3's row-march under
+phase 48 (the flagships at 1024^2 in f32) and phase 45 (its f64 cases),
+the Shan-Chen K8-T under phase 46, the
 single-phase K7-T under phase 47, the coupled K5c-T under phase 52, the
-D3Q19 K11-T and K10-T under phase 53 and the D3Q19 CSF K9-T under phase 60
-(their f64 cases), each while the T=1 phases of the same family (4 and
-41, 15, 29, 6 and 11, 33, 36, 20 and 21) pass; and one in the runtime-K
-Shan-Chen instance under phase 58 (four fluids) while phase 15 passes.
+D3Q19 K11-T and K10-T under phase 53, the D3Q19 CSF K9-T under phase 60
+(their f64 cases) and K10-T's launch limit under phase 72 (T-step calls
+past a launch's limit), each while the T=1 phases of the same family (4
+and 41, 15, 29, 6 and 11, 33, 36, 20 and 21) or its T <= 4 phase pass;
+and one in the runtime-K Shan-Chen instance under phase 58 (four fluids)
+while phase 15 passes.
 
     python3 chip_faults.py [case ...]
 
@@ -37,29 +40,35 @@ drops the adhesion term, which only wall-adjacent cells carry, in the
 float-arithmetic instances (f32 and bf16 storage: the shared collision
 knows only its compute type); the K4 fault drops the 1/sqrt(2) of the diagonal recolouring
 segment in the float-arithmetic instances (K4c f32, K4h, K4s f32; the
-Perturbation K3 shares the line).  The T-step faults: K3 rewrites the
-boundary rows before the first sub-step of a call only, in its f32
-instances; K8-T selects the Zou-He outlet row by window row instead of
-global row, in its f64 instance; K7-T rewrites the rows after the first
-sub-step only, in its f64 instance; K5c-T maps the tracer's window rows
-to global rows without the window's offset (its inlet and outlet rows land
-on the wrong rows), K11-T streams in the first sub-step only, K10-T's
-z-march skips the slabs it recomputes below the periodic seam (u < 0), and
-K9-T's march picks the inlet's boundary slabs by its unwrapped slab
-instead of the domain's (the recomputed copy of slab nz - 2 below the
-seam misses its rewrite), each in its f64 instance, the runtime-K K8 gives every fluid fluid 0's 1/tau in the
-common velocity, in f64 arithmetic, the local form of K3 (K12a, the
-sharded colour-gradient step) maps its window rows to global rows one row
-off, in its f64 instance, the local form of K9 (K12d, the sharded D3Q19 CSF
-step) writes the boundary slabs one buffer slab off their global index, and
-the local form of K10 (K12e, the sharded D3Q19 Shan-Chen step) computes
-rho one slab short of a sub-step's reach, and the local form of K8-T
-(K12c, the sharded 2-D Shan-Chen step) finds its inlet band one global row
-off, each in its f64 instance:
+Perturbation K3 shares the line). The T-step faults: K3's row-march
+rewrites the boundary rows of level 0 only (not before the later steps of
+a call), in its f32 instances, or picks the inlet's trigger row by its
+unwrapped row instead of the domain's (the copy of row ny - 2 recomputed
+below the seam misses its rewrite), in its f64 instance; K8-T selects the
+Zou-He outlet row by window row instead of global row, in its f64
+instance; K7-T rewrites the rows after the first sub-step only, in its f64
+instance; K5c-T's row-march maps the tracer stream's unwrapped rows to
+global rows without the wrap (the tracer's inlet and outlet rows
+recomputed across the seam are missed), K11-T streams in the first
+sub-step only, K10-T's z-march skips the slabs it recomputes below the
+periodic seam (u < 0), and K9-T's march picks the inlet's boundary slabs
+by its unwrapped slab instead of the domain's (the recomputed copy of slab
+nz - 2 below the seam misses its rewrite), K10-T's library states a launch
+limit of twice kMaxSteps3 (the wrapper then no longer splits a call of 10
+or 16 steps, which the launcher refuses), each in its f64 instance, the
+runtime-K K8 gives every fluid fluid 0's 1/tau in the common velocity, in
+f64 arithmetic, the local form of K3 (K12a, the sharded colour-gradient
+step) maps its window rows to global rows one row off, in its f64
+instance, the local form of K9 (K12d, the sharded D3Q19 CSF step) writes
+the boundary slabs one buffer slab off their global index, and the local
+form of K10 (K12e, the sharded D3Q19 Shan-Chen step) computes rho one slab
+short of a sub-step's reach, and the local form of K8-T (K12c, the sharded
+2-D Shan-Chen step) finds its inlet band one global row off, each in its
+f64 instance:
 
   none           the sources as they are: phases 4, 6, 11, 15, 20, 21,
                  26, 29, 31, 33, 36, 37, 41, 45-48, 52, 53, 58, 60, 63,
-                 67, 68, 70 must pass;
+                 67, 68, 70, 72 must pass;
   f32            cg3d.cuh, float32 storage (K9c f32, K9s f32): phase 21;
   bf16           cg3d.cuh, bfloat16 storage (K9h): phase 21;
   tracer f32     cg3d.cuh, float32 storage (K9t f32): phase 26;
@@ -67,13 +76,15 @@ off, each in its f64 instance:
   K10 adh f32    flow3d.cuh, float arithmetic (f32, bf16): phase 37 must
                  fail;
   K4 diag f32    pert2d.cuh, float arithmetic: phase 41 must fail;
-  K3 bc once     csf2d_block.cuh, float32 storage: phase 48 must fail,
+  K3 bc once     march2d.cuh, float32 storage: phase 48 must fail,
+                 phases 4 and 41 (K1, K4) pass;
+  K3 march trigger   march2d.cuh, float64 storage: phase 45 must fail,
                  phases 4 and 41 (K1, K4) pass;
   K8-T local row sc2d_block.cuh, float64 storage: phase 46 must fail,
                  phase 15 (K8) passes;
   K7-T bc once   single2d_block.cuh, float64 storage: phase 47 must fail,
                  phase 29 (K7) passes;
-  K5c-T window rows  coupled2d_block.cuh, float64 storage: phase 52 must
+  K5c-T window rows  march2d.cuh, float64 arithmetic: phase 52 must
                  fail, phases 6 and 11 (K5c, K5s) pass;
   K11-T swap once    flow3d_block.cuh, float64 storage: phase 53 must
                  fail, phase 33 (K11) passes;
@@ -81,6 +92,8 @@ off, each in its f64 instance:
                  fail, phase 36 (K10) passes;
   K9-T march z   cg3d_block.cuh, float64 storage: phase 60 must fail,
                  phases 20 and 21 (K9) pass;
+  K10-T limit raise  flow3d_block.cuh, float64 storage: phase 72 must
+                 fail, phase 53 (K11-T, K10-T at T <= 4) passes;
   K8 rt tau      sc2d_rt.cuh, float64 arithmetic: phase 58 must fail,
                  phase 15 (K8, K <= 3) passes;
   K12 row0       csf2d_block.cuh, the local instances, float64 storage:
@@ -127,15 +140,22 @@ K10_FAULT = ("    const C force = -rho * (gv + C(gs) * "
 K4_LINE = "      cos_t = eg / norm / C(i < 5 ? 1.0 : kSqrt2);"
 K4_FAULT = ("      cos_t = eg / norm / C(i < 5 || sizeof(C) == {size} ? "
             "1.0 : kSqrt2);")
-K3_LINE = "      window_bc_rows<C, L>(W, PL, FL, shrunk(B, e0), wx, wy, oy, P);"
-K3_FAULT = ("      if (sub == 0 || sizeof(S) != {size}) "
-            "window_bc_rows<C, L>(W, PL, FL, shrunk(B, e0), wx, wy, oy, P);")
+K3_LINE = "  } else if (kind == kStageBc) {"
+K3_FAULT = ("  }} else if (kind == kStageBc && (c.stage[1] == 0 || "
+            "sizeof(S) != {size})) {{")
+K3M_LINE = "    if (P.inlet != 0 && c.gz == ny - 2) {"
+K3M_FAULT = ("    if (P.inlet != 0 && (sizeof(S) == {size} ? c.u : c.gz) == "
+             "ny - 2) {{")
+K10L_LINE = ("    return kind == 0 || kind == 1 ? kMaxSteps3 : 0;"
+             "                                         \\")
+K10L_FAULT = ("    return kind == 0 || kind == 1 ? (sizeof(S) == {size} ? 2 : "
+              "1) * kMaxSteps3 : 0; \\")
 K8T_LINE = "              if (wrap(oy + ly, ny) == d && FL[c]) {"
 K8T_FAULT = ("              if ((sizeof(S) == {size} ? ly : wrap(oy + ly, ny)) "
              "== d && FL[c]) {{")
-K5CT_LINE = "    const WindowView<C> view{GP, FL, DOM, PL, wx, wy, oy, ny};"
-K5CT_FAULT = ("    const WindowView<C> view{{GP, FL, DOM, PL, wx, wy, "
-              "sizeof(S) == {size} ? 0 : oy, ny}};")
+K5CT_LINE = "  __device__ int row(int y) const { return mwrap(y, ny); }"
+K5CT_FAULT = ("  __device__ int row(int y) const {{ return "
+              "sizeof(C) == {size} ? y : mwrap(y, ny); }}")
 K11T_LINE = "      swap_stream(W, PL, K, FL, r);"
 K11T_FAULT = ("      if (sub == 0 || MODE == kShanChen || sizeof(S) != {size}) "
               "swap_stream(W, PL, K, FL, r);")
@@ -172,13 +192,15 @@ CASES = {
     "K10 adh f32": ("flow3d.cuh", K10_LINE, K10_FAULT.format(size=4),
                     ("37",)),
     "K4 diag f32": ("pert2d.cuh", K4_LINE, K4_FAULT.format(size=4), ("41",)),
-    "K3 bc once": ("csf2d_block.cuh", K3_LINE, K3_FAULT.format(size=4),
+    "K3 bc once": ("march2d.cuh", K3_LINE, K3_FAULT.format(size=4),
                    ("48",)),
+    "K3 march trigger": ("march2d.cuh", K3M_LINE, K3M_FAULT.format(size=8),
+                         ("45",)),
     "K8-T local row": ("sc2d_block.cuh", K8T_LINE, K8T_FAULT.format(size=8),
                        ("46",)),
     "K7-T bc once": ("single2d_block.cuh", K7T_LINE,
                      K7T_FAULT.format(size=8), ("47",)),
-    "K5c-T window rows": ("coupled2d_block.cuh", K5CT_LINE,
+    "K5c-T window rows": ("march2d.cuh", K5CT_LINE,
                           K5CT_FAULT.format(size=8), ("52",)),
     "K11-T swap once": ("flow3d_block.cuh", K11T_LINE,
                         K11T_FAULT.format(size=8), ("53",)),
@@ -186,6 +208,8 @@ CASES = {
                            K10T_FAULT.format(size=8), ("53",)),
     "K9-T march z": ("cg3d_block.cuh", K9T_LINE, K9T_FAULT.format(size=8),
                      ("60",)),
+    "K10-T limit raise": ("flow3d_block.cuh", K10L_LINE,
+                          K10L_FAULT.format(size=8), ("72",)),
     "K8 rt tau": ("sc2d_rt.cuh", K8RT_LINE, K8RT_FAULT.format(size=8),
                   ("58",)),
     "K12 row0": ("csf2d_block.cuh", K12_LINE, K12_FAULT.format(size=8),
@@ -199,7 +223,8 @@ CASES = {
 }
 # name -> the T=1 phases of the same family that must pass the T-step
 # faults (the T=1 kernels do not run the changed line)
-MUST_PASS = {"K3 bc once": ("4", "41"), "K8-T local row": ("15",),
+MUST_PASS = {"K3 bc once": ("4", "41"), "K3 march trigger": ("4", "41"),
+             "K10-T limit raise": ("53",), "K8-T local row": ("15",),
              "K7-T bc once": ("29",), "K5c-T window rows": ("6", "11"),
              "K11-T swap once": ("33",), "K10-T seam skipped": ("36",),
              "K9-T march z": ("20", "21"), "K8 rt tau": ("15",),
@@ -208,7 +233,7 @@ MUST_PASS = {"K3 bc once": ("4", "41"), "K8-T local row": ("15",),
 # the phases of the unchanged sources
 ALL_PHASES = ("4", "6", "11", "15", "20", "21", "26", "29", "31", "33", "36",
               "37", "41", "45", "46", "47", "48", "52", "53", "58", "60",
-              "63", "67", "68", "70")
+              "63", "67", "68", "70", "72")
 
 RUN = r"""
 import json, sys, torch
@@ -239,6 +264,11 @@ for phase in sys.argv[1:]:
             res = cs.phase_cg3d_f64(device)
             out[phase] = {"max": max(max(v[:2]) for k, v in res.items()
                                      if k != "bf16_ulp")}
+            continue
+        elif phase == "72":
+            res = cs.phase_block_chunked(device)
+            out[phase] = {"max": max(v["err"] for k, v in res.items()
+                                     if isinstance(k, tuple))}
             continue
         elif phase == "58":
             res = cs.phase_sc4(device)

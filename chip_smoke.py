@@ -199,7 +199,9 @@ toolkit (nvcc) and PyTorch built for CUDA; JAX is not needed.  Phases:
      row, on a periodic droplet, two walled channels whose ny (100) is no
      multiple of a tile (the flagship's rows; Dirichlet inlet and
      convective outlet) and, split, the CLI's rk_csf2d.ini at 1044x1024;
-     max |difference| <= 1e-11;
+     max |difference| <= 1e-11 (the CSF variant is the row-march of
+     csrc/march2d.cuh, the Perturbation variant the windows); the line
+     gives the flagship rows' layouts at T = 4;
  46. f64: the T-step Shan-Chen kernel K8-T on every kernel case of
      SC_CASES (100x64), and 47. the T-step single-phase kernel K7-T on
      every case of SINGLE_CASES (100x72), T = 2, 3, 4; <= 1e-11;
@@ -212,9 +214,11 @@ toolkit (nvcc) and PyTorch built for CUDA; JAX is not needed.  Phases:
  49. speed per time step at T = 1 (the T=1 kernel), 2 and 4 (CUDA events;
      device time per launch from ``torch.profiler``), MLUPS, the bound
      per step, launches per step from the counters (1/T), each launch's
-     tiling (tile, window bytes, shared or global window) and the plain
-     version's time: K3 at both flagships (1024^2), K8-T at configs 2 and
-     3, K7-T at config 1 and at 1024^2;
+     layout (the row-march's waves, rows a wave, ring MB and grid for K3's
+     CSF variant, whose device time a launch comes from CUDA events between
+     launches; the window's tile, bytes and memory for the others) and the
+     plain version's time: K3 at both flagships (1024^2), K8-T at configs
+     2 and 3, K7-T at config 1 and at 1024^2;
  50. the main paths of the T-step kernels: bench.py's loop
      (``run_chunked`` of ``make_block_step(steps_per_call=4,
      compressed=True, storage="bf16" | "f32")``) on both flagships, the
@@ -233,8 +237,10 @@ toolkit (nvcc) and PyTorch built for CUDA; JAX is not needed.  Phases:
      split) against T plain coupled steps, T = 2, 3, 4, two calls in a row,
      on a 100x64 walled channel with tracer mass on the boundary rows, in
      every case of BLOCK_COUPLED_CASES (phase 6's six, D2Q9 MRT, an
-     interface of kind "none") on the flagship's flow, and two cases on
-     the Dirichlet inlet / convective outlet flow; <= 1e-11;
+     interface of kind "none", config 4's tracer) on the flagship's flow,
+     and two cases on the Dirichlet inlet / convective outlet flow; <=
+     1e-11 (the row-march); the line gives the flagship flow's layouts at
+     T = 4;
  53. f64: the T-step D3Q19 kernels K11-T (every case of SINGLE3D_CASES) and
      K10-T (K = 1, 2, 3: BLOCK_SC3D_CASES) on 48x40x32, T = 2, 3, 4, K10-T
      on the wrapper's plan and on a plan in three y-bands whose last
@@ -246,9 +252,10 @@ toolkit (nvcc) and PyTorch built for CUDA; JAX is not needed.  Phases:
      within phases 34 and 37's bounds; each bf16 state one more step within
      one ulp a value;
  55. speed per time step of K5c-T (config 4, three layouts), K11-T and
-     K10-T (128^3, f32 and bf16) at T = 1, 2, 4, as phase 49, with K10-T's
-     z-march plan (bands, rings in MB, the cooperative grid, waves, lag)
-     and its device time a launch from CUDA events between launches;
+     K10-T (128^3, f32 and bf16) at T = 1, 2, 4, as phase 49, with K5c-T's
+     row-march and K10-T's z-march plans (bands, rings in MB, the
+     cooperative grid, waves, lag) and their device time a launch from CUDA
+     events between launches;
  56. their main paths: bench.py's loop (``run_chunked`` of
      ``make_block_step(4, ...)``) on config 4 in bf16, f32 and split, and
      on basic3d and probe_sc3d in bf16 at 128^3; ``run --model
@@ -355,7 +362,15 @@ toolkit (nvcc) and PyTorch built for CUDA; JAX is not needed.  Phases:
      K8-T at the same T and of K8, the plain version's time, the bound
      (least bytes a cell-step plus the frames' reads and copies, over 3.35
      TB/s), and the device µs a launch of each kind of kernel, sharded and
-     on one device (``torch.profiler``).
+     on one device (``torch.profiler``);
+ 72. T-step calls past one launch's step limit at f64, T = 10 and 16
+     against T plain steps (<= 1e-11): K3c (two 100x72 channels),
+     K5c-Tc, K11-T, K10-T and K9-Tc, each call run as
+     ``build.split_steps``'s launches (counted, with the launch's limit and
+     layout); the launch limits' Python mirrors against the libraries
+     that set them; ``run --model sc3d --block 10`` on shanchen3d.ini
+     against ``--block 1`` (metrics.jsonl within 1e-4, two T-step
+     launches a call, the T=1 kernel never).
 
 Every phase prints one line or more, each number line with the card's name
 and power limit, and any failure exits non-zero.  Then the wall time, the
@@ -4091,6 +4106,7 @@ def ptxas_summary(log: str, sc: bool = False) -> str:
             base = next((k for k in COUPLED_KERNELS + SC_KERNELS +
                          TRANSPORT3D_KERNELS + FLOW3D_KERNELS +
                          tuple(BLOCK_KERNEL_NAMES.values()) +
+                         MARCH2D_KERNEL_NAMES +
                          ("bc_rows_kernel", "pert_kernel") if k in mangled),
                         mangled)
             args = mangled.split(base)[-1]
@@ -4202,6 +4218,10 @@ def phase_block_csf_f64(device, calls=2, tol=1e-11):
                     check(err <= tol, f"K3 {variant} {key} {name} T={t}: "
                           f"kernel vs {t} plain steps {err:.3e} > {tol:g}")
                     res[(variant, key, name, t)] = err
+                if name == "neumann_dirichlet_100x72" and key == "f32":
+                    from openlbmpm_torch.kernels import csf as kc
+                    note_layout(45, f"{variant} {name}", kc.csf_block_tiling(
+                        torch.float64, False, m.kernel_params, 4))
             del m, st
             torch.cuda.empty_cache()
     return res
@@ -4224,6 +4244,10 @@ def phase_block_sc_f64(device, calls=2, tol=1e-11):
             check(err <= tol, f"K8-T {name} T={t}: kernel vs {t} plain steps "
                   f"{err:.3e} > {tol:g}")
             res[(name, t)] = err
+        if 46 not in LAYOUTS:
+            from openlbmpm_torch.kernels.shanchen import sc_block_tiling
+            note_layout(46, name, sc_block_tiling(torch.float64,
+                                                  m.kernel_params, 4))
     return res
 
 
@@ -4244,6 +4268,10 @@ def phase_block_single_f64(device, calls=2, tol=1e-11):
             check(err <= tol, f"K7-T {name} T={t}: kernel vs {t} plain steps "
                   f"{err:.3e} > {tol:g}")
             res[(name, t)] = err
+        if 47 not in LAYOUTS:
+            from openlbmpm_torch.kernels.single import single_block_tiling
+            note_layout(47, name, single_block_tiling(torch.float64,
+                                                      m.kernel_params, 4))
     return res
 
 
@@ -4334,9 +4362,11 @@ def phase_block_full(device, n=FLAGSHIP_N, steps=8):
     return res
 
 
-# the T-step kernels' CUDA names in the profiler
+# the T-step kernels' CUDA names in the profiler (K3's CSF variant is the
+# cooperative row-march, csf_march_kernel, timed by launch_times)
 BLOCK_KERNEL_NAMES = {"K3": "csf_block_kernel", "K8-T": "sc_block_kernel",
                       "K7-T": "single_block_kernel"}
+MARCH2D_KERNEL_NAMES = ("csf_march_kernel", "coupled_march_kernel")
 
 
 def block_bytes(family, key):
@@ -4420,9 +4450,12 @@ def phase_block_speed(device, n=FLAGSHIP_N, time_steps=400, calls=10):
             r["launches_per_step"][t] = kern.launches / (calls * t)
             check(kern.launches == calls, f"{label} T={t}: {kern.launches} "
                   f"launches for {calls} calls")
-            times = device_times(lambda y: kern(y, m, t), x,
-                                 (BLOCK_KERNEL_NAMES[family],), steps=20)
-            r["device_us"][t] = times[BLOCK_KERNEL_NAMES[family]]
+            if label.endswith("CSF"):   # the cooperative row-march
+                r["device_us"][t] = launch_times(lambda y: kern(y, m, t), x)
+            else:
+                times = device_times(lambda y: kern(y, m, t), x,
+                                     (BLOCK_KERNEL_NAMES[family],), steps=20)
+                r["device_us"][t] = times[BLOCK_KERNEL_NAMES[family]]
             r["tiling"][t] = _tiling(family, key, m, t)
         r["plain_sec"] = _time_steps(lambda y: plain(y, m, 4), x, 2,
                                      device) / 4
@@ -4651,13 +4684,13 @@ def phase45_50_lines(r45, r46, r47, r48, r49, r50, card):
         "calls; " + ", ".join(K3_DOMAINS) + "), max |diff|: " + ", ".join(
             f"{v} {lay} {worst(r45, lambda k: k[:2] == (v, lay)):.3e}"
             for v in ("CSF", "Perturbation") for lay in ("f32", "split")) +
-        f" over {len(r45)} runs (<= 1e-11)",
+        f" over {len(r45)} runs (<= 1e-11); " + layouts_text(45),
         f"phase 46 K8-T f64 (T = 2, 3, 4, every kernel case of SC_CASES, "
         f"100x64): max |diff| {max(r46.values()):.3e} over {len(r46)} runs "
-        "(<= 1e-11)",
+        "(<= 1e-11); " + layouts_text(46),
         f"phase 47 K7-T f64 (T = 2, 3, 4, every case of SINGLE_CASES, "
         f"100x72): max |diff| {max(r47.values()):.3e} over {len(r47)} runs "
-        "(<= 1e-11)",
+        "(<= 1e-11); " + layouts_text(47),
         f"phase 48 T-step kernels at full size vs their plain versions, 8 "
         f"steps from one f64 start [{card}]: " + "; ".join(
             (f"{k[0]} {k[1]} {k[2]} T={k[3]} planes {v['planes']:.3e} rho_r "
@@ -4678,9 +4711,8 @@ def phase45_50_lines(r45, r46, r47, r48, r49, r50, card):
             "; device us a launch T=2/4 " + "/".join(
                 "not measured" if dev[t] is None else f"{dev[t][0]:.2f}"
                 for t in (2, 4)) +
-            "; tile, window KB, global T=2/4 " + "/".join(
-                f"{g['tx']}x{g['ty']} {g['window_bytes'] / 1024:.1f} "
-                f"{g['gmem']}" for g in (r["tiling"][2], r["tiling"][4])) +
+            "; " + "; ".join(layout_text(r["tiling"][t], t)
+                             for t in (2, 4)) +
             f"; plain ms a step {r['plain_sec'] * 1e3:.3f}")
     for (kind, *rest), r in r50.items():
         if kind == "cli":
@@ -4724,7 +4756,8 @@ def block_entries(r45, r46, r47, r48, r49, r50):
             sp = r49[label]
             lay = "split" if key == "split" else "f32"
             entries.append(kernel_entry(
-                name, label, "openlbmpm_torch/csrc/csf2d_block.cuh",
+                name, label, "openlbmpm_torch/csrc/" + (
+                    "march2d.cuh" if tag == "CSF" else "csf2d_block.cuh"),
                 f"{csf} (steps_per_call=T, variant='{variant}', {sub}, "
                 + ("state_mode=" if key == "split" else "storage=")
                 + f"{key!r})",
@@ -4837,6 +4870,7 @@ BLOCK_COUPLED_CASES = COUPLED_CASES | {
     "h": dict(num_tracers=1, scheme=5, tau=(0.9,), j0=(1 / 3,),
               interface_mode="none", inlet="inamuro", inlet_conc=(1.0,),
               outlet="freeflow"),
+    "config4": CONFIG4_TRACER,
 }
 # the flows of phase 52: the flagship's (neumann inlet, Dirichlet outlet with
 # the phi repair) and the Dirichlet inlet with the convective outlet
@@ -4897,6 +4931,10 @@ def phase_block_coupled_f64(device, calls=2, tol=1e-11):
                           err <= tol, f"K5c-T {flow} {name} {lay} T={t}: "
                           f"kernel vs {t} plain steps {err:.3e} > {tol:g}")
                     res[(flow, name, lay, t)] = err
+                if 52 not in LAYOUTS:
+                    from openlbmpm_torch.kernels import transport as kt
+                    note_layout(52, f"{flow} {name}", kt.coupled_block_tiling(
+                        torch.float64, False, kt.coupled_block_params(m), 4))
             del m, st
     return res
 
@@ -5009,6 +5047,10 @@ def phase_block3d_f64(device, calls=2, tol=1e-11):
                           f"{tag} {key} T={t}: kernel vs {t} plain steps "
                           f"{err:.3e} > {tol:g}")
                     res[(tag, key, t)] = err
+            if tag not in LAYOUTS.get(53, {}):
+                note_layout(53, tag, kf.flow3d_block_tiling(
+                    torch.float64, "single" if tag == "K11-T" else "sc",
+                    m.kernel_params, 4))
     return res
 
 
@@ -5111,8 +5153,9 @@ def phase_block_full_3(device, n=FLAGSHIP_N, steps=8, sizes=(128, 256),
 
 
 # the new T-step kernels' CUDA names in the profiler; None: timed by
-# launch_times (the cooperative z-march, sc3d_march_kernel)
-BLOCK3_KERNEL_NAMES = {"K5c-T": "coupled_block_kernel",
+# launch_times (the cooperative marches, coupled_march_kernel and
+# sc3d_march_kernel)
+BLOCK3_KERNEL_NAMES = {"K5c-T": None,
                        "K11-T": "flow3d_block_kernel",
                        "K10-T": None}
 # least bytes per cell and time step at T = 1 (each input read once, each
@@ -5384,23 +5427,45 @@ def phase_cli_default_3(device, n=FLAGSHIP_N, steps=1000, tr_steps=500):
     return res
 
 
+def layout_text(g, t) -> str:
+    """One launch's layout for a phase line: the row-march's waves, rows a
+    wave (Z), ring MB, cooperative grid and lag (K3 CSF, K5c-T); the
+    z-march's plan (K10-T, K9-T: bands of rows plus halo, the rings' MB,
+    the grid, the waves and the lag); a 2-D window's tile, KB and memory
+    (K3 Perturbation, K8-T, K7-T); else the tiling as JSON (K11-T)."""
+    if g.get("march") == "rows":
+        return (f"row-march T={t}: {g['waves']} waves of "
+                f"{g['slabs_per_wave']} rows, rings "
+                f"{g['scratch_bytes'] / 2 ** 20:.1f} MB, grid {g['grid']} "
+                f"blocks, lag {g['lag']} rows, {g['stages']} stages")
+    if "bands" in g:
+        return (f"plan T={t}: {g['bands']} band(s) of {g['band_rows']} rows"
+                f" + {g['halo']} halo, rings "
+                f"{g['scratch_bytes'] / 2 ** 20:.1f} MB, grid {g['grid']} "
+                f"blocks, {g['waves']} waves, lag "
+                f"{g['lag']}, {g['slabs_per_wave']} slab(s) a wave")
+    if "tz" not in g:
+        return (f"window T={t}: tile {g['tx']}x{g['ty']}, window "
+                f"{g['window_bytes'] / 1024:.1f} KB, global {g['gmem']}")
+    return f"tiling T={t} " + json.dumps(g, separators=(",", ":"))
+
+
+# the layouts at T = 4 of the f64 T-step phases' first cases, printed on
+# their lines: {phase: {label: layout_text}}
+LAYOUTS: dict = {}
+
+
+def note_layout(phase: int, label: str, tiling: dict, t: int = 4) -> None:
+    LAYOUTS.setdefault(phase, {})[label] = layout_text(tiling, t)
+
+
+def layouts_text(phase: int) -> str:
+    return "; ".join(f"{k}: {v}" for k, v in LAYOUTS.get(phase, {}).items())
+
+
 def tiling_text(tilings) -> str:
-    """A launch's tiling at T = 2 and 4 for a phase line: the z-march's plan
-    (K10-T, K9-T: bands of rows plus halo, the rings' MB, the cooperative
-    grid, the waves and the lag) or the window tiling (JSON)."""
-    parts = []
-    for t in (2, 4):
-        g = tilings[t]
-        if "bands" in g:
-            parts.append(f"plan T={t}: {g['bands']} band(s) of {g['band_rows']}"
-                         f" rows + {g['halo']} halo, rings "
-                         f"{g['scratch_bytes'] / 2 ** 20:.1f} MB, grid "
-                         f"{g['grid']} blocks, {g['waves']} waves, lag "
-                         f"{g['lag']}, {g['slabs_per_wave']} slab(s) a wave")
-        else:
-            parts.append(f"tiling T={t} " +
-                         json.dumps(g, separators=(",", ":")))
-    return "; ".join(parts)
+    """A launch's layout at T = 2 and 4 for a phase line (layout_text)."""
+    return "; ".join(layout_text(tilings[t], t) for t in (2, 4))
 
 
 def phase52_57_lines(r52, r53, r54, r55, r56, r57, r12, r38, card):
@@ -5414,14 +5479,14 @@ def phase52_57_lines(r52, r53, r54, r55, r56, r57, r12, r38, card):
             f"{flow} {lay} {worst(r52, lambda k: k[0] == flow and k[2] == lay):.3e}"
             for flow, lay in (("flagship", "f32"), ("flagship", "split"),
                               ("dirichlet_convective", "f32"))) +
-        f" over {len(r52)} runs (<= 1e-11)",
+        f" over {len(r52)} runs (<= 1e-11); " + layouts_text(52),
         "phase 53 K11-T / K10-T f64 (T = 2, 3, 4, two calls, 48x40x32; "
         "SINGLE3D_CASES, BLOCK_SC3D_CASES K = 1, 2, 3): max |diff| K11-T "
         f"{worst(r53, lambda k: k[0] == 'K11-T'):.3e}, K10-T "
         f"{worst(r53, lambda k: k[0] == 'K10-T' and 'banded' not in k[1]):.3e}"
         ", K10-T in three y-bands "
         f"{worst(r53, lambda k: 'banded' in k[1]):.3e} over {len(r53)} runs "
-        "(<= 1e-11)",
+        "(<= 1e-11); " + layouts_text(53),
         f"phase 54 new T-step kernels at full size vs their plain versions, "
         f"8 steps (3-D 4) from one start [{card}]: " + "; ".join(
             (f"{k[0]} {k[1]} one bf16 step: excess {v['excess']:.3g} ulp, "
@@ -5494,7 +5559,7 @@ def block3_entries(r52, r53, r54, r55, r56):
         sp = r55[label]
         lay = "split" if key == "split" else "f32"
         entries.append(kernel_entry(
-            name, label, "openlbmpm_torch/csrc/coupled2d_block.cuh",
+            name, label, "openlbmpm_torch/csrc/march2d.cuh",
             f"{csf} (transport_params, steps_per_call=T, tracer sub-step "
             ":1385, order :1729-1751, " + ("state_mode='split')"
                                            if key == "split" else
@@ -7311,6 +7376,167 @@ def phase70_71_entries(r70, r71):
         plain_ms_k4_t2=k4["plain_sec"] * 1e3)]
 
 
+# -- T-step calls past a launch's step limit ---------------------------------
+
+CHUNKED_TS = (10, 16)
+
+
+def limit_mirrors():
+    """The Python mirrors of the launch limits against the libraries that
+    set them: march3d.MAX_STAGES / MAX_RINGS against csf2d_march_limits,
+    flow3d.MAX_BLOCK_STEPS and cg3d.MAX_BLOCK_STEPS against
+    flow3d_block_max_steps and cg3d_block_max_steps (kMaxSteps3), in every
+    storage type; {name: (library, mirror)}."""
+    import ctypes
+    from openlbmpm_torch.kernels import build
+    from openlbmpm_torch.kernels import cg3d as k9
+    from openlbmpm_torch.kernels import flow3d as kf
+    from openlbmpm_torch.kernels import march3d
+    out = {}
+    for lib in ("csf2d_block_f64", "csf2d_block_f32", "csf2d_block_bf16"):
+        v = (ctypes.c_longlong * 2)()
+        build.load_library(lib).csf2d_march_limits(v)
+        out[f"{lib} stages, rings"] = (tuple(v), (march3d.MAX_STAGES,
+                                                  march3d.MAX_RINGS))
+    for dt in (torch.float64, torch.float32, torch.bfloat16):
+        for kind in ("single", "sc"):
+            out[f"flow3d {kind} {dt}"] = (kf.flow3d_block_max_steps(dt, kind),
+                                          kf.MAX_BLOCK_STEPS)
+        for split in (False, True) if dt != torch.bfloat16 else (False,):
+            out[f"cg3d split={split} {dt}"] = (
+                k9.cg3d_block_max_steps(dt, split), k9.MAX_BLOCK_STEPS)
+    for name, (lib, mirror) in out.items():
+        check(lib == mirror, f"launch limit {name}: library {lib}, Python "
+              f"mirror {mirror}")
+    return out
+
+
+def phase_block_chunked(device, tol=1e-11, cli_tol=BLOCK_CLI_BOUND):
+    """T-step calls past one launch's step limit, at f64 against T plain
+    steps, T = 10 and 16 (CHUNKED_TS): K3c on the flagship's rows and on
+    the Dirichlet inlet / convective outlet (100 x 72), K5c-Tc (case a,
+    flagship flow), K11-T, K10-T (K = 2) and K9-Tc (the velocity inlet and
+    convective outlet) at 48 x 40 x 32, each one call that runs as
+    ``build.split_steps(T, limit)`` launches, counted on the wrapper; the
+    limits' Python mirrors against their libraries (limit_mirrors); and
+    ``run --model sc3d --block 10`` on configs/shanchen3d.ini (100 steps,
+    output every 50) with metrics.jsonl within BLOCK_CLI_BOUND of
+    ``--block 1``, the T-step kernel launched twice a call."""
+    import os
+    import tempfile
+    from openlbmpm_torch import cli
+    from openlbmpm_torch.kernels import build
+    from openlbmpm_torch.kernels import cg3d as k9
+    from openlbmpm_torch.kernels import csf as k
+    from openlbmpm_torch.kernels import flow3d as kf
+    from openlbmpm_torch.kernels import transport as kt
+    res = {"mirrors": limit_mirrors()}
+
+    def hold(label, kern, plain, x0, m, limit, layout, ts=CHUNKED_TS):
+        for t in ts:
+            kern.launches = 0
+            a = kern(x0, m, t)
+            launches = kern.launches
+            b = plain(x0, m, t)
+            want = len(build.split_steps(t, limit))
+            err = _gap(tuple(a) if isinstance(a, tuple) else a,
+                       tuple(b) if isinstance(b, tuple) else b)
+            fin = all(bool(torch.isfinite(y).all()) for y in
+                      (a if isinstance(a, tuple) else (a,)))
+            check(fin and err <= tol and launches == want,
+                  f"{label} T={t}: {launches} launches (want {want} of at "
+                  f"most {limit}), vs {t} plain steps {err:.3e} > {tol:g}")
+            res[(label, t)] = {"err": err, "launches": launches,
+                               "limit": limit, "layout": layout}
+
+    for name in ("neumann_dirichlet_100x72", "dirichlet_convective_100x72"):
+        m, st = k3_case(name, "CSF", device)
+        x0 = m.pack_state(*st)
+        lim = k.csf_block_max_steps(torch.float64, False, m.kernel_params)
+        hold(f"K3c {name}", k.csf_block_compressed,
+             k.csf_block_compressed_reference, x0, m, lim, layout_text(
+                 k.csf_block_tiling(torch.float64, False, m.kernel_params,
+                                    lim), lim))
+        del m, st, x0
+    m, st = coupled_block_case("a", device)
+    p = kt.coupled_block_params(m)
+    lim = kt.coupled_block_max_steps(torch.float64, False, p)
+    hold("K5c-Tc a", kt.coupled_block_compressed,
+         kt.coupled_block_compressed_reference, m.pack(st), m, lim,
+         layout_text(kt.coupled_block_tiling(torch.float64, False, p, lim),
+                     lim))
+    m = single3d_case("trt_force", device)
+    lim = kf.flow3d_block_max_steps(torch.float64, "single")
+    hold("K11-T trt_force", kf.single3d_block_step,
+         kf.single3d_block_step_reference, flow_start(m), m, lim,
+         "bricks: " + json.dumps(kf.flow3d_block_tiling(
+             torch.float64, "single", m.kernel_params, lim),
+             separators=(",", ":")))
+    m, f = block_sc3d_case("k2_walls_force", device)
+    lim = kf.flow3d_block_max_steps(torch.float64, "sc")
+    hold("K10-T k2_walls_force", kf.sc3d_block_step,
+         kf.sc3d_block_step_reference, f, m, lim, tiling_text(
+             {t: kf.flow3d_block_tiling(torch.float64, "sc", m.kernel_params,
+                                        t) for t in (2, 4)}))
+    m, st = cg3d_case("velocity_convective", device)
+    lim = k9.cg3d_block_max_steps(torch.float64, False)
+    hold("K9-Tc velocity_convective", k9.cg3d_block_compressed,
+         k9.cg3d_block_compressed_reference, m.pack_state(*st), m, lim,
+         tiling_text({t: k9.cg3d_block_tiling(torch.float64, False,
+                                              m.kernel_params, t)
+                      for t in (2, 4)}))
+    del m, st, f
+    torch.cuda.empty_cache()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
+    with tempfile.TemporaryDirectory() as tmp:
+        ini = os.path.join(tmp, "shanchen3d.ini")
+        _ini_copy(os.path.join(root, "shanchen3d.ini"), ini,
+                  {"TimeInterval": 50})
+        r = {}
+        for block in ("1", "10"):
+            out = os.path.join(tmp, f"sc3d_{block}")
+            kf.sc3d_block_step.launches = kf.sc3d_step.launches = 0
+            rc, text, sec = _cli_run(cli, [
+                "run", ini, "--model", "sc3d", "--steps", "100", "--output",
+                out, "--device", "cuda", "--block", block])
+            line = next((ln for ln in text.splitlines()
+                         if "--model sc3d" in ln), "")
+            counts = (kf.sc3d_block_step.launches, kf.sc3d_step.launches)
+            want = (0, 100) if block == "1" else (20, 0)
+            check(rc == 0 and counts == want, f"cli sc3d --block {block}: "
+                  f"rc {rc}, launches {counts} (want {want}), {line}")
+            r[block] = {"sec": sec, "launches": counts, "line": line}
+        sa, sb, gaps = _metrics_gap(
+            os.path.join(tmp, "sc3d_1", "metrics.jsonl"),
+            os.path.join(tmp, "sc3d_10", "metrics.jsonl"))
+        over = {key: v for key, v in gaps.items() if v > cli_tol}
+        check(sa == sb == [0, 50, 100] and not over,
+              f"cli sc3d --block 10: metrics at {sb}, --block 1 at {sa}, "
+              f"relative gaps over {cli_tol:g}: {over}")
+        r["gaps"] = gaps
+        res["cli sc3d"] = r
+    return res
+
+
+def phase72_line(r72, card) -> str:
+    mirrors = r72["mirrors"]
+    cli = r72["cli sc3d"]
+    return (
+        "phase 72 T-step calls past a launch's step limit, f64 vs T plain "
+        "steps (<= 1e-11): " + "; ".join(
+            f"{key[0]} T={key[1]} {v['launches']} launches of at most "
+            f"{v['limit']}, max |diff| {v['err']:.3e} ({v['layout']})"
+            for key, v in r72.items() if isinstance(key, tuple)) +
+        "; launch limits library = mirror: " + ", ".join(
+            f"{name} {lib}" for name, (lib, _) in mirrors.items()) +
+        f"; cli sc3d --block 10 vs 1 [{card}]: launches (T-step, T=1) "
+        f"{cli['10']['launches']} / {cli['1']['launches']}, seconds with I/O "
+        f"{cli['10']['sec']:.2f} / {cli['1']['sec']:.2f}, metrics.jsonl "
+        "relative gaps " + ", ".join(f"{key} {v:.2e}" for key, v in
+                                     cli["gaps"].items()) +
+        f" (<= {BLOCK_CLI_BOUND:g}); {cli['10']['line']}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -7534,6 +7760,12 @@ def main() -> int:
         f"{k[1:]} {v[1]:.1f}" for k, v in sorted(t_k12c.items())))
     for ln in phase70_71_lines(r70, r71, card):
         print(ln)
+
+    t0 = time.perf_counter()
+    r72 = phase_block_chunked(device)
+    torch.cuda.empty_cache()
+    print(f"phase 72 wall s: {time.perf_counter() - t0:.1f}")
+    print(phase72_line(r72, card))
 
     n2 = FLAGSHIP_N * FLAGSHIP_N
     csf = "openlbmpm_tpu/pallas/csf.py:147"

@@ -2,7 +2,7 @@
 """Sweep the z-march's knobs (K10-T and K9-T, ``csrc/march3d.cuh``) on a
 card and cost its stages.
 
-    python3 chip_sweep.py [knobs|stages|all]
+    python3 chip_sweep.py [knobs|stages|2dT|all]
 
 Run from the repository root on a machine with a CUDA card and nvcc.
 "knobs": ms a time step at 128^3 in f32 of K10-T (probe_sc3d, K = 2) and
@@ -15,7 +15,15 @@ CUDA events over each launch, from chip_smoke.py's models.
 "stages": the same two kernels at their defaults with one stage kind's body
 skipped (the results are wrong, the times say what each stage costs),
 beside the full kernel and the kernel with every body skipped (the waves
-and barriers alone).  Both modes patch copies of ``openlbmpm_torch/csrc``
+and barriers alone).  "2dT": the 2-D row-march (K3c on the flagship, K5c-Tc
+on configuration 4, 1024^2 in f32, ``csrc/march2d.cuh``) at T = 2 and 4
+over rows a wave (16, 32, 64, 96, 128: ``march2d.ROWS_PER_WAVE``) and the
+resident blocks an SM (1, 2, 3, 4), beside the march with every body
+skipped (2 blocks an SM: the waves and barriers alone), through the
+wrappers; then, at the defaults, the march with one stage kind's body
+skipped (bc, phi, normal, collide, stream, and K5c-T's tcollide and
+tstream: the results are wrong, the times say what each stage costs)
+beside the full march.  The modes patch copies of ``openlbmpm_torch/csrc``
 in a temporary directory and build their libraries there; the sources in
 the repository stay as they are.  Prints the card and one line a
 measurement.
@@ -41,6 +49,10 @@ STAGES = {"load": "kStageLoad", "bc": "kStageBc", "extrap": "kStageExtrap",
 # the march kernels' resident blocks an SM, as the sources ask ptxas for them
 MIN_BLOCKS = {"flow3d_block.cuh": "sc3d_march_min_blocks<S>()",
               "cg3d_block.cuh": "cg3d_march_min_blocks<S, L>()"}
+# the row-march kernels' blocks an SM (march2d.cuh::march2d_min_blocks)
+MIN_BLOCKS_2D = "  return sizeof(typename Traits<S>::C) == 8 ? 1 : 3;"
+LIBS_3D = ("flow3d_block_f32", "cg3d_block_f32")
+LIBS_2D = ("csf2d_block_f32", "coupled2d_block_f32")
 # the executor's call of a family's body for one cell of one stage
 BODY_CALL = "        body(c);\n"
 
@@ -51,6 +63,13 @@ def min_blocks_edits(blocks: int) -> dict:
     return {name: (f"__launch_bounds__(kMarchThreads, {call})",
                    f"__launch_bounds__(kMarchThreads, {blocks})")
             for name, call in MIN_BLOCKS.items()}
+
+
+def min_blocks_edits_2d(blocks: int) -> dict:
+    """The edit that asks ptxas for `blocks` resident blocks an SM in the
+    row-march kernels (both of march2d.cuh's, in float arithmetic)."""
+    return {"march2d.cuh": (MIN_BLOCKS_2D, MIN_BLOCKS_2D.replace(
+        ": 3;", f": {blocks};"))}
 
 
 def skip_edits(cond: str) -> dict:
@@ -73,14 +92,15 @@ def _patched(src_dir: Path, dest: Path, edits: dict) -> Path:
     return dest
 
 
-def _variants(build, out: Path, jobs: dict) -> dict:
-    """nvcc of flow3d_block_f32 and cg3d_block_f32 into `out` for each tag
-    of `jobs` (tag -> (source directory, extra flags)), all side by side:
-    {(lib, tag): (CDLL, its ptxas registers and spill stores)}."""
+def _variants(build, out: Path, jobs: dict, names=LIBS_3D) -> dict:
+    """nvcc of the libraries `names` (flow3d_block_f32 and cg3d_block_f32)
+    into `out` for each tag of `jobs` (tag -> (source directory, extra
+    flags)), all side by side: {(lib, tag): (CDLL, its ptxas registers and
+    spill stores)}."""
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
     for tag, (src, flags) in jobs.items():
-        for lib in ("flow3d_block_f32", "cg3d_block_f32"):
+        for lib in names:
             so = out / f"lib{lib}_{tag}.so"
             procs[(lib, tag)] = (so, subprocess.Popen(
                 [build._nvcc(), *build.NVCC_FLAGS, *flags, "-o", str(so),
@@ -99,9 +119,12 @@ def _variants(build, out: Path, jobs: dict) -> dict:
 
 def _use(M, kf, k9, lib: str, so) -> None:
     """Point the march launcher's entry points of `lib` at `so`."""
-    prefix, ints, ptrs, pt = (("sc3d", 1, 3, kf.Flow3dParams)
-                              if lib.startswith("flow3d") else
-                              ("cg3d", 2, 5, k9.Cg3dParams))
+    from openlbmpm_torch.kernels import csf, transport
+    prefix, ints, ptrs, pt = {
+        "flow3d": ("sc3d", 1, 3, kf.Flow3dParams),
+        "cg3d_b": ("cg3d", 2, 5, k9.Cg3dParams),
+        "csf2d_": ("csf2d", 2, 5, csf.CsfParams),
+        "couple": ("coupled2d", 2, 8, transport.CoupledParams)}[lib[:6]]
     step = getattr(so, f"{prefix}_march_step")
     step.argtypes = [ctypes.c_int] * ints + [ctypes.c_void_p] * (ptrs + 2) + \
         [ctypes.POINTER(pt), ctypes.c_void_p]
@@ -113,6 +136,70 @@ def _use(M, kf, k9, lib: str, so) -> None:
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
     M._fns[lib] = (step, grid, err)
+
+
+def sweep_2d(cs, build, M, kf, k9, dev, emit, zs=(16, 32, 64, 96, 128),
+             blocks=(1, 2, 3, 4)) -> None:
+    """The "2dT" mode: ms a time step of K3c (the flagship) and K5c-Tc
+    (configuration 4) at 1024^2 in f32, T = 2 and 4, over rows a wave and
+    resident blocks an SM, and with every body skipped."""
+    import torch
+    from openlbmpm_torch.kernels import csf, march2d, transport
+    m = cs.flagship_model(dev, "f32")
+    s = m.pack_state(*m.init_state_layers(1.0, 1.0, invading_rows=100))
+    mt = cs.coupled_model(dev, "f32", cs.CONFIG4_TRACER)
+    st, _ = cs.config4_state(mt)
+    x = mt.pack(st)
+    cases = (("K3c f32", lambda y, t: csf.csf_block_compressed(y, m, t), s),
+             ("K5c-Tc f32", lambda y, t: transport.coupled_block_compressed(
+                 y, mt, t), x))
+    z0 = march2d.ROWS_PER_WAVE
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs = {f"mb{b}": (_patched(build.SRC_DIR, Path(tmp, f"mb{b}"),
+                                    min_blocks_edits_2d(b)), [])
+                for b in blocks}
+        jobs["skip"] = (_patched(build.SRC_DIR, Path(tmp, "skip"),
+                                 skip_edits("true")), [])
+        libs = _variants(build, Path(tmp, "lib"), jobs, LIBS_2D)
+        for (lib, tag), (_, report) in sorted(libs.items()):
+            emit(library=lib, variant=tag, **report)
+        for tag in jobs:
+            for lib in LIBS_2D:
+                _use(M, kf, k9, lib, libs[(lib, tag)][0])
+            for z in zs:
+                march2d.ROWS_PER_WAVE = z
+                M._plans.clear()
+                for label, fn, y in cases:
+                    for t in (2, 4):
+                        ms = cs._time_steps(lambda v: fn(v, t), y,
+                                            max(48 // t, 6), dev) / t * 1e3
+                        emit(kernel=label, T=t, variant=tag,
+                             rows_per_wave=z, ms_a_step=ms)
+                torch.cuda.empty_cache()
+    march2d.ROWS_PER_WAVE = z0
+    M._plans.clear()
+    with tempfile.TemporaryDirectory() as tmp:
+        kinds = {"full": None, "bc": 3, "phi": 6, "normal": 5, "collide": 1,
+                 "stream": 2, "tcollide": 7, "tstream": 8}
+        jobs = {name: (_patched(build.SRC_DIR, Path(tmp, name), skip_edits(
+            f"c.kind() == {k}") if k is not None else {}), [])
+                for name, k in kinds.items()}
+        libs = _variants(build, Path(tmp, "lib"), jobs, LIBS_2D)
+        for name in jobs:
+            for lib in LIBS_2D:
+                _use(M, kf, k9, lib, libs[(lib, name)][0])
+            M._plans.clear()
+            for label, fn, y in cases:
+                if name.startswith("t") and label.startswith("K3"):
+                    continue
+                for t in (2, 4):
+                    ms = cs._time_steps(lambda v: fn(v, t), y,
+                                        max(48 // t, 6), dev) / t * 1e3
+                    emit(kernel=label, T=t, skipped=name,
+                         rows_per_wave=z0, ms_a_step=ms)
+            torch.cuda.empty_cache()
+    M._plans.clear()
+    M._fns.clear()
 
 
 def main(argv=None) -> int:
@@ -131,6 +218,15 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     dev = torch.device("cuda", 0)
     print(cs.card_line(), flush=True)
+
+    def emit(**kw):
+        print(json.dumps(kw), flush=True)
+
+    if what == "2dT":
+        sweep_2d(cs, build, M, kf, k9, dev, emit)
+        print(json.dumps({"done": True,
+                          "seconds": time.perf_counter() - t0}))
+        return 0
     m = cs.probe_sc3d_model(dev)
     f = cs.probe_sc3d_start(m)
     mc = cs.config5_model(dev)
@@ -150,9 +246,6 @@ def main(argv=None) -> int:
         table = plan.tensor().to(dev)
         return cs._time_steps(lambda y: cs.march_call(
             y, mc, t, plan, table), s, max(24 // t, 4), dev) / t * 1e3
-
-    def emit(**kw):
-        print(json.dumps(kw), flush=True)
 
     if what in ("knobs", "all"):
         with tempfile.TemporaryDirectory() as tmp:
@@ -194,6 +287,8 @@ def main(argv=None) -> int:
                     emit(kernel="K9-Tc f32", T=t, skipped=name,
                          ms_a_step=k9c(t))
             M._fns.clear()
+    if what in ("2dT", "all"):
+        sweep_2d(cs, build, M, kf, k9, dev, emit)
     print(json.dumps({"done": True, "seconds": time.perf_counter() - t0}))
     return 0
 

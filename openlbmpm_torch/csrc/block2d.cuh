@@ -136,6 +136,21 @@ __host__ inline BlockShape block_shape(int ny, int nx, int T, int ring, int mlo,
   return b;
 }
 
+// The largest T whose launch (shape_of(T), a BlockShape) has a window of
+// at most kMaxWindow cells, the launchers' refusal: the windows only grow
+// with T, so the first T that does not fit ends the search.  0 when no T
+// fits, or when shape_of names no instance (grid 0).
+template <typename ShapeOf>
+__host__ int window_max_steps(ShapeOf shape_of) {
+  int t = 0;
+  while (t < 4096) {
+    const BlockShape B = shape_of(t + 1);
+    if (B.grid == 0 || B.wx * B.wy > kMaxWindow) break;
+    ++t;
+  }
+  return t;
+}
+
 // Where a local launch's shard lives: its centre of ny x nx cells starts
 // at row fy and column fx of a py x px buffer (a plane of the state and of
 // the geometry); fx = 0 means no x frame (px = nx, the shard spans the

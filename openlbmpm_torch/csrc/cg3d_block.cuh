@@ -364,6 +364,9 @@ int cg3d_march_grid_of(int split, int* grid) {
   extern "C" int cg3d_march_grid(int split, int* grid) {                                    \
     return cg3d_march_grid_of<S>(split, grid);                                              \
   }                                                                                         \
+  extern "C" int cg3d_block_max_steps(int split) {                                         \
+    return cg3d_block_takes<S>(split, 1) ? kMaxSteps3 : 0;                                  \
+  }                                                                                         \
   extern "C" const char* cg3d_block_error_string(int code) {                                \
     return cudaGetErrorString(static_cast<cudaError_t>(code));                              \
   }

@@ -1,8 +1,9 @@
 // Temporally blocked coupled CSF flow + phase-confined tracer step, D2Q9
-// flow with D2Q5 or D2Q9 tracers, for NVIDIA Hopper (sm_90a): K5c-T, T
-// time steps a launch.  Each of coupled2d_block_f64.cu,
-// coupled2d_block_f32.cu and coupled2d_block_bf16.cu instantiates one
-// storage type.
+// flow with D2Q5 or D2Q9 tracers, for NVIDIA Hopper (sm_90a): the window
+// form of K5c-T, T time steps a launch, which the local form (K12a with
+// transport, coupled2d_local_{f64,f32}.cu) runs on one shard.  The
+// single-device K5c-T is the row-march of march2d.cuh (coupled2d_block_
+// {f64,f32,bf16}.cu), on the same tracer and CSF bodies.
 //
 // Replaces the TPU kernel openlbmpm_tpu/pallas/csf.py::build_csf_fused_step
 // with transport_params and steps_per_call = T > 1 (tracer sub-step
@@ -219,12 +220,6 @@ BlockShape coupled_block_shape(const CoupledParams& Q, int T, const LocalGrid& G
                      coupled_planes<L>(R.nt, R.nq), (int)sizeof(C), P.ny);
 }
 
-template <typename S, int L>
-size_t coupled_block_scratch(const CoupledParams& Q, int T) {
-  const BlockShape B = coupled_block_shape<S, L>(Q, T);
-  return B.gmem ? (size_t)B.grid * B.win_bytes : 0;
-}
-
 template <typename S, int L, int NQ, bool LOCAL = false>
 int launch_coupled_block_nq(const void* s_in, const void* s2_in, const void* geo,
                             const void* g_in, const void* tab, void* s_out, void* s2_out,
@@ -247,30 +242,6 @@ int launch_coupled_block_nq(const void* s_in, const void* s2_in, const void* geo
   return (int)cudaGetLastError();
 }
 
-// T coupled steps a launch; refuses T < 1, a T whose smallest window
-// exceeds kMaxWindow cells (T > 8 at the widest bands), the Perturbation
-// flow (no coupled form), the standalone tracer and a tracer lattice other
-// than D2Q5 / D2Q9.
-template <typename S, int L>
-int launch_coupled_block(const void* s_in, const void* s2_in, const void* geo,
-                         const void* g_in, const void* tab, void* s_out, void* s2_out,
-                         void* g_out, void* scratch, const CoupledParams& Q, int T,
-                         cudaStream_t st) {
-  if (T < 1 || Q.flow.variant != 0 || Q.tracer.standalone) return (int)cudaErrorInvalidValue;
-  const BlockShape B = coupled_block_shape<S, L>(Q, T);
-  if (B.wx * B.wy > kMaxWindow) return (int)cudaErrorInvalidValue;  // T too large
-  if (B.gmem && scratch == nullptr) return (int)cudaErrorInvalidValue;
-  switch (Q.tracer.nq) {
-    case 5:
-      return launch_coupled_block_nq<S, L, 5>(s_in, s2_in, geo, g_in, tab, s_out, s2_out,
-                                              g_out, scratch, Q, B, st);
-    case 9:
-      return launch_coupled_block_nq<S, L, 9>(s_in, s2_in, geo, g_in, tab, s_out, s2_out,
-                                              g_out, scratch, Q, B, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
 namespace {
@@ -284,7 +255,9 @@ BlockShape coupled_local_shape(const CoupledParams& Q, int T, const LocalGrid& G
 
 // T coupled steps of one shard: the compressed flow state s_in and the
 // tracer PDFs g_in, padded buffers of G, into the centres of s_out and
-// g_out; the refusals of launch_coupled_block, and a frame of G that does
+// g_out; refuses T < 1, a T whose smallest window exceeds kMaxWindow
+// cells, the Perturbation flow (no coupled form), the standalone tracer, a
+// tracer lattice other than D2Q5 / D2Q9, and a frame of G that does
 // not cover the reach.
 template <typename S>
 int launch_coupled_local(const void* s_in, void* s_out, const void* geo, const void* g_in,

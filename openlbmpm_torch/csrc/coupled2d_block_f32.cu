@@ -1,56 +1,18 @@
 // Temporally blocked coupled flow + tracer step K5c-T for NVIDIA Hopper
-// (sm_90a): the C entry points of the f32 state (mode 1 = compressed, 4 = split
-// (f_r, f_b)), coupled2d_step's mode codes. The design note and the device code
-// are in coupled2d_block.cuh.
+// (sm_90a): the C entry points of the f32 state (mode 1 = compressed, 4 = split (f_r, f_b)),
+// coupled2d_step's mode codes.  The design note and the device code are in
+// march2d.cuh (the row-march); the window kernel of coupled2d_block.cuh
+// serves the local form (coupled2d_local_*.cu).
 
 #include "coupled2d_block.cuh"
+#include "march2d.cuh"
 
-// T coupled steps of the flow state s_in (and s2_in, f_b in the split
-// layout) and the tracer PDFs g_in into s_out (s2_out) and g_out, with
-// the per-tracer table tab (kernels/transport.py::tracer_table); scratch
-// holds coupled2d_block_scratch_bytes bytes (null when that is 0).
-// Returns a cudaError_t code (0 on success).
-extern "C" int coupled2d_block_step(int mode, int T, const void* s_in, const void* s2_in,
-                                    void* s_out, void* s2_out, const void* geo,
-                                    const void* g_in, void* g_out, const void* tab,
-                                    void* scratch, const CoupledParams* params,
-                                    void* stream) {
-  const CoupledParams Q = *params;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (mode) {
-    case 1: return launch_coupled_block<float, kCompressed>(s_in, s2_in, geo, g_in, tab, s_out, s2_out, g_out, scratch, Q, T, st);
-    case 4: return launch_coupled_block<float, kSplit>(s_in, s2_in, geo, g_in, tab, s_out, s2_out, g_out, scratch, Q, T, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-// The global scratch a launch needs in bytes: 0 when the windows fit shared
-// memory, -1 for a mode this library does not take.
-extern "C" long long coupled2d_block_scratch_bytes(int mode, int T,
-                                                   const CoupledParams* params) {
-  switch (mode) {
-    case 1: return (long long)coupled_block_scratch<float, kCompressed>(*params, T);
-    case 4: return (long long)coupled_block_scratch<float, kSplit>(*params, T);
-    default: return -1;
-  }
-}
-
-// The launch's tiling into shape[8]: tx, ty, hx, hlo, hhi, gmem, grid and
-// the bytes of one window.
-extern "C" int coupled2d_block_shape(int mode, int T, const CoupledParams* params,
-                                     long long* shape) {
-  BlockShape B;
-  switch (mode) {
-    case 1: B = coupled_block_shape<float, kCompressed>(*params, T); break;
-    case 4: B = coupled_block_shape<float, kSplit>(*params, T); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  const long long v[8] = {B.tx, B.ty, B.hx, B.hlo, B.hhi, B.gmem, B.grid,
-                          (long long)B.win_bytes};
-  for (int i = 0; i < 8; ++i) shape[i] = v[i];
-  return 0;
-}
-
-extern "C" const char* coupled2d_block_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
+// coupled2d_march_step(mode, T, s_in, s2_in, s_out, s2_out, geo, g_in,
+// g_out, tab, scratch, plan, params, stream): T coupled steps of the flow
+// state s_in (and s2_in, f_b in the split layout) and the tracer PDFs g_in
+// into s_out (s2_out) and g_out, with the per-tracer table tab
+// (kernels/transport.py::tracer_table), on the plan `plan`
+// (kernels/march2d.py::coupled2d_march_plan) with its rings in `scratch`;
+// coupled2d_march_grid(10 mode + nq, &grid): the cooperative grid.  Both
+// return a cudaError_t code (0 on success).
+COUPLED2D_MARCH_ENTRY_POINTS(float, 1, 4)

@@ -1,13 +1,15 @@
 // Temporally blocked colour-gradient step K3 for NVIDIA Hopper (sm_90a):
 // the C entry points of the f64 state (mode 0 = compressed, 3 = split (f_r, f_b),
 // csf2d_step's codes).  The design note and the device code are in
-// csf2d_block.cuh.
+// csf2d_block.cuh (the Perturbation variant's windows) and march2d.cuh
+// (the CSF variant's row-march).
 
 #include "csf2d_block.cuh"
+#include "march2d.cuh"
 
 // T steps of the state s_in (and s2_in, f_b in the split layout) into
-// s_out (s2_out) with the CSF (params->variant 0) or Perturbation (1)
-// physics; scratch holds csf2d_block_scratch_bytes bytes (null when that
+// s_out (s2_out) with the Perturbation physics (params->variant 1; the CSF
+// variant runs csf2d_march_step); scratch holds csf2d_block_scratch_bytes bytes (null when that
 // is 0).  Returns a cudaError_t code (0 on success).
 extern "C" int csf2d_block_step(int mode, int T, const void* s_in, const void* s2_in,
                                 void* s_out, void* s2_out, const void* geo, void* scratch,
@@ -46,6 +48,26 @@ extern "C" int csf2d_block_shape(int mode, int T, const CsfParams* params,
   for (int i = 0; i < 8; ++i) shape[i] = v[i];
   return 0;
 }
+
+// The largest T a window launch of the Perturbation variant takes for this
+// configuration (0 for the CSF variant, whose limit is its march plan's,
+// kernels/march2d.py::max_steps).
+extern "C" int csf2d_block_max_steps(int mode, const CsfParams* params) {
+  const CsfParams P = *params;
+  if (P.variant != 1) return 0;
+  switch (mode) {
+    case 0: return window_max_steps([&](int T) { return csf_shape_of<double, kCompressed>(P, T); });
+    case 3: return window_max_steps([&](int T) { return csf_shape_of<double, kSplit>(P, T); });
+    default: return 0;
+  }
+}
+
+// csf2d_march_step(mode, T, s_in, s2_in, s_out, s2_out, geo, scratch, plan,
+// params, stream): T CSF steps on the plan `plan`
+// (kernels/march2d.py::csf2d_march_plan) with its rings in `scratch`;
+// csf2d_march_grid(mode, &grid): the cooperative grid;
+// csf2d_march_limits(out): the most stages and rings a plan holds.
+CSF2D_MARCH_ENTRY_POINTS(double, 0, 3)
 
 extern "C" const char* csf2d_block_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -371,6 +371,9 @@ int sc3d_march_grid_of(int k, int* grid) {
                                 static_cast<cudaStream_t>(stream));                         \
   }                                                                                         \
   extern "C" int sc3d_march_grid(int k, int* grid) { return sc3d_march_grid_of<S>(k, grid); } \
+  extern "C" int flow3d_block_max_steps(int kind) {                                         \
+    return kind == 0 || kind == 1 ? kMaxSteps3 : 0;                                         \
+  }                                                                                         \
   extern "C" const char* flow3d_block_error_string(int code) {                              \
     return cudaGetErrorString(static_cast<cudaError_t>(code));                              \
   }

@@ -30,6 +30,12 @@ extern "C" int sc2d_block_shape(int T, const ScParams* params, long long* shape)
   return 0;
 }
 
+// The largest T a launch takes for this configuration (the window's limit).
+extern "C" int sc2d_block_max_steps(const ScParams* params) {
+  const ScParams P = *params;
+  return window_max_steps([&](int T) { return sc_block_shape_of<double>(P, T); });
+}
+
 extern "C" const char* sc2d_block_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -31,6 +31,12 @@ extern "C" int single2d_block_shape(int T, const Single2dParams* params, long lo
   return 0;
 }
 
+// The largest T a launch takes for this configuration (the window's limit).
+extern "C" int single2d_block_max_steps(const Single2dParams* params) {
+  const Single2dParams P = *params;
+  return window_max_steps([&](int T) { return single_block_shape<double>(P, T); });
+}
+
 extern "C" const char* single2d_block_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

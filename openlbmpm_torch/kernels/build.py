@@ -21,8 +21,8 @@ from pathlib import Path
 
 __all__ = ["load_library", "load_libraries", "build_seconds", "BUILD_DIR",
            "NVCC_FLAGS", "EXTRA_FLAGS", "LIBRARIES", "block_fns",
-           "launch_block", "block_tiling", "check_steps", "launch_runtime_k",
-           "work_buffer"]
+           "launch_block", "block_tiling", "check_steps", "split_steps",
+           "max_steps", "launch_runtime_k", "work_buffer"]
 
 # every library of csrc/: the CSF step, the coupled step, the Perturbation
 # step (f32 and bf16; f64 apart), and in three storage types each the
@@ -201,6 +201,43 @@ def check_steps(steps) -> None:
     int."""
     if not isinstance(steps, int) or steps < 1:
         raise ValueError(f"steps {steps!r}: a positive int")
+
+
+def split_steps(steps: int, limit: int) -> list:
+    """The step counts of the launches of a T-step call of `steps` steps
+    when one launch takes at most `limit`: ceil(steps / limit) launches of
+    near-equal counts (the larger first), whose sum is `steps`."""
+    check_steps(steps)
+    if not isinstance(limit, int) or limit < 1:
+        raise ValueError(f"limit {limit!r}: a positive int")
+    n = -(-steps // limit)
+    q, r = divmod(steps, n)
+    return [q + 1] * r + [q] * (n - r)
+
+
+_max_cache: dict = {}
+
+
+def max_steps(lib: str, prefix: str, ints, params=None) -> int:
+    """The largest T one launch of the T-step library `lib` takes for the
+    configuration of `ints` (the state mode or kind where the family has
+    several) and the parameter block `params` (None: the entry point takes
+    none), from its ``<prefix>_max_steps`` entry point: the code that sets
+    the limit (a window that fits, or the launch's step cap)."""
+    key = (lib, prefix, tuple(ints), None if params is None else
+           (type(params).__name__, bytes(params)))
+    if key not in _max_cache:
+        fn = getattr(load_library(lib), f"{prefix}_max_steps")
+        fn.argtypes = [ctypes.c_int] * len(ints) + (
+            [] if params is None else [ctypes.POINTER(type(params))])
+        fn.restype = ctypes.c_int
+        args = list(ints) + ([] if params is None else [ctypes.byref(params)])
+        t = int(fn(*args))
+        if t < 1:
+            raise ValueError(f"{lib}: no launch takes one step of this "
+                             f"configuration ({t})")
+        _max_cache[key] = t
+    return _max_cache[key]
 
 
 def work_buffer(work: dict | None, name: str, shape, dtype, device):

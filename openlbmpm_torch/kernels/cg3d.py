@@ -36,8 +36,11 @@ the bf16 state, decoded once and encoded once) and
 ``cg3d_block_split((f_r, f_b), model, steps)`` (K9-Ts): one launch of
 ``csrc/cg3d_block_{f64,f32,bf16}.cu`` (``csrc/cg3d_block.cuh``: the
 pipelined z-march of ``csrc/march3d.cuh`` on the plan of
-``kernels/march3d.py::cg3d_march_plan``) advances T steps; T is at most
-``MAX_BLOCK_STEPS``.
+``kernels/march3d.py::cg3d_march_plan``) advances T steps; a launch takes
+at most ``MAX_BLOCK_STEPS`` (the mirror of ``csrc/cg3d_block.cuh::
+kMaxSteps3``, which the libraries' ``cg3d_block_max_steps`` returns), and a
+call of more steps runs as ``build.split_steps``'s launches of near-equal
+step counts.
 
 The local form (K12d: one shard of a z- or (z, y)-decomposed domain, the
 counterpart of ``pallas/cg3d.py::build_cg3d_sharded_step``) is
@@ -67,7 +70,7 @@ __all__ = ["LIBRARIES", "Cg3dParams", "Tracer3dParams", "geo_stack3",
            "cg3d_step_split", "cg3d_step_split_reference",
            "coupled3d_step_compressed", "coupled3d_step_compressed_reference",
            "BLOCK_LIBRARIES", "MAX_BLOCK_STEPS",
-           "cg3d_block_tiling",
+           "cg3d_block_max_steps", "cg3d_block_tiling",
            "launch_cg3d_block", "cg3d_block_compressed",
            "cg3d_block_compressed_reference", "cg3d_block_split",
            "cg3d_block_split_reference", "LOCAL_LIBRARIES", "LOCAL_REACH",
@@ -427,7 +430,9 @@ _BLOCK_LIBS = {torch.float64: "cg3d_block_f64",
                torch.float32: "cg3d_block_f32",
                torch.bfloat16: "cg3d_block_bf16"}
 BLOCK_LIBRARIES = tuple(_BLOCK_LIBS.values())
-MAX_BLOCK_STEPS = 8    # csrc/cg3d_block.cuh::kMaxSteps3
+# the launcher's refusal, a mirror of csrc/cg3d_block.cuh::kMaxSteps3; the
+# wrappers split a call by the library's own cg3d_block_max_steps
+MAX_BLOCK_STEPS = 8
 
 
 def _march_plan(params: Cg3dParams, dtype, split: bool, steps: int,
@@ -492,17 +497,39 @@ def launch_cg3d_block(state, params: Cg3dParams, geo: torch.Tensor,
     return out
 
 
+def cg3d_block_max_steps(dtype, split: bool) -> int:
+    """The largest T one K9-T launch takes for a state of `dtype` in the
+    split layout or not: the library's ``kMaxSteps3``
+    (``build.max_steps``)."""
+    return build.max_steps(_BLOCK_LIBS[dtype], "cg3d_block", (int(split),))
+
+
 def _block_model(t: torch.Tensor, model, steps):
     build.check_steps(steps)
     _check_model_device(t, model)
+
+
+def _block_calls(state, model, steps: int, fn):
+    """`steps` steps of a CUDA state as ``build.split_steps``'s launches of
+    ``launch_cg3d_block``, each counted on `fn`."""
+    split = not torch.is_tensor(state)
+    dtype = state[0].dtype if split else state.dtype
+    for t in build.split_steps(steps, cg3d_block_max_steps(dtype, split)):
+        state = launch_cg3d_block(state, model.kernel_params,
+                                  model.geo_planes, t)
+        fn.launches += 1
+    return state
 
 
 def cg3d_block_compressed(s: torch.Tensor, model, steps: int) -> torch.Tensor:
     """`steps` compressed D3Q19 CSF steps (boundary slabs before each) for
     `model`, a ColorGradientRK3D: the (20, nz, ny, nx) state in
     ``model.dtype`` or the 21-plane bfloat16 state.  CPU tensor: the plain
-    version.  CUDA tensor: one launch of K9-Tc / K9-Th, or an error; never
-    the plain version."""
+    version.  CUDA tensor: K9-Tc / K9-Th, one launch when T fits one
+    (``cg3d_block_max_steps``), else ``build.split_steps``'s launches, each
+    counted; or an error; never the plain version.  A bf16 state is decoded
+    and encoded once a launch, so a chunked bf16 call equals the same
+    chunks of plain calls."""
     if s.device.type == "cpu":
         return cg3d_block_compressed_reference(s, model, steps)
     _block_model(s, model, steps)
@@ -510,9 +537,7 @@ def cg3d_block_compressed(s: torch.Tensor, model, steps: int) -> torch.Tensor:
             s.dtype == torch.bfloat16 and model.dtype != torch.float32):
         raise ValueError(f"state {s.dtype}; the model takes {model.dtype} or, "
                          "in float32 arithmetic, bfloat16")
-    out = launch_cg3d_block(s, model.kernel_params, model.geo_planes, steps)
-    cg3d_block_compressed.launches += 1
-    return out
+    return _block_calls(s, model, steps, cg3d_block_compressed)
 
 
 cg3d_block_compressed.launches = 0
@@ -535,8 +560,9 @@ def cg3d_block_compressed_reference(s: torch.Tensor, model,
 def cg3d_block_split(state, model, steps: int):
     """`steps` split D3Q19 CSF steps (f_r, f_b) -> (f_r', f_b') (boundary
     slabs before each) for `model`, a ColorGradientRK3D.  CPU tensors: the
-    plain version.  CUDA tensors: one launch of K9-Ts, or an error; never
-    the plain version."""
+    plain version.  CUDA tensors: K9-Ts, one launch when T fits one, else
+    ``build.split_steps``'s launches, each counted; or an error; never the
+    plain version."""
     f_r, f_b = state
     if f_r.device != f_b.device:
         raise ValueError(f"f_r on device {f_r.device}, f_b on {f_b.device}")
@@ -546,10 +572,7 @@ def cg3d_block_split(state, model, steps: int):
     if f_r.dtype != model.dtype or f_b.dtype != model.dtype:
         raise ValueError(f"split state {f_r.dtype}/{f_b.dtype}; the model "
                          f"takes {model.dtype}")
-    out = launch_cg3d_block((f_r, f_b), model.kernel_params,
-                            model.geo_planes, steps)
-    cg3d_block_split.launches += 1
-    return out
+    return _block_calls((f_r, f_b), model, steps, cg3d_block_split)
 
 
 cg3d_block_split.launches = 0

@@ -9,9 +9,15 @@ Perturbation variant (K4) in the same three layouts (K4c, K4h, K4s) in
 ``csrc/pert2d.cu`` (``csrc/pert2d.cuh``; the f64 instances in their own
 library, ``csrc/pert2d_f64.cu``).  T > 1 steps per call
 (``steps_per_call``, K3): both variants in the three layouts (K3c, K3h,
-K3s) in ``csrc/csf2d_block_{f64,f32,bf16}.cu`` (``csrc/csf2d_block.cuh``),
-one library per storage type.  The local form of K3 (K12a: one shard of
-a y or (y, x) decomposed domain, both variants, compressed f32 and f64) is
+K3s) in ``csrc/csf2d_block_{f64,f32,bf16}.cu``, one library per storage
+type: the CSF variant as the row-march of ``csrc/march2d.cuh`` (one
+cooperative launch on the plan of ``kernels/march2d.py::csf2d_march_plan``,
+which the wrapper builds once a configuration), the Perturbation variant on
+the halo windows of ``csrc/csf2d_block.cuh``.  A T-step call above one
+launch's limit (``csf_block_max_steps``: the march plan's, or the largest
+window that fits) runs as ``build.split_steps``'s launches.  The local
+form of K3 (K12a: one shard of a y or (y, x) decomposed domain, both
+variants, compressed f32 and f64) is
 ``csrc/csf2d_local_{f64,f32}.cu``, and ``build_csf_sharded_step`` (the
 counterpart of ``pallas/csf.py::build_csf_sharded_step``) drives it and
 the coupled one (``kernels/transport.py``) over a mesh
@@ -43,7 +49,7 @@ from ..geometry import Geometry, solid_normals, wetting_masks
 from ..lattice import D2Q9
 from ..ops.colorgrad import contact_angle_terms
 from ..ops.equilibrium import rk_constants
-from . import build
+from . import build, march2d, march3d
 
 __all__ = ["geo_stack", "CsfParams", "kernel_params", "launch_csf2d",
            "launch_csf2d_split", "csf_step_compressed",
@@ -52,7 +58,7 @@ __all__ = ["geo_stack", "CsfParams", "kernel_params", "launch_csf2d",
            "pert_step_compressed_reference", "pert_step_split",
            "pert_step_split_reference", "compare_bf16_states",
            "BLOCK_LIBRARIES", "launch_csf2d_block", "launch_csf2d_block_split",
-           "csf_block_tiling", "csf_block_compressed",
+           "csf_block_tiling", "csf_block_max_steps", "csf_block_compressed",
            "csf_block_compressed_reference",
            "csf_block_split", "csf_block_split_reference",
            "pert_block_compressed", "pert_block_compressed_reference",
@@ -407,20 +413,79 @@ def _block_fns(lib: str):
     return build.block_fns(lib, "csf2d", 2, 6, CsfParams)
 
 
+def _march_args(params: CsfParams, dtype, split: bool):
+    """(shape, compute item size, split, inlet, outlet, wetting, repair): a
+    K3 CSF march plan's configuration."""
+    return ((params.ny, params.nx), 8 if dtype == torch.float64 else 4,
+            bool(split), int(params.inlet != 0), int(params.outlet),
+            bool(params.has_wetting), bool(params.phi_repair))
+
+
+def _march_plan(params: CsfParams, dtype, split: bool, steps: int,
+                device="cuda"):
+    """K3's CSF plan for `params` and a state of `dtype`, built once a
+    process a configuration: (plan, its table on `device`)."""
+    args = _march_args(params, dtype, split)
+    key = ("csf2d", steps, march2d.ROWS_PER_WAVE) + args
+    return march3d.device_plan(key, lambda: march2d.csf2d_march_plan(
+        args[0], steps, *args[1:]), device)
+
+
+_march_limits: dict = {}
+
+
+def csf_block_max_steps(dtype, split: bool, params: CsfParams) -> int:
+    """The largest T one K3 launch takes for `params` and a state of `dtype`
+    (the split layout if `split`): the CSF variant's march plan's
+    (``march2d.max_steps``), the Perturbation variant's largest window
+    (the library's ``csf2d_block_max_steps``)."""
+    if params.variant == 1:
+        mode = (_SPLIT_CODE if split else _STORAGE_CODE)[dtype]
+        return build.max_steps(_BLOCK_LIBS[dtype], "csf2d_block", (mode,),
+                               params)
+    args = _march_args(params, dtype, split)
+    if args not in _march_limits:
+        _march_limits[args] = march2d.max_steps(
+            lambda t: march2d.csf2d_stages(args[0][0], t, *args[1:]))
+    return _march_limits[args]
+
+
 def csf_block_tiling(dtype, split: bool, params: CsfParams,
                      steps: int) -> dict:
-    """How a K3 launch of `steps` steps tiles the domain of `params` for a
-    state of `dtype` (``build.block_tiling``)."""
+    """How a K3 launch of `steps` steps covers the domain of `params` for a
+    state of `dtype`: the CSF variant's march plan's fields (levels, lag,
+    rows a wave, ring depths and bytes, waves, stages; "march": "rows") and
+    its cooperative grid, the Perturbation variant's window tiling
+    (``build.block_tiling``)."""
     mode = (_SPLIT_CODE if split else _STORAGE_CODE)[dtype]
     lib = _BLOCK_LIBS[dtype]
+    if params.variant == 0:
+        plan, _ = _march_plan(params, dtype, split, steps)
+        return plan.fields() | {"march": "rows", "grid": march3d.march_grid(
+            lib, "csf2d", 2, 5, CsfParams, mode)}
     return build.block_tiling(lib, _block_fns(lib), (mode, steps), params)
+
+
+def _launch_block(mode, tensors, params: CsfParams, steps: int):
+    """One K3 launch of `steps` steps on `tensors` (s, s2, out, out2, geo):
+    the CSF variant's march, or the Perturbation variant's windows."""
+    lib = _BLOCK_LIBS[tensors[0].dtype]
+    if params.variant == 0:
+        plan, table = _march_plan(params, tensors[0].dtype, mode >= 3, steps,
+                                  tensors[0].device)
+        march3d.march_launch(lib, "csf2d", (mode, steps), tensors, plan,
+                             table, params)
+    else:
+        build.launch_block(lib, _block_fns(lib), (mode, steps), tensors,
+                           params)
 
 
 def launch_csf2d_block(s: torch.Tensor, params: CsfParams, geo: torch.Tensor,
                        steps: int) -> torch.Tensor:
-    """`steps` kernel steps (one launch, K3c or K3h) of the compressed CUDA
-    state `s` (as ``launch_csf2d``), for the variant of `params`.  Not
-    counted as a launch."""
+    """`steps` kernel steps (one launch, K3c or K3h: the march for the CSF
+    variant, the windows for the Perturbation one) of the compressed CUDA
+    state `s` (as ``launch_csf2d``), for the variant of `params`; a T above
+    the launch's limit is refused.  Not counted as a launch."""
     ny, nx = params.ny, params.nx
     bf16 = s.dtype == torch.bfloat16
     planes = 11 if bf16 else 10
@@ -430,9 +495,8 @@ def launch_csf2d_block(s: torch.Tensor, params: CsfParams, geo: torch.Tensor,
     _check_domain(params, geo, torch.float32 if bf16 else s.dtype, s)
     s = s.contiguous()
     out = torch.empty_like(s)
-    lib = _BLOCK_LIBS[s.dtype]
-    build.launch_block(lib, _block_fns(lib), (_STORAGE_CODE[s.dtype], steps),
-                       (s, None, out, None, geo), params)
+    _launch_block(_STORAGE_CODE[s.dtype], (s, None, out, None, geo), params,
+                  steps)
     return out
 
 
@@ -450,9 +514,8 @@ def launch_csf2d_block_split(f_r: torch.Tensor, f_b: torch.Tensor,
     _check_domain(params, geo, f_r.dtype, f_r, f_b)
     f_r, f_b = f_r.contiguous(), f_b.contiguous()
     out_r, out_b = torch.empty_like(f_r), torch.empty_like(f_b)
-    lib = _BLOCK_LIBS[f_r.dtype]
-    build.launch_block(lib, _block_fns(lib), (_SPLIT_CODE[f_r.dtype], steps),
-                       (f_r, f_b, out_r, out_b, geo), params)
+    _launch_block(_SPLIT_CODE[f_r.dtype], (f_r, f_b, out_r, out_b, geo),
+                  params, steps)
     return out_r, out_b
 
 
@@ -465,19 +528,25 @@ def _block_compressed(s, model, steps, variant, fn):
     if s.dtype not in (torch.bfloat16, model.dtype):
         raise ValueError(f"state {s.dtype}; the model takes {model.dtype} or "
                          "bfloat16")
-    out = launch_csf2d_block(s, model.kernel_params, model.geo_planes, steps)
-    fn.launches += 1
-    return out
+    params = model.kernel_params
+    for t in build.split_steps(steps, csf_block_max_steps(s.dtype, False,
+                                                          params)):
+        s = launch_csf2d_block(s, params, model.geo_planes, t)
+        fn.launches += 1
+    return s
 
 
 def _block_split(state, model, steps, variant, fn):
     build.check_steps(steps)
     f_r, f_b = state
     _check_split_state(f_r, f_b, model, variant)
-    out = launch_csf2d_block_split(f_r, f_b, model.kernel_params,
-                                   model.geo_planes, steps)
-    fn.launches += 1
-    return out
+    params = model.kernel_params
+    for t in build.split_steps(steps, csf_block_max_steps(f_r.dtype, True,
+                                                          params)):
+        f_r, f_b = launch_csf2d_block_split(f_r, f_b, params,
+                                            model.geo_planes, t)
+        fn.launches += 1
+    return f_r, f_b
 
 
 def _block_reference_compressed(s, model, steps, variant):
@@ -503,8 +572,12 @@ def _block_reference_split(state, model, steps, variant):
 
 def csf_block_compressed(s: torch.Tensor, model, steps: int) -> torch.Tensor:
     """`steps` compressed CSF steps of `s` for `model` (BC rows before each
-    step).  CPU tensor: the plain version.  CUDA tensor: one launch of K3c
-    (f32 / f64) or K3h (bf16), or an error; never the plain version."""
+    step).  CPU tensor: the plain version.  CUDA tensor: K3c (f32 / f64) or
+    K3h (bf16), the row-march, one launch when T fits one
+    (``csf_block_max_steps``), else ``build.split_steps``'s launches, each
+    counted; or an error; never the plain version.  A bf16 state is decoded
+    and encoded once a launch, so a chunked bf16 call equals the same
+    chunks of plain calls."""
     if s.device.type == "cpu":
         return csf_block_compressed_reference(s, model, steps)
     return _block_compressed(s, model, steps, "CSF", csf_block_compressed)
@@ -521,7 +594,9 @@ def csf_block_compressed_reference(s, model, steps: int):
 
 def csf_block_split(state, model, steps: int):
     """`steps` split CSF steps of (f_r, f_b) for `model`.  CPU tensors: the
-    plain version.  CUDA tensors: one launch of K3s, or an error."""
+    plain version.  CUDA tensors: K3s (the row-march), one launch when T fits
+    one, else ``build.split_steps``'s launches, each counted; or an
+    error."""
     if _on_cpu(*state):
         return csf_block_split_reference(state, model, steps)
     return _block_split(state, model, steps, "CSF", csf_block_split)
@@ -538,8 +613,10 @@ def csf_block_split_reference(state, model, steps: int):
 
 def pert_block_compressed(s: torch.Tensor, model, steps: int) -> torch.Tensor:
     """`steps` compressed Perturbation steps of `s` for `model`.  CPU
-    tensor: the plain version.  CUDA tensor: one launch of K3c or K3h (the
-    Perturbation instances), or an error."""
+    tensor: the plain version.  CUDA tensor: K3c or K3h (the Perturbation
+    instances, on the windows), one launch when the largest window holds T,
+    else ``build.split_steps``'s launches, each counted; or an error.  A
+    bf16 state is decoded and encoded once a launch."""
     if s.device.type == "cpu":
         return pert_block_compressed_reference(s, model, steps)
     return _block_compressed(s, model, steps, "Perturbation",
@@ -556,8 +633,9 @@ def pert_block_compressed_reference(s, model, steps: int):
 
 def pert_block_split(state, model, steps: int):
     """`steps` split Perturbation steps of (f_r, f_b) for `model`.  CPU
-    tensors: the plain version.  CUDA tensors: one launch of K3s (the
-    Perturbation instance), or an error."""
+    tensors: the plain version.  CUDA tensors: K3s (the Perturbation
+    instance, on the windows), one launch when the largest window holds T,
+    else ``build.split_steps``'s launches, each counted; or an error."""
     if _on_cpu(*state):
         return pert_block_split_reference(state, model, steps)
     return _block_split(state, model, steps, "Perturbation", pert_block_split)

@@ -26,8 +26,11 @@ The T-step forms (K11-T, K10-T: ``steps_per_call`` = T > 1 of the same TPU
 kernels) are ``single3d_block_step(f, model, steps)`` and
 ``sc3d_block_step(f, model, steps)``: one launch of
 ``csrc/flow3d_block_{f64,f32,bf16}.cu`` (``csrc/flow3d_block.cuh``) advances
-T steps, a bf16 state decoded once and encoded once; T is at most
-``MAX_BLOCK_STEPS``.  K11-T runs bricks with windows (``csrc/block3d.cuh``);
+T steps, a bf16 state decoded once and encoded once; a launch takes at
+most ``MAX_BLOCK_STEPS`` (the mirror of ``csrc/block3d.cuh::kMaxSteps3``,
+which the libraries' ``flow3d_block_max_steps`` returns), and a call of
+more steps runs as ``build.split_steps``'s launches of near-equal step
+counts.  K11-T runs bricks with windows (``csrc/block3d.cuh``);
 K10-T the pipelined z-march of ``csrc/march3d.cuh`` on the plan of
 ``kernels/march3d.py::sc3d_march_plan``, which the wrapper builds once a
 shape and hands to the kernel with a scratch buffer for its rings.
@@ -56,6 +59,7 @@ __all__ = ["LIBRARIES", "KMAX", "RT_LIBRARY", "Flow3dParams",
            "launch_single3d", "launch_sc3d",
            "single3d_step", "single3d_step_reference", "sc3d_step",
            "sc3d_step_reference", "BLOCK_LIBRARIES", "MAX_BLOCK_STEPS",
+           "flow3d_block_max_steps",
            "flow3d_block_tiling", "launch_flow3d_block",
            "single3d_block_step", "single3d_block_step_reference",
            "sc3d_block_step", "sc3d_block_step_reference",
@@ -311,7 +315,9 @@ _BLOCK_LIBS = {torch.float64: "flow3d_block_f64",
                torch.float32: "flow3d_block_f32",
                torch.bfloat16: "flow3d_block_bf16"}
 BLOCK_LIBRARIES = tuple(_BLOCK_LIBS.values())
-MAX_BLOCK_STEPS = 8    # csrc/block3d.cuh::kMaxSteps3 (K11-T, K10-T)
+# the launchers' refusal, a mirror of csrc/block3d.cuh::kMaxSteps3 (K11-T,
+# K10-T); the wrappers split a call by the library's own flow3d_block_max_steps
+MAX_BLOCK_STEPS = 8
 _KIND = {"single": 0, "sc": 1}
 _TILING_KEYS = ("tx", "ty", "tz", "halo", "gmem", "grid", "window_bytes",
                 "max_steps")
@@ -388,6 +394,30 @@ def launch_flow3d_block(f: torch.Tensor, params: Flow3dParams,
     return out
 
 
+def flow3d_block_max_steps(dtype, kind: str) -> int:
+    """The largest T one K11-T (`kind` "single") or K10-T ("sc") launch
+    takes for a state of `dtype`: the library's ``kMaxSteps3``
+    (``build.max_steps``)."""
+    return build.max_steps(_BLOCK_LIBS[dtype], "flow3d_block", (_KIND[kind],))
+
+
+def _block_calls(f: torch.Tensor, model, kind: str, steps: int, fn):
+    """`steps` steps of the CUDA state `f` as ``build.split_steps``'s
+    launches of ``launch_flow3d_block``, each counted on `fn`; above KMAX
+    fluids one call of the runtime-K instance."""
+    params = model.kernel_params
+    table = model.kernel_table if kind == "sc" else None
+    if kind == "sc" and params.k > KMAX:
+        chunks = [steps]
+    else:
+        chunks = build.split_steps(steps, flow3d_block_max_steps(f.dtype,
+                                                                 kind))
+    for t in chunks:
+        f = launch_flow3d_block(f, params, model.fluid_u8, kind, t, table)
+        fn.launches += 1
+    return f
+
+
 def _block_state(f: torch.Tensor, model, steps, what: str):
     build.check_steps(steps)
     if f.device.type != "cuda":
@@ -415,15 +445,15 @@ def _block_reference(f: torch.Tensor, model, steps: int) -> torch.Tensor:
 def single3d_block_step(f: torch.Tensor, model, steps: int) -> torch.Tensor:
     """`steps` D3Q19 single-phase steps for `model`, a SinglePhaseD3Q19: a
     (19, nz, ny, nx) state in ``model.dtype`` or the (21, nz, ny, nx)
-    bfloat16 state.  CPU tensor: the plain version.  CUDA tensor: one
-    launch of K11-T, or an error; never the plain version."""
+    bfloat16 state.  CPU tensor: the plain version.  CUDA tensor: K11-T,
+    one launch when T fits one (``flow3d_block_max_steps``), else
+    ``build.split_steps``'s launches, each counted; or an error; never the
+    plain version.  A bf16 state is decoded and encoded once a launch, so a
+    chunked bf16 call equals the same chunks of plain calls."""
     if f.device.type == "cpu":
         return single3d_block_step_reference(f, model, steps)
     _block_state(f, model, steps, "D3Q19 single-phase")
-    out = launch_flow3d_block(f, model.kernel_params, model.fluid_u8,
-                              "single", steps)
-    single3d_block_step.launches += 1
-    return out
+    return _block_calls(f, model, "single", steps, single3d_block_step)
 
 
 single3d_block_step.launches = 0
@@ -439,15 +469,16 @@ def single3d_block_step_reference(f: torch.Tensor, model,
 def sc3d_block_step(f: torch.Tensor, model, steps: int) -> torch.Tensor:
     """`steps` D3Q19 Shan-Chen steps for `model`, a ShanChenMCMP3D: a
     (K, 19, nz, ny, nx) state in ``model.dtype`` or the (K, 21, nz, ny, nx)
-    bfloat16 state.  CPU tensor: the plain version.  CUDA tensor: one
-    launch of K10-T, or an error; never the plain version."""
+    bfloat16 state.  CPU tensor: the plain version.  CUDA tensor: K10-T,
+    one launch when T fits one (``flow3d_block_max_steps``), else
+    ``build.split_steps``'s launches, each counted (above KMAX fluids one
+    call of the runtime-K instance); or an error; never the plain version.
+    A bf16 state is decoded and encoded once a launch, so a chunked bf16
+    call equals the same chunks of plain calls."""
     if f.device.type == "cpu":
         return sc3d_block_step_reference(f, model, steps)
     _block_state(f, model, steps, "D3Q19 Shan-Chen")
-    out = launch_flow3d_block(f, model.kernel_params, model.fluid_u8, "sc",
-                              steps, model.kernel_table)
-    sc3d_block_step.launches += 1
-    return out
+    return _block_calls(f, model, "sc", steps, sc3d_block_step)
 
 
 sc3d_block_step.launches = 0

@@ -77,7 +77,9 @@ __all__ = ["LOAD", "COLLIDE", "STREAM", "BC", "EXTRAP", "NORMAL",
 
 # stage kinds, as csrc/march3d.cuh numbers them
 LOAD, COLLIDE, STREAM, BC, EXTRAP, NORMAL = range(6)
-KIND_NAMES = ("load", "collide", "stream", "bc", "extrap", "normal")
+# the 2-D row-march's stages (kernels/march2d.py) go on from 6
+KIND_NAMES = ("load", "collide", "stream", "bc", "extrap", "normal", "phi",
+              "tcollide", "tstream")
 Q = 19
 HEADER = 16          # int64 words before the stage table
 STAGE_WORDS = 8      # kind, level, e, ring ids 0-3, spare
@@ -113,7 +115,10 @@ class Stage:
     """One stage of one level.  `writes` are arrays it produces (new slabs),
     `modifies` arrays it rewrites in place; `back` is how many slabs below
     its readers' reads an in-place writer must also cover (its rewrites
-    reach that far above the slab that triggers them); `rings` the arrays
+    reach that far above the slab that triggers them), and an in-place
+    writer also waits for the stages before it that read the array's
+    earlier values; `output` marks a stage that writes the launch's output
+    (it covers the domain's slabs, as the last stage does); `rings` the arrays
     the kernel hands it, in the kernel's order ("" where it reads or writes
     device memory instead); `slabs` the domain slabs (mod nz) at which it
     has work, None for every slab (the boundary slabs' triggers).  The plan
@@ -127,6 +132,7 @@ class Stage:
     back: int = 0
     rings: tuple = ()
     slabs: tuple | None = None
+    output: bool = False
     d: int = 0
     lo: int = 0
     hi: int = -1
@@ -249,17 +255,26 @@ def build_plan(family: str, stages: list, arrays: dict, shape, steps: int,
     if n > MAX_STAGES or len(arrays) > MAX_RINGS:
         raise ValueError(f"{n} stages and {len(arrays)} rings: a plan holds "
                          f"at most {MAX_STAGES} and {MAX_RINGS}")
-    # wave offsets, forward
+    # wave offsets, forward: after the writers of what a stage reads, and
+    # an in-place writer after the earlier readers of what it rewrites (a
+    # reader of slab v reads down to v - zlo, a rewrite triggered at u
+    # reaches u + back)
     for c, st in enumerate(stages):
         st.d = 0
         for r in st.reads:
             for q in _writers(stages, c, r.array):
                 st.d = max(st.d, stages[q].d + r.zhi + z)
-    # slab coverage and rows a side, backward from the last stage
-    last = stages[-1]
-    last.lo, last.hi, last.e = 0, nz - 1, 0
-    for st in stages[:-1]:
-        st.lo, st.hi, st.e = 10 ** 9, -10 ** 9, 0
+        for a in st.modifies:
+            for q in range(c):
+                for r in stages[q].reads:
+                    if r.array == a:
+                        st.d = max(st.d, stages[q].d + r.zlo + st.back + z)
+    # slab coverage and rows a side, backward from the output stages
+    for c, st in enumerate(stages):
+        if st.output or c == n - 1:
+            st.lo, st.hi, st.e = 0, nz - 1, 0
+        else:
+            st.lo, st.hi, st.e = 10 ** 9, -10 ** 9, 0
     for c in range(n - 1, -1, -1):
         st = stages[c]
         if st.lo > st.hi:
@@ -823,7 +838,8 @@ def cg3d_march_reference(state, model, steps: int, plan: Plan | None = None):
 _plans: dict = {}
 _fns: dict = {}
 # the library family whose error-string entry point a march library shares
-_ERROR_PREFIX = {"sc3d": "flow3d", "cg3d": "cg3d"}
+_ERROR_PREFIX = {"sc3d": "flow3d", "cg3d": "cg3d", "csf2d": "csf2d",
+                 "coupled2d": "coupled2d"}
 
 
 def device_plan(key, make, device):
@@ -862,7 +878,8 @@ def _march_fns(lib: str, prefix: str, ints: int, pointers: int,
 def march_grid(lib: str, prefix: str, ints: int, pointers: int,
                params_type, which: int) -> int:
     """The cooperative grid (blocks) of a march library's kernel instance
-    `which` (K10-T: the fluids; K9-T: split)."""
+    `which` (K10-T: the fluids; K9-T: split; K3: the state mode; K5c-T: 10
+    state mode + NQ)."""
     import ctypes
     step, grid, err = _march_fns(lib, prefix, ints, pointers, params_type)
     out = ctypes.c_int(0)

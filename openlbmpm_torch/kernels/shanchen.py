@@ -43,6 +43,7 @@ __all__ = ["KMAX", "LIBRARIES", "BLOCK_LIBRARIES", "RT_LIBRARY", "ScParams",
            "geo_stack", "kernel_params", "fluid_table", "launch_sc2d",
            "sc_step", "sc_step_reference", "launch_sc2d_block",
            "sc_block_step", "sc_block_step_reference", "sc_block_tiling",
+           "sc_block_max_steps",
            "LOCAL_LIBRARIES", "sc_local_frame", "launch_sc2d_local",
            "sc_local_step", "sc_local_step_reference",
            "build_sc_sharded_step"]
@@ -308,6 +309,13 @@ def sc_block_tiling(dtype, params: ScParams, steps: int) -> dict:
     return build.block_tiling(lib, _block_fns(lib), (steps,), params)
 
 
+def sc_block_max_steps(dtype, params: ScParams) -> int:
+    """The largest T one K8-T launch takes for `params` and a state of
+    `dtype`: the library's window limit (``build.max_steps``)."""
+    lib = _BLOCK_LIBS[dtype]
+    return build.max_steps(lib, "sc2d_block", (), params)
+
+
 def launch_sc2d_block(f: torch.Tensor, params: ScParams, geo: torch.Tensor,
                       steps: int,
                       table: torch.Tensor | None = None) -> torch.Tensor:
@@ -330,8 +338,12 @@ def sc_block_step(f: torch.Tensor, model, steps: int) -> torch.Tensor:
     """`steps` Shan-Chen steps (inlet rows before, outlet rows after each)
     for `model`, a ShanChenMCMP: a (K, 9, ny, nx) state in ``model.dtype``
     or the (K, 11, ny, nx) bfloat16 state (``pack_state_bf16``).  CPU
-    tensor: the plain version.  CUDA tensor: one launch of K8-T, or an
-    error; never the plain version."""
+    tensor: the plain version.  CUDA tensor: K8-T, one launch when T fits
+    one (``sc_block_max_steps``), else ``build.split_steps``'s launches of
+    near-equal step counts, each counted; or an error; never the plain
+    version.  A bf16 state is decoded and encoded once a launch, so a
+    chunked bf16 call equals the same chunks of plain calls.  Above KMAX
+    fluids the runtime-K instance takes any T in one call."""
     if f.device.type == "cpu":
         return sc_block_step_reference(f, model, steps)
     build.check_steps(steps)
@@ -344,10 +356,14 @@ def sc_block_step(f: torch.Tensor, model, steps: int) -> torch.Tensor:
             f.dtype == torch.bfloat16 and model.dtype != torch.float32):
         raise ValueError(f"state {f.dtype}; the model takes {model.dtype} or, "
                          "in float32 arithmetic, bfloat16")
-    out = launch_sc2d_block(f, model.kernel_params, model.geo_planes, steps,
-                            model.kernel_table)
-    sc_block_step.launches += 1
-    return out
+    params = model.kernel_params
+    chunks = [steps] if params.k > KMAX else build.split_steps(
+        steps, sc_block_max_steps(f.dtype, params))
+    for t in chunks:
+        f = launch_sc2d_block(f, params, model.geo_planes, t,
+                              model.kernel_table)
+        sc_block_step.launches += 1
+    return f
 
 
 sc_block_step.launches = 0

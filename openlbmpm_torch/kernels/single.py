@@ -36,6 +36,7 @@ __all__ = ["LIBRARIES", "BLOCK_LIBRARIES", "Single2dParams", "kernel_params",
            "launch_single2d", "single_step", "single_step_reference",
            "launch_single2d_block", "single_block_step",
            "single_block_step_reference", "single_block_tiling",
+           "single_block_max_steps",
            "LOCAL_LIBRARIES", "single_local_frame", "launch_single2d_local",
            "single_local_step", "single_local_step_reference",
            "build_single_sharded_step"]
@@ -182,6 +183,13 @@ def single_block_tiling(dtype, params: Single2dParams, steps: int) -> dict:
     return build.block_tiling(lib, _block_fns(lib), (steps,), params)
 
 
+def single_block_max_steps(dtype, params: Single2dParams) -> int:
+    """The largest T one K7-T launch takes for `params` and a state of
+    `dtype`: the library's window limit (``build.max_steps``)."""
+    lib = _BLOCK_LIBS[dtype]
+    return build.max_steps(lib, "single2d_block", (), params)
+
+
 def launch_single2d_block(f: torch.Tensor, params: Single2dParams,
                           fluid: torch.Tensor, steps: int) -> torch.Tensor:
     """`steps` kernel steps (one launch) of the CUDA state `f` (as
@@ -207,8 +215,11 @@ def single_block_step(f: torch.Tensor, model, steps: int) -> torch.Tensor:
     """`steps` single-phase steps (BC rows after each) for `model`, a
     SinglePhaseD2Q9: a (9, ny, nx) state in ``model.dtype`` or the
     (11, ny, nx) bfloat16 state (``pack_state_bf16``).  CPU tensor: the plain
-    version.  CUDA tensor: one launch of K7-T, or an error; never the plain
-    version."""
+    version.  CUDA tensor: K7-T, one launch when T fits one
+    (``single_block_max_steps``), else ``build.split_steps``'s launches of
+    near-equal step counts, each counted; or an error; never the plain
+    version.  A bf16 state is decoded and encoded once a launch, so a
+    chunked bf16 call equals the same chunks of plain calls."""
     if f.device.type == "cpu":
         return single_block_step_reference(f, model, steps)
     build.check_steps(steps)
@@ -221,9 +232,12 @@ def single_block_step(f: torch.Tensor, model, steps: int) -> torch.Tensor:
             f.dtype == torch.bfloat16 and model.dtype != torch.float32):
         raise ValueError(f"state {f.dtype}; the model takes {model.dtype} or, "
                          "in float32 arithmetic, bfloat16")
-    out = launch_single2d_block(f, model.kernel_params, model.fluid_u8, steps)
-    single_block_step.launches += 1
-    return out
+    params = model.kernel_params
+    for t in build.split_steps(steps, single_block_max_steps(f.dtype,
+                                                             params)):
+        f = launch_single2d_block(f, params, model.fluid_u8, t)
+        single_block_step.launches += 1
+    return f
 
 
 single_block_step.launches = 0

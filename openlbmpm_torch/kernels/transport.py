@@ -24,8 +24,12 @@ CUDA tensors they launch the kernels or raise.
 The T-step form (K5c-T, ``steps_per_call`` = T > 1 of the same TPU kernel)
 is ``coupled_block_compressed((s, g), model, steps)`` and
 ``coupled_block_split(state, model, steps)``: one launch of
-``csrc/coupled2d_block_{f64,f32,bf16}.cu`` (``csrc/coupled2d_block.cuh``)
-advances T coupled steps, a bf16 flow state decoded once and encoded once.
+``csrc/coupled2d_block_{f64,f32,bf16}.cu`` (the row-march of
+``csrc/march2d.cuh``, one cooperative launch on the plan of
+``kernels/march2d.py::coupled2d_march_plan``) advances T coupled steps, a
+bf16 flow state decoded once and encoded once; a call above one launch's
+limit (``coupled_block_max_steps``, the plan's) runs as
+``build.split_steps``'s launches.
 
 The local form (K12a with transport: one shard of a y or (y, x)
 decomposed domain, compressed f32 and f64 flow, D2Q5 and D2Q9 tracers) is
@@ -40,7 +44,7 @@ import ctypes
 import numpy as np
 import torch
 
-from . import build
+from . import build, march2d, march3d
 from .csf import _SPLIT_CODE, _STORAGE_CODE, CsfParams
 
 __all__ = ["TracerParams", "tracer_kernel_params", "tracer_table",
@@ -48,7 +52,8 @@ __all__ = ["TracerParams", "tracer_kernel_params", "tracer_table",
            "coupled_step_compressed", "coupled_step_compressed_reference",
            "coupled_step_split", "coupled_step_split_reference",
            "CoupledParams", "BLOCK_LIBRARIES", "coupled_block_params",
-           "coupled_block_tiling", "launch_coupled2d_block",
+           "coupled_block_tiling", "coupled_block_max_steps",
+           "launch_coupled2d_block",
            "launch_coupled2d_block_split", "coupled_block_compressed",
            "coupled_block_compressed_reference", "coupled_block_split",
            "coupled_block_split_reference", "LOCAL_LIBRARIES",
@@ -312,11 +317,47 @@ _BLOCK_LIBS = {torch.float64: "coupled2d_block_f64",
 BLOCK_LIBRARIES = tuple(_BLOCK_LIBS.values())
 
 
-def _block_fns(lib: str):
-    """(step, scratch_bytes, shape, error_string) of a K5c-T library: ints
-    (state mode, T), pointers (s, s2, out, out2, geo, g, g_out, table,
-    scratch)."""
-    return build.block_fns(lib, "coupled2d", 2, 9, CoupledParams)
+def _march_args(params: CoupledParams, dtype, split: bool):
+    """(shape, compute item size, split, inlet, outlet, wetting, repair,
+    tracer slots): a K5c-T march plan's configuration."""
+    f, t = params.flow, params.tracer
+    return ((f.ny, f.nx), 8 if dtype == torch.float64 else 4, bool(split),
+            int(f.inlet != 0), int(f.outlet), bool(f.has_wetting),
+            bool(f.phi_repair), t.nt * t.nq)
+
+
+def _march_plan(params: CoupledParams, dtype, split: bool, steps: int,
+                device="cuda"):
+    """K5c-T's plan for `params` and a flow state of `dtype`, built once a
+    process a configuration: (plan, its table on `device`)."""
+    args = _march_args(params, dtype, split)
+    key = ("coupled2d", steps, march2d.ROWS_PER_WAVE) + args
+    return march3d.device_plan(key, lambda: march2d.coupled2d_march_plan(
+        args[0], steps, *args[1:]), device)
+
+
+_march_limits: dict = {}
+
+
+def coupled_block_max_steps(dtype, split: bool,
+                            params: CoupledParams) -> int:
+    """The largest T one K5c-T launch takes for `params` and a flow state of
+    `dtype`: its march plan's (``march2d.max_steps``)."""
+    args = _march_args(params, dtype, split)
+    if args not in _march_limits:
+        _march_limits[args] = march2d.max_steps(
+            lambda t: march2d.coupled2d_stages(args[0][0], t, *args[1:]))
+    return _march_limits[args]
+
+
+def _launch_march(mode: int, tensors, params: CoupledParams, steps: int):
+    """One K5c-T launch of `steps` steps on `tensors` (s, s2, out, out2,
+    geo, g, g_out, table)."""
+    lib = _BLOCK_LIBS[tensors[0].dtype]
+    plan, table = _march_plan(params, tensors[0].dtype, mode >= 3, steps,
+                              tensors[0].device)
+    march3d.march_launch(lib, "coupled2d", (mode, steps), tensors, plan,
+                         table, params)
 
 
 def coupled_block_params(model) -> CoupledParams:
@@ -327,18 +368,23 @@ def coupled_block_params(model) -> CoupledParams:
 
 def coupled_block_tiling(dtype, split: bool, params: CoupledParams,
                          steps: int) -> dict:
-    """How a K5c-T launch of `steps` steps tiles the domain of `params` for a
-    flow state of `dtype` (``build.block_tiling``)."""
+    """How a K5c-T launch of `steps` steps covers the domain of `params` for
+    a flow state of `dtype`: its march plan's fields (levels, lag, rows a
+    wave, ring depths and bytes, waves, stages; "march": "rows") and its
+    cooperative grid."""
     mode = (_SPLIT_CODE if split else _STORAGE_CODE)[dtype]
-    lib = _BLOCK_LIBS[dtype]
-    return build.block_tiling(lib, _block_fns(lib), (mode, steps), params)
+    plan, _ = _march_plan(params, dtype, split, steps)
+    return plan.fields() | {"march": "rows", "grid": march3d.march_grid(
+        _BLOCK_LIBS[dtype], "coupled2d", 2, 8, CoupledParams,
+        10 * mode + params.tracer.nq)}
 
 
 def launch_coupled2d_block(s: torch.Tensor, g: torch.Tensor,
                            params: CoupledParams, geo: torch.Tensor,
                            table: torch.Tensor, steps: int):
-    """`steps` coupled kernel steps (one launch) of the compressed CUDA state
-    (s, g), as ``launch_coupled2d`` takes it.  Not counted as a launch."""
+    """`steps` coupled kernel steps (one launch of the march) of the
+    compressed CUDA state (s, g), as ``launch_coupled2d`` takes it.  Not
+    counted as a launch."""
     ny, nx = params.flow.ny, params.flow.nx
     bf16 = s.dtype == torch.bfloat16
     planes = 11 if bf16 else 10
@@ -352,9 +398,8 @@ def launch_coupled2d_block(s: torch.Tensor, g: torch.Tensor,
         raise ValueError("standalone transport has no T-step form")
     s, g, table = s.contiguous(), g.contiguous(), table.contiguous()
     out_s, out_g = torch.empty_like(s), torch.empty_like(g)
-    lib = _BLOCK_LIBS[s.dtype]
-    build.launch_block(lib, _block_fns(lib), (_STORAGE_CODE[s.dtype], steps),
-                       (s, None, out_s, None, geo, g, out_g, table), params)
+    _launch_march(_STORAGE_CODE[s.dtype],
+                  (s, None, out_s, None, geo, g, out_g, table), params, steps)
     return out_s, out_g
 
 
@@ -377,17 +422,21 @@ def launch_coupled2d_block_split(f_r: torch.Tensor, f_b: torch.Tensor,
     f_r, f_b = f_r.contiguous(), f_b.contiguous()
     g, table = g.contiguous(), table.contiguous()
     out_r, out_b, out_g = (torch.empty_like(t) for t in (f_r, f_b, g))
-    lib = _BLOCK_LIBS[f_r.dtype]
-    build.launch_block(lib, _block_fns(lib), (_SPLIT_CODE[f_r.dtype], steps),
-                       (f_r, f_b, out_r, out_b, geo, g, out_g, table), params)
+    _launch_march(_SPLIT_CODE[f_r.dtype],
+                  (f_r, f_b, out_r, out_b, geo, g, out_g, table), params,
+                  steps)
     return out_r, out_b, out_g
 
 
 def coupled_block_compressed(state, model, steps: int):
     """`steps` coupled steps of the compressed state (s, g) for `model`, a
     TransportRK: (s', g').  CPU tensors: the plain version.  CUDA tensors:
-    one launch of K5c-T (an f32 / f64 flow state, or the 11-plane bf16 one
-    in float32 arithmetic), or an error; never the plain version."""
+    K5c-T (an f32 / f64 flow state, or the 11-plane bf16 one in float32
+    arithmetic), one launch of the march when T fits one
+    (``coupled_block_max_steps``), else ``build.split_steps``'s launches,
+    each counted; or an error; never the plain version.  A bf16 flow state
+    is decoded and encoded once a launch, so a chunked bf16 call equals the
+    same chunks of plain calls."""
     s, g = state
     if s.device != g.device:
         raise ValueError(f"state on device {s.device}, tracer PDFs on "
@@ -403,11 +452,13 @@ def coupled_block_compressed(state, model, steps: int):
             s.dtype == torch.bfloat16 and dt != torch.float32):
         raise ValueError(f"state {s.dtype}; the model takes {dt} or, in "
                          "float32 arithmetic, bfloat16")
-    out = launch_coupled2d_block(s, g, coupled_block_params(model),
-                                 model.flow.geo_planes, model.tracer_table,
-                                 steps)
-    coupled_block_compressed.launches += 1
-    return out
+    params = coupled_block_params(model)
+    for t in build.split_steps(steps, coupled_block_max_steps(s.dtype, False,
+                                                              params)):
+        s, g = launch_coupled2d_block(s, g, params, model.flow.geo_planes,
+                                      model.tracer_table, t)
+        coupled_block_compressed.launches += 1
+    return s, g
 
 
 coupled_block_compressed.launches = 0
@@ -432,8 +483,9 @@ def coupled_block_compressed_reference(state, model, steps: int):
 def coupled_block_split(state, model, steps: int):
     """`steps` split coupled steps of the TransportState `state` for
     `model`: a TransportState (mass0 carried).  CPU tensors: the plain
-    version.  CUDA tensors: one launch of K5c-T (the split instance), or an
-    error; never the plain version.  The repairs (conserve_mass,
+    version.  CUDA tensors: K5c-T (the split instance of the march), one
+    launch when T fits one, else ``build.split_steps``'s launches, each
+    counted; or an error; never the plain version.  The repairs (conserve_mass,
     redistribute) have no T-step form (``make_block_step`` builds none)."""
     f_r, f_b, g, mass0 = state
     devices = {t.device for t in (f_r, f_b, g)}
@@ -455,11 +507,13 @@ def coupled_block_split(state, model, steps: int):
         raise ValueError(f"split state {f_r.dtype}/{f_b.dtype}; the model "
                          f"takes {flow.dtype}")
     flow.check_split()
-    out = launch_coupled2d_block_split(f_r, f_b, g, coupled_block_params(model),
-                                       flow.geo_planes, model.tracer_table,
-                                       steps)
-    coupled_block_split.launches += 1
-    return type(state)(*out, mass0)
+    params = coupled_block_params(model)
+    for t in build.split_steps(steps, coupled_block_max_steps(f_r.dtype, True,
+                                                              params)):
+        f_r, f_b, g = launch_coupled2d_block_split(
+            f_r, f_b, g, params, flow.geo_planes, model.tracer_table, t)
+        coupled_block_split.launches += 1
+    return type(state)(f_r, f_b, g, mass0)
 
 
 coupled_block_split.launches = 0

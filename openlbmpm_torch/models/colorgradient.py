@@ -654,9 +654,10 @@ class ColorGradientRK(nn.Module):
         sub-step: on a card one launch of K3 (``kernels/csf.py``: K3s on the
         split state (f_r, f_b), K3c on the compressed one with
         ``compressed``, K3h on the 11-plane bf16 state with ``storage="bf16"``,
-        which is decoded once and encoded once a call); on the CPU T plain
-        steps.  T = 1 gives ``step`` (or ``step_c`` for the model's own
-        storage).
+        which is decoded once and encoded once a launch), or
+        ``build.split_steps``'s launches for a T above one launch's limit;
+        on the CPU T plain steps.  T = 1 gives ``step`` (or ``step_c`` for
+        the model's own storage).
 
         Returns None where the JAX build function builds no kernel on
         grounds of physics or boundaries: an inlet outside periodic / neumann /

@@ -16,7 +16,8 @@ per fluid SRT toward feq(u' + tau_k F_k / rho_k); on a card ``step`` is
 K10 for psi = "rho" and any number of fluids (above three the runtime-K
 instance).  Both store 21 bfloat16 planes a fluid under ``storage="bf16"``
 (kernel configurations only).  Their ``make_block_step`` gives T steps a
-call: on a card one launch of K11-T / K10-T, on the CPU T plain steps.
+call: on a card one launch of K11-T / K10-T (``build.split_steps``'s
+launches above a launch's limit), on the CPU T plain steps.
 ``path`` is decided in the constructor as the JAX build functions decide
 whether they return a kernel; a kernel that fails to build or launch
 raises.  Every model takes ``use_kernel=False`` (the JAX ``use_pallas=
@@ -227,9 +228,10 @@ class SinglePhaseD3Q19(nn.Module):
                         interpret: bool = False, storage: str = "f32"):
         """A step that advances ``steps_per_call`` = T time steps a call (the
         JAX ``make_block_step``): on a card one launch of K11-T
-        (``kernels/flow3d.py::single3d_block_step``) on the (19, nz, ny, nx)
-        state, or with ``storage="bf16"`` on the (21, nz, ny, nx) bfloat16
-        state (decoded once and encoded once a call); on the CPU T plain
+        (``kernels/flow3d.py::single3d_block_step``; ``build.split_steps``'s
+        launches above a launch's limit) on the (19, nz, ny, nx) state, or
+        with ``storage="bf16"`` on the (21, nz, ny, nx) bfloat16 state
+        (decoded once and encoded once a launch); on the CPU T plain
         steps.  T = 1 with the model's own storage gives ``step``.
 
         Returns None for a collision outside SRT / TRT (single3d.py:58-59),
@@ -394,10 +396,11 @@ class ShanChenMCMP3D(nn.Module):
                         interpret: bool = False, storage: str = "f32"):
         """A step that advances ``steps_per_call`` = T time steps a call (the
         JAX ``make_block_step``): on a card one launch of K10-T
-        (``kernels/flow3d.py::sc3d_block_step``) on the (K, 19, nz, ny, nx)
-        state, or with ``storage="bf16"`` on the (K, 21, nz, ny, nx)
-        bfloat16 state (decoded once and encoded once a call); on the CPU T
-        plain steps.  T = 1 with the model's own storage gives ``step``.
+        (``kernels/flow3d.py::sc3d_block_step``; ``build.split_steps``'s
+        launches above a launch's limit) on the (K, 19, nz, ny, nx) state,
+        or with ``storage="bf16"`` on the (K, 21, nz, ny, nx) bfloat16
+        state (decoded once and encoded once a launch); on the CPU T plain
+        steps.  T = 1 with the model's own storage gives ``step``.
 
         Returns None for psi other than "rho" (sc3d.py:106-107) and with
         ``use_kernel=False``.  ``slabs_per_block`` and ``interpret`` tune the
@@ -872,12 +875,13 @@ class ColorGradientRK3D(nn.Module):
                         storage: str = "f32"):
         """A step that advances ``steps_per_call`` = T time steps a call (the
         JAX ``make_block_step``, which builds the split form): on a card one
-        launch of K9-T, the boundary slabs applied before every sub-step --
+        launch of K9-T (``build.split_steps``'s launches above a launch's
+        limit), the boundary slabs applied before every sub-step --
         by default on the split state (f_r, f_b) (K9-Ts,
         ``kernels/cg3d.py::cg3d_block_split``), with ``compressed=True`` on
         the (20, nz, ny, nx) state (K9-Tc, ``cg3d_block_compressed``), and
         with ``storage="bf16"`` as well on the 21-plane bfloat16 state
-        (K9-Th, decoded once and encoded once a call); on the CPU T plain
+        (K9-Th, decoded once and encoded once a launch); on the CPU T plain
         steps.  T = 1 with the model's own storage gives ``step`` /
         ``step_c``.
 

@@ -534,9 +534,10 @@ class ShanChenMCMP(nn.Module):
         """A step that advances ``steps_per_call`` = T time steps per call
         (the JAX ``make_block_step``), the inlet rows rewritten before and
         the outlet rows after every sub-step: on a card one launch of K8-T
-        (``kernels/shanchen.py::sc_block_step``) on the (K, 9, ny, nx)
-        state, or with ``storage="bf16"`` on the (K, 11, ny, nx) bfloat16
-        state (decoded once and encoded once a call); on the CPU T plain
+        (``kernels/shanchen.py::sc_block_step``; ``build.split_steps``'s
+        launches above the largest window) on the (K, 9, ny, nx) state, or
+        with ``storage="bf16"`` on the (K, 11, ny, nx) bfloat16 state
+        (decoded once and encoded once a launch); on the CPU T plain
         steps.  T = 1 with the model's own storage gives ``step``.
 
         Returns None for a moving wall, for ``forcing`` other than "shift"

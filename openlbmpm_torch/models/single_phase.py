@@ -281,10 +281,11 @@ class SinglePhaseD2Q9(nn.Module):
         """A step that advances ``steps_per_call`` = T time steps per call
         (the JAX ``make_block_step``), the boundary rows rewritten after
         every sub-step: on a card one launch of K7-T
-        (``kernels/single.py::single_block_step``) on the (9, ny, nx) state,
-        or with ``storage="bf16"`` on the (11, ny, nx) bfloat16 state
-        (``pack_state_bf16``, decoded once and encoded once a call); on the
-        CPU T plain steps.  T = 1 with the model's own storage gives
+        (``kernels/single.py::single_block_step``; ``build.split_steps``'s
+        launches above the largest window) on the (9, ny, nx) state, or
+        with ``storage="bf16"`` on the (11, ny, nx) bfloat16 state
+        (``pack_state_bf16``, decoded once and encoded once a launch); on
+        the CPU T plain steps.  T = 1 with the model's own storage gives
         ``step``.
 
         Returns None for a moving wall (the JAX blocked K7 has no moving

@@ -9,8 +9,8 @@
   ``storage="bf16"``) -- ``step_c``.
 
 ``make_block_step`` gives the step of T time steps a call (the JAX
-``make_block_step``): on a card one launch of K5c-T, on the CPU T plain
-steps.
+``make_block_step``): on a card one launch of K5c-T (``build.split_steps``'s
+launches above a launch's limit), on the CPU T plain steps.
 
 ``g`` (T, Q, ny, nx) holds the tracer PDFs in the arithmetic type (float32
 with bf16 flow storage).  As in ``_step_impl``, the tracer sub-step sees the
@@ -344,10 +344,11 @@ class TransportRK(nn.Module):
         JAX ``make_block_step``).  With ``compressed`` it maps ``(s, g) ->
         (s', g')``, s the flow's compressed state (``pack``; 11 bfloat16
         planes with ``storage="bf16"``, decoded once and encoded once a
-        call); else the split ``TransportState`` -> ``TransportState``.  On
-        a card one launch of K5c-T (``kernels/transport.py::
-        coupled_block_compressed`` / ``coupled_block_split``), on the CPU T
-        plain steps.  T = 1 gives ``step``, or ``step_c`` for the flow's
+        launch); else the split ``TransportState`` -> ``TransportState``.
+        On a card one launch of K5c-T (``kernels/transport.py::
+        coupled_block_compressed`` / ``coupled_block_split``; several,
+        ``build.split_steps``, above a launch's limit), on the CPU T plain
+        steps.  T = 1 gives ``step``, or ``step_c`` for the flow's
         own storage; with ``conserve_mass`` (T = 1, split) ``step`` marked
         ``needs_mass0``, as the JAX form that takes mass0.
 

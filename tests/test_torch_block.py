@@ -321,10 +321,11 @@ def test_cli_blocked_run_equals_block_1(tmp_path, monkeypatch):
                                   "K10-T seam skipped", "K9-T march z",
                                   "K8 rt tau"])
 def test_chip_faults_patches_one_line(case):
-    """chip_faults.py plants its T-step faults (K3's rows rewritten before
-    the first sub-step only, K8-T's outlet row picked by window row, K7-T's
-    rows after the first sub-step only, K5c-T's tracer rows mapped without
-    the window's offset, K11-T streaming in the first sub-step only, K10-T's
+    """chip_faults.py plants its T-step faults (K3's row-march rewriting
+    the boundary rows at level 0 only, K8-T's outlet row picked by window
+    row, K7-T's rows after the first sub-step only, K5c-T's row-march
+    mapping the tracer's rows without the wrap, K11-T streaming in the
+    first sub-step only, K10-T's
     z-march skipping the slabs it recomputes below the periodic seam,
     K9-T's march picking the inlet slabs by its unwrapped slab), the
     runtime-K Shan-Chen fault (every fluid's common

@@ -829,7 +829,8 @@ def test_new_block_steps_count_one_launch_per_call(cuda):
     """One launch per call of T steps for K5c-T (compressed and split),
     K11-T and K10-T through ``make_block_step``; the bf16 forms decode once
     and encode once a call (within the T=1 bf16 bounds); a T beyond the 3-D
-    kernels' largest raises."""
+    kernels' largest runs as two launches (``build.split_steps``), which
+    the launcher alone refuses."""
     from chip_smoke import coupled_block_case
     from openlbmpm_torch.kernels import flow3d as kf
     from openlbmpm_torch.kernels import transport as kt
@@ -848,8 +849,13 @@ def test_new_block_steps_count_one_launch_per_call(cuda):
     assert kf.single3d_block_step.launches == 1 and h.dtype == torch.bfloat16
     ref = kf.single3d_block_step_reference(m3.pack_state_bf16(f), m3, 4)
     assert _gap(m3.unpack_bf16(h), m3.unpack_bf16(ref)) <= 1.5e-4
+    kf.single3d_block_step.launches = 0
+    t = kf.MAX_BLOCK_STEPS + 1
+    got = kf.single3d_block_step(f, m3, t)
+    assert kf.single3d_block_step.launches == 2
+    assert _gap(got, kf.single3d_block_step_reference(f, m3, t)) <= 2e-5
     with pytest.raises(ValueError, match="at most"):
-        kf.single3d_block_step(f, m3, kf.MAX_BLOCK_STEPS + 1)
+        kf.launch_flow3d_block(f, m3.kernel_params, m3.fluid_u8, "single", t)
     from chip_smoke import block_sc3d_case
     ms, fs = block_sc3d_case("k2_walls_force", cuda, shape=FLOW3D_SHAPE,
                              dtype=torch.float32)
@@ -913,10 +919,41 @@ def test_march_in_y_bands_matches_t_plain_steps_f64(cuda, case, t):
                 tuple(b) if layout == ["split"] else b) <= 1e-11
 
 
+@pytest.mark.parametrize("t", [10, 16])
+def test_row_march_splits_calls_past_its_limit(cuda, t):
+    """K3c (the row-march) at T = 10 and 16 and K5c-Tc at T = 10 on the
+    flagship's rows at f64: one call runs ``build.split_steps(T, limit)``
+    launches, each counted, and equals T plain steps (<= 1e-11, as chip_smoke
+    phase 72)."""
+    from chip_smoke import coupled_block_case, k3_case
+    from openlbmpm_torch.kernels import build
+    from openlbmpm_torch.kernels import csf as k
+    from openlbmpm_torch.kernels import transport as kt
+    m, st = k3_case("neumann_dirichlet_100x72", "CSF", cuda)
+    x0 = m.pack_state(*st)
+    lim = k.csf_block_max_steps(torch.float64, False, m.kernel_params)
+    k.csf_block_compressed.launches = 0
+    got = k.csf_block_compressed(x0, m, t)
+    assert k.csf_block_compressed.launches == len(build.split_steps(t, lim))
+    assert _gap(got, k.csf_block_compressed_reference(x0, m, t)) <= 1e-11
+    if t == 10:
+        mt, s2 = coupled_block_case("a", cuda)
+        y0 = mt.pack(s2)
+        lim = kt.coupled_block_max_steps(torch.float64, False,
+                                         kt.coupled_block_params(mt))
+        kt.coupled_block_compressed.launches = 0
+        got = kt.coupled_block_compressed(y0, mt, t)
+        assert kt.coupled_block_compressed.launches == \
+            len(build.split_steps(t, lim)) > 1
+        want = kt.coupled_block_compressed_reference(y0, mt, t)
+        assert max(_gap(a, b) for a, b in zip(got, want)) <= 1e-11
+
+
 def test_k9t_counts_one_launch_per_call_and_bf16(cuda):
     """``make_block_step(T)`` launches K9-T once a call on the three
     layouts; the bf16 form decodes once and encodes once, within K9h's bf16
-    bounds of its plain version; a T beyond the kernel's largest raises."""
+    bounds of its plain version; a T beyond the kernel's largest runs as two
+    launches, which the launcher alone refuses."""
     from openlbmpm_torch.kernels import cg3d as k9
     m, st = cg3d_case("velocity_convective", cuda, dtype=torch.float32)
     mh, _ = cg3d_case("velocity_convective", cuda, dtype=torch.float32,
@@ -931,8 +968,13 @@ def test_k9t_counts_one_launch_per_call_and_bf16(cuda):
     ref = k9.cg3d_block_compressed_reference(h, mh, 2)
     d = (mh.unpack_bf16(got) - mh.unpack_bf16(ref)).abs()
     assert float(d[:19].max()) <= 3e-4 and float(d[19].max()) <= 1e-4
+    k9.cg3d_block_compressed.launches = 0
+    t = k9.MAX_BLOCK_STEPS + 1
+    s0 = m.pack_state(*st)
+    k9.cg3d_block_compressed(s0, m, t)
+    assert k9.cg3d_block_compressed.launches == 2
     with pytest.raises(ValueError, match="at most"):
-        k9.cg3d_block_compressed(m.pack_state(*st), m, k9.MAX_BLOCK_STEPS + 1)
+        k9.launch_cg3d_block(s0, m.kernel_params, m.geo_planes, t)
 
 
 @pytest.mark.parametrize("case", ["sc4_srt_periodic_body_force",

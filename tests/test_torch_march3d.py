@@ -353,15 +353,17 @@ def test_plan_table_and_refusals():
     assert dataclasses.is_dataclass(plan)
 
 
-@pytest.mark.parametrize("edits", ["blocks", "skip"])
+@pytest.mark.parametrize("edits", ["blocks", "skip", "blocks2d"])
 def test_chip_sweep_patches_one_line_a_source(edits):
     """chip_sweep.py times the march on copies of csrc/ with lines changed:
-    each march kernel's ``__launch_bounds__`` (its blocks an SM) or the
-    executor's call of the body (a stage skipped).  Each line it changes
-    stays in its source exactly once, and the change differs from it."""
+    each march kernel's ``__launch_bounds__`` (its blocks an SM), the row
+    march's blocks an SM (``march2d_min_blocks``) or the executor's call of
+    the body (a stage skipped).  Each line it changes stays in its source
+    exactly once, and the change differs from it."""
     import chip_sweep
     from openlbmpm_torch.kernels import build
     changes = (chip_sweep.min_blocks_edits(1) if edits == "blocks"
+               else chip_sweep.min_blocks_edits_2d(4) if edits == "blocks2d"
                else chip_sweep.skip_edits("c.kind() == kStageLoad"))
     assert changes
     for name, (old, new) in changes.items():
