@@ -9,17 +9,19 @@ OTHER_DIR holds another checkout (e.g. the parent commit, unpacked with
 ``git archive`` into a directory that .gitignore lists).  Each turn is a
 subprocess in one of the two checkouts, which builds that checkout's
 libraries and times, with CUDA events, through ``chip_smoke.py``'s models
-of that checkout: "3d" (the default) ms a step of K9c (configuration 5),
-K9t (the coupled probe), K11 (basic3d) and K10 (probe_sc3d), all at 128^3
-in f32; "2d" ms a step of the Shan-Chen K8 and of K8-T at T = 4 on
+of that checkout: "3d" (the default) ms a step of K9c, K9h and K9s
+(configuration 5; K9c at 256^3 too), K12d (the sharded K9 on configuration
+5 over a (4, 1) local mesh, ms a call of one step), K9t (the coupled
+probe), K11 (basic3d) and K10 (probe_sc3d), at 128^3 in f32 (K9h in bf16);
+"2d" ms a step of the Shan-Chen K8 and of K8-T at T = 4 on
 bench_all.py's configs 2 and 3 at 1024^2 in f32, and of K8 with four
 fluids (the runtime-K instance) at 1024^2; "3dT" ms a time step of the 3-D
 T-step kernels at 128^3: K10-T (probe_sc3d) in f32 and bf16 and K9-Tc,
 K9-Th and K9-Ts (configuration 5) at T = 2 and 4, and K11-T (basic3d) at
 T = 4; "2dT" ms a time step of the 2-D colour-gradient T-step kernels at
 1024^2, the models of chip_smoke.py's phases 49 and 55: K3c, K3h and K3s
-(the CSF flagship) and K5c-Tc, K5c-Th and K5c-Ts (configuration 4) at T = 2
-and 4.  The turns go
+of both variants (the CSF flagship and the Perturbation flagship) and
+K5c-Tc, K5c-Th and K5c-Ts (configuration 4) at T = 2 and 4.  The turns go
 other, this, this, other (ROUNDS times, default 1), so that a drift of the
 card's clock shows in both.  Prints one JSON line a turn, then one with
 each kernel's median over the turns of each checkout.
@@ -39,13 +41,31 @@ TURN = r"""
 import json, sys, torch
 import chip_smoke as cs
 from openlbmpm_torch.kernels import build, cg3d, flow3d
-build.load_libraries(("cg3d_f32", "flow3d_f32"))
+from openlbmpm_torch.parallel import make_mesh
+build.load_libraries(("cg3d_f32", "cg3d_bf16", "cg3d_local_f32",
+                      "flow3d_f32"))
 dev = torch.device("cuda", 0)
 out = {}
 m = cs.config5_model(dev)
-x = m.pack_state(*cs.config5_start(m))
+mh = cs.config5_model(dev, storage="bf16")
+st = cs.config5_start(m)
+x = m.pack_state(*st)
 out["K9c"] = cs._time_steps(lambda s: cg3d.cg3d_step_compressed(s, m), x, 50,
                             dev)
+out["K9h"] = cs._time_steps(lambda s: cg3d.cg3d_step_compressed(s, mh),
+                            mh.pack_state_bf16(*st), 50, dev)
+out["K9s"] = cs._time_steps(lambda s: cg3d.cg3d_step_split(s, m), st, 50,
+                            dev)
+step = cg3d.build_cg3d_sharded_step(
+    m.geo, m.p, make_mesh(shape=(4, 1), kind="local", device=dev),
+    torch.float32, bc_config=m.bcs)
+out["K12d (4, 1)"] = cs._time_steps(step, step.shard(x), 20, dev)
+del st, x, step
+m = cs.config5_model(dev, n=256)
+x = m.pack_state(*cs.config5_start(m))
+out["K9c 256^3"] = cs._time_steps(
+    lambda s: cg3d.cg3d_step_compressed(s, m), x, 10, dev)
+del x
 m = cs.probe3d_model(dev)
 x = m.pack(cs.probe3d_start(m))
 out["K9t"] = cs._time_steps(
@@ -119,10 +139,10 @@ dev = torch.device("cuda", 0)
 out = {}
 for (label, family, key, m, x, step1, kern, plain, cells,
      flops) in cs.block_speed_cases(dev):
-    if not label.endswith("CSF"):
-        break
+    if family != "K3":
+        continue
     for t in (2, 4):
-        out[f"{label.split()[0]} T={t}"] = cs._time_steps(
+        out[f"{label} T={t}"] = cs._time_steps(
             lambda y: kern(y, m, t), x, max(200 // t, 10), dev) / t
     del m, x
 for (label, family, key, m, x, step1, kern, plain,

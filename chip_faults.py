@@ -6,15 +6,17 @@ phase 26 (benchmarks/probe_coupled3d.py's configuration at 128^3), the
 single-phase D2Q9 kernel (K7) under phase 31 (the analytic Poiseuille
 profile), the D3Q19 Shan-Chen kernel (K10) under phase 37
 (benchmarks/probe_sc3d.py's configuration) and the Perturbation kernel
-(K4) under phase 41 (the pert flagship at 1024^2); nine faults that
+(K4) under phase 41 (the pert flagship at 1024^2); ten faults that
 only the T-step kernels can show: the colour-gradient K3's row-march under
-phase 48 (the flagships at 1024^2 in f32) and phase 45 (its f64 cases),
+phase 48 (the flagships at 1024^2 in f32) and phase 45 (its f64 cases;
+twice, once in the Perturbation variant's body),
 the Shan-Chen K8-T under phase 46, the
 single-phase K7-T under phase 47, the coupled K5c-T under phase 52, the
 D3Q19 K11-T and K10-T under phase 53, the D3Q19 CSF K9-T under phase 60
 (their f64 cases) and K10-T's launch limit under phase 72 (T-step calls
 past a launch's limit), each while the T=1 phases of the same family (4
-and 41, 15, 29, 6 and 11, 33, 36, 20 and 21) or its T <= 4 phase pass;
+and 41, 40 and 41, 15, 29, 6 and 11, 33, 36, 20 and 21) or its T <= 4
+phase pass;
 and one in the runtime-K Shan-Chen instance under phase 58 (four fluids)
 while phase 15 passes.
 
@@ -28,10 +30,10 @@ case copies ``openlbmpm_torch`` (without its build directory),
 ``chip_smoke.py`` and ``configs/`` into a temporary directory, changes one line of a
 ``csrc/`` source there, and runs its phases in a subprocess that builds the
 copy's libraries and records every failed check (and any error) instead of
-stopping at the first.  The K9 faults drop the curvature, and so the CSF
-force, on wetting fluid cells only (the contact lines, where phase 21
-compares against the plain path's one-ulp twin) in one storage type's
-one-step instance; the tracer
+stopping at the first.  The K9 faults make fields_kernel write a zero
+curvature, and so no CSF force, on wetting fluid cells only (the contact
+lines, where phase 21 compares against the plain path's one-ulp twin) in
+one storage type's one-step instance; the tracer
 fault applies the hard interface bounce-back on the x and y axes only (the
 tracer then leaks through the red phase across the periodic z seam) in the
 f32 instance; the K7 fault drops the Guo source from the MRT update in the
@@ -44,7 +46,9 @@ Perturbation K3 shares the line). The T-step faults: K3's row-march
 rewrites the boundary rows of level 0 only (not before the later steps of
 a call), in its f32 instances, or picks the inlet's trigger row by its
 unwrapped row instead of the domain's (the copy of row ny - 2 recomputed
-below the seam misses its rewrite), in its f64 instance; K8-T selects the
+below the seam misses its rewrite), in its f64 instance, or (its
+Perturbation stream) bounces a diagonal's red part back from the wrong
+slot, in its f64 instance; K8-T selects the
 Zou-He outlet row by window row instead of global row, in its f64
 instance; K7-T rewrites the rows after the first sub-step only, in its f64
 instance; K5c-T's row-march maps the tracer stream's unwrapped rows to
@@ -67,8 +71,8 @@ short of a sub-step's reach, and the local form of K8-T (K12c, the sharded
 f64 instance:
 
   none           the sources as they are: phases 4, 6, 11, 15, 20, 21,
-                 26, 29, 31, 33, 36, 37, 41, 45-48, 52, 53, 58, 60, 63,
-                 67, 68, 70, 72 must pass;
+                 26, 29, 31, 33, 36, 37, 40, 41, 45-48, 52, 53, 58, 60,
+                 63, 67, 68, 70, 72 must pass;
   f32            cg3d.cuh, float32 storage (K9c f32, K9s f32): phase 21;
   bf16           cg3d.cuh, bfloat16 storage (K9h): phase 21;
   tracer f32     cg3d.cuh, float32 storage (K9t f32): phase 26;
@@ -80,6 +84,8 @@ f64 instance:
                  phases 4 and 41 (K1, K4) pass;
   K3 march trigger   march2d.cuh, float64 storage: phase 45 must fail,
                  phases 4 and 41 (K1, K4) pass;
+  K3 pert march  march2d.cuh, float64 storage: phase 45 must fail,
+                 phases 40 and 41 (K4) pass;
   K8-T local row sc2d_block.cuh, float64 storage: phase 46 must fail,
                  phase 15 (K8) passes;
   K7-T bc once   single2d_block.cuh, float64 storage: phase 47 must fail,
@@ -121,11 +127,12 @@ import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-LINE = "  collide_core(c, phi[k], g, nrm[6 * n + k], P, post, frac, A, B, Cz);"
-# sizeof(S): the storage type (8 f64, 4 f32, 2 bf16); geo[k] > 1.5 is a
+LINE = "    fld[3 * n + ((size_t)z * ny + y) * nx + x] = kappa;"
+# sizeof(S): the storage type (8 f64, 4 f32, 2 bf16); a code > 1.5 is a
 # wetting fluid cell
-FAULT = ("  collide_core(c, phi[k], g, sizeof(S) == {size} && geo[k] > C(1.5) "
-         "? C(0) : nrm[6 * n + k], P, post, frac, A, B, Cz);")
+FAULT = ("    fld[3 * n + ((size_t)z * ny + y) * nx + x] = sizeof(S) == "
+         "{size} && geo[((size_t)z * ny + y) * nx + x] > C(1.5) ? C(0) : "
+         "kappa;")
 # directions 5 and 6 of D3Q7 are +z and -z
 TRACER_LINE = "      const bool repair = T.interface;"
 TRACER_FAULT = ("      const bool repair = T.interface && "
@@ -143,6 +150,9 @@ K4_FAULT = ("      cos_t = eg / norm / C(i < 5 || sizeof(C) == {size} ? "
 K3_LINE = "  } else if (kind == kStageBc) {"
 K3_FAULT = ("  }} else if (kind == kStageBc && (c.stage[1] == 0 || "
             "sizeof(S) != {size})) {{")
+K3P_LINE = "        red[i] = p[(9 + j) * ps];"
+K3P_FAULT = ("        red[i] = p[(9 + (sizeof(S) == {size} && i > 4 ? i : "
+             "j)) * ps];")
 K3M_LINE = "    if (P.inlet != 0 && c.gz == ny - 2) {"
 K3M_FAULT = ("    if (P.inlet != 0 && (sizeof(S) == {size} ? c.u : c.gz) == "
              "ny - 2) {{")
@@ -196,6 +206,8 @@ CASES = {
                    ("48",)),
     "K3 march trigger": ("march2d.cuh", K3M_LINE, K3M_FAULT.format(size=8),
                          ("45",)),
+    "K3 pert march": ("march2d.cuh", K3P_LINE, K3P_FAULT.format(size=8),
+                      ("45",)),
     "K8-T local row": ("sc2d_block.cuh", K8T_LINE, K8T_FAULT.format(size=8),
                        ("46",)),
     "K7-T bc once": ("single2d_block.cuh", K7T_LINE,
@@ -224,6 +236,7 @@ CASES = {
 # name -> the T=1 phases of the same family that must pass the T-step
 # faults (the T=1 kernels do not run the changed line)
 MUST_PASS = {"K3 bc once": ("4", "41"), "K3 march trigger": ("4", "41"),
+             "K3 pert march": ("40", "41"),
              "K10-T limit raise": ("53",), "K8-T local row": ("15",),
              "K7-T bc once": ("29",), "K5c-T window rows": ("6", "11"),
              "K11-T swap once": ("33",), "K10-T seam skipped": ("36",),
@@ -232,7 +245,7 @@ MUST_PASS = {"K3 bc once": ("4", "41"), "K3 march trigger": ("4", "41"),
              "K12e rho short": ("36",), "K12c inlet row": ("46",)}
 # the phases of the unchanged sources
 ALL_PHASES = ("4", "6", "11", "15", "20", "21", "26", "29", "31", "33", "36",
-              "37", "41", "45", "46", "47", "48", "52", "53", "58", "60",
+              "37", "40", "41", "45", "46", "47", "48", "52", "53", "58", "60",
               "63", "67", "68", "70", "72")
 
 RUN = r"""
@@ -246,6 +259,7 @@ device = torch.device("cuda", 0)
 SIMPLE = {"6": cs.phase_coupled_f64, "11": cs.phase_split_coupled_f64,
           "15": cs.phase_sc_f64, "29": cs.phase_single_f64,
           "33": cs.phase_single3d_f64, "36": cs.phase_sc3d_f64,
+          "40": cs.phase_pert_f64,
           "45": cs.phase_block_csf_f64, "46": cs.phase_block_sc_f64,
           "47": cs.phase_block_single_f64, "52": cs.phase_block_coupled_f64,
           "53": cs.phase_block3d_f64, "60": cs.phase_block_cg3d_f64,
@@ -263,7 +277,8 @@ for phase in sys.argv[1:]:
         elif phase == "20":
             res = cs.phase_cg3d_f64(device)
             out[phase] = {"max": max(max(v[:2]) for k, v in res.items()
-                                     if k != "bf16_ulp")}
+                                     if k not in ("bf16_ulp", "fields")),
+                          "fields": res["fields"]}
             continue
         elif phase == "72":
             res = cs.phase_block_chunked(device)

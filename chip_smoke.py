@@ -104,7 +104,10 @@ toolkit (nvcc) and PyTorch built for CUDA; JAX is not needed.  Phases:
  20. f64: the D3Q19 CSF kernels K9c (compressed) and K9s (split) against
      their plain versions, 20 steps, in every case of CG3D_CASES (<= 1e-11;
      the grain pack <= max(1e-11, 2x the plain path's one-ulp twin gap)),
-     then K9h one step from a common bf16 state within one bf16 ulp;
+     and K9's fields kernel (``cg3d_fields``: g and kappa) against
+     ``cg3d_fields_reference`` on each case's start, both layouts
+     (<= 1e-12), then K9h one step from a common bf16 state within one bf16
+     ulp;
  21. configuration 5 (bench_cg3d.py's grain pack) at 128^3, 10 steps from
      one f64 start: f64 <= 1e-11, K9c and K9s f32 and K9h bf16 against
      their plain versions (``_hold``: the bound far from walls and seam,
@@ -115,7 +118,10 @@ toolkit (nvcc) and PyTorch built for CUDA; JAX is not needed.  Phases:
      steps), then the K9h and K9s main paths through ``run_chunked``;
  23. ``run --model cg3d`` on configs/rk_csf3d.ini: one K9c launch a step;
  24. MLUPS of K9c, K9h and K9s at 128^3 and 256^3 and of the plain paths at
-     128^3, device time per launch and the roofline share;
+     128^3, device time per launch and launches a step (bc_kernel,
+     fields_kernel and collide_stream_kernel each in the trace, at most
+     once a step, at configuration 5: 3 launches a step, 2 without an inlet
+     or outlet), and the roofline share;
  25. f64: the coupled D3Q19 CSF + D3Q7 tracer kernel K9t against its plain
      version, 20 steps, in every case of CG3D_TRANSPORT_CASES (an open
      periodic box, the probe's walls and boundaries, a Dirichlet outlet with
@@ -195,13 +201,13 @@ toolkit (nvcc) and PyTorch built for CUDA; JAX is not needed.  Phases:
  44. MLUPS of K4c, K4h and K4s and of their plain paths at 1024^2, device
      time per launch and the roofline share;
  45. f64: the T-step colour-gradient kernel K3 (both variants; compressed
-     K3c and split K3s) against T plain steps, T = 2, 3, 4, two calls in a
-     row, on a periodic droplet, two walled channels whose ny (100) is no
-     multiple of a tile (the flagship's rows; Dirichlet inlet and
+     K3c and split K3s) against T plain steps, T = 2, 3, 4 (the
+     Perturbation variant also 10 and 16, past its launch limit), two calls
+     in a row, on a periodic droplet, two walled channels whose ny (100) is
+     no multiple of a tile (the flagship's rows; Dirichlet inlet and
      convective outlet) and, split, the CLI's rk_csf2d.ini at 1044x1024;
-     max |difference| <= 1e-11 (the CSF variant is the row-march of
-     csrc/march2d.cuh, the Perturbation variant the windows); the line
-     gives the flagship rows' layouts at T = 4;
+     max |difference| <= 1e-11 (both variants are the row-march of
+     csrc/march2d.cuh); the line gives the flagship rows' layouts at T = 4;
  46. f64: the T-step Shan-Chen kernel K8-T on every kernel case of
      SC_CASES (100x64), and 47. the T-step single-phase kernel K7-T on
      every case of SINGLE_CASES (100x72), T = 2, 3, 4; <= 1e-11;
@@ -214,9 +220,9 @@ toolkit (nvcc) and PyTorch built for CUDA; JAX is not needed.  Phases:
  49. speed per time step at T = 1 (the T=1 kernel), 2 and 4 (CUDA events;
      device time per launch from ``torch.profiler``), MLUPS, the bound
      per step, launches per step from the counters (1/T), each launch's
-     layout (the row-march's waves, rows a wave, ring MB and grid for K3's
-     CSF variant, whose device time a launch comes from CUDA events between
-     launches; the window's tile, bytes and memory for the others) and the
+     layout (the row-march's waves, rows a wave, ring MB and grid for K3,
+     whose device time a launch comes from CUDA events between launches;
+     the window's tile, bytes and memory for the others) and the
      plain version's time: K3 at both flagships (1024^2), K8-T at configs
      2 and 3, K7-T at config 1 and at 1024^2;
  50. the main paths of the T-step kernels: bench.py's loop
@@ -364,8 +370,9 @@ toolkit (nvcc) and PyTorch built for CUDA; JAX is not needed.  Phases:
      TB/s), and the device µs a launch of each kind of kernel, sharded and
      on one device (``torch.profiler``);
  72. T-step calls past one launch's step limit at f64, T = 10 and 16
-     against T plain steps (<= 1e-11): K3c (two 100x72 channels),
-     K5c-Tc, K11-T, K10-T and K9-Tc, each call run as
+     against T plain steps (<= 1e-11): K3c of both variants and the
+     Perturbation K3s (two 100x72 channels), K5c-Tc, K11-T, K10-T and
+     K9-Tc, each call run as
      ``build.split_steps``'s launches (counted, with the launch's limit and
      layout); the launch limits' Python mirrors against the libraries
      that set them; ``run --model sc3d --block 10`` on shanchen3d.ini
@@ -686,15 +693,21 @@ COUPLED_KERNELS = ("phase_kernel", "normal_kernel", "tracer_collide_kernel",
 def device_times(step, x, names, steps=100):
     """(device microseconds per launch, launches per call) of each CUDA
     kernel in `names` over `steps` calls x = step(x), from torch.profiler;
-    None where the trace shows no device time for a kernel."""
-    from torch.profiler import ProfilerActivity, profile
+    None where the trace shows no device time for a kernel.  The trace
+    misses launches, mostly the first after it starts (a bare ``profile``
+    block counted 17-18 of 20 a kernel, this one 19-20), so two calls run
+    traced before the counted ones (the schedule's warmup) and each call
+    ends on the card before the next; a count is at most the launches."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     for _ in range(5):
         x = step(x)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
+    with profile(activities=[ProfilerActivity.CUDA], schedule=schedule(
+            wait=0, warmup=2, active=steps, repeat=1)) as prof:
+        for _ in range(steps + 2):
             x = step(x)
-        torch.cuda.synchronize()
+            torch.cuda.synchronize()
+            prof.step()
     out = {}
     for k in names:
         out[k] = None
@@ -2177,13 +2190,19 @@ def phase_cg3d_f64(device, shape=(48, 40, 32), grain=32, steps=20,
     where |g| = 1 meets noise gradients near the 1e-8 normal threshold,
     amplifies rounding (ROADMAP section 3)."""
     from openlbmpm_torch.kernels.cg3d import (
+        cg3d_fields, cg3d_fields_reference,
         cg3d_step_compressed as kc, cg3d_step_compressed_reference as pc,
         cg3d_step_split as ks, cg3d_step_split_reference as ps)
-    res = {}
+    res = {"fields": 0.0}
     for name in CG3D_CASES:
         m, st = cg3d_case(name, device, shape=(grain,) * 3
                           if name == "grain_pack" else shape)
         s = m.pack_state(*st)
+        for x in (s, st):
+            gf = float((cg3d_fields(x, m) -
+                        cg3d_fields_reference(x, m)).abs().max())
+            check(gf <= 1e-12, f"K9 fields f64 {name}: {gf:.3e} > 1e-12")
+            res["fields"] = max(res["fields"], gf)
         a, b, gc = s, s, 0.0
         x, y, gs = st, st, 0.0
         for _ in range(steps):
@@ -2429,8 +2448,7 @@ def phase_cg3d_cli(device, steps=1000):
                 "mlups": _mlups(os.path.join(tmp, "metrics.jsonl"))}
 
 
-CG3D_KERNELS = ("bc_kernel", "phase_kernel", "extrap_kernel",
-                "normal_kernel", "curvature_kernel", "collide_stream_kernel")
+CG3D_KERNELS = ("bc_kernel", "fields_kernel", "collide_stream_kernel")
 # least bytes per cell-step of K9's function: the state in and out plus a
 # 1-byte solid mask (every geo_stack3 plane follows from it): compressed
 # f32 2 x 80 + 1, bf16 2 x 42 + 1, split f32 2 x 152 + 1
@@ -2446,8 +2464,8 @@ def phase_cg3d_speed(device, sizes=(128, 256), steps=(50, 20),
     torch.profiler, and the roofline share of CG3D_BYTES."""
     from openlbmpm_torch.kernels.cg3d import (
         cg3d_step_compressed as kc, cg3d_step_compressed_reference as pc,
-        cg3d_step_split as ks, cg3d_step_split_reference as ps, launch_cg3d,
-        launch_cg3d_split)
+        cg3d_step_split as ks, cg3d_step_split_reference as ps,
+        kernel_launches, launch_cg3d, launch_cg3d_split)
     res = {}
     for n, k_steps in zip(sizes, steps):
         m = config5_model(device, n=n)
@@ -2469,16 +2487,33 @@ def phase_cg3d_speed(device, sizes=(128, 256), steps=(50, 20),
             t = _time_steps(fn, x, plain_steps if key.startswith("plain")
                             else k_steps, device)
             sec[key] = min(sec.get(key, float("inf")), t)
-        profile = {}
-        for key, fn in (("f32", lambda x: launch_cg3d(x, m.kernel_params,
-                                                      m.geo_planes)),
-                        ("bf16", lambda x: launch_cg3d(x, mh.kernel_params,
-                                                       mh.geo_planes)),
-                        ("split", lambda x: launch_cg3d_split(
-                            *x, m.kernel_params, m.geo_planes))):
+        profile, launches = {}, {}
+        for key, lib, fn in (
+                ("f32", "cg3d_f32", lambda x: launch_cg3d(
+                    x, m.kernel_params, m.geo_planes)),
+                ("bf16", "cg3d_bf16", lambda x: launch_cg3d(
+                    x, mh.kernel_params, mh.geo_planes)),
+                ("split", "cg3d_f32", lambda x: launch_cg3d_split(
+                    *x, m.kernel_params, m.geo_planes))):
             times = device_times(fn, runs[key][1], CG3D_KERNELS, steps=20)
+            check(all(v is not None for v in times.values()),
+                  f"K9 {key} {n}^3: a kernel shows no device time")
             profile.update({(key, k): v for k, v in times.items()})
-        res[n] = {"sec": sec, "profile": profile, "mlups": {
+            # configuration 5 has an inlet and an outlet: each of the three
+            # kernels runs once a step, as the library counts its launches
+            # (the profiler's trace misses some)
+            x, before = runs[key][1], kernel_launches(lib)
+            for _ in range(10):
+                x = fn(x)
+            torch.cuda.synchronize()
+            after = kernel_launches(lib)
+            launches[key] = {k: (after[k] - before[k]) / 10
+                             for k in CG3D_KERNELS}
+            check(all(v == 1 for v in launches[key].values()),
+                  f"K9 {key} {n}^3: launches a step " + ", ".join(
+                      f"{k} {v:g}" for k, v in launches[key].items()))
+        res[n] = {"sec": sec, "profile": profile, "launches": launches,
+                  "mlups": {
             key: n ** 3 / t / 1e6 for key, t in sec.items()},
             "roof": {key: CG3D_BYTES[key] * n ** 3 / HBM_BYTES_PER_S
                      / sec[key] for key in CG3D_BYTES}}
@@ -2489,8 +2524,11 @@ def phase20_24_lines(r20, r21, r22, r23, r24, card):
     lines = ["phase 20 K9 f64 vs plain, 48x40x32 (grain pack 32^3), 20 "
              "steps: max |diff| compressed / split " + ", ".join(
                  f"{k} {v[0]:.3e} / {v[1]:.3e}" for k, v in r20.items()
-                 if k != "bf16_ulp") + " (<= 1e-11; grain pack <= "
+                 if k not in ("bf16_ulp", "fields")) + " (<= 1e-11; grain "
+             "pack <= "
              f"{r20['grain_pack'][2]:.3e} / {r20['grain_pack'][3]:.3e}); "
+             f"fields_kernel vs cg3d_fields_reference {r20['fields']:.3e} "
+             "(<= 1e-12); "
              f"K9h one step: {r20['bf16_ulp']['excess']:g} ulp, share "
              f"{r20['bf16_ulp']['share']:.2e}, hi flips "
              f"{r20['bf16_ulp']['hi_flips']} (round-toward-zero share "
@@ -2533,9 +2571,11 @@ def phase20_24_lines(r20, r21, r22, r23, r24, card):
                 f"{k} {CG3D_BYTES[k] * n ** 3 / HBM_BYTES_PER_S * 1e3:.4f}"
                 for k in CG3D_BYTES) + "; roofline share " + ", ".join(
                 f"{k} {v:.3f}" for k, v in r["roof"].items()) +
-            "; device us per launch (launches per step): " + ", ".join(
+            "; device us per launch (launches per step, the libraries' "
+            "counts): " + ", ".join(
                 f"{k} {key} " + ("not measured" if v is None else
-                                 f"{v[0]:.2f} ({v[1]:g})")
+                                 f"{v[0]:.2f}") +
+                f" ({r['launches'][key][k]:g})"
                 for (key, k), v in r["profile"].items()))
     return lines
 
@@ -4200,9 +4240,11 @@ def _gap(a, b) -> float:
 
 
 def phase_block_csf_f64(device, calls=2, tol=1e-11):
-    """K3 against T plain steps at f64, both variants, T = 2, 3, 4, two calls
-    in a row: compressed (K3c) and split (K3s) on the small domains of
-    K3_DOMAINS, split (the state the CLI runs) on the CLI's."""
+    """K3 against T plain steps at f64, both variants, T = 2, 3, 4 (and for
+    the Perturbation variant 10 and 16, past its launch limit of 15 with
+    boundary rows: ``build.split_steps``'s launches), two calls in a row:
+    compressed (K3c) and split (K3s) on the small domains of K3_DOMAINS,
+    split (the state the CLI runs) on the CLI's."""
     res = {}
     for variant in ("CSF", "Perturbation"):
         for name in K3_DOMAINS:
@@ -4211,7 +4253,9 @@ def phase_block_csf_f64(device, calls=2, tol=1e-11):
                     ("f32", "split"):
                 kern, plain = k3_wrappers(variant, key)
                 x0 = st if key == "split" else m.pack_state(*st)
-                for t in BLOCK_TS:
+                ts = BLOCK_TS + (CHUNKED_TS if variant == "Perturbation" and
+                                 not name.startswith("cli") else ())
+                for t in ts:
                     a = _steps(lambda x: kern(x, m, t), x0, calls)
                     b = _steps(lambda x: plain(x, m, t), x0, calls)
                     err = _gap(a, b)
@@ -4362,11 +4406,13 @@ def phase_block_full(device, n=FLAGSHIP_N, steps=8):
     return res
 
 
-# the T-step kernels' CUDA names in the profiler (K3's CSF variant is the
-# cooperative row-march, csf_march_kernel, timed by launch_times)
+# the T-step kernels' CUDA names in the profiler (K3 is the cooperative
+# row-march, csf_march_kernel and pert_march_kernel, timed by launch_times;
+# its windows, csf_block_kernel, run only K12a's local forms)
 BLOCK_KERNEL_NAMES = {"K3": "csf_block_kernel", "K8-T": "sc_block_kernel",
                       "K7-T": "single_block_kernel"}
-MARCH2D_KERNEL_NAMES = ("csf_march_kernel", "coupled_march_kernel")
+MARCH2D_KERNEL_NAMES = ("csf_march_kernel", "pert_march_kernel",
+                        "coupled_march_kernel")
 
 
 def block_bytes(family, key):
@@ -4450,7 +4496,7 @@ def phase_block_speed(device, n=FLAGSHIP_N, time_steps=400, calls=10):
             r["launches_per_step"][t] = kern.launches / (calls * t)
             check(kern.launches == calls, f"{label} T={t}: {kern.launches} "
                   f"launches for {calls} calls")
-            if label.endswith("CSF"):   # the cooperative row-march
+            if family == "K3":   # the cooperative row-march
                 r["device_us"][t] = launch_times(lambda y: kern(y, m, t), x)
             else:
                 times = device_times(lambda y: kern(y, m, t), x,
@@ -4680,8 +4726,9 @@ def phase45_50_lines(r45, r46, r47, r48, r49, r50, card):
     def worst(r, pick):
         return max(v for k, v in r.items() if pick(k))
     lines = [
-        "phase 45 K3 f64, T steps a launch vs T plain steps (T = 2, 3, 4, two "
-        "calls; " + ", ".join(K3_DOMAINS) + "), max |diff|: " + ", ".join(
+        "phase 45 K3 f64, T steps a launch vs T plain steps (T = 2, 3, 4, "
+        "Perturbation also 10 and 16 off the CLI's domain, two calls; " +
+        ", ".join(K3_DOMAINS) + "), max |diff|: " + ", ".join(
             f"{v} {lay} {worst(r45, lambda k: k[:2] == (v, lay)):.3e}"
             for v in ("CSF", "Perturbation") for lay in ("f32", "split")) +
         f" over {len(r45)} runs (<= 1e-11); " + layouts_text(45),
@@ -4756,8 +4803,7 @@ def block_entries(r45, r46, r47, r48, r49, r50):
             sp = r49[label]
             lay = "split" if key == "split" else "f32"
             entries.append(kernel_entry(
-                name, label, "openlbmpm_torch/csrc/" + (
-                    "march2d.cuh" if tag == "CSF" else "csf2d_block.cuh"),
+                name, label, "openlbmpm_torch/csrc/march2d.cuh",
                 f"{csf} (steps_per_call=T, variant='{variant}', {sub}, "
                 + ("state_mode=" if key == "split" else "storage=")
                 + f"{key!r})",
@@ -6880,8 +6926,7 @@ def _host_seconds(step, state, n, device):
 # counts under the first piece its name holds ("other" for the rest: the
 # exchange's copies)
 K12_KERNEL_GROUPS = ("collide_stream", "march", "rho_kernel", "rt3_",
-                     "local_bc", "tracer_", "phase_kernel", "extrap",
-                     "normal_kernel", "curvature")
+                     "local_bc", "tracer_", "fields_kernel")
 
 
 def device_breakdown(step, x, steps, groups=K12_KERNEL_GROUPS):
@@ -7413,8 +7458,9 @@ def limit_mirrors():
 
 def phase_block_chunked(device, tol=1e-11, cli_tol=BLOCK_CLI_BOUND):
     """T-step calls past one launch's step limit, at f64 against T plain
-    steps, T = 10 and 16 (CHUNKED_TS): K3c on the flagship's rows and on
-    the Dirichlet inlet / convective outlet (100 x 72), K5c-Tc (case a,
+    steps, T = 10 and 16 (CHUNKED_TS): K3c of both variants and the
+    Perturbation K3s on the flagship's rows and on the Dirichlet inlet /
+    convective outlet (100 x 72), K5c-Tc (case a,
     flagship flow), K11-T, K10-T (K = 2) and K9-Tc (the velocity inlet and
     convective outlet) at 48 x 40 x 32, each one call that runs as
     ``build.split_steps(T, limit)`` launches, counted on the wrapper; the
@@ -7450,14 +7496,20 @@ def phase_block_chunked(device, tol=1e-11, cli_tol=BLOCK_CLI_BOUND):
                                "limit": limit, "layout": layout}
 
     for name in ("neumann_dirichlet_100x72", "dirichlet_convective_100x72"):
-        m, st = k3_case(name, "CSF", device)
-        x0 = m.pack_state(*st)
-        lim = k.csf_block_max_steps(torch.float64, False, m.kernel_params)
-        hold(f"K3c {name}", k.csf_block_compressed,
-             k.csf_block_compressed_reference, x0, m, lim, layout_text(
-                 k.csf_block_tiling(torch.float64, False, m.kernel_params,
-                                    lim), lim))
-        del m, st, x0
+        for variant, pre in (("CSF", "csf"), ("Perturbation", "pert")):
+            m, st = k3_case(name, variant, device)
+            for split in (False, True) if variant == "Perturbation" else \
+                    (False,):
+                x0 = st if split else m.pack_state(*st)
+                lay = "split" if split else "compressed"
+                lim = k.csf_block_max_steps(torch.float64, split,
+                                            m.kernel_params)
+                hold(f"K3{'s' if split else 'c'} {variant} {name}",
+                     getattr(k, f"{pre}_block_{lay}"),
+                     getattr(k, f"{pre}_block_{lay}_reference"), x0, m, lim,
+                     layout_text(k.csf_block_tiling(
+                         torch.float64, split, m.kernel_params, lim), lim))
+            del m, st, x0
     m, st = coupled_block_case("a", device)
     p = kt.coupled_block_params(m)
     lim = kt.coupled_block_max_steps(torch.float64, False, p)
@@ -7810,8 +7862,10 @@ def main() -> int:
             plain_ms_bf16=r["sec"][("plain", "bf16")] * 1e3))
     cg3d = "openlbmpm_tpu/pallas/cg3d.py:132"
     c5 = r24[128]
-    f64_c = max(v[0] for k, v in r20.items() if k != "bf16_ulp")
-    f64_s = max(v[1] for k, v in r20.items() if k != "bf16_ulp")
+    f64_c = max(v[0] for k, v in r20.items() if k not in ("bf16_ulp",
+                                                          "fields"))
+    f64_s = max(v[1] for k, v in r20.items() if k not in ("bf16_ulp",
+                                                          "fields"))
     for entry, label, key, launches, err, f64, extra in (
             ("cg3d_step_compressed", "K9h", "bf16", r22["launches_bf16"],
              r21["bf16"]["max"], f64_c, "storage='bf16'"),
@@ -7825,7 +7879,9 @@ def main() -> int:
             c5["sec"]["plain" if key == "f32" else f"plain_{key}"],
             CG3D_BYTES[key], CG3D_FLOPS, 128 ** 3,
             max_abs_err_f64=f64, ms_256=r24[256]["sec"][key] * 1e3,
-            bound_ms_256=CG3D_BYTES[key] * 256 ** 3 / HBM_BYTES_PER_S * 1e3))
+            bound_ms_256=CG3D_BYTES[key] * 256 ** 3 / HBM_BYTES_PER_S * 1e3,
+            fields_max_abs_err_f64=r20["fields"],
+            launches_a_step=sum(c5["launches"][key].values())))
     k9t = r28[128]
     f64_t = max(max(v[:2]) for v in r25.values())
     for entry, label, key, launches, err in (

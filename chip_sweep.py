@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Sweep the z-march's knobs (K10-T and K9-T, ``csrc/march3d.cuh``) on a
-card and cost its stages.
+card and cost its stages; sweep K9's tiles; sweep the 2-D row-march.
 
-    python3 chip_sweep.py [knobs|stages|2dT|all]
+    python3 chip_sweep.py [knobs|stages|2dT|k9|all] [TAG ...]
 
 Run from the repository root on a machine with a CUDA card and nvcc.
 "knobs": ms a time step at 128^3 in f32 of K10-T (probe_sc3d, K = 2) and
@@ -20,10 +20,25 @@ on configuration 4, 1024^2 in f32, ``csrc/march2d.cuh``) at T = 2 and 4
 over rows a wave (16, 32, 64, 96, 128: ``march2d.ROWS_PER_WAVE``) and the
 resident blocks an SM (1, 2, 3, 4), beside the march with every body
 skipped (2 blocks an SM: the waves and barriers alone), through the
-wrappers; then, at the defaults, the march with one stage kind's body
-skipped (bc, phi, normal, collide, stream, and K5c-T's tcollide and
-tstream: the results are wrong, the times say what each stage costs)
-beside the full march.  The modes patch copies of ``openlbmpm_torch/csrc``
+wrappers, and the Perturbation K3c on its flagship likewise; then, at the
+defaults, the march with one stage kind's body skipped (bc, phi, normal,
+collide, stream, and K5c-T's tcollide and tstream: the results are wrong,
+the times say what each stage costs) beside the full march.
+"k9": K9 (``csrc/cg3d.cuh``) at 128^3 on configuration 5, ms a step of K9c
+(f32), K9h (bf16) and K9s (split f32), of its fields alone
+(``launch_cg3d_fields``: bc_kernel and fields_kernel) in the three
+layouts, and ms a call of K12d (one step on a (4, 1) local mesh), over
+collide_stream's tile (32 x 8, 32 x 4), z-run (16, 32) and blocks an SM
+(the ``__launch_bounds__`` minimum: 2, none), over fields_kernel's tile
+(32 x 16, 32 x 8, 32 x 4; in the split layout 32 x 12, 32 x 16, 32 x 8)
+and its longest z-run (32, 16: 16 shortens it at 128^3, where the card's
+occupancy asks for 32), with every z-run marching up ("up", "f_up",
+"cs_up": K9_EDITS) and with every z-run of fields_kernel FZ slabs long
+("f_zrun_fz"), libraries built from copies of the sources with cg3d.cuh
+changed, their registers and spills from ptxas; and fields_kernel with
+one phase skipped (phi, extension, normal, curvature: wrong results, the
+times say what each phase costs).  TAGs after "k9" keep only those
+variants.  The modes patch copies of ``openlbmpm_torch/csrc``
 in a temporary directory and build their libraries there; the sources in
 the repository stay as they are.  Prints the card and one line a
 measurement.
@@ -53,6 +68,46 @@ MIN_BLOCKS = {"flow3d_block.cuh": "sc3d_march_min_blocks<S>()",
 MIN_BLOCKS_2D = "  return sizeof(typename Traits<S>::C) == 8 ? 1 : 3;"
 LIBS_3D = ("flow3d_block_f32", "cg3d_block_f32")
 LIBS_2D = ("csf2d_block_f32", "coupled2d_block_f32")
+LIBS_K9 = ("cg3d_f32", "cg3d_bf16", "cg3d_local_f32")
+# K9's variants: tag -> the constants of cg3d.cuh they change ("blocks":
+# collide_stream's resident blocks an SM asked of ptxas); "base" is the
+# sources' (collide_stream 32 x 8 x 16, two blocks an SM in float; fields
+# 32 x 16 with runs of at most 32 slabs, in the split layout 32 x 12 with
+# runs of at most 48, as many blocks as the card holds at once)
+K9_VARIANTS = {
+    "base": {}, "cs_zc32": {"ZC": 32}, "cs_32x4": {"TY": 4},
+    "cs_b1": {"blocks": 1}, "f_32x8": {"FY": 8}, "f_32x4": {"FY": 4},
+    "f_fz16": {"FZ": 16}, "s_32x16": {"FY_SPLIT": 16, "FZ_SPLIT": 32},
+    "s_32x8": {"FY_SPLIT": 8},
+}
+K9_BOUNDS = ("__launch_bounds__(RING_THREADS, sizeof(C) == 4 ? 2 : 1)\n"
+             "collide_stream_kernel(")
+# fields_kernel and collide_stream changed in one place: tag -> (text,
+# replacement) in cg3d.cuh.  "up": every z-run of both kernels marches up
+# (in place of runs that alternate up and down, so that two runs sharing a
+# boundary read its slabs at the same time); "f_up", "cs_up": those of
+# fields_kernel or of collide_stream alone; "f_zrun_fz": every z-run of
+# fields_kernel FZ slabs long (in place of the occupancy's shorter runs
+# where the grid would under-fill the card, as K12d's quarter boxes do);
+# the "skip_" tags skip one fields phase's call (the results are wrong; the
+# times say what each phase costs)
+K9_EDITS = {
+    "up": ("return (blockIdx.z & 1) == 0;", "return true;"),
+    "f_up": ("  const int d = up_run() ? 1 : -1;\n"
+             "  const int first = d > 0 ? z0 - 3 : z1 + 2;",
+             "  const int d = 1;\n"
+             "  const int first = d > 0 ? z0 - 3 : z1 + 2;"),
+    "cs_up": ("  const int d = up_run() ? 1 : -1;\n"
+              "  const int first = d > 0 ? z0 : z1 - 1;",
+              "  const int d = 1;\n"
+              "  const int first = d > 0 ? z0 : z1 - 1;"),
+    "f_zrun_fz": ("  long long zrun = (nz + runs - 1) / runs;",
+                  "  long long zrun = FZ;"),
+    "skip_phase": ("    if (j <= z1 - z0 + 5) phase(h);\n", ""),
+    "skip_extend": ("extend(e);", "(void)0;"),
+    "skip_normal": ("normal(m, ns);", "(void)0;"),
+    "skip_curvature": ("curvature(k);", "(void)0;"),
+}
 # the executor's call of a family's body for one cell of one stage
 BODY_CALL = "        body(c);\n"
 
@@ -138,6 +193,89 @@ def _use(M, kf, k9, lib: str, so) -> None:
     M._fns[lib] = (step, grid, err)
 
 
+def _k9_source(dest: Path, knobs: dict, edit=None) -> Path:
+    """A copy of the sources in `dest` with cg3d.cuh's constants set as
+    `knobs` says (name -> value, one ``constexpr int`` line each) and the
+    text edit `edit` (text, replacement) made."""
+    shutil.copytree(ROOT / "openlbmpm_torch" / "csrc", dest)
+    p = dest / "cg3d.cuh"
+    text = p.read_text()
+    for name, v in knobs.items():
+        if name == "blocks":
+            old = K9_BOUNDS
+            new = old.replace(", sizeof(C) == 4 ? 2 : 1)",
+                              ")" if v == 1 else f", {v})")
+            count = text.count(old)
+            text = text.replace(old, new)
+        else:
+            text, count = re.subn(rf"constexpr int {name} = \d+;",
+                                  f"constexpr int {name} = {v};", text)
+        if count != 1:
+            raise RuntimeError(f"cg3d.cuh: {name} moved")
+    if edit is not None:
+        if text.count(edit[0]) != 1:
+            raise RuntimeError(f"cg3d.cuh: {edit[0]!r} moved")
+        text = text.replace(*edit)
+    p.write_text(text)
+    return dest
+
+
+def _use_k9(k9, build, lib: str, so) -> None:
+    """Point K9's wrappers (K12d's for cg3d_local_f32) for `lib` at the
+    library `so`."""
+    local = lib.startswith("cg3d_local")
+    (k9._local_cache if local else k9._fn_cache).pop(lib, None)
+    load = build.load_library
+    build.load_library = lambda name: so if name == lib else load(name)
+    try:
+        (k9._local_fns if local else k9._kernel_fn)(lib)
+    finally:
+        build.load_library = load
+
+
+def sweep_k9(cs, build, k9, dev, emit, tags=()) -> None:
+    """The "k9" mode: K9's steps and fields at 128^3 and K12d's call on a
+    (4, 1) local mesh over K9_VARIANTS and K9_EDITS (only `tags` and "base"
+    where `tags` are given)."""
+    import torch
+    from openlbmpm_torch.parallel import make_mesh
+    m = cs.config5_model(dev)
+    mh = cs.config5_model(dev, storage="bf16")
+    st = cs.config5_start(m)
+    s = m.pack_state(*st)
+    h = mh.pack_state_bf16(*st)
+    k12 = k9.build_cg3d_sharded_step(
+        m.geo, m.p, make_mesh(shape=(4, 1), kind="local", device=dev),
+        torch.float32, bc_config=m.bcs)
+    cases = (
+        ("K9c f32", lambda x: k9.cg3d_step_compressed(x, m), s),
+        ("K9h", lambda x: k9.cg3d_step_compressed(x, mh), h),
+        ("K9s f32", lambda x: k9.cg3d_step_split(x, m), st),
+        ("fields f32", lambda x: (k9.launch_cg3d_fields(
+            x, m.kernel_params, m.geo_planes), x)[1], s),
+        ("fields bf16", lambda x: (k9.launch_cg3d_fields(
+            x, mh.kernel_params, mh.geo_planes), x)[1], h),
+        ("fields split f32", lambda x: (k9.launch_cg3d_fields(
+            x, m.kernel_params, m.geo_planes), x)[1], st),
+        ("K12d (4, 1)", k12, k12.shard(s)))
+    with tempfile.TemporaryDirectory() as tmp:
+        keep = lambda tag: not tags or tag in tags or tag == "base"
+        jobs = {tag: (_k9_source(Path(tmp, tag), knobs), [])
+                for tag, knobs in K9_VARIANTS.items() if keep(tag)}
+        jobs |= {tag: (_k9_source(Path(tmp, tag), {}, edit), [])
+                 for tag, edit in K9_EDITS.items() if keep(tag)}
+        libs = _variants(build, Path(tmp, "lib"), jobs, LIBS_K9)
+        for (lib, tag), (_, report) in sorted(libs.items()):
+            emit(library=lib, variant=tag, **report)
+        for tag in list(jobs) + ["base"]:
+            for lib in LIBS_K9:
+                _use_k9(k9, build, lib, libs[(lib, tag)][0])
+            for label, fn, x in cases:
+                emit(kernel=label, variant=tag, ms_a_step=cs._time_steps(
+                    fn, x, 30, dev) * 1e3)
+    k9._fn_cache.clear()
+
+
 def sweep_2d(cs, build, M, kf, k9, dev, emit, zs=(16, 32, 64, 96, 128),
              blocks=(1, 2, 3, 4)) -> None:
     """The "2dT" mode: ms a time step of K3c (the flagship) and K5c-Tc
@@ -147,10 +285,14 @@ def sweep_2d(cs, build, M, kf, k9, dev, emit, zs=(16, 32, 64, 96, 128),
     from openlbmpm_torch.kernels import csf, march2d, transport
     m = cs.flagship_model(dev, "f32")
     s = m.pack_state(*m.init_state_layers(1.0, 1.0, invading_rows=100))
+    mp = cs.pert_flagship_model(dev, "f32")
+    sp = mp.pack_state(*mp.init_state_layers(1.0, 1.0, invading_rows=100))
     mt = cs.coupled_model(dev, "f32", cs.CONFIG4_TRACER)
     st, _ = cs.config4_state(mt)
     x = mt.pack(st)
     cases = (("K3c f32", lambda y, t: csf.csf_block_compressed(y, m, t), s),
+             ("K3c Pert f32", lambda y, t: csf.pert_block_compressed(
+                 y, mp, t), sp),
              ("K5c-Tc f32", lambda y, t: transport.coupled_block_compressed(
                  y, mt, t), x))
     z0 = march2d.ROWS_PER_WAVE
@@ -213,7 +355,8 @@ def main(argv=None) -> int:
     from openlbmpm_torch.kernels import cg3d as k9
     from openlbmpm_torch.kernels import flow3d as kf
     from openlbmpm_torch.kernels import march3d as M
-    what = (list(sys.argv[1:] if argv is None else argv) or ["all"])[0]
+    args = list(sys.argv[1:] if argv is None else argv) or ["all"]
+    what = args[0]
     shape = (128,) * 3
     t0 = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -222,8 +365,11 @@ def main(argv=None) -> int:
     def emit(**kw):
         print(json.dumps(kw), flush=True)
 
-    if what == "2dT":
-        sweep_2d(cs, build, M, kf, k9, dev, emit)
+    if what in ("2dT", "k9"):
+        if what == "2dT":
+            sweep_2d(cs, build, M, kf, k9, dev, emit)
+        else:
+            sweep_k9(cs, build, k9, dev, emit, tuple(args[1:]))
         print(json.dumps({"done": True,
                           "seconds": time.perf_counter() - t0}))
         return 0
@@ -287,8 +433,9 @@ def main(argv=None) -> int:
                     emit(kernel="K9-Tc f32", T=t, skipped=name,
                          ms_a_step=k9c(t))
             M._fns.clear()
-    if what in ("2dT", "all"):
+    if what == "all":
         sweep_2d(cs, build, M, kf, k9, dev, emit)
+        sweep_k9(cs, build, k9, dev, emit)
     print(json.dumps({"done": True, "seconds": time.perf_counter() - t0}))
     return 0
 

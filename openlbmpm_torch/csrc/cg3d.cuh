@@ -15,7 +15,7 @@
 // stencils, rsqrt and squared-distance tie test, so the double instances
 // agree with the plain path to rounding.
 //
-// One step, up to six launches, one thread per cell (x fastest):
+// One step, two launches (three with an inlet or outlet):
 //   0. bc_kernel       (only with an inlet or outlet) one thread per (y, x)
 //      column rewrites the boundary slabs as the TPU kernel's jnp prologue
 //      does (_bc_prologue_c, _bc_prologue_c_bf16, _bc_prologue_split):
@@ -24,34 +24,64 @@
 //      ghost 0.  It writes those slabs, in storage type, to a 5-slab
 //      scratch that the later kernels read in place of the state's slabs
 //      (so a bf16 slab is re-encoded exactly as the prologue re-encodes it).
-//   1. phase_kernel    state -> phi (one plane, compute type; 0 on solid)
-//   2. extrap_kernel   (only with wetting walls) phi on solid cells <- the
-//      w-weighted mean of their fluid neighbours, in place
-//   3. normal_kernel   phi -> g (3 planes) and the unit inward normal
-//      n = -g/|g| on fluid (3 planes): isotropic gradient, Akai rotation
-//   4. curvature       n -> kappa (one plane; 18 neighbour normals a cell,
-//      read once here rather than in collide_stream's ring recompute)
-//   5. collide_stream  state, phi, g, kappa -> state'.  A block owns a 32x8
-//      (x, y) tile and marches up a run of ZC = 16 z slabs, one thread for
-//      each cell of the tile and its one-cell (x, y) ring (340 of 352
-//      threads).  It collides each slab of the ring tile into a three-slab
-//      ring buffer in shared memory (post-collision total PDF, red fraction
-//      and the three recolouring amplitudes: 23 values a cell), then the
-//      tile's 256 threads pull-stream slab z from slabs z-1, z, z+1; rho_r'
-//      is the sum of the streamed red PDFs.  Recompute: (34*10)/(32*8) =
-//      1.33 in (x, y), (ZC + 2)/ZC = 1.125 in z: 1.49x the cells collided.
+//   1. fields_kernel   state -> g (3 planes: the isotropic gradient of the
+//      extended phase field, Akai-rotated on wetting fluid cells) and kappa
+//      (one plane, 0 off fluid): 16 B a cell in f32.  A block owns an
+//      (x, y) tile (32 x 16; 32 x 12 in the split layout) and marches a run
+//      of z slabs (at most 32; 48 split; shorter where the card would
+//      otherwise hold fewer blocks than it can: 32 at 128^3, 9 on a quarter
+//      of it) with rings in shared memory: phi and the geometry code over
+//      the tile and 3 cells a side (8 slabs), phi extended in place onto
+//      the solid cells with a fluid neighbour (geo code < -0.5), the unit
+//      inward normals and fluid flags over the tile and 1 cell a side (4
+//      slabs).  Four phases, one cell a thread (736 threads, 576 split: one
+//      for each cell within 2 of the tile; the outer band goes to the first
+//      threads as a second cell): phi of a slab (its state read whatever
+//      the cell's code, so that the loads go out together; in the band and
+//      on the run's two end slabs only wetting fluid cells, all that an
+//      extension reads there, read the state), the extension, g and the
+//      normal (the wetting cells' surface normals loaded before the
+//      extension runs), kappa.  Between two barriers they run on slabs two
+//      apart (phi of h, the extension of h - 2, the normals of h - 4, kappa
+//      of h - 6, going up; mirrored going down), so one barrier a slab, and
+//      a phase's loads wait while other warps compute.  Runs alternate up
+//      and down the column, so that two runs sharing a boundary read its
+//      slabs at the same time and the second read hits L2.  The split
+//      layout's tile leaves a thread 96 registers, not 80: its phi reads 38
+//      values a cell, which spilled at 32 x 16.  Recompute for phi, the
+//      costly phase (it reads the state; mostly from L2): (36 x 20) /
+//      (32 x 16) = 1.41 in (x, y), (36 x 16) / (32 x 12) = 1.5 split, and
+//      (run + 4) / run in z.  At 128^3 f32 on an H100 the kernel takes
+//      about 202 us (split 300) against the 231 of the four passes it
+//      replaced (PERF.md).  The cell arithmetic is the device functions
+//      cell_phase, extrapolated_phi, phi_gradient, rotate_akai,
+//      inward_normal and curvature_of, so every value is the one those four
+//      passes (phase, extrap, normal, curvature) wrote, bit for bit.
+//   2. collide_stream  state, g, kappa -> state'.  A block owns a TX x TY
+//      (x, y) tile (32 x 8) and marches a run of ZC = 16 z slabs (up or
+//      down, alternating as fields_kernel's runs do), one
+//      thread for each cell of the tile and its one-cell (x, y) ring (340
+//      of 352 threads).  It collides each slab of the ring tile into a
+//      three-slab ring buffer in shared memory (post-collision total PDF,
+//      red fraction and the three recolouring amplitudes: 23 values a
+//      cell; phi at the cell from the cell's own state, as cell_phase
+//      forms it), then the tile's 256 threads pull-stream slab z from slabs
+//      z-1, z, z+1; rho_r' is the sum of the streamed red PDFs.
+//      Recompute: (34*10)/(32*8) = 1.33 in (x, y), (ZC + 2)/ZC = 1.125 in
+//      z: 1.49x the cells collided.  Two blocks an SM in float arithmetic.
 //
 // The coupled step (K9t: transport=, state_mode="compressed", T=1, the
 // TPU step at pallas/cg3d.py:1324-1355) adds D3Q7 tracers g (NT, 7, nz,
 // ny, nx), f64 in the f64 library and f32 otherwise (never bf16), and two
-// launches between curvature and collide_stream, so up to eight a step:
+// launches between fields and collide_stream, so up to five a step:
 //   t1. tracer_collide3d  one thread per cell: the cell as load_cell sees
 //      it (after the boundary slabs, which the TPU step applies as its jnp
 //      prologue), u = (m + F/2)/rho from the same device function the
-//      flow's collision calls (cell_velocity, so both see one u), and per
-//      tracer the SRT J-scheme collision on that u -> g_post; a flag byte
-//      of every cell: fluid, and rho_r < criteria (the epilogue's domain,
-//      taken from the post-prologue rho_r).
+//      flow's collision calls (cell_velocity, so both see one u; F from g
+//      and kappa of fields_kernel), and per tracer the SRT J-scheme
+//      collision on that u -> g_post; a flag byte of every cell: fluid, and
+//      rho_r < criteria (the epilogue's domain, taken from the post-prologue
+//      rho_r).
 //   t2. tracer_stream3d   pull streaming from g_post with half-way
 //      bounce-back, periodic in x, y and z, times the fluid mask, then the
 //      hard interface bounce-back as reads of g_post: slot i at x takes
@@ -70,20 +100,23 @@
 // and for collide_stream a kernel of its own, collide_stream_box_kernel,
 // around the one body.
 // K9t's least bytes add the tracer in and out and the mask: with one f32
-// tracer 2 x 28 B a cell.  t1 moves about 160 B a cell (the state 80 and
-// the normals and kappa 16, g 28, g_post 28, the flags), t2 about 60
-// (g_post 28, g' 28, the flags).  Fusing the tracer into collide_stream's
-// ring is later speed work.
+// tracer 2 x 28 B a cell.  t1 moves about 140 B a cell (the state 80, g
+// and kappa 16, g 28, g_post 28, the flags), t2 about 60 (g_post 28, g'
+// 28, the flags).  Fusing the tracer into collide_stream's ring is later
+// speed work.
 //
 // What bounds it: the least work is HBM bytes, the state in and out plus
 // the 4 geometry planes: 176 B a cell (f32), 100 B (bf16), 320 B (split
-// f32).  This design moves about 390 / 250 / 550 B: the state read twice
-// (phase and collide_stream; the ring recompute mostly hits L2), phi, g, n
-// and kappa written and read (64 B f32), the code plane read by each pass.
-// Measured on an H100 (PERF.md), collide_stream is latency-bound rather
-// than byte-bound (bf16 storage saves it almost nothing): 16-22 warps an
-// SM, two barriers a slab.  Fusing the helper passes into collide_stream
-// (a deeper ring) and raising its occupancy are the next steps for speed.
+// f32).  This design moves about 260 / 170 / 400 B: the state read twice
+// (fields and collide_stream; the rings' recompute mostly hits L2), g and
+// kappa written once and read once (32 B f32), the code plane read by
+// each kernel.  The TPU kernel keeps phi, the normals and kappa in VMEM
+// for each z-block; on the H100 the four helper passes that wrote and
+// re-read phi (one plane) and g, n, kappa (seven) took 231 of 594 us a
+// step at 128^3 (PERF.md), and fields_kernel keeps all but g and kappa in
+// shared memory.  collide_stream is latency-bound rather than byte-bound
+// (bf16 storage saves it almost nothing): 16-22 warps an SM, two barriers
+// a slab.
 
 #pragma once
 
@@ -121,6 +154,9 @@ constexpr int kSplit = 1;
 constexpr int Q = 19;
 
 constexpr double kEps = 1.0e-8;
+
+// collide_stream's tile and z-run, and fields_kernel's (chip_sweep.py k9
+// times copies with other values; PERF.md has the sweep)
 constexpr int TX = 32;
 constexpr int TY = 8;
 constexpr int HX = TX + 2;
@@ -128,6 +164,27 @@ constexpr int HY = TY + 2;
 constexpr int ZC = 16;    // z slabs a collide_stream block marches through
 constexpr int NSH = 23;   // shared values per ring cell: post (19), frac, A, B, C
 constexpr int RING_THREADS = (HX * HY + 31) / 32 * 32;   // one thread a ring cell
+
+constexpr int FX = 32;    // fields_kernel's tile: FX x FY, FX x FY_SPLIT in the split layout
+constexpr int FY = 16;
+constexpr int FY_SPLIT = 12;
+constexpr int FZ = 32;    // the most z slabs a fields_kernel block marches through
+constexpr int FZ_SPLIT = 48;   // the same in the split layout
+// fields_kernel's rings and threads in layout L: the phi ring is the tile
+// and 3 cells a side, the normal ring the tile and 1 cell a side; one
+// thread a cell within 2 of the tile, and the outer band of the phi ring
+// (2 QW + 2 QH - 4 cells) goes to the first threads as a second cell.  The
+// split layout's shorter tile leaves a thread 96 registers in place of 80:
+// its phi reads 38 values a cell, which spilled at 80 (PERF.md)
+template <int L> struct FieldTile {
+  static constexpr int Y = L == kSplit ? FY_SPLIT : FY;
+  static constexpr int Z = L == kSplit ? FZ_SPLIT : FZ;
+  static constexpr int QW = FX + 6, QH = Y + 6, NW = FX + 2, NH = Y + 2;
+  static constexpr int THREADS = ((FX + 4) * (Y + 4) + 31) / 32 * 32;
+  static constexpr int BAND = 2 * QW + 2 * QH - 4;
+  static_assert(BAND <= THREADS, "a thread takes at most one band cell");
+};
+constexpr int kFieldPlanes = 4;   // g (3), kappa
 
 // D3Q19, the lattice's order (lattice.py): 0 rest, 1-6 axes, 7-18 face
 // diagonals; opposite of i > 0 is i + 1 for odd i, i - 1 for even i.
@@ -155,6 +212,11 @@ __device__ __forceinline__ int wrap(int v, int n) {
 }
 // v mod n for v >= -n (a tile's ring may pass a small domain more than once)
 __device__ __forceinline__ int wrap_any(int v, int n) { return (v + n) % n; }
+// v mod n for any v
+__device__ __forceinline__ int pmod(int v, int n) {
+  const int r = v % n;
+  return r < 0 ? r + n : r;
+}
 
 // Storage type S -> compute type C.  bf16 storage holds f_i - w_i*fl.
 // The buffer index k of this thread's cell: thread t of the whole domain,
@@ -447,24 +509,6 @@ __device__ __forceinline__ C cell_phase(const Cell<C, L>& c) {
   return tot != C(0) ? (rr - rb) / tot : C(0);
 }
 
-// phi on fluid cells, 0 elsewhere.
-template <typename S, int L, bool BOX = false, typename C = typename Traits<S>::C>
-__global__ void phase_kernel(State<S> st, const C* __restrict__ geo, C* __restrict__ phi,
-                             Cg3dParams P, Box3 B) {
-  const size_t nxy = (size_t)P.ny * P.nx;
-  size_t k;
-  if (!cell_index<BOX>(P, B, k)) return;
-  if (!(geo[k] > C(0.5))) {
-    phi[k] = C(0);
-    return;
-  }
-  const int z = (int)(k / nxy);
-  const int y = (int)((k % nxy) / P.nx), x = (int)(k % P.nx);
-  Cell<C, L> c;
-  load_cell<S, L>(st, geo, P, z, y, x, c);
-  phi[k] = cell_phase(c);
-}
-
 // Akai 2018 contact-angle rotation of the gradient on a wetting fluid cell
 // (ops/colorgrad.py::rotate_gradient_on_wetting_akai_nd).
 template <typename C>
@@ -513,29 +557,6 @@ __device__ __forceinline__ C extrapolated_phi(FluidAt fluid_at, PhiAt phi_at) {
   return den > C(0) ? num / den : C(0);
 }
 
-// phi extended onto solid cells in place.  It reads only fluid neighbours,
-// which it never writes, so in place is safe.
-template <typename C, bool BOX = false>
-__global__ void extrap_kernel(const C* __restrict__ geo, C* __restrict__ phi, Cg3dParams P,
-                              Box3 B) {
-  const int nx = P.nx, ny = P.ny, nz = P.nz;
-  const size_t nxy = (size_t)ny * nx;
-  size_t k;
-  if (!cell_index<BOX>(P, B, k)) return;
-  const C code = geo[k];
-  // fluid (code 1 or 2), or solid without a fluid neighbour (code -0):
-  // phi stays as the phase kernel wrote it
-  if (code > C(-0.5)) return;
-  const int z = (int)(k / nxy);
-  const int y = (int)((k % nxy) / nx), x = (int)(k % nx);
-  auto nb = [&](int i) {
-    return (size_t)wrap(z + ez(i), nz) * nxy + (size_t)wrap(y + ey(i), ny) * nx +
-           wrap(x + ex(i), nx);
-  };
-  phi[k] = extrapolated_phi<C>([&](int i) { return geo[nb(i)] > C(0.5); },
-                               [&](int i) { return phi[nb(i)]; });
-}
-
 // g = 3 sum_i w_i e_i phi(x + e_i) of the (extended) phase field; phi_at(i)
 // reads neighbour i.
 template <typename C, typename PhiAt>
@@ -560,38 +581,6 @@ __device__ __forceinline__ void inward_normal(const C g[3], C fl, C n[3]) {
   const bool ok = norm > C(kEps);
 #pragma unroll
   for (int d = 0; d < 3; ++d) n[d] = (ok ? -g[d] / norm : C(0)) * fl;
-}
-
-// phi (extended) -> g, rotated on wetting fluid cells, and the unit inward
-// normal on fluid cells.
-template <typename C, bool BOX = false>
-__global__ void normal_kernel(const C* __restrict__ geo, const C* __restrict__ phi,
-                              C* __restrict__ nrm, Cg3dParams P, Box3 B) {
-  const int nx = P.nx, ny = P.ny, nz = P.nz;
-  const size_t nxy = (size_t)ny * nx;
-  const size_t n = (size_t)nz * nxy;
-  size_t k;
-  if (!cell_index<BOX>(P, B, k)) return;
-  const int z = (int)(k / nxy);
-  const int y = (int)((k % nxy) / nx), x = (int)(k % nx);
-  C g[3], nv[3];
-  phi_gradient<C>(
-      [&](int i) {
-        return phi[(size_t)wrap(z + ez(i), nz) * nxy + (size_t)wrap(y + ey(i), ny) * nx +
-                   wrap(x + ex(i), nx)];
-      },
-      g);
-  const C code = geo[k];
-  if (P.has_wetting && code > C(1.5)) {
-    const C ns[3] = {geo[n + k], geo[2 * n + k], geo[3 * n + k]};
-    rotate_akai(g, ns, P);
-  }
-  inward_normal(g, code > C(0.5) ? C(1) : C(0), nv);
-#pragma unroll
-  for (int d = 0; d < 3; ++d) {
-    nrm[d * n + k] = g[d];
-    nrm[(3 + d) * n + k] = nv[d];
-  }
 }
 
 // The curvature kappa = sum_ab (n_a n_b - delta_ab) d_a n_b of the unit
@@ -625,28 +614,169 @@ __device__ __forceinline__ C curvature_of(NAt n_at, const C nh[3]) {
   return kappa;
 }
 
-// kappa on fluid cells (0 elsewhere) into plane 6 of nrm.
-template <typename C, bool BOX = false>
-__global__ void curvature_kernel(const C* __restrict__ geo, C* __restrict__ nrm,
-                                 Cg3dParams P, Box3 B) {
+// Whether a block's z-run marches up (blockIdx.z even) or down; a run that
+// shares a boundary with the next marches the other way.
+__device__ __forceinline__ bool up_run() { return (blockIdx.z & 1) == 0; }
+
+// fields_kernel: the state (after the boundary slabs) -> g (planes 0-2 of
+// fld, every cell of the output region) and kappa (plane 3, 0 off fluid);
+// the design is in the note at the top.  BOX: the output region is the
+// box's slabs and rows (every x), else the whole domain.  A block marches
+// `zrun` slabs.
+template <typename S, int L, bool BOX, typename C = typename Traits<S>::C>
+__global__ void __launch_bounds__(FieldTile<L>::THREADS)
+fields_kernel(State<S> st, const C* __restrict__ geo, C* __restrict__ fld, Cg3dParams P,
+              Box3 box, int zrun) {
+  // rings: phi and the geometry code [8 slots][QH][QW], the normals and
+  // the fluid flag [4 slots][4][NH][NW] (FieldTile<L>)
+  using FT = FieldTile<L>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  C* sphi = reinterpret_cast<C*>(smem);
+  C* scode = sphi + 8 * FT::QH * FT::QW;
+  C* snrm = scode + 8 * FT::QH * FT::QW;
   const int nx = P.nx, ny = P.ny, nz = P.nz;
   const size_t nxy = (size_t)ny * nx;
   const size_t n = (size_t)nz * nxy;
-  size_t k;
-  if (!cell_index<BOX>(P, B, k)) return;
-  if (!(geo[k] > C(0.5))) {
-    nrm[6 * n + k] = C(0);
-    return;
+  const int x0 = blockIdx.x * FX;
+  const int y0 = (BOX ? box.y0 : 0) + blockIdx.y * FT::Y;
+  const int z0 = (BOX ? box.z0 : 0) + blockIdx.z * zrun;
+  const int z1 = min(z0 + zrun, BOX ? box.z1 : nz);
+  const int y1 = BOX ? box.y1 : ny;
+  const bool wet = P.has_wetting != 0;
+  const int t = threadIdx.x;
+  // ring slots of the unwrapped slab z (z >= -7): phi ring coordinates
+  // (lx, ly) are the tile's plus 3, normal ring coordinates the tile's
+  // plus 1
+  auto pi = [&](int z, int ly, int lx) { return ((z & 7) * FT::QH + ly) * FT::QW + lx; };
+  auto ni = [&](int z, int d, int my, int mx) {
+    return (((z & 3) * 4 + d) * FT::NH + my) * FT::NW + mx;
+  };
+  // this thread's cell within 2 of the tile, and its band cell (t <
+  // FT::BAND): the top and bottom rows, then the left and right columns
+  const bool inner = t < (FX + 4) * (FT::Y + 4);
+  const int ix = 1 + t % (FX + 4), iy = 1 + t / (FX + 4);
+  const int b = t < 2 * FT::QW ? t : t - 2 * FT::QW;
+  const int bx = t < 2 * FT::QW ? b % FT::QW : (b & 1) * (FT::QW - 1);
+  const int by = t < 2 * FT::QW ? (b / FT::QW) * (FT::QH - 1) : 1 + b / 2;
+  const int cy = pmod(y0 - 3 + iy, ny), cx = pmod(x0 - 3 + ix, nx);
+  const int byy = pmod(y0 - 3 + by, ny), bxx = pmod(x0 - 3 + bx, nx);
+
+  // phi of slab h over the phi ring (0 on solid cells until the extension)
+  // and the geometry code.  Within 2 of the tile the state is read whatever
+  // the code, so that its loads go out with the code's.  In the outer band
+  // and on the run's end slabs z0 - 3 and z1 + 2 only wetting fluid cells
+  // are read, after their code is back: they are the only fluid cells an
+  // extension reads there (every fluid neighbour of a solid cell wets), and
+  // nothing else reads those cells' phi
+  auto phase = [&](int h) {
+    const int cz = pmod(h, nz);
+    const bool edge = h == z0 - 3 || h == z1 + 2;
+    if (inner) {
+      const C code = geo[(size_t)cz * nxy + (size_t)cy * nx + cx];
+      Cell<C, L> c;
+      if (!edge) load_cell<S, L>(st, geo, P, cz, cy, cx, c);
+      C v = C(0);
+      if (edge) {
+        if (wet && code > C(1.5)) {
+          load_cell<S, L>(st, geo, P, cz, cy, cx, c);
+          v = cell_phase(c);
+        }
+      } else if (code > C(0.5)) {
+        v = cell_phase(c);
+      }
+      sphi[pi(h, iy, ix)] = v;
+      scode[pi(h, iy, ix)] = code;
+    }
+    if (wet && t < FT::BAND) {
+      const C code = geo[(size_t)cz * nxy + (size_t)byy * nx + bxx];
+      C v = C(0);
+      if (code > C(1.5)) {
+        Cell<C, L> c;
+        load_cell<S, L>(st, geo, P, cz, byy, bxx, c);
+        v = cell_phase(c);
+      }
+      sphi[pi(h, by, bx)] = v;
+      scode[pi(h, by, bx)] = code;
+    }
+  };
+  // phi extended onto the solid cells with a fluid neighbour of slab z
+  // within 2 of the tile, in place (it reads only fluid cells)
+  auto extend = [&](int z) {
+    if (!inner || !(scode[pi(z, iy, ix)] < C(-0.5))) return;
+    sphi[pi(z, iy, ix)] = extrapolated_phi<C>(
+        [&](int i) { return scode[pi(z + ez(i), iy + ey(i), ix + ex(i))] > C(0.5); },
+        [&](int i) { return sphi[pi(z + ez(i), iy + ey(i), ix + ex(i))]; });
+  };
+  // the solid-surface normal of slab z's cell of this thread's normal (0
+  // unless it wets), loaded before the extension so that the loads are in
+  // flight while it runs
+  const int mx = t % FT::NW, my = t / FT::NW;
+  auto surface = [&](int z, C ns[3]) {
+    ns[0] = ns[1] = ns[2] = C(0);
+    if (!wet || t >= FT::NW * FT::NH || !(scode[pi(z, my + 2, mx + 2)] > C(1.5))) return;
+    const size_t k = (size_t)pmod(z, nz) * nxy + (size_t)pmod(y0 - 1 + my, ny) * nx +
+                     pmod(x0 - 1 + mx, nx);
+    ns[0] = geo[n + k];
+    ns[1] = geo[2 * n + k];
+    ns[2] = geo[3 * n + k];
+  };
+  // g (rotated on wetting fluid cells by the surface normal ns) and the
+  // unit inward normal of slab z within 1 of the tile, with the cell's
+  // fluid flag; g of the tile's cells of the run to fld
+  auto normal = [&](int z, const C ns[3]) {
+    if (t >= FT::NW * FT::NH) return;
+    const int x = x0 - 1 + mx, y = y0 - 1 + my;
+    C g[3], nv[3];
+    phi_gradient<C>(
+        [&](int i) { return sphi[pi(z + ez(i), my + 2 + ey(i), mx + 2 + ex(i))]; }, g);
+    const C code = scode[pi(z, my + 2, mx + 2)];
+    if (wet && code > C(1.5)) rotate_akai(g, ns, P);
+    inward_normal(g, code > C(0.5) ? C(1) : C(0), nv);
+#pragma unroll
+    for (int d = 0; d < 3; ++d) snrm[ni(z, d, my, mx)] = nv[d];
+    snrm[ni(z, 3, my, mx)] = code > C(0.5) ? C(1) : C(0);
+    if (z >= z0 && z < z1 && mx >= 1 && mx <= FX && my >= 1 && my <= FT::Y && x < nx && y < y1) {
+      const size_t k = ((size_t)z * ny + y) * nx + x;
+#pragma unroll
+      for (int d = 0; d < 3; ++d) fld[d * n + k] = g[d];
+    }
+  };
+  // kappa of slab z on the tile (0 off fluid) to fld
+  auto curvature = [&](int z) {
+    if (t >= FX * FT::Y) return;
+    const int tx = t % FX, ty = t / FX;
+    const int x = x0 + tx, y = y0 + ty;
+    if (x >= nx || y >= y1) return;
+    const int mx = tx + 1, my = ty + 1;
+    C kappa = C(0);
+    if (snrm[ni(z, 3, my, mx)] > C(0.5)) {
+      const C nh[3] = {snrm[ni(z, 0, my, mx)], snrm[ni(z, 1, my, mx)], snrm[ni(z, 2, my, mx)]};
+      kappa = curvature_of(
+          [&](int i, int b) { return snrm[ni(z + ez(i), b, my + ey(i), mx + ex(i))]; }, nh);
+    }
+    fld[3 * n + ((size_t)z * ny + y) * nx + x] = kappa;
+  };
+
+  // One barrier a slab: between two barriers the four phases run on slabs
+  // two apart (phi of h, the extension of h - 2d, the normals of h - 4d
+  // and kappa of h - 6d, d the direction of the march), so that each reads
+  // only what earlier intervals wrote and no phase writes a slot another
+  // reads in the same interval (phi and codes 8 slots, the normals 4).
+  // Runs march up where blockIdx.z is even and down where it is odd, so
+  // that two runs that share a boundary read the slabs around it at the
+  // same time and the second read hits L2.
+  const int d = up_run() ? 1 : -1;
+  const int first = d > 0 ? z0 - 3 : z1 + 2;
+  for (int j = 0; j <= z1 - z0 + 8; ++j) {
+    const int h = first + d * j, e = h - 2 * d, m = h - 4 * d, k = h - 6 * d;
+    C ns[3];
+    if (j <= z1 - z0 + 5) phase(h);
+    if (m >= z0 - 1 && m <= z1) surface(m, ns);
+    if (wet && e >= z0 - 2 && e <= z1 + 1) extend(e);
+    if (m >= z0 - 1 && m <= z1) normal(m, ns);
+    if (k >= z0 && k < z1) curvature(k);
+    __syncthreads();
   }
-  const int z = (int)(k / nxy);
-  const int y = (int)((k % nxy) / nx), x = (int)(k % nx);
-  const C nh[3] = {nrm[3 * n + k], nrm[4 * n + k], nrm[5 * n + k]};
-  nrm[6 * n + k] = curvature_of(
-      [&](int i, int b) {
-        return nrm[(3 + b) * n + (size_t)wrap(z + ez(i), nz) * nxy +
-                   (size_t)wrap(y + ey(i), ny) * nx + wrap(x + ex(i), nx)];
-      },
-      nh);
 }
 
 template <typename C>
@@ -739,27 +869,26 @@ __device__ __forceinline__ C red_part(int j, C o, C frac, C A, C B, C Cz) {
   return frac * o + seg;
 }
 
-// collide_core at the fluid cell (z, y, x) of the global state.
+// collide_core at the fluid cell (z, y, x) of the global state: phi from
+// the cell's state, g and kappa from fields_kernel's planes fld.
 template <typename S, int L, typename C = typename Traits<S>::C>
 __device__ __forceinline__ void collide_cell(const State<S>& st, const C* __restrict__ geo,
-                             const C* __restrict__ phi, const C* __restrict__ nrm,
-                             const Cg3dParams& P, int z, int y, int x, C post[Q], C& frac,
-                             C& A, C& B, C& Cz) {
+                             const C* __restrict__ fld, const Cg3dParams& P, int z, int y,
+                             int x, C post[Q], C& frac, C& A, C& B, C& Cz) {
   const size_t nxy = (size_t)P.ny * P.nx;
   const size_t n = (size_t)P.nz * nxy;
   const size_t k = (size_t)z * nxy + (size_t)y * P.nx + x;
   Cell<C, L> c;
   load_cell<S, L>(st, geo, P, z, y, x, c);
-  const C g[3] = {nrm[k], nrm[n + k], nrm[2 * n + k]};
-  collide_core(c, phi[k], g, nrm[6 * n + k], P, post, frac, A, B, Cz);
+  const C g[3] = {fld[k], fld[n + k], fld[2 * n + k]};
+  collide_core(c, cell_phase(c), g, fld[3 * n + k], P, post, frac, A, B, Cz);
 }
 
 // The body of collide_stream: BOX, the tiles cover the box's slabs and
 // rows (the ring reaches one cell beyond them); without, the whole domain.
 template <typename S, int L, bool BOX, typename C>
 __device__ __forceinline__ void collide_stream_body(State<S> st, const C* __restrict__ geo,
-                                                    const C* __restrict__ phi,
-                                                    const C* __restrict__ nrm,
+                                                    const C* __restrict__ fld,
                                                     S* __restrict__ out, S* __restrict__ out2,
                                                     Cg3dParams P, Box3 box) {
   // three slabs of the ring tile: [slot][value][HY][HX], then fluid flags
@@ -790,7 +919,7 @@ __device__ __forceinline__ void collide_stream_body(State<S> st, const C* __rest
       flag(slot, ly, lx) = fluid;
       C post[Q], frac = C(0), A = C(0), B = C(0), Cz = C(0);
       if (fluid) {
-        collide_cell<S, L>(st, geo, phi, nrm, P, cz, cy, cx, post, frac, A, B, Cz);
+        collide_cell<S, L>(st, geo, fld, P, cz, cy, cx, post, frac, A, B, Cz);
       } else {
 #pragma unroll
         for (int i = 0; i < Q; ++i) post[i] = C(0);
@@ -808,12 +937,17 @@ __device__ __forceinline__ void collide_stream_body(State<S> st, const C* __rest
   const int x = x0 + lx - 1, y = y0 + ly - 1;
   const bool inside =
       lx >= 1 && lx <= TX && ly >= 1 && ly <= TY && x < nx && y < (BOX ? box.y1 : ny);
-  compute_slab(z0 - 1, 0);
-  compute_slab(z0, 1);
-  for (int z = z0; z < z1; ++z) {
-    compute_slab(z + 1, (z - z0 + 2) % 3);
+  // the ring slot of slab z; the run marches up or down as fields_kernel's
+  auto slot_of = [&](int z) { return (z - z0 + 1) % 3; };
+  const int d = up_run() ? 1 : -1;
+  const int first = d > 0 ? z0 : z1 - 1;
+  compute_slab(first - d, slot_of(first - d));
+  compute_slab(first, slot_of(first));
+  for (int j = 0; j < z1 - z0; ++j) {
+    const int z = first + d * j;
+    compute_slab(z + d, slot_of(z + d));
     __syncthreads();
-    const int cur = (z - z0 + 1) % 3;
+    const int cur = slot_of(z);
     if (inside) {
       const size_t k = (size_t)z * nxy + (size_t)y * nx + x;
       // o: the streamed total PDF; red: its red part, frac * post_j +
@@ -860,12 +994,14 @@ __device__ __forceinline__ void collide_stream_body(State<S> st, const C* __rest
   }
 }
 
+// Two blocks an SM in float arithmetic, as the box kernel below: 80
+// registers for the compressed instances (as without the bound), and the
+// split ones 7.5% faster than at 118 (an H100, PERF.md).
 template <typename S, int L, typename C = typename Traits<S>::C>
-__global__ void __launch_bounds__(RING_THREADS)
-collide_stream_kernel(State<S> st, const C* __restrict__ geo, const C* __restrict__ phi,
-                      const C* __restrict__ nrm, S* __restrict__ out, S* __restrict__ out2,
-                      Cg3dParams P) {
-  collide_stream_body<S, L, false, C>(st, geo, phi, nrm, out, out2, P, Box3{});
+__global__ void __launch_bounds__(RING_THREADS, sizeof(C) == 4 ? 2 : 1)
+collide_stream_kernel(State<S> st, const C* __restrict__ geo, const C* __restrict__ fld,
+                      S* __restrict__ out, S* __restrict__ out2, Cg3dParams P) {
+  collide_stream_body<S, L, false, C>(st, geo, fld, out, out2, P, Box3{});
 }
 
 // The local form's collide_stream over the box B.  Its float instance is
@@ -874,10 +1010,9 @@ collide_stream_kernel(State<S> st, const C* __restrict__ geo, const C* __restric
 // (an H100 measurement, PERF.md).
 template <typename S, int L, typename C = typename Traits<S>::C>
 __global__ void __launch_bounds__(RING_THREADS, sizeof(C) == 4 ? 2 : 1)
-collide_stream_box_kernel(State<S> st, const C* __restrict__ geo, const C* __restrict__ phi,
-                          const C* __restrict__ nrm, S* __restrict__ out, S* __restrict__ out2,
-                          Cg3dParams P, Box3 B) {
-  collide_stream_body<S, L, true, C>(st, geo, phi, nrm, out, out2, P, B);
+collide_stream_box_kernel(State<S> st, const C* __restrict__ geo, const C* __restrict__ fld,
+                          S* __restrict__ out, S* __restrict__ out2, Cg3dParams P, Box3 B) {
+  collide_stream_body<S, L, true, C>(st, geo, fld, out, out2, P, B);
 }
 
 // D3Q7 (lattice.py): 0 rest, then +x, -x, +y, -y, +z, -z, so direction
@@ -899,7 +1034,7 @@ constexpr unsigned char kFluid = 2;
 // of every cell.
 template <typename S, bool BOX = false, typename C = typename Traits<S>::C>
 __global__ void tracer_collide3d_kernel(State<S> st, const C* __restrict__ geo,
-                                        const C* __restrict__ nrm, const C* __restrict__ g,
+                                        const C* __restrict__ fld, const C* __restrict__ g,
                                         const C* __restrict__ tab, C* __restrict__ gp,
                                         unsigned char* __restrict__ flags, Cg3dParams P,
                                         Tracer3dParams T, Box3 B) {
@@ -917,9 +1052,9 @@ __global__ void tracer_collide3d_kernel(State<S> st, const C* __restrict__ geo,
   flags[k] = (rr < C(T.criteria) ? kInDomain : 0) | (fluid ? kFluid : 0);
   // a solid cell's g_post is never selected: streaming bounces back on it
   if (!fluid) return;
-  const C gr[3] = {nrm[k], nrm[n + k], nrm[2 * n + k]};
+  const C gr[3] = {fld[k], fld[n + k], fld[2 * n + k]};
   C F[3], u[3];
-  cell_velocity(f, rr + rb, gr, nrm[6 * n + k], P, F, u);
+  cell_velocity(f, rr + rb, gr, fld[3 * n + k], P, F, u);
   for (int t = 0; t < T.nt; ++t) {
     const C* row = tab + t * kTracerRow;
     const size_t base = (size_t)t * Q7 * n + k;
@@ -985,51 +1120,89 @@ __global__ void tracer_stream3d_kernel(const C* __restrict__ gp,
   }
 }
 
+// Launches of bc_kernel, fields_kernel and collide_stream (either form) by
+// this library since it was loaded, one where each launch is made;
+// cg3d_kernel_launches reads them.
+long long g_launches[3];
+
 template <typename S, int L>
 constexpr size_t smem_bytes() {
   using C = typename Traits<S>::C;
   return sizeof(C) * 3 * NSH * HY * HX + 3 * HY * HX;
 }
 
-// Launches 0-4 of a step (boundary slabs through curvature); with boundary
-// slabs, st.bc is set to their scratch.  nrm holds g, n and kappa (7
+template <typename C, int L>
+constexpr size_t fields_smem_bytes() {
+  using FT = FieldTile<L>;
+  return sizeof(C) * (16 * FT::QH * FT::QW + 16 * FT::NH * FT::NW);
+}
+
+// fields_kernel over the domain or (BOX) the box B: g and kappa into the
+// four planes fld.  The z-run is the shortest (at least 4 slabs, at most
+// FieldTile<L>::Z) whose grid the card holds at once: a quarter of 128^3
+// (K12d on a (4, 1) mesh) takes runs of 9 slabs, 1.4x faster than runs of
+// 32 that leave three quarters of the card idle (PERF.md).
+template <typename S, int L, bool BOX = false, typename C = typename Traits<S>::C>
+int launch_fields_kernel(const State<S>& st, const C* geo, C* fld, const Cg3dParams& P,
+                         cudaStream_t stream, Box3 B = Box3{}) {
+  using FT = FieldTile<L>;
+  static int capacity = 0;
+  constexpr size_t smem = fields_smem_bytes<C, L>();
+  if (capacity == 0) {
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          fields_kernel<S, L, BOX>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    int dev = 0, sms = 0, per = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, fields_kernel<S, L, BOX>,
+                                                          FT::THREADS, smem);
+    if (err != cudaSuccess) return (int)err;
+    if (per < 1) return (int)cudaErrorInvalidConfiguration;
+    capacity = per * sms;
+  }
+  const int ny = BOX ? B.y1 - B.y0 : P.ny, nz = BOX ? B.z1 - B.z0 : P.nz;
+  const long long tiles = (long long)((P.nx + FX - 1) / FX) * ((ny + FT::Y - 1) / FT::Y);
+  const long long runs = capacity >= 2 * tiles ? capacity / tiles : 1;   // a tile column's
+  long long zrun = (nz + runs - 1) / runs;
+  zrun = zrun < 4 ? 4 : (zrun > FT::Z ? FT::Z : zrun);
+  const dim3 grid((P.nx + FX - 1) / FX, (ny + FT::Y - 1) / FT::Y,
+                  (unsigned)((nz + zrun - 1) / zrun));
+  fields_kernel<S, L, BOX><<<grid, FT::THREADS, smem, stream>>>(st, geo, fld, P, B, (int)zrun);
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) ++g_launches[1];
+  return (int)err;
+}
+
+// Launches 0 and 1 of a step (the boundary slabs, the fields); with
+// boundary slabs, st.bc is set to their scratch.  fld holds g and kappa (4
 // planes); bc is the boundary-slab scratch (nullptr without an inlet or
 // outlet).
 template <typename S, int L, typename C = typename Traits<S>::C>
-int launch_fields(State<S>& st, const C* geo, C* phi, C* nrm, S* bc, const Cg3dParams& P,
+int launch_fields(State<S>& st, const C* geo, C* fld, S* bc, const Cg3dParams& P,
                   cudaStream_t stream) {
   const size_t nxy = (size_t)P.ny * P.nx;
-  const size_t n = (size_t)P.nz * nxy;
   const int threads = 256;
-  cudaError_t err;
   if (bc != nullptr && (P.inlet || P.outlet)) {
     bc_kernel<S, L><<<(unsigned)((nxy + threads - 1) / threads), threads, 0, stream>>>(
         st, geo, bc, P);
-    err = cudaGetLastError();
+    const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
+    ++g_launches[0];
     st.bc = bc;
   }
-  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
-  phase_kernel<S, L><<<blocks, threads, 0, stream>>>(st, geo, phi, P, Box3{});
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  if (P.has_wetting) {
-    extrap_kernel<C><<<blocks, threads, 0, stream>>>(geo, phi, P, Box3{});
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  normal_kernel<C><<<blocks, threads, 0, stream>>>(geo, phi, nrm, P, Box3{});
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  curvature_kernel<C><<<blocks, threads, 0, stream>>>(geo, nrm, P, Box3{});
-  return (int)cudaGetLastError();
+  return launch_fields_kernel<S, L>(st, geo, fld, P, stream);
 }
 
-// Launch 5, collide_stream, over the domain or (BOX) the box B.  s2_out is
+// Launch 2, collide_stream, over the domain or (BOX) the box B.  s2_out is
 // f_b in the split layout.
 template <typename S, int L, bool BOX = false, typename C = typename Traits<S>::C>
-int launch_collide_stream(const State<S>& st, const C* geo, const C* phi, const C* nrm,
-                          void* s_out, void* s2_out, const Cg3dParams& P, cudaStream_t stream,
+int launch_collide_stream(const State<S>& st, const C* geo, const C* fld, void* s_out,
+                          void* s2_out, const Cg3dParams& P, cudaStream_t stream,
                           Box3 B = Box3{}) {
   static bool configured = false;
   constexpr size_t smem = smem_bytes<S, L>();
@@ -1048,26 +1221,38 @@ int launch_collide_stream(const State<S>& st, const C* geo, const C* phi, const 
   const dim3 grid((P.nx + TX - 1) / TX, (ny + TY - 1) / TY, (nz + ZC - 1) / ZC);
   if constexpr (BOX)
     collide_stream_box_kernel<S, L><<<grid, RING_THREADS, smem, stream>>>(
-        st, geo, phi, nrm, static_cast<S*>(s_out), static_cast<S*>(s2_out), P, B);
+        st, geo, fld, static_cast<S*>(s_out), static_cast<S*>(s2_out), P, B);
   else
     collide_stream_kernel<S, L><<<grid, RING_THREADS, smem, stream>>>(
-        st, geo, phi, nrm, static_cast<S*>(s_out), static_cast<S*>(s2_out), P);
-  return (int)cudaGetLastError();
+        st, geo, fld, static_cast<S*>(s_out), static_cast<S*>(s2_out), P);
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) ++g_launches[2];
+  return (int)err;
+}
+
+// The fields alone (launches 0 and 1): g and kappa of the state after its
+// boundary slabs into fld.
+template <typename S, int L>
+int launch_cg3d_fields(const void* s_in, const void* s2_in, const void* geo_v, void* fld_v,
+                       void* bc_v, const Cg3dParams& P, cudaStream_t stream) {
+  using C = typename Traits<S>::C;
+  State<S> st{static_cast<const S*>(s_in), static_cast<const S*>(s2_in), nullptr};
+  return launch_fields<S, L>(st, static_cast<const C*>(geo_v), static_cast<C*>(fld_v),
+                             static_cast<S*>(bc_v), P, stream);
 }
 
 // The step's launches.  s2_in/s2_out are f_b in the split layout.
 template <typename S, int L>
 int launch_cg3d(const void* s_in, const void* s2_in, void* s_out, void* s2_out,
-                const void* geo_v, void* phi_v, void* nrm_v, void* bc_v, const Cg3dParams& P,
+                const void* geo_v, void* fld_v, void* bc_v, const Cg3dParams& P,
                 cudaStream_t stream) {
   using C = typename Traits<S>::C;
   const C* geo = static_cast<const C*>(geo_v);
-  C* phi = static_cast<C*>(phi_v);
-  C* nrm = static_cast<C*>(nrm_v);
+  C* fld = static_cast<C*>(fld_v);
   State<S> st{static_cast<const S*>(s_in), static_cast<const S*>(s2_in), nullptr};
-  const int err = launch_fields<S, L>(st, geo, phi, nrm, static_cast<S*>(bc_v), P, stream);
+  const int err = launch_fields<S, L>(st, geo, fld, static_cast<S*>(bc_v), P, stream);
   if (err) return err;
-  return launch_collide_stream<S, L>(st, geo, phi, nrm, s_out, s2_out, P, stream);
+  return launch_collide_stream<S, L>(st, geo, fld, s_out, s2_out, P, stream);
 }
 
 // The coupled step's launches (compressed layout): K9's fields, the two
@@ -1075,24 +1260,23 @@ int launch_cg3d(const void* s_in, const void* s2_in, void* s_out, void* s2_out,
 // nz, ny, nx) in the compute type, flags one byte a cell, tab the (NT, 8)
 // tracer table.
 template <typename S>
-int launch_cg3d_coupled(const void* s_in, void* s_out, const void* geo_v, void* phi_v,
-                        void* nrm_v, void* bc_v, const void* g_in, void* g_post, void* g_out,
+int launch_cg3d_coupled(const void* s_in, void* s_out, const void* geo_v, void* fld_v,
+                        void* bc_v, const void* g_in, void* g_post, void* g_out,
                         void* flags_v, const void* tab_v, const Cg3dParams& P,
                         const Tracer3dParams& T, cudaStream_t stream) {
   using C = typename Traits<S>::C;
   const C* geo = static_cast<const C*>(geo_v);
-  C* phi = static_cast<C*>(phi_v);
-  C* nrm = static_cast<C*>(nrm_v);
+  C* fld = static_cast<C*>(fld_v);
   C* gp = static_cast<C*>(g_post);
   unsigned char* flags = static_cast<unsigned char*>(flags_v);
   State<S> st{static_cast<const S*>(s_in), nullptr, nullptr};
-  int err = launch_fields<S, kCompressed>(st, geo, phi, nrm, static_cast<S*>(bc_v), P, stream);
+  int err = launch_fields<S, kCompressed>(st, geo, fld, static_cast<S*>(bc_v), P, stream);
   if (err) return err;
   const size_t n = (size_t)P.nz * P.ny * P.nx;
   const int threads = 256;
   const unsigned blocks = (unsigned)((n + threads - 1) / threads);
   tracer_collide3d_kernel<S><<<blocks, threads, 0, stream>>>(
-      st, geo, nrm, static_cast<const C*>(g_in), static_cast<const C*>(tab_v), gp, flags, P, T,
+      st, geo, fld, static_cast<const C*>(g_in), static_cast<const C*>(tab_v), gp, flags, P, T,
       Box3{});
   err = (int)cudaGetLastError();
   if (err) return err;
@@ -1100,7 +1284,7 @@ int launch_cg3d_coupled(const void* s_in, void* s_out, const void* geo_v, void* 
                                                             P, T, Box3{});
   err = (int)cudaGetLastError();
   if (err) return err;
-  return launch_collide_stream<S, kCompressed>(st, geo, phi, nrm, s_out, nullptr, P, stream);
+  return launch_collide_stream<S, kCompressed>(st, geo, fld, s_out, nullptr, P, stream);
 }
 
 }  // namespace

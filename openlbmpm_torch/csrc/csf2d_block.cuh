@@ -1,9 +1,7 @@
 // Temporally blocked colour-gradient step, D2Q9, for NVIDIA Hopper
-// (sm_90a): K3's windows, T time steps a launch.  Each of
-// csf2d_block_f64.cu, csf2d_block_f32.cu and csf2d_block_bf16.cu
-// instantiates one storage type.  Since the row-march (march2d.cuh) runs
-// the single-device CSF variant, these windows serve the Perturbation
-// variant and the local forms of both variants (K12a, csf2d_local_*.cu);
+// (sm_90a): K3's windows, T time steps a launch.  Since the row-march
+// (march2d.cuh) runs both single-device variants of K3, these windows
+// serve the local forms of both variants (K12a, csf2d_local_*.cu);
 // coupled2d_block.cuh runs the CSF sub-step below in its windows too.
 //
 // Replaces the TPU kernel openlbmpm_tpu/pallas/csf.py::build_csf_fused_step
@@ -509,30 +507,6 @@ int launch_csf_block(const void* s_in, const void* s2_in, void* s_out, void* s2_
       static_cast<const C*>(geo_v), static_cast<S*>(s_out), static_cast<S*>(s2_out), P, B,
       G, static_cast<unsigned char*>(scratch));
   return (int)cudaGetLastError();
-}
-
-// The tiling of the parameter block's variant.
-template <typename S, int L>
-BlockShape csf_shape_of(const CsfParams& P, int T) {
-  return P.variant == 0 ? csf_block_shape<S, L, kCSF>(P, T)
-                        : csf_block_shape<S, L, kPert>(P, T);
-}
-
-template <typename S, int L>
-size_t csf_block_scratch(const CsfParams& P, int T) {
-  const BlockShape B = csf_shape_of<S, L>(P, T);
-  return B.gmem ? (size_t)B.grid * B.win_bytes : 0;
-}
-
-// The single-device window launch of the Perturbation variant; the CSF
-// variant's T-step form is the row-march (march2d.cuh), so variant 0 is
-// refused here.
-template <typename S, int L>
-int launch_csf_block_variant(const void* s_in, const void* s2_in, void* s_out,
-                             void* s2_out, const void* geo, void* scratch,
-                             const CsfParams& P, int T, cudaStream_t st) {
-  if (T < 1 || P.variant != 1) return (int)cudaErrorInvalidValue;
-  return launch_csf_block<S, L, kPert>(s_in, s2_in, s_out, s2_out, geo, scratch, P, T, st);
 }
 
 }  // namespace

@@ -1,12 +1,13 @@
 // The row-march of the 2-D colour-gradient T-step kernels for NVIDIA Hopper
-// (sm_90a): the CSF variant of K3 (K3c, K3h, K3s; csf2d_block_*.cu) and the
-// coupled CSF flow + tracer step K5c-T (coupled2d_block_*.cu).  Include
-// after csf2d_block.cuh (or coupled2d_block.cuh).
+// (sm_90a): both variants of K3 (K3c, K3h, K3s; csf2d_block_*.cu) and the
+// coupled CSF flow + tracer step K5c-T (coupled2d_block_*.cu).
 //
 // Replaces the TPU kernel openlbmpm_tpu/pallas/csf.py::build_csf_fused_step
 // with steps_per_call = T > 1, variant CSF (_substep :998, _substep_c
-// :1033), with and without transport_params (_transport_substep :1385, its
-// rows :1454-1500, the order per sub-step :1729-1751), on the compressed
+// :1033) and variant Perturbation (_substep_pert :1118, _substep_pert_c
+// :1246; boundary rows in the window :374, :461), with and without
+// transport_params (CSF only: _transport_substep :1385, its rows
+// :1454-1500, the order per sub-step :1729-1751), on the compressed
 // (f_total, rho_r) state in f32 / f64 or the 11 bf16 planes decoded to f32
 // at level 0 and encoded at level T, and on the split (f_r, f_b) state.
 //
@@ -44,6 +45,21 @@
 // and then the flow's stages: the plan puts the boundary stage's in-place
 // rewrite after the tracer's reads of the state.  The cell-level bodies
 // are csf2d.cuh's and coupled2d.cuh's (the window kernels' arithmetic).
+// Perturbation stages a level (pert_march_kernel; load and bc as CSF's):
+//   phi      d = rho_r - rho_b of st_s (solid_phi on solid cells) and phi
+//            with the Dirichlet-outlet repair -> dp_s (2 planes);
+//   collide  the gradient of d from dp_s around (pert2d.cuh::
+//            pert_gradient), then pert_collide on st_s at the cell (Grunau
+//            tau, the RK-original equilibria, SRT/MRT, the perturbation
+//            operator, the RK-original recolouring) -> po_s: post and its
+//            red part frac post_i + segb feq_i cos_i (18 planes; the red
+//            part is not a few factors a cell, as CSF's is);
+//   stream   pull streaming with half-way bounce-back of post and red ->
+//            st_{s+1} or the output: the total and rho_r' = sum of the
+//            streamed red (compressed), or red and post - red (split).
+// The Perturbation K3 ran on block2d.cuh's windows before: a 512-thread
+// block an SM recomputing a halo of 2 rings a sub-step (4.5-4.7x K4's step
+// a time step at 1024^2, PERF.md); the march recomputes only the seam.
 //
 // What bounds it: HBM bytes per cell-step are the state (and tracers) read
 // once and written once a call over T, plus the geometry; the rings (at
@@ -59,6 +75,7 @@
 
 #include "coupled2d.cuh"
 #include "march3d.cuh"
+#include "pert2d.cuh"
 
 namespace {
 
@@ -314,6 +331,121 @@ __device__ __forceinline__ void csf_march_cell(const S* __restrict__ s_in,
   }
 }
 
+// The Perturbation variant's stages of one march cell; rings as
+// kernels/march2d.py::pert2d_stages hands them: load st_0 and bc st_s as
+// csf_march_cell; phi st_s, dp_s; collide st_s, dp_s, po_s; stream po_s,
+// st_{s+1} (-1 at the last level: the output).
+template <typename S, int L, typename C = typename Traits<S>::C>
+__device__ __forceinline__ void pert_march_cell(const S* __restrict__ s_in,
+                                                const S* __restrict__ s2_in,
+                                                const C* __restrict__ geo,
+                                                S* __restrict__ s_out, S* __restrict__ s2_out,
+                                                const CsfParams& P, const MarchPlan& M,
+                                                const MarchCell& c) {
+  const int kind = c.kind();
+  if (kind == kStageLoad || kind == kStageBc) {
+    csf_march_cell<S, L>(s_in, s2_in, geo, s_out, s2_out, P, M, c);
+    return;
+  }
+  const Row2<C> D{geo, P.ny, P.nx, (size_t)P.ny * P.nx, &c};
+  const size_t n = D.n;
+  const size_t k = D.at(0, 0);
+  const bool fluid = geo[k] > C(0.5);
+  if (kind == kStagePhi) {
+    const RingAt<C> R = M.ring<C>(c.ring(0), c), DP = M.ring<C>(c.ring(1), c);
+    C d = C(P.solid_phi), phi = C(0);
+    if (fluid) {
+      Cell<C, L> v;
+      st_get(R, 0, 0, v);
+      C f[9], rr, rb, rho;
+      totals(v, f, rr, rb, rho);
+      d = rr - rb;
+      // the Dirichlet-outlet repair: fluid cells of rows 0 and 1 take row
+      // 2's phi (0 where row 2 is solid)
+      if (P.phi_repair && c.gz <= 1) {
+        const int up = 2 - c.gz;
+        if (D.fluid(up, 0)) {
+          st_get(R, up, 0, v);
+          phi = cell_phi(v);
+        }
+      } else {
+        phi = cell_phi(v);
+      }
+    }
+    DP.at(0) = d;
+    DP.at(1) = phi;
+  } else if (kind == kStageCollide) {
+    const RingAt<C> ST = M.ring<C>(c.ring(0), c), DP = M.ring<C>(c.ring(1), c);
+    const RingAt<C> PO = M.ring<C>(c.ring(2), c);
+    C post[9], red[9];
+    if (fluid) {
+      Cell<C, L> v;
+      st_get(ST, 0, 0, v);
+      C gx, gy;
+      pert_gradient([&](int i) { return DP.at(0, ey(i), 0, ex(i)); }, P, gx, gy);
+      pert_collide(v, DP.at(1), gx, gy, P, post, red);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 9; ++i) post[i] = red[i] = C(0);
+    }
+#pragma unroll
+    for (int i = 0; i < 9; ++i) {
+      PO.at(i) = post[i];
+      PO.at(9 + i) = red[i];
+    }
+  } else if (kind == kStageStream) {
+    const RingAt<C> PO = M.ring<C>(c.ring(0), c);
+    const size_t ps = PO.stride;
+    // o: the streamed total PDF, red: its streamed red part
+    C o[9], red[9];
+    C rr_new = C(0);
+    if (fluid) {
+      const C* own = PO.base + PO.cell(0, 0, 0);
+      o[0] = own[0];
+      red[0] = own[9 * ps];
+      rr_new = red[0];
+#pragma unroll
+      for (int i = 1; i < 9; ++i) {
+        // pull from the upwind cell x - e_i, or bounce back from a solid one
+        const bool up = D.fluid(-ey(i), -ex(i));
+        const C* p = up ? PO.base + PO.cell(-ey(i), 0, -ex(i)) : own;
+        const int j = up ? i : opp(i);
+        o[i] = p[j * ps];
+        red[i] = p[(9 + j) * ps];
+        rr_new = rr_new + red[i];
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 9; ++i) o[i] = red[i] = C(0);
+    }
+    if (c.ring(1) < 0) {
+      if constexpr (L == kSplit) {
+#pragma unroll
+        for (int i = 0; i < 9; ++i) {
+          s_out[i * n + k] = red[i];
+          s2_out[i * n + k] = o[i] - red[i];
+        }
+      } else {
+        store_state<S>(s_out, n, k, o, rr_new, geo[k]);
+      }
+    } else {
+      Cell<C, L> v;
+      if constexpr (L == kSplit) {
+#pragma unroll
+        for (int i = 0; i < 9; ++i) {
+          v.r[i] = red[i];
+          v.b[i] = o[i] - red[i];
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 9; ++i) v.f[i] = o[i];
+        v.rr = rr_new;
+      }
+      st_put(M.ring<C>(c.ring(1), c), 0, v);
+    }
+  }
+}
+
 // The tracer stream's view of a gp ring (coupled2d.cuh's GlobalView
 // interface): rows are unwrapped march rows, their ring slot row mod depth;
 // the transport-domain plane follows the ng PDF planes.
@@ -409,6 +541,18 @@ csf_march_kernel(const S* __restrict__ s_in, const S* __restrict__ s2_in,
   });
 }
 
+template <typename S, int L, typename C = typename Traits<S>::C>
+__global__ void __launch_bounds__(kMarchThreads, march2d_min_blocks<S>())
+pert_march_kernel(const S* __restrict__ s_in, const S* __restrict__ s2_in,
+                  const C* __restrict__ geo, S* __restrict__ s_out, S* __restrict__ s2_out,
+                  CsfParams P, const long long* __restrict__ plan,
+                  unsigned char* __restrict__ scratch) {
+  MarchPlan M{plan, scratch, nullptr, nullptr, nullptr};
+  march_run(M, [&](const MarchCell& c) {
+    pert_march_cell<S, L>(s_in, s2_in, geo, s_out, s2_out, P, M, c);
+  });
+}
+
 template <typename S, int L, int NQ, typename C = typename Traits<S>::C>
 __global__ void __launch_bounds__(kMarchThreads, march2d_min_blocks<S>())
 coupled_march_kernel(const S* __restrict__ s_in, const S* __restrict__ s2_in,
@@ -434,16 +578,17 @@ bool march2d_takes(int split) {
   return split == 0 || split == 1;
 }
 
-// One launch of K3's CSF march (T steps on the plan `plan` in device
-// memory, its rings in `scratch`): split = 0 the compressed state in s_in /
-// s_out, 1 f_r in s_in / s_out and f_b in s2_in / s2_out.  Refuses the
-// Perturbation variant (its T-step form stays on the windows).
+// One launch of K3's march (T steps on the plan `plan` in device memory,
+// its rings in `scratch`) of the variant P.variant (0 CSF, 1
+// Perturbation): split = 0 the compressed state in s_in / s_out, 1 f_r in
+// s_in / s_out and f_b in s2_in / s2_out.
 template <typename S>
 int launch_csf_march(int split, const void* s_in, const void* s2_in, void* s_out,
                      void* s2_out, const void* geo, void* scratch, const void* plan,
                      const CsfParams& P, cudaStream_t st) {
   using C = typename Traits<S>::C;
-  if (!march2d_takes<S>(split) || P.variant != 0 || scratch == nullptr || plan == nullptr)
+  if (!march2d_takes<S>(split) || (P.variant != 0 && P.variant != 1) || scratch == nullptr ||
+      plan == nullptr)
     return (int)cudaErrorInvalidValue;
   const S* a = static_cast<const S*>(s_in);
   const S* b = static_cast<const S*>(s2_in);
@@ -454,19 +599,28 @@ int launch_csf_march(int split, const void* s_in, const void* s2_in, void* s_out
   unsigned char* sc = static_cast<unsigned char*>(scratch);
   CsfParams p = P;
   void* args[] = {&a, &b, &g, &oa, &ob, &p, &pl, &sc};
+  const bool pert = P.variant == 1;
   if constexpr (!Traits<S>::kShifted) {
-    if (split) return march_launch(csf_march_kernel<S, kSplit>, args, st);
+    if (split)
+      return pert ? march_launch(pert_march_kernel<S, kSplit>, args, st)
+                  : march_launch(csf_march_kernel<S, kSplit>, args, st);
   }
-  return march_launch(csf_march_kernel<S, kCompressed>, args, st);
+  return pert ? march_launch(pert_march_kernel<S, kCompressed>, args, st)
+              : march_launch(csf_march_kernel<S, kCompressed>, args, st);
 }
 
+// The cooperative grid of K3's instance for the layout `split` and the
+// variant `pert`.
 template <typename S>
-int csf_march_grid_of(int split, int* grid) {
+int csf_march_grid_of(int split, bool pert, int* grid) {
   if (!march2d_takes<S>(split)) return (int)cudaErrorInvalidValue;
   if constexpr (!Traits<S>::kShifted) {
-    if (split) return march_grid(csf_march_kernel<S, kSplit>, grid);
+    if (split)
+      return pert ? march_grid(pert_march_kernel<S, kSplit>, grid)
+                  : march_grid(csf_march_kernel<S, kSplit>, grid);
   }
-  return march_grid(csf_march_kernel<S, kCompressed>, grid);
+  return pert ? march_grid(pert_march_kernel<S, kCompressed>, grid)
+              : march_grid(csf_march_kernel<S, kCompressed>, grid);
 }
 
 template <typename S, int L, int NQ>
@@ -534,9 +688,9 @@ int coupled_march_grid_of(int which, int* grid) {
 
 }  // namespace
 
-// The march's C entry points of K3 (CSF) for one storage type S whose
-// state modes (csf2d_block_step's codes) are MC (compressed) and MS (split,
-// -1: none).
+// The march's C entry points of K3 (both variants) for one storage type S
+// whose state modes (csf2d_step's codes) are MC (compressed) and MS (split,
+// -1: none); the grid's `which` is 10 variant + mode.
 #define CSF2D_MARCH_ENTRY_POINTS(S, MC, MS)                                                 \
   extern "C" int csf2d_march_step(int mode, int T, const void* s_in, const void* s2_in,    \
                                   void* s_out, void* s2_out, const void* geo,              \
@@ -546,14 +700,18 @@ int coupled_march_grid_of(int which, int* grid) {
     return launch_csf_march<S>(mode == MS, s_in, s2_in, s_out, s2_out, geo, scratch, plan, \
                                *params, static_cast<cudaStream_t>(stream));                \
   }                                                                                         \
-  extern "C" int csf2d_march_grid(int mode, int* grid) {                                   \
-    if (mode != MC && mode != MS) return (int)cudaErrorInvalidValue;                        \
-    return csf_march_grid_of<S>(mode == MS, grid);                                          \
+  extern "C" int csf2d_march_grid(int which, int* grid) {                                  \
+    const int mode = which % 10;                                                            \
+    if ((mode != MC && mode != MS) || which / 10 > 1) return (int)cudaErrorInvalidValue;    \
+    return csf_march_grid_of<S>(mode == MS, which / 10 == 1, grid);                         \
   }                                                                                         \
   extern "C" int csf2d_march_limits(long long* out) {                                      \
     out[0] = kMarchMaxStages;                                                               \
     out[1] = kMarchMaxRings;                                                                \
     return 0;                                                                               \
+  }                                                                                         \
+  extern "C" const char* csf2d_block_error_string(int code) {                              \
+    return cudaGetErrorString(static_cast<cudaError_t>(code));                              \
   }
 
 // The march's C entry points of K5c-T for one storage type S whose state

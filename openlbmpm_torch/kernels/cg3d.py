@@ -28,6 +28,10 @@ an f64 state, float32 with an f32 or bf16 one).
 ``cg3d_step_compressed(s, model)``, ``cg3d_step_split((f_r, f_b), model)``
 and ``coupled3d_step_compressed(s, g, model)`` take the plain version only
 for tensors on the CPU; for CUDA tensors they launch the kernel or raise.
+A step is two launches, three with an inlet or outlet (``bc_kernel``,
+``fields_kernel``: g and kappa into four planes, ``collide_stream``), the
+coupled step two more; ``cg3d_fields(state, model)`` runs the first two
+alone, held to ``cg3d_fields_reference``.
 
 The T-step forms (K9-T: ``steps_per_call`` = T > 1 of the same TPU kernel,
 the boundary slabs applied inside the window before every sub-step) are
@@ -65,7 +69,10 @@ from . import march3d
 
 __all__ = ["LIBRARIES", "Cg3dParams", "Tracer3dParams", "geo_stack3",
            "kernel_params", "tracer3d_params", "tracer3d_table",
-           "launch_cg3d", "launch_cg3d_split", "launch_cg3d_coupled",
+           "FIELD_PLANES", "KERNELS", "kernel_launches", "launch_cg3d",
+           "launch_cg3d_fields",
+           "launch_cg3d_split", "launch_cg3d_coupled", "cg3d_fields",
+           "cg3d_fields_reference",
            "cg3d_step_compressed", "cg3d_step_compressed_reference",
            "cg3d_step_split", "cg3d_step_split_reference",
            "coupled3d_step_compressed", "coupled3d_step_compressed_reference",
@@ -142,6 +149,9 @@ class Cg3dParams(ctypes.Structure):
     ]
 
 
+# fields_kernel's output planes: g (3), kappa
+FIELD_PLANES = 4
+
 _INLETS = {"periodic": 0, "velocity": 1}
 _OUTLETS = {"periodic": 0, "convective": 1, "dirichlet": 2}
 
@@ -199,42 +209,72 @@ def _kernel_fn(lib_name: str):
     if lib_name not in _fn_cache:
         lib = build.load_library(lib_name)
         fn = lib.cg3d_step
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8 + \
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 + \
             [ctypes.POINTER(Cg3dParams), ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        fields = lib.cg3d_fields
+        fields.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + \
+            [ctypes.POINTER(Cg3dParams), ctypes.c_void_p]
+        fields.restype = ctypes.c_int
         coupled = lib.cg3d_coupled_step
-        coupled.argtypes = [ctypes.c_void_p] * 11 + \
+        coupled.argtypes = [ctypes.c_void_p] * 10 + \
             [ctypes.POINTER(Cg3dParams), ctypes.POINTER(Tracer3dParams),
              ctypes.c_void_p]
         coupled.restype = ctypes.c_int
         err = lib.cg3d_error_string
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
-        _fn_cache[lib_name] = (fn, err, coupled)
+        _fn_cache[lib_name] = (fn, err, coupled, fields)
     return _fn_cache[lib_name]
 
 
+# the kernels of a step, in the order of cg3d_kernel_launches' counts
+KERNELS = ("bc_kernel", "fields_kernel", "collide_stream_kernel")
+
+
+def kernel_launches(lib_name: str) -> dict[str, int]:
+    """Launches of each kernel of ``KERNELS`` by the K9 library `lib_name`
+    (cg3d_f64, cg3d_f32 or cg3d_bf16) since it was loaded, as the library
+    counts them where it launches them."""
+    fn = build.load_library(lib_name).cg3d_kernel_launches
+    fn.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = None
+    out = (ctypes.c_longlong * len(KERNELS))()
+    fn(out)
+    return dict(zip(KERNELS, out))
+
+
 def _launch(split: int, a, b, out_a, out_b, params: Cg3dParams,
-            geo: torch.Tensor):
-    """One cg3d_step call on the current stream of the state's card."""
+            geo: torch.Tensor) -> torch.Tensor:
+    """One cg3d_step call on the current stream of the state's card, or
+    with `out_a` None one cg3d_fields call; returns the fields' scratch
+    (g and kappa, ``FIELD_PLANES`` planes)."""
     nz, ny, nx = params.nz, params.ny, params.nx
     dev = a.device
-    fn, err, _ = _kernel_fn(_LIBS[a.dtype])
-    phi = torch.empty((nz, ny, nx), dtype=geo.dtype, device=dev)
-    nrm = torch.empty((7, nz, ny, nx), dtype=geo.dtype, device=dev)
+    fn, err, _, fields = _kernel_fn(_LIBS[a.dtype])
+    fld = torch.empty((FIELD_PLANES, nz, ny, nx), dtype=geo.dtype, device=dev)
     bc = None
     if params.inlet or params.outlet:
         planes = 2 * a.shape[0] if split else a.shape[0]
         bc = torch.empty((planes, 5, ny, nx), dtype=a.dtype, device=dev)
+    bptr = 0 if b is None else b.data_ptr()
     with torch.cuda.device(dev):
-        code = fn(split, a.data_ptr(), 0 if b is None else b.data_ptr(),
-                  out_a.data_ptr(), 0 if out_b is None else out_b.data_ptr(),
-                  geo.data_ptr(), phi.data_ptr(), nrm.data_ptr(),
-                  0 if bc is None else bc.data_ptr(), ctypes.byref(params),
-                  torch.cuda.current_stream(dev).cuda_stream)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if out_a is None:
+            code = fields(split, a.data_ptr(), bptr, geo.data_ptr(),
+                          fld.data_ptr(), 0 if bc is None else bc.data_ptr(),
+                          ctypes.byref(params), stream)
+        else:
+            code = fn(split, a.data_ptr(), bptr, out_a.data_ptr(),
+                      0 if out_b is None else out_b.data_ptr(),
+                      geo.data_ptr(), fld.data_ptr(),
+                      0 if bc is None else bc.data_ptr(),
+                      ctypes.byref(params), stream)
     if code != 0:
-        raise RuntimeError(f"cg3d_step launch failed: {err(code).decode()} "
+        what = "cg3d_fields" if out_a is None else "cg3d_step"
+        raise RuntimeError(f"{what} launch failed: {err(code).decode()} "
                            f"({code})")
+    return fld
 
 
 def _check_domain(params: Cg3dParams, geo: torch.Tensor, want, *tensors):
@@ -272,11 +312,23 @@ def launch_cg3d(s: torch.Tensor, params: Cg3dParams,
     return out
 
 
-def launch_cg3d_split(f_r: torch.Tensor, f_b: torch.Tensor,
-                      params: Cg3dParams, geo: torch.Tensor):
-    """One kernel step of the split CUDA state (f_r, f_b), each
-    (19, nz, ny, nx) in the type of the geometry planes (float32 or
-    float64).  Returns (f_r', f_b').  Not counted as a launch."""
+def launch_cg3d_fields(state, params: Cg3dParams,
+                       geo: torch.Tensor) -> torch.Tensor:
+    """The fields of one kernel step alone (the boundary slabs, then
+    fields_kernel) of a CUDA state, compressed (as ``launch_cg3d`` takes
+    it) or the split pair: (4, nz, ny, nx) in the geometry planes' type,
+    g (rotated on wetting fluid cells) and kappa (0 off fluid).  Not
+    counted as a launch."""
+    if torch.is_tensor(state):
+        _check_compressed(state, params, geo)
+        return _launch(0, state.contiguous(), None, None, None, params, geo)
+    f_r, f_b = state
+    _check_split(f_r, f_b, params, geo)
+    return _launch(1, f_r.contiguous(), f_b.contiguous(), None, None, params,
+                   geo)
+
+
+def _check_split(f_r, f_b, params: Cg3dParams, geo: torch.Tensor):
     shape = (19, params.nz, params.ny, params.nx)
     for t in (f_r, f_b):
         if t.dtype not in (torch.float32, torch.float64) or \
@@ -285,6 +337,14 @@ def launch_cg3d_split(f_r: torch.Tensor, f_b: torch.Tensor,
                              f"{tuple(f_b.shape)} {f_b.dtype}; the kernel "
                              f"takes two {shape} float32 or float64")
     _check_domain(params, geo, f_r.dtype, f_r, f_b)
+
+
+def launch_cg3d_split(f_r: torch.Tensor, f_b: torch.Tensor,
+                      params: Cg3dParams, geo: torch.Tensor):
+    """One kernel step of the split CUDA state (f_r, f_b), each
+    (19, nz, ny, nx) in the type of the geometry planes (float32 or
+    float64).  Returns (f_r', f_b').  Not counted as a launch."""
+    _check_split(f_r, f_b, params, geo)
     f_r, f_b = f_r.contiguous(), f_b.contiguous()
     out_r, out_b = torch.empty_like(f_r), torch.empty_like(f_b)
     _launch(1, f_r, f_b, out_r, out_b, params, geo)
@@ -309,9 +369,8 @@ def launch_cg3d_coupled(s: torch.Tensor, g: torch.Tensor,
         raise ValueError(f"tracer table {tuple(table.shape)} {table.dtype}")
     s, g, table = s.contiguous(), g.contiguous(), table.contiguous()
     dev = s.device
-    _, err, fn = _kernel_fn(_LIBS[s.dtype])
-    phi = torch.empty((nz, ny, nx), dtype=geo.dtype, device=dev)
-    nrm = torch.empty((7, nz, ny, nx), dtype=geo.dtype, device=dev)
+    _, err, fn, _ = _kernel_fn(_LIBS[s.dtype])
+    fld = torch.empty((FIELD_PLANES, nz, ny, nx), dtype=geo.dtype, device=dev)
     bc = torch.empty((s.shape[0], 5, ny, nx), dtype=s.dtype, device=dev) \
         if params.inlet or params.outlet else None
     g_post = torch.empty_like(g)
@@ -319,8 +378,8 @@ def launch_cg3d_coupled(s: torch.Tensor, g: torch.Tensor,
     out_s, out_g = torch.empty_like(s), torch.empty_like(g)
     with torch.cuda.device(dev):
         code = fn(s.data_ptr(), out_s.data_ptr(), geo.data_ptr(),
-                  phi.data_ptr(), nrm.data_ptr(),
-                  0 if bc is None else bc.data_ptr(), g.data_ptr(),
+                  fld.data_ptr(), 0 if bc is None else bc.data_ptr(),
+                  g.data_ptr(),
                   g_post.data_ptr(), out_g.data_ptr(), flags.data_ptr(),
                   table.data_ptr(), ctypes.byref(params),
                   ctypes.byref(tparams),
@@ -362,6 +421,45 @@ def cg3d_step_compressed_reference(s: torch.Tensor, model) -> torch.Tensor:
     """Plain PyTorch version of the compressed kernel, on any device: the
     model's ``plain_step_c``."""
     return model.plain_step_c(s)
+
+
+def cg3d_fields(state, model) -> torch.Tensor:
+    """The fields a D3Q19 CSF step collides with, for `model`: g (the
+    gradient of the extended phase field, rotated on wetting fluid cells)
+    and kappa (0 off fluid) of the compressed state or the split pair after
+    its boundary slabs, (4, nz, ny, nx).  CPU tensors: the plain version.
+    CUDA tensors: fields_kernel (after bc_kernel), or an error."""
+    t = state if torch.is_tensor(state) else state[0]
+    if t.device.type == "cpu":
+        return cg3d_fields_reference(state, model)
+    _check_model_device(t, model)
+    out = launch_cg3d_fields(state, model.kernel_params, model.geo_planes)
+    cg3d_fields.launches += 1
+    return out
+
+
+cg3d_fields.launches = 0
+
+
+def cg3d_fields_reference(state, model) -> torch.Tensor:
+    """Plain PyTorch version of fields_kernel, on any device: the model's
+    boundary slabs, then phi, its extension onto solid cells, the isotropic
+    gradient with the Akai rotation on wetting fluid cells
+    (``_fields_from_densities``) and kappa of ``ops/colorgrad.csf_force_nd``
+    (0 off fluid); (4, nz, ny, nx) in ``model.dtype``."""
+    from ..ops import colorgrad as cg
+    from ..ops import macroscopic as mac
+    if torch.is_tensor(state):
+        s = model._post_slabs_c(state)
+        rho_r = s[19]
+        rho_b = mac.density(s[:19], 3) - rho_r
+    else:
+        f_r, f_b = model._apply_outlet(*model._apply_inlet(*state))
+        rho_r, rho_b = mac.density(f_r, 3), mac.density(f_b, 3)
+    g = model._fields_from_densities(rho_r, rho_b)[3]
+    _, kappa = cg.csf_force_nd(g, model.p.surface_tension, model.is_fluid,
+                               inward_normal=True, lat=model.lat)
+    return torch.stack([*g, torch.where(model.is_fluid, kappa, 0.0)])
 
 
 def cg3d_step_split(state, model):
@@ -636,7 +734,7 @@ def _local_fns(lib_name: str):
             ctypes.c_void_p]
         slabs.restype = ctypes.c_int
         step = lib.cg3d_local_step
-        step.argtypes = [ctypes.c_void_p] * 10 + [
+        step.argtypes = [ctypes.c_void_p] * 9 + [
             ctypes.POINTER(Cg3dParams), ctypes.POINTER(Tracer3dParams),
             ctypes.POINTER(Local3), ctypes.c_void_p]
         step.restype = ctypes.c_int
@@ -700,8 +798,8 @@ def launch_cg3d_local(s: torch.Tensor, out: torch.Tensor,
     padded compressed buffer `s` (boundary slabs applied, frame filled) into
     the centre of `out`; with the tracer PDFs `g` (NT, 7, pz, py, nx), their
     step into the centre of `g_out` (`tparams`, `table` as
-    ``launch_cg3d_coupled`` takes them).  The scratch (phi, the normals,
-    and with tracers their post-collision PDFs and interface flags) is kept
+    ``launch_cg3d_coupled`` takes them).  The scratch (g and kappa, and
+    with tracers their post-collision PDFs and interface flags) is kept
     in `work` (``build.work_buffer``).  Not counted as a launch."""
     if s.dtype not in _LOCAL_LIBS:
         raise ValueError(f"state {s.dtype}; K12d takes float32 or float64")
@@ -717,8 +815,8 @@ def launch_cg3d_local(s: torch.Tensor, out: torch.Tensor,
     p, lg = _local_args(params, grid, nz)
     dev = s.device
     planes = (grid.py, grid.px, *grid.tail)
-    phi = build.work_buffer(work, "phi", planes, s.dtype, dev)
-    nrm = build.work_buffer(work, "nrm", (7, *planes), s.dtype, dev)
+    fld = build.work_buffer(work, "fld", (FIELD_PLANES, *planes), s.dtype,
+                            dev)
     g_post = flags = None
     if g is not None:
         g_post = build.work_buffer(work, "g_post", g.shape, g.dtype, dev)
@@ -727,7 +825,7 @@ def launch_cg3d_local(s: torch.Tensor, out: torch.Tensor,
                                                         flags, table)]
     with torch.cuda.device(dev):
         code = step(s.data_ptr(), out.data_ptr(), geo.data_ptr(),
-                    phi.data_ptr(), nrm.data_ptr(), *ptr, ctypes.byref(p),
+                    fld.data_ptr(), *ptr, ctypes.byref(p),
                     ctypes.byref(tparams or Tracer3dParams()),
                     ctypes.byref(lg),
                     torch.cuda.current_stream(dev).cuda_stream)

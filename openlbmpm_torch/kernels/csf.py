@@ -10,15 +10,14 @@ Perturbation variant (K4) in the same three layouts (K4c, K4h, K4s) in
 library, ``csrc/pert2d_f64.cu``).  T > 1 steps per call
 (``steps_per_call``, K3): both variants in the three layouts (K3c, K3h,
 K3s) in ``csrc/csf2d_block_{f64,f32,bf16}.cu``, one library per storage
-type: the CSF variant as the row-march of ``csrc/march2d.cuh`` (one
-cooperative launch on the plan of ``kernels/march2d.py::csf2d_march_plan``,
-which the wrapper builds once a configuration), the Perturbation variant on
-the halo windows of ``csrc/csf2d_block.cuh``.  A T-step call above one
-launch's limit (``csf_block_max_steps``: the march plan's, or the largest
-window that fits) runs as ``build.split_steps``'s launches.  The local
-form of K3 (K12a: one shard of a y or (y, x) decomposed domain, both
-variants, compressed f32 and f64) is
-``csrc/csf2d_local_{f64,f32}.cu``, and ``build_csf_sharded_step`` (the
+type: the row-march of ``csrc/march2d.cuh`` (one cooperative launch on the
+plan of ``kernels/march2d.py::csf2d_march_plan`` or ``pert2d_march_plan``,
+which the wrapper builds once a configuration).  A T-step call above one
+launch's limit (``csf_block_max_steps``: the march plan's) runs as
+``build.split_steps``'s launches.  The local form of K3 (K12a: one shard
+of a y or (y, x) decomposed domain, both variants, compressed f32 and f64)
+is ``csrc/csf2d_local_{f64,f32}.cu``, on the halo windows of
+``csrc/csf2d_block.cuh``, and ``build_csf_sharded_step`` (the
 counterpart of ``pallas/csf.py::build_csf_sharded_step``) drives it and
 the coupled one (``kernels/transport.py``) over a mesh
 (``openlbmpm_torch/parallel``).
@@ -407,28 +406,35 @@ _BLOCK_LIBS = {torch.float64: "csf2d_block_f64",
 BLOCK_LIBRARIES = tuple(_BLOCK_LIBS.values())
 
 
-def _block_fns(lib: str):
-    """(step, scratch_bytes, shape, error_string) of a K3 library: ints
-    (state mode, T), pointers (s, s2, out, out2, geo, scratch)."""
-    return build.block_fns(lib, "csf2d", 2, 6, CsfParams)
-
-
 def _march_args(params: CsfParams, dtype, split: bool):
-    """(shape, compute item size, split, inlet, outlet, wetting, repair): a
-    K3 CSF march plan's configuration."""
-    return ((params.ny, params.nx), 8 if dtype == torch.float64 else 4,
+    """(shape, compute item size, split, inlet, outlet, wetting, repair) of
+    a K3 CSF march plan, or without `wetting` of a Perturbation plan."""
+    args = ((params.ny, params.nx), 8 if dtype == torch.float64 else 4,
             bool(split), int(params.inlet != 0), int(params.outlet),
             bool(params.has_wetting), bool(params.phi_repair))
+    return args if params.variant == 0 else args[:5] + args[6:]
+
+
+def _stages_of(params: CsfParams, dtype, split: bool):
+    """T -> (stages, arrays) of K3's march for `params` and a state of
+    `dtype`, and the plan builder that takes the same arguments."""
+    args = _march_args(params, dtype, split)
+    if params.variant == 0:
+        return (lambda t: march2d.csf2d_stages(args[0][0], t, *args[1:]),
+                march2d.csf2d_march_plan)
+    return (lambda t: march2d.pert2d_stages(args[0][0], t, *args[1:]),
+            march2d.pert2d_march_plan)
 
 
 def _march_plan(params: CsfParams, dtype, split: bool, steps: int,
                 device="cuda"):
-    """K3's CSF plan for `params` and a state of `dtype`, built once a
-    process a configuration: (plan, its table on `device`)."""
+    """K3's plan for `params` (either variant) and a state of `dtype`, built
+    once a process a configuration: (plan, its table on `device`)."""
     args = _march_args(params, dtype, split)
-    key = ("csf2d", steps, march2d.ROWS_PER_WAVE) + args
-    return march3d.device_plan(key, lambda: march2d.csf2d_march_plan(
-        args[0], steps, *args[1:]), device)
+    key = ("csf2d", params.variant, steps, march2d.ROWS_PER_WAVE) + args
+    make = _stages_of(params, dtype, split)[1]
+    return march3d.device_plan(key, lambda: make(args[0], steps, *args[1:]),
+                               device)
 
 
 _march_limits: dict = {}
@@ -436,56 +442,44 @@ _march_limits: dict = {}
 
 def csf_block_max_steps(dtype, split: bool, params: CsfParams) -> int:
     """The largest T one K3 launch takes for `params` and a state of `dtype`
-    (the split layout if `split`): the CSF variant's march plan's
-    (``march2d.max_steps``), the Perturbation variant's largest window
-    (the library's ``csf2d_block_max_steps``)."""
-    if params.variant == 1:
-        mode = (_SPLIT_CODE if split else _STORAGE_CODE)[dtype]
-        return build.max_steps(_BLOCK_LIBS[dtype], "csf2d_block", (mode,),
-                               params)
-    args = _march_args(params, dtype, split)
-    if args not in _march_limits:
-        _march_limits[args] = march2d.max_steps(
-            lambda t: march2d.csf2d_stages(args[0][0], t, *args[1:]))
-    return _march_limits[args]
+    (the split layout if `split`): its march plan's, of either variant
+    (``march2d.max_steps``)."""
+    key = (params.variant,) + _march_args(params, dtype, split)
+    if key not in _march_limits:
+        _march_limits[key] = march2d.max_steps(
+            _stages_of(params, dtype, split)[0])
+    return _march_limits[key]
 
 
 def csf_block_tiling(dtype, split: bool, params: CsfParams,
                      steps: int) -> dict:
     """How a K3 launch of `steps` steps covers the domain of `params` for a
-    state of `dtype`: the CSF variant's march plan's fields (levels, lag,
-    rows a wave, ring depths and bytes, waves, stages; "march": "rows") and
-    its cooperative grid, the Perturbation variant's window tiling
-    (``build.block_tiling``)."""
+    state of `dtype`: its march plan's fields (levels, lag, rows a wave,
+    ring depths and bytes, waves, stages; "march": "rows") and its
+    cooperative grid."""
     mode = (_SPLIT_CODE if split else _STORAGE_CODE)[dtype]
-    lib = _BLOCK_LIBS[dtype]
-    if params.variant == 0:
-        plan, _ = _march_plan(params, dtype, split, steps)
-        return plan.fields() | {"march": "rows", "grid": march3d.march_grid(
-            lib, "csf2d", 2, 5, CsfParams, mode)}
-    return build.block_tiling(lib, _block_fns(lib), (mode, steps), params)
+    plan, _ = _march_plan(params, dtype, split, steps)
+    return plan.fields() | {"march": "rows", "grid": march3d.march_grid(
+        _BLOCK_LIBS[dtype], "csf2d", 2, 5, CsfParams,
+        10 * params.variant + mode)}
 
 
 def _launch_block(mode, tensors, params: CsfParams, steps: int):
-    """One K3 launch of `steps` steps on `tensors` (s, s2, out, out2, geo):
-    the CSF variant's march, or the Perturbation variant's windows."""
+    """One K3 launch (the row-march of the variant of `params`) of `steps`
+    steps on `tensors` (s, s2, out, out2, geo)."""
     lib = _BLOCK_LIBS[tensors[0].dtype]
-    if params.variant == 0:
-        plan, table = _march_plan(params, tensors[0].dtype, mode >= 3, steps,
-                                  tensors[0].device)
-        march3d.march_launch(lib, "csf2d", (mode, steps), tensors, plan,
-                             table, params)
-    else:
-        build.launch_block(lib, _block_fns(lib), (mode, steps), tensors,
-                           params)
+    plan, table = _march_plan(params, tensors[0].dtype, mode >= 3, steps,
+                              tensors[0].device)
+    march3d.march_launch(lib, "csf2d", (mode, steps), tensors, plan, table,
+                         params)
 
 
 def launch_csf2d_block(s: torch.Tensor, params: CsfParams, geo: torch.Tensor,
                        steps: int) -> torch.Tensor:
-    """`steps` kernel steps (one launch, K3c or K3h: the march for the CSF
-    variant, the windows for the Perturbation one) of the compressed CUDA
-    state `s` (as ``launch_csf2d``), for the variant of `params`; a T above
-    the launch's limit is refused.  Not counted as a launch."""
+    """`steps` kernel steps (one launch of the row-march, K3c or K3h) of the
+    compressed CUDA state `s` (as ``launch_csf2d``), for the variant of
+    `params`; a T above the launch's limit is refused.  Not counted as a
+    launch."""
     ny, nx = params.ny, params.nx
     bf16 = s.dtype == torch.bfloat16
     planes = 11 if bf16 else 10
@@ -614,9 +608,10 @@ def csf_block_split_reference(state, model, steps: int):
 def pert_block_compressed(s: torch.Tensor, model, steps: int) -> torch.Tensor:
     """`steps` compressed Perturbation steps of `s` for `model`.  CPU
     tensor: the plain version.  CUDA tensor: K3c or K3h (the Perturbation
-    instances, on the windows), one launch when the largest window holds T,
-    else ``build.split_steps``'s launches, each counted; or an error.  A
-    bf16 state is decoded and encoded once a launch."""
+    instances of the row-march), one launch when T fits one
+    (``csf_block_max_steps``), else ``build.split_steps``'s launches, each
+    counted; or an error.  A bf16 state is decoded and encoded once a
+    launch."""
     if s.device.type == "cpu":
         return pert_block_compressed_reference(s, model, steps)
     return _block_compressed(s, model, steps, "Perturbation",
@@ -634,8 +629,8 @@ def pert_block_compressed_reference(s, model, steps: int):
 def pert_block_split(state, model, steps: int):
     """`steps` split Perturbation steps of (f_r, f_b) for `model`.  CPU
     tensors: the plain version.  CUDA tensors: K3s (the Perturbation
-    instance, on the windows), one launch when the largest window holds T,
-    else ``build.split_steps``'s launches, each counted; or an error."""
+    instance of the row-march), one launch when T fits one, else
+    ``build.split_steps``'s launches, each counted; or an error."""
     if _on_cpu(*state):
         return pert_block_split_reference(state, model, steps)
     return _block_split(state, model, steps, "Perturbation", pert_block_split)

@@ -1,7 +1,7 @@
-"""The row-march of the 2-D colour-gradient T-step kernels K3 (CSF variant:
-K3c, K3h, K3s) and K5c-T (the coupled CSF flow + tracer step): their plans,
-which the wrappers hand to the kernels, and a plain PyTorch model that
-executes a plan wave by wave.
+"""The row-march of the 2-D colour-gradient T-step kernels K3 (K3c, K3h,
+K3s, both variants) and K5c-T (the coupled CSF flow + tracer step): their
+plans, which the wrappers hand to the kernels, and a plain PyTorch model
+that executes a plan wave by wave.
 
 The 2-D domain is the z-march's (``kernels/march3d.py``) with the rows in
 the place of the slabs: ``build_plan`` schedules the stages on an (ny, 1, nx)
@@ -29,6 +29,14 @@ planes):
            its source cell -> st_{s+1}, or at the last level the output.
 Level 0's st comes from a load stage that decodes the input.
 
+Perturbation level s (``pert2d_stages``; bc and stream as CSF's):
+  phi      d = rho_r - rho_b of st_s (solid_phi on solid cells) and phi with
+           the Dirichlet-outlet repair -> dp_s (2 planes);
+  collide  dp_s around (the gradient of d), st_s and phi at the cell -> po_s:
+           the post-collision PDF and its red part (18 planes);
+  stream   po_s around: pull streaming with half-way bounce-back of both ->
+           st_{s+1}, or at the last level the output.
+
 K5c-T level s runs before the flow's stages the tracer's, on the flow
 state as it stands before the level's boundary rows (TransportRK's order):
 phi and normal again on that state (phiA_s, gnA_s), then
@@ -42,8 +50,9 @@ The boundary stage rewrites st_s in place after the tracer's stages have
 read it (``build_plan``'s rule for in-place writers).  Level 0's tracers
 come from the input, read at the cell by tcollide.
 
-``csf2d_march_plan`` and ``coupled2d_march_plan`` build a plan;
-``csf2d_march_reference`` and ``coupled2d_march_reference`` execute one on
+``csf2d_march_plan``, ``pert2d_march_plan`` and ``coupled2d_march_plan``
+build a plan; ``csf2d_march_reference``, ``pert2d_march_reference`` and
+``coupled2d_march_reference`` execute one on
 the CPU from rings of its depth (full of NaN until a stage writes them),
 each wave's stages seeing only what earlier waves wrote: every stage
 places the rows it declares it reads into an otherwise NaN domain and runs
@@ -60,14 +69,16 @@ from ..ops import colorgrad as cg
 from ..ops import equilibrium as eq
 from ..ops import macroscopic as mac
 from ..ops import transport as tr
-from ..ops.common import pull
+from ..ops.common import pull, shift
 from ..ops.streaming import stream
 from . import build
 from . import march3d as m3
 from .march3d import BC, COLLIDE, LOAD, NORMAL, STREAM, Read, Stage
 
 __all__ = ["PHI", "TCOLLIDE", "TSTREAM", "ROWS_PER_WAVE", "GN_PLANES",
-           "PO_PLANES", "csf2d_stages", "csf2d_march_plan",
+           "PO_PLANES", "DP_PLANES", "PERT_PO_PLANES", "csf2d_stages",
+           "csf2d_march_plan", "pert2d_stages", "pert2d_march_plan",
+           "pert2d_march_reference",
            "coupled2d_stages", "coupled2d_march_plan", "max_steps",
            "csf2d_march_reference", "coupled2d_march_reference"]
 
@@ -78,6 +89,8 @@ PHI, TCOLLIDE, TSTREAM = 6, 7, 8
 ROWS_PER_WAVE = 96
 GN_PLANES = 4      # gx, gy, the unit normal
 PO_PLANES = 12     # post (9), frac, A, B
+DP_PLANES = 2      # Perturbation: d = rho_r - rho_b, phi
+PERT_PO_PLANES = 18   # Perturbation: post (9), its red part (9)
 # the tracer stream's reach in rows of gp: its interface repair and
 # anti-bounce-back inlet read three rows below, the free-flow outlet's row
 # copies from the row two above up to row 3
@@ -148,6 +161,45 @@ def csf2d_stages(ny: int, steps: int, itemsize: int, split: bool,
     return stages, arrays
 
 
+def _pert_level(stages, arrays, s, steps, ny, itemsize, ns, inlet, outlet,
+                repair):
+    """The Perturbation stages of level s (st_s written before)."""
+    st, dp, po = f"st{s}", f"dp{s}", f"po{s}"
+    arrays[dp] = (DP_PLANES, itemsize)
+    arrays[po] = (PERT_PO_PLANES, itemsize)
+    if inlet or outlet:
+        bhi, tlo = _bc_reach(inlet, outlet)
+        triggers = ((ny - 2,) if inlet else ()) + ((0,) if outlet else ())
+        stages.append(Stage(BC, s, reads=(Read(st, 0, bhi),),
+                            modifies=(st,), back=tlo, rings=(st,),
+                            slabs=triggers))
+    stages.append(Stage(PHI, s, reads=(Read(st, 0, 2 if repair else 0),),
+                        writes=(dp,), rings=(st, dp)))
+    stages.append(Stage(COLLIDE, s, reads=(Read(dp, 1, 1), Read(st)),
+                        writes=(po,), rings=(st, dp, po)))
+    last = s == steps - 1
+    nxt = () if last else (f"st{s + 1}",)
+    if nxt:
+        arrays[nxt[0]] = (ns, itemsize)
+    stages.append(Stage(STREAM, s, reads=(Read(po, 1, 1),), writes=nxt,
+                        rings=(po, *nxt) if nxt else (po, ""),
+                        output=last))
+
+
+def pert2d_stages(ny: int, steps: int, itemsize: int, split: bool,
+                  inlet: int, outlet: int, repair: bool):
+    """(stages, arrays) of K3's Perturbation march: a load stage, then each
+    level's (module docstring)."""
+    build.check_steps(steps)
+    ns = 18 if split else 10
+    arrays = {"st0": (ns, itemsize)}
+    stages = [Stage(LOAD, 0, writes=("st0",), rings=("st0",))]
+    for s in range(steps):
+        _pert_level(stages, arrays, s, steps, ny, itemsize, ns, inlet, outlet,
+                    repair)
+    return stages, arrays
+
+
 def coupled2d_stages(ny: int, steps: int, itemsize: int, split: bool,
                      inlet: int, outlet: int, wetting: bool, repair: bool,
                      tracers: int):
@@ -203,6 +255,16 @@ def csf2d_march_plan(shape, steps: int, itemsize: int, split: bool,
     stages, arrays = csf2d_stages(int(shape[0]), steps, itemsize, split,
                                   inlet, outlet, wetting, repair)
     return _plan("csf2d", stages, arrays, shape, steps, rows_per_wave)
+
+
+def pert2d_march_plan(shape, steps: int, itemsize: int, split: bool,
+                      inlet: int, outlet: int, repair: bool,
+                      rows_per_wave: int | None = None) -> m3.Plan:
+    """K3's Perturbation plan: ``csf2d_march_plan``'s arguments without
+    `wetting` (the variant has no wetting)."""
+    stages, arrays = pert2d_stages(int(shape[0]), steps, itemsize, split,
+                                   inlet, outlet, repair)
+    return _plan("pert2d", stages, arrays, shape, steps, rows_per_wave)
 
 
 def coupled2d_march_plan(shape, steps: int, itemsize: int, split: bool,
@@ -480,6 +542,133 @@ def csf2d_march_reference(state, model, steps: int,
                 rows.put("st0", u, x0[:, u % ny])
         else:
             _flow_body(fl, rows, st, us, ny, out, steps, (inlet, outlet))
+
+    _run(plan, rows, body)
+    if split:
+        return out[:9], out[9:]
+    return model.pack_compressed_bf16(out) if bf16 else out
+
+
+class _Pert(_Flow):
+    """The Perturbation stages' plain operators (``_step_pert_c`` /
+    ``_step_perturbation`` cut at the march's stages)."""
+
+    def dphi(self, x):
+        """d = rho_r - rho_b (solid_phi on solid cells) and phi with the
+        outlet repair: (2, ny, nx)."""
+        m = self.m
+        _, rr, rb, _ = self.rhos(x)
+        fl = m.fluid_mask
+        d = (rr - rb) * fl + m.p.solid_phi * (1.0 - fl)
+        phi = cg.phase_field(rr, rb) * fl
+        if m._phi_repair:
+            phi = m._repair_phi_rows(phi)
+        return torch.stack([d, phi])
+
+    def pert_collide(self, x, dp):
+        """The post-collision PDF and its red part (18 planes; 0 on solid
+        cells)."""
+        m, lat, p = self.m, self.lat, self.m.p
+        f, rr, rb, rho = self.rhos(x)
+        d, phi = dp[0], dp[1]
+        gx = torch.zeros_like(d)
+        gy = torch.zeros_like(d)
+        for i in range(1, 9):
+            dx, dy = int(lat.e[i, 0]), int(lat.e[i, 1])
+            w = float(m._grad_scheme[i])
+            sh = shift(d, dx, dy)
+            if dx:
+                gx = gx + (w * dx) * sh
+            if dy:
+                gy = gy + (w * dy) * sh
+        rho_safe = torch.where(rho > 0, rho, torch.ones_like(rho))
+        mx, my = mac.momentum(lat, f)
+        u = (mx / rho_safe, my / rho_safe)
+        tau = cg.tau_interp_grunau(phi, p.tau_r, p.tau_b, p.delta)
+        if self.split:
+            f_r = m._relax(x[:9], eq.feq_rk_original(lat, rr, u, m.const_cr),
+                           tau)
+            f_b = m._relax(x[9:], eq.feq_rk_original(lat, rb, u, m.const_cb),
+                           tau)
+            f_r = f_r + cg.perturbation(gx, gy, p.a_kr, cg.B_CONSTANTS, lat)
+            f_b = f_b + cg.perturbation(gx, gy, p.a_kb, cg.B_CONSTANTS, lat)
+            post = f_r + f_b
+        else:
+            feq = eq.feq_rk_original(lat, rr, u, m.const_cr) + \
+                eq.feq_rk_original(lat, rb, u, m.const_cb)
+            post = m._relax(f, feq, tau) + cg.perturbation(
+                gx, gy, p.a_kr + p.a_kb, cg.B_CONSTANTS, lat)
+        red, _ = cg.recolor_rk_original(post, rr, rb, gx, gy, p.beta,
+                                        m.const_cr, m.const_cb, lat)
+        return torch.where(m.is_fluid, torch.cat([post, red]), 0.0)
+
+    def pert_stream(self, po):
+        """The streamed state (10 or 18 planes) of post and its red part."""
+        m, lat = self.m, self.lat
+        o = stream(po[:9], lat, m.upwind_solid)
+        red = stream(po[9:], lat, m.upwind_solid)
+        fl = m.fluid_mask
+        if self.split:
+            return torch.cat([red, o - red]) * fl
+        return torch.cat([o, mac.density(red, 2)[None]]) * fl
+
+
+def _pert_body(fl: _Pert, rows: _Rows, st, us, ny, out, steps, codes):
+    """One Perturbation stage at rows `us` (the plain model); the boundary
+    stage is CSF's."""
+    idx = torch.as_tensor([u % ny for u in us])
+    if st.kind == BC:
+        _flow_body(fl, rows, st, us, ny, out, steps, codes)
+    elif st.kind == PHI:
+        zlo, zhi = _stage_reads(st, st.rings[0])
+        dp = fl.dphi(_domain(rows, st.rings[0], us, zlo, zhi, ny))
+        for u in us:
+            rows.put(st.rings[1], u, dp[:, u % ny])
+    elif st.kind == COLLIDE:
+        x = _domain(rows, st.rings[0], us, 0, 0, ny)
+        dp = _domain(rows, st.rings[1], us, 1, 1, ny)
+        po = fl.pert_collide(x, dp)
+        for u in us:
+            rows.put(st.rings[2], u, po[:, u % ny])
+    elif st.kind == STREAM:
+        new = fl.pert_stream(_domain(rows, st.rings[0], us, 1, 1, ny))
+        if st.level == steps - 1:
+            out[:, idx] = new[:, idx]
+        else:
+            for u in us:
+                rows.put(st.rings[1], u, new[:, u % ny])
+    else:
+        raise ValueError(f"the Perturbation march has no stage {st.kind}")
+
+
+def pert2d_march_reference(state, model, steps: int,
+                           plan: m3.Plan | None = None):
+    """`steps` Perturbation steps of K3's row-march on the CPU for `model`,
+    a ColorGradientRK with ``variant="Perturbation"``: the compressed state
+    (10 planes, or the 11-plane bf16 state, decoded once and encoded once)
+    or the split pair (f_r, f_b), as ``csf2d_march_reference`` runs the
+    CSF plan."""
+    split = not torch.is_tensor(state)
+    bf16 = not split and state.dtype == torch.bfloat16
+    if split:
+        x0 = torch.cat(tuple(state))
+    else:
+        x0 = model.unpack_bf16(state) if bf16 else state
+    ny, nx = x0.shape[-2:]
+    inlet, outlet = _codes(model)
+    if plan is None:
+        plan = pert2d_march_plan((ny, nx), steps, x0.element_size(), split,
+                                 inlet, outlet, bool(model._phi_repair))
+    rows = _Rows(plan, x0.dtype)
+    out = torch.full_like(x0, float("nan"))
+    fl = _Pert(model, split)
+
+    def body(st, us):
+        if st.kind == LOAD:
+            for u in us:
+                rows.put("st0", u, x0[:, u % ny])
+        else:
+            _pert_body(fl, rows, st, us, ny, out, steps, (inlet, outlet))
 
     _run(plan, rows, body)
     if split:

@@ -1287,3 +1287,62 @@ def test_sc_sharded_step_counts_one_local_call_a_shard(cuda):
         for _ in range(3):
             state = step(state)
         assert ks.sc_local_step.launches == 12
+
+
+@pytest.mark.parametrize("name", ["akai60_walls", "velocity_convective",
+                                  "grain_pack"])
+def test_cg3d_fields_kernel_matches_its_plain_version(cuda, name):
+    """K9's fields_kernel (after bc_kernel): g and kappa of both layouts at
+    f64 against ``cg3d_fields_reference`` (<= 1e-12, as chip_smoke phase
+    20), one counted launch a call."""
+    from openlbmpm_torch.kernels import cg3d as k9
+    m, st = cg3d_case(name, cuda, shape=(16,) * 3 if name == "grain_pack"
+                      else (24, 20, 16))
+    for x in (m.pack_state(*st), st):
+        k9.cg3d_fields.launches = 0
+        got = k9.cg3d_fields(x, m)
+        assert k9.cg3d_fields.launches == 1
+        assert tuple(got.shape) == (k9.FIELD_PLANES, *m.geo.shape)
+        assert float((got - k9.cg3d_fields_reference(x, m)).abs().max()) \
+            <= 1e-12
+
+
+@pytest.mark.parametrize("t", [2, 16])
+def test_pert_row_march_matches_plain_steps(cuda, t):
+    """The Perturbation K3 (the row-march) at f64 on the flagship's rows:
+    compressed and split, one call of T steps as ``build.split_steps``'s
+    launches (T = 16 past the limit of 15), equal to T plain steps
+    (<= 1e-11, as chip_smoke phases 45 and 72)."""
+    from chip_smoke import k3_case
+    from openlbmpm_torch.kernels import build
+    from openlbmpm_torch.kernels import csf as k
+    m, st = k3_case("neumann_dirichlet_100x72", "Perturbation", cuda)
+    for split in (False, True):
+        x0 = st if split else m.pack_state(*st)
+        kern = k.pert_block_split if split else k.pert_block_compressed
+        plain = k.pert_block_split_reference if split else \
+            k.pert_block_compressed_reference
+        lim = k.csf_block_max_steps(torch.float64, split, m.kernel_params)
+        kern.launches = 0
+        got = kern(x0, m, t)
+        assert kern.launches == len(build.split_steps(t, lim))
+        assert _gap(got, plain(x0, m, t)) <= 1e-11
+
+
+@pytest.mark.parametrize("name", ["periodic_droplet", "velocity_convective"])
+def test_cg3d_step_launches_each_kernel_once(cuda, name):
+    """A K9 step (f64, both layouts) launches fields_kernel and
+    collide_stream once each, and bc_kernel once with boundary slabs and
+    never without, as the library counts its launches."""
+    from openlbmpm_torch.kernels import cg3d as k9
+    m, st = cg3d_case(name, cuda, shape=(24, 20, 16))
+    bc = 1 if name == "velocity_convective" else 0
+    for x, step in ((m.pack_state(*st), k9.cg3d_step_compressed),
+                    (st, k9.cg3d_step_split)):
+        before = k9.kernel_launches("cg3d_f64")
+        for _ in range(3):
+            x = step(x, m)
+        after = k9.kernel_launches("cg3d_f64")
+        assert {k: after[k] - before[k] for k in k9.KERNELS} == {
+            "bc_kernel": 3 * bc, "fields_kernel": 3,
+            "collide_stream_kernel": 3}

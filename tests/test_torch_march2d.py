@@ -1,10 +1,12 @@
-"""The row-march of the 2-D colour-gradient T-step kernels (K3's CSF variant
-and K5c-T) and the splitting of T-step calls, on the CPU.
+"""The row-march of the 2-D colour-gradient T-step kernels (K3's CSF and
+Perturbation variants and K5c-T) and the splitting of T-step calls, on the
+CPU.
 
 The CUDA kernels (``csrc/march3d.cuh`` with ``csrc/march2d.cuh``) execute
 a plan built by ``openlbmpm_torch/kernels/march2d.py``.  Here the same
 plans run through their plain PyTorch model (``csf2d_march_reference``,
-``coupled2d_march_reference``: wave by wave, from rings of the plan's depth
+``pert2d_march_reference``, ``coupled2d_march_reference``: wave by wave,
+from rings of the plan's depth
 that hold NaN until written, a wave seeing only what earlier waves wrote,
 each stage on the rows it declares it reads), at f64:
 
@@ -14,6 +16,11 @@ each stage on the rows it declares it reads), at f64:
   periodic rows, against T plain steps of the port (<= 1e-12), and the
   compressed case against the JAX package's jnp ``_step_impl_c`` T times
   at 64 x 48;
+* the Perturbation variant, compressed and split, SRT and MRT, at T = 2, 3
+  and 4 on the same rows against T plain steps (<= 1e-12), and against the
+  JAX package's jnp ``_step_impl_c`` and ``_step_impl`` T times at 64 x 48;
+  its plan's launch limit, and a plan with a lag a row short or the seam's
+  rows left out fails the model;
 * the coupled step with D2Q5 and D2Q9 tracers (the tracer rows, the
   bounce-back and permeable interfaces), compressed and split;
 * the plan's schedule: the boundary stage's in-place rewrite waits for the
@@ -36,6 +43,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import PERT_BASE
 from openlbmpm_tpu import geometry as jgeo
 from openlbmpm_tpu.models import colorgradient as jcg
 from openlbmpm_torch.convert import params_from_jax
@@ -128,6 +136,118 @@ def test_csf_march_model_matches_jax_steps():
     for _ in range(3):
         s = mj._step_impl_c(s)
     assert float(np.abs(got.numpy() - np.asarray(s)).max()) <= TOL
+
+
+def _pert_model(rows, collision="MRT", ny=40, nx=12):
+    solid = _walls(ny, nx) if rows != "periodic" else np.zeros((ny, nx), bool)
+    p = ColorGradientParams(**(PERT_BASE | dict(collision=collision)))
+    return ColorGradientRK(from_solid_mask(solid), p,
+                           CGBoundaryConfig(**BCS[rows]), dtype=torch.float64,
+                           device=CPU)
+
+
+@pytest.mark.parametrize("rows", ["flagship", "dirichlet_convective",
+                                  "periodic"])
+@pytest.mark.parametrize("split", [False, True], ids=["compressed", "split"])
+@pytest.mark.parametrize("t", [2, 3, 4])
+def test_pert_march_model_matches_plain_steps(rows, split, t):
+    """K3's Perturbation plan run by its model equals T plain steps at f64
+    (MRT; the Dirichlet outlet's phi repair on the flagship's rows)."""
+    m = _pert_model(rows)
+    st = _start(m)
+    x0 = st if split else m.pack_state(*st)
+    got = M2.pert2d_march_reference(x0, m, t)
+    want = (k.pert_block_split_reference if split else
+            k.pert_block_compressed_reference)(x0, m, t)
+    assert _gap(got, want) <= TOL
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["compressed", "split"])
+def test_pert_march_model_srt(split):
+    """The SRT collision of the Perturbation plan's model at T = 3 on the
+    Dirichlet inlet and convective outlet equals 3 plain steps."""
+    m = _pert_model("dirichlet_convective", "SRT")
+    st = _start(m)
+    x0 = st if split else m.pack_state(*st)
+    got = M2.pert2d_march_reference(x0, m, 3)
+    want = (k.pert_block_split_reference if split else
+            k.pert_block_compressed_reference)(x0, m, 3)
+    assert _gap(got, want) <= TOL
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["compressed", "split"])
+def test_pert_march_model_matches_jax_steps(split):
+    """The Perturbation plan's model at T = 3 on the flagship's 64 x 48
+    channel against the JAX package's jnp Perturbation step three times
+    (``_step_impl_c`` compressed, ``_step_impl`` split), at f64."""
+    solid = _walls(64, 48)
+    g = jgeo.from_solid_mask(solid)
+    jp = jcg.ColorGradientParams(**PERT_BASE)
+    jb = jcg.CGBoundaryConfig(**FLAGSHIP)
+    mj = jcg.ColorGradientRK(g, jp, jb, dtype=jnp.float64, use_pallas=False)
+    mt = ColorGradientRK(from_solid_mask(solid), params_from_jax(jp),
+                         params_from_jax(jb), dtype=torch.float64,
+                         device=CPU)
+    st = mj.init_state_layers(1.0, 1.0, invading_rows=12)
+    if split:
+        got = M2.pert2d_march_reference(
+            tuple(torch.from_numpy(np.array(a)) for a in st), mt, 3)
+        for _ in range(3):
+            st = mj._step_impl(*st)
+        want = st
+    else:
+        s = mj.pack_state(*st)
+        got = (M2.pert2d_march_reference(torch.from_numpy(np.array(s)), mt,
+                                         3),)
+        for _ in range(3):
+            s = mj._step_impl_c(s)
+        want = (s,)
+    assert max(float(np.abs(a.numpy() - np.asarray(b)).max())
+               for a, b in zip(got, want)) <= TOL
+
+
+def test_pert_plan_limit():
+    """The Perturbation plan takes 4 stages and 3 rings a level with
+    boundary rows (3 and 3 without): its launch limit is the largest T
+    that fits the executor's tables, and a T above it fails to plan."""
+    def pert(t, bc=True):
+        return M2.pert2d_stages(64, t, 8, False, int(bc), 2 * int(bc), bc)
+
+    for stages_of in (pert, lambda t: pert(t, False)):
+        t = M2.max_steps(stages_of)
+        st, ar = stages_of(t)
+        assert len(st) <= M3.MAX_STAGES and len(ar) <= M3.MAX_RINGS
+        st, ar = stages_of(t + 1)
+        assert len(st) > M3.MAX_STAGES or len(ar) > M3.MAX_RINGS
+    assert M2.max_steps(pert) == 15
+    assert M2.max_steps(lambda t: pert(t, False)) == 16
+    params = k.CsfParams(ny=64, nx=8, inlet=1, outlet=2, phi_repair=1,
+                         variant=1)
+    assert k.csf_block_max_steps(torch.float64, False, params) == 15
+    with pytest.raises(ValueError):
+        M2.pert2d_march_plan((64, 8), 16, 8, False, 1, 2, True)
+
+
+@pytest.mark.parametrize("fault", ["lag", "seam"])
+def test_pert_march_model_sees_schedule_faults(fault):
+    """A Perturbation plan whose second level's collision trails one row
+    too little, or whose first level's phi stage leaves out a row of the
+    seam below 0, gives the model wrong or NaN values."""
+    m = _pert_model("flagship" if fault == "lag" else "periodic")
+    x0 = m.pack_state(*_start(m))
+    want = k.pert_block_compressed_reference(x0, m, 2)
+    plan = M2.pert2d_march_plan((40, 12), 2, 8, False, *M2._codes(m),
+                                bool(m._phi_repair), rows_per_wave=1)
+    if fault == "lag":
+        c1 = next(s for s in plan.stages
+                  if s.kind == M3.COLLIDE and s.level == 1)
+        c1.d -= 1
+    else:
+        phi0 = next(s for s in plan.stages if s.kind == M2.PHI)
+        phi0.lo += 1
+    plan.waves = _rewave(plan)
+    got = M2.pert2d_march_reference(x0, m, 2, plan)
+    assert not _gap(got, want) <= TOL
 
 
 TRACERS = {
