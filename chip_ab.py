@@ -2,7 +2,7 @@
 """Time the single-device kernels of this checkout against those of another
 checkout of the repository, in turns on one card.
 
-    python3 chip_ab.py OTHER_DIR [ROUNDS] [3d|2d|3dT|2dT]
+    python3 chip_ab.py OTHER_DIR [ROUNDS] [3d|2d|3dT|2dT|bits|sass]
 
 Run from the repository root on a machine with a CUDA card and nvcc.
 OTHER_DIR holds another checkout (e.g. the parent commit, unpacked with
@@ -12,7 +12,10 @@ libraries and times, with CUDA events, through ``chip_smoke.py``'s models
 of that checkout: "3d" (the default) ms a step of K9c, K9h and K9s
 (configuration 5; K9c at 256^3 too), K12d (the sharded K9 on configuration
 5 over a (4, 1) local mesh, ms a call of one step), K9t (the coupled
-probe), K11 (basic3d) and K10 (probe_sc3d), at 128^3 in f32 (K9h in bf16);
+probe, f32 and bf16 flow storage), K12d coupled (the sharded K9t on the
+probe over (4, 1)), K11 (basic3d), K10 (probe_sc3d, f32 and bf16), K12e
+(the sharded K10 on probe_sc3d over (4, 1), T = 1) and K10-T at T = 2 (ms a
+time step), at 128^3 in f32 unless named;
 "2d" ms a step of the Shan-Chen K8 and of K8-T at T = 4 on
 bench_all.py's configs 2 and 3 at 1024^2 in f32, and of K8 with four
 fluids (the runtime-K instance) at 1024^2; "3dT" ms a time step of the 3-D
@@ -21,10 +24,21 @@ K9-Th and K9-Ts (configuration 5) at T = 2 and 4, and K11-T (basic3d) at
 T = 4; "2dT" ms a time step of the 2-D colour-gradient T-step kernels at
 1024^2, the models of chip_smoke.py's phases 49 and 55: K3c, K3h and K3s
 of both variants (the CSF flagship and the Perturbation flagship) and
-K5c-Tc, K5c-Th and K5c-Ts (configuration 4) at T = 2 and 4.  The turns go
+K5c-Tc, K5c-Th and K5c-Ts (configuration 4) at T = 2 and 4; "bits" no
+times but whether the two checkouts' kernels give the same bits: K10 and
+K9t after 10 steps on this checkout's cases (chip_smoke.py's SC3D_CASES
+and CG3D_TRANSPORT_CASES but the grain pack) in f64, f32 and bf16, then
+K10 in f32 with both libraries built with -fmad=false, one line each with
+K10's largest |difference| between the checkouts (bf16 decoded as stored);
+"sass" no times but each kernel of the 3-D one-step libraries (SASS_LIBS)
+as cuobjdump prints it from both checkouts' builds: its instructions
+(addresses and encodings dropped) equal or not, their count and its
+registers in each, one JSON line a library.  The turns go
 other, this, this, other (ROUNDS times, default 1), so that a drift of the
 card's clock shows in both.  Prints one JSON line a turn, then one with
-each kernel's median over the turns of each checkout.
+each kernel's median over the turns of each checkout, and one with each
+kernel's spread: the lowest and highest turn of each checkout, and whether
+every turn of this checkout is below every turn of the other.
 """
 
 from __future__ import annotations
@@ -43,7 +57,8 @@ import chip_smoke as cs
 from openlbmpm_torch.kernels import build, cg3d, flow3d
 from openlbmpm_torch.parallel import make_mesh
 build.load_libraries(("cg3d_f32", "cg3d_bf16", "cg3d_local_f32",
-                      "flow3d_f32"))
+                      "flow3d_f32", "flow3d_bf16", "flow3d_local_f32",
+                      "flow3d_block_f32"))
 dev = torch.device("cuda", 0)
 out = {}
 m = cs.config5_model(dev)
@@ -67,15 +82,33 @@ out["K9c 256^3"] = cs._time_steps(
     lambda s: cg3d.cg3d_step_compressed(s, m), x, 10, dev)
 del x
 m = cs.probe3d_model(dev)
-x = m.pack(cs.probe3d_start(m))
+st = cs.probe3d_start(m)
 out["K9t"] = cs._time_steps(
-    lambda s: cg3d.coupled3d_step_compressed(*s, m), x, 50, dev)
+    lambda s: cg3d.coupled3d_step_compressed(*s, m), m.pack(st), 50, dev)
+mh = cs.probe3d_model(dev, storage="bf16")
+out["K9t bf16"] = cs._time_steps(
+    lambda s: cg3d.coupled3d_step_compressed(*s, mh), mh.pack(st), 50, dev)
+step = cg3d.build_cg3d_sharded_step(
+    m.geo, m.flow.p, make_mesh(shape=(4, 1), kind="local", device=dev),
+    torch.float32, bc_config=m.flow.bcs, transport=cs.tracer3d_of(m, dev))
+out["K12d coupled (4, 1)"] = cs._time_steps(step, step.shard(*m.pack(st)),
+                                            20, dev)
+del st, step
 m = cs.basic3d_model(dev)
 out["K11"] = cs._time_steps(lambda f: flow3d.single3d_step(f, m),
                             m.init_state(), 50, dev)
 m = cs.probe_sc3d_model(dev)
-out["K10"] = cs._time_steps(lambda f: flow3d.sc3d_step(f, m),
-                            cs.probe_sc3d_start(m), 50, dev)
+f = cs.probe_sc3d_start(m)
+out["K10"] = cs._time_steps(lambda f: flow3d.sc3d_step(f, m), f, 50, dev)
+mh = cs.probe_sc3d_model(dev, storage="bf16")
+out["K10 bf16"] = cs._time_steps(lambda f: flow3d.sc3d_step(f, mh),
+                                 mh.pack_state_bf16(f), 50, dev)
+step = flow3d.build_sc3d_sharded_step(
+    m.geo, m.p, make_mesh(shape=(4, 1), kind="local", device=dev),
+    torch.float32, steps_per_call=1)
+out["K12e (4, 1) T=1"] = cs._time_steps(step, step.shard(f), 20, dev)
+out["K10-T T=2"] = cs._time_steps(
+    lambda y: flow3d.sc3d_block_step(y, m, 2), f, 24, dev) / 2
 print(json.dumps({k: v * 1e3 for k, v in out.items()}))
 """
 
@@ -155,12 +188,94 @@ for (label, family, key, m, x, step1, kern, plain,
     del m, x
 print(json.dumps({k: v * 1e3 for k, v in out.items()}))
 """
-TURNS = {"3d": TURN, "2d": TURN_2D, "3dT": TURN_3DT, "2dT": TURN_2DT}
+# "bits": the outputs of 10 steps of K10 (this checkout's SC3D_CASES) and
+# K9t (its CG3D_TRANSPORT_CASES but the grain pack) in f64, f32 and bf16, a
+# SHA-256 each, and of K10 in f32 built with -fmad=false (no a * b + c
+# contracted into an FMA), so that equal hashes show equal bits; K10's
+# states also go to a file, so that the two checkouts' largest difference
+# is printed
+TURN_BITS = r"""
+import hashlib, importlib.util, json, sys, torch
+spec = importlib.util.spec_from_file_location("cases", sys.argv[1])
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
+from openlbmpm_torch.kernels import build, cg3d, flow3d
+if sys.argv[2] == "nofma":
+    build.EXTRA_FLAGS["flow3d_f32"] = ("-fmad=false",)
+dev = torch.device("cuda", 0)
+sha = lambda ts: hashlib.sha256(b"".join(
+    t.detach().contiguous().cpu().view(torch.uint8).numpy().tobytes()
+    for t in ts)).hexdigest()[:16]
+out, states = {}, {}
+kinds = ((torch.float64, "f32"), (torch.float32, "f32"), (torch.float32, "bf16"))
+if sys.argv[2] == "nofma":
+    kinds = kinds[1:2]
+for dtype, storage in kinds:
+    tag = "bf16" if storage == "bf16" else str(dtype)[6:]
+    for name in cs.SC3D_CASES:
+        m, f = cs.sc3d_case(name, dev, dtype=dtype, storage=storage)
+        x = m.pack_state_bf16(f) if storage == "bf16" else f
+        for _ in range(10):
+            x = flow3d.sc3d_step(x, m)
+        out[f"K10 {tag} {name}"] = sha((x,))
+        states[f"K10 {tag} {name}"] = x.float().cpu()
+    if sys.argv[2] == "nofma":
+        continue
+    for name in cs.CG3D_TRANSPORT_CASES:
+        if name == "grain_pack":
+            continue
+        m, st = cs.transport3d_case(name, dev, dtype=dtype, storage=storage)
+        x = m.pack(st)
+        for _ in range(10):
+            x = cg3d.coupled3d_step_compressed(*x, m)
+        out[f"K9t {tag} {name}"] = sha(x)
+torch.save(states, sys.argv[3])
+print(json.dumps(out))
+"""
+# "sass": the 3-D one-step libraries' kernels as cuobjdump prints them, by
+# library and kernel (the anonymous namespace's file tag dropped from the
+# name): the instructions without addresses and encodings, and registers
+SASS_LIBS = ("cg3d_f64", "cg3d_f32", "cg3d_bf16", "cg3d_local_f64",
+             "cg3d_local_f32", "flow3d_f64", "flow3d_f32", "flow3d_bf16",
+             "flow3d_local_f64", "flow3d_local_f32")
+TURN_SASS = r"""
+import json, re, subprocess, sys
+from openlbmpm_torch.kernels import build
+libs = sys.argv[1].split(",")
+build.load_libraries(libs)
+tool = build._nvcc().replace("nvcc", "cuobjdump")
+out = {}
+for lib in libs:
+    so = str(build.BUILD_DIR / f"lib{lib}-{build._digest(lib)}.so")
+    key = lambda name: re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]+", "",
+                              name)
+    code, fn = {}, None
+    for ln in subprocess.run([tool, "-sass", so], capture_output=True,
+                             text=True, check=True).stdout.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            fn = key(m.group(1))
+            code[fn] = []
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;", ln)
+        if fn and m:
+            code[fn].append(m.group(1))
+    regs = {key(m.group(1)): int(m.group(2)) for m in re.finditer(
+        r"Function (\S+):\s*REG:(\d+)", subprocess.run(
+            [tool, "-res-usage", so], capture_output=True, text=True,
+            check=True).stdout)}
+    out[lib] = {fn: [" ; ".join(c), len(c), regs.get(fn)]
+                for fn, c in code.items()}
+print(json.dumps(out))
+"""
+TURNS = {"3d": TURN, "2d": TURN_2D, "3dT": TURN_3DT, "2dT": TURN_2DT,
+         "bits": TURN_BITS, "sass": TURN_SASS}
 
 
-def turn(where: Path, family: str = "3d") -> dict:
-    res = subprocess.run([sys.executable, "-c", TURNS[family]], cwd=where,
-                         capture_output=True, text=True, timeout=900)
+def turn(where: Path, family: str = "3d", args=()) -> dict:
+    res = subprocess.run([sys.executable, "-c", TURNS[family], *args],
+                         cwd=where, capture_output=True, text=True,
+                         timeout=900)
     if res.returncode != 0:
         raise RuntimeError(f"turn in {where} failed:\n{res.stderr[-3000:]}")
     return json.loads(res.stdout.strip().splitlines()[-1])
@@ -177,6 +292,36 @@ def main(argv=None) -> int:
     if family not in TURNS:
         print(__doc__, file=sys.stderr)
         return 2
+    if family == "sass":
+        got = {name: turn(other if name == "other" else ROOT, family,
+                          (",".join(SASS_LIBS),))
+               for name in ("other", "this")}
+        for lib in SASS_LIBS:
+            this, that = got["this"][lib], got["other"][lib]
+            print(json.dumps({"library": lib, "kernels": {
+                fn: {"identical": fn in that and that[fn][0] == code,
+                     "instructions": [n, that[fn][1] if fn in that else None],
+                     "registers": [regs, that[fn][2] if fn in that else None]}
+                for fn, (code, n, regs) in sorted(this.items())},
+                "only_other": sorted(set(that) - set(this))}), flush=True)
+        return 0
+    if family == "bits":
+        import tempfile
+        import torch
+        cases = str(ROOT / "chip_smoke.py")
+        with tempfile.TemporaryDirectory() as tmp:
+            for mode in ("fma", "nofma"):
+                got = {name: turn(other if name == "other" else ROOT, family,
+                                  (cases, mode, f"{tmp}/{name}.pt"))
+                       for name in ("other", "this")}
+                a, b = (torch.load(f"{tmp}/{name}.pt")
+                        for name in ("this", "other"))
+                print(json.dumps({"build": mode, "equal": {
+                    k: got["this"][k] == got["other"].get(k)
+                    for k in got["this"]}, "K10 max_abs_diff": {
+                    k: float((a[k] - b[k]).abs().max()) for k in a
+                    if k in b}}), flush=True)
+        return 0
     times = {"other": [], "this": []}
     for _ in range(rounds):
         for name in ("other", "this", "this", "other"):
@@ -186,6 +331,16 @@ def main(argv=None) -> int:
     print(json.dumps({"median_ms": {
         name: {k: statistics.median(t[k] for t in ts) for k in ts[0]}
         for name, ts in times.items()}}))
+    spread = {}
+    for k in times["this"][0]:
+        lo = {name: min(t[k] for t in ts) for name, ts in times.items()}
+        hi = {name: max(t[k] for t in ts) for name, ts in times.items()
+              if k in ts[0]}
+        spread[k] = {"this": [lo["this"], hi["this"]]}
+        if k in times["other"][0]:
+            spread[k]["other"] = [lo["other"], hi["other"]]
+            spread[k]["this_below_every_other"] = hi["this"] < lo["other"]
+    print(json.dumps({"spread_ms": spread}))
     return 0
 
 

@@ -4,7 +4,7 @@ kernel against its plain path, fail them: the D3Q19 CSF kernel (K9) and its
 coupled tracer step (K9t) under phase 21 (configuration 5 at 128^3) and
 phase 26 (benchmarks/probe_coupled3d.py's configuration at 128^3), the
 single-phase D2Q9 kernel (K7) under phase 31 (the analytic Poiseuille
-profile), the D3Q19 Shan-Chen kernel (K10) under phase 37
+profile), the D3Q19 Shan-Chen kernel (K10) under phases 36 and 37
 (benchmarks/probe_sc3d.py's configuration) and the Perturbation kernel
 (K4) under phase 41 (the pert flagship at 1024^2); ten faults that
 only the T-step kernels can show: the colour-gradient K3's row-march under
@@ -36,11 +36,16 @@ lines, where phase 21 compares against the plain path's one-ulp twin) in
 one storage type's one-step instance; the tracer
 fault applies the hard interface bounce-back on the x and y axes only (the
 tracer then leaks through the red phase across the periodic z seam) in the
-f32 instance; the K7 fault drops the Guo source from the MRT update in the
-f32 instance (the half-force stays in the relaxed moments); the K10 fault
-drops the adhesion term, which only wall-adjacent cells carry, in the
+f32 instance, and the fused tracer's fault gives the -z slot that the
+colliding thread writes the flags of its own cell for its upwind cell's
+(no bounce-back and no repair across that face) in the f32 instance; the
+K7 fault drops the Guo source from the MRT update in the
+f32 instance (the half-force stays in the relaxed moments); the K10 faults
+drop the adhesion term, which only wall-adjacent cells carry, in the
 float-arithmetic instances (f32 and bf16 storage: the shared collision
-knows only its compute type); the K4 fault drops the 1/sqrt(2) of the diagonal recolouring
+knows only its compute type), or push a post-collision value bounced back
+from a solid neighbour into the cell's slot i instead of opp(i) in the f32
+instance; the K4 fault drops the 1/sqrt(2) of the diagonal recolouring
 segment in the float-arithmetic instances (K4c f32, K4h, K4s f32; the
 Perturbation K3 shares the line). The T-step faults: K3's row-march
 rewrites the boundary rows of level 0 only (not before the later steps of
@@ -65,8 +70,8 @@ f64 arithmetic, the local form of K3 (K12a, the sharded colour-gradient
 step) maps its window rows to global rows one row off, in its f64
 instance, the local form of K9 (K12d, the sharded D3Q19 CSF step) writes
 the boundary slabs one buffer slab off their global index, and the local
-form of K10 (K12e, the sharded D3Q19 Shan-Chen step) computes rho one slab
-short of a sub-step's reach, and the local form of K8-T (K12c, the sharded
+form of K10 (K12e, the sharded D3Q19 Shan-Chen step) collides, and so
+forms rho, one slab short of a sub-step's reach below, and the local form of K8-T (K12c, the sharded
 2-D Shan-Chen step) finds its inlet band one global row off, each in its
 f64 instance:
 
@@ -76,9 +81,12 @@ f64 instance:
   f32            cg3d.cuh, float32 storage (K9c f32, K9s f32): phase 21;
   bf16           cg3d.cuh, bfloat16 storage (K9h): phase 21;
   tracer f32     cg3d.cuh, float32 storage (K9t f32): phase 26;
+  tracer z pair f32  cg3d.cuh, float32 storage (K9t f32): phase 26;
   K7 MRT f32     single2d.cuh, float32 storage: phase 31 must fail;
   K10 adh f32    flow3d.cuh, float arithmetic (f32, bf16): phase 37 must
                  fail;
+  K10 push target f32  flow3d.cuh, float32 storage: phases 36 (its f32
+                 part) and 37 must fail;
   K4 diag f32    pert2d.cuh, float arithmetic: phase 41 must fail;
   K3 bc once     march2d.cuh, float32 storage: phase 48 must fail,
                  phases 4 and 41 (K1, K4) pass;
@@ -107,7 +115,8 @@ f64 instance:
                  single-device instances) passes;
   K12d slab index    cg3d_local.cuh, float64 storage: phase 67 must fail,
                  phases 20 and 21 (K9) pass;
-  K12e rho short flow3d_local.cuh, float64 storage: phase 68 must fail,
+  K12e rho short flow3d.cuh (the box form), float64 storage: phase 68
+                 must fail,
                  phase 36 (K10) passes;
   K12c inlet row sc2d_block.cuh, the local instances, float64 storage:
                  phase 70 must fail, phase 46 (K8-T, the same body's
@@ -134,9 +143,22 @@ FAULT = ("    fld[3 * n + ((size_t)z * ny + y) * nx + x] = sizeof(S) == "
          "{size} && geo[((size_t)z * ny + y) * nx + x] > C(1.5) ? C(0) : "
          "kappa;")
 # directions 5 and 6 of D3Q7 are +z and -z
-TRACER_LINE = "      const bool repair = T.interface;"
-TRACER_FAULT = ("      const bool repair = T.interface && "
+TRACER_LINE = "  const bool repair = T.interface;"
+TRACER_FAULT = ("  const bool repair = T.interface && "
                 "(sizeof(S) != {size} || i < 5);")
+# the fused tracer's -z slot of the lower slab of a column pair, which the
+# colliding thread writes itself: its upwind (upper) cell's flags replaced
+# by the cell's own, so neither bounce-back nor the repair sees that cell
+TRACER_Z_LINE = ("                tracer_slot<S>(6, flo, fhi, g6hi, g5lo, "
+                 "tr.T);")
+TRACER_Z_FAULT = ("                tracer_slot<S>(6, flo, sizeof(S) == "
+                  "{size} ? flo : fhi, g6hi, g5lo, tr.T);")
+# K10's push: a fluid cell's post_i bounced from a solid x + e_i into its
+# own slot i, not opp(i) (slot opp(i) of x is then never written)
+K10P_LINE = ("          p[(opp(i) - i) * (ptrdiff_t)n] = post;   // bounced back "
+             "from the solid x + e_i")
+K10P_FAULT = ("          p[((sizeof(S) == {size} ? i : opp(i)) - i) * "
+              "(ptrdiff_t)n] = post;")
 K7_LINE = "      post[i] = (FORCE ? F[i] + src[i] : F[i]) - c;"
 K7_FAULT = ("      post[i] = (FORCE && sizeof(S) != {size} ? F[i] + src[i] : "
             "F[i]) - c;")
@@ -185,8 +207,9 @@ K12D_LINE = ("  auto at = [&](int g) { return (size_t)(g - G.z0 + G.fz) * "
              "nxy + k2; };")
 K12D_FAULT = ("  auto at = [&](int g) {{ return (size_t)(g - G.z0 + G.fz + "
               "(sizeof(S) == {size})) * nxy + k2; }};")
-K12E_LINE = "    const ZRange r{a - 2, b + 2};"
-K12E_FAULT = "    const ZRange r{{a - 2 + (sizeof(S) == {size}), b + 2}};"
+K12E_LINE = "  const int c0 = BOX ? R.z0 - 1 : 0, c1 = BOX ? R.z1 + 1 : nz;"
+K12E_FAULT = ("  const int c0 = BOX ? R.z0 - 1 + (sizeof(S) == {size}) : 0, "
+              "c1 = BOX ? R.z1 + 1 : nz;")
 K12C_LINE = "            if (wrap(oy + ly, ny) == row && FL[c]) {"
 K12C_FAULT = ("            if (wrap(oy + ly + (LOCAL && sizeof(S) == {size}), "
               "ny) == row && FL[c]) {{")
@@ -198,9 +221,13 @@ CASES = {
     "bf16": ("cg3d.cuh", LINE, FAULT.format(size=2), ("21",)),
     "tracer f32": ("cg3d.cuh", TRACER_LINE, TRACER_FAULT.format(size=4),
                    ("26",)),
+    "tracer z pair f32": ("cg3d.cuh", TRACER_Z_LINE,
+                          TRACER_Z_FAULT.format(size=4), ("26",)),
     "K7 MRT f32": ("single2d.cuh", K7_LINE, K7_FAULT.format(size=4), ("31",)),
     "K10 adh f32": ("flow3d.cuh", K10_LINE, K10_FAULT.format(size=4),
                     ("37",)),
+    "K10 push target f32": ("flow3d.cuh", K10P_LINE, K10P_FAULT.format(size=4),
+                            ("36", "37")),
     "K4 diag f32": ("pert2d.cuh", K4_LINE, K4_FAULT.format(size=4), ("41",)),
     "K3 bc once": ("march2d.cuh", K3_LINE, K3_FAULT.format(size=4),
                    ("48",)),
@@ -228,7 +255,7 @@ CASES = {
                  ("63",)),
     "K12d slab index": ("cg3d_local.cuh", K12D_LINE,
                         K12D_FAULT.format(size=8), ("67",)),
-    "K12e rho short": ("flow3d_local.cuh", K12E_LINE,
+    "K12e rho short": ("flow3d.cuh", K12E_LINE,
                        K12E_FAULT.format(size=8), ("68",)),
     "K12c inlet row": ("sc2d_block.cuh", K12C_LINE,
                        K12C_FAULT.format(size=8), ("70",)),

@@ -165,7 +165,9 @@ toolkit (nvcc) and PyTorch built for CUDA; JAX is not needed.  Phases:
  36. f64: the D3Q19 Shan-Chen kernel K10 against its plain version, 20
      steps on 48x40x32 in each case of SC3D_CASES (two fluids periodic; two
      fluids with y walls, G_s, tau (1.0, 0.8) and a body force; three
-     fluids); <= 1e-11;
+     fluids; one fluid with walls and an obstacle; two fluids in grains
+     that cross the periodic seams); <= 1e-11; then 10 f32 steps of each
+     within FLOW3D_F32_BOUND;
  37. benchmarks/probe_sc3d.py's configuration: f64 at 128^3 (10 steps,
      <= 1e-11), f32 and bf16 at 128^3 and 256^3 as phase 34, then 1000 f32
      steps on K10 at 128^3: each fluid's mass within 1e-4 (f64: 1e-12 over
@@ -175,7 +177,9 @@ toolkit (nvcc) and PyTorch built for CUDA; JAX is not needed.  Phases:
      launched exactly once a step, final checkpoints finite; the bf16 main
      paths of K11 and K10 through ``run_chunked``;
  39. MLUPS of K11 and K10 (f32, bf16) at 128^3 and 256^3 and of their plain
-     paths at 128^3, device time per launch and the roofline share;
+     paths at 128^3, device time per launch, the launches a step by the
+     libraries' counts (FLOW3D_STEP_KERNELS: one a step, K10 in bf16 two)
+     and the roofline share;
  40. f64: the Perturbation kernels K4c (compressed) and K4s (split) against
      their plain steps on a 256x128 walled channel in every case of
      PERT_CASES (SRT and MRT, isotropic and anisotropic weights, Neumann/
@@ -2599,6 +2603,11 @@ CG3D_TRANSPORT_CASES = {
     "dirichlet_nt2": CG3D_CASES["velocity_dirichlet"] + (dict(
         num_tracers=2, tau=(1.0, 0.8), j0=(0.25, 0.4),
         interface_mode="bounceback"), "random"),
+    # three tracers: two collide_stream launches a step in f64, whose
+    # shared memory holds two a launch
+    "dirichlet_nt3": CG3D_CASES["velocity_dirichlet"] + (dict(
+        num_tracers=3, tau=(1.0, 0.8, 0.9), j0=(0.25, 0.4, 0.3),
+        interface_mode="bounceback"), "random"),
     "interface_none": CG3D_CASES["velocity_convective"] + (
         _TRACER3D | dict(interface_mode="none"), "random"),
     "grain_pack": CG3D_CASES["grain_pack"] + (_TRACER3D, "bottom"),
@@ -2847,8 +2856,10 @@ def phase_transport3d_cli(device, steps=1000, n=128, bf16_steps=200):
     return res
 
 
-TRANSPORT3D_KERNELS = CG3D_KERNELS + ("tracer_collide3d_kernel",
-                                      "tracer_stream3d_kernel")
+# K9t's kernels: K9's bc and fields, and collide_stream with the tracers
+# (collide_stream_tracer_kernel, counted with collide_stream by the library)
+TRANSPORT3D_KERNELS = ("bc_kernel", "fields_kernel",
+                       "collide_stream_tracer_kernel")
 # least bytes per cell-step of K9t's function: K9's state in and out, one
 # f32 D3Q7 tracer (28 B) in and out, a 1-byte solid mask
 TRANSPORT3D_BYTES = {"f32": 2 * 80 + 2 * 28 + 1, "bf16": 2 * 42 + 2 * 28 + 1}
@@ -2860,10 +2871,13 @@ def phase_transport3d_speed(device, sizes=(128, 256), steps=(50, 20),
     """MLUPS of K9t with f32 and bf16 flow storage at each size and of the
     plain paths at the first, in turns (plain, kernels, kernels, plain),
     each kernel's device microseconds per launch from torch.profiler, and
-    the roofline share of TRANSPORT3D_BYTES."""
+    the roofline share of TRANSPORT3D_BYTES.  Launches a step by the
+    libraries' own counts: bc, fields and collide_stream once each on the
+    probe (an inlet and an outlet), fields and collide_stream on a periodic
+    box (``periodic_box`` at 64^3); no separate tracer pass in the trace."""
     from openlbmpm_torch.kernels.cg3d import (
         coupled3d_step_compressed, coupled3d_step_compressed_reference,
-        launch_cg3d_coupled)
+        kernel_launches, launch_cg3d_coupled)
     res = {}
     for n, k_steps in zip(sizes, steps):
         models = {"f32": probe3d_model(device, n=n),
@@ -2884,17 +2898,49 @@ def phase_transport3d_speed(device, sizes=(128, 256), steps=(50, 20),
             t = _time_steps(fn, x, plain_steps if key.startswith("plain")
                             else k_steps, device)
             sec[key] = min(sec.get(key, float("inf")), t)
-        profile = {}
+        profile, launches = {}, {}
         for key, m in models.items():
             times = device_times(lambda x, m=m: launch_cg3d_coupled(
                 *x, m.flow.kernel_params, m.tracer_params, m.flow.geo_planes,
-                m.tracer_table), xs[key], TRANSPORT3D_KERNELS, steps=20)
+                m.tracer_table), xs[key], TRANSPORT3D_KERNELS + (
+                    "tracer_collide", "tracer_stream"), steps=20)
+            check(times.pop("tracer_collide") is None and
+                  times.pop("tracer_stream") is None,
+                  f"K9t {key} {n}^3: a tracer pass in the trace")
             profile.update({(key, k): v for k, v in times.items()})
-        res[n] = {"sec": sec, "profile": profile, "mlups": {
+            launches[key] = _coupled_launches(
+                m, xs[key], f"cg3d_{key}", coupled3d_step_compressed,
+                kernel_launches, 3, f"K9t {key} {n}^3")
+        if n == sizes[0]:
+            mp, xp = transport3d_case("periodic_box", device, shape=(64,) * 3,
+                                      dtype=torch.float32)
+            launches["periodic f32"] = _coupled_launches(
+                mp, mp.pack(xp), "cg3d_f32", coupled3d_step_compressed,
+                kernel_launches, 2, "K9t periodic f32")
+            del mp, xp
+        res[n] = {"sec": sec, "profile": profile, "launches": launches,
+                  "mlups": {
             key: n ** 3 / t / 1e6 for key, t in sec.items()},
             "roof": {key: TRANSPORT3D_BYTES[key] * n ** 3 / HBM_BYTES_PER_S
                      / sec[key] for key in TRANSPORT3D_BYTES}}
     return res
+
+
+def _coupled_launches(m, x, lib, step, counts, want, tag):
+    """Launches a step of each of K9's kernels by the library `lib` over 10
+    coupled steps of x = step(*x, m); `want` launches in all, one of each
+    kernel at most."""
+    before = counts(lib)
+    for _ in range(10):
+        x = step(*x, m)
+    torch.cuda.synchronize()
+    after = counts(lib)
+    got = {k: (after[k] - before[k]) / 10 for k in after}
+    check(sum(got.values()) == want and all(v in (0, 1) for v in
+                                            got.values()),
+          f"{tag}: launches a step " + ", ".join(
+              f"{k} {v:g}" for k, v in got.items()) + f" (want {want})")
+    return got
 
 
 def phase25_28_lines(r25, r26, r27, r28, card):
@@ -2937,10 +2983,13 @@ def phase25_28_lines(r25, r26, r27, r28, card):
                 for k, v in TRANSPORT3D_BYTES.items()) +
             "; roofline share " + ", ".join(
                 f"{k} {v:.3f}" for k, v in r["roof"].items()) +
-            "; device us per launch (launches per step): " + ", ".join(
-                f"{k} {key} " + ("not measured" if v is None else
-                                 f"{v[0]:.2f} ({v[1]:g})")
-                for (key, k), v in r["profile"].items()))
+            "; device us per launch (launches per step in the trace): " +
+            ", ".join(f"{k} {key} " + ("not measured" if v is None else
+                                       f"{v[0]:.2f} ({v[1]:g})")
+                      for (key, k), v in r["profile"].items()) +
+            "; launches a step by the libraries' counts: " + "; ".join(
+                f"{key} " + ", ".join(f"{k} {v:g}" for k, v in c.items())
+                for key, c in r["launches"].items()))
     return lines
 
 
@@ -3283,27 +3332,53 @@ def basic3d_model(device, n=128, storage="f32", dtype=torch.float32):
 
 _SC2 = dict(g_matrix=((0.0, 3.6), (3.6, 0.0)), g_solid=(-0.3, 0.3),
             tau=(1.0, 0.8))
-# name -> (ShanChenParams3D fields, walls along y, start): K10's cases
-# (phase 36; test_torch_cuda.py)
+# name -> (ShanChenParams3D fields, geometry: "open", "walls" along y,
+# "obstacle" (walls and a block) or "grains" (``periodic_grains``), start):
+# K10's cases (phase 36; test_torch_cuda.py)
 SC3D_CASES = {
     "k2_periodic": (dict(g_matrix=((0.0, 3.6), (3.6, 0.0)),
-                         g_solid=(0.0, 0.0), tau=(1.0, 1.0)), False,
+                         g_solid=(0.0, 0.0), tau=(1.0, 1.0)), "open",
                     "droplet"),
-    "k2_walls_force": (_SC2 | dict(body_force=(1e-5, -1e-5, -1e-5)), True,
+    "k2_walls_force": (_SC2 | dict(body_force=(1e-5, -1e-5, -1e-5)), "walls",
                        "droplet"),
     "k3": (dict(g_matrix=((0.0, 2.0, 1.0), (2.0, 0.0, 1.5), (1.0, 1.5, 0.0)),
-                g_solid=(0.1, -0.2, 0.0), tau=(1.0, 0.8, 1.2)), True,
+                g_solid=(0.1, -0.2, 0.0), tau=(1.0, 0.8, 1.2)), "walls",
            "random"),
+    "k1_obstacle": (dict(g_matrix=((0.0,),), g_solid=(-0.2,), tau=(0.9,),
+                         body_force=(1e-5, 0.0, -2e-5)), "obstacle",
+                    "random"),
+    "k2_grains": (_SC2 | dict(body_force=(0.0, 0.0, -1e-5)), "grains",
+                  "droplet"),
 }
+
+
+def periodic_grains(shape, n_grains=16, seed=11):
+    """(nz, ny, nx) solid mask of spherical grains in a periodic box: the
+    first centred on the corner cell (0, 0, 0), so it crosses the periodic
+    seams in z, y and x, the others at random centres (numpy `seed`), radii
+    0.12-0.2 of the shortest side; distances wrap, so every grain cut by a
+    face continues across it.  Some solid cells sit a cell wide between
+    grains (one-cell slivers)."""
+    rng = np.random.default_rng(seed)
+    idx = np.indices(shape)
+    solid = np.zeros(shape, bool)
+    for g in range(n_grains):
+        c = np.zeros(3) if g == 0 else rng.uniform(0.0, 1.0, 3) * shape
+        r = rng.uniform(0.12, 0.2) * min(shape)
+        d2 = sum(np.minimum(np.abs(idx[a] - c[a]), shape[a] - np.abs(
+            idx[a] - c[a])) ** 2 for a in range(3))
+        solid |= d2 < r * r
+    return solid
 
 
 # K = 4 fluids: the runtime-K instance of K10 / K10-T (phase 58)
 SC3D4_CASES = {
     "k4_walls_force": (dict(g_matrix=_g4(1.0), g_solid=(0.1, -0.2, 0.0, 0.05),
                             tau=(1.0, 0.8, 1.2, 0.9),
-                            body_force=(1e-5, -1e-5, -1e-5)), True, "random"),
+                            body_force=(1e-5, -1e-5, -1e-5)), "walls",
+                       "random"),
     "k4_periodic": (dict(g_matrix=_g4(1.0), g_solid=(0.0,) * 4,
-                         tau=(1.0, 0.9, 1.1, 1.0)), False, "random"),
+                         tau=(1.0, 0.9, 1.1, 1.0)), "open", "random"),
 }
 
 
@@ -3313,8 +3388,13 @@ def sc3d_case(name, device, shape=(48, 40, 32), dtype=torch.float64,
     min(shape)/4 at densities (1, 0.02), or a perturbed equilibrium."""
     from openlbmpm_torch.geometry import from_solid_mask
     from openlbmpm_torch.models.flow3d import ShanChenMCMP3D, ShanChenParams3D
-    kw, walls, start = (SC3D_CASES | SC3D4_CASES)[name]
-    g = _walls_y(shape) if walls else from_solid_mask(np.zeros(shape, bool))
+    kw, kind, start = (SC3D_CASES | SC3D4_CASES)[name]
+    if kind == "grains":
+        g = from_solid_mask(periodic_grains(shape))
+    elif kind == "open":
+        g = from_solid_mask(np.zeros(shape, bool))
+    else:
+        g = _walls_y(shape, obstacle=kind == "obstacle")
     m = ShanChenMCMP3D(g, ShanChenParams3D(**kw), dtype=dtype, device=device,
                        storage=storage)
     if start == "droplet":
@@ -3434,9 +3514,12 @@ def phase_single3d_poiseuille(device, steps=4000, tol=0.02):
     return res
 
 
-def phase_sc3d_f64(device, steps=20, tol=1e-11):
+def phase_sc3d_f64(device, steps=20, tol=1e-11, f32_steps=10):
     """K10 against its plain version at f64, `steps` steps on 48x40x32 in
-    every case of SC3D_CASES; max |difference| <= tol."""
+    every case of SC3D_CASES (K = 1, 2, 3; open, walls, an obstacle, and
+    grains across the periodic seams); max |difference| <= tol.  Then the
+    same cases from the same start in f32 storage, `f32_steps` steps, within
+    FLOW3D_F32_BOUND["K10"] (the push of the f32 instance)."""
     from openlbmpm_torch.kernels.flow3d import sc3d_step, sc3d_step_reference
     res = {}
     for name in SC3D_CASES:
@@ -3447,6 +3530,14 @@ def phase_sc3d_f64(device, steps=20, tol=1e-11):
                                     steps)).abs().max())
         check(bool(torch.isfinite(a).all()) and res[name] <= tol,
               f"K10 {name} f64: max |kernel - plain| {res[name]:.3e}")
+        m32, _ = sc3d_case(name, device, dtype=torch.float32)
+        f = f.float()
+        a = _run(sc3d_step, f, m32, f32_steps)
+        res[f"{name} f32"] = float((a - _run(sc3d_step_reference, f, m32,
+                                             f32_steps)).abs().max())
+        check(bool(torch.isfinite(a).all()) and res[f"{name} f32"] <=
+              FLOW3D_F32_BOUND["K10"], f"K10 {name} f32: max |kernel - "
+              f"plain| {res[f'{name} f32']:.3e}")
     return res
 
 
@@ -3573,7 +3664,14 @@ def phase_flow_cli(device, steps=1000):
     return res
 
 
-FLOW3D_KERNELS = ("rho_kernel", "march_kernel")
+# the kernels a step launches once each, by storage (the libraries'
+# counts, kernel_launches): K11 march_kernel; K10 sc_push_kernel in f32
+# (and f64) storage, rho_kernel and march_kernel in bf16
+FLOW3D_STEP_KERNELS = {"K11": {"f32": ("march_kernel",),
+                               "bf16": ("march_kernel",)},
+                       "K10": {"f32": ("sc_push_kernel",),
+                               "bf16": ("rho_kernel", "march_kernel")}}
+FLOW3D_KERNELS = ("sc_push_kernel", "rho_kernel", "march_kernel")
 # least bytes per cell-step: the state in and out plus a 1-byte mask: K11
 # f32 2 x 76 + 1, bf16 2 x 42 + 1; K10 with two fluids twice the state
 FLOW3D_BYTES = {"K11": {"f32": 2 * 76 + 1, "bf16": 2 * 42 + 1},
@@ -3589,18 +3687,19 @@ def phase_flow3d_speed(device, sizes=(128, 256), steps=(50, 20),
     """MLUPS of K11 (basic3d physics) and K10 (probe_sc3d) in f32 and bf16
     storage at each size and of their plain paths at the first, in turns
     (plain, kernels, kernels, plain), each CUDA kernel's device
-    microseconds per launch from torch.profiler, and the roofline share of
+    microseconds per launch from torch.profiler, its launches a step by the
+    library's own count (exactly one launch a step of each kernel of
+    FLOW3D_STEP_KERNELS and none of the others), and the roofline share of
     FLOW3D_BYTES."""
     from openlbmpm_torch.kernels.flow3d import (
-        launch_sc3d, launch_single3d, sc3d_step, sc3d_step_reference,
-        single3d_step, single3d_step_reference)
+        kernel_launches, launch_sc3d, launch_single3d, sc3d_step,
+        sc3d_step_reference, single3d_step, single3d_step_reference)
     res = {}
-    for tag, make, start, kern, plain, launch, names in (
+    for tag, make, start, kern, plain, launch in (
             ("K11", basic3d_model, lambda m: flow_start(m, seed=5),
-             single3d_step, single3d_step_reference, launch_single3d,
-             ("march_kernel",)),
+             single3d_step, single3d_step_reference, launch_single3d),
             ("K10", probe_sc3d_model, probe_sc3d_start, sc3d_step,
-             sc3d_step_reference, launch_sc3d, FLOW3D_KERNELS)):
+             sc3d_step_reference, launch_sc3d)):
         for n, k_steps in zip(sizes, steps):
             models = {"f32": make(device=device, n=n),
                       "bf16": make(device=device, n=n, storage="bf16")}
@@ -3619,13 +3718,24 @@ def phase_flow3d_speed(device, sizes=(128, 256), steps=(50, 20),
                 t = _time_steps(fn, x, plain_steps if key.startswith("plain")
                                 else k_steps, device)
                 sec[key] = min(sec.get(key, float("inf")), t)
-            profile = {}
+            profile, launches = {}, {}
             for st, m in models.items():
+                want = FLOW3D_STEP_KERNELS[tag][st]
                 times = device_times(lambda x, m=m: launch(
-                    x, m.kernel_params, m.fluid_u8), xs[st], names, steps=20)
+                    x, m.kernel_params, m.fluid_u8), xs[st], want, steps=20)
                 profile.update({(st, k): v for k, v in times.items()})
+                lib = f"flow3d_{st}"
+                x, before = xs[st], kernel_launches(lib)
+                for _ in range(10):
+                    x = kern(x, m)
+                torch.cuda.synchronize()
+                after = kernel_launches(lib)
+                launches[st] = {k: (after[k] - before[k]) / 10 for k in after}
+                check(all(v == (k in want) for k, v in launches[st].items()),
+                      f"{tag} {st} {n}^3: launches a step " + ", ".join(
+                          f"{k} {v:g}" for k, v in launches[st].items()))
             res[(tag, n)] = {
-                "sec": sec, "profile": profile,
+                "sec": sec, "profile": profile, "launches": launches,
                 "mlups": {k: n ** 3 / t / 1e6 for k, t in sec.items()},
                 "roof": {st: FLOW3D_BYTES[tag][st] * n ** 3 / HBM_BYTES_PER_S
                          / sec[st] for st in ("f32", "bf16")}}
@@ -3654,8 +3764,9 @@ def phase33_39_lines(r33, r34, r35, r36, r37, r38, r39, card):
         f"phase 35 K11 plate Poiseuille 4x18x4, 4000 f32 steps [{card}]: " +
         ", ".join(f"{k} {v * 100:.3f}%" for k, v in r35.items()) +
         " of the analytic profile (< 2%)",
-        "phase 36 K10 f64 vs plain, 48x40x32, 20 steps: max |diff| " +
-        ", ".join(f"{k} {v:.3e}" for k, v in r36.items()) + " (<= 1e-11)",
+        "phase 36 K10 vs plain, 48x40x32, f64 20 steps (<= 1e-11), f32 10 "
+        f"steps (<= {FLOW3D_F32_BOUND['K10']:g}): max |diff| " +
+        ", ".join(f"{k} {v:.3e}" for k, v in r36.items()),
         f"phase 37 K10 probe_sc3d, 10 steps [{card}]: f64 128^3 "
         f"{r37['f64']:.3e}; {cmp(r37)} (f32 <= {FLOW3D_F32_BOUND['K10']:g}, "
         f"bf16 <= {BF16_BOUND['K10']:g}); physics 1000 f32 steps at 128^3: "
@@ -3681,10 +3792,13 @@ def phase33_39_lines(r33, r34, r35, r36, r37, r38, r39, card):
                 for st, b in FLOW3D_BYTES[tag].items()) +
             "; roofline share " + ", ".join(
                 f"{k} {v:.3f}" for k, v in r["roof"].items()) +
-            "; device us per launch (launches per step): " + ", ".join(
-                f"{st} {k} " + ("not measured" if v is None else
-                                f"{v[0]:.2f} ({v[1]:g})")
-                for (st, k), v in r["profile"].items()))
+            "; device us per launch (launches per step in the trace): " +
+            ", ".join(f"{st} {k} " + ("not measured" if v is None else
+                                      f"{v[0]:.2f} ({v[1]:g})")
+                      for (st, k), v in r["profile"].items()) +
+            "; launches a step by the library's count: " + ", ".join(
+                f"{st} {k} {v:g}" for st, c in r["launches"].items()
+                for k, v in c.items() if v))
     return lines
 
 
@@ -4994,12 +5108,9 @@ BLOCK_SC3D_CASES = ("k2_periodic", "k2_walls_force", "k3", "k1_walls_force")
 def block_sc3d_case(name, device, shape=(48, 40, 32), dtype=torch.float64):
     """A BLOCK_SC3D_CASES model and its start (``sc3d_case``; the K = 1 case
     from a perturbed equilibrium)."""
-    from openlbmpm_torch.models.flow3d import ShanChenMCMP3D, ShanChenParams3D
     if name != "k1_walls_force":
         return sc3d_case(name, device, shape, dtype)
-    m = ShanChenMCMP3D(_walls_y(shape, obstacle=True), ShanChenParams3D(
-        g_matrix=((0.0,),), g_solid=(-0.2,), tau=(0.9,),
-        body_force=(1e-5, 0.0, -2e-5)), dtype=dtype, device=device)
+    m, _ = sc3d_case("k1_obstacle", device, shape, dtype)
     return m, flow_start(m, seed=9, k=1)
 
 
@@ -6925,8 +7036,9 @@ def _host_seconds(step, state, n, device):
 # kernel-name pieces of phase 69's device breakdown, in order: a kernel
 # counts under the first piece its name holds ("other" for the rest: the
 # exchange's copies)
-K12_KERNEL_GROUPS = ("collide_stream", "march", "rho_kernel", "rt3_",
-                     "local_bc", "tracer_", "fields_kernel")
+K12_KERNEL_GROUPS = ("collide_stream", "sc_push", "march", "rt3_",
+                     "local_bc", "tracer_collide", "tracer_stream",
+                     "fields_kernel")
 
 
 def device_breakdown(step, x, steps, groups=K12_KERNEL_GROUPS):
@@ -7025,6 +7137,9 @@ def phase_sharded3d_full(device, time_calls=20):
             r["device_us"] = device_breakdown(step, state, 4)
             r["device_us_single"] = device_breakdown(
                 lambda x: kern(x, m, t), x0, 4)
+            check(not {"tracer_collide", "tracer_stream"} & (
+                set(r["device_us"]) | set(r["device_us_single"])),
+                f"{tag}: a tracer pass in the trace")
         cells = math.prod(step.shape)
         r["cells"] = cells
         r["bound_ms"] = k12_bytes(step, K12_STATE_BYTES_3D[key]) / \
@@ -7896,6 +8011,7 @@ def main() -> int:
             launches, err, k9t["sec"][key], k9t["sec"][f"plain_{key}"],
             TRANSPORT3D_BYTES[key], TRANSPORT3D_FLOPS, 128 ** 3,
             max_abs_err_f64=f64_t, mlups=k9t["mlups"][key],
+            launches_a_step=sum(k9t["launches"][key].values()),
             ms_256=r28[256]["sec"][key] * 1e3,
             mlups_256=r28[256]["mlups"][key],
             bound_ms_256=TRANSPORT3D_BYTES[key] * 256 ** 3 /
@@ -7921,7 +8037,9 @@ def main() -> int:
             ("single3d_step", "K11", "openlbmpm_tpu/pallas/single3d.py:47",
              r34, r38["basic3d"]["launches"], max(r33.values())),
             ("sc3d_step", "K10", "openlbmpm_tpu/pallas/sc3d.py:79", r37,
-             r38["sc3d"]["launches"], max(max(r36.values()), r37["f64"]))):
+             r38["sc3d"]["launches"], max(max(
+                 v for k, v in r36.items() if not k.endswith(" f32")),
+                 r37["f64"]))):
         for st, launches in (("f32", launches_f32),
                              ("bf16", r38[f"{tag}_bf16"]["launches"])):
             r, r256 = r39[(tag, 128)], r39[(tag, 256)]
@@ -7935,7 +8053,8 @@ def main() -> int:
                 mlups=r["mlups"][st], ms_256=r256["sec"][st] * 1e3,
                 mlups_256=r256["mlups"][st],
                 bound_ms_256=FLOW3D_BYTES[tag][st] * 256 ** 3 /
-                HBM_BYTES_PER_S * 1e3))
+                HBM_BYTES_PER_S * 1e3,
+                launches_a_step=sum(r["launches"][st].values())))
     f64_k4 = {lay: max(v for (_, ly), v in r40.items() if ly == lay)
               for lay in ("compressed", "split")}
     for entry, label, key, launches, f64, extra in (

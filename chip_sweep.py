@@ -2,7 +2,7 @@
 """Sweep the z-march's knobs (K10-T and K9-T, ``csrc/march3d.cuh``) on a
 card and cost its stages; sweep K9's tiles; sweep the 2-D row-march.
 
-    python3 chip_sweep.py [knobs|stages|2dT|k9|all] [TAG ...]
+    python3 chip_sweep.py [knobs|stages|2dT|k9|k10|all] [TAG ...]
 
 Run from the repository root on a machine with a CUDA card and nvcc.
 "knobs": ms a time step at 128^3 in f32 of K10-T (probe_sc3d, K = 2) and
@@ -25,7 +25,8 @@ defaults, the march with one stage kind's body skipped (bc, phi, normal,
 collide, stream, and K5c-T's tcollide and tstream: the results are wrong,
 the times say what each stage costs) beside the full march.
 "k9": K9 (``csrc/cg3d.cuh``) at 128^3 on configuration 5, ms a step of K9c
-(f32), K9h (bf16) and K9s (split f32), of its fields alone
+(f32), K9h (bf16) and K9s (split f32), of K9t on the coupled probe (f32
+and bf16 flow storage), of its fields alone
 (``launch_cg3d_fields``: bc_kernel and fields_kernel) in the three
 layouts, and ms a call of K12d (one step on a (4, 1) local mesh), over
 collide_stream's tile (32 x 8, 32 x 4), z-run (16, 32) and blocks an SM
@@ -37,8 +38,14 @@ occupancy asks for 32), with every z-run marching up ("up", "f_up",
 ("f_zrun_fz"), libraries built from copies of the sources with cg3d.cuh
 changed, their registers and spills from ptxas; and fields_kernel with
 one phase skipped (phi, extension, normal, curvature: wrong results, the
-times say what each phase costs).  TAGs after "k9" keep only those
-variants.  The modes patch copies of ``openlbmpm_torch/csrc``
+times say what each phase costs).  "k10": K10 (``csrc/flow3d.cuh``) at
+128^3 on probe_sc3d (K = 2), ms a step of the f32 push (sc_push_kernel),
+of bf16 (rho_kernel and march_kernel) and of K12e's call on a (4, 1)
+local mesh at T = 1, over the resident blocks an SM the push asks ptxas
+for, its longest z-run and a fixed z-run (K10_EDITS), and with its ring
+fill or its collision skipped (wrong results; the times say what each
+costs).  TAGs after "k9"
+or "k10" keep only those variants.  The modes patch copies of ``openlbmpm_torch/csrc``
 in a temporary directory and build their libraries there; the sources in
 the repository stay as they are.  Prints the card and one line a
 measurement.
@@ -86,11 +93,14 @@ K9_BOUNDS = ("__launch_bounds__(RING_THREADS, sizeof(C) == 4 ? 2 : 1)\n"
 # replacement) in cg3d.cuh.  "up": every z-run of both kernels marches up
 # (in place of runs that alternate up and down, so that two runs sharing a
 # boundary read its slabs at the same time); "f_up", "cs_up": those of
-# fields_kernel or of collide_stream alone; "f_zrun_fz": every z-run of
+# fields_kernel or of K9's collide_stream alone (not the coupled one); "f_zrun_fz": every z-run of
 # fields_kernel FZ slabs long (in place of the occupancy's shorter runs
 # where the grid would under-fill the card, as K12d's quarter boxes do);
 # the "skip_" tags skip one fields phase's call (the results are wrong; the
-# times say what each phase costs)
+# times say what each phase costs); "t_skip_collide", "t_skip_stream": the
+# coupled collide_stream's tracer collision or in-plane stream skipped
+# (likewise), "t_b1": the coupled collide_stream without the two-blocks
+# bound
 K9_EDITS = {
     "up": ("return (blockIdx.z & 1) == 0;", "return true;"),
     "f_up": ("  const int d = up_run() ? 1 : -1;\n"
@@ -101,13 +111,50 @@ K9_EDITS = {
               "  const int first = d > 0 ? z0 : z1 - 1;",
               "  const int d = 1;\n"
               "  const int first = d > 0 ? z0 : z1 - 1;"),
-    "f_zrun_fz": ("  long long zrun = (nz + runs - 1) / runs;",
-                  "  long long zrun = FZ;"),
+    "f_zrun_fz": ("  const int zrun = z_run(capacity, tiles, nz, FT::Z);",
+                  "  const int zrun = FZ;"),
     "skip_phase": ("    if (j <= z1 - z0 + 5) phase(h);\n", ""),
     "skip_extend": ("extend(e);", "(void)0;"),
     "skip_normal": ("normal(m, ns);", "(void)0;"),
     "skip_curvature": ("curvature(k);", "(void)0;"),
+    "t_skip_collide": ("  auto tracer_collide = [&](int z, bool has_prev) {\n"
+                       "    if (tid >= HX * HY) return;",
+                       "  auto tracer_collide = [&](int z, bool has_prev) {\n"
+                       "    if (tid >= HX * HY || P.nx > 0) return;"),
+    "t_skip_stream": ("  auto tracer_stream = [&](int z) {\n    if (!inside) return;",
+                      "  auto tracer_stream = [&](int z) {\n"
+                      "    if (!inside || P.nx > 0) return;"),
+    "t_b1": ("__launch_bounds__(RING_THREADS, sizeof(C) == 4 ? 2 : 1)\n"
+             "collide_stream_tracer_kernel(",
+             "__launch_bounds__(RING_THREADS)\ncollide_stream_tracer_kernel("),
 }
+# K10's variants: tag -> (text, replacement) in flow3d.cuh.  "p_b2" ...:
+# the push kernel asks ptxas for 2, 3 or 4 resident blocks an SM; "p_z32":
+# its z-runs up to 32 slabs; "p_zfixed": every z-run PUSH_ZMAX slabs long,
+# not occupancy.cuh's (which shortens only K12e's boxes at 128^3);
+# "p_fill1": the ring fill takes one fluid's loads at a time; the "skip"
+# tags skip the ring fill's loads or the collision (wrong results, the
+# times say what each costs)
+PUSH_BOUNDS = "__launch_bounds__(PUSH_THREADS)\nsc_push_kernel("
+K10_EDITS = {
+    "p_b2": (PUSH_BOUNDS, PUSH_BOUNDS.replace("THREADS)", "THREADS, 2)")),
+    "p_b3": (PUSH_BOUNDS, PUSH_BOUNDS.replace("THREADS)", "THREADS, 3)")),
+    "p_b4": (PUSH_BOUNDS, PUSH_BOUNDS.replace("THREADS)", "THREADS, 4)")),
+    "p_z32": ("constexpr int PUSH_ZMAX = 16;", "constexpr int PUSH_ZMAX = 32;"),
+    "p_zfixed": ("  const int zrun = z_run(capacity, tiles, nz, PUSH_ZMAX);",
+                 "  const int zrun = PUSH_ZMAX;"),
+    "p_fill1": ("#pragma unroll\n    for (int k = 0; k < K; ++k) {\n      C F[Q];\n"
+                "      if (fluid) load_fluid<S>(f, n, k, idx, F);\n      const C rho",
+                "#pragma unroll 1\n    for (int k = 0; k < K; ++k) {\n      C F[Q];\n"
+                "      if (fluid) load_fluid<S>(f, n, k, idx, F);\n      const C rho"),
+    "p_skip_fill": ("      if (fluid) load_fluid<S>(f, n, k, idx, F);\n"
+                    "      const C rho = fluid ? sumq(F) : C(0);",
+                    "      for (int i = 0; i < Q; ++i) F[i] = C(fluid) / C(19);\n"
+                    "      const C rho = fluid ? sumq(F) : C(0);"),
+    "p_skip_push": ("    if (inside) push(z, up);",
+                    "    if (inside && P.nx < 0) push(z, up);"),
+}
+LIBS_K10 = ("flow3d_f32", "flow3d_bf16", "flow3d_local_f32")
 # the executor's call of a family's body for one cell of one stage
 BODY_CALL = "        body(c);\n"
 
@@ -247,6 +294,10 @@ def sweep_k9(cs, build, k9, dev, emit, tags=()) -> None:
     k12 = k9.build_cg3d_sharded_step(
         m.geo, m.p, make_mesh(shape=(4, 1), kind="local", device=dev),
         torch.float32, bc_config=m.bcs)
+    mt = cs.probe3d_model(dev)
+    mth = cs.probe3d_model(dev, storage="bf16")
+    xt = mt.pack(cs.probe3d_start(mt))
+    xth = mth.pack(cs.probe3d_start(mt))
     cases = (
         ("K9c f32", lambda x: k9.cg3d_step_compressed(x, m), s),
         ("K9h", lambda x: k9.cg3d_step_compressed(x, mh), h),
@@ -257,7 +308,9 @@ def sweep_k9(cs, build, k9, dev, emit, tags=()) -> None:
             x, mh.kernel_params, mh.geo_planes), x)[1], h),
         ("fields split f32", lambda x: (k9.launch_cg3d_fields(
             x, m.kernel_params, m.geo_planes), x)[1], st),
-        ("K12d (4, 1)", k12, k12.shard(s)))
+        ("K12d (4, 1)", k12, k12.shard(s)),
+        ("K9t f32", lambda x: k9.coupled3d_step_compressed(*x, mt), xt),
+        ("K9t bf16", lambda x: k9.coupled3d_step_compressed(*x, mth), xth))
     with tempfile.TemporaryDirectory() as tmp:
         keep = lambda tag: not tags or tag in tags or tag == "base"
         jobs = {tag: (_k9_source(Path(tmp, tag), knobs), [])
@@ -274,6 +327,53 @@ def sweep_k9(cs, build, k9, dev, emit, tags=()) -> None:
                 emit(kernel=label, variant=tag, ms_a_step=cs._time_steps(
                     fn, x, 30, dev) * 1e3)
     k9._fn_cache.clear()
+
+
+def _use_k10(kf, build, lib: str, so) -> None:
+    """Point K10's wrappers (K12e's for flow3d_local_f32) for `lib` at the
+    library `so`."""
+    local = lib.startswith("flow3d_local")
+    (kf._local_cache if local else kf._fn_cache).pop(lib, None)
+    load = build.load_library
+    build.load_library = lambda name: so if name == lib else load(name)
+    try:
+        (kf._local_fns if local else kf._kernel_fn)(lib)
+    finally:
+        build.load_library = load
+
+
+def sweep_k10(cs, build, kf, dev, emit, tags=()) -> None:
+    """The "k10" mode: K10's f32 push, its bf16 step and K12e's call at
+    128^3 over K10_EDITS (only `tags` and "base" where `tags` are given)."""
+    import torch
+    from openlbmpm_torch.parallel import make_mesh
+    m = cs.probe_sc3d_model(dev)
+    mh = cs.probe_sc3d_model(dev, storage="bf16")
+    f = cs.probe_sc3d_start(m)
+    k12 = kf.build_sc3d_sharded_step(
+        m.geo, m.p, make_mesh(shape=(4, 1), kind="local", device=dev),
+        torch.float32, steps_per_call=1)
+    cases = (("K10 f32", lambda x: kf.sc3d_step(x, m), f),
+             ("K10 bf16", lambda x: kf.sc3d_step(x, mh),
+              mh.pack_state_bf16(f)),
+             ("K12e (4, 1) T=1", k12, k12.shard(f)))
+    with tempfile.TemporaryDirectory() as tmp:
+        keep = lambda tag: not tags or tag in tags
+        jobs = {"base": (_patched(build.SRC_DIR, Path(tmp, "base"), {}), [])}
+        jobs |= {tag: (_patched(build.SRC_DIR, Path(tmp, tag),
+                                {"flow3d.cuh": edit}), [])
+                 for tag, edit in K10_EDITS.items() if keep(tag)}
+        libs = _variants(build, Path(tmp, "lib"), jobs, LIBS_K10)
+        for (lib, tag), (_, report) in sorted(libs.items()):
+            emit(library=lib, variant=tag, **report)
+        for tag in jobs:
+            for lib in LIBS_K10:
+                _use_k10(kf, build, lib, libs[(lib, tag)][0])
+            for label, fn, x in cases:
+                emit(kernel=label, variant=tag, ms_a_step=cs._time_steps(
+                    fn, x, 30, dev) * 1e3)
+    kf._fn_cache.clear()
+    kf._local_cache.clear()
 
 
 def sweep_2d(cs, build, M, kf, k9, dev, emit, zs=(16, 32, 64, 96, 128),
@@ -365,11 +465,13 @@ def main(argv=None) -> int:
     def emit(**kw):
         print(json.dumps(kw), flush=True)
 
-    if what in ("2dT", "k9"):
+    if what in ("2dT", "k9", "k10"):
         if what == "2dT":
             sweep_2d(cs, build, M, kf, k9, dev, emit)
-        else:
+        elif what == "k9":
             sweep_k9(cs, build, k9, dev, emit, tuple(args[1:]))
+        else:
+            sweep_k10(cs, build, kf, dev, emit, tuple(args[1:]))
         print(json.dumps({"done": True,
                           "seconds": time.perf_counter() - t0}))
         return 0

@@ -72,38 +72,42 @@
 //
 // The coupled step (K9t: transport=, state_mode="compressed", T=1, the
 // TPU step at pallas/cg3d.py:1324-1355) adds D3Q7 tracers g (NT, 7, nz,
-// ny, nx), f64 in the f64 library and f32 otherwise (never bf16), and two
-// launches between fields and collide_stream, so up to five a step:
-//   t1. tracer_collide3d  one thread per cell: the cell as load_cell sees
-//      it (after the boundary slabs, which the TPU step applies as its jnp
-//      prologue), u = (m + F/2)/rho from the same device function the
-//      flow's collision calls (cell_velocity, so both see one u; F from g
-//      and kappa of fields_kernel), and per tracer the SRT J-scheme
-//      collision on that u -> g_post; a flag byte of every cell: fluid, and
-//      rho_r < criteria (the epilogue's domain, taken from the post-prologue
-//      rho_r).
-//   t2. tracer_stream3d   pull streaming from g_post with half-way
-//      bounce-back, periodic in x, y and z, times the fluid mask, then the
-//      hard interface bounce-back as reads of g_post: slot i at x takes
-//      the streamed opp(i) of x - e_i where x is in the domain and x - e_i
-//      is not, and 0 where x is out and x - e_i in.  The TPU epilogue's
-//      six-axis loop reads g_i only outside the domain and writes only
-//      inside it (slot opp(i)) or zeroes outside it (slot i), so no axis
-//      reads what another wrote and the gather gives its result.  Per
-//      direction it reads the neighbour's flags and both g_post candidates
-//      at once, then selects.
-// collide_stream then runs as in K9c/K9h on the unchanged state.
+// ny, nx), f64 in the f64 library and f32 otherwise (never bf16), to
+// collide_stream (collide_stream_tracer_kernel, coupled_stream_body: the
+// flow's march as collide_stream_body's, kept as a body of its own so that
+// K9's instances compile as they did), so it is the same launches as K9: bc (with an inlet or outlet),
+// fields, collide_stream.  compute_slab takes each ring cell as load_cell
+// sees it (after the boundary slabs, which the TPU step applies as its jnp
+// prologue): beside the flow's collision, the flag bits fluid and rho_r <
+// criteria (the epilogue's domain, from the post-slab rho_r; a solid cell
+// reads its rho_r alone) and the velocity the flow collides with
+// (cell_velocity on the same values: one u for both).  In the next interval,
+// beside the flow's pull (the lighter half), tracer_collide applies each
+// tracer's SRT J-scheme collision on that u; its four in-plane values (+-x,
+// +-y) go to a one-slab ring per tracer, which the tile's threads stream
+// in the interval after (tracer_stream, beside the next collision); the
+// rest value and the two z values stay with the thread, which collides
+// the same (x, y) column slab after slab: it writes the rest slot at once,
+// and once it holds slabs z - d and z, the slot -z of the lower and +z of
+// the upper.  Every slot applies the hard interface bounce-back after
+// streaming as tracer_slot does, from the flags of the cell and its upwind
+// neighbour and the two candidates.  One tracer takes an instance that
+// knows its count (NT = 1): its populations are loaded before the flow's
+// collision and held in registers, with its z values of the slab before;
+// other counts loop at run time with those z values in shared memory.  A
+// launch takes as many tracers as shared memory holds (16 in float, 2 in
+// double), a further launch each further group.  Shared
+// memory: the flow's 94.9 KB (float) and 8.2 KB a tracer, so two blocks an
+// SM up to two tracers.  One more barrier a run.
 //
 // The local form (K12d, cg3d_local.cuh) runs the same kernels on one shard's
 // padded buffer, each over a box of slabs and rows: BOX = true and a Box3
 // argument (the single-device instances take BOX = false and ignore it),
 // and for collide_stream a kernel of its own, collide_stream_box_kernel,
-// around the one body.
-// K9t's least bytes add the tracer in and out and the mask: with one f32
-// tracer 2 x 28 B a cell.  t1 moves about 140 B a cell (the state 80, g
-// and kappa 16, g 28, g_post 28, the flags), t2 about 60 (g_post 28, g'
-// 28, the flags).  Fusing the tracer into collide_stream's ring is later
-// speed work.
+// around the same body (collide_stream_tracer_kernel's BOX instances with
+// tracers).  K9t's least bytes add the tracer in and out: with one f32
+// tracer 2 x 28 B a cell; the fused form reads g once for each ring cell
+// (1.33x, mostly from L2) and writes g' once.
 //
 // What bounds it: the least work is HBM bytes, the state in and out plus
 // the 4 geometry planes: 176 B a cell (f32), 100 B (bf16), 320 B (split
@@ -123,6 +127,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+
+#include "occupancy.cuh"
 
 struct Cg3dParams {      // mirrored by kernels/cg3d.py::Cg3dParams
   int nz, ny, nx;
@@ -884,6 +890,88 @@ __device__ __forceinline__ void collide_cell(const State<S>& st, const C* __rest
   collide_core(c, cell_phase(c), g, fld[3 * n + k], P, post, frac, A, B, Cz);
 }
 
+// rho_r of the cell (z, y, x) as load_cell sees it (after the boundary
+// slabs), compressed layout: decode's rho_r alone.
+template <typename S, typename C = typename Traits<S>::C>
+__device__ __forceinline__ C cell_rr(const State<S>& st, const Cg3dParams& P, int z, int y,
+                                     int x) {
+  const size_t nxy = (size_t)P.ny * P.nx;
+  const size_t k2 = (size_t)y * P.nx + x;
+  const int slot = st.bc ? bc_slot(P, z) : -1;
+  const S* p = slot >= 0 ? st.bc : st.s;
+  const size_t stride = slot >= 0 ? 5 * nxy : (size_t)P.nz * nxy;
+  const size_t k = (slot >= 0 ? (size_t)slot : (size_t)z) * nxy + k2;
+  if constexpr (Traits<S>::kShifted)
+    return to_c(p[Q * stride + k]) + to_c(p[(Q + 1) * stride + k]);
+  else
+    return to_c(p[Q * stride + k]);
+}
+
+// D3Q7 (lattice.py): 0 rest, then +x, -x, +y, -y, +z, -z, so direction
+// i > 0 lies on axis (i - 1) / 2, positive for odd i, and opp() above gives
+// its opposite.  Per-tracer table row (compute type): tau, then J_0..J_6
+// (kernels/cg3d.py::tracer3d_table).
+constexpr int Q7 = 7;
+constexpr int kTracerRow = 1 + Q7;
+__device__ __forceinline__ int e7(int i, int axis) {
+  return (i > 0 && (i - 1) / 2 == axis) ? ((i & 1) ? 1 : -1) : 0;
+}
+
+// Flag bits of a ring cell in the coupled step.
+constexpr unsigned char kInDomain = 1;   // rho_r < criteria
+constexpr unsigned char kFluid = 2;
+
+// The coupled step's tracers (K9t): g and g_out (NT, 7, nz, ny, nx) in the
+// compute type, tab the (NT, 8) table, and the z-run of the launch (the
+// kernels without tracers take an empty one and march runs of ZC).
+template <typename C> struct TracerArgs {
+  const C* g;
+  C* g_out;
+  const C* tab;
+  Tracer3dParams T;
+  int zrun;
+};
+
+// Tracer slot i of a cell x after streaming and the hard interface repair,
+// the TPU epilogue's six-axis loop as a gather: fx and fs the flag bytes of
+// x and of s = x - e_i, pulled the post-collision value of slot i at s,
+// bounced that of slot opp(i) at x.  Streaming gives pulled where s is
+// fluid, else bounced (half-way bounce-back), 0 on a solid x.  The repair
+// returns into slot i at x (in the domain, s not) the streamed opp(i) of s,
+// which pulls from x itself: bounced if x is fluid, else pulled, 0 on a
+// solid s; and drops slot i at x outside the domain where s is in it.  The
+// epilogue reads g_i only outside the domain and writes only inside it
+// (slot opp(i)) or zeroes outside it (slot i), so no axis reads what
+// another wrote; only fluid cells' post-collision values are ever taken.
+template <typename S, typename C>
+__device__ __forceinline__ C tracer_slot(int i, unsigned char fx, unsigned char fs, C pulled,
+                                         C bounced, const Tracer3dParams& T) {
+  const bool fluid = fx & kFluid, d = fx & kInDomain;
+  const bool fluid_s = fs & kFluid, ds = fs & kInDomain;
+  const bool repair = T.interface;
+  if (repair && d && !ds) return fluid_s ? (fluid ? bounced : pulled) : C(0);   // returned
+  if (repair && !d && ds) return C(0);                                           // dropped
+  return fluid ? (fluid_s ? pulled : bounced) : C(0);
+}
+
+// Shared memory of collide_stream: the three-slab ring (NSH values a
+// cell) and its flags; with tracers, from tracer_offset on, per tracer the
+// four in-plane (+-x, +-y) post-collision values of the ring tile's newest
+// slab and each ring cell's +z and -z values of the slab before it.
+template <typename S, int L>
+__host__ __device__ constexpr size_t smem_bytes() {
+  using C = typename Traits<S>::C;
+  return sizeof(C) * 3 * NSH * HY * HX + 3 * HY * HX;
+}
+template <typename S>
+__host__ __device__ constexpr size_t tracer_offset() {
+  return (smem_bytes<S, kCompressed>() + 15) / 16 * 16;
+}
+template <typename C>
+__host__ __device__ constexpr size_t tracer_bytes() {
+  return sizeof(C) * 6 * HY * HX;
+}
+
 // The body of collide_stream: BOX, the tiles cover the box's slabs and
 // rows (the ring reaches one cell beyond them); without, the whole domain.
 template <typename S, int L, bool BOX, typename C>
@@ -994,6 +1082,263 @@ __device__ __forceinline__ void collide_stream_body(State<S> st, const C* __rest
   }
 }
 
+// The body of the coupled collide_stream (K9t, compressed layout): the
+// flow as collide_stream_body (kept apart, so that K9's instances compile
+// as they did), and the D3Q7 tracers of tr collide and stream in the same
+// march, see the note at the top; NT > 0 of them known when compiled
+// (their populations loaded before the flow's collision of the slab and
+// held in registers, with their z values of the slab before), or any
+// number (NT = 0: tr.T.nt, read where used).
+template <typename S, bool BOX, typename C, int NT>
+__device__ __forceinline__ void coupled_stream_body(State<S> st, const C* __restrict__ geo,
+                                                    const C* __restrict__ fld,
+                                                    S* __restrict__ out, Cg3dParams P, Box3 box,
+                                                    TracerArgs<C> tr) {
+  constexpr int L = kCompressed;
+  // three slabs of the ring tile: [slot][value][HY][HX], then fluid flags
+  extern __shared__ __align__(16) unsigned char smem[];
+  C* sh = reinterpret_cast<C*>(smem);
+  unsigned char* shfl = smem + sizeof(C) * 3 * NSH * HY * HX;
+  const int nx = P.nx, ny = P.ny, nz = P.nz;
+  const size_t nxy = (size_t)ny * nx;
+  const size_t n = (size_t)nz * nxy;
+  const int x0 = blockIdx.x * TX, y0 = (BOX ? box.y0 : 0) + blockIdx.y * TY;
+  const int zc = tr.zrun;
+  const int z0 = (BOX ? box.z0 : 0) + blockIdx.z * zc;
+  const int z1 = min(z0 + zc, BOX ? box.z1 : nz);
+  // one thread per ring-tile cell: lx = tid % HX, ly = tid / HX
+  const int tid = threadIdx.x;
+  const int lx = tid % HX, ly = tid / HX;
+  auto val = [&](int slot, int v, int ly, int lx) -> C& {
+    return sh[((slot * NSH + v) * HY + ly) * HX + lx];
+  };
+  auto flag = [&](int slot, int ly, int lx) -> unsigned char& {
+    return shfl[(slot * HY + ly) * HX + lx];
+  };
+  // what compute_slab keeps of the ring cell it collided last for
+  // tracer_collide: its index, fluid flag, velocity and flag bits (fluid,
+  // in the domain); NT > 0: its tracers' populations, and their +z and -z
+  // post-collision values of the slab before
+  bool t_fluid = false;
+  C t_u[3];
+  unsigned char t_flags = 0;
+  size_t t_kc = 0;
+  constexpr int NR = NT > 0 ? NT : 1;
+  C t_g[NR][Q7], t_prev[NR][2];
+  // the cell's index, and (NT > 0) its tracers' loads issued before the
+  // flow's collision
+  auto tracer_load = [&](int cz, int cy, int cx, bool fluid) {
+    t_kc = (size_t)cz * nxy + (size_t)cy * nx + cx;
+    if constexpr (NT > 0) {
+      if (fluid) {
+#pragma unroll
+        for (int t = 0; t < NT; ++t)
+#pragma unroll
+          for (int i = 0; i < Q7; ++i) t_g[t][i] = tr.g[(size_t)(t * Q7 + i) * n + t_kc];
+      }
+    }
+  };
+  // collide_cell, keeping the cell's rho_r and the velocity its
+  // collision formed (cell_velocity on the same values)
+  auto collide_tracer_cell = [&](int cz, int cy, int cx, C post[Q], C& frac, C& A, C& B,
+                                 C& Cz, C& rr) {
+    const size_t k = t_kc;
+    Cell<C, L> c;
+    load_cell<S, L>(st, geo, P, cz, cy, cx, c);
+    const C g[3] = {fld[k], fld[n + k], fld[2 * n + k]};
+    collide_core(c, cell_phase(c), g, fld[3 * n + k], P, post, frac, A, B, Cz);
+    C f[Q], rb, F[3];
+    totals(c, f, rr, rb);
+    cell_velocity(f, rr + rb, g, fld[3 * n + k], P, F, t_u);
+  };
+  // collide slab z of the ring tile into slot
+  auto compute_slab = [&](int z, int slot) {
+    const int cz = wrap(z, nz);
+    if (tid < HX * HY) {
+      const int cx = wrap_any(x0 - 1 + lx, nx), cy = wrap_any(y0 - 1 + ly, ny);
+      const bool fluid = geo[(size_t)cz * nxy + (size_t)cy * nx + cx] > C(0.5);
+      tracer_load(cz, cy, cx, fluid);
+      C post[Q], frac = C(0), A = C(0), B = C(0), Cz = C(0);
+      C rr = C(0);
+      if (fluid) {
+        collide_tracer_cell(cz, cy, cx, post, frac, A, B, Cz, rr);
+      } else {
+#pragma unroll
+        for (int i = 0; i < Q; ++i) post[i] = C(0);
+      }
+#pragma unroll
+      for (int i = 0; i < Q; ++i) val(slot, i, ly, lx) = post[i];
+      val(slot, Q, ly, lx) = frac;
+      val(slot, Q + 1, ly, lx) = A;
+      val(slot, Q + 2, ly, lx) = B;
+      val(slot, Q + 3, ly, lx) = Cz;
+      if (!fluid) rr = cell_rr<S>(st, P, cz, cy, cx);
+      t_fluid = fluid;
+      t_flags = (fluid ? kFluid : 0) | (rr < C(tr.T.criteria) ? kInDomain : 0);
+      flag(slot, ly, lx) = t_flags;
+    }
+  };
+
+  // the tile's own cells stream: ring coordinates 1..TX, 1..TY
+  const int x = x0 + lx - 1, y = y0 + ly - 1;
+  const bool inside =
+      lx >= 1 && lx <= TX && ly >= 1 && ly <= TY && x < nx && y < (BOX ? box.y1 : ny);
+  // the ring slot of slab z; the run marches up or down as fields_kernel's
+  auto slot_of = [&](int z) { return (z - z0 + 1) % 3; };
+  const int d = up_run() ? 1 : -1;
+  // [tracer][value][HY][HX], values 0-3 slots 1-4 of the newest slab,
+  // 4 and 5 (NT = 0) slots 5 and 6 (+z, -z) of the slab before
+  C* tsh = reinterpret_cast<C*>(smem + tracer_offset<S>());
+  auto tval = [&](int t, int v, int ly, int lx) -> C& {
+    return tsh[((t * 6 + v) * HY + ly) * HX + lx];
+  };
+  auto in_run = [&](int z) { return z >= z0 && z < z1; };
+  // the tracers of the ring cell compute_slab(z) collided last: the
+  // SRT J-scheme collision g_i - (g_i - C (J_i + e_i.u/2)) / tau on its
+  // velocity, the four in-plane values to the tracer ring; the tile's
+  // cells write their rest slot at z and (has_prev: the column's slab
+  // z - d was collided before) the two z slots between slabs z - d and z,
+  // which need no other thread's values
+  auto tracer_collide = [&](int z, bool has_prev) {
+    if (tid >= HX * HY) return;
+    const int cz = wrap(z, nz);
+    // the column's slabs lo < hi: the slot -z of lo and +z of hi
+    const int lo = d > 0 ? z - 1 : z, hi = lo + 1;
+    const unsigned char fp = has_prev ? flag(slot_of(z - d), ly, lx) : 0;
+    const unsigned char flo = d > 0 ? fp : t_flags, fhi = d > 0 ? t_flags : fp;
+#pragma unroll
+    for (int t = 0; t < (NT > 0 ? NT : tr.T.nt); ++t) {
+      C gp[Q7];
+      if (t_fluid) {
+        const C* row = tr.tab + t * kTracerRow;
+        C gv[Q7];
+        C conc = C(0);
+#pragma unroll
+        for (int i = 0; i < Q7; ++i) {
+          if constexpr (NT > 0)
+            gv[i] = t_g[t][i];
+          else
+            gv[i] = tr.g[(size_t)(t * Q7 + i) * n + t_kc];
+          conc = conc + gv[i];
+        }
+        const C tau = row[0];
+#pragma unroll
+        for (int i = 0; i < Q7; ++i) {
+          const C eu = i == 0 ? C(0) : ((i & 1) ? t_u[(i - 1) / 2] : -t_u[(i - 1) / 2]);
+          const C geq = conc * (row[1 + i] + C(0.5) * eu);
+          gp[i] = gv[i] - (gv[i] - geq) / tau;
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < Q7; ++i) gp[i] = C(0);
+      }
+#pragma unroll
+      for (int i = 1; i <= 4; ++i) tval(t, i - 1, ly, lx) = gp[i];
+      if (inside) {
+        C* go = tr.g_out + (size_t)t * Q7 * n;
+        const size_t k2 = (size_t)y * nx + x;
+        if (in_run(z)) go[(size_t)cz * nxy + k2] = t_fluid ? gp[0] : C(0);
+        if (has_prev) {
+          C p5, p6;   // +z, -z of the slab before
+          if constexpr (NT > 0) {
+            p5 = t_prev[t][0];
+            p6 = t_prev[t][1];
+          } else {
+            p5 = tval(t, 4, ly, lx);
+            p6 = tval(t, 5, ly, lx);
+          }
+          const C g5lo = d > 0 ? p5 : gp[5];
+          const C g6hi = d > 0 ? gp[6] : p6;
+          if (in_run(lo))
+            go[6 * n + (size_t)wrap(lo, nz) * nxy + k2] =
+                tracer_slot<S>(6, flo, fhi, g6hi, g5lo, tr.T);
+          if (in_run(hi))
+            go[5 * n + (size_t)wrap(hi, nz) * nxy + k2] =
+                tracer_slot<S>(5, fhi, flo, g5lo, g6hi, tr.T);
+        }
+        if constexpr (NT > 0) {
+          t_prev[t][0] = gp[5];
+          t_prev[t][1] = gp[6];
+        } else {
+          tval(t, 4, ly, lx) = gp[5];
+          tval(t, 5, ly, lx) = gp[6];
+        }
+      }
+    }
+  };
+  // the tile's tracer slots 1-4 (+-x, +-y) of slab z, from the ring of
+  // the slab's in-plane values
+  auto tracer_stream = [&](int z) {
+    if (!inside) return;
+    const int s = slot_of(z);
+    const unsigned char fx = flag(s, ly, lx);
+    const size_t k = (size_t)z * nxy + (size_t)y * nx + x;
+#pragma unroll
+    for (int t = 0; t < (NT > 0 ? NT : tr.T.nt); ++t) {
+      C* go = tr.g_out + (size_t)t * Q7 * n;
+#pragma unroll
+      for (int i = 1; i <= 4; ++i) {
+        const int sx = lx - e7(i, 0), sy = ly - e7(i, 1);
+        go[i * n + k] = tracer_slot<S>(i, fx, flag(s, sy, sx), tval(t, i - 1, sy, sx),
+                                       tval(t, opp(i) - 1, ly, lx), tr.T);
+      }
+    }
+  };
+
+  // the tracers of a slab collide in the interval after the flow's
+  // collision of the slab (beside the flow's pull, the lighter half), and
+  // stream in-plane in the next (beside the flow's collision)
+  const int first = d > 0 ? z0 : z1 - 1;
+  compute_slab(first - d, slot_of(first - d));
+  tracer_collide(first - d, false);
+  compute_slab(first, slot_of(first));
+  tracer_collide(first, true);
+  __syncthreads();
+  for (int j = 0; j < z1 - z0; ++j) {
+    const int z = first + d * j;
+    compute_slab(z + d, slot_of(z + d));
+    tracer_stream(z);
+    __syncthreads();
+    tracer_collide(z + d, true);
+    const int cur = slot_of(z);
+    if (inside) {
+      const size_t k = (size_t)z * nxy + (size_t)y * nx + x;
+      // o: the streamed total PDF; red: its red part, frac * post_j +
+      // w_j e_j . (A, B, C) at the source cell (the blue part is o - red)
+      C o[Q], red[Q];
+      C rr_new = C(0);
+      if ((flag(cur, ly, lx) & kFluid) != 0) {
+#pragma unroll
+        for (int i = 0; i < Q; ++i) {
+          // pull from the upwind cell x - e_i, or bounce back from a solid one
+          int slot = (cur - ez(i) + 3) % 3, sx = lx - ex(i), sy = ly - ey(i), j = i;
+          if (!(flag(slot, sy, sx) & kFluid)) {
+            slot = cur;
+            sx = lx;
+            sy = ly;
+            j = opp(i);
+          }
+          o[i] = val(slot, j, sy, sx);
+          const C seg = C(wq(j)) * (C(ex(j)) * val(slot, Q + 1, sy, sx) +
+                                    C(ey(j)) * val(slot, Q + 2, sy, sx) +
+                                    C(ez(j)) * val(slot, Q + 3, sy, sx));
+          red[i] = val(slot, Q, sy, sx) * o[i] + seg;
+          rr_new = rr_new + red[i];
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < Q; ++i) o[i] = red[i] = C(0);
+      }
+      Cell<C, kCompressed> c;
+#pragma unroll
+      for (int i = 0; i < Q; ++i) c.f[i] = o[i];
+      c.rr = rr_new;
+      encode<S, kCompressed>(out, n, k, geo[k] > C(0.5) ? C(1) : C(0), c);
+    }
+    __syncthreads();
+  }
+}
+
 // Two blocks an SM in float arithmetic, as the box kernel below: 80
 // registers for the compressed instances (as without the bound), and the
 // split ones 7.5% faster than at 118 (an H100, PERF.md).
@@ -1015,121 +1360,19 @@ collide_stream_box_kernel(State<S> st, const C* __restrict__ geo, const C* __res
   collide_stream_body<S, L, true, C>(st, geo, fld, out, out2, P, B);
 }
 
-// D3Q7 (lattice.py): 0 rest, then +x, -x, +y, -y, +z, -z, so direction
-// i > 0 lies on axis (i - 1) / 2, positive for odd i, and opp() above gives
-// its opposite.  Per-tracer table row (compute type): tau, then J_0..J_6
-// (kernels/cg3d.py::tracer3d_table).
-constexpr int Q7 = 7;
-constexpr int kTracerRow = 1 + Q7;
-__device__ __forceinline__ int e7(int i, int axis) {
-  return (i > 0 && (i - 1) / 2 == axis) ? ((i & 1) ? 1 : -1) : 0;
-}
-
-// Flag bits a cell, written by t1 and read by t2.
-constexpr unsigned char kInDomain = 1;   // rho_r < criteria
-constexpr unsigned char kFluid = 2;
-
-// t1: per tracer, the SRT J-scheme collision g_i - (g_i - C (J_i + e_i.u/2))
-// / tau on the flow's post-slab u of each fluid cell -> g_post; the flags
-// of every cell.
-template <typename S, bool BOX = false, typename C = typename Traits<S>::C>
-__global__ void tracer_collide3d_kernel(State<S> st, const C* __restrict__ geo,
-                                        const C* __restrict__ fld, const C* __restrict__ g,
-                                        const C* __restrict__ tab, C* __restrict__ gp,
-                                        unsigned char* __restrict__ flags, Cg3dParams P,
-                                        Tracer3dParams T, Box3 B) {
-  const size_t nxy = (size_t)P.ny * P.nx;
-  const size_t n = (size_t)P.nz * nxy;
-  size_t k;
-  if (!cell_index<BOX>(P, B, k)) return;
-  const int z = (int)(k / nxy);
-  const int y = (int)((k % nxy) / P.nx), x = (int)(k % P.nx);
-  Cell<C, kCompressed> c;
-  load_cell<S, kCompressed>(st, geo, P, z, y, x, c);
-  C f[Q], rr, rb;
-  totals(c, f, rr, rb);
-  const bool fluid = geo[k] > C(0.5);
-  flags[k] = (rr < C(T.criteria) ? kInDomain : 0) | (fluid ? kFluid : 0);
-  // a solid cell's g_post is never selected: streaming bounces back on it
-  if (!fluid) return;
-  const C gr[3] = {fld[k], fld[n + k], fld[2 * n + k]};
-  C F[3], u[3];
-  cell_velocity(f, rr + rb, gr, fld[3 * n + k], P, F, u);
-  for (int t = 0; t < T.nt; ++t) {
-    const C* row = tab + t * kTracerRow;
-    const size_t base = (size_t)t * Q7 * n + k;
-    C gv[Q7];
-    C conc = C(0);
-#pragma unroll
-    for (int i = 0; i < Q7; ++i) {
-      gv[i] = g[base + i * n];
-      conc = conc + gv[i];
-    }
-    const C tau = row[0];
-#pragma unroll
-    for (int i = 0; i < Q7; ++i) {
-      const C eu = i == 0 ? C(0) : ((i & 1) ? u[(i - 1) / 2] : -u[(i - 1) / 2]);
-      const C geq = conc * (row[1 + i] + C(0.5) * eu);
-      gp[base + i * n] = gv[i] - (gv[i] - geq) / tau;
-    }
-  }
-}
-
-// t2: streaming, then the hard interface bounce-back (periodic in z, as the
-// reference's shifts are, inlet and outlet or not), as reads of g_post.
-// Slot i at x after streaming is g_post_i(s), s = x - e_i, if s is fluid,
-// else g_post_opp(i)(x) (bounce-back), times fl(x).  The value the repair
-// returns into slot i at x is the streamed opp(i) at s, which pulls from
-// x itself: g_post_opp(i)(x) if x is fluid, else g_post_i(s), times fl(s).
-// So both candidates and the flags of x and s decide every case; all are
-// read before any is used.
-template <typename S, bool BOX = false, typename C = typename Traits<S>::C>
-__global__ void tracer_stream3d_kernel(const C* __restrict__ gp,
-                                       const unsigned char* __restrict__ flags,
-                                       C* __restrict__ out, Cg3dParams P, Tracer3dParams T,
-                                       Box3 B) {
-  const size_t nxy = (size_t)P.ny * P.nx;
-  const size_t n = (size_t)P.nz * nxy;
-  size_t k;
-  if (!cell_index<BOX>(P, B, k)) return;
-  const int z = (int)(k / nxy);
-  const int y = (int)((k % nxy) / P.nx), x = (int)(k % P.nx);
-  const unsigned char fx = flags[k];
-  const bool fluid = fx & kFluid, d = fx & kInDomain;
-  for (int t = 0; t < T.nt; ++t) {
-    const size_t base = (size_t)t * Q7 * n;
-    out[base + k] = fluid ? gp[base + k] : C(0);
-#pragma unroll
-    for (int i = 1; i < Q7; ++i) {
-      const size_t ks = (size_t)wrap(z - e7(i, 2), P.nz) * nxy +
-                        (size_t)wrap(y - e7(i, 1), P.ny) * P.nx + wrap(x - e7(i, 0), P.nx);
-      const unsigned char fs = flags[ks];
-      const C pulled = gp[base + i * n + ks];
-      const C bounced = gp[base + opp(i) * n + k];
-      const bool fluid_s = fs & kFluid, ds = fs & kInDomain;
-      const bool repair = T.interface;
-      C v;
-      if (repair && d && !ds)
-        v = fluid_s ? (fluid ? bounced : pulled) : C(0);   // returned
-      else if (repair && !d && ds)
-        v = C(0);                                           // dropped
-      else
-        v = fluid ? (fluid_s ? pulled : bounced) : C(0);
-      out[base + i * n + k] = v;
-    }
-  }
+// The coupled step's collide_stream (K9t, compressed): over the domain, or
+// (BOX) the box B of the local form; NT tracers (0: tr.T.nt).
+template <typename S, bool BOX, int NT, typename C = typename Traits<S>::C>
+__global__ void __launch_bounds__(RING_THREADS, sizeof(C) == 4 ? 2 : 1)
+collide_stream_tracer_kernel(State<S> st, const C* __restrict__ geo, const C* __restrict__ fld,
+                             S* __restrict__ out, Cg3dParams P, Box3 B, TracerArgs<C> tr) {
+  coupled_stream_body<S, BOX, C, NT>(st, geo, fld, out, P, B, tr);
 }
 
 // Launches of bc_kernel, fields_kernel and collide_stream (either form) by
 // this library since it was loaded, one where each launch is made;
 // cg3d_kernel_launches reads them.
 long long g_launches[3];
-
-template <typename S, int L>
-constexpr size_t smem_bytes() {
-  using C = typename Traits<S>::C;
-  return sizeof(C) * 3 * NSH * HY * HX + 3 * HY * HX;
-}
 
 template <typename C, int L>
 constexpr size_t fields_smem_bytes() {
@@ -1138,10 +1381,10 @@ constexpr size_t fields_smem_bytes() {
 }
 
 // fields_kernel over the domain or (BOX) the box B: g and kappa into the
-// four planes fld.  The z-run is the shortest (at least 4 slabs, at most
-// FieldTile<L>::Z) whose grid the card holds at once: a quarter of 128^3
-// (K12d on a (4, 1) mesh) takes runs of 9 slabs, 1.4x faster than runs of
-// 32 that leave three quarters of the card idle (PERF.md).
+// four planes fld.  The z-run is occupancy.cuh's (at most FieldTile<L>::Z):
+// a quarter of 128^3 (K12d on a (4, 1) mesh) takes runs of 9 slabs, 1.4x
+// faster than runs of 32 that leave three quarters of the card idle
+// (PERF.md).
 template <typename S, int L, bool BOX = false, typename C = typename Traits<S>::C>
 int launch_fields_kernel(const State<S>& st, const C* geo, C* fld, const Cg3dParams& P,
                          cudaStream_t stream, Box3 B = Box3{}) {
@@ -1154,25 +1397,19 @@ int launch_fields_kernel(const State<S>& st, const C* geo, C* fld, const Cg3dPar
           fields_kernel<S, L, BOX>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (err != cudaSuccess) return (int)err;
     }
-    int dev = 0, sms = 0, per = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, fields_kernel<S, L, BOX>,
-                                                          FT::THREADS, smem);
-    if (err != cudaSuccess) return (int)err;
-    if (per < 1) return (int)cudaErrorInvalidConfiguration;
-    capacity = per * sms;
+    cudaError_t err;
+    capacity = card_capacity(fields_kernel<S, L, BOX>, FT::THREADS, smem, err);
+    if (capacity < 0) {
+      capacity = 0;
+      return (int)err;
+    }
   }
   const int ny = BOX ? B.y1 - B.y0 : P.ny, nz = BOX ? B.z1 - B.z0 : P.nz;
   const long long tiles = (long long)((P.nx + FX - 1) / FX) * ((ny + FT::Y - 1) / FT::Y);
-  const long long runs = capacity >= 2 * tiles ? capacity / tiles : 1;   // a tile column's
-  long long zrun = (nz + runs - 1) / runs;
-  zrun = zrun < 4 ? 4 : (zrun > FT::Z ? FT::Z : zrun);
+  const int zrun = z_run(capacity, tiles, nz, FT::Z);
   const dim3 grid((P.nx + FX - 1) / FX, (ny + FT::Y - 1) / FT::Y,
                   (unsigned)((nz + zrun - 1) / zrun));
-  fields_kernel<S, L, BOX><<<grid, FT::THREADS, smem, stream>>>(st, geo, fld, P, B, (int)zrun);
+  fields_kernel<S, L, BOX><<<grid, FT::THREADS, smem, stream>>>(st, geo, fld, P, B, zrun);
   const cudaError_t err = cudaGetLastError();
   if (err == cudaSuccess) ++g_launches[1];
   return (int)err;
@@ -1255,36 +1492,91 @@ int launch_cg3d(const void* s_in, const void* s2_in, void* s_out, void* s2_out,
   return launch_collide_stream<S, L>(st, geo, fld, s_out, s2_out, P, stream);
 }
 
-// The coupled step's launches (compressed layout): K9's fields, the two
-// tracer passes, then collide_stream.  g_in, g_post and g_out are (NT, 7,
-// nz, ny, nx) in the compute type, flags one byte a cell, tab the (NT, 8)
-// tracer table.
+// The coupled collide_stream (K9t) over the domain or (BOX) the box B:
+// g, g_out (NT, 7, ...) and tab as TracerArgs takes them.  A launch takes
+// as many tracers as the card's shared memory per block holds beside the
+// ring (16 in float arithmetic, 2 in double); above that, each further
+// group of tracers is one more launch, which writes the same flow values
+// again.  Its z-run is occupancy.cuh's (at most ZC) at the first group's
+// shared memory: a K12d shard's quarter of 128^3 takes runs of 8, which
+// fill the card that runs of 16 left half idle.
+template <typename S, bool BOX = false, typename C = typename Traits<S>::C>
+int launch_coupled_stream(const State<S>& st, const C* geo, const C* fld, void* s_out,
+                          const Cg3dParams& P, cudaStream_t stream, Box3 B, const C* g,
+                          C* g_out, const C* tab, const Tracer3dParams& T) {
+  constexpr size_t base = tracer_offset<S>(), per = tracer_bytes<C>();
+  static int limit = 0;              // shared memory bytes a block may take
+  static size_t configured[2] = {};  // the largest request set so far, by instance
+  static int capacity[2] = {};       // blocks the card holds at once, by instance,
+  static size_t counted[2] = {};     // at this shared memory
+  cudaError_t err;
+  if (limit == 0) {
+    int dev = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if ((size_t)limit < base + per) return (int)cudaErrorInvalidConfiguration;
+  const int group = (int)(((size_t)limit - base) / per);
+  // one tracer takes the instance that knows its count
+  auto kernel_of = [](int nt) {
+    return nt == 1 ? collide_stream_tracer_kernel<S, BOX, 1>
+                   : collide_stream_tracer_kernel<S, BOX, 0>;
+  };
+  auto smem_of = [&](int nt) { return base + (size_t)nt * per; };
+  auto configure = [&](int nt) {
+    const int inst = nt == 1 ? 1 : 0;
+    if (smem_of(nt) <= configured[inst]) return cudaSuccess;
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel_of(nt), cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_of(nt));
+    if (e == cudaSuccess) configured[inst] = smem_of(nt);
+    return e;
+  };
+  const int nt0 = T.nt < group ? T.nt : group, inst0 = nt0 == 1 ? 1 : 0;
+  if ((err = configure(nt0)) != cudaSuccess) return (int)err;
+  if (counted[inst0] != smem_of(nt0)) {
+    capacity[inst0] = card_capacity(kernel_of(nt0), RING_THREADS, smem_of(nt0), err);
+    if (capacity[inst0] < 0) return (int)err;
+    counted[inst0] = smem_of(nt0);
+  }
+  const int ny = BOX ? B.y1 - B.y0 : P.ny, nz = BOX ? B.z1 - B.z0 : P.nz;
+  const long long tiles = (long long)((P.nx + TX - 1) / TX) * ((ny + TY - 1) / TY);
+  const int zrun = z_run(capacity[inst0], tiles, nz, ZC);
+  const dim3 grid((P.nx + TX - 1) / TX, (ny + TY - 1) / TY, (unsigned)((nz + zrun - 1) / zrun));
+  const size_t n = (size_t)P.nz * P.ny * P.nx;
+  for (int t0 = 0; t0 == 0 || t0 < T.nt; t0 += group) {
+    Tracer3dParams Tg = T;
+    Tg.nt = T.nt - t0 < group ? T.nt - t0 : group;
+    if ((err = configure(Tg.nt)) != cudaSuccess) return (int)err;
+    const size_t off = (size_t)t0 * Q7 * n;
+    const auto kernel = kernel_of(Tg.nt);
+    kernel<<<grid, RING_THREADS, smem_of(Tg.nt), stream>>>(
+        st, geo, fld, static_cast<S*>(s_out), P, B,
+        TracerArgs<C>{g + off, g_out + off, tab + (size_t)t0 * kTracerRow, Tg, zrun});
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    ++g_launches[2];
+  }
+  return 0;
+}
+
+// The coupled step's launches (compressed layout): K9's boundary slabs and
+// fields, then the coupled collide_stream.  g_in and g_out are (NT, 7, nz,
+// ny, nx) in the compute type, tab the (NT, 8) tracer table.
 template <typename S>
 int launch_cg3d_coupled(const void* s_in, void* s_out, const void* geo_v, void* fld_v,
-                        void* bc_v, const void* g_in, void* g_post, void* g_out,
-                        void* flags_v, const void* tab_v, const Cg3dParams& P,
-                        const Tracer3dParams& T, cudaStream_t stream) {
+                        void* bc_v, const void* g_in, void* g_out, const void* tab_v,
+                        const Cg3dParams& P, const Tracer3dParams& T, cudaStream_t stream) {
   using C = typename Traits<S>::C;
   const C* geo = static_cast<const C*>(geo_v);
   C* fld = static_cast<C*>(fld_v);
-  C* gp = static_cast<C*>(g_post);
-  unsigned char* flags = static_cast<unsigned char*>(flags_v);
   State<S> st{static_cast<const S*>(s_in), nullptr, nullptr};
-  int err = launch_fields<S, kCompressed>(st, geo, fld, static_cast<S*>(bc_v), P, stream);
+  const int err = launch_fields<S, kCompressed>(st, geo, fld, static_cast<S*>(bc_v), P, stream);
   if (err) return err;
-  const size_t n = (size_t)P.nz * P.ny * P.nx;
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
-  tracer_collide3d_kernel<S><<<blocks, threads, 0, stream>>>(
-      st, geo, fld, static_cast<const C*>(g_in), static_cast<const C*>(tab_v), gp, flags, P, T,
-      Box3{});
-  err = (int)cudaGetLastError();
-  if (err) return err;
-  tracer_stream3d_kernel<S><<<blocks, threads, 0, stream>>>(gp, flags, static_cast<C*>(g_out),
-                                                            P, T, Box3{});
-  err = (int)cudaGetLastError();
-  if (err) return err;
-  return launch_collide_stream<S, kCompressed>(st, geo, fld, s_out, nullptr, P, stream);
+  return launch_coupled_stream<S>(st, geo, fld, s_out, P, stream, Box3{},
+                                  static_cast<const C*>(g_in), static_cast<C*>(g_out),
+                                  static_cast<const C*>(tab_v), T);
 }
 
 }  // namespace

@@ -28,16 +28,15 @@ extern "C" int cg3d_fields(int split, const void* s_in, const void* s2_in, const
   return launch_cg3d_fields<float, kCompressed>(s_in, s2_in, geo, fld, bc, *params, st);
 }
 
-// The coupled step (K9t), compressed state: s_in / s_out as above, g_in,
-// g_post and g_out (NT, 7, nz, ny, nx) tracer PDFs in the compute type,
-// flags one byte a cell, tab the (NT, 8) tracer table.  Returns a
-// cudaError_t code.
+// The coupled step (K9t), compressed state: s_in / s_out as above, g_in and
+// g_out (NT, 7, nz, ny, nx) tracer PDFs in the compute type, tab the
+// (NT, 8) tracer table.  Returns a cudaError_t code.
 extern "C" int cg3d_coupled_step(const void* s_in, void* s_out, const void* geo, void* fld,
-                                 void* bc, const void* g_in, void* g_post, void* g_out,
-                                 void* flags, const void* tab, const Cg3dParams* params,
-                                 const Tracer3dParams* tparams, void* stream) {
-  return launch_cg3d_coupled<float>(s_in, s_out, geo, fld, bc, g_in, g_post, g_out, flags, tab,
-                                 *params, *tparams, static_cast<cudaStream_t>(stream));
+                                 void* bc, const void* g_in, void* g_out, const void* tab,
+                                 const Cg3dParams* params, const Tracer3dParams* tparams,
+                                 void* stream) {
+  return launch_cg3d_coupled<float>(s_in, s_out, geo, fld, bc, g_in, g_out, tab, *params,
+                                  *tparams, static_cast<cudaStream_t>(stream));
 }
 
 // Launches of bc_kernel, fields_kernel and collide_stream by this library

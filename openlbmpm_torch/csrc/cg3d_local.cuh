@@ -26,11 +26,11 @@
 //           each over the cells of the buffer within its reach of the
 //           centre, in slabs and (fy > 0) rows: fields 1 (its rings read
 //           the normals at 2, the extended phi at 3 and the phi of wetting
-//           fluid cells at 4), tracer_collide3d 1, tracer_stream3d 0 and
-//           collide_stream 0 (it collides reach 1 in its ring).  Neighbours
-//           stay inside the buffer, so z and split y never wrap; only
-//           collide_stream writes the state's centre, tracer_stream3d the
-//           tracers'.
+//           fluid cells at 4) and collide_stream 0 (it collides reach 1 in
+//           its ring, the tracers with the flow in the coupled form).
+//           Neighbours stay inside the buffer, so z and split y never wrap;
+//           only collide_stream writes the centre, of the state and of the
+//           tracers.
 // The frame is the step's reach, 4 (kernels/cg3d.py::LOCAL_REACH: the
 // fields' phi ring 3 cells beyond their box of reach 1), in z and in split
 // y alike.
@@ -112,38 +112,25 @@ int launch_local_bc(void* s, const void* geo, const Cg3dParams& P, const Local3&
 }
 
 // The physics of one shard a call: fields_kernel (without the boundary
-// slabs, applied before the exchange), with tracers (g_in not null) the two
-// tracer passes, then collide_stream; each over its reach.  P holds the
+// slabs, applied before the exchange), then collide_stream, with tracers
+// (g_in not null) the coupled one; each over its reach.  P holds the
 // buffer's extents (nz, ny the padded slabs and rows).
 template <typename S>
 int launch_cg3d_local(const void* s_in, void* s_out, const void* geo_v, void* fld_v,
-                      const void* g_in, void* g_post, void* g_out, void* flags_v,
-                      const void* tab_v, const Cg3dParams& P, const Tracer3dParams& T,
-                      const Local3& G, cudaStream_t stream) {
+                      const void* g_in, void* g_out, const void* tab_v, const Cg3dParams& P,
+                      const Tracer3dParams& T, const Local3& G, cudaStream_t stream) {
   using C = typename Traits<S>::C;
   const C* geo = static_cast<const C*>(geo_v);
   C* fld = static_cast<C*>(fld_v);
   const State<S> st{static_cast<const S*>(s_in), nullptr, nullptr};
-  constexpr int threads = 256;
-  auto blocks = [&](const Box3& b) {
-    return (unsigned)(((size_t)(b.z1 - b.z0) * (b.y1 - b.y0) * P.nx + threads - 1) / threads);
-  };
-  cudaError_t err;
-  const Box3 b = reach_box(G, P, 1);
-  const int ferr = launch_fields_kernel<S, kCompressed, true>(st, geo, fld, P, stream, b);
+  const int ferr =
+      launch_fields_kernel<S, kCompressed, true>(st, geo, fld, P, stream, reach_box(G, P, 1));
   if (ferr) return ferr;
   const Box3 centre = reach_box(G, P, 0);
-  if (g_in != nullptr) {
-    C* gp = static_cast<C*>(g_post);
-    unsigned char* flags = static_cast<unsigned char*>(flags_v);
-    tracer_collide3d_kernel<S, true><<<blocks(b), threads, 0, stream>>>(
-        st, geo, fld, static_cast<const C*>(g_in), static_cast<const C*>(tab_v), gp, flags, P,
-        T, b);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    tracer_stream3d_kernel<S, true><<<blocks(centre), threads, 0, stream>>>(
-        gp, flags, static_cast<C*>(g_out), P, T, centre);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  }
+  if (g_in != nullptr)
+    return launch_coupled_stream<S, true>(st, geo, fld, s_out, P, stream, centre,
+                                          static_cast<const C*>(g_in), static_cast<C*>(g_out),
+                                          static_cast<const C*>(tab_v), T);
   return launch_collide_stream<S, kCompressed, true>(st, geo, fld, s_out, nullptr, P, stream,
                                                      centre);
 }

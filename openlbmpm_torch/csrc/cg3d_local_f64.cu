@@ -15,16 +15,14 @@ extern "C" int cg3d_local_slabs(void* s, const void* geo, const Cg3dParams* para
 // One step of the shard G: the padded compressed buffer s_in (slabs
 // applied, frame filled) into the centre of s_out; fld scratch of four
 // padded planes (g and kappa).  With tracers (g_in not null): g_in into the
-// centre of g_out, (NT, 7) padded planes each, g_post their scratch, flags
-// one byte a padded cell, tab the (NT, 8) tracer table.  Returns a
-// cudaError_t code.
+// centre of g_out, (NT, 7) padded planes each, tab the (NT, 8) tracer
+// table.  Returns a cudaError_t code.
 extern "C" int cg3d_local_step(const void* s_in, void* s_out, const void* geo, void* fld,
-                               const void* g_in, void* g_post, void* g_out, void* flags,
-                               const void* tab, const Cg3dParams* params,
-                               const Tracer3dParams* tparams, const Local3* grid,
-                               void* stream) {
-  return launch_cg3d_local<double>(s_in, s_out, geo, fld, g_in, g_post, g_out, flags, tab,
-                                 *params, *tparams, *grid, static_cast<cudaStream_t>(stream));
+                               const void* g_in, void* g_out, const void* tab,
+                               const Cg3dParams* params, const Tracer3dParams* tparams,
+                               const Local3* grid, void* stream) {
+  return launch_cg3d_local<double>(s_in, s_out, geo, fld, g_in, g_out, tab, *params, *tparams,
+                                 *grid, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* cg3d_local_error_string(int code) {

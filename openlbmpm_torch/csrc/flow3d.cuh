@@ -13,8 +13,9 @@
 //        + g rho_k, adh = sum_i w_i e_i solid(x + e_i) the static adhesion
 //        field, the common velocity u' = sum_k m_k/tau_k / sum_k
 //        rho_k/tau_k, and per fluid SRT toward feq(u' + tau_k F_k / rho_k);
-// both then pull streaming with half-way bounce-back, periodic in x, y and
-// z (walls only from the mask), solid cells 0 after the step (a select,
+// both then stream with half-way bounce-back (a pull; K10 in f32 and f64 a
+// push, which places the same values), periodic in x, y and z (walls only
+// from the mask), solid cells 0 after the step (a select,
 // not a multiply).  The formulas follow the plain path (models/flow3d.py
 // and ops/), not the TPU kernels' separable stencil and rho/tau-folded
 // update, so the double instances agree with the plain path to rounding.
@@ -25,34 +26,65 @@
 // field is derived from it in the kernel (in double, in the order the plain
 // path sums it), so no geometry plane is read beside the mask.
 //
-// Launches, one thread per cell (x fastest):
-//   K10 only: rho_kernel  state -> rho_k (K planes, compute type), the
-//             fluid-guarded density of each fluid, which the interaction
-//             stencil reads at the 18 neighbours;
-//   march     a block owns a 32 x TY (x, y) tile and marches up a run of
-//             ZC = 16 z slabs, one thread for each cell of the tile and its
-//             one-cell (x, y) ring.  It collides each slab of the ring tile
-//             into a three-slab ring buffer in shared memory (K x 19
-//             post-collision values a cell), then the tile's threads
-//             pull-stream slab z from slabs z-1, z, z+1.  TY is 8, 4 or 2,
-//             chosen so the buffer (3 x K x 19 x (34 x (TY + 2)) values)
-//             fits in shared memory: 8 for K = 1 in f32, 4 for K = 2, 3 in
-//             f32 and K = 1, 2 in f64, 2 for K = 3 in f64.
-// So K11 is one launch a step and K10 two.  The local form of K10 (K12e,
-// flow3d_local.cuh) runs rho and march on one shard's padded buffer, each
-// over a range of slabs (BOX = true, a ZRange argument; the single-device
+// Launches (one thread a cell, x fastest):
+//   K11  march_kernel, one a step: a block owns a 32 x TY (x, y) tile and
+//        marches up a run of ZC = 16 z slabs, one thread for each cell of
+//        the tile and its one-cell (x, y) ring.  It collides each slab of
+//        the ring tile into a three-slab ring buffer in shared memory (K x
+//        19 post-collision values a cell), then the tile's threads
+//        pull-stream slab z from slabs z-1, z, z+1.  TY is 8, 4 or 2, chosen
+//        so the buffer fits in shared memory: 8 for K = 1 in f32, 4 for
+//        K = 2, 3 in f32 and K = 1, 2 in f64, 2 for K = 3 in f64.
+//   K10  f32 and f64 storage: sc_push_kernel, one a step.  rho_k of each
+//        neighbour comes from a ring of rho_k and the fluid flag in shared
+//        memory (4 slabs), which the block fills from the state it loads;
+//        no rho pass, no rho scratch.  A 32 x 8 tile, one thread a cell,
+//        each fluid cell collided once, post_i written to slot i of
+//        x + e_i, or to slot opp(i) of x where x + e_i is solid (each output
+//        slot written once; a few KB of shared memory, so registers set the
+//        occupancy).  The ring fill of a thread's own cell also forms its
+//        common velocity; the collision then takes one fluid at a time (its
+//        populations loaded again, mostly from L1 or L2) and stores each
+//        post value as it is formed, through a pointer the compiler may not
+//        fold into 19 addresses: held in registers, those took 204-242
+//        registers a thread and one block an SM, the push 0.68-1.17 ms at
+//        128^3 (K = 2), against 128 registers, two blocks an SM and about
+//        0.50 ms (PERF.md).  It marches runs of up to 16 slabs, the run
+//        occupancy.cuh's.  The arithmetic is sc_collide's (sc_sums, the
+//        common velocity, sc_collide_fluid_each, in its order): the f64
+//        values equal those of march_kernel's Shan-Chen collision bit for
+//        bit; the f32 push's differ only by the compiler's a * b + c
+//        contractions (PERF.md).
+//        bf16 storage: rho_kernel (rho_k into K planes of f32 scratch),
+//        then march_kernel with the Shan-Chen collision (collide_sc, the
+//        neighbours' rho_k from that scratch), two a step.  bf16 cannot
+//        push: store_fluid encodes each value against the output cell's
+//        rho, the sum of its 19 streamed values, which a push never holds.
+//        A pull in one launch (the rho ring filled by the march itself, two
+//        cells a side) ran 0.6882 ms at 128^3 against these two launches'
+//        0.6512, and three other one-launch forms were slower too
+//        (PERF.md), so bf16 keeps the two.
+// The local form of K10 (K12e, flow3d_local.cuh) runs sc_push_kernel with
+// BOX = true over a range of slabs (a ZRange argument; the single-device
 // instances take BOX = false and ignore it).
 //
 // What bounds it: HBM bytes per cell-step, the state in and out plus the
 // one-byte mask: K11 153 B (f32), 85 B (bf16); K10 with K = 2 305 B (f32),
-// 169 B (bf16).  This design adds the ring recompute (mostly L2) and, for
-// K10, rho_k written and read (16 B f32, K = 2) and the state read twice.
+// 169 B (bf16).  The march adds the ring recompute (mostly L2) and, for
+// K10 in bf16, the state read twice and rho_k written and read (8 B, K =
+// 2); K10's push reads the state twice (the ring fill one slab ahead, then
+// the collision: the second read mostly from L1 or L2) plus its one-cell
+// halo's (1.33x with the z-run's two extra slabs).
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+
+#include <type_traits>
+
+#include "occupancy.cuh"
 
 constexpr int kFlowMaxFluids = 3;
 
@@ -259,15 +291,36 @@ __device__ __forceinline__ void sc_sums(const C* __restrict__ rho_pl, size_t str
   }
 }
 
+// The common velocity u' = sum_k m_k / tau_k / sum_k rho_k / tau_k
+// (ops/macroscopic.py::sc_common_velocity) over fluids k = 0, 1, ... in
+// turn, as sc_collide forms it (which keeps its own text, so that the T-step
+// kernel compiles as it did): add_common adds fluid k's terms to den and
+// num, common_velocity divides.
+template <typename C>
+__device__ __forceinline__ void add_common(int k, C rho, const C m[3], double tau, C& den,
+                                           C num[3]) {
+  const C it = C(1.0 / tau);
+  den = k == 0 ? rho * it : den + rho * it;
+#pragma unroll
+  for (int d = 0; d < 3; ++d) num[d] = k == 0 ? m[d] * it : num[d] + m[d] * it;
+}
+template <typename C>
+__device__ __forceinline__ void common_velocity(C den, const C num[3], C up[3]) {
+  den = den != C(0) ? den : C(1);
+#pragma unroll
+  for (int d = 0; d < 3; ++d) up[d] = num[d] / den;
+}
+
 // The collision of one fluid (populations f, density rho) at the common
 // velocity up: SRT toward feq(u' + tau F / rho) with F = -rho (sum_j G_kj
 // gr_j + G_ks adh) + g rho over nf fluids; g(j) = G_kj, gr(j, d) fluid j's
-// interaction sum along d.
-template <typename C, typename G, typename Gr>
-__device__ __forceinline__ void sc_collide_fluid(const C f[Q], C rho, const C up[3], int nf,
-                                                 G g, Gr gr, double gs, double tau_d,
-                                                 const double adh[3], const double bf[3],
-                                                 C post[Q]) {
+// interaction sum along d.  out(i, post_i) takes each post-collision value
+// as it is formed, i = 0, 1, ...
+template <typename C, typename G, typename Gr, typename Out>
+__device__ __forceinline__ void sc_collide_fluid_each(const C f[Q], C rho, const C up[3],
+                                                      int nf, G g, Gr gr, double gs,
+                                                      double tau_d, const double adh[3],
+                                                      const double bf[3], Out out) {
   const C rs = rho > C(0) ? rho : C(1);
   const C tau = C(tau_d);
   C u[3];
@@ -280,13 +333,23 @@ __device__ __forceinline__ void sc_collide_fluid(const C f[Q], C rho, const C up
   }
   const C uu = u[0] * u[0] + u[1] * u[1] + u[2] * u[2];
 #pragma unroll
-  for (int i = 0; i < Q; ++i) post[i] = f[i] - (f[i] - feq_i(i, rho, u, uu)) / tau;
+  for (int i = 0; i < Q; ++i) out(i, f[i] - (f[i] - feq_i(i, rho, u, uu)) / tau);
+}
+
+// sc_collide_fluid_each into post[Q].
+template <typename C, typename G, typename Gr>
+__device__ __forceinline__ void sc_collide_fluid(const C f[Q], C rho, const C up[3], int nf,
+                                                 G g, Gr gr, double gs, double tau_d,
+                                                 const double adh[3], const double bf[3],
+                                                 C post[Q]) {
+  sc_collide_fluid_each(f, rho, up, nf, g, gr, gs, tau_d, adh, bf,
+                        [&](int i, C v) { post[i] = v; });
 }
 
 // K10: the Shan-Chen collision of every fluid at one fluid cell from its
 // populations F: rho_pl holds rho_k at plane k * stride, self is the
 // cell's index there and nb(i) neighbour i's, which also indexes the
-// one-byte fluid mask fl (the one-step march's global planes, or the T-step
+// one-byte fluid mask fl (the bf16 march's global planes, or the T-step
 // kernel's window).
 template <typename C, int K, typename Nb>
 __device__ __forceinline__ void sc_collide(const C* __restrict__ rho_pl, size_t stride,
@@ -321,7 +384,8 @@ __device__ __forceinline__ void sc_collide(const C* __restrict__ rho_pl, size_t 
         [&](int j, int d) { return gr[j][d]; }, P.gs[k], P.tau[k], adh, P.bf, post[k]);
 }
 
-// K10 at the fluid cell (z, y, x) of the global state.
+// K10 in bf16 storage, at the fluid cell (z, y, x) of the global state;
+// rho_pl holds rho_kernel's planes.
 template <typename S, int K, typename C = typename Traits<S>::C>
 __device__ void collide_sc(const S* __restrict__ f, const unsigned char* __restrict__ fl,
                            const C* __restrict__ rho_pl, const Flow3dParams& P, int z, int y,
@@ -342,15 +406,14 @@ __device__ void collide_sc(const S* __restrict__ f, const unsigned char* __restr
       fl, F, P, post);
 }
 
-// rho_k on fluid cells, 0 on solid ones: every cell, or (BOX) the slabs R.
-template <typename S, int K, bool BOX = false, typename C = typename Traits<S>::C>
+// K10 in bf16 storage: rho_k on fluid cells, 0 on solid ones.
+template <typename S, int K, typename C = typename Traits<S>::C>
 __global__ void rho_kernel(const S* __restrict__ f, const unsigned char* __restrict__ fl,
-                           C* __restrict__ rho, Flow3dParams P, ZRange R) {
+                           C* __restrict__ rho, Flow3dParams P) {
   const size_t nxy = (size_t)P.ny * P.nx;
   const size_t n = (size_t)P.nz * nxy;
-  const size_t idx =
-      (BOX ? (size_t)R.z0 * nxy : 0) + (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (BOX ? (size_t)R.z1 * nxy : n)) return;
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n) return;
   const bool fluid = fl[idx] != 0;
 #pragma unroll
   for (int k = 0; k < K; ++k) {
@@ -373,11 +436,11 @@ constexpr size_t march_smem() {
   return sizeof(C) * 3 * K * Q * HY * HX + 3 * HY * HX;
 }
 
-// The tiles march up every slab, or (BOX) the slabs R (reading one beyond).
-template <typename S, int MODE, int K, bool BOX = false, typename C = typename Traits<S>::C>
+// K11, and K10 in bf16 storage: the tiles march up every slab.
+template <typename S, int MODE, int K, typename C = typename Traits<S>::C>
 __global__ void __launch_bounds__(ring_threads(tile_y(K, sizeof(C))))
 march_kernel(const S* __restrict__ f, const unsigned char* __restrict__ fl,
-             const C* __restrict__ rho_pl, S* __restrict__ out, Flow3dParams P, ZRange R) {
+             const C* __restrict__ rho_pl, S* __restrict__ out, Flow3dParams P) {
   constexpr int TY = tile_y(K, sizeof(C));
   constexpr int HY = TY + 2;
   constexpr int NV = K * Q;
@@ -388,8 +451,8 @@ march_kernel(const S* __restrict__ f, const unsigned char* __restrict__ fl,
   const size_t nxy = (size_t)ny * nx;
   const size_t n = (size_t)nz * nxy;
   const int x0 = blockIdx.x * TX, y0 = blockIdx.y * TY;
-  const int z0 = (BOX ? R.z0 : 0) + blockIdx.z * ZC;
-  const int z1 = min(z0 + ZC, BOX ? R.z1 : nz);
+  const int z0 = blockIdx.z * ZC;
+  const int z1 = min(z0 + ZC, nz);
   const int tid = threadIdx.x;
   const int lx = tid % HX, ly = tid / HX;
   auto val = [&](int slot, int v, int yy, int xx) -> C& {
@@ -461,22 +524,28 @@ march_kernel(const S* __restrict__ f, const unsigned char* __restrict__ fl,
   }
 }
 
-template <typename S, int MODE, int K, bool BOX = false, typename C = typename Traits<S>::C>
+// Launches of march_kernel (K11; K10 in bf16), sc_push_kernel (K10 in f32
+// and f64) and rho_kernel (K10 in bf16) by this library since it was
+// loaded, one where each launch is made; flow3d_kernel_launches reads them.
+long long g_launches[3];
+
+template <typename S, int MODE, int K, typename C = typename Traits<S>::C>
 int launch_march(const S* f, const unsigned char* fl, const C* rho, S* out,
-                 const Flow3dParams& P, cudaStream_t st, ZRange R = ZRange{}) {
+                 const Flow3dParams& P, cudaStream_t st) {
   constexpr int TY = tile_y(K, sizeof(C));
   constexpr size_t smem = march_smem<C, K>();
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        march_kernel<S, MODE, K, BOX>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        march_kernel<S, MODE, K>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
-  const int nz = BOX ? R.z1 - R.z0 : P.nz;
-  const dim3 grid((P.nx + TX - 1) / TX, (P.ny + TY - 1) / TY, (nz + ZC - 1) / ZC);
-  march_kernel<S, MODE, K, BOX><<<grid, ring_threads(TY), smem, st>>>(f, fl, rho, out, P, R);
-  return (int)cudaGetLastError();
+  const dim3 grid((P.nx + TX - 1) / TX, (P.ny + TY - 1) / TY, (P.nz + ZC - 1) / ZC);
+  march_kernel<S, MODE, K><<<grid, ring_threads(TY), smem, st>>>(f, fl, rho, out, P);
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) ++g_launches[0];
+  return (int)err;
 }
 
 // K11: one step of the single-phase state; returns a cudaError_t code.
@@ -494,22 +563,202 @@ int single3d_dispatch(const void* f_in, void* f_out, const void* fl_v, const Flo
   }
 }
 
+// -- K10 --------------------------------------------------------------------
+
+constexpr int kRhoSlots = 4;      // slabs of the push's rho ring (one barrier a slab)
+constexpr int PUSH_ZMAX = 16;     // the most z slabs a push block marches through
+
+// f32 and f64 storage (sc_push_kernel): a block owns a TX x PTY tile, one
+// thread a cell, and a ring of rho_k and the fluid flag over the tile and
+// one cell a side in kRhoSlots slabs of shared memory.
+constexpr int PTY = 8;
+constexpr int PHY = PTY + 2;
+constexpr int PN = HX * PHY;                   // ring cells a slab
+constexpr int PUSH_THREADS = TX * PTY;
+constexpr int PUSH_HALO = 2 * HX + 2 * PTY;    // ring cells outside the tile
+
+template <typename S, int K>
+constexpr size_t push_smem() {
+  return (sizeof(S) * K + 1) * kRhoSlots * PN;
+}
+
+// One step of fluid cells in f32 or f64 storage: every slab (BOX: the
+// slabs [R.z0 - 1, R.z1 + 1) collided, only [R.z0, R.z1) written; rho read
+// over [R.z0 - 2, R.z1 + 2)).  A block marches up zrun slabs.  Before slab
+// z collides, its threads fill slab z + 1 of the ring from the state (rho_k
+// the fluid-guarded sum of the 19 loaded values, as the plain path forms
+// it; the first PUSH_HALO threads take a second, halo cell); one barrier a
+// slab, as the slot a fill writes is one that no thread still reads.  The
+// fill of a thread's own cell also forms its common velocity, which the
+// thread keeps for the next slab.  The collision then takes one fluid at a
+// time (sc_collide's arithmetic in its order: the neighbours' rho and flags
+// from the ring, sc_sums, sc_collide_fluid_each), loading the fluid's
+// populations again (mostly from L1 or L2), and pushes post_i as it is
+// formed: into slot i of x + e_i, or, where x + e_i is solid, into slot
+// opp(i) of x; a solid cell writes its own 19 zeros.  So each output slot
+// is written exactly once, by the thread whose pull would have read it, and
+// a thread holds one fluid's populations, not K.
+template <typename S, int K, bool BOX = false>
+__global__ void __launch_bounds__(PUSH_THREADS)
+sc_push_kernel(const S* __restrict__ f, const unsigned char* __restrict__ fl,
+               S* __restrict__ out, Flow3dParams P, ZRange R, int zrun) {
+  using C = S;
+  constexpr size_t stride = (size_t)kRhoSlots * PN;      // between two fluids' rings
+  extern __shared__ __align__(16) unsigned char smem[];
+  C* rr = reinterpret_cast<C*>(smem);                    // [k][slot][PHY][HX]
+  unsigned char* rf = smem + sizeof(C) * K * stride;     // [slot][PHY][HX]
+  const int nx = P.nx, ny = P.ny, nz = P.nz;
+  const size_t nxy = (size_t)ny * nx;
+  const size_t n = (size_t)nz * nxy;
+  const int c0 = BOX ? R.z0 - 1 : 0, c1 = BOX ? R.z1 + 1 : nz;
+  const int x0 = blockIdx.x * TX, y0 = blockIdx.y * PTY;
+  const int z0 = c0 + blockIdx.z * zrun;
+  const int z1 = min(z0 + zrun, c1);
+  const int tid = threadIdx.x;
+  const int tx = tid % TX, ty = tid / TX;
+  const int x = x0 + tx, y = y0 + ty;
+  auto slot_of = [&](int z) { return (z - z0 + kRhoSlots) & (kRhoSlots - 1); };
+  // rho_k (0 on a solid cell) and the fluid flag of ring cell (hx, hy) of
+  // slab z; OWN (the thread's own cell) also its common velocity into up
+  auto fill_cell = [&](auto own, int z, int hx, int hy, C up[3]) {
+    const size_t idx = (size_t)wrap_any(z, nz) * nxy + (size_t)wrap_any(y0 - 1 + hy, ny) * nx +
+                       wrap_any(x0 - 1 + hx, nx);
+    const bool fluid = fl[idx] != 0;
+    const int r = slot_of(z) * PN + hy * HX + hx;
+    rf[r] = fluid;
+    C den = C(0), num[3] = {C(0), C(0), C(0)};
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      C F[Q];
+      if (fluid) load_fluid<S>(f, n, k, idx, F);
+      const C rho = fluid ? sumq(F) : C(0);
+      rr[k * stride + r] = rho;
+      if constexpr (decltype(own)::value) {
+        C m[3];
+        momentum(F, m);
+        add_common(k, rho, m, P.tau[k], den, num);
+      }
+    }
+    if constexpr (decltype(own)::value) common_velocity(den, num, up);
+  };
+  // slab z of the ring; up the own cell's common velocity
+  auto fill = [&](int z, C up[3]) {
+    fill_cell(std::true_type{}, z, tx + 1, ty + 1, up);
+    if (tid < PUSH_HALO) {
+      const int j = tid - 2 * HX;   // the rows above and below, then the two columns
+      if (j < 0) fill_cell(std::false_type{}, z, tid % HX, tid < HX ? 0 : PHY - 1, up);
+      else fill_cell(std::false_type{}, z, (j & 1) ? HX - 1 : 0, 1 + j / 2, up);
+    }
+  };
+  // the offsets of x + e_i from x along each axis, wrapped (index e + 1)
+  const int ox[3] = {x == 0 ? nx - 1 : -1, 0, x == nx - 1 ? 1 - nx : 1};
+  const int oy[3] = {(y == 0 ? ny - 1 : -1) * nx, 0, (y == ny - 1 ? 1 - ny : 1) * nx};
+  const int hx = tx + 1, hy = ty + 1;
+  auto written = [&](int z) { return !BOX || (z >= R.z0 && z < R.z1); };
+  auto push = [&](int z, const C up[3]) {
+    const int nxy_i = (int)nxy;
+    const int oz[3] = {(z == 0 ? nz - 1 : -1) * nxy_i, 0, (z == nz - 1 ? 1 - nz : 1) * nxy_i};
+    const size_t k0 = (size_t)z * nxy + (size_t)y * nx + x;
+    const int self = slot_of(z) * PN + hy * HX + hx;
+    if (!rf[self]) {
+      if (written(z)) {
+#pragma unroll
+        for (int v = 0; v < K * Q; ++v) out[(size_t)v * n + k0] = C(0);
+      }
+      return;
+    }
+    auto ring = [&](int i) { return slot_of(z + ez(i)) * PN + (hy + ey(i)) * HX + hx + ex(i); };
+    unsigned fluid_nb = 0;   // bit i: x + e_i is fluid
+#pragma unroll
+    for (int i = 0; i < Q; ++i) fluid_nb |= (rf[ring(i)] ? 1u : 0u) << i;
+    C gr[K][3];
+    double adh[3];
+    sc_sums<C, K>(rr, stride, ring, rf, gr, adh);
+#pragma unroll 1
+    for (int k = 0; k < K; ++k) {
+      C F[Q];
+      load_fluid<S>(f, n, k, k0, F);
+      // slot i of x; the empty asm keeps the compiler from holding the 19
+      // slots' addresses in registers (it took 204-212 registers, and one
+      // block an SM, with them)
+      S* p = out + (size_t)k * Q * n + k0;
+      sc_collide_fluid_each(
+          F, rr[k * stride + self], up, K, [&](int j) { return P.g[k][j]; },
+          [&](int j, int d) { return gr[j][d]; }, P.gs[k], P.tau[k], adh, P.bf,
+          [&](int i, C post) {
+            if ((fluid_nb >> i) & 1u) {
+              if (written(z + ez(i))) p[oz[ez(i) + 1] + oy[ey(i) + 1] + ox[ex(i) + 1]] = post;
+            } else if (written(z)) {
+              p[(opp(i) - i) * (ptrdiff_t)n] = post;   // bounced back from the solid x + e_i
+            }
+            p += n;
+            asm volatile("" : "+l"(p));
+          });
+    }
+  };
+  const bool inside = x < nx && y < ny;
+  C up[3], up_next[3];
+  fill(z0 - 1, up);
+  fill(z0, up);
+  for (int z = z0; z < z1; ++z) {
+    fill(z + 1, up_next);
+    __syncthreads();
+    if (inside) push(z, up);
+#pragma unroll
+    for (int d = 0; d < 3; ++d) up[d] = up_next[d];
+  }
+}
+
+// K10 (f32, f64): one launch of sc_push_kernel over the domain or (BOX) the
+// output slabs R.
+template <typename S, int K, bool BOX = false>
+int launch_push(const S* f, const unsigned char* fl, S* out, const Flow3dParams& P,
+                cudaStream_t st, ZRange R = ZRange{}) {
+  constexpr size_t smem = push_smem<S, K>();
+  static_assert(smem <= 48 * 1024, "the push's ring needs no opt-in shared memory");
+  static int capacity = 0;
+  cudaError_t err;
+  if (capacity == 0) {
+    capacity = card_capacity(sc_push_kernel<S, K, BOX>, PUSH_THREADS, smem, err);
+    if (capacity < 0) {
+      capacity = 0;
+      return (int)err;
+    }
+  }
+  const int nz = BOX ? R.z1 - R.z0 + 2 : P.nz;
+  const long long tiles = (long long)((P.nx + TX - 1) / TX) * ((P.ny + PTY - 1) / PTY);
+  const int zrun = z_run(capacity, tiles, nz, PUSH_ZMAX);
+  const dim3 grid((P.nx + TX - 1) / TX, (P.ny + PTY - 1) / PTY, (nz + zrun - 1) / zrun);
+  sc_push_kernel<S, K, BOX><<<grid, PUSH_THREADS, smem, st>>>(f, fl, out, P, R, zrun);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) ++g_launches[1];
+  return (int)err;
+}
+
+// K10: f32 and f64 one launch of the push; bf16 (which cannot push, see
+// the note at the top) rho_kernel into the scratch rho, then march_kernel.
 template <typename S, int K>
 int launch_sc3d(const void* f_in, void* f_out, const void* fl_v, void* rho_v,
                 const Flow3dParams& P, cudaStream_t st) {
-  using C = typename Traits<S>::C;
   const S* f = static_cast<const S*>(f_in);
   const unsigned char* fl = static_cast<const unsigned char*>(fl_v);
-  C* rho = static_cast<C*>(rho_v);
-  const size_t n = (size_t)P.nz * P.ny * P.nx;
-  rho_kernel<S, K><<<(unsigned)((n + 255) / 256), 256, 0, st>>>(f, fl, rho, P, ZRange{});
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return launch_march<S, kShanChen, K>(f, fl, rho, static_cast<S*>(f_out), P, st);
+  if constexpr (Traits<S>::kShifted) {
+    using C = typename Traits<S>::C;
+    C* rho = static_cast<C*>(rho_v);
+    const size_t n = (size_t)P.nz * P.ny * P.nx;
+    rho_kernel<S, K><<<(unsigned)((n + 255) / 256), 256, 0, st>>>(f, fl, rho, P);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    ++g_launches[2];
+    return launch_march<S, kShanChen, K>(f, fl, rho, static_cast<S*>(f_out), P, st);
+  } else {
+    return launch_push<S, K>(f, fl, static_cast<S*>(f_out), P, st);
+  }
 }
 
 // K10: one step of the Shan-Chen state (P.k fluids); rho is scratch of P.k
-// planes in the compute type.  Returns a cudaError_t code.
+// planes in the compute type for bf16 storage (unused, may be null, for f32
+// and f64).  Returns a cudaError_t code.
 template <typename S>
 int sc3d_dispatch(const void* f_in, void* f_out, const void* fl, void* rho,
                   const Flow3dParams& P, cudaStream_t st) {

@@ -14,12 +14,19 @@ extern "C" int flow3d_single_step(const void* f_in, void* f_out, const void* flu
 }
 
 // K10: one Shan-Chen step of the state f_in (params->k fluids) into f_out;
-// rho is scratch of params->k planes in the compute type.  Returns a
-// cudaError_t code (0 on success).
+// rho is scratch of params->k planes in the compute type for bf16 storage
+// (unused, may be null, in f32 and f64).  Returns a cudaError_t code (0 on
+// success).
 extern "C" int flow3d_sc_step(const void* f_in, void* f_out, const void* fluid, void* rho,
                               const Flow3dParams* params, void* stream) {
   return sc3d_dispatch<double>(f_in, f_out, fluid, rho, *params,
                                static_cast<cudaStream_t>(stream));
+}
+
+// Launches of march_kernel (K11; K10 in bf16), sc_push_kernel and
+// rho_kernel (K10) by this library since it was loaded, into out[0..2].
+extern "C" void flow3d_kernel_launches(long long* out) {
+  for (int i = 0; i < 3; ++i) out[i] = g_launches[i];
 }
 
 extern "C" const char* flow3d_error_string(int code) {

@@ -15,8 +15,9 @@
 // slabs [2t, pz - 2t) of the buffer, reading rho over [2t - 2, pz - 2t + 2),
 // which the sub-step before wrote.  The sub-steps ping-pong between the
 // output buffer and a scratch buffer, so that the last writes the output's
-// centre; the input is only read.  K = 1 ... 3: flow3d.cuh's rho and march
-// with BOX = true (one thread a cell; march's tiles over the range);
+// centre; the input is only read.  K = 1 ... 3: one launch of flow3d.cuh's
+// sc_push_kernel with BOX = true a sub-step (it collides [a - 1, b + 1),
+// forms rho over [a - 2, b + 2) in its ring and writes only [a, b));
 // K > 3: sc3d_rt.cuh's rho, collide and stream over their ranges, on the
 // state buffers themselves (f32 / f64 storage is the compute type).
 //
@@ -24,8 +25,7 @@
 // shrinking range recomputes 2T slabs a side a call, not a halo a brick.
 //
 // What bounds it: HBM bytes, per sub-step the state in and out over its
-// range (K = 2: 304 B a cell in f32) and rho written and read, plus the
-// frames' copies once a call.
+// range (K = 2: 304 B a cell in f32), plus the frames' copies once a call.
 
 #pragma once
 
@@ -33,17 +33,17 @@
 
 namespace {
 
-// The scratch of a call in bytes: rho (K planes of the buffer); above
-// kFlowMaxFluids also the post-collision populations (19 K) and the
+// The scratch of a call in bytes: none up to kFlowMaxFluids; above, rho
+// (K planes of the buffer), the post-collision populations (19 K) and the
 // interaction sums (3 K).
 template <typename S>
 size_t sc3d_local_scratch(const Flow3dParams& P) {
-  const size_t planes = P.k <= kFlowMaxFluids ? P.k : (size_t)P.k * (Q + 4);
+  const size_t planes = P.k <= kFlowMaxFluids ? 0 : (size_t)P.k * (Q + 4);
   return planes * (size_t)P.nz * P.ny * P.nx * sizeof(S);
 }
 
-// One K10 sub-step over the buffer's slabs [a, b): rho over [a - 2, b + 2),
-// then march (K <= 3), or rho, collide over [a - 1, b + 1) and stream
+// One K10 sub-step over the buffer's slabs [a, b): sc_push_kernel (K <= 3),
+// or rho over [a - 2, b + 2), collide over [a - 1, b + 1) and stream
 // (runtime K).
 template <typename S, int K>
 int local_substep(const S* f, S* out, const unsigned char* fl, S* scratch, const double* table,
@@ -53,10 +53,7 @@ int local_substep(const S* f, S* out, const unsigned char* fl, S* scratch, const
   auto blocks = [&](int z0, int z1) { return (unsigned)(((z1 - z0) * nxy + 255) / 256); };
   cudaError_t err;
   if constexpr (K > 0) {
-    const ZRange r{a - 2, b + 2};
-    rho_kernel<S, K, true><<<blocks(r.z0, r.z1), 256, 0, st>>>(f, fl, scratch, P, r);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    return launch_march<S, kShanChen, K, true>(f, fl, scratch, out, P, st, ZRange{a, b});
+    return launch_push<S, K, true>(f, fl, out, P, st, ZRange{a, b});
   } else {
     const int k = P.k;
     S* rho = scratch;

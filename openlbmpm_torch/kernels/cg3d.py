@@ -30,8 +30,11 @@ and ``coupled3d_step_compressed(s, g, model)`` take the plain version only
 for tensors on the CPU; for CUDA tensors they launch the kernel or raise.
 A step is two launches, three with an inlet or outlet (``bc_kernel``,
 ``fields_kernel``: g and kappa into four planes, ``collide_stream``), the
-coupled step two more; ``cg3d_fields(state, model)`` runs the first two
-alone, held to ``cg3d_fields_reference``.
+coupled step too (its ``collide_stream`` collides and streams the tracers
+with the flow; one more launch for each further group of tracers above
+what a launch's shared memory holds: 16 in float32, 2 in float64);
+``cg3d_fields(state, model)`` runs the first two alone, held to
+``cg3d_fields_reference``.
 
 The T-step forms (K9-T: ``steps_per_call`` = T > 1 of the same TPU kernel,
 the boundary slabs applied inside the window before every sub-step) are
@@ -217,7 +220,7 @@ def _kernel_fn(lib_name: str):
             [ctypes.POINTER(Cg3dParams), ctypes.c_void_p]
         fields.restype = ctypes.c_int
         coupled = lib.cg3d_coupled_step
-        coupled.argtypes = [ctypes.c_void_p] * 10 + \
+        coupled.argtypes = [ctypes.c_void_p] * 8 + \
             [ctypes.POINTER(Cg3dParams), ctypes.POINTER(Tracer3dParams),
              ctypes.c_void_p]
         coupled.restype = ctypes.c_int
@@ -373,14 +376,11 @@ def launch_cg3d_coupled(s: torch.Tensor, g: torch.Tensor,
     fld = torch.empty((FIELD_PLANES, nz, ny, nx), dtype=geo.dtype, device=dev)
     bc = torch.empty((s.shape[0], 5, ny, nx), dtype=s.dtype, device=dev) \
         if params.inlet or params.outlet else None
-    g_post = torch.empty_like(g)
-    flags = torch.empty((nz, ny, nx), dtype=torch.uint8, device=dev)
     out_s, out_g = torch.empty_like(s), torch.empty_like(g)
     with torch.cuda.device(dev):
         code = fn(s.data_ptr(), out_s.data_ptr(), geo.data_ptr(),
                   fld.data_ptr(), 0 if bc is None else bc.data_ptr(),
-                  g.data_ptr(),
-                  g_post.data_ptr(), out_g.data_ptr(), flags.data_ptr(),
+                  g.data_ptr(), out_g.data_ptr(),
                   table.data_ptr(), ctypes.byref(params),
                   ctypes.byref(tparams),
                   torch.cuda.current_stream(dev).cuda_stream)
@@ -734,7 +734,7 @@ def _local_fns(lib_name: str):
             ctypes.c_void_p]
         slabs.restype = ctypes.c_int
         step = lib.cg3d_local_step
-        step.argtypes = [ctypes.c_void_p] * 9 + [
+        step.argtypes = [ctypes.c_void_p] * 7 + [
             ctypes.POINTER(Cg3dParams), ctypes.POINTER(Tracer3dParams),
             ctypes.POINTER(Local3), ctypes.c_void_p]
         step.restype = ctypes.c_int
@@ -798,8 +798,7 @@ def launch_cg3d_local(s: torch.Tensor, out: torch.Tensor,
     padded compressed buffer `s` (boundary slabs applied, frame filled) into
     the centre of `out`; with the tracer PDFs `g` (NT, 7, pz, py, nx), their
     step into the centre of `g_out` (`tparams`, `table` as
-    ``launch_cg3d_coupled`` takes them).  The scratch (g and kappa, and
-    with tracers their post-collision PDFs and interface flags) is kept
+    ``launch_cg3d_coupled`` takes them).  The scratch (g and kappa) is kept
     in `work` (``build.work_buffer``).  Not counted as a launch."""
     if s.dtype not in _LOCAL_LIBS:
         raise ValueError(f"state {s.dtype}; K12d takes float32 or float64")
@@ -817,12 +816,7 @@ def launch_cg3d_local(s: torch.Tensor, out: torch.Tensor,
     planes = (grid.py, grid.px, *grid.tail)
     fld = build.work_buffer(work, "fld", (FIELD_PLANES, *planes), s.dtype,
                             dev)
-    g_post = flags = None
-    if g is not None:
-        g_post = build.work_buffer(work, "g_post", g.shape, g.dtype, dev)
-        flags = build.work_buffer(work, "flags", planes, torch.uint8, dev)
-    ptr = [0 if t is None else t.data_ptr() for t in (g, g_post, g_out,
-                                                        flags, table)]
+    ptr = [0 if t is None else t.data_ptr() for t in (g, g_out, table)]
     with torch.cuda.device(dev):
         code = step(s.data_ptr(), out.data_ptr(), geo.data_ptr(),
                     fld.data_ptr(), *ptr, ctypes.byref(p),

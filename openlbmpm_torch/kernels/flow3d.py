@@ -8,7 +8,10 @@ build_sc3d_fused_step`` (any number of fluids, psi = rho, the static
 adhesion field, SRT toward the shifted-velocity equilibrium), both periodic
 in x, y and z with walls from the mask.  The device code is
 ``csrc/flow3d.cuh``, built as one library per storage type (``flow3d_f64``,
-``flow3d_f32``, ``flow3d_bf16``) and instantiated for K = 1 ... KMAX fluids;
+``flow3d_f32``, ``flow3d_bf16``) and instantiated for K = 1 ... KMAX fluids
+(K11 one launch a step, ``march_kernel``; K10 one, ``sc_push_kernel``, in
+f32 / f64 storage and two in bf16, ``rho_kernel`` and ``march_kernel``; the
+libraries count them: ``kernel_launches``);
 above KMAX, K10 and K10-T run the runtime-K instance ``csrc/sc3d_rt.cuh``
 (library ``sc3d_rt``), which loops over the fluids and reads their values
 from a device table (``sc3d_table``, the model's ``kernel_table``).
@@ -38,7 +41,8 @@ shape and hands to the kernel with a scratch buffer for its rings.
 The local form of K10 (K12e: one shard of a z-decomposed domain, the
 counterpart of ``pallas/sc3d.py::build_sc3d_sharded_step``) is
 ``csrc/flow3d_local_{f64,f32}.cu`` (``csrc/flow3d_local.cuh``): T one-step
-launches a call over slab ranges that shrink by two a step;
+launches of ``sc_push_kernel`` a call over slab ranges that shrink by two a
+step;
 ``build_sc3d_sharded_step`` drives it.
 """
 
@@ -54,7 +58,8 @@ from ..lattice import D3Q19
 from . import build
 from . import march3d
 
-__all__ = ["LIBRARIES", "KMAX", "RT_LIBRARY", "Flow3dParams",
+__all__ = ["LIBRARIES", "KMAX", "RT_LIBRARY", "Flow3dParams", "KERNELS",
+           "kernel_launches",
            "geo_stack_sc3", "single3d_params", "sc3d_params", "sc3d_table",
            "launch_single3d", "launch_sc3d",
            "single3d_step", "single3d_step_reference", "sc3d_step",
@@ -182,6 +187,24 @@ def _kernel_fn(lib_name: str):
     return _fn_cache[lib_name]
 
 
+# the kernels of the flow3d libraries, in the order of flow3d_kernel_launches'
+# counts: K11's (and K10's second in bf16), K10's in f32 / f64 storage, K10's
+# first in bf16
+KERNELS = ("march_kernel", "sc_push_kernel", "rho_kernel")
+
+
+def kernel_launches(lib_name: str) -> dict[str, int]:
+    """Launches of each kernel of ``KERNELS`` by the library `lib_name`
+    (flow3d_f64, flow3d_f32 or flow3d_bf16) since it was loaded, as the
+    library counts them where it launches them."""
+    fn = build.load_library(lib_name).flow3d_kernel_launches
+    fn.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = None
+    out = (ctypes.c_longlong * len(KERNELS))()
+    fn(out)
+    return dict(zip(KERNELS, out))
+
+
 def _check(f: torch.Tensor, shape, fluid: torch.Tensor, params):
     if f.dtype not in _LIBS or tuple(f.shape) != shape:
         raise ValueError(f"state {tuple(f.shape)} {f.dtype}; the kernel takes "
@@ -243,11 +266,13 @@ def launch_sc3d(f: torch.Tensor, params: Flow3dParams, fluid: torch.Tensor,
     _, sc, err = _kernel_fn(_LIBS[f.dtype])
     f = f.contiguous()
     out = torch.empty_like(f)
-    want = torch.float32 if f.dtype == torch.bfloat16 else f.dtype
-    rho = torch.empty((params.k, *grid), dtype=want, device=f.device)
+    # bf16 storage: the scratch of rho_kernel (f32 and f64 take none)
+    rho = (torch.empty((params.k, *grid), dtype=torch.float32,
+                       device=f.device) if f.dtype == torch.bfloat16 else None)
     with torch.cuda.device(f.device):
         code = sc(f.data_ptr(), out.data_ptr(), fluid.data_ptr(),
-                  rho.data_ptr(), ctypes.byref(params),
+                  None if rho is None else rho.data_ptr(),
+                  ctypes.byref(params),
                   torch.cuda.current_stream(f.device).cuda_stream)
     if code != 0:
         raise RuntimeError(f"flow3d_sc_step launch failed: "
@@ -534,8 +559,9 @@ def launch_sc3d_local(f: torch.Tensor, out: torch.Tensor,
     (``parallel.mesh.LocalGrid`` of a 3-D domain, frame 2 `steps` slabs):
     its padded (K, 19, pz, ny, nx) f32 or f64 buffer `f`, frame filled, into
     the centre of `out`; `fluid` its padded uint8 mask; above KMAX fluids
-    `table` the float64 ``sc3d_table`` on the card.  The scratch (rho, and
-    at T > 1 a second state buffer for the sub-steps) is kept in `work`
+    `table` the float64 ``sc3d_table`` on the card.  The scratch (above KMAX
+    fluids the runtime-K passes' planes, and at T > 1 a second state buffer
+    for the sub-steps) is kept in `work`
     (``build.work_buffer``).  Not counted as a launch."""
     build.check_steps(steps)
     if f.dtype not in _LOCAL_LIBS:

@@ -136,7 +136,8 @@ def test_fields_of_the_step_are_what_the_step_collides_with():
 @pytest.mark.parametrize("tag", ["up", "f_up", "cs_up", "f_zrun_fz",
                                  "skip_phase", "skip_extend", "skip_normal",
                                  "skip_curvature", "f_32x8", "s_32x16",
-                                 "cs_b1"])
+                                 "cs_b1", "t_skip_collide", "t_skip_stream",
+                                 "t_b1"])
 def test_chip_sweep_k9_variants_patch_cg3d_once(tag, tmp_path):
     """chip_sweep.py's k9 mode times fields_kernel and collide_stream on
     copies of csrc/ with cg3d.cuh changed: each text it replaces stays in

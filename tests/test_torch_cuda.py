@@ -1197,7 +1197,8 @@ def test_k12d_coupled_local_matches_plain_f64(cuda):
 
 
 @pytest.mark.parametrize("t", [1, 2, 3])
-@pytest.mark.parametrize("case", ["k2_walls_force", "k3", "k4_walls_force"])
+@pytest.mark.parametrize("case", ["k2_walls_force", "k3", "k4_walls_force",
+                                  "k1_obstacle", "k2_grains"])
 def test_k12e_local_matches_plain_f64(cuda, case, t):
     from openlbmpm_torch.kernels import flow3d as kf
     from openlbmpm_torch.parallel import make_mesh, shard_domain
@@ -1346,3 +1347,83 @@ def test_cg3d_step_launches_each_kernel_once(cuda, name):
         assert {k: after[k] - before[k] for k in k9.KERNELS} == {
             "bc_kernel": 3 * bc, "fields_kernel": 3,
             "collide_stream_kernel": 3}
+
+
+# -- K10 (one push launch in f32 / f64, rho and march in bf16), K9t fused ----
+
+@pytest.mark.parametrize("case", ["k1_obstacle", "k2_grains", "k3"])
+def test_sc3d_bf16_kernel_one_step_within_one_ulp(cuda, case):
+    """K10's bf16 instance (rho_kernel and march_kernel, K = 1, 2, 3)
+    against the plain bf16 path, one step from a common bf16 state after two
+    kernel steps: every stored value within one bf16 ulp, as phase 37 holds
+    probe_sc3d."""
+    _, f = sc3d_case(case, cuda, shape=FLOW3D_SHAPE, dtype=torch.float32)
+    mh, _ = sc3d_case(case, cuda, shape=FLOW3D_SHAPE, dtype=torch.float32,
+                      storage="bf16")
+    h = mh.pack_state_bf16(f)
+    for _ in range(2):
+        h = sc3d_step(h, mh)
+    r = bf16_ulp_check(mh, h, sc3d_step, mh.fluid_mask > 0, FLOW3D_BF16_SHARE,
+                       "K10")
+    assert r["excess"] <= 1.0
+
+
+@pytest.mark.parametrize("case", ["k1_obstacle", "k2_grains", "k3"])
+def test_sc3d_step_launches_one_kernel_once(cuda, case):
+    """A K10 step launches each of its kernels once, as the libraries count
+    them: sc_push_kernel in f64 and f32 storage, rho_kernel and
+    march_kernel in bf16."""
+    from openlbmpm_torch.kernels import flow3d as kf
+    for dtype, storage, lib, want in (
+            (torch.float64, "f32", "flow3d_f64", ("sc_push_kernel",)),
+            (torch.float32, "f32", "flow3d_f32", ("sc_push_kernel",)),
+            (torch.float32, "bf16", "flow3d_bf16",
+             ("rho_kernel", "march_kernel"))):
+        m, f = sc3d_case(case, cuda, shape=FLOW3D_SHAPE, dtype=dtype,
+                         storage=storage)
+        x = m.pack_state_bf16(f) if storage == "bf16" else f
+        before = kf.kernel_launches(lib)
+        for _ in range(3):
+            x = sc3d_step(x, m)
+        after = kf.kernel_launches(lib)
+        assert {k: after[k] - before[k] for k in kf.KERNELS} == {
+            k: 3 * (k in want) for k in kf.KERNELS}
+
+
+# the largest decoded gap after five bf16 steps of K10 and its plain path
+# on the cases below: 3.40e-4 on k3 (an NVIDIA H100, PERF.md), above
+# phase 37's BF16_BOUND["K10"] = 3e-4 for probe_sc3d
+K10_BF16_FIVE_STEP_BOUND = 4e-4
+
+
+@pytest.mark.parametrize("case", ["k1_obstacle", "k2_grains", "k3"])
+def test_sc3d_bf16_kernel_five_steps_decoded(cuda, case):
+    """K10's bf16 instance against the plain bf16 path, five steps from
+    one bf16 state: the decoded values within K10_BF16_FIVE_STEP_BOUND."""
+    _, f = sc3d_case(case, cuda, shape=FLOW3D_SHAPE, dtype=torch.float32)
+    mh, _ = sc3d_case(case, cuda, shape=FLOW3D_SHAPE, dtype=torch.float32,
+                      storage="bf16")
+    h = mh.pack_state_bf16(f)
+    a, b = _run_pair(sc3d_step, sc3d_step_reference, mh, h, steps=5)
+    gap = float((mh.unpack_bf16(a) - mh.unpack_bf16(b)).abs().max())
+    print(f"K10 bf16 {case}, five steps: max decoded gap {gap:.3e}")
+    assert gap <= K10_BF16_FIVE_STEP_BOUND
+
+
+@pytest.mark.parametrize("case,want", [
+    ("probe", (1, 1, 1)), ("periodic_box", (0, 1, 1)),
+    ("dirichlet_nt2", (1, 1, 1)), ("dirichlet_nt3", (1, 1, 2))])
+def test_coupled3d_step_launch_counts(cuda, case, want):
+    """A K9t step (f64) launches bc_kernel with boundary slabs, then
+    fields_kernel and collide_stream with the tracers fused: three launches,
+    two when periodic; three tracers take a second collide_stream launch in
+    f64, whose shared memory holds two a launch."""
+    from openlbmpm_torch.kernels import cg3d as k9
+    m, st = transport3d_case(case, cuda, shape=K9_SHAPE)
+    x = m.pack(st)
+    before = k9.kernel_launches("cg3d_f64")
+    for _ in range(3):
+        x = coupled3d_step_compressed(*x, m)
+    after = k9.kernel_launches("cg3d_f64")
+    assert tuple(after[k] - before[k] for k in k9.KERNELS) == tuple(
+        3 * w for w in want)

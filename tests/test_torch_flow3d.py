@@ -298,3 +298,48 @@ def test_chip_faults_patches_one_k10_line():
     with open(os.path.join(ROOT, "openlbmpm_torch", "csrc", header)) as f:
         assert f.read().count(line) == 1
     assert "sizeof(C) == 4 ? 0.0 : adh[d]" in fault and phases == ("37",)
+
+
+def test_chip_faults_patches_one_k10_push_line():
+    """chip_faults.py plants its K10 push fault (a value bounced back from a
+    solid neighbour pushed into the cell's slot i, not opp(i), in the f32
+    instance) by replacing one line of sc_push_kernel in csrc/flow3d.cuh,
+    which must stay there exactly once; phases 36 and 37 must fail it."""
+    import chip_faults
+    header, line, fault, phases = chip_faults.CASES["K10 push target f32"]
+    with open(os.path.join(ROOT, "openlbmpm_torch", "csrc", header)) as f:
+        text = f.read()
+    assert header == "flow3d.cuh" and text.count(line) == 1
+    assert "p[(opp(i) - i) * (ptrdiff_t)n] = post" in line
+    assert "sizeof(S) == 4 ? i : opp(i)" in fault
+    assert phases == ("36", "37")
+    assert set(phases) <= set(chip_faults.ALL_PHASES)
+
+
+def test_chip_smoke_names_the_flow3d_step_kernels():
+    """chip_smoke.py's phase 39 holds each K11 and K10 step to one launch of
+    each kernel in FLOW3D_STEP_KERNELS and none of the others, by the
+    libraries' counts: every name there is one that the libraries count,
+    and each storage type of K10 launches a kernel that the other does not
+    (sc_push_kernel; rho_kernel)."""
+    import chip_smoke
+    from openlbmpm_torch.kernels import flow3d as kf
+    names = chip_smoke.FLOW3D_STEP_KERNELS
+    assert {k for v in names.values() for ks in v.values() for k in ks} <= \
+        set(kf.KERNELS) and set(kf.KERNELS) == set(
+            chip_smoke.FLOW3D_KERNELS)
+    assert names["K10"]["f32"] == ("sc_push_kernel",)
+    assert names["K10"]["bf16"] == ("rho_kernel", "march_kernel")
+
+
+def test_chip_ab_sass_family_names_built_libraries():
+    """chip_ab.py's "sass" family compares the kernels of SASS_LIBS between
+    two checkouts: each is a library of csrc/ (K9, K9t, K10, K11 and their
+    local forms), and its turn is valid Python."""
+    import chip_ab
+    from openlbmpm_torch.kernels import build
+    assert set(chip_ab.SASS_LIBS) <= set(build.LIBRARIES)
+    assert {"cg3d_f32", "cg3d_local_f32", "flow3d_bf16",
+            "flow3d_local_f32"} <= set(chip_ab.SASS_LIBS)
+    compile(chip_ab.TURN_SASS, "sass turn", "exec")
+    assert chip_ab.TURNS["sass"] is chip_ab.TURN_SASS

@@ -451,3 +451,18 @@ def test_chip_faults_patches_one_tracer_line():
     assert chip_faults.CASES["tracer f32"] == (
         "cg3d.cuh", chip_faults.TRACER_LINE,
         chip_faults.TRACER_FAULT.format(size=4), ("26",))
+
+
+def test_chip_faults_patches_one_fused_tracer_line():
+    """chip_faults.py plants the fused tracer's fault (the -z slot a thread
+    writes between two slabs of its column given its own cell's flags for
+    the upwind cell's, in the f32 instance) by replacing one line of
+    collide_stream's body in csrc/cg3d.cuh, which must stay there exactly
+    once; phase 26 must fail it."""
+    import chip_faults
+    header, line, fault, phases = chip_faults.CASES["tracer z pair f32"]
+    with open(os.path.join(ROOT, "openlbmpm_torch", "csrc", header)) as f:
+        text = f.read()
+    assert header == "cg3d.cuh" and text.count(line) == 1
+    assert "tracer_slot<S>(6, flo, fhi" in line
+    assert "sizeof(S) == 4 ? flo : fhi" in fault and phases == ("26",)
