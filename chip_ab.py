@@ -13,27 +13,33 @@ of that checkout: "3d" (the default) ms a step of K9c, K9h and K9s
 (configuration 5; K9c at 256^3 too), K12d (the sharded K9 on configuration
 5 over a (4, 1) local mesh, ms a call of one step), K9t (the coupled
 probe, f32 and bf16 flow storage), K12d coupled (the sharded K9t on the
-probe over (4, 1)), K11 (basic3d), K10 (probe_sc3d, f32 and bf16), K12e
+probe over (4, 1)), K11 (basic3d, f32 from the rest state and from
+chip_smoke.py's perturbed start, bf16; f32 at 256^3 too), K10 (probe_sc3d,
+f32 and bf16), K12e
 (the sharded K10 on probe_sc3d over (4, 1), T = 1) and K10-T at T = 2 (ms a
 time step), at 128^3 in f32 unless named;
 "2d" ms a step of the Shan-Chen K8 and of K8-T at T = 4 on
 bench_all.py's configs 2 and 3 at 1024^2 in f32, and of K8 with four
 fluids (the runtime-K instance) at 1024^2; "3dT" ms a time step of the 3-D
 T-step kernels at 128^3: K10-T (probe_sc3d) in f32 and bf16 and K9-Tc,
-K9-Th and K9-Ts (configuration 5) at T = 2 and 4, and K11-T (basic3d) at
-T = 4; "2dT" ms a time step of the 2-D colour-gradient T-step kernels at
+K9-Th and K9-Ts (configuration 5) at T = 2 and 4, and K11-T (basic3d) in
+f32 and bf16 at T = 2 and 4; "2dT" ms a time step of the 2-D colour-gradient T-step kernels at
 1024^2, the models of chip_smoke.py's phases 49 and 55: K3c, K3h and K3s
 of both variants (the CSF flagship and the Perturbation flagship) and
 K5c-Tc, K5c-Th and K5c-Ts (configuration 4) at T = 2 and 4; "bits" no
-times but whether the two checkouts' kernels give the same bits: K10 and
-K9t after 10 steps on this checkout's cases (chip_smoke.py's SC3D_CASES
-and CG3D_TRANSPORT_CASES but the grain pack) in f64, f32 and bf16, then
-K10 in f32 with both libraries built with -fmad=false, one line each with
-K10's largest |difference| between the checkouts (bf16 decoded as stored);
-"sass" no times but each kernel of the 3-D one-step libraries (SASS_LIBS)
-as cuobjdump prints it from both checkouts' builds: its instructions
-(addresses and encodings dropped) equal or not, their count and its
-registers in each, one JSON line a library.  The turns go
+times but whether the two checkouts' kernels give the same bits: K10, K11
+and K9t after 10 steps and K11-T after two calls of T = 4 on this
+checkout's cases (chip_smoke.py's SC3D_CASES, SINGLE3D_CASES and
+CG3D_TRANSPORT_CASES but the grain pack) in f64, f32 and bf16, then K10,
+K11 and K11-T in f32 with both checkouts' libraries built with
+-fmad=false, one line each with the largest |difference| of K10, K11 and
+K11-T between the checkouts (bf16 decoded as stored);
+"sass" no times but each kernel of the 3-D one-step libraries and of the
+3-D single-phase and Shan-Chen T-step libraries (SASS_LIBS) as cuobjdump
+prints it from both checkouts' builds: its instructions (addresses and
+encodings dropped) equal or not, their count and its registers in each (a
+kernel this checkout renamed beside the one it replaces, RENAMED), one JSON
+line a library.  The turns go
 other, this, this, other (ROUNDS times, default 1), so that a drift of the
 card's clock shows in both.  Prints one JSON line a turn, then one with
 each kernel's median over the turns of each checkout, and one with each
@@ -59,6 +65,8 @@ from openlbmpm_torch.parallel import make_mesh
 build.load_libraries(("cg3d_f32", "cg3d_bf16", "cg3d_local_f32",
                       "flow3d_f32", "flow3d_bf16", "flow3d_local_f32",
                       "flow3d_block_f32"))
+# "K11" from the rest state, as earlier turns timed it; "K11 start" from
+# chip_smoke.py's perturbed start (phase 39's)
 dev = torch.device("cuda", 0)
 out = {}
 m = cs.config5_model(dev)
@@ -97,6 +105,17 @@ del st, step
 m = cs.basic3d_model(dev)
 out["K11"] = cs._time_steps(lambda f: flow3d.single3d_step(f, m),
                             m.init_state(), 50, dev)
+f = cs.flow_start(m, seed=5)
+out["K11 start"] = cs._time_steps(lambda f: flow3d.single3d_step(f, m), f,
+                                  50, dev)
+mh = cs.basic3d_model(dev, storage="bf16")
+out["K11 bf16"] = cs._time_steps(lambda f: flow3d.single3d_step(f, mh),
+                                 mh.pack_state_bf16(f), 50, dev)
+m = cs.basic3d_model(dev, n=256)
+out["K11 256^3"] = cs._time_steps(lambda f: flow3d.single3d_step(f, m),
+                                  cs.flow_start(m, seed=5), 20, dev)
+del m, mh, f
+torch.cuda.empty_cache()
 m = cs.probe_sc3d_model(dev)
 f = cs.probe_sc3d_start(m)
 out["K10"] = cs._time_steps(lambda f: flow3d.sc3d_step(f, m), f, 50, dev)
@@ -157,9 +176,13 @@ for key, mm, x, kern in (
         out[f"K9-T{key} T={t}"] = cs._time_steps(
             lambda y: kern(y, mm, t), x, 24 // t, dev) / t
 m = cs.basic3d_model(dev)
-out["K11-T T=4"] = cs._time_steps(
-    lambda y: flow3d.single3d_block_step(y, m, 4), m.init_state(), 25,
-    dev) / 4
+mh = cs.basic3d_model(dev, storage="bf16")
+f = cs.flow_start(m, seed=5)
+for key, mm, x in (("", m, f), (" bf16", mh, mh.pack_state_bf16(f))):
+    for t in (2, 4):
+        out[f"K11-T{key} T={t}"] = cs._time_steps(
+            lambda y: flow3d.single3d_block_step(y, mm, t), x, 48 // t,
+            dev) / t
 print(json.dumps({k: v * 1e3 for k, v in out.items()}))
 """
 TURN_2DT = r"""
@@ -188,12 +211,13 @@ for (label, family, key, m, x, step1, kern, plain,
     del m, x
 print(json.dumps({k: v * 1e3 for k, v in out.items()}))
 """
-# "bits": the outputs of 10 steps of K10 (this checkout's SC3D_CASES) and
-# K9t (its CG3D_TRANSPORT_CASES but the grain pack) in f64, f32 and bf16, a
-# SHA-256 each, and of K10 in f32 built with -fmad=false (no a * b + c
-# contracted into an FMA), so that equal hashes show equal bits; K10's
-# states also go to a file, so that the two checkouts' largest difference
-# is printed
+# "bits": the outputs of 10 steps of K10 (this checkout's SC3D_CASES), K11
+# (its SINGLE3D_CASES) and K9t (its CG3D_TRANSPORT_CASES but the grain
+# pack) and of two calls of K11-T at T = 4 in f64, f32 and bf16, a SHA-256
+# each, and of K10, K11 and K11-T in f32 built with -fmad=false (no a * b +
+# c contracted into an FMA), so that equal hashes show equal bits; the
+# K10, K11 and K11-T states also go to a file, so that the two checkouts'
+# largest difference is printed
 TURN_BITS = r"""
 import hashlib, importlib.util, json, sys, torch
 spec = importlib.util.spec_from_file_location("cases", sys.argv[1])
@@ -202,6 +226,8 @@ spec.loader.exec_module(cs)
 from openlbmpm_torch.kernels import build, cg3d, flow3d
 if sys.argv[2] == "nofma":
     build.EXTRA_FLAGS["flow3d_f32"] = ("-fmad=false",)
+    build.EXTRA_FLAGS["flow3d_block_f32"] = ("-fmad=false",)
+from openlbmpm_torch.models.flow3d import SinglePhaseD3Q19
 dev = torch.device("cuda", 0)
 sha = lambda ts: hashlib.sha256(b"".join(
     t.detach().contiguous().cpu().view(torch.uint8).numpy().tobytes()
@@ -219,6 +245,20 @@ for dtype, storage in kinds:
             x = flow3d.sc3d_step(x, m)
         out[f"K10 {tag} {name}"] = sha((x,))
         states[f"K10 {tag} {name}"] = x.float().cpu()
+    for name, (collision, force) in cs.SINGLE3D_CASES.items():
+        m = SinglePhaseD3Q19(cs._walls_y((48, 40, 32), obstacle=True),
+                             tau=0.8, collision=collision, body_force=force,
+                             dtype=dtype, device=dev, storage=storage)
+        f = cs.flow_start(m, seed=len(name))
+        x0 = m.pack_state_bf16(f) if storage == "bf16" else f
+        for fam, fn, calls in (("K11", flow3d.single3d_step, 10),
+                               ("K11-T", lambda y, m: flow3d.
+                                single3d_block_step(y, m, 4), 2)):
+            x = x0
+            for _ in range(calls):
+                x = fn(x, m)
+            out[f"{fam} {tag} {name}"] = sha((x,))
+            states[f"{fam} {tag} {name}"] = x.float().cpu()
     if sys.argv[2] == "nofma":
         continue
     for name in cs.CG3D_TRANSPORT_CASES:
@@ -237,7 +277,16 @@ print(json.dumps(out))
 # name): the instructions without addresses and encodings, and registers
 SASS_LIBS = ("cg3d_f64", "cg3d_f32", "cg3d_bf16", "cg3d_local_f64",
              "cg3d_local_f32", "flow3d_f64", "flow3d_f32", "flow3d_bf16",
-             "flow3d_local_f64", "flow3d_local_f32")
+             "flow3d_local_f64", "flow3d_local_f32", "flow3d_block_f64",
+             "flow3d_block_f32", "flow3d_block_bf16")
+# kernels this checkout renamed: (pattern of this checkout's name, the
+# other's name it replaces, from the pattern's groups: the storage type
+# and the collision): K11's push for march_kernel with one fluid, K11-T's
+# march for the brick-window kernel
+RENAMED = ((r"^18single_push_kernelI(\w)Li(\d)EE",
+            r"^12march_kernelI{0}Li{1}ELi1E"),
+           (r"^21single3d_march_kernelI(\w+?)Li(\d)EE",
+            r"^19flow3d_block_kernelI{0}Li{1}ELi1E"))
 TURN_SASS = r"""
 import json, re, subprocess, sys
 from openlbmpm_torch.kernels import build
@@ -247,8 +296,11 @@ tool = build._nvcc().replace("nvcc", "cuobjdump")
 out = {}
 for lib in libs:
     so = str(build.BUILD_DIR / f"lib{lib}-{build._digest(lib)}.so")
-    key = lambda name: re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]+", "",
-                              name)
+    def key(name):
+        # the anonymous namespace's tag is the first component, its
+        # length the digits after _ZN
+        m = re.match(r"_ZN(\d+)_GLOBAL__N_", name)
+        return name[m.end(1) + int(m.group(1)):] if m else name
     code, fn = {}, None
     for ln in subprocess.run([tool, "-sass", so], capture_output=True,
                              text=True, check=True).stdout.splitlines():
@@ -270,6 +322,21 @@ print(json.dumps(out))
 """
 TURNS = {"3d": TURN, "2d": TURN_2D, "3dT": TURN_3DT, "2dT": TURN_2DT,
          "bits": TURN_BITS, "sass": TURN_SASS}
+
+
+def partner(fn: str, other: dict):
+    """The other checkout's kernel that `fn` (a key of this checkout's
+    SASS) stands beside: the same name, or the one a RENAMED entry names;
+    None where there is none."""
+    import re
+    if fn in other:
+        return fn
+    for mine, theirs in RENAMED:
+        m = re.match(mine, fn)
+        if m:
+            pat = theirs.format(*m.groups())
+            return next((k for k in other if re.match(pat, k)), None)
+    return None
 
 
 def turn(where: Path, family: str = "3d", args=()) -> dict:
@@ -298,12 +365,18 @@ def main(argv=None) -> int:
                for name in ("other", "this")}
         for lib in SASS_LIBS:
             this, that = got["this"][lib], got["other"][lib]
+            pair = {fn: partner(fn, that) for fn in this}
             print(json.dumps({"library": lib, "kernels": {
                 fn: {"identical": fn in that and that[fn][0] == code,
-                     "instructions": [n, that[fn][1] if fn in that else None],
-                     "registers": [regs, that[fn][2] if fn in that else None]}
+                     "instructions": [n, that[pair[fn]][1] if pair[fn]
+                                      else None],
+                     "registers": [regs, that[pair[fn]][2] if pair[fn]
+                                   else None]} | (
+                    {"replaces": pair[fn]} if pair[fn] != fn and pair[fn]
+                    else {})
                 for fn, (code, n, regs) in sorted(this.items())},
-                "only_other": sorted(set(that) - set(this))}), flush=True)
+                "only_other": sorted(set(that) - set(this) -
+                                     set(pair.values()))}), flush=True)
         return 0
     if family == "bits":
         import tempfile
@@ -318,7 +391,7 @@ def main(argv=None) -> int:
                         for name in ("this", "other"))
                 print(json.dumps({"build": mode, "equal": {
                     k: got["this"][k] == got["other"].get(k)
-                    for k in got["this"]}, "K10 max_abs_diff": {
+                    for k in got["this"]}, "max_abs_diff": {
                     k: float((a[k] - b[k]).abs().max()) for k in a
                     if k in b}}), flush=True)
         return 0

@@ -6,7 +6,8 @@ phase 26 (benchmarks/probe_coupled3d.py's configuration at 128^3), the
 single-phase D2Q9 kernel (K7) under phase 31 (the analytic Poiseuille
 profile), the D3Q19 Shan-Chen kernel (K10) under phases 36 and 37
 (benchmarks/probe_sc3d.py's configuration) and the Perturbation kernel
-(K4) under phase 41 (the pert flagship at 1024^2); ten faults that
+(K4) under phase 41 (the pert flagship at 1024^2), and the D3Q19
+single-phase push (K11) under phase 33 (its f64 cases); ten faults that
 only the T-step kernels can show: the colour-gradient K3's row-march under
 phase 48 (the flagships at 1024^2 in f32) and phase 45 (its f64 cases;
 twice, once in the Perturbation variant's body),
@@ -45,7 +46,8 @@ drop the adhesion term, which only wall-adjacent cells carry, in the
 float-arithmetic instances (f32 and bf16 storage: the shared collision
 knows only its compute type), or push a post-collision value bounced back
 from a solid neighbour into the cell's slot i instead of opp(i) in the f32
-instance; the K4 fault drops the 1/sqrt(2) of the diagonal recolouring
+instance; the K11 fault does the same in K11's push, in the f64 instance;
+the K4 fault drops the 1/sqrt(2) of the diagonal recolouring
 segment in the float-arithmetic instances (K4c f32, K4h, K4s f32; the
 Perturbation K3 shares the line). The T-step faults: K3's row-march
 rewrites the boundary rows of level 0 only (not before the later steps of
@@ -58,8 +60,9 @@ Zou-He outlet row by window row instead of global row, in its f64
 instance; K7-T rewrites the rows after the first sub-step only, in its f64
 instance; K5c-T's row-march maps the tracer stream's unwrapped rows to
 global rows without the wrap (the tracer's inlet and outlet rows
-recomputed across the seam are missed), K11-T streams in the first
-sub-step only, K10-T's z-march skips the slabs it recomputes below the
+recomputed across the seam are missed), K11-T's stream-and-collide stage
+pulls from the slab above where it should pull from the slab below,
+K10-T's z-march skips the slabs it recomputes below the
 periodic seam (u < 0), and K9-T's march picks the inlet's boundary slabs
 by its unwrapped slab instead of the domain's (the recomputed copy of slab
 nz - 2 below the seam misses its rewrite), K10-T's library states a launch
@@ -87,6 +90,8 @@ f64 instance:
                  fail;
   K10 push target f32  flow3d.cuh, float32 storage: phases 36 (its f32
                  part) and 37 must fail;
+  K11 push target f64  flow3d.cuh, float64 storage: phase 33 must fail,
+                 phases 36 (K10's push) and 53 (K11-T) pass;
   K4 diag f32    pert2d.cuh, float arithmetic: phase 41 must fail;
   K3 bc once     march2d.cuh, float32 storage: phase 48 must fail,
                  phases 4 and 41 (K1, K4) pass;
@@ -100,7 +105,7 @@ f64 instance:
                  phase 29 (K7) passes;
   K5c-T window rows  march2d.cuh, float64 arithmetic: phase 52 must
                  fail, phases 6 and 11 (K5c, K5s) pass;
-  K11-T swap once    flow3d_block.cuh, float64 storage: phase 53 must
+  K11-T march pull z flow3d_block.cuh, float64 storage: phase 53 must
                  fail, phase 33 (K11) passes;
   K10-T seam skipped flow3d_block.cuh, float64 storage: phase 53 must
                  fail, phase 36 (K10) passes;
@@ -159,6 +164,11 @@ K10P_LINE = ("          p[(opp(i) - i) * (ptrdiff_t)n] = post;   // bounced back
              "from the solid x + e_i")
 K10P_FAULT = ("          p[((sizeof(S) == {size} ? i : opp(i)) - i) * "
               "(ptrdiff_t)n] = post;")
+# K11's push: the same fault in single_push_kernel
+K11P_LINE = ("        p[(opp(i) - i) * (ptrdiff_t)n] = v;   // bounced back "
+             "from the solid x + e_i")
+K11P_FAULT = ("        p[((sizeof(S) == {size} ? i : opp(i)) - i) * "
+              "(ptrdiff_t)n] = v;")
 K7_LINE = "      post[i] = (FORCE ? F[i] + src[i] : F[i]) - c;"
 K7_FAULT = ("      post[i] = (FORCE && sizeof(S) != {size} ? F[i] + src[i] : "
             "F[i]) - c;")
@@ -188,9 +198,14 @@ K8T_FAULT = ("              if ((sizeof(S) == {size} ? ly : wrap(oy + ly, ny)) "
 K5CT_LINE = "  __device__ int row(int y) const { return mwrap(y, ny); }"
 K5CT_FAULT = ("  __device__ int row(int y) const {{ return "
               "sizeof(C) == {size} ? y : mwrap(y, ny); }}")
-K11T_LINE = "      swap_stream(W, PL, K, FL, r);"
-K11T_FAULT = ("      if (sub == 0 || MODE == kShanChen || sizeof(S) != {size}) "
-              "swap_stream(W, PL, K, FL, r);")
+# K11-T's stream-and-collide stage: post_{s-1} pulled from slab z + 1 where
+# the streamed value comes from slab z - 1 (and back), the last stream
+# stage untouched
+K11T_LINE = ("      const int src = up ? PO.cell(-ez(i), -ey(i), -ex(i)) : "
+             "PO.cell(0, 0, 0);")
+K11T_FAULT = ("      const int src = up ? PO.cell((stage == kStageStreamCollide "
+              "&& sizeof(S) == {size} ? 1 : -1) * ez(i), -ey(i), -ex(i)) : "
+              "PO.cell(0, 0, 0);")
 K10T_LINE = "  const int kind = c.kind();"
 K10T_FAULT = ("  const int kind = sizeof(S) == {size} && c.u < 0 ? -1 : "
               "c.kind();")
@@ -228,6 +243,8 @@ CASES = {
                     ("37",)),
     "K10 push target f32": ("flow3d.cuh", K10P_LINE, K10P_FAULT.format(size=4),
                             ("36", "37")),
+    "K11 push target f64": ("flow3d.cuh", K11P_LINE, K11P_FAULT.format(size=8),
+                            ("33",)),
     "K4 diag f32": ("pert2d.cuh", K4_LINE, K4_FAULT.format(size=4), ("41",)),
     "K3 bc once": ("march2d.cuh", K3_LINE, K3_FAULT.format(size=4),
                    ("48",)),
@@ -241,8 +258,8 @@ CASES = {
                      K7T_FAULT.format(size=8), ("47",)),
     "K5c-T window rows": ("march2d.cuh", K5CT_LINE,
                           K5CT_FAULT.format(size=8), ("52",)),
-    "K11-T swap once": ("flow3d_block.cuh", K11T_LINE,
-                        K11T_FAULT.format(size=8), ("53",)),
+    "K11-T march pull z": ("flow3d_block.cuh", K11T_LINE,
+                           K11T_FAULT.format(size=8), ("53",)),
     "K10-T seam skipped": ("flow3d_block.cuh", K10T_LINE,
                            K10T_FAULT.format(size=8), ("53",)),
     "K9-T march z": ("cg3d_block.cuh", K9T_LINE, K9T_FAULT.format(size=8),
@@ -266,7 +283,8 @@ MUST_PASS = {"K3 bc once": ("4", "41"), "K3 march trigger": ("4", "41"),
              "K3 pert march": ("40", "41"),
              "K10-T limit raise": ("53",), "K8-T local row": ("15",),
              "K7-T bc once": ("29",), "K5c-T window rows": ("6", "11"),
-             "K11-T swap once": ("33",), "K10-T seam skipped": ("36",),
+             "K11-T march pull z": ("33",), "K10-T seam skipped": ("36",),
+             "K11 push target f64": ("36", "53"),
              "K9-T march z": ("20", "21"), "K8 rt tau": ("15",),
              "K12 row0": ("45",), "K12d slab index": ("20", "21"),
              "K12e rho short": ("36",), "K12c inlet row": ("46",)}

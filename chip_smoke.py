@@ -252,9 +252,9 @@ toolkit (nvcc) and PyTorch built for CUDA; JAX is not needed.  Phases:
      1e-11 (the row-march); the line gives the flagship flow's layouts at
      T = 4;
  53. f64: the T-step D3Q19 kernels K11-T (every case of SINGLE3D_CASES) and
-     K10-T (K = 1, 2, 3: BLOCK_SC3D_CASES) on 48x40x32, T = 2, 3, 4, K10-T
+     K10-T (K = 1, 2, 3: BLOCK_SC3D_CASES) on 48x40x32, T = 2, 3, 4, each
      on the wrapper's plan and on a plan in three y-bands whose last
-     overhangs ny; <= 1e-11;
+     overhangs ny, K11-T also at 1 and 2 slabs a wave; <= 1e-11;
  54. the new T-step kernels at full size, T = 2 and 4, 8 steps (3-D: 4)
      against their plain versions: K5c-T at config 4 (1024^2) compressed f32 and
      bf16 and split f32 within phase 7's bounds off the seam, K11-T at
@@ -3665,13 +3665,15 @@ def phase_flow_cli(device, steps=1000):
 
 
 # the kernels a step launches once each, by storage (the libraries'
-# counts, kernel_launches): K11 march_kernel; K10 sc_push_kernel in f32
-# (and f64) storage, rho_kernel and march_kernel in bf16
-FLOW3D_STEP_KERNELS = {"K11": {"f32": ("march_kernel",),
+# counts, kernel_launches): K11 single_push_kernel in f32 (and f64)
+# storage, march_kernel in bf16; K10 sc_push_kernel in f32 (and f64)
+# storage, rho_kernel and march_kernel in bf16
+FLOW3D_STEP_KERNELS = {"K11": {"f32": ("single_push_kernel",),
                                "bf16": ("march_kernel",)},
                        "K10": {"f32": ("sc_push_kernel",),
                                "bf16": ("rho_kernel", "march_kernel")}}
-FLOW3D_KERNELS = ("sc_push_kernel", "rho_kernel", "march_kernel")
+FLOW3D_KERNELS = ("sc_push_kernel", "rho_kernel", "march_kernel",
+                  "single_push_kernel")
 # least bytes per cell-step: the state in and out plus a 1-byte mask: K11
 # f32 2 x 76 + 1, bf16 2 x 42 + 1; K10 with two fluids twice the state
 FLOW3D_BYTES = {"K11": {"f32": 2 * 76 + 1, "bf16": 2 * 42 + 1},
@@ -4258,7 +4260,9 @@ def ptxas_summary(log: str, sc: bool = False) -> str:
         if m:
             mangled = m.group(1)
             base = next((k for k in COUPLED_KERNELS + SC_KERNELS +
-                         TRANSPORT3D_KERNELS + FLOW3D_KERNELS +
+                         TRANSPORT3D_KERNELS + ("single3d_march_kernel",
+                                                "sc3d_march_kernel") +
+                         FLOW3D_KERNELS +
                          tuple(BLOCK_KERNEL_NAMES.values()) +
                          MARCH2D_KERNEL_NAMES +
                          ("bc_rows_kernel", "pert_kernel") if k in mangled),
@@ -5114,18 +5118,28 @@ def block_sc3d_case(name, device, shape=(48, 40, 32), dtype=torch.float64):
     return m, flow_start(m, seed=9, k=1)
 
 
-def banded_march(m, steps, split=None):
+def banded_march(m, steps, split=None, slabs_per_wave=None):
     """A z-march plan in y-bands for the f64 model `m` and `steps` steps,
-    with its table on the model's card: K10-T's (`split` None, `m` a
-    ShanChenMCMP3D) or K9-T's (`m` a ColorGradientRK3D, the split layout or
-    the compressed one).  The bands are banded_rows(ny) high, so there are
-    three and the last overhangs ny; the wrappers' plans cut no bands below
-    their ring budget of 4 GiB, so phases 53 and 60 run these through
-    march_call."""
+    with its table on the model's card: K11-T's (`m` a SinglePhaseD3Q19),
+    K10-T's (`split` None, `m` a ShanChenMCMP3D) or K9-T's (`m` a
+    ColorGradientRK3D, the split layout or the compressed one).  The bands
+    are banded_rows(ny) high, so there are three and the last overhangs ny;
+    the wrappers' plans cut no bands below their ring budget of 4 GiB, so
+    phases 53 and 60 run these through march_call.  `slabs_per_wave` (K11-T
+    only) None: the bands at the wrapper's slabs a wave; a number: one band
+    at that many slabs a wave."""
     from openlbmpm_torch.kernels import march3d
+    from openlbmpm_torch.models.flow3d import SinglePhaseD3Q19
     p = m.kernel_params
     shape = (p.nz, p.ny, p.nx)
-    if split is None:
+    if isinstance(m, SinglePhaseD3Q19):
+        if slabs_per_wave is not None:
+            plan = march3d.single3d_march_plan(shape, steps, 8,
+                                               slabs_per_wave)
+            return plan, plan.tensor().to(m.fluid_u8.device)
+        plan = march3d.single3d_march_plan(shape, steps, 8,
+                                           band_rows=banded_rows(p.ny))
+    elif split is None:
         plan = march3d.sc3d_march_plan(shape, p.k, steps, 8,
                                        band_rows=banded_rows(p.ny))
     else:
@@ -5145,18 +5159,19 @@ def banded_rows(ny: int) -> int:
 
 
 def march_call(x, m, steps, plan, table):
-    """One launch of K10-T (`x` a Shan-Chen state) or K9-T (a compressed
-    state, or the split pair) on `plan` and its `table`, the tensors as the
-    wrappers hand them to the kernel.  Not counted as a launch."""
+    """One launch of K11-T (`x` a single-phase state), K10-T (a Shan-Chen
+    state) or K9-T (a compressed state, or the split pair) on `plan` and its
+    `table`, the tensors as the wrappers hand them to the kernel.  Not
+    counted as a launch."""
     from openlbmpm_torch.kernels import cg3d as k9
     from openlbmpm_torch.kernels import flow3d as kf
     from openlbmpm_torch.kernels import march3d
     p = m.kernel_params
-    if plan.family == "sc":
+    if plan.family in ("sc", "single"):
         f = x.contiguous()
         out = torch.empty_like(f)
-        march3d.march_launch(kf._BLOCK_LIBS[f.dtype], "sc3d", (steps,),
-                             (f, out, m.fluid_u8), plan, table, p)
+        march3d.march_launch(kf._BLOCK_LIBS[f.dtype], kf._PREFIX[
+            plan.family], (steps,), (f, out, m.fluid_u8), plan, table, p)
         return out
     split = not torch.is_tensor(x)
     if split:
@@ -5176,8 +5191,9 @@ def phase_block3d_f64(device, calls=2, tol=1e-11):
     """K11-T and K10-T against T plain steps at f64 on 48 x 40 x 32 (walls
     along y), T = 2, 3, 4, two calls in a row: every case of SINGLE3D_CASES
     (SRT and TRT, with and without the body force, an obstacle) and of
-    BLOCK_SC3D_CASES (K = 1, 2, 3); K10-T once on the wrapper's plan and
-    once on banded_march's, three y-bands of 16 rows."""
+    BLOCK_SC3D_CASES (K = 1, 2, 3); each once on the wrapper's plan and
+    once on banded_march's, three y-bands of 16 rows; K11-T also on one
+    band at 1 and 2 slabs a wave (the wrapper's plan has more)."""
     from openlbmpm_torch.kernels import flow3d as kf
     res = {}
     for tag, names in (("K11-T", SINGLE3D_CASES), ("K10-T", BLOCK_SC3D_CASES)):
@@ -5193,10 +5209,13 @@ def phase_block3d_f64(device, calls=2, tol=1e-11):
             for t in BLOCK_TS:
                 b = _steps(lambda x: plain(x, m, t), f, calls)
                 runs = {name: lambda x: kern(x, m, t)}
-                if tag == "K10-T":
-                    plan, table = banded_march(m, t)
-                    runs[f"{name} banded"] = lambda x: march_call(
-                        x, m, t, plan, table)
+                plans = {"banded": banded_march(m, t)}
+                if tag == "K11-T":
+                    plans |= {f"Z={z}": banded_march(m, t, slabs_per_wave=z)
+                              for z in (1, 2)}
+                for pk, (plan, table) in plans.items():
+                    runs[f"{name} {pk}"] = lambda x, plan=plan, \
+                        table=table: march_call(x, m, t, plan, table)
                 for key, fn in runs.items():
                     a = _steps(fn, f, calls)
                     err = _gap(a, b)
@@ -5313,7 +5332,7 @@ def phase_block_full_3(device, n=FLAGSHIP_N, steps=8, sizes=(128, 256),
 # launch_times (the cooperative marches, coupled_march_kernel and
 # sc3d_march_kernel)
 BLOCK3_KERNEL_NAMES = {"K5c-T": None,
-                       "K11-T": "flow3d_block_kernel",
+                       "K11-T": None,
                        "K10-T": None}
 # least bytes per cell and time step at T = 1 (each input read once, each
 # output written once): the T=1 kernel's, K5c (one f32 D2Q5 tracer) in its
@@ -5587,9 +5606,9 @@ def phase_cli_default_3(device, n=FLAGSHIP_N, steps=1000, tr_steps=500):
 def layout_text(g, t) -> str:
     """One launch's layout for a phase line: the row-march's waves, rows a
     wave (Z), ring MB, cooperative grid and lag (K3 CSF, K5c-T); the
-    z-march's plan (K10-T, K9-T: bands of rows plus halo, the rings' MB,
-    the grid, the waves and the lag); a 2-D window's tile, KB and memory
-    (K3 Perturbation, K8-T, K7-T); else the tiling as JSON (K11-T)."""
+    z-march's plan (K11-T, K10-T, K9-T: bands of rows plus halo, the rings'
+    MB, the grid, the waves and the lag); a 2-D window's tile, KB and
+    memory (K3 Perturbation, K8-T, K7-T); else the tiling as JSON."""
     if g.get("march") == "rows":
         return (f"row-march T={t}: {g['waves']} waves of "
                 f"{g['slabs_per_wave']} rows, rings "
@@ -5638,11 +5657,17 @@ def phase52_57_lines(r52, r53, r54, r55, r56, r57, r12, r38, card):
                               ("dirichlet_convective", "f32"))) +
         f" over {len(r52)} runs (<= 1e-11); " + layouts_text(52),
         "phase 53 K11-T / K10-T f64 (T = 2, 3, 4, two calls, 48x40x32; "
-        "SINGLE3D_CASES, BLOCK_SC3D_CASES K = 1, 2, 3): max |diff| K11-T "
-        f"{worst(r53, lambda k: k[0] == 'K11-T'):.3e}, K10-T "
-        f"{worst(r53, lambda k: k[0] == 'K10-T' and 'banded' not in k[1]):.3e}"
-        ", K10-T in three y-bands "
-        f"{worst(r53, lambda k: 'banded' in k[1]):.3e} over {len(r53)} runs "
+        "SINGLE3D_CASES, BLOCK_SC3D_CASES K = 1, 2, 3): max |diff| on the "
+        "wrappers' plans K11-T "
+        f"{worst(r53, lambda k: k[0] == 'K11-T' and ' ' not in k[1]):.3e}, "
+        "K10-T "
+        f"{worst(r53, lambda k: k[0] == 'K10-T' and ' ' not in k[1]):.3e}"
+        "; in three y-bands K11-T "
+        f"{worst(r53, lambda k: k[0] == 'K11-T' and 'banded' in k[1]):.3e}"
+        ", K10-T "
+        f"{worst(r53, lambda k: k[0] == 'K10-T' and 'banded' in k[1]):.3e}"
+        "; K11-T at 1 and 2 slabs a wave "
+        f"{worst(r53, lambda k: 'Z=' in k[1]):.3e} over {len(r53)} runs "
         "(<= 1e-11); " + layouts_text(53),
         f"phase 54 new T-step kernels at full size vs their plain versions, "
         f"8 steps (3-D 4) from one start [{card}]: " + "; ".join(
@@ -7636,9 +7661,8 @@ def phase_block_chunked(device, tol=1e-11, cli_tol=BLOCK_CLI_BOUND):
     lim = kf.flow3d_block_max_steps(torch.float64, "single")
     hold("K11-T trt_force", kf.single3d_block_step,
          kf.single3d_block_step_reference, flow_start(m), m, lim,
-         "bricks: " + json.dumps(kf.flow3d_block_tiling(
-             torch.float64, "single", m.kernel_params, lim),
-             separators=(",", ":")))
+         tiling_text({t: kf.flow3d_block_tiling(
+             torch.float64, "single", m.kernel_params, t) for t in (2, 4)}))
     m, f = block_sc3d_case("k2_walls_force", device)
     lim = kf.flow3d_block_max_steps(torch.float64, "sc")
     hold("K10-T k2_walls_force", kf.sc3d_block_step,

@@ -2,7 +2,7 @@
 """Sweep the z-march's knobs (K10-T and K9-T, ``csrc/march3d.cuh``) on a
 card and cost its stages; sweep K9's tiles; sweep the 2-D row-march.
 
-    python3 chip_sweep.py [knobs|stages|2dT|k9|k10|all] [TAG ...]
+    python3 chip_sweep.py [knobs|stages|2dT|k9|k10|k11|all] [TAG ...]
 
 Run from the repository root on a machine with a CUDA card and nvcc.
 "knobs": ms a time step at 128^3 in f32 of K10-T (probe_sc3d, K = 2) and
@@ -12,10 +12,10 @@ chip_smoke.march_call), and the resident blocks an SM the kernels ask
 ptxas for (1, 2, 3: copies of the sources with that number in the march
 kernels' ``__launch_bounds__``, their registers and spills from ptxas),
 CUDA events over each launch, from chip_smoke.py's models.
-"stages": the same two kernels at their defaults with one stage kind's body
-skipped (the results are wrong, the times say what each stage costs),
-beside the full kernel and the kernel with every body skipped (the waves
-and barriers alone).  "2dT": the 2-D row-march (K3c on the flagship, K5c-Tc
+"stages": the same two kernels and K11-T (basic3d, f32) at their defaults
+with one stage kind's body skipped (the results are wrong, the times say
+what each stage costs), beside the full kernel and the kernel with every
+body skipped (the waves and barriers alone).  "2dT": the 2-D row-march (K3c on the flagship, K5c-Tc
 on configuration 4, 1024^2 in f32, ``csrc/march2d.cuh``) at T = 2 and 4
 over rows a wave (16, 32, 64, 96, 128: ``march2d.ROWS_PER_WAVE``) and the
 resident blocks an SM (1, 2, 3, 4), beside the march with every body
@@ -44,8 +44,16 @@ of bf16 (rho_kernel and march_kernel) and of K12e's call on a (4, 1)
 local mesh at T = 1, over the resident blocks an SM the push asks ptxas
 for, its longest z-run and a fixed z-run (K10_EDITS), and with its ring
 fill or its collision skipped (wrong results; the times say what each
-costs).  TAGs after "k9"
-or "k10" keep only those variants.  The modes patch copies of ``openlbmpm_torch/csrc``
+costs).  "k11": K11-T (``single3d_march_kernel``) at 128^3 on basic3d in f32
+and bf16, ms a time step at T = 2 and 4 over slabs a wave (2, 4, 8: plans
+built here, launched through chip_smoke.march_call) and the resident blocks
+an SM the march asks ptxas for (2, 3, 4: K11_MARCH_EDITS), with the rings'
+MB; then K11's f32 push
+(``single_push_kernel``) at 128^3 and 256^3 over its tile height, slabs a
+thread and blocks an SM (K11_PUSH_EDITS), and at 128^3 from the rest
+state, from the rest state with a relative noise of 1e-6 and from
+chip_smoke.py's perturbed start.  TAGs after
+"k9", "k10" or "k11" keep only those variants.  The modes patch copies of ``openlbmpm_torch/csrc``
 in a temporary directory and build their libraries there; the sources in
 the repository stay as they are.  Prints the card and one line a
 measurement.
@@ -67,7 +75,7 @@ ROOT = Path(__file__).resolve().parent
 
 STAGES = {"load": "kStageLoad", "bc": "kStageBc", "extrap": "kStageExtrap",
           "normal": "kStageNormal", "collide": "kStageCollide",
-          "stream": "kStageStream"}
+          "stream": "kStageStream", "scollide": "kStageStreamCollide"}
 # the march kernels' resident blocks an SM, as the sources ask ptxas for them
 MIN_BLOCKS = {"flow3d_block.cuh": "sc3d_march_min_blocks<S>()",
               "cg3d_block.cuh": "cg3d_march_min_blocks<S, L>()"}
@@ -155,6 +163,23 @@ K10_EDITS = {
                     "    if (inside && P.nx < 0) push(z, up);"),
 }
 LIBS_K10 = ("flow3d_f32", "flow3d_bf16", "flow3d_local_f32")
+# K11-T's variants: tag -> (text, replacement) in flow3d_block.cuh: the
+# resident blocks an SM single3d_march_kernel asks ptxas for
+K11_MARCH_BOUNDS = "__launch_bounds__(kMarchThreads, single3d_march_min_blocks<S>())"
+K11_MARCH_EDITS = {f"m_b{b}": (K11_MARCH_BOUNDS, K11_MARCH_BOUNDS.replace(
+    "single3d_march_min_blocks<S>()", str(b))) for b in (2, 3, 4)}
+# K11's push variants: tag -> (text, replacement) in flow3d.cuh: the tile
+# height (4, 16 rows), slabs a thread (2, 4) and blocks an SM (the
+# compiler's choice, 3, 4)
+K11_PUSH_BOUNDS = "__launch_bounds__(SPUSH_THREADS, 2)\nsingle_push_kernel("
+K11_PUSH_EDITS = {
+    "s_ty4": ("constexpr int SPTY = 8;", "constexpr int SPTY = 4;"),
+    "s_ty16": ("constexpr int SPTY = 8;", "constexpr int SPTY = 16;"),
+    "s_z2": ("constexpr int SPZ = 1;", "constexpr int SPZ = 2;"),
+    "s_z4": ("constexpr int SPZ = 1;", "constexpr int SPZ = 4;")} | {
+    f"s_b{b}": (K11_PUSH_BOUNDS, K11_PUSH_BOUNDS.replace(
+        ", 2)", ")" if b == 1 else f", {b})")) for b in (1, 3, 4)}
+LIBS_K11T = ("flow3d_block_f32", "flow3d_block_bf16")
 # the executor's call of a family's body for one cell of one stage
 BODY_CALL = "        body(c);\n"
 
@@ -222,22 +247,25 @@ def _variants(build, out: Path, jobs: dict, names=LIBS_3D) -> dict:
 def _use(M, kf, k9, lib: str, so) -> None:
     """Point the march launcher's entry points of `lib` at `so`."""
     from openlbmpm_torch.kernels import csf, transport
-    prefix, ints, ptrs, pt = {
-        "flow3d": ("sc3d", 1, 3, kf.Flow3dParams),
-        "cg3d_b": ("cg3d", 2, 5, k9.Cg3dParams),
-        "csf2d_": ("csf2d", 2, 5, csf.CsfParams),
-        "couple": ("coupled2d", 2, 8, transport.CoupledParams)}[lib[:6]]
-    step = getattr(so, f"{prefix}_march_step")
-    step.argtypes = [ctypes.c_int] * ints + [ctypes.c_void_p] * (ptrs + 2) + \
-        [ctypes.POINTER(pt), ctypes.c_void_p]
-    step.restype = ctypes.c_int
-    grid = getattr(so, f"{prefix}_march_grid")
-    grid.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-    grid.restype = ctypes.c_int
-    err = getattr(so, f"{M._ERROR_PREFIX[prefix]}_block_error_string")
-    err.argtypes = [ctypes.c_int]
-    err.restype = ctypes.c_char_p
-    M._fns[lib] = (step, grid, err)
+    for prefix, ints, ptrs, pt in {
+            "flow3d": (("sc3d", 1, 3, kf.Flow3dParams),
+                       ("single3d", 1, 3, kf.Flow3dParams)),
+            "cg3d_b": (("cg3d", 2, 5, k9.Cg3dParams),),
+            "csf2d_": (("csf2d", 2, 5, csf.CsfParams),),
+            "couple": (("coupled2d", 2, 8, transport.CoupledParams),)}[
+                lib[:6]]:
+        step = getattr(so, f"{prefix}_march_step")
+        step.argtypes = [ctypes.c_int] * ints + \
+            [ctypes.c_void_p] * (ptrs + 2) + \
+            [ctypes.POINTER(pt), ctypes.c_void_p]
+        step.restype = ctypes.c_int
+        grid = getattr(so, f"{prefix}_march_grid")
+        grid.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        grid.restype = ctypes.c_int
+        err = getattr(so, f"{M._ERROR_PREFIX[prefix]}_block_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        M._fns[(lib, prefix)] = (step, grid, err)
 
 
 def _k9_source(dest: Path, knobs: dict, edit=None) -> Path:
@@ -376,6 +404,71 @@ def sweep_k10(cs, build, kf, dev, emit, tags=()) -> None:
     kf._local_cache.clear()
 
 
+def sweep_k11(cs, build, M, kf, k9, dev, emit, tags=()) -> None:
+    """The "k11" mode: K11-T at 128^3 over slabs a wave and K11_MARCH_EDITS,
+    and K11's f32 push at 128^3 and 256^3 over K11_PUSH_EDITS (only `tags`
+    and "base" where `tags` are given)."""
+    import torch
+    keep = lambda tag: not tags or tag in tags
+    shape = (128,) * 3
+    m = cs.basic3d_model(dev)
+    mh = cs.basic3d_model(dev, storage="bf16")
+    f = cs.flow_start(m, seed=5)
+    xs = {"f32": (m, f), "bf16": (mh, mh.pack_state_bf16(f))}
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs = {"base": (_patched(build.SRC_DIR, Path(tmp, "base"), {}), [])}
+        jobs |= {tag: (_patched(build.SRC_DIR, Path(tmp, tag),
+                                {"flow3d_block.cuh": edit}), [])
+                 for tag, edit in K11_MARCH_EDITS.items() if keep(tag)}
+        libs = _variants(build, Path(tmp, "lib"), jobs, LIBS_K11T)
+        pjobs = {"base": jobs["base"]}
+        pjobs |= {tag: (_patched(build.SRC_DIR, Path(tmp, tag),
+                                 {"flow3d.cuh": edit}), [])
+                  for tag, edit in K11_PUSH_EDITS.items() if keep(tag)}
+        plibs = _variants(build, Path(tmp, "plib"), pjobs, ("flow3d_f32",))
+        for (lib, tag), (_, report) in sorted((libs | plibs).items()):
+            emit(library=lib, variant=tag, **report)
+        for tag in jobs:
+            for lib in LIBS_K11T:
+                _use(M, kf, k9, lib, libs[(lib, tag)][0])
+            for t in (2, 4):
+                for z in (2, 4, 8):
+                    plan = M.single3d_march_plan(shape, t, 4, z)
+                    table = plan.tensor().to(dev)
+                    for st, (mm, x) in xs.items():
+                        emit(kernel=f"K11-T {st}", T=t, variant=tag,
+                             slabs_per_wave=z,
+                             rings_mb=plan.scratch_bytes / 2 ** 20,
+                             ms_a_step=cs._time_steps(
+                                 lambda y: cs.march_call(y, mm, t, plan,
+                                                         table),
+                                 x, max(48 // t, 4), dev) / t * 1e3)
+        M._fns.clear()
+        big = cs.basic3d_model(dev, n=256)
+        fb = cs.flow_start(big, seed=5)
+        rest = m.init_state()
+        # the rest state with a relative noise of 1e-6: no exact zeros in
+        # the momenta and the relaxations' numerators
+        noisy = rest * (1 + 1e-6 * torch.rand(rest.shape, device=dev,
+                                              generator=torch.Generator(
+                                                  device=dev).manual_seed(0)))
+        for tag in pjobs:
+            _use_k10(kf, build, "flow3d_f32", plibs[("flow3d_f32", tag)][0])
+            for n, mm, x in ((128, m, f), (256, big, fb)):
+                emit(kernel=f"K11 f32 {n}^3", variant=tag,
+                     ms_a_step=cs._time_steps(
+                         lambda y: kf.single3d_step(y, mm), x,
+                         50 if n == 128 else 20, dev) * 1e3)
+            if tag == "base":
+                for start, x in (("rest", rest), ("rest + 1e-6 noise", noisy),
+                                 ("perturbed", f)):
+                    emit(kernel="K11 f32 128^3", variant=tag, start=start,
+                         ms_a_step=cs._time_steps(
+                             lambda y: kf.single3d_step(y, m), x, 50,
+                             dev) * 1e3)
+    kf._fn_cache.clear()
+
+
 def sweep_2d(cs, build, M, kf, k9, dev, emit, zs=(16, 32, 64, 96, 128),
              blocks=(1, 2, 3, 4)) -> None:
     """The "2dT" mode: ms a time step of K3c (the flagship) and K5c-Tc
@@ -465,13 +558,15 @@ def main(argv=None) -> int:
     def emit(**kw):
         print(json.dumps(kw), flush=True)
 
-    if what in ("2dT", "k9", "k10"):
+    if what in ("2dT", "k9", "k10", "k11"):
         if what == "2dT":
             sweep_2d(cs, build, M, kf, k9, dev, emit)
         elif what == "k9":
             sweep_k9(cs, build, k9, dev, emit, tuple(args[1:]))
-        else:
+        elif what == "k10":
             sweep_k10(cs, build, kf, dev, emit, tuple(args[1:]))
+        else:
+            sweep_k11(cs, build, M, kf, k9, dev, emit, tuple(args[1:]))
         print(json.dumps({"done": True,
                           "seconds": time.perf_counter() - t0}))
         return 0
@@ -487,6 +582,15 @@ def main(argv=None) -> int:
         table = plan.tensor().to(dev)
         return cs._time_steps(lambda y: cs.march_call(
             y, m, t, plan, table), f, max(24 // t, 4), dev) / t * 1e3
+
+    mb = cs.basic3d_model(dev)
+    fb = cs.flow_start(mb, seed=5)
+
+    def k11t(t, **kw):
+        plan = M.single3d_march_plan(shape, t, 4, **kw)
+        table = plan.tensor().to(dev)
+        return cs._time_steps(lambda y: cs.march_call(
+            y, mb, t, plan, table), fb, max(48 // t, 4), dev) / t * 1e3
 
     def k9c(t, **kw):
         plan = M.cg3d_march_plan(shape, t, 4, False, pc.inlet, pc.outlet,
@@ -529,11 +633,16 @@ def main(argv=None) -> int:
                 for lib in ("flow3d_block_f32", "cg3d_block_f32"):
                     _use(M, kf, k9, lib, libs[(lib, name)][0])
                 for t in (2, 4):
-                    if name not in ("bc", "extrap", "normal"):
+                    if name not in ("bc", "extrap", "normal", "scollide"):
                         emit(kernel="K10-T f32", T=t, skipped=name,
                              ms_a_step=k10(t))
-                    emit(kernel="K9-Tc f32", T=t, skipped=name,
-                         ms_a_step=k9c(t))
+                    if name in ("none", "all", "collide", "scollide",
+                                "stream"):
+                        emit(kernel="K11-T f32", T=t, skipped=name,
+                             ms_a_step=k11t(t))
+                    if name != "scollide":
+                        emit(kernel="K9-Tc f32", T=t, skipped=name,
+                             ms_a_step=k9c(t))
             M._fns.clear()
     if what == "all":
         sweep_2d(cs, build, M, kf, k9, dev, emit)

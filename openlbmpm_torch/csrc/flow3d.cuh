@@ -27,7 +27,20 @@
 // path sums it), so no geometry plane is read beside the mask.
 //
 // Launches (one thread a cell, x fastest):
-//   K11  march_kernel, one a step: a block owns a 32 x TY (x, y) tile and
+//   K11  f32 and f64 storage: single_push_kernel, one a step.  A 32 x 8
+//        tile, one thread a cell: each fluid cell loads its 19 values once,
+//        collides once and pushes post_i to slot i of x + e_i, or to slot
+//        opp(i) of x where x + e_i is solid (each output slot written once;
+//        the neighbours' flags from the one-byte mask, no shared memory, no
+//        barrier).  The f64 values are the earlier pull's bit for bit (the
+//        same collision arithmetic; only the placement moved); the f32
+//        push's differ only by the compiler's a * b + c contractions
+//        (PERF.md).
+//        bf16 storage: march_kernel, one a step (bf16 cannot push: see K10
+//        below).  Its collision forms each post value in turn
+//        (collide_single_each), which took its registers from 142 to 71,
+//        and so two blocks an SM where one fitted.  A block owns a 32 x TY
+//        (x, y) tile and
 //        marches up a run of ZC = 16 z slabs, one thread for each cell of
 //        the tile and its one-cell (x, y) ring.  It collides each slab of
 //        the ring tile into a three-slab ring buffer in shared memory (K x
@@ -70,7 +83,8 @@
 //
 // What bounds it: HBM bytes per cell-step, the state in and out plus the
 // one-byte mask: K11 153 B (f32), 85 B (bf16); K10 with K = 2 305 B (f32),
-// 169 B (bf16).  The march adds the ring recompute (mostly L2) and, for
+// 169 B (bf16).  K11's push moves just these (its flag reads hit L1).  The
+// march adds the ring recompute (mostly L2: 1.33x the collisions) and, for
 // K10 in bf16, the state read twice and rho_k written and read (8 B, K =
 // 2); K10's push reads the state twice (the ring fill one slab ahead, then
 // the collision: the second read mostly from L1 or L2) plus its one-cell
@@ -214,10 +228,26 @@ __device__ __forceinline__ C feq_i(int i, C rho, const C u[3], C uu) {
   return C(wq(i)) * rho * (C(1) + C(3) * eu + C(4.5) * eu * eu - C(1.5) * uu);
 }
 
-// K11: the single-phase collision of one fluid cell.
-template <typename C, int MODE>
-__device__ __forceinline__ void collide_single(const C F[Q], const Flow3dParams& P,
-                                               C post[Q]) {
+// The Guo source w_i [3 (e_i - u) + 9 e_i (e_i . u)] . F of direction i at
+// velocity u and force fc.
+template <typename C>
+__device__ __forceinline__ C guo_i(int i, const C u[3], const C fc[3]) {
+  const C eu = C(ex(i)) * u[0] + C(ey(i)) * u[1] + C(ez(i)) * u[2];
+  return C(wq(i)) * ((C(3) * (C(ex(i)) - u[0]) + C(9) * C(ex(i)) * eu) * fc[0] +
+                     (C(3) * (C(ey(i)) - u[1]) + C(9) * C(ey(i)) * eu) * fc[1] +
+                     (C(3) * (C(ez(i)) - u[2]) + C(9) * C(ez(i)) * eu) * fc[2]);
+}
+
+// K11: the single-phase collision of one fluid cell; out(i, post_i) takes
+// each post-collision value as it is formed, i = 0, 1, ... (the push and
+// the T-step march store it there and then, and march_kernel into its
+// array, so no thread holds 19 equilibria, sources and post values at
+// once: 71 registers in march_kernel where that array form took 142).
+// TRT forms the equilibrium and source of the opposite direction again, by
+// the same expressions.
+template <typename C, int MODE, typename Out>
+__device__ __forceinline__ void collide_single_each(const C F[Q], const Flow3dParams& P,
+                                                    Out out) {
   const C rho = sumq(F);
   const C rs = rho > C(0) ? rho : C(1);
   C m[3], u[3], fc[3];
@@ -229,23 +259,14 @@ __device__ __forceinline__ void collide_single(const C F[Q], const Flow3dParams&
     u[d] = force ? (m[d] + C(0.5) * fc[d]) / rs : m[d] / rs;
   }
   const C uu = u[0] * u[0] + u[1] * u[1] + u[2] * u[2];
-  C feq[Q], src[Q];
-#pragma unroll
-  for (int i = 0; i < Q; ++i) {
-    feq[i] = feq_i(i, rho, u, uu);
-    const C eu = C(ex(i)) * u[0] + C(ey(i)) * u[1] + C(ez(i)) * u[2];
-    // Guo source w_i [3 (e_i - u) + 9 e_i (e_i . u)] . F
-    src[i] = C(wq(i)) * ((C(3) * (C(ex(i)) - u[0]) + C(9) * C(ex(i)) * eu) * fc[0] +
-                         (C(3) * (C(ey(i)) - u[1]) + C(9) * C(ey(i)) * eu) * fc[1] +
-                         (C(3) * (C(ez(i)) - u[2]) + C(9) * C(ez(i)) * eu) * fc[2]);
-  }
   if constexpr (MODE == kSingleSRT) {
     const C tau = C(P.tau[0]);
     const C pf = C(1.0 - 0.5 / P.tau[0]);
 #pragma unroll
     for (int i = 0; i < Q; ++i) {
-      post[i] = F[i] - (F[i] - feq[i]) / tau;
-      if (force) post[i] = post[i] + pf * src[i];
+      C post = F[i] - (F[i] - feq_i(i, rho, u, uu)) / tau;
+      if (force) post = post + pf * guo_i(i, u, fc);
+      out(i, post);
     }
   } else {
     // symmetric part at omega_+ = 1/tau, antisymmetric at omega_- (magic 3/16)
@@ -253,13 +274,16 @@ __device__ __forceinline__ void collide_single(const C F[Q], const Flow3dParams&
 #pragma unroll
     for (int i = 0; i < Q; ++i) {
       const int j = opp(i);
+      const C qi = feq_i(i, rho, u, uu), qj = feq_i(j, rho, u, uu);
       const C fs = C(0.5) * (F[i] + F[j]), fa = C(0.5) * (F[i] - F[j]);
-      const C es = C(0.5) * (feq[i] + feq[j]), ea = C(0.5) * (feq[i] - feq[j]);
-      post[i] = F[i] - C(op) * (fs - es) - C(om) * (fa - ea);
+      const C es = C(0.5) * (qi + qj), ea = C(0.5) * (qi - qj);
+      C post = F[i] - C(op) * (fs - es) - C(om) * (fa - ea);
       if (force) {
-        const C even = C(0.5) * (src[i] + src[j]), odd = C(0.5) * (src[i] - src[j]);
-        post[i] = post[i] + (C(1.0 - 0.5 * op) * even + C(1.0 - 0.5 * om) * odd);
+        const C si = guo_i(i, u, fc), sj = guo_i(j, u, fc);
+        const C even = C(0.5) * (si + sj), odd = C(0.5) * (si - sj);
+        post = post + (C(1.0 - 0.5 * op) * even + C(1.0 - 0.5 * om) * odd);
       }
+      out(i, post);
     }
   }
 }
@@ -436,7 +460,7 @@ constexpr size_t march_smem() {
   return sizeof(C) * 3 * K * Q * HY * HX + 3 * HY * HX;
 }
 
-// K11, and K10 in bf16 storage: the tiles march up every slab.
+// K11 and K10 in bf16 storage: the tiles march up every slab.
 template <typename S, int MODE, int K, typename C = typename Traits<S>::C>
 __global__ void __launch_bounds__(ring_threads(tile_y(K, sizeof(C))))
 march_kernel(const S* __restrict__ f, const unsigned char* __restrict__ fl,
@@ -476,7 +500,7 @@ march_kernel(const S* __restrict__ f, const unsigned char* __restrict__ fl,
       } else {
         C F[Q];
         load_fluid<S>(f, n, 0, idx, F);
-        collide_single<C, MODE>(F, P, post[0]);
+        collide_single_each<C, MODE>(F, P, [&](int i, C v) { post[0][i] = v; });
       }
     } else {
 #pragma unroll
@@ -524,10 +548,11 @@ march_kernel(const S* __restrict__ f, const unsigned char* __restrict__ fl,
   }
 }
 
-// Launches of march_kernel (K11; K10 in bf16), sc_push_kernel (K10 in f32
-// and f64) and rho_kernel (K10 in bf16) by this library since it was
-// loaded, one where each launch is made; flow3d_kernel_launches reads them.
-long long g_launches[3];
+// Launches of march_kernel (K11 and K10 in bf16), sc_push_kernel (K10 in
+// f32 and f64), rho_kernel (K10 in bf16) and single_push_kernel (K11 in
+// f32 and f64) by this library since it was loaded, one where each launch
+// is made; flow3d_kernel_launches reads them.
+long long g_launches[4];
 
 template <typename S, int MODE, int K, typename C = typename Traits<S>::C>
 int launch_march(const S* f, const unsigned char* fl, const C* rho, S* out,
@@ -548,17 +573,100 @@ int launch_march(const S* f, const unsigned char* fl, const C* rho, S* out,
   return (int)err;
 }
 
-// K11: one step of the single-phase state; returns a cudaError_t code.
+// K11 in f32 and f64 storage (single_push_kernel): one thread a cell, a
+// TX x SPTY tile of (x, y) a block, SPZ slabs a thread.  A fluid cell loads
+// its 19 values (x fastest, coalesced), collides them (collide_single_each)
+// and pushes each post_i as it is formed into slot i of x + e_i, or into
+// slot opp(i) of x where x + e_i is solid; a solid cell writes its own 19
+// zeros.  So each output slot is written exactly once, by the thread whose
+// pull would have read it: sc_push_kernel's placement with one fluid and
+// no rho ring.  The neighbours' fluid flags are the one-byte mask's, read
+// where they lie (L1 holds a tile's); no shared memory, no barrier.  The
+// stores go through a pointer the compiler may not fold into 19 addresses
+// (sc_push_kernel's lesson, above).  Two blocks an SM (about 100
+// registers): the compiler's own choice, 80 registers and three blocks,
+// ran 7% slower, and so did 3 x 8, 32 x 4 and 32 x 16 tiles or runs of 2
+// and 4 slabs within a few percent either way (PERF.md).
+constexpr int SPTY = 8;
+constexpr int SPZ = 1;
+constexpr int SPUSH_THREADS = TX * SPTY;
+
+template <typename S, int MODE>
+__global__ void __launch_bounds__(SPUSH_THREADS, 2)
+single_push_kernel(const S* __restrict__ f, const unsigned char* __restrict__ fl,
+                   S* __restrict__ out, Flow3dParams P) {
+  using C = S;
+  const int nx = P.nx, ny = P.ny, nz = P.nz;
+  const size_t nxy = (size_t)ny * nx;
+  const size_t n = (size_t)nz * nxy;
+  const int x = blockIdx.x * TX + threadIdx.x % TX;
+  const int y = blockIdx.y * SPTY + threadIdx.x / TX;
+  if (x >= nx || y >= ny) return;
+  // the offsets of x + e_i from x along each axis, wrapped (index e + 1)
+  const int ox[3] = {x == 0 ? nx - 1 : -1, 0, x == nx - 1 ? 1 - nx : 1};
+  const int oy[3] = {(y == 0 ? ny - 1 : -1) * nx, 0, (y == ny - 1 ? 1 - ny : 1) * nx};
+  const int nxy_i = (int)nxy;
+  const int z1 = min((int)(blockIdx.z + 1) * SPZ, nz);
+  for (int z = blockIdx.z * SPZ; z < z1; ++z) {
+    const size_t k0 = (size_t)z * nxy + (size_t)y * nx + x;
+    if (!fl[k0]) {
+#pragma unroll
+      for (int i = 0; i < Q; ++i) out[(size_t)i * n + k0] = C(0);
+      continue;
+    }
+    const int oz[3] = {(z == 0 ? nz - 1 : -1) * nxy_i, 0, (z == nz - 1 ? 1 - nz : 1) * nxy_i};
+    unsigned fluid_nb = 0;   // bit i: x + e_i is fluid
+#pragma unroll
+    for (int i = 0; i < Q; ++i)
+      fluid_nb |= (fl[k0 + oz[ez(i) + 1] + oy[ey(i) + 1] + ox[ex(i) + 1]] ? 1u : 0u) << i;
+    C F[Q];
+    load_fluid<S>(f, n, 0, k0, F);
+    S* p = out + k0;   // slot i of x
+    collide_single_each<C, MODE>(F, P, [&](int i, C v) {
+      if ((fluid_nb >> i) & 1u) {
+        p[oz[ez(i) + 1] + oy[ey(i) + 1] + ox[ex(i) + 1]] = v;
+      } else {
+        p[(opp(i) - i) * (ptrdiff_t)n] = v;   // bounced back from the solid x + e_i
+      }
+      p += n;
+      asm volatile("" : "+l"(p));
+    });
+  }
+}
+
+template <typename S, int MODE>
+int launch_single_push(const S* f, const unsigned char* fl, S* out, const Flow3dParams& P,
+                       cudaStream_t st) {
+  const dim3 grid((P.nx + TX - 1) / TX, (P.ny + SPTY - 1) / SPTY, (P.nz + SPZ - 1) / SPZ);
+  single_push_kernel<S, MODE><<<grid, SPUSH_THREADS, 0, st>>>(f, fl, out, P);
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) ++g_launches[3];
+  return (int)err;
+}
+
+// K11: one step of the single-phase state (f32 and f64 the push; bf16,
+// which cannot push, see the note at the top, march_kernel); returns a
+// cudaError_t code.
+template <typename S, int MODE>
+int launch_single3d(const S* f, const unsigned char* fl, S* out, const Flow3dParams& P,
+                    cudaStream_t st) {
+  if constexpr (Traits<S>::kShifted) {
+    using C = typename Traits<S>::C;
+    return launch_march<S, MODE, 1>(f, fl, (const C*)nullptr, out, P, st);
+  } else {
+    return launch_single_push<S, MODE>(f, fl, out, P, st);
+  }
+}
+
 template <typename S>
 int single3d_dispatch(const void* f_in, void* f_out, const void* fl_v, const Flow3dParams& P,
                       cudaStream_t st) {
-  using C = typename Traits<S>::C;
   const S* f = static_cast<const S*>(f_in);
   S* out = static_cast<S*>(f_out);
   const unsigned char* fl = static_cast<const unsigned char*>(fl_v);
   switch (P.collision) {
-    case kSingleSRT: return launch_march<S, kSingleSRT, 1>(f, fl, (const C*)nullptr, out, P, st);
-    case kSingleTRT: return launch_march<S, kSingleTRT, 1>(f, fl, (const C*)nullptr, out, P, st);
+    case kSingleSRT: return launch_single3d<S, kSingleSRT>(f, fl, out, P, st);
+    case kSingleTRT: return launch_single3d<S, kSingleTRT>(f, fl, out, P, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

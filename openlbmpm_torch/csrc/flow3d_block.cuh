@@ -12,19 +12,33 @@
 //          fluids, psi = rho, rho_k of each sub-step's input computed from
 //          it.
 // The sub-steps run the one-step kernels' device code (flow3d.cuh:
-// collide_single, sc_collide), so T steps of this kernel are T steps of
+// collide_single_each, sc_collide), so T steps of this kernel are T steps of
 // K11 / K10; the bf16 state (21 planes a fluid) is decoded to f32 once a
 // call and encoded once a call, so T steps of its bf16 instance round once
 // where T one-step launches round T times.
 //
-// K11-T: bricks with windows (block3d.cuh: a halo of T cells on every
-// side, in-place swap streaming; shared memory where a brick of 128 cells
-// fits, else global scratch).  A sub-step: collide shrunk(s) into the
-// opposite slots, swap pass over it.
+// Both are the pipelined z-march of march3d.cuh, each stage a run of slabs
+// of one level a wave.
 //
-// K10-T: the pipelined z-march of march3d.cuh, on the plan of
-// kernels/march3d.py::sc3d_march_plan.  Per level s (the state after s
-// steps) three stages, each a run of slabs of one level a wave:
+// K11-T, on the plan of kernels/march3d.py::single3d_march_plan: T + 1
+// stages, one ring a level (post_s, 19 planes):
+//   collide   (level 0) the input state at the cell (bf16 decoded here):
+//             collide_single_each -> post_0;
+//   scollide  (levels 1 ... T - 1) post_{s-1} one slab and one row around:
+//             pull streaming with half-way bounce-back -> F_s at the cell,
+//             collided in the same thread -> post_s;
+//   stream    post_{T-1} one slab and row around, pulled into the output
+//             (bf16 encoded here: a pull holds the output cell's 19 values).
+// The fluid mask is static, so every stage reads it from the global
+// one-byte mask and no ring carries it.  A level trails the one before by
+// 1 + Z slabs (Z slabs a wave) and its ring holds 2 Z + 2: at 128^3 in f32
+// a slab of post is 1.25 MB, so the T = 4 rings take 28.5 MB at Z = 2,
+// 47.5 at 4 and 85.5 at 8.  Z = 8 (march3d.py::SLABS_PER_WAVE) was the
+// fastest all the same (PERF.md): fewer waves and barriers beat rings that
+// stay in the 50 MB L2.
+//
+// K10-T, on the plan of kernels/march3d.py::sc3d_march_plan.  Per level s
+// (the state after s steps) three stages:
 //   load     (level 0) rho_0 of the input state (0 on solid cells) and
 //            the fluid bytes into their rings;
 //   collide  F_s at the slab (level 0: the input, decoded again), rho_s
@@ -44,151 +58,119 @@
 //
 // What bounds it: HBM bytes per cell-step are the state read once and
 // written once a call, over T: 153 / T B (K11 f32), 85 / T (bf16); K10
-// with K = 2 305 / T (f32).  K10-T's rings move about 2 x (2 x 19 + 2) x 4
-// B a cell-step more (f32, K = 2), most of it to and from HBM, and the
-// grid waits at a barrier once a wave.
+// with K = 2 305 / T (f32).  The rings move more (K11-T: post written and
+// read once a level, 2 x 19 x 4 B a cell-step in f32, in L2 where it
+// fits; K10-T about 2 x (2 x 19 + 2) x 4 B a cell-step, f32, K = 2, most
+// of it to and from HBM), and the grid waits at a barrier once a wave.
+// A launch takes at most kMaxSteps3 steps; the wrappers split a longer call
+// (kernels/build.py::split_steps).
 
 #pragma once
 
 #include "flow3d.cuh"
-#include "block3d.cuh"
 #include "march3d.cuh"
 
 namespace {
 
-// -- K11-T: the brick window ---------------------------------------------------
+constexpr int kMaxSteps3 = 8;   // the largest T a launch takes
 
-template <typename S, int MODE, int K, typename C = typename Traits<S>::C>
-__global__ void __launch_bounds__(kBlock3Threads, 1)
-flow3d_block_kernel(const S* __restrict__ f, const unsigned char* __restrict__ fl,
-                    S* __restrict__ out, Flow3dParams P, BlockShape3 B,
-                    unsigned char* __restrict__ scratch) {
-  constexpr int NV = K * Q;
-  extern __shared__ __align__(16) unsigned char smem[];
-  unsigned char* base = B.gmem ? scratch + (size_t)blockIdx.x * B.win_bytes : smem;
-  C* W = reinterpret_cast<C*>(base);
-  const int wx = B.wx, wy = B.wy;
-  const size_t PL = (size_t)wx * wy * B.wz;
-  unsigned char* FL = base + align16(PL * NV * sizeof(C));
-  const int nx = P.nx, ny = P.ny, nz = P.nz;
-  const size_t nxy = (size_t)ny * nx;
-  const size_t n = (size_t)nz * nxy;
-  const int sxy = wx * wy;
+// -- K11-T: the z-march ----------------------------------------------------------
 
-  for (int tile = blockIdx.x; tile < B.ntx * B.nty * B.ntz; tile += gridDim.x) {
-    const int x0 = (tile % B.ntx) * B.tx, y0 = (tile / B.ntx % B.nty) * B.ty;
-    const int z0 = tile / (B.ntx * B.nty) * B.tz;
-    const int ox = x0 - B.h, oy = y0 - B.h, oz = z0 - B.h;
-    auto gidx = [&](int lx, int ly, int lz) {
-      return (size_t)wrap3(oz + lz, nz) * nxy + (size_t)wrap3(oy + ly, ny) * nx +
-             wrap3(ox + lx, nx);
-    };
-
-    // decode the window once
-    for (int c = threadIdx.x; c < (int)PL; c += kBlock3Threads) {
-      const size_t k = gidx(c % wx, c / wx % wy, c / sxy);
-      FL[c] = fl[k] != 0;
+// One cell of one stage of K11-T's march (march3d.cuh's MarchCell c):
+// rings (kernels/march3d.py::single3d_march_plan) collide post_0;
+// scollide post_{s-1}, post_s; stream post_{T-1} (the output in device
+// memory).
+template <typename S, int MODE, typename C = typename Traits<S>::C>
+__device__ __forceinline__ void single3d_march_cell(const S* __restrict__ f,
+                                                    const unsigned char* __restrict__ fl,
+                                                    S* __restrict__ out, const Flow3dParams& P,
+                                                    const MarchPlan& M, const MarchCell& c) {
+  const size_t nxy = (size_t)P.ny * P.nx;
+  const size_t n = (size_t)P.nz * nxy;
+  const size_t gidx = c.gidx(0, 0, 0, nxy);
+  const int stage = c.kind();
+  const bool fluid = fl[gidx] != 0;
+  C v[Q];
+  if (stage == kStageCollide) {
+    if (fluid) load_fluid<S>(f, n, 0, gidx, v);
+  } else {
+    // pull from the upwind cell x - e_i, or the cell itself with the
+    // opposite slot where that is solid (half-way bounce-back)
+    const RingAt<C> PO = M.ring<C>(c.ring(0), c);
 #pragma unroll
-      for (int q = 0; q < K; ++q) {
-        C F[Q];
-        load_fluid<S>(f, n, q, k, F);
-#pragma unroll
-        for (int i = 0; i < Q; ++i) W[(q * Q + i) * PL + c] = F[i];
-      }
+    for (int i = 0; i < Q; ++i) {
+      const bool up = fl[c.gidx(-ez(i), -ey(i), -ex(i), nxy)] != 0;
+      const int src = up ? PO.cell(-ez(i), -ey(i), -ex(i)) : PO.cell(0, 0, 0);
+      v[i] = fluid ? PO.base[(size_t)(up ? i : opp(i)) * PO.stride + src] : C(0);
     }
-    __syncthreads();
-
-    for (int sub = 0; sub < B.T; ++sub) {
-      const int e = B.ring * sub;
-      // the collision, each population into the opposite slot (0 on solid
-      // cells), then the swap pass
-      const Box r = shrunk3(B, e);
-      for (int t = threadIdx.x; t < r.volume(); t += kBlock3Threads) {
-        int lx, ly, lz;
-        r.at(t, lx, ly, lz);
-        const int c = r.cell(lx, ly, lz);
-        C post[K][Q];
-        if (FL[c]) {
-          C F[K][Q];
-#pragma unroll
-          for (int q = 0; q < K; ++q)
-#pragma unroll
-            for (int i = 0; i < Q; ++i) F[q][i] = W[(q * Q + i) * PL + c];
-          collide_single<C, MODE>(F[0], P, post[0]);
-        } else {
-#pragma unroll
-          for (int q = 0; q < K; ++q)
-#pragma unroll
-            for (int i = 0; i < Q; ++i) post[q][i] = C(0);
-        }
-#pragma unroll
-        for (int q = 0; q < K; ++q)
-#pragma unroll
-          for (int i = 0; i < Q; ++i) W[(q * Q + opp(i)) * PL + c] = post[q][i];
-      }
-      __syncthreads();
-      swap_stream(W, PL, K, FL, r);
-      __syncthreads();
+    if (stage == kStageStream) {
+      store_fluid<S>(out, n, 0, gidx, v);
+      return;
     }
-
-    // encode the brick once
-    for (int t = threadIdx.x; t < B.tx * B.ty * B.tz; t += kBlock3Threads) {
-      const int bx = t % B.tx, by = t / B.tx % B.ty, bz = t / (B.tx * B.ty);
-      if (x0 + bx >= nx || y0 + by >= ny || z0 + bz >= nz) continue;
-      const int c = ((B.h + bz) * wy + B.h + by) * wx + B.h + bx;
-      const size_t k = (size_t)(z0 + bz) * nxy + (size_t)(y0 + by) * nx + x0 + bx;
+  }
+  const RingAt<C> PN = M.ring<C>(c.ring(stage == kStageCollide ? 0 : 1), c);
+  if (fluid) {
+    collide_single_each<C, MODE>(v, P, [&](int i, C post) { PN.at(i) = post; });
+  } else {
 #pragma unroll
-      for (int q = 0; q < K; ++q) {
-        C o[Q];
-#pragma unroll
-        for (int i = 0; i < Q; ++i) o[i] = W[(q * Q + i) * PL + c];
-        store_fluid<S>(out, n, q, k, o);
-      }
-    }
-    __syncthreads();
+    for (int i = 0; i < Q; ++i) PN.at(i) = C(0);
   }
 }
 
-// K11-T's tiling: one ring a sub-step, 19 planes.
+// Resident blocks an SM the K11-T march asks ptxas for: 2 in float
+// arithmetic (96-106 registers; 3 took 80 and ran T = 4 at 128^3 1.1x
+// slower, 4 took 64, spilled, and ran 1.2x slower; PERF.md), 1 for the
+// f64 check instances.
 template <typename S>
-BlockShape3 flow3d_block_shape(const Flow3dParams& P, int T) {
-  using C = typename Traits<S>::C;
-  return block_shape3(P.nz, P.ny, P.nx, T, 1, Q, (int)sizeof(C));
-}
-
-template <typename S>
-size_t flow3d_block_scratch(const Flow3dParams& P, int T) {
-  const BlockShape3 B = flow3d_block_shape<S>(P, T);
-  return B.gmem ? (size_t)B.grid * B.win_bytes : 0;
+constexpr int single3d_march_min_blocks() {
+  return sizeof(typename Traits<S>::C) == 8 ? 1 : 2;
 }
 
 template <typename S, int MODE>
-int launch_flow3d_block_k(const void* f, void* out, const void* fl, void* scratch,
-                          const Flow3dParams& P, const BlockShape3& B, cudaStream_t st) {
-  const size_t smem = B.gmem ? 0 : B.win_bytes;
-  if (smem > 48 * 1024) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(flow3d_block_kernel<S, MODE, 1>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  flow3d_block_kernel<S, MODE, 1><<<B.grid, kBlock3Threads, smem, st>>>(
-      static_cast<const S*>(f), static_cast<const unsigned char*>(fl), static_cast<S*>(out),
-      P, B, static_cast<unsigned char*>(scratch));
-  return (int)cudaGetLastError();
+__global__ void __launch_bounds__(kMarchThreads, single3d_march_min_blocks<S>())
+single3d_march_kernel(const S* __restrict__ f, const unsigned char* __restrict__ fl,
+                      S* __restrict__ out, Flow3dParams P, const long long* __restrict__ plan,
+                      unsigned char* __restrict__ scratch) {
+  MarchPlan M{plan, scratch, nullptr, nullptr, nullptr};
+  march_run(M, [&](const MarchCell& c) { single3d_march_cell<S, MODE>(f, fl, out, P, M, c); });
 }
 
-// K11-T: T steps a launch of the single-phase state (P.collision SRT or
-// TRT); refuses T outside 1 ... kMaxSteps3.
+template <typename S, int MODE>
+int launch_single3d_march_k(const void* f_in, void* f_out, const void* fluid, void* scratch,
+                            const void* plan, const Flow3dParams& P, cudaStream_t st) {
+  const S* f = static_cast<const S*>(f_in);
+  const unsigned char* fl = static_cast<const unsigned char*>(fluid);
+  S* out = static_cast<S*>(f_out);
+  const long long* pl = static_cast<const long long*>(plan);
+  unsigned char* sc = static_cast<unsigned char*>(scratch);
+  Flow3dParams p = P;
+  void* args[] = {&f, &fl, &out, &p, &pl, &sc};
+  return march_launch(single3d_march_kernel<S, MODE>, args, st);
+}
+
+// K11-T: T (1 ... kMaxSteps3) steps a launch of the single-phase state
+// (P.collision SRT or TRT) on the plan `plan` (device memory) with its
+// rings in `scratch`.
 template <typename S>
-int launch_flow3d_block(const void* f, void* out, const void* fl, void* scratch,
-                        const Flow3dParams& P, int T, cudaStream_t st) {
-  if (T < 1 || T > kMaxSteps3) return (int)cudaErrorInvalidValue;
-  const BlockShape3 B = flow3d_block_shape<S>(P, T);
-  if (B.gmem && scratch == nullptr) return (int)cudaErrorInvalidValue;
+int launch_single3d_march(int T, const void* f_in, void* f_out, const void* fluid,
+                          void* scratch, const void* plan, const Flow3dParams& P,
+                          cudaStream_t st) {
+  if (T < 1 || T > kMaxSteps3 || plan == nullptr || scratch == nullptr)
+    return (int)cudaErrorInvalidValue;
   switch (P.collision) {
-    case kSingleSRT: return launch_flow3d_block_k<S, kSingleSRT>(f, out, fl, scratch, P, B, st);
-    case kSingleTRT: return launch_flow3d_block_k<S, kSingleTRT>(f, out, fl, scratch, P, B, st);
+    case kSingleSRT:
+      return launch_single3d_march_k<S, kSingleSRT>(f_in, f_out, fluid, scratch, plan, P, st);
+    case kSingleTRT:
+      return launch_single3d_march_k<S, kSingleTRT>(f_in, f_out, fluid, scratch, plan, P, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename S>
+int single3d_march_grid_of(int collision, int* grid) {
+  switch (collision) {
+    case kSingleSRT: return march_grid(single3d_march_kernel<S, kSingleSRT>, grid);
+    case kSingleTRT: return march_grid(single3d_march_kernel<S, kSingleTRT>, grid);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -343,26 +325,14 @@ int sc3d_march_grid_of(int k, int* grid) {
 
 // The C entry points of one storage type S (the library's).
 #define FLOW3D_BLOCK_ENTRY_POINTS(S)                                                        \
-  extern "C" int flow3d_block_step(int kind, int T, const void* f_in, void* f_out,         \
-                                   const void* fluid, void* scratch,                        \
-                                   const Flow3dParams* params, void* stream) {              \
-    if (kind != 0) return (int)cudaErrorInvalidValue;                                       \
-    return launch_flow3d_block<S>(f_in, f_out, fluid, scratch, *params, T,                  \
-                                  static_cast<cudaStream_t>(stream));                       \
+  extern "C" int single3d_march_step(int T, const void* f_in, void* f_out,                \
+                                     const void* fluid, void* scratch, const void* plan,    \
+                                     const Flow3dParams* params, void* stream) {            \
+    return launch_single3d_march<S>(T, f_in, f_out, fluid, scratch, plan, *params,          \
+                                    static_cast<cudaStream_t>(stream));                     \
   }                                                                                         \
-  extern "C" long long flow3d_block_scratch_bytes(int kind, int T,                          \
-                                                  const Flow3dParams* params) {             \
-    if (kind != 0) return -1;                                                               \
-    return (long long)flow3d_block_scratch<S>(*params, T);                                  \
-  }                                                                                         \
-  extern "C" int flow3d_block_shape(int kind, int T, const Flow3dParams* params,           \
-                                    long long* shape) {                                     \
-    if (kind != 0) return (int)cudaErrorInvalidValue;                                       \
-    const BlockShape3 B = flow3d_block_shape<S>(*params, T);                                \
-    const long long v[8] = {B.tx, B.ty, B.tz, B.h, B.gmem, B.grid, (long long)B.win_bytes,  \
-                            kMaxSteps3};                                                    \
-    for (int i = 0; i < 8; ++i) shape[i] = v[i];                                            \
-    return 0;                                                                               \
+  extern "C" int single3d_march_grid(int collision, int* grid) {                            \
+    return single3d_march_grid_of<S>(collision, grid);                                      \
   }                                                                                         \
   extern "C" int sc3d_march_step(int T, const void* f_in, void* f_out, const void* fluid,  \
                                  void* scratch, const void* plan,                           \

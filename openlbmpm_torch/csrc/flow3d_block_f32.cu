@@ -2,11 +2,11 @@
 // NVIDIA Hopper (sm_90a), f32 storage: the C entry points. The design note and
 // the device code are in flow3d_block.cuh.
 //
-// flow3d_block_step(kind = 0, T, f_in, f_out, fluid, scratch, params,
+// single3d_march_step(T, f_in, f_out, fluid, scratch, plan, params,
 // stream): T steps of K11-T's single-phase state (params->collision SRT or
-// TRT) on the brick window; scratch holds flow3d_block_scratch_bytes bytes
-// (null when that is 0), flow3d_block_shape fills shape[8] (tx, ty, tz, the
-// halo, gmem, the grid, one window's bytes, the largest T).
+// TRT) on the plan (device int64 table of kernels/march3d.py) with its
+// rings in scratch; single3d_march_grid(collision, &grid) gives the
+// cooperative grid.
 // sc3d_march_step(T, f_in, f_out, fluid, scratch, plan, params, stream): T
 // steps of K10-T's Shan-Chen state (params->k <= 3 fluids) on the plan
 // (device int64 table of kernels/march3d.py) with its rings in scratch;

@@ -23,10 +23,11 @@ extern "C" int flow3d_sc_step(const void* f_in, void* f_out, const void* fluid, 
                                static_cast<cudaStream_t>(stream));
 }
 
-// Launches of march_kernel (K11; K10 in bf16), sc_push_kernel and
-// rho_kernel (K10) by this library since it was loaded, into out[0..2].
+// Launches of march_kernel (K11 and K10 in bf16), sc_push_kernel and
+// rho_kernel (K10) and single_push_kernel (K11 in f32 and f64) by this
+// library since it was loaded, into out[0..3].
 extern "C" void flow3d_kernel_launches(long long* out) {
-  for (int i = 0; i < 3; ++i) out[i] = g_launches[i];
+  for (int i = 0; i < 4; ++i) out[i] = g_launches[i];
 }
 
 extern "C" const char* flow3d_error_string(int code) {

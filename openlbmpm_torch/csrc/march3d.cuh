@@ -1,5 +1,6 @@
 // The z-march of the 3-D T-step kernels for NVIDIA Hopper (sm_90a): the
-// executor that K10-T (flow3d_block.cuh) and K9-T (cg3d_block.cuh) share.
+// executor that K11-T and K10-T (flow3d_block.cuh), K9-T (cg3d_block.cuh)
+// and the 2-D row-march (march2d.cuh) share.
 //
 // One cooperative launch advances T steps.  The plan (built on the host by
 // kernels/march3d.py, a table of int64 words in device memory) cuts each
@@ -43,6 +44,8 @@ constexpr int kStageStream = 2;
 constexpr int kStageBc = 3;
 constexpr int kStageExtrap = 4;
 constexpr int kStageNormal = 5;
+// (march2d.cuh's stages take 6 ... 8)
+constexpr int kStageStreamCollide = 9;   // K11-T: pull one level, collide the next
 
 // header words
 constexpr int kHdrStages = 1, kHdrRings = 2, kHdrWaves = 3, kHdrBands = 5, kHdrBandRows = 6,

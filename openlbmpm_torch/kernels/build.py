@@ -183,17 +183,17 @@ def launch_block(lib: str, fns, ints, tensors, params) -> None:
                            f"{err(code).decode()} ({code})")
 
 
-def block_tiling(lib: str, fns, ints, params, keys=_TILING_KEYS) -> dict:
-    """A T-step library's tiling of one launch, from its ``*_block_shape``
-    entry point (`fns` from ``block_fns``) called with `ints` and `params`,
-    named by `keys`: for the 2-D steps the tile (tx, ty), the halo (hx
-    columns a side, hlo rows below, hhi above), whether the windows live in
-    global scratch (gmem), the blocks launched and one window's bytes."""
+def block_tiling(lib: str, fns, ints, params) -> dict:
+    """A 2-D window library's tiling of one launch, from its
+    ``*_block_shape`` entry point (`fns` from ``block_fns``) called with
+    `ints` and `params`: the tile (tx, ty), the halo (hx columns a side, hlo
+    rows below, hhi above), whether the windows live in global scratch
+    (gmem), the blocks launched and one window's bytes."""
     out = (ctypes.c_longlong * 8)()
     code = fns[2](*ints, ctypes.byref(params), out)
     if code != 0:
         raise ValueError(f"{lib}: no tiling for these arguments ({code})")
-    return dict(zip(keys, (int(v) for v in out)))
+    return dict(zip(_TILING_KEYS, (int(v) for v in out)))
 
 
 def check_steps(steps) -> None:

@@ -9,9 +9,10 @@ adhesion field, SRT toward the shifted-velocity equilibrium), both periodic
 in x, y and z with walls from the mask.  The device code is
 ``csrc/flow3d.cuh``, built as one library per storage type (``flow3d_f64``,
 ``flow3d_f32``, ``flow3d_bf16``) and instantiated for K = 1 ... KMAX fluids
-(K11 one launch a step, ``march_kernel``; K10 one, ``sc_push_kernel``, in
-f32 / f64 storage and two in bf16, ``rho_kernel`` and ``march_kernel``; the
-libraries count them: ``kernel_launches``);
+(K11 one launch a step, ``single_push_kernel`` in f32 / f64 storage and
+``march_kernel`` in bf16; K10 one, ``sc_push_kernel``, in f32 / f64 storage
+and two in bf16, ``rho_kernel`` and ``march_kernel``; the libraries count
+them: ``kernel_launches``);
 above KMAX, K10 and K10-T run the runtime-K instance ``csrc/sc3d_rt.cuh``
 (library ``sc3d_rt``), which loops over the fluids and reads their values
 from a device table (``sc3d_table``, the model's ``kernel_table``).
@@ -30,13 +31,13 @@ kernels) are ``single3d_block_step(f, model, steps)`` and
 ``sc3d_block_step(f, model, steps)``: one launch of
 ``csrc/flow3d_block_{f64,f32,bf16}.cu`` (``csrc/flow3d_block.cuh``) advances
 T steps, a bf16 state decoded once and encoded once; a launch takes at
-most ``MAX_BLOCK_STEPS`` (the mirror of ``csrc/block3d.cuh::kMaxSteps3``,
-which the libraries' ``flow3d_block_max_steps`` returns), and a call of
-more steps runs as ``build.split_steps``'s launches of near-equal step
-counts.  K11-T runs bricks with windows (``csrc/block3d.cuh``);
-K10-T the pipelined z-march of ``csrc/march3d.cuh`` on the plan of
-``kernels/march3d.py::sc3d_march_plan``, which the wrapper builds once a
-shape and hands to the kernel with a scratch buffer for its rings.
+most ``MAX_BLOCK_STEPS`` (the mirror of ``csrc/flow3d_block.cuh::
+kMaxSteps3``, which the libraries' ``flow3d_block_max_steps`` returns), and
+a call of more steps runs as ``build.split_steps``'s launches of near-equal
+step counts.  Both run the pipelined z-march of ``csrc/march3d.cuh``, K11-T
+on the plan of ``kernels/march3d.py::single3d_march_plan``, K10-T on that of
+``sc3d_march_plan``, which the wrapper builds once a shape and hands to the
+kernel with a scratch buffer for its rings.
 
 The local form of K10 (K12e: one shard of a z-decomposed domain, the
 counterpart of ``pallas/sc3d.py::build_sc3d_sharded_step``) is
@@ -188,9 +189,10 @@ def _kernel_fn(lib_name: str):
 
 
 # the kernels of the flow3d libraries, in the order of flow3d_kernel_launches'
-# counts: K11's (and K10's second in bf16), K10's in f32 / f64 storage, K10's
-# first in bf16
-KERNELS = ("march_kernel", "sc_push_kernel", "rho_kernel")
+# counts: K11's in bf16 (and K10's second in bf16), K10's in f32 / f64
+# storage, K10's first in bf16, K11's in f32 / f64 storage
+KERNELS = ("march_kernel", "sc_push_kernel", "rho_kernel",
+           "single_push_kernel")
 
 
 def kernel_launches(lib_name: str) -> dict[str, int]:
@@ -340,63 +342,59 @@ _BLOCK_LIBS = {torch.float64: "flow3d_block_f64",
                torch.float32: "flow3d_block_f32",
                torch.bfloat16: "flow3d_block_bf16"}
 BLOCK_LIBRARIES = tuple(_BLOCK_LIBS.values())
-# the launchers' refusal, a mirror of csrc/block3d.cuh::kMaxSteps3 (K11-T,
-# K10-T); the wrappers split a call by the library's own flow3d_block_max_steps
+# the launchers' refusal, a mirror of csrc/flow3d_block.cuh::kMaxSteps3
+# (K11-T, K10-T); the wrappers split a call by the library's own
+# flow3d_block_max_steps
 MAX_BLOCK_STEPS = 8
 _KIND = {"single": 0, "sc": 1}
-_TILING_KEYS = ("tx", "ty", "tz", "halo", "gmem", "grid", "window_bytes",
-                "max_steps")
+# the march library prefix of each kind
+_PREFIX = {"single": "single3d", "sc": "sc3d"}
 
 
-def _block_fns(lib: str):
-    """(step, scratch_bytes, shape, error_string) of K11-T's entry points
-    in a flow3d_block library: ints (kind, T), pointers (f, out, fluid,
-    scratch)."""
-    return build.block_fns(lib, "flow3d", 2, 4, Flow3dParams)
-
-
-def _march_plan(params: Flow3dParams, dtype, steps: int, device="cuda"):
-    """K10-T's plan for `params` and a state of `dtype` (its compute type's
-    item size), built once a process a shape: (plan, its table on
-    `device`)."""
+def _march_plan(kind: str, params: Flow3dParams, dtype, steps: int,
+                device="cuda"):
+    """K11-T's (`kind` "single") or K10-T's ("sc") plan for `params` and a
+    state of `dtype` (its compute type's item size), built once a process a
+    shape: (plan, its table on `device`)."""
     itemsize = 8 if dtype == torch.float64 else 4
     shape = (params.nz, params.ny, params.nx)
-    key = ("sc3d", shape, params.k, steps, itemsize)
-    return march3d.device_plan(key, lambda: march3d.sc3d_march_plan(
-        shape, params.k, steps, itemsize), device)
+    if kind == "single":
+        key = ("single3d", shape, steps, itemsize)
+        make = lambda: march3d.single3d_march_plan(shape, steps, itemsize)
+    else:
+        key = ("sc3d", shape, params.k, steps, itemsize)
+        make = lambda: march3d.sc3d_march_plan(shape, params.k, steps,
+                                               itemsize)
+    return march3d.device_plan(key, make, device)
 
 
 def flow3d_block_tiling(dtype, kind: str, params: Flow3dParams,
                         steps: int) -> dict:
     """How a K11-T (`kind` "single") or K10-T ("sc") launch of `steps`
-    steps covers the domain of `params` for a state of `dtype`.  K11-T: the
-    brick (tx, ty, tz), the halo on every side, whether the windows live in
-    global scratch (gmem), the blocks launched, one window's bytes and the
-    largest T.  K10-T: its march plan's levels, lag (slabs a level trails
-    the one before), slabs a wave, bands, band rows and halo rows, ring
-    slabs of level 0's arrays, scratch bytes, waves and stages, and the
-    cooperative grid (blocks).  The runtime-K instance (above KMAX fluids)
-    has no tiling."""
+    steps covers the domain of `params` for a state of `dtype`: its march
+    plan's levels, lag (slabs a level trails the one before), slabs a wave,
+    bands, band rows and halo rows, ring slabs of level 0's arrays, scratch
+    bytes, waves and stages, and the cooperative grid (blocks).  The
+    runtime-K instance (above KMAX fluids) has no tiling."""
     if kind == "sc" and params.k > KMAX:
         raise ValueError(f"{params.k} fluids run the runtime-K instance, "
                          "which has no tiling")
-    lib = _BLOCK_LIBS[dtype]
-    if kind == "sc":
-        plan, _ = _march_plan(params, dtype, steps)
-        return plan.fields() | {"grid": march3d.march_grid(
-            lib, "sc3d", 1, 3, Flow3dParams, params.k)}
-    return build.block_tiling(lib, _block_fns(lib), (_KIND[kind], steps),
-                              params, _TILING_KEYS)
+    plan, _ = _march_plan(kind, params, dtype, steps)
+    which = params.collision if kind == "single" else params.k
+    return plan.fields() | {"grid": march3d.march_grid(
+        _BLOCK_LIBS[dtype], _PREFIX[kind], 1, 3, Flow3dParams, which)}
 
 
 def launch_flow3d_block(f: torch.Tensor, params: Flow3dParams,
                         fluid: torch.Tensor, kind: str, steps: int,
                         table: torch.Tensor | None = None) -> torch.Tensor:
     """`steps` kernel steps (one call) of the CUDA state `f`: K11-T (`kind`
-    "single", as ``launch_single3d`` takes it) or K10-T ("sc", as
-    ``launch_sc3d``: the z-march on ``sc3d_march_plan``'s plan; above KMAX fluids the runtime-K instance on `table`, which runs the
-    steps one after another in the compute type, decoding once and encoding
-    once).  Not counted as a launch."""
+    "single", as ``launch_single3d`` takes it: the z-march on
+    ``single3d_march_plan``'s plan) or K10-T ("sc", as ``launch_sc3d``: the
+    z-march on ``sc3d_march_plan``'s plan; above KMAX fluids the runtime-K
+    instance on `table`, which runs the steps one after another in the
+    compute type, decoding once and encoding once).  Not counted as a
+    launch."""
     grid = (params.nz, params.ny, params.nx)
     lead = () if kind == "single" else (params.k,)
     _check(f, (*lead, _planes(f), *grid), fluid, params)
@@ -408,14 +406,9 @@ def launch_flow3d_block(f: torch.Tensor, params: Flow3dParams,
                          f"{MAX_BLOCK_STEPS} a launch")
     f = f.contiguous()
     out = torch.empty_like(f)
-    lib = _BLOCK_LIBS[f.dtype]
-    if kind == "sc":
-        plan, table = _march_plan(params, f.dtype, steps, f.device)
-        march3d.march_launch(lib, "sc3d", (steps,), (f, out, fluid), plan,
-                             table, params)
-        return out
-    build.launch_block(lib, _block_fns(lib), (_KIND[kind], steps),
-                       (f, out, fluid), params)
+    plan, table = _march_plan(kind, params, f.dtype, steps, f.device)
+    march3d.march_launch(_BLOCK_LIBS[f.dtype], _PREFIX[kind], (steps,),
+                         (f, out, fluid), plan, table, params)
     return out
 
 

@@ -1,9 +1,11 @@
-"""The z-march of the 3-D T-step kernels K10-T and K9-T: its plan, which the
-wrappers hand to the kernels, and a plain PyTorch model that executes the
-plan level by level and slab by slab.
+"""The z-march of the 3-D T-step kernels K11-T, K10-T and K9-T: its plan,
+which the wrappers hand to the kernels, and a plain PyTorch model that
+executes the plan level by level and slab by slab.
 
 One launch advances T time steps.  Level 0 is the input state and level s
-the state after s steps.  The step is cut into stages (K10-T: load,
+the state after s steps.  The step is cut into stages (K11-T: collide at
+level 0, then one stage a level that pulls the post-collision values of the
+level before and collides them, then the last stream; K10-T: load,
 collide, stream; K9-T: load, boundary slabs, the extrapolation of phi onto
 solid cells, gradient and normal, curvature with the collision, stream),
 each of which computes one z slab of its level from slabs of earlier stages
@@ -48,9 +50,10 @@ rewrite touches (nz - 2, or 0): they read up to bhi slabs above it and
 finalise up to tlo slabs above it, so they cover tlo slabs below the
 stages that read the state after them.
 
-``sc3d_march_plan`` and ``cg3d_march_plan`` build a plan; ``Plan.tensor``
-is what the kernel reads (``csrc/march3d.cuh``); ``sc3d_march_reference``
-and ``cg3d_march_reference`` execute a plan on the CPU from rings of its
+``single3d_march_plan``, ``sc3d_march_plan`` and ``cg3d_march_plan`` build
+a plan; ``Plan.tensor`` is what the kernel reads (``csrc/march3d.cuh``);
+``single3d_march_reference``, ``sc3d_march_reference`` and
+``cg3d_march_reference`` execute a plan on the CPU from rings of its
 depth, every wave reading only what earlier waves wrote (a ring is full of
 NaN until a stage writes it), with the plain path's operators for each
 stage.
@@ -70,16 +73,20 @@ from ..ops import macroscopic as mac
 from ..ops.common import shift
 from . import build
 
-__all__ = ["LOAD", "COLLIDE", "STREAM", "BC", "EXTRAP", "NORMAL",
+__all__ = ["LOAD", "COLLIDE", "STREAM", "BC", "EXTRAP", "NORMAL", "SCOLLIDE",
            "KIND_NAMES", "Read", "Stage", "Ring", "Plan", "build_plan",
-           "sc3d_march_plan", "cg3d_march_plan", "RING_BUDGET",
-           "MAX_HALO_SHARE", "SLABS_PER_WAVE", "sc3d_march_reference", "cg3d_march_reference"]
+           "single3d_march_plan", "sc3d_march_plan", "cg3d_march_plan",
+           "RING_BUDGET", "MAX_HALO_SHARE", "SLABS_PER_WAVE",
+           "single3d_march_reference",
+           "sc3d_march_reference", "cg3d_march_reference"]
 
 # stage kinds, as csrc/march3d.cuh numbers them
 LOAD, COLLIDE, STREAM, BC, EXTRAP, NORMAL = range(6)
-# the 2-D row-march's stages (kernels/march2d.py) go on from 6
+# the 2-D row-march's stages (kernels/march2d.py) take 6 ... 8; K11-T's
+# stream-and-collide stage is 9
+SCOLLIDE = 9
 KIND_NAMES = ("load", "collide", "stream", "bc", "extrap", "normal", "phi",
-              "tcollide", "tstream")
+              "tcollide", "tstream", "scollide")
 Q = 19
 HEADER = 16          # int64 words before the stage table
 STAGE_WORDS = 8      # kind, level, e, ring ids 0-3, spare
@@ -96,7 +103,8 @@ MAX_STAGES, MAX_RINGS = 64, 48
 RING_BUDGET = 4 * 2 ** 30
 MAX_HALO_SHARE = 1.5
 # slabs a wave (Z): 8 was the fastest of 1, 2, 4 and 8 for K10-T and K9-T
-# at 128^3 on an H100 (PERF.md)
+# at 128^3 on an H100, and of 2, 4 and 8 for K11-T at T = 4, whose rings
+# fit the 50 MB L2 at 4 slabs a wave and below (PERF.md)
 SLABS_PER_WAVE = 8
 
 
@@ -182,7 +190,7 @@ class Plan:
     @property
     def lag(self) -> int:
         """Slabs a level trails the one before it (0 at T = 1)."""
-        d = [s.d for s in self.stages if s.kind == COLLIDE]
+        d = [s.d for s in self.stages if s.kind in (COLLIDE, SCOLLIDE)]
         return d[1] - d[0] if len(d) > 1 else 0
 
     def stage_rows(self, st: Stage) -> int:
@@ -340,6 +348,32 @@ def build_plan(family: str, stages: list, arrays: dict, shape, steps: int,
                 waves[(u + st.d) // z - first].append((k, u))
     return Plan(family, nz, ny, nx, steps, z, stages, rings, bands,
                 band_rows, halo, rows, waves, budget)
+
+
+def single3d_march_plan(shape, steps: int, itemsize: int,
+                        slabs_per_wave: int = SLABS_PER_WAVE,
+                        band_rows: int | None = None) -> Plan:
+    """K11-T's plan for an (nz, ny, nx) domain and `steps` steps a launch in
+    a compute type of `itemsize` bytes: T + 1 stages, one ring a level.
+    collide (level 0: the input at the slab) -> post_0 (19 planes);
+    scollide at level s = 1 ... T - 1 (post_{s-1} one slab and one row
+    around: pull streaming with half-way bounce-back, then the collision of
+    the pulled cell) -> post_s; stream (post_{T-1} one slab and row around)
+    -> the output.  The fluid mask is static and read from device memory,
+    so no ring carries it."""
+    build.check_steps(steps)
+    arrays = {f"post{s}": (Q, itemsize) for s in range(steps)}
+    stages = [Stage(COLLIDE, 0, writes=("post0",), rings=("post0",))]
+    for s in range(1, steps):
+        stages.append(Stage(SCOLLIDE, s,
+                            reads=(Read(f"post{s - 1}", 1, 1, 1),),
+                            writes=(f"post{s}",),
+                            rings=(f"post{s - 1}", f"post{s}")))
+    stages.append(Stage(STREAM, steps - 1,
+                        reads=(Read(f"post{steps - 1}", 1, 1, 1),),
+                        rings=(f"post{steps - 1}",)))
+    return build_plan("single", stages, arrays, shape, steps, slabs_per_wave,
+                      band_rows)
 
 
 def sc3d_march_plan(shape, fluids: int, steps: int, itemsize: int,
@@ -513,6 +547,62 @@ def _centre(x):
     return x[..., 1:2, 1:-1, :]
 
 
+def _pulled(po, fluid, u, gy):
+    """Pull streaming with half-way bounce-back of a block of post-collision
+    values po (..., 19, 3, R + 2, nx) around unwrapped slab u and domain
+    rows gy, on the bool mask `fluid`: the streamed values of the centre,
+    (..., 19, 1, R, nx)."""
+    nz, ny = fluid.shape[:2]
+    rows = torch.cat([gy[:1] - 1, gy, gy[-1:] + 1]) % ny
+    sol = torch.stack([~fluid[(u + dz) % nz][rows] for dz in (-1, 0, 1)])
+    outs = [po[..., 0, :, :, :]]
+    for i in range(1, Q):
+        e = [int(c) for c in D3Q19.e[i]]
+        pulled = torch.roll(po[..., i, :, :, :], (e[2], e[1], e[0]),
+                            (-3, -2, -1))
+        up_solid = torch.roll(sol, (e[2], e[1], e[0]), (-3, -2, -1))
+        outs.append(torch.where(up_solid, po[..., int(D3Q19.opp[i]), :, :, :],
+                                pulled))
+    return _centre(torch.stack(outs, dim=-4))
+
+
+def single3d_march_reference(f: torch.Tensor, model, steps: int,
+                             plan: Plan | None = None) -> torch.Tensor:
+    """`steps` steps of K11-T's march on the CPU for `model`, a
+    SinglePhaseD3Q19 (SRT or TRT): the plan's stages, wave by wave and slab
+    by slab, from rings of its depth, each stage through the plain step's
+    operators (``SinglePhaseD3Q19.collide``, then pull streaming with
+    half-way bounce-back).  A bf16 state is decoded once and encoded once,
+    as the kernel does."""
+    bf16 = f.dtype == torch.bfloat16
+    x0 = model.unpack_bf16(f) if bf16 else f
+    nz, ny, nx = x0.shape[-3:]
+    if plan is None:
+        plan = single3d_march_plan((nz, ny, nx), steps, x0.element_size())
+    rings = _Rings(plan, x0.dtype)
+    out = torch.full_like(x0, float("nan"))
+    fluid = model.fluid_mask > 0
+
+    def body(st, u, lr, gy):
+        gz = u % nz
+        fl_own = fluid[gz][gy][None]                      # (1, R, nx)
+        s = st.level
+        if st.kind == COLLIDE:
+            v = x0[:, gz][:, gy][:, None]                 # (19, 1, R, nx)
+        else:
+            prev = s if st.kind == STREAM else s - 1
+            v = _pulled(rings.block(f"post{prev}", u, lr), fluid, u, gy)
+            v = torch.where(fl_own, v, 0.0)
+            if st.kind == STREAM:   # its rows are the band's own (e = 0)
+                out[:, gz, gy] = v[:, 0]
+                return
+        post = torch.where(fl_own, model.collide(v), 0.0)
+        rings.put(f"post{s}", u, lr, post[:, 0])
+
+    _run(plan, rings, body)
+    return model.pack_state_bf16(out) if bf16 else out
+
+
 def sc3d_march_reference(f: torch.Tensor, model, steps: int,
                          plan: Plan | None = None) -> torch.Tensor:
     """`steps` steps of K10-T's march on the CPU for `model`, a
@@ -581,17 +671,7 @@ def sc3d_march_reference(f: torch.Tensor, model, steps: int,
             s = st.level
             po = rings.block(f"post{s}", u, lr).reshape(k, Q, 3, len(lr) + 2,
                                                         nx)
-            rows = torch.cat([gy[:1] - 1, gy, gy[-1:] + 1]) % ny
-            sol = torch.stack([~fluid[(u + dz) % nz][rows]
-                               for dz in (-1, 0, 1)])
-            outs = [po[:, 0]]
-            for i in range(1, Q):
-                e = [int(c) for c in lat.e[i]]
-                pulled = torch.roll(po[:, i], (e[2], e[1], e[0]), (-3, -2, -1))
-                up_solid = torch.roll(sol, (e[2], e[1], e[0]), (-3, -2, -1))
-                outs.append(torch.where(up_solid, po[:, int(lat.opp[i])],
-                                        pulled))
-            o = _centre(torch.stack(outs, dim=1))        # (K, 19, 1, R, nx)
+            o = _pulled(po, fluid, u, gy)                # (K, 19, 1, R, nx)
             o = torch.where(fl_own, o, 0.0)
             if s == steps - 1:    # its rows are the band's own (e = 0)
                 out[:, :, gz, gy] = o[:, :, 0]
@@ -838,8 +918,8 @@ def cg3d_march_reference(state, model, steps: int, plan: Plan | None = None):
 _plans: dict = {}
 _fns: dict = {}
 # the library family whose error-string entry point a march library shares
-_ERROR_PREFIX = {"sc3d": "flow3d", "cg3d": "cg3d", "csf2d": "csf2d",
-                 "coupled2d": "coupled2d"}
+_ERROR_PREFIX = {"single3d": "flow3d", "sc3d": "flow3d", "cg3d": "cg3d",
+                 "csf2d": "csf2d", "coupled2d": "coupled2d"}
 
 
 def device_plan(key, make, device):
@@ -858,7 +938,7 @@ def _march_fns(lib: str, prefix: str, ints: int, pointers: int,
     ints, `pointers` tensors' pointers, the scratch and the plan, a
     `params_type` block and the stream."""
     import ctypes
-    if lib not in _fns:
+    if (lib, prefix) not in _fns:   # K11-T and K10-T share a library
         so = build.load_library(lib)
         step = getattr(so, f"{prefix}_march_step")
         step.argtypes = [ctypes.c_int] * ints + \
@@ -871,15 +951,15 @@ def _march_fns(lib: str, prefix: str, ints: int, pointers: int,
         err = getattr(so, f"{_ERROR_PREFIX[prefix]}_block_error_string")
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
-        _fns[lib] = (step, grid, err)
-    return _fns[lib]
+        _fns[(lib, prefix)] = (step, grid, err)
+    return _fns[(lib, prefix)]
 
 
 def march_grid(lib: str, prefix: str, ints: int, pointers: int,
                params_type, which: int) -> int:
     """The cooperative grid (blocks) of a march library's kernel instance
-    `which` (K10-T: the fluids; K9-T: split; K3: the state mode; K5c-T: 10
-    state mode + NQ)."""
+    `which` (K11-T: the collision; K10-T: the fluids; K9-T: split; K3: the
+    state mode; K5c-T: 10 state mode + NQ)."""
     import ctypes
     step, grid, err = _march_fns(lib, prefix, ints, pointers, params_type)
     out = ctypes.c_int(0)

@@ -189,9 +189,9 @@ class SinglePhaseD3Q19(nn.Module):
             if any(self.body_force) else None
         return rho, mac.velocity(self.lat, f, rho, force)
 
-    def _step_impl(self, f):
-        """The plain step, composed from ``ops/``: the JAX model's jnp
-        ``_step_impl``."""
+    def collide(self, f):
+        """The plain step's collision of a (19, ...) stack of cells (any
+        spatial extent): SRT or TRT with the Guo source."""
         lat = self.lat
         rho = mac.density(f, 3)
         force = tuple(b * rho for b in self.body_force)
@@ -207,7 +207,13 @@ class SinglePhaseD3Q19(nn.Module):
             if any(self.body_force):
                 src = guo_source(lat, u, force)
                 f = f + col.trt_force_transform(src, lat, self.tau)
-        return stream(f, lat, self.upwind_solid) * self.fluid_mask
+        return f
+
+    def _step_impl(self, f):
+        """The plain step, composed from ``ops/``: the JAX model's jnp
+        ``_step_impl``."""
+        return stream(self.collide(f), self.lat, self.upwind_solid) * \
+            self.fluid_mask
 
     def plain_step(self, f):
         """``_step_impl`` on any device; a bf16 state is decoded to float32,

@@ -317,15 +317,15 @@ def test_cli_blocked_run_equals_block_1(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("case", ["K3 bc once", "K8-T local row",
                                   "K7-T bc once", "K4 diag f32",
-                                  "K5c-T window rows", "K11-T swap once",
+                                  "K5c-T window rows", "K11-T march pull z",
                                   "K10-T seam skipped", "K9-T march z",
                                   "K8 rt tau"])
 def test_chip_faults_patches_one_line(case):
     """chip_faults.py plants its T-step faults (K3's row-march rewriting
     the boundary rows at level 0 only, K8-T's outlet row picked by window
     row, K7-T's rows after the first sub-step only, K5c-T's row-march
-    mapping the tracer's rows without the wrap, K11-T streaming in the
-    first sub-step only, K10-T's
+    mapping the tracer's rows without the wrap, K11-T's stream-and-collide
+    stage pulling from the slab above instead of below, K10-T's
     z-march skipping the slabs it recomputes below the periodic seam,
     K9-T's march picking the inlet slabs by its unwrapped slab), the
     runtime-K Shan-Chen fault (every fluid's common

@@ -13,7 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (CG3D_CASES, CG3D_TRANSPORT_CASES, COUPLED_CASES,
+from chip_smoke import (BF16_BOUND, CG3D_CASES, CG3D_TRANSPORT_CASES,
+                        COUPLED_CASES,
                         FLOW3D_BF16_SHARE, PERT_CASES, SC3D_CASES, SC_CASES,
                         SC_KERNEL_CASES, SINGLE3D_CASES, SINGLE_BF16_SHARE,
                         SINGLE_CASES, basic3d_model, bf16_one_step_3d,
@@ -803,15 +804,62 @@ def test_k5ct_matches_t_plain_steps_f64(cuda, case, layout, t):
                 tuple(_block_calls(plain, x, m, t))) <= 1e-11
 
 
-@pytest.mark.parametrize("t", [2, 3, 4])
+@pytest.mark.parametrize("t", [2, 3, 4, 10])
 @pytest.mark.parametrize("case", sorted(SINGLE3D_CASES))
 def test_k11t_matches_t_plain_steps_f64(cuda, case, t):
+    """K11-T's z-march at f64 against T plain steps, two calls (T = 10: two
+    launches a call), <= 1e-11; each call counted once a launch."""
+    from openlbmpm_torch.kernels import build
     from openlbmpm_torch.kernels.flow3d import (
-        single3d_block_step, single3d_block_step_reference)
+        flow3d_block_max_steps, single3d_block_step,
+        single3d_block_step_reference)
     m = single3d_case(case, cuda, shape=FLOW3D_SHAPE)
     f = flow_start(m)
-    assert _gap(_block_calls(single3d_block_step, f, m, t),
-                _block_calls(single3d_block_step_reference, f, m, t)) <= 1e-11
+    single3d_block_step.launches = 0
+    got = _block_calls(single3d_block_step, f, m, t)
+    assert single3d_block_step.launches == 2 * len(build.split_steps(
+        t, flow3d_block_max_steps(torch.float64, "single")))
+    assert _gap(got, _block_calls(single3d_block_step_reference, f, m,
+                                  t)) <= 1e-11
+
+
+@pytest.mark.parametrize("t", [2, 3, 4, 10])
+def test_k11t_bf16_matches_t_plain_steps(cuda, t):
+    """K11-T in bf16 storage (decoded once and encoded once a launch)
+    against the same launches of plain steps, two calls on basic3d's
+    physics at 32^3: decoded within phase 54's bound (BF16_BOUND["K11"])."""
+    from openlbmpm_torch.kernels.flow3d import (single3d_block_step,
+                                                single3d_block_step_reference)
+    mh = basic3d_model(cuda, n=32, storage="bf16")
+    h = mh.pack_state_bf16(flow_start(basic3d_model(cuda, n=32), seed=3))
+    a = _block_calls(single3d_block_step, h, mh, t)
+    b = _block_calls(single3d_block_step_reference, h, mh, t)
+    assert a.dtype == torch.bfloat16
+    assert _gap(mh.unpack_bf16(a), mh.unpack_bf16(b)) <= BF16_BOUND["K11"]
+
+
+@pytest.mark.parametrize("case", sorted(SINGLE3D_CASES))
+def test_single3d_step_launches_one_kernel_once(cuda, case):
+    """A K11 step launches one kernel once, as the libraries count it:
+    single_push_kernel in f64 and f32 storage, march_kernel in bf16."""
+    from openlbmpm_torch.kernels import flow3d as kf
+    for dtype, storage, lib, want in (
+            (torch.float64, "f32", "flow3d_f64", "single_push_kernel"),
+            (torch.float32, "f32", "flow3d_f32", "single_push_kernel"),
+            (torch.float32, "bf16", "flow3d_bf16", "march_kernel")):
+        m = single3d_case(case, cuda, shape=FLOW3D_SHAPE, dtype=dtype)
+        if storage == "bf16":
+            m = SinglePhaseD3Q19(m.geo, tau=m.tau, collision=m.collision,
+                                 body_force=m.body_force, device=cuda,
+                                 storage="bf16")
+        f = flow_start(m)
+        x = m.pack_state_bf16(f) if storage == "bf16" else f
+        before = kf.kernel_launches(lib)
+        for _ in range(3):
+            x = single3d_step(x, m)
+        after = kf.kernel_launches(lib)
+        assert {k: after[k] - before[k] for k in kf.KERNELS} == {
+            k: 3 * (k == want) for k in kf.KERNELS}
 
 
 @pytest.mark.parametrize("t", [2, 4])

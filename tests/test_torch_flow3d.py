@@ -316,12 +316,31 @@ def test_chip_faults_patches_one_k10_push_line():
     assert set(phases) <= set(chip_faults.ALL_PHASES)
 
 
+def test_chip_faults_patches_one_k11_push_line():
+    """chip_faults.py plants its K11 push fault (a value bounced back from a
+    solid neighbour pushed into the cell's slot i, not opp(i), in the f64
+    instance) by replacing one line of single_push_kernel in
+    csrc/flow3d.cuh, which must stay there exactly once; phase 33 must fail
+    it while phases 36 (K10's push) and 53 (K11-T) pass."""
+    import chip_faults
+    header, line, fault, phases = chip_faults.CASES["K11 push target f64"]
+    with open(os.path.join(ROOT, "openlbmpm_torch", "csrc", header)) as f:
+        text = f.read()
+    assert header == "flow3d.cuh" and text.count(line) == 1
+    assert text.index("single_push_kernel(") < text.index(line) < \
+        text.index("launch_single_push(")
+    assert "sizeof(S) == 8 ? i : opp(i)" in fault and phases == ("33",)
+    assert set(chip_faults.MUST_PASS["K11 push target f64"]) == {"36", "53"}
+    assert set(phases) <= set(chip_faults.ALL_PHASES)
+
+
 def test_chip_smoke_names_the_flow3d_step_kernels():
     """chip_smoke.py's phase 39 holds each K11 and K10 step to one launch of
     each kernel in FLOW3D_STEP_KERNELS and none of the others, by the
     libraries' counts: every name there is one that the libraries count,
-    and each storage type of K10 launches a kernel that the other does not
-    (sc_push_kernel; rho_kernel)."""
+    and each storage type of K10 and K11 launches a kernel that the other
+    does not (sc_push_kernel, single_push_kernel; rho_kernel,
+    march_kernel)."""
     import chip_smoke
     from openlbmpm_torch.kernels import flow3d as kf
     names = chip_smoke.FLOW3D_STEP_KERNELS
@@ -330,16 +349,34 @@ def test_chip_smoke_names_the_flow3d_step_kernels():
             chip_smoke.FLOW3D_KERNELS)
     assert names["K10"]["f32"] == ("sc_push_kernel",)
     assert names["K10"]["bf16"] == ("rho_kernel", "march_kernel")
+    assert names["K11"]["f32"] == ("single_push_kernel",)
+    assert names["K11"]["bf16"] == ("march_kernel",)
 
 
 def test_chip_ab_sass_family_names_built_libraries():
     """chip_ab.py's "sass" family compares the kernels of SASS_LIBS between
     two checkouts: each is a library of csrc/ (K9, K9t, K10, K11 and their
-    local forms), and its turn is valid Python."""
+    local forms, K11-T and K10-T), and its turn is valid Python; a renamed
+    kernel stands beside the one it replaces (K11's push beside the
+    one-fluid march_kernel of its storage type and collision, K11-T's march
+    beside the brick-window kernel)."""
     import chip_ab
     from openlbmpm_torch.kernels import build
     assert set(chip_ab.SASS_LIBS) <= set(build.LIBRARIES)
     assert {"cg3d_f32", "cg3d_local_f32", "flow3d_bf16",
-            "flow3d_local_f32"} <= set(chip_ab.SASS_LIBS)
+            "flow3d_local_f32", "flow3d_block_f32"} <= set(chip_ab.SASS_LIBS)
+    other = {"12march_kernelIfLi1ELi1EfEEvPKT_PKhPKT2_PS1_12Flow3dParams": 0,
+             "12march_kernelIfLi1ELi2EfEEvPKT_PKhPKT2_PS1_12Flow3dParams": 0,
+             "19flow3d_block_kernelI13__nv_bfloat16Li0ELi1EfEEvPKT_PKhPS2_":
+             0, "17sc3d_march_kernelIfLi2EEEvPKT_PKhPS1_": 0}
+    assert chip_ab.partner("18single_push_kernelIfLi1EEEvPKT_PKhPS1_",
+                           other) == \
+        "12march_kernelIfLi1ELi1EfEEvPKT_PKhPKT2_PS1_12Flow3dParams"
+    assert chip_ab.partner(
+        "21single3d_march_kernelI13__nv_bfloat16Li0EEEvPKT_PKhPS2_",
+        other) == "19flow3d_block_kernelI13__nv_bfloat16Li0ELi1EfEEvPKT_PKhPS2_"
+    assert chip_ab.partner("17sc3d_march_kernelIfLi2EEEvPKT_PKhPS1_",
+                           other) == "17sc3d_march_kernelIfLi2EEEvPKT_PKhPS1_"
+    assert chip_ab.partner("18single_push_kernelIdLi1EEEvPKT_", other) is None
     compile(chip_ab.TURN_SASS, "sass turn", "exec")
     assert chip_ab.TURNS["sass"] is chip_ab.TURN_SASS

@@ -1,4 +1,5 @@
-"""K10's push streaming against the JAX package's pull, on the CPU at f64.
+"""K10's and K11's push streaming against the JAX package's pull, on the
+CPU at f64.
 
 ``sc_push_kernel`` (csrc/flow3d.cuh) streams the f32 and f64 Shan-Chen
 states by push: the thread of fluid cell x writes post_i into slot i of
@@ -8,9 +9,13 @@ writes its own 19 zeros; its box form (K12e) collides the slabs
 placement in numpy as the kernel walks its grid (32 x 8 tiles, a ring of
 fluid flags one cell a side filled with wrapped coordinates, z-runs chosen
 from the card's occupancy by csrc/occupancy.cuh's rule, at most
-PUSH_ZMAX), and counts the writes of every slot.  Held
+PUSH_ZMAX), and counts the writes of every slot.  ``single_push_kernel``
+(K11 in f32 and f64) places the values of one fluid the same way, one
+thread a cell over 32 x SPTY tiles and runs of SPZ slabs, its neighbours'
+flags read from the mask with wrapped coordinates; ``single_push_mirror``
+repeats that walk.  Held
 against ``openlbmpm_tpu/ops/streaming.py::stream`` times the fluid mask on
-random post-collision values (K = 1, 2, 3) over random masks full of
+random post-collision values (K = 1, 2, 3; K11) over random masks full of
 one-cell slivers, grains that cross the periodic seams and solid planes on
 the seams: equal value for value, every slot written exactly once, and the
 box form writing exactly the slots of [a, b).
@@ -35,8 +40,10 @@ def _constant(name):
     return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
 
 
-# csrc/flow3d.cuh: the push tile (TX x PTY) and the longest z-run (ZMAX)
+# csrc/flow3d.cuh: the push tile (TX x PTY) and the longest z-run (ZMAX);
+# K11's tile (TX x SPTY) and slabs a thread (SPZ)
 TX, PTY, ZMAX = 32, _constant("PTY"), _constant("PUSH_ZMAX")
+SPTY, SPZ = _constant("SPTY"), _constant("SPZ")
 SHAPE = (9, 11, 37)   # two tiles in x and in y, several z-runs
 DEEP = (40, 11, 37)   # deeper than ZMAX slabs
 
@@ -103,6 +110,36 @@ def push_mirror(post, fluid, box=None, capacity=264):
     return out, writes
 
 
+def single_push_mirror(post, fluid):
+    """The slots single_push_kernel writes from the post-collision values
+    `post` (1, 19, nz, ny, nx) of one fluid over the bool mask `fluid`, as
+    (out, writes) of push_mirror."""
+    nz, ny, nx = fluid.shape
+    e, opp = D3Q19.e.astype(int), D3Q19.opp
+    out = np.zeros_like(post)
+    writes = np.zeros(post.shape, np.int64)
+    for bz in range(-(-nz // SPZ)):
+        for by in range(-(-ny // SPTY)):
+            for bx in range(-(-nx // TX)):
+                for t in range(TX * SPTY):
+                    x, y = bx * TX + t % TX, by * SPTY + t // TX
+                    if x >= nx or y >= ny:
+                        continue
+                    for z in range(bz * SPZ, min((bz + 1) * SPZ, nz)):
+                        if not fluid[z, y, x]:
+                            out[:, :, z, y, x] = 0.0
+                            writes[:, :, z, y, x] += 1
+                            continue
+                        for i in range(19):
+                            nb = ((z + e[i, 2]) % nz, (y + e[i, 1]) % ny,
+                                  (x + e[i, 0]) % nx)
+                            t_ = (slice(None), i) + nb if fluid[nb] else \
+                                (slice(None), opp[i], z, y, x)
+                            out[t_] = post[:, i, z, y, x]
+                            writes[t_] += 1
+    return out, writes
+
+
 def _solid(kind, seed=0, shape=SHAPE):
     """The (nz, ny, nx) solid masks: random cells (one-cell slivers and
     isolated fluid cells), periodic grains across every seam, or solid
@@ -127,14 +164,17 @@ def _jax_stream(post, solid):
                      for p in post])
 
 
-@pytest.mark.parametrize("k", [1, 2, 3])
+@pytest.mark.parametrize("k", [1, 2, 3, "K11"])
 @pytest.mark.parametrize("kind", ["random", "grains", "seams"])
 def test_push_equals_jax_stream_and_writes_each_slot_once(kind, k):
-    solid = _solid(kind, seed=k)
+    """K10's push of K fluids, or ("K11") K11's push of one fluid."""
+    k11 = k == "K11"
+    n = 1 if k11 else k
+    solid = _solid(kind, seed=4 if k11 else k)
     assert solid.any() and (~solid).any()
-    post = np.random.default_rng(10 + k).uniform(
-        -1.0, 1.0, (k, 19) + SHAPE)
-    out, writes = push_mirror(post, ~solid)
+    post = np.random.default_rng(10 + n).uniform(
+        -1.0, 1.0, (n, 19) + SHAPE)
+    out, writes = (single_push_mirror if k11 else push_mirror)(post, ~solid)
     assert writes.min() == 1 and writes.max() == 1
     np.testing.assert_array_equal(out, _jax_stream(post, solid))
 
@@ -193,3 +233,22 @@ def test_chip_sweep_k10_variants_patch_flow3d_once(tag, tmp_path):
     dest = chip_sweep._patched(build.SRC_DIR, tmp_path / tag,
                                {"flow3d.cuh": chip_sweep.K10_EDITS[tag]})
     assert (dest / "flow3d.cuh").read_text() != src
+
+
+@pytest.mark.parametrize("tag", ["s_ty4", "s_ty16", "s_z2", "s_z4", "s_b1",
+                                 "s_b3", "s_b4", "m_b2", "m_b3", "m_b4"])
+def test_chip_sweep_k11_variants_patch_once(tag, tmp_path):
+    """chip_sweep.py's k11 mode times K11's push on copies of csrc/ with
+    flow3d.cuh changed and K11-T on copies with flow3d_block.cuh changed:
+    each text it replaces stays in its source exactly once, and the copy
+    differs from the source."""
+    import chip_sweep
+    name, edits = (("flow3d.cuh", chip_sweep.K11_PUSH_EDITS)
+                   if tag.startswith("s_") else
+                   ("flow3d_block.cuh", chip_sweep.K11_MARCH_EDITS))
+    src = (build.SRC_DIR / name).read_text()
+    old, new = edits[tag]
+    assert src.count(old) == 1 and old != new
+    dest = chip_sweep._patched(build.SRC_DIR, tmp_path / tag,
+                               {name: edits[tag]})
+    assert (dest / name).read_text() != src

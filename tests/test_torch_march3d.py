@@ -1,20 +1,23 @@
-"""The z-march of the 3-D T-step kernels K10-T and K9-T on the CPU.
+"""The z-march of the 3-D T-step kernels K11-T, K10-T and K9-T on the CPU.
 
 The CUDA kernels (``csrc/march3d.cuh`` with ``flow3d_block.cuh`` and
 ``cg3d_block.cuh``) execute a plan built by
 ``openlbmpm_torch/kernels/march3d.py``.  Here the same plans run through
-their plain PyTorch model (``sc3d_march_reference``,
-``cg3d_march_reference``: wave by wave and slab by slab, from rings of the
+their plain PyTorch model (``single3d_march_reference``,
+``sc3d_march_reference``, ``cg3d_march_reference``: wave by wave and slab
+by slab, from rings of the
 plan's depth that hold NaN until written, a wave seeing only what earlier
 waves wrote), at f64 on domains small enough that the periodic z seam and
 several y-bands (the last one overhanging ny) both occur:
 
-* K10-T with K = 1, 2 and 3 fluids and K9-T compressed and split, periodic,
+* K11-T (SRT and TRT with the body force) in one band and in several,
+  K10-T with K = 1, 2 and 3 fluids and K9-T compressed and split, periodic,
   with the velocity inlet and the convective outlet and with the velocity
   inlet and the pressure outlet, at T = 2, 3 and 4, against T plain steps
   of the port (<= 1e-12), which ``tests/test_torch_block_3d.py`` and
-  ``tests/test_torch_block_cg3d*.py`` hold to the JAX T-step builders; one
-  case also directly against the JAX blocked K10 in interpret mode;
+  ``tests/test_torch_block_cg3d*.py`` hold to the JAX T-step builders;
+  K11-T and K10-T also directly against the JAX blocked kernels in
+  interpret mode;
 * the plan's schedule: every read of a stage follows the writes it needs
   by at least one wave, no ring slot is reused while a reader needs it,
   every (stage, slab) runs exactly once a band, the last stage covers the
@@ -36,15 +39,16 @@ import pytest
 import torch
 
 from openlbmpm_tpu.pallas.sc3d import build_sc3d_fused_step
+from openlbmpm_tpu.pallas.single3d import build_single3d_fused_step
 from openlbmpm_torch.geometry import from_solid_mask
 from openlbmpm_torch.kernels import march3d as M
 from openlbmpm_torch.lattice import D3Q19
 from openlbmpm_torch.models.flow3d import (CG3DBoundaryConfig,
                                            ColorGradientParams3D,
                                            ColorGradientRK3D, ShanChenMCMP3D,
-                                           ShanChenParams3D)
+                                           ShanChenParams3D, SinglePhaseD3Q19)
 from openlbmpm_torch.ops import equilibrium as eq
-from test_torch_block_3d import SC, _perturbed, _sc
+from test_torch_block_3d import SC, _perturbed, _sc, _single
 
 torch.set_num_threads(1)
 CPU = "cpu"   # the port's models run on the card unless told otherwise
@@ -155,6 +159,49 @@ def test_cg3d_march_equals_plain_steps(layout, bc, steps):
     assert _gap(got, want) <= TOL
 
 
+def _single_model(collision):
+    return SinglePhaseD3Q19(from_solid_mask(_solid()), tau=0.8,
+                            collision=collision,
+                            body_force=(2e-5, -1e-5, 3e-5),
+                            dtype=torch.float64, device=CPU)
+
+
+@pytest.mark.parametrize("bands", ["one", "several"])
+@pytest.mark.parametrize("collision", ["SRT", "TRT"])
+@pytest.mark.parametrize("steps", [2, 3, 4])
+def test_single3d_march_equals_plain_steps(steps, collision, bands):
+    """K11-T's march model (walls, an obstacle, the Guo body force), T steps
+    a call, in one band or in 3 or 4 bands whose last overhangs ny: T plain
+    steps to 1e-12 (measured 0)."""
+    m = _single_model(collision)
+    f = _sc_start(m, 1)[0]
+    rows = None if bands == "one" else {2: 4, 3: 4, 4: 3}[steps]
+    plan = M.single3d_march_plan(SHAPE, steps, 8, band_rows=rows)
+    assert plan.bands == 1 if rows is None else \
+        plan.bands * plan.band_rows > SHAPE[1] and plan.bands > 2
+    got = M.single3d_march_reference(f, m, steps, plan)
+    assert bool(torch.isfinite(got).all())
+    assert _gap(got, _plain(m, f, steps)) <= TOL
+
+
+def test_single3d_march_matches_jax_kernel():
+    """SRT with the body force on the 16 x 8 x 8 box of
+    test_torch_block_3d.py: two calls of the march model at T = 2 (three
+    y-bands) against two calls of the JAX blocked K11
+    (``build_single3d_fused_step``, ``steps_per_call=2``) in interpret
+    mode, to 1e-12."""
+    mj, mt = _single("SRT", True)
+    jblk = build_single3d_fused_step(mj.geo, mj.tau, "SRT", mj.body_force,
+                                     jnp.float64, slabs_per_block=4,
+                                     steps_per_call=2, interpret=True)
+    f = _perturbed(3)
+    a, b = jnp.asarray(f), torch.from_numpy(f.copy())
+    plan = M.single3d_march_plan(f.shape[-3:], 2, 8, band_rows=3)
+    for _ in range(2):
+        a, b = jblk(a), M.single3d_march_reference(b, mt, 2, plan)
+    assert float(np.abs(b.numpy() - np.asarray(a)).max()) <= TOL
+
+
 def test_sc3d_march_matches_jax_kernel():
     """K = 2 on the 16 x 8 x 8 box of test_torch_block_3d.py: two calls of
     the march model at T = 2 against two calls of the JAX blocked K10
@@ -174,10 +221,19 @@ def test_sc3d_march_matches_jax_kernel():
 
 def test_bf16_march_decodes_once():
     """The bf16 forms: the state decoded once, the levels in float32, one
-    encoding, as the T-step kernels' plain versions do: K10-T (K = 2) and
-    K9-T compressed, every value within one bf16 ulp of them (the two sum
-    a few terms in other orders in float32)."""
+    encoding, as the T-step kernels' plain versions do: K11-T (TRT with the
+    body force), K10-T (K = 2) and K9-T compressed, every value within one
+    bf16 ulp of them (the two sum a few terms in other orders in
+    float32)."""
     g = from_solid_mask(_solid())
+    ms = SinglePhaseD3Q19(g, tau=0.8, collision="TRT",
+                          body_force=(2e-5, -1e-5, 3e-5),
+                          dtype=torch.float32, device=CPU, storage="bf16")
+    hs = ms.pack_state_bf16(_sc_start(ms, 1)[0].float())
+    got = M.single3d_march_reference(hs, ms, 3)
+    assert got.dtype == torch.bfloat16
+    _within_one_ulp(got, ms.pack_state_bf16(_plain(ms, ms.unpack_bf16(hs),
+                                                   3)))
     m = ShanChenMCMP3D(g, ShanChenParams3D(**SC[2]), dtype=torch.float32,
                        device=CPU, storage="bf16")
     h = m.pack_state_bf16(_sc_start(m, 2).float())
@@ -242,6 +298,9 @@ def _check_schedule(plan):
 
 
 @pytest.mark.parametrize("family,shape,steps,dtype", [
+    ("single", (128, 128, 128), 2, "f32"),
+    ("single", (128, 128, 128), 4, "f32"),
+    ("single", (256, 256, 256), 8, "f64"),
     ("sc", (128, 128, 128), 2, "f32"), ("sc", (128, 128, 128), 4, "f32"),
     ("sc", (256, 256, 256), 4, "f64"),
     ("cg", (128, 128, 128), 2, "f32"), ("cg", (128, 128, 128), 4, "f32"),
@@ -253,7 +312,9 @@ def test_plan_schedule_and_budget(family, shape, steps, dtype):
     it with a halo of at most MAX_HALO_SHARE of the band's rows would say
     so, ``fits`` False)."""
     itemsize = 8 if dtype == "f64" else 4
-    if family == "sc":
+    if family == "single":
+        plan = M.single3d_march_plan(shape, steps, itemsize)
+    elif family == "sc":
         plan = M.sc3d_march_plan(shape, 2, steps, itemsize)
     else:
         plan = M.cg3d_march_plan(shape, steps, itemsize,
@@ -267,11 +328,20 @@ def test_plan_schedule_and_budget(family, shape, steps, dtype):
         assert plan.rows <= M.MAX_HALO_SHARE * plan.band_rows
     if fields["fits"]:
         assert plan.scratch_bytes <= M.RING_BUDGET
-    # slabs a level trails the last, Z slabs a wave: K10 collide and stream
-    # 1 + Z each; K9 with the inlet and the convective cascade 3 + Z, then
-    # extrap, normal, collide and stream 1 + Z each
+    # slabs a level trails the last, Z slabs a wave: K11 one stage of 1 + Z
+    # a level, its ring 2 Z + 2 slabs; K10 collide and stream 1 + Z each;
+    # K9 with the inlet and the convective cascade 3 + Z, then extrap,
+    # normal, collide and stream 1 + Z each
     z = M.SLABS_PER_WAVE
-    assert fields["lag"] == (2 + 2 * z if family == "sc" else 7 + 5 * z)
+    assert plan.slabs_per_wave == z
+    assert fields["lag"] == {"single": 1 + z, "sc": 2 + 2 * z}.get(
+        family, 7 + 5 * z)
+    if family == "single":
+        assert len(plan.stages) == steps + 1 and \
+            [st.kind for st in plan.stages] == \
+            [M.COLLIDE] + [M.SCOLLIDE] * (steps - 1) + [M.STREAM]
+        assert [r.depth for r in plan.rings] == [2 * z + 2] * steps
+        assert fields["ring_slabs"] == {"post0": 2 * z + 2}
     assert fields["fits"]
 
 
@@ -281,6 +351,9 @@ def test_small_domain_schedule():
         for steps in (1, 2, 4):
             for br in (None, 3, 4):
                 _check_schedule(M.sc3d_march_plan(SHAPE, 2, steps, 8, z, br))
+                single = M.single3d_march_plan(SHAPE, steps, 8, z, br)
+                _check_schedule(single)
+                assert single.lag == (1 + z if steps > 1 else 0)
                 _check_schedule(M.cg3d_march_plan(SHAPE, steps, 8, True, 1,
                                                   2, True, z, br))
 
