@@ -2,7 +2,7 @@
 """Time the single-device kernels of this checkout against those of another
 checkout of the repository, in turns on one card.
 
-    python3 chip_ab.py OTHER_DIR [ROUNDS] [3d|2d|3dT|2dT|bits|sass]
+    python3 chip_ab.py OTHER_DIR [ROUNDS] [3d|2d|3dT|2dT|bits|sass|sass2d]
 
 Run from the repository root on a machine with a CUDA card and nvcc.
 OTHER_DIR holds another checkout (e.g. the parent commit, unpacked with
@@ -18,28 +18,34 @@ chip_smoke.py's perturbed start, bf16; f32 at 256^3 too), K10 (probe_sc3d,
 f32 and bf16), K12e
 (the sharded K10 on probe_sc3d over (4, 1), T = 1) and K10-T at T = 2 (ms a
 time step), at 128^3 in f32 unless named;
-"2d" ms a step of the Shan-Chen K8 and of K8-T at T = 4 on
-bench_all.py's configs 2 and 3 at 1024^2 in f32, and of K8 with four
-fluids (the runtime-K instance) at 1024^2; "3dT" ms a time step of the 3-D
+"2d" ms a step of the Shan-Chen K8 and of K8-T at T = 2 and 4 (a
+time step) on bench_all.py's configs 2 and 3 at 1024^2 in f32 and in bf16
+storage, of K12c (the sharded K8-T over a (4, 1) local mesh, T = 4, a time
+step) on both, of K8 with four fluids (the runtime-K instance) at 1024^2,
+and of the other 2-D kernels a Shan-Chen change must leave as they are:
+K3c (the CSF flagship) and K5c-Tc (configuration 4) at T = 4, K7 and K7-T
+at T = 4 (configuration 1), all in f32; "3dT" ms a time step of the 3-D
 T-step kernels at 128^3: K10-T (probe_sc3d) in f32 and bf16 and K9-Tc,
 K9-Th and K9-Ts (configuration 5) at T = 2 and 4, and K11-T (basic3d) in
 f32 and bf16 at T = 2 and 4; "2dT" ms a time step of the 2-D colour-gradient T-step kernels at
 1024^2, the models of chip_smoke.py's phases 49 and 55: K3c, K3h and K3s
 of both variants (the CSF flagship and the Perturbation flagship) and
 K5c-Tc, K5c-Th and K5c-Ts (configuration 4) at T = 2 and 4; "bits" no
-times but whether the two checkouts' kernels give the same bits: K10, K11
-and K9t after 10 steps and K11-T after two calls of T = 4 on this
-checkout's cases (chip_smoke.py's SC3D_CASES, SINGLE3D_CASES and
-CG3D_TRANSPORT_CASES but the grain pack) in f64, f32 and bf16, then K10,
-K11 and K11-T in f32 with both checkouts' libraries built with
--fmad=false, one line each with the largest |difference| of K10, K11 and
-K11-T between the checkouts (bf16 decoded as stored);
+times but whether the two checkouts' kernels give the same bits: K8, K10,
+K11 and K9t after 10 steps and K8-T and K11-T after two calls of T = 4 on
+this checkout's cases (chip_smoke.py's SC_KERNEL_CASES at 100 x 64,
+SC3D_CASES, SINGLE3D_CASES and CG3D_TRANSPORT_CASES but the grain pack) in
+f64, f32 and bf16, then K8 and K8-T in f64 and f32 and K10, K11 and K11-T
+in f32 with both checkouts' libraries built with -fmad=false, one line
+each with the largest |difference| of K8, K8-T, K10, K11 and K11-T between
+the checkouts (in float64; bf16 as stored);
 "sass" no times but each kernel of the 3-D one-step libraries and of the
 3-D single-phase and Shan-Chen T-step libraries (SASS_LIBS) as cuobjdump
 prints it from both checkouts' builds: its instructions (addresses and
 encodings dropped) equal or not, their count and its registers in each (a
 kernel this checkout renamed beside the one it replaces, RENAMED), one JSON
-line a library.  The turns go
+line a library; "sass2d" the same of the 2-D libraries of SASS2D_LIBS.
+The turns go
 other, this, this, other (ROUNDS times, default 1), so that a drift of the
 card's clock shows in both.  Prints one JSON line a turn, then one with
 each kernel's median over the turns of each checkout, and one with each
@@ -134,19 +140,48 @@ print(json.dumps({k: v * 1e3 for k, v in out.items()}))
 TURN_2D = r"""
 import json, sys, torch
 import chip_smoke as cs
-from openlbmpm_torch.kernels import build, shanchen
-build.load_libraries(("sc2d_f32", "sc2d_block_f32", "sc2d_rt"))
+from openlbmpm_torch.kernels import build, csf, shanchen, single, transport
+from openlbmpm_torch.parallel import make_mesh
+build.load_libraries(("sc2d_f32", "sc2d_bf16", "sc2d_block_f32",
+                      "sc2d_block_bf16", "sc2d_rt", "sc2d_local_f32",
+                      "csf2d_block_f32", "coupled2d_block_f32",
+                      "single2d_f32", "single2d_block_f32"))
 dev = torch.device("cuda", 0)
 out = {}
 for name in ("config2", "config3"):
+    for st in ("f32", "bf16"):
+        m, f = cs.sc_config(name, dev, storage=st)
+        x = m.pack_state_bf16(f) if st == "bf16" else f
+        tag = "" if st == "f32" else " bf16"
+        out[f"K8 {name}{tag}"] = cs._time_steps(
+            lambda y: shanchen.sc_step(y, m), x, 200, dev)
+        for t in (2, 4):
+            out[f"K8-T T={t} {name}{tag}"] = cs._time_steps(
+                lambda y: shanchen.sc_block_step(y, m, t), x, 100 // t,
+                dev) / t
     m, f = cs.sc_config(name, dev)
-    out[f"K8 {name}"] = cs._time_steps(lambda x: shanchen.sc_step(x, m), f,
-                                       200, dev)
-    out[f"K8-T T=4 {name}"] = cs._time_steps(
-        lambda x: shanchen.sc_block_step(x, m, 4), f, 50, dev) / 4
+    step = shanchen.build_sc_sharded_step(
+        m.geo, m.p, make_mesh(shape=(4, 1), kind="local", device=dev),
+        torch.float32, steps_per_call=4)
+    out[f"K12c (4, 1) T=4 {name}"] = cs._time_steps(step, step.shard(f), 25,
+                                                    dev) / 4
 m, f = cs.sc_case("sc4_mrt_velocity_convective", dev, 1024, 1024,
                   torch.float32)
 out["K8 K=4"] = cs._time_steps(lambda x: shanchen.sc_step(x, m), f, 100, dev)
+# the other 2-D kernels, which this change must leave as they are
+m = cs.flagship_model(dev, "f32")
+s = m.pack_state(*m.init_state_layers(1.0, 1.0, invading_rows=100))
+out["K3c T=4"] = cs._time_steps(
+    lambda y: csf.csf_block_compressed(y, m, 4), s, 50, dev) / 4
+mt = cs.coupled_model(dev, "f32", cs.CONFIG4_TRACER)
+x = mt.pack(cs.config4_state(mt)[0])
+out["K5c-Tc T=4"] = cs._time_steps(
+    lambda y: transport.coupled_block_compressed(y, mt, 4), x, 25, dev) / 4
+m = cs.config1_model(dev)
+f = cs.flow_start(m)
+out["K7"] = cs._time_steps(lambda y: single.single_step(y, m), f, 200, dev)
+out["K7-T T=4"] = cs._time_steps(
+    lambda y: single.single_block_step(y, m, 4), f, 50, dev) / 4
 print(json.dumps({k: v * 1e3 for k, v in out.items()}))
 """
 TURN_3DT = r"""
@@ -212,39 +247,58 @@ for (label, family, key, m, x, step1, kern, plain,
 print(json.dumps({k: v * 1e3 for k, v in out.items()}))
 """
 # "bits": the outputs of 10 steps of K10 (this checkout's SC3D_CASES), K11
-# (its SINGLE3D_CASES) and K9t (its CG3D_TRANSPORT_CASES but the grain
-# pack) and of two calls of K11-T at T = 4 in f64, f32 and bf16, a SHA-256
-# each, and of K10, K11 and K11-T in f32 built with -fmad=false (no a * b +
-# c contracted into an FMA), so that equal hashes show equal bits; the
-# K10, K11 and K11-T states also go to a file, so that the two checkouts'
-# largest difference is printed
+# (its SINGLE3D_CASES), K9t (its CG3D_TRANSPORT_CASES but the grain pack)
+# and K8 (its SC_KERNEL_CASES at 100 x 64) and of two calls of K11-T and
+# K8-T at T = 4 in f64, f32 and bf16, a SHA-256 each, and of K10, K11,
+# K11-T, K8 and K8-T in f32 (K8 and K8-T in f64 too) built with
+# -fmad=false (no a * b + c contracted into an FMA), so that equal hashes
+# show equal bits; the K10, K11, K11-T, K8 and K8-T states also go to a
+# file, so that the two checkouts' largest difference is printed
 TURN_BITS = r"""
 import hashlib, importlib.util, json, sys, torch
 spec = importlib.util.spec_from_file_location("cases", sys.argv[1])
 cs = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(cs)
-from openlbmpm_torch.kernels import build, cg3d, flow3d
-if sys.argv[2] == "nofma":
-    build.EXTRA_FLAGS["flow3d_f32"] = ("-fmad=false",)
-    build.EXTRA_FLAGS["flow3d_block_f32"] = ("-fmad=false",)
+from openlbmpm_torch.kernels import build, cg3d, flow3d, shanchen
+nofma = sys.argv[2] == "nofma"
+if nofma:
+    for lib in ("flow3d_f32", "flow3d_block_f32", "sc2d_f64", "sc2d_f32",
+                "sc2d_block_f32"):
+        build.EXTRA_FLAGS[lib] = ("-fmad=false",)
 from openlbmpm_torch.models.flow3d import SinglePhaseD3Q19
 dev = torch.device("cuda", 0)
 sha = lambda ts: hashlib.sha256(b"".join(
     t.detach().contiguous().cpu().view(torch.uint8).numpy().tobytes()
     for t in ts)).hexdigest()[:16]
+# the states to compare as float64 (bf16 as stored, converted exactly)
+keep = lambda x: x.detach().double().cpu()
 out, states = {}, {}
 kinds = ((torch.float64, "f32"), (torch.float32, "f32"), (torch.float32, "bf16"))
-if sys.argv[2] == "nofma":
-    kinds = kinds[1:2]
+if nofma:
+    kinds = kinds[:2]
 for dtype, storage in kinds:
     tag = "bf16" if storage == "bf16" else str(dtype)[6:]
+    for name in cs.SC_KERNEL_CASES:
+        m, f = cs.sc_case(name, dev, ny=100, nx=64, dtype=dtype,
+                          storage=storage)
+        x0 = m.pack_state_bf16(f) if storage == "bf16" else f
+        for fam, fn, calls in (("K8", shanchen.sc_step, 10),
+                               ("K8-T", lambda y, m: shanchen.
+                                sc_block_step(y, m, 4), 2)):
+            x = x0
+            for _ in range(calls):
+                x = fn(x, m)
+            out[f"{fam} {tag} {name}"] = sha((x,))
+            states[f"{fam} {tag} {name}"] = keep(x)
+    if nofma and dtype == torch.float64:
+        continue
     for name in cs.SC3D_CASES:
         m, f = cs.sc3d_case(name, dev, dtype=dtype, storage=storage)
         x = m.pack_state_bf16(f) if storage == "bf16" else f
         for _ in range(10):
             x = flow3d.sc3d_step(x, m)
         out[f"K10 {tag} {name}"] = sha((x,))
-        states[f"K10 {tag} {name}"] = x.float().cpu()
+        states[f"K10 {tag} {name}"] = keep(x)
     for name, (collision, force) in cs.SINGLE3D_CASES.items():
         m = SinglePhaseD3Q19(cs._walls_y((48, 40, 32), obstacle=True),
                              tau=0.8, collision=collision, body_force=force,
@@ -258,8 +312,8 @@ for dtype, storage in kinds:
             for _ in range(calls):
                 x = fn(x, m)
             out[f"{fam} {tag} {name}"] = sha((x,))
-            states[f"{fam} {tag} {name}"] = x.float().cpu()
-    if sys.argv[2] == "nofma":
+            states[f"{fam} {tag} {name}"] = keep(x)
+    if nofma:
         continue
     for name in cs.CG3D_TRANSPORT_CASES:
         if name == "grain_pack":
@@ -279,6 +333,13 @@ SASS_LIBS = ("cg3d_f64", "cg3d_f32", "cg3d_bf16", "cg3d_local_f64",
              "cg3d_local_f32", "flow3d_f64", "flow3d_f32", "flow3d_bf16",
              "flow3d_local_f64", "flow3d_local_f32", "flow3d_block_f64",
              "flow3d_block_f32", "flow3d_block_bf16")
+# "sass2d": the 2-D libraries beside the Shan-Chen ones (K1/K2/K6, K5c/K5s,
+# K4, K7, K3, K5c-T, K7-T, K12a-c) and K8's bf16 pull
+SASS2D_LIBS = ("csf2d", "coupled2d", "pert2d", "single2d_f32",
+               "single2d_bf16", "csf2d_block_f32", "csf2d_block_bf16",
+               "coupled2d_block_f32", "single2d_block_f32",
+               "single2d_block_bf16", "csf2d_local_f32", "sc2d_local_f32",
+               "sc2d_local_f64", "sc2d_bf16")
 # kernels this checkout renamed: (pattern of this checkout's name, the
 # other's name it replaces, from the pattern's groups: the storage type
 # and the collision): K11's push for march_kernel with one fluid, K11-T's
@@ -321,7 +382,7 @@ for lib in libs:
 print(json.dumps(out))
 """
 TURNS = {"3d": TURN, "2d": TURN_2D, "3dT": TURN_3DT, "2dT": TURN_2DT,
-         "bits": TURN_BITS, "sass": TURN_SASS}
+         "bits": TURN_BITS, "sass": TURN_SASS, "sass2d": TURN_SASS}
 
 
 def partner(fn: str, other: dict):
@@ -359,11 +420,12 @@ def main(argv=None) -> int:
     if family not in TURNS:
         print(__doc__, file=sys.stderr)
         return 2
-    if family == "sass":
+    if family in ("sass", "sass2d"):
+        libs = SASS_LIBS if family == "sass" else SASS2D_LIBS
         got = {name: turn(other if name == "other" else ROOT, family,
-                          (",".join(SASS_LIBS),))
+                          (",".join(libs),))
                for name in ("other", "this")}
-        for lib in SASS_LIBS:
+        for lib in libs:
             this, that = got["this"][lib], got["other"][lib]
             pair = {fn: partner(fn, that) for fn in this}
             print(json.dumps({"library": lib, "kernels": {

@@ -7,7 +7,8 @@ single-phase D2Q9 kernel (K7) under phase 31 (the analytic Poiseuille
 profile), the D3Q19 Shan-Chen kernel (K10) under phases 36 and 37
 (benchmarks/probe_sc3d.py's configuration) and the Perturbation kernel
 (K4) under phase 41 (the pert flagship at 1024^2), and the D3Q19
-single-phase push (K11) under phase 33 (its f64 cases); ten faults that
+single-phase push (K11) under phase 33 (its f64 cases), the 2-D
+Shan-Chen push (K8) under phase 15 (its f64 cases); ten faults that
 only the T-step kernels can show: the colour-gradient K3's row-march under
 phase 48 (the flagships at 1024^2 in f32) and phase 45 (its f64 cases;
 twice, once in the Perturbation variant's body),
@@ -46,7 +47,8 @@ drop the adhesion term, which only wall-adjacent cells carry, in the
 float-arithmetic instances (f32 and bf16 storage: the shared collision
 knows only its compute type), or push a post-collision value bounced back
 from a solid neighbour into the cell's slot i instead of opp(i) in the f32
-instance; the K11 fault does the same in K11's push, in the f64 instance;
+instance; the K11 fault does the same in K11's push, in the f64 instance,
+and the K8 fault in K8's push (sc2d.cuh), in the f64 instance;
 the K4 fault drops the 1/sqrt(2) of the diagonal recolouring
 segment in the float-arithmetic instances (K4c f32, K4h, K4s f32; the
 Perturbation K3 shares the line). The T-step faults: K3's row-march
@@ -55,8 +57,8 @@ a call), in its f32 instances, or picks the inlet's trigger row by its
 unwrapped row instead of the domain's (the copy of row ny - 2 recomputed
 below the seam misses its rewrite), in its f64 instance, or (its
 Perturbation stream) bounces a diagonal's red part back from the wrong
-slot, in its f64 instance; K8-T selects the
-Zou-He outlet row by window row instead of global row, in its f64
+slot, in its f64 instance; K8-T's row-march forms the Zou-He outlet row d
+from the values of row d + 1 (its outlet stage one row off), in its f64
 instance; K7-T rewrites the rows after the first sub-step only, in its f64
 instance; K5c-T's row-march maps the tracer stream's unwrapped rows to
 global rows without the wrap (the tracer's inlet and outlet rows
@@ -92,6 +94,8 @@ f64 instance:
                  part) and 37 must fail;
   K11 push target f64  flow3d.cuh, float64 storage: phase 33 must fail,
                  phases 36 (K10's push) and 53 (K11-T) pass;
+  K8 push target f64  sc2d.cuh, float64 storage: phase 15 must fail,
+                 phase 46 (K8-T) passes;
   K4 diag f32    pert2d.cuh, float arithmetic: phase 41 must fail;
   K3 bc once     march2d.cuh, float32 storage: phase 48 must fail,
                  phases 4 and 41 (K1, K4) pass;
@@ -99,8 +103,8 @@ f64 instance:
                  phases 4 and 41 (K1, K4) pass;
   K3 pert march  march2d.cuh, float64 storage: phase 45 must fail,
                  phases 40 and 41 (K4) pass;
-  K8-T local row sc2d_block.cuh, float64 storage: phase 46 must fail,
-                 phase 15 (K8) passes;
+  K8-T march outlet  sc2d_march.cuh, float64 storage: phase 46 must
+                 fail, phase 15 (K8) passes;
   K7-T bc once   single2d_block.cuh, float64 storage: phase 47 must fail,
                  phase 29 (K7) passes;
   K5c-T window rows  march2d.cuh, float64 arithmetic: phase 52 must
@@ -192,9 +196,17 @@ K10L_LINE = ("    return kind == 0 || kind == 1 ? kMaxSteps3 : 0;"
              "                                         \\")
 K10L_FAULT = ("    return kind == 0 || kind == 1 ? (sizeof(S) == {size} ? 2 : "
               "1) * kMaxSteps3 : 0; \\")
-K8T_LINE = "              if (wrap(oy + ly, ny) == d && FL[c]) {"
-K8T_FAULT = ("              if ((sizeof(S) == {size} ? ly : wrap(oy + ly, ny)) "
-             "== d && FL[c]) {{")
+# K8's push: the same fault in sc2d.cuh's sc_push_kernel
+K8P_LINE = ("        p[(opp(i) - i) * (ptrdiff_t)n] = o[i];   // bounced back "
+            "from the solid x + e_i")
+K8P_FAULT = ("        p[((sizeof(S) == {size} ? i : opp(i)) - i) * "
+             "(ptrdiff_t)n] = o[i];")
+# K8-T's row-march: the Zou-He outlet row d formed from row d + 1's values
+# (a convective row copied from two rows above instead of one went
+# unseen: near the outlet the cases' rows stay alike for the steps phase
+# 46 runs)
+K8T_LINE = "      sc_ring_get<C, K>(R, d, F);"
+K8T_FAULT = "      sc_ring_get<C, K>(R, d + (sizeof(S) == {size}), F);"
 K5CT_LINE = "  __device__ int row(int y) const { return mwrap(y, ny); }"
 K5CT_FAULT = ("  __device__ int row(int y) const {{ return "
               "sizeof(C) == {size} ? y : mwrap(y, ny); }}")
@@ -226,8 +238,8 @@ K12E_LINE = "  const int c0 = BOX ? R.z0 - 1 : 0, c1 = BOX ? R.z1 + 1 : nz;"
 K12E_FAULT = ("  const int c0 = BOX ? R.z0 - 1 + (sizeof(S) == {size}) : 0, "
               "c1 = BOX ? R.z1 + 1 : nz;")
 K12C_LINE = "            if (wrap(oy + ly, ny) == row && FL[c]) {"
-K12C_FAULT = ("            if (wrap(oy + ly + (LOCAL && sizeof(S) == {size}), "
-              "ny) == row && FL[c]) {{")
+K12C_FAULT = ("            if (wrap(oy + ly + (sizeof(S) == {size}), ny) == "
+              "row && FL[c]) {{")
 K7T_FAULT = ("      if ((P.inlet != 0 || P.outlet != 0) && "
              "(sub == 0 || sizeof(S) != {size})) {{")
 # name -> (source, line, fault, phases that must fail)
@@ -245,6 +257,8 @@ CASES = {
                             ("36", "37")),
     "K11 push target f64": ("flow3d.cuh", K11P_LINE, K11P_FAULT.format(size=8),
                             ("33",)),
+    "K8 push target f64": ("sc2d.cuh", K8P_LINE, K8P_FAULT.format(size=8),
+                           ("15",)),
     "K4 diag f32": ("pert2d.cuh", K4_LINE, K4_FAULT.format(size=4), ("41",)),
     "K3 bc once": ("march2d.cuh", K3_LINE, K3_FAULT.format(size=4),
                    ("48",)),
@@ -252,8 +266,8 @@ CASES = {
                          ("45",)),
     "K3 pert march": ("march2d.cuh", K3P_LINE, K3P_FAULT.format(size=8),
                       ("45",)),
-    "K8-T local row": ("sc2d_block.cuh", K8T_LINE, K8T_FAULT.format(size=8),
-                       ("46",)),
+    "K8-T march outlet": ("sc2d_march.cuh", K8T_LINE,
+                          K8T_FAULT.format(size=8), ("46",)),
     "K7-T bc once": ("single2d_block.cuh", K7T_LINE,
                      K7T_FAULT.format(size=8), ("47",)),
     "K5c-T window rows": ("march2d.cuh", K5CT_LINE,
@@ -281,7 +295,8 @@ CASES = {
 # faults (the T=1 kernels do not run the changed line)
 MUST_PASS = {"K3 bc once": ("4", "41"), "K3 march trigger": ("4", "41"),
              "K3 pert march": ("40", "41"),
-             "K10-T limit raise": ("53",), "K8-T local row": ("15",),
+             "K10-T limit raise": ("53",), "K8-T march outlet": ("15",),
+             "K8 push target f64": ("46",),
              "K7-T bc once": ("29",), "K5c-T window rows": ("6", "11"),
              "K11-T march pull z": ("33",), "K10-T seam skipped": ("36",),
              "K11 push target f64": ("36", "53"),

@@ -79,8 +79,11 @@ toolkit (nvcc) and PyTorch built for CUDA; JAX is not needed.  Phases:
      128x64 walled channel, in the ten kernel cases of SC_CASES (SC SRT/MRT,
      periodic, Zou-He velocity/convective and pressure/pressure rows,
      Peng-Robinson psi with one fluid, three fluids, EFS iso-4/8/10 SRT and
-     MRT); max |difference| <= 1e-11; the guo/edm/Chang/true-convective/
-     moving-wall cases take the plain step on the card;
+     MRT); max |difference| <= 1e-11; the library's own count of each
+     kernel's launches a step (sc_push_kernel once, sc_outlet_kernel once
+     with an outlet, the bf16 pull never); the
+     guo/edm/Chang/true-convective/moving-wall cases take the plain step on
+     the card;
  16. the golden file tests/golden/sc_mini.npz through K8 at f64 (50 steps,
      atol 1e-10);
  17. bench_all.py configs 2 (SC droplet on a wall) and 3 (EFS iso-8 MRT at
@@ -96,11 +99,13 @@ toolkit (nvcc) and PyTorch built for CUDA; JAX is not needed.  Phases:
      --block 1`` on
      configs/twophasesetup.ini set to 1024^2, with shanchen2D.ini and as
      EFS with efs2D.ini, 1000 f32 steps each: K8's launch count must rise
-     by exactly the steps, the final checkpoint must be finite, and the
+     by exactly the steps (and the library's counts: one push and one
+     outlet launch a step), the final checkpoint must be finite, and the
      MLUPS of metrics.jsonl are printed;
  19. MLUPS of K8 and of its plain path at 1024^2 (configs 2 and 3, f32 and
-     bf16 storage), each CUDA kernel's device time per launch and the
-     roofline share;
+     bf16 storage), each CUDA kernel's device time per launch, its
+     launches a step by the library's own count (f32 the push alone; bf16
+     collide_stream_kernel alone) and the roofline share;
  20. f64: the D3Q19 CSF kernels K9c (compressed) and K9s (split) against
      their plain versions, 20 steps, in every case of CG3D_CASES (<= 1e-11;
      the grain pack <= max(1e-11, 2x the plain path's one-ulp twin gap)),
@@ -212,9 +217,11 @@ toolkit (nvcc) and PyTorch built for CUDA; JAX is not needed.  Phases:
      convective outlet) and, split, the CLI's rk_csf2d.ini at 1044x1024;
      max |difference| <= 1e-11 (both variants are the row-march of
      csrc/march2d.cuh); the line gives the flagship rows' layouts at T = 4;
- 46. f64: the T-step Shan-Chen kernel K8-T on every kernel case of
-     SC_CASES (100x64), and 47. the T-step single-phase kernel K7-T on
-     every case of SINGLE_CASES (100x72), T = 2, 3, 4; <= 1e-11;
+ 46. f64: the T-step Shan-Chen kernel K8-T (the row-march of
+     csrc/sc2d_march.cuh) on every kernel case of SC_CASES (100x64), and
+     47. the T-step single-phase kernel K7-T on every case of SINGLE_CASES
+     (100x72), T = 2, 3, 4; <= 1e-11; the line gives K8-T's layouts at
+     T = 4;
  48. the T-step kernels at full size, T = 2 and 4, 8 steps from one f64
      start against their plain versions (bf16 decoded once and encoded
      once a call by both): K3c, K3s (f32) and K3h (bf16) of both
@@ -224,9 +231,9 @@ toolkit (nvcc) and PyTorch built for CUDA; JAX is not needed.  Phases:
  49. speed per time step at T = 1 (the T=1 kernel), 2 and 4 (CUDA events;
      device time per launch from ``torch.profiler``), MLUPS, the bound
      per step, launches per step from the counters (1/T), each launch's
-     layout (the row-march's waves, rows a wave, ring MB and grid for K3,
-     whose device time a launch comes from CUDA events between launches;
-     the window's tile, bytes and memory for the others) and the
+     layout (the row-march's waves, rows a wave, ring MB and grid for K3
+     and K8-T, whose device time a launch comes from CUDA events between
+     launches; the window's tile, bytes and memory for K7-T) and the
      plain version's time: K3 at both flagships (1024^2), K8-T at configs
      2 and 3, K7-T at config 1 and at 1024^2;
  50. the main paths of the T-step kernels: bench.py's loop
@@ -375,8 +382,9 @@ toolkit (nvcc) and PyTorch built for CUDA; JAX is not needed.  Phases:
      on one device (``torch.profiler``);
  72. T-step calls past one launch's step limit at f64, T = 10 and 16
      against T plain steps (<= 1e-11): K3c of both variants and the
-     Perturbation K3s (two 100x72 channels), K5c-Tc, K11-T, K10-T and
-     K9-Tc, each call run as
+     Perturbation K3s (two 100x72 channels), K8-T (the velocity /
+     convective and EFS iso-10 velocity / pressure rows, 100x64), K5c-Tc,
+     K11-T, K10-T and K9-Tc, each call run as
      ``build.split_steps``'s launches (counted, with the launch's limit and
      layout); the launch limits' Python mirrors against the libraries
      that set them; ``run --model sc3d --block 10`` on shanchen3d.ini
@@ -1676,10 +1684,32 @@ def sc_case(name, device, ny=128, nx=64, dtype=torch.float64,
     return m, m._feq_init(sc_rho0(m.k, ny, nx, init) * m.geo.is_fluid)
 
 
+# phase 15's launches a step of each kernel of the sc2d_f64 library by
+# case, as the library counts them ({case: {kernel: launches a step}})
+SC_STEP_LAUNCHES: dict = {}
+
+
+def per_step(before, after, steps):
+    """{kernel: launches a step} from a library's counts before and after
+    `steps` steps."""
+    return {k: (after[k] - before[k]) / steps for k in after}
+
+
+def sc_want_kernels(storage, outlet):
+    """The kernels of K8 a step, once each: f32 / f64 the push (and the
+    outlet rows with an outlet), bf16 the pull."""
+    if storage == "bf16":
+        return ("collide_stream_kernel",)
+    return ("sc_push_kernel",) + (("sc_outlet_kernel",) if outlet else ())
+
+
 def phase_sc_f64(device, ny=128, nx=64, steps=20, tol=1e-11):
-    """K8 against its plain version at f64 in every kernel case; the plain
-    cases take the plain step on the card and launch nothing."""
-    from openlbmpm_torch.kernels.shanchen import sc_step, sc_step_reference
+    """K8 against its plain version at f64 in every kernel case, each
+    kernel's launches a step by the library's count (SC_STEP_LAUNCHES:
+    sc_want_kernels once each, the others never); the plain cases take the
+    plain step on the card and launch nothing."""
+    from openlbmpm_torch.kernels.shanchen import (kernel_launches, sc_step,
+                                                  sc_step_reference)
     out = {}
     for name in SC_CASES:
         m, a = sc_case(name, device, ny, nx)
@@ -1696,10 +1726,16 @@ def phase_sc_f64(device, ny=128, nx=64, steps=20, tol=1e-11):
             continue
         b = a
         err = 0.0
+        counts = kernel_launches("sc2d_f64")
         for _ in range(steps):
             a = sc_step(a, m)
             b = sc_step_reference(b, m)
             err = max(err, float((a - b).abs().max()))
+        per = per_step(counts, kernel_launches("sc2d_f64"), steps)
+        want = sc_want_kernels("f64", m.bcs.outlet != "periodic")
+        SC_STEP_LAUNCHES[name] = per
+        check(all(v == (k in want) for k, v in per.items()),
+              f"sc {name}: kernel launches a step {per}, want {want} once")
         check(sc_step.launches - before == steps and
               bool(torch.isfinite(a).all()), f"sc {name}: launches or state")
         check(err <= tol, f"sc f64 {name}: kernel vs plain {err:.3e} > {tol:g}")
@@ -1916,7 +1952,7 @@ def phase_sc_cli(device, n=FLAGSHIP_N, steps=1000):
     import os
     import tempfile
     from openlbmpm_torch import cli
-    from openlbmpm_torch.kernels.shanchen import sc_step
+    from openlbmpm_torch.kernels.shanchen import kernel_launches, sc_step
     root = os.path.dirname(os.path.abspath(__file__))
     res = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -1924,6 +1960,7 @@ def phase_sc_cli(device, n=FLAGSHIP_N, steps=1000):
             ini, phys = _sc_ini(root, tmp, n, scheme == "efs")
             out = os.path.join(tmp, scheme)
             sc_step.launches = 0
+            before = kernel_launches("sc2d_f32")
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(io.StringIO()) as text:
                 rc = cli.main(["run", ini, "--model", "sc", "--physics-config",
@@ -1931,6 +1968,10 @@ def phase_sc_cli(device, n=FLAGSHIP_N, steps=1000):
                                "--device", "cuda", "--block", "1"])
             sec = time.perf_counter() - t0
             launches = sc_step.launches
+            per = per_step(before, kernel_launches("sc2d_f32"), steps)
+            check(all(v == (k in sc_want_kernels("f32", True))
+                      for k, v in per.items()),
+                  f"cli {scheme}: kernel launches a step {per}")
             check(rc == 0, f"cli run --model sc ({scheme}) returned {rc}")
             check("the kernel step on cuda" in text.getvalue(),
                   f"cli {scheme}: {text.getvalue().splitlines()[:1]}")
@@ -1942,11 +1983,13 @@ def phase_sc_cli(device, n=FLAGSHIP_N, steps=1000):
                   bool(np.isfinite(f).all()),
                   f"cli {scheme}: checkpoint at step {step} {f.shape}")
             res[scheme] = {"launches": launches, "sec": sec, "steps": steps,
+                           "per_step": per,
                            "mlups": _mlups(os.path.join(out, "metrics.jsonl"))}
     return res
 
 
-SC_KERNELS = ("psi_kernel", "collide_stream_kernel")
+# K8's kernels: f32 / f64 the push and the outlet rows, bf16 the pull
+SC_KERNELS = ("sc_push_kernel", "sc_outlet_kernel", "collide_stream_kernel")
 # least bytes of K8's function per cell-step, K = 2: the state (72 B f32,
 # 44 B bf16) read and written once, plus the solid mask at one byte (the
 # kernel's geometry planes, 3 for SC and 5 for EFS in the compute type, all
@@ -1957,9 +2000,11 @@ SC_BYTES = {"f32": 2 * 72 + 1, "bf16": 2 * 44 + 1}
 def phase_sc_speed(device, n=FLAGSHIP_N, kernel_steps=500, plain_steps=20):
     """MLUPS of K8 and of the plain path at 1024^2 (config 2: SC, config 3:
     EFS iso-8 MRT; f32 and bf16 storage, in turns), device microseconds per
-    launch from torch.profiler, and the roofline share of the design
-    bytes."""
-    from openlbmpm_torch.kernels.shanchen import (launch_sc2d, sc_step,
+    launch from torch.profiler, each kernel's launches a step by the
+    library's count over 10 steps (sc_want_kernels once, the others
+    never), and the roofline share of the design bytes."""
+    from openlbmpm_torch.kernels.shanchen import (kernel_launches,
+                                                  launch_sc2d, sc_step,
                                                   sc_step_reference)
     res = {}
     for name in ("config2", "config3"):
@@ -1970,24 +2015,36 @@ def phase_sc_speed(device, n=FLAGSHIP_N, kernel_steps=500, plain_steps=20):
                   "bf16": models["bf16"].pack_state_bf16(pairs["f32"][1])}
         sec = time_paths(models, states, sc_step, sc_step_reference,
                          kernel_steps, plain_steps, device)
-        profile = {}
+        profile, launches = {}, {}
         for st, m in models.items():
+            want = sc_want_kernels(st, False)
             times = device_times(
                 lambda s, m=m: launch_sc2d(s, m.kernel_params, m.geo_planes),
-                states[st], SC_KERNELS)
+                states[st], want)
             profile.update({(st, k): v for k, v in times.items()})
-        res[name] = {"sec": sec, "profile": profile,
+            lib = f"sc2d_{st}"
+            x, before = states[st], kernel_launches(lib)
+            for _ in range(10):
+                x = sc_step(x, m)
+            torch.cuda.synchronize()
+            launches[st] = per_step(before, kernel_launches(lib), 10)
+            check(all(v == (k in want) for k, v in launches[st].items()),
+                  f"K8 {name} {st}: launches a step {launches[st]}")
+        res[name] = {"sec": sec, "profile": profile, "launches": launches,
                      "roof": {st: SC_BYTES[st] * n * n / HBM_BYTES_PER_S
                               / sec[("kernel", st)] for st in models}}
     return res
 
 
 def phase15_19_lines(r15, r16, r17, phys, cli, r19, card, n=FLAGSHIP_N):
+    def count(per):
+        return ", ".join(f"{k} {v:g}" for k, v in per.items() if v)
     lines = [
         "phase 15 K8 f64 vs plain, 128x64, 20 steps: max |diff| " + ", ".join(
             f"{k} {v:.3e}" for k, v in r15.items()) + " (<= 1e-11); the "
         "guo/edm/Chang/convective_true/moving-wall cases took the plain "
-        "step on the card",
+        "step on the card; kernel launches a step (sc2d_f64's count): " +
+        "; ".join(f"{k} {count(v)}" for k, v in SC_STEP_LAUNCHES.items()),
         f"phase 16 tests/golden/sc_mini.npz through K8, f64, 50 steps: max "
         f"|diff| {r16:.3e} (<= 1e-10)"]
     for name, r in r17.items():
@@ -2011,7 +2068,8 @@ def phase15_19_lines(r15, r16, r17, phys, cli, r19, card, n=FLAGSHIP_N):
     for scheme, r in cli.items():
         lines.append(
             f"phase 18 cli run --model sc ({scheme.upper()}), {n}x{n}, "
-            f"{r['steps']} f32 steps: {r['launches']} K8 launches, {r['sec']:.2f} s with I/O, "
+            f"{r['steps']} f32 steps: {r['launches']} K8 launches (a step: "
+            f"{count(r['per_step'])}), {r['sec']:.2f} s with I/O, "
             f"metrics.jsonl MLUPS {r['mlups']} [{card}]")
     for name, r in r19.items():
         mlups = {k: n * n / v / 1e6 for k, v in r["sec"].items()}
@@ -2029,7 +2087,9 @@ def phase15_19_lines(r15, r16, r17, phys, cli, r19, card, n=FLAGSHIP_N):
             "device us per launch (launches per step): " + ", ".join(
                 f"{k} {st} " + ("not measured" if v is None else
                                 f"{v[0]:.2f} ({v[1]:g})")
-                for (st, k), v in r["profile"].items()))
+                for (st, k), v in r["profile"].items()) +
+            "; launches a step by the library's count: " + "; ".join(
+                f"{st} {count(v)}" for st, v in r["launches"].items()))
     return lines
 
 
@@ -4524,13 +4584,16 @@ def phase_block_full(device, n=FLAGSHIP_N, steps=8):
     return res
 
 
-# the T-step kernels' CUDA names in the profiler (K3 is the cooperative
-# row-march, csf_march_kernel and pert_march_kernel, timed by launch_times;
-# its windows, csf_block_kernel, run only K12a's local forms)
-BLOCK_KERNEL_NAMES = {"K3": "csf_block_kernel", "K8-T": "sc_block_kernel",
+# the T-step kernels' CUDA names in the profiler (K3 and K8-T are the
+# cooperative row-march, csf_march_kernel, pert_march_kernel and
+# sc_march_kernel, timed by launch_times; the windows, csf_block_kernel and
+# sc_local_kernel, run only K12a's and K12c's local forms)
+BLOCK_KERNEL_NAMES = {"K3": "csf_block_kernel", "K8-T": "sc_march_kernel",
                       "K7-T": "single_block_kernel"}
 MARCH2D_KERNEL_NAMES = ("csf_march_kernel", "pert_march_kernel",
                         "coupled_march_kernel")
+# the T-step families whose launch is the cooperative row-march
+MARCH2D_FAMILIES = ("K3", "K8-T")
 
 
 def block_bytes(family, key):
@@ -4614,7 +4677,7 @@ def phase_block_speed(device, n=FLAGSHIP_N, time_steps=400, calls=10):
             r["launches_per_step"][t] = kern.launches / (calls * t)
             check(kern.launches == calls, f"{label} T={t}: {kern.launches} "
                   f"launches for {calls} calls")
-            if family == "K3":   # the cooperative row-march
+            if family in MARCH2D_FAMILIES:   # the cooperative row-march
                 r["device_us"][t] = launch_times(lambda y: kern(y, m, t), x)
             else:
                 times = device_times(lambda y: kern(y, m, t), x,
@@ -4939,7 +5002,7 @@ def block_entries(r45, r46, r47, r48, r49, r50):
              r50[("loop", "K8-T bf16")])):
         sp = r49[f"K8-T {cfg} {st}"]
         entries.append(kernel_entry(
-            name, f"K8-T {cfg} {st}", "openlbmpm_torch/csrc/sc2d_block.cuh",
+            name, f"K8-T {cfg} {st}", "openlbmpm_torch/csrc/sc2d_march.cuh",
             "openlbmpm_tpu/pallas/shanchen.py:92 (steps_per_call=T, "
             "sub-steps :723-740, " + ("original SC" if cfg == "config2"
                                       else "EFS iso-8 MRT") +
@@ -5605,10 +5668,10 @@ def phase_cli_default_3(device, n=FLAGSHIP_N, steps=1000, tr_steps=500):
 
 def layout_text(g, t) -> str:
     """One launch's layout for a phase line: the row-march's waves, rows a
-    wave (Z), ring MB, cooperative grid and lag (K3 CSF, K5c-T); the
+    wave (Z), ring MB, cooperative grid and lag (K3, K5c-T, K8-T); the
     z-march's plan (K11-T, K10-T, K9-T: bands of rows plus halo, the rings'
     MB, the grid, the waves and the lag); a 2-D window's tile, KB and
-    memory (K3 Perturbation, K8-T, K7-T); else the tiling as JSON."""
+    memory (K7-T); else the tiling as JSON."""
     if g.get("march") == "rows":
         return (f"row-march T={t}: {g['waves']} waves of "
                 f"{g['slabs_per_wave']} rows, rings "
@@ -7393,10 +7456,10 @@ def phase_sharded_sc_f64(device, calls=2, tol=1e-12, tol_plain=1e-12):
 # least HBM bytes a cell of the two- and four-fluid states (f32)
 K12C_STATE_BYTES = {2: 72, 4: 144}
 # kernel-name pieces of phase 71's device breakdown, in order
-K12C_KERNEL_GROUPS = ("sc_local_kernel", "sc_block_kernel", "rtl_psi",
+K12C_KERNEL_GROUPS = ("sc_local_kernel", "sc_march_kernel", "rtl_psi",
                       "rtl_collide", "rtl_stream", "rtl_outlet", "rt_psi",
                       "rt_collide", "rt_stream", "rt_outlet", "rt_decode",
-                      "rt_encode", "collide_stream", "psi_kernel")
+                      "rt_encode", "sc_push_kernel", "sc_outlet_kernel")
 # f32 limit of phase 71's comparisons: the sharded state against the
 # single-device kernel, and each local call against its plain version on
 # the same padded buffers
@@ -7568,7 +7631,8 @@ CHUNKED_TS = (10, 16)
 
 def limit_mirrors():
     """The Python mirrors of the launch limits against the libraries that
-    set them: march3d.MAX_STAGES / MAX_RINGS against csf2d_march_limits,
+    set them: march3d.MAX_STAGES / MAX_RINGS against csf2d_march_limits and
+    sc2d_march_limits,
     flow3d.MAX_BLOCK_STEPS and cg3d.MAX_BLOCK_STEPS against
     flow3d_block_max_steps and cg3d_block_max_steps (kMaxSteps3), in every
     storage type; {name: (library, mirror)}."""
@@ -7578,11 +7642,13 @@ def limit_mirrors():
     from openlbmpm_torch.kernels import flow3d as kf
     from openlbmpm_torch.kernels import march3d
     out = {}
-    for lib in ("csf2d_block_f64", "csf2d_block_f32", "csf2d_block_bf16"):
-        v = (ctypes.c_longlong * 2)()
-        build.load_library(lib).csf2d_march_limits(v)
-        out[f"{lib} stages, rings"] = (tuple(v), (march3d.MAX_STAGES,
-                                                  march3d.MAX_RINGS))
+    for fam in ("csf2d", "sc2d"):
+        for st in ("f64", "f32", "bf16"):
+            lib = f"{fam}_block_{st}"
+            v = (ctypes.c_longlong * 2)()
+            getattr(build.load_library(lib), f"{fam}_march_limits")(v)
+            out[f"{lib} stages, rings"] = (tuple(v), (march3d.MAX_STAGES,
+                                                      march3d.MAX_RINGS))
     for dt in (torch.float64, torch.float32, torch.bfloat16):
         for kind in ("single", "sc"):
             out[f"flow3d {kind} {dt}"] = (kf.flow3d_block_max_steps(dt, kind),
@@ -7600,7 +7666,8 @@ def phase_block_chunked(device, tol=1e-11, cli_tol=BLOCK_CLI_BOUND):
     """T-step calls past one launch's step limit, at f64 against T plain
     steps, T = 10 and 16 (CHUNKED_TS): K3c of both variants and the
     Perturbation K3s on the flagship's rows and on the Dirichlet inlet /
-    convective outlet (100 x 72), K5c-Tc (case a,
+    convective outlet (100 x 72), K8-T on SC_CASES' velocity / convective
+    and EFS iso-10 velocity / pressure rows (100 x 64), K5c-Tc (case a,
     flagship flow), K11-T, K10-T (K = 2) and K9-Tc (the velocity inlet and
     convective outlet) at 48 x 40 x 32, each one call that runs as
     ``build.split_steps(T, limit)`` launches, counted on the wrapper; the
@@ -7615,6 +7682,7 @@ def phase_block_chunked(device, tol=1e-11, cli_tol=BLOCK_CLI_BOUND):
     from openlbmpm_torch.kernels import cg3d as k9
     from openlbmpm_torch.kernels import csf as k
     from openlbmpm_torch.kernels import flow3d as kf
+    from openlbmpm_torch.kernels import shanchen as ksc
     from openlbmpm_torch.kernels import transport as kt
     res = {"mirrors": limit_mirrors()}
 
@@ -7650,6 +7718,12 @@ def phase_block_chunked(device, tol=1e-11, cli_tol=BLOCK_CLI_BOUND):
                      layout_text(k.csf_block_tiling(
                          torch.float64, split, m.kernel_params, lim), lim))
             del m, st, x0
+    for name in ("sc_srt_velocity_convective", "efs10_mrt_velocity_pressure"):
+        m, f = sc_case(name, device, ny=100, nx=64)
+        lim = ksc.sc_block_max_steps(torch.float64, m.kernel_params)
+        hold(f"K8-T {name}", ksc.sc_block_step, ksc.sc_block_step_reference,
+             f, m, lim, layout_text(ksc.sc_block_tiling(
+                 torch.float64, m.kernel_params, lim), lim))
     m, st = coupled_block_case("a", device)
     p = kt.coupled_block_params(m)
     lim = kt.coupled_block_max_steps(torch.float64, False, p)
@@ -7998,7 +8072,10 @@ def main() -> int:
             SC_BYTES["f32"], SC_FLOPS[cfg], n2,
             max_abs_err_f64=max(r15.values()),
             ms_bf16=r["sec"][("kernel", "bf16")] * 1e3,
-            plain_ms_bf16=r["sec"][("plain", "bf16")] * 1e3))
+            plain_ms_bf16=r["sec"][("plain", "bf16")] * 1e3,
+            launches_a_step=sum(r["launches"]["f32"].values()),
+            launches_a_step_cli=sum(cli[scheme]["per_step"].values()),
+            launches_a_step_bf16=sum(r["launches"]["bf16"].values())))
     cg3d = "openlbmpm_tpu/pallas/cg3d.py:132"
     c5 = r24[128]
     f64_c = max(v[0] for k, v in r20.items() if k not in ("bf16_ulp",

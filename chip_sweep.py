@@ -2,7 +2,7 @@
 """Sweep the z-march's knobs (K10-T and K9-T, ``csrc/march3d.cuh``) on a
 card and cost its stages; sweep K9's tiles; sweep the 2-D row-march.
 
-    python3 chip_sweep.py [knobs|stages|2dT|k9|k10|k11|all] [TAG ...]
+    python3 chip_sweep.py [knobs|stages|2dT|k8|k8t|k9|k10|k11|all] [TAG ...]
 
 Run from the repository root on a machine with a CUDA card and nvcc.
 "knobs": ms a time step at 128^3 in f32 of K10-T (probe_sc3d, K = 2) and
@@ -52,10 +52,17 @@ MB; then K11's f32 push
 (``single_push_kernel``) at 128^3 and 256^3 over its tile height, slabs a
 thread and blocks an SM (K11_PUSH_EDITS), and at 128^3 from the rest
 state, from the rest state with a relative noise of 1e-6 and from
-chip_smoke.py's perturbed start.  TAGs after
-"k9", "k10" or "k11" keep only those variants.  The modes patch copies of ``openlbmpm_torch/csrc``
-in a temporary directory and build their libraries there; the sources in
-the repository stay as they are.  Prints the card and one line a
+chip_smoke.py's perturbed start.  "k8": K8 (``csrc/sc2d.cuh``) at
+1024^2 on configs 2 and 3 in f32 and bf16, ms a step over K8_EDITS (the
+push's blocks an SM, its ring fill or its collision and stores skipped),
+two rounds.
+"k8t": K8-T (``csrc/sc2d_march.cuh``) at 1024^2 (config 2 f32 and bf16,
+config 3 f32) at T = 2 and 4 over rows a wave (96-1024) and the blocks an
+SM the march asks ptxas for (1-4: K8T_EDITS), with the rings' MB, then
+with one stage kind's body skipped.  TAGs after "k8", "k8t", "k9", "k10"
+or "k11" keep only those variants.  The modes patch copies of
+``openlbmpm_torch/csrc`` in a temporary directory and build their
+libraries there; the sources in the repository stay as they are.  Prints the card and one line a
 measurement.
 """
 
@@ -180,6 +187,35 @@ K11_PUSH_EDITS = {
     f"s_b{b}": (K11_PUSH_BOUNDS, K11_PUSH_BOUNDS.replace(
         ", 2)", ")" if b == 1 else f", {b})")) for b in (1, 3, 4)}
 LIBS_K11T = ("flow3d_block_f32", "flow3d_block_bf16")
+# K8's variants: tag -> (file, (text, replacement)) in csrc/.  "p_b2",
+# "p_b3": the push asks ptxas for 2 or 3 resident blocks an SM;
+# "p_skip_ring": its ring fill reads no state (psi = 1 on fluid cells);
+# "p_skip_push": no collision and no store (the fill alone); the skips give
+# wrong results, their times say what each part costs.
+PUSH2D_BOUNDS = "__global__ void __launch_bounds__(TX * TY)\nsc_push_kernel("
+K8_EDITS = {
+    "p_b2": ("sc2d.cuh", (PUSH2D_BOUNDS, PUSH2D_BOUNDS.replace(
+        "(TX * TY)", "(TX * TY, 2)"))),
+    "p_b3": ("sc2d.cuh", (PUSH2D_BOUNDS, PUSH2D_BOUNDS.replace(
+        "(TX * TY)", "(TX * TY, 3)"))),
+    "p_skip_ring": ("sc2d.cuh", (
+        "        load_fluid_state<S>(f, geo, P, cx, cy, k, F);\n"
+        "        psi = psi_of(sum9(F), P);",
+        "        psi = C(1);")),
+    "p_skip_push": ("sc2d.cuh", (
+        "  if (x >= nx || y >= ny) return;\n"
+        "  const size_t idx = (size_t)y * nx + x;",
+        "  if (x >= nx || y >= ny || P.nx > 0) return;\n"
+        "  const size_t idx = (size_t)y * nx + x;")),
+}
+LIBS_K8 = ("sc2d_f32", "sc2d_bf16")
+# K8-T's variants: "t_mb1" ... "t_mb4": the march asks ptxas for that many
+# resident blocks an SM in every float instance (the sources: 3 or 2 by
+# instance)
+SC_MARCH_MIN = "  return K <= 2 && ORDER <= 4 ? 3 : 2;"
+K8T_EDITS = {f"t_mb{b}": ("sc2d_march.cuh", (SC_MARCH_MIN, f"  return {b};"))
+             for b in (1, 2, 3, 4)}
+LIBS_K8T = ("sc2d_block_f32", "sc2d_block_bf16")
 # the executor's call of a family's body for one cell of one stage
 BODY_CALL = "        body(c);\n"
 
@@ -246,12 +282,13 @@ def _variants(build, out: Path, jobs: dict, names=LIBS_3D) -> dict:
 
 def _use(M, kf, k9, lib: str, so) -> None:
     """Point the march launcher's entry points of `lib` at `so`."""
-    from openlbmpm_torch.kernels import csf, transport
+    from openlbmpm_torch.kernels import csf, shanchen, transport
     for prefix, ints, ptrs, pt in {
             "flow3d": (("sc3d", 1, 3, kf.Flow3dParams),
                        ("single3d", 1, 3, kf.Flow3dParams)),
             "cg3d_b": (("cg3d", 2, 5, k9.Cg3dParams),),
             "csf2d_": (("csf2d", 2, 5, csf.CsfParams),),
+            "sc2d_b": (("sc2d", 1, 3, shanchen.ScParams),),
             "couple": (("coupled2d", 2, 8, transport.CoupledParams),)}[
                 lib[:6]]:
         step = getattr(so, f"{prefix}_march_step")
@@ -469,6 +506,111 @@ def sweep_k11(cs, build, M, kf, k9, dev, emit, tags=()) -> None:
     kf._fn_cache.clear()
 
 
+def _use_k8(lib: str, so) -> None:
+    """Point K8's wrapper for `lib` at the library `so`."""
+    from openlbmpm_torch.kernels import build, shanchen
+    shanchen._fn_cache.pop(lib, None)
+    load = build.load_library
+    build.load_library = lambda name: so if name == lib else load(name)
+    try:
+        shanchen._kernel_fn(lib)
+    finally:
+        build.load_library = load
+
+
+def sweep_k8(cs, build, dev, emit, tags=()) -> None:
+    """The "k8" mode: K8 at 1024^2 on configs 2 and 3 in f32 and bf16
+    storage over K8_EDITS (only `tags` and "base" where `tags` are given),
+    ms a step."""
+    from openlbmpm_torch.kernels import shanchen
+    cases = []
+    for name in ("config2", "config3"):
+        for st in ("f32", "bf16"):
+            m, f = cs.sc_config(name, dev, storage=st)
+            cases.append((f"K8 {name} {st}", m,
+                          m.pack_state_bf16(f) if st == "bf16" else f))
+    keep = lambda tag: not tags or tag in tags
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs = {"base": (_patched(build.SRC_DIR, Path(tmp, "base"), {}), [])}
+        jobs |= {tag: (_patched(build.SRC_DIR, Path(tmp, tag),
+                                {name: edit}), [])
+                 for tag, (name, edit) in K8_EDITS.items() if keep(tag)}
+        libs = _variants(build, Path(tmp, "lib"), jobs, LIBS_K8)
+        for (lib, tag), (_, report) in sorted(libs.items()):
+            emit(library=lib, variant=tag, **report)
+        for _ in range(2):   # two rounds, so that a drift shows
+            for tag in jobs:
+                for lib in LIBS_K8:
+                    _use_k8(lib, libs[(lib, tag)][0])
+                for label, m, x in cases:
+                    emit(kernel=label, variant=tag, ms_a_step=cs._time_steps(
+                        lambda y: shanchen.sc_step(y, m), x, 200, dev) * 1e3)
+    shanchen._fn_cache.clear()
+
+
+def sweep_k8t(cs, build, M, kf, k9, dev, emit,
+              zs=(96, 192, 256, 384, 512, 768, 1024), tags=()) -> None:
+    """The "k8t" mode: K8-T at 1024^2 (config 2 f32 and bf16, config 3
+    f32) at T = 2 and 4 over rows a wave (``march2d.SC_ROWS_PER_WAVE``) and
+    K8T_EDITS, with the rings' MB; then at the default rows a wave with one
+    stage kind's body skipped (load, collide, stream, and every body: the
+    waves and barriers alone; wrong results, the times say what each stage
+    costs)."""
+    import torch
+    from openlbmpm_torch.kernels import march2d, shanchen
+    cases = []
+    for name, st in (("config2", "f32"), ("config2", "bf16"),
+                     ("config3", "f32")):
+        m, f = cs.sc_config(name, dev, storage=st)
+        cases.append((f"K8-T {name} {st}", m,
+                      m.pack_state_bf16(f) if st == "bf16" else f))
+    keep = lambda tag: not tags or tag in tags
+    z0 = march2d.SC_ROWS_PER_WAVE
+
+    def time_all(**kw):
+        for label, m, x in cases:
+            for t in (2, 4):
+                plan = shanchen._march_plan(m.kernel_params, x.dtype, t,
+                                            dev)[0]
+                ms = cs._time_steps(
+                    lambda y: shanchen.sc_block_step(y, m, t), x,
+                    max(48 // t, 6), dev) / t * 1e3
+                emit(kernel=label, T=t, rows_per_wave=march2d.SC_ROWS_PER_WAVE,
+                     rings_mb=plan.scratch_bytes / 2 ** 20, ms_a_step=ms, **kw)
+            torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs = {"base": (_patched(build.SRC_DIR, Path(tmp, "base"), {}), [])}
+        jobs |= {tag: (_patched(build.SRC_DIR, Path(tmp, tag),
+                                {name: edit}), [])
+                 for tag, (name, edit) in K8T_EDITS.items() if keep(tag)}
+        libs = _variants(build, Path(tmp, "lib"), jobs, LIBS_K8T)
+        for (lib, tag), (_, report) in sorted(libs.items()):
+            emit(library=lib, variant=tag, **report)
+        for tag in jobs:
+            for lib in LIBS_K8T:
+                _use(M, kf, k9, lib, libs[(lib, tag)][0])
+            for z in zs if tag == "base" else (z0,):
+                march2d.SC_ROWS_PER_WAVE = z
+                M._plans.clear()
+                time_all(variant=tag)
+    march2d.SC_ROWS_PER_WAVE = z0
+    M._plans.clear()
+    with tempfile.TemporaryDirectory() as tmp:
+        kinds = {"full": None, "all": "true", "load": "c.kind() == 0",
+                 "collide": "c.kind() == 1", "stream": "c.kind() == 2"}
+        jobs = {name: (_patched(build.SRC_DIR, Path(tmp, name), skip_edits(
+            cond) if cond else {}), []) for name, cond in kinds.items()}
+        libs = _variants(build, Path(tmp, "lib"), jobs, LIBS_K8T)
+        for name in jobs:
+            for lib in LIBS_K8T:
+                _use(M, kf, k9, lib, libs[(lib, name)][0])
+            M._plans.clear()
+            time_all(skipped=name)
+    M._plans.clear()
+    M._fns.clear()
+
+
 def sweep_2d(cs, build, M, kf, k9, dev, emit, zs=(16, 32, 64, 96, 128),
              blocks=(1, 2, 3, 4)) -> None:
     """The "2dT" mode: ms a time step of K3c (the flagship) and K5c-Tc
@@ -558,9 +700,13 @@ def main(argv=None) -> int:
     def emit(**kw):
         print(json.dumps(kw), flush=True)
 
-    if what in ("2dT", "k9", "k10", "k11"):
+    if what in ("2dT", "k8", "k8t", "k9", "k10", "k11"):
         if what == "2dT":
             sweep_2d(cs, build, M, kf, k9, dev, emit)
+        elif what == "k8":
+            sweep_k8(cs, build, dev, emit, tuple(args[1:]))
+        elif what == "k8t":
+            sweep_k8t(cs, build, M, kf, k9, dev, emit, tags=tuple(args[1:]))
         elif what == "k9":
             sweep_k9(cs, build, k9, dev, emit, tuple(args[1:]))
         elif what == "k10":

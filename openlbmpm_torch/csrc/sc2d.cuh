@@ -24,29 +24,41 @@
 // closed-form MRT moments: MRT here is the dense M^-1 S M of ops/collision.py
 // (Lallemand-Luo M, whose rows are orthogonal).
 //
-// Two launches per step, one thread per cell, x fastest (coalesced):
-//   1. psi_kernel      state -> psi_k (K planes, compute type), with the
-//                      inlet rows applied on the fly to the loaded cell;
-//   2. collide_stream  a 32x8 tile: psi for the tile plus a (R + 1)-cell
-//                      ring into shared memory (R = the force stencil's
-//                      reach: 1, 2 for iso-8, 3 for iso-10), the collision
-//                      of the tile plus a one-cell ring into shared memory
-//                      (the ring is recomputed by each neighbouring tile),
-//                      then pull streaming from there.  The tiles of the
-//                      first tile row also apply the outlet rows (rows 0 ...
-//                      d + 2 <= 5 lie inside them): the streamed cells go
-//                      back to shared memory and each outlet cell takes its
-//                      Zou-He rewrite or its copy source from there.
-// So no kernel writes a boundary-corrected state back to memory and the
-// bf16 state is rounded once per step.
+// f32 and f64 storage: one launch a step, sc_push_kernel, and with an
+// outlet a second small one, sc_outlet_kernel.  A block owns a 32x8 tile,
+// one thread a cell, x fastest (coalesced).  It fills psi_k (zero on solid
+// cells) and the fluid flags of the tile plus an R-cell ring (R = the force
+// stencil's reach: 1, 2 for iso-8, 3 for iso-10) into shared memory from
+// the state, the inlet rows applied on the fly to each loaded cell
+// (load_state).  After one barrier each fluid cell loads its K x 9 values
+// again (from L1 or L2), forms rho_k, the momenta, the forces and the
+// common velocity as sc_collide does, then collides one fluid at a time
+// (sc_collide_fluid) and pushes post_i into slot i of x + e_i, or into slot
+// opp(i) of x where x + e_i is solid; a solid cell writes its own zeros.
+// So each output slot is written exactly once, by the thread whose pull
+// would have read it (flow3d.cuh's sc_push_kernel in 2-D).  A push never
+// holds the streamed values of row d, so the outlet rows (the Zou-He row d
+// and its ghosts below, or the convective rows d + 1 ... 0, each copying
+// the row above) are rewritten in place by sc_outlet_kernel, one thread a
+// column, after the push.
 //
-// What bounds it: HBM bytes per cell-step.  One fused pass would move the
-// state in and out, 144 B (K = 2, f32), 88 B (bf16) or 288 B (f64), plus
-// the geometry planes (3 for SC, 5 for EFS).  This design reads the state
-// twice and writes and reads psi: about 244 B (K = 2, f32 SC) or 156 B
-// (bf16).  Stencil and ring re-reads hit L1/L2 and shared memory.  Fusing
-// the psi pass into collide_stream (a wider ring) is the next step for
-// speed.
+// bf16 storage cannot push: the encoding of an output cell needs its rho,
+// the sum of its 9 streamed values.  It pulls, in one launch too,
+// collide_stream_kernel, one thread per cell of a 32x8 tile: psi_k of the
+// tile plus an (R + 1)-cell ring formed from the state (load_state, the
+// inlet rows on the fly) into shared memory, the collision of the tile plus
+// a one-cell ring into shared memory (the ring is recomputed by each
+// neighbouring tile), then pull streaming from there.  The tiles of the
+// first tile row also apply the outlet rows (rows 0 ... d + 2 <= 5 lie
+// inside them): the streamed cells go back to shared memory and each outlet
+// cell takes its Zou-He rewrite or its copy source from there.  So the bf16
+// state is rounded once per step.  (A separate pass writing psi to a
+// scratch the pull read took 8-14% longer at 1024^2 on an H100, PERF.md.)
+//
+// What bounds it: HBM bytes per cell-step.  One fused pass moves the state
+// in and out, 144 B (K = 2, f32), 88 B (bf16) or 288 B (f64), plus the
+// geometry planes (3 for SC, 5 for EFS).  Both forms read the state twice
+// (the ring fill, then the collision, mostly from L2) and write it once.
 
 #pragma once
 
@@ -135,6 +147,11 @@ __device__ __forceinline__ int wrap(int v, int n) {
   v %= n;
   return v < 0 ? v + n : v;
 }
+
+// Launches of collide_stream_kernel (bf16), sc_push_kernel and
+// sc_outlet_kernel (f32, f64) by this library since it was loaded, one
+// where each launch is made; sc2d_kernel_launches reads them.
+long long g_launches[3];
 
 // Storage type S -> compute type C; bf16 storage holds f_i - w_i rho_k
 // (planes 0-8) and rho_k as hi + lo (planes 9, 10) per fluid.
@@ -234,6 +251,21 @@ __device__ void load_state(const S* __restrict__ f, const C* __restrict__ geo,
     apply_inlet<C, K>(F, P);
 }
 
+// Fluid k's populations at (x, y) after the inlet rows (load_state for one
+// fluid) of an f32 or f64 state.
+template <typename S>
+__device__ __forceinline__ void load_fluid_state(const S* __restrict__ f, const S* __restrict__ geo,
+                                                 const ScParams& P, int x, int y, int k, S F[9]) {
+  const size_t n = (size_t)P.ny * P.nx;
+  const int row = P.ny - 1 - P.depth;
+  if (P.inlet != 0 && y > row && geo[(size_t)y * P.nx + x] > S(0.5)) y = row;
+  const S* b = f + (size_t)k * 9 * n + (size_t)y * P.nx + x;
+#pragma unroll
+  for (int i = 0; i < 9; ++i) F[i] = b[i * n];
+  if (P.inlet != 0 && y == row && geo[(size_t)row * P.nx + x] > S(0.5))
+    inlet_zou_he(F, P.inlet, P.inlet_v[k], P.inlet_rho[k]);
+}
+
 // psi(rho): rho, or the Peng-Robinson pseudopotential
 // sqrt(max(2 / (c0 g) (P_PR - rho / 3), 0)) in the plain path's op order.
 template <typename C>
@@ -244,23 +276,6 @@ __device__ __forceinline__ C psi_of(C rho, const ScParams& P) {
                   (C(1) + C(P.pr_2b) * rho - C(P.pr_bb) * rho * rho);
   const C arg = C(P.pr_k2) * (p - rho / C(3));
   return sqrt(arg > C(0) ? arg : C(0));
-}
-
-template <typename S, int K, typename C = typename Traits<S>::C>
-__global__ void psi_kernel(const S* __restrict__ f, const C* __restrict__ geo,
-                           C* __restrict__ psi, ScParams P) {
-  const size_t n = (size_t)P.ny * P.nx;
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  if (!(geo[idx] > C(0.5))) {
-#pragma unroll
-    for (int k = 0; k < K; ++k) psi[k * n + idx] = C(0);
-    return;
-  }
-  C F[K][9];
-  load_state<S, K>(f, geo, P, (int)(idx % P.nx), (int)(idx / P.nx), F);
-#pragma unroll
-  for (int k = 0; k < K; ++k) psi[k * n + idx] = psi_of(sum9(F[k]), P);
 }
 
 // out = f - M^-1 S M (f - t), S = diag(0, 0.6, 1.5, 0, 1.2, 0, 1.2, 1/tau,
@@ -508,8 +523,8 @@ constexpr size_t smem_bytes() {
 
 template <typename S, int K, int ORDER, typename C = typename Traits<S>::C>
 __global__ void __launch_bounds__(TX * TY)
-collide_stream_kernel(const S* __restrict__ f, const C* __restrict__ geo,
-                      const C* __restrict__ psi, S* __restrict__ out, ScParams P) {
+collide_stream_kernel(const S* __restrict__ f, const C* __restrict__ geo, S* __restrict__ out,
+                      ScParams P) {
   constexpr int R = reach(ORDER);
   constexpr int RX = TX + 2, RY = TY + 2;          // tile + one-cell ring
   constexpr int PX = RX + 2 * R, PY = RY + 2 * R;  // psi tile
@@ -525,9 +540,13 @@ collide_stream_kernel(const S* __restrict__ f, const C* __restrict__ geo,
 
   for (int t = tid; t < PX * PY; t += TX * TY) {
     const int lx = t % PX, ly = t / PX;
-    const size_t c = (size_t)wrap(y0 - 1 - R + ly, ny) * nx + wrap(x0 - 1 - R + lx, nx);
+    const int cx = wrap(x0 - 1 - R + lx, nx), cy = wrap(y0 - 1 - R + ly, ny);
+    const bool fluid = geo[(size_t)cy * nx + cx] > C(0.5);
+    C F[K][9];
+    if (fluid) load_state<S, K>(f, geo, P, cx, cy, F);
 #pragma unroll
-    for (int k = 0; k < K; ++k) sh_psi[(k * PY + ly) * PX + lx] = psi[k * n + c];
+    for (int k = 0; k < K; ++k)
+      sh_psi[(k * PY + ly) * PX + lx] = fluid ? psi_of(sum9(F[k]), P) : C(0);
   }
   __syncthreads();
   for (int t = tid; t < RING; t += TX * TY) {
@@ -606,50 +625,214 @@ collide_stream_kernel(const S* __restrict__ f, const C* __restrict__ geo,
   if (inside) store_state<S, K>(out, n, (size_t)y * nx + x, o);
 }
 
-// The two launches of one step.
+// The push's shared memory: psi_k and the fluid flags of the tile plus an
+// R-cell ring.
+template <typename C, int K, int ORDER>
+__host__ __device__ constexpr size_t push_smem_bytes() {
+  return (sizeof(C) * K + 1) * (size_t)(TY + 2 * reach(ORDER)) * (TX + 2 * reach(ORDER));
+}
+
+// One step of f32 or f64 storage by push (the note at the top): the ring
+// fill, one barrier, then each fluid cell's collision one fluid at a time,
+// post_i stored as it leaves sc_collide_fluid.  The stores go through a
+// pointer that the empty asm keeps the compiler from folding into nine
+// addresses held in registers (flow3d.cuh's sc_push_kernel, PERF.md).
 template <typename S, int K, int ORDER>
-int launch_sc(const void* f_in, void* f_out, const void* geo_v, void* psi_v,
-              const ScParams& P, cudaStream_t st) {
+__global__ void __launch_bounds__(TX * TY)
+sc_push_kernel(const S* __restrict__ f, const S* __restrict__ geo, S* __restrict__ out,
+               ScParams P) {
+  using C = S;
+  constexpr int R = reach(ORDER);
+  constexpr int PX = TX + 2 * R, PY = TY + 2 * R, PN = PX * PY;
+  extern __shared__ __align__(16) unsigned char smem[];
+  C* sh_psi = reinterpret_cast<C*>(smem);                                   // [K][PY][PX]
+  unsigned char* sh_fl = reinterpret_cast<unsigned char*>(sh_psi + K * PN);  // [PY][PX]
+  const int nx = P.nx, ny = P.ny;
+  const size_t n = (size_t)ny * nx;
+  const int x0 = blockIdx.x * TX, y0 = blockIdx.y * TY;
+  const int tid = threadIdx.y * TX + threadIdx.x;
+  for (int t = tid; t < PN; t += TX * TY) {
+    const int cx = wrap(x0 - R + t % PX, nx), cy = wrap(y0 - R + t / PX, ny);
+    const bool fluid = geo[(size_t)cy * nx + cx] > C(0.5);
+    sh_fl[t] = fluid;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      C psi = C(0);
+      if (fluid) {
+        C F[9];
+        load_fluid_state<S>(f, geo, P, cx, cy, k, F);
+        psi = psi_of(sum9(F), P);
+      }
+      sh_psi[k * PN + t] = psi;
+    }
+  }
+  __syncthreads();
+
+  const int x = x0 + threadIdx.x, y = y0 + threadIdx.y;
+  if (x >= nx || y >= ny) return;
+  const size_t idx = (size_t)y * nx + x;
+  const int self = (threadIdx.y + R) * PX + threadIdx.x + R;
+  if (!sh_fl[self]) {
+#pragma unroll
+    for (int q = 0; q < K * 9; ++q) out[q * n + idx] = C(0);
+    return;
+  }
+  unsigned fluid_nb = 1;   // bit i: x + e_i is fluid
+#pragma unroll
+  for (int i = 1; i < 9; ++i) fluid_nb |= (sh_fl[self + ey(i) * PX + ex(i)] ? 1u : 0u) << i;
+  // sc_collide's arithmetic, in its order, one fluid's populations at a time
+  C rho[K], mx[K], my[K], psi[K], v[K][2], fx[K], fy[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    C F[9];
+    load_fluid_state<S>(f, geo, P, x, y, k, F);
+    rho[k] = sum9(F);
+    momentum9(F, mx[k], my[k]);
+    psi[k] = sh_psi[k * PN + self];
+    psi_sums<C, ORDER>([&](int dx, int dy) { return sh_psi[k * PN + self + dy * PX + dx]; },
+                       v[k][0], v[k][1]);
+  }
+  const bool efs = ORDER != 0;
+  const C g1 = geo[n + idx], g2 = geo[2 * n + idx];
+  const C g3 = efs ? geo[3 * n + idx] : C(0), g4 = efs ? geo[4 * n + idx] : C(0);
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    sc_force<C, ORDER>(
+        K, [&](int j) { return P.g[k][j]; }, [&](int j, int d) { return v[j][d]; },
+        [&](int j) { return psi[j]; }, psi[k], P.gs[k], g1, g2, g3, g4, fx[k], fy[k]);
+  if (P.bfx != 0.0 || P.bfy != 0.0) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      fx[k] = fx[k] + C(P.bfx) * rho[k];
+      fy[k] = fy[k] + C(P.bfy) * rho[k];
+    }
+  }
+  C den = C(0), numx = C(0), numy = C(0);
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const C it = C(P.inv_tau[k]);
+    den = den + rho[k] * it;
+    if constexpr (ORDER == 0) {
+      numx = numx + mx[k] * it;
+      numy = numy + my[k] * it;
+    } else {
+      numx = numx + (mx[k] + C(0.5) * fx[k]) * it;
+      numy = numy + (my[k] + C(0.5) * fy[k]) * it;
+    }
+  }
+  den = den != C(0) ? den : C(1);
+  const C ux0 = numx / den, uy0 = numy / den;
+  // the offsets of x + e_i from x along each axis, wrapped (index e + 1)
+  const int ox[3] = {x == 0 ? nx - 1 : -1, 0, x == nx - 1 ? 1 - nx : 1};
+  const int oy[3] = {(y == 0 ? ny - 1 : -1) * nx, 0, (y == ny - 1 ? 1 - ny : 1) * nx};
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    C F[9], o[9];
+    load_fluid_state<S>(f, geo, P, x, y, k, F);
+    sc_collide_fluid<C, ORDER>(F, rho[k], fx[k], fy[k], ux0, uy0, P.tau[k], P.inv_tau[k], P.mrt,
+                               o);
+    S* p = out + (size_t)k * 9 * n + idx;   // slot i of x
+#pragma unroll
+    for (int i = 0; i < 9; ++i) {
+      if ((fluid_nb >> i) & 1u)
+        p[oy[ey(i) + 1] + ox[ex(i) + 1]] = o[i];
+      else
+        p[(opp(i) - i) * (ptrdiff_t)n] = o[i];   // bounced back from the solid x + e_i
+      p += n;
+      asm volatile("" : "+l"(p));
+    }
+  }
+}
+
+// The outlet rows of a pushed step in place, one thread a column: the
+// Zou-He row d of every fluid and its ghost rows d - 1 ... 0, or the
+// convective rows d + 1 ... 0, each copying the row above, on fluid cells.
+template <typename S, int K>
+__global__ void sc_outlet_kernel(const S* __restrict__ geo, S* __restrict__ out, ScParams P) {
+  using C = S;
+  const int nx = P.nx, x = blockIdx.x * blockDim.x + threadIdx.x;
+  if (x >= nx) return;
+  const size_t n = (size_t)P.ny * nx;
+  const int d = P.depth;
+  auto fluid = [&](int r) { return geo[(size_t)r * nx + x] > C(0.5); };
+  C F[K][9];
+  if (P.outlet == 1) {
+    load_raw<S, K>(out, n, (size_t)d * nx + x, F);
+    if (fluid(d)) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) outlet_zou_he(F[k], P.outlet_rho[k]);
+      store_state<S, K>(out, n, (size_t)d * nx + x, F);
+    }
+    for (int r = d - 1; r >= 0; --r)
+      if (fluid(r)) store_state<S, K>(out, n, (size_t)r * nx + x, F);
+  } else {
+    for (int r = d + 1; r >= 0; --r) {
+      if (!fluid(r)) continue;
+      load_raw<S, K>(out, n, (size_t)(r + 1) * nx + x, F);
+      store_state<S, K>(out, n, (size_t)r * nx + x, F);
+    }
+  }
+}
+
+// One step: f32 and f64 the push (and the outlet rows); bf16 the pull.
+template <typename S, int K, int ORDER>
+int launch_sc(const void* f_in, void* f_out, const void* geo_v, const ScParams& P,
+              cudaStream_t st) {
   using C = typename Traits<S>::C;
   const S* f = static_cast<const S*>(f_in);
   S* out = static_cast<S*>(f_out);
   const C* geo = static_cast<const C*>(geo_v);
-  C* psi = static_cast<C*>(psi_v);
-  const size_t n = (size_t)P.ny * P.nx;
-  psi_kernel<S, K><<<(unsigned)((n + 255) / 256), 256, 0, st>>>(f, geo, psi, P);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  constexpr size_t smem = smem_bytes<C, K, ORDER>();
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(collide_stream_kernel<S, K, ORDER>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
   const dim3 grid((P.nx + TX - 1) / TX, (P.ny + TY - 1) / TY);
-  collide_stream_kernel<S, K, ORDER><<<grid, dim3(TX, TY), smem, st>>>(f, geo, psi, out, P);
-  return (int)cudaGetLastError();
+  cudaError_t err;
+  if constexpr (!Traits<S>::kShifted) {
+    constexpr size_t smem = push_smem_bytes<C, K, ORDER>();
+    static_assert(smem <= 48 * 1024, "the push's ring needs no opt-in shared memory");
+    sc_push_kernel<S, K, ORDER><<<grid, dim3(TX, TY), smem, st>>>(f, geo, out, P);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    ++g_launches[1];
+    if (P.outlet != 0) {
+      sc_outlet_kernel<S, K><<<(P.nx + 127) / 128, 128, 0, st>>>(geo, out, P);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+      ++g_launches[2];
+    }
+    return 0;
+  } else {
+    constexpr size_t smem = smem_bytes<C, K, ORDER>();
+    if (smem > 48 * 1024) {
+      err = cudaFuncSetAttribute(collide_stream_kernel<S, K, ORDER>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    collide_stream_kernel<S, K, ORDER><<<grid, dim3(TX, TY), smem, st>>>(f, geo, out, P);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    ++g_launches[0];
+    return 0;
+  }
 }
 
 template <typename S, int K>
-int launch_order(const void* f_in, void* f_out, const void* geo, void* psi,
-                 const ScParams& P, cudaStream_t st) {
+int launch_order(const void* f_in, void* f_out, const void* geo, const ScParams& P,
+                 cudaStream_t st) {
   switch (P.order) {
-    case 0: return launch_sc<S, K, 0>(f_in, f_out, geo, psi, P, st);
-    case 4: return launch_sc<S, K, 4>(f_in, f_out, geo, psi, P, st);
-    case 8: return launch_sc<S, K, 8>(f_in, f_out, geo, psi, P, st);
-    case 10: return launch_sc<S, K, 10>(f_in, f_out, geo, psi, P, st);
+    case 0: return launch_sc<S, K, 0>(f_in, f_out, geo, P, st);
+    case 4: return launch_sc<S, K, 4>(f_in, f_out, geo, P, st);
+    case 8: return launch_sc<S, K, 8>(f_in, f_out, geo, P, st);
+    case 10: return launch_sc<S, K, 10>(f_in, f_out, geo, P, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 // One step for P.k fluids; returns a cudaError_t code (0 on success).
 template <typename S>
-int sc2d_dispatch(const void* f_in, void* f_out, const void* geo, void* psi,
-                  const ScParams& P, cudaStream_t st) {
+int sc2d_dispatch(const void* f_in, void* f_out, const void* geo, const ScParams& P,
+                  cudaStream_t st) {
   switch (P.k) {
-    case 1: return launch_order<S, 1>(f_in, f_out, geo, psi, P, st);
-    case 2: return launch_order<S, 2>(f_in, f_out, geo, psi, P, st);
-    case 3: return launch_order<S, 3>(f_in, f_out, geo, psi, P, st);
+    case 1: return launch_order<S, 1>(f_in, f_out, geo, P, st);
+    case 2: return launch_order<S, 2>(f_in, f_out, geo, P, st);
+    case 3: return launch_order<S, 3>(f_in, f_out, geo, P, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

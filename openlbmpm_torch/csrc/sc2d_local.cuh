@@ -12,14 +12,15 @@
 //
 // A shard's state lives in a padded buffer (openlbmpm_torch/parallel/
 // mesh.py): its centre, then a frame of rows below and above that the
-// exchange fills once a call, x whole and wrapping.  The frame is K8-T's
-// window reach (block2d.cuh::block_shape): (reach + 1) T rows, plus d rows
+// exchange fills once a call, x whole and wrapping.  The frame is the
+// window's reach (block2d.cuh::block_shape): (reach + 1) T rows, plus d rows
 // below for the inlet ghosts and d + 2 above for the convective rows (d
 // for the Zou-He outlet), once for each copy of a band the frame can meet.
 //
-// K = 1 ... 3: one launch of sc2d_block.cuh's sc_local_kernel, K8-T's
-// window over tiles of the shard's centre, loaded from the padded buffer
-// without wrapping in y.
+// K = 1 ... 3: one launch of sc2d_block.cuh's sc_local_kernel, the window
+// form of K8-T's step over tiles of the shard's centre, loaded from the
+// padded buffer without wrapping in y (the single-device K8-T is the
+// row-march of sc2d_march.cuh).
 //
 // K > 3: sc2d_rt.cuh's passes in a local form, T one-step passes over row
 // ranges of the buffer that shrink by reach + 1 a sub-step: sub-step s
@@ -32,11 +33,11 @@
 // K8-T's order (the Zou-He row d, then its ghosts; the convective rows
 // d+1 ... 0 descending, each copying the row above).  A band row whose
 // source lies outside the current range takes a stale value; the frame's
-// band margins keep it outside the reach of the centre, as in K8-T's
+// band margins keep it outside the reach of the centre, as in the
 // window.  The outlet pass runs only on a shard whose range holds an
 // outlet row.
 //
-// What bounds it: HBM bytes.  K <= 3: K8-T's bytes on the shard (144/T B a
+// What bounds it: HBM bytes.  K <= 3: the state's bytes on the shard (144/T B a
 // cell-step, K = 2, f32) plus its frame's.  K > 3: per sub-step over its
 // range the state read twice and written once, psi, the interaction sums,
 // the forces and the post-collision populations written and read
@@ -49,7 +50,7 @@
 
 namespace {
 
-// -- K = 1 ... 3: K8-T's window on the shard --------------------------------
+// -- K = 1 ... 3: the window on the shard -----------------------------------
 
 // One launch; refuses a frame of G that does not cover the window's reach.
 template <typename S, int K, int ORDER>

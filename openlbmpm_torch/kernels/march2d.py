@@ -1,14 +1,16 @@
-"""The row-march of the 2-D colour-gradient T-step kernels K3 (K3c, K3h,
-K3s, both variants) and K5c-T (the coupled CSF flow + tracer step): their
-plans, which the wrappers hand to the kernels, and a plain PyTorch model
-that executes a plan wave by wave.
+"""The row-march of the 2-D T-step kernels K3 (K3c, K3h, K3s, both
+variants of the colour-gradient step), K5c-T (the coupled CSF flow + tracer
+step) and K8-T (the Shan-Chen step): their plans, which the wrappers hand
+to the kernels, and a plain PyTorch model that executes a plan wave by
+wave.
 
 The 2-D domain is the z-march's (``kernels/march3d.py``) with the rows in
 the place of the slabs: ``build_plan`` schedules the stages on an (ny, 1, nx)
 grid, so a "slab" is a row of nx cells, Z rows make a wave, rows wrap in x
 inside a ring row, and the periodic y seam is recomputed by unwrapped rows
 below 0 and above ny - 1.  The executor is ``csrc/march3d.cuh``'s; the
-bodies are in ``csrc/march2d.cuh``.
+bodies are in ``csrc/march2d.cuh`` (K3, K5c-T) and ``csrc/sc2d_march.cuh``
+(K8-T).
 
 CSF level s (the state after s steps: st_s, 10 compressed or 18 split
 planes):
@@ -50,9 +52,30 @@ The boundary stage rewrites st_s in place after the tracer's stages have
 read it (``build_plan``'s rule for in-place writers).  Level 0's tracers
 come from the input, read at the cell by tcollide.
 
-``csf2d_march_plan``, ``pert2d_march_plan`` and ``coupled2d_march_plan``
-build a plan; ``csf2d_march_reference``, ``pert2d_march_reference`` and
-``coupled2d_march_reference`` execute one on
+K8-T level s (``sc2d_stages``; st_s the K x 9 populations, psi_s (K
+planes) psi_k of st_s, 0 on solid cells, written by the stage that writes
+the state; d the stencil's reach R, which is also the depth of the
+boundary rows; level 0's st and psi come from the load stage):
+  bc       with an inlet, at the trigger row ny - 1 - d only: the Zou-He
+           inlet row and its d ghost rows above, in place in st_s and
+           psi_s;
+  collide  psi_s R rows around (and R columns: x wraps inside the ring
+           row), st_s at the cell -> po_s (K x 9 planes);
+  stream   po_s one row around: pull streaming with half-way bounce-back
+           -> st_{s+1} and psi_{s+1}, or at the last level without an
+           outlet the output;
+  outlet   with an outlet, at the trigger row 0 only: the Zou-He row d and
+           its ghosts below (reading row d), or the convective rows d + 1
+           ... 0 each copying the row above (reading row d + 2), in place in
+           st_{s+1} and psi_{s+1} (the streamed state: the outlet rows
+           follow the streaming);
+  store    with an outlet, after the last level's outlet: st_T into the
+           output (a bf16 output is encoded after the outlet rows).
+
+``csf2d_march_plan``, ``pert2d_march_plan``, ``coupled2d_march_plan`` and
+``sc2d_march_plan`` build a plan; ``csf2d_march_reference``,
+``pert2d_march_reference``, ``coupled2d_march_reference`` and
+``sc2d_march_reference`` execute one on
 the CPU from rings of its depth (full of NaN until a stage writes them),
 each wave's stages seeing only what earlier waves wrote: every stage
 places the rows it declares it reads into an otherwise NaN domain and runs
@@ -68,25 +91,33 @@ import torch
 from ..ops import colorgrad as cg
 from ..ops import equilibrium as eq
 from ..ops import macroscopic as mac
+from ..ops import shanchen as sc
 from ..ops import transport as tr
 from ..ops.common import pull, shift
+from ..ops.forcing import efs_force_pdf
 from ..ops.streaming import stream
 from . import build
 from . import march3d as m3
 from .march3d import BC, COLLIDE, LOAD, NORMAL, STREAM, Read, Stage
 
-__all__ = ["PHI", "TCOLLIDE", "TSTREAM", "ROWS_PER_WAVE", "GN_PLANES",
-           "PO_PLANES", "DP_PLANES", "PERT_PO_PLANES", "csf2d_stages",
-           "csf2d_march_plan", "pert2d_stages", "pert2d_march_plan",
-           "pert2d_march_reference",
+__all__ = ["PHI", "TCOLLIDE", "TSTREAM", "OUTLET", "STORE", "ROWS_PER_WAVE",
+           "SC_ROWS_PER_WAVE", "GN_PLANES", "PO_PLANES", "DP_PLANES",
+           "PERT_PO_PLANES", "csf2d_stages", "csf2d_march_plan",
+           "pert2d_stages", "pert2d_march_plan", "pert2d_march_reference",
            "coupled2d_stages", "coupled2d_march_plan", "max_steps",
-           "csf2d_march_reference", "coupled2d_march_reference"]
+           "csf2d_march_reference", "coupled2d_march_reference",
+           "sc_reach", "sc_codes", "sc2d_stages", "sc2d_march_plan",
+           "sc2d_march_reference"]
 
-# stage kinds of the 2-D march beyond march3d's (csrc/march2d.cuh)
+# stage kinds of the 2-D march beyond march3d's (csrc/march2d.cuh,
+# csrc/sc2d_march.cuh)
 PHI, TCOLLIDE, TSTREAM = 6, 7, 8
+OUTLET, STORE = 10, 11
 # rows a wave (Z): 96 was the fastest of 8-128 for K3c, K3h and K5c-Tc at
-# 1024^2 on an H100 (PERF.md)
+# 1024^2 on an H100; for K8-T 384 (64-256 slower, 512-1024 within 1%;
+# chip_sweep.py k8t, PERF.md)
 ROWS_PER_WAVE = 96
+SC_ROWS_PER_WAVE = 384
 GN_PLANES = 4      # gx, gy, the unit normal
 PO_PLANES = 12     # post (9), frac, A, B
 DP_PLANES = 2      # Perturbation: d = rho_r - rho_b, phi
@@ -237,6 +268,59 @@ def coupled2d_stages(ny: int, steps: int, itemsize: int, split: bool,
     return stages, arrays
 
 
+def sc_reach(order: int) -> int:
+    """The Shan-Chen interaction stencil's reach R, which is also the depth
+    d of the boundary rows: 1 for the original SC (order 0) and EFS iso-4,
+    2 for iso-8, 3 for iso-10."""
+    return {0: 1, 4: 1, 8: 2, 10: 3}[order]
+
+
+def sc2d_stages(ny: int, steps: int, itemsize: int, fluids: int, order: int,
+                inlet: int, outlet: int):
+    """(stages, arrays) of K8-T's march for `fluids` fluids and the stencil
+    `order` (0 original SC, 4 | 8 | 10 EFS): a load stage, then each
+    level's (module docstring); `inlet` 0 periodic or a Zou-He inlet,
+    `outlet` 0 periodic, 1 Zou-He pressure, 2 convective (ScParams'
+    codes).  The stages that write a level's state write its psi too (the
+    load and the stream stage, and the boundary stages the rows they
+    rewrite), so no stage forms psi on its own."""
+    build.check_steps(steps)
+    d = sc_reach(order)
+    k, ns = int(fluids), 9 * int(fluids)
+    arrays = {"st0": (ns, itemsize), "psi0": (k, itemsize)}
+    stages = [Stage(LOAD, 0, writes=("st0", "psi0"), rings=("st0", "psi0"))]
+    # the outlet stage reads row d (Zou-He) or d + 2 (convective) above its
+    # trigger and rewrites rows 0 ... d or 0 ... d + 1
+    ohi, oback = (d, d) if outlet == 1 else (d + 2, d + 1)
+    for s in range(steps):
+        st, psi, po = f"st{s}", f"psi{s}", f"po{s}"
+        arrays[po] = (ns, itemsize)
+        if inlet:
+            stages.append(Stage(BC, s, reads=(Read(st, 0, d),),
+                                modifies=(st, psi), back=d, rings=(st, psi),
+                                slabs=(ny - 1 - d,)))
+        stages.append(Stage(COLLIDE, s, reads=(Read(psi, d, d), Read(st)),
+                            writes=(po,), rings=(st, psi, po)))
+        last = s == steps - 1
+        nxt = (f"st{s + 1}",) if not last or outlet else ()
+        if nxt:
+            arrays[nxt[0]] = (ns, itemsize)
+        if not last:
+            nxt += (f"psi{s + 1}",)
+            arrays[nxt[1]] = (k, itemsize)
+        stages.append(Stage(STREAM, s, reads=(Read(po, 1, 1),), writes=nxt,
+                            rings=(po, *nxt) if nxt else (po, ""),
+                            output=not nxt))
+        if outlet:
+            stages.append(Stage(OUTLET, s, reads=(Read(nxt[0], 0, ohi),),
+                                modifies=nxt, back=oback, rings=nxt,
+                                slabs=(0,)))
+    if outlet:
+        stages.append(Stage(STORE, steps - 1, reads=(Read(f"st{steps}"),),
+                            rings=(f"st{steps}",), output=True))
+    return stages, arrays
+
+
 def _plan(family, stages, arrays, shape, steps, rows_per_wave):
     ny, nx = (int(v) for v in shape)
     return m3.build_plan(family, stages, arrays, (ny, 1, nx), steps,
@@ -277,6 +361,18 @@ def coupled2d_march_plan(shape, steps: int, itemsize: int, split: bool,
                                       inlet, outlet, wetting, repair,
                                       tracers)
     return _plan("coupled2d", stages, arrays, shape, steps, rows_per_wave)
+
+
+def sc2d_march_plan(shape, steps: int, itemsize: int, fluids: int,
+                    order: int, inlet: int, outlet: int,
+                    rows_per_wave: int | None = None) -> m3.Plan:
+    """K8-T's plan for an (ny, nx) domain and `steps` steps a launch in a
+    compute type of `itemsize` bytes (``sc2d_stages``' arguments);
+    `rows_per_wave` None: SC_ROWS_PER_WAVE."""
+    stages, arrays = sc2d_stages(int(shape[0]), steps, itemsize, fluids,
+                                 order, inlet, outlet)
+    return _plan("sc2d", stages, arrays, shape, steps, SC_ROWS_PER_WAVE
+                 if rows_per_wave is None else rows_per_wave)
 
 
 def max_steps(stages_of, limit: int = 64) -> int:
@@ -795,3 +891,149 @@ def coupled2d_march_reference(state, model, steps: int,
     if split:
         return type(state)(out[:9], out[9:], g_out, state[3])
     return (flow.pack_compressed_bf16(out) if bf16 else out), g_out
+
+
+# -- K8-T -------------------------------------------------------------------
+
+def sc_codes(model):
+    """(fluids, order, inlet, outlet) of a ShanChenMCMP as K8-T's plan takes
+    them (ScParams' codes: order 0 the original SC; outlet 1 Zou-He
+    pressure, 2 convective)."""
+    p, b = model.p, model.bcs
+    order = p.iso_order if p.scheme == "EFS" else 0
+    outlet = {"periodic": 0, "zou_he_pressure": 1, "convective": 2}[b.outlet]
+    return model.k, order, int(b.inlet != "periodic"), outlet
+
+
+class _ShanChen:
+    """K8-T's stages' plain operators for a ShanChenMCMP `m` (shift forcing,
+    no moving wall: the configurations K8-T takes), cut from ``_step_sc``
+    and ``_step_efs``: full-domain tensors in, full-domain tensors out."""
+
+    def __init__(self, m):
+        self.m = m
+        self.fluid = m.fluid_mask > 0
+
+    def psi(self, x):
+        """psi_k of the state x (K, 9, ny, nx), 0 on solid cells."""
+        return torch.where(self.fluid, self.m._psi(mac.density(x, 2)), 0.0)
+
+    def collide(self, x, psi):
+        """The post-collision state of x with the interaction force of
+        `psi` (and the body force), 0 on solid cells."""
+        m, lat = self.m, self.m.lat
+        rho_k = mac.density(x, 2)
+        rho_safe = torch.where(rho_k > 0, rho_k, torch.ones_like(rho_k))
+        force = sc.interaction_force_sc if m.p.scheme == "SC" \
+            else sc.interaction_force_efs
+        fx, fy = force(psi, m.g_matrix, m.g_solid, m.fields)
+        bfx, bfy = m.p.body_force
+        if bfx or bfy:
+            fx = fx + bfx * rho_k
+            fy = fy + bfy * rho_k
+        if m.p.scheme == "SC":
+            upx, upy = mac.sc_common_velocity(lat, x, rho_k, m.tau)
+            ueq = (upx[None] + m.tau_k * fx / rho_safe,
+                   upy[None] + m.tau_k * fy / rho_safe)
+            feq = eq.feq_quadratic(lat, rho_k, ueq)
+            post = m._mrt_each(x, feq) if m.p.collision == "MRT" else \
+                x - (x - feq) / m.tau_k[:, None]
+        else:
+            mx, my = mac.momentum(lat, x)
+            itau = m.inv_tau_k
+            den = torch.sum(rho_k * itau, dim=0)
+            den = torch.where(den != 0, den, torch.ones_like(den))
+            u = (torch.sum((mx + 0.5 * fx) * itau, dim=0) / den,
+                 torch.sum((my + 0.5 * fy) * itau, dim=0) / den)
+            u = (u[0].expand_as(rho_k), u[1].expand_as(rho_k))
+            feq = eq.feq_quadratic(lat, rho_k, u)
+            ff = efs_force_pdf(lat, feq, rho_safe, u, (fx, fy))
+            if m.p.collision == "SRT":
+                post = x + (feq - x - 0.5 * ff) / m.tau_k[:, None] + ff
+            else:
+                post = x + (m._mrt_each(x, feq - 0.5 * ff) - x) + ff
+        return torch.where(self.fluid, post, 0.0)
+
+    def stream(self, po):
+        """Pull streaming with half-way bounce-back, masked to the fluid."""
+        return stream(po, self.m.lat, self.m.upwind_solid) * self.m.fluid_mask
+
+
+def _sc_trigger_rows(gz, ny, d, inlet, outlet):
+    """Rows (offsets from the trigger) that a boundary trigger of K8-T at
+    domain row gz rewrites."""
+    if inlet and gz == ny - 1 - d:
+        return tuple(range(d + 1))
+    if outlet and gz == 0:
+        return tuple(range(d + 1 if outlet == 1 else d + 2))
+    return ()
+
+
+def sc2d_march_reference(f, model, steps: int, plan: m3.Plan | None = None):
+    """`steps` Shan-Chen steps of K8-T's row-march on the CPU for `model`, a
+    ShanChenMCMP the kernel takes: the (K, 9, ny, nx) state, or the (K, 11,
+    ny, nx) bf16 state decoded once and encoded once.  The plan's stages run
+    wave by wave from rings of its depth (module docstring), each through
+    the plain step's operators (``_ShanChen``, ``_apply_inlet``,
+    ``_apply_outlet``)."""
+    bf16 = f.dtype == torch.bfloat16
+    x0 = model.unpack_bf16(f) if bf16 else f
+    k, ny, nx = x0.shape[0], x0.shape[-2], x0.shape[-1]
+    fluids, order, inlet, outlet = sc_codes(model)
+    d = sc_reach(order)
+    if plan is None:
+        plan = sc2d_march_plan((ny, nx), steps, x0.element_size(), fluids,
+                               order, inlet, outlet)
+    rows = _Rows(plan, x0.dtype)
+    out = torch.full_like(x0, float("nan"))
+    ops = _ShanChen(model)
+    flat = x0.reshape(k * 9, ny, nx)
+
+    def state(name, us, zlo=0, zhi=0):
+        return _domain(rows, name, us, zlo, zhi, ny).reshape(k, 9, ny, nx)
+
+    def put(name, us, value, offsets=(0,)):
+        value = value.reshape(value.shape[0] * value.shape[1], ny, nx) \
+            if value.dim() == 4 else value
+        for u in us:
+            for r in offsets:
+                rows.put(name, u + r, value[:, (u + r) % ny])
+
+    def body(st, us):
+        idx = torch.as_tensor([u % ny for u in us])
+        name = st.rings[0]
+        # the psi ring of a load, bc, stream or outlet stage ("" for the
+        # last level's stream and outlet)
+        at = 2 if st.kind == STREAM else 1
+        psi_ring = st.rings[at] if len(st.rings) > at else ""
+        if st.kind == LOAD:
+            for u in us:
+                rows.put("st0", u, flat[:, u % ny])
+            put(psi_ring, us, ops.psi(x0))
+        elif st.kind in (BC, OUTLET):
+            x = state(name, us, 0, _stage_reads(st, name)[1])
+            new = model._apply_inlet(x) if st.kind == BC else \
+                model._apply_outlet(x, None)
+            for u in us:
+                rows_of = _sc_trigger_rows(u % ny, ny, d, inlet, outlet)
+                put(name, (u,), new, rows_of)
+                if psi_ring:
+                    put(psi_ring, (u,), ops.psi(new), rows_of)
+        elif st.kind == COLLIDE:
+            psi = _domain(rows, st.rings[1], us, d, d, ny)
+            put(st.rings[2], us, ops.collide(state(name, us), psi))
+        elif st.kind == STREAM:
+            new = ops.stream(state(name, us, 1, 1))
+            if st.rings[1]:
+                put(st.rings[1], us, new)
+                if psi_ring:
+                    put(psi_ring, us, ops.psi(new))
+            else:
+                out[..., idx, :] = new[..., idx, :]
+        elif st.kind == STORE:
+            out[..., idx, :] = state(name, us)[..., idx, :]
+        else:
+            raise ValueError(f"K8-T has no stage {st.kind}")
+
+    _run(plan, rows, body)
+    return model.pack_state_bf16(out) if bf16 else out

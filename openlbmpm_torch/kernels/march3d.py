@@ -82,11 +82,11 @@ __all__ = ["LOAD", "COLLIDE", "STREAM", "BC", "EXTRAP", "NORMAL", "SCOLLIDE",
 
 # stage kinds, as csrc/march3d.cuh numbers them
 LOAD, COLLIDE, STREAM, BC, EXTRAP, NORMAL = range(6)
-# the 2-D row-march's stages (kernels/march2d.py) take 6 ... 8; K11-T's
-# stream-and-collide stage is 9
+# the 2-D row-march's stages (kernels/march2d.py) take 6 ... 8 and 10, 11;
+# K11-T's stream-and-collide stage is 9
 SCOLLIDE = 9
 KIND_NAMES = ("load", "collide", "stream", "bc", "extrap", "normal", "phi",
-              "tcollide", "tstream", "scollide")
+              "tcollide", "tstream", "scollide", "outlet", "store")
 Q = 19
 HEADER = 16          # int64 words before the stage table
 STAGE_WORDS = 8      # kind, level, e, ring ids 0-3, spare
@@ -919,7 +919,7 @@ _plans: dict = {}
 _fns: dict = {}
 # the library family whose error-string entry point a march library shares
 _ERROR_PREFIX = {"single3d": "flow3d", "sc3d": "flow3d", "cg3d": "cg3d",
-                 "csf2d": "csf2d", "coupled2d": "coupled2d"}
+                 "csf2d": "csf2d", "coupled2d": "coupled2d", "sc2d": "sc2d"}
 
 
 def device_plan(key, make, device):
@@ -959,7 +959,7 @@ def march_grid(lib: str, prefix: str, ints: int, pointers: int,
                params_type, which: int) -> int:
     """The cooperative grid (blocks) of a march library's kernel instance
     `which` (K11-T: the collision; K10-T: the fluids; K9-T: split; K3: the
-    state mode; K5c-T: 10 state mode + NQ)."""
+    state mode; K5c-T: 10 state mode + NQ; K8-T: 100 K + order)."""
     import ctypes
     step, grid, err = _march_fns(lib, prefix, ints, pointers, params_type)
     out = ctypes.c_int(0)

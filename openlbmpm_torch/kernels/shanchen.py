@@ -7,9 +7,14 @@ MRT, psi = rho or Peng-Robinson, shift forcing, the Zou-He velocity /
 pressure inlet and the Zou-He pressure / convective outlet, any number
 of fluids K.  The kernels live in ``csrc/sc2d.cuh``, one library per
 storage type (``sc2d_f64``, ``sc2d_f32``, ``sc2d_bf16``), instantiated for K
-= 1 ... KMAX.  With ``steps_per_call`` = T > 1 (K8-T: the inlet rows before
-and the outlet rows after every sub-step): ``csrc/sc2d_block.cuh``,
-libraries ``sc2d_block_{f64,f32,bf16}``.  Above KMAX fluids both run the
+= 1 ... KMAX: in f32 / f64 one launch of the push (``sc_push_kernel``) a
+step and, with an outlet, one of ``sc_outlet_kernel``; in bf16 one launch
+of the pull (``collide_stream_kernel``); each library counts them
+(``kernel_launches``).  With ``steps_per_call`` = T > 1 (K8-T:
+the inlet rows before and the outlet rows after every sub-step): the
+row-march of ``csrc/sc2d_march.cuh`` on the plan of
+``kernels/march2d.py::sc2d_march_plan``, libraries
+``sc2d_block_{f64,f32,bf16}``.  Above KMAX fluids both run the
 runtime-K instance ``csrc/sc2d_rt.cuh`` (library ``sc2d_rt``), which loops
 over the fluids and reads their values from a device table
 (``fluid_table``, the model's ``kernel_table``).  The local form of K8-T
@@ -37,9 +42,10 @@ import torch
 
 from ..geometry import Geometry
 from ..ops.shanchen import build_interaction_fields, psi_peng_robinson
-from . import build
+from . import build, march2d, march3d
 
 __all__ = ["KMAX", "LIBRARIES", "BLOCK_LIBRARIES", "RT_LIBRARY", "ScParams",
+           "KERNELS", "kernel_launches",
            "geo_stack", "kernel_params", "fluid_table", "launch_sc2d",
            "sc_step", "sc_step_reference", "launch_sc2d_block",
            "sc_block_step", "sc_block_step_reference", "sc_block_tiling",
@@ -182,13 +188,28 @@ def kernel_params(params, bcs, geometry: Geometry) -> ScParams:
 
 
 _fn_cache: dict[str, tuple] = {}
+# the kernels of the sc2d libraries, in the order of sc2d_kernel_launches'
+# counts
+KERNELS = ("collide_stream_kernel", "sc_push_kernel", "sc_outlet_kernel")
+
+
+def kernel_launches(lib_name: str) -> dict[str, int]:
+    """Launches of each kernel of ``KERNELS`` by the library `lib_name`
+    (sc2d_f64, sc2d_f32 or sc2d_bf16) since it was loaded, as the library
+    counts them where it launches them."""
+    fn = build.load_library(lib_name).sc2d_kernel_launches
+    fn.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = None
+    out = (ctypes.c_longlong * len(KERNELS))()
+    fn(out)
+    return dict(zip(KERNELS, out))
 
 
 def _kernel_fn(lib_name: str):
     if lib_name not in _fn_cache:
         lib = build.load_library(lib_name)
         fn = lib.sc2d_step
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(ScParams),
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.POINTER(ScParams),
                                                ctypes.c_void_p]
         fn.restype = ctypes.c_int
         err = lib.sc2d_error_string
@@ -229,22 +250,20 @@ def _launch_rt(f: torch.Tensor, params: ScParams, geo: torch.Tensor,
 def launch_sc2d(f: torch.Tensor, params: ScParams, geo: torch.Tensor,
                 table: torch.Tensor | None = None) -> torch.Tensor:
     """One kernel step of the CUDA state `f`: (K, 9, ny, nx) in the type of
-    the geometry planes `geo` (``geo_stack``, float32 or float64), or
-    (K, 11, ny, nx) bfloat16 with float32 planes; above KMAX fluids the
-    runtime-K instance on `table` (``fluid_table`` as a float64 tensor on
-    the card).  Not counted as a launch."""
+    the geometry planes `geo` (``geo_stack``, float32 or float64), one
+    launch of the push and, with an outlet, one of the outlet rows; or
+    (K, 11, ny, nx) bfloat16 with float32 planes, one launch of the pull;
+    above KMAX fluids the runtime-K instance on `table` (``fluid_table`` as
+    a float64 tensor on the card).  Not counted as a launch."""
     _check(f, params, geo, table)
     if params.k > KMAX:
         return _launch_rt(f, params, geo, table, 1)
-    k, ny, nx = params.k, params.ny, params.nx
-    want = torch.float32 if f.dtype == torch.bfloat16 else f.dtype
     fn, err = _kernel_fn(_LIBS[f.dtype])
     f = f.contiguous()
     out = torch.empty_like(f)
-    psi = torch.empty((k, ny, nx), dtype=want, device=f.device)
     with torch.cuda.device(f.device):
         code = fn(f.data_ptr(), out.data_ptr(), geo.data_ptr(),
-                  psi.data_ptr(), ctypes.byref(params),
+                  ctypes.byref(params),
                   torch.cuda.current_stream(f.device).cuda_stream)
     if code != 0:
         raise RuntimeError(f"sc2d_step launch failed: {err(code).decode()} "
@@ -292,45 +311,70 @@ _BLOCK_LIBS = {torch.float64: "sc2d_block_f64",
 BLOCK_LIBRARIES = tuple(_BLOCK_LIBS.values())
 
 
-def _block_fns(lib: str):
-    """(step, scratch_bytes, shape, error_string) of a K8-T library: ints
-    (T), pointers (f, out, geo, scratch)."""
-    return build.block_fns(lib, "sc2d", 1, 4, ScParams)
+def _march_args(params: ScParams, dtype):
+    """(shape, compute item size, fluids, order, inlet, outlet) of K8-T's
+    march plan for `params` and a state of `dtype`."""
+    return ((params.ny, params.nx), 8 if dtype == torch.float64 else 4,
+            params.k, params.order, int(params.inlet != 0),
+            int(params.outlet))
+
+
+def _march_plan(params: ScParams, dtype, steps: int, device="cuda"):
+    """K8-T's plan for `params` and a state of `dtype`, built once a process
+    a configuration: (plan, its table on `device`)."""
+    args = _march_args(params, dtype)
+    key = ("sc2d", steps, march2d.SC_ROWS_PER_WAVE) + args
+    return march3d.device_plan(
+        key, lambda: march2d.sc2d_march_plan(args[0], steps, *args[1:]),
+        device)
 
 
 def sc_block_tiling(dtype, params: ScParams, steps: int) -> dict:
-    """How a K8-T launch of `steps` steps tiles the domain of `params` for a
-    state of `dtype` (``build.block_tiling``); the runtime-K instance (above
-    KMAX fluids) has no tiling."""
+    """How a K8-T launch of `steps` steps covers the domain of `params` for
+    a state of `dtype`: its march plan's fields (levels, lag, rows a wave,
+    ring depths and bytes, waves, stages; "march": "rows") and its
+    cooperative grid; the runtime-K instance (above KMAX fluids) has no
+    plan."""
     if params.k > KMAX:
         raise ValueError(f"{params.k} fluids run the runtime-K instance, "
-                         "which has no window tiling")
-    lib = _BLOCK_LIBS[dtype]
-    return build.block_tiling(lib, _block_fns(lib), (steps,), params)
+                         "which has no plan")
+    plan, _ = _march_plan(params, dtype, steps)
+    return plan.fields() | {"march": "rows", "grid": march3d.march_grid(
+        _BLOCK_LIBS[dtype], "sc2d", 1, 3, ScParams,
+        100 * params.k + params.order)}
+
+
+_march_limits: dict = {}
 
 
 def sc_block_max_steps(dtype, params: ScParams) -> int:
     """The largest T one K8-T launch takes for `params` and a state of
-    `dtype`: the library's window limit (``build.max_steps``)."""
-    lib = _BLOCK_LIBS[dtype]
-    return build.max_steps(lib, "sc2d_block", (), params)
+    `dtype`: its march plan's (``march2d.max_steps``: the stages and rings
+    the executor's tables hold)."""
+    args = _march_args(params, dtype)
+    if args not in _march_limits:
+        _march_limits[args] = march2d.max_steps(
+            lambda t: march2d.sc2d_stages(args[0][0], t, *args[1:]))
+    return _march_limits[args]
 
 
 def launch_sc2d_block(f: torch.Tensor, params: ScParams, geo: torch.Tensor,
                       steps: int,
                       table: torch.Tensor | None = None) -> torch.Tensor:
-    """`steps` kernel steps (one call) of the CUDA state `f` (as
-    ``launch_sc2d``; above KMAX fluids the runtime-K instance, which runs
-    the steps one after another in the compute type, decoding once and
-    encoding once).  Not counted as a launch."""
+    """`steps` kernel steps (one cooperative launch of the row-march; a T
+    above the launch's limit, ``sc_block_max_steps``, is refused) of the
+    CUDA state `f` (as ``launch_sc2d``; above KMAX fluids the runtime-K
+    instance, which runs the steps one after another in the compute type,
+    decoding once and encoding once).  Not counted as a launch."""
     build.check_steps(steps)
     _check(f, params, geo, table)
     if params.k > KMAX:
         return _launch_rt(f, params, geo, table, steps)
     f = f.contiguous()
     out = torch.empty_like(f)
-    lib = _BLOCK_LIBS[f.dtype]
-    build.launch_block(lib, _block_fns(lib), (steps,), (f, out, geo), params)
+    plan, plan_t = _march_plan(params, f.dtype, steps, f.device)
+    march3d.march_launch(_BLOCK_LIBS[f.dtype], "sc2d", (steps,),
+                         (f, out, geo), plan, plan_t, params)
     return out
 
 

@@ -315,24 +315,27 @@ def test_cli_blocked_run_equals_block_1(tmp_path, monkeypatch):
         np.testing.assert_array_equal(ca[key], cb[key])
 
 
-@pytest.mark.parametrize("case", ["K3 bc once", "K8-T local row",
+@pytest.mark.parametrize("case", ["K3 bc once", "K8-T march outlet",
                                   "K7-T bc once", "K4 diag f32",
                                   "K5c-T window rows", "K11-T march pull z",
                                   "K10-T seam skipped", "K9-T march z",
-                                  "K8 rt tau"])
+                                  "K8 rt tau", "K8 push target f64"])
 def test_chip_faults_patches_one_line(case):
     """chip_faults.py plants its T-step faults (K3's row-march rewriting
-    the boundary rows at level 0 only, K8-T's outlet row picked by window
-    row, K7-T's rows after the first sub-step only, K5c-T's row-march
+    the boundary rows at level 0 only, K8-T's row-march forming the Zou-He
+    outlet row from the row above it, K7-T's rows after the first sub-step
+    only, K5c-T's row-march
     mapping the tracer's rows without the wrap, K11-T's stream-and-collide
     stage pulling from the slab above instead of below, K10-T's
     z-march skipping the slabs it recomputes below the periodic seam,
     K9-T's march picking the inlet slabs by its unwrapped slab), the
     runtime-K Shan-Chen fault (every fluid's common
-    velocity weighted by fluid 0's 1/tau) and the K4 fault, which moved with
-    the Perturbation device code to csrc/pert2d.cuh, by replacing one line
-    that must stay there exactly once; each T-step or runtime-K fault is
-    held against its phase while the family's T=1 phases must pass."""
+    velocity weighted by fluid 0's 1/tau), the K4 fault, which moved with
+    the Perturbation device code to csrc/pert2d.cuh, and K8's push fault (a
+    value bounced into slot i, not opp(i)) by replacing one line that must
+    stay there exactly once; each T-step or runtime-K fault is held against
+    its phase while the family's T=1 phases must pass, and K8's push fault
+    against phase 15 while K8-T's phase 46 must pass."""
     import chip_faults
     header, line, fault, phases = chip_faults.CASES[case]
     with open(os.path.join(ROOT, "openlbmpm_torch", "csrc", header)) as f:
@@ -341,6 +344,8 @@ def test_chip_faults_patches_one_line(case):
                                                   len(line.lstrip())])
     if case.startswith("K4"):
         assert phases == ("41",)
+    elif case == "K8 push target f64":
+        assert phases == ("15",) and chip_faults.MUST_PASS[case] == ("46",)
     else:
         assert set(phases) <= {"46", "47", "48", "52", "53", "58", "60"}
         assert chip_faults.MUST_PASS[case] and \

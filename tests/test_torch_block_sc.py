@@ -7,7 +7,9 @@ mode at T = 2, on the cases of ``tests/test_pallas_sc.py:19-134`` taken
 from ``chip_smoke.SC_CASES`` (32 x 24, side walls except the periodic
 droplet): the periodic droplet with a body force, the velocity/convective
 and pressure/pressure channel rows, EFS iso-8 MRT and three fluids, at f64
-to 1e-12 over two calls; the velocity/convective channel in bf16 storage
+to 1e-12 over two calls, and the plain model of K8-T's row-march plan
+(``kernels/march2d.py::sc2d_march_reference``, four rows a wave) over the
+same two calls; the velocity/convective channel in bf16 storage
 within the K8 bf16 bound; and ``make_block_step`` returning None exactly
 where the JAX ``make_block_step`` does.  The CUDA kernel is held to these
 plain versions by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
@@ -23,6 +25,7 @@ from openlbmpm_tpu import geometry as geo
 from openlbmpm_tpu.models import shanchen as js
 from openlbmpm_tpu.pallas.shanchen import build_sc_fused_step
 from openlbmpm_torch.convert import params_from_jax
+from openlbmpm_torch.kernels import march2d as M2
 from openlbmpm_torch.kernels.shanchen import sc_block_step
 from openlbmpm_torch.models.shanchen import ShanChenMCMP
 
@@ -59,15 +62,21 @@ def _jax_block(mj, dtype, **kw):
     "sc_srt_pressure_pressure", "efs8_mrt_velocity_convective",
     "sc_three_fluids"])
 def test_sc_block_matches_jax_kernel_f64(name):
-    """Two calls of T = 2 against the JAX blocked kernel, to 1e-12."""
+    """Two calls of T = 2 against the JAX blocked kernel, to 1e-12: the
+    port's T-step call on the CPU and the plain model of K8-T's plan."""
     mj, mt, f0 = _models(name)
     blk = mt.make_block_step(steps_per_call=2)
     assert blk.steps_per_call == 2
     jblk = _jax_block(mj, jnp.float64)
+    plan = M2.sc2d_march_plan(mt.geo.shape, 2, 8, *M2.sc_codes(mt),
+                              rows_per_wave=4)
     a, b = jnp.asarray(f0), torch.from_numpy(f0.copy())
+    c = b
     for _ in range(2):
         a, b = jblk(a), blk(b)
+        c = M2.sc2d_march_reference(c, mt, 2, plan)
     assert float(np.abs(b.numpy() - np.asarray(a)).max()) < 1e-12
+    assert float(np.abs(c.numpy() - np.asarray(a)).max()) < 1e-12
 
 
 def test_sc_bf16_block_matches_jax_kernel():

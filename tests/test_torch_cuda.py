@@ -480,6 +480,32 @@ def test_sc_step_checks_state_and_counts(cuda):
     assert sc_step.launches == before + 2
 
 
+@pytest.mark.parametrize("storage", ["f64", "f32", "bf16"])
+@pytest.mark.parametrize("case", ["sc_srt_periodic_body_force",
+                                  "efs8_mrt_velocity_convective"])
+def test_sc_kernel_launches_a_step(cuda, case, storage):
+    """K8's library counts its kernels where it launches them: a step is one
+    sc_push_kernel (and one sc_outlet_kernel with an outlet) in f32 and
+    f64, one collide_stream_kernel in bf16, and sc_step counts one launch a
+    step."""
+    from chip_smoke import sc_want_kernels
+    from openlbmpm_torch.kernels.shanchen import kernel_launches
+    dtype = torch.float64 if storage == "f64" else torch.float32
+    m, f = sc_case(case, cuda, 64, 48, dtype,
+                   "bf16" if storage == "bf16" else "f32")
+    x = m.pack_state_bf16(f) if storage == "bf16" else f
+    lib = f"sc2d_{storage}"
+    before, calls = kernel_launches(lib), sc_step.launches
+    for _ in range(3):
+        x = sc_step(x, m)
+    torch.cuda.synchronize()
+    after = kernel_launches(lib)
+    want = sc_want_kernels(storage, m.bcs.outlet != "periodic")
+    assert {k: after[k] - before[k] for k in after} == {
+        k: 3 * (k in want) for k in after}
+    assert sc_step.launches == calls + 3
+
+
 def test_golden_sc_mini_through_kernel(cuda):
     """tests/golden/sc_mini.npz through K8 at f64 (1e-10)."""
     from chip_smoke import phase_sc_golden
@@ -995,6 +1021,25 @@ def test_row_march_splits_calls_past_its_limit(cuda, t):
             len(build.split_steps(t, lim)) > 1
         want = kt.coupled_block_compressed_reference(y0, mt, t)
         assert max(_gap(a, b) for a, b in zip(got, want)) <= 1e-11
+
+
+@pytest.mark.parametrize("t", [10, 16])
+@pytest.mark.parametrize("case", ["sc_srt_velocity_convective",
+                                  "sc_srt_periodic_body_force"])
+def test_k8t_splits_calls_past_its_limit(cuda, case, t):
+    """K8-T (the row-march) at T = 10 and 16 at f64 with the inlet and
+    outlet rows (a launch takes 15) and periodic (16): one call runs
+    ``build.split_steps(T, limit)`` launches, each counted, and equals T
+    plain steps (<= 1e-11, as chip_smoke phase 72)."""
+    from openlbmpm_torch.kernels import build
+    from openlbmpm_torch.kernels import shanchen as ks
+    m, f = sc_case(case, cuda, ny=100, nx=64)
+    lim = ks.sc_block_max_steps(torch.float64, m.kernel_params)
+    assert lim == (15 if m.bcs.outlet != "periodic" else 16)
+    ks.sc_block_step.launches = 0
+    got = ks.sc_block_step(f, m, t)
+    assert ks.sc_block_step.launches == len(build.split_steps(t, lim))
+    assert _gap(got, ks.sc_block_step_reference(f, m, t)) <= 1e-11
 
 
 def test_k9t_counts_one_launch_per_call_and_bf16(cuda):

@@ -1,11 +1,13 @@
-"""The row-march of the 2-D colour-gradient T-step kernels (K3's CSF and
-Perturbation variants and K5c-T) and the splitting of T-step calls, on the
-CPU.
+"""The row-march of the 2-D T-step kernels (K3's CSF and Perturbation
+variants, K5c-T and the Shan-Chen K8-T) and the splitting of T-step calls,
+on the CPU.
 
-The CUDA kernels (``csrc/march3d.cuh`` with ``csrc/march2d.cuh``) execute
-a plan built by ``openlbmpm_torch/kernels/march2d.py``.  Here the same
-plans run through their plain PyTorch model (``csf2d_march_reference``,
-``pert2d_march_reference``, ``coupled2d_march_reference``: wave by wave,
+The CUDA kernels (``csrc/march3d.cuh`` with ``csrc/march2d.cuh`` and
+``csrc/sc2d_march.cuh``) execute a plan built by
+``openlbmpm_torch/kernels/march2d.py``.  Here the same plans run through
+their plain PyTorch model (``csf2d_march_reference``,
+``pert2d_march_reference``, ``coupled2d_march_reference``,
+``sc2d_march_reference``: wave by wave,
 from rings of the plan's depth
 that hold NaN until written, a wave seeing only what earlier waves wrote,
 each stage on the rows it declares it reads), at f64:
@@ -29,11 +31,21 @@ each stage on the rows it declares it reads), at f64:
   takes;
 * a plan with one level's lag a row short, or with the seam's rows left
   out, fails the model;
+* K8-T's plan (the inlet rows, the collision, streaming, the outlet rows
+  after it, psi formed with each state written, and the store of the last
+  level's rewritten rows) on the
+  SC_CASES rows at T = 2, 3 and 4, one and four rows a wave, against T
+  plain steps (<= 1e-12): SC periodic with a body force, velocity /
+  convective and pressure / pressure rows, EFS iso-8 MRT and iso-10, three
+  fluids, Peng-Robinson; its launch limit; a bf16 state decoded once and
+  encoded once; a plan with a level's collision a row short of its lag,
+  the seam's rows left out or the outlet rows rewritten a wave early fails
+  the model;
 * ``build.split_steps``, the rule by which a T-step call above one
   launch's limit runs as several launches.
 
 The kernels are held to the plain steps on a card by ``chip_smoke.py``
-phases 45, 48, 52, 54 and 72.
+phases 45, 46, 48, 52, 54 and 72.
 """
 
 import dataclasses
@@ -43,7 +55,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import PERT_BASE
+from chip_smoke import PERT_BASE, sc_case
 from openlbmpm_tpu import geometry as jgeo
 from openlbmpm_tpu.models import colorgradient as jcg
 from openlbmpm_torch.convert import params_from_jax
@@ -52,6 +64,7 @@ from openlbmpm_torch.kernels import build
 from openlbmpm_torch.kernels import csf as k
 from openlbmpm_torch.kernels import march2d as M2
 from openlbmpm_torch.kernels import march3d as M3
+from openlbmpm_torch.kernels import shanchen as ksc
 from openlbmpm_torch.kernels import transport as kt
 from openlbmpm_torch.models.colorgradient import (CGBoundaryConfig,
                                                   ColorGradientParams,
@@ -449,3 +462,98 @@ def test_chunked_calls_equal_plain_steps_on_cpu():
         w = mc.plain_step_c(w)
     assert _gap(tuple(kt.coupled_block_compressed(y0, mc, 10)),
                 tuple(w)) == 0.0
+
+
+# -- K8-T ---------------------------------------------------------------------
+
+SC_MARCH_CASES = ("sc_srt_periodic_body_force", "sc_srt_velocity_convective",
+                  "sc_srt_pressure_pressure", "efs8_mrt_velocity_convective",
+                  "efs10_srt_pressure_pressure", "sc_three_fluids",
+                  "sc_peng_robinson_one_fluid")
+
+
+def _sc_model(name, ny=40, nx=12, **kw):
+    """A ShanChenMCMP of SC_CASES' `name` on the CPU and its start with a
+    little noise, so that no two rows are alike."""
+    m, f = sc_case(name, CPU, ny=ny, nx=nx, **kw)
+    g = torch.Generator().manual_seed(len(name))
+    noise = 1 + 0.01 * torch.rand(f.shape, generator=g, dtype=f.dtype)
+    return m, f * noise
+
+
+def _sc_plan(m, t, rows_per_wave=4):
+    ny, nx = m.geo.shape
+    return M2.sc2d_march_plan((ny, nx), t, 8, *M2.sc_codes(m),
+                              rows_per_wave=rows_per_wave)
+
+
+@pytest.mark.parametrize("rows_per_wave", [1, 4])
+@pytest.mark.parametrize("t", [2, 3, 4])
+@pytest.mark.parametrize("name", SC_MARCH_CASES)
+def test_sc_march_model_matches_plain_steps(name, t, rows_per_wave):
+    """K8-T's plan, one and four rows a wave, run by its model equals T
+    plain steps at f64."""
+    m, f = _sc_model(name)
+    got = M2.sc2d_march_reference(f, m, t, _sc_plan(m, t, rows_per_wave))
+    want = ksc.sc_block_step_reference(f, m, t)
+    assert _gap(got, want) <= TOL
+
+
+@pytest.mark.parametrize("fault", ["lag", "seam", "outlet"])
+def test_sc_march_model_sees_schedule_faults(fault):
+    """A K8-T plan whose second level's collision trails one row too
+    little, whose load leaves out a row of the seam below 0, or whose last
+    outlet stage runs in the wave before the one its read of the streamed
+    rows asks for, gives the model wrong or NaN values."""
+    m, f = _sc_model("sc_srt_periodic_body_force" if fault == "seam" else
+                     "sc_srt_velocity_convective")
+    want = ksc.sc_block_step_reference(f, m, 2)
+    plan = _sc_plan(m, 2, rows_per_wave=1)
+    if fault == "lag":
+        st = next(s for s in plan.stages
+                  if s.kind == M3.COLLIDE and s.level == 1)
+        st.d -= 1
+    elif fault == "seam":
+        st = next(s for s in plan.stages if s.kind == M3.LOAD)
+        st.lo += 1
+    else:
+        st = [s for s in plan.stages if s.kind == M2.OUTLET][-1]
+        st.d -= 1
+    plan.waves = _rewave(plan)
+    got = M2.sc2d_march_reference(f, m, 2, plan)
+    assert not _gap(got, want) <= TOL
+
+
+def test_sc_plan_limit():
+    """K8-T's plan takes 3 rings a level and 2 stages (periodic, or an
+    inlet: one more stage), 4 (an inlet and an outlet) and the load and
+    store stages: its launch limit is the largest T that fits the
+    executor's tables (16 periodic or with an inlet, 15 with an outlet),
+    ``sc_block_max_steps`` gives it, and a T above it fails to plan."""
+    def sc(t, inlet, outlet):
+        return M2.sc2d_stages(64, t, 8, 2, 8, inlet, outlet)
+
+    for rows, want in (((0, 0), 16), ((1, 0), 16), ((1, 2), 15),
+                       ((1, 1), 15)):
+        t = M2.max_steps(lambda t: sc(t, *rows))
+        assert t == want, rows
+        st, ar = sc(t + 1, *rows)
+        assert len(st) > M3.MAX_STAGES or len(ar) > M3.MAX_RINGS
+    params = ksc.ScParams(ny=64, nx=8, k=2, order=8, inlet=1, outlet=2)
+    assert ksc.sc_block_max_steps(torch.float64, params) == 15
+    with pytest.raises(ValueError):
+        M2.sc2d_march_plan((64, 8), 16, 8, 2, 8, 1, 2)
+
+
+def test_sc_bf16_march_model_decodes_once():
+    """A bf16 state: decoded once, stepped in float32 by K8-T's plan model,
+    encoded once, as T plain steps in float32 between one decode and one
+    encode (the outlet rows of the last step land before the encoding)."""
+    m, f = _sc_model("sc_srt_velocity_convective", dtype=torch.float32,
+                     storage="bf16")
+    h = m.pack_state_bf16(f)
+    got = M2.sc2d_march_reference(h, m, 3, _sc_plan(m, 3))
+    want = ksc.sc_block_step_reference(h, m, 3)
+    assert got.dtype == torch.bfloat16
+    d = (m.unpack_bf16(got) - m.unpack_bf16(want)).abs()
+    assert float(d.max()) <= 1e-6
