@@ -2,7 +2,7 @@
 """Time the single-device kernels of this checkout against those of another
 checkout of the repository, in turns on one card.
 
-    python3 chip_ab.py OTHER_DIR [ROUNDS] [3d|2d|3dT|2dT|bits|sass|sass2d]
+    python3 chip_ab.py OTHER_DIR [ROUNDS] [3d|2d|2dcg|3dT|2dT|bits|sass|sass2d]
 
 Run from the repository root on a machine with a CUDA card and nvcc.
 OTHER_DIR holds another checkout (e.g. the parent commit, unpacked with
@@ -30,15 +30,21 @@ K9-Th and K9-Ts (configuration 5) at T = 2 and 4, and K11-T (basic3d) in
 f32 and bf16 at T = 2 and 4; "2dT" ms a time step of the 2-D colour-gradient T-step kernels at
 1024^2, the models of chip_smoke.py's phases 49 and 55: K3c, K3h and K3s
 of both variants (the CSF flagship and the Perturbation flagship) and
-K5c-Tc, K5c-Th and K5c-Ts (configuration 4) at T = 2 and 4; "bits" no
+K5c-Tc, K5c-Th and K5c-Ts (configuration 4) at T = 2 and 4; "2dcg" ms a
+step of the 2-D colour-gradient kernels at T = 1 at 1024^2: K1 (f32), K2
+(bf16) and K6 (split f32) on the CSF flagship, K4c, K4h and K4s on the
+Perturbation flagship, K5c (f32 and bf16 flow storage) and K5s on
+configuration 4; "bits" no
 times but whether the two checkouts' kernels give the same bits: K8, K10,
-K11 and K9t after 10 steps and K8-T and K11-T after two calls of T = 4 on
-this checkout's cases (chip_smoke.py's SC_KERNEL_CASES at 100 x 64,
-SC3D_CASES, SINGLE3D_CASES and CG3D_TRANSPORT_CASES but the grain pack) in
-f64, f32 and bf16, then K8 and K8-T in f64 and f32 and K10, K11 and K11-T
-in f32 with both checkouts' libraries built with -fmad=false, one line
-each with the largest |difference| of K8, K8-T, K10, K11 and K11-T between
-the checkouts (in float64; bf16 as stored);
+K11, K9t, K1 / K2 / K6 and K4c / K4h / K4s after 10 steps and K8-T and
+K11-T after two calls of T = 4 on this checkout's cases (chip_smoke.py's
+SC_KERNEL_CASES at 100 x 64, SC3D_CASES, SINGLE3D_CASES,
+CG3D_TRANSPORT_CASES but the grain pack, split_cases and the first four of
+PERT_CASES at 100 x 72) in f64, f32 and bf16, then K8, K8-T, K1 / K6 and
+K4c / K4s in f64 and f32 and K10, K11 and K11-T in f32 with both
+checkouts' libraries built with -fmad=false, one line each with the
+largest |difference| of those kernels between the checkouts (in float64;
+bf16 as stored);
 "sass" no times but each kernel of the 3-D one-step libraries and of the
 3-D single-phase and Shan-Chen T-step libraries (SASS_LIBS) as cuobjdump
 prints it from both checkouts' builds: its instructions (addresses and
@@ -184,6 +190,44 @@ out["K7-T T=4"] = cs._time_steps(
     lambda y: single.single_block_step(y, m, 4), f, 50, dev) / 4
 print(json.dumps({k: v * 1e3 for k, v in out.items()}))
 """
+TURN_2DCG = r"""
+import json, sys, torch
+import chip_smoke as cs
+from openlbmpm_torch.kernels import build, csf, transport
+build.load_libraries(("csf2d", "coupled2d", "pert2d"))
+dev = torch.device("cuda", 0)
+out = {}
+for variant, make, labels in (
+        ("CSF", cs.flagship_model, ("K1", "K2", "K6")),
+        ("Perturbation", cs.pert_flagship_model, ("K4c", "K4h", "K4s"))):
+    one_c = csf.csf_step_compressed if variant == "CSF" else \
+        csf.pert_step_compressed
+    one_s = csf.csf_step_split if variant == "CSF" else csf.pert_step_split
+    for label, storage in zip(labels, ("f32", "bf16", "split")):
+        m = make(dev, "bf16" if storage == "bf16" else "f32")
+        st = m.init_state_layers(1.0, 1.0, invading_rows=100)
+        if storage == "split":
+            x, fn = st, one_s
+        else:
+            x = m.pack_state_bf16(*st) if storage == "bf16" else \
+                m.pack_state(*st)
+            fn = one_c
+        out[label] = cs._time_steps(lambda y: fn(y, m), x, 300, dev)
+        del m, x, st
+for label, storage in (("K5c f32", "f32"), ("K5c bf16", "bf16"),
+                       ("K5s", "split")):
+    mt = cs.coupled_model(dev, "bf16" if storage == "bf16" else "f32",
+                          cs.CONFIG4_TRACER)
+    cst = cs.config4_state(mt)[0]
+    if storage == "split":
+        out[label] = cs._time_steps(mt.step, cst, 150, dev)
+    else:
+        out[label] = cs._time_steps(
+            lambda y: transport.coupled_step_compressed(*y, mt),
+            mt.pack(cst), 150, dev)
+    del mt, cst
+print(json.dumps({k: v * 1e3 for k, v in out.items()}))
+"""
 TURN_3DT = r"""
 import json, sys, torch
 import chip_smoke as cs
@@ -247,23 +291,27 @@ for (label, family, key, m, x, step1, kern, plain,
 print(json.dumps({k: v * 1e3 for k, v in out.items()}))
 """
 # "bits": the outputs of 10 steps of K10 (this checkout's SC3D_CASES), K11
-# (its SINGLE3D_CASES), K9t (its CG3D_TRANSPORT_CASES but the grain pack)
-# and K8 (its SC_KERNEL_CASES at 100 x 64) and of two calls of K11-T and
-# K8-T at T = 4 in f64, f32 and bf16, a SHA-256 each, and of K10, K11,
-# K11-T, K8 and K8-T in f32 (K8 and K8-T in f64 too) built with
-# -fmad=false (no a * b + c contracted into an FMA), so that equal hashes
-# show equal bits; the K10, K11, K11-T, K8 and K8-T states also go to a
-# file, so that the two checkouts' largest difference is printed
+# (its SINGLE3D_CASES), K9t (its CG3D_TRANSPORT_CASES but the grain pack),
+# K8 (its SC_KERNEL_CASES at 100 x 64), K1 / K2 / K6 (its split_cases) and
+# K4c / K4h / K4s (the first four PERT_CASES, both at 100 x 72) and of two
+# calls of K11-T and K8-T at T = 4 in f64, f32 and bf16, a SHA-256 each,
+# and of K10, K11, K11-T, K8, K8-T, K1 / K6 and K4c / K4s in f32 (K8, K8-T,
+# K1 / K6 and K4c / K4s in f64 too) built with -fmad=false (no a * b + c
+# contracted into an FMA), so that equal hashes show equal bits; the
+# states but K9t's also go to a file, so that the two checkouts' largest
+# difference is printed
 TURN_BITS = r"""
 import hashlib, importlib.util, json, sys, torch
 spec = importlib.util.spec_from_file_location("cases", sys.argv[1])
 cs = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(cs)
-from openlbmpm_torch.kernels import build, cg3d, flow3d, shanchen
+from openlbmpm_torch.kernels import build, cg3d, csf, flow3d, shanchen
+from openlbmpm_torch.models.colorgradient import (
+    CGBoundaryConfig, ColorGradientParams, ColorGradientRK)
 nofma = sys.argv[2] == "nofma"
 if nofma:
     for lib in ("flow3d_f32", "flow3d_block_f32", "sc2d_f64", "sc2d_f32",
-                "sc2d_block_f32"):
+                "sc2d_block_f32", "csf2d", "pert2d"):
         build.EXTRA_FLAGS[lib] = ("-fmad=false",)
 from openlbmpm_torch.models.flow3d import SinglePhaseD3Q19
 dev = torch.device("cuda", 0)
@@ -290,6 +338,33 @@ for dtype, storage in kinds:
                 x = fn(x, m)
             out[f"{fam} {tag} {name}"] = sha((x,))
             states[f"{fam} {tag} {name}"] = keep(x)
+    # the 2-D colour-gradient steps: K1 / K2 / K6 on split_cases, K4c /
+    # K4h / K4s on the first four Perturbation cases, 100 x 72
+    cg_cases = [(name, p, b, csf.csf_step_compressed, csf.csf_step_split,
+                 ("K1" if storage == "f32" else "K2", "K6"))
+                for name, (p, b) in cs.split_cases().items()]
+    for name in list(cs.PERT_CASES)[:4]:
+        pf, bf = cs.pert_fields(name)
+        cg_cases.append((name, ColorGradientParams(**pf),
+                         CGBoundaryConfig(**bf), csf.pert_step_compressed,
+                         csf.pert_step_split,
+                         ("K4c" if storage == "f32" else "K4h", "K4s")))
+    for name, p, b, one_c, one_s, fams in cg_cases:
+        m = ColorGradientRK(cs.walled(100, 72), p, b, dtype=dtype,
+                            device=dev, storage=storage)
+        st = m.init_state_layers(1.0, 1.0, invading_rows=20)
+        runs = []
+        if b.inlet != "neumann_per_color":
+            runs.append((fams[0], one_c, m.pack_state_bf16(*st)
+                         if storage == "bf16" else m.pack_state(*st)))
+        if storage != "bf16":
+            runs.append((fams[1], one_s, st))
+        for fam, fn, x in runs:
+            for _ in range(10):
+                x = fn(x, m)
+            xs = x if isinstance(x, tuple) else (x,)
+            out[f"{fam} {tag} {name}"] = sha(xs)
+            states[f"{fam} {tag} {name}"] = torch.cat([keep(y) for y in xs])
     if nofma and dtype == torch.float64:
         continue
     for name in cs.SC3D_CASES:
@@ -343,11 +418,16 @@ SASS2D_LIBS = ("csf2d", "coupled2d", "pert2d", "single2d_f32",
 # kernels this checkout renamed: (pattern of this checkout's name, the
 # other's name it replaces, from the pattern's groups: the storage type
 # and the collision): K11's push for march_kernel with one fluid, K11-T's
-# march for the brick-window kernel
+# march for the brick-window kernel, the 2-D colour-gradient strip marches
+# for collide_stream_kernel (K1 / K2 / K6) and pert_kernel (K4)
 RENAMED = ((r"^18single_push_kernelI(\w)Li(\d)EE",
             r"^12march_kernelI{0}Li{1}ELi1E"),
            (r"^21single3d_march_kernelI(\w+?)Li(\d)EE",
-            r"^19flow3d_block_kernelI{0}Li{1}ELi1E"))
+            r"^19flow3d_block_kernelI{0}Li{1}ELi1E"),
+           (r"^12strip_kernelI(\w+?)Li(\d)E",
+            r"^21collide_stream_kernelI{0}Li{1}E"),
+           (r"^17pert_strip_kernelI(\w+?)Li(\d)E",
+            r"^11pert_kernelI{0}Li{1}E"))
 TURN_SASS = r"""
 import json, re, subprocess, sys
 from openlbmpm_torch.kernels import build
@@ -381,7 +461,8 @@ for lib in libs:
                 for fn, c in code.items()}
 print(json.dumps(out))
 """
-TURNS = {"3d": TURN, "2d": TURN_2D, "3dT": TURN_3DT, "2dT": TURN_2DT,
+TURNS = {"3d": TURN, "2d": TURN_2D, "2dcg": TURN_2DCG, "3dT": TURN_3DT,
+         "2dT": TURN_2DT,
          "bits": TURN_BITS, "sass": TURN_SASS, "sass2d": TURN_SASS}
 
 

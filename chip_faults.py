@@ -8,7 +8,11 @@ profile), the D3Q19 Shan-Chen kernel (K10) under phases 36 and 37
 (benchmarks/probe_sc3d.py's configuration) and the Perturbation kernel
 (K4) under phase 41 (the pert flagship at 1024^2), and the D3Q19
 single-phase push (K11) under phase 33 (its f64 cases), the 2-D
-Shan-Chen push (K8) under phase 15 (its f64 cases); ten faults that
+Shan-Chen push (K8) under phase 15 (its f64 cases), the strip marches of
+the 2-D colour-gradient step (K1 / K2 / K6 under phase 3, K4 under phase
+40; the first output row of a step reads the row above it, carried in the
+post ring from the step before, from a stale slot, in the f64 pull) while
+phase 45 (K3, both variants) passes; ten faults that
 only the T-step kernels can show: the colour-gradient K3's row-march under
 phase 48 (the flagships at 1024^2 in f32) and phase 45 (its f64 cases;
 twice, once in the Perturbation variant's body),
@@ -80,9 +84,9 @@ forms rho, one slab short of a sub-step's reach below, and the local form of K8-
 2-D Shan-Chen step) finds its inlet band one global row off, each in its
 f64 instance:
 
-  none           the sources as they are: phases 4, 6, 11, 15, 20, 21,
-                 26, 29, 31, 33, 36, 37, 40, 41, 45-48, 52, 53, 58, 60,
-                 63, 67, 68, 70, 72 must pass;
+  none           the sources as they are: phases 3, 4, 6, 11, 15, 20,
+                 21, 26, 29, 31, 33, 36, 37, 40, 41, 45-48, 52, 53, 58,
+                 60, 63, 67, 68, 70, 72 must pass;
   f32            cg3d.cuh, float32 storage (K9c f32, K9s f32): phase 21;
   bf16           cg3d.cuh, bfloat16 storage (K9h): phase 21;
   tracer f32     cg3d.cuh, float32 storage (K9t f32): phase 26;
@@ -129,7 +133,12 @@ f64 instance:
                  phase 36 (K10) passes;
   K12c inlet row sc2d_block.cuh, the local instances, float64 storage:
                  phase 70 must fail, phase 46 (K8-T, the same body's
-                 single-device instances) passes.
+                 single-device instances) passes;
+  K1 strip carry f64  csf2d.cuh (strip_kernel's pull), float64 storage:
+                 phase 3 must fail, phase 45 (K3) passes;
+  K4 strip carry f64  pert2d.cu (pert_strip_kernel's pull), float64
+                 storage: phase 40 must fail, phase 45 (the Perturbation
+                 K3's march) passes.
 
 Prints one line per case with the failed checks and the gaps, and exits 0
 only when every case behaves as stated.
@@ -240,6 +249,15 @@ K12E_FAULT = ("  const int c0 = BOX ? R.z0 - 1 + (sizeof(S) == {size}) : 0, "
 K12C_LINE = "            if (wrap(oy + ly, ny) == row && FL[c]) {"
 K12C_FAULT = ("            if (wrap(oy + ly + (sizeof(S) == {size}), ny) == "
               "row && FL[c]) {{")
+# the strip marches' pull (csf2d.cuh's strip_kernel, pert2d.cu's
+# pert_strip_kernel; the same line in both): the first output row of a step
+# reads the row above it, which the step before formed and the post ring
+# carried, from the slot of the row two above (since overwritten)
+STRIP_LINE = ("      auto q = [&](int dy, int dx) { return slot(r + dy, R::QR) "
+              "* R::QW + lx + dx; };")
+STRIP_FAULT = ("      auto q = [&](int dy, int dx) {{ return slot(r + dy - "
+               "(sizeof(C) == {size} && ty == 0 && dy < 0), R::QR) * R::QW + "
+               "lx + dx; }};")
 K7T_FAULT = ("      if ((P.inlet != 0 || P.outlet != 0) && "
              "(sub == 0 || sizeof(S) != {size})) {{")
 # name -> (source, line, fault, phases that must fail)
@@ -290,6 +308,10 @@ CASES = {
                        K12E_FAULT.format(size=8), ("68",)),
     "K12c inlet row": ("sc2d_block.cuh", K12C_LINE,
                        K12C_FAULT.format(size=8), ("70",)),
+    "K1 strip carry f64": ("csf2d.cuh", STRIP_LINE,
+                           STRIP_FAULT.format(size=8), ("3",)),
+    "K4 strip carry f64": ("pert2d.cu", STRIP_LINE,
+                           STRIP_FAULT.format(size=8), ("40",)),
 }
 # name -> the T=1 phases of the same family that must pass the T-step
 # faults (the T=1 kernels do not run the changed line)
@@ -302,9 +324,11 @@ MUST_PASS = {"K3 bc once": ("4", "41"), "K3 march trigger": ("4", "41"),
              "K11 push target f64": ("36", "53"),
              "K9-T march z": ("20", "21"), "K8 rt tau": ("15",),
              "K12 row0": ("45",), "K12d slab index": ("20", "21"),
-             "K12e rho short": ("36",), "K12c inlet row": ("46",)}
+             "K12e rho short": ("36",), "K12c inlet row": ("46",),
+             "K1 strip carry f64": ("45",), "K4 strip carry f64": ("45",)}
 # the phases of the unchanged sources
-ALL_PHASES = ("4", "6", "11", "15", "20", "21", "26", "29", "31", "33", "36",
+ALL_PHASES = ("3", "4", "6", "11", "15", "20", "21", "26", "29", "31", "33",
+              "36",
               "37", "40", "41", "45", "46", "47", "48", "52", "53", "58", "60",
               "63", "67", "68", "70", "72")
 
@@ -333,6 +357,9 @@ for phase in sys.argv[1:]:
             res = SIMPLE[phase](device)
             out[phase] = {"max": max(max(v) if isinstance(v, tuple) else v
                                      for v in res.values())}
+            continue
+        elif phase == "3":
+            out[phase] = cs.phase_f64(device)
             continue
         elif phase == "20":
             res = cs.phase_cg3d_f64(device)

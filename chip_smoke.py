@@ -23,7 +23,8 @@ toolkit (nvcc) and PyTorch built for CUDA; JAX is not needed.  Phases:
      values >= 1e-4 off at all, a check that a round-toward-zero or
      dropped-lo encoding of the plain result is shown to fail);
   5. the flow's main path: ``run_chunked(model.step_c, ...)`` for 1000 bf16
-     steps with the NaN guard, the kernel's launch count checked, then MLUPS
+     steps with the NaN guard, the kernel's launch count checked (and the
+     library's own count: one strip_kernel a step, nothing else), then MLUPS
      of kernel (f32, bf16) and plain path (f32, bf16), and each CUDA
      kernel's device time per launch from ``torch.profiler``;
   6. f64: the coupled flow + tracer kernels against their plain version,
@@ -40,7 +41,9 @@ toolkit (nvcc) and PyTorch built for CUDA; JAX is not needed.  Phases:
      everything finite, concentrations >= -1e-4;
   8. the coupled main path: ``run_chunked(model.step_c, (s, g), ...)`` at
      config 4 with bf16 flow storage for 500 steps with the NaN guard, the
-     coupled launch count checked, then MLUPS of kernel (f32, bf16) and
+     coupled launch count checked (the library's: five launches a step, the
+     tracer's four passes and the flow's strip_kernel), then MLUPS of
+     kernel (f32, bf16) and
      plain path (f32, bf16), the roofline share, and each CUDA kernel's
      device time per launch;
   9. f64: the split (f_r, f_b) CSF kernel against its plain version, 20
@@ -59,7 +62,8 @@ toolkit (nvcc) and PyTorch built for CUDA; JAX is not needed.  Phases:
      f32 steps, then ``--model transport --block 1`` (phase 56 drives its
      T-step kernel) with configs/transportsetup.ini
      and that INI as the flow config for 500 steps; the split kernels'
-     launch counts must rise by exactly the step counts, the final states
+     launch counts must rise by exactly the step counts (the libraries'
+     counts a step: K6 one launch, K5s five), the final states
      must be finite, and the MLUPS of metrics.jsonl are printed (they
      include each output step's I/O);
  13. split f32 at 1024^2: MLUPS of the split CSF kernel and its plain path
@@ -203,7 +207,8 @@ toolkit (nvcc) and PyTorch built for CUDA; JAX is not needed.  Phases:
      ``run_chunked(step_c)`` on K4c, its red mass growing by |v_in| x the
      fluid inlet columns a step within 5%;
  43. the main paths: ``run_chunked(step_c)`` for 1000 bf16 steps (K4h once
-     a step), ``run --model cg --block 1`` on rk_csf2d.ini at 1024^2 with
+     a step, by the wrapper's count and the library's), ``run --model cg
+     --block 1`` on rk_csf2d.ini at 1024^2 with
      SurfaceTensionType 'Perturbation' for 1000 steps (K4s once a step, a
      finite split checkpoint), and a short run with the averaged convective
      outlet (path "plain", no launch);
@@ -470,10 +475,22 @@ def poiseuille_error(profile, g: float, nu: float) -> float:
     return float(np.abs(u[1:-1] - ana).max() / np.abs(ana).max())
 
 
-def phase_f64(device, ny=256, nx=128, steps=20, tol=1e-11):
-    """Kernel vs plain at f64 on the golden setup scaled up."""
+def phase_f64(device, ny=256, nx=128, steps=20, tol=1e-11, xu_tol=1e-6):
+    """Kernel vs plain at f64 on the golden setup scaled up (K1), within
+    `tol`, then on a periodic porous mask (30% random solid cells, one-cell
+    slivers among them) with Xu wetting (wetting_type 1) and a droplet, in
+    the compressed (K1) and split (K6) layouts, within `xu_tol`: {case: max
+    |diff| over `steps` steps}.  Xu wetting makes a unit normal of any
+    nonzero gradient, so one-ulp differences near solids grow: phi extended
+    onto solid cells as num times the reciprocal of den, not num / den,
+    opens about 2e-5 here; the kernels open 5.8e-8 (the csf2d library's f64
+    instances contract a * b + c into FMAs, the suspected cause: ROADMAP.md
+    section 3)."""
+    import dataclasses
+    from openlbmpm_torch import geometry
     from openlbmpm_torch.kernels.csf import (
-        csf_step_compressed, csf_step_compressed_reference)
+        csf_step_compressed, csf_step_compressed_reference, csf_step_split,
+        csf_step_split_reference)
     from openlbmpm_torch.models.colorgradient import (
         CGBoundaryConfig, ColorGradientParams, ColorGradientRK)
     params = ColorGradientParams(
@@ -486,14 +503,34 @@ def phase_f64(device, ny=256, nx=128, steps=20, tol=1e-11):
                         device=device)
     a = m.pack_state(*m.init_state_layers(1.0, 1.0, invading_rows=ny // 5))
     b = a.clone()
-    err = 0.0
+    res = {"channel": 0.0}
     for _ in range(steps):
         a = csf_step_compressed(a, m)
         b = csf_step_compressed_reference(b, m)
-        err = max(err, float((a - b).abs().max()))
+        res["channel"] = max(res["channel"], float((a - b).abs().max()))
     check(bool(torch.isfinite(a).all()), "f64 kernel state not finite")
-    check(err <= tol, f"f64 kernel vs plain {err:.3e} > {tol:g}")
-    return err
+    solid = np.random.default_rng(3).random((96, 64)) < 0.3
+    m = ColorGradientRK(geometry.from_solid_mask(solid), dataclasses.replace(
+        params, wetting_type=1), CGBoundaryConfig(), dtype=torch.float64,
+        device=device)
+    check(m.path == "kernel", "Xu porous: not on the kernel")
+    split = m.init_state_droplet(1.0, 1.0, radius=20.0)
+    for case, x, step, plain in (
+            ("Xu porous K1", m.pack_state(*split), csf_step_compressed,
+             csf_step_compressed_reference),
+            ("Xu porous K6", split, csf_step_split, csf_step_split_reference)):
+        a = b = x
+        res[case] = 0.0
+        for _ in range(steps):
+            a, b = step(a, m), plain(b, m)
+            res[case] = max(res[case], *(
+                float((u - v).abs().max()) for u, v in
+                (zip(a, b) if isinstance(a, tuple) else [(a, b)])))
+    for case, err in res.items():
+        bound = xu_tol if case.startswith("Xu") else tol
+        check(err <= bound, f"f64 {case}: kernel vs plain {err:.3e} > "
+              f"{bound:g}")
+    return res
 
 
 def seam_masks(ny, nx, steps, device):
@@ -642,21 +679,26 @@ def phase_main(device, n=FLAGSHIP_N, steps=MAIN_STEPS, kernel_steps=500,
     from openlbmpm_torch.models.base import RunMetrics, run_chunked
     m32 = flagship_model(device, "f32", n=n)
     csf_step_compressed.launches = 0
+    counts = cg2d_counts("csf2d")
     s32 = run_chunked(m32.step_c, m32.pack_state(*m32.init_state_layers(
         1.0, 1.0, invading_rows=100 * n // 1024)), num_steps=steps // 4,
         io_interval=250, nan_guard=True)
     launches32 = csf_step_compressed.launches
     check(launches32 == steps // 4 and bool(torch.isfinite(s32).all()),
           f"f32 main path: {launches32} launches, want {steps // 4}")
+    per32 = cg2d_launches_a_step("csf2d", counts, steps // 4,
+                                 "K1 main path")
     m = flagship_model(device, "bf16", n=n)
     s = m.pack_state_bf16(*m.init_state_layers(1.0, 1.0,
                                                invading_rows=100 * n // 1024))
     meter = RunMetrics(n * n)
     csf_step_compressed.launches = 0
+    counts = cg2d_counts("csf2d")
     s = run_chunked(m.step_c, s, num_steps=steps, io_interval=500,
                     metrics=meter, nan_guard=True)
     launches = csf_step_compressed.launches
     check(launches == steps, f"kernel launched {launches} times, want {steps}")
+    per = cg2d_launches_a_step("csf2d", counts, steps, "K2 main path")
     u = m.unpack_bf16(s)
     check(bool(torch.isfinite(u).all()), "main path state not finite")
     check(tuple(s.shape) == (11, n, n) and s.dtype == torch.bfloat16,
@@ -675,7 +717,8 @@ def phase_main(device, n=FLAGSHIP_N, steps=MAIN_STEPS, kernel_steps=500,
             states[st], KERNELS)
         profile.update({(st, k): v for k, v in times.items()})
     return {"launches": launches, "launches_f32": launches32,
-            "run_mlups": meter.mlups, "sec": runs, "profile": profile}
+            "run_mlups": meter.mlups, "sec": runs, "profile": profile,
+            "per_step": per, "per_step_f32": per32}
 
 
 def time_paths(models, states, kernel, plain, kernel_steps, plain_steps,
@@ -695,11 +738,41 @@ def time_paths(models, states, kernel, plain, kernel_steps, plain_steps,
     return runs
 
 
-KERNELS = ("phase_kernel", "normal_kernel", "collide_stream_kernel")
-# the coupled step's kernels (phase and normal run twice a step: before
-# and after the flow's boundary rows)
+KERNELS = ("strip_kernel",)
+# the coupled step's kernels (phase and normal on the state before the
+# flow's boundary rows, for the tracer; the flow step is strip_kernel)
 COUPLED_KERNELS = ("phase_kernel", "normal_kernel", "tracer_collide_kernel",
-                   "tracer_stream_kernel", "collide_stream_kernel")
+                   "tracer_stream_kernel", "strip_kernel")
+# each one-step 2-D colour-gradient library's kernels a step, once each, by
+# the library's own count (csf.kernel_launches): K1 / K2 / K6 one launch,
+# K5c / K5s five, K4 one
+CG2D_STEP_KERNELS = {
+    "csf2d": ("strip_kernel",),
+    "coupled2d": ("phase_kernel", "normal_kernel", "tracer_collide_kernel",
+                  "tracer_stream_kernel", "strip_kernel"),
+    "pert2d": ("pert_strip_kernel",)}
+
+
+def cg2d_counts(lib):
+    """A one-step 2-D colour-gradient library's launch counts."""
+    from openlbmpm_torch.kernels.csf import kernel_launches
+    return kernel_launches(lib)
+
+
+def cg2d_launches_a_step(lib, before, steps, what):
+    """{kernel: launches a step} of `lib` since the counts `before` over
+    `steps` steps, checked against CG2D_STEP_KERNELS (the pert2d_f64 library
+    as pert2d)."""
+    per = per_step(before, cg2d_counts(lib), steps)
+    want = CG2D_STEP_KERNELS[lib.replace("_f64", "")]
+    check(all(v == (k in want) for k, v in per.items()),
+          f"{what}: {lib} launches a step {per}, want {want} once each")
+    return per
+
+
+def _fmt_counts(per):
+    return ", ".join(f"{k} {v:g}" for k, v in per.items() if v) + \
+        f" (total {sum(per.values()):g})"
 
 
 def device_times(step, x, names, steps=100):
@@ -776,7 +849,8 @@ def phase5_lines(main_res, card, t_build, n=FLAGSHIP_N):
     mlups = {k: n * n / v / 1e6 for k, v in main_res["sec"].items()}
     return [
         f"phase 5 main path: run_chunked(step_c) {MAIN_STEPS} bf16 steps, "
-        f"{main_res['launches']} kernel launches, "
+        f"{main_res['launches']} kernel launches (the library's count a "
+        f"step: {_fmt_counts(main_res['per_step'])}), "
         f"{main_res['run_mlups']:.1f} MLUPS incl. host loop; "
         f"{MAIN_STEPS // 4} f32 steps, {main_res['launches_f32']} launches "
         f"[{card}]",
@@ -1011,9 +1085,12 @@ def phase_coupled_main(device, n=FLAGSHIP_N, steps=COUPLED_STEPS,
     st, mass0 = config4_state(m, n)
     meter = RunMetrics(n * n)
     coupled_step_compressed.launches = 0
+    counts = cg2d_counts("coupled2d")
     s, g = run_chunked(m.step_c, m.pack(st), num_steps=steps,
                        io_interval=250, metrics=meter, nan_guard=True)
     launches = coupled_step_compressed.launches
+    per = cg2d_launches_a_step("coupled2d", counts, steps,
+                               "K5c main path")
     check(launches == steps,
           f"coupled kernel launched {launches} times, want {steps}")
     check(tuple(s.shape) == (11, n, n) and s.dtype == torch.bfloat16 and
@@ -1044,7 +1121,8 @@ def phase_coupled_main(device, n=FLAGSHIP_N, steps=COUPLED_STEPS,
                              states[st_], COUPLED_KERNELS)
         profile.update({(st_, k): v for k, v in times.items()})
     return {"launches": launches, "run_mlups": meter.mlups, "sec": runs,
-            "drift": drift, "conc_min": conc_min, "profile": profile}
+            "drift": drift, "conc_min": conc_min, "profile": profile,
+            "per_step": per}
 
 
 def phase6_line(res) -> str:
@@ -1073,7 +1151,8 @@ def phase8_lines(res, card, n=FLAGSHIP_N):
             res["sec"][("kernel", st)] for st in ("f32", "bf16")}
     return [
         f"phase 8 coupled main path: run_chunked(step_c) {COUPLED_STEPS} "
-        f"bf16 steps, {res['launches']} coupled launches, "
+        f"bf16 steps, {res['launches']} coupled launches (the library's "
+        f"count a step: {_fmt_counts(res['per_step'])}), "
         f"{res['run_mlups']:.1f} MLUPS incl. host loop, tracer mass drift "
         f"{res['drift']:.2e}, conc min {res['conc_min']:.2e}; [{card}]",
         f"phase 8 coupled MLUPS {n}^2 flow + tracer [{card}]: kernel f32 "
@@ -1246,11 +1325,14 @@ def phase_cli(device, n=FLAGSHIP_N, cg_steps=1000, tr_steps=500):
         _mini_ini(os.path.join(root, "configs", "rk_csf2d.ini"), ini, n, 500)
         out = os.path.join(tmp, "cg")
         csf_step_split.launches = 0
+        counts = cg2d_counts("csf2d")
         t0 = time.perf_counter()
         rc = cli.main(["run", ini, "--model", "cg", "--steps", str(cg_steps),
                        "--output", out, "--device", "cuda", "--block", "1"])
         res["cg_sec"] = time.perf_counter() - t0
         res["cg_launches"] = csf_step_split.launches
+        res["cg_per_step"] = cg2d_launches_a_step("csf2d", counts, cg_steps,
+                                                  "cli cg (K6)")
         check(rc == 0, f"cli run --model cg returned {rc}")
         check(res["cg_launches"] == cg_steps, f"cli cg: split kernel launched "
               f"{res['cg_launches']} times, want {cg_steps}")
@@ -1268,6 +1350,7 @@ def phase_cli(device, n=FLAGSHIP_N, cg_steps=1000, tr_steps=500):
 
         out = os.path.join(tmp, "transport")
         coupled_step_split.launches = 0
+        counts = cg2d_counts("coupled2d")
         t0 = time.perf_counter()
         rc = cli.main(["run", os.path.join(root, "configs",
                                            "transportsetup.ini"),
@@ -1276,6 +1359,8 @@ def phase_cli(device, n=FLAGSHIP_N, cg_steps=1000, tr_steps=500):
                        "--device", "cuda", "--block", "1"])
         res["tr_sec"] = time.perf_counter() - t0
         res["tr_launches"] = coupled_step_split.launches
+        res["tr_per_step"] = cg2d_launches_a_step(
+            "coupled2d", counts, tr_steps, "cli transport (K5s)")
         check(rc == 0, f"cli run --model transport returned {rc}")
         check(res["tr_launches"] == tr_steps, f"cli transport: split coupled "
               f"kernels launched {res['tr_launches']} times, want {tr_steps}")
@@ -1517,10 +1602,12 @@ def phase9_13_lines(r9, r10, r11, r12, r13, card, n=FLAGSHIP_N):
         " (<= 1e-11)",
         f"phase 12 cli run --model cg, {r12['cg_shape'][0]}x"
         f"{r12['cg_shape'][1]} ({cg_cells} cells), 1000 f32 steps: "
-        f"{r12['cg_launches']} split kernel launches, {r12['cg_sec']:.2f} s "
+        f"{r12['cg_launches']} split kernel launches (the library's count "
+        f"a step: {_fmt_counts(r12['cg_per_step'])}), {r12['cg_sec']:.2f} s "
         f"with I/O, metrics.jsonl MLUPS {r12['cg_mlups']} [{card}]",
         f"phase 12 cli run --model transport, same domain, 500 f32 steps: "
-        f"{r12['tr_launches']} split coupled launches, {r12['tr_sec']:.2f} s "
+        f"{r12['tr_launches']} split coupled launches (the library's count "
+        f"a step: {_fmt_counts(r12['tr_per_step'])}), {r12['tr_sec']:.2f} s "
         f"with I/O, tracer0 mass {r12['tr_mass']:.6g}, metrics.jsonl MLUPS "
         f"{r12['tr_mlups']} [{card}]",
         f"phase 13 split f32 MLUPS {n}^2 [{card}]: flow kernel "
@@ -4115,9 +4202,12 @@ def phase_pert_physics(device, n=FLAGSHIP_N, laplace_steps=2000,
     cols = int(m.is_fluid[n - 2].sum())
     want = abs(m.bcs.inlet_velocity) * cols
     pert_step_compressed.launches = 0
+    counts = cg2d_counts("pert2d")
     s = run_chunked(m.step_c, s0, num_steps=steps, io_interval=steps,
                     nan_guard=True)
     res["launches_f32"] = pert_step_compressed.launches
+    res["per_step"] = cg2d_launches_a_step("pert2d", counts, steps,
+                                           "K4c flagship f32")
     check(res["launches_f32"] == steps, f"pert flagship f32: "
           f"{res['launches_f32']} K4c launches, want {steps}")
     check(bool(torch.isfinite(s).all()), "pert flagship f32: not finite")
@@ -4155,9 +4245,12 @@ def phase_pert_main(device, n=FLAGSHIP_N, steps=MAIN_STEPS, cli_steps=1000):
         1.0, 1.0, invading_rows=100 * n // 1024))
     meter = RunMetrics(n * n)
     pert_step_compressed.launches = 0
+    counts = cg2d_counts("pert2d")
     s = run_chunked(m.step_c, s, num_steps=steps, io_interval=500,
                     metrics=meter, nan_guard=True)
     res["launches_bf16"] = pert_step_compressed.launches
+    res["per_step"] = cg2d_launches_a_step("pert2d", counts, steps,
+                                           "K4h main path")
     res["run_mlups"] = meter.mlups
     check(res["launches_bf16"] == steps and s.dtype == torch.bfloat16 and
           bool(torch.isfinite(m.unpack_bf16(s)).all()),
@@ -4171,6 +4264,7 @@ def phase_pert_main(device, n=FLAGSHIP_N, steps=MAIN_STEPS, cli_steps=1000):
             "SurfaceTensionType": "'Perturbation'"})
         out = os.path.join(tmp, "cg")
         pert_step_split.launches = 0
+        counts = cg2d_counts("pert2d")
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(io.StringIO()) as text:
             rc = cli.main(["run", ini, "--model", "cg", "--steps",
@@ -4178,6 +4272,8 @@ def phase_pert_main(device, n=FLAGSHIP_N, steps=MAIN_STEPS, cli_steps=1000):
                            device.type, "--block", "1"])
         res["cli_sec"] = time.perf_counter() - t0
         res["cli_launches"] = pert_step_split.launches
+        res["cli_per_step"] = cg2d_launches_a_step(
+            "pert2d", counts, cli_steps, "cli pert (K4s)")
         check(rc == 0 and "variant Perturbation" in text.getvalue() and
               "the kernel step" in text.getvalue(),
               f"cli pert: rc {rc}, {text.getvalue()[:300]}")
@@ -4247,8 +4343,8 @@ def phase_pert_speed(device, n=FLAGSHIP_N, kernel_steps=500, plain_steps=20):
         best = time_pair(kern, plain, x, kernel_steps, plain_steps, device)
         res["sec"][key] = best["kernel"]
         res["sec"][f"plain_{key}"] = best["plain"]
-        res["profile"][key] = device_times(launch, x, ("pert_kernel",))[
-            "pert_kernel"]
+        res["profile"][key] = device_times(launch, x, (
+            "pert_strip_kernel",))["pert_strip_kernel"]
     res["mlups"] = {k: n * n / v / 1e6 for k, v in res["sec"].items()}
     res["roof"] = {k: PERT_BYTES[k] * n * n / HBM_BYTES_PER_S /
                    res["sec"][k] for k in PERT_BYTES}
@@ -4282,13 +4378,16 @@ def phase40_44_lines(r40, r41, r42, r43, r44, card, n=FLAGSHIP_N):
             f"{k} {v[0]}, {v[1]}, {v[2]:.4e}" for k, v in r42.items()
             if k in ("float32", "float64")) +
         f"; pert flagship 1000 f32 steps on K4c ({r42['launches_f32']} "
-        f"launches): red mass {rate:.6g} a step (plain {rate_p:.6g}), "
+        f"launches; the library's count a step: "
+        f"{_fmt_counts(r42['per_step'])}): red mass {rate:.6g} a step (plain {rate_p:.6g}), "
         f"|v_in| x columns {want:.6g}, ratio {rate / want:.4f} [{card}]",
         f"phase 43 main path: run_chunked(step_c) {MAIN_STEPS} bf16 steps, "
-        f"{r43['launches_bf16']} K4h launches, {r43['run_mlups']:.1f} MLUPS "
+        f"{r43['launches_bf16']} K4h launches (the library's count a step: "
+        f"{_fmt_counts(r43['per_step'])}), {r43['run_mlups']:.1f} MLUPS "
         f"incl. host loop; cli run --model cg Perturbation "
         f"{r43['cli_shape'][0]}x{r43['cli_shape'][1]} ({cells} cells), 1000 "
-        f"f32 steps: {r43['cli_launches']} K4s launches, "
+        f"f32 steps: {r43['cli_launches']} K4s launches ("
+        f"{_fmt_counts(r43['cli_per_step'])}), "
         f"{r43['cli_sec']:.2f} s with I/O, metrics.jsonl MLUPS "
         f"{r43['cli_mlups']}; AverageConvective: {r43['avg_line']} [{card}]",
         f"phase 44 K4 {n}^2 [{card}]: MLUPS (ms a step) " + ", ".join(
@@ -4305,7 +4404,8 @@ def phase40_44_lines(r40, r41, r42, r43, r44, card, n=FLAGSHIP_N):
 
 # kernels whose first integer template argument is the state layout
 LAYOUT_KERNELS = ("phase_kernel", "collide_stream_kernel",
-                  "tracer_collide_kernel", "bc_kernel", "pert_kernel")
+                  "tracer_collide_kernel", "bc_kernel", "strip_kernel",
+                  "pert_strip_kernel")
 
 
 def ptxas_summary(log: str, sc: bool = False) -> str:
@@ -4319,13 +4419,14 @@ def ptxas_summary(log: str, sc: bool = False) -> str:
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
             mangled = m.group(1)
-            base = next((k for k in COUPLED_KERNELS + SC_KERNELS +
+            base = next((k for k in ("pert_strip_kernel",) +
+                         COUPLED_KERNELS + SC_KERNELS +
                          TRANSPORT3D_KERNELS + ("single3d_march_kernel",
                                                 "sc3d_march_kernel") +
                          FLOW3D_KERNELS +
                          tuple(BLOCK_KERNEL_NAMES.values()) +
                          MARCH2D_KERNEL_NAMES +
-                         ("bc_rows_kernel", "pert_kernel") if k in mangled),
+                         ("bc_rows_kernel",) if k in mangled),
                         mangled)
             args = mangled.split(base)[-1]
             kind = ("bf16" if "bfloat16" in mangled else
@@ -7836,9 +7937,11 @@ def main() -> int:
         print(f"phase 2 ptxas {lib}: "
               f"{build_report(build, lib, lib in raw_ints)}")
 
-    err64 = phase_f64(device)
-    print(f"phase 3 f64 kernel vs plain, 256x128, 20 steps: max |diff| "
-          f"{err64:.3e} (<= 1e-11)")
+    r3 = phase_f64(device)
+    print(f"phase 3 f64 kernel vs plain, 20 steps, max |diff|: 256x128 "
+          f"channel {r3['channel']:.3e} (<= 1e-11); 96x64 porous mask, Xu "
+          f"wetting, droplet: K1 {r3['Xu porous K1']:.3e}, K6 "
+          f"{r3['Xu porous K6']:.3e} (<= 1e-6)")
 
     res = phase_flagship(device)
     print(phase4_line(res))
@@ -8038,25 +8141,30 @@ def main() -> int:
         "csf_step_compressed", "K2", "openlbmpm_torch/csrc/csf2d.cu", csf,
         main_res["launches"], res["bf16"]["max"],
         main_res["sec"][("kernel", "bf16")], main_res["sec"][("plain", "bf16")],
-        KERNEL_BYTES["K2"], KERNEL_FLOPS["K2"], n2), kernel_entry(
+        KERNEL_BYTES["K2"], KERNEL_FLOPS["K2"], n2,
+        launches_a_step=sum(main_res["per_step"].values())), kernel_entry(
         "coupled_step_compressed", "K5c", "openlbmpm_torch/csrc/coupled2d.cu",
         f"{csf} (transport_params)", res8["launches"], res7["bf16"]["max"],
         res8["sec"][("kernel", "bf16")], res8["sec"][("plain", "bf16")],
-        KERNEL_BYTES["K5c"], KERNEL_FLOPS["K5c"], n2), kernel_entry(
+        KERNEL_BYTES["K5c"], KERNEL_FLOPS["K5c"], n2,
+        launches_a_step=sum(res8["per_step"].values())), kernel_entry(
         "csf_step_compressed_f32", "K1", "openlbmpm_torch/csrc/csf2d.cu",
         f"{csf} (storage='f32')", main_res["launches_f32"], res["f32"]["max"],
         main_res["sec"][("kernel", "f32")], main_res["sec"][("plain", "f32")],
-        KERNEL_BYTES["K1"], KERNEL_FLOPS["K1"], n2), kernel_entry(
+        KERNEL_BYTES["K1"], KERNEL_FLOPS["K1"], n2,
+        launches_a_step=sum(main_res["per_step_f32"].values())), kernel_entry(
         "csf_step_split", "K6", "openlbmpm_torch/csrc/csf2d.cu",
         f"{csf} (state_mode='split')", r12["cg_launches"],
         r14["flagship"]["max"], r13["flow"]["kernel"], r13["flow"]["plain"],
         KERNEL_BYTES["K6"], KERNEL_FLOPS["K6"], n2,
-        max_abs_err_f64=max(r9.values())), kernel_entry(
+        max_abs_err_f64=max(r9.values()),
+        launches_a_step=sum(r12["cg_per_step"].values())), kernel_entry(
         "coupled_step_split", "K5s", "openlbmpm_torch/csrc/coupled2d.cu",
         f"{csf} (transport_params, state_mode='split')", r12["tr_launches"],
         r14["config4"]["max"], r13["coupled"]["kernel"],
         r13["coupled"]["plain"], KERNEL_BYTES["K5s"], KERNEL_FLOPS["K5s"], n2,
-        max_abs_err_f64=max(max(v) for v in r11.values()))]
+        max_abs_err_f64=max(max(v) for v in r11.values()),
+        launches_a_step=sum(r12["tr_per_step"].values()))]
     sc_src = "openlbmpm_torch/csrc/sc2d.cuh"
     for entry, cfg, scheme in (("sc_step", "config2", "sc"),
                                ("sc_step_efs", "config3", "efs")):
@@ -8170,7 +8278,9 @@ def main() -> int:
             f"{csf} (variant='Perturbation', {extra})", launches,
             r41[key]["max"], r44["sec"][key], r44["sec"][f"plain_{key}"],
             PERT_BYTES[key], PERT_FLOPS[key], n2, max_abs_err_f64=f64,
-            mlups=r44["mlups"][key]))
+            mlups=r44["mlups"][key], launches_a_step=sum(
+                {"f32": r42["per_step"], "bf16": r43["per_step"],
+                 "split": r43["cli_per_step"]}[key].values())))
     entries += block_entries(r45, r46, r47, r48, r49, r50)
     entries += block3_entries(r52, r53, r54, r55, r56)
     entries += phase58_62_entries(r58, r60, r61, r62)

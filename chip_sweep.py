@@ -2,7 +2,7 @@
 """Sweep the z-march's knobs (K10-T and K9-T, ``csrc/march3d.cuh``) on a
 card and cost its stages; sweep K9's tiles; sweep the 2-D row-march.
 
-    python3 chip_sweep.py [knobs|stages|2dT|k8|k8t|k9|k10|k11|all] [TAG ...]
+    python3 chip_sweep.py [knobs|stages|2dT|2dcg|k8|k8t|k9|k10|k11|all] [TAG ...]
 
 Run from the repository root on a machine with a CUDA card and nvcc.
 "knobs": ms a time step at 128^3 in f32 of K10-T (probe_sc3d, K = 2) and
@@ -59,8 +59,14 @@ two rounds.
 "k8t": K8-T (``csrc/sc2d_march.cuh``) at 1024^2 (config 2 f32 and bf16,
 config 3 f32) at T = 2 and 4 over rows a wave (96-1024) and the blocks an
 SM the march asks ptxas for (1-4: K8T_EDITS), with the rings' MB, then
-with one stage kind's body skipped.  TAGs after "k8", "k8t", "k9", "k10"
-or "k11" keep only those variants.  The modes patch copies of
+with one stage kind's body skipped.
+"2dcg": the T = 1 strip marches of K1, K2, K6 (``csrc/csf2d.cuh``) and
+K4c, K4h, K4s (``csrc/pert2d.cu``) at 1024^2 on both flagships, ms a step
+over CG2D_EDITS (rows of a run, rows a step, threads a block, blocks an SM,
+one stage's body skipped), two
+rounds, and each wrapper's host microseconds a call beside its device
+microseconds a step.  TAGs after "2dcg", "k8", "k8t", "k9", "k10" or "k11"
+keep only those variants.  The modes patch copies of
 ``openlbmpm_torch/csrc`` in a temporary directory and build their
 libraries there; the sources in the repository stay as they are.  Prints the card and one line a
 measurement.
@@ -611,6 +617,130 @@ def sweep_k8t(cs, build, M, kf, k9, dev, emit,
     M._fns.clear()
 
 
+# the 2-D colour-gradient strip marches' variants (K1 / K2 / K6,
+# csf2d.cuh::strip_kernel; K4, pert2d.cu::pert_strip_kernel): tag -> edits
+# {file: (text, replacement)}.  "h16" ... "h128": rows of a run (RUN_H);
+# "ty4", "ty16": rows a step (TY; the threads a block follow it); "t256",
+# "t288", "t320": threads a block (STRIP_THREADS and PERT_THREADS: 8, 9 or
+# 10 warps; the sources' 10 and 9 take phi's 40 columns and d's 36 in one
+# round); "mbCS": both kernels ask ptxas for C resident blocks an SM in
+# the compressed float instances and S in the split push (the sources: 4
+# and 3, Perturbation 4 and 4); "skip_phi", "skip_normal", "skip_collide":
+# one stage's cell body skipped where P.nx > 0, so always (the results are
+# wrong; the times say what each stage costs)
+STRIP_H = "constexpr int RUN_H = 32;"
+STRIP_TY = "constexpr int TY = 8;"
+STRIP_NT = "constexpr int STRIP_THREADS = (TX + 8) * TY;"
+PERT_NT = "constexpr int PERT_THREADS = (TX + 4) * TY;"
+STRIP_MIN = "  return sizeof(C) == 8 ? 1 : (L == kSplit ? 3 : 4);"
+PERT_MIN = "  return sizeof(C) == 8 ? 1 : 4;"
+CG_COLLIDE = ("  auto collide = [&](int r, int lx, C post[9], C& frac, C& A, "
+              "C& B) {\n")
+PERT_COLLIDE = ("  auto collide = [&](int y, int r, int lx, C post[9], "
+                "C red[9]) {\n")
+CG_PHI = "      C phi = C(0);\n      if (fluid) {"
+CG_NORMAL = ("      phi_gradient([&](int i) { return phi_ext(ex(i), ey(i)); }, "
+             "gx, gy);")
+PERT_D = "      if (fluid) {\n        Cell<C, L> c;"
+_WARPS = {256: "TX * TY", 288: "(TX + 4) * TY", 320: "(TX + 8) * TY"}
+CG2D_EDITS = {
+    **{f"h{h}": {"csf2d.cuh": (STRIP_H, STRIP_H.replace("32", str(h)))}
+       for h in (16, 64, 128)},
+    **{f"ty{y}": {"csf2d.cuh": (STRIP_TY, STRIP_TY.replace("8", str(y)))}
+       for y in (4, 16)},
+    **{f"t{n}": {name: (old, new) for name, old, new in (
+        ("csf2d.cuh", STRIP_NT, STRIP_NT.replace("(TX + 8) * TY", w)),
+        ("pert2d.cu", PERT_NT, PERT_NT.replace("(TX + 4) * TY", w)))
+        if old != new} for n, w in _WARPS.items()},
+    **{f"mb{c}{s}": {name: (old, new) for name, old, new in (
+        ("csf2d.cuh", STRIP_MIN, f"  return sizeof(C) == 8 ? 1 : "
+         f"(L == kSplit ? {s} : {c});"),
+        ("pert2d.cu", PERT_MIN, f"  return sizeof(C) == 8 ? 1 : "
+         f"(L == kSplit ? {s} : {c});")) if old != new}
+       for c, s in ((2, 2), (3, 3), (3, 4), (4, 3), (4, 4), (5, 4))},
+    "skip_phi": {"csf2d.cuh": (CG_PHI, CG_PHI.replace(
+                     "(fluid)", "(fluid && P.nx < 0)")),
+                 "pert2d.cu": (PERT_D, PERT_D.replace(
+                     "(fluid)", "(fluid && P.nx < 0)"))},
+    "skip_normal": {"csf2d.cuh": (CG_NORMAL, "      if (P.nx > 0) gx = gy = "
+                                  "C(0); else\n" + CG_NORMAL)},
+    "skip_collide": {
+        "csf2d.cuh": (CG_COLLIDE, CG_COLLIDE + "    if (P.nx > 0) {\n"
+                      "      for (int i = 0; i < 9; ++i) post[i] = C(0);\n"
+                      "      frac = A = B = C(0);\n      return;\n    }\n"),
+        "pert2d.cu": (PERT_COLLIDE, PERT_COLLIDE + "    if (P.nx > 0) {\n"
+                      "      for (int i = 0; i < 9; ++i) post[i] = red[i] = "
+                      "C(0);\n      return;\n    }\n")},
+}
+LIBS_CG2D = ("csf2d", "pert2d")
+
+
+def _use_cg2d(lib: str, so) -> None:
+    """Point the 2-D colour-gradient wrappers for `lib` at `so`."""
+    from openlbmpm_torch.kernels import build, csf
+    csf._fn_cache.pop(lib, None)
+    load = build.load_library
+    build.load_library = lambda name: so if name == lib else load(name)
+    try:
+        csf._kernel_fns(lib)
+    finally:
+        build.load_library = load
+
+
+def sweep_cg2d(cs, build, dev, emit, tags=()) -> None:
+    """The "2dcg" mode: K1, K2, K6 (the CSF flagship) and K4c, K4h, K4s
+    (the Perturbation flagship) at 1024^2, ms a step over CG2D_EDITS (only
+    `tags` and "base" where `tags` are given), two rounds; and at the
+    sources' settings the wrapper's host microseconds a call (the host's
+    clock over calls queued without a wait) beside its device
+    microseconds a step."""
+    import torch
+    from openlbmpm_torch.kernels import csf
+    cases = []
+    for variant, make, labels in (
+            ("CSF", cs.flagship_model, ("K1", "K2", "K6")),
+            ("Perturbation", cs.pert_flagship_model, ("K4c", "K4h", "K4s"))):
+        one_c = csf.csf_step_compressed if variant == "CSF" else \
+            csf.pert_step_compressed
+        one_s = csf.csf_step_split if variant == "CSF" else \
+            csf.pert_step_split
+        for label, storage in zip(labels, ("f32", "bf16", "split")):
+            m = make(dev, "bf16" if storage == "bf16" else "f32")
+            st = m.init_state_layers(1.0, 1.0, invading_rows=100)
+            if storage == "split":
+                cases.append((label, m, st, one_s))
+            else:
+                cases.append((label, m, m.pack_state_bf16(*st) if storage ==
+                              "bf16" else m.pack_state(*st), one_c))
+    for label, m, x, fn in cases:
+        for _ in range(5):
+            y = fn(x, m)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(50):
+            y = fn(x, m)
+        host = (time.perf_counter() - t0) / 50 * 1e6
+        torch.cuda.synchronize(dev)
+        emit(kernel=label, host_us_a_call=host, device_us_a_step=cs._time_steps(
+            lambda y: fn(y, m), x, 300, dev) * 1e6)
+    keep = lambda tag: not tags or tag in tags
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs = {tag: (_patched(build.SRC_DIR, Path(tmp, tag), edits), [])
+                for tag, edits in {"base": {}, **CG2D_EDITS}.items()
+                if tag == "base" or keep(tag)}
+        libs = _variants(build, Path(tmp, "lib"), jobs, LIBS_CG2D)
+        for (lib, tag), (_, report) in sorted(libs.items()):
+            emit(library=lib, variant=tag, **report)
+        for _ in range(2):   # two rounds, so that a drift shows
+            for tag in jobs:
+                for lib in LIBS_CG2D:
+                    _use_cg2d(lib, libs[(lib, tag)][0])
+                for label, m, x, fn in cases:
+                    emit(kernel=label, variant=tag, ms_a_step=cs._time_steps(
+                        lambda y: fn(y, m), x, 200, dev) * 1e3)
+    csf._fn_cache.clear()
+
+
 def sweep_2d(cs, build, M, kf, k9, dev, emit, zs=(16, 32, 64, 96, 128),
              blocks=(1, 2, 3, 4)) -> None:
     """The "2dT" mode: ms a time step of K3c (the flagship) and K5c-Tc
@@ -700,9 +830,11 @@ def main(argv=None) -> int:
     def emit(**kw):
         print(json.dumps(kw), flush=True)
 
-    if what in ("2dT", "k8", "k8t", "k9", "k10", "k11"):
+    if what in ("2dT", "2dcg", "k8", "k8t", "k9", "k10", "k11"):
         if what == "2dT":
             sweep_2d(cs, build, M, kf, k9, dev, emit)
+        elif what == "2dcg":
+            sweep_cg2d(cs, build, dev, emit, tuple(args[1:]))
         elif what == "k8":
             sweep_k8(cs, build, dev, emit, tuple(args[1:]))
         elif what == "k8t":

@@ -17,7 +17,7 @@
 // With TracerParams.standalone (fixed flow fields) the flow launches are
 // skipped and the flow state is left as it is.
 //
-// One coupled step, seven launches, one thread per cell:
+// One coupled step, five launches, one thread per cell in the first four:
 //   1. phase_kernel    the flow state as it stands (no boundary rows, the
 //                      outlet phi repair kept) -> phi0
 //   2. normal_kernel   phi0 -> wetted gradient g0 and unit normals
@@ -32,21 +32,24 @@
 //   4. tracer_stream   free-flow outlet rows, pull streaming with half-way
 //                      bounce-back, hard interface bounce-back and the inlet
 //                      rows, all as reads of g_post -> g'
-//   5-7. the flow step of csf2d.cuh (boundary rows on the fly), unchanged.
+//   5. the flow step of csf2d.cuh, strip_kernel (boundary rows on the fly;
+//      its phi and normals stay in shared memory).
 // The tracer sees the fields of the state before the flow's boundary rows,
-// as the reference's 2-D coupled loop does, so launches 1-2 repeat the
-// flow's own phase and normal passes without those rows.
+// as the reference's 2-D coupled loop does, so launches 1-2 form phi and
+// the normals of that state, which the flow's own march (with the rows)
+// cannot hand over.
 //
 // What bounds it: HBM bytes per cell-step.  With an f32 state, one D2Q5
 // tracer and f32 tracer PDFs: 48 B (phase: state 40, fluid plane 4, phi 4),
 // 28 B (normal), 101 B (tracer_collide: state 40, fluid plane 4, normals 16,
 // g 20, g_post 20, mask 1), 44 B (tracer_stream: g_post 20, fluid plane 4,
-// g' 20; the mask 1 more with a bounce-back interface) and the flow's
-// 180 B: about 400 B against 120 B for one fused pass over state and
-// tracers.  With the bf16 state: about 310 B against 84 B.  With the split
-// f32 state (72 B a read): 80 + 28 + 133 + 44 and the flow's 276 B, about
-// 560 B against 184 B.  Stencil neighbour re-reads hit L1/L2.  Fusing
-// launches 1-3 into the flow's own passes is the next step for speed.
+// g' 20; the mask 1 more with a bounce-back interface) and the flow
+// march's 81 B (the state in and out; its halo re-reads from L2): about
+// 300 B against 120 B for one fused pass over state and tracers.  With the
+// bf16 state: about 230 B against 84 B.  With the split f32 state (72 B a
+// read): 80 + 28 + 133 + 44 and the flow's 145 B, about 430 B against
+// 184 B.  Stencil neighbour re-reads hit L1/L2.  Fusing launches 1-4 into
+// one pass is the next step for speed.
 
 #include "coupled2d.cuh"
 
@@ -124,19 +127,24 @@ int launch_coupled(const void* s_in, const void* s2_in, void* s_out, void* s2_ou
   phase_kernel<S, L><<<blocks, threads, 0, st>>>(s, s2, geo, phi, P0);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+  ++g_csf_launches[0];
   normal_kernel<C><<<blocks, threads, 0, st>>>(geo, phi, nrm, P0);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+  ++g_csf_launches[1];
   tracer_collide_kernel<S, L, NQ><<<blocks, threads, 0, st>>>(
       s, s2, geo, nrm, static_cast<const C*>(g_in), tab, gp, dom, static_cast<C*>(u_out),
       P0, T);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+  ++g_csf_launches[3];
   tracer_stream_kernel<C, NQ><<<blocks, threads, 0, st>>>(gp, geo, dom, tab,
                                                           static_cast<C*>(g_out), P, T);
   err = cudaGetLastError();
-  if (err != cudaSuccess || T.standalone) return (int)err;
-  return launch_flow<S, L>(s_in, s2_in, s_out, s2_out, geo_v, phi_v, nrm_v, P, st);
+  if (err != cudaSuccess) return (int)err;
+  ++g_csf_launches[4];
+  if (T.standalone) return 0;
+  return launch_flow<S, L>(s_in, s2_in, s_out, s2_out, geo_v, P, st);
 }
 
 template <typename S, int L>
@@ -181,6 +189,13 @@ extern "C" int coupled2d_step(int mode, const void* s_in, const void* s2_in, voi
     default: return (int)cudaErrorInvalidValue;
   }
 #undef COUPLED_ARGS
+}
+
+// The launches of each kernel since the library was loaded (csf2d.cuh's
+// g_csf_launches: phase_kernel, normal_kernel, strip_kernel,
+// tracer_collide_kernel, tracer_stream_kernel; the last 0 here).
+extern "C" void coupled2d_kernel_launches(long long* out) {
+  for (int i = 0; i < 6; ++i) out[i] = g_csf_launches[i];
 }
 
 extern "C" const char* coupled2d_error_string(int code) {

@@ -9,29 +9,30 @@
 // in the split modes and unused otherwise.  Returns a cudaError_t code (0
 // on success; cudaErrorInvalidValue for a Perturbation parameter block).
 extern "C" int csf2d_step(int mode, const void* s_in, const void* s2_in, void* s_out,
-                          void* s2_out, const void* geo, void* phi, void* nrm,
-                          const CsfParams* params, void* stream) {
+                          void* s2_out, const void* geo, const CsfParams* params,
+                          void* stream) {
   const CsfParams P = *params;
   if (P.variant != 0) return (int)cudaErrorInvalidValue;  // a Perturbation block
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (mode) {
     case 0:
-      return launch_flow<double, kCompressed>(s_in, s2_in, s_out, s2_out, geo, phi, nrm,
-                                              P, st);
+      return launch_flow<double, kCompressed>(s_in, s2_in, s_out, s2_out, geo, P, st);
     case 1:
-      return launch_flow<float, kCompressed>(s_in, s2_in, s_out, s2_out, geo, phi, nrm,
-                                             P, st);
+      return launch_flow<float, kCompressed>(s_in, s2_in, s_out, s2_out, geo, P, st);
     case 2:
-      return launch_flow<__nv_bfloat16, kCompressed>(s_in, s2_in, s_out, s2_out, geo,
-                                                     phi, nrm, P, st);
-    case 3:
-      return launch_flow<double, kSplit>(s_in, s2_in, s_out, s2_out, geo, phi, nrm, P,
-                                         st);
-    case 4:
-      return launch_flow<float, kSplit>(s_in, s2_in, s_out, s2_out, geo, phi, nrm, P,
-                                        st);
+      return launch_flow<__nv_bfloat16, kCompressed>(s_in, s2_in, s_out, s2_out, geo, P,
+                                                     st);
+    case 3: return launch_flow<double, kSplit>(s_in, s2_in, s_out, s2_out, geo, P, st);
+    case 4: return launch_flow<float, kSplit>(s_in, s2_in, s_out, s2_out, geo, P, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The launches of each kernel since the library was loaded (csf2d.cuh's
+// g_csf_launches: phase_kernel, normal_kernel, strip_kernel; the others 0
+// here).
+extern "C" void csf2d_kernel_launches(long long* out) {
+  for (int i = 0; i < 6; ++i) out[i] = g_csf_launches[i];
 }
 
 extern "C" const char* csf2d_error_string(int code) {

@@ -29,27 +29,47 @@
 // (ColorGradientRK._step_csf_c and ops/), not the TPU kernel's strip
 // windows, rolls and banding.
 //
-// Three launches per step, one thread per cell, x fastest (coalesced):
-//   1. phase_kernel    state -> phi (one plane, compute type)
-//   2. normal_kernel   phi -> gx, gy, n_x, n_y (four planes)
-//   3. collide_stream  state, phi, normals -> state'.  A 32x8 tile collides
-//      its cells plus a one-cell ring into shared memory, then pull-streams
-//      from there; the ring is recomputed by each neighbouring tile.
-// The boundary rows (inlet rows ny-2, ny-1; outlet rows 0-2) are applied
-// on the fly wherever a kernel reads the state, in compute precision, so no
-// kernel writes a boundary-corrected state back to memory: the bf16 state
-// is never re-rounded on those rows (the TPU kernel rewrites them on its
-// f32 window for the same reason).
+// One launch a step, strip_kernel: the strip march.  A block of
+// STRIP_THREADS (10 warps) owns a strip of TX = 32 columns and a run of
+// RUN_H = 32 rows (at 1024^2, 32 x 32 blocks) and steps down the run TY = 8
+// rows at a time through four stages, a barrier between them (the split
+// layout's push shares a phase, the code between two barriers, with the
+// next step's phi rows):
+//   phi      phi of TY new rows 4 ahead of the output rows over the
+//            strip's columns and a 4-column halo (one round of the block's
+//            threads), the fluid flags, and the state each cell decoded
+//            (boundary rows applied), kept for the collision;
+//   normal   the wetted gradient and unit normal of TY rows 2 ahead from
+//            the phi ring (a 2-column halo);
+//   collide  TY rows 1 ahead from the kept state and the rings (a 1-column
+//            halo): post, frac, A, B into the post ring;
+//   stream   the pull of the TY output rows from the post ring.
+// The rings carry the rows an earlier step formed; only the x halo (40 /
+// 32 phi cells, 34 / 32 collisions a strip) and the rows above each run
+// (the prologue) are formed twice.  phi and the normals never reach device
+// memory.  The split layout (K6) pushes instead: each cell
+// of the strip collided once, its red part frac post_i + seg_i and
+// post_i - red written to slot i of x + e_i, or to slot opp(i) of x where
+// x + e_i is solid (the slots are source-side, so no sum is needed at the
+// target), with no post ring.  phase_kernel and normal_kernel remain for
+// coupled2d.cu's tracer passes (the fields of the state before the
+// boundary rows).  The boundary rows (inlet rows ny-2, ny-1; outlet rows
+// 0-2) are applied on the fly wherever a kernel reads the state, in
+// compute precision, so no kernel writes a boundary-corrected state back
+// to memory: the bf16 state is rounded once, at the store (the TPU kernel
+// rewrites them on its f32 window for the same reason).
 //
-// What bounds it: HBM bytes per cell-step.  A single fused pass would move
-// 80 B (compressed f32 state read + write), 44 B (bf16) or 144 B (split
-// f32).  This three-launch design moves about 180 B (compressed f32),
-// 126 B (bf16) or 276 B (split f32): the state is read twice (phase and
-// collide_stream), phi (4 B) and the four normal planes (16 B) are written
-// and read back, and the fluid and wetting planes (4 B each) are read by
-// each kernel (ns_x, ns_y and den_inv only at wall cells).  Stencil
-// neighbour re-reads hit L1/L2.  Fusing phase and normal into
-// collide_stream (a wider ring) is the next step for speed.
+// What bounds it: the least bytes a cell-step are 81 (compressed f32), 45
+// (bf16) and 145 (split f32).  The strip march writes the state once and
+// reads it for 1.56x its cells (the 4-column halo, and the 4 rows above
+// and below each run of 32), the re-reads mostly from L2.  It runs at an
+// eighth to a third of the bytes' bound (PERF.md): each stage of a step
+// waits for its slowest warp, so what limits it is the warps in flight an
+// SM (registers: 4 blocks an SM in float, 3 for the split push) and the
+// latency of a stage, not the bytes.  The three-launch
+// form before it wrote and read phi and the four normal planes (about
+// 180 / 126 / 276 B a cell-step) and collided a 32 x 8 tile plus a
+// one-cell ring (1.33x its cells).
 
 #pragma once
 
@@ -491,17 +511,21 @@ __global__ void normal_kernel(const C* __restrict__ geo, const C* __restrict__ p
   const size_t k = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= n) return;
   const int x = (int)(k % nx), y = (int)(k / nx);
-  // phi extended onto solid nodes: the w-weighted mean of fluid neighbours
+  // phi extended onto solid nodes: the w-weighted mean of fluid
+  // neighbours, num / den as the reference forms it
   auto phi_ext = [&](int xx, int yy) -> C {
     xx = wrap(xx, nx);
     yy = wrap(yy, ny);
     const size_t kk = (size_t)yy * nx + xx;
     if (!P.has_wetting || geo[kk] > C(0.5)) return phi[kk];
-    C num = C(0);
+    C num = C(0), den = C(0);
 #pragma unroll
-    for (int i = 1; i < 9; ++i)
-      num = num + C(wq(i)) * phi[(size_t)wrap(yy + ey(i), ny) * nx + wrap(xx + ex(i), nx)];
-    return num * geo[4 * n + kk];
+    for (int i = 1; i < 9; ++i) {
+      const size_t q = (size_t)wrap(yy + ey(i), ny) * nx + wrap(xx + ex(i), nx);
+      num = num + C(wq(i)) * phi[q];
+      den = den + C(wq(i)) * geo[q];
+    }
+    return den > C(0) ? num / den : C(0);
   };
   C gx, gy;
   phi_gradient([&](int i) { return phi_ext(x + ex(i), y + ey(i)); }, gx, gy);
@@ -669,26 +693,6 @@ __device__ __forceinline__ void lkr_factors(C segc, C gx, C gy, C& A, C& B) {
   }
 }
 
-// Post-collision total PDF of one fluid cell plus its recolouring factors:
-// the red post-collision population is frac * post_i + w_i (e_ix A + e_iy B).
-template <typename S, int L, typename C = typename Traits<S>::C>
-__device__ void collide_cell(const S* __restrict__ s, const S* __restrict__ s2,
-                             const C* __restrict__ geo, const C* __restrict__ phi,
-                             const C* __restrict__ nrm, const CsfParams& P, int x, int y,
-                             C post[9], C& frac, C& A, C& B) {
-  const size_t n = (size_t)P.ny * P.nx;
-  const size_t k = (size_t)y * P.nx + x;
-  Cell<C, L> c;
-  load_state<S, L>(s, s2, geo, P, x, y, c);
-  C f[9], rr, rb, rho;
-  totals(c, f, rr, rb, rho);
-  const C gx = nrm[k], gy = nrm[n + k];
-  C fx, fy, segc;
-  csf_force_at(nrm, P, x, y, rho, fx, fy);
-  collide_core(f, rr, rb, rho, phi[k], fx, fy, P, post, frac, segc);
-  lkr_factors(segc, gx, gy, A, B);
-}
-
 template <typename S, typename C = typename Traits<S>::C>
 __device__ __forceinline__ void store_state(S* __restrict__ out, size_t n, size_t k,
                                             const C o[9], C rr, C fl) {
@@ -705,108 +709,362 @@ __device__ __forceinline__ void store_state(S* __restrict__ out, size_t n, size_
   }
 }
 
-template <typename S, int L, typename C = typename Traits<S>::C>
-__global__ void __launch_bounds__(TX * TY)
-collide_stream_kernel(const S* __restrict__ s, const S* __restrict__ s2,
-                      const C* __restrict__ geo, const C* __restrict__ phi,
-                      const C* __restrict__ nrm, S* __restrict__ out,
-                      S* __restrict__ out2, CsfParams P) {
-  constexpr int HX = TX + 2, HY = TY + 2;
-  // per ring-tile cell: post-collision total PDF (9), frac, A, B
-  __shared__ C sh[12][HY][HX];
-  __shared__ unsigned char shfl[HY][HX];
-  const int nx = P.nx, ny = P.ny;
-  const size_t n = (size_t)ny * nx;
-  const int x0 = blockIdx.x * TX, y0 = blockIdx.y * TY;
-  const int tid = threadIdx.y * TX + threadIdx.x;
-  for (int t = tid; t < HX * HY; t += TX * TY) {
-    const int lx = t % HX, ly = t / HX;
-    const int cx = wrap(x0 - 1 + lx, nx), cy = wrap(y0 - 1 + ly, ny);
-    const bool fluid = geo[(size_t)cy * nx + cx] > C(0.5);
-    shfl[ly][lx] = fluid;
-    C post[9], frac = C(0), A = C(0), B = C(0);
-    if (fluid) {
-      collide_cell<S, L>(s, s2, geo, phi, nrm, P, cx, cy, post, frac, A, B);
-    } else {
-#pragma unroll
-      for (int i = 0; i < 9; ++i) post[i] = C(0);
-    }
-#pragma unroll
-    for (int i = 0; i < 9; ++i) sh[i][ly][lx] = post[i];
-    sh[9][ly][lx] = frac;
-    sh[10][ly][lx] = A;
-    sh[11][ly][lx] = B;
-  }
-  __syncthreads();
+// -- the strip march: the flow step in one launch (K1, K2, K6) ---------------
 
-  const int x = x0 + threadIdx.x, y = y0 + threadIdx.y;
-  if (x >= nx || y >= ny) return;
-  const int lx = threadIdx.x + 1, ly = threadIdx.y + 1;
-  const size_t k = (size_t)y * nx + x;
-  // o: the streamed total PDF; red: its red part, frac * post_j + seg_j at
-  // the source cell (the blue part is o - red, csf.py:1016)
-  C o[9], red[9];
-  C rr_new = C(0);
-  if (shfl[ly][lx]) {
-    o[0] = sh[0][ly][lx];
-    red[0] = sh[9][ly][lx] * o[0];
-    rr_new = red[0];
-#pragma unroll
-    for (int i = 1; i < 9; ++i) {
-      // pull from the upwind cell x - e_i, or bounce back from a solid one
-      int sx = lx - ex(i), sy = ly - ey(i), j = i;
-      if (!shfl[sy][sx]) {
-        sx = lx;
-        sy = ly;
-        j = opp(i);
-      }
-      o[i] = sh[j][sy][sx];
-      const C seg = C(wq(j)) * (C(ex(j)) * sh[10][sy][sx] + C(ey(j)) * sh[11][sy][sx]);
-      red[i] = sh[9][sy][sx] * o[i] + seg;
-      rr_new = rr_new + red[i];
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 9; ++i) o[i] = red[i] = C(0);
-  }
+// Launches by this library since it was loaded, one where each launch is
+// made (phase_kernel, normal_kernel, strip_kernel, then coupled2d.cu's
+// tracer_collide_kernel and tracer_stream_kernel, then pert2d.cu's
+// pert_strip_kernel); <library>_kernel_launches reads them.
+long long g_csf_launches[6];
+
+// A cell's state (after the boundary rows, in compute precision) in a
+// ring of planes `stride` apart: f and rho_r, or f_r and f_b.
+template <int L>
+__host__ __device__ constexpr int cell_planes() {
+  return L == kSplit ? 18 : 10;
+}
+template <typename C, int L>
+__device__ __forceinline__ void cell_put(C* p, int stride, const Cell<C, L>& c) {
   if constexpr (L == kSplit) {
 #pragma unroll
     for (int i = 0; i < 9; ++i) {
-      out[i * n + k] = red[i];
-      out2[i * n + k] = o[i] - red[i];
+      p[i * stride] = c.r[i];
+      p[(9 + i) * stride] = c.b[i];
     }
   } else {
-    store_state<S>(out, n, k, o, rr_new, geo[k]);
+#pragma unroll
+    for (int i = 0; i < 9; ++i) p[i * stride] = c.f[i];
+    p[9 * stride] = c.rr;
+  }
+}
+template <typename C, int L>
+__device__ __forceinline__ void cell_get(const C* p, int stride, Cell<C, L>& c) {
+  if constexpr (L == kSplit) {
+#pragma unroll
+    for (int i = 0; i < 9; ++i) {
+      c.r[i] = p[i * stride];
+      c.b[i] = p[(9 + i) * stride];
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 9; ++i) c.f[i] = p[i * stride];
+    c.rr = p[9 * stride];
   }
 }
 
-// The flow step's three launches.  s2_in/s2_out are f_b in the split
-// layout and unused in the compressed one.
-template <typename S, int L>
-int launch_flow(const void* s_in, const void* s2_in, void* s_out, void* s2_out,
-                const void* geo_v, void* phi_v, void* nrm_v, const CsfParams& P,
-                cudaStream_t st) {
-  using C = typename Traits<S>::C;
-  const S* s = static_cast<const S*>(s_in);
-  const S* s2 = static_cast<const S*>(s2_in);
-  S* out = static_cast<S*>(s_out);
-  S* out2 = static_cast<S*>(s2_out);
-  const C* geo = static_cast<const C*>(geo_v);
-  C* phi = static_cast<C*>(phi_v);
-  C* nrm = static_cast<C*>(nrm_v);
-  const size_t n = (size_t)P.ny * P.nx;
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
-  phase_kernel<S, L><<<blocks, threads, 0, st>>>(s, s2, geo, phi, P);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  normal_kernel<C><<<blocks, threads, 0, st>>>(geo, phi, nrm, P);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((P.nx + TX - 1) / TX, (P.ny + TY - 1) / TY);
-  collide_stream_kernel<S, L><<<grid, dim3(TX, TY), 0, st>>>(s, s2, geo, phi, nrm, out,
-                                                             out2, P);
-  return (int)cudaGetLastError();
+// The rings of a strip (shared memory, compute type C): rows of TX + 2h
+// cells, row r of the domain in slot (r - y0 + 4) mod depth.
+//   phi    phi and the fluid flag, a 4-column halo, 4 rows ahead of the
+//          output rows (3 with the push; the normals of the collided rows
+//          reach 2 more), and the cells' state as the phi pass decoded it,
+//          kept for the collision over its columns (a 1-column halo);
+//   nrm    the wetted gradient and the unit normal (4 planes), a 2-column
+//          halo, 2 rows ahead (1 with the push);
+//   post   post, frac, A, B (12 planes) and the fluid flag, a 1-column
+//          halo, 1 row ahead (the pull's reach).
+// The split layout pushes: it keeps no post ring, collides its own columns
+// and writes each value to its slot, and its push shares a phase with the
+// next step's phi rows (so the phi ring holds 2 TY + 4 rows).
+constexpr int RUN_H = 32;   // rows of a run: the grid's y blocks
+// threads a block: the phi pass's TX + 8 columns of TY rows in one round
+// (the normals' TX + 4 and the collision's TX + 2 too); TX * TY of them
+// stream a step's rows
+constexpr int STRIP_THREADS = (TX + 8) * TY;
+template <typename C, int L>
+struct StripRings {
+  static constexpr bool PUSH = L == kSplit;
+  static constexpr int PW = TX + 8, PR = PUSH ? 2 * TY + 4 : TY + 4;
+  static constexpr int NW = TX + 4, NR = TY + 2;
+  static constexpr int QW = PUSH ? 0 : TX + 2, QR = TY + 2;
+  static constexpr int SW = TX + 2;
+  static constexpr int PN = PR * PW, NN = NR * NW, QN = QR * QW, SN = PR * SW;
+  static constexpr size_t bytes =
+      sizeof(C) * ((size_t)PN + 4 * NN + 12 * QN + cell_planes<L>() * SN) + PN + QN;
+};
+
+// resident blocks an SM asked of ptxas (chip_sweep.py 2dcg): the float
+// instances are bound by their warps in flight, not their registers
+template <typename C, int L>
+__host__ __device__ constexpr int strip_min_blocks() {
+  return sizeof(C) == 8 ? 1 : (L == kSplit ? 3 : 4);
 }
 
+// One flow step by the strip march (the note at the top).  A block of
+// STRIP_THREADS threads owns TX columns of a run of RUN_H rows and steps
+// down it TY rows at a time: phi of TY new rows, then their normals, then
+// the collision of TY new rows, then the pull of TY output rows (or, split,
+// the collision of the step's own rows pushed to their slots), a barrier
+// between.  Rows formed by an earlier step stay in the rings; a run starts
+// by forming the rows above its first (the prologue).
+template <typename S, int L, typename C = typename Traits<S>::C>
+__global__ void __launch_bounds__(STRIP_THREADS, strip_min_blocks<C, L>())
+strip_kernel(const S* __restrict__ s, const S* __restrict__ s2, const C* __restrict__ geo,
+             S* __restrict__ out, S* __restrict__ out2, CsfParams P) {
+  using R = StripRings<C, L>;
+  extern __shared__ __align__(16) unsigned char strip_smem[];
+  C* const ph = reinterpret_cast<C*>(strip_smem);
+  C* const nm = ph + R::PN;
+  C* const po = nm + 4 * R::NN;
+  C* const sc = po + 12 * R::QN;
+  unsigned char* const pf = reinterpret_cast<unsigned char*>(sc + cell_planes<L>() * R::SN);
+  unsigned char* const qf = pf + R::PN;
+  const int nx = P.nx, ny = P.ny;
+  const size_t n = (size_t)ny * nx;
+  const int x0 = blockIdx.x * TX, y0 = blockIdx.y * RUN_H;
+  const int y1 = min(y0 + RUN_H, ny);
+  const int tid = threadIdx.x;
+  // the output cell of thread tid < TX * TY in a step's rows
+  const int ty = tid / TX, tx = tid % TX;
+  auto slot = [&](int r, int depth) { return (r - y0 + 4) % depth; };
+
+  // phi and the fluid flag of rows [r0, r1), columns x0 - 4 ... x0 + TX + 3
+  // (phase_kernel's arithmetic), and the state of columns x0 - 1 ...
+  // x0 + TX
+  auto form_phi = [&](int r0, int r1) {
+    for (int t = tid; t < (r1 - r0) * R::PW; t += STRIP_THREADS) {
+      const int lx = t % R::PW, r = r0 + t / R::PW;
+      const int x = wrap(x0 - 4 + lx, nx), y = wrap(r, ny);
+      const int b = slot(r, R::PR) * R::PW + lx;
+      const bool fluid = geo[(size_t)y * nx + x] > C(0.5);
+      C phi = C(0);
+      if (fluid) {
+        Cell<C, L> c;
+        load_state<S, L>(s, s2, geo, P, x, y, c);
+        if (lx >= 3 && lx < TX + 5)
+          cell_put<C, L>(sc + slot(r, R::PR) * R::SW + lx - 3, R::SN, c);
+        if (P.phi_repair && y <= 1) {
+          // Dirichlet-outlet repair: phi on fluid cells of rows 1, 0 <- row 2
+          phi = phi_at<S, L>(s, s2, geo, P, x, 2);
+        } else {
+          C f[9], rr, rb, rho;
+          totals(c, f, rr, rb, rho);
+          const C tot = rr + rb;
+          phi = tot != C(0) ? (rr - rb) / tot : C(0);
+        }
+      }
+      pf[b] = fluid;
+      ph[b] = phi;
+    }
+  };
+  // the wetted gradient and unit normal of rows [r0, r1), columns
+  // x0 - 2 ... x0 + TX + 1 (normal_kernel's arithmetic on the phi ring)
+  auto form_normal = [&](int r0, int r1) {
+    for (int t = tid; t < (r1 - r0) * R::NW; t += STRIP_THREADS) {
+      const int lx = t % R::NW, r = r0 + t / R::NW;
+      const int x = wrap(x0 - 2 + lx, nx), y = wrap(r, ny);
+      const size_t k = (size_t)y * nx + x;
+      // phi extended onto solid nodes: the w-weighted mean of the fluid
+      // neighbours, num / den as the reference forms it (num times den's
+      // reciprocal parts from it by an ulp, which Xu wetting's |g| > 0
+      // turns into a unit normal)
+      auto phi_ext = [&](int dx, int dy) -> C {
+        const int b = slot(r + dy, R::PR) * R::PW + lx + 2 + dx;
+        if (!P.has_wetting || pf[b]) return ph[b];
+        C num = C(0), den = C(0);
+#pragma unroll
+        for (int i = 1; i < 9; ++i) {
+          const int q = slot(r + dy + ey(i), R::PR) * R::PW + lx + 2 + dx + ex(i);
+          num = num + C(wq(i)) * ph[q];
+          den = den + C(wq(i)) * C(pf[q]);
+        }
+        return den > C(0) ? num / den : C(0);
+      };
+      C gx, gy;
+      phi_gradient([&](int i) { return phi_ext(ex(i), ey(i)); }, gx, gy);
+      if (P.has_wetting && geo[n + k] > C(0.5))
+        rotate_wetting(gx, gy, geo[2 * n + k], geo[3 * n + k], P);
+      const int b = slot(r, R::NR) * R::NW + lx;
+      nm[b] = gx;
+      nm[R::NN + b] = gy;
+      unit_normal(gx, gy, geo[k], P, nm[2 * R::NN + b], nm[3 * R::NN + b]);
+    }
+  };
+  // The collision of the fluid cell of unwrapped row r at column lx of the
+  // normal ring, from the state the phi pass kept: post, frac, A, B.
+  auto collide = [&](int r, int lx, C post[9], C& frac, C& A, C& B) {
+    Cell<C, L> c;
+    cell_get<C, L>(sc + slot(r, R::PR) * R::SW + lx - 1, R::SN, c);
+    C f[9], rr, rb, rho;
+    totals(c, f, rr, rb, rho);
+    const int nb = slot(r, R::NR) * R::NW + lx;
+    const C gx = nm[nb], gy = nm[R::NN + nb];
+    C fx, fy, segc;
+    csf_force(
+        [&](int i, C& sx, C& sy) {
+          const int q = slot(r + ey(i), R::NR) * R::NW + lx + ex(i);
+          sx = nm[2 * R::NN + q];
+          sy = nm[3 * R::NN + q];
+        },
+        nm[2 * R::NN + nb], nm[3 * R::NN + nb], gx, gy, rho, P, fx, fy);
+    collide_core(f, rr, rb, rho, ph[slot(r, R::PR) * R::PW + lx + 2], fx, fy, P, post, frac,
+                 segc);
+    lkr_factors(segc, gx, gy, A, B);
+  };
+
+  if constexpr (R::PUSH) {
+    // the split layout: each cell of the strip collided once, its red part
+    // frac post_i + seg_i and post_i - red to slot i of x + e_i, or to slot
+    // opp(i) of x where x + e_i is solid; a solid cell writes its own zeros
+    auto push_rows = [&](int r0) {
+      const int r = r0 + ty, x = x0 + tx;
+      if (tid >= TX * TY || r >= y1 || x >= nx) return;
+      const size_t k = (size_t)r * nx + x;
+      const int lx = tx + 2;
+      if (!pf[slot(r, R::PR) * R::PW + lx + 2]) {
+#pragma unroll
+        for (int i = 0; i < 9; ++i) out[i * n + k] = out2[i * n + k] = C(0);
+        return;
+      }
+      C post[9], frac, A, B;
+      collide(r, lx, post, frac, A, B);
+#pragma unroll
+      for (int i = 0; i < 9; ++i) {
+        const C red = frac * post[i] + C(wq(i)) * (C(ex(i)) * A + C(ey(i)) * B);
+        size_t kt = k + (size_t)i * n;
+        if (i != 0) {
+          if (pf[slot(r + ey(i), R::PR) * R::PW + lx + 2 + ex(i)]) {
+            int tx = x + ex(i), ty = r + ey(i);
+            tx = tx < 0 ? tx + nx : (tx >= nx ? tx - nx : tx);
+            ty = ty < 0 ? ty + ny : (ty >= ny ? ty - ny : ty);
+            kt = (size_t)i * n + (size_t)ty * nx + tx;
+          } else {
+            kt = (size_t)opp(i) * n + k;   // bounced back from the solid x + e_i
+          }
+        }
+        out[kt] = red;
+        out2[kt] = post[i] - red;
+      }
+    };
+    form_phi(y0 - 3, min(y0 + TY, y1) + 3);
+    __syncthreads();
+    form_normal(y0 - 1, min(y0 + TY, y1) + 1);
+    for (int a = y0; a < y1; a += TY) {
+      // e: this step's last row + 1 (a last step may stop short), e2 the
+      // next step's
+      const int e = min(a + TY, y1), e2 = min(a + 2 * TY, y1);
+      __syncthreads();
+      if (e < y1) form_phi(e + 3, e2 + 3);
+      push_rows(a);
+      __syncthreads();
+      if (e < y1) form_normal(e + 1, e2 + 1);
+    }
+  } else {
+    // the post ring of rows [r0, r1), columns x0 - 1 ... x0 + TX (a strip
+    // cut short by the domain's edge collides the columns it reads)
+    const int qn = min(R::QW, nx - x0 + 2);
+    auto form_post = [&](int r0, int r1) {
+      for (int t = tid; t < (r1 - r0) * R::QW; t += STRIP_THREADS) {
+        const int lx = t % R::QW, r = r0 + t / R::QW;
+        if (lx >= qn) continue;
+        const int b = slot(r, R::QR) * R::QW + lx;
+        const bool fluid = pf[slot(r, R::PR) * R::PW + lx + 3];
+        qf[b] = fluid;
+        C post[9], frac = C(0), A = C(0), B = C(0);
+        if (fluid) {
+          collide(r, lx + 1, post, frac, A, B);
+        } else {
+#pragma unroll
+          for (int i = 0; i < 9; ++i) post[i] = C(0);
+        }
+#pragma unroll
+        for (int i = 0; i < 9; ++i) po[i * R::QN + b] = post[i];
+        po[9 * R::QN + b] = frac;
+        po[10 * R::QN + b] = A;
+        po[11 * R::QN + b] = B;
+      }
+    };
+    // pull streaming with half-way bounce-back of the output rows
+    // [r0, r0 + TY) from the post ring (the compressed layouts: the streamed
+    // total and rho_r' = the sum of the streamed red parts)
+    auto stream_rows = [&](int r0) {
+      const int r = r0 + ty, x = x0 + tx;
+      if (tid >= TX * TY || r >= y1 || x >= nx) return;
+      const size_t k = (size_t)r * nx + x;
+      const int lx = tx + 1;
+      auto q = [&](int dy, int dx) { return slot(r + dy, R::QR) * R::QW + lx + dx; };
+      // o: the streamed total PDF; red: its red part, frac * post_j + seg_j
+      // at the source cell (the blue part is o - red, csf.py:1016)
+      C o[9], red[9];
+      C rr_new = C(0);
+      if (qf[q(0, 0)]) {
+        const int b = q(0, 0);
+        o[0] = po[b];
+        red[0] = po[9 * R::QN + b] * o[0];
+        rr_new = red[0];
+#pragma unroll
+        for (int i = 1; i < 9; ++i) {
+          // pull from the upwind cell x - e_i, or bounce back from a solid one
+          int src = q(-ey(i), -ex(i)), j = i;
+          if (!qf[src]) {
+            src = b;
+            j = opp(i);
+          }
+          o[i] = po[j * R::QN + src];
+          const C seg = C(wq(j)) * (C(ex(j)) * po[10 * R::QN + src] +
+                                    C(ey(j)) * po[11 * R::QN + src]);
+          red[i] = po[9 * R::QN + src] * o[i] + seg;
+          rr_new = rr_new + red[i];
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 9; ++i) o[i] = red[i] = C(0);
+      }
+      store_state<S>(out, n, k, o, rr_new, geo[k]);
+    };
+    form_phi(y0 - 4, y0 + 4);
+    __syncthreads();
+    form_normal(y0 - 2, y0 + 2);
+    __syncthreads();
+    form_post(y0 - 1, y0 + 1);
+    __syncthreads();
+    for (int a = y0; a < y1; a += TY) {
+      // the stream of the step before reads the post ring alone; a last
+      // step may stop short
+      const int e = min(a + TY, y1);
+      form_phi(a + 4, e + 4);
+      __syncthreads();
+      form_normal(a + 2, e + 2);
+      __syncthreads();
+      form_post(a + 1, e + 1);
+      __syncthreads();
+      stream_rows(a);
+    }
+  }
+}
+
+// Opt a kernel in to more than 48 KB of dynamic shared memory on the
+// current device, once: done[d] is set for each device d on which it has
+// (an attribute of the function on each device; a launch then costs the
+// host no call for it).
+template <typename K>
+cudaError_t opt_in_smem(K kernel, size_t smem, bool* done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < 64 && done[dev])) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess && dev < 64) done[dev] = true;
+  return err;
+}
+
+// The flow step: one launch of the strip march.  s2_in/s2_out are f_b in
+// the split layout and unused in the compressed one.
+template <typename S, int L>
+int launch_flow(const void* s_in, const void* s2_in, void* s_out, void* s2_out,
+                const void* geo_v, const CsfParams& P, cudaStream_t st) {
+  using C = typename Traits<S>::C;
+  constexpr size_t smem = StripRings<C, L>::bytes;
+  auto kernel = strip_kernel<S, L>;
+  static bool opted[64];   // this instance's devices
+  if (smem > 48 * 1024) {
+    const cudaError_t err = opt_in_smem(kernel, smem, opted);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid((P.nx + TX - 1) / TX, (P.ny + RUN_H - 1) / RUN_H);
+  kernel<<<grid, STRIP_THREADS, smem, st>>>(
+      static_cast<const S*>(s_in), static_cast<const S*>(s2_in),
+      static_cast<const C*>(geo_v), static_cast<S*>(s_out), static_cast<S*>(s2_out), P);
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) ++g_csf_launches[2];
+  return (int)err;
+}
 }  // namespace

@@ -7,7 +7,10 @@ step per call: the CSF variant with ``state_mode="compressed"`` and
 (K6), in ``csrc/csf2d.cu`` (device code in ``csrc/csf2d.cuh``); the
 Perturbation variant (K4) in the same three layouts (K4c, K4h, K4s) in
 ``csrc/pert2d.cu`` (``csrc/pert2d.cuh``; the f64 instances in their own
-library, ``csrc/pert2d_f64.cu``).  T > 1 steps per call
+library, ``csrc/pert2d_f64.cu``).  Each is one launch a step of a strip
+march (``strip_kernel``, ``pert_strip_kernel``) that keeps phi, the normals
+and the post-collision values in shared-memory rings; the libraries count
+their launches (``kernel_launches``).  T > 1 steps per call
 (``steps_per_call``, K3): both variants in the three layouts (K3c, K3h,
 K3s) in ``csrc/csf2d_block_{f64,f32,bf16}.cu``, one library per storage
 type: the row-march of ``csrc/march2d.cuh`` (one cooperative launch on the
@@ -56,6 +59,7 @@ __all__ = ["geo_stack", "CsfParams", "kernel_params", "launch_csf2d",
            "csf_step_split_reference", "pert_step_compressed",
            "pert_step_compressed_reference", "pert_step_split",
            "pert_step_split_reference", "compare_bf16_states",
+           "KERNELS", "kernel_launches",
            "BLOCK_LIBRARIES", "launch_csf2d_block", "launch_csf2d_block_split",
            "csf_block_tiling", "csf_block_max_steps", "csf_block_compressed",
            "csf_block_compressed_reference",
@@ -68,10 +72,12 @@ __all__ = ["geo_stack", "CsfParams", "kernel_params", "launch_csf2d",
 
 
 def geo_stack(geometry: Geometry) -> np.ndarray:
-    """Static geometry planes the kernel reads: is_fluid, wet_fluid, nsx,
+    """Static geometry planes the kernels read: is_fluid, wet_fluid, nsx,
     nsy, den_inv, where den_inv is the reciprocal of the solid-phi
     extrapolation denominator sum_i w_i is_fluid(x + e_i) (0 where a node
-    has no fluid neighbour)."""
+    has no fluid neighbour).  The one-step kernels sum that denominator
+    themselves and divide by it, as the reference does; only the row-march
+    and the local windows still multiply by den_inv."""
     wet_fluid, _ = wetting_masks(geometry.is_solid)
     nsx, nsy = solid_normals(geometry.is_solid)
     fl = geometry.is_fluid.astype(np.float64)
@@ -167,11 +173,29 @@ def kernel_params(params, bcs, geometry: Geometry) -> CsfParams:
 
 _fn_cache: dict[str, tuple] = {}
 # each library's entry-point prefix and the pointer arguments of its
-# <prefix>_step: (s, s2, out, out2, geo) plus the phi and normal scratch
-# planes of the CSF step.  The f64 Perturbation instances are a library of
-# their own, built with -fmad=false, with pert2d's entry points.
-_ENTRIES = {"csf2d": ("csf2d", 7), "pert2d": ("pert2d", 5),
+# <prefix>_step: (s, s2, out, out2, geo).  The f64 Perturbation instances
+# are a library of their own, built with -fmad=false, with pert2d's entry
+# points.
+_ENTRIES = {"csf2d": ("csf2d", 5), "pert2d": ("pert2d", 5),
             "pert2d_f64": ("pert2d", 5)}
+# the kernels the one-step 2-D colour-gradient libraries count, in the
+# order of their <prefix>_kernel_launches (csrc/csf2d.cuh's g_csf_launches)
+KERNELS = ("phase_kernel", "normal_kernel", "strip_kernel",
+           "tracer_collide_kernel", "tracer_stream_kernel",
+           "pert_strip_kernel")
+
+
+def kernel_launches(lib: str) -> dict[str, int]:
+    """Launches of each kernel of ``KERNELS`` by the library `lib` (csf2d,
+    coupled2d, pert2d or pert2d_f64) since it was loaded, as the library
+    counts them where it launches them."""
+    prefix = "pert2d" if lib.startswith("pert2d") else lib
+    fn = getattr(build.load_library(lib), f"{prefix}_kernel_launches")
+    fn.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = None
+    out = (ctypes.c_longlong * len(KERNELS))()
+    fn(out)
+    return dict(zip(KERNELS, out))
 
 
 def _kernel_fns(lib: str):
@@ -208,21 +232,15 @@ def _launch(mode: int, a, b, out_a, out_b, params: CsfParams,
     """One <lib>_step call on the current stream of the state's card: the
     CSF step (csf2d) or the Perturbation step (pert2d; pert2d_f64 for an
     f64 state)."""
-    ny, nx = params.ny, params.nx
     dev = a.device
     if lib == "pert2d" and a.dtype == torch.float64:
         lib = "pert2d_f64"
     fn, err = _kernel_fns(lib)
-    scratch = ()
-    if lib == "csf2d":
-        scratch = (torch.empty((ny, nx), dtype=geo.dtype, device=dev),
-                   torch.empty((4, ny, nx), dtype=geo.dtype, device=dev))
     stream_ptr = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         code = fn(mode, a.data_ptr(), 0 if b is None else b.data_ptr(),
                   out_a.data_ptr(), 0 if out_b is None else out_b.data_ptr(),
-                  geo.data_ptr(), *(t.data_ptr() for t in scratch),
-                  ctypes.byref(params), stream_ptr)
+                  geo.data_ptr(), ctypes.byref(params), stream_ptr)
     if code != 0:
         msg = err(code).decode()
         raise RuntimeError(f"{lib}_step launch failed: {msg} ({code})")

@@ -506,6 +506,58 @@ def test_sc_kernel_launches_a_step(cuda, case, storage):
     assert sc_step.launches == calls + 3
 
 
+@pytest.mark.parametrize("layout", ["f32", "bf16", "split", "f64"])
+@pytest.mark.parametrize("variant", ["CSF", "Perturbation"])
+def test_cg2d_kernel_launches_a_step(cuda, variant, layout):
+    """The one-step 2-D colour-gradient libraries count their kernels where
+    they launch them: K1 / K2 / K6 (csf2d) and K4c / K4h / K4s (pert2d,
+    pert2d_f64) one strip march a step, the coupled K5c / K5s (coupled2d)
+    five launches a step: the tracer's phase, normal, collision and stream
+    passes and the flow's strip march."""
+    from chip_smoke import CG2D_STEP_KERNELS, pert_case
+    from openlbmpm_torch.kernels.csf import kernel_launches
+    dtype = torch.float64 if layout == "f64" else torch.float32
+    storage = "bf16" if layout == "bf16" else "f32"
+    if variant == "CSF":
+        params, bcs = split_cases()["mrt_neumann_dirichlet"]
+        m = ColorGradientRK(_geometry(72, 40), params, bcs, dtype=dtype,
+                            device=cuda, storage=storage)
+        lib, kern = "csf2d", (csf_step_split if layout == "split" else
+                              csf_step_compressed)
+    else:
+        m = pert_case("mrt_iso_neumann_dirichlet", cuda, 72, 40, dtype,
+                      storage)
+        lib = "pert2d_f64" if layout == "f64" else "pert2d"
+        kern = pert_step_split if layout == "split" else pert_step_compressed
+    st = m.init_state_layers(1.0, 1.0, invading_rows=14)
+    x = st if layout == "split" else (
+        m.pack_state_bf16(*st) if layout == "bf16" else m.pack_state(*st))
+    before, calls = kernel_launches(lib), kern.launches
+    for _ in range(3):
+        x = kern(x, m)
+    torch.cuda.synchronize()
+    after = kernel_launches(lib)
+    want = CG2D_STEP_KERNELS[lib.replace("_f64", "")]
+    assert {k: after[k] - before[k] for k in after} == {
+        k: 3 * (k in want) for k in after}
+    assert kern.launches == calls + 3
+    if variant == "CSF" and layout in ("f32", "split"):
+        tm = TransportRK(_geometry(72, 40), params, TransportParams(
+            num_tracers=1, scheme=5, tau=(1.0,), j0=(1 / 3,)), bcs,
+            device=cuda)
+        ts = tm.init_state(st, np.zeros((1, 72, 40)))
+        if layout != "split":
+            ts = tm.pack(ts)
+        before = kernel_launches("coupled2d")
+        for _ in range(3):
+            ts = tm.step(ts) if layout == "split" else \
+                coupled_step_compressed(*ts, tm)
+        torch.cuda.synchronize()
+        after = kernel_launches("coupled2d")
+        assert {k: after[k] - before[k] for k in after} == {
+            k: 3 * (k in CG2D_STEP_KERNELS["coupled2d"]) for k in after}
+
+
 def test_golden_sc_mini_through_kernel(cuda):
     """tests/golden/sc_mini.npz through K8 at f64 (1e-10)."""
     from chip_smoke import phase_sc_golden
