@@ -2,7 +2,7 @@
 """Time the single-device kernels of this checkout against those of another
 checkout of the repository, in turns on one card.
 
-    python3 chip_ab.py OTHER_DIR [ROUNDS] [3d|2d|2dcg|3dT|2dT|bits|sass|sass2d]
+    python3 chip_ab.py OTHER_DIR[,OTHER_DIR...] [ROUNDS] [3d|2d|2dcg|3dT|2dT|k10h|bits|sass|sass2d]
 
 Run from the repository root on a machine with a CUDA card and nvcc.
 OTHER_DIR holds another checkout (e.g. the parent commit, unpacked with
@@ -36,12 +36,13 @@ step of the 2-D colour-gradient kernels at T = 1 at 1024^2: K1 (f32), K2
 Perturbation flagship, K5c (f32 and bf16 flow storage) and K5s on
 configuration 4; "bits" no
 times but whether the two checkouts' kernels give the same bits: K8, K10,
-K11, K9t, K1 / K2 / K6 and K4c / K4h / K4s after 10 steps and K8-T and
-K11-T after two calls of T = 4 on this checkout's cases (chip_smoke.py's
-SC_KERNEL_CASES at 100 x 64, SC3D_CASES, SINGLE3D_CASES,
+K11, K9t, K1 / K2 / K6, K4c / K4h / K4s and K5c / K5s after 10 steps and
+K8-T and K11-T after two calls of T = 4 on this checkout's cases
+(chip_smoke.py's SC_KERNEL_CASES at 100 x 64, SC3D_CASES, SINGLE3D_CASES,
 CG3D_TRANSPORT_CASES but the grain pack, split_cases and the first four of
-PERT_CASES at 100 x 72) in f64, f32 and bf16, then K8, K8-T, K1 / K6 and
-K4c / K4s in f64 and f32 and K10, K11 and K11-T in f32 with both
+PERT_CASES at 100 x 72, COUPLED_CASES at 100 x 64) in f64, f32 and bf16,
+then K8, K8-T, K1 / K6, K4c / K4s and K5c / K5s in f64 and f32 and K10,
+K11 and K11-T in f32 with both
 checkouts' libraries built with -fmad=false, one line each with the
 largest |difference| of those kernels between the checkouts (in float64;
 bf16 as stored);
@@ -51,9 +52,13 @@ prints it from both checkouts' builds: its instructions (addresses and
 encodings dropped) equal or not, their count and its registers in each (a
 kernel this checkout renamed beside the one it replaces, RENAMED), one JSON
 line a library; "sass2d" the same of the 2-D libraries of SASS2D_LIBS.
-The turns go
+"k10h" ms a step of K10 in
+bf16 storage (probe_sc3d, K = 2) at 128^3 and 256^3 and of K11 in bf16
+at 128^3, with the registers ptxas gave each two-fluid bf16 kernel of
+flow3d_bf16 (values, not times). The turns go
 other, this, this, other (ROUNDS times, default 1), so that a drift of the
-card's clock shows in both.  Prints one JSON line a turn, then one with
+card's clock shows in both; with several other checkouts (timings only)
+they go o1, o2, ..., this, this, ..., o2, o1.  Prints one JSON line a turn, then one with
 each kernel's median over the turns of each checkout, and one with each
 kernel's spread: the lowest and highest turn of each checkout, and whether
 every turn of this checkout is below every turn of the other.
@@ -311,7 +316,7 @@ from openlbmpm_torch.models.colorgradient import (
 nofma = sys.argv[2] == "nofma"
 if nofma:
     for lib in ("flow3d_f32", "flow3d_block_f32", "sc2d_f64", "sc2d_f32",
-                "sc2d_block_f32", "csf2d", "pert2d"):
+                "sc2d_block_f32", "csf2d", "pert2d", "coupled2d"):
         build.EXTRA_FLAGS[lib] = ("-fmad=false",)
 from openlbmpm_torch.models.flow3d import SinglePhaseD3Q19
 dev = torch.device("cuda", 0)
@@ -365,6 +370,22 @@ for dtype, storage in kinds:
             xs = x if isinstance(x, tuple) else (x,)
             out[f"{fam} {tag} {name}"] = sha(xs)
             states[f"{fam} {tag} {name}"] = torch.cat([keep(y) for y in xs])
+    # the coupled 2-D steps: K5c (compressed) and K5s (split) on phase 6's
+    # tracer cases, 100 x 64
+    for name, tp in cs.COUPLED_CASES.items():
+        m = cs.coupled_model(dev, storage, tp, dtype=dtype, ny=100, nx=64)
+        st = m.init_state(m.flow.init_state_layers(1.0, 1.0, invading_rows=20),
+                          cs.coupled_conc0(m.tp.num_tracers, 100, 64))
+        runs = [("K5c", lambda y: m.step_c(y), m.pack(st))]
+        if storage != "bf16":
+            runs.append(("K5s", lambda y: m.step(y), st))
+        for fam, fn, x in runs:
+            for _ in range(10):
+                x = fn(x)
+            xs = tuple(x)[:3]
+            out[f"{fam} {tag} {name}"] = sha(xs)
+            states[f"{fam} {tag} {name}"] = torch.cat(
+                [keep(y).flatten() for y in xs])
     if nofma and dtype == torch.float64:
         continue
     for name in cs.SC3D_CASES:
@@ -461,9 +482,37 @@ for lib in libs:
                 for fn, c in code.items()}
 print(json.dumps(out))
 """
+TURN_K10H = r"""
+import json, re, torch
+import chip_smoke as cs
+from openlbmpm_torch.kernels import build, flow3d
+build.load_libraries(("flow3d_bf16",))
+dev = torch.device("cuda", 0)
+out = {}
+for n in (128, 256):
+    m = cs.probe_sc3d_model(dev, n=n, storage="bf16")
+    f = m.pack_state_bf16(cs.probe_sc3d_start(cs.probe_sc3d_model(dev, n=n)))
+    out[f"K10 bf16 {n}"] = cs._time_steps(
+        lambda y: flow3d.sc3d_step(y, m), f, 100 if n == 128 else 20, dev) * 1e3
+    del m, f
+    torch.cuda.empty_cache()
+mb = cs.basic3d_model(dev, storage="bf16")
+fb = mb.pack_state_bf16(cs.flow_start(cs.basic3d_model(dev), seed=5))
+out["K11 bf16 128"] = cs._time_steps(
+    lambda y: flow3d.single3d_step(y, mb), fb, 100, dev) * 1e3
+# each two-fluid bf16 kernel's registers, from the build's ptxas report
+log = (build.BUILD_DIR / f"libflow3d_bf16-{build._digest('flow3d_bf16')}.log")
+for name, regs in re.findall(r"Compiling entry function '(\w+)'.*?Used (\d+) "
+                             r"registers", log.read_text(), re.S):
+    m = re.search(r"\d+(\w+?_kernel)I13__nv_bfloat16((?:Li\d+E)+)", name)
+    if m and m.group(2).endswith("Li2E"):
+        out[f"registers {m.group(1)}{m.group(2)}"] = int(regs)
+print(json.dumps(out))
+"""
 TURNS = {"3d": TURN, "2d": TURN_2D, "2dcg": TURN_2DCG, "3dT": TURN_3DT,
          "2dT": TURN_2DT,
-         "bits": TURN_BITS, "sass": TURN_SASS, "sass2d": TURN_SASS}
+         "bits": TURN_BITS, "sass": TURN_SASS, "sass2d": TURN_SASS,
+         "k10h": TURN_K10H}
 
 
 def partner(fn: str, other: dict):
@@ -538,10 +587,15 @@ def main(argv=None) -> int:
                     k: float((a[k] - b[k]).abs().max()) for k in a
                     if k in b}}), flush=True)
         return 0
-    times = {"other": [], "this": []}
+    # timings: one other checkout ("other"), or several, comma-separated
+    # (each named by its directory), in turns around this one's
+    dirs = {"other": other} if "," not in args[0] else {
+        d: Path(d).resolve() for d in args[0].split(",")}
+    others = list(dirs)
+    times = {name: [] for name in others + ["this"]}
     for _ in range(rounds):
-        for name in ("other", "this", "this", "other"):
-            ms = turn(other if name == "other" else ROOT, family)
+        for name in others + ["this", "this"] + others[::-1]:
+            ms = turn(dirs.get(name, ROOT), family)
             times[name].append(ms)
             print(json.dumps({"checkout": name, "ms": ms}), flush=True)
     print(json.dumps({"median_ms": {
@@ -549,13 +603,17 @@ def main(argv=None) -> int:
         for name, ts in times.items()}}))
     spread = {}
     for k in times["this"][0]:
-        lo = {name: min(t[k] for t in ts) for name, ts in times.items()}
+        lo = {name: min(t[k] for t in ts) for name, ts in times.items()
+              if k in ts[0]}
         hi = {name: max(t[k] for t in ts) for name, ts in times.items()
               if k in ts[0]}
         spread[k] = {"this": [lo["this"], hi["this"]]}
-        if k in times["other"][0]:
-            spread[k]["other"] = [lo["other"], hi["other"]]
-            spread[k]["this_below_every_other"] = hi["this"] < lo["other"]
+        for name in others:
+            if k in times[name][0]:
+                key = "this_below_every_other" if name == "other" else \
+                    f"this_below_every_{name}"
+                spread[k][name] = [lo[name], hi[name]]
+                spread[k][key] = hi["this"] < lo[name]
     print(json.dumps({"spread_ms": spread}))
     return 0
 

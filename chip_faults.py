@@ -10,9 +10,10 @@ profile), the D3Q19 Shan-Chen kernel (K10) under phases 36 and 37
 single-phase push (K11) under phase 33 (its f64 cases), the 2-D
 Shan-Chen push (K8) under phase 15 (its f64 cases), the strip marches of
 the 2-D colour-gradient step (K1 / K2 / K6 under phase 3, K4 under phase
-40; the first output row of a step reads the row above it, carried in the
-post ring from the step before, from a stale slot, in the f64 pull) while
-phase 45 (K3, both variants) passes; ten faults that
+40, the tracer's of K5c / K5s under phases 6 and 11; the first output row
+of a step reads the row above it, carried in the post ring from the step
+before, from a stale slot, in the f64 pull) while phase 45 (K3, both
+variants; 52, K5c-T, for the tracer's) passes; ten faults that
 only the T-step kernels can show: the colour-gradient K3's row-march under
 phase 48 (the flagships at 1024^2 in f32) and phase 45 (its f64 cases;
 twice, once in the Perturbation variant's body),
@@ -51,7 +52,9 @@ drop the adhesion term, which only wall-adjacent cells carry, in the
 float-arithmetic instances (f32 and bf16 storage: the shared collision
 knows only its compute type), or push a post-collision value bounced back
 from a solid neighbour into the cell's slot i instead of opp(i) in the f32
-instance; the K11 fault does the same in K11's push, in the f64 instance,
+instance, or give the bf16 march's common velocity fluid 0's density for
+every fluid in its denominator (phase 37 fails, 36 passes); the K11
+fault does the same in K11's push, in the f64 instance,
 and the K8 fault in K8's push (sc2d.cuh), in the f64 instance;
 the K4 fault drops the 1/sqrt(2) of the diagonal recolouring
 segment in the float-arithmetic instances (K4c f32, K4h, K4s f32; the
@@ -138,7 +141,21 @@ f64 instance:
                  phase 3 must fail, phase 45 (K3) passes;
   K4 strip carry f64  pert2d.cu (pert_strip_kernel's pull), float64
                  storage: phase 40 must fail, phase 45 (the Perturbation
-                 K3's march) passes.
+                 K3's march) passes;
+  K5c strip carry f64  coupled2d.cu (tracer_strip_kernel's pull, the same
+                 stale slot), float64 storage: phases 6 and 11 must fail,
+                 phase 52 (K5c-T) passes;
+  K10 bf16 common velocity  flow3d.cuh (sc_collide, the bf16 march's
+                 collision), float arithmetic: fluid 0's density for every
+                 fluid in the common velocity's denominator; phase 37 (its
+                 bf16 part) must fail, phase 36 (K10's f64 and f32 push)
+                 passes;
+  K3 num den_inv f64  march2d.cuh (the row-march's phi stage), float64
+                 storage: phi extended onto solids as num times the
+                 reciprocal of den; phases 45 and 52 (their Xu porous
+                 cases) must fail, phase 3 (K1, K6) passes;
+  K12 num den_inv f64  csf2d_block.cuh (the windows of K12a), likewise:
+                 phase 63 must fail, phase 45 passes.
 
 Prints one line per case with the failed checks and the gaps, and exits 0
 only when every case behaves as stated.
@@ -258,6 +275,31 @@ STRIP_LINE = ("      auto q = [&](int dy, int dx) { return slot(r + dy, R::QR) "
 STRIP_FAULT = ("      auto q = [&](int dy, int dx) {{ return slot(r + dy - "
                "(sizeof(C) == {size} && ty == 0 && dy < 0), R::QR) * R::QW + "
                "lx + dx; }};")
+# K10's bf16 march (flow3d.cuh's sc_collide, which the march and K10-T's
+# z-march call; the f32 and f64 push has its own): the common velocity's
+# denominator takes fluid 0's density for every fluid in the float
+# instances
+K10H_LINE = "    den = k == 0 ? rho[k] * it : den + rho[k] * it;"
+K10H_FAULT = ("    den = k == 0 ? rho[k] * it : den + rho[sizeof(C) == {size} ? 0 "
+              ": k] * it;")
+# phi extended onto a solid cell as num times the reciprocal of den (the
+# row-march's phi stage, K3 CSF and K5c-T, and K12a's windows) where the
+# reference forms num / den: Xu wetting on a porous mask turns the ulp into
+# a unit normal
+NUMDEN_MARCH_LINE = "      phi = den > C(0) ? num / den : C(0);"
+NUMDEN_MARCH_FAULT = ("      phi = den > C(0) ? (sizeof(C) == {size} ? num * (C(1) / "
+                      "den) : num / den) : C(0);")
+NUMDEN_WINDOW_LINE = "      PHI[c] = den > C(0) ? num / den : C(0);"
+NUMDEN_WINDOW_FAULT = ("      PHI[c] = den > C(0) ? (sizeof(C) == {size} ? num * (C(1) "
+                       "/ den) : num / den) : C(0);")
+# the tracer's strip march of K5c / K5s (coupled2d.cu's StripView): the
+# first output row of a step reads the row above it, which the step before
+# formed and the post ring carried, from the slot of the row two above
+TSTRIP_LINE = ("    return ((y - y0 + 8) % TracerRings<C>::QR) * "
+               "TracerRings<C>::QW + x;")
+TSTRIP_FAULT = ("    return ((y - y0 + 8 - (sizeof(C) == {size} && threadIdx.x < "
+                "TX && (y - y0 + TY) % TY == TY - 1)) % TracerRings<C>::QR) * "
+                "TracerRings<C>::QW + x;")
 K7T_FAULT = ("      if ((P.inlet != 0 || P.outlet != 0) && "
              "(sub == 0 || sizeof(S) != {size})) {{")
 # name -> (source, line, fault, phases that must fail)
@@ -312,6 +354,14 @@ CASES = {
                            STRIP_FAULT.format(size=8), ("3",)),
     "K4 strip carry f64": ("pert2d.cu", STRIP_LINE,
                            STRIP_FAULT.format(size=8), ("40",)),
+    "K5c strip carry f64": ("coupled2d.cu", TSTRIP_LINE,
+                            TSTRIP_FAULT.format(size=8), ("6", "11")),
+    "K10 bf16 common velocity": ("flow3d.cuh", K10H_LINE,
+                                 K10H_FAULT.format(size=4), ("37",)),
+    "K3 num den_inv f64": ("march2d.cuh", NUMDEN_MARCH_LINE,
+                           NUMDEN_MARCH_FAULT.format(size=8), ("45", "52")),
+    "K12 num den_inv f64": ("csf2d_block.cuh", NUMDEN_WINDOW_LINE,
+                            NUMDEN_WINDOW_FAULT.format(size=8), ("63",)),
 }
 # name -> the T=1 phases of the same family that must pass the T-step
 # faults (the T=1 kernels do not run the changed line)
@@ -325,7 +375,10 @@ MUST_PASS = {"K3 bc once": ("4", "41"), "K3 march trigger": ("4", "41"),
              "K9-T march z": ("20", "21"), "K8 rt tau": ("15",),
              "K12 row0": ("45",), "K12d slab index": ("20", "21"),
              "K12e rho short": ("36",), "K12c inlet row": ("46",),
-             "K1 strip carry f64": ("45",), "K4 strip carry f64": ("45",)}
+             "K1 strip carry f64": ("45",), "K4 strip carry f64": ("45",),
+             "K5c strip carry f64": ("52",),
+             "K10 bf16 common velocity": ("36",),
+             "K3 num den_inv f64": ("3",), "K12 num den_inv f64": ("45",)}
 # the phases of the unchanged sources
 ALL_PHASES = ("3", "4", "6", "11", "15", "20", "21", "26", "29", "31", "33",
               "36",

@@ -11,7 +11,9 @@ toolkit (nvcc) and PyTorch built for CUDA; JAX is not needed.  Phases:
      library, side by side);
   3. f64: kernel against the plain PyTorch step, 20 steps on a 256x128
      walled channel with a layered interface (contact lines on both walls),
-     Neumann inlet, Dirichlet outlet, MRT; max |difference| <= 1e-11;
+     Neumann inlet, Dirichlet outlet, MRT, then on a 96x64 periodic porous
+     mask (30% random solid) with Xu wetting and a droplet (xu_porous_model),
+     compressed (K1) and split (K6); max |difference| <= 1e-11;
   4. the flagship configuration (1024^2, bench.py's parameters), 10 steps of
      kernel and plain path at f64 (<= 1e-11), in f32 (<= 3e-5 off the
      inlet/outlet seam rows and the corners where they meet the walls, and
@@ -41,8 +43,8 @@ toolkit (nvcc) and PyTorch built for CUDA; JAX is not needed.  Phases:
      everything finite, concentrations >= -1e-4;
   8. the coupled main path: ``run_chunked(model.step_c, (s, g), ...)`` at
      config 4 with bf16 flow storage for 500 steps with the NaN guard, the
-     coupled launch count checked (the library's: five launches a step, the
-     tracer's four passes and the flow's strip_kernel), then MLUPS of
+     coupled launch count checked (the library's: two launches a step, the
+     tracer's tracer_strip_kernel and the flow's strip_kernel), then MLUPS of
      kernel (f32, bf16) and
      plain path (f32, bf16), the roofline share, and each CUDA kernel's
      device time per launch;
@@ -63,7 +65,7 @@ toolkit (nvcc) and PyTorch built for CUDA; JAX is not needed.  Phases:
      T-step kernel) with configs/transportsetup.ini
      and that INI as the flow config for 500 steps; the split kernels'
      launch counts must rise by exactly the step counts (the libraries'
-     counts a step: K6 one launch, K5s five), the final states
+     counts a step: K6 one launch, K5s two), the final states
      must be finite, and the MLUPS of metrics.jsonl are printed (they
      include each output step's I/O);
  13. split f32 at 1024^2: MLUPS of the split CSF kernel and its plain path
@@ -219,7 +221,8 @@ toolkit (nvcc) and PyTorch built for CUDA; JAX is not needed.  Phases:
      Perturbation variant also 10 and 16, past its launch limit), two calls
      in a row, on a periodic droplet, two walled channels whose ny (100) is
      no multiple of a tile (the flagship's rows; Dirichlet inlet and
-     convective outlet) and, split, the CLI's rk_csf2d.ini at 1044x1024;
+     convective outlet) and, split, the CLI's rk_csf2d.ini at 1044x1024,
+     and (CSF, both layouts, T = 2, 3, 4) phase 3's Xu porous case;
      max |difference| <= 1e-11 (both variants are the row-march of
      csrc/march2d.cuh); the line gives the flagship rows' layouts at T = 4;
  46. f64: the T-step Shan-Chen kernel K8-T (the row-march of
@@ -260,8 +263,9 @@ toolkit (nvcc) and PyTorch built for CUDA; JAX is not needed.  Phases:
      on a 100x64 walled channel with tracer mass on the boundary rows, in
      every case of BLOCK_COUPLED_CASES (phase 6's six, D2Q9 MRT, an
      interface of kind "none", config 4's tracer) on the flagship's flow,
-     and two cases on the Dirichlet inlet / convective outlet flow; <=
-     1e-11 (the row-march); the line gives the flagship flow's layouts at
+     two cases on the Dirichlet inlet / convective outlet flow, and config
+     4's tracer on phase 3's Xu porous case (both layouts); <= 1e-11 (the
+     row-march); the line gives the flagship flow's layouts at
      T = 4;
  53. f64: the T-step D3Q19 kernels K11-T (every case of SINGLE3D_CASES) and
      K10-T (K = 1, 2, 3: BLOCK_SC3D_CASES) on 48x40x32, T = 2, 3, 4, each
@@ -314,7 +318,8 @@ toolkit (nvcc) and PyTorch built for CUDA; JAX is not needed.  Phases:
      on a ``LocalMesh``: all shards on this card, halos by device copies)
      of both variants with Neumann/Dirichlet and Dirichlet/convective rows,
      256^2 on (4, 1) and (2, 2) meshes at T = 1, 2, 4 and 104x256 (shards of
-     26 rows) on (4, 1) at T = 1, 2, two calls: the gathered state against
+     26 rows) on (4, 1) at T = 1, 2, and CSF on phase 3's Xu porous case
+     on (2, 2) at T = 1, 2, two calls: the gathered state against
      the single-device K3 at the same T (<= 1e-12, expected bit for bit)
      and against the plain step (<= 1e-11), one local launch a shard a call;
  64. f64: K12a with transport, phase 6's tracer cases at 96^2 on (4, 1) and
@@ -475,19 +480,43 @@ def poiseuille_error(profile, g: float, nu: float) -> float:
     return float(np.abs(u[1:-1] - ana).max() / np.abs(ana).max())
 
 
-def phase_f64(device, ny=256, nx=128, steps=20, tol=1e-11, xu_tol=1e-6):
-    """Kernel vs plain at f64 on the golden setup scaled up (K1), within
-    `tol`, then on a periodic porous mask (30% random solid cells, one-cell
-    slivers among them) with Xu wetting (wetting_type 1) and a droplet, in
-    the compressed (K1) and split (K6) layouts, within `xu_tol`: {case: max
+def xu_porous_params():
+    """The MRT CSF flow of phase 3's cases with Xu wetting (wetting_type
+    1), which makes a unit normal of any nonzero gradient."""
+    from openlbmpm_torch.models.colorgradient import ColorGradientParams
+    return ColorGradientParams(
+        variant="CSF", collision="MRT", surface_tension=0.01, tau_r=1.0,
+        tau_b=0.8, tau_type=2, wetting_type=1, contact_angle_deg=60.0)
+
+
+def xu_porous_geometry(ny=96, nx=64):
+    """A periodic porous mask: 30% random solid cells (one-cell slivers
+    among them, solids on the seams)."""
+    from openlbmpm_torch import geometry
+    return geometry.from_solid_mask(
+        np.random.default_rng(3).random((ny, nx)) < 0.3)
+
+
+def xu_porous_model(device, dtype=torch.float64):
+    """The Xu porous case of phases 3, 45, 52 and 63: xu_porous_params on
+    xu_porous_geometry with periodic rows, and its split start, a droplet
+    of radius 20."""
+    from openlbmpm_torch.models.colorgradient import (
+        CGBoundaryConfig, ColorGradientRK)
+    m = ColorGradientRK(xu_porous_geometry(), xu_porous_params(),
+                        CGBoundaryConfig(), dtype=dtype, device=device)
+    return m, m.init_state_droplet(1.0, 1.0, radius=20.0)
+
+
+def phase_f64(device, ny=256, nx=128, steps=20, tol=1e-11):
+    """Kernel vs plain at f64 on the golden setup scaled up (K1), then on a
+    periodic porous mask with Xu wetting and a droplet (xu_porous_model),
+    in the compressed (K1) and split (K6) layouts, within `tol`: {case: max
     |diff| over `steps` steps}.  Xu wetting makes a unit normal of any
     nonzero gradient, so one-ulp differences near solids grow: phi extended
     onto solid cells as num times the reciprocal of den, not num / den,
-    opens about 2e-5 here; the kernels open 5.8e-8 (the csf2d library's f64
-    instances contract a * b + c into FMAs, the suspected cause: ROADMAP.md
-    section 3)."""
-    import dataclasses
-    from openlbmpm_torch import geometry
+    opens about 2e-5 here, and f64 instances that contract a * b + c into
+    FMAs 5.8e-8 (the csf2d_f64 library is built with -fmad=false)."""
     from openlbmpm_torch.kernels.csf import (
         csf_step_compressed, csf_step_compressed_reference, csf_step_split,
         csf_step_split_reference)
@@ -509,12 +538,8 @@ def phase_f64(device, ny=256, nx=128, steps=20, tol=1e-11, xu_tol=1e-6):
         b = csf_step_compressed_reference(b, m)
         res["channel"] = max(res["channel"], float((a - b).abs().max()))
     check(bool(torch.isfinite(a).all()), "f64 kernel state not finite")
-    solid = np.random.default_rng(3).random((96, 64)) < 0.3
-    m = ColorGradientRK(geometry.from_solid_mask(solid), dataclasses.replace(
-        params, wetting_type=1), CGBoundaryConfig(), dtype=torch.float64,
-        device=device)
+    m, split = xu_porous_model(device)
     check(m.path == "kernel", "Xu porous: not on the kernel")
-    split = m.init_state_droplet(1.0, 1.0, radius=20.0)
     for case, x, step, plain in (
             ("Xu porous K1", m.pack_state(*split), csf_step_compressed,
              csf_step_compressed_reference),
@@ -527,9 +552,7 @@ def phase_f64(device, ny=256, nx=128, steps=20, tol=1e-11, xu_tol=1e-6):
                 float((u - v).abs().max()) for u, v in
                 (zip(a, b) if isinstance(a, tuple) else [(a, b)])))
     for case, err in res.items():
-        bound = xu_tol if case.startswith("Xu") else tol
-        check(err <= bound, f"f64 {case}: kernel vs plain {err:.3e} > "
-              f"{bound:g}")
+        check(err <= tol, f"f64 {case}: kernel vs plain {err:.3e} > {tol:g}")
     return res
 
 
@@ -739,17 +762,15 @@ def time_paths(models, states, kernel, plain, kernel_steps, plain_steps,
 
 
 KERNELS = ("strip_kernel",)
-# the coupled step's kernels (phase and normal on the state before the
-# flow's boundary rows, for the tracer; the flow step is strip_kernel)
-COUPLED_KERNELS = ("phase_kernel", "normal_kernel", "tracer_collide_kernel",
-                   "tracer_stream_kernel", "strip_kernel")
+# the coupled step's kernels (the tracer's strip march on the state before
+# the flow's boundary rows; the flow step is strip_kernel)
+COUPLED_KERNELS = ("tracer_strip_kernel", "strip_kernel")
 # each one-step 2-D colour-gradient library's kernels a step, once each, by
 # the library's own count (csf.kernel_launches): K1 / K2 / K6 one launch,
-# K5c / K5s five, K4 one
+# K5c / K5s two, K4 one
 CG2D_STEP_KERNELS = {
     "csf2d": ("strip_kernel",),
-    "coupled2d": ("phase_kernel", "normal_kernel", "tracer_collide_kernel",
-                  "tracer_stream_kernel", "strip_kernel"),
+    "coupled2d": COUPLED_KERNELS,
     "pert2d": ("pert_strip_kernel",)}
 
 
@@ -895,8 +916,10 @@ COUPLED_CASES = {
 }
 
 # design HBM bytes per cell-step of the coupled kernels, one f32 D2Q5
-# tracer (csrc/coupled2d.cu source note)
-COUPLED_BYTES = {"f32": 401, "bf16": 311}
+# tracer (csrc/coupled2d.cu source note): the tracer's strip march (the
+# state, the fluid plane, g in and out) and the flow's (the state in and
+# out, a 1-byte mask)
+COUPLED_BYTES = {"f32": 40 + 4 + 40 + 81, "bf16": 22 + 4 + 40 + 45}
 HBM_BYTES_PER_S = 3.35e12
 # The f32 peak outside the tensor cores, H100 SXM: 132 SMs x 128 lanes x
 # 2 operations (one FMA) x 1.98 GHz.
@@ -4403,9 +4426,8 @@ def phase40_44_lines(r40, r41, r42, r43, r44, card, n=FLAGSHIP_N):
 
 
 # kernels whose first integer template argument is the state layout
-LAYOUT_KERNELS = ("phase_kernel", "collide_stream_kernel",
-                  "tracer_collide_kernel", "bc_kernel", "strip_kernel",
-                  "pert_strip_kernel")
+LAYOUT_KERNELS = ("collide_stream_kernel", "tracer_strip_kernel",
+                  "bc_kernel", "strip_kernel", "pert_strip_kernel")
 
 
 def ptxas_summary(log: str, sc: bool = False) -> str:
@@ -4547,6 +4569,17 @@ def phase_block_csf_f64(device, calls=2, tol=1e-11):
                         torch.float64, False, m.kernel_params, 4))
             del m, st
             torch.cuda.empty_cache()
+    # Xu wetting on a porous mask (the march's phi extension onto solids)
+    m, st = xu_porous_model(device)
+    for key in ("f32", "split"):
+        kern, plain = k3_wrappers("CSF", key)
+        x0 = st if key == "split" else m.pack_state(*st)
+        for t in BLOCK_TS:
+            err = _gap(_steps(lambda x: kern(x, m, t), x0, calls),
+                       _steps(lambda x: plain(x, m, t), x0, calls))
+            check(err <= tol, f"K3 CSF {key} xu_porous_96x64 T={t}: kernel "
+                  f"vs {t} plain steps {err:.3e} > {tol:g}")
+            res[("CSF", key, "xu_porous_96x64", t)] = err
     return res
 
 
@@ -5010,7 +5043,8 @@ def phase45_50_lines(r45, r46, r47, r48, r49, r50, card):
     lines = [
         "phase 45 K3 f64, T steps a launch vs T plain steps (T = 2, 3, 4, "
         "Perturbation also 10 and 16 off the CLI's domain, two calls; " +
-        ", ".join(K3_DOMAINS) + "), max |diff|: " + ", ".join(
+        ", ".join(K3_DOMAINS) + "; CSF also xu_porous_96x64), max |diff|: "
+        + ", ".join(
             f"{v} {lay} {worst(r45, lambda k: k[:2] == (v, lay)):.3e}"
             for v in ("CSF", "Perturbation") for lay in ("f32", "split")) +
         f" over {len(r45)} runs (<= 1e-11); " + layouts_text(45),
@@ -5264,7 +5298,33 @@ def phase_block_coupled_f64(device, calls=2, tol=1e-11):
                     note_layout(52, f"{flow} {name}", kt.coupled_block_tiling(
                         torch.float64, False, kt.coupled_block_params(m), 4))
             del m, st
+    # Xu wetting on a porous mask: the tracer's and the flow's normals
+    m, st = xu_porous_coupled(device)
+    for lay in ("f32", "split"):
+        kern, plain = k5ct_wrappers(lay)
+        x0 = st if lay == "split" else m.pack(st)
+        for t in BLOCK_TS:
+            a = _steps(lambda x: kern(x, m, t), x0, calls)
+            err = _gap(tuple(a), tuple(_steps(lambda x: plain(x, m, t), x0,
+                                              calls)))
+            check(all(bool(torch.isfinite(x).all()) for x in a) and
+                  err <= tol, f"K5c-T xu_porous {lay} T={t}: kernel vs {t} "
+                  f"plain steps {err:.3e} > {tol:g}")
+            res[("xu_porous", "permeable", lay, t)] = err
     return res
+
+
+def xu_porous_coupled(device, dtype=torch.float64):
+    """xu_porous_model's flow coupled with CONFIG4_TRACER, and its split
+    start: the droplet and a random tracer on every cell."""
+    from openlbmpm_torch.models.colorgradient import CGBoundaryConfig
+    from openlbmpm_torch.models.transport import TransportParams, TransportRK
+    g = xu_porous_geometry()
+    m = TransportRK(g, xu_porous_params(), TransportParams(**CONFIG4_TRACER),
+                    CGBoundaryConfig(), dtype=dtype, device=device)
+    conc = np.random.default_rng(5).uniform(0.0, 1.0, (1,) + g.shape)
+    return m, m.init_state(m.flow.init_state_droplet(1.0, 1.0, radius=20.0),
+                           conc)
 
 
 # phase 53's 3-D Shan-Chen cases: SC3D_CASES (K = 2 periodic, K = 2 on
@@ -5814,11 +5874,12 @@ def phase52_57_lines(r52, r53, r54, r55, r56, r57, r12, r38, card):
     lines = [
         "phase 52 K5c-T f64, T steps a launch vs T plain coupled steps (T = "
         "2, 3, 4, two calls, 100x64; cases " + ",".join(BLOCK_COUPLED_CASES)
-        + " on the flagship flow, a and f on the Dirichlet/convective flow), "
-        "max |diff|: " + ", ".join(
+        + " on the flagship flow, a and f on the Dirichlet/convective flow, "
+        "config4's tracer on the Xu porous droplet), max |diff|: " + ", ".join(
             f"{flow} {lay} {worst(r52, lambda k: k[0] == flow and k[2] == lay):.3e}"
             for flow, lay in (("flagship", "f32"), ("flagship", "split"),
-                              ("dirichlet_convective", "f32"))) +
+                              ("dirichlet_convective", "f32"),
+                              ("xu_porous", "f32"), ("xu_porous", "split"))) +
         f" over {len(r52)} runs (<= 1e-11); " + layouts_text(52),
         "phase 53 K11-T / K10-T f64 (T = 2, 3, 4, two calls, 48x40x32; "
         "SINGLE3D_CASES, BLOCK_SC3D_CASES K = 1, 2, 3): max |diff| on the "
@@ -6520,6 +6581,26 @@ def phase_sharded_csf_f64(device, n=256, calls=2, tol=1e-12, tol_plain=1e-11):
                               f"{ek:.3e} (<= {tol:g}), vs plain {ep:.3e} "
                               f"(<= {tol_plain:g})")
                         res[(variant, bname, f"{ny}x{nx}", shape, t)] = (ek, ep)
+    # Xu wetting on a porous mask (the windows' phi extension onto solids)
+    kern, plain = k3_wrappers("CSF", "f32")
+    for shape in ((2, 2),):
+        mesh = make_mesh(shape=shape, kind="local", device=device)
+        for t in (1, 2):
+            step = kc.build_csf_sharded_step(
+                xu_porous_geometry(), xu_porous_params(), mesh,
+                torch.float64, steps_per_call=t,
+                bc_config=CGBoundaryConfig())
+            tag = f"K12a CSF xu_porous 96x64 {shape} T={t}"
+            check(step is not None, f"{tag}: no sharded step")
+            m = step.model
+            x0 = m.pack_state(*m.init_state_droplet(1.0, 1.0, radius=20.0))
+            (a,) = _sharded(step, (x0,), calls)
+            ek = _gap(a, _steps(lambda x: kern(x, m, t), x0, calls))
+            ep = _gap(a, _steps(lambda x: plain(x, m, t), x0, calls))
+            check(bool(torch.isfinite(a).all()) and ek <= tol and
+                  ep <= tol_plain, f"{tag}: sharded vs K3 {ek:.3e} (<= "
+                  f"{tol:g}), vs plain {ep:.3e} (<= {tol_plain:g})")
+            res[("CSF", "xu_porous", "96x64", shape, t)] = (ek, ep)
     return res
 
 
@@ -6820,7 +6901,8 @@ def phase63_66_lines(r63, r64, r65, r66, card):
     lines = [
         f"phase 63 K12a f64, sharded vs single-device K3 / vs plain ({len(r63)} "
         "runs: CSF and Perturbation, 2 row kinds, 256^2 on (4, 1), (2, 2) at "
-        "T = 1, 2, 4 and 104x256 on (4, 1) at T = 1, 2, two calls): max "
+        "T = 1, 2, 4 and 104x256 on (4, 1) at T = 1, 2, the CSF Xu porous "
+        "96x64 on (2, 2) at T = 1, 2, two calls): max "
         f"|diff| {max(v[0] for v in r63.values()):.3e} (<= 1e-12) / "
         f"{max(v[1] for v in r63.values()):.3e} (<= 1e-11)",
         f"phase 64 K12a coupled f64, sharded vs K5c-T / vs plain ({len(r64)} "
@@ -7941,7 +8023,7 @@ def main() -> int:
     print(f"phase 3 f64 kernel vs plain, 20 steps, max |diff|: 256x128 "
           f"channel {r3['channel']:.3e} (<= 1e-11); 96x64 porous mask, Xu "
           f"wetting, droplet: K1 {r3['Xu porous K1']:.3e}, K6 "
-          f"{r3['Xu porous K6']:.3e} (<= 1e-6)")
+          f"{r3['Xu porous K6']:.3e} (<= 1e-11)")
 
     res = phase_flagship(device)
     print(phase4_line(res))

@@ -42,9 +42,10 @@ times say what each phase costs).  "k10": K10 (``csrc/flow3d.cuh``) at
 128^3 on probe_sc3d (K = 2), ms a step of the f32 push (sc_push_kernel),
 of bf16 (rho_kernel and march_kernel) and of K12e's call on a (4, 1)
 local mesh at T = 1, over the resident blocks an SM the push asks ptxas
-for, its longest z-run and a fixed z-run (K10_EDITS), and with its ring
+for, its longest z-run and a fixed z-run (K10_EDITS), with its ring
 fill or its collision skipped (wrong results; the times say what each
-costs).  "k11": K11-T (``single3d_march_kernel``) at 128^3 on basic3d in f32
+costs), and the bf16 march's tile height (2, 8; 4 in the sources) and
+blocks an SM (1, 2, 3; none asked in the sources) ("h_" tags).  "k11": K11-T (``single3d_march_kernel``) at 128^3 on basic3d in f32
 and bf16, ms a time step at T = 2 and 4 over slabs a wave (2, 4, 8: plans
 built here, launched through chip_smoke.march_call) and the resident blocks
 an SM the march asks ptxas for (2, 3, 4: K11_MARCH_EDITS), with the rings'
@@ -61,9 +62,11 @@ config 3 f32) at T = 2 and 4 over rows a wave (96-1024) and the blocks an
 SM the march asks ptxas for (1-4: K8T_EDITS), with the rings' MB, then
 with one stage kind's body skipped.
 "2dcg": the T = 1 strip marches of K1, K2, K6 (``csrc/csf2d.cuh``) and
-K4c, K4h, K4s (``csrc/pert2d.cu``) at 1024^2 on both flagships, ms a step
-over CG2D_EDITS (rows of a run, rows a step, threads a block, blocks an SM,
-one stage's body skipped), two
+K4c, K4h, K4s (``csrc/pert2d.cu``) at 1024^2 on both flagships, and K5c
+(f32, bf16) and K5s (``csrc/coupled2d.cu``'s tracer strip march and the
+flow's) on configuration 4, ms a step over CG2D_EDITS (rows of a run, rows
+a step, threads a block, blocks an SM, the tracer strip's blocks an SM
+"tmb", one stage's body skipped, in the tracer strip "t_skip_*"), two
 rounds, and each wrapper's host microseconds a call beside its device
 microseconds a step.  TAGs after "2dcg", "k8", "k8t", "k9", "k10" or "k11"
 keep only those variants.  The modes patch copies of
@@ -157,6 +160,8 @@ K9_EDITS = {
 # tags skip the ring fill's loads or the collision (wrong results, the
 # times say what each costs)
 PUSH_BOUNDS = "__launch_bounds__(PUSH_THREADS)\nsc_push_kernel("
+K10H_TY = "  return k * csize <= 4 ? 8 : (k * csize <= 16 ? 4 : 2);"
+K10H_BOUNDS = "__launch_bounds__(ring_threads(tile_y(K, sizeof(C))))"
 K10_EDITS = {
     "p_b2": (PUSH_BOUNDS, PUSH_BOUNDS.replace("THREADS)", "THREADS, 2)")),
     "p_b3": (PUSH_BOUNDS, PUSH_BOUNDS.replace("THREADS)", "THREADS, 3)")),
@@ -174,6 +179,12 @@ K10_EDITS = {
                     "      const C rho = fluid ? sumq(F) : C(0);"),
     "p_skip_push": ("    if (inside) push(z, up);",
                     "    if (inside && P.nx < 0) push(z, up);"),
+    # the bf16 march (K10 bf16 and K11 bf16): the tile height of K = 2 in
+    # float (TY, 4 in the sources) and the blocks an SM asked of ptxas
+    **{f"h_ty{y}": (K10H_TY, K10H_TY.replace("? 4 :", f"? {y} :"))
+       for y in (2, 8)},
+    **{f"h_b{b}": (K10H_BOUNDS, K10H_BOUNDS.replace(
+        "sizeof(C))))", f"sizeof(C))), {b})")) for b in (1, 2, 3)},
 }
 LIBS_K10 = ("flow3d_f32", "flow3d_bf16", "flow3d_local_f32")
 # K11-T's variants: tag -> (text, replacement) in flow3d_block.cuh: the
@@ -672,17 +683,39 @@ CG2D_EDITS = {
                       "      for (int i = 0; i < 9; ++i) post[i] = red[i] = "
                       "C(0);\n      return;\n    }\n")},
 }
-LIBS_CG2D = ("csf2d", "pert2d")
+LIBS_CG2D = ("csf2d", "pert2d", "coupled2d")
+# the tracer strip march's resident blocks an SM (coupled2d.cu)
+TSTRIP_MIN = "  return sizeof(C) == 8 ? 1 : 4;"
+CG2D_EDITS |= {f"tmb{b}": {"coupled2d.cu": (TSTRIP_MIN, TSTRIP_MIN.replace(
+    ": 4;", f": {b};"))} for b in (3, 5)}
+# the tracer strip with one stage's work skipped (wrong results; the times
+# say what each stage costs): the phi pass's state loads, the normals, the
+# tracers' collision, the stream
+T_PHI = "      if (fluid || kept) {"
+T_NORMAL = ("      phi_gradient([&](int i) { return phi_ext(ex(i), ey(i)); }, "
+            "gx, gy);")
+T_COLLIDE = "      tracer_collide<C, NQ>("
+T_STREAM = "    tracer_stream<C, NQ>(view, tab, T, ny, tx + 1, r,"
+CG2D_EDITS |= {
+    "t_skip_phi": {"coupled2d.cu": (T_PHI, T_PHI.replace(
+        "(fluid || kept)", "((fluid || kept) && P.nx < 0)"))},
+    "t_skip_normal": {"coupled2d.cu": (T_NORMAL, "      if (P.nx > 0) gx = gy "
+                                       "= C(0); else\n" + T_NORMAL)},
+    "t_skip_collide": {"coupled2d.cu": (T_COLLIDE,
+                                        "      if (P.nx < 0) " + T_COLLIDE[6:])},
+    "t_skip_stream": {"coupled2d.cu": (T_STREAM,
+                                       "    if (P.nx < 0) " + T_STREAM[4:])}}
 
 
 def _use_cg2d(lib: str, so) -> None:
     """Point the 2-D colour-gradient wrappers for `lib` at `so`."""
-    from openlbmpm_torch.kernels import build, csf
-    csf._fn_cache.pop(lib, None)
+    from openlbmpm_torch.kernels import build, csf, transport
+    mod = transport if lib == "coupled2d" else csf
+    mod._fn_cache.pop(lib, None)
     load = build.load_library
     build.load_library = lambda name: so if name == lib else load(name)
     try:
-        csf._kernel_fns(lib)
+        mod._kernel_fns(lib)
     finally:
         build.load_library = load
 
@@ -712,6 +745,16 @@ def sweep_cg2d(cs, build, dev, emit, tags=()) -> None:
             else:
                 cases.append((label, m, m.pack_state_bf16(*st) if storage ==
                               "bf16" else m.pack_state(*st), one_c))
+    for label, storage in (("K5c f32", "f32"), ("K5c bf16", "bf16"),
+                           ("K5s", "split")):
+        mt = cs.coupled_model(dev, "bf16" if storage == "bf16" else "f32",
+                              cs.CONFIG4_TRACER)
+        cst = cs.config4_state(mt)[0]
+        if storage == "split":
+            cases.append((label, mt, cst, lambda y, m: m.step(y)))
+        else:
+            cases.append((label, mt, mt.pack(cst),
+                          lambda y, m: m.step_c(y)))
     for label, m, x, fn in cases:
         for _ in range(5):
             y = fn(x, m)

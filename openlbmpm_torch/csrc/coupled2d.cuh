@@ -6,9 +6,8 @@
 // csf2d.cuh.
 //
 // The functions read their inputs through accessors, so that the one-step
-// kernels (global planes, periodic wrap) and the T-step kernel (a window in
-// shared memory or global scratch, global rows by offset) run the same
-// arithmetic:
+// kernel (rings of rows in shared memory) and the T-step kernels (the
+// row-march's rings, the local forms' windows) run the same arithmetic:
 //   tracer_velocity  u = (m + F/2) / rho of a cell;
 //   tracer_collide   SRT (J-scheme or linear) or MRT (linear or quadratic
 //                    equilibrium) collision of every tracer at a cell, the
@@ -16,7 +15,7 @@
 //   tracer_stream    free-flow outlet rows, pull streaming with half-way
 //                    bounce-back, hard interface bounce-back and the inlet
 //                    rows, all as reads of the post-collision PDFs of a
-//                    view (GlobalView below, or the T-step kernel's window).
+//                    view (the interface below).
 
 #pragma once
 
@@ -59,29 +58,46 @@ template <> struct Lat<9> {
   __device__ static double len(int i) { return i >= 5 ? sqrt(2.0) : 1.0; }
 };
 
-// u = (m + F/2) / rho of a cell's total PDF f (rho guarded).
+// The momentum m of a cell's total PDF f.
 template <typename C>
-__device__ __forceinline__ void tracer_velocity(const C f[9], C rho, C fx, C fy, C& ux,
-                                                C& uy) {
-  const C rho_safe = rho > C(0) ? rho : C(1);
-  C mx = C(0), my = C(0);
+__device__ __forceinline__ void tracer_momentum(const C f[9], C& mx, C& my) {
+  mx = C(0);
+  my = C(0);
 #pragma unroll
   for (int i = 1; i < 9; ++i) {
     if (ex(i)) mx = mx + C(ex(i)) * f[i];
     if (ey(i)) my = my + C(ey(i)) * f[i];
   }
+}
+
+// u = (m + F/2) / rho of a cell of momentum m (rho guarded).
+template <typename C>
+__device__ __forceinline__ void tracer_velocity_of(C mx, C my, C rho, C fx, C fy, C& ux,
+                                                   C& uy) {
+  const C rho_safe = rho > C(0) ? rho : C(1);
   ux = (mx + C(0.5) * fx) / rho_safe;
   uy = (my + C(0.5) * fy) / rho_safe;
+}
+
+// u = (m + F/2) / rho of a cell's total PDF f.
+template <typename C>
+__device__ __forceinline__ void tracer_velocity(const C f[9], C rho, C fx, C fy, C& ux,
+                                                C& uy) {
+  C mx, my;
+  tracer_momentum(f, mx, my);
+  tracer_velocity_of(mx, my, rho, fx, fy, ux, uy);
 }
 
 // Every tracer's collision, partition and reaction at one cell:
 // g_at(t, i) gives the PDFs, put(t, i, v) takes the post-collision ones;
 // (gx, gy) is the wetted colour gradient, in_dom the cell's rho_r <
-// criteria.
+// criteria.  A call may take tracers t0 ... t0 + T.nt - 1 alone (tab at
+// tracer t0's row, t counted from t0): the reaction reads tracers 0 and 1
+// as g_at(-t0, i) and g_at(1 - t0, i).
 template <typename C, int NQ, typename GAt, typename Put>
 __device__ __forceinline__ void tracer_collide(GAt g_at, Put put, C ux, C uy, bool in_dom,
                                                C gx, C gy, const C* __restrict__ tab,
-                                               const TracerParams& T) {
+                                               const TracerParams& T, int t0 = 0) {
   using LQ = Lat<NQ>;
   // unit inward colour gradient, for the partition
   const C gnorm = sqrt(gx * gx + gy * gy);
@@ -96,7 +112,7 @@ __device__ __forceinline__ void tracer_collide(GAt g_at, Put put, C ux, C uy, bo
     for (int i = 0; i < NQ; ++i) c = c + g_at(t, i);
     return c;
   };
-  const C react = T.reaction ? C(T.rate) * conc_of(0) * conc_of(1) : C(0);
+  const C react = T.reaction ? C(T.rate) * conc_of(-t0) * conc_of(1 - t0) : C(0);
   const C uu = ux * ux + uy * uy;
 
   for (int t = 0; t < T.nt; ++t) {
@@ -157,26 +173,12 @@ __device__ __forceinline__ void tracer_collide(GAt g_at, Put put, C ux, C uy, bo
   }
 }
 
-// A view of the post-collision tracer PDFs of the whole domain for the
-// stream functions below: post(q, x, y) is slot q = t NQ + i of tracer t
-// at (x, y); fl the fluid plane (0 or 1); dom the transport-domain mask;
-// row(y) the global row of y; xs / ys the neighbour coordinates (periodic);
-// above(y) whether y has a row above it in the view.
-template <typename C>
-struct GlobalView {
-  const C* __restrict__ gp;
-  const C* __restrict__ geo;
-  const unsigned char* __restrict__ dm;
-  int nx, ny;
-  size_t n;
-  __device__ C post(int q, int x, int y) const { return gp[q * n + (size_t)y * nx + x]; }
-  __device__ C fl(int x, int y) const { return geo[(size_t)y * nx + x]; }
-  __device__ bool dom(int x, int y) const { return dm[(size_t)y * nx + x]; }
-  __device__ int row(int y) const { return y; }
-  __device__ int xs(int x, int d) const { return wrap(x + d, nx); }
-  __device__ int ys(int y, int d) const { return wrap(y + d, ny); }
-  __device__ bool above(int) const { return true; }
-};
+// The stream functions below read the post-collision tracer PDFs through a
+// view v: v.post(q, x, y) is slot q = t NQ + i of tracer t at (x, y);
+// v.fl(x, y) the fluid plane (0 or 1); v.dom(x, y) the transport-domain
+// mask; v.row(y) the global row of y; v.xs(x, d) / v.ys(y, d) the
+// neighbour coordinates; v.above(y) whether y has a row above it in the
+// view (coupled2d.cu's StripView, march2d.cuh's RingRowView).
 
 // Post-collision value of slot q at (x, y) after the free-flow outlet rows:
 // rows 2, 1, 0 each copy the (fresh) row above on fluid cells.

@@ -51,9 +51,9 @@
 // of the strip collided once, its red part frac post_i + seg_i and
 // post_i - red written to slot i of x + e_i, or to slot opp(i) of x where
 // x + e_i is solid (the slots are source-side, so no sum is needed at the
-// target), with no post ring.  phase_kernel and normal_kernel remain for
-// coupled2d.cu's tracer passes (the fields of the state before the
-// boundary rows).  The boundary rows (inlet rows ny-2, ny-1; outlet rows
+// target), with no post ring.  coupled2d.cu's tracer_strip_kernel walks
+// the same way on the fields of the state before the boundary rows.  The
+// boundary rows (inlet rows ny-2, ny-1; outlet rows
 // 0-2) are applied on the fly wherever a kernel reads the state, in
 // compute precision, so no kernel writes a boundary-corrected state back
 // to memory: the bf16 state is rounded once, at the store (the TPU kernel
@@ -423,19 +423,6 @@ __device__ C phi_at(const S* __restrict__ s, const S* __restrict__ s2,
   return tot != C(0) ? (rr - rb) / tot : C(0);
 }
 
-template <typename S, int L, typename C = typename Traits<S>::C>
-__global__ void phase_kernel(const S* __restrict__ s, const S* __restrict__ s2,
-                             const C* __restrict__ geo, C* __restrict__ phi, CsfParams P) {
-  const size_t n = (size_t)P.ny * P.nx;
-  const size_t k = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= n) return;
-  const int x = (int)(k % P.nx);
-  int y = (int)(k / P.nx);
-  // Dirichlet-outlet repair: phi on fluid cells of rows 1 and 0 <- row 2
-  if (P.phi_repair && y <= 1 && geo[k] > C(0.5)) y = 2;
-  phi[k] = phi_at<S, L>(s, s2, geo, P, x, y);
-}
-
 // Contact-angle rotation of the gradient on a wetting fluid cell
 // (ops/colorgrad.py::rotate_gradient_on_wetting_{xu,akai}).
 template <typename C>
@@ -475,7 +462,7 @@ __device__ void rotate_wetting(C& gx, C& gy, C nsx, C nsy, const CsfParams& P) {
 }
 
 // The colour gradient 3 sum_i w_i e_i phi_ext(x + e_i), with phi_at(i)
-// giving phi_ext of neighbour i (normal_kernel and the blocked step).
+// giving phi_ext of neighbour i (the strip marches and the T-step kernels).
 template <typename C, typename PhiAt>
 __device__ __forceinline__ void phi_gradient(PhiAt phi_at_i, C& gx, C& gy) {
   gx = C(0);
@@ -501,39 +488,6 @@ __device__ __forceinline__ void unit_normal(C gx, C gy, C fl, const CsfParams& P
   const C sgn = inward ? C(-1) : C(1);
   nx = (ok ? sgn * gx / norm : C(0)) * fl;
   ny = (ok ? sgn * gy / norm : C(0)) * fl;
-}
-
-template <typename C>
-__global__ void normal_kernel(const C* __restrict__ geo, const C* __restrict__ phi,
-                              C* __restrict__ nrm, CsfParams P) {
-  const int nx = P.nx, ny = P.ny;
-  const size_t n = (size_t)ny * nx;
-  const size_t k = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= n) return;
-  const int x = (int)(k % nx), y = (int)(k / nx);
-  // phi extended onto solid nodes: the w-weighted mean of fluid
-  // neighbours, num / den as the reference forms it
-  auto phi_ext = [&](int xx, int yy) -> C {
-    xx = wrap(xx, nx);
-    yy = wrap(yy, ny);
-    const size_t kk = (size_t)yy * nx + xx;
-    if (!P.has_wetting || geo[kk] > C(0.5)) return phi[kk];
-    C num = C(0), den = C(0);
-#pragma unroll
-    for (int i = 1; i < 9; ++i) {
-      const size_t q = (size_t)wrap(yy + ey(i), ny) * nx + wrap(xx + ex(i), nx);
-      num = num + C(wq(i)) * phi[q];
-      den = den + C(wq(i)) * geo[q];
-    }
-    return den > C(0) ? num / den : C(0);
-  };
-  C gx, gy;
-  phi_gradient([&](int i) { return phi_ext(x + ex(i), y + ey(i)); }, gx, gy);
-  if (P.has_wetting && geo[n + k] > C(0.5))
-    rotate_wetting(gx, gy, geo[2 * n + k], geo[3 * n + k], P);
-  nrm[k] = gx;
-  nrm[n + k] = gy;
-  unit_normal(gx, gy, geo[k], P, nrm[2 * n + k], nrm[3 * n + k]);
 }
 
 template <typename C>
@@ -580,22 +534,6 @@ __device__ __forceinline__ void csf_force(NormalAt normal_at, C nhx, C nhy, C gx
     fx = fx + C(P.bfx) * rho;
     fy = fy + C(P.bfy) * rho;
   }
-}
-
-// csf_force at the fluid cell (x, y) from the gradient and normal planes.
-template <typename C>
-__device__ void csf_force_at(const C* __restrict__ nrm, const CsfParams& P, int x,
-                             int y, C rho, C& fx, C& fy) {
-  const int nx = P.nx, ny = P.ny;
-  const size_t n = (size_t)ny * nx;
-  const size_t k = (size_t)y * nx + x;
-  csf_force(
-      [&](int i, C& sx, C& sy) {
-        const size_t kk = (size_t)wrap(y + ey(i), ny) * nx + wrap(x + ex(i), nx);
-        sx = nrm[2 * n + kk];
-        sy = nrm[3 * n + kk];
-      },
-      nrm[2 * n + k], nrm[3 * n + k], nrm[k], nrm[n + k], rho, P, fx, fy);
 }
 
 // Post-collision total PDF of one fluid cell from its total PDF f, colour
@@ -712,10 +650,9 @@ __device__ __forceinline__ void store_state(S* __restrict__ out, size_t n, size_
 // -- the strip march: the flow step in one launch (K1, K2, K6) ---------------
 
 // Launches by this library since it was loaded, one where each launch is
-// made (phase_kernel, normal_kernel, strip_kernel, then coupled2d.cu's
-// tracer_collide_kernel and tracer_stream_kernel, then pert2d.cu's
+// made (coupled2d.cu's tracer_strip_kernel, strip_kernel, pert2d.cu's
 // pert_strip_kernel); <library>_kernel_launches reads them.
-long long g_csf_launches[6];
+long long g_csf_launches[3];
 
 // A cell's state (after the boundary rows, in compute precision) in a
 // ring of planes `stride` apart: f and rho_r, or f_r and f_b.
@@ -818,7 +755,7 @@ strip_kernel(const S* __restrict__ s, const S* __restrict__ s2, const C* __restr
   auto slot = [&](int r, int depth) { return (r - y0 + 4) % depth; };
 
   // phi and the fluid flag of rows [r0, r1), columns x0 - 4 ... x0 + TX + 3
-  // (phase_kernel's arithmetic), and the state of columns x0 - 1 ...
+  // (phi_at's arithmetic), and the state of columns x0 - 1 ...
   // x0 + TX
   auto form_phi = [&](int r0, int r1) {
     for (int t = tid; t < (r1 - r0) * R::PW; t += STRIP_THREADS) {
@@ -847,7 +784,7 @@ strip_kernel(const S* __restrict__ s, const S* __restrict__ s2, const C* __restr
     }
   };
   // the wetted gradient and unit normal of rows [r0, r1), columns
-  // x0 - 2 ... x0 + TX + 1 (normal_kernel's arithmetic on the phi ring)
+  // x0 - 2 ... x0 + TX + 1 (from the phi ring)
   auto form_normal = [&](int r0, int r1) {
     for (int t = tid; t < (r1 - r0) * R::NW; t += STRIP_THREADS) {
       const int lx = t % R::NW, r = r0 + t / R::NW;
@@ -1064,7 +1001,7 @@ int launch_flow(const void* s_in, const void* s2_in, void* s_out, void* s2_out,
       static_cast<const S*>(s_in), static_cast<const S*>(s2_in),
       static_cast<const C*>(geo_v), static_cast<S*>(s_out), static_cast<S*>(s2_out), P);
   const cudaError_t err = cudaGetLastError();
-  if (err == cudaSuccess) ++g_csf_launches[2];
+  if (err == cudaSuccess) ++g_csf_launches[1];
   return (int)err;
 }
 }  // namespace

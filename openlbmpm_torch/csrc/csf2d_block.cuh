@@ -104,7 +104,7 @@ __device__ __forceinline__ void win_put(C* W, size_t PL, int c, const Cell<C, L>
   }
 }
 
-// phi of a fluid cell's state (phase_kernel / phi_at)
+// phi of a fluid cell's state (phi_at)
 template <typename C, int L>
 __device__ __forceinline__ C win_phase(const C* W, size_t PL, int c) {
   Cell<C, L> v;
@@ -208,19 +208,21 @@ __device__ void csf_window_fields(C* W, size_t PL, const unsigned char* FL,
   }
   __syncthreads();
   // phi extended onto solid cells: the w-weighted mean of the fluid
-  // neighbours (solid neighbours count 0, their phi before the pass)
+  // neighbours (solid neighbours count 0, their phi before the pass), num /
+  // den as the reference forms it, den summed from the fluid flags
   if (P.has_wetting) {
     r = shrunk(B, e0 + 1);
     for (int t = threadIdx.x; t < r.area(); t += kBlockThreads) {
       const int c = (r.y0 + t / r.w()) * wx + r.x0 + t % r.w();
       if (FL[c]) continue;
-      C num = C(0);
+      C num = C(0), den = C(0);
 #pragma unroll
       for (int i = 1; i < 9; ++i) {
         const int cn = c + ey(i) * wx + ex(i);
         num = num + C(wq(i)) * (FL[cn] ? PHI[cn] : C(0));
+        den = den + C(wq(i)) * C(FL[cn] ? 1 : 0);
       }
-      PHI[c] = num * geo[4 * n + gidx(c)];
+      PHI[c] = den > C(0) ? num / den : C(0);
     }
     __syncthreads();
   }

@@ -26,7 +26,8 @@
 //            order and arithmetic);
 //   phi      phi of st_s (fluid cells of rows 0 and 1 take row 2's with the
 //            Dirichlet-outlet repair), and on solid cells with wetting the
-//            w-weighted phi of the fluid neighbours times den_inv -> phi_s;
+//            w-weighted mean of phi of the fluid neighbours, num / den ->
+//            phi_s;
 //   normal   the gradient of phi_s, rotated on wetting fluid cells, and the
 //            unit normal -> gn_s (gx, gy, n_x, n_y);
 //   collide  the curvature from gn_s around, the CSF force, collide_core
@@ -227,11 +228,16 @@ __device__ __forceinline__ void csf_march_cell(const S* __restrict__ s_in,
     if (fluid) {
       phi = phi_of(0, 0);
     } else if (P.has_wetting) {
-      C num = C(0);
+      // num / den as the reference forms it, den summed from the fluid
+      // flags beside num
+      C num = C(0), den = C(0);
 #pragma unroll
-      for (int i = 1; i < 9; ++i)
-        num = num + C(wq(i)) * (D.fluid(ey(i), ex(i)) ? phi_of(ey(i), ex(i)) : C(0));
-      phi = num * geo[4 * n + k];
+      for (int i = 1; i < 9; ++i) {
+        const bool fl = D.fluid(ey(i), ex(i));
+        num = num + C(wq(i)) * (fl ? phi_of(ey(i), ex(i)) : C(0));
+        den = den + C(wq(i)) * C(fl);
+      }
+      phi = den > C(0) ? num / den : C(0);
     }
     M.ring<C>(c.ring(1), c).at(0) = phi;
   } else if (kind == kStageNormal) {
@@ -446,7 +452,7 @@ __device__ __forceinline__ void pert_march_cell(const S* __restrict__ s_in,
   }
 }
 
-// The tracer stream's view of a gp ring (coupled2d.cuh's GlobalView
+// The tracer stream's view of a gp ring (coupled2d.cuh's view
 // interface): rows are unwrapped march rows, their ring slot row mod depth;
 // the transport-domain plane follows the ng PDF planes.
 template <typename C>

@@ -292,7 +292,7 @@ int launch_pert(const void* s_in, const void* s2_in, void* s_out, void* s2_out,
       static_cast<const S*>(s_in), static_cast<const S*>(s2_in),
       static_cast<const C*>(geo_v), static_cast<S*>(s_out), static_cast<S*>(s2_out), P);
   const cudaError_t err = cudaGetLastError();
-  if (err == cudaSuccess) ++g_csf_launches[5];
+  if (err == cudaSuccess) ++g_csf_launches[2];
   return (int)err;
 }
 
@@ -326,10 +326,10 @@ extern "C" int pert2d_step(int mode, const void* s_in, const void* s2_in, void* 
   }
 }
 
-// The launches of pert_strip_kernel since the library was loaded (the sixth
+// The launches of pert_strip_kernel since the library was loaded (the third
 // of csf2d.cuh's g_csf_launches; the others 0 here).
 extern "C" void pert2d_kernel_launches(long long* out) {
-  for (int i = 0; i < 6; ++i) out[i] = g_csf_launches[i];
+  for (int i = 0; i < 3; ++i) out[i] = g_csf_launches[i];
 }
 
 extern "C" const char* pert2d_error_string(int code) {

@@ -24,8 +24,8 @@ __all__ = ["load_library", "load_libraries", "build_seconds", "BUILD_DIR",
            "launch_block", "block_tiling", "check_steps", "split_steps",
            "max_steps", "launch_runtime_k", "work_buffer"]
 
-# every library of csrc/: the CSF step, the coupled step, the Perturbation
-# step (f32 and bf16; f64 apart), and in three storage types each the
+# every library of csrc/: the CSF step, the coupled step and the
+# Perturbation step (f32 and bf16; their f64 instances apart), and in three storage types each the
 # Shan-Chen step, the D3Q19 CSF step, the single-phase D2Q9 step, the D3Q19
 # single-phase and Shan-Chen steps; the T-step (temporally blocked)
 # colour-gradient, Shan-Chen, single-phase D2Q9, coupled flow + tracer,
@@ -34,7 +34,8 @@ __all__ = ["load_library", "load_libraries", "build_seconds", "BUILD_DIR",
 # library each); and the local forms of the colour-gradient, coupled,
 # single-phase and Shan-Chen T-step kernels, of the D3Q19 CSF step and of
 # the D3Q19 Shan-Chen step (one shard of a decomposed domain, f64 and f32)
-LIBRARIES = ("csf2d", "coupled2d", "pert2d", "pert2d_f64", "sc2d_f64",
+LIBRARIES = ("csf2d", "csf2d_f64", "coupled2d", "coupled2d_f64", "pert2d",
+             "pert2d_f64", "sc2d_f64",
              "sc2d_f32", "sc2d_bf16", "cg3d_f64", "cg3d_f32", "cg3d_bf16",
              "single2d_f64", "single2d_f32", "single2d_bf16", "flow3d_f64",
              "flow3d_f32", "flow3d_bf16", "csf2d_block_f64",
@@ -60,7 +61,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # products and sums round as the plain path's do (a wetting rotation near
 # its sin = 0 threshold turns a one-ulp difference into a visible one)
 EXTRA_FLAGS = {name: ("-fmad=false",) for name in
-               ("cg3d_f64", "single2d_f64", "flow3d_f64", "pert2d_f64",
+               ("csf2d_f64", "coupled2d_f64", "cg3d_f64", "single2d_f64",
+                "flow3d_f64", "pert2d_f64",
                 "csf2d_block_f64", "sc2d_block_f64", "single2d_block_f64",
                 "coupled2d_block_f64", "flow3d_block_f64",
                 "cg3d_block_f64", "sc2d_rt", "sc3d_rt", "csf2d_local_f64",

@@ -173,23 +173,21 @@ def kernel_params(params, bcs, geometry: Geometry) -> CsfParams:
 
 _fn_cache: dict[str, tuple] = {}
 # each library's entry-point prefix and the pointer arguments of its
-# <prefix>_step: (s, s2, out, out2, geo).  The f64 Perturbation instances
-# are a library of their own, built with -fmad=false, with pert2d's entry
-# points.
-_ENTRIES = {"csf2d": ("csf2d", 5), "pert2d": ("pert2d", 5),
-            "pert2d_f64": ("pert2d", 5)}
+# <prefix>_step: (s, s2, out, out2, geo).  The f64 instances of the CSF and
+# Perturbation steps are libraries of their own, built with -fmad=false,
+# with csf2d's and pert2d's entry points.
+_ENTRIES = {"csf2d": ("csf2d", 5), "csf2d_f64": ("csf2d", 5),
+            "pert2d": ("pert2d", 5), "pert2d_f64": ("pert2d", 5)}
 # the kernels the one-step 2-D colour-gradient libraries count, in the
 # order of their <prefix>_kernel_launches (csrc/csf2d.cuh's g_csf_launches)
-KERNELS = ("phase_kernel", "normal_kernel", "strip_kernel",
-           "tracer_collide_kernel", "tracer_stream_kernel",
-           "pert_strip_kernel")
+KERNELS = ("tracer_strip_kernel", "strip_kernel", "pert_strip_kernel")
 
 
 def kernel_launches(lib: str) -> dict[str, int]:
     """Launches of each kernel of ``KERNELS`` by the library `lib` (csf2d,
-    coupled2d, pert2d or pert2d_f64) since it was loaded, as the library
-    counts them where it launches them."""
-    prefix = "pert2d" if lib.startswith("pert2d") else lib
+    coupled2d, pert2d or their f64 libraries) since it was loaded, as the
+    library counts them where it launches them."""
+    prefix = lib.removesuffix("_f64")
     fn = getattr(build.load_library(lib), f"{prefix}_kernel_launches")
     fn.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
     fn.restype = None
@@ -230,11 +228,11 @@ def _check_domain(params: CsfParams, geo: torch.Tensor, want, *tensors):
 def _launch(mode: int, a, b, out_a, out_b, params: CsfParams,
             geo: torch.Tensor, lib: str = "csf2d"):
     """One <lib>_step call on the current stream of the state's card: the
-    CSF step (csf2d) or the Perturbation step (pert2d; pert2d_f64 for an
-    f64 state)."""
+    CSF step (csf2d) or the Perturbation step (pert2d); an f64 state runs
+    the library's f64 instances (csf2d_f64, pert2d_f64)."""
     dev = a.device
-    if lib == "pert2d" and a.dtype == torch.float64:
-        lib = "pert2d_f64"
+    if a.dtype == torch.float64:
+        lib = f"{lib}_f64"
     fn, err = _kernel_fns(lib)
     stream_ptr = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):

@@ -109,23 +109,25 @@ def tracer_table(model) -> np.ndarray:
     return np.stack(rows)
 
 
-_fn_cache: dict[str, ctypes._CFuncPtr] = {}
+_fn_cache: dict[str, tuple] = {}
 
 
-def _kernel_fn():
-    if "step" not in _fn_cache:
-        lib = build.load_library("coupled2d")
-        fn = lib.coupled2d_step
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 13 + \
+def _kernel_fns(lib: str):
+    """(coupled2d_step, coupled2d_error_string) of `lib`, coupled2d or
+    coupled2d_f64 (the f64 instances, built with -fmad=false), built at
+    first use."""
+    if lib not in _fn_cache:
+        so = build.load_library(lib)
+        fn = so.coupled2d_step
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 10 + \
             [ctypes.POINTER(CsfParams), ctypes.POINTER(TracerParams),
              ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        err = lib.coupled2d_error_string
+        err = so.coupled2d_error_string
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
-        _fn_cache["step"] = fn
-        _fn_cache["error"] = err
-    return _fn_cache["step"]
+        _fn_cache[lib] = (fn, err)
+    return _fn_cache[lib]
 
 
 def _check_tracers(g, params: CsfParams, tparams: TracerParams,
@@ -148,19 +150,20 @@ def _check_tracers(g, params: CsfParams, tparams: TracerParams,
                          f"geometry on {geo.device}, table on {table.device}")
 
 
-def _launch(mode, a, b, g, params, tparams, geo, table, with_u=False):
+def _launch(mode, a, b, g, params, tparams, geo, table, with_u=False,
+            with_dom=False):
     """One coupled2d_step call on the current stream of the state's card:
     returns (a', b', g', u, dom), with b' None in the compressed layout, a',
     b' None with ``tparams.standalone``, u the pre-step velocity (2, ny, nx)
-    if `with_u` (else None) and dom the pre-step domain mask (uint8)."""
+    if `with_u` (else None) and dom the pre-step domain mask (uint8) if
+    `with_dom` (else None)."""
     ny, nx = params.ny, params.nx
     dev = g.device
     flow = not tparams.standalone
-    fn = _kernel_fn()
-    phi = torch.empty((ny, nx), dtype=geo.dtype, device=dev)
-    nrm = torch.empty((4, ny, nx), dtype=geo.dtype, device=dev)
-    g_post = torch.empty_like(g)
-    dom = torch.empty((ny, nx), dtype=torch.uint8, device=dev)
+    fn, err = _kernel_fns("coupled2d_f64" if geo.dtype == torch.float64
+                          else "coupled2d")
+    dom = torch.empty((ny, nx), dtype=torch.uint8, device=dev) \
+        if with_dom else None
     out_a = torch.empty_like(a) if flow else None
     out_b = torch.empty_like(b) if flow and b is not None else None
     out_g = torch.empty_like(g)
@@ -170,12 +173,11 @@ def _launch(mode, a, b, g, params, tparams, geo, table, with_u=False):
     stream_ptr = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         code = fn(mode, a.data_ptr(), ptr(b), ptr(out_a), ptr(out_b),
-                  geo.data_ptr(), phi.data_ptr(), nrm.data_ptr(),
-                  g.data_ptr(), g_post.data_ptr(), out_g.data_ptr(),
-                  dom.data_ptr(), ptr(u), table.data_ptr(),
-                  ctypes.byref(params), ctypes.byref(tparams), stream_ptr)
+                  geo.data_ptr(), g.data_ptr(), out_g.data_ptr(), ptr(dom),
+                  ptr(u), table.data_ptr(), ctypes.byref(params),
+                  ctypes.byref(tparams), stream_ptr)
     if code != 0:
-        msg = _fn_cache["error"](code).decode()
+        msg = err(code).decode()
         raise RuntimeError(f"coupled2d_step launch failed: {msg} ({code})")
     return out_a, out_b, out_g, u, dom
 
@@ -225,7 +227,7 @@ def launch_coupled2d_split(f_r: torch.Tensor, f_b: torch.Tensor,
     g, table = g.contiguous(), table.contiguous()
     out_r, out_b, out_g, u, dom = _launch(_SPLIT_CODE[f_r.dtype], f_r, f_b,
                                           g, params, tparams, geo, table,
-                                          with_u)
+                                          with_u, with_dom=True)
     if tparams.standalone:
         out_r, out_b = f_r, f_b
     return out_r, out_b, out_g, u, dom.bool()

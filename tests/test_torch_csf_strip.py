@@ -439,15 +439,25 @@ def test_uniform_phi_leaves_no_gradient_beside_solids(kind, push):
 
 
 def test_kernels_extend_phi_as_num_over_den():
-    """normal_kernel (the tracer passes' normals) and strip_kernel extend
-    phi onto a solid cell as num / den, the fluid flags' weights summed in
-    the loop that sums num, as the mirror and the reference do; neither
-    multiplies by the geometry's reciprocal plane."""
-    assert SRC.count("return den > C(0) ? num / den : C(0);") == 2
-    for name in ("normal_kernel", "strip_kernel"):
-        body = SRC[SRC.index(f"{name}("):]
-        body = body[:body.index("\n}\n")]
-        assert "num / den" in body and "geo[4 * n" not in body
+    """strip_kernel, the tracer's strip march (coupled2d.cu), the
+    row-march's phi stage (march2d.cuh) and the local windows
+    (csf2d_block.cuh) extend phi onto a solid cell as num / den, the fluid
+    flags' weights summed in the loop that sums num, as the mirror and the
+    reference do; none multiplies by the geometry's reciprocal plane."""
+    assert SRC.count("return den > C(0) ? num / den : C(0);") == 1
+    body = SRC[SRC.index("strip_kernel("):]
+    body = body[:body.index("\n}\n")]
+    assert "num / den" in body and "geo[4 * n" not in body
+    tracer = (build.SRC_DIR / "coupled2d.cu").read_text()
+    body = tracer[tracer.index("tracer_strip_kernel("):]
+    body = body[:body.index("\n}\n")]
+    assert "return den > C(0) ? num / den : C(0);" in body
+    assert "geo[4 * n" not in body
+    for name, line in (("march2d.cuh", "phi = den > C(0) ? num / den : C(0);"),
+                       ("csf2d_block.cuh",
+                        "PHI[c] = den > C(0) ? num / den : C(0);")):
+        text = (build.SRC_DIR / name).read_text()
+        assert text.count(line) == 1 and "geo[4 * n" not in text
 
 
 def test_mirror_sees_a_missing_barrier():
@@ -466,17 +476,23 @@ def test_mirror_sees_a_missing_barrier():
 def test_library_launch_counts_name_the_strip_kernels():
     """chip_smoke.py's launches a step of the one-step 2-D colour-gradient
     libraries name kernels the libraries count (csf.KERNELS): K1 / K2 / K6
-    one launch a step, K5c / K5s five, K4 one."""
+    one launch a step, K5c / K5s two (the tracer's strip march and the
+    flow's), K4 one."""
     import chip_smoke
     from openlbmpm_torch.kernels import csf
     want = chip_smoke.CG2D_STEP_KERNELS
-    assert {len(v) for v in want.values()} == {1, 5}
+    assert {len(v) for v in want.values()} == {1, 2}
     assert set().union(*want.values()) <= set(csf.KERNELS)
-    assert len(csf.KERNELS) == len(set(csf.KERNELS)) == 6
+    assert len(csf.KERNELS) == len(set(csf.KERNELS)) == 3
     for name in csf.KERNELS:
         src = "pert2d.cu" if name.startswith("pert") else \
             "coupled2d.cu" if name.startswith("tracer") else "csf2d.cuh"
         assert re.search(rf"\b{name}\b", (build.SRC_DIR / src).read_text())
+    # each counts into its own slot of g_csf_launches[3]
+    cuh = (build.SRC_DIR / "csf2d.cuh").read_text()
+    assert "long long g_csf_launches[3];" in cuh
+    for i, src in enumerate(("coupled2d.cu", "csf2d.cuh", "pert2d.cu")):
+        assert f"++g_csf_launches[{i}];" in (build.SRC_DIR / src).read_text()
 
 
 def _sweep_edits():
@@ -514,3 +530,21 @@ def test_chip_faults_plant_the_strip_carry_fault(case, phase):
     assert fault != line and "sizeof(C) == 8" in fault
     assert phases == (phase,) and chip_faults.MUST_PASS[case] == ("45",)
     assert {phase, "45"} <= set(chip_faults.ALL_PHASES)
+
+
+@pytest.mark.parametrize("case, fail, keep", [
+    ("K3 num den_inv f64", ("45", "52"), ("3",)),
+    ("K12 num den_inv f64", ("63",), ("45",))])
+def test_chip_faults_plant_the_num_times_den_inv_faults(case, fail, keep):
+    """chip_faults.py's num x den_inv faults put the reciprocal form of the
+    solid-phi extension back into the row-march's phi stage (K3 CSF, K5c-T)
+    or K12a's windows, in the f64 instances, on a line that stays there
+    exactly once: the Xu porous cases of the phases named must fail it, the
+    strip march's phase 3 (or the single-device K3's 45) pass."""
+    import chip_faults
+    header, line, fault, phases = chip_faults.CASES[case]
+    assert (build.SRC_DIR / header).read_text().count(line) == 1
+    assert "num / den" in line and "num * (C(1) / den)" in fault
+    assert "sizeof(C) == 8" in fault
+    assert phases == fail and chip_faults.MUST_PASS[case] == keep
+    assert set(fail + keep) <= set(chip_faults.ALL_PHASES)

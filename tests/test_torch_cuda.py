@@ -510,10 +510,10 @@ def test_sc_kernel_launches_a_step(cuda, case, storage):
 @pytest.mark.parametrize("variant", ["CSF", "Perturbation"])
 def test_cg2d_kernel_launches_a_step(cuda, variant, layout):
     """The one-step 2-D colour-gradient libraries count their kernels where
-    they launch them: K1 / K2 / K6 (csf2d) and K4c / K4h / K4s (pert2d,
-    pert2d_f64) one strip march a step, the coupled K5c / K5s (coupled2d)
-    five launches a step: the tracer's phase, normal, collision and stream
-    passes and the flow's strip march."""
+    they launch them: K1 / K2 / K6 (csf2d, csf2d_f64) and K4c / K4h / K4s
+    (pert2d, pert2d_f64) one strip march a step, the coupled K5c / K5s
+    (coupled2d) two launches a step: the tracer's strip march and the
+    flow's."""
     from chip_smoke import CG2D_STEP_KERNELS, pert_case
     from openlbmpm_torch.kernels.csf import kernel_launches
     dtype = torch.float64 if layout == "f64" else torch.float32
@@ -522,8 +522,8 @@ def test_cg2d_kernel_launches_a_step(cuda, variant, layout):
         params, bcs = split_cases()["mrt_neumann_dirichlet"]
         m = ColorGradientRK(_geometry(72, 40), params, bcs, dtype=dtype,
                             device=cuda, storage=storage)
-        lib, kern = "csf2d", (csf_step_split if layout == "split" else
-                              csf_step_compressed)
+        lib = "csf2d_f64" if layout == "f64" else "csf2d"
+        kern = csf_step_split if layout == "split" else csf_step_compressed
     else:
         m = pert_case("mrt_iso_neumann_dirichlet", cuda, 72, 40, dtype,
                       storage)
